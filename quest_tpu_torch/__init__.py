@@ -1,0 +1,25 @@
+"""quest_tpu_torch — the PyTorch/CUDA port of quest_tpu for NVIDIA Hopper.
+
+The JAX package `quest_tpu` stays the reference; this package imports
+neither it nor JAX. State layout matches the reference at every public
+function: (2, 2^n) or (2, rows, 128) float32 re/im planes.
+
+Entry points run on the CUDA device unless the caller passes
+`device="cpu"`; without a GPU and without that explicit request they
+raise (quest_tpu_torch.env.default_device). On the card, the fused
+engine (Circuit.compiled_fused) runs every swept segment as one launch
+of the hand-written segment kernel (csrc/segment.cu); on the CPU the
+same wrapper runs its plain PyTorch version.
+"""
+
+from quest_tpu_torch.circuit import Circuit, GateOp, qft_circuit, random_circuit
+from quest_tpu_torch.state import (Qureg, basis_planes, create_qureg,
+                                   fused_state_shape, init_debug_state,
+                                   init_zero_state, to_dense)
+from quest_tpu_torch.validation import QuESTError
+
+__all__ = [
+    "Circuit", "GateOp", "QuESTError", "Qureg", "basis_planes",
+    "create_qureg", "fused_state_shape", "init_debug_state",
+    "init_zero_state", "qft_circuit", "random_circuit", "to_dense",
+]

@@ -1,0 +1,90 @@
+"""QUEST_* knob registry and device selection.
+
+A copy of the registry pattern in quest_tpu/env.py (`KNOBS` /
+`knob_value`), holding only the knobs the port reads. Each knob parses
+loudly: a malformed value raises ValueError instead of falling back.
+The engines read the knobs when they plan (Circuit.compiled_fused), so a
+flip takes effect on the next compiled_fused call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Knob:
+    """One registered QUEST_* environment knob."""
+    name: str
+    parse: Callable[[str], Any]     # raw string -> value; ValueError if bad
+    default: Any
+    doc: str
+
+
+def _bool01(name: str) -> Callable[[str], bool]:
+    def parse(raw: str) -> bool:
+        if raw not in ("0", "1"):
+            raise ValueError(f"{name} must be '0' or '1', got {raw!r}")
+        return raw == "1"
+    return parse
+
+
+def _parse_matmul_precision(raw: str) -> str:
+    tiers = ("default", "high", "highest")
+    if raw.lower() not in tiers:
+        raise ValueError(
+            f"matmul precision must be one of {sorted(tiers)} "
+            f"(via QUEST_MATMUL_PRECISION), got {raw!r}")
+    return raw.lower()
+
+
+_KNOB_LIST = (
+    Knob("QUEST_MATMUL_PRECISION", _parse_matmul_precision, "highest",
+         doc="precision tier for state-amplitude contractions: default, "
+             "high or highest (default: highest — IEEE fp32; the port "
+             "implements only this tier)"),
+    Knob("QUEST_SCHEDULE", _bool01("QUEST_SCHEDULE"), True,
+         doc="commutation-aware gate scheduler in front of the fusing "
+             "engine's planner: 1/0 (default: 1)"),
+    Knob("QUEST_FUSED_SCAN", _bool01("QUEST_FUSED_SCAN"), False,
+         doc="scan over repeated-structure kernel segments: 1/0 (default: "
+             "0; 1 is not ported and makes compiled_fused raise)"),
+    Knob("QUEST_SWEEP_FUSION", _bool01("QUEST_SWEEP_FUSION"), True,
+         doc="sweep fusion: merge consecutive geometry-compatible kernel "
+             "segments into one launch: 1/0 (default: 1)"),
+)
+
+KNOBS = {k.name: k for k in _KNOB_LIST}
+
+
+def knob_value(name: str):
+    """Effective value of a registered knob: the validating parse of the
+    environment when set, else the registered default."""
+    k = KNOBS[name]
+    raw = os.environ.get(name)
+    if raw is None:
+        return k.default
+    return k.parse(raw)
+
+
+def default_device() -> torch.device:
+    """The device the entry points use when the caller names none: the
+    CUDA card. Raises when there is none — the port never drops to the
+    CPU on its own; the CPU path is taken only on an explicit
+    device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "quest_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch path explicitly")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device, or default_device() when None."""
+    if device is None:
+        return default_device()
+    return torch.device(device)

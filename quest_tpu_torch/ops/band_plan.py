@@ -1,0 +1,645 @@
+"""Planning half of the band-segment engine: stage descriptors, segment
+and sweep planning, and block geometry.
+
+A port of the planning code in quest_tpu/ops/pallas_band.py:75-991 and
+:1898 (that module imports Pallas at its top, so the port keeps its own
+copy). The (2, 2^n) re/im planes are viewed as (2, rows, 128): qubits
+0..6 are the lane axis, row bits make up the rest. A segment is a list
+of stages applied to one tile of the state per thread block, in one
+launch:
+
+  b0   composed 128x128 operator on the lane band (qubits 0..6)
+  b1   composed d x d operator on the lowest log2(d) row bits
+  scb  composed 2^w x 2^w operator over w scattered HIGH row bits
+  sc   2x2 butterfly on one scattered row bit
+  phase / parity / multiphase stages on any qubits
+
+The budgets that decide where a segment ends are one frozen `Budgets`
+object. `TPU_GEOMETRY` holds the reference's values (v5e VMEM sizes)
+and reproduces its plans stage for stage; `HOPPER_GEOMETRY` is sized
+for an H100 thread block and is what the port's engine plans with.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from quest_tpu_torch.ops import fusion as F
+
+LANE_QUBITS = 7
+LANES = 1 << LANE_QUBITS
+SUBLANE_TOP = 2 * LANE_QUBITS  # first qubit above the sublane band
+
+
+@dataclasses.dataclass(frozen=True)
+class Budgets:
+    """Block-geometry budgets of one target.
+
+    rows_eff_bits       log2 of the rows a block holds when the stages
+                        ask for fewer (scattered x inner rows)
+    max_block_row_bits  cap on in-block row bits: sublane floor plus
+                        scattered axes
+    scatter_max         scattered high row bits per segment
+    max_segment_stages  stages per segment as segment_plan emits them
+    max_sweep_stages    stages per merged sweep (sweep_plan)
+    sweep_operand_bytes operand bytes per merged sweep
+    """
+    name: str
+    rows_eff_bits: int
+    max_block_row_bits: int
+    scatter_max: int
+    max_segment_stages: int
+    max_sweep_stages: int
+    sweep_operand_bytes: int
+
+    @property
+    def tile_bytes(self) -> int:
+        """Bytes of the largest block: both f32 planes of
+        2^max_block_row_bits rows of 128 lanes."""
+        return 2 * 4 * LANES << self.max_block_row_bits
+
+
+# The reference's values (quest_tpu/ops/pallas_band.py:78-101, :671-691)
+# under its default driver (the decoupled pipeline): a block of up to
+# 2^13 rows (8 MiB) in TPU VMEM, operands VMEM-resident.
+TPU_GEOMETRY = Budgets(
+    name="tpu", rows_eff_bits=12, max_block_row_bits=13, scatter_max=7,
+    max_segment_stages=32, max_sweep_stages=64,
+    sweep_operand_bytes=40 * (1 << 20))
+
+# H100 thread block. The tile (2 planes x 2^(7 + row bits) f32) lives in
+# dynamic shared memory, at most 227 KB per block, so a block holds at
+# most 14 index bits: 7 lane bits + 7 row bits = 2 x 2^14 x 4 B = 128 KiB
+# (15 bits would be 256 KiB). Seven row bits are also the least that a
+# 128-wide b1 stage (7 inner row bits) or a full-band scb stage (7
+# scattered bits) needs, so rows_eff_bits = max_block_row_bits = 7 and
+# every tile at n >= 14 is 128 KiB: one block per SM. A b1 d=128 stage
+# and any scattered bit therefore land in separate segments (on the TPU,
+# 13 row bits let a b1 share its segment with up to 6 scattered bits).
+# Operands are read from global memory through L1/L2, not staged in
+# shared memory; every block re-reads every operand of its segment, so a
+# sweep's operands are capped at 32 MiB to stay inside the 50 MB L2. A
+# dense 128x128 complex operand is 128 KiB, so the stage caps, kept at
+# the reference's 32/64, bind first.
+HOPPER_GEOMETRY = Budgets(
+    name="hopper", rows_eff_bits=7, max_block_row_bits=7, scatter_max=7,
+    max_segment_stages=32, max_sweep_stages=64,
+    sweep_operand_bytes=32 * (1 << 20))
+
+
+def plan_bands(n: int) -> List[Tuple[int, int]]:
+    """Band layout matching the kernel's reach: 7-qubit bands everywhere.
+    Width-1 remainders stay scattered-axis butterflies."""
+    bands = []
+    ql = 0
+    while ql < n:
+        w = min(LANE_QUBITS, n - ql)
+        bands.append((ql, w))
+        ql += w
+    return bands
+
+
+# ---------------------------------------------------------------------------
+# stage descriptors (structure only — matrices are kernel inputs)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MatStage:
+    kind: str                  # 'b0' | 'b1' | 'sc' | 'scb'
+    dim: int                   # operator dimension D
+    real_only: bool
+    lane_preds: Tuple[Tuple[int, int], ...]   # (lane bit, want)
+    row_preds: Tuple[Tuple[int, int], ...]    # (GLOBAL row bit, want)
+    bit: int = -1              # 'sc': the GLOBAL row bit this acts on;
+    # 'scb': the LOWEST of the log2(dim) contiguous row bits the composed
+    # high-band operator contracts over (each a scattered block axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseStage:
+    """allones phase: multiply amplitudes whose condition bits match by
+    (tre + i*tim). The phase value AND the bit predicates ride in one
+    (1, 8) operand [tre, tim, lane_mask, lane_want, row_mask_lo,
+    row_mask_hi, row_want_lo, row_want_hi] (row masks split at bit 15 so
+    each half is an exact integer in f32), so every phase stage shares
+    one structure."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ParityStage:
+    """exp(-i angle/2 Z...Z); the (1, 8) operand is [cos, sin, lane_mask,
+    row_mask_lo, row_mask_hi, 0, 0, 0] of the half angle and the
+    target-bit masks (parity computed per element)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class PairStage:
+    """General 2-qubit matrix on (q_op, q_sliced): the sliced qubit's two
+    halves select 2x2 blocks M[r][c], each applied on the op-side qubit.
+    Emitted for Kraus superoperators on density registers; planned here,
+    executed by no port kernel yet (ROADMAP B9)."""
+    op_kind: str
+    op_dim: int                               # 128 or 2
+    op_bit: int                               # 'sc': GLOBAL row bit
+    sliced_kind: str
+    sliced_bit: int                           # GLOBAL row bit
+    real_only: bool
+    lane_preds: Tuple[Tuple[int, int], ...]
+    row_preds: Tuple[Tuple[int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiPhaseStage:
+    """A scheduler-composed GROUP of unit phases applied ADDITIVELY: each
+    row contributes an angle and the stage pays one cos/sin and one
+    complex multiply for the whole group. The (m, 8) operand rows are
+    [angle, lane_mask, row_mask_lo, row_mask_hi, 0, 0, 0, 0]; `forms`
+    gives each row's static interpretation: 'a' = allones, 'p' =
+    parity."""
+    forms: Tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSelStage:
+    """Per-STATE 2x2 operator on one GLOBAL qubit (the batched trajectory
+    engine's channel stage). Planned here, executed by no port kernel
+    yet (ROADMAP B10). A barrier stage pins itself to the front of its
+    launch."""
+    qubit: int
+    index: int
+    barrier: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelItem:
+    """Plan-stream marker for a batched per-state channel on GLOBAL
+    qubit `qubit`; segment_plan turns each into a BatchSelStage with a
+    (batch, 8) placeholder operand."""
+    qubit: int
+    index: int
+    barrier: bool = True
+
+    def qubits(self):
+        return (self.qubit,)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiagVecStage:
+    """General k-qubit diagonal from a (2, 2^k) entry table selected by
+    the target-bit pattern. Planned here, executed by no port kernel
+    yet (ROADMAP B8)."""
+    targets: Tuple[int, ...]                  # GLOBAL qubits
+    lane_preds: Tuple[Tuple[int, int], ...]
+    row_preds: Tuple[Tuple[int, int], ...]
+
+
+# ---------------------------------------------------------------------------
+# segmentation of a fusion plan
+# ---------------------------------------------------------------------------
+
+
+def _split_preds(preds):
+    lane_p, row_p = [], []
+    for q, s in preds:
+        if q < LANE_QUBITS:
+            lane_p.append((q, s))
+        else:
+            row_p.append((q - LANE_QUBITS, s))
+    return tuple(lane_p), tuple(row_p)
+
+
+def stage_requirements(stages) -> Tuple[set, int]:
+    """(scattered GLOBAL row bits, sublane floor) a stage list needs
+    resident in one block — the accounting shared by segment_geometry
+    (which sizes the block from it) and sweep_plan (which merges
+    segments only when the union still fits the budgets)."""
+    scat: set = set()
+    floor = 0
+    for st in stages:
+        if isinstance(st, MatStage):
+            if st.kind == "sc":
+                scat.add(st.bit)
+            elif st.kind == "scb":
+                scat |= set(range(st.bit, st.bit + st.dim.bit_length() - 1))
+            elif st.kind == "b1":
+                floor = max(floor, st.dim.bit_length() - 1)
+        elif isinstance(st, PairStage):
+            if st.sliced_kind == "scat":
+                scat.add(st.sliced_bit)
+            if st.op_kind == "sc":
+                scat.add(st.op_bit)
+            if st.op_kind == "b1":
+                floor = max(floor, LANE_QUBITS)
+            if st.sliced_kind == "sub":
+                floor = max(floor, st.sliced_bit + 1)
+        elif isinstance(st, BatchSelStage):
+            if st.qubit >= SUBLANE_TOP:
+                scat.add(st.qubit - LANE_QUBITS)
+            elif st.qubit >= LANE_QUBITS:
+                # sublane bit j contracts the lowest j+1 row bits
+                floor = max(floor, st.qubit - LANE_QUBITS + 1)
+    return scat, floor
+
+
+def segment_plan(items: Sequence, n: int, batch: int = 1, *,
+                 budgets: Budgets = HOPPER_GEOMETRY):
+    """Split fusion-plan items into kernel segments and passthroughs.
+    Returns a list of ("segment", [stages], [op_arrays]) and
+    ("xla", item) entries, in program order. ("xla" names the parts the
+    reference runs on its XLA band path between segments; the port does
+    not execute them yet, ROADMAP A3.) `batch` sizes the (batch, 8)
+    placeholder operands of ChannelItem stages."""
+    del n
+    scatter_max = budgets.scatter_max
+    parts: List = []
+    stages: List = []
+    arrays: List = []
+    scat_bits: set = set()
+    b1_floor = 0    # in-block sublane bits forced by b1/pair stages
+    row_budget = budgets.max_block_row_bits
+
+    def flush():
+        nonlocal stages, arrays, scat_bits, b1_floor
+        if stages:
+            parts.append(("segment", stages, arrays))
+            stages, arrays = [], []
+        scat_bits = set()
+        b1_floor = 0
+
+    def emit_xla(it):
+        parts.append(("xla", it))
+
+    def reserve(bits=frozenset(), floor=0):
+        """Claim scattered row bits / a sublane floor for the next stage,
+        flushing first if the block would outgrow its row or scatter
+        budget. Returns False — claiming nothing — when the stage's OWN
+        requirement exceeds the budgets even in a fresh segment."""
+        nonlocal scat_bits, b1_floor
+        if (len(set(bits)) > scatter_max
+                or floor + len(set(bits)) > row_budget):
+            return False
+        new_scat = scat_bits | set(bits)
+        new_floor = max(b1_floor, floor)
+        if (len(new_scat) > scatter_max
+                or new_floor + len(new_scat) > row_budget):
+            flush()
+            new_scat = set(bits)
+            new_floor = floor
+        scat_bits = new_scat
+        b1_floor = new_floor
+        return True
+
+    for it in items:
+        if len(stages) >= budgets.max_segment_stages:
+            flush()
+        if isinstance(it, ChannelItem):
+            if it.barrier:
+                flush()
+            q = it.qubit
+
+            def reserve_channel():
+                if q >= SUBLANE_TOP:
+                    return reserve(bits=(q - LANE_QUBITS,))
+                if q >= LANE_QUBITS:
+                    return reserve(floor=q - LANE_QUBITS + 1)
+                return True
+            if not reserve_channel():
+                flush()
+                if not reserve_channel():
+                    raise ValueError(
+                        f"channel qubit {q} does not fit an empty "
+                        f"segment under the caller's scatter budget")
+            stages.append(BatchSelStage(q, it.index, it.barrier))
+            arrays.append(np.zeros((batch, 8), dtype=np.float32))
+            continue
+        if isinstance(it, F.BandOp):
+            lane_p, row_p = _split_preds(it.preds)
+            if it.ql == 0:
+                kind, bit = "b0", -1
+                g = it.gre.T + 1j * it.gim.T       # X @ G^T form
+            elif it.ql == LANE_QUBITS:
+                kind, bit = "b1", -1
+                g = (it.gre + 1j * it.gim).T       # X @ G^T form
+                reserve(floor=it.w)
+            elif it.w == 1:
+                kind, bit = "sc", it.ql - LANE_QUBITS
+                g = it.gre + 1j * it.gim
+                if not reserve(bits=(bit,)):
+                    flush()
+                    emit_xla(it)
+                    continue
+            else:                  # high band: one contraction over its
+                kind = "scb"       # merged scattered axes
+                bit = it.ql - LANE_QUBITS
+                g = it.gre + 1j * it.gim
+                w = it.w
+                # a run that only mixed SOME of the band's qubits is
+                # often an exact embedding over a narrower sub-range:
+                # contract only the spanning sub-band
+                nd = sorted(q - it.ql for q in it.nondiag
+                            if it.ql <= q < it.ql + it.w)
+                if nd and (nd[0] > 0 or nd[-1] < it.w - 1):
+                    j0, w2 = nd[0], nd[-1] - nd[0] + 1
+                    idx = [x << j0 for x in range(1 << w2)]
+                    sub = g[np.ix_(idx, idx)]
+                    if np.allclose(g, F.embed_operator(
+                            sub, list(range(j0, j0 + w2)), [], [], it.w)):
+                        kind = "scb" if w2 > 1 else "sc"
+                        bit = bit + j0
+                        g = sub
+                        w = w2
+                if not reserve(bits=range(bit, bit + w)):
+                    flush()
+                    emit_xla(it)
+                    continue
+            real_only = bool(np.all(g.imag == 0.0))
+            if kind == "scb" and g.shape[0] == LANES:
+                # X @ G^T form for the full-width band; narrow scb and
+                # sc keep G (the reference's left-dot orientation)
+                g = g.T
+            stages.append(MatStage(kind, g.shape[0], real_only, lane_p,
+                                   row_p, bit))
+            arrays.append(np.stack([g.real, g.imag]).astype(np.float32))
+            continue
+        if isinstance(it, F.DiagItem):
+            op = it.op
+            targets = tuple(op.targets)
+            if op.kind == "parity":
+                half = float(op.operand) / 2.0
+                lm = sum(1 << q for q in targets if q < LANE_QUBITS)
+                rm = sum(1 << (q - LANE_QUBITS) for q in targets
+                         if q >= LANE_QUBITS)
+                stages.append(ParityStage())
+                arrays.append(np.array(
+                    [[np.cos(half), np.sin(half), lm,
+                      rm & 0x7FFF, rm >> 15, 0, 0, 0]], dtype=np.float32))
+                continue
+            if op.kind == "diagonal":
+                parts_rel = getattr(op, "parts", ())
+                if parts_rel:
+                    # scheduler-composed phase group: one additive
+                    # MultiPhaseStage instead of a 2^k select chain
+                    rows, forms = [], []
+                    for form, bits, val in parts_rel:
+                        qs = [targets[b] for b in bits]
+                        lm = sum(1 << q for q in qs if q < LANE_QUBITS)
+                        rm = sum(1 << (q - LANE_QUBITS) for q in qs
+                                 if q >= LANE_QUBITS)
+                        ang = val if form == "allones" else -val / 2.0
+                        rows.append([ang, lm, rm & 0x7FFF, rm >> 15,
+                                     0, 0, 0, 0])
+                        forms.append("a" if form == "allones" else "p")
+                    stages.append(MultiPhaseStage(tuple(forms)))
+                    arrays.append(np.array(rows, dtype=np.float32))
+                    continue
+                d = np.asarray(op.operand, dtype=np.complex128).reshape(-1)
+                lane_p, row_p = _split_preds(
+                    tuple(zip(op.controls, op.cstates or
+                              (1,) * len(op.controls))))
+                stages.append(DiagVecStage(targets, lane_p, row_p))
+                arrays.append(np.stack([d.real, d.imag]).astype(np.float32))
+                continue
+            if op.kind == "allones" and isinstance(
+                    op.operand, (int, float, complex)):
+                bits = targets + tuple(op.controls)
+                want = (1,) * len(targets) + (tuple(op.cstates) or
+                                              (1,) * len(op.controls))
+                lm = lw = rm = rw = 0
+                for q, s in zip(bits, want):
+                    if q < LANE_QUBITS:
+                        lm |= 1 << q
+                        lw |= s << q
+                    else:
+                        rm |= 1 << (q - LANE_QUBITS)
+                        rw |= s << (q - LANE_QUBITS)
+                t = complex(op.operand)
+                stages.append(PhaseStage())
+                arrays.append(np.array(
+                    [[t.real, t.imag, lm, lw, rm & 0x7FFF, rm >> 15,
+                      rw & 0x7FFF, rw >> 15]], dtype=np.float32))
+                continue
+            flush()
+            emit_xla(it)
+            continue
+        if isinstance(it, F.PassOp):
+            st = _try_pair_stage(it, scatter_max)
+            if st is not None:
+                stage, arr, new_scat = st
+                floor = 0
+                if stage.op_kind == "b1":
+                    floor = LANE_QUBITS
+                if stage.sliced_kind == "sub":
+                    floor = max(floor, stage.sliced_bit + 1)
+                if reserve(bits=new_scat or frozenset(), floor=floor):
+                    stages.append(stage)
+                    arrays.append(arr)
+                    continue
+        flush()
+        emit_xla(it)
+    flush()
+    return parts
+
+
+def _try_pair_stage(it, scatter_max):
+    """PassOp -> (PairStage, operand array, scat bits needed) when the op
+    is an uncontrolled 2-target matrix whose qubits the kernel can reach;
+    None otherwise."""
+    op = it.op
+    if op.kind != "matrix" or len(op.targets) != 2 or op.controls:
+        return None
+    m = np.asarray(op.operand)
+    if m.shape != (4, 4) or not np.issubdtype(m.dtype, np.number):
+        return None
+    qa, qb = op.targets           # matrix bit 0 = qa, bit 1 = qb
+
+    def locate(q):
+        if q < LANE_QUBITS:
+            return "lane"
+        if q < SUBLANE_TOP:
+            return "sub"
+        return "scat"
+
+    la, lb = locate(qa), locate(qb)
+    # pick the sliced qubit: prefer a scattered one; a sublane qubit may
+    # only be sliced when the op side is a lane qubit
+    if lb == "scat":
+        q_op, q_sl, bit_op = qa, qb, 0
+    elif la == "scat":
+        q_op, q_sl, bit_op = qb, qa, 1
+    elif la == "lane" and lb == "sub":
+        q_op, q_sl, bit_op = qa, qb, 0
+    elif lb == "lane" and la == "sub":
+        q_op, q_sl, bit_op = qb, qa, 1
+    else:
+        return None               # same-band pairs are composed upstream
+    op_loc = locate(q_op)
+    sliced_kind = "scat" if locate(q_sl) == "scat" else "sub"
+
+    need = set()
+    if sliced_kind == "scat":
+        need.add(q_sl - LANE_QUBITS)
+    if op_loc == "scat":
+        need.add(q_op - LANE_QUBITS)
+    if len(need) > scatter_max:
+        return None
+
+    m = m.astype(np.complex128)
+    blocks = np.empty((2, 4), dtype=object)
+    for r in range(2):
+        for c in range(2):
+            sub = np.empty((2, 2), dtype=np.complex128)
+            for ao in range(2):
+                for ai in range(2):
+                    row = (ao << bit_op) | (r << (1 - bit_op))
+                    col = (ai << bit_op) | (c << (1 - bit_op))
+                    sub[ao, ai] = m[row, col]
+            if op_loc == "lane":
+                emb = _embed_2x2(sub, q_op).T            # X @ G^T form
+            elif op_loc == "sub":
+                emb = _embed_2x2(sub, q_op - LANE_QUBITS).T  # X @ G^T form
+            else:
+                emb = sub
+            blocks[0, r * 2 + c] = emb.real.astype(np.float32)
+            blocks[1, r * 2 + c] = emb.imag.astype(np.float32)
+    d = blocks[0, 0].shape[0]
+    arr = np.stack([np.stack(list(blocks[p])) for p in range(2)])
+    kind = {"lane": "lane", "sub": "b1", "scat": "sc"}[op_loc]
+    real_only = bool(np.all(m.imag == 0.0))
+    st = PairStage(kind, d, q_op - LANE_QUBITS if op_loc == "scat" else -1,
+                   sliced_kind, q_sl - LANE_QUBITS, real_only, (), ())
+    return st, arr, (need if need else None)
+
+
+def _embed_2x2(sub, pos):
+    """Embed a 2x2 at bit `pos` of a 7-bit space (lane or sublane)."""
+    return F.embed_operator(sub, [pos], [], [], LANE_QUBITS)
+
+
+# ---------------------------------------------------------------------------
+# sweep fusion: many segments per launch
+# ---------------------------------------------------------------------------
+#
+# segment_plan flushes greedily, forward only. sweep_plan re-merges
+# CONSECUTIVE segment parts whose combined stage list still fits one
+# block geometry (scattered-bit union within the scatter budget, sublane
+# floor + scattered axes within the row budget, bounded stage count and
+# operand bytes) — including across the repeated applications of an
+# `iters` program. Any non-segment part is a barrier.
+
+
+def sweep_plan(parts, n: int, *, budgets: Budgets = HOPPER_GEOMETRY):
+    """Merge consecutive ("segment", stages, arrays) parts into maximal
+    single-launch sweeps under `budgets`, preserving program order.
+    Returns the same part format."""
+    del n
+    scatter_max = budgets.scatter_max
+    row_budget = budgets.max_block_row_bits
+    max_stages = budgets.max_sweep_stages
+    operand_bytes = budgets.sweep_operand_bytes
+    out = []
+    cur_scat: set = set()
+    cur_floor = 0
+    cur_bytes = 0
+    for part in parts:
+        if part[0] != "segment":
+            out.append(part)            # passthrough: a sweep barrier
+            cur_scat, cur_floor, cur_bytes = set(), 0, 0
+            continue
+        stages, arrays = list(part[1]), list(part[2])
+        scat, floor = stage_requirements(stages)
+        nbytes = sum(a.nbytes for a in arrays)
+        # a barrier BatchSelStage reads the state as it stands at ITS
+        # launch boundary: never merge its segment into an earlier one
+        barrier = any(isinstance(st, BatchSelStage) and st.barrier
+                      for st in stages)
+        if out and out[-1][0] == "segment" and not barrier:
+            u_scat = cur_scat | scat
+            u_floor = max(cur_floor, floor)
+            prev = out[-1]
+            if (len(prev[1]) + len(stages) <= max_stages
+                    and len(u_scat) <= scatter_max
+                    and u_floor + len(u_scat) <= row_budget
+                    and cur_bytes + nbytes <= operand_bytes):
+                out[-1] = ("segment", prev[1] + stages, prev[2] + arrays)
+                cur_scat, cur_floor = u_scat, u_floor
+                cur_bytes += nbytes
+                continue
+        out.append(("segment", stages, arrays))
+        cur_scat, cur_floor, cur_bytes = set(scat), floor, nbytes
+    return out
+
+
+# ---------------------------------------------------------------------------
+# block geometry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Block/row geometry of one segment (the reference's _Geometry)."""
+    n: int
+    scat: Tuple[int, ...]       # scattered GLOBAL row bits, descending
+    inner_bits: int
+    gaps: Tuple[Tuple[int, int], ...]  # grid dims as (lo_bit, width_bits),
+    # outermost first — one per gap above/between scattered axes plus the
+    # gap between the lowest scattered bit and the inner rows
+
+    @property
+    def rows_eff(self) -> int:
+        return 1 << (len(self.scat) + self.inner_bits)
+
+    @property
+    def tile_bits(self) -> int:
+        """Index bits one tile holds: 7 lane bits + the in-block row bits."""
+        return LANE_QUBITS + len(self.scat) + self.inner_bits
+
+    @property
+    def blocks(self) -> int:
+        """Tiles (thread blocks) per launch."""
+        return 1 << sum(w for (_, w) in self.gaps)
+
+    def tile_row_bit(self, row_bit: int) -> int:
+        """Position inside a tile's row index of GLOBAL row bit
+        `row_bit`, which must be an inner or scattered bit. Tile rows are
+        [scattered axes, highest first][inner rows] (the reference's
+        _row_ids)."""
+        if row_bit < self.inner_bits:
+            return row_bit
+        a = self.scat.index(row_bit)
+        return self.inner_bits + len(self.scat) - 1 - a
+
+
+def _geometry(n: int, scat_bits, rows_eff_bits: int) -> Geometry:
+    total_row_bits = n - LANE_QUBITS
+    scat = tuple(sorted(scat_bits, reverse=True))
+    h = len(scat)
+    inner_bits = min(rows_eff_bits - h,
+                     scat[-1] if scat else total_row_bits,
+                     total_row_bits)
+    gaps = []
+    hi = total_row_bits
+    for s in scat:
+        gaps.append((s + 1, hi - s - 1))
+        hi = s
+    gaps.append((inner_bits, hi - inner_bits))
+    return Geometry(n, scat, inner_bits, tuple(gaps))
+
+
+def segment_geometry(stages: Sequence, n: int, *,
+                     budgets: Budgets = HOPPER_GEOMETRY) -> Geometry:
+    """Block geometry of a stage list: `budgets.rows_eff_bits` rows,
+    widened to what stage_requirements asks for."""
+    total_row_bits = n - LANE_QUBITS
+    rows_eff_bits = min(budgets.rows_eff_bits, total_row_bits)
+    scat_bits, b1_bits = stage_requirements(stages)
+    rows_eff_bits = max(rows_eff_bits, b1_bits + len(scat_bits))
+    return _geometry(n, scat_bits, rows_eff_bits)
+
+
+def usable(n: int) -> bool:
+    """Need at least one (8, 128) f32 tile per block."""
+    return n >= LANE_QUBITS + 3

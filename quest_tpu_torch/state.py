@@ -1,0 +1,112 @@
+"""The simulation state: split re/im planes in a torch tensor.
+
+The layout is the reference's (quest_tpu/state.py): ONE real tensor of
+shape (2, 2^N), plane 0 the real parts and plane 1 the imaginary parts,
+qubit q being bit q of the flat amplitude index. The fused engine views
+the same memory as (2, 2^(N-7), 128) (fused_state_shape); the two views
+share storage, so switching between them is a reshape, not a copy.
+
+Unlike the reference's immutable pytree, a port register may be updated
+in place by the fused engine (its kernel writes each tile back where it
+read it), which keeps a 30-qubit state at one 8 GiB buffer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from quest_tpu_torch import precision
+from quest_tpu_torch import validation
+from quest_tpu_torch.env import resolve_device
+from quest_tpu_torch.ops.band_plan import LANE_QUBITS, LANES, usable
+
+
+@dataclasses.dataclass
+class Qureg:
+    """Statevector register.
+
+    amps: (2, 2**num_qubits) real tensor — [0] real, [1] imag planes.
+    """
+
+    amps: torch.Tensor
+    num_qubits: int
+
+    @property
+    def num_amps(self) -> int:
+        return 1 << self.num_qubits
+
+    @property
+    def real_dtype(self) -> np.dtype:
+        return np.dtype(str(self.amps.dtype).replace("torch.", ""))
+
+    @property
+    def dtype(self) -> np.dtype:
+        """Logical (complex) amplitude dtype."""
+        return precision.complex_dtype_of(self.real_dtype)
+
+    def replace_amps(self, amps: torch.Tensor) -> "Qureg":
+        return dataclasses.replace(self, amps=amps)
+
+
+def basis_planes(flat_index: int, *, n: int, rdt=np.float32, shape=None,
+                 device=None) -> torch.Tensor:
+    """The (2, 2^n) re/im planes of computational-basis state
+    |flat_index>, optionally in the view `shape` (see fused_state_shape),
+    on `device` (default: the CUDA card)."""
+    dev = resolve_device(device)
+    out = torch.zeros((2, 1 << n), dtype=precision.torch_dtype(rdt),
+                      device=dev)
+    out[0, int(flat_index)] = 1.0
+    return out.reshape(shape) if shape is not None else out
+
+
+def fused_state_shape(n: int):
+    """The fused engine's state view for an n-qubit register:
+    (2, 2^(n-7), 128)."""
+    if not usable(n):
+        raise ValueError(
+            f"the fused engine needs n >= {LANE_QUBITS + 3} qubits "
+            f"(one (8, 128) f32 tile per block), got n={n}")
+    return (2, 1 << (n - LANE_QUBITS), LANES)
+
+
+def create_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
+    """Statevector register initialized to |0...0> (ref: QuEST.c:34-46).
+    Only f32 planes (complex64) are ported; complex128 raises."""
+    validation.validate_num_qubits(num_qubits)
+    dtype = np.dtype(dtype) if dtype is not None else precision.DEFAULT_DTYPE
+    rdt = precision.real_dtype_of(dtype)
+    if rdt != np.dtype(np.float32):
+        raise NotImplementedError(
+            "f64 registers are not ported yet (ROADMAP A3: the reference "
+            "runs them on its XLA band path)")
+    amps = basis_planes(0, n=num_qubits, rdt=rdt, device=device)
+    return Qureg(amps=amps, num_qubits=num_qubits)
+
+
+def init_zero_state(qureg: Qureg) -> Qureg:
+    """|0...0>."""
+    amps = torch.zeros_like(qureg.amps.reshape(2, -1))
+    amps[0, 0] = 1.0
+    return qureg.replace_amps(amps)
+
+
+def init_debug_state(qureg: Qureg) -> Qureg:
+    """Deterministic unphysical state: amp[k] = (2k + i(2k+1))/10, the
+    reference's initDebugState (QuEST_cpu.c:1559-1590), computed in the
+    plane dtype exactly as quest_tpu.state.init_debug_state does."""
+    k = torch.arange(qureg.num_amps, dtype=qureg.amps.dtype,
+                     device=qureg.amps.device)
+    return qureg.replace_amps(
+        torch.stack([(2.0 * k) / 10.0, (2.0 * k + 1.0) / 10.0]))
+
+
+def to_dense(qureg_or_amps) -> np.ndarray:
+    """Fetch the full state to the host as a (2^N,) complex vector; takes
+    a Qureg or raw planes in any view of (2, 2^N)."""
+    amps = getattr(qureg_or_amps, "amps", qureg_or_amps)
+    planes = amps.detach().reshape(2, -1).cpu().numpy()
+    return planes[0] + 1j * planes[1]

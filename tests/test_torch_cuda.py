@@ -1,0 +1,99 @@
+"""The segment kernel on a CUDA card, against its plain PyTorch version.
+
+Needs a card: every test here is marked `cuda` and skips without one
+(the kernel has no CPU mode). This file imports neither JAX nor the JAX
+package, so it also runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from quest_tpu_torch.ops import band_plan as BP
+from quest_tpu_torch.ops import segment as S
+
+pytestmark = [pytest.mark.cuda, pytest.mark.dtype_agnostic]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the segment kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _mat(rng, kind, dim, bit=-1, real=False, lane_preds=(), row_preds=()):
+    g = rng.standard_normal((2, dim, dim)) / np.sqrt(dim)
+    if real:
+        g[1] = 0.0
+    return (BP.MatStage(kind, dim, real, tuple(lane_preds), tuple(row_preds),
+                        bit), g.astype(np.float32))
+
+
+def _phase_rows(rng):
+    t = np.exp(1j * rng.uniform(0, 2 * np.pi))
+    h = rng.uniform(0, np.pi)
+    return [
+        (BP.PhaseStage(), np.array([[t.real, t.imag, 0b11, 0b01, 0b101, 0,
+                                     0b100, 0]], np.float32)),
+        (BP.ParityStage(), np.array([[np.cos(h), np.sin(h), 0b110, 0b1001,
+                                      0, 0, 0, 0]], np.float32)),
+        (BP.MultiPhaseStage(("a", "p")), np.array(
+            [[0.3, 0b1, 0b10, 0, 0, 0, 0, 0], [-0.7, 0b100, 0b1, 0, 0, 0, 0, 0]],
+            np.float32)),
+    ]
+
+
+def _cases():
+    rng = np.random.default_rng(20261016)
+    n = 16
+    single = [_mat(rng, "b0", 128), _mat(rng, "b1", 128), _mat(rng, "b1", 32),
+              _mat(rng, "scb", 128, bit=2), _mat(rng, "scb", 64, bit=3, real=True),
+              _mat(rng, "scb", 4, bit=7), _mat(rng, "sc", 2, bit=8),
+              _mat(rng, "b0", 128, lane_preds=((3, 1),), row_preds=((2, 1),))]
+    cases = [(f"{st.kind}{st.dim}{'_preds' if st.lane_preds else ''}", n,
+              [(st, g)]) for st, g in single]
+    cases += [(type(st).__name__, n, [(st, g)]) for st, g in _phase_rows(rng)]
+    chain = [_mat(rng, "b0", 128), *_phase_rows(rng), _mat(rng, "sc", 2, bit=8),
+             _mat(rng, "scb", 4, bit=6, row_preds=((0, 1),))]
+    cases.append(("chain", n, chain))
+    return cases
+
+
+@pytest.mark.parametrize("case", _cases(), ids=lambda c: c[0])
+def test_kernel_matches_plain_version(card, case):
+    _, n, stages = case
+    seg = S.prepare_segment([s for s, _ in stages], [g for _, g in stages],
+                            n, card)
+    rng = np.random.default_rng(3)
+    amps = torch.from_numpy(
+        rng.standard_normal((2, 1 << n)).astype(np.float32)).to(card)
+    want = S.segment_sweep_reference(amps, seg.stages, seg.operands, n)
+    before = S.segment_sweep.launches
+    S.segment_sweep(amps, seg)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.launches == before + 1
+    err = (amps.reshape(2, -1) - want.reshape(2, -1)).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+def test_fused_path_matches_plain_version(card):
+    from quest_tpu_torch.entry import entry
+    fn, (amps,) = entry(num_qubits=20)
+    want = fn.plain(amps.clone())
+    before = S.segment_sweep.launches
+    S.segment_sweep.stage_launches = {}
+    fn(amps)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.launches - before == fn.launches_per_call
+    planned = {}
+    for seg in fn.segments:
+        for label in seg.labels:
+            planned[label] = planned.get(label, 0) + 1
+    assert S.segment_sweep.stage_launches == planned
+    err = (amps - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item()
+    norm = (amps.double() ** 2).sum().item()
+    assert abs(1.0 - norm) <= 1e-4

@@ -1,0 +1,322 @@
+"""The segment kernel's plain version and packing against the reference.
+
+For every stage kind S1-S7 of the RCS path (b0, b1, scb, sc, phase,
+parity, multiphase), with and without predicates, the port's
+segment_sweep on CPU tensors (its plain PyTorch version) must match
+quest_tpu.ops.pallas_band.compile_segment run in the Pallas interpreter,
+on the same seeded numpy state and operands, within 2e-5 x max|amp| (the
+f32 tolerance of tests/conftest.py `tol`).
+
+The CUDA kernel itself runs only on the card. Its packing — geometry,
+block-to-row mapping, descriptor table, operand offsets and strides,
+predicate decoding — is checked here through `emulate_kernel`, a numpy
+model that reads exactly what the kernel reads (Segment.desc, .ops,
+.scat_mask, .free_mask) and follows its per-tile arithmetic. The test
+marked `cuda` runs the kernel itself against the plain version on a
+card.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    from threadpoolctl import threadpool_limits as _blas_limit
+except ImportError:          # no control over BLAS threads: leave them
+    def _blas_limit(limits):
+        return contextlib.nullcontext()
+
+import jax.numpy as jnp
+
+from quest_tpu.ops import pallas_band as PB
+
+from quest_tpu_torch.ops import band_plan as BP
+from quest_tpu_torch.ops import segment as S
+import quest_tpu_torch.circuit as TC
+
+pytestmark = pytest.mark.dtype_agnostic
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_per_worker():
+    """The suite runs several workers side by side. One BLAS thread per
+    core per worker (OpenBLAS spins while it waits) oversubscribes the CPU:
+    six workers planning at once measured 30x slower each, and starve the
+    timing-sensitive tests of the other workers. Pin numpy's BLAS and
+    torch to one thread while this module runs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with _blas_limit(1):
+        yield
+    torch.set_num_threads(threads)
+
+TOL = 2e-5
+LANE_BITS = 7
+
+
+def emulate_kernel(planes: np.ndarray, seg: S.Segment) -> np.ndarray:
+    """numpy model of csrc/segment.cu on (2, 2^n) planes: per block, the
+    tile's global rows from blockIdx (free bits) + inner rows + scattered
+    bits, then each descriptor applied to the tile as the kernel does
+    (matrix stages as a (fibers x D) product at tile position F_POS with
+    operand strides F_SI/F_SJ, predicates as lane/row masks, phase rows
+    decoded from the f32 operand). Returns new planes."""
+    n, geo = seg.n, seg.geometry
+    desc = seg.desc.cpu().numpy()
+    ops = seg.ops.cpu().numpy().astype(np.float64)
+    state = planes.reshape(2, -1).astype(np.float64).copy()
+    tb = geo.tile_bits
+    rows = 1 << (tb - 7)
+    scat = [b for b in range(32) if (seg.scat_mask >> b) & 1]
+    free = [b for b in range(32) if (seg.free_mask >> b) & 1]
+    r = np.arange(rows)
+    local = r & ((1 << geo.inner_bits) - 1)
+    for k, bit in enumerate(scat):
+        local = local | (((r >> (geo.inner_bits + k)) & 1) << bit)
+    e = np.arange(1 << tb)
+    lane = e & 127
+
+    def rmask(lo, hi):
+        return int(lo) | (int(hi) << 15)
+
+    def parity(x):
+        out = np.zeros_like(x)
+        for b in range(max(LANE_BITS, n - LANE_BITS)):
+            out ^= (x >> b) & 1
+        return out
+
+    for blk in range(geo.blocks):
+        base = 0
+        for k, bit in enumerate(free):
+            base |= ((blk >> k) & 1) << bit
+        row_id = base | local
+        row = row_id[e >> 7]
+        idx = (row_id[:, None] * 128 + np.arange(128)[None, :]).reshape(-1)
+        x = state[0, idx] + 1j * state[1, idx]
+        for d in desc:
+            kind, off = int(d[S.F_KIND]), int(d[S.F_OP_OFF])
+            if kind == S.K_MAT:
+                dim, p = int(d[S.F_DIM]), int(d[S.F_POS])
+                w = dim.bit_length() - 1
+                i = np.arange(dim)
+                o = off + i[:, None] * int(d[S.F_SI]) + i[None, :] * int(d[S.F_SJ])
+                g = ops[o] + (0 if d[S.F_REAL] else 1j * ops[o + dim * dim])
+                f = np.arange(1 << (tb - w))
+                fbase = ((f >> p) << (p + w)) | (f & ((1 << p) - 1))
+                addr = fbase[:, None] + (i[None, :] << p)
+                new = x.copy()
+                new[addr] = x[addr] @ g.T
+                if d[S.F_MASKED]:
+                    ok = (((lane & int(d[S.F_LANE_MASK])) == d[S.F_LANE_WANT])
+                          & ((row & int(d[S.F_ROW_MASK])) == d[S.F_ROW_WANT]))
+                    new = np.where(ok, new, x)
+                x = new
+                continue
+            g = ops[off:]
+            if kind == S.K_PHASE:
+                ok = (((lane & int(g[2])) == int(g[3]))
+                      & ((row & rmask(g[4], g[5])) == rmask(g[6], g[7])))
+                x = np.where(ok, x * (g[0] + 1j * g[1]), x)
+            elif kind == S.K_PARITY:
+                par = parity(lane & int(g[2])) ^ parity(row & rmask(g[3], g[4]))
+                x = x * (g[0] - 1j * g[1] * (1 - 2 * par))
+            else:
+                tot = np.zeros(len(x))
+                for rr in range(int(d[S.F_DIM])):
+                    ang, lm = g[8 * rr], int(g[8 * rr + 1])
+                    rm = rmask(g[8 * rr + 2], g[8 * rr + 3])
+                    if (int(d[S.F_FORMS]) >> rr) & 1:
+                        par = parity(lane & lm) ^ parity(row & rm)
+                        tot += ang * (1 - 2 * par)
+                    else:
+                        tot += np.where(((lane & lm) == lm)
+                                        & ((row & rm) == rm), ang, 0.0)
+                x = x * np.exp(1j * tot)
+        state[0, idx], state[1, idx] = x.real, x.imag
+    return state
+
+
+# ---------------------------------------------------------------------------
+# stage cases: (jax stage, port stage, operand) built from one seed
+# ---------------------------------------------------------------------------
+
+
+def _mat(rng, name, kind, dim, real_only=False, lane_preds=(), row_preds=(),
+         bit=-1):
+    g = (rng.standard_normal((2, dim, dim)) / np.sqrt(dim)).astype(np.float32)
+    if real_only:
+        g[1] = 0.0
+    args = (kind, dim, real_only, tuple(lane_preds), tuple(row_preds), bit)
+    return name, PB.MatStage(*args), BP.MatStage(*args), g
+
+
+def _phase(rng, lm, lw, rm, rw):
+    t = np.exp(1j * rng.uniform(0, 2 * np.pi))
+    g = np.array([[t.real, t.imag, lm, lw, rm & 0x7FFF, rm >> 15,
+                   rw & 0x7FFF, rw >> 15]], np.float32)
+    return "phase", PB.PhaseStage(), BP.PhaseStage(), g
+
+
+def _parity(rng, lm, rm):
+    half = rng.uniform(0, 2 * np.pi) / 2
+    g = np.array([[np.cos(half), np.sin(half), lm, rm & 0x7FFF, rm >> 15,
+                   0, 0, 0]], np.float32)
+    return "parity", PB.ParityStage(), BP.ParityStage(), g
+
+
+def _multiphase(rng, terms):
+    rows = [[rng.uniform(-np.pi, np.pi), lm, rm & 0x7FFF, rm >> 15, 0, 0, 0, 0]
+            for _, lm, rm in terms]
+    forms = tuple(f for f, _, _ in terms)
+    return ("multiphase", PB.MultiPhaseStage(forms), BP.MultiPhaseStage(forms),
+            np.array(rows, np.float32))
+
+
+def stage_cases():
+    """Single-stage and chained segments at n = 10..12 (row bits 0..4),
+    covering each stage kind with and without predicates."""
+    rng = np.random.default_rng(20261016)
+    single = [
+        (12, [_mat(rng, "b0", "b0", 128)]),
+        (12, [_mat(rng, "b0_real_preds", "b0", 128, True, ((3, 1),),
+                   ((1, 1), (4, 0)))]),
+        (12, [_mat(rng, "b1_32", "b1", 32)]),
+        (10, [_mat(rng, "b1_8_preds", "b1", 8, False, ((2, 1),), ((0, 0),))]),
+        (12, [_mat(rng, "scb_4", "scb", 4, bit=3)]),
+        (12, [_mat(rng, "scb_8_real_preds", "scb", 8, True, (), ((0, 1),),
+                   bit=2)]),
+        (12, [_mat(rng, "sc", "sc", 2, bit=4)]),
+        (11, [_mat(rng, "sc_preds", "sc", 2, False, ((6, 0),), ((1, 1),),
+                   bit=3)]),
+        (12, [_phase(rng, 0b1000001, 0b0000001, 0b10010, 0b10000)]),
+        (12, [_phase(rng, 0, 0, 0, 0)]),
+        (12, [_parity(rng, 0b0100110, 0b01001)]),
+        (12, [_multiphase(rng, [("a", 0b11, 0), ("p", 0b1000000, 0b10100),
+                                ("a", 0b100, 0b1), ("p", 0, 0b11000)])]),
+    ]
+    chain = (12, [_mat(rng, "b0", "b0", 128),
+                  _phase(rng, 0b10, 0b10, 0b100, 0b100),
+                  _mat(rng, "b1_8", "b1", 8, False, (), ((4, 1),)),
+                  _mat(rng, "sc", "sc", 2, bit=4),
+                  _parity(rng, 0b11, 0b11001),
+                  _mat(rng, "scb_4", "scb", 4, bit=3),
+                  _multiphase(rng, [("p", 0b1, 0b1), ("a", 0b10, 0b10000)])])
+    cases = [(c[1][0][0], c[0], c[1]) for c in single]
+    cases.append(("chain", chain[0], chain[1]))
+    return cases
+
+
+def _state(n, seed=7):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((2, 1 << n)).astype(np.float32)
+
+
+def _port_segment(n, case):
+    return S.prepare_segment([c[2] for c in case], [c[3] for c in case], n,
+                             "cpu")
+
+
+@pytest.mark.parametrize("case", stage_cases(), ids=lambda c: c[0])
+def test_plain_version_matches_interpreted_reference(case):
+    _, n, stages = case
+    planes = _state(n)
+    want = np.asarray(PB.compile_segment([c[1] for c in stages], n,
+                                         interpret=True)(
+        jnp.asarray(planes).reshape(2, -1, PB.LANES), [c[3] for c in stages]))
+    seg = _port_segment(n, stages)
+    amps = torch.from_numpy(planes.copy())
+    out = S.segment_sweep(amps, seg)
+    assert out is amps                      # in place, like the kernel
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(out.numpy(), want.reshape(2, -1),
+                               atol=TOL * scale, rtol=0)
+
+
+@pytest.mark.parametrize("case", stage_cases(), ids=lambda c: c[0])
+def test_kernel_packing_matches_plain_version(case):
+    _, n, stages = case
+    planes = _state(n, seed=11)
+    seg = _port_segment(n, stages)
+    want = S.segment_sweep_reference(torch.from_numpy(planes), seg.stages,
+                                     seg.operands, n).numpy()
+    got = emulate_kernel(planes, seg)
+    np.testing.assert_allclose(got, want.reshape(2, -1),
+                               atol=TOL * float(np.abs(want).max()), rtol=0)
+
+
+@pytest.mark.parametrize("n,depth", [(14, 2), (21, 1), (22, 1)])
+def test_kernel_packing_on_hopper_plans(n, depth):
+    """Every swept segment the engine plans for RCS circuits (b1 d=128,
+    scb d=128 with its transposed operand, sc on the width-1 top band),
+    through the kernel model and the plain version."""
+    c = TC.random_circuit(n, depth, seed=7)
+    prog = c.compiled_fused(n, device="cpu")
+    planes = _state(n, seed=3)
+    for seg in prog.segments:
+        want = S.segment_sweep_reference(torch.from_numpy(planes), seg.stages,
+                                         seg.operands, n).numpy()
+        got = emulate_kernel(planes, seg)
+        np.testing.assert_allclose(got, want.reshape(2, -1),
+                                   atol=TOL * float(np.abs(want).max()),
+                                   rtol=0)
+        planes = want.reshape(2, -1)
+
+
+def test_row_masks_above_bit_15():
+    """Row predicates split at bit 15 (_row_halves): phase, parity and
+    multiphase masks on row bit 15 (qubit 22) against a direct numpy
+    oracle of the global index bits."""
+    n = 23
+    rng = np.random.default_rng(5)
+    rm = (1 << 15) | (1 << 3) | 1
+    stages = [_phase(rng, 0b1, 0b1, rm, (1 << 15) | 1),
+              _parity(rng, 0b10, rm),
+              _multiphase(rng, [("a", 0, 1 << 15), ("p", 0b100, 1 << 3)])]
+    seg = _port_segment(n, stages)
+    planes = _state(n, seed=9)
+    got = S.segment_sweep_reference(torch.from_numpy(planes), seg.stages,
+                                    seg.operands, n).numpy().reshape(2, -1)
+    k = np.arange(1 << n)
+    lane, row = k & 127, k >> 7
+    x = planes[0].astype(np.complex128) + 1j * planes[1]
+    g0, g1, g2 = (a for *_, a in stages)
+    hit = ((lane & 1) == 1) & ((row & rm) == ((1 << 15) | 1))
+    x = np.where(hit, x * (float(g0[0, 0]) + 1j * float(g0[0, 1])), x)
+
+    def par(v):
+        out = np.zeros_like(v)
+        for b in range(16):
+            out ^= (v >> b) & 1
+        return out
+    p = par(lane & 0b10) ^ par(row & rm)
+    x = x * (float(g1[0, 0]) - 1j * float(g1[0, 1]) * (1 - 2 * p))
+    tot = (np.where((row >> 15) & 1, float(g2[0, 0]), 0.0)
+           + float(g2[1, 0]) * (1 - 2 * (par(lane & 0b100) ^ ((row >> 3) & 1))))
+    x = x * np.exp(1j * tot)
+    scale = float(np.abs(x).max())
+    np.testing.assert_allclose(got[0], x.real, atol=TOL * scale, rtol=0)
+    np.testing.assert_allclose(got[1], x.imag, atol=TOL * scale, rtol=0)
+    np.testing.assert_allclose(emulate_kernel(planes, seg), got,
+                               atol=TOL * scale, rtol=0)
+
+
+def test_wrapper_checks_and_counts_only_kernel_launches():
+    n = 10
+    seg = _port_segment(n, [_phase(np.random.default_rng(1), 0, 0, 0, 0)])
+    before = S.segment_sweep.launches
+    S.segment_sweep(torch.zeros((2, 1 << n)), seg)
+    assert S.segment_sweep.launches == before      # CPU: plain version
+    with pytest.raises(TypeError):
+        S.segment_sweep(torch.zeros((2, 1 << n), dtype=torch.float64), seg)
+    with pytest.raises(ValueError):
+        S.segment_sweep(torch.zeros((2, 1 << (n - 1))), seg)
+    with pytest.raises(ValueError):
+        S.segment_sweep(torch.zeros((1 << n, 2)).T, seg)
+
+
+def test_unported_stage_kinds_raise():
+    st = BP.DiagVecStage((1, 2), (), ())
+    with pytest.raises(NotImplementedError, match="B8"):
+        S.prepare_segment([st], [np.zeros((2, 4), np.float32)], 10, "cpu")
