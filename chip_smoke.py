@@ -8,11 +8,14 @@ Drives quest_tpu_torch (never JAX, never quest_tpu) on the card:
 
   1. prints the card's name and power limit (nvidia-smi) and builds the
      segment kernel (csrc/segment.cu) for sm_90a from the checkout;
-  2. per-stage check at 20 qubits: one segment per stage kind S1-S7
-     (b0; b1 d=128 and d=32; scb d=128/64/4, one real; sc; phase; parity;
-     multiphase; a matrix stage with lane and row predicates; a chain),
-     plus phase masks above row bit 15 at 23 qubits: kernel against its
-     plain PyTorch version on the same inputs, max|diff| <= 1e-5 max|amp|;
+  2. per-stage check at 20 qubits: one segment per stage kind S1-S8 and
+     S10 (b0; b1 d=128 and d=32; scb d=128/64/4, one real; sc; phase;
+     parity; multiphase; a matrix stage with lane and row predicates;
+     Kraus pairs in every form the Hopper planner emits — lane/scat,
+     lane/sub, sub/scat, sc/scat, real-only, with predicates; diagonals
+     of 1, 3 and 7 targets with controls; chains), plus row bits above 15
+     at 23 qubits: kernel against its plain PyTorch version on the same
+     inputs, max|diff| <= 1e-5 max|amp|;
   3. the main path: quest_tpu_torch.entry.entry() (28 qubits, RCS depth 4,
      seed 7) through the kernel, with the launch counters (all launches
      and launches per stage kind) set to 0 just before and read just after; compared with the plain path on the card
@@ -21,9 +24,23 @@ Drives quest_tpu_torch (never JAX, never quest_tpu) on the card:
   4. the BASELINE config, 30-qubit RCS depth 20 on one card: launch
      count, compared with the plain path on the card (max|diff| <= 1e-4
      max|amp|), norm, median time;
-  5. single-stage b0, b1 and scb-128 segments at 28 qubits: kernel, plain
-     version, and one torch.matmul call of the same contraction (the
-     yardstick; the port never calls it).
+  5. density: quest_tpu_torch.entry.density_entry() — noisy RCS depth 3
+     (seed 11) on a 14-qubit density register, 28 state qubits — with the
+     counters set to 0 just before and read just after: launches per
+     stage kind equal to the plan; against the plain path on the card
+     (max|diff| <= 1e-4 max|amp|), |1 - Tr rho| <= 1e-4, max|rho - rho^+|
+     <= 1e-4 max|amp|, purity <= 1 + 1e-4; median of 5 warm steps;
+  6. density_bench: the repo bench's density scenario at 15 qubits (30
+     state qubits, 8 GiB), iters=4, plain path first (out of place), the
+     same checks; its 4-target depolarising superoperator runs through
+     apply_matrix_rows between launches, as the reference runs it
+     outside its kernel;
+  7. clifford_t_density: Clifford+T with damping at 14 qubits, the same
+     checks; its plan holds the path's general diagonals;
+  8. single-stage segments at 28 qubits — b0, b1, scb-128, sc, phase,
+     parity, multiphase, each Kraus pair form and a diagonal: kernel,
+     plain version and, where one PyTorch call computes the same
+     function, that call (the yardstick; the port never calls it).
 
 Each phase prints one JSON line. Before the last line come the kernels
 line {"kernels": [...]} and the nvidia-smi line; the last line is
@@ -50,7 +67,11 @@ FP32_FLOPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
 KERNEL_SOURCE = "quest_tpu_torch/csrc/segment.cu"
 STAGE_TOL = 1e-5
 PATH_TOL = 1e-4
-PHASES = ("build", "stages", "flagship", "baseline", "stage_timing")
+TIMING_QUBITS = 28            # single-stage timings
+BENCH_DENSITY_QUBITS = 15     # bench density scenario: 30 state qubits
+CLIFFORD_T_QUBITS = 14
+PHASES = ("build", "stages", "flagship", "baseline", "density",
+          "density_bench", "clifford_t_density", "stage_timing")
 
 RECORD = []
 
@@ -103,6 +124,13 @@ def stage_flops(st, arr, n: int) -> float:
         return amps / (1 << bits) * 6        # one complex multiply
     if isinstance(st, BP.ParityStage):
         return amps * 6
+    if isinstance(st, BP.PairStage):
+        # 4 complex MACs per amplitude: the 2x2 cores, however packed
+        sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
+        return sel * 4 * (4 if st.real_only else 8)
+    if isinstance(st, BP.DiagVecStage):
+        sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
+        return sel * 6                       # one complex multiply
     return amps * (len(st.forms) + 2 + 6)   # angle sum, sincos, multiply
 
 
@@ -115,12 +143,31 @@ def segment_work(seg):
     return nbytes, flops
 
 
-def bound_of(segments):
-    nbytes = sum(segment_work(s)[0] for s in segments)
-    flops = sum(segment_work(s)[1] for s in segments)
+def passthrough_work(step):
+    """(bytes, flops) of a matrix passthrough: the state read and written
+    once; one complex MAC per matrix column for each amplitude where the
+    controls hold."""
+    op, n = step.op, step.n
+    sel = float(1 << n) / (1 << len(op.controls))
+    return 2 * 2 * 4 * (1 << n), sel * (1 << len(op.targets)) * 8
+
+
+def bound_of(segments, passthroughs=(), repeat=1):
+    work = ([segment_work(s) for s in segments]
+            + [passthrough_work(p) for p in passthroughs])
+    nbytes = repeat * sum(w[0] for w in work)
+    flops = repeat * sum(w[1] for w in work)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def program_bound(fn):
+    """Bound of one call of a FusedProgram: its segments and passthroughs,
+    loop_iters times."""
+    from quest_tpu_torch.circuit import MatrixPass
+    passes = [s for s in fn.steps if isinstance(s, MatrixPass)]
+    return bound_of(fn.segments, passes, fn.loop_iters)
 
 
 # ---------------------------------------------------------------------------
@@ -180,14 +227,56 @@ def multiphase_op(rng, terms):
             np.array(rows, np.float32))
 
 
+def _cores(rng, real=False):
+    g = rng.standard_normal((2, 4, 2, 2)) / 2
+    if real:
+        g[1] = 0.0
+    return g.astype(np.float32)
+
+
+def pair_op(rng, op_kind, op_bit, sliced_bit, real=False, lane_preds=(),
+            row_preds=()):
+    """(PairStage, (2, 4, 2, 2) cores) of a 2-wide 'sub' or 'sc' pair on
+    a scattered sliced bit."""
+    from quest_tpu_torch.ops import band_plan as BP
+    return (BP.PairStage(op_kind, 2, op_bit, "scat", sliced_bit, real,
+                         tuple(lane_preds), tuple(row_preds)),
+            _cores(rng, real))
+
+
+def lane_pair_op(rng, q, sliced_kind, sliced_bit):
+    """(PairStage, operand) of a 'lane' pair as the planner packs it:
+    2x2 cores embedded at lane bit q of 128x128 blocks, transposed."""
+    from quest_tpu_torch.ops import band_plan as BP
+    from quest_tpu_torch.ops.fusion import embed_operator
+    cores = _cores(rng)
+    emb = np.stack([embed_operator(cores[0, b] + 1j * cores[1, b], [q], [],
+                                   [], 7).T for b in range(4)])
+    return (BP.PairStage("lane", 128, -1, sliced_kind, sliced_bit, False,
+                         (), ()),
+            np.stack([emb.real, emb.imag]).astype(np.float32))
+
+
+def diag_op(rng, targets, lane_preds=(), row_preds=()):
+    """(DiagVecStage, (2, 2^k) table of random unit phases)."""
+    from quest_tpu_torch.ops import band_plan as BP
+    t = np.exp(1j * rng.uniform(0, 2 * np.pi, 1 << len(targets)))
+    return (BP.DiagVecStage(tuple(targets), tuple(lane_preds),
+                            tuple(row_preds)),
+            np.stack([t.real, t.imag]).astype(np.float32))
+
+
 def stage_cases(rng):
     """(name, n, stages, arrays): single-stage segments of every kind on
-    the path, a predicated matrix stage, a chain, and phase masks above
-    row bit 15."""
+    the paths, predicated stages, chains, and masks and diagonal targets
+    above row bit 15."""
     mat = functools.partial(mat_op, rng)
     phase = functools.partial(phase_op, rng)
     parity = functools.partial(parity_op, rng)
     multiphase = functools.partial(multiphase_op, rng)
+    pair = functools.partial(pair_op, rng)
+    lane_pair = functools.partial(lane_pair_op, rng)
+    diag = functools.partial(diag_op, rng)
     n = 20
     singles = [
         ("b0", mat("b0", 128)),
@@ -206,6 +295,17 @@ def stage_cases(rng):
                          row_preds=((2, 1), (12, 0)))),
         ("scb_4_preds", mat("scb", 4, bit=10, lane_preds=((0, 0),),
                             row_preds=((1, 1),))),
+        ("pair_lane_scat", lane_pair(3, "scat", 12)),
+        ("pair_lane_sub", lane_pair(6, "sub", 5)),
+        ("pair_sub_scat", pair("sub", 0, 12)),
+        ("pair_sub5_scat", pair("sub", 5, 11)),
+        ("pair_sc_scat", pair("sc", 6, 12)),
+        ("pair_sc_scat_real", pair("sc", 12, 8, real=True)),
+        ("pair_preds", pair("sub", 2, 12, lane_preds=((1, 1),),
+                            row_preds=((4, 0),))),
+        ("diagvec_k1", diag((9,))),
+        ("diagvec_k3_preds", diag((0, 9, 12), ((2, 1),), ((1, 0),))),
+        ("diagvec_k7", diag((1, 5, 8, 9, 12, 14, 19))),
     ]
     cases = [(name, n, [s], [a]) for name, (s, a) in singles]
     chain = [mat("b0", 128), phase(0b10, 0b10, 0b100, 0b100),
@@ -218,6 +318,12 @@ def stage_cases(rng):
     high = [phase(0b1, 0b1, rm, (1 << 15) | 1), parity(0b10, rm),
             multiphase([("a", 0, 1 << 15), ("p", 0b100, 1 << 15)])]
     cases.append(("row_bit_15", 23, [s for s, _ in high], [a for _, a in high]))
+    dense = [mat("b0", 128), lane_pair(1, "scat", 12), diag((7, 2)),
+             pair("sub", 2, 12), mat("sc", 2, bit=12), pair("sc", 6, 11)]
+    cases.append(("density_chain", n, [s for s, _ in dense],
+                  [a for _, a in dense]))
+    st, arr = diag((22, 3, 8), (), ((15, 1),))
+    cases.append(("diagvec_row_bit_15", 23, [st], [arr]))
     return cases
 
 
@@ -343,12 +449,166 @@ def phase_baseline(torch):
     return rec
 
 
+def hermitian_err(amps, nd: int) -> float:
+    """max |rho - rho^+| of density planes: plane p viewed (2^N, 2^N) is
+    [c, r] -> rho[r, c], so Re must be symmetric and Im antisymmetric.
+    Taken in column blocks: no full-size temporary."""
+    dim = 1 << nd
+    re, im = amps.reshape(2, dim, dim)
+    worst = 0.0
+    for i in range(0, dim, 2048):
+        j = min(dim, i + 2048)
+        worst = max(worst, (re[i:j] - re[:, i:j].T).abs().max().item(),
+                    (im[i:j] + im[:, i:j].T).abs().max().item())
+    return worst
+
+
+def density_checks(torch, name, amps, want, nd):
+    """The density phases' gates: the kernel path against the plain path
+    (max|diff| <= 1e-4 max|amp|), |1 - Tr rho| <= 1e-4, max|rho - rho^+|
+    <= 1e-4 max|amp|, purity <= 1 + 1e-4, finite amplitudes."""
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch.state import Qureg
+    err = max((amps[p] - want[p]).abs().max().item() for p in range(2))
+    scale = want.abs().max().item()
+    q = Qureg(amps.reshape(2, -1), nd, is_density=True)
+    trace, purity = K.calc_total_prob(q), K.calc_purity(q)
+    herm = hermitian_err(amps, nd)
+    finite = bool(torch.isfinite(amps).all().item())
+    rec = {"max_abs_err": err, "rel_err": err / scale, "trace": trace,
+           "hermitian_err": herm, "purity": purity}
+    if not (err <= PATH_TOL * scale and abs(1.0 - trace) <= PATH_TOL
+            and herm <= PATH_TOL * scale and purity <= 1.0 + PATH_TOL
+            and finite):
+        raise AssertionError(f"{name}: {rec}, finite={finite}")
+    return rec
+
+
+def planned_launches(fn):
+    """Launches per stage label that one call of `fn` makes by its plan."""
+    planned = {}
+    for seg in fn.segments:
+        for label in seg.labels:
+            planned[label] = planned.get(label, 0) + fn.loop_iters
+    return planned
+
+
+def counted_call(torch, name, fn, amps):
+    """Run fn(amps) once with the launch counters set to 0 just before
+    and read just after; fail unless they equal the plan."""
+    from quest_tpu_torch.ops import segment as S
+    S.segment_sweep.launches = 0
+    S.segment_sweep.stage_launches = {}
+    fn(amps)
+    torch.cuda.synchronize()
+    launches = S.segment_sweep.launches
+    stage_launches = dict(S.segment_sweep.stage_launches)
+    planned = planned_launches(fn)
+    if launches != fn.launches_per_call or not launches:
+        raise AssertionError(f"{name}: {launches} launches for "
+                             f"{fn.launches_per_call} segments")
+    if stage_launches != planned:
+        raise AssertionError(f"{name}: launches per stage kind "
+                             f"{stage_launches}, planned {planned}")
+    return launches, stage_launches
+
+
+def run_density(torch, name, fn, amps, reps, time_plain):
+    """One density phase on input planes `amps` (|0><0| of fn.n state
+    qubits): the plain path first (out of place, so the input is never
+    held twice), the kernel path counted against the plan, the density
+    gates, then warm-step timing."""
+    from quest_tpu_torch.circuit import MatrixPass
+    n = fn.n
+    nd = n // 2
+    want = fn.plain(amps)
+    torch.cuda.synchronize()
+    amps0 = amps.clone() if time_plain else None
+    launches, stage_launches = counted_call(torch, name, fn, amps)
+    rec = {"phase": name, "n": n, "density_qubits": nd,
+           "segments": len(fn.segments),
+           "passthroughs": sum(isinstance(s, MatrixPass) for s in fn.steps),
+           "loop_iters": fn.loop_iters, "launches": launches,
+           "stage_launches": stage_launches}
+    rec.update(density_checks(torch, name, amps, want, nd))
+    del want
+    torch.cuda.empty_cache()
+    rec["median_ms"] = time_ms(torch, lambda: fn(amps), reps)
+    rec["plain_ms"] = (time_ms(torch, lambda: fn.plain(amps0), 3)
+                       if time_plain else None)
+    rec["bound_ms"], rec["bound_by"] = program_bound(fn)
+    emit(rec)
+    del amps, amps0
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_density(torch):
+    from quest_tpu_torch.entry import density_entry
+    t0 = time.perf_counter()
+    fn, (amps,) = density_entry()
+    setup_s = time.perf_counter() - t0
+    rec = run_density(torch, "density", fn, amps, 5, True)
+    rec["setup_s"] = setup_s
+    return rec
+
+
+def _density_program(circuit, nd, iters=1):
+    """(fn, |0><0| planes) of `circuit` on an nd-qubit density register."""
+    from quest_tpu_torch.state import basis_planes, fused_state_shape
+    n = 2 * nd
+    fn = circuit.compiled_fused(n, density=True, iters=iters, device="cuda")
+    return fn, basis_planes(0, n=n, shape=fused_state_shape(n), device="cuda")
+
+
+def phase_density_bench(torch):
+    from quest_tpu_torch.entry import bench_density_circuit
+    nd = BENCH_DENSITY_QUBITS
+    fn, amps = _density_program(bench_density_circuit(nd), nd, iters=4)
+    return run_density(torch, "density_bench", fn, amps, 3, False)
+
+
+def phase_clifford_t_density(torch):
+    from quest_tpu_torch.entry import clifford_t_density_circuit
+    nd = CLIFFORD_T_QUBITS
+    fn, amps = _density_program(clifford_t_density_circuit(nd), nd)
+    return run_density(torch, "clifford_t_density", fn, amps, 5, True)
+
+
+def _pair_library(torch, st, arr, amps, n):
+    """One torch.einsum applying the pair's 4x4 operator to a complex64
+    copy of the state (bits: op qubit, sliced qubit)."""
+    from quest_tpu_torch.ops import segment as S
+    q, cores = S.pair_core(st, arr)
+    q_op = q if st.op_kind == "lane" else 7 + q
+    q_sl = 7 + st.sliced_bit
+    hi, lo = max(q_op, q_sl), min(q_op, q_sl)
+    m = torch.from_numpy(cores[0] + 1j * cores[1]).to(torch.complex64).cuda()
+    m = m.reshape(2, 2, 2, 2).permute(0, 2, 1, 3)      # [r, ao, c, ai]
+    x = torch.complex(amps.reshape(2, -1)[0], amps.reshape(2, -1)[1])
+    x = x.reshape(1 << (n - hi - 1), 2, 1 << (hi - lo - 1), 2, 1 << lo)
+    spec = ("rocf,acbfe->arboe" if q_sl > q_op else "rocf,afbce->aobre")
+    return time_ms(torch, lambda: torch.einsum(spec, m, x), 5)
+
+
+def _diag_library(torch, arr, amps, q):
+    """One broadcast complex multiply: a 1-qubit diagonal on qubit q."""
+    t = torch.from_numpy(arr[0] + 1j * arr[1]).to(torch.complex64).cuda()
+    x = torch.complex(amps.reshape(2, -1)[0], amps.reshape(2, -1)[1])
+    x = x.reshape(-1, 2, 1 << q)
+    return time_ms(torch, lambda: x * t.reshape(1, 2, 1), 5)
+
+
 def phase_stage_timing(torch):
     """Single-stage segments at 28 qubits: b0, b1, scb-128 and sc (with
     one complex64 torch.matmul in the stage's frame as the yardstick),
-    phase, parity and an 8-term multiphase (no single library call)."""
+    phase, parity and an 8-term multiphase (no single library call),
+    each Kraus pair form (one torch.einsum of the 4x4 operator as the
+    yardstick) and a 1-qubit diagonal on row bit 14 (one broadcast
+    complex multiply)."""
+    from quest_tpu_torch.ops import band_plan as BP
     from quest_tpu_torch.ops import segment as S
-    n = 28
+    n = TIMING_QUBITS
     rng = np.random.default_rng(7)
     planes = torch.from_numpy(
         rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
@@ -362,7 +622,12 @@ def phase_stage_timing(torch):
              ("parity", parity_op(rng, 0b11, 1 << 20), None),
              ("multiphase", multiphase_op(
                  rng, [("a" if k % 2 else "p", 1 << (k % 7), 1 << (2 * k + 5))
-                       for k in range(8)]), None)]
+                       for k in range(8)]), None),
+             ("pair_lane_scat", lane_pair_op(rng, 3, "scat", 20), None),
+             ("pair_lane_sub", lane_pair_op(rng, 5, "sub", 6), None),
+             ("pair_sub_scat", pair_op(rng, "sub", 2, 20), None),
+             ("pair_sc_scat", pair_op(rng, "sc", 6, 20), None),
+             ("diagvec", diag_op(rng, (21,)), None)]
     out = []
     for name, (st, arr), q0 in cases:
         seg = S.prepare_segment([st], [arr], n, "cuda")
@@ -393,8 +658,13 @@ def phase_stage_timing(torch):
             else:
                 lib_ms = time_ms(torch, lambda: torch.matmul(g, x), 5)
             del x
+        elif isinstance(st, BP.PairStage):
+            lib_ms = _pair_library(torch, st, arr, amps, n)
+        elif isinstance(st, BP.DiagVecStage):
+            lib_ms = _diag_library(torch, arr, amps, st.targets[0])
         bound_ms, bound_by = bound_of([seg])
-        out.append({"name": name, "ms": ms, "plain_ms": plain_ms,
+        out.append({"name": name, "label": S.stage_label(st), "ms": ms,
+                    "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "max_abs_err": err})
         del amps
@@ -412,7 +682,12 @@ REPLACES = {
     "phase": "quest_tpu/ops/pallas_band.py:1256",
     "parity": "quest_tpu/ops/pallas_band.py:1273",
     "multiphase": "quest_tpu/ops/pallas_band.py:1289",
+    "pair": "quest_tpu/ops/pallas_band.py:1435",
+    "diagvec": "quest_tpu/ops/pallas_band.py:1324",
 }
+# the stage_timing record that stands for each stage kind in the kernels
+# line: a Kraus pair by its most frequent form on the density path
+KERNEL_RECORD = {"pair": "pair_lane_scat"}
 
 
 def main(argv=None) -> int:
@@ -428,34 +703,51 @@ def main(argv=None) -> int:
     # directory without it, the script fails here and prints no result
     import quest_tpu_torch  # noqa: F401
     last = PHASES.index(args.upto)
+
+    def want(phase):
+        return last >= PHASES.index(phase)
     smi = smi_line()
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
     phase_build()
-    if last >= PHASES.index("stages"):
+    if want("stages"):
         phase_stages(torch)
     kernels = []
-    if last >= PHASES.index("flagship"):
+    # launches per stage kind on each path, read around that path's run:
+    # the statevector kinds from the flagship step, Kraus pairs from the
+    # density step, diagonals from the Clifford+T density step
+    path_launches = {}
+    if want("flagship"):
         fl = phase_flagship(torch)
+        path_launches.update(fl["stage_launches"])
         kernels.append({
             "name": "segment_sweep", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES["segment_sweep"], "launches": fl["launches"],
             "max_abs_err": fl["max_abs_err"], "ms": fl["median_ms"],
             "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
             "bound_by": fl["bound_by"], "library_ms": None})
-    if last >= PHASES.index("baseline"):
+    if want("baseline"):
         phase_baseline(torch)
-    if last >= PHASES.index("stage_timing"):
+    if want("density"):
+        path_launches["pair"] = phase_density(torch)["stage_launches"]["pair"]
+    if want("density_bench"):
+        phase_density_bench(torch)
+    if want("clifford_t_density"):
+        ct = phase_clifford_t_density(torch)
+        path_launches["diagvec"] = ct["stage_launches"]["diagvec"]
+    if want("stage_timing"):
         for rec in phase_stage_timing(torch):
-            # launches of the flagship step whose segment holds the stage
-            launches = fl["stage_launches"].get(rec["name"], 0)
+            label = rec["label"]
+            if KERNEL_RECORD.get(label, label) != rec["name"]:
+                continue
+            launches = path_launches.get(label, 0)
             if not launches:
                 continue        # e.g. sc: no width-1 band at 28 qubits
             kernels.append({
-                "name": f"segment_sweep[{rec['name']}]", "route": "cuda",
-                "source": KERNEL_SOURCE, "replaces": REPLACES[rec["name"]],
+                "name": f"segment_sweep[{label}]", "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": REPLACES[label],
                 "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

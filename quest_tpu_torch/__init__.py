@@ -9,17 +9,24 @@ Entry points run on the CUDA device unless the caller passes
 raise (quest_tpu_torch.env.default_device). On the card, the fused
 engine (Circuit.compiled_fused) runs every swept segment as one launch
 of the hand-written segment kernel (csrc/segment.cu); on the CPU the
-same wrapper runs its plain PyTorch version.
+same wrapper runs its plain PyTorch version. Statevector and
+density-matrix registers (Kraus channels as superoperators on the
+doubled register) both run through it.
 """
 
+from quest_tpu_torch.calculations import calc_purity, calc_total_prob
 from quest_tpu_torch.circuit import Circuit, GateOp, qft_circuit, random_circuit
-from quest_tpu_torch.state import (Qureg, basis_planes, create_qureg,
-                                   fused_state_shape, init_debug_state,
+from quest_tpu_torch.state import (Qureg, basis_planes, create_density_qureg,
+                                   create_qureg, fused_state_shape,
+                                   get_density_amp, init_classical_state,
+                                   init_debug_state, init_plus_state,
                                    init_zero_state, to_dense)
 from quest_tpu_torch.validation import QuESTError
 
 __all__ = [
     "Circuit", "GateOp", "QuESTError", "Qureg", "basis_planes",
-    "create_qureg", "fused_state_shape", "init_debug_state",
+    "calc_purity", "calc_total_prob", "create_density_qureg",
+    "create_qureg", "fused_state_shape", "get_density_amp",
+    "init_classical_state", "init_debug_state", "init_plus_state",
     "init_zero_state", "qft_circuit", "random_circuit", "to_dense",
 ]

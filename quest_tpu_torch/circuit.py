@@ -1,19 +1,22 @@
 """Circuit builder and the fused engine.
 
-A port of the part of quest_tpu/circuit.py that the RCS statevector
-path runs: the GateOp record, the Circuit builder for the gates that
-random_circuit and qft_circuit use (plus `gate` and controlled `x`),
-flatten_ops, the
-scheduled flat op list (_planned_flat), and compiled_fused. The plan is
+A port of the part of quest_tpu/circuit.py that the RCS statevector and
+density-matrix decoherence paths run: the GateOp record, the Circuit
+builder for the gates of random_circuit, qft_circuit and the noisy
+density circuits (Kraus channels as superoperators), dual_of and
+flatten_ops (density duals and superoperator expansion), the scheduled
+flat op list (_planned_flat), compiled_fused and apply_fused. The plan is
 the reference's chain — fusion.schedule, fusion.plan, segment_plan,
 sweep_plan — under HOPPER_GEOMETRY; every swept segment then runs as one
-launch of the segment kernel (ops/segment.py).
+launch of the segment kernel (ops/segment.py), and a multi-target matrix
+the kernel cannot reach (the reference's XLA matrix passthrough) runs
+through ops/apply.apply_matrix_rows between segments.
 
 What the reference runs elsewhere is not ported yet and raises
-NotImplementedError naming its ROADMAP item: density registers (A5),
-f64 registers and the XLA band passthroughs between segments, registers
-below the fused engine's 10 qubits (all A3), QUEST_FUSED_SCAN (A4),
-and the stage kinds PairStage / DiagVecStage / BatchSelStage (B8-B10).
+NotImplementedError naming its ROADMAP item: f64 registers and the XLA
+band/diagonal passthroughs, registers below the fused engine's 10 qubits
+(all A3), mid-circuit measurement, classical control and
+QUEST_FUSED_SCAN (A4), and the BatchSelStage kind (B10).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from quest_tpu_torch import precision
 from quest_tpu_torch import validation as val
 from quest_tpu_torch.env import knob_value, resolve_device
+from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import band_plan as BP
 from quest_tpu_torch.ops import fusion as F
 from quest_tpu_torch.ops import matrices as M
@@ -39,58 +43,135 @@ _LOOP_UNROLL_MAX = 32
 
 @dataclasses.dataclass(frozen=True)
 class GateOp:
-    kind: str                 # 'matrix' | 'diagonal' | 'parity' | 'allones'
+    kind: str                 # 'matrix' | 'diagonal' | 'parity' | 'allones' | 'superop'
     targets: Tuple[int, ...]
     controls: Tuple[int, ...] = ()
     cstates: Tuple[int, ...] = ()
     operand: object = None    # matrix / diag vector / angle / phase term
+    meta: object = None       # Circuit.kraus stores ("kraus", <raw Kraus
+    # operators>) beside the superoperator; the engines never execute it
 
 
-_KINDS = ("matrix", "diagonal", "parity", "allones")
+_KINDS = ("matrix", "diagonal", "parity", "allones", "superop")
+
+
+def dual_of(op, shift: int):
+    """The column-space dual of a gate on a density register: conjugated
+    operand on targets/controls shifted by N (ref QuEST.c:8-10). A parity
+    rotation's dual negates its angle; a scheduler-composed diagonal
+    (fusion.ComposedDiag) negates each part's angle too. Superoperators
+    already act on both spaces: no dual (returns None)."""
+    if op.kind == "superop":
+        return None
+    if op.kind == "parity":
+        return dataclasses.replace(
+            op, targets=tuple(t + shift for t in op.targets),
+            operand=-op.operand)
+    moved = dict(targets=tuple(t + shift for t in op.targets),
+                 controls=tuple(c + shift for c in op.controls),
+                 operand=np.conj(op.operand))
+    parts = getattr(op, "parts", None)
+    if parts:
+        moved["parts"] = tuple((kind, bits, -ang)
+                               for kind, bits, ang in parts)
+    return dataclasses.replace(op, **moved)
 
 
 def flatten_ops(ops, n: int, density: bool) -> List[GateOp]:
-    """The flat op list the engines plan from. Statevector registers
-    only: density duals and superoperators are ROADMAP A5."""
-    if density:
-        raise NotImplementedError(
-            "density registers are not ported yet (ROADMAP A5)")
+    """The flat op list the engines plan from (ref circuit.py:258-312):
+    on a density register (n = 2N state qubits) every gate is followed
+    by its dual, and each superoperator becomes a matrix op on
+    [targets, targets + N]."""
+    if not density and any(op.kind == "superop" for op in ops):
+        raise val.QuESTError(
+            "Invalid operation: noise channels require a density-matrix "
+            "register")
+    flat: List[GateOp] = []
     for op in ops:
-        if op.kind == "superop":
-            raise val.QuESTError(
-                "Invalid operation: noise channels require a density-matrix "
-                "register")
+        if density and any(q >= n // 2 for q in (*op.targets, *op.controls)):
+            raise ValueError(
+                f"a density register of {n} state qubits holds {n // 2} "
+                f"qubits; {op.kind} op on {op.targets + op.controls}")
         if op.kind not in _KINDS:
             raise NotImplementedError(
                 f"{op.kind!r} ops (mid-circuit measurement, classical "
                 f"control) are not ported yet (ROADMAP A4)")
-    return list(ops)
+        if op.kind == "superop":
+            flat.append(dataclasses.replace(
+                op, kind="matrix",
+                targets=M.superop_targets(op.targets, n // 2)))
+            continue
+        flat.append(op)
+        if density:
+            flat.append(dual_of(op, n // 2))
+    return flat
+
+
+class MatrixPass:
+    """A matrix passthrough between kernel segments: a multi-target
+    matrix (a cross-band channel superoperator, a 3- or 4-qubit gate)
+    that no kernel stage reaches, applied in place by
+    ops/apply.apply_matrix_rows, as the reference applies it outside
+    Pallas (circuit.py:555-564)."""
+
+    def __init__(self, op, n: int):
+        self.op = op
+        self.n = n
+
+    def __call__(self, amps: torch.Tensor) -> torch.Tensor:
+        op = self.op
+        return A.apply_matrix_rows(amps, self.n, op.operand, op.targets,
+                                   op.controls, op.cstates)
+
+
+def _xla_part_applier(part, n: int) -> MatrixPass:
+    """The port's applier for a non-segment plan part: matrix ops of at
+    most A.MAX_TARGETS targets (ref circuit.py:541-568). Band and
+    diagonal passthroughs and wider matrices are ROADMAP A3."""
+    it = part[1]
+    if (isinstance(it, F.PassOp) and it.op.kind == "matrix"
+            and len(it.op.targets) <= A.MAX_TARGETS):
+        return MatrixPass(it.op, n)
+    raise NotImplementedError(
+        f"this circuit needs an XLA band passthrough "
+        f"({type(it).__name__}) between kernel segments, which is not "
+        f"ported yet (ROADMAP A3)")
 
 
 class FusedProgram:
     """A compiled fused program: call it on (2, 2^n) or (2, rows, 128)
     f32 planes; it updates them in place (one kernel launch per swept
-    segment on the card) and returns them. `segments` holds the packed
-    segments of one application; `plain(amps)` runs the same plan through
-    the plain PyTorch version, out of place, for comparison."""
+    segment on the card, apply_matrix_rows for each matrix passthrough)
+    and returns them. `steps` is one application in order, `segments`
+    its packed segments; `plain(amps)` runs the same plan through the
+    plain PyTorch version, out of place, for comparison."""
 
-    def __init__(self, n: int, segments: List[Segment], loop_iters: int):
+    def __init__(self, n: int, steps: List, loop_iters: int):
         self.n = n
-        self.segments = segments
+        self.steps = steps
+        self.segments = [s for s in steps if isinstance(s, Segment)]
         self.loop_iters = loop_iters
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
         for _ in range(self.loop_iters):
-            for seg in self.segments:
-                segment_sweep(amps, seg)
+            for step in self.steps:
+                if isinstance(step, Segment):
+                    segment_sweep(amps, step)
+                else:
+                    step(amps)
         return amps
 
     def plain(self, amps: torch.Tensor) -> torch.Tensor:
         out = amps
         for _ in range(self.loop_iters):
-            for seg in self.segments:
-                out = segment_sweep_reference(out, seg.stages, seg.operands,
-                                              self.n)
+            for step in self.steps:
+                if isinstance(step, Segment):
+                    out = segment_sweep_reference(out, step.stages,
+                                                  step.operands, self.n)
+                else:
+                    if out is amps:
+                        out = amps.clone()
+                    step(out)
         return out.reshape(amps.shape)
 
     @property
@@ -107,13 +188,15 @@ class Circuit:
 
     # -- builders (chainable) ------------------------------------------------
 
-    def _add(self, kind, targets, operand, controls=(), cstates=None):
+    def _add(self, kind, targets, operand, controls=(), cstates=None,
+             meta=None):
         targets = tuple(int(t) for t in targets)
         controls = tuple(int(c) for c in controls)
         cstates = (tuple(int(s) for s in cstates) if cstates is not None
                    else (1,) * len(controls))
         val.validate_gate_qubits(self.num_qubits, targets, controls, cstates)
-        self.ops.append(GateOp(kind, targets, controls, cstates, operand))
+        self.ops.append(GateOp(kind, targets, controls, cstates, operand,
+                               meta))
         return self
 
     def gate(self, matrix, targets, controls=(), cstates=None):
@@ -126,6 +209,22 @@ class Circuit:
 
     def x(self, t, *controls):
         return self._add("matrix", (t,), M.PAULI_X, controls)
+
+    def y(self, t):
+        return self._add("matrix", (t,), M.PAULI_Y)
+
+    def z(self, t):
+        return self._add("diagonal", (t,), M.Z_DIAG)
+
+    def s(self, t):
+        return self._add("diagonal", (t,), M.S_DIAG)
+
+    def t(self, tq):
+        return self._add("diagonal", (tq,), M.T_DIAG)
+
+    def phase(self, t, angle):
+        return self._add("diagonal", (t,),
+                         np.array([1.0, np.exp(1j * angle)]))
 
     def rx(self, t, angle):
         return self._add("matrix", (t,),
@@ -147,6 +246,44 @@ class Circuit:
     def swap(self, q1, q2):
         return self._add("matrix", (q1, q2), M.SWAP)
 
+    def cu(self, matrix, target, *controls, cstates=None):
+        """Arbitrary single/multi-controlled k-qubit unitary."""
+        t = (target,) if np.isscalar(target) else tuple(target)
+        return self._add("matrix", t, np.asarray(matrix, dtype=np.complex128),
+                         controls, cstates)
+
+    def cphase(self, angle, *qubits):
+        """Symmetric controlled phase e^{i angle} on all-ones of qubits."""
+        return self._add("allones", tuple(qubits), np.exp(1j * float(angle)))
+
+    # -- noise channels (density-matrix circuits only) -----------------------
+
+    def kraus(self, targets, ops):
+        """General Kraus map: a superoperator on the doubled register
+        (ref QuEST_common.c:540-673), validated at build time like the
+        reference's mixKrausMap. The raw operators ride in `meta`."""
+        t = (targets,) if np.isscalar(targets) else tuple(targets)
+        k = len(t)
+        val.validate_kraus_ops(ops, k, max_ops=1 << (2 * k))
+        raw = tuple(np.asarray(K, dtype=np.complex128) for K in ops)
+        return self._add("superop", t, M.kraus_superoperator(ops),
+                         meta=("kraus", raw))
+
+    def damping(self, target, prob):
+        p = float(prob)
+        val.validate_one_qubit_damping_prob(p)
+        return self.kraus(target, M.damping_kraus(p))
+
+    def depolarising(self, target, prob):
+        p = float(prob)
+        val.validate_one_qubit_depol_prob(p)
+        return self.kraus(target, M.depolarising_kraus(p))
+
+    def dephasing(self, target, prob):
+        p = float(prob)
+        val.validate_one_qubit_dephase_prob(p)
+        return self.kraus(target, M.dephasing_kraus(p))
+
     # -- planning ------------------------------------------------------------
 
     def _planned_flat(self, n: int, density: bool) -> List[GateOp]:
@@ -154,10 +291,11 @@ class Circuit:
         scheduler (fusion.maybe_schedule, QUEST_SCHEDULE knob)."""
         return F.maybe_schedule(flatten_ops(self.ops, n, density), n)
 
-    def fused_parts(self, n: int, iters: int = 1):
+    def fused_parts(self, n: int, iters: int = 1, density: bool = False):
         """(swept part list of one program call, loop count): the
-        reference's compiled_fused planning, under HOPPER_GEOMETRY."""
-        flat = self._planned_flat(n, False)
+        reference's compiled_fused planning, under HOPPER_GEOMETRY. `n`
+        counts state qubits (2N for a density register)."""
+        flat = self._planned_flat(n, density)
         items = F.plan(flat, n, bands=BP.plan_bands(n))
         parts = BP.segment_plan(items, n)
         unroll = iters if 1 < iters <= _LOOP_UNROLL_MAX else 1
@@ -169,14 +307,13 @@ class Circuit:
 
     def compiled_fused(self, n: int, density: bool = False, iters: int = 1,
                        device=None) -> FusedProgram:
-        """The fused engine: each swept segment of band operators,
-        diagonals and parity phases runs as ONE launch of the segment
-        kernel, in place on the state. Operands and descriptor tables go
-        to `device` (default: the CUDA card) here, once; calls reuse
-        them."""
-        if density:
-            raise NotImplementedError(
-                "density registers are not ported yet (ROADMAP A5)")
+        """The fused engine on `n` state qubits (2N for a density
+        register over N): each swept segment of band operators, Kraus
+        pairs, diagonals and parity phases runs as ONE launch of the
+        segment kernel, in place on the state; a matrix passthrough runs
+        through apply_matrix_rows between segments. Operands and
+        descriptor tables go to `device` (default: the CUDA card) here,
+        once; calls reuse them."""
         if knob_value("QUEST_FUSED_SCAN"):
             raise NotImplementedError(
                 "QUEST_FUSED_SCAN is not ported yet (ROADMAP A4)")
@@ -187,15 +324,20 @@ class Circuit:
                 f"which is not ported yet (ROADMAP A3)")
         dev = resolve_device(device)
         precision.ieee_fp32()
-        parts, loop_iters = self.fused_parts(n, iters)
-        for part in parts:
-            if part[0] != "segment":
-                raise NotImplementedError(
-                    f"this circuit needs an XLA band passthrough "
-                    f"({type(part[1]).__name__}) between kernel segments, "
-                    f"which is not ported yet (ROADMAP A3)")
-        segments = [prepare_segment(p[1], p[2], n, dev) for p in parts]
-        return FusedProgram(n, segments, loop_iters)
+        parts, loop_iters = self.fused_parts(n, iters, density)
+        steps = [prepare_segment(p[1], p[2], n, dev) if p[0] == "segment"
+                 else _xla_part_applier(p, n) for p in parts]
+        return FusedProgram(n, steps, loop_iters)
+
+    def apply_fused(self, q, iters: int = 1):
+        """Apply the circuit to register `q` (statevector or density)
+        through the fused engine on the register's device, in place on
+        its planes; returns the register (ref circuit.py:1343)."""
+        if self.num_qubits != q.num_qubits:
+            raise ValueError("circuit/register size mismatch")
+        fn = self.compiled_fused(q.num_state_qubits, q.is_density, iters,
+                                 device=q.amps.device)
+        return q.replace_amps(fn(q.amps))
 
 
 # ---------------------------------------------------------------------------

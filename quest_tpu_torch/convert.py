@@ -3,7 +3,10 @@ package.
 
 The reference package's objects arrive as plain Python/numpy: a
 quest_tpu GateOp is read by attribute (nothing of quest_tpu is
-imported), state planes and operands as numpy arrays.
+imported), state planes and operands as numpy arrays. Density circuits
+cross the same way (superoperator ops with their `meta` Kraus
+branches), and density planes — (2, 4^N) in the reference's
+column-major flat order — become a density Qureg.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from quest_tpu_torch.circuit import Circuit, GateOp
 from quest_tpu_torch.env import resolve_device
+from quest_tpu_torch.state import Qureg
 
 
 def _operand(x):
@@ -25,11 +29,19 @@ def _operand(x):
     return np.asarray(x)
 
 
+def _meta(meta):
+    """A GateOp's meta as the port stores it: ("kraus", operators) with
+    each operator a numpy array; anything else as it is."""
+    if isinstance(meta, tuple) and len(meta) == 2 and meta[0] == "kraus":
+        return ("kraus", tuple(np.asarray(k) for k in meta[1]))
+    return meta
+
+
 def circuit_from_ops(ops: Iterable, num_qubits: int = None) -> Circuit:
     """A port Circuit holding the same gate stream as `ops` — quest_tpu
-    GateOps (or anything with kind/targets/controls/cstates/operand
-    attributes) with numpy operands. `num_qubits` defaults to one more
-    than the highest qubit named."""
+    GateOps (or anything with kind/targets/controls/cstates/operand and
+    optionally meta attributes) with numpy operands. `num_qubits`
+    defaults to one more than the highest qubit named."""
     ops = list(ops)
     if num_qubits is None:
         num_qubits = 1 + max((q for op in ops
@@ -41,16 +53,31 @@ def circuit_from_ops(ops: Iterable, num_qubits: int = None) -> Circuit:
             kind=op.kind, targets=tuple(int(t) for t in op.targets),
             controls=tuple(int(q) for q in op.controls),
             cstates=tuple(int(s) for s in op.cstates),
-            operand=_operand(op.operand)))
+            operand=_operand(op.operand),
+            meta=_meta(getattr(op, "meta", None))))
     return c
 
 
 def planes_from_numpy(planes, device=None) -> torch.Tensor:
     """State planes ((2, 2^n) or (2, rows, 128), any float dtype) as a
-    contiguous f32 tensor on `device` (default: the CUDA card), same
+    new contiguous f32 tensor on `device` (default: the CUDA card), same
     shape."""
-    arr = np.ascontiguousarray(np.asarray(planes, dtype=np.float32))
+    # a copy: the engine updates the result in place, and the source may
+    # be a read-only view (a JAX array's host buffer)
+    arr = np.array(planes, dtype=np.float32, order="C")
     return torch.from_numpy(arr).to(resolve_device(device))
+
+
+def density_qureg_from_numpy(planes, device=None) -> Qureg:
+    """A density Qureg over N qubits from (2, 4^N) planes (or any view of
+    them, e.g. the fused (2, rows, 128)), the reference's column-major
+    flat order (rho[r, c] at r + c * 2^N), as f32 on `device`."""
+    amps = planes_from_numpy(planes, device).reshape(2, -1)
+    n = amps.shape[1].bit_length() - 1
+    if amps.shape[1] != 1 << n or n % 2:
+        raise ValueError(f"density planes need 4^N amplitudes, got "
+                         f"{amps.shape[1]}")
+    return Qureg(amps=amps, num_qubits=n // 2, is_density=True)
 
 
 def operands_from_numpy(arrays: Sequence, device=None) -> List[torch.Tensor]:

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU segment driver K1, _decoupled_kernel
 // (quest_tpu/ops/pallas_band.py:1715), with the stage chain
-// _apply_stages (:1528) for the stage kinds of the RCS statevector path:
+// _apply_stages (:1528) for the stage kinds of the RCS statevector and
+// density-matrix decoherence paths:
 //   S1 b0   128x128 complex operator on lane bits 0-6       (:1135)
 //   S2 b1   d x d operator on the lowest log2(d) row bits   (:1139)
 //   S3 scb  2^w x 2^w operator over w scattered row bits    (:1156)
@@ -11,6 +12,18 @@
 //   S5 phase      all-ones controlled phase                 (:1256)
 //   S6 parity     exp(-i theta/2 Z..Z)                      (:1273)
 //   S7 multiphase m phases summed per element, one sincos   (:1289)
+//   S8 diagvec    k-qubit diagonal: entry of a (2, 2^k) table chosen
+//                 by the target-bit pattern, controls           (:1324)
+//   S10 pair      Kraus pair on (op qubit, sliced qubit)        (:1435)
+//
+// S10 runs every PairStage form the Hopper planner emits (lane/scat,
+// lane/sub, sub/scat, sc/scat) as one 4x4 butterfly on two tile index
+// bits: the packer reduces the reference's 128x128 embedded blocks
+// (lane and b1 forms, and _sublane_contract :1090) to their 2x2 cores,
+// so a pair costs 4 complex MACs per amplitude, not a 128-wide
+// contraction (2048 flop/amp). S8 reads its table through L1; targets
+// may be lane, inner, scattered or free (block-index) bits, since the
+// global index of every element is rebuilt from its tile row's id.
 //
 // Data-driven: the stage list is a device table of descriptors (one row
 // of DESC_WORDS int64 per stage, packed by quest_tpu_torch/ops/segment.py)
@@ -42,7 +55,8 @@
 // 4 GiB, 1.3 ms at 3.35 TB/s), and a 128-wide complex matrix stage costs
 // 2^n x 128 x 8 flops (28q: 2.7e11, 4 ms at 67 TFLOP/s of non-tensor
 // fp32). Segments with 128-wide matrix stages are therefore bound by
-// operations, not bytes. Left for later: tensor cores (wgmma/TMA, with
+// operations, not bytes; a pair (32 flop per amplitude) or a diagonal (6)
+// leaves its pass bound by bytes. Left for later: tensor cores (wgmma/TMA, with
 // an fp32-accurate split), overlapping the tile's load and store with
 // the stage chain (cp.async/TMA rings), bank-conflict-free write-back
 // for row-bit contractions, and keeping operands in shared memory.
@@ -53,6 +67,7 @@ namespace {
 
 constexpr int NTHREADS = 256;
 constexpr int LANE_BITS = 7;
+constexpr int LANES = 1 << LANE_BITS;
 constexpr int DESC_WORDS = 16;
 constexpr int MAX_TILE_BITS = 14;
 constexpr int MAX_MULTIPHASE_ROWS = 64;
@@ -61,9 +76,12 @@ constexpr int MAX_MULTIPHASE_ROWS = 64;
 enum {
   F_KIND = 0, F_DIM = 1, F_POS = 2, F_REAL = 3, F_SI = 4, F_SJ = 5,
   F_LANE_MASK = 6, F_LANE_WANT = 7, F_ROW_MASK = 8, F_ROW_WANT = 9,
-  F_OP_OFF = 10, F_FORMS = 11, F_MASKED = 12,
+  F_OP_OFF = 10, F_FORMS = 11, F_MASKED = 12, F_TARGETS = 13, F_POS2 = 14,
 };
-enum { K_MAT = 0, K_PHASE = 1, K_PARITY = 2, K_MULTIPHASE = 3 };
+enum { K_MAT = 0, K_PHASE = 1, K_PARITY = 2, K_MULTIPHASE = 3, K_PAIR = 4,
+       K_DIAGVEC = 5 };
+constexpr int MAX_DIAG_TARGETS = 7;
+constexpr int TARGET_BITS = 6;     // bits per qubit index in F_TARGETS
 
 // shared memory after the two tile planes: row ids, multiphase rows
 constexpr int EXTRA_WORDS = (1 << (MAX_TILE_BITS - LANE_BITS)) + 3 * MAX_MULTIPHASE_ROWS;
@@ -245,6 +263,93 @@ __device__ void multiphase_stage(const Tile& t, const long long* ds,
   }
 }
 
+__device__ __forceinline__ bool selected(const Tile& t, int e, int lm, int lw,
+                                         int rm, int rw) {
+  return (e & lm) == lw && (t.row_id[e >> LANE_BITS] & rm) == rw;
+}
+
+__device__ void pair_stage(const Tile& t, const long long* ds,
+                           const float* __restrict__ g) {
+  // (2, 4, 2, 2) cores B[p][r * 2 + c][ao][ai]: sliced output r, sliced
+  // input c, op-side output ao, input ai. Op bit at tile position F_POS,
+  // sliced bit at F_POS2. Each thread owns whole fibers (the 4 elements
+  // that differ in those two bits), so the update is in place.
+  const int pa = static_cast<int>(ds[F_POS]);
+  const int pb = static_cast<int>(ds[F_POS2]);
+  const bool real = ds[F_REAL] != 0;
+  const bool masked = ds[F_MASKED] != 0;
+  const int lm = static_cast<int>(ds[F_LANE_MASK]);
+  const int lw = static_cast<int>(ds[F_LANE_WANT]);
+  const int rm = static_cast<int>(ds[F_ROW_MASK]);
+  const int rw = static_cast<int>(ds[F_ROW_WANT]);
+  float br[16], bi[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    br[k] = __ldg(g + k);
+    bi[k] = real ? 0.f : __ldg(g + 16 + k);
+  }
+  const int lo = min(pa, pb), hi = max(pa, pb);
+  const int nfib = 1 << (t.bits - 2);
+  for (int f = threadIdx.x; f < nfib; f += NTHREADS) {
+    int e = ((f >> lo) << (lo + 1)) | (f & ((1 << lo) - 1));
+    e = ((e >> hi) << (hi + 1)) | (e & ((1 << hi) - 1));
+    float xr[4], xi[4];
+#pragma unroll
+    for (int ca = 0; ca < 4; ++ca) {       // ca = c * 2 + ai
+      const int a = e | ((ca >> 1) << pb) | ((ca & 1) << pa);
+      xr[ca] = t.re[a];
+      xi[ca] = t.im[a];
+    }
+#pragma unroll
+    for (int ro = 0; ro < 4; ++ro) {       // ro = r * 2 + ao
+      const int r = ro >> 1, ao = ro & 1;
+      float sr = 0.f, si = 0.f;
+#pragma unroll
+      for (int ca = 0; ca < 4; ++ca) {
+        const int k = (r * 2 + (ca >> 1)) * 4 + ao * 2 + (ca & 1);
+        sr = fmaf(br[k], xr[ca], fmaf(-bi[k], xi[ca], sr));
+        si = fmaf(br[k], xi[ca], fmaf(bi[k], xr[ca], si));
+      }
+      const int a = e | (r << pb) | (ao << pa);
+      if (masked && !selected(t, a, lm, lw, rm, rw)) continue;
+      t.re[a] = sr;
+      t.im[a] = si;
+    }
+  }
+}
+
+__device__ void diagvec_stage(const Tile& t, const long long* ds,
+                              const float* __restrict__ g) {
+  // (2, 2^k) table: entry sum_j bit(targets[j]) << j of every element's
+  // GLOBAL index (row id << 7 | lane); identity where predicates fail
+  const int k = static_cast<int>(ds[F_DIM]);
+  const long long packed = ds[F_TARGETS];
+  const bool masked = ds[F_MASKED] != 0;
+  const int lm = static_cast<int>(ds[F_LANE_MASK]);
+  const int lw = static_cast<int>(ds[F_LANE_WANT]);
+  const int rm = static_cast<int>(ds[F_ROW_MASK]);
+  const int rw = static_cast<int>(ds[F_ROW_WANT]);
+  int tq[MAX_DIAG_TARGETS];
+#pragma unroll
+  for (int j = 0; j < MAX_DIAG_TARGETS; ++j)
+    tq[j] = static_cast<int>((packed >> (TARGET_BITS * j)) & 63);
+  const float* gim = g + (1 << k);
+  const int size = 1 << t.bits;
+  for (int e = threadIdx.x; e < size; e += NTHREADS) {
+    if (masked && !selected(t, e, lm, lw, rm, rw)) continue;
+    const unsigned gidx = (static_cast<unsigned>(t.row_id[e >> LANE_BITS])
+                           << LANE_BITS) | static_cast<unsigned>(e & (LANES - 1));
+    int idx = 0;
+#pragma unroll
+    for (int j = 0; j < MAX_DIAG_TARGETS; ++j)
+      if (j < k) idx |= static_cast<int>((gidx >> tq[j]) & 1u) << j;
+    const float fr = __ldg(g + idx), fi = __ldg(gim + idx);
+    const float re = t.re[e], im = t.im[e];
+    t.re[e] = re * fr - im * fi;
+    t.im[e] = re * fi + im * fr;
+  }
+}
+
 __global__ void __launch_bounds__(NTHREADS, 1)
 segment_kernel(float* __restrict__ amps, int n, int tile_bits,
                int inner_bits, unsigned scat_mask, unsigned free_mask,
@@ -310,7 +415,9 @@ segment_kernel(float* __restrict__ amps, int n, int tile_bits,
         break;
       case K_PHASE: phase_stage(t, g); break;
       case K_PARITY: parity_stage(t, g); break;
-      default: multiphase_stage(t, ds, g, s_ang, s_lm, s_rm); break;
+      case K_MULTIPHASE: multiphase_stage(t, ds, g, s_ang, s_lm, s_rm); break;
+      case K_PAIR: pair_stage(t, ds, g); break;
+      default: diagvec_stage(t, ds, g); break;
     }
     __syncthreads();
   }

@@ -84,6 +84,25 @@ TPU_GEOMETRY = Budgets(
 # sweep's operands are capped at 32 MiB to stay inside the 50 MB L2. A
 # dense 128x128 complex operand is 128 KiB, so the stage caps, kept at
 # the reference's 32/64, bind first.
+#
+# Kraus pairs under this budget. A 1-qubit channel on a density register
+# is a 2-qubit superoperator on (t, t + N); when its op-side qubit is a
+# sublane qubit q = 7 + j and its sliced qubit is scattered, the
+# reference emits a 'b1'-op PairStage (an embedded 128x128 operator
+# contracted over all 7 low row bits) and reserves the full 7-bit
+# sublane floor plus the scattered bit: 8 row bits, which no Hopper tile
+# holds. _try_pair_stage therefore lowers the pair to a 2x2-block
+# butterfly on two tile bits whenever the budget cannot hold that floor
+# plus one scattered bit (max_block_row_bits < 8):
+#   j + 2 <= max_block_row_bits (j <= 5): op_kind 'sub' — row bit j stays
+#       an inner row (floor j + 1) beside one scattered bit;
+#   otherwise (j = 6): op_kind 'sc' — row bit j becomes a scattered axis
+#       (the reference's own sc/scat form, (2, 4, 2, 2) operand); the tile
+#       keeps 5 inner rows (_geometry: inner rows stop below the lowest
+#       scattered bit) and 14 bits.
+# Scattering every j instead would shrink the inner rows to j: at j = 0
+# the tile would drop to 9 bits, below the kernel's 10-bit minimum.
+# TPU_GEOMETRY (13 row bits) keeps the reference's b1 form.
 HOPPER_GEOMETRY = Budgets(
     name="hopper", rows_eff_bits=7, max_block_row_bits=7, scatter_max=7,
     max_segment_stages=32, max_sweep_stages=64,
@@ -140,11 +159,18 @@ class ParityStage:
 class PairStage:
     """General 2-qubit matrix on (q_op, q_sliced): the sliced qubit's two
     halves select 2x2 blocks M[r][c], each applied on the op-side qubit.
-    Emitted for Kraus superoperators on density registers; planned here,
-    executed by no port kernel yet (ROADMAP B9)."""
+    Emitted for Kraus superoperators on density registers. op_kind:
+      'lane'  op qubit on the lane axis; each block embedded in 128x128
+              and stored transposed (X @ G^T form)
+      'b1'    op qubit a sublane row bit, embedded 128x128 over the
+              lowest 7 row bits, stored transposed (TPU budgets only)
+      'sub'   op qubit the inner row bit op_bit, 2x2 blocks (Hopper)
+      'sc'    op qubit the scattered row bit op_bit, 2x2 blocks
+    The operand is (2, 4, D, D), block r * 2 + c for sliced output r and
+    input c."""
     op_kind: str
     op_dim: int                               # 128 or 2
-    op_bit: int                               # 'sc': GLOBAL row bit
+    op_bit: int                               # 'sc'/'sub': GLOBAL row bit
     sliced_kind: str
     sliced_bit: int                           # GLOBAL row bit
     real_only: bool
@@ -190,8 +216,7 @@ class ChannelItem:
 @dataclasses.dataclass(frozen=True)
 class DiagVecStage:
     """General k-qubit diagonal from a (2, 2^k) entry table selected by
-    the target-bit pattern. Planned here, executed by no port kernel
-    yet (ROADMAP B8)."""
+    the target-bit pattern (bit j of the entry index = targets[j])."""
     targets: Tuple[int, ...]                  # GLOBAL qubits
     lane_preds: Tuple[Tuple[int, int], ...]
     row_preds: Tuple[Tuple[int, int], ...]
@@ -234,6 +259,8 @@ def stage_requirements(stages) -> Tuple[set, int]:
                 scat.add(st.op_bit)
             if st.op_kind == "b1":
                 floor = max(floor, LANE_QUBITS)
+            if st.op_kind == "sub":
+                floor = max(floor, st.op_bit + 1)
             if st.sliced_kind == "sub":
                 floor = max(floor, st.sliced_bit + 1)
         elif isinstance(st, BatchSelStage):
@@ -426,14 +453,10 @@ def segment_plan(items: Sequence, n: int, batch: int = 1, *,
             emit_xla(it)
             continue
         if isinstance(it, F.PassOp):
-            st = _try_pair_stage(it, scatter_max)
+            st = _try_pair_stage(it, scatter_max, row_budget)
             if st is not None:
                 stage, arr, new_scat = st
-                floor = 0
-                if stage.op_kind == "b1":
-                    floor = LANE_QUBITS
-                if stage.sliced_kind == "sub":
-                    floor = max(floor, stage.sliced_bit + 1)
+                _, floor = stage_requirements([stage])
                 if reserve(bits=new_scat or frozenset(), floor=floor):
                     stages.append(stage)
                     arrays.append(arr)
@@ -444,10 +467,13 @@ def segment_plan(items: Sequence, n: int, batch: int = 1, *,
     return parts
 
 
-def _try_pair_stage(it, scatter_max):
+def _try_pair_stage(it, scatter_max, row_budget):
     """PassOp -> (PairStage, operand array, scat bits needed) when the op
     is an uncontrolled 2-target matrix whose qubits the kernel can reach;
-    None otherwise."""
+    None otherwise. A sublane op qubit beside a scattered sliced qubit
+    keeps the reference's b1 form when `row_budget` holds its 7-bit floor
+    plus the scattered bit, and becomes a 2x2 butterfly ('sub' or 'sc')
+    otherwise (see HOPPER_GEOMETRY)."""
     op = it.op
     if op.kind != "matrix" or len(op.targets) != 2 or op.controls:
         return None
@@ -478,11 +504,15 @@ def _try_pair_stage(it, scatter_max):
         return None               # same-band pairs are composed upstream
     op_loc = locate(q_op)
     sliced_kind = "scat" if locate(q_sl) == "scat" else "sub"
+    kind = {"lane": "lane", "sub": "b1", "scat": "sc"}[op_loc]
+    if kind == "b1" and row_budget < LANE_QUBITS + 1:
+        j = q_op - LANE_QUBITS
+        kind = "sub" if j + 2 <= row_budget else "sc"
 
     need = set()
     if sliced_kind == "scat":
         need.add(q_sl - LANE_QUBITS)
-    if op_loc == "scat":
+    if kind == "sc":
         need.add(q_op - LANE_QUBITS)
     if len(need) > scatter_max:
         return None
@@ -497,9 +527,9 @@ def _try_pair_stage(it, scatter_max):
                     row = (ao << bit_op) | (r << (1 - bit_op))
                     col = (ai << bit_op) | (c << (1 - bit_op))
                     sub[ao, ai] = m[row, col]
-            if op_loc == "lane":
+            if kind == "lane":
                 emb = _embed_2x2(sub, q_op).T            # X @ G^T form
-            elif op_loc == "sub":
+            elif kind == "b1":
                 emb = _embed_2x2(sub, q_op - LANE_QUBITS).T  # X @ G^T form
             else:
                 emb = sub
@@ -507,9 +537,8 @@ def _try_pair_stage(it, scatter_max):
             blocks[1, r * 2 + c] = emb.imag.astype(np.float32)
     d = blocks[0, 0].shape[0]
     arr = np.stack([np.stack(list(blocks[p])) for p in range(2)])
-    kind = {"lane": "lane", "sub": "b1", "scat": "sc"}[op_loc]
     real_only = bool(np.all(m.imag == 0.0))
-    st = PairStage(kind, d, q_op - LANE_QUBITS if op_loc == "scat" else -1,
+    st = PairStage(kind, d, q_op - LANE_QUBITS if d == 2 else -1,
                    sliced_kind, q_sl - LANE_QUBITS, real_only, (), ())
     return st, arr, (need if need else None)
 

@@ -16,6 +16,11 @@ segment holds in `segment_sweep.stage_launches` (keyed by
 plain version, `segment_sweep_reference`, which applies each stage to
 the whole state with reshapes that expose the band bits and torch.matmul
 for the contractions. It does not share the kernel's tiling.
+
+Kraus pairs (PairStage) reach the kernel as a 4x4 butterfly on two tile
+bits: the packer reduces the 128x128 embedded blocks of 'lane' and 'b1'
+pairs to their 2x2 cores (checking that the rest of each block is the
+embedding), so every form runs 4 complex MACs per amplitude.
 """
 
 from __future__ import annotations
@@ -29,32 +34,36 @@ import torch
 
 from quest_tpu_torch import precision
 from quest_tpu_torch.ops import _build
+from quest_tpu_torch.ops.apply import bit_view
 from quest_tpu_torch.ops.band_plan import (
-    HOPPER_GEOMETRY, LANE_QUBITS, LANES, Budgets, Geometry, MatStage,
-    MultiPhaseStage, ParityStage, PhaseStage, segment_geometry)
+    HOPPER_GEOMETRY, LANE_QUBITS, LANES, Budgets, DiagVecStage, Geometry,
+    MatStage, MultiPhaseStage, PairStage, ParityStage, PhaseStage,
+    segment_geometry)
 
 DESC_WORDS = 16
 # descriptor columns (csrc/segment.cu enum F_*)
 (F_KIND, F_DIM, F_POS, F_REAL, F_SI, F_SJ, F_LANE_MASK, F_LANE_WANT,
- F_ROW_MASK, F_ROW_WANT, F_OP_OFF, F_FORMS, F_MASKED) = range(13)
-K_MAT, K_PHASE, K_PARITY, K_MULTIPHASE = range(4)
+ F_ROW_MASK, F_ROW_WANT, F_OP_OFF, F_FORMS, F_MASKED, F_TARGETS,
+ F_POS2) = range(15)
+K_MAT, K_PHASE, K_PARITY, K_MULTIPHASE, K_PAIR, K_DIAGVEC = range(6)
 MAT_DIMS = (2, 4, 8, 16, 32, 64, 128)
 MAX_MULTIPHASE_ROWS = 64
 MAX_TILE_BITS = 14
+MAX_DIAG_TARGETS = 7          # fusion.DIAG_FUSE_MAX
+TARGET_BITS = 6               # bits per qubit index in F_TARGETS
 
 _UNPORTED = {
-    "PairStage": "ROADMAP B9 (density registers)",
-    "DiagVecStage": "ROADMAP B8 (general diagonals, QFT class)",
     "BatchSelStage": "ROADMAP B10 (batched trajectories)",
 }
+_PORTED = (MatStage, PhaseStage, ParityStage, MultiPhaseStage, PairStage,
+           DiagVecStage)
 
 
 def check_supported(stages) -> None:
     """Raise NotImplementedError naming the ROADMAP item of the first
     stage kind the port's kernel does not run."""
     for st in stages:
-        if not isinstance(st, (MatStage, PhaseStage, ParityStage,
-                               MultiPhaseStage)):
+        if not isinstance(st, _PORTED):
             name = type(st).__name__
             raise NotImplementedError(
                 f"{name} is not ported yet: {_UNPORTED.get(name, 'ROADMAP B')}")
@@ -62,11 +71,12 @@ def check_supported(stages) -> None:
 
 def stage_label(st) -> str:
     """Stage kind as the launch counts name it: b0, b1, scb<d>, sc, phase,
-    parity or multiphase."""
+    parity, multiphase, pair or diagvec."""
     if isinstance(st, MatStage):
         return f"scb{st.dim}" if st.kind == "scb" else st.kind
     return {PhaseStage: "phase", ParityStage: "parity",
-            MultiPhaseStage: "multiphase"}[type(st)]
+            MultiPhaseStage: "multiphase", PairStage: "pair",
+            DiagVecStage: "diagvec"}[type(st)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +88,9 @@ class Segment:
     geometry: Geometry
     desc: torch.Tensor                   # (stages, DESC_WORDS) int64
     ops: torch.Tensor                    # all operands, flat f32
-    operands: Tuple[torch.Tensor, ...]   # per-stage views into `ops`
+    operands: Tuple[torch.Tensor, ...]   # per-stage planner operands for
+    # the plain version: views into `ops`, except the embedded 128x128
+    # blocks of 'lane'/'b1' pairs (the kernel's buffer holds their cores)
     scat_mask: int                       # scattered global row bits
     free_mask: int                       # row bits taken by the block index
     labels: FrozenSet[str]               # stage_label of each stage
@@ -94,6 +106,15 @@ def _preds_masks(preds):
         mask |= 1 << bit
         want |= int(s) << bit
     return mask, want
+
+
+def _set_preds(row: list, st) -> list:
+    """Fill a descriptor's predicate fields from the stage's lane and row
+    predicates; returns the row."""
+    row[F_LANE_MASK], row[F_LANE_WANT] = _preds_masks(st.lane_preds)
+    row[F_ROW_MASK], row[F_ROW_WANT] = _preds_masks(st.row_preds)
+    row[F_MASKED] = int(bool(st.lane_preds or st.row_preds))
+    return row
 
 
 def _mat_row(st: MatStage, geo: Geometry) -> list:
@@ -122,17 +143,77 @@ def _mat_row(st: MatStage, geo: Geometry) -> list:
     # G for narrow scb and sc (quest_tpu/ops/pallas_band.py:462-468)
     transposed = st.kind in ("b0", "b1") or (st.kind == "scb" and d == LANES)
     si, sj = (1, d) if transposed else (d, 1)
-    lm, lw = _preds_masks(st.lane_preds)
-    rm, rw = _preds_masks(st.row_preds)
-    masked = int(bool(st.lane_preds or st.row_preds))
     row = [0] * DESC_WORDS
     row[F_KIND], row[F_DIM], row[F_POS], row[F_REAL] = (
         K_MAT, d, pos, int(st.real_only))
     row[F_SI], row[F_SJ] = si, sj
-    row[F_LANE_MASK], row[F_LANE_WANT] = lm, lw
-    row[F_ROW_MASK], row[F_ROW_WANT] = rm, rw
-    row[F_MASKED] = masked
-    return row
+    return _set_preds(row, st)
+
+
+def _tile_pos(geo: Geometry, row_bit: int) -> int:
+    """Tile index bit of GLOBAL row bit `row_bit` (inner or scattered)."""
+    if row_bit < geo.inner_bits or row_bit in geo.scat:
+        return LANE_QUBITS + geo.tile_row_bit(row_bit)
+    raise ValueError(f"row bit {row_bit} is neither an inner row nor a "
+                     f"scattered axis of {geo}")
+
+
+def _embedded_t(core: np.ndarray, q: int) -> np.ndarray:
+    """The planner's packing of a 2x2 block embedded at bit q of a 7-bit
+    space: E^T with E[i, j] = core[i_q, j_q] where the other bits of i and
+    j agree (band_plan._embed_2x2, stored transposed)."""
+    i = np.arange(LANES)
+    same = ((i[:, None] ^ i[None, :]) & (LANES - 1) & ~(1 << q)) == 0
+    return core[(i[None, :] >> q) & 1, (i[:, None] >> q) & 1] * same
+
+
+def pair_core(st: PairStage, arr: np.ndarray):
+    """(op bit, (2, 4, 2, 2) cores) of a PairStage operand. 2-wide forms
+    carry their cores as they are (op bit: the GLOBAL row bit op_bit);
+    'lane' and 'b1' forms carry 128x128 embeddings stored transposed,
+    reduced here to the 2x2 block they embed and the bit q they embed it
+    at (a lane bit, or the row bit q for 'b1'). Raises ValueError unless
+    every block is exactly that embedding."""
+    if st.op_dim == 2:
+        if arr.shape != (2, 4, 2, 2):
+            raise ValueError(f"pair operand shape {arr.shape}")
+        return st.op_bit, arr
+    if arr.shape != (2, 4, LANES, LANES):
+        raise ValueError(f"pair operand shape {arr.shape}")
+    for q in range(LANE_QUBITS):
+        sel = [0, 1 << q]
+        cores = arr[:, :, sel][:, :, :, sel].transpose(0, 1, 3, 2)
+        if all(np.array_equal(arr[p, b], _embedded_t(cores[p, b], q))
+               for p in range(2) for b in range(4)):
+            return q, np.ascontiguousarray(cores)
+    raise ValueError(f"{st.op_kind} pair operand is not a 2x2 block "
+                     f"embedded at one bit")
+
+
+def _pair_row(st: PairStage, arr: np.ndarray, geo: Geometry):
+    """(descriptor, packed (2, 4, 2, 2) cores) of a PairStage: op bit at
+    tile position F_POS, sliced bit at F_POS2."""
+    q, cores = pair_core(st, arr)
+    pos = q if st.op_kind == "lane" else _tile_pos(geo, q)
+    row = [0] * DESC_WORDS
+    row[F_KIND], row[F_POS] = K_PAIR, pos
+    row[F_POS2] = _tile_pos(geo, st.sliced_bit)
+    row[F_REAL] = int(st.real_only)
+    return _set_preds(row, st), cores
+
+
+def _diagvec_row(st: DiagVecStage, arr: np.ndarray) -> list:
+    """Descriptor of a DiagVecStage: k in F_DIM, the GLOBAL target qubits
+    packed TARGET_BITS apart in F_TARGETS (targets[j] selects bit j of
+    the table index)."""
+    k = len(st.targets)
+    if k > MAX_DIAG_TARGETS or arr.shape != (2, 1 << k):
+        raise ValueError(f"diagonal of {k} targets, operand {arr.shape}")
+    row = [0] * DESC_WORDS
+    row[F_KIND], row[F_DIM] = K_DIAGVEC, k
+    row[F_TARGETS] = sum(q << (TARGET_BITS * j)
+                         for j, q in enumerate(st.targets))
+    return _set_preds(row, st)
 
 
 def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
@@ -148,10 +229,15 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
         raise ValueError(f"tile of {geo.tile_bits} bits exceeds the "
                          f"kernel's {MAX_TILE_BITS}")
     arrays = tuple(np.asarray(a, dtype=np.float32) for a in arrays)
-    rows, offs = [], []
+    rows, offs, packed = [], [], []
     off = 0
     for st, arr in zip(stages, arrays):
-        if isinstance(st, MatStage):
+        kernel_arr = arr
+        if isinstance(st, PairStage):
+            row, kernel_arr = _pair_row(st, arr, geo)
+        elif isinstance(st, DiagVecStage):
+            row = _diagvec_row(st, arr)
+        elif isinstance(st, MatStage):
             if arr.shape != (2, st.dim, st.dim):
                 raise ValueError(f"{st.kind} operand shape {arr.shape}")
             row = _mat_row(st, geo)
@@ -171,14 +257,19 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
             row[F_KIND] = K_PHASE if isinstance(st, PhaseStage) else K_PARITY
         row[F_OP_OFF] = off
         rows.append(row)
+        packed.append(kernel_arr)
         offs.append(off)
-        off += arr.size
-    flat = np.concatenate([a.reshape(-1) for a in arrays])
+        off += kernel_arr.size
+    # the kernel's buffer holds each operand as it reads it (pair cores);
+    # `operands` keeps the planner's arrays for the plain version
+    flat = np.concatenate([a.reshape(-1) for a in packed])
     desc = np.array(rows, dtype=np.int64).reshape(-1, DESC_WORDS)
     dev = torch.device(device)
     ops = torch.from_numpy(flat).to(dev)
-    operands = tuple(ops[o:o + a.size].view(a.shape)
-                     for o, a in zip(offs, arrays))
+    operands = tuple(
+        ops[o:o + a.size].view(a.shape) if a is k
+        else torch.from_numpy(a).to(dev)
+        for o, a, k in zip(offs, arrays, packed))
     row_bits = n - LANE_QUBITS
     scat_mask = sum(1 << s for s in geo.scat)
     free_mask = (((1 << row_bits) - 1) & ~scat_mask
@@ -325,6 +416,91 @@ def _contract(re, im, g, st: MatStage, n: int):
     return nre, nim
 
 
+def _pair(re, im, g, st: PairStage, n: int):
+    """Apply a Kraus pair to the planes ((rows, 128) each): the sliced
+    qubit's halves c select blocks B[r*2+c] applied on the op side,
+    out_r = sum_c B[r*2+c] x_c (ref _apply_pair_stage). 2-wide forms
+    take per-axis views of both bits; 'lane' and 'b1' forms contract with
+    the 128x128 embedded blocks as the reference does."""
+    q_sl = LANE_QUBITS + st.sliced_bit
+    nre, nim = torch.empty_like(re), torch.empty_like(im)
+    if st.op_dim == 2:
+        v = g.cpu().numpy()
+        q_op = LANE_QUBITS + st.op_bit
+        dims, axis_of = bit_view(n, (q_op, q_sl))
+        a_op, a_sl = axis_of[q_op], axis_of[q_sl]
+
+        def part(x, sl, o):
+            return x.view(dims).narrow(a_sl, sl, 1).narrow(a_op, o, 1)
+        for r in range(2):
+            for ao in range(2):
+                acc_r = acc_i = 0.0
+                for c in range(2):
+                    for ai in range(2):
+                        gr = float(v[0, r * 2 + c, ao, ai])
+                        gi = float(v[1, r * 2 + c, ao, ai])
+                        xr, xi = part(re, c, ai), part(im, c, ai)
+                        acc_r = acc_r + gr * xr
+                        acc_i = acc_i + gr * xi
+                        if not st.real_only:
+                            acc_r = acc_r - gi * xi
+                            acc_i = acc_i + gi * xr
+                part(nre, r, ao).copy_(acc_r)
+                part(nim, r, ao).copy_(acc_i)
+        return nre, nim
+    dims, _ = bit_view(n, (q_sl,))
+
+    def half(x, c):
+        return x.view(dims).narrow(1, c, 1)
+
+    def block(gg, x):
+        if st.op_kind == "lane":            # X @ G^T, G^T stored
+            return torch.matmul(x.reshape(-1, LANES), gg)
+        # 'b1': contract the lowest 7 row bits, G^T stored
+        return torch.matmul(gg.T, x.reshape(-1, LANES, LANES))
+    for r in range(2):
+        acc_r = acc_i = 0.0
+        for c in range(2):
+            gre, gim = g[0, r * 2 + c], g[1, r * 2 + c]
+            xr, xi = half(re, c), half(im, c)
+            acc_r = acc_r + block(gre, xr).reshape(xr.shape)
+            acc_i = acc_i + block(gre, xi).reshape(xi.shape)
+            if not st.real_only:
+                acc_r = acc_r - block(gim, xi).reshape(xi.shape)
+                acc_i = acc_i + block(gim, xr).reshape(xr.shape)
+        half(nre, r).copy_(acc_r)
+        half(nim, r).copy_(acc_i)
+    return nre, nim
+
+
+def _diagvec(re, im, g, st: DiagVecStage, n: int):
+    """Multiply each amplitude by the table entry its target bits select,
+    where its predicates hold (ref _apply_diagvec_stage): the table is
+    expanded over one axis per target and predicate bit of a per-axis
+    view and multiplied in by broadcasting."""
+    preds = ([(b, w) for b, w in st.lane_preds]
+             + [(LANE_QUBITS + b, w) for b, w in st.row_preds])
+    qubits = sorted(set(st.targets) | {q for q, _ in preds}, reverse=True)
+    dims, axis_of = bit_view(n, qubits)
+    v = g.cpu().numpy().astype(np.float64)
+    table = v[0] + 1j * v[1]
+    bits = np.arange(1 << len(qubits))    # bit i of a combo <-> qubits[i]
+    val = {q: (bits >> i) & 1 for i, q in enumerate(qubits)}
+    idx = sum(val[q] << j for j, q in enumerate(st.targets))
+    factor = table[idx]
+    for q, want in preds:
+        factor = np.where(val[q] == want, factor, 1.0)
+    # combos enumerate qubits[0] fastest; the view has qubits[0] first
+    shape = [2 if a in axis_of.values() else 1 for a in range(len(dims))]
+    factor = factor.reshape((2,) * len(qubits), order="F").reshape(shape)
+    fre = torch.as_tensor(factor.real, dtype=torch.float32, device=re.device)
+    fim = torch.as_tensor(factor.imag, dtype=torch.float32, device=re.device)
+    xr, xi = re.view(dims), im.view(dims)
+    nre = xr * fre - xi * fim
+    nim = xr * fim + xi * fre
+    return nre.reshape(re.shape), nim.reshape(im.shape)
+
+
 def segment_sweep_reference(amps: torch.Tensor, stages: Sequence,
                             arrays: Sequence, n: int) -> torch.Tensor:
     """Plain PyTorch version of one segment: every stage applied to the
@@ -341,9 +517,15 @@ def segment_sweep_reference(amps: torch.Tensor, stages: Sequence,
     row = torch.arange(rows, device=dev).reshape(rows, 1)
     for st, arr in zip(stages, arrays):
         g = torch.as_tensor(arr, dtype=torch.float32, device=dev)
-        if isinstance(st, MatStage):
-            nre, nim = _contract(re, im, g, st, n)
-            nre, nim = nre.reshape(rows, LANES), nim.reshape(rows, LANES)
+        if isinstance(st, DiagVecStage):
+            re, im = _diagvec(re, im, g, st, n)
+            continue
+        if isinstance(st, (MatStage, PairStage)):
+            if isinstance(st, PairStage):
+                nre, nim = _pair(re, im, g, st, n)
+            else:
+                nre, nim = _contract(re, im, g, st, n)
+                nre, nim = nre.reshape(rows, LANES), nim.reshape(rows, LANES)
             mask = _pred_mask(lane, row, st.lane_preds, st.row_preds)
             if mask is not None:
                 nre = torch.where(mask, nre, re)

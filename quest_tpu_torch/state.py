@@ -6,6 +6,11 @@ qubit q being bit q of the flat amplitude index. The fused engine views
 the same memory as (2, 2^(N-7), 128) (fused_state_shape); the two views
 share storage, so switching between them is a reshape, not a copy.
 
+A density matrix over N qubits is the same planes over 2N state
+qubits: rho[r, c] sits at flat index r + c * 2^N (column-major), so the
+row-space copy of qubit q is state qubit q and its column-space copy
+q + N (ref QuEST.c:48-60).
+
 Unlike the reference's immutable pytree, a port register may be updated
 in place by the fused engine (its kernel writes each tile back where it
 read it), which keeps a 30-qubit state at one 8 GiB buffer.
@@ -26,17 +31,23 @@ from quest_tpu_torch.ops.band_plan import LANE_QUBITS, LANES, usable
 
 @dataclasses.dataclass
 class Qureg:
-    """Statevector register.
+    """Statevector or density-matrix register.
 
-    amps: (2, 2**num_qubits) real tensor — [0] real, [1] imag planes.
+    amps: (2, 2**num_state_qubits) real tensor — [0] real, [1] imag
+    planes; num_state_qubits is 2N for a density matrix over N qubits.
     """
 
     amps: torch.Tensor
     num_qubits: int
+    is_density: bool = False
+
+    @property
+    def num_state_qubits(self) -> int:
+        return 2 * self.num_qubits if self.is_density else self.num_qubits
 
     @property
     def num_amps(self) -> int:
-        return 1 << self.num_qubits
+        return 1 << self.num_state_qubits
 
     @property
     def real_dtype(self) -> np.dtype:
@@ -73,9 +84,7 @@ def fused_state_shape(n: int):
     return (2, 1 << (n - LANE_QUBITS), LANES)
 
 
-def create_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
-    """Statevector register initialized to |0...0> (ref: QuEST.c:34-46).
-    Only f32 planes (complex64) are ported; complex128 raises."""
+def _make(num_qubits: int, is_density: bool, dtype, device) -> Qureg:
     validation.validate_num_qubits(num_qubits)
     dtype = np.dtype(dtype) if dtype is not None else precision.DEFAULT_DTYPE
     rdt = precision.real_dtype_of(dtype)
@@ -83,14 +92,49 @@ def create_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
         raise NotImplementedError(
             "f64 registers are not ported yet (ROADMAP A3: the reference "
             "runs them on its XLA band path)")
-    amps = basis_planes(0, n=num_qubits, rdt=rdt, device=device)
-    return Qureg(amps=amps, num_qubits=num_qubits)
+    n = 2 * num_qubits if is_density else num_qubits
+    amps = basis_planes(0, n=n, rdt=rdt, device=device)
+    return Qureg(amps=amps, num_qubits=num_qubits, is_density=is_density)
+
+
+def create_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
+    """Statevector register initialized to |0...0> (ref: QuEST.c:34-46).
+    Only f32 planes (complex64) are ported; complex128 raises."""
+    return _make(num_qubits, False, dtype, device)
+
+
+def create_density_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
+    """Density-matrix register initialized to |0..0><0..0| (ref:
+    QuEST.c:48-60): 2N state qubits. Only f32 planes are ported;
+    complex128 raises."""
+    return _make(num_qubits, True, dtype, device)
 
 
 def init_zero_state(qureg: Qureg) -> Qureg:
-    """|0...0>."""
+    """|0...0> or |0..0><0..0|."""
     amps = torch.zeros_like(qureg.amps.reshape(2, -1))
     amps[0, 0] = 1.0
+    return qureg.replace_amps(amps)
+
+
+def init_plus_state(qureg: Qureg) -> Qureg:
+    """|+>^N; density: the uniform matrix 1/2^N (ref
+    QuEST_cpu.c:1406-1473)."""
+    n = qureg.num_qubits
+    val = 1.0 / (1 << n) if qureg.is_density else 1.0 / np.sqrt(1 << n)
+    amps = torch.zeros_like(qureg.amps.reshape(2, -1))
+    amps[0].fill_(val)
+    return qureg.replace_amps(amps)
+
+
+def init_classical_state(qureg: Qureg, state_index: int) -> Qureg:
+    """Basis state |k> or |k><k| (ref QuEST_cpu.c:1475-1539)."""
+    validation.validate_state_index(qureg, state_index)
+    flat = state_index
+    if qureg.is_density:
+        flat = state_index + (state_index << qureg.num_qubits)
+    amps = torch.zeros_like(qureg.amps.reshape(2, -1))
+    amps[0, flat] = 1.0
     return qureg.replace_amps(amps)
 
 
@@ -104,9 +148,27 @@ def init_debug_state(qureg: Qureg) -> Qureg:
         torch.stack([(2.0 * k) / 10.0, (2.0 * k + 1.0) / 10.0]))
 
 
+def get_density_amp(qureg: Qureg, row: int, col: int) -> complex:
+    """rho[row, col] (ref getDensityAmp, QuEST.c:694-705)."""
+    if not qureg.is_density:
+        raise validation.QuESTError(
+            "Invalid operation: getDensityAmp requires a density matrix")
+    dim = 1 << qureg.num_qubits
+    validation.validate_amp_index(qureg, row, dim=dim)
+    validation.validate_amp_index(qureg, col, dim=dim)
+    pair = qureg.amps.reshape(2, -1)[:, row + (col << qureg.num_qubits)]
+    re, im = pair.cpu().tolist()
+    return complex(re, im)
+
+
 def to_dense(qureg_or_amps) -> np.ndarray:
-    """Fetch the full state to the host as a (2^N,) complex vector; takes
-    a Qureg or raw planes in any view of (2, 2^N)."""
+    """Fetch the full state to the host: a (2^N,) complex vector, or the
+    (2^N, 2^N) matrix for a density Qureg. Takes a Qureg or raw planes
+    in any view of (2, 2^n) (raw planes come back as a flat vector)."""
     amps = getattr(qureg_or_amps, "amps", qureg_or_amps)
     planes = amps.detach().reshape(2, -1).cpu().numpy()
-    return planes[0] + 1j * planes[1]
+    arr = planes[0] + 1j * planes[1]
+    if getattr(qureg_or_amps, "is_density", False):
+        dim = 1 << qureg_or_amps.num_qubits
+        return arr.reshape(dim, dim, order="F")
+    return arr

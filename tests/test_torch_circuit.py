@@ -185,13 +185,17 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_unported_paths_raise(monkeypatch):
     c = random_circuit(12, 1)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="holds 6 qubits"):
         c.compiled_fused(12, density=True, device="cpu")
+    measured = Circuit(12).h(0)
+    measured.ops.append(qtt.GateOp("measure", (3,)))
+    with pytest.raises(NotImplementedError, match="A4"):
+        measured.compiled_fused(12, device="cpu")
     with pytest.raises(NotImplementedError, match="A3"):
         random_circuit(8, 1).compiled_fused(8, device="cpu")
-    u = np.linalg.qr(np.random.default_rng(2).normal(size=(8, 8)))[0]
+    u = np.linalg.qr(np.random.default_rng(2).normal(size=(32, 32)))[0]
     with pytest.raises(NotImplementedError, match="A3"):
-        Circuit(12).gate(u, (0, 8, 11)).compiled_fused(12, device="cpu")
+        Circuit(12).gate(u, (0, 3, 8, 9, 11)).compiled_fused(12, device="cpu")
     with pytest.raises(NotImplementedError):
         TS.create_qureg(10, dtype=np.complex128, device="cpu")
     monkeypatch.setenv("QUEST_FUSED_SCAN", "1")
@@ -233,3 +237,24 @@ def test_sweep_fusion_knob(monkeypatch):
     a = _run_port(c, n, planes)
     monkeypatch.setenv("QUEST_SWEEP_FUSION", "1")
     _assert_close(_run_port(c, n, planes), a)
+
+
+def test_matrix_passthrough_matches_reference():
+    """A cross-band 3-qubit gate no kernel stage reaches runs between
+    segments through apply_matrix_rows, as the reference runs it
+    outside its kernel."""
+    n = 12
+    u = np.linalg.qr(np.random.default_rng(2).normal(size=(8, 8))
+                     + 1j * np.random.default_rng(3).normal(size=(8, 8)))[0]
+    jc = JC.Circuit(n).h(0).gate(u, (0, 8, 11)).ry(9, 0.3).x(1, 10)
+    tc = convert.circuit_from_ops(jc.ops, n)
+    prog = tc.compiled_fused(n, device="cpu")
+    assert len(prog.steps) > len(prog.segments)         # a passthrough
+    rng = np.random.default_rng(12)
+    planes = rng.standard_normal((2, 1 << n)).astype(np.float32)
+    planes /= np.sqrt(_norm(planes))
+    want = np.asarray(jc.compiled_fused(n, False, donate=False,
+                                        interpret=True)(jnp.asarray(planes)))
+    _assert_close(_run_port(tc, n, planes), want.reshape(2, -1))
+    _assert_close(prog.plain(torch.from_numpy(planes)).numpy(),
+                  want.reshape(2, -1))

@@ -1,4 +1,6 @@
-"""The segment kernel on a CUDA card, against its plain PyTorch version.
+"""The segment kernel on a CUDA card, against its plain PyTorch version:
+every stage kind, Kraus pairs and diagonals included, and the fused and
+density paths.
 
 Needs a card: every test here is marked `cuda` and skips without one
 (the kernel has no CPU mode). This file imports neither JAX nor the JAX
@@ -62,7 +64,57 @@ def _cases():
     return cases
 
 
-@pytest.mark.parametrize("case", _cases(), ids=lambda c: c[0])
+def _cores(rng, real=False):
+    g = rng.standard_normal((2, 4, 2, 2)) / 2
+    if real:
+        g[1] = 0.0
+    return g.astype(np.float32)
+
+
+def _lane_pair(rng, q, sliced_kind, sliced_bit):
+    """A 'lane' pair as the planner packs it: 2x2 cores embedded at lane
+    bit q of 128x128 blocks, stored transposed."""
+    from quest_tpu_torch.ops.fusion import embed_operator
+    cores = _cores(rng)
+    emb = np.stack([embed_operator(cores[0, b] + 1j * cores[1, b], [q], [],
+                                   [], 7).T for b in range(4)])
+    return (BP.PairStage("lane", 128, -1, sliced_kind, sliced_bit, False,
+                         (), ()),
+            np.stack([emb.real, emb.imag]).astype(np.float32))
+
+
+def _density_cases():
+    rng = np.random.default_rng(20261017)
+    n = 16
+
+    def pair(op_kind, op_bit, sliced_bit, real=False, preds=((), ())):
+        return (BP.PairStage(op_kind, 2, op_bit, "scat", sliced_bit, real,
+                             *preds), _cores(rng, real))
+
+    def diag(targets, lane_preds=(), row_preds=()):
+        k = len(targets)
+        t = np.exp(1j * rng.uniform(0, 2 * np.pi, 1 << k))
+        return (BP.DiagVecStage(tuple(targets), tuple(lane_preds),
+                                tuple(row_preds)),
+                np.stack([t.real, t.imag]).astype(np.float32))
+    cases = [("lane_scat", n, [_lane_pair(rng, 3, "scat", 8)]),
+             ("lane_sub", n, [_lane_pair(rng, 6, "sub", 5)]),
+             ("sub_scat", n, [pair("sub", 4, 8)]),
+             ("sc_scat", n, [pair("sc", 6, 8)]),
+             ("sc_scat_real", n, [pair("sc", 8, 7, real=True)]),
+             ("pair_preds", n, [pair("sub", 1, 8, preds=(((2, 1),), ((5, 0),)))]),
+             ("diag_k1", n, [diag((3,))]),
+             ("diag_k3_preds", n, [diag((0, 9, 12), ((2, 1),), ((1, 0),))]),
+             ("diag_k7", n, [diag((1, 5, 8, 9, 12, 14, 15))]),
+             ("diag_row_bit_15", 23, [diag((22, 3, 8), (), ((15, 1),))])]
+    chain = [_mat(rng, "b0", 128), _lane_pair(rng, 1, "scat", 8),
+             diag((7, 2)), pair("sub", 2, 8), _mat(rng, "sc", 2, bit=8)]
+    cases.append(("density_chain", n, chain))
+    return cases
+
+
+@pytest.mark.parametrize("case", _cases() + _density_cases(),
+                         ids=lambda c: c[0])
 def test_kernel_matches_plain_version(card, case):
     _, n, stages = case
     seg = S.prepare_segment([s for s, _ in stages], [g for _, g in stages],
@@ -97,3 +149,26 @@ def test_fused_path_matches_plain_version(card):
     assert err <= 1e-4 * want.abs().max().item()
     norm = (amps.double() ** 2).sum().item()
     assert abs(1.0 - norm) <= 1e-4
+
+
+@pytest.mark.parametrize("build", ["noisy_rcs_circuit",
+                                   "clifford_t_density_circuit",
+                                   "bench_density_circuit"])
+def test_density_path_matches_plain_version(card, build):
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch import entry as E
+    from quest_tpu_torch.state import Qureg, basis_planes, fused_state_shape
+    nd = 10
+    n = 2 * nd
+    fn = getattr(E, build)(nd).compiled_fused(n, density=True, device=card)
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=card)
+    want = fn.plain(amps.clone())
+    before = S.segment_sweep.launches
+    fn(amps)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.launches - before == fn.launches_per_call
+    err = (amps - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item()
+    q = Qureg(amps, nd, is_density=True)
+    assert abs(1.0 - K.calc_total_prob(q)) <= 1e-4
+    assert K.calc_purity(q) <= 1.0 + 1e-4

@@ -62,7 +62,10 @@ def emulate_kernel(planes: np.ndarray, seg: S.Segment) -> np.ndarray:
     bits, then each descriptor applied to the tile as the kernel does
     (matrix stages as a (fibers x D) product at tile position F_POS with
     operand strides F_SI/F_SJ, predicates as lane/row masks, phase rows
-    decoded from the f32 operand). Returns new planes."""
+    decoded from the f32 operand; Kraus pairs as a 4x4 butterfly on the
+    tile bits F_POS (op) and F_POS2 (sliced) with (2, 4, 2, 2) cores;
+    diagonals as a table lookup by the target bits of each element's
+    global index). Returns new planes."""
     n, geo = seg.n, seg.geometry
     desc = seg.desc.cpu().numpy()
     ops = seg.ops.cpu().numpy().astype(np.float64)
@@ -113,6 +116,42 @@ def emulate_kernel(planes: np.ndarray, seg: S.Segment) -> np.ndarray:
                           & ((row & int(d[S.F_ROW_MASK])) == d[S.F_ROW_WANT]))
                     new = np.where(ok, new, x)
                 x = new
+                continue
+            if kind == S.K_PAIR:
+                pa, pb = int(d[S.F_POS]), int(d[S.F_POS2])
+                core = ops[off:off + 16] + (
+                    0 if d[S.F_REAL] else 1j * ops[off + 16:off + 32])
+                core = core.reshape(4, 2, 2)
+                lo, hi = min(pa, pb), max(pa, pb)
+                f = np.arange(1 << (tb - 2))
+                base = ((f >> lo) << (lo + 1)) | (f & ((1 << lo) - 1))
+                base = ((base >> hi) << (hi + 1)) | (base & ((1 << hi) - 1))
+
+                def at(sl, o):
+                    return base | (sl << pb) | (o << pa)
+                new = x.copy()
+                for r in range(2):
+                    for o in range(2):
+                        new[at(r, o)] = sum(core[r * 2 + c, o, a] * x[at(c, a)]
+                                            for c in range(2) for a in range(2))
+                if d[S.F_MASKED]:
+                    ok = (((lane & int(d[S.F_LANE_MASK])) == d[S.F_LANE_WANT])
+                          & ((row & int(d[S.F_ROW_MASK])) == d[S.F_ROW_WANT]))
+                    new = np.where(ok, new, x)
+                x = new
+                continue
+            if kind == S.K_DIAGVEC:
+                k = int(d[S.F_DIM])
+                tab = ops[off:off + (1 << k)] + 1j * ops[off + (1 << k):
+                                                         off + (2 << k)]
+                gidx = (row << 7) | lane
+                entry = np.zeros(len(x), dtype=np.int64)
+                for j in range(k):
+                    q = (int(d[S.F_TARGETS]) >> (S.TARGET_BITS * j)) & 63
+                    entry |= ((gidx >> q) & 1) << j
+                ok = (((lane & int(d[S.F_LANE_MASK])) == d[S.F_LANE_WANT])
+                      & ((row & int(d[S.F_ROW_MASK])) == d[S.F_ROW_WANT]))
+                x = np.where(ok, x * tab[entry], x)
                 continue
             g = ops[off:]
             if kind == S.K_PHASE:
@@ -317,6 +356,6 @@ def test_wrapper_checks_and_counts_only_kernel_launches():
 
 
 def test_unported_stage_kinds_raise():
-    st = BP.DiagVecStage((1, 2), (), ())
-    with pytest.raises(NotImplementedError, match="B8"):
-        S.prepare_segment([st], [np.zeros((2, 4), np.float32)], 10, "cpu")
+    st = BP.BatchSelStage(8, 0)
+    with pytest.raises(NotImplementedError, match="B10"):
+        S.prepare_segment([st], [np.zeros((1, 8), np.float32)], 10, "cpu")
