@@ -15,7 +15,10 @@ Drives quest_tpu_torch (never JAX, never quest_tpu) on the card:
      lane/sub, sub/scat, sc/scat, real-only, with predicates; diagonals
      of 1, 3 and 7 targets with controls; chains), plus row bits above 15
      at 23 qubits: kernel against its plain PyTorch version on the same
-     inputs, max|diff| <= 1e-5 max|amp|;
+     inputs, max|diff| <= 1e-5 max|amp|; and batched segments (5 states
+     of 17 qubits, each with its own selection-table rows): S9
+     (BatchSelStage) on a lane bit, inner rows and a scattered bit, within
+     1e-6 max|amp|, and a barrier S9 leading a chain of other kinds;
   3. the main path: quest_tpu_torch.entry.entry() (28 qubits, RCS depth 4,
      seed 7) through the kernel, with the launch counters (all launches
      and launches per stage kind) set to 0 just before and read just after; compared with the plain path on the card
@@ -37,9 +40,28 @@ Drives quest_tpu_torch (never JAX, never quest_tpu) on the card:
      outside its kernel;
   7. clifford_t_density: Clifford+T with damping at 14 qubits, the same
      checks; its plan holds the path's general diagonals;
-  8. single-stage segments at 28 qubits — b0, b1, scb-128, sc, phase,
-     parity, multiphase, each Kraus pair form and a diagonal: kernel,
-     plain version and, where one PyTorch call computes the same
+  8. batched: quest_tpu_torch.entry.batched_entry() — the flagship circuit
+     at 24 qubits on a batch of 64 random states (8 GiB), one launch per
+     swept segment for the whole batch — counted against the unbatched
+     plan, against the plain path (max|diff| <= 1e-4 max|amp|), per-state
+     |1 - norm| <= 1e-4, 4 states against the unbatched program; ms per
+     call and per state beside the unbatched step x 64;
+  9. trajectory_physics: noisy RCS d3 on 14 qubits, 1024 trajectories:
+     <Z_q> of every qubit within 5 sigma of the density path on the card
+     (density_entry's state, 28 state qubits);
+ 10. trajectories: quest_tpu_torch.entry.trajectory_entry() — the bench's
+     trajectory scenario, noisy RCS d3 on 24 qubits, 256 shots in chunks
+     of 64 with a per-chunk <Z_23> reduction — with the counters set to 0
+     just before and read just after: launches per chunk equal to the
+     plan; the first chunk's 64 shots again through the kernel and all
+     of them through the plain path, 8 shots per call (draws equal,
+     planes within 1e-4 max|amp|, |1 - norm| <= 1e-4), and its first 8
+     shots through the kernel alone (the same launches and planes);
+     shots/s and the bound per chunk;
+ 11. single-stage segments at 28 qubits — b0, b1, scb-128, sc, phase,
+     parity, multiphase, each Kraus pair form and a diagonal — and S9 at
+     24 qubits x 64 states on a lane bit, a row bit and a scattered bit:
+     kernel, plain version and, where one PyTorch call computes the same
      function, that call (the yardstick; the port never calls it).
 
 Each phase prints one JSON line. Before the last line come the kernels
@@ -70,8 +92,13 @@ PATH_TOL = 1e-4
 TIMING_QUBITS = 28            # single-stage timings
 BENCH_DENSITY_QUBITS = 15     # bench density scenario: 30 state qubits
 CLIFFORD_T_QUBITS = 14
+BATCHSEL_TOL = 1e-6
+PHYSICS_SIGMAS = 5.0
+PHYSICS_SHOTS = 1024
+PLAIN_CHECK_SHOTS = 8
 PHASES = ("build", "stages", "flagship", "baseline", "density",
-          "density_bench", "clifford_t_density", "stage_timing")
+          "density_bench", "clifford_t_density", "batched",
+          "trajectory_physics", "trajectories", "stage_timing")
 
 RECORD = []
 
@@ -131,15 +158,19 @@ def stage_flops(st, arr, n: int) -> float:
     if isinstance(st, BP.DiagVecStage):
         sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
         return sel * 6                       # one complex multiply
+    if isinstance(st, BP.BatchSelStage):
+        return amps * 2 * 8                  # 2 complex MACs per amplitude
     return amps * (len(st.forms) + 2 + 6)   # angle sum, sincos, multiply
 
 
-def segment_work(seg):
-    """(bytes, flops) of one launch: the state read and written once,
-    each operand read once; the stages' operations."""
-    nbytes = 2 * 2 * 4 * (1 << seg.n) + 4 * seg.ops.numel()
-    flops = sum(stage_flops(st, a, seg.n)
-                for st, a in zip(seg.stages, seg.arrays))
+def segment_work(seg, batch=1):
+    """(bytes, flops) of one launch over `batch` states: each state read
+    and written once, each operand and selection row read once; the
+    stages' operations on every state."""
+    nbytes = (batch * 2 * 2 * 4 * (1 << seg.n) + 4 * seg.ops.numel()
+              + len(seg.slots) * batch * 8 * 4)
+    flops = batch * sum(stage_flops(st, a, seg.n)
+                        for st, a in zip(seg.stages, seg.arrays))
     return nbytes, flops
 
 
@@ -152,14 +183,20 @@ def passthrough_work(step):
     return 2 * 2 * 4 * (1 << n), sel * (1 << len(op.targets)) * 8
 
 
-def bound_of(segments, passthroughs=(), repeat=1):
-    work = ([segment_work(s) for s in segments]
-            + [passthrough_work(p) for p in passthroughs])
-    nbytes = repeat * sum(w[0] for w in work)
-    flops = repeat * sum(w[1] for w in work)
+def bound_ms(nbytes, flops):
+    """(ms, 'bytes' or 'operations'): the larger of the bytes over the
+    card's memory rate and the fp32 operations over its peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_of(segments, passthroughs=(), repeat=1, batch=1):
+    work = ([segment_work(s, batch) for s in segments]
+            + [passthrough_work(p) for p in passthroughs])
+    nbytes = repeat * sum(w[0] for w in work)
+    flops = repeat * sum(w[1] for w in work)
+    return bound_ms(nbytes, flops)
 
 
 def program_bound(fn):
@@ -327,6 +364,46 @@ def stage_cases(rng):
     return cases
 
 
+def batchsel_op(q, slot, barrier=True):
+    """(BatchSelStage, the planner's (1, 8) placeholder operand)."""
+    from quest_tpu_torch.ops import band_plan as BP
+    return BP.BatchSelStage(q, slot, barrier), np.zeros((1, 8), np.float32)
+
+
+def sel_table(rng, slots, batch, unitary=False):
+    """(slots, batch, 8) selection rows: random 2x2s, or random unitaries
+    (norm-preserving, for repeated timing launches)."""
+    g = rng.standard_normal((slots, batch, 2, 2)) + 1j * rng.standard_normal(
+        (slots, batch, 2, 2))
+    if unitary:
+        g = np.linalg.qr(g)[0]
+    else:
+        g = g / 2
+    return np.stack([g.real, g.imag], -1).reshape(slots, batch, 8).astype(
+        np.float32)
+
+
+def batch_stage_cases(rng):
+    """(name, n, batch, stages, arrays, tol): batched segments — S9 on a
+    lane bit, inner rows (row bits 0 and 6) and a scattered bit, two S9
+    in one launch, and a barrier S9 leading a chain of other kinds."""
+    n, batch = 17, 5
+    cases = [(f"batchsel_{name}", n, batch, [st], [a], BATCHSEL_TOL)
+             for name, (st, a) in (("lane", batchsel_op(3, 0)),
+                                   ("row0", batchsel_op(7, 1)),
+                                   ("row6", batchsel_op(13, 0)),
+                                   ("scat", batchsel_op(16, 1, False)))]
+    two = [batchsel_op(2, 1, False), batchsel_op(15, 0, False)]
+    cases.append(("batchsel_two", n, batch, [s for s, _ in two],
+                  [a for _, a in two], BATCHSEL_TOL))
+    chain = [batchsel_op(12, 1), mat_op(rng, "b0", 128),
+             pair_op(rng, "sub", 2, 9), phase_op(rng, 0b10, 0b10, 0b100, 0b100),
+             batchsel_op(4, 0, False), mat_op(rng, "sc", 2, bit=9)]
+    cases.append(("batched_chain", n, batch, [s for s, _ in chain],
+                  [a for _, a in chain], STAGE_TOL))
+    return cases
+
+
 def phase_stages(torch):
     from quest_tpu_torch.ops import segment as S
     rng = np.random.default_rng(20261016)
@@ -349,6 +426,25 @@ def phase_stages(torch):
             raise AssertionError(f"stage case {name}: max|diff| {err} > "
                                  f"{STAGE_TOL} x max|amp| {scale}")
         worst = max(worst, rel)
+    for name, n, batch, stages, arrays, tol in batch_stage_cases(rng):
+        seg = S.prepare_segment(stages, arrays, n, "cuda")
+        amps = torch.from_numpy(rng.standard_normal(
+            (batch, 2, 1 << n)).astype(np.float32)).cuda()
+        sel = torch.from_numpy(sel_table(rng, 2, batch)).cuda()
+        want = S.segment_sweep_reference(amps, seg.stages, seg.operands, n,
+                                         sel)
+        S.segment_sweep(amps, seg, sel)
+        torch.cuda.synchronize()
+        err = (amps.reshape(-1) - want.reshape(-1)).abs().max().item()
+        scale = want.abs().max().item()
+        results.append({"case": name, "n": n, "batch": batch,
+                        "max_abs_err": err, "rel_err": err / scale,
+                        "tol": tol, "tile_bits": seg.geometry.tile_bits,
+                        "blocks": seg.geometry.blocks})
+        if not err <= tol * scale:
+            raise AssertionError(f"batched stage case {name}: max|diff| "
+                                 f"{err} > {tol} x max|amp| {scale}")
+        worst = max(worst, err / scale)
     emit({"phase": "stages", "tol": STAGE_TOL, "worst_rel_err": worst,
           "cases": results})
     return worst
@@ -575,6 +671,232 @@ def phase_clifford_t_density(torch):
     return run_density(torch, "clifford_t_density", fn, amps, 5, True)
 
 
+def phase_batched(torch):
+    """The batched engine: batched_entry() (24 qubits, a batch of 64)
+    counted against the unbatched plan and held against the plain path,
+    per-state norms and the unbatched program on 4 states."""
+    from quest_tpu_torch.entry import batched_entry, flagship_circuit
+    from quest_tpu_torch.ops import segment as S
+    t0 = time.perf_counter()
+    fn, (amps,) = batched_entry()
+    setup_s = time.perf_counter() - t0
+    n, batch = fn.n, amps.shape[0]
+    single = flagship_circuit(n).compiled_fused(n, device="cuda")
+    picks = [0, batch // 3, 2 * batch // 3, batch - 1]
+    inputs = amps[picks].clone()
+    want = fn.plain(amps)               # out of place, 8 states at a time
+    torch.cuda.synchronize()
+    S.segment_sweep.launches = 0
+    S.segment_sweep.stage_launches = {}
+    fn(amps)
+    torch.cuda.synchronize()
+    launches = S.segment_sweep.launches
+    if launches != single.launches_per_call or launches != fn.launches_per_call:
+        raise AssertionError(f"batched: {launches} launches for a batch of "
+                             f"{batch}, unbatched plan {single.launches_per_call}")
+    err = (amps - want).abs().max().item()
+    scale = want.abs().max().item()
+    del want
+    torch.cuda.empty_cache()
+    norms = amps.double().pow(2).sum(dim=(1, 2, 3))
+    norm_err = (1.0 - norms).abs().max().item()
+    single_err = 0.0
+    for j, s in enumerate(picks):
+        x = single(inputs[j])
+        single_err = max(single_err, (x - amps[s]).abs().max().item())
+    if not (err <= PATH_TOL * scale and norm_err <= PATH_TOL
+            and single_err <= PATH_TOL * scale
+            and torch.isfinite(amps).all().item()):
+        raise AssertionError(f"batched: max|diff| {err} (max|amp| {scale}), "
+                             f"|1 - norm| {norm_err}, vs unbatched "
+                             f"{single_err}")
+    ms = time_ms(torch, lambda: fn(amps), 3)
+    x = inputs[0]
+    single_ms = time_ms(torch, lambda: single(x), 5)
+    plain_ms = time_ms(torch, lambda: fn.plain(amps), 1)
+    bound, bound_by = bound_of(fn.segments, batch=batch)
+    rec = {"phase": "batched", "n": n, "batch": batch,
+           "segments": len(fn.segments), "launches": launches,
+           "stage_launches": dict(S.segment_sweep.stage_launches),
+           "max_abs_err": err, "rel_err": err / scale, "max_norm_err": norm_err,
+           "unbatched_max_abs_err": single_err, "ms_per_call": ms,
+           "ms_per_state": ms / batch, "unbatched_ms": single_ms,
+           "unbatched_ms_x_batch": single_ms * batch, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": bound_by, "setup_s": setup_s}
+    emit(rec)
+    del fn, amps, inputs, x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def z_all(planes):
+    """Per-shot <Z_q> of every qubit q: (shots, n) from (shots, 2, 2^n)."""
+    p = planes[:, 0] ** 2 + planes[:, 1] ** 2
+    n = p.shape[1].bit_length() - 1
+    cols = []
+    for q in range(n):
+        h = p.reshape(p.shape[0], -1, 2, 1 << q).sum(dim=(1, 3))
+        cols.append(h[:, 0] - h[:, 1])
+    import torch
+    return torch.stack(cols, dim=1)
+
+
+def phase_trajectory_physics(torch):
+    """The trajectory estimator against the density path on the card:
+    noisy RCS d3 on 14 qubits, PHYSICS_SHOTS trajectories; <Z_q> of every
+    qubit within PHYSICS_SIGMAS standard errors of the density state's."""
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.entry import density_entry, noisy_rcs_circuit
+    nd = 14
+    fn, (rho,) = density_entry()
+    fn(rho)
+    diag = rho.reshape(2, -1)[0, ::(1 << nd) + 1].double()
+    idx = torch.arange(1 << nd, device=diag.device)
+    exact = torch.stack([(diag * (1 - 2 * ((idx >> q) & 1))).sum()
+                         for q in range(nd)])
+    del fn, rho
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(1)
+    t0 = time.perf_counter()
+    vals, draws = T.run_batched(noisy_rcs_circuit(nd, 3), PHYSICS_SHOTS,
+                                generator=gen, observable=z_all,
+                                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = vals.double()
+    mean = vals.mean(0)
+    sigma = vals.std(0) / PHYSICS_SHOTS ** 0.5
+    dev_sig = ((mean - exact).abs() / sigma.clamp_min(1e-12)).cpu().tolist()
+    rec = {"phase": "trajectory_physics", "n": nd, "shots": PHYSICS_SHOTS,
+           "wall_s": wall, "z_exact": exact.cpu().tolist(),
+           "z_mean": mean.cpu().tolist(), "z_sigma": sigma.cpu().tolist(),
+           "max_sigmas": max(dev_sig),
+           "branch_rate": draws.ne(0).double().mean().item()}
+    emit(rec)
+    if not max(dev_sig) <= PHYSICS_SIGMAS:
+        raise AssertionError(f"trajectory_physics: <Z_q> off the density "
+                             f"path by {max(dev_sig)} sigma")
+    return rec
+
+
+def trajectory_bound(prog, b):
+    """(bound ms, by) of one chunk of `b` shots of a trajectory program:
+    its launches over the chunk, each general-Kraus channel's Born
+    reduction (one read of the batch, a complex MAC pair per amplitude),
+    each passthrough per state."""
+    from quest_tpu_torch.circuit import MatrixPass
+    n = prog.n
+    work = [segment_work(s, b) for s in prog.segments]
+    work += [(b * w[0], b * w[1]) for w in
+             (passthrough_work(p) for p in prog.steps
+              if isinstance(p, MatrixPass))]
+    barriers = sum(1 for c in prog.channels if c.probs is None)
+    work += [(barriers * b * 2 * 4 * (1 << n), barriers * b * 8 * (1 << n))]
+    return bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
+
+
+def phase_trajectories(torch):
+    """The trajectory path: trajectory_entry() (24 qubits, 256 shots in
+    chunks of 64, <Z_23> reduced per chunk) counted against the plan; the
+    first chunk's 64 shots again through the kernel, held against the
+    plain path on all of them (PLAIN_CHECK_SHOTS shots per plain call),
+    and its first PLAIN_CHECK_SHOTS shots through the kernel alone."""
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.entry import TRAJ_SEED, trajectory_entry, z_top
+    from quest_tpu_torch.ops import segment as S
+    fn, (gen,) = trajectory_entry()
+    circ, shots, chunk = fn.circuit, fn.shots, fn.chunk
+    n = circ.num_qubits
+    t0 = time.perf_counter()
+    prog = T._compiled_traj(circ, n, "cuda")
+    setup_s = time.perf_counter() - t0
+    planned = prog.launches_per_call
+    warm = torch.rand((chunk, prog.num_channels), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(99))
+    prog(warm)
+    torch.cuda.synchronize()
+    S.segment_sweep.launches = 0
+    S.segment_sweep.stage_launches = {}
+    t0 = time.perf_counter()
+    vals, draws = fn(gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = S.segment_sweep.launches
+    stage_launches = dict(S.segment_sweep.stage_launches)
+    chunks = -(-shots // chunk)
+    with_sel = sum(1 for s in prog.segments if "batchsel" in s.labels)
+    if (launches != planned * chunks
+            or stage_launches.get("batchsel") != with_sel * chunks):
+        raise AssertionError(f"trajectories: {launches} launches "
+                             f"({stage_launches}) for {chunks} chunks of "
+                             f"{planned} ({with_sel} with channel stages)")
+    if not (torch.isfinite(vals).all().item()
+            and vals.abs().max().item() <= 1 + PATH_TOL):
+        raise AssertionError("trajectories: <Z> out of [-1, 1]")
+    # the first chunk again (the run's uniforms), kernel against plain
+    u = torch.rand((shots, prog.num_channels), dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(TRAJ_SEED))
+    ub, k = u[:chunk], PLAIN_CHECK_SHOTS
+    pk, dk = prog(ub)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    err = scale = 0.0
+    draws_equal = torch.equal(dk, draws[:chunk])
+    for lo in range(0, chunk, k):
+        pp, dp = prog.plain(ub[lo:lo + k])
+        draws_equal = draws_equal and torch.equal(dp, dk[lo:lo + k])
+        err = max(err, (pk[lo:lo + k] - pp).abs().max().item())
+        scale = max(scale, pp.abs().max().item())
+        if lo == 0:
+            first_plain = pp
+        del pp
+    torch.cuda.synchronize()
+    plain_chunk_ms = (time.perf_counter() - t0) * 1e3
+    norm_err = (1.0 - pk.double().pow(2).sum(dim=(1, 2))).abs().max().item()
+    z_err = (z_top(pk) - vals[:chunk]).abs().max().item()
+    # the first shots through the kernel alone: the same launches
+    S.segment_sweep.launches = 0
+    p8, d8 = prog(ub[:k])
+    torch.cuda.synchronize()
+    launches8 = S.segment_sweep.launches
+    err8 = (p8 - first_plain).abs().max().item()
+    norm_err8 = (1.0 - p8.double().pow(2).sum(dim=(1, 2))).abs().max().item()
+    if not (draws_equal and torch.equal(d8, dk[:k])
+            and err <= PATH_TOL * scale and err8 <= PATH_TOL * scale
+            and max(norm_err, norm_err8) <= PATH_TOL and z_err <= PATH_TOL
+            and launches8 == planned):
+        raise AssertionError(f"trajectories: draws equal {draws_equal}/"
+                             f"{torch.equal(d8, dk[:k])}, max|diff| {err} and "
+                             f"{err8} at {k} shots (max|amp| {scale}), "
+                             f"|1 - norm| {norm_err}/{norm_err8}, <Z> {z_err}, "
+                             f"{launches8} launches at {k} shots")
+    del pk, p8, first_plain
+    u8 = ub[:k]
+    chunk_ms = time_ms(torch, lambda: prog(ub), 3)
+    plain8_ms = time_ms(torch, lambda: prog.plain(u8), 1)
+    kernel8_ms = time_ms(torch, lambda: prog(u8), 3)
+    bound, bound_by = trajectory_bound(prog, chunk)
+    stats = T.plan_stats(circ, chunk)
+    rec = {"phase": "trajectories", "n": n, "shots": shots,
+           "chunk": chunk, "chunks": chunks,
+           "channels": prog.num_channels, "plan": stats,
+           "launches": launches, "launches_per_chunk": launches / chunks,
+           "planned_per_chunk": planned, f"launches_{k}_shots": launches8,
+           "stage_launches": stage_launches,
+           "wall_s": wall, "shots_per_s": shots / wall,
+           "chunk_ms": chunk_ms, "plain_chunk_ms": plain_chunk_ms,
+           "bound_ms": bound, "bound_by": bound_by,
+           f"ms_{k}_shots": kernel8_ms, f"plain_ms_{k}_shots": plain8_ms,
+           "max_abs_err": err, f"max_abs_err_{k}_shots": err8,
+           "rel_err": err / scale, "max_norm_err": max(norm_err, norm_err8),
+           "branch_rate": draws.ne(0).double().mean().item(),
+           "setup_s": setup_s}
+    emit(rec)
+    del vals, draws
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _pair_library(torch, st, arr, amps, n):
     """One torch.einsum applying the pair's 4x4 operator to a complex64
     copy of the state (bits: op qubit, sliced qubit)."""
@@ -669,7 +991,58 @@ def phase_stage_timing(torch):
                     "bound_by": bound_by, "max_abs_err": err})
         del amps
         torch.cuda.empty_cache()
+    del planes
+    torch.cuda.empty_cache()
+    out += batchsel_timing(torch)
     emit({"phase": "stage_timing", "n": n, "stages": out})
+    return out
+
+
+def batchsel_timing(torch):
+    """S9 alone at 24 qubits x 64 states (8 GiB) on a lane, a row and a
+    scattered bit: kernel, plain version, and one per-state 2x2
+    torch.matmul over a bit view of the complex64 batch as the yardstick
+    (the port never calls it)."""
+    from quest_tpu_torch.entry import random_states
+    from quest_tpu_torch.ops import segment as S
+    n, batch = 24, 64
+    rng = np.random.default_rng(9)
+    amps = random_states(batch, n, seed=9, device="cuda")
+    out = []
+    for name, q in (("batchsel_lane", 3), ("batchsel_row", 10),
+                    ("batchsel_scat", 20)):
+        st, _ = batchsel_op(q, 0)
+        seg = S.prepare_segment([st], [np.zeros((batch, 8), np.float32)], n,
+                                "cuda")
+        table = sel_table(rng, 1, batch, unitary=True)
+        sel = torch.from_numpy(table).cuda()
+        want = S.segment_sweep_reference(amps, seg.stages, seg.operands, n,
+                                         sel)
+        S.segment_sweep(amps, seg, sel)
+        torch.cuda.synchronize()
+        err = (amps - want).abs().max().item()
+        scale = want.abs().max().item()
+        del want
+        torch.cuda.empty_cache()
+        if not err <= BATCHSEL_TOL * scale:
+            raise AssertionError(f"24q x {batch} {name}: max|diff| {err}")
+        ms = time_ms(torch, lambda: S.segment_sweep(amps, seg, sel), 5)
+        plain_ms = time_ms(torch, lambda: S.segment_sweep_reference(
+            amps, seg.stages, seg.operands, n, sel), 1)
+        torch.cuda.empty_cache()
+        g = torch.from_numpy(table[0, :, 0::2] + 1j * table[0, :, 1::2]).to(
+            torch.complex64).cuda().reshape(batch, 1, 2, 2)
+        x = torch.complex(amps[:, 0], amps[:, 1]).reshape(batch, -1, 2, 1 << q)
+        lib_ms = time_ms(torch, lambda: torch.matmul(g, x), 5)
+        del x
+        torch.cuda.empty_cache()
+        bound, bound_by = bound_of([seg], batch=batch)
+        out.append({"name": name, "label": S.stage_label(st), "n": n,
+                    "batch": batch, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "max_abs_err": err})
+    del amps
+    torch.cuda.empty_cache()
     return out
 
 
@@ -684,10 +1057,12 @@ REPLACES = {
     "multiphase": "quest_tpu/ops/pallas_band.py:1289",
     "pair": "quest_tpu/ops/pallas_band.py:1435",
     "diagvec": "quest_tpu/ops/pallas_band.py:1324",
+    "batchsel": "quest_tpu/ops/pallas_band.py:1371",
 }
 # the stage_timing record that stands for each stage kind in the kernels
-# line: a Kraus pair by its most frequent form on the density path
-KERNEL_RECORD = {"pair": "pair_lane_scat"}
+# line: a Kraus pair by its most frequent form on the density path, a
+# channel stage by its most frequent position on the trajectory path
+KERNEL_RECORD = {"pair": "pair_lane_scat", "batchsel": "batchsel_scat"}
 
 
 def main(argv=None) -> int:
@@ -737,6 +1112,20 @@ def main(argv=None) -> int:
     if want("clifford_t_density"):
         ct = phase_clifford_t_density(torch)
         path_launches["diagvec"] = ct["stage_launches"]["diagvec"]
+    if want("batched"):
+        bt = phase_batched(torch)
+        kernels.append({
+            "name": "segment_sweep[batched]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES["segment_sweep"],
+            "launches": bt["launches"], "max_abs_err": bt["max_abs_err"],
+            "ms": bt["ms_per_call"], "plain_ms": bt["plain_ms"],
+            "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
+            "library_ms": None})
+    if want("trajectory_physics"):
+        phase_trajectory_physics(torch)
+    if want("trajectories"):
+        tr = phase_trajectories(torch)
+        path_launches["batchsel"] = tr["stage_launches"]["batchsel"]
     if want("stage_timing"):
         for rec in phase_stage_timing(torch):
             label = rec["label"]

@@ -5,18 +5,20 @@ density-matrix decoherence paths run: the GateOp record, the Circuit
 builder for the gates of random_circuit, qft_circuit and the noisy
 density circuits (Kraus channels as superoperators), dual_of and
 flatten_ops (density duals and superoperator expansion), the scheduled
-flat op list (_planned_flat), compiled_fused and apply_fused. The plan is
-the reference's chain — fusion.schedule, fusion.plan, segment_plan,
+flat op list (_planned_flat), compiled_fused and apply_fused, and the
+batched engine (compiled_batched, apply_batched). The plan is the
+reference's chain — fusion.schedule, fusion.plan, segment_plan,
 sweep_plan — under HOPPER_GEOMETRY; every swept segment then runs as one
-launch of the segment kernel (ops/segment.py), and a multi-target matrix
-the kernel cannot reach (the reference's XLA matrix passthrough) runs
-through ops/apply.apply_matrix_rows between segments.
+launch of the segment kernel (ops/segment.py), for one state or for a
+whole batch of states, and a multi-target matrix the kernel cannot
+reach (the reference's XLA matrix passthrough) runs through
+ops/apply.apply_matrix_rows between segments.
 
 What the reference runs elsewhere is not ported yet and raises
-NotImplementedError naming its ROADMAP item: f64 registers and the XLA
-band/diagonal passthroughs, registers below the fused engine's 10 qubits
-(all A3), mid-circuit measurement, classical control and
-QUEST_FUSED_SCAN (A4), and the BatchSelStage kind (B10).
+NotImplementedError naming its ROADMAP item: f64 registers, the banded
+engine and the XLA band/diagonal passthroughs, registers below the fused
+engine's 10 qubits (all A3), mid-circuit measurement, classical control
+and QUEST_FUSED_SCAN (A4).
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import band_plan as BP
 from quest_tpu_torch.ops import fusion as F
 from quest_tpu_torch.ops import matrices as M
-from quest_tpu_torch.ops.segment import (Segment, prepare_segment,
+from quest_tpu_torch.ops.segment import (Segment, batch_of, prepare_segment,
                                          segment_sweep,
                                          segment_sweep_reference)
 
 _LOOP_UNROLL_MAX = 32
+PLAIN_CHUNK_STATES = 8        # states per plain-path pass of a batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +122,7 @@ class MatrixPass:
         self.n = n
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
+        """Apply to one state's planes, or to a batch of states."""
         op = self.op
         return A.apply_matrix_rows(amps, self.n, op.operand, op.targets,
                                    op.controls, op.cstates)
@@ -140,11 +144,13 @@ def _xla_part_applier(part, n: int) -> MatrixPass:
 
 class FusedProgram:
     """A compiled fused program: call it on (2, 2^n) or (2, rows, 128)
-    f32 planes; it updates them in place (one kernel launch per swept
-    segment on the card, apply_matrix_rows for each matrix passthrough)
-    and returns them. `steps` is one application in order, `segments`
-    its packed segments; `plain(amps)` runs the same plan through the
-    plain PyTorch version, out of place, for comparison."""
+    f32 planes, or on a batch (B, 2, ...) of them; it updates them in
+    place (one kernel launch per swept segment on the card, whatever B
+    is; apply_matrix_rows for each matrix passthrough) and returns them.
+    `steps` is one application in order, `segments` its packed
+    segments; `plain(amps)` runs the same plan through the plain PyTorch
+    version, out of place, PLAIN_CHUNK_STATES states of a batch at a
+    time, for comparison."""
 
     def __init__(self, n: int, steps: List, loop_iters: int):
         self.n = n
@@ -153,6 +159,10 @@ class FusedProgram:
         self.loop_iters = loop_iters
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
+        if amps.dtype == torch.float64:
+            raise NotImplementedError(
+                "f64 registers are not ported yet (ROADMAP A3: the reference "
+                "runs them on its banded engine)")
         for _ in range(self.loop_iters):
             for step in self.steps:
                 if isinstance(step, Segment):
@@ -162,6 +172,10 @@ class FusedProgram:
         return amps
 
     def plain(self, amps: torch.Tensor) -> torch.Tensor:
+        b = batch_of(amps, self.n)
+        if b > PLAIN_CHUNK_STATES:
+            return torch.cat([self.plain(amps[i:i + PLAIN_CHUNK_STATES])
+                              for i in range(0, b, PLAIN_CHUNK_STATES)])
         out = amps
         for _ in range(self.loop_iters):
             for step in self.steps:
@@ -185,6 +199,7 @@ class Circuit:
     def __init__(self, num_qubits: int):
         self.num_qubits = num_qubits
         self.ops: List[GateOp] = []
+        self._compiled = {}     # trajectory programs (trajectories.py)
 
     # -- builders (chainable) ------------------------------------------------
 
@@ -338,6 +353,38 @@ class Circuit:
         fn = self.compiled_fused(q.num_state_qubits, q.is_density, iters,
                                  device=q.amps.device)
         return q.replace_amps(fn(q.amps))
+
+    def compiled_batched(self, batch: int, density: bool = False,
+                         device=None, engine: str = None) -> FusedProgram:
+        """The batched fused engine (ref circuit.py:1352): the circuit's
+        FusedProgram, which takes a batch (B, 2, ...) of states and runs
+        every swept segment as ONE kernel launch over all of them, so the
+        launch count does not depend on the batch. The kernel takes B at
+        launch and nothing planned depends on it, so the program runs any
+        batch at its exact size; `batch` (>= 1) is the reference's
+        signature. engine: None or 'fused'; the reference's vmapped
+        banded program ('banded', and its f64 and sub-10-qubit uses) is
+        ROADMAP A3."""
+        if engine not in (None, "fused", "banded"):
+            raise ValueError(
+                f"engine must be None, 'fused' or 'banded', got {engine!r}")
+        if engine == "banded":
+            raise NotImplementedError(
+                "the vmapped banded batched program is not ported yet "
+                "(ROADMAP A3)")
+        if int(batch) < 1:
+            raise ValueError(f"batch size must be >= 1, got {batch}")
+        n = self.num_qubits * 2 if density else self.num_qubits
+        return self.compiled_fused(n, density, device=device)
+
+    def apply_batched(self, amps_b: torch.Tensor,
+                      density: bool = False) -> torch.Tensor:
+        """Apply this circuit to a (B, 2, 2^n) batch of planes through
+        the batched engine on their device, in place; returns them (ref
+        circuit.py:1469)."""
+        fn = self.compiled_batched(int(amps_b.shape[0]), density,
+                                   device=amps_b.device)
+        return fn(amps_b)
 
 
 # ---------------------------------------------------------------------------

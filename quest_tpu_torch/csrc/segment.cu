@@ -2,9 +2,10 @@
 // the state, one tile per thread block, in place.
 //
 // Replaces the TPU segment driver K1, _decoupled_kernel
-// (quest_tpu/ops/pallas_band.py:1715), with the stage chain
-// _apply_stages (:1528) for the stage kinds of the RCS statevector and
-// density-matrix decoherence paths:
+// (quest_tpu/ops/pallas_band.py:1715), batch dimension included
+// (compile_segment(..., batch=B), :1922), with the stage chain
+// _apply_stages (:1528) for the stage kinds of the RCS statevector,
+// density-matrix decoherence and batched-trajectory paths:
 //   S1 b0   128x128 complex operator on lane bits 0-6       (:1135)
 //   S2 b1   d x d operator on the lowest log2(d) row bits   (:1139)
 //   S3 scb  2^w x 2^w operator over w scattered row bits    (:1156)
@@ -14,7 +15,21 @@
 //   S7 multiphase m phases summed per element, one sincos   (:1289)
 //   S8 diagvec    k-qubit diagonal: entry of a (2, 2^k) table chosen
 //                 by the target-bit pattern, controls           (:1324)
+//   S9 batchsel   per-state 2x2 (a trajectory's drawn Kraus branch) on
+//                 one tile bit                             (:1345-1432)
 //   S10 pair      Kraus pair on (op qubit, sliced qubit)        (:1435)
+//
+// Batch: one launch covers every tile of every state of a batch of B
+// states laid end to end ((B, 2, 2^n) f32): blockIdx.y is the state,
+// whose planes start state * 2 * 2^n floats in (64-bit offsets), and
+// blockIdx.x the tile. S9 reads its state's row of a per-call selection
+// table (slots, B, 8) that the caller writes on the device between
+// launches. The TPU stage builds a 128-wide (or 2^(j+1)-wide) embedded
+// operator from iota masks because the MXU wants a dot; here it is the
+// butterfly it is — 2 complex MACs per amplitude on the bit's tile
+// position (a lane bit, an inner row or a scattered axis alike), in
+// place, the 8 scalars read once per block — a byte-bound pass inside a
+// launch that is already paid for.
 //
 // S10 runs every PairStage form the Hopper planner emits (lane/scat,
 // lane/sub, sub/scat, sc/scat) as one 4x4 butterfly on two tile index
@@ -77,9 +92,12 @@ enum {
   F_KIND = 0, F_DIM = 1, F_POS = 2, F_REAL = 3, F_SI = 4, F_SJ = 5,
   F_LANE_MASK = 6, F_LANE_WANT = 7, F_ROW_MASK = 8, F_ROW_WANT = 9,
   F_OP_OFF = 10, F_FORMS = 11, F_MASKED = 12, F_TARGETS = 13, F_POS2 = 14,
+  F_SLOT = 15,
 };
 enum { K_MAT = 0, K_PHASE = 1, K_PARITY = 2, K_MULTIPHASE = 3, K_PAIR = 4,
-       K_DIAGVEC = 5 };
+       K_DIAGVEC = 5, K_BATCHSEL = 6 };
+constexpr int SEL_WORDS = 8;       // one selection-table row
+constexpr int MAX_GRID_BATCH = 65535;
 constexpr int MAX_DIAG_TARGETS = 7;
 constexpr int TARGET_BITS = 6;     // bits per qubit index in F_TARGETS
 
@@ -350,11 +368,34 @@ __device__ void diagvec_stage(const Tile& t, const long long* ds,
   }
 }
 
+__device__ void batchsel_stage(const Tile& t, const long long* ds,
+                               const float* __restrict__ g) {
+  // g: this state's selection row [g00re, g00im, g01re, g01im, g10re,
+  // g10im, g11re, g11im]; new_0 = g00 x_0 + g01 x_1, new_1 = g10 x_0 +
+  // g11 x_1 on tile bit F_POS. Each thread owns whole pairs: in place.
+  const int p = static_cast<int>(ds[F_POS]);
+  float v[SEL_WORDS];
+#pragma unroll
+  for (int j = 0; j < SEL_WORDS; ++j) v[j] = __ldg(g + j);
+  const int npairs = 1 << (t.bits - 1);
+  for (int f = threadIdx.x; f < npairs; f += NTHREADS) {
+    const int e0 = ((f >> p) << (p + 1)) | (f & ((1 << p) - 1));
+    const int e1 = e0 | (1 << p);
+    const float r0 = t.re[e0], i0 = t.im[e0];
+    const float r1 = t.re[e1], i1 = t.im[e1];
+    t.re[e0] = fmaf(v[0], r0, fmaf(-v[1], i0, fmaf(v[2], r1, -v[3] * i1)));
+    t.im[e0] = fmaf(v[0], i0, fmaf(v[1], r0, fmaf(v[2], i1, v[3] * r1)));
+    t.re[e1] = fmaf(v[4], r0, fmaf(-v[5], i0, fmaf(v[6], r1, -v[7] * i1)));
+    t.im[e1] = fmaf(v[4], i0, fmaf(v[5], r0, fmaf(v[6], i1, v[7] * r1)));
+  }
+}
+
 __global__ void __launch_bounds__(NTHREADS, 1)
-segment_kernel(float* __restrict__ amps, int n, int tile_bits,
+segment_kernel(float* __restrict__ amps_all, int n, int tile_bits,
                int inner_bits, unsigned scat_mask, unsigned free_mask,
                const long long* __restrict__ desc, int nstages,
-               const float* __restrict__ ops) {
+               const float* __restrict__ ops, int batch,
+               const float* __restrict__ sel) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int size = 1 << tile_bits;
@@ -382,8 +423,11 @@ segment_kernel(float* __restrict__ amps, int n, int tile_bits,
   }
   __syncthreads();
 
-  // 64-bit offsets: plane 1 of a 30-qubit state starts 2^30 floats in
+  // 64-bit offsets: plane 1 of a 30-qubit state starts 2^30 floats in,
+  // state s of a batch 2 * 2^n * s floats in
   const long long plane = 1LL << n;
+  const int state = static_cast<int>(blockIdx.y);
+  float* __restrict__ amps = amps_all + 2 * plane * state;
   const int n4 = rows * (1 << (LANE_BITS - 2));     // float4 per plane
   float4* tre4 = reinterpret_cast<float4*>(t.re);
   float4* tim4 = reinterpret_cast<float4*>(t.im);
@@ -417,7 +461,10 @@ segment_kernel(float* __restrict__ amps, int n, int tile_bits,
       case K_PARITY: parity_stage(t, g); break;
       case K_MULTIPHASE: multiphase_stage(t, ds, g, s_ang, s_lm, s_rm); break;
       case K_PAIR: pair_stage(t, ds, g); break;
-      default: diagvec_stage(t, ds, g); break;
+      case K_DIAGVEC: diagvec_stage(t, ds, g); break;
+      case K_BATCHSEL:
+        batchsel_stage(t, ds, sel + (ds[F_SLOT] * batch + state) * SEL_WORDS);
+        break;
     }
     __syncthreads();
   }
@@ -449,25 +496,30 @@ const char* quest_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launch one segment on `stream`. Returns the launch's cudaError_t:
-// nothing is allocated and nothing is synchronised here.
+// Launch one segment over `batch` states on `stream` (`sel`: the
+// selection table (slots, batch, 8), or null when no stage reads it).
+// Returns the launch's cudaError_t: nothing is allocated and nothing is
+// synchronised here.
 int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
                         unsigned scat_mask, unsigned free_mask,
                         const void* desc, int nstages, const void* ops,
-                        long long blocks, void* stream) {
-  if (tile_bits < LANE_BITS + 3 || tile_bits > MAX_TILE_BITS)
+                        long long blocks, int batch, const void* sel,
+                        void* stream) {
+  if (tile_bits < LANE_BITS + 3 || tile_bits > MAX_TILE_BITS
+      || batch < 1 || batch > MAX_GRID_BATCH)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = quest_segment_smem_bytes(tile_bits);
   cudaError_t e = cudaFuncSetAttribute(
       segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(quest_segment_smem_bytes(MAX_TILE_BITS)));
   if (e != cudaSuccess) return static_cast<int>(e);
-  segment_kernel<<<static_cast<unsigned>(blocks), NTHREADS,
-                   static_cast<size_t>(smem),
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
+  segment_kernel<<<grid, NTHREADS, static_cast<size_t>(smem),
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(amps), n, tile_bits, inner_bits, scat_mask,
       free_mask, static_cast<const long long*>(desc), nstages,
-      static_cast<const float*>(ops));
+      static_cast<const float*>(ops), batch,
+      static_cast<const float*>(sel));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,6 +12,18 @@ depth 3, seed 11) to a 14-qubit density register at |0><0| — 28 state
 qubits, the flagship's 2 GiB — through the same engine: every channel
 runs inside the segment kernel as a Kraus pair.
 
+batched_entry(device=None) -> (fn, (amps_b,)): fn(amps_b) applies the
+flagship's circuit cut to 24 qubits (random_circuit(24, 4, seed=7)) to a
+batch of 64 random normalised states (seeded, made on the device; an
+8 GiB batch) through the batched engine, one launch per swept segment
+for the whole batch, in place.
+
+trajectory_entry(device=None) -> (fn, (generator,)): fn(generator) runs
+the repo bench's trajectory scenario — noisy_rcs_circuit(24, 3), 256
+shots in chunks of 64 through trajectories.run_batched — and returns
+(per-shot <Z_23> (256,), draws (256, 75)); the observable reduces each
+chunk on the device, as the bench does, so no chunk's planes outlive it.
+
 The two other density circuits the smoke test drives are here too:
 bench_density_circuit (the repo's density bench scenario: rotations,
 damping, a 2-qubit depolarising Kraus map and a Pauli Kraus map) and
@@ -22,7 +34,9 @@ qubit, whose plans carry general diagonals).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from quest_tpu_torch import trajectories as T
 from quest_tpu_torch.circuit import Circuit, random_circuit
 from quest_tpu_torch.env import resolve_device
 from quest_tpu_torch.ops import matrices as M
@@ -32,6 +46,13 @@ FLAGSHIP_QUBITS = 28
 FLAGSHIP_DEPTH = 4
 DENSITY_QUBITS = 14           # 28 state qubits
 DENSITY_DEPTH = 3
+BATCHED_QUBITS = 24
+BATCHED_STATES = 64           # 64 x 128 MiB = an 8 GiB batch
+TRAJ_QUBITS = 24              # bench.py _measure_trajectories on a chip
+TRAJ_DEPTH = 3
+TRAJ_SHOTS = 256
+TRAJ_CHUNK = 64
+TRAJ_SEED = 0
 
 
 def flagship_circuit(num_qubits: int = FLAGSHIP_QUBITS,
@@ -127,3 +148,51 @@ def density_entry(device=None, num_qubits: int = DENSITY_QUBITS,
         n, density=True, device=dev)
     amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=dev)
     return fn, (amps,)
+
+
+def random_states(batch: int, n: int, seed: int = 7, device=None):
+    """(batch, 2, 2^(n-7), 128) f32 planes of `batch` random normalised
+    states, drawn from a seeded generator on `device` (default: the CUDA
+    card)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    amps = torch.randn((batch,) + fused_state_shape(n), generator=gen,
+                       device=dev)
+    norms = amps.double().pow(2).sum(dim=(1, 2, 3)).sqrt()
+    return amps.div_(norms.to(torch.float32).reshape(-1, 1, 1, 1))
+
+
+def batched_entry(device=None, num_qubits: int = BATCHED_QUBITS,
+                  depth: int = FLAGSHIP_DEPTH, batch: int = BATCHED_STATES):
+    """(fn, (amps_b,)) of the batched step on `device` (default: the CUDA
+    card; raises without one): the depth-`depth` flagship circuit on a
+    batch of `batch` random normalised `num_qubits`-qubit states."""
+    dev = resolve_device(device)
+    fn = flagship_circuit(num_qubits, depth).compiled_batched(batch, device=dev)
+    return fn, (random_states(batch, num_qubits, device=dev),)
+
+
+def z_top(planes: torch.Tensor) -> torch.Tensor:
+    """Per-shot <Z> of the highest qubit of (shots, 2, 2^n) planes, the
+    bench's trajectory observable (bench.py _measure_trajectories)."""
+    v = (planes[:, 0] ** 2 + planes[:, 1] ** 2).reshape(planes.shape[0], 2, -1)
+    return (v[:, 0] - v[:, 1]).sum(dim=1)
+
+
+def trajectory_entry(device=None, num_qubits: int = TRAJ_QUBITS,
+                     depth: int = TRAJ_DEPTH, shots: int = TRAJ_SHOTS,
+                     chunk: int = TRAJ_CHUNK, seed: int = TRAJ_SEED):
+    """(fn, (generator,)) of the trajectory step on `device` (default:
+    the CUDA card; raises without one): fn(generator) runs `shots`
+    trajectories of noisy_rcs_circuit(num_qubits, depth) in chunks of
+    `chunk` and returns (per-shot <Z_top>, draws). The generator is
+    seeded with `seed` on the CPU; fn.circuit, fn.shots and fn.chunk name
+    the run."""
+    dev = resolve_device(device)
+    circ = noisy_rcs_circuit(num_qubits, depth)
+
+    def fn(generator):
+        return T.run_batched(circ, shots, generator=generator, chunk=chunk,
+                             observable=z_top, device=dev)
+    fn.circuit, fn.shots, fn.chunk = circ, shots, chunk
+    return fn, (torch.Generator().manual_seed(seed),)

@@ -3,8 +3,9 @@
 A copy of the registry pattern in quest_tpu/env.py (`KNOBS` /
 `knob_value`), holding only the knobs the port reads. Each knob parses
 loudly: a malformed value raises ValueError instead of falling back.
-The engines read the knobs when they plan (Circuit.compiled_fused), so a
-flip takes effect on the next compiled_fused call.
+The engines read the knobs when they plan (Circuit.compiled_fused,
+compiled_batched, trajectories.run_batched), so a flip takes effect on
+the next such call.
 """
 
 from __future__ import annotations

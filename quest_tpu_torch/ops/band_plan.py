@@ -192,9 +192,11 @@ class MultiPhaseStage:
 @dataclasses.dataclass(frozen=True)
 class BatchSelStage:
     """Per-STATE 2x2 operator on one GLOBAL qubit (the batched trajectory
-    engine's channel stage). Planned here, executed by no port kernel
-    yet (ROADMAP B10). A barrier stage pins itself to the front of its
-    launch."""
+    engine's channel stage): each state of the batch applies its own row
+    of a per-call selection table (ops/segment.py). `index` is the
+    channel's index in program order, which is also its table slot. A
+    barrier stage (a state-dependent draw) pins itself to the front of
+    its launch."""
     qubit: int
     index: int
     barrier: bool = True
@@ -600,6 +602,55 @@ def sweep_plan(parts, n: int, *, budgets: Budgets = HOPPER_GEOMETRY):
         out.append(("segment", stages, arrays))
         cur_scat, cur_floor, cur_bytes = set(scat), floor, nbytes
     return out
+
+
+def maybe_sweep(parts, n: int, *, budgets: Budgets = HOPPER_GEOMETRY):
+    """sweep_plan honouring the QUEST_SWEEP_FUSION knob (ref
+    pallas_band.maybe_sweep)."""
+    from quest_tpu_torch.env import knob_value
+    if not knob_value("QUEST_SWEEP_FUSION"):
+        return list(parts)
+    return sweep_plan(parts, n, budgets=budgets)
+
+
+def sweep_stats(parts) -> dict:
+    """Sweep statistics of a (swept) part list: every part, kernel sweep
+    or passthrough, is one full-state pass per application (ref
+    pallas_band.sweep_stats)."""
+    segs = [p for p in parts if p[0] == "segment"]
+    return {
+        "hbm_sweeps": len(parts),
+        "kernel_sweeps": len(segs),
+        "xla_passthroughs": len(parts) - len(segs),
+        "sweep_stages": [len(p[1]) for p in segs],
+    }
+
+
+def batched_stats(parts, batch: int, bucket: int = None) -> dict:
+    """Batched-plan statistics of a (swept) part list (ref
+    pallas_band.batched_stats:822): every state of the bucket rides every
+    sweep of the same part list, so `hbm_sweeps` (launches and
+    passthroughs per application) does not depend on the batch."""
+    sw = sweep_stats(parts)
+    bucket = int(batch) if bucket is None else int(bucket)
+    return {
+        "batch": int(batch),
+        "bucket": bucket,
+        "states_per_sweep": bucket,
+        "hbm_sweeps": sw["hbm_sweeps"],
+        "kernel_sweeps": sw["kernel_sweeps"],
+        "batched_stages": sum(
+            1 for p in parts if p[0] == "segment"
+            for st in p[1] if isinstance(st, BatchSelStage)),
+    }
+
+
+def sweep_steps(stages, n: int, batch: int = 1, *,
+                budgets: Budgets = HOPPER_GEOMETRY) -> int:
+    """Thread blocks one launch of `stages` runs: tiles per state times
+    the batch (ref pallas_band.sweep_steps:846, the grid steps of one
+    compiled sweep)."""
+    return segment_geometry(stages, n, budgets=budgets).blocks * int(batch)
 
 
 # ---------------------------------------------------------------------------

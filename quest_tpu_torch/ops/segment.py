@@ -8,14 +8,23 @@ descriptors and one device buffer with every operand in the reference's
 packing and orientation. It runs once per segment when a program is
 compiled, never per call.
 
-`segment_sweep(amps, seg)` applies the segment in place. On a CUDA
-tensor it launches the hand-written kernel (csrc/segment.cu) and counts
-the launch in `segment_sweep.launches`, and once for each stage kind the
-segment holds in `segment_sweep.stage_launches` (keyed by
-`stage_label`); on a CPU tensor it runs the
-plain version, `segment_sweep_reference`, which applies each stage to
-the whole state with reshapes that expose the band bits and torch.matmul
-for the contractions. It does not share the kernel's tiling.
+`segment_sweep(amps, seg, sel)` applies the segment in place, to one
+state's planes or to a batch of states (B, 2, 2^n) in one launch. On a
+CUDA tensor it launches the hand-written kernel (csrc/segment.cu) and
+counts the launch in `segment_sweep.launches`, and once for each stage
+kind the segment holds in `segment_sweep.stage_launches` (keyed by
+`stage_label`); on a CPU tensor it runs the plain version,
+`segment_sweep_reference`, which applies each stage to the whole batch
+with reshapes that expose the band bits and torch.matmul for the
+contractions. It does not share the kernel's tiling.
+
+Per-state channel branches (BatchSelStage, the batched trajectory
+engine's stage) read the per-call selection table `sel`, one device
+tensor of shape (slots, B, 8): row sel[slot, b] is state b's selected
+2x2 [g00re, g00im, g01re, g01im, g10re, g10im, g11re, g11im] for the
+channel in that slot (the stage's `index`). The caller writes the table
+on the device between launches; the descriptors and operand buffer
+never change per call.
 
 Kraus pairs (PairStage) reach the kernel as a 4x4 butterfly on two tile
 bits: the packer reduces the 128x128 embedded blocks of 'lane' and 'b1'
@@ -37,46 +46,44 @@ from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops.apply import bit_view
 from quest_tpu_torch.ops.band_plan import (
     HOPPER_GEOMETRY, LANE_QUBITS, LANES, Budgets, DiagVecStage, Geometry,
-    MatStage, MultiPhaseStage, PairStage, ParityStage, PhaseStage,
-    segment_geometry)
+    BatchSelStage, MatStage, MultiPhaseStage, PairStage, ParityStage,
+    PhaseStage, segment_geometry)
 
 DESC_WORDS = 16
 # descriptor columns (csrc/segment.cu enum F_*)
 (F_KIND, F_DIM, F_POS, F_REAL, F_SI, F_SJ, F_LANE_MASK, F_LANE_WANT,
  F_ROW_MASK, F_ROW_WANT, F_OP_OFF, F_FORMS, F_MASKED, F_TARGETS,
- F_POS2) = range(15)
-K_MAT, K_PHASE, K_PARITY, K_MULTIPHASE, K_PAIR, K_DIAGVEC = range(6)
+ F_POS2, F_SLOT) = range(16)
+K_MAT, K_PHASE, K_PARITY, K_MULTIPHASE, K_PAIR, K_DIAGVEC, K_BATCHSEL = range(7)
 MAT_DIMS = (2, 4, 8, 16, 32, 64, 128)
 MAX_MULTIPHASE_ROWS = 64
 MAX_TILE_BITS = 14
 MAX_DIAG_TARGETS = 7          # fusion.DIAG_FUSE_MAX
 TARGET_BITS = 6               # bits per qubit index in F_TARGETS
+SEL_WORDS = 8                 # one selection-table row: a complex 2x2
+MAX_GRID_BATCH = 65535        # states per launch (gridDim.y)
 
-_UNPORTED = {
-    "BatchSelStage": "ROADMAP B10 (batched trajectories)",
-}
 _PORTED = (MatStage, PhaseStage, ParityStage, MultiPhaseStage, PairStage,
-           DiagVecStage)
+           DiagVecStage, BatchSelStage)
 
 
 def check_supported(stages) -> None:
-    """Raise NotImplementedError naming the ROADMAP item of the first
-    stage kind the port's kernel does not run."""
+    """Raise NotImplementedError for a stage kind the port's kernel does
+    not run."""
     for st in stages:
         if not isinstance(st, _PORTED):
-            name = type(st).__name__
             raise NotImplementedError(
-                f"{name} is not ported yet: {_UNPORTED.get(name, 'ROADMAP B')}")
+                f"{type(st).__name__} is not ported yet (ROADMAP B)")
 
 
 def stage_label(st) -> str:
     """Stage kind as the launch counts name it: b0, b1, scb<d>, sc, phase,
-    parity, multiphase, pair or diagvec."""
+    parity, multiphase, pair, diagvec or batchsel."""
     if isinstance(st, MatStage):
         return f"scb{st.dim}" if st.kind == "scb" else st.kind
     return {PhaseStage: "phase", ParityStage: "parity",
             MultiPhaseStage: "multiphase", PairStage: "pair",
-            DiagVecStage: "diagvec"}[type(st)]
+            DiagVecStage: "diagvec", BatchSelStage: "batchsel"}[type(st)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +101,8 @@ class Segment:
     scat_mask: int                       # scattered global row bits
     free_mask: int                       # row bits taken by the block index
     labels: FrozenSet[str]               # stage_label of each stage
+    slots: Tuple[int, ...]               # selection-table slots read by
+    # its BatchSelStages, in stage order
 
     @property
     def device(self) -> torch.device:
@@ -216,6 +225,18 @@ def _diagvec_row(st: DiagVecStage, arr: np.ndarray) -> list:
     return _set_preds(row, st)
 
 
+def _batchsel_row(st: BatchSelStage, geo: Geometry) -> list:
+    """Descriptor of a BatchSelStage: the tile position of its qubit (a
+    lane bit, an inner row or a scattered axis) in F_POS, its
+    selection-table slot in F_SLOT."""
+    q = st.qubit
+    row = [0] * DESC_WORDS
+    row[F_KIND] = K_BATCHSEL
+    row[F_POS] = q if q < LANE_QUBITS else _tile_pos(geo, q - LANE_QUBITS)
+    row[F_SLOT] = st.index
+    return row
+
+
 def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
                     device, budgets: Budgets = HOPPER_GEOMETRY) -> Segment:
     """Pack one segment — its geometry, a descriptor table (one int64 row
@@ -235,6 +256,11 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
         kernel_arr = arr
         if isinstance(st, PairStage):
             row, kernel_arr = _pair_row(st, arr, geo)
+        elif isinstance(st, BatchSelStage):
+            # its operand is the per-call selection table, not a buffer
+            # entry; the planner's (batch, 8) placeholder stays host-side
+            row = _batchsel_row(st, geo)
+            kernel_arr = np.zeros(0, np.float32)
         elif isinstance(st, DiagVecStage):
             row = _diagvec_row(st, arr)
         elif isinstance(st, MatStage):
@@ -278,7 +304,9 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
                    desc=torch.from_numpy(desc).to(dev), ops=ops,
                    operands=operands, scat_mask=scat_mask,
                    free_mask=free_mask,
-                   labels=frozenset(stage_label(st) for st in stages))
+                   labels=frozenset(stage_label(st) for st in stages),
+                   slots=tuple(st.index for st in stages
+                               if isinstance(st, BatchSelStage)))
 
 
 # ---------------------------------------------------------------------------
@@ -292,7 +320,7 @@ def _lib() -> ctypes.CDLL:
         vp, ci, cu, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                            ctypes.c_longlong)
         lib.quest_segment_sweep.argtypes = [vp, ci, ci, ci, cu, cu, vp, ci,
-                                            vp, cll, vp]
+                                            vp, cll, ci, vp, vp]
         lib.quest_segment_sweep.restype = ci
         lib.quest_segment_desc_words.restype = ci
         lib.quest_segment_max_tile_bits.restype = ci
@@ -309,30 +337,69 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_state(amps: torch.Tensor, seg: Segment) -> None:
+def batch_of(amps: torch.Tensor, n: int) -> int:
+    """0 for one state's planes ((2, 2^n) or (2, rows, 128)), B for a
+    batch of states ((B, 2, 2^n) or (B, 2, rows, 128)). Raises ValueError
+    for any other shape."""
+    shape = tuple(amps.shape)
+    if amps.dim() in (2, 3) and shape[0] == 2 and amps.numel() == 2 << n:
+        if amps.dim() == 2 or shape[2] == LANES:
+            return 0
+    elif amps.dim() in (3, 4) and shape[0] >= 1 and shape[1] == 2:
+        tail = shape[2:]
+        if tail in ((1 << n,), (1 << (n - LANE_QUBITS), LANES)):
+            return shape[0]
+    raise ValueError(f"state of shape {shape} is not (2, 2^{n}), "
+                     f"(2, rows, 128) or a batch (B, 2, ...) of either")
+
+
+def _check_state(amps: torch.Tensor, seg: Segment) -> int:
+    """Validate the state; returns the states it holds (1 unbatched)."""
     if amps.dtype != torch.float32:
         raise TypeError(f"segment_sweep takes float32 planes, got {amps.dtype}")
-    if amps.numel() != 2 << seg.n or amps.shape[0] != 2 or amps.dim() not in (2, 3):
-        raise ValueError(f"state of shape {tuple(amps.shape)} is not "
-                         f"(2, 2^{seg.n}) or (2, rows, 128)")
-    if amps.dim() == 3 and amps.shape[2] != LANES:
-        raise ValueError(f"state view {tuple(amps.shape)} must end in 128 lanes")
+    batch = max(1, batch_of(amps, seg.n))
     if not amps.is_contiguous():
         raise ValueError("segment_sweep needs a contiguous state")
     if amps.device != seg.device:
         raise ValueError(f"state on {amps.device}, segment on {seg.device}")
+    return batch
 
 
-def segment_sweep(amps: torch.Tensor, seg: Segment) -> torch.Tensor:
-    """Apply segment `seg` to `amps` ((2, 2^n) or (2, rows, 128) f32) in
-    place and return it: one kernel launch on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    _check_state(amps, seg)
+def _check_sel(sel, seg: Segment, batch: int) -> None:
+    if not seg.slots:
+        return
+    if sel is None:
+        raise ValueError("a segment with BatchSelStages needs a selection "
+                         "table (slots, B, 8)")
+    if (sel.dtype != torch.float32 or sel.dim() != 3
+            or tuple(sel.shape[1:]) != (batch, SEL_WORDS)
+            or sel.shape[0] <= max(seg.slots)):
+        raise ValueError(f"selection table {tuple(sel.shape)} {sel.dtype} is "
+                         f"not float32 (> {max(seg.slots)}, {batch}, 8)")
+    if not sel.is_contiguous() or sel.device != seg.device:
+        raise ValueError(f"selection table must be contiguous on "
+                         f"{seg.device}")
+
+
+def segment_sweep(amps: torch.Tensor, seg: Segment,
+                  sel: torch.Tensor = None) -> torch.Tensor:
+    """Apply segment `seg` in place to `amps` — one state's planes ((2,
+    2^n) or (2, rows, 128) f32) or a batch of B states ((B, 2, 2^n) or
+    (B, 2, rows, 128)) — and return it: one kernel launch on a CUDA
+    tensor whatever B is, the plain version on a CPU tensor. `sel` is
+    the selection table (slots, B, 8) its BatchSelStages read (B = 1
+    for unbatched planes); None when it has none."""
+    batch = _check_state(amps, seg)
+    _check_sel(sel, seg, batch)
     if amps.device.type == "cpu":
-        out = segment_sweep_reference(amps, seg.stages, seg.operands, seg.n)
+        out = segment_sweep_reference(amps, seg.stages, seg.operands, seg.n,
+                                      sel)
         return amps.copy_(out.reshape(amps.shape))
     if amps.device.type != "cuda":
         raise ValueError(f"segment_sweep runs on cuda or cpu, not {amps.device}")
+    if batch > MAX_GRID_BATCH:
+        raise ValueError(f"{batch} states exceed one launch's "
+                         f"{MAX_GRID_BATCH}")
     lib = _lib()
     geo = seg.geometry
     with torch.cuda.device(amps.device):
@@ -340,7 +407,8 @@ def segment_sweep(amps: torch.Tensor, seg: Segment) -> torch.Tensor:
         rc = lib.quest_segment_sweep(
             amps.data_ptr(), seg.n, geo.tile_bits, geo.inner_bits,
             seg.scat_mask, seg.free_mask, seg.desc.data_ptr(),
-            len(seg.stages), seg.ops.data_ptr(), geo.blocks, stream)
+            len(seg.stages), seg.ops.data_ptr(), geo.blocks, batch,
+            sel.data_ptr() if seg.slots else None, stream)
     if rc != 0:
         raise RuntimeError(
             f"segment kernel launch failed: CUDA error {rc} "
@@ -394,9 +462,18 @@ def _row_mask(lo, hi) -> int:
     return int(lo) | (int(hi) << 15)
 
 
+def _states_view(n: int, qubits, batch: int):
+    """bit_view of a batch of `batch` n-qubit states laid end to end: the
+    batch joins the highest gap axis."""
+    dims, axis_of = bit_view(n, qubits)
+    dims[0] *= batch
+    return dims, axis_of
+
+
 def _contract(re, im, g, st: MatStage, n: int):
-    """Apply the stage's operator to the planes (each (2^n,) flat):
-    out[.., i, ..] = sum_j G[i, j] x[.., j, ..] over the stage's bits."""
+    """Apply the stage's operator to the planes (each B x 2^n amplitudes,
+    the states end to end): out[.., i, ..] = sum_j G[i, j] x[.., j, ..]
+    over the stage's bits."""
     d = st.dim
     w = d.bit_length() - 1
     if st.kind == "b0":
@@ -407,7 +484,7 @@ def _contract(re, im, g, st: MatStage, n: int):
         q0 = LANE_QUBITS + st.bit
     transposed = st.kind in ("b0", "b1") or (st.kind == "scb" and d == LANES)
     gre, gim = (g[0].T, g[1].T) if transposed else (g[0], g[1])
-    shape = (1 << (n - q0 - w), d, 1 << q0)
+    shape = (-1, d, 1 << q0)
     xr, xi = re.reshape(shape), im.reshape(shape)
     if st.real_only:
         return torch.matmul(gre, xr), torch.matmul(gre, xi)
@@ -416,7 +493,7 @@ def _contract(re, im, g, st: MatStage, n: int):
     return nre, nim
 
 
-def _pair(re, im, g, st: PairStage, n: int):
+def _pair(re, im, g, st: PairStage, n: int, batch: int):
     """Apply a Kraus pair to the planes ((rows, 128) each): the sliced
     qubit's halves c select blocks B[r*2+c] applied on the op side,
     out_r = sum_c B[r*2+c] x_c (ref _apply_pair_stage). 2-wide forms
@@ -427,7 +504,7 @@ def _pair(re, im, g, st: PairStage, n: int):
     if st.op_dim == 2:
         v = g.cpu().numpy()
         q_op = LANE_QUBITS + st.op_bit
-        dims, axis_of = bit_view(n, (q_op, q_sl))
+        dims, axis_of = _states_view(n, (q_op, q_sl), batch)
         a_op, a_sl = axis_of[q_op], axis_of[q_sl]
 
         def part(x, sl, o):
@@ -448,7 +525,7 @@ def _pair(re, im, g, st: PairStage, n: int):
                 part(nre, r, ao).copy_(acc_r)
                 part(nim, r, ao).copy_(acc_i)
         return nre, nim
-    dims, _ = bit_view(n, (q_sl,))
+    dims, _ = _states_view(n, (q_sl,), batch)
 
     def half(x, c):
         return x.view(dims).narrow(1, c, 1)
@@ -473,7 +550,7 @@ def _pair(re, im, g, st: PairStage, n: int):
     return nre, nim
 
 
-def _diagvec(re, im, g, st: DiagVecStage, n: int):
+def _diagvec(re, im, g, st: DiagVecStage, n: int, batch: int):
     """Multiply each amplitude by the table entry its target bits select,
     where its predicates hold (ref _apply_diagvec_stage): the table is
     expanded over one axis per target and predicate bit of a per-axis
@@ -481,7 +558,7 @@ def _diagvec(re, im, g, st: DiagVecStage, n: int):
     preds = ([(b, w) for b, w in st.lane_preds]
              + [(LANE_QUBITS + b, w) for b, w in st.row_preds])
     qubits = sorted(set(st.targets) | {q for q, _ in preds}, reverse=True)
-    dims, axis_of = bit_view(n, qubits)
+    dims, axis_of = _states_view(n, qubits, batch)
     v = g.cpu().numpy().astype(np.float64)
     table = v[0] + 1j * v[1]
     bits = np.arange(1 << len(qubits))    # bit i of a combo <-> qubits[i]
@@ -501,28 +578,59 @@ def _diagvec(re, im, g, st: DiagVecStage, n: int):
     return nre.reshape(re.shape), nim.reshape(im.shape)
 
 
+def _batchsel(re, im, rows, q: int):
+    """Apply each state's 2x2 (its (8,) row of `rows`, (B, 8)) on qubit q:
+    new_0 = g00 x_0 + g01 x_1, new_1 = g10 x_0 + g11 x_1 (ref
+    _apply_batchsel_stage, here on a per-state view of the bit)."""
+    b = rows.shape[0]
+    v = [rows[:, j].reshape(b, 1, 1) for j in range(SEL_WORDS)]
+    xr = re.reshape(b, -1, 2, 1 << q)
+    xi = im.reshape(b, -1, 2, 1 << q)
+    r0, r1, i0, i1 = xr[:, :, 0], xr[:, :, 1], xi[:, :, 0], xi[:, :, 1]
+    out = []
+    for a in (0, 4):           # output bit 0 from row 0, bit 1 from row 1
+        out.append((v[a] * r0 - v[a + 1] * i0 + v[a + 2] * r1 - v[a + 3] * i1,
+                    v[a] * i0 + v[a + 1] * r0 + v[a + 2] * i1 + v[a + 3] * r1))
+    nre = torch.stack([out[0][0], out[1][0]], dim=2).reshape(re.shape)
+    nim = torch.stack([out[0][1], out[1][1]], dim=2).reshape(im.shape)
+    return nre, nim
+
+
 def segment_sweep_reference(amps: torch.Tensor, stages: Sequence,
-                            arrays: Sequence, n: int) -> torch.Tensor:
+                            arrays: Sequence, n: int,
+                            sel: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch version of one segment: every stage applied to the
-    whole state in turn. `arrays` are the planner's operands (numpy or
-    torch). Returns new (2, 2^(n-7), 128) planes; `amps` is not
-    changed."""
+    whole state, or to every state of a batch, in turn. `arrays` are the
+    planner's operands (numpy or torch); a BatchSelStage reads its slot
+    of the selection table `sel` (slots, B, 8) instead. Returns new (2,
+    2^(n-7), 128) planes, or (B, 2, 2^(n-7), 128) for a batch; `amps` is
+    not changed."""
     check_supported(stages)
     precision.ieee_fp32()
     dev = amps.device
-    x = amps.reshape(2, -1, LANES)
-    re, im = x[0], x[1]
+    batched = batch_of(amps, n)
+    batch = max(1, batched)
+    # the states end to end in each plane: the batch index becomes the
+    # highest row bits, which no stage's masks or bits reach
+    x = amps.reshape(batch, 2, -1, LANES)
+    re, im = x[:, 0].reshape(-1, LANES), x[:, 1].reshape(-1, LANES)
     rows = re.shape[0]
     lane = torch.arange(LANES, device=dev).reshape(1, LANES)
     row = torch.arange(rows, device=dev).reshape(rows, 1)
     for st, arr in zip(stages, arrays):
+        if isinstance(st, BatchSelStage):
+            if sel is None or tuple(sel.shape[1:]) != (batch, SEL_WORDS):
+                raise ValueError(f"BatchSelStage needs a selection table "
+                                 f"(slots, {batch}, 8)")
+            re, im = _batchsel(re, im, sel[st.index].to(dev), st.qubit)
+            continue
         g = torch.as_tensor(arr, dtype=torch.float32, device=dev)
         if isinstance(st, DiagVecStage):
-            re, im = _diagvec(re, im, g, st, n)
+            re, im = _diagvec(re, im, g, st, n, batch)
             continue
         if isinstance(st, (MatStage, PairStage)):
             if isinstance(st, PairStage):
-                nre, nim = _pair(re, im, g, st, n)
+                nre, nim = _pair(re, im, g, st, n, batch)
             else:
                 nre, nim = _contract(re, im, g, st, n)
                 nre, nim = nre.reshape(rows, LANES), nim.reshape(rows, LANES)
@@ -556,4 +664,7 @@ def segment_sweep_reference(amps: torch.Tensor, stages: Sequence,
                     tot = tot + (ang * _sign(lane, lm)) * _sign(row, rm)
             cs, sn = torch.cos(tot), torch.sin(tot)
             re, im = re * cs - im * sn, re * sn + im * cs
-    return torch.stack([re, im])
+    if not batched:
+        return torch.stack([re, im])
+    return torch.stack([re.reshape(batch, -1, LANES),
+                        im.reshape(batch, -1, LANES)], dim=1)

@@ -183,3 +183,19 @@ def validate_two_qubit_depol_prob(p: float):
 
 def validate_one_qubit_damping_prob(p: float):
     validate_prob(p)
+
+
+_VALIDATED_KRAUS: set = set()
+
+
+def _validate_kraus_once(ops, num_targets: int) -> None:
+    """validate_kraus_ops memoised by value (ref trajectories.py:49): the
+    CPTP check is O(m d^3) host work, and the batched trajectory engine
+    plans the same channel many times. One validation per distinct
+    (target count, operator values) channel per process."""
+    key = (num_targets, tuple((np.shape(K), np.asarray(K).tobytes())
+                              for K in ops))
+    if key in _VALIDATED_KRAUS:
+        return
+    validate_kraus_ops(ops, num_targets)
+    _VALIDATED_KRAUS.add(key)

@@ -208,6 +208,18 @@ def test_unported_paths_raise(monkeypatch):
     monkeypatch.setenv("QUEST_MATMUL_PRECISION", "bogus")
     with pytest.raises(ValueError):
         precision.matmul_precision()
+    monkeypatch.delenv("QUEST_MATMUL_PRECISION")
+    # the batched engine and trajectories run; their other engines raise
+    assert c.compiled_batched(3, device="cpu").launches_per_call >= 1
+    with pytest.raises(NotImplementedError, match="A3"):
+        c.compiled_batched(3, engine="banded", device="cpu")
+    from quest_tpu_torch import trajectories as T
+    noisy = Circuit(12).h(0).damping(0, 0.2)
+    gen = torch.Generator().manual_seed(0)
+    assert T.run_batched(noisy, 2, generator=gen, device="cpu")[1].shape == (
+        2, 1)
+    with pytest.raises(NotImplementedError, match="A13"):
+        T.run_batched(noisy, 2, generator=gen, engine="host", device="cpu")
 
 
 def test_builder_raises_reference_codes():

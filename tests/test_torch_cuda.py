@@ -172,3 +172,70 @@ def test_density_path_matches_plain_version(card, build):
     q = Qureg(amps, nd, is_density=True)
     assert abs(1.0 - K.calc_total_prob(q)) <= 1e-4
     assert K.calc_purity(q) <= 1.0 + 1e-4
+
+
+def _sel_rows(rng, slots, batch):
+    g = (rng.standard_normal((slots, batch, 8)) / 2).astype(np.float32)
+    return torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("qubit", [3, 7, 12, 13, 16],
+                         ids=["lane", "row0", "row5", "row6", "scat"])
+def test_batchsel_stage_matches_plain_version(card, qubit):
+    """S9 on each tile position, a batch of 5 states, each with its own
+    selection row, against the plain version within 1e-6 x max|amp|."""
+    n, batch = 17, 5
+    rng = np.random.default_rng(qubit)
+    st = BP.BatchSelStage(qubit, 1)
+    seg = S.prepare_segment([st], [np.zeros((batch, 8), np.float32)], n, card)
+    amps = torch.from_numpy(rng.standard_normal(
+        (batch, 2, 1 << n)).astype(np.float32)).to(card)
+    sel = _sel_rows(rng, 2, batch).to(card)
+    want = S.segment_sweep_reference(amps, seg.stages, seg.operands, n, sel)
+    before = S.segment_sweep.launches
+    S.segment_sweep(amps, seg, sel)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.launches == before + 1
+    err = (amps.reshape(-1) - want.reshape(-1)).abs().max().item()
+    assert err <= 1e-6 * want.abs().max().item()
+
+
+def test_batched_program_matches_plain_and_unbatched(card):
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.entry import random_states
+    n = 16
+    c = random_circuit(n, 3, seed=7)
+    fn = c.compiled_batched(5, device=card)
+    single = c.compiled_fused(n, device=card)
+    amps = random_states(5, n, device=card)
+    first = amps[0].clone()
+    want = fn.plain(amps)
+    before = S.segment_sweep.launches
+    fn(amps)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.launches - before == single.launches_per_call
+    err = (amps - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item()
+    assert (single(first) - amps[0]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_trajectory_launches_independent_of_batch(card, batch):
+    """One chunk launches the segment kernel once per swept segment,
+    whatever its size, and the kernel path takes the plain path's
+    branches."""
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.entry import noisy_rcs_circuit
+    circ = noisy_rcs_circuit(16, 2)
+    prog = T._compiled_traj(circ, 16, card)
+    u = torch.rand((batch, prog.num_channels), dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(batch))
+    before = S.segment_sweep.launches
+    planes, draws = prog(u)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.launches - before == prog.launches_per_call
+    assert prog.launches_per_call == T.plan_stats(circ, batch)[
+        "kernel_sweeps"]
+    want, want_draws = prog.plain(u)
+    assert torch.equal(draws, want_draws)
+    assert (planes - want).abs().max().item() <= 1e-4 * want.abs().max().item()

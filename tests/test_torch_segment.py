@@ -56,16 +56,34 @@ TOL = 2e-5
 LANE_BITS = 7
 
 
-def emulate_kernel(planes: np.ndarray, seg: S.Segment) -> np.ndarray:
-    """numpy model of csrc/segment.cu on (2, 2^n) planes: per block, the
-    tile's global rows from blockIdx (free bits) + inner rows + scattered
+def emulate_kernel(planes: np.ndarray, seg: S.Segment,
+                   sel: np.ndarray = None) -> np.ndarray:
+    """numpy model of csrc/segment.cu on (2, 2^n) planes, or on a batch
+    (B, 2, 2^n) launched as grid (blocks, B): each state's planes at
+    offset state * 2 * 2^n of the flat buffer. Per block, the tile's
+    global rows from blockIdx.x (free bits) + inner rows + scattered
     bits, then each descriptor applied to the tile as the kernel does
     (matrix stages as a (fibers x D) product at tile position F_POS with
     operand strides F_SI/F_SJ, predicates as lane/row masks, phase rows
     decoded from the f32 operand; Kraus pairs as a 4x4 butterfly on the
     tile bits F_POS (op) and F_POS2 (sliced) with (2, 4, 2, 2) cores;
     diagonals as a table lookup by the target bits of each element's
-    global index). Returns new planes."""
+    global index; a BatchSelStage as a 2x2 butterfly on tile bit F_POS
+    with row (F_SLOT * B + state) * 8 of the flat selection table `sel`
+    (slots, B, 8)). Returns new planes of the input's shape."""
+    n = seg.n
+    flat = planes.reshape(-1).astype(np.float64).copy()
+    batch = flat.size // (2 << n)
+    table = None if sel is None else np.asarray(sel, np.float64).reshape(-1)
+    for state in range(batch):
+        view = flat[state * (2 << n):(state + 1) * (2 << n)]
+        view[:] = _emulate_state(view.reshape(2, -1), seg, table, batch,
+                                 state).reshape(-1)
+    return flat.reshape(planes.shape)
+
+
+def _emulate_state(planes, seg, table, batch, state_idx):
+    """emulate_kernel on the blocks of state `state_idx` of the launch."""
     n, geo = seg.n, seg.geometry
     desc = seg.desc.cpu().numpy()
     ops = seg.ops.cpu().numpy().astype(np.float64)
@@ -152,6 +170,19 @@ def emulate_kernel(planes: np.ndarray, seg: S.Segment) -> np.ndarray:
                 ok = (((lane & int(d[S.F_LANE_MASK])) == d[S.F_LANE_WANT])
                       & ((row & int(d[S.F_ROW_MASK])) == d[S.F_ROW_WANT]))
                 x = np.where(ok, x * tab[entry], x)
+                continue
+            if kind == S.K_BATCHSEL:
+                p = int(d[S.F_POS])
+                base = (int(d[S.F_SLOT]) * batch + state_idx) * S.SEL_WORDS
+                v = table[base:base + S.SEL_WORDS]
+                g = v[0::2] + 1j * v[1::2]          # g00, g01, g10, g11
+                f = np.arange(1 << (tb - 1))
+                e0 = ((f >> p) << (p + 1)) | (f & ((1 << p) - 1))
+                e1 = e0 | (1 << p)
+                new = x.copy()
+                new[e0] = g[0] * x[e0] + g[1] * x[e1]
+                new[e1] = g[2] * x[e0] + g[3] * x[e1]
+                x = new
                 continue
             g = ops[off:]
             if kind == S.K_PHASE:
@@ -355,7 +386,17 @@ def test_wrapper_checks_and_counts_only_kernel_launches():
         S.segment_sweep(torch.zeros((1 << n, 2)).T, seg)
 
 
-def test_unported_stage_kinds_raise():
+def test_unported_stage_kinds_raise(monkeypatch):
+    """Every stage kind runs now (BatchSelStage since the batched slice);
+    what is still unported raises: the HIGH/DEFAULT contraction tiers
+    (S11, ROADMAP B6) and stage kinds the kernel does not know."""
     st = BP.BatchSelStage(8, 0)
-    with pytest.raises(NotImplementedError, match="B10"):
-        S.prepare_segment([st], [np.zeros((1, 8), np.float32)], 10, "cpu")
+    seg = S.prepare_segment([st], [np.zeros((1, 8), np.float32)], 10, "cpu")
+    assert seg.slots == (0,) and seg.labels == {"batchsel"}
+    monkeypatch.setenv("QUEST_MATMUL_PRECISION", "high")
+    with pytest.raises(NotImplementedError, match="B6"):
+        S.segment_sweep(torch.zeros((2, 1 << 10)), seg,
+                        torch.zeros((1, 1, 8)))
+    monkeypatch.delenv("QUEST_MATMUL_PRECISION")
+    with pytest.raises(NotImplementedError, match="ROADMAP B"):
+        S.check_supported([object()])
