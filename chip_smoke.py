@@ -58,11 +58,32 @@ Drives quest_tpu_torch (never JAX, never quest_tpu) on the card:
      planes within 1e-4 max|amp|, |1 - norm| <= 1e-4), and its first 8
      shots through the kernel alone (the same launches and planes);
      shots/s and the bound per chunk;
- 11. single-stage segments at 28 qubits — b0, b1, scb-128, sc, phase,
-     parity, multiphase, each Kraus pair form and a diagonal — and S9 at
-     24 qubits x 64 states on a lane bit, a row bit and a scattered bit:
-     kernel, plain version and, where one PyTorch call computes the same
-     function, that call (the yardstick; the port never calls it).
+ 11. precision_stages: every matrix-stage case above (and b1/scb at the
+     other widths the planner emits) at the HIGH and DEFAULT matmul tiers
+     (S11): the tier's kernel against the tier's plain version (1e-5 x
+     max|amp|; a chained case may round an input one bf16 step apart, see
+     tier_agreement) and against the HIGHEST kernel (different bits,
+     within 1e-4 / 1e-2 x max|amp|);
+ 12. precision_flagship: entry() compiled at HIGH and at DEFAULT, counted
+     (9 launches, '@high'/'@default' labels), against the tier's plain
+     path and the HIGHEST kernel (1e-4 / 1e-2 x max|amp| and norm, or 1.5x
+     the distance the tier's own plain version shows: see envelope);
+     median of 5 warm steps;
+ 13. precision_baseline: 30q d20 at HIGH the same way (5e-4), 46 launches;
+ 14. precision_density: density_entry() at HIGH, the same way, with Tr
+     rho and purity within 1e-4 of the HIGHEST run's (or the plain
+     version's envelope) and Hermiticity;
+ 15. single-stage segments at 28 qubits — b0, b1, scb-128, sc, phase,
+     parity, multiphase, each Kraus pair form and a diagonal, and b0,
+     b1, scb-128 at HIGH and DEFAULT — and S9 at 24 qubits x 64 states on
+     a lane bit, a row bit and a scattered bit: kernel, plain version
+     and, where PyTorch computes the same function, that yardstick (the
+     port never calls it): one call, or for HIGH the three bf16 calls of
+     the split parts together.
+
+Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
+at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
+sheet).
 
 Each phase prints one JSON line. Before the last line come the kernels
 line {"kernels": [...]} and the nvidia-smi line; the last line is
@@ -74,6 +95,7 @@ Everything it prints also goes to smoke_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -86,6 +108,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 KERNEL_SOURCE = "quest_tpu_torch/csrc/segment.cu"
 STAGE_TOL = 1e-5
 PATH_TOL = 1e-4
@@ -96,9 +119,21 @@ BATCHSEL_TOL = 1e-6
 PHYSICS_SIGMAS = 5.0
 PHYSICS_SHOTS = 1024
 PLAIN_CHECK_SHOTS = 8
+TIERS = ("high", "default")
+TIER_PRODUCTS = {"highest": 1, "high": 3, "default": 1}
+# a tier's distance from the HIGHEST kernel, x max|amp| (and |1 - norm|):
+# one stage, the flagship and density steps, and 30q d20 at HIGH
+TIER_TOL = {"high": 1e-4, "default": 1e-2}
+BASELINE_HIGH_TOL = 5e-4
+ENVELOPE_SLACK = 1.5          # x the plain version's own distance
+# one bf16 rounding step of an input, relative to it: HIGH's lo (an ulp
+# of lo is at most 2^-14 of the value), DEFAULT's bf16 (2^-7)
+FLIP_TOL = {"high": 2.0 ** -14, "default": 2.0 ** -7}
 PHASES = ("build", "stages", "flagship", "baseline", "density",
           "density_bench", "clifford_t_density", "batched",
-          "trajectory_physics", "trajectories", "stage_timing")
+          "trajectory_physics", "trajectories", "precision_stages",
+          "precision_flagship", "precision_baseline", "precision_density",
+          "stage_timing")
 
 RECORD = []
 
@@ -136,15 +171,27 @@ def time_ms(torch, fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def stage_flops(st, arr, n: int) -> float:
-    """fp32 operations a stage needs on a 2^n state (only where its
-    predicates select)."""
+def stage_flops(st, arr, n: int, tier: str = "highest"):
+    """(fp32 operations, bf16 tensor-core operations) a stage needs on a
+    2^n state (only where its predicates select): a b0/b1/scb stage at
+    HIGH or DEFAULT does its products as the tier's bf16 products (3 or
+    1 per real product), everything else fp32."""
     from quest_tpu_torch.ops import band_plan as BP
+    from quest_tpu_torch.ops import segment as S
     amps = float(1 << n)
     if isinstance(st, BP.MatStage):
         sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
         per_mac = 4 if st.real_only else 8   # complex MAC: 4 mul + 4 add
-        return sel * st.dim * per_mac
+        work = sel * st.dim * per_mac
+        if tier != "highest" and S.rounds(st):
+            return 0.0, work * TIER_PRODUCTS[tier]
+        return work, 0.0
+    return _elementwise_flops(st, arr, amps), 0.0
+
+
+def _elementwise_flops(st, arr, amps: float) -> float:
+    """fp32 operations of a stage that is not a matrix contraction."""
+    from quest_tpu_torch.ops import band_plan as BP
     if isinstance(st, BP.PhaseStage):
         bits = bin(int(arr[0, 2])).count("1") + bin(
             int(arr[0, 4]) | (int(arr[0, 5]) << 15)).count("1")
@@ -164,39 +211,43 @@ def stage_flops(st, arr, n: int) -> float:
 
 
 def segment_work(seg, batch=1):
-    """(bytes, flops) of one launch over `batch` states: each state read
-    and written once, each operand and selection row read once; the
-    stages' operations on every state."""
+    """(bytes, fp32 flops, bf16 tensor flops) of one launch over `batch`
+    states: each state read and written once, each operand and selection
+    row read once; the stages' operations on every state, at the
+    segment's tier."""
     nbytes = (batch * 2 * 2 * 4 * (1 << seg.n) + 4 * seg.ops.numel()
               + len(seg.slots) * batch * 8 * 4)
-    flops = batch * sum(stage_flops(st, a, seg.n)
-                        for st, a in zip(seg.stages, seg.arrays))
-    return nbytes, flops
+    work = [stage_flops(st, a, seg.n, seg.tier)
+            for st, a in zip(seg.stages, seg.arrays)]
+    return (nbytes, batch * sum(w[0] for w in work),
+            batch * sum(w[1] for w in work))
 
 
 def passthrough_work(step):
-    """(bytes, flops) of a matrix passthrough: the state read and written
-    once; one complex MAC per matrix column for each amplitude where the
-    controls hold."""
+    """(bytes, fp32 flops, bf16 tensor flops) of a matrix passthrough:
+    the state read and written once; one complex MAC per matrix column
+    for each amplitude where the controls hold, as the tier's products."""
     op, n = step.op, step.n
     sel = float(1 << n) / (1 << len(op.controls))
-    return 2 * 2 * 4 * (1 << n), sel * (1 << len(op.targets)) * 8
+    work = sel * (1 << len(op.targets)) * 8
+    if step.tier == "highest":
+        return 2 * 2 * 4 * (1 << n), work, 0.0
+    return 2 * 2 * 4 * (1 << n), 0.0, work * TIER_PRODUCTS[step.tier]
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, tc_flops=0.0):
     """(ms, 'bytes' or 'operations'): the larger of the bytes over the
-    card's memory rate and the fp32 operations over its peak."""
+    card's memory rate and the operations over their peaks (fp32 at 67
+    TFLOP/s, the tiers' bf16 products at 989)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = (flops / FP32_FLOPS_PER_S + tc_flops / BF16_FLOPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def bound_of(segments, passthroughs=(), repeat=1, batch=1):
     work = ([segment_work(s, batch) for s in segments]
             + [passthrough_work(p) for p in passthroughs])
-    nbytes = repeat * sum(w[0] for w in work)
-    flops = repeat * sum(w[1] for w in work)
-    return bound_ms(nbytes, flops)
+    return bound_ms(*(repeat * sum(w[k] for w in work) for k in range(3)))
 
 
 def program_bound(fn):
@@ -212,16 +263,36 @@ def program_bound(fn):
 # ---------------------------------------------------------------------------
 
 
+def kernel_resources(log: str):
+    """Registers and spills of each tier's instantiation of the segment
+    kernel (segment_kernel<0|1|2>), from nvcc -Xptxas -v."""
+    tiers = {"ILi0E": "highest", "ILi1E": "high", "ILi2E": "default"}
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = next((t for key, t in tiers.items() if key in ln),
+                         ln.split("'")[1] if "'" in ln else ln.strip())
+            out[entry] = {}
+        elif entry is not None and "spill" in ln:
+            out[entry]["spill"] = ln.strip()
+        elif entry is not None and "registers" in ln:
+            out[entry]["ptxas"] = ln.strip()
+            words = ln.split()
+            out[entry]["registers"] = int(words[words.index("registers,") - 1])
+    return out
+
+
 def phase_build():
     from quest_tpu_torch.ops import _build
     t0 = time.perf_counter()
     built = _build.build()
     from quest_tpu_torch.ops import segment as S
     S._lib()
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
+    kernels = kernel_resources(_build.BUILD_LOG)
+    if built and set(kernels) != {"highest", "high", "default"}:
+        raise AssertionError(f"build: kernel instantiations {sorted(kernels)}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": built, "ptxas": ptxas[:12]})
+          "nvcc_seconds": built, "kernels": kernels})
 
 
 def _random_mat(rng, dim, real=False):
@@ -787,12 +858,13 @@ def trajectory_bound(prog, b):
     from quest_tpu_torch.circuit import MatrixPass
     n = prog.n
     work = [segment_work(s, b) for s in prog.segments]
-    work += [(b * w[0], b * w[1]) for w in
+    work += [tuple(b * x for x in w) for w in
              (passthrough_work(p) for p in prog.steps
               if isinstance(p, MatrixPass))]
     barriers = sum(1 for c in prog.channels if c.probs is None)
-    work += [(barriers * b * 2 * 4 * (1 << n), barriers * b * 8 * (1 << n))]
-    return bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
+    work += [(barriers * b * 2 * 4 * (1 << n), barriers * b * 8 * (1 << n),
+              0.0)]
+    return bound_ms(*(sum(w[k] for w in work) for k in range(3)))
 
 
 def phase_trajectories(torch):
@@ -897,6 +969,278 @@ def phase_trajectories(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the matmul tiers (S11): HIGH and DEFAULT through the tensor-core bodies
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def session_tier(tier):
+    """Programs compiled inside run at `tier`; the knob decides again
+    afterwards."""
+    from quest_tpu_torch import precision as P
+    P.set_matmul_precision(tier)
+    try:
+        yield
+    finally:
+        P.set_matmul_precision(None)
+
+
+def tier_stage_cases(rng):
+    """(name, n, stages, arrays): every case of stage_cases that holds a
+    b0, b1 or scb stage (predicated, real-only and chained ones too), and
+    b1 and scb at the other widths the planner emits."""
+    from quest_tpu_torch.ops import segment as S
+    cases = [c for c in stage_cases(rng) if any(S.rounds(st) for st in c[2])]
+    n = 20
+    extra = [("b1_8", mat_op(rng, "b1", 8)), ("b1_16", mat_op(rng, "b1", 16)),
+             ("b1_64_real", mat_op(rng, "b1", 64, real=True)),
+             ("scb_8", mat_op(rng, "scb", 8, bit=9)),
+             ("scb_16", mat_op(rng, "scb", 16, bit=8)),
+             ("scb_32_preds", mat_op(rng, "scb", 32, bit=7,
+                                     lane_preds=((5, 1),),
+                                     row_preds=((0, 0),))),
+             ("b1_128_preds", mat_op(rng, "b1", 128, lane_preds=((0, 1),),
+                                     row_preds=((9, 1),)))]
+    return cases + [(name, n, [st], [a]) for name, (st, a) in extra]
+
+
+def envelope(tier, plain_dist, floor=None):
+    """(gate, source) of a tier's distance from HIGHEST: the stated
+    tolerance, or ENVELOPE_SLACK x the distance the plain version of the
+    tier itself shows on the same input where that is larger (the tier's
+    own arithmetic: HIGH's split truncates hi toward zero, so the dropped
+    lo*lo term shrinks every product a little, stage after stage)."""
+    tol = TIER_TOL[tier] if floor is None else floor
+    own = ENVELOPE_SLACK * plain_dist
+    return (tol, "stated") if tol >= own else (own, "plain")
+
+
+def tier_agreement(torch, got, want, tol, tier, chained):
+    """Kernel `got` against the tier's plain version `want`, plane by
+    plane: {max_abs_err, rel_err, rel_l2, ok}. ok: max|diff| <= tol x
+    max|amp|; or, where a rounding stage reads values that earlier stages
+    computed (`chained`), max|diff| <= FLIP_TOL x max|amp| and the
+    relative L2 distance within the tier's own TIER_TOL. The kernel and
+    the plain version sum in different fp32 orders, and an input one ulp
+    apart across a bf16 rounding boundary rounds to neighbouring bf16
+    values in the two: a few inputs one bf16 step apart, not a wrong
+    product (a wrong layout moves every element, by O(1))."""
+    err = max((got[p] - want[p]).abs().max().item() for p in range(2))
+    sq = sum((got[p] - want[p]).pow(2).sum(dtype=torch.float64).item()
+             for p in range(2))
+    rel_l2 = (sq / norm_of(want)) ** 0.5
+    scale = want.abs().max().item()
+    ok = err <= tol * scale or (
+        chained and err <= FLIP_TOL[tier] * scale
+        and rel_l2 <= TIER_TOL[tier])
+    return {"max_abs_err": err, "rel_err": err / scale, "rel_l2": rel_l2,
+            "ok": ok}
+
+
+def chained(stages) -> bool:
+    """Whether a rounding stage follows another stage in the segment."""
+    from quest_tpu_torch.ops import segment as S
+    return any(S.rounds(st) for st in stages[1:])
+
+
+def phase_precision_stages(torch):
+    """Every matrix-stage case at HIGH and DEFAULT: the tier's kernel
+    against the tier's plain version (STAGE_TOL x max|amp|, see
+    tier_agreement for chains) and against the HIGHEST kernel on the same
+    input (bits differ; within TIER_TOL)."""
+    from quest_tpu_torch.ops import segment as S
+    results, failures = [], []
+    for tier in TIERS:
+        rng = np.random.default_rng(20261017)
+        for name, n, stages, arrays in tier_stage_cases(rng):
+            seg = S.prepare_segment(stages, arrays, n, "cuda", tier=tier)
+            top = S.prepare_segment(stages, arrays, n, "cuda",
+                                    tier="highest")
+            amps = torch.from_numpy(rng.standard_normal(
+                (2, 1 << n)).astype(np.float32)).cuda()
+            want = S.segment_sweep_reference(amps, seg.stages, seg.operands,
+                                             n, tier=tier)
+            ref = amps.clone()
+            S.segment_sweep(amps, seg)
+            S.segment_sweep(ref, top)
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            agree = tier_agreement(torch, amps.reshape(2, -1),
+                                   want.reshape(2, -1), STAGE_TOL, tier,
+                                   chained(stages))
+            dist = (amps - ref).abs().max().item()
+            rec = {"case": name, "tier": tier, "n": n, **agree,
+                   "rel_vs_highest": dist / scale}
+            results.append(rec)
+            if not (agree["ok"] and 0.0 < dist <= TIER_TOL[tier] * scale):
+                failures.append(rec)
+    emit({"phase": "precision_stages", "tol": STAGE_TOL,
+          "tier_tol": TIER_TOL, "cases": results,
+          "worst_rel_err": {t: max(r["rel_err"] for r in results
+                                   if r["tier"] == t) for t in TIERS}})
+    if failures:
+        raise AssertionError(f"precision_stages: {failures}")
+    return results
+
+
+def norm_of(planes) -> float:
+    """Sum of squares in f64, one plane at a time (no 30-qubit-sized f64
+    temporary of both planes)."""
+    return sum((planes[p].double() ** 2).sum().item() for p in range(2))
+
+
+def density_stats(planes, nd):
+    """(Tr rho, purity) of density planes over nd qubits."""
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch.state import Qureg
+    q = Qureg(planes.reshape(2, -1), nd, is_density=True)
+    return K.calc_total_prob(q), K.calc_purity(q)
+
+
+def tier_run(torch, name, fn, amps, top_out, tol=None, density=False):
+    """One program `fn` (compiled at a tier) on input planes `amps`: the
+    plain version of the tier first (out of place), then the kernel with
+    the counters set to 0 just before and read just after; gates: the
+    plain version within PATH_TOL x max|amp|, sum of squares equal to the
+    plain version's within PATH_TOL, the HIGHEST kernel's output
+    `top_out` within the tier's envelope (bits differ), and for a
+    statevector |1 - norm| within the tier's envelope. Returns the
+    record (a density record also holds the plain path's trace and
+    purity); `amps` holds the result."""
+    want = fn.plain(amps)
+    torch.cuda.synchronize()
+    launches, stage_launches = counted_call(torch, name, fn, amps)
+    scale = top_out.abs().max().item()
+    agree = tier_agreement(torch, amps, want, PATH_TOL, fn.tier, True)
+    plain_dist = max((want[p] - top_out[p]).abs().max().item()
+                     for p in range(2)) / scale
+    norm_plain = norm_of(want)
+    plain_stats = density_stats(want, fn.n // 2) if density else None
+    del want
+    torch.cuda.empty_cache()
+    dist = max((amps[p] - top_out[p]).abs().max().item()
+               for p in range(2)) / scale
+    norm = norm_of(amps)
+    gate, source = envelope(fn.tier, plain_dist, tol)
+    rec = {"phase": name, "tier": fn.tier, "n": fn.n,
+           "segments": len(fn.segments), "launches": launches,
+           "stage_launches": stage_launches, **agree, "rel_vs_highest": dist,
+           "plain_rel_vs_highest": plain_dist, "envelope": gate,
+           "envelope_from": source, "norm": norm, "plain_norm": norm_plain}
+    norm_ok = True
+    if density:            # the sum of squares is the purity: gated apart
+        rec["plain_trace"], rec["plain_purity"] = plain_stats
+    else:
+        ngate, nsource = envelope(fn.tier, abs(1.0 - norm_plain), tol)
+        rec["norm_envelope"], rec["norm_envelope_from"] = ngate, nsource
+        norm_ok = abs(1.0 - norm) <= ngate
+    if not (agree["ok"] and abs(norm - norm_plain) <= PATH_TOL
+            and 0.0 < dist <= gate and norm_ok
+            and torch.isfinite(amps).all().item()):
+        raise AssertionError(f"{name}: {rec}")
+    return rec
+
+
+def phase_precision_flagship(torch, top):
+    """entry()'s 28q d4 step at HIGH and DEFAULT: 9 launches like
+    HIGHEST's (`top`, the flagship record), against the tier's plain path
+    and the HIGHEST kernel, median of 5 warm steps."""
+    from quest_tpu_torch.entry import entry
+    fn, (amps,) = entry()
+    x0 = amps.clone()
+    fn(amps)
+    top_out = amps
+    recs = {}
+    for tier in TIERS:
+        with session_tier(tier):
+            fn_t, (x,) = entry()
+        x.copy_(x0)
+        rec = tier_run(torch, "precision_flagship", fn_t, x, top_out)
+        if rec["launches"] != top["launches"]:
+            raise AssertionError(f"precision_flagship: {rec['launches']} "
+                                 f"launches at {tier}, {top['launches']} at "
+                                 f"highest")
+        rec["median_ms"] = time_ms(torch, lambda: fn_t(x), 5)
+        rec["plain_ms"] = time_ms(torch, lambda: fn_t.plain(x0), 3)
+        rec["highest_median_ms"] = top["median_ms"]
+        rec["bound_ms"], rec["bound_by"] = bound_of(fn_t.segments)
+        emit(rec)
+        recs[tier] = rec
+        del fn_t, x
+        torch.cuda.empty_cache()
+    del fn, amps, x0, top_out
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_precision_baseline(torch):
+    """30q d20 at HIGH: 46 launches, against the plain path at HIGH and
+    the HIGHEST kernel (within 5e-5 x max|amp| and norm 5e-4, or the
+    plain version's own distance)."""
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.state import basis_planes, fused_state_shape
+    n, depth = 30, 20
+    circ = random_circuit(n, depth, seed=7, entangler="cz")
+    top = circ.compiled_fused(n, device="cuda")
+    top_out = basis_planes(0, n=n, shape=fused_state_shape(n), device="cuda")
+    top(top_out)
+    del top
+    with session_tier("high"):
+        fn = circ.compiled_fused(n, device="cuda")
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device="cuda")
+    rec = tier_run(torch, "precision_baseline", fn, amps, top_out,
+                   BASELINE_HIGH_TOL)
+    del top_out
+    torch.cuda.empty_cache()
+    rec["depth"] = depth
+    rec["median_ms"] = time_ms(torch, lambda: fn(amps), 3)
+    rec["bound_ms"], rec["bound_by"] = bound_of(fn.segments)
+    emit(rec)
+    del fn, amps
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_precision_density(torch):
+    """density_entry() at HIGH: against the plain path at HIGH and the
+    HIGHEST kernel; Tr rho, Hermiticity and purity within 1e-4 of the
+    HIGHEST run's."""
+    from quest_tpu_torch.entry import density_entry
+    fn, (amps,) = density_entry()
+    x0 = amps.clone()
+    fn(amps)
+    top_out = amps
+    nd = fn.n // 2
+    with session_tier("high"):
+        fn_t, (x,) = density_entry()
+    x.copy_(x0)
+    rec = tier_run(torch, "precision_density", fn_t, x, top_out,
+                   density=True)
+    for key, planes in (("", x), ("highest_", top_out)):
+        rec[key + "trace"], rec[key + "purity"] = density_stats(planes, nd)
+        rec[key + "hermitian_err"] = hermitian_err(planes, nd)
+    scale = top_out.abs().max().item()
+    ok = (rec["hermitian_err"]
+          <= rec["highest_hermitian_err"] + PATH_TOL * scale)
+    for key in ("trace", "purity"):
+        # within 1e-4 of the HIGHEST run's, or of what the plain version
+        # of the tier itself shows
+        gate, source = envelope(
+            "high", abs(rec["plain_" + key] - rec["highest_" + key]), PATH_TOL)
+        rec[key + "_envelope"], rec[key + "_envelope_from"] = gate, source
+        ok = ok and abs(rec[key] - rec["highest_" + key]) <= gate
+    if not ok:
+        raise AssertionError(f"precision_density: {rec}")
+    rec["median_ms"] = time_ms(torch, lambda: fn_t(x), 5)
+    rec["highest_median_ms"] = time_ms(torch, lambda: fn(top_out), 5)
+    rec["bound_ms"], rec["bound_by"] = program_bound(fn_t)
+    emit(rec)
+    del fn, fn_t, amps, x, x0, top_out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _pair_library(torch, st, arr, amps, n):
     """One torch.einsum applying the pair's 4x4 operator to a complex64
     copy of the state (bits: op qubit, sliced qubit)."""
@@ -991,10 +1335,98 @@ def phase_stage_timing(torch):
                     "bound_by": bound_by, "max_abs_err": err})
         del amps
         torch.cuda.empty_cache()
+    out += tier_stage_timing(torch, planes, rng)
     del planes
     torch.cuda.empty_cache()
     out += batchsel_timing(torch)
     emit({"phase": "stage_timing", "n": n, "stages": out})
+    return out
+
+
+def _real_block(torch, gt, q0):
+    """The stage's operator as one real matrix for a real-block product
+    on the f32 planes: (2d, 2d) [[Gre^T, Gim^T], [-Gim^T, Gre^T]] for
+    X [Xre Xim] (b0, lanes contracted), or [[Gre, -Gim], [Gim, Gre]] for
+    [Xre; Xim] along the contracted axis (b1, scb). `gt`: the planner's
+    G^T planes."""
+    g = np.stack([gt[0].T, gt[1].T])
+    if q0 == 0:
+        blk = np.block([[gt[0], gt[1]], [-gt[1], gt[0]]])
+    else:
+        blk = np.block([[g[0], -g[1]], [g[1], g[0]]])
+    return torch.from_numpy(blk.astype(np.float32)).cuda()
+
+
+def tier_stage_timing(torch, planes, rng):
+    """b0, b1-128 and scb-128 at HIGH and DEFAULT on the 28-qubit planes:
+    kernel, plain version, bound (products at the bf16 tensor rate) and a
+    yardstick the port never calls — for DEFAULT one real-block f32
+    torch.matmul under set_float32_matmul_precision("medium") (bf16
+    inputs, fp32 accumulation where cuBLAS takes it), for HIGH the three
+    bf16 torch.matmul calls of the split parts, timed together."""
+    from quest_tpu_torch import precision as P
+    from quest_tpu_torch.ops import segment as S
+    n = TIMING_QUBITS
+    cases = [("b0", mat_op(rng, "b0", 128), 0),
+             ("b1", mat_op(rng, "b1", 128), 7),
+             ("scb128", mat_op(rng, "scb", 128, bit=7), 14)]
+    out = []
+    for tier in TIERS:
+        for name, (st, arr), q0 in cases:
+            seg = S.prepare_segment([st], [arr], n, "cuda", tier=tier)
+            amps = planes.clone()
+            want = S.segment_sweep_reference(amps, seg.stages, seg.operands,
+                                             n, tier=tier)
+            S.segment_sweep(amps, seg)
+            torch.cuda.synchronize()
+            err = (amps.reshape(2, -1)
+                   - want.reshape(2, -1)).abs().max().item()
+            if not err <= STAGE_TOL * want.abs().max().item():
+                raise AssertionError(f"28q {name}@{tier}: max|diff| {err}")
+            del want
+            torch.cuda.empty_cache()
+            ms = time_ms(torch, lambda: S.segment_sweep(amps, seg), 5)
+            plain_ms = time_ms(torch, lambda: S.segment_sweep_reference(
+                amps, seg.stages, seg.operands, n, tier=tier), 3)
+            d = st.dim
+            blk = _real_block(torch, arr, q0)
+            x = amps.reshape(2, -1)
+            if q0 == 0:
+                xb = torch.cat([x[0].reshape(-1, d), x[1].reshape(-1, d)], 1)
+            else:
+                a = 1 << (n - q0 - 7)
+                xb = torch.cat([x[0].reshape(a, d, -1),
+                                x[1].reshape(a, d, -1)], 1)
+
+            def call(u, v):
+                return torch.matmul(u, v) if q0 == 0 else torch.matmul(v, u)
+            if tier == "default":
+                old = torch.get_float32_matmul_precision()
+                torch.set_float32_matmul_precision("medium")
+                try:
+                    lib_ms = time_ms(torch, lambda: call(xb, blk), 5)
+                finally:
+                    torch.set_float32_matmul_precision(old)
+                calls = 1
+            else:
+                parts = [(u.to(torch.bfloat16), v.to(torch.bfloat16))
+                         for u, v in P.tier_products(xb, blk, "high")]
+                del xb
+                torch.cuda.empty_cache()
+                lib_ms = time_ms(torch, lambda: [call(u, v) for u, v in parts],
+                                 5)
+                calls = 3
+                del parts
+            xb = None
+            torch.cuda.empty_cache()
+            bound, bound_by = bound_of([seg])
+            label = S.stage_label(st, tier)
+            out.append({"name": label, "label": label, "tier": tier,
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "library_calls": calls, "bound_ms": bound,
+                        "bound_by": bound_by, "max_abs_err": err})
+            del amps
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1059,6 +1491,8 @@ REPLACES = {
     "diagvec": "quest_tpu/ops/pallas_band.py:1324",
     "batchsel": "quest_tpu/ops/pallas_band.py:1371",
 }
+# S11: the tier bodies of the b0/b1/scb stages
+TIER_REPLACES = "quest_tpu/ops/pallas_band.py:1039 (_mxu_dot_general {})"
 # the stage_timing record that stands for each stage kind in the kernels
 # line: a Kraus pair by its most frequent form on the density path, a
 # channel stage by its most frequent position on the trajectory path
@@ -1126,6 +1560,15 @@ def main(argv=None) -> int:
     if want("trajectories"):
         tr = phase_trajectories(torch)
         path_launches["batchsel"] = tr["stage_launches"]["batchsel"]
+    if want("precision_stages"):
+        phase_precision_stages(torch)
+    if want("precision_flagship"):
+        for rec in phase_precision_flagship(torch, fl).values():
+            path_launches.update(rec["stage_launches"])
+    if want("precision_baseline"):
+        phase_precision_baseline(torch)
+    if want("precision_density"):
+        phase_precision_density(torch)
     if want("stage_timing"):
         for rec in phase_stage_timing(torch):
             label = rec["label"]
@@ -1134,9 +1577,12 @@ def main(argv=None) -> int:
             launches = path_launches.get(label, 0)
             if not launches:
                 continue        # e.g. sc: no width-1 band at 28 qubits
+            tier = rec.get("tier", "highest")
             kernels.append({
                 "name": f"segment_sweep[{label}]", "route": "cuda",
-                "source": KERNEL_SOURCE, "replaces": REPLACES[label],
+                "source": KERNEL_SOURCE,
+                "replaces": (REPLACES[label] if tier == "highest"
+                             else TIER_REPLACES.format(tier.upper())),
                 "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

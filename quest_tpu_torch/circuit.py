@@ -12,7 +12,8 @@ sweep_plan — under HOPPER_GEOMETRY; every swept segment then runs as one
 launch of the segment kernel (ops/segment.py), for one state or for a
 whole batch of states, and a multi-target matrix the kernel cannot
 reach (the reference's XLA matrix passthrough) runs through
-ops/apply.apply_matrix_rows between segments.
+ops/apply.apply_matrix_rows between segments. A program runs at the
+matmul tier it was compiled at (quest_tpu_torch/precision.py).
 
 What the reference runs elsewhere is not ported yet and raises
 NotImplementedError naming its ROADMAP item: f64 registers, the banded
@@ -117,25 +118,27 @@ class MatrixPass:
     ops/apply.apply_matrix_rows, as the reference applies it outside
     Pallas (circuit.py:555-564)."""
 
-    def __init__(self, op, n: int):
+    def __init__(self, op, n: int, tier: str):
         self.op = op
         self.n = n
+        self.tier = tier
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
-        """Apply to one state's planes, or to a batch of states."""
+        """Apply to one state's planes, or to a batch of states, at the
+        matmul tier of the program it belongs to."""
         op = self.op
         return A.apply_matrix_rows(amps, self.n, op.operand, op.targets,
-                                   op.controls, op.cstates)
+                                   op.controls, op.cstates, self.tier)
 
 
-def _xla_part_applier(part, n: int) -> MatrixPass:
+def _xla_part_applier(part, n: int, tier: str) -> MatrixPass:
     """The port's applier for a non-segment plan part: matrix ops of at
     most A.MAX_TARGETS targets (ref circuit.py:541-568). Band and
     diagonal passthroughs and wider matrices are ROADMAP A3."""
     it = part[1]
     if (isinstance(it, F.PassOp) and it.op.kind == "matrix"
             and len(it.op.targets) <= A.MAX_TARGETS):
-        return MatrixPass(it.op, n)
+        return MatrixPass(it.op, n, tier)
     raise NotImplementedError(
         f"this circuit needs an XLA band passthrough "
         f"({type(it).__name__}) between kernel segments, which is not "
@@ -150,13 +153,16 @@ class FusedProgram:
     `steps` is one application in order, `segments` its packed
     segments; `plain(amps)` runs the same plan through the plain PyTorch
     version, out of place, PLAIN_CHUNK_STATES states of a batch at a
-    time, for comparison."""
+    time, for comparison. `tier` is the matmul tier it was compiled at
+    (precision.matmul_precision() then); every call runs at it."""
 
-    def __init__(self, n: int, steps: List, loop_iters: int):
+    def __init__(self, n: int, steps: List, loop_iters: int,
+                 tier: str = "highest"):
         self.n = n
         self.steps = steps
         self.segments = [s for s in steps if isinstance(s, Segment)]
         self.loop_iters = loop_iters
+        self.tier = tier
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
         if amps.dtype == torch.float64:
@@ -181,7 +187,8 @@ class FusedProgram:
             for step in self.steps:
                 if isinstance(step, Segment):
                     out = segment_sweep_reference(out, step.stages,
-                                                  step.operands, self.n)
+                                                  step.operands, self.n,
+                                                  tier=step.tier)
                 else:
                     if out is amps:
                         out = amps.clone()
@@ -328,7 +335,9 @@ class Circuit:
         segment kernel, in place on the state; a matrix passthrough runs
         through apply_matrix_rows between segments. Operands and
         descriptor tables go to `device` (default: the CUDA card) here,
-        once; calls reuse them."""
+        once; calls reuse them. The matmul tier (QUEST_MATMUL_PRECISION
+        or precision.set_matmul_precision) is read here, once, as the
+        reference reads it at trace time: the program keeps it."""
         if knob_value("QUEST_FUSED_SCAN"):
             raise NotImplementedError(
                 "QUEST_FUSED_SCAN is not ported yet (ROADMAP A4)")
@@ -338,11 +347,13 @@ class Circuit:
                 f"qubits; the reference falls back to compiled_banded, "
                 f"which is not ported yet (ROADMAP A3)")
         dev = resolve_device(device)
+        tier = precision.matmul_precision()
         precision.ieee_fp32()
         parts, loop_iters = self.fused_parts(n, iters, density)
-        steps = [prepare_segment(p[1], p[2], n, dev) if p[0] == "segment"
-                 else _xla_part_applier(p, n) for p in parts]
-        return FusedProgram(n, steps, loop_iters)
+        steps = [prepare_segment(p[1], p[2], n, dev, tier=tier)
+                 if p[0] == "segment" else _xla_part_applier(p, n, tier)
+                 for p in parts]
+        return FusedProgram(n, steps, loop_iters, tier)
 
     def apply_fused(self, q, iters: int = 1):
         """Apply the circuit to register `q` (statevector or density)

@@ -5,7 +5,11 @@
 // (quest_tpu/ops/pallas_band.py:1715), batch dimension included
 // (compile_segment(..., batch=B), :1922), with the stage chain
 // _apply_stages (:1528) for the stage kinds of the RCS statevector,
-// density-matrix decoherence and batched-trajectory paths:
+// density-matrix decoherence and batched-trajectory paths. What is
+// carried over of K1 is its stage chain and batch grid: the launch is one
+// block per tile (gather, stage chain, write-back), the schedule of the
+// grid driver K3 (_segment_kernel :1553); K1's decoupled in/out DMA rings
+// are not (a flagship tile is 128 KiB, two do not fit a block's 227 KB).
 //   S1 b0   128x128 complex operator on lane bits 0-6       (:1135)
 //   S2 b1   d x d operator on the lowest log2(d) row bits   (:1139)
 //   S3 scb  2^w x 2^w operator over w scattered row bits    (:1156)
@@ -18,6 +22,8 @@
 //   S9 batchsel   per-state 2x2 (a trajectory's drawn Kraus branch) on
 //                 one tile bit                             (:1345-1432)
 //   S10 pair      Kraus pair on (op qubit, sliced qubit)        (:1435)
+//   S11 the HIGH and DEFAULT matmul tiers of S1-S3 (_mxu_dot_general
+//       :1039), tensor-core bodies; see below
 //
 // Batch: one launch covers every tile of every state of a batch of B
 // states laid end to end ((B, 2, 2^n) f32): blockIdx.y is the state,
@@ -71,19 +77,57 @@
 // 2^n x 128 x 8 flops (28q: 2.7e11, 4 ms at 67 TFLOP/s of non-tensor
 // fp32). Segments with 128-wide matrix stages are therefore bound by
 // operations, not bytes; a pair (32 flop per amplitude) or a diagonal (6)
-// leaves its pass bound by bytes. Left for later: tensor cores (wgmma/TMA, with
-// an fp32-accurate split), overlapping the tile's load and store with
-// the stage chain (cp.async/TMA rings), bank-conflict-free write-back
-// for row-bit contractions, and keeping operands in shared memory.
+// leaves its pass bound by bytes.
+//
+// S11, the matmul tiers. Replaces the HIGH and DEFAULT tiers of
+// _mxu_dot_general (quest_tpu/ops/pallas_band.py:1039) inside the b0, b1
+// and scb bodies of _apply_mat_stage. The kernel is instantiated once per
+// tier (segment_kernel<TIER>), so the HIGHEST body keeps its registers.
+//   HIGH: each f32 input x splits into hi = x & 0xFFFF0000 (exactly a
+//     bf16) and lo = bf16_rn(x - hi); the stage sums hi*hi + hi*lo +
+//     lo*hi with fp32 accumulation. DEFAULT: bf16_rn(x) of each input,
+//     one product. Every bf16 rounding is round-to-nearest-even
+//     (__float2bfloat16_rn), as tensor.to(torch.bfloat16) in the plain
+//     version. A product of two bf16 values is exact in fp32, so kernel
+//     and plain version differ only in the order of the fp32 sums.
+//   Complex form: the real block [Xre Xim] . [[Gre^T, Gim^T], [-Gim^T,
+//     Gre^T]]: four real products per complex product (two when the
+//     operator is real), with no Gauss-trick sums rounded to bf16.
+//   d >= 16: tensor cores, mma.sync.m16n8k16 bf16 -> f32. Fibers are the
+//     M dimension, the contracted index K, the outputs N. The state tile
+//     stays f32 in shared memory; each warp loads its A fragments through
+//     the stage's position stride (the FMA body's addressing) and splits
+//     or rounds them as it loads. The operator's B fragments come
+//     pre-split from the operand buffer, in fragment order (16 or 32
+//     bytes per lane per block, through L1/L2: a 128x128 operator's HIGH
+//     planes are 128 KiB and do not fit beside the 128 KiB tile). Outputs
+//     stay in registers until a barrier and are written in place, masked
+//     by the predicates, as in the FMA body.
+//   d < 16 (b1/scb at d = 2, 4, 8): CUDA-core FMAs on the tier-rounded
+//     parts (exact products, fp32 sums) — the same function, no padding
+//     of K to 16.
+// Why tensor cores: at HIGH a 128-wide stage at 28 qubits is 3 x 2.75e11
+// flop, 0.83 ms at 989 TFLOP/s of dense bf16, and at DEFAULT 0.28 ms, both
+// under the pass's 1.28 ms of bytes: the tiers leave every matrix stage
+// bound by bytes, where the fp32 FMA body is bound by operations (4.1 ms).
+// The first form is mma.sync with A fragments read from the f32 tile
+// (4-way bank conflicts); wgmma, TMA and a staged bf16 A are later work.
+//
+// Left for later: overlapping the tile's load and store with the stage
+// chain (cp.async/TMA rings), bank-conflict-free write-back for row-bit
+// contractions, and keeping operands in shared memory.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int NTHREADS = 256;
 constexpr int LANE_BITS = 7;
 constexpr int LANES = 1 << LANE_BITS;
-constexpr int DESC_WORDS = 16;
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int DESC_WORDS = 17;
 constexpr int MAX_TILE_BITS = 14;
 constexpr int MAX_MULTIPHASE_ROWS = 64;
 
@@ -92,8 +136,11 @@ enum {
   F_KIND = 0, F_DIM = 1, F_POS = 2, F_REAL = 3, F_SI = 4, F_SJ = 5,
   F_LANE_MASK = 6, F_LANE_WANT = 7, F_ROW_MASK = 8, F_ROW_WANT = 9,
   F_OP_OFF = 10, F_FORMS = 11, F_MASKED = 12, F_TARGETS = 13, F_POS2 = 14,
-  F_SLOT = 15,
+  F_SLOT = 15, F_TIER = 16,
 };
+// matmul tiers (quest_tpu_torch/ops/segment.py TIER_CODE)
+enum { T_HIGHEST = 0, T_HIGH = 1, T_DEFAULT = 2 };
+constexpr int MMA_MIN_DIM = 16;
 enum { K_MAT = 0, K_PHASE = 1, K_PARITY = 2, K_MULTIPHASE = 3, K_PAIR = 4,
        K_DIAGVEC = 5, K_BATCHSEL = 6 };
 constexpr int SEL_WORDS = 8;       // one selection-table row
@@ -118,7 +165,33 @@ __device__ __forceinline__ int row_mask(float lo, float hi) {
 
 __host__ __device__ constexpr int log2i(int d) { return d <= 1 ? 0 : 1 + log2i(d >> 1); }
 
-template <int D, bool REAL>
+// The tier's parts of one f32 value: (hi, lo) at HIGH, (bf16_rn(x), 0) at
+// DEFAULT, (x, 0) at HIGHEST.
+template <int TIER>
+__device__ __forceinline__ void tier_parts(float x, float& hi, float& lo) {
+  if constexpr (TIER == T_HIGH) {
+    hi = __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
+    lo = __bfloat162float(__float2bfloat16_rn(x - hi));
+  } else if constexpr (TIER == T_DEFAULT) {
+    hi = __bfloat162float(__float2bfloat16_rn(x));
+    lo = 0.f;
+  } else {
+    hi = x;
+    lo = 0.f;
+  }
+}
+
+// acc + the tier's products of a = ah + al and x = xh + xl (each product
+// of two bf16 values exact in fp32; fp32 sums)
+template <int TIER>
+__device__ __forceinline__ float tier_fma(float ah, float al, float xh,
+                                          float xl, float acc) {
+  acc = fmaf(ah, xh, acc);
+  if constexpr (TIER == T_HIGH) acc = fmaf(al, xh, fmaf(ah, xl, acc));
+  return acc;
+}
+
+template <int D, bool REAL, int TIER>
 __device__ void mat_stage(const Tile& t, const long long* ds,
                           const float* __restrict__ ops) {
   constexpr int W = log2i(D);
@@ -167,17 +240,43 @@ __device__ void mat_stage(const Tile& t, const long long* ds,
         gi[q] = REAL ? 0.f : __ldg(gim + o);
       }
       const int jo = j << p;
+      if constexpr (TIER == T_HIGHEST) {
 #pragma unroll
-      for (int r = 0; r < RF; ++r) {
-        const float xr = t.re[base[r] + jo];
-        const float xi = t.im[base[r] + jo];
+        for (int r = 0; r < RF; ++r) {
+          const float xr = t.re[base[r] + jo];
+          const float xi = t.im[base[r] + jo];
+#pragma unroll
+          for (int q = 0; q < RI; ++q) {
+            ar[r][q] = fmaf(gr[q], xr, ar[r][q]);
+            ai[r][q] = fmaf(gr[q], xi, ai[r][q]);
+            if (!REAL) {
+              ar[r][q] = fmaf(-gi[q], xi, ar[r][q]);
+              ai[r][q] = fmaf(gi[q], xr, ai[r][q]);
+            }
+          }
+        }
+      } else {
+        // out_re += Gre x_re - Gim x_im, out_im += Gre x_im + Gim x_re,
+        // each product over the tier's parts (the real-block form)
+        float grh[RI], grl[RI], gih[RI], gil[RI];
 #pragma unroll
         for (int q = 0; q < RI; ++q) {
-          ar[r][q] = fmaf(gr[q], xr, ar[r][q]);
-          ai[r][q] = fmaf(gr[q], xi, ai[r][q]);
-          if (!REAL) {
-            ar[r][q] = fmaf(-gi[q], xi, ar[r][q]);
-            ai[r][q] = fmaf(gi[q], xr, ai[r][q]);
+          tier_parts<TIER>(gr[q], grh[q], grl[q]);
+          tier_parts<TIER>(gi[q], gih[q], gil[q]);
+        }
+#pragma unroll
+        for (int r = 0; r < RF; ++r) {
+          float xrh, xrl, xih, xil;
+          tier_parts<TIER>(t.re[base[r] + jo], xrh, xrl);
+          tier_parts<TIER>(t.im[base[r] + jo], xih, xil);
+#pragma unroll
+          for (int q = 0; q < RI; ++q) {
+            ar[r][q] = tier_fma<TIER>(grh[q], grl[q], xrh, xrl, ar[r][q]);
+            ai[r][q] = tier_fma<TIER>(grh[q], grl[q], xih, xil, ai[r][q]);
+            if (!REAL) {
+              ar[r][q] = tier_fma<TIER>(-gih[q], -gil[q], xih, xil, ar[r][q]);
+              ai[r][q] = tier_fma<TIER>(gih[q], gil[q], xrh, xrl, ai[r][q]);
+            }
           }
         }
       }
@@ -202,11 +301,201 @@ __device__ void mat_stage(const Tile& t, const long long* ds,
   }
 }
 
-template <int D>
+// ---- tensor-core body of the HIGH and DEFAULT tiers (d >= 16) ----------
+
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo_k, float hi_k) {
+  // the lower-k value in the low half, as mma's fragments want it
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_k, hi_k);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A-fragment words of two neighbouring-k values: (hi, lo) parts at HIGH,
+// (rn, unused) at DEFAULT
+template <int TIER>
+__device__ __forceinline__ void a_words(float x0, float x1, uint32_t& hi,
+                                        uint32_t& lo) {
+  if constexpr (TIER == T_HIGH) {
+    const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+    hi = __byte_perm(u0, u1, 0x7632);           // the two high halves
+    lo = bf16x2_rn(x0 - __uint_as_float(u0 & 0xFFFF0000u),
+                   x1 - __uint_as_float(u1 & 0xFFFF0000u));
+  } else {
+    hi = bf16x2_rn(x0, x1);
+    lo = 0u;
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += the tier's products of A (parts a[0] = hi, a[1] = lo) and B (words
+// bh = hi, bl = lo of the two B registers)
+template <int TIER>
+__device__ __forceinline__ void tier_mma(float (&c)[4],
+                                         const uint32_t (&a)[2][4],
+                                         uint32_t bh0, uint32_t bh1,
+                                         uint32_t bl0, uint32_t bl1) {
+  mma_bf16(c, a[0], bh0, bh1);
+  if constexpr (TIER == T_HIGH) {
+    mma_bf16(c, a[0], bl0, bl1);
+    mma_bf16(c, a[1], bh0, bh1);
+  }
+}
+
+__device__ __forceinline__ float2 load_pair(const float* plane, int b, int j,
+                                            int p) {
+  // elements j and j+1 of the fiber at b (contracted bits at position p)
+  if (p == 0) return *reinterpret_cast<const float2*>(plane + b + j);
+  return make_float2(plane[b + (j << p)], plane[b + ((j + 1) << p)]);
+}
+
+template <int D, bool REAL, int TIER>
+__device__ void mma_stage(const Tile& t, const long long* ds,
+                          const float* __restrict__ ops) {
+  constexpr int W = log2i(D);
+  constexpr int KS = D / 16;                // input steps (mma K = 16)
+  constexpr int WN = D == 128 ? 2 : 1;      // warps across the outputs
+  constexpr int NTW = D / 8 / WN;           // 8-output blocks per warp
+  constexpr int WM = NWARPS / WN;           // warps across the fibers
+  constexpr int MT = D >= 64 ? 1 : 2;       // 16-fiber blocks per warp
+  constexpr int CHUNK = WM * MT * 16;       // fibers per chunk
+  constexpr int VEC = TIER == T_HIGH ? 2 : 1;   // uint4 per lane per block
+  const int p = static_cast<int>(ds[F_POS]);
+  const uint4* __restrict__ gw =
+      reinterpret_cast<const uint4*>(ops + ds[F_OP_OFF]);
+  const bool masked = ds[F_MASKED] != 0;
+  const int lm = static_cast<int>(ds[F_LANE_MASK]);
+  const int lw = static_cast<int>(ds[F_LANE_WANT]);
+  const int rm = static_cast<int>(ds[F_ROW_MASK]);
+  const int rw = static_cast<int>(ds[F_ROW_WANT]);
+  const int nfib = 1 << (t.bits - W);
+  const int lo_mask = (1 << p) - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;   // fragment row group, column pair
+  const int wn = warp % WN, wm = warp / WN;
+
+  for (int f0 = 0; f0 < nfib; f0 += CHUNK) {
+    const int fw = f0 + wm * MT * 16;       // this warp's first fiber
+    const bool active = fw < nfib;          // warp-uniform
+    int base[MT][2];
+    bool ok[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {         // fragment rows g and g + 8
+        const int f = fw + mt * 16 + g + 8 * h;
+        ok[mt][h] = f < nfib;
+        const int fc = ok[mt][h] ? f : 0;
+        base[mt][h] = ((fc >> p) << (p + W)) | (fc & lo_mask);
+      }
+    float acc[MT][NTW][2][4];               // [..][..][re, im][fragment]
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[mt][nt][0][c] = 0.f;
+          acc[mt][nt][1][c] = 0.f;
+        }
+    if (active) {
+#pragma unroll 1
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ar[MT][2][4], ai[MT][2][4];   // [..][hi, lo][register]
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {        // a0a1, a2a3, a4a5, a6a7
+            const int b = base[mt][r & 1];
+            const int j = ks * 16 + 2 * tq + 8 * (r >> 1);
+            const float2 vr = load_pair(t.re, b, j, p);
+            const float2 vi = load_pair(t.im, b, j, p);
+            a_words<TIER>(vr.x, vr.y, ar[mt][0][r], ar[mt][1][r]);
+            a_words<TIER>(vi.x, vi.y, ai[mt][0][r], ai[mt][1][r]);
+          }
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          const uint4* blk =
+              gw + (((wn * NTW + nt) * KS + ks) * 32 + lane) * VEC;
+          // HIGH: {re_hi w0, re_hi w1, re_lo w0, re_lo w1}, then im's;
+          // DEFAULT: {re w0, re w1, im w0, im w1}
+          const uint4 w0 = __ldg(blk);
+          uint32_t rh0 = w0.x, rh1 = w0.y, rl0 = w0.z, rl1 = w0.w;
+          uint32_t ih0, ih1, il0 = 0u, il1 = 0u;
+          if constexpr (TIER == T_HIGH) {
+            const uint4 w1 = __ldg(blk + 1);
+            ih0 = w1.x; ih1 = w1.y; il0 = w1.z; il1 = w1.w;
+          } else {
+            ih0 = rl0; ih1 = rl1; rl0 = 0u; rl1 = 0u;
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            tier_mma<TIER>(acc[mt][nt][0], ar[mt], rh0, rh1, rl0, rl1);
+            tier_mma<TIER>(acc[mt][nt][1], ai[mt], rh0, rh1, rl0, rl1);
+            if (!REAL) {
+              constexpr uint32_t NEG = 0x80008000u;   // -x: sign bits
+              tier_mma<TIER>(acc[mt][nt][0], ai[mt], ih0 ^ NEG, ih1 ^ NEG,
+                             il0 ^ NEG, il1 ^ NEG);
+              tier_mma<TIER>(acc[mt][nt][1], ar[mt], ih0, ih1, il0, il1);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // every read of this chunk's fibers is done
+    if (active) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!ok[mt][h]) continue;
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = (wn * NTW + nt) * 8 + 2 * tq + e;
+              const int el = base[mt][h] + (i << p);
+              if (masked) {
+                const int ln = el & ((1 << LANE_BITS) - 1);
+                const int row = t.row_id[el >> LANE_BITS];
+                if ((ln & lm) != lw || (row & rm) != rw) continue;
+              }
+              t.re[el] = acc[mt][nt][0][2 * h + e];
+              t.im[el] = acc[mt][nt][1][2 * h + e];
+            }
+        }
+    }
+    __syncthreads();
+  }
+}
+
+template <int D, int TIER>
 __device__ void mat_dispatch(const Tile& t, const long long* ds,
                              const float* __restrict__ ops) {
-  if (ds[F_REAL]) mat_stage<D, true>(t, ds, ops);
-  else mat_stage<D, false>(t, ds, ops);
+  const bool real = ds[F_REAL] != 0;
+  if constexpr (TIER != T_HIGHEST && D >= MMA_MIN_DIM) {
+    if (real) mma_stage<D, true, TIER>(t, ds, ops);
+    else mma_stage<D, false, TIER>(t, ds, ops);
+  } else if constexpr (TIER != T_HIGHEST) {
+    // narrow: the tier's FMA body; `sc` (descriptor tier HIGHEST) exact
+    if (ds[F_TIER] == T_HIGHEST) {
+      if (real) mat_stage<D, true, T_HIGHEST>(t, ds, ops);
+      else mat_stage<D, false, T_HIGHEST>(t, ds, ops);
+    } else if (real) {
+      mat_stage<D, true, TIER>(t, ds, ops);
+    } else {
+      mat_stage<D, false, TIER>(t, ds, ops);
+    }
+  } else {
+    if (real) mat_stage<D, true, T_HIGHEST>(t, ds, ops);
+    else mat_stage<D, false, T_HIGHEST>(t, ds, ops);
+  }
 }
 
 __device__ void phase_stage(const Tile& t, const float* __restrict__ g) {
@@ -390,6 +679,7 @@ __device__ void batchsel_stage(const Tile& t, const long long* ds,
   }
 }
 
+template <int TIER>
 __global__ void __launch_bounds__(NTHREADS, 1)
 segment_kernel(float* __restrict__ amps_all, int n, int tile_bits,
                int inner_bits, unsigned scat_mask, unsigned free_mask,
@@ -448,13 +738,13 @@ segment_kernel(float* __restrict__ amps_all, int n, int tile_bits,
     switch (static_cast<int>(ds[F_KIND])) {
       case K_MAT:
         switch (static_cast<int>(ds[F_DIM])) {
-          case 2: mat_dispatch<2>(t, ds, ops); break;
-          case 4: mat_dispatch<4>(t, ds, ops); break;
-          case 8: mat_dispatch<8>(t, ds, ops); break;
-          case 16: mat_dispatch<16>(t, ds, ops); break;
-          case 32: mat_dispatch<32>(t, ds, ops); break;
-          case 64: mat_dispatch<64>(t, ds, ops); break;
-          default: mat_dispatch<128>(t, ds, ops); break;
+          case 2: mat_dispatch<2, TIER>(t, ds, ops); break;
+          case 4: mat_dispatch<4, TIER>(t, ds, ops); break;
+          case 8: mat_dispatch<8, TIER>(t, ds, ops); break;
+          case 16: mat_dispatch<16, TIER>(t, ds, ops); break;
+          case 32: mat_dispatch<32, TIER>(t, ds, ops); break;
+          case 64: mat_dispatch<64, TIER>(t, ds, ops); break;
+          default: mat_dispatch<128, TIER>(t, ds, ops); break;
         }
         break;
       case K_PHASE: phase_stage(t, g); break;
@@ -479,6 +769,26 @@ segment_kernel(float* __restrict__ amps_all, int n, int tile_bits,
   }
 }
 
+long long smem_bytes(int tile_bits) {
+  return (2LL << tile_bits) * sizeof(float) + EXTRA_WORDS * 4LL;
+}
+
+template <int TIER>
+cudaError_t launch(dim3 grid, long long smem, cudaStream_t stream,
+                   float* amps, int n, int tile_bits, int inner_bits,
+                   unsigned scat_mask, unsigned free_mask,
+                   const long long* desc, int nstages, const float* ops,
+                   int batch, const float* sel) {
+  cudaError_t e = cudaFuncSetAttribute(
+      segment_kernel<TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(MAX_TILE_BITS)));
+  if (e != cudaSuccess) return e;
+  segment_kernel<TIER><<<grid, NTHREADS, static_cast<size_t>(smem), stream>>>(
+      amps, n, tile_bits, inner_bits, scat_mask, free_mask, desc, nstages,
+      ops, batch, sel);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -489,7 +799,7 @@ int quest_segment_max_tile_bits() { return MAX_TILE_BITS; }
 int quest_segment_max_multiphase_rows() { return MAX_MULTIPHASE_ROWS; }
 
 long long quest_segment_smem_bytes(int tile_bits) {
-  return (2LL << tile_bits) * sizeof(float) + EXTRA_WORDS * 4LL;
+  return smem_bytes(tile_bits);
 }
 
 const char* quest_cuda_error_string(int code) {
@@ -497,30 +807,43 @@ const char* quest_cuda_error_string(int code) {
 }
 
 // Launch one segment over `batch` states on `stream` (`sel`: the
-// selection table (slots, batch, 8), or null when no stage reads it).
+// selection table (slots, batch, 8), or null when no stage reads it), the
+// matrix stages at matmul `tier` (T_HIGHEST, T_HIGH or T_DEFAULT).
 // Returns the launch's cudaError_t: nothing is allocated and nothing is
 // synchronised here.
 int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
                         unsigned scat_mask, unsigned free_mask,
                         const void* desc, int nstages, const void* ops,
                         long long blocks, int batch, const void* sel,
-                        void* stream) {
+                        int tier, void* stream) {
   if (tile_bits < LANE_BITS + 3 || tile_bits > MAX_TILE_BITS
       || batch < 1 || batch > MAX_GRID_BATCH)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = quest_segment_smem_bytes(tile_bits);
-  cudaError_t e = cudaFuncSetAttribute(
-      segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(quest_segment_smem_bytes(MAX_TILE_BITS)));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long smem = smem_bytes(tile_bits);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-  segment_kernel<<<grid, NTHREADS, static_cast<size_t>(smem),
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(amps), n, tile_bits, inner_bits, scat_mask,
-      free_mask, static_cast<const long long*>(desc), nstages,
-      static_cast<const float*>(ops), batch,
-      static_cast<const float*>(sel));
-  return static_cast<int>(cudaGetLastError());
+  auto* a = static_cast<float*>(amps);
+  auto* d = static_cast<const long long*>(desc);
+  auto* o = static_cast<const float*>(ops);
+  auto* sl = static_cast<const float*>(sel);
+  auto* st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (tier) {
+    case T_HIGHEST:
+      e = launch<T_HIGHEST>(grid, smem, st, a, n, tile_bits, inner_bits,
+                            scat_mask, free_mask, d, nstages, o, batch, sl);
+      break;
+    case T_HIGH:
+      e = launch<T_HIGH>(grid, smem, st, a, n, tile_bits, inner_bits,
+                         scat_mask, free_mask, d, nstages, o, batch, sl);
+      break;
+    case T_DEFAULT:
+      e = launch<T_DEFAULT>(grid, smem, st, a, n, tile_bits, inner_bits,
+                            scat_mask, free_mask, d, nstages, o, batch, sl);
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

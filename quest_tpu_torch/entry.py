@@ -24,6 +24,10 @@ shots in chunks of 64 through trajectories.run_batched — and returns
 (per-shot <Z_23> (256,), draws (256, 75)); the observable reduces each
 chunk on the device, as the bench does, so no chunk's planes outlive it.
 
+Each entry compiles its program at the session's matmul tier
+(QUEST_MATMUL_PRECISION or precision.set_matmul_precision: highest, high
+or default), as the reference's entry points do.
+
 The two other density circuits the smoke test drives are here too:
 bench_density_circuit (the repo's density bench scenario: rotations,
 damping, a 2-qubit depolarising Kraus map and a Pauli Kraus map) and

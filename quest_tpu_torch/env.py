@@ -45,9 +45,10 @@ def _parse_matmul_precision(raw: str) -> str:
 
 _KNOB_LIST = (
     Knob("QUEST_MATMUL_PRECISION", _parse_matmul_precision, "highest",
-         doc="precision tier for state-amplitude contractions: default, "
-             "high or highest (default: highest — IEEE fp32; the port "
-             "implements only this tier)"),
+         doc="precision tier for state-amplitude contractions: default "
+             "(one bf16 product), high (three bf16 products of hi/lo "
+             "splits) or highest (IEEE fp32); read when a program is "
+             "compiled (default: highest)"),
     Knob("QUEST_SCHEDULE", _bool01("QUEST_SCHEDULE"), True,
          doc="commutation-aware gate scheduler in front of the fusing "
              "engine's planner: 1/0 (default: 1)"),

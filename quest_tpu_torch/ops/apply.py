@@ -7,7 +7,12 @@ it is XLA, outside Pallas: the fused engine's passthrough for multi-
 target matrices that no kernel stage reaches (a 2-qubit channel's
 4-target superoperator, a cross-band 3-qubit gate). Here it is plain
 tensor code — views, one permute copy and torch.matmul per chunk — and
-no kernel of the port.
+no kernel of the port. Its contraction runs at the program's matmul tier
+(quest_tpu_torch/precision.py), as the reference's XLA dots read the
+session tier (quest_tpu/ops/apply.py:604/768/898): at 'high' or
+'default' the products are IEEE fp32 matmuls of the tier's bf16 parts,
+so a density step rounds the same way on both sides of a segment
+boundary.
 
 The state (or a batch of states, one contraction for all of them) is
 updated in place, chunk by chunk: the flat index is viewed with one
@@ -48,24 +53,27 @@ def bit_view(n: int, qubits: Sequence[int]):
 
 def apply_matrix_rows(amps: torch.Tensor, n: int, matrix, targets,
                       controls: Sequence[int] = (),
-                      cstates: Sequence[int] = ()) -> torch.Tensor:
+                      cstates: Sequence[int] = (),
+                      tier: str = "highest") -> torch.Tensor:
     """Apply `matrix` ((2^k, 2^k) complex; bit j of its index is
     targets[j]) to `targets` of the n-qubit planes `amps` ((2, 2^n) or
     (2, rows, 128), f32, contiguous, or a batch (B, 2, ...) of them),
-    where every control c holds its state (default 1). In place; returns
-    `amps`."""
+    where every control c holds its state (default 1), at matmul `tier`.
+    In place; returns `amps`."""
     m = np.asarray(matrix, dtype=np.complex128)
     k = len(tuple(targets))
     if m.shape != (1 << k, 1 << k):
         raise ValueError(f"matrix of shape {m.shape} for {k} targets")
     mre = torch.as_tensor(m.real, dtype=torch.float32, device=amps.device)
     mim = torch.as_tensor(m.imag, dtype=torch.float32, device=amps.device)
-    return apply_matrix_planes(amps, n, mre, mim, targets, controls, cstates)
+    return apply_matrix_planes(amps, n, mre, mim, targets, controls, cstates,
+                               tier)
 
 
 def apply_matrix_planes(amps: torch.Tensor, n: int, mre: torch.Tensor,
                         mim: torch.Tensor, targets, controls: Sequence[int] = (),
-                        cstates: Sequence[int] = ()) -> torch.Tensor:
+                        cstates: Sequence[int] = (),
+                        tier: str = "highest") -> torch.Tensor:
     """apply_matrix_rows with the matrix as f32 (re, im) tensors on the
     state's device — the form a matrix computed on the device (a drawn
     Kraus branch) takes, read without a trip to the host. `amps` may be
@@ -83,7 +91,10 @@ def apply_matrix_planes(amps: torch.Tensor, n: int, mre: torch.Tensor,
     if (tuple(mre.shape[-2:]) != (1 << k, 1 << k) or mre.dim() > 3
             or mre.shape != mim.shape):
         raise ValueError(f"matrix of shape {tuple(mre.shape)} for {k} targets")
-    precision.ieee_fp32()
+    precision.check_tier(tier)
+
+    def mm(m, x):
+        return precision.tier_matmul(m, x, tier)
     for xr, xi, order in target_chunks(amps, n, targets, controls, cstates):
         b = xr.shape[0]
         if mre.dim() == 3 and mre.shape[0] != b:
@@ -92,8 +103,8 @@ def apply_matrix_planes(amps: torch.Tensor, n: int, mre: torch.Tensor,
         inverse = [order.index(a) for a in range(len(order))]
         pr = xr.permute(order).reshape(b, 1 << k, -1)
         pi = xi.permute(order).reshape(b, 1 << k, -1)
-        nre = torch.matmul(mre, pr) - torch.matmul(mim, pi)
-        nim = torch.matmul(mre, pi) + torch.matmul(mim, pr)
+        nre = mm(mre, pr) - mm(mim, pi)
+        nim = mm(mre, pi) + mm(mim, pr)
         xr.copy_(nre.reshape(shape).permute(inverse))
         xi.copy_(nim.reshape(shape).permute(inverse))
     return amps

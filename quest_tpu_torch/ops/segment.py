@@ -30,6 +30,19 @@ Kraus pairs (PairStage) reach the kernel as a 4x4 butterfly on two tile
 bits: the packer reduces the 128x128 embedded blocks of 'lane' and 'b1'
 pairs to their 2x2 cores (checking that the rest of each block is the
 embedding), so every form runs 4 complex MACs per amplitude.
+
+Matmul tiers (quest_tpu_torch/precision.py). A segment is packed for one
+tier, which rides in the Segment and in each matrix descriptor (F_TIER):
+the b0, b1 and scb stages round at the segment's tier, `sc` stays exact.
+At 'high' and 'default' a stage of d >= 16 carries its operator as the
+bf16 B fragments of the kernel's tensor-core products (`_tier_words`):
+G is read from the planner's array in its orientation (G^T for b0, b1
+and 128-wide scb, G for narrow scb) and written, for each 8-output by
+16-input block, as the 32 lanes' registers of `mma.m16n8k16` — for
+'high' the hi and lo planes of Gre and Gim, for 'default' their RNE
+roundings. Narrower stages keep the f32 operand; the kernel rounds it as
+it reads it. The plain version applies the same tier through
+precision.tier_products.
 """
 
 from __future__ import annotations
@@ -49,11 +62,11 @@ from quest_tpu_torch.ops.band_plan import (
     BatchSelStage, MatStage, MultiPhaseStage, PairStage, ParityStage,
     PhaseStage, segment_geometry)
 
-DESC_WORDS = 16
+DESC_WORDS = 17
 # descriptor columns (csrc/segment.cu enum F_*)
 (F_KIND, F_DIM, F_POS, F_REAL, F_SI, F_SJ, F_LANE_MASK, F_LANE_WANT,
  F_ROW_MASK, F_ROW_WANT, F_OP_OFF, F_FORMS, F_MASKED, F_TARGETS,
- F_POS2, F_SLOT) = range(16)
+ F_POS2, F_SLOT, F_TIER) = range(17)
 K_MAT, K_PHASE, K_PARITY, K_MULTIPHASE, K_PAIR, K_DIAGVEC, K_BATCHSEL = range(7)
 MAT_DIMS = (2, 4, 8, 16, 32, 64, 128)
 MAX_MULTIPHASE_ROWS = 64
@@ -62,6 +75,10 @@ MAX_DIAG_TARGETS = 7          # fusion.DIAG_FUSE_MAX
 TARGET_BITS = 6               # bits per qubit index in F_TARGETS
 SEL_WORDS = 8                 # one selection-table row: a complex 2x2
 MAX_GRID_BATCH = 65535        # states per launch (gridDim.y)
+TIER_CODE = {"highest": 0, "high": 1, "default": 2}   # csrc T_* codes
+MMA_MIN_DIM = 16              # d from which a tier stage uses tensor cores
+MMA_N, MMA_K = 8, 16          # mma.m16n8k16: outputs x inputs per block
+PLAIN_CHUNK_AMPS = 1 << 26    # amplitudes per slice of a plain contraction
 
 _PORTED = (MatStage, PhaseStage, ParityStage, MultiPhaseStage, PairStage,
            DiagVecStage, BatchSelStage)
@@ -76,11 +93,21 @@ def check_supported(stages) -> None:
                 f"{type(st).__name__} is not ported yet (ROADMAP B)")
 
 
-def stage_label(st) -> str:
+def rounds(st) -> bool:
+    """Whether the stage's products take the matmul tier: the b0, b1 and
+    scb contractions (the reference's `_mxu_dot_general` calls), not the
+    elementwise `sc` butterfly."""
+    return isinstance(st, MatStage) and st.kind != "sc"
+
+
+def stage_label(st, tier: str = "highest") -> str:
     """Stage kind as the launch counts name it: b0, b1, scb<d>, sc, phase,
-    parity, multiphase, pair, diagvec or batchsel."""
+    parity, multiphase, pair, diagvec or batchsel; a b0/b1/scb stage at a
+    tier below 'highest' gets it as a suffix (b0@high, scb128@default)."""
     if isinstance(st, MatStage):
-        return f"scb{st.dim}" if st.kind == "scb" else st.kind
+        label = f"scb{st.dim}" if st.kind == "scb" else st.kind
+        return label if tier == "highest" or not rounds(st) else (
+            f"{label}@{tier}")
     return {PhaseStage: "phase", ParityStage: "parity",
             MultiPhaseStage: "multiphase", PairStage: "pair",
             DiagVecStage: "diagvec", BatchSelStage: "batchsel"}[type(st)]
@@ -103,6 +130,7 @@ class Segment:
     labels: FrozenSet[str]               # stage_label of each stage
     slots: Tuple[int, ...]               # selection-table slots read by
     # its BatchSelStages, in stage order
+    tier: str                            # matmul tier of b0/b1/scb stages
 
     @property
     def device(self) -> torch.device:
@@ -126,9 +154,10 @@ def _set_preds(row: list, st) -> list:
     return row
 
 
-def _mat_row(st: MatStage, geo: Geometry) -> list:
+def _mat_row(st: MatStage, geo: Geometry, tier: str) -> list:
     """Descriptor of a matrix stage: contraction position inside the
-    tile, operand strides (G[i, j] = op[i*si + j*sj]) and predicates."""
+    tile, operand strides (G[i, j] = op[i*si + j*sj]), tier and
+    predicates."""
     d = st.dim
     w = d.bit_length() - 1
     if d not in MAT_DIMS:
@@ -148,15 +177,64 @@ def _mat_row(st: MatStage, geo: Geometry) -> list:
                                  f"adjacent tile axes in {geo}")
     else:
         raise ValueError(f"unknown matrix stage kind {st.kind!r}")
-    # the planner stores G^T (X @ G^T form) for b0, b1 and 128-wide scb,
-    # G for narrow scb and sc (quest_tpu/ops/pallas_band.py:462-468)
-    transposed = st.kind in ("b0", "b1") or (st.kind == "scb" and d == LANES)
-    si, sj = (1, d) if transposed else (d, 1)
+    si, sj = (1, d) if stores_transpose(st) else (d, 1)
     row = [0] * DESC_WORDS
     row[F_KIND], row[F_DIM], row[F_POS], row[F_REAL] = (
         K_MAT, d, pos, int(st.real_only))
     row[F_SI], row[F_SJ] = si, sj
+    row[F_TIER] = TIER_CODE[tier] if rounds(st) else 0
     return _set_preds(row, st)
+
+
+def stores_transpose(st: MatStage) -> bool:
+    """Whether the planner stores the stage's operator as G^T (X @ G^T
+    form: b0, b1 and 128-wide scb) rather than G (narrow scb and sc;
+    quest_tpu/ops/pallas_band.py:462-468)."""
+    return st.kind in ("b0", "b1") or (st.kind == "scb" and st.dim == LANES)
+
+
+def _operator(st: MatStage, arr: np.ndarray) -> np.ndarray:
+    """(2, d, d) planes of G[i, j] (out_i = sum_j G[i, j] x_j) from the
+    planner's operand."""
+    return arr.transpose(0, 2, 1) if stores_transpose(st) else arr
+
+
+def _bf16_bits(x: torch.Tensor) -> np.ndarray:
+    """uint32 holding the bf16 encoding (RNE) of each value of f32 x."""
+    b = x.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    return b.astype(np.uint32)
+
+
+def tier_parts(g: np.ndarray, tier: str) -> np.ndarray:
+    """(P, d, d) uint32 bf16 encodings of the tier's parts of the operator
+    planes g (2, d, d): 'high' -> [re_hi, re_lo, im_hi, im_lo], 'default'
+    -> [re, im]."""
+    t = torch.from_numpy(np.ascontiguousarray(g, dtype=np.float32))
+    if tier == "high":
+        parts = [p for plane in t for p in precision.split_hi_lo(plane)]
+    elif tier == "default":
+        parts = list(t)
+    else:
+        raise ValueError(f"no bf16 parts at tier {tier!r}")
+    return np.stack([_bf16_bits(p) for p in parts])
+
+
+def _tier_words(st: MatStage, arr: np.ndarray, tier: str) -> np.ndarray:
+    """The operator of a tier stage (d >= 16) as the kernel's tensor-core
+    B fragments, viewed as f32. For output block nt (outputs 8nt..8nt+7)
+    and input step ks (inputs 16ks..16ks+15), lane = 4g + t holds, for
+    each part in tier_parts order, two bf16x2 words: (G[i, j], G[i, j+1])
+    and (G[i, j+8], G[i, j+9]) with i = 8nt + g, j = 16ks + 2t (the lower
+    half holds the lower j). Blocks run nt-major; each lane's words are
+    contiguous (16 bytes per part pair)."""
+    d = st.dim
+    parts = tier_parts(_operator(st, arr), tier)       # (P, i, j)
+    p = parts.shape[0]
+    nt, ks = d // MMA_N, d // MMA_K
+    v = parts.reshape(p, nt, MMA_N, ks, 2, 4, 2)        # p nt g ks half t e
+    words = v[..., 0] | (v[..., 1] << 16)               # p nt g ks half t
+    words = words.transpose(1, 3, 2, 5, 0, 4)           # nt ks g t p half
+    return np.ascontiguousarray(words).reshape(-1).view(np.float32)
 
 
 def _tile_pos(geo: Geometry, row_bit: int) -> int:
@@ -238,11 +316,14 @@ def _batchsel_row(st: BatchSelStage, geo: Geometry) -> list:
 
 
 def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
-                    device, budgets: Budgets = HOPPER_GEOMETRY) -> Segment:
+                    device, budgets: Budgets = HOPPER_GEOMETRY,
+                    tier: str = None) -> Segment:
     """Pack one segment — its geometry, a descriptor table (one int64 row
     of DESC_WORDS per stage) and one flat f32 buffer of every operand —
+    for matmul `tier` (None: the session's, precision.matmul_precision),
     and move the table and buffer to `device` (once, at compile time)."""
     check_supported(stages)
+    tier = precision.check_tier(tier or precision.matmul_precision())
     if not stages or len(stages) != len(arrays):
         raise ValueError("a segment needs one operand array per stage")
     geo = segment_geometry(stages, n, budgets=budgets)
@@ -250,7 +331,7 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
         raise ValueError(f"tile of {geo.tile_bits} bits exceeds the "
                          f"kernel's {MAX_TILE_BITS}")
     arrays = tuple(np.asarray(a, dtype=np.float32) for a in arrays)
-    rows, offs, packed = [], [], []
+    rows, offs, packed, chunks = [], [], [], []
     off = 0
     for st, arr in zip(stages, arrays):
         kernel_arr = arr
@@ -266,7 +347,12 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
         elif isinstance(st, MatStage):
             if arr.shape != (2, st.dim, st.dim):
                 raise ValueError(f"{st.kind} operand shape {arr.shape}")
-            row = _mat_row(st, geo)
+            row = _mat_row(st, geo, tier)
+            if row[F_TIER] and st.dim >= MMA_MIN_DIM:
+                kernel_arr = _tier_words(st, arr, tier)
+                pad = -off % 4                   # 16-byte fragment loads
+                chunks.append(np.zeros(pad, np.float32))
+                off += pad
         elif isinstance(st, MultiPhaseStage):
             m = len(st.forms)
             if arr.shape != (m, 8) or m > MAX_MULTIPHASE_ROWS:
@@ -284,11 +370,12 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
         row[F_OP_OFF] = off
         rows.append(row)
         packed.append(kernel_arr)
+        chunks.append(kernel_arr.reshape(-1))
         offs.append(off)
         off += kernel_arr.size
     # the kernel's buffer holds each operand as it reads it (pair cores);
     # `operands` keeps the planner's arrays for the plain version
-    flat = np.concatenate([a.reshape(-1) for a in packed])
+    flat = np.concatenate(chunks)
     desc = np.array(rows, dtype=np.int64).reshape(-1, DESC_WORDS)
     dev = torch.device(device)
     ops = torch.from_numpy(flat).to(dev)
@@ -304,9 +391,10 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
                    desc=torch.from_numpy(desc).to(dev), ops=ops,
                    operands=operands, scat_mask=scat_mask,
                    free_mask=free_mask,
-                   labels=frozenset(stage_label(st) for st in stages),
+                   labels=frozenset(stage_label(st, tier) for st in stages),
                    slots=tuple(st.index for st in stages
-                               if isinstance(st, BatchSelStage)))
+                               if isinstance(st, BatchSelStage)),
+                   tier=tier)
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +408,7 @@ def _lib() -> ctypes.CDLL:
         vp, ci, cu, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                            ctypes.c_longlong)
         lib.quest_segment_sweep.argtypes = [vp, ci, ci, ci, cu, cu, vp, ci,
-                                            vp, cll, ci, vp, vp]
+                                            vp, cll, ci, vp, ci, vp]
         lib.quest_segment_sweep.restype = ci
         lib.quest_segment_desc_words.restype = ci
         lib.quest_segment_max_tile_bits.restype = ci
@@ -393,7 +481,7 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
     _check_sel(sel, seg, batch)
     if amps.device.type == "cpu":
         out = segment_sweep_reference(amps, seg.stages, seg.operands, seg.n,
-                                      sel)
+                                      sel, seg.tier)
         return amps.copy_(out.reshape(amps.shape))
     if amps.device.type != "cuda":
         raise ValueError(f"segment_sweep runs on cuda or cpu, not {amps.device}")
@@ -408,7 +496,8 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
             amps.data_ptr(), seg.n, geo.tile_bits, geo.inner_bits,
             seg.scat_mask, seg.free_mask, seg.desc.data_ptr(),
             len(seg.stages), seg.ops.data_ptr(), geo.blocks, batch,
-            sel.data_ptr() if seg.slots else None, stream)
+            sel.data_ptr() if seg.slots else None, TIER_CODE[seg.tier],
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"segment kernel launch failed: CUDA error {rc} "
@@ -470,10 +559,13 @@ def _states_view(n: int, qubits, batch: int):
     return dims, axis_of
 
 
-def _contract(re, im, g, st: MatStage, n: int):
+def _contract(re, im, g, st: MatStage, n: int, tier: str):
     """Apply the stage's operator to the planes (each B x 2^n amplitudes,
     the states end to end): out[.., i, ..] = sum_j G[i, j] x[.., j, ..]
-    over the stage's bits."""
+    over the stage's bits, in the real-block form the kernel uses (out_re
+    = Gre x_re - Gim x_im, out_im = Gre x_im + Gim x_re; two products when
+    the operator is real), each product at `tier` (b0/b1/scb; `sc` is
+    exact at every tier)."""
     d = st.dim
     w = d.bit_length() - 1
     if st.kind == "b0":
@@ -482,14 +574,24 @@ def _contract(re, im, g, st: MatStage, n: int):
         q0 = LANE_QUBITS
     else:
         q0 = LANE_QUBITS + st.bit
-    transposed = st.kind in ("b0", "b1") or (st.kind == "scb" and d == LANES)
-    gre, gim = (g[0].T, g[1].T) if transposed else (g[0], g[1])
+    gre, gim = (g[0].T, g[1].T) if stores_transpose(st) else (g[0], g[1])
     shape = (-1, d, 1 << q0)
     xr, xi = re.reshape(shape), im.reshape(shape)
-    if st.real_only:
-        return torch.matmul(gre, xr), torch.matmul(gre, xi)
-    nre = torch.matmul(gre, xr) - torch.matmul(gim, xi)
-    nim = torch.matmul(gre, xi) + torch.matmul(gim, xr)
+    t = tier if rounds(st) else "highest"
+
+    def mm(a, b):
+        return precision.tier_matmul(a, b, t)
+    # in slices of the leading axis, so that a tier's rounded parts stay
+    # small beside a 30-qubit state
+    nre, nim = torch.empty_like(xr), torch.empty_like(xi)
+    step = max(1, PLAIN_CHUNK_AMPS // (d << q0))
+    for a in range(0, xr.shape[0], step):
+        r, i = xr[a:a + step], xi[a:a + step]
+        if st.real_only:
+            nre[a:a + step], nim[a:a + step] = mm(gre, r), mm(gre, i)
+        else:
+            nre[a:a + step] = mm(gre, r) - mm(gim, i)
+            nim[a:a + step] = mm(gre, i) + mm(gim, r)
     return nre, nim
 
 
@@ -598,14 +700,17 @@ def _batchsel(re, im, rows, q: int):
 
 def segment_sweep_reference(amps: torch.Tensor, stages: Sequence,
                             arrays: Sequence, n: int,
-                            sel: torch.Tensor = None) -> torch.Tensor:
+                            sel: torch.Tensor = None,
+                            tier: str = "highest") -> torch.Tensor:
     """Plain PyTorch version of one segment: every stage applied to the
-    whole state, or to every state of a batch, in turn. `arrays` are the
-    planner's operands (numpy or torch); a BatchSelStage reads its slot
-    of the selection table `sel` (slots, B, 8) instead. Returns new (2,
-    2^(n-7), 128) planes, or (B, 2, 2^(n-7), 128) for a batch; `amps` is
-    not changed."""
+    whole state, or to every state of a batch, in turn, the b0/b1/scb
+    contractions at matmul `tier`. `arrays` are the planner's operands
+    (numpy or torch); a BatchSelStage reads its slot of the selection
+    table `sel` (slots, B, 8) instead. Returns new (2, 2^(n-7), 128)
+    planes, or (B, 2, 2^(n-7), 128) for a batch; `amps` is not
+    changed."""
     check_supported(stages)
+    precision.check_tier(tier)
     precision.ieee_fp32()
     dev = amps.device
     batched = batch_of(amps, n)
@@ -632,7 +737,7 @@ def segment_sweep_reference(amps: torch.Tensor, stages: Sequence,
             if isinstance(st, PairStage):
                 nre, nim = _pair(re, im, g, st, n, batch)
             else:
-                nre, nim = _contract(re, im, g, st, n)
+                nre, nim = _contract(re, im, g, st, n, tier)
                 nre, nim = nre.reshape(rows, LANES), nim.reshape(rows, LANES)
             mask = _pred_mask(lane, row, st.lane_preds, st.row_preds)
             if mask is not None:

@@ -251,14 +251,17 @@ class TrajectoryProgram:
     uniforms (B, C) (one per shot per channel, in [0, 1)); returns
     (planes (B, 2, 2^n) f32, draws (B, C) int32), both on the program's
     device. `plain(uniforms)` runs the same program through the plain
-    PyTorch version."""
+    PyTorch version. `tier` is the matmul tier of its matrix stages and
+    multi-qubit channels, the session's when the program is compiled;
+    Born reductions are f64 sums at every tier."""
 
-    def __init__(self, circuit, n: int, device):
+    def __init__(self, circuit, n: int, device, tier: str = None):
         dev = resolve_device(device)
+        tier = precision.check_tier(tier or precision.matmul_precision())
         precision.ieee_fp32()
         items, channels = _traj_channels_and_items(circuit, n)
         parts = BP.maybe_sweep(BP.segment_plan(items, n), n)
-        self.n, self.device = n, dev
+        self.n, self.device, self.tier = n, dev, tier
         self.channels = [_Channel(ch, dev) for ch in channels]
         self.channel_info = channels
         self.steps: List = []
@@ -270,11 +273,12 @@ class TrajectoryProgram:
                     if isinstance(st, BP.BatchSelStage) and st.barrier and j:
                         raise AssertionError(f"barrier stage not first: "
                                              f"{part[1]}")
-                self.steps.append(prepare_segment(part[1], part[2], n, dev))
+                self.steps.append(prepare_segment(part[1], part[2], n, dev,
+                                                  tier=tier))
             elif isinstance(part[1], _XlaChannel):
                 self.steps.append(part[1])
             else:
-                self.steps.append(_xla_part_applier(part, n))
+                self.steps.append(_xla_part_applier(part, n, tier))
         self.segments = [s for s in self.steps if isinstance(s, Segment)]
         # 1-qubit mixture channels: selected for the whole chunk at once
         mix = [c for c, info in zip(self.channels, channels)
@@ -348,14 +352,16 @@ class TrajectoryProgram:
                     sel[ch.index] = _pack_rows(op_re, op_im)
                 if plain:
                     planes = segment_sweep_reference(planes, step.stages,
-                                                     step.operands, n, sel)
+                                                     step.operands, n, sel,
+                                                     step.tier)
                 else:
                     segment_sweep(planes, step, sel)
             elif isinstance(step, _XlaChannel):
                 ch = self.channels[step.index]
                 draw, op_re, op_im = ch.select(planes, n, u[:, ch.index])
                 draws[:, ch.index] = draw.to(torch.int32)
-                A.apply_matrix_planes(planes, n, op_re, op_im, ch.targets)
+                A.apply_matrix_planes(planes, n, op_re, op_im, ch.targets,
+                                      tier=self.tier)
             else:
                 step(planes)
         return planes.reshape(b, 2, -1), draws
@@ -367,12 +373,14 @@ def _engine_key() -> Tuple:
 
 def _compiled_traj(circuit, n: int, device) -> TrajectoryProgram:
     """The trajectory program of `circuit` on `device`, cached on the
-    circuit per (device, op count, planner knobs)."""
+    circuit per (device, op count, planner knobs, matmul tier): a program
+    keeps the tier it was compiled at, and a new tier compiles anew."""
     dev = resolve_device(device)
-    key = ("traj-batched", n, str(dev), len(circuit.ops), _engine_key())
+    tier = precision.matmul_precision()
+    key = ("traj-batched", n, str(dev), len(circuit.ops), _engine_key(), tier)
     prog = circuit._compiled.get(key)
     if prog is None:
-        prog = TrajectoryProgram(circuit, n, dev)
+        prog = TrajectoryProgram(circuit, n, dev, tier)
         circuit._compiled[key] = prog
     return prog
 

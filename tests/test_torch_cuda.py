@@ -239,3 +239,89 @@ def test_trajectory_launches_independent_of_batch(card, batch):
     want, want_draws = prog.plain(u)
     assert torch.equal(draws, want_draws)
     assert (planes - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _tier_cases():
+    """The matrix-stage cases of _cases (b0, b1, scb; predicated,
+    real-only, chained) with a b1 and an scb of d = 16 besides."""
+    rng = np.random.default_rng(20261018)
+    cases = [c for c in _cases() if any(S.rounds(st) for st, _ in c[2])]
+    cases += [("b1_16", 16, [_mat(rng, "b1", 16)]),
+              ("scb16_preds", 16, [_mat(rng, "scb", 16, bit=3,
+                                        lane_preds=((1, 0),),
+                                        row_preds=((0, 1),))])]
+    return cases
+
+
+@pytest.mark.parametrize("tier", ["high", "default"])
+@pytest.mark.parametrize("case", _tier_cases(), ids=lambda c: c[0])
+def test_tier_kernel_matches_plain_version(card, case, tier):
+    """S11: the tier's tensor-core (d >= 16) or rounded-FMA (d < 16)
+    body against the tier's plain version within 1e-5 x max|amp|, and
+    against the HIGHEST kernel: different bits, within 1e-4 (HIGH) or
+    1e-2 (DEFAULT) x max|amp|. Where a rounding stage follows other
+    stages, kernel and plain version may round an input that their fp32
+    sums left one ulp apart to neighbouring bf16 values: there the gate
+    is one bf16 step of max|amp| (2^-14 HIGH, 2^-7 DEFAULT) and an L2
+    distance within the tier's tolerance."""
+    _, n, stages = case
+    sts, gs = [s for s, _ in stages], [g for _, g in stages]
+    seg = S.prepare_segment(sts, gs, n, card, tier=tier)
+    top = S.prepare_segment(sts, gs, n, card, tier="highest")
+    rng = np.random.default_rng(5)
+    amps = torch.from_numpy(
+        rng.standard_normal((2, 1 << n)).astype(np.float32)).to(card)
+    ref = amps.clone()
+    want = S.segment_sweep_reference(amps, seg.stages, seg.operands, n,
+                                     tier=tier)
+    before = dict(S.segment_sweep.stage_launches)
+    S.segment_sweep(amps, seg)
+    S.segment_sweep(ref, top)
+    torch.cuda.synchronize()
+    for label in seg.labels:
+        twice = label in top.labels          # sc: exact in both segments
+        assert (S.segment_sweep.stage_launches[label]
+                == before.get(label, 0) + (2 if twice else 1))
+    assert any(label.endswith("@" + tier) for label in seg.labels)
+    scale = want.abs().max().item()
+    tier_tol = {"high": 1e-4, "default": 1e-2}[tier]
+    diff = amps.reshape(2, -1) - want.reshape(2, -1)
+    err = diff.abs().max().item()
+    if any(S.rounds(st) for st in sts[1:]):
+        rel_l2 = (diff.double().pow(2).sum()
+                  / want.double().pow(2).sum()).sqrt().item()
+        assert err <= 1e-5 * scale or (
+            err <= {"high": 2.0 ** -14, "default": 2.0 ** -7}[tier] * scale
+            and rel_l2 <= tier_tol)
+    else:
+        assert err <= 1e-5 * scale
+    dist = (amps - ref).abs().max().item()
+    assert 0.0 < dist <= tier_tol * scale
+
+
+def test_fused_path_at_high_matches_plain_version(card):
+    """The 20-qubit flagship compiled at HIGH: the plan's launches under
+    '@high' labels, the plain path at HIGH within 1e-4 x max|amp| and its
+    norm within 1e-5, the HIGHEST program within 1e-4 x max|amp|."""
+    from quest_tpu_torch import precision as P
+    from quest_tpu_torch.entry import entry
+    top, (ref,) = entry(num_qubits=20)
+    P.set_matmul_precision("high")
+    try:
+        fn, (amps,) = entry(num_qubits=20)
+    finally:
+        P.set_matmul_precision(None)
+    assert fn.tier == "high" and top.tier == "highest"
+    want = fn.plain(amps.clone())
+    S.segment_sweep.stage_launches = {}
+    before = S.segment_sweep.launches
+    fn(amps)
+    top(ref)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.launches - before == 2 * fn.launches_per_call
+    assert any(k.endswith("@high") for k in S.segment_sweep.stage_launches)
+    scale = want.abs().max().item()
+    assert (amps - want).abs().max().item() <= 1e-4 * scale
+    assert abs((amps.double() ** 2).sum().item()
+               - (want.double() ** 2).sum().item()) <= 1e-5
+    assert 0.0 < (amps - ref).abs().max().item() <= 1e-4 * scale

@@ -86,7 +86,8 @@ def _emulate_state(planes, seg, table, batch, state_idx):
     """emulate_kernel on the blocks of state `state_idx` of the launch."""
     n, geo = seg.n, seg.geometry
     desc = seg.desc.cpu().numpy()
-    ops = seg.ops.cpu().numpy().astype(np.float64)
+    raw = seg.ops.cpu().numpy()
+    ops = raw.astype(np.float64)
     state = planes.reshape(2, -1).astype(np.float64).copy()
     tb = geo.tile_bits
     rows = 1 << (tb - 7)
@@ -122,13 +123,18 @@ def _emulate_state(planes, seg, table, batch, state_idx):
                 dim, p = int(d[S.F_DIM]), int(d[S.F_POS])
                 w = dim.bit_length() - 1
                 i = np.arange(dim)
-                o = off + i[:, None] * int(d[S.F_SI]) + i[None, :] * int(d[S.F_SJ])
-                g = ops[o] + (0 if d[S.F_REAL] else 1j * ops[o + dim * dim])
                 f = np.arange(1 << (tb - w))
                 fbase = ((f >> p) << (p + w)) | (f & ((1 << p) - 1))
                 addr = fbase[:, None] + (i[None, :] << p)
                 new = x.copy()
-                new[addr] = x[addr] @ g.T
+                tier = int(d[S.F_TIER])
+                if tier:
+                    new[addr] = _emulate_tier_mat(x[addr], d, raw, off, tier)
+                else:
+                    o = (off + i[:, None] * int(d[S.F_SI])
+                         + i[None, :] * int(d[S.F_SJ]))
+                    g = ops[o] + (0 if d[S.F_REAL] else 1j * ops[o + dim * dim])
+                    new[addr] = x[addr] @ g.T
                 if d[S.F_MASKED]:
                     ok = (((lane & int(d[S.F_LANE_MASK])) == d[S.F_LANE_WANT])
                           & ((row & int(d[S.F_ROW_MASK])) == d[S.F_ROW_WANT]))
@@ -206,6 +212,82 @@ def _emulate_state(planes, seg, table, batch, state_idx):
                 x = x * np.exp(1j * tot)
         state[0, idx], state[1, idx] = x.real, x.imag
     return state
+
+
+def bf16_rne(v: np.ndarray) -> np.ndarray:
+    """f32 values rounded to bf16, round-to-nearest-even, from the bits."""
+    u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    r = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return r.astype(np.uint32).view(np.float32)
+
+
+def np_tier_parts(v: np.ndarray, tier: str):
+    """(hi, lo) f64 of the f32 values v at a tier, from bit masks and RNE:
+    'high' -> (v & 0xFFFF0000, bf16(v - hi)), 'default' -> (bf16(v), 0)."""
+    v = np.asarray(v, np.float32)
+    if tier == "default":
+        return bf16_rne(v).astype(np.float64), np.zeros(v.shape)
+    hi = (v.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    return hi.astype(np.float64), bf16_rne(v - hi).astype(np.float64)
+
+
+def np_tier_dot(x: np.ndarray, g: np.ndarray, tier: str) -> np.ndarray:
+    """x @ g (real f32 operands) as the tier's exact bf16 products summed
+    in f64."""
+    xh, xl = np_tier_parts(x, tier)
+    gh, gl = np_tier_parts(g, tier)
+    out = xh @ gh
+    if tier == "high":
+        out = out + xh @ gl + xl @ gh
+    return out
+
+
+TIER_NAMES = {1: "high", 2: "default"}
+
+
+def _emulate_tier_mat(xf, d, raw, off, tier):
+    """A matrix stage at a tier, as the kernel computes it: fibers xf
+    (F, dim) complex, rounded from the f32 tile; the operator from the
+    buffer — tensor-core B fragments (dim >= 16: lane 4g + t of block
+    (nt, ks) holds bf16x2 words of G[8nt+g, 16ks+2t+{0,1}] and
+    G[.., 16ks+2t+{8,9}] for each part) or f32 planes read through the
+    strides (narrower) — and the real-block form of the products."""
+    name = TIER_NAMES[tier]
+    dim = int(d[S.F_DIM])
+    if dim >= S.MMA_MIN_DIM:
+        nparts = 4 if name == "high" else 2
+        w = raw[off:off + dim * dim * nparts // 2].view(np.uint32)
+        w = w.reshape(dim // 8, dim // 16, 8, 4, nparts, 2)
+        pair = np.stack([w & 0xFFFF, w >> 16], -1)   # nt ks g t p half e
+        parts = pair.transpose(4, 0, 2, 1, 5, 3, 6).reshape(nparts, dim, dim)
+        vals = (parts.astype(np.uint32) << 16).view(np.float32)
+        vals = vals.astype(np.float64)
+        if name == "high":
+            gre, gim = (vals[0], vals[1]), (vals[2], vals[3])
+        else:
+            gre, gim = (vals[0], 0.0), (vals[1], 0.0)
+
+        def dot(x, gparts):
+            xh, xl = np_tier_parts(x, name)
+            gh, gl = gparts
+            out = xh @ gh.T
+            if name == "high":
+                out = out + xh @ gl.T + xl @ gh.T
+            return out
+    else:
+        i = np.arange(dim)
+        o = off + i[:, None] * int(d[S.F_SI]) + i[None, :] * int(d[S.F_SJ])
+        f32 = raw.view(np.float32)
+        gre, gim = f32[o], f32[o + dim * dim]
+
+        def dot(x, g):
+            return np_tier_dot(x, g.T, name)
+    xr = xf.real.astype(np.float32)
+    xi = xf.imag.astype(np.float32)
+    if d[S.F_REAL]:
+        return dot(xr, gre) + 1j * dot(xi, gre)
+    return ((dot(xr, gre) - dot(xi, gim))
+            + 1j * (dot(xi, gre) + dot(xr, gim)))
 
 
 # ---------------------------------------------------------------------------
@@ -387,16 +469,18 @@ def test_wrapper_checks_and_counts_only_kernel_launches():
 
 
 def test_unported_stage_kinds_raise(monkeypatch):
-    """Every stage kind runs now (BatchSelStage since the batched slice);
-    what is still unported raises: the HIGH/DEFAULT contraction tiers
-    (S11, ROADMAP B6) and stage kinds the kernel does not know."""
+    """Every stage kind runs now (BatchSelStage since the batched slice,
+    the HIGH/DEFAULT contraction tiers since S11: a segment keeps the tier
+    it was packed at); stage kinds the kernel does not know raise."""
     st = BP.BatchSelStage(8, 0)
     seg = S.prepare_segment([st], [np.zeros((1, 8), np.float32)], 10, "cpu")
     assert seg.slots == (0,) and seg.labels == {"batchsel"}
     monkeypatch.setenv("QUEST_MATMUL_PRECISION", "high")
-    with pytest.raises(NotImplementedError, match="B6"):
-        S.segment_sweep(torch.zeros((2, 1 << 10)), seg,
-                        torch.zeros((1, 1, 8)))
+    out = S.segment_sweep(torch.zeros((2, 1 << 10)), seg,
+                          torch.zeros((1, 1, 8)))
+    assert seg.tier == "highest" and not out.abs().max().item()
+    assert S.prepare_segment([st], [np.zeros((1, 8), np.float32)], 10,
+                             "cpu").tier == "high"
     monkeypatch.delenv("QUEST_MATMUL_PRECISION")
     with pytest.raises(NotImplementedError, match="ROADMAP B"):
         S.check_supported([object()])
