@@ -4,10 +4,18 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --upto stages   # build + per-stage checks only
 
-Drives quest_tpu_torch (never JAX, never quest_tpu) on the card:
+Drives quest_tpu_torch (never JAX, never quest_tpu) on the card. Every
+phase runs the default segment driver, K1 (QUEST_FUSED_DRIVER=pipelined,
+QUEST_FUSED_PIPELINE=1), unless it names another:
 
   1. prints the card's name and power limit (nvidia-smi) and builds the
-     segment kernel (csrc/segment.cu) for sm_90a from the checkout;
+     segment kernel (csrc/segment.cu) for sm_90a from the checkout: nine
+     instantiations, the three drivers at the three matmul tiers;
+     probe: in a subprocess with a 120 s timeout (a slip of an mbarrier's
+     phase hangs rather than errs), the first launches of every driver —
+     K1, K2 at 2, 3 and 8 plane slots, K3 — on every stage case below
+     and on segments whose blocks walk many tiles (26 qubits, an 11-bit
+     tile, 16 states): bit-identical to K3;
   2. per-stage check at 20 qubits: one segment per stage kind S1-S8 and
      S10 (b0; b1 d=128 and d=32; scb d=128/64/4, one real; sc; phase;
      parity; multiphase; a matrix stage with lane and row predicates;
@@ -19,6 +27,18 @@ Drives quest_tpu_torch (never JAX, never quest_tpu) on the card:
      of 17 qubits, each with its own selection-table rows): S9
      (BatchSelStage) on a lane bit, inner rows and a scattered bit, within
      1e-6 max|amp|, and a barrier S9 leading a chain of other kinds;
+     drivers: the flagship at HIGHEST, HIGH and DEFAULT, 30q d20, the
+     density step, the batched step and the first trajectory chunk, each
+     compiled under K1 (run 3 times), K2 at 2 and 3 slots and K3: planes
+     (and draws) bit-identical across drivers and runs, every launch on
+     its driver, median ms per driver; dma_floor: at 28 qubits, per
+     driver, profiling.sweep_dma_report (the stage-free launch, each
+     flagship sweep's total and compute adder) and single-stage launches
+     beside the bound and a torch copy_ of the planes (the yardstick,
+     never called by the port); sanitize: compute-sanitizer memcheck and
+     racecheck on a 17-qubit segment per driver, in subprocesses
+     (memcheck must be clean where the tool brings the device up; where
+     it cannot, its message is recorded);
   3. the main path: quest_tpu_torch.entry.entry() (28 qubits, RCS depth 4,
      seed 7) through the kernel, with the launch counters (all launches
      and launches per stage kind) set to 0 just before and read just after; compared with the plain path on the card
@@ -129,7 +149,8 @@ ENVELOPE_SLACK = 1.5          # x the plain version's own distance
 # one bf16 rounding step of an input, relative to it: HIGH's lo (an ulp
 # of lo is at most 2^-14 of the value), DEFAULT's bf16 (2^-7)
 FLIP_TOL = {"high": 2.0 ** -14, "default": 2.0 ** -7}
-PHASES = ("build", "stages", "flagship", "baseline", "density",
+PHASES = ("build", "probe", "stages", "drivers", "dma_floor", "sanitize",
+          "flagship", "baseline", "density",
           "density_bench", "clifford_t_density", "batched",
           "trajectory_physics", "trajectories", "precision_stages",
           "precision_flagship", "precision_baseline", "precision_density",
@@ -264,14 +285,19 @@ def program_bound(fn):
 
 
 def kernel_resources(log: str):
-    """Registers and spills of each tier's instantiation of the segment
-    kernel (segment_kernel<0|1|2>), from nvcc -Xptxas -v."""
+    """Registers and spills of each driver-tier instantiation of the
+    segment kernel (K3 segment_kernel<0|1|2>, K1 ring_kernel<t, true>, K2
+    ring_kernel<t, false>), keyed 'driver/tier', from nvcc -Xptxas -v."""
     tiers = {"ILi0E": "highest", "ILi1E": "high", "ILi2E": "default"}
     out, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            entry = next((t for key, t in tiers.items() if key in ln),
-                         ln.split("'")[1] if "'" in ln else ln.strip())
+            tier = next((t for key, t in tiers.items() if key in ln), None)
+            driver = ("grid" if "segment_kernel" in ln else
+                      "decoupled" if "Lb1E" in ln else
+                      "inplace" if "Lb0E" in ln else None)
+            entry = (f"{driver}/{tier}" if tier and driver else
+                     ln.split("'")[1] if "'" in ln else ln.strip())
             out[entry] = {}
         elif entry is not None and "spill" in ln:
             out[entry]["spill"] = ln.strip()
@@ -289,7 +315,9 @@ def phase_build():
     from quest_tpu_torch.ops import segment as S
     S._lib()
     kernels = kernel_resources(_build.BUILD_LOG)
-    if built and set(kernels) != {"highest", "high", "default"}:
+    want = {f"{d}/{t}" for d in ("decoupled", "inplace", "grid")
+            for t in ("highest", "high", "default")}
+    if built and set(kernels) != want:
         raise AssertionError(f"build: kernel instantiations {sorted(kernels)}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "kernels": kernels})
@@ -530,10 +558,14 @@ def phase_flagship(torch):
     amps0 = amps.clone()
     S.segment_sweep.launches = 0
     S.segment_sweep.stage_launches = {}
+    S.segment_sweep.driver_launches = {}
     fn(amps)
     torch.cuda.synchronize()
     launches = S.segment_sweep.launches
     stage_launches = dict(S.segment_sweep.stage_launches)
+    if S.segment_sweep.driver_launches != {"decoupled": launches}:
+        raise AssertionError(f"main path drivers "
+                             f"{S.segment_sweep.driver_launches}: not K1")
     if launches != fn.launches_per_call or launches == 0:
         raise AssertionError(f"main path launched the segment kernel "
                              f"{launches} times for {fn.launches_per_call} "
@@ -666,11 +698,15 @@ def counted_call(torch, name, fn, amps):
     from quest_tpu_torch.ops import segment as S
     S.segment_sweep.launches = 0
     S.segment_sweep.stage_launches = {}
+    S.segment_sweep.driver_launches = {}
     fn(amps)
     torch.cuda.synchronize()
     launches = S.segment_sweep.launches
     stage_launches = dict(S.segment_sweep.stage_launches)
     planned = planned_launches(fn)
+    if S.segment_sweep.driver_launches != {"decoupled": launches}:
+        raise AssertionError(f"{name}: drivers "
+                             f"{S.segment_sweep.driver_launches}: not K1")
     if launches != fn.launches_per_call or not launches:
         raise AssertionError(f"{name}: {launches} launches for "
                              f"{fn.launches_per_call} segments")
@@ -1478,6 +1514,379 @@ def batchsel_timing(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the segment drivers (K1, K2, K3)
+# ---------------------------------------------------------------------------
+
+# configuration -> (driver, nbuf): K1 the default, K2 at 2 and 3 plane
+# slots, K3 one block per tile
+DRIVER_CONFIGS = {"K1": ("decoupled", 3), "K2/2": ("inplace", 2),
+                  "K2/3": ("inplace", 3), "K3": ("grid", 3)}
+DRIVER_KNOBS = ("QUEST_FUSED_DRIVER", "QUEST_FUSED_PIPELINE",
+                "QUEST_FUSED_NBUF")
+DRIVER_REPLACES = {"decoupled": "quest_tpu/ops/pallas_band.py:1715",
+                   "inplace": "quest_tpu/ops/pallas_band.py:1628",
+                   "grid": "quest_tpu/ops/pallas_band.py:1553"}
+K1_RUNS = 3
+PROBE_TIMEOUT_S = 120
+SANITIZE_TIMEOUT_S = 240
+SANITIZE_QUBITS = 17
+SANITIZE_UP = "sanitize_case: device up"
+SANITIZE_DONE = "sanitize_case: every driver launched"
+
+
+@contextlib.contextmanager
+def driver_knobs(cfg):
+    """Programs compiled inside run under configuration `cfg` of
+    DRIVER_CONFIGS (the three knobs set, then restored)."""
+    driver, nbuf = DRIVER_CONFIGS[cfg]
+    env = ({"QUEST_FUSED_DRIVER": "grid"} if driver == "grid" else
+           {"QUEST_FUSED_DRIVER": "pipelined",
+            "QUEST_FUSED_PIPELINE": "1" if driver == "decoupled" else "0",
+            "QUEST_FUSED_NBUF": str(nbuf)})
+    saved = {k: os.environ.get(k) for k in DRIVER_KNOBS}
+    for k in DRIVER_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ring_cases(rng):
+    """(name, n, batch, stages, arrays): segments whose blocks each walk
+    many steps (the persistent drivers' rings wrap many times): the
+    stage-free copy and a chain at 26 qubits, an sc stage on row bit 3
+    (11-bit tiles, where the in-place driver holds 8 plane slots) at 24,
+    and S9 in a batch of 16 states of 20 qubits."""
+    chain = [mat_op(rng, "b0", 128), phase_op(rng, 0b10, 0b10, 0b100, 0b100),
+             parity_op(rng, 0b11, 0b11001), mat_op(rng, "b1", 32),
+             pair_op(rng, "sub", 2, 12)]
+    sel = [batchsel_op(16, 0), mat_op(rng, "b0", 128), batchsel_op(3, 1, False)]
+    sc = mat_op(rng, "sc", 2, bit=3)
+    return [("copy_26", 26, 0, [], []),
+            ("chain_26", 26, 0, [s for s, _ in chain], [a for _, a in chain]),
+            ("sc_tile11_24", 24, 0, [sc[0]], [sc[1]]),
+            ("batchsel_20x16", 20, 16, [s for s, _ in sel],
+             [a for _, a in sel])]
+
+
+def probe_drivers(torch):
+    """The first launches of every driver, meant to run in a subprocess
+    with a timeout (a slip of an mbarrier's phase hangs a block): every
+    stage case and batched case of the stages phase and every ring case,
+    under K1, K2 at 2, 3 and 8 slots and K3, each bit-identical to K3
+    (max|diff| == 0) and K3 within the stage tolerance of the plain
+    version on the ring cases."""
+    from quest_tpu_torch.ops import segment as S
+    rng = np.random.default_rng(20261017)
+    configs = dict(DRIVER_CONFIGS, **{"K2/8": ("inplace", 8)})
+    cases = [(nm, n, 0, st, ar) for nm, n, st, ar in stage_cases(rng)]
+    cases += [(nm, n, b, st, ar)
+              for nm, n, b, st, ar, _ in batch_stage_cases(rng)]
+    results = []
+    for (name, n, batch, stages, arrays), ring in (
+            [(c, False) for c in cases] + [(c, True) for c in ring_cases(rng)]):
+        shape = (batch, 2, 1 << n) if batch else (2, 1 << n)
+        planes = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+        sel = (torch.from_numpy(sel_table(rng, 2, max(1, batch))).cuda()
+               if any(type(s).__name__ == "BatchSelStage" for s in stages)
+               else None)
+        outs, slots = {}, {}
+        for cfg, (driver, nbuf) in configs.items():
+            seg = S.prepare_segment(stages, arrays, n, "cuda", driver=driver,
+                                    nbuf=nbuf)
+            amps = planes.clone()
+            S.segment_sweep(amps, seg, sel)
+            torch.cuda.synchronize()
+            outs[cfg] = amps
+            slots[cfg] = S.smem_layout(seg.geometry.tile_bits,
+                                       seg.geometry.blocks * max(1, batch),
+                                       driver, nbuf)["slots"]
+        diffs = {cfg: (o - outs["K3"]).abs().max().item()
+                 for cfg, o in outs.items()}
+        rec = {"case": name, "n": n, "batch": batch, "slots": slots,
+               "max_abs_diff_vs_K3": diffs}
+        if ring:
+            want = S.segment_sweep_reference(planes, stages, arrays, n, sel)
+            err = (outs["K3"].reshape(-1) - want.reshape(-1)).abs().max()
+            rec["rel_err_vs_plain"] = (err / want.abs().max()).item()
+            if not rec["rel_err_vs_plain"] <= STAGE_TOL:
+                raise AssertionError(f"probe {name}: {rec}")
+        results.append(rec)
+        if any(d != 0.0 for d in diffs.values()):
+            raise AssertionError(f"probe {name}: drivers differ: {rec}")
+        del outs, planes
+    return results
+
+
+def phase_probe(torch):
+    """probe_drivers in a subprocess with PROBE_TIMEOUT_S: a timeout (a
+    hung ring) or any failure fails the run."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--probe"],
+            capture_output=True, text=True, timeout=PROBE_TIMEOUT_S,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"probe: the first driver launches did not "
+                             f"finish in {PROBE_TIMEOUT_S} s") from e
+    if proc.returncode != 0:
+        raise AssertionError(f"probe failed (exit {proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
+def _timed(torch, fn):
+    """(fn(), device ms) with CUDA events around the call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _same(a, b) -> bool:
+    """Bit-identical outputs: tensors, or tuples of tensors."""
+    import torch
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def driver_workloads(torch):
+    """(name, tier, compile(), fresh input or None, call(fn, x)) of this
+    slice's path: the flagship at HIGHEST, HIGH and DEFAULT, 30q d20, the
+    density step, the batched step and the first trajectory chunk (64
+    shots of the run's uniforms)."""
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.entry import (TRAJ_CHUNK, TRAJ_SEED, batched_entry,
+                                       density_entry, entry,
+                                       noisy_rcs_circuit, random_states)
+    from quest_tpu_torch.state import basis_planes, fused_state_shape
+
+    def zero(n):
+        return lambda: basis_planes(0, n=n, shape=fused_state_shape(n),
+                                    device="cuda")
+
+    def at_tier(tier, make):
+        def compiled():
+            with session_tier(tier):
+                return make()
+        return compiled
+
+    def apply(fn, x):
+        return fn(x)
+    traj = noisy_rcs_circuit(24, 3)
+    out = [("flagship", t, at_tier(t, lambda: entry()[0]), zero(28), apply)
+           for t in ("highest", "high", "default")]
+    out += [("baseline_30q_d20", "highest",
+             lambda: random_circuit(30, 20, seed=7, entangler="cz"
+                                    ).compiled_fused(30, device="cuda"),
+             zero(30), apply),
+            ("density", "highest", lambda: density_entry()[0], zero(28),
+             apply),
+            ("batched", "highest", lambda: batched_entry()[0],
+             lambda: random_states(64, 24), apply)]
+    prog0 = T._compiled_traj(traj, 24, "cuda")
+    u = torch.rand((TRAJ_CHUNK, prog0.num_channels), dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(TRAJ_SEED))
+    out.append(("trajectory_chunk", "highest",
+                lambda: T._compiled_traj(traj, 24, "cuda"), lambda: u,
+                lambda prog, x: prog(x)))
+    return out
+
+
+def phase_drivers(torch):
+    """This slice's path under every driver (driver_workloads), each
+    compiled under K1 (run K1_RUNS times), K2 at 2 and 3 plane slots and
+    K3 and run from the same input: planes (and draws) bit-identical
+    across drivers and across K1's runs; every launch of a run on its
+    driver (counts set to 0 before the first run, read after); device ms
+    of each run and the median per configuration (5 more runs where one
+    takes under half a second). The flagship's plain path once per tier,
+    for each driver-tier instantiation's error and plain time."""
+    from quest_tpu_torch.ops import segment as S
+    records, inst = [], {}
+    for name, tier, compiled, fresh, call in driver_workloads(torch):
+        ref = first = None
+        per_cfg = {}
+        for cfg, (driver, _) in DRIVER_CONFIGS.items():
+            with driver_knobs(cfg):
+                fn = compiled()
+            if fn.driver != driver:
+                raise AssertionError(f"drivers/{name}: {cfg} compiled the "
+                                     f"{fn.driver} driver")
+            planned = fn.launches_per_call
+            ms = []
+            for r in range(K1_RUNS if cfg == "K1" else 1):
+                x = fresh()
+                S.segment_sweep.driver_launches = {}
+                out, t = _timed(torch, lambda: call(fn, x))
+                counted = dict(S.segment_sweep.driver_launches)
+                if counted != {driver: planned}:
+                    raise AssertionError(f"drivers/{name}: {cfg} launched "
+                                         f"{counted}, planned {planned}")
+                if ref is None:
+                    ref, first = out, fn
+                elif not _same(out, ref):
+                    raise AssertionError(f"drivers/{name}: {cfg} run {r} is "
+                                         f"not bit-identical to K1's first")
+                ms.append(t)
+                del out, x
+            if ms[0] < 500.0:
+                x = fresh()
+                ms += [_timed(torch, lambda: call(fn, x))[1] for _ in range(5)]
+                del x
+            inst[(driver, tier)] = inst.get((driver, tier), 0) + planned
+            per_cfg[cfg] = {"launches": planned, "ms": ms,
+                            "median_ms": statistics.median(ms)}
+            del fn
+            torch.cuda.empty_cache()
+        rec = {"phase": "drivers", "workload": name, "tier": tier,
+               "bit_identical": True, "k1_runs_identical": True,
+               "configs": per_cfg}
+        if name == "flagship":
+            # every driver's planes equal K1's: the plain path's distance
+            # from them is each driver-tier instantiation's error
+            want, rec["plain_ms"] = _timed(torch, lambda: first.plain(fresh()))
+            rec["max_abs_err"] = (ref - want).abs().max().item()
+            rec["bound_ms"], rec["bound_by"] = program_bound(first)
+            del want
+        emit(rec)
+        records.append(rec)
+        del ref, first
+        torch.cuda.empty_cache()
+    return records, inst
+
+
+def phase_dma_floor(torch):
+    """The copy floor and the pass under every driver at 28 qubits:
+    profiling.sweep_dma_report (the stage-free launch and each flagship
+    sweep's total and compute adder) and single-stage launches of byte-
+    bound kinds (phase, parity, a Kraus pair) and b0, per configuration,
+    beside the bound (the state read and written once) and the
+    yardstick: a torch copy_ of the planes into a second buffer (never
+    called by the port)."""
+    from quest_tpu_torch import profiling
+    from quest_tpu_torch.ops import segment as S
+    n = TIMING_QUBITS
+    rng = np.random.default_rng(5)
+    planes = torch.from_numpy(
+        rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
+    planes /= planes.double().pow(2).sum().sqrt().float()
+    other = torch.empty_like(planes)
+    copy_ms = time_ms(torch, lambda: other.copy_(planes), 5)
+    del other
+    cases = [("phase", phase_op(rng, 0b1, 0b1, 1 << 20, 1 << 20)),
+             ("parity", parity_op(rng, 0b11, 1 << 20)),
+             ("pair_sc_scat", pair_op(rng, "sc", 6, 20)),
+             ("b0", mat_op(rng, "b0", 128))]
+    drivers = {}
+    for cfg, (driver, nbuf) in DRIVER_CONFIGS.items():
+        rep = profiling.sweep_dma_report(n=n, reps=5, driver=driver,
+                                         nbuf=nbuf, device="cuda")
+        single = {}
+        for name, (st, arr) in cases:
+            seg = S.prepare_segment([st], [arr], n, "cuda", driver=driver,
+                                    nbuf=nbuf)
+            single[name] = time_ms(torch, lambda: S.segment_sweep(planes, seg),
+                                   5)
+        drivers[cfg] = {"stage_free_ms": rep["dma_ms"], "slots": rep["slots"],
+                        "single_stage_ms": single,
+                        "sweeps": [{k: s[k] for k in ("stages", "total_ms",
+                                                      "compute_adder_ms")}
+                                   for s in rep["sweeps"]
+                                   if s["kind"] == "kernel"]}
+    bound = 2 * 2 * 4 * (1 << n) / HBM_BYTES_PER_S * 1e3
+    rec = {"phase": "dma_floor", "n": n, "bound_ms": bound,
+           "copy_ms": copy_ms, "drivers": drivers}
+    emit(rec)
+    del planes
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sanitize_case(torch):
+    """One SANITIZE_QUBITS-qubit segment (a phase, a Kraus pair, a parity
+    stage) under each driver; run under compute-sanitizer. Prints
+    SANITIZE_UP once the device answers and SANITIZE_DONE after the
+    last launch, so the phase can tell a tool that cannot run the card
+    from a kernel that fails under it."""
+    from quest_tpu_torch.ops import segment as S
+    rng = np.random.default_rng(3)
+    n = SANITIZE_QUBITS
+    ops = [phase_op(rng, 0b1, 0b1, 0b10, 0b10), pair_op(rng, "sub", 2, 9),
+           parity_op(rng, 0b11, 0b101)]
+    planes = torch.from_numpy(rng.standard_normal((2, 1 << n)).astype(
+        np.float32)).cuda()
+    torch.cuda.synchronize()
+    print(SANITIZE_UP, flush=True)
+    for driver, nbuf in DRIVER_CONFIGS.values():
+        seg = S.prepare_segment([s for s, _ in ops], [a for _, a in ops], n,
+                                "cuda", driver=driver, nbuf=nbuf)
+        S.segment_sweep(planes.clone(), seg)
+    torch.cuda.synchronize()
+    print(SANITIZE_DONE, flush=True)
+
+
+def phase_sanitize(torch):
+    """compute-sanitizer memcheck and racecheck on sanitize_case, in a
+    subprocess each. Where the case reached the device under the tool,
+    memcheck must report no error and the case must finish; where the
+    tool is missing, times out or cannot bring the device up (the case
+    never printed SANITIZE_UP), its message is recorded instead."""
+    import shutil
+    tool = (shutil.which("compute-sanitizer")
+            or "/usr/local/cuda/bin/compute-sanitizer")
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec = {"phase": "sanitize", "n": SANITIZE_QUBITS}
+    for check in ("memcheck", "racecheck"):
+        cmd = [tool, "--tool", check, sys.executable,
+               os.path.abspath(__file__), "--sanitize-case"]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=SANITIZE_TIMEOUT_S, cwd=here)
+        except (FileNotFoundError, subprocess.TimeoutExpired) as e:
+            rec[check] = {"ran": False, "message": str(e)}
+            continue
+        text = proc.stdout + proc.stderr
+        summary = [ln.strip() for ln in text.splitlines()
+                   if "ERROR SUMMARY" in ln or "RACECHECK SUMMARY" in ln]
+        errors = sum(int(w) for ln in summary
+                     for w in ln.replace(":", " ").split()[3:4]
+                     if w.isdigit())
+        issues = [ln.strip() for ln in text.splitlines()
+                  if ln.startswith("========= ") and (
+                      "Error" in ln or "error" in ln or "Hazard" in ln)][:8]
+        rec[check] = {"ran": SANITIZE_UP in text,
+                      "finished": SANITIZE_DONE in text,
+                      "exit": proc.returncode, "summary": summary,
+                      "errors": errors, "first_issues": issues}
+        if not rec[check]["ran"]:
+            rec[check]["message"] = (
+                "the device did not come up under the tool: "
+                + " | ".join(issues or text.strip().splitlines()[-3:]))
+        elif check == "memcheck" and (errors or not rec[check]["finished"]):
+            emit(rec)
+            raise AssertionError(f"sanitize: memcheck on the segment "
+                                 f"drivers: {summary} {issues}")
+    emit(rec)
+    return rec
+
 REPLACES = {
     "segment_sweep": "quest_tpu/ops/pallas_band.py:1715",
     "b0": "quest_tpu/ops/pallas_band.py:1135",
@@ -1503,11 +1912,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--upto", choices=PHASES, default=PHASES[-1],
                     help="stop after this phase (default: run all)")
+    # the probe and sanitize phases run these in subprocesses
+    ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--sanitize-case", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if args.probe:
+        print(json.dumps({"phase": "probe", "cases": probe_drivers(torch)}),
+              flush=True)
+        return 0
+    if args.sanitize_case:
+        sanitize_case(torch)
+        return 0
     # the port must be importable before anything is printed: run from a
     # directory without it, the script fails here and prints no result
     import quest_tpu_torch  # noqa: F401
@@ -1521,9 +1941,30 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
     phase_build()
+    if want("probe"):
+        phase_probe(torch)
     if want("stages"):
         phase_stages(torch)
     kernels = []
+    if want("drivers"):
+        drv_records, drv_launches = phase_drivers(torch)
+        flag = {r["tier"]: r for r in drv_records if r["workload"] == "flagship"}
+        timed = {"decoupled": "K1", "inplace": "K2/3", "grid": "K3"}
+        for (driver, tier), launches in sorted(drv_launches.items()):
+            if tier not in flag:
+                continue
+            fr = flag[tier]
+            kernels.append({
+                "name": f"segment_sweep<{driver},{tier}>", "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": DRIVER_REPLACES[driver],
+                "launches": launches, "max_abs_err": fr["max_abs_err"],
+                "ms": fr["configs"][timed[driver]]["median_ms"],
+                "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
+                "bound_by": fr["bound_by"], "library_ms": None})
+    if want("dma_floor"):
+        phase_dma_floor(torch)
+    if want("sanitize"):
+        phase_sanitize(torch)
     # launches per stage kind on each path, read around that path's run:
     # the statevector kinds from the flagship step, Kraus pairs from the
     # density step, diagonals from the Clifford+T density step

@@ -13,7 +13,9 @@ launch of the segment kernel (ops/segment.py), for one state or for a
 whole batch of states, and a multi-target matrix the kernel cannot
 reach (the reference's XLA matrix passthrough) runs through
 ops/apply.apply_matrix_rows between segments. A program runs at the
-matmul tier it was compiled at (quest_tpu_torch/precision.py).
+matmul tier (quest_tpu_torch/precision.py) and under the segment driver
+(QUEST_FUSED_DRIVER / QUEST_FUSED_PIPELINE / QUEST_FUSED_NBUF,
+band_plan.active_driver) it was compiled with.
 
 What the reference runs elsewhere is not ported yet and raises
 NotImplementedError naming its ROADMAP item: f64 registers, the banded
@@ -145,6 +147,16 @@ def _xla_part_applier(part, n: int, tier: str) -> MatrixPass:
         f"ported yet (ROADMAP A3)")
 
 
+def _sweep_unrolled(raw, n: int, iters: int, driver: str):
+    """(swept parts of one program call, loop count) of the raw segment
+    plan `raw` of one application: up to _LOOP_UNROLL_MAX applications
+    are unrolled into one sweep plan (ref compiled_fused)."""
+    unroll = iters if 1 < iters <= _LOOP_UNROLL_MAX else 1
+    if not knob_value("QUEST_SWEEP_FUSION"):
+        return raw, iters
+    return BP.sweep_plan(raw * unroll, n, driver=driver), iters // unroll
+
+
 class FusedProgram:
     """A compiled fused program: call it on (2, 2^n) or (2, rows, 128)
     f32 planes, or on a batch (B, 2, ...) of them; it updates them in
@@ -154,15 +166,22 @@ class FusedProgram:
     segments; `plain(amps)` runs the same plan through the plain PyTorch
     version, out of place, PLAIN_CHUNK_STATES states of a batch at a
     time, for comparison. `tier` is the matmul tier it was compiled at
-    (precision.matmul_precision() then); every call runs at it."""
+    (precision.matmul_precision() then), `driver` and `nbuf` the segment
+    driver and in-place slots (band_plan.active_driver(),
+    QUEST_FUSED_NBUF then); every call runs under them. `fused_record`
+    is band_plan.fused_record of one application's plan (the reference's
+    Circuit.plan_stats()['fused'])."""
 
-    def __init__(self, n: int, steps: List, loop_iters: int,
-                 tier: str = "highest"):
+    def __init__(self, n: int, steps: List, loop_iters: int, tier: str,
+                 driver: str, nbuf: int, fused_record: dict):
         self.n = n
         self.steps = steps
         self.segments = [s for s in steps if isinstance(s, Segment)]
         self.loop_iters = loop_iters
         self.tier = tier
+        self.driver = driver
+        self.nbuf = nbuf
+        self.fused_record = fused_record
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
         if amps.dtype == torch.float64:
@@ -313,19 +332,21 @@ class Circuit:
         scheduler (fusion.maybe_schedule, QUEST_SCHEDULE knob)."""
         return F.maybe_schedule(flatten_ops(self.ops, n, density), n)
 
-    def fused_parts(self, n: int, iters: int = 1, density: bool = False):
-        """(swept part list of one program call, loop count): the
-        reference's compiled_fused planning, under HOPPER_GEOMETRY. `n`
-        counts state qubits (2N for a density register)."""
+    def segment_parts(self, n: int, density: bool = False):
+        """The raw segment plan of one application (before sweep fusion),
+        under HOPPER_GEOMETRY."""
         flat = self._planned_flat(n, density)
         items = F.plan(flat, n, bands=BP.plan_bands(n))
-        parts = BP.segment_plan(items, n)
-        unroll = iters if 1 < iters <= _LOOP_UNROLL_MAX else 1
-        if knob_value("QUEST_SWEEP_FUSION"):
-            parts = BP.sweep_plan(parts * unroll, n)
-        else:
-            unroll = 1
-        return parts, iters // unroll
+        return BP.segment_plan(items, n)
+
+    def fused_parts(self, n: int, iters: int = 1, density: bool = False,
+                    driver: str = None):
+        """(swept part list of one program call, loop count): the
+        reference's compiled_fused planning, under HOPPER_GEOMETRY and the
+        operand budget of `driver` (None: the knobs'). `n` counts state
+        qubits (2N for a density register)."""
+        return _sweep_unrolled(self.segment_parts(n, density), n, iters,
+                               driver)
 
     def compiled_fused(self, n: int, density: bool = False, iters: int = 1,
                        device=None) -> FusedProgram:
@@ -336,8 +357,10 @@ class Circuit:
         through apply_matrix_rows between segments. Operands and
         descriptor tables go to `device` (default: the CUDA card) here,
         once; calls reuse them. The matmul tier (QUEST_MATMUL_PRECISION
-        or precision.set_matmul_precision) is read here, once, as the
-        reference reads it at trace time: the program keeps it."""
+        or precision.set_matmul_precision) and the segment driver
+        (QUEST_FUSED_DRIVER, QUEST_FUSED_PIPELINE, QUEST_FUSED_NBUF) are
+        read here, once, as the reference reads them at trace time: the
+        program keeps them."""
         if knob_value("QUEST_FUSED_SCAN"):
             raise NotImplementedError(
                 "QUEST_FUSED_SCAN is not ported yet (ROADMAP A4)")
@@ -348,12 +371,17 @@ class Circuit:
                 f"which is not ported yet (ROADMAP A3)")
         dev = resolve_device(device)
         tier = precision.matmul_precision()
+        driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
         precision.ieee_fp32()
-        parts, loop_iters = self.fused_parts(n, iters, density)
-        steps = [prepare_segment(p[1], p[2], n, dev, tier=tier)
+        raw = self.segment_parts(n, density)
+        parts, loop_iters = _sweep_unrolled(raw, n, iters, driver)
+        steps = [prepare_segment(p[1], p[2], n, dev, tier=tier,
+                                 driver=driver, nbuf=nbuf)
                  if p[0] == "segment" else _xla_part_applier(p, n, tier)
                  for p in parts]
-        return FusedProgram(n, steps, loop_iters, tier)
+        record = BP.fused_record(raw, BP.maybe_sweep(raw, n, driver=driver),
+                                 n, driver=driver, nbuf=nbuf)
+        return FusedProgram(n, steps, loop_iters, tier, driver, nbuf, record)
 
     def apply_fused(self, q, iters: int = 1):
         """Apply the circuit to register `q` (statevector or density)

@@ -1,34 +1,34 @@
 // Segment kernel: one launch applies a whole segment of band stages to
-// the state, one tile per thread block, in place.
+// the state, tile by tile, in place, under one of three drivers.
 //
-// Replaces the TPU segment driver K1, _decoupled_kernel
-// (quest_tpu/ops/pallas_band.py:1715), batch dimension included
+// Replaces the TPU segment drivers of compile_segment
+// (quest_tpu/ops/pallas_band.py:1920), batch dimension included
 // (compile_segment(..., batch=B), :1922), with the stage chain
 // _apply_stages (:1528) for the stage kinds of the RCS statevector,
-// density-matrix decoherence and batched-trajectory paths. What is
-// carried over of K1 is its stage chain and batch grid: the launch is one
-// block per tile (gather, stage chain, write-back), the schedule of the
-// grid driver K3 (_segment_kernel :1553); K1's decoupled in/out DMA rings
-// are not (a flagship tile is 128 KiB, two do not fit a block's 227 KB).
-//   S1 b0   128x128 complex operator on lane bits 0-6       (:1135)
-//   S2 b1   d x d operator on the lowest log2(d) row bits   (:1139)
-//   S3 scb  2^w x 2^w operator over w scattered row bits    (:1156)
-//   S4 sc   2x2 butterfly on one scattered row bit          (:1213)
-//   S5 phase      all-ones controlled phase                 (:1256)
-//   S6 parity     exp(-i theta/2 Z..Z)                      (:1273)
-//   S7 multiphase m phases summed per element, one sincos   (:1289)
-//   S8 diagvec    k-qubit diagonal: entry of a (2, 2^k) table chosen
-//                 by the target-bit pattern, controls           (:1324)
-//   S9 batchsel   per-state 2x2 (a trajectory's drawn Kraus branch) on
-//                 one tile bit                             (:1345-1432)
-//   S10 pair      Kraus pair on (op qubit, sliced qubit)        (:1435)
-//   S11 the HIGH and DEFAULT matmul tiers of S1-S3 (_mxu_dot_general
-//       :1039), tensor-core bodies; see below
-//
+// density-matrix decoherence and batched-trajectory paths:
+//   K1 _decoupled_kernel (:1715, the default; QUEST_FUSED_DRIVER=pipelined,
+//      QUEST_FUSED_PIPELINE=1) -> ring_kernel<TIER, true>: persistent
+//      blocks, a ring of 3 plane slots filled and drained by bulk async
+//      copies, a slot refilled as soon as its store has READ it;
+//   K2 _pipelined_kernel (:1628, QUEST_FUSED_PIPELINE=0) ->
+//      ring_kernel<TIER, false>: the same walk with NBUF in-place plane
+//      slots (QUEST_FUSED_NBUF, clamped to shared memory and the steps), a
+//      slot refilled only once its store has LANDED;
+//   K3 _segment_kernel (:1553, QUEST_FUSED_DRIVER=grid) ->
+//      segment_kernel<TIER>: one block per tile (gather, chain,
+//      write-back).
+// Every driver runs the same run_chain<TIER> on the same tile contents, so
+// the three give bit-identical planes; they differ only in when a tile's
+// bytes move. Why planes and not tiles: a flagship tile is 2 planes of 64
+// KiB, and the reference's 2 + 2 block rings (four tiles, 512 KiB) do not
+// fit a block's 227 KB; three plane slots (192 KiB) do, and a tile may sit
+// in any two slots (Tile carries re and im apart). See ring_kernel for the
+// slot order.
 // Batch: one launch covers every tile of every state of a batch of B
-// states laid end to end ((B, 2, 2^n) f32): blockIdx.y is the state,
-// whose planes start state * 2 * 2^n floats in (64-bit offsets), and
-// blockIdx.x the tile. S9 reads its state's row of a per-call selection
+// states laid end to end ((B, 2, 2^n) f32), whose planes start state * 2 *
+// 2^n floats in (64-bit offsets). Under K3 blockIdx.y is the state and
+// blockIdx.x the tile; under K1/K2 a step s is tile s mod tiles of state
+// s / tiles. S9 reads its state's row of a per-call selection
 // table (slots, B, 8) that the caller writes on the device between
 // launches. The TPU stage builds a 128-wide (or 2^(j+1)-wide) embedded
 // operator from iota masks because the MXU wants a dot; here it is the
@@ -54,12 +54,14 @@
 // reference's compile_segment_cached serves every segment of one
 // structure.
 //
-// Each block:
-//   1. builds the global row id of each of its tile rows from blockIdx
-//      (free row bits), the inner rows and the scattered bits — the
+// For each tile, a block:
+//   1. builds the global row id of each of its tile rows from the tile
+//      index (free row bits), the inner rows and the scattered bits — the
 //      reference's _row_ids;
-//   2. gathers the tile (2 planes x rows x 128 lanes f32, rows of 512
-//      contiguous bytes, 16-byte loads) into dynamic shared memory;
+//   2. brings the tile (2 planes x rows x 128 lanes f32, rows of 512
+//      contiguous bytes) into dynamic shared memory: K3 with 16-byte loads,
+//      K1/K2 with one cp.async.bulk per run of consecutive rows, ahead of
+//      time;
 //   3. runs the stage chain on the tile. A matrix stage is a batched
 //      complex product over the `fibers` of the tile (all index bits but
 //      the w contracted ones): each thread keeps RF fibers x RI outputs
@@ -69,11 +71,12 @@
 //      Predicates follow _mask_of: an element whose lane/row bits do not
 //      match keeps its value. Plain fp32 FMA, 4 per complex MAC (2 when
 //      the operator is real);
-//   4. writes the tile back where it read it. Tiles partition the index
-//      space, so the launch is in place.
+//   4. writes the tile back where it read it (K1/K2: bulk stores). Tiles
+//      partition the index space, so the launch is in place.
 //
 // Bound on an H100 SXM: one pass moves 2 x 2^n x 4 B in and out (28q:
-// 4 GiB, 1.3 ms at 3.35 TB/s), and a 128-wide complex matrix stage costs
+// 4 GiB, 1.28 ms at 3.35 TB/s; a stage-free segment is that copy and
+// nothing else), and a 128-wide complex matrix stage costs
 // 2^n x 128 x 8 flops (28q: 2.7e11, 4 ms at 67 TFLOP/s of non-tensor
 // fp32). Segments with 128-wide matrix stages are therefore bound by
 // operations, not bytes; a pair (32 flop per amplitude) or a diagonal (6)
@@ -113,9 +116,16 @@
 // The first form is mma.sync with A fragments read from the f32 tile
 // (4-way bank conflicts); wgmma, TMA and a staged bf16 A are later work.
 //
-// Left for later: overlapping the tile's load and store with the stage
-// chain (cp.async/TMA rings), bank-conflict-free write-back for row-bit
-// contractions, and keeping operands in shared memory.
+// The drivers and the pass bound. Under K3 a block (one per SM: 128 KiB of
+// tile and 160-234 registers x 256 threads) loads, chains and stores in
+// series, with ~16 KiB of loads in flight per SM: a byte-bound pass took
+// ~3.2 ms against its 1.28 ms. K1 keeps a whole plane of loads in flight
+// under the chain and lets the next tile's loads start as soon as the
+// stores have read their slots, so a byte-bound pass can approach its
+// bound; K2 is the reference's A/B control, its refills waiting for the
+// writes to land. A producer warp, TMA tensor maps and wgmma are later
+// work, as are bank-conflict-free write-back for row-bit contractions and
+// operands kept in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,6 +140,8 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr int DESC_WORDS = 17;
 constexpr int MAX_TILE_BITS = 14;
 constexpr int MAX_MULTIPHASE_ROWS = 64;
+constexpr int MAX_ROWS = 1 << (MAX_TILE_BITS - LANE_BITS);
+constexpr int MAX_SLOTS = 8;       // plane slots of a ring (QUEST_FUSED_NBUF)
 
 // descriptor fields (quest_tpu_torch/ops/segment.py DESC_FIELDS)
 enum {
@@ -148,8 +160,8 @@ constexpr int MAX_GRID_BATCH = 65535;
 constexpr int MAX_DIAG_TARGETS = 7;
 constexpr int TARGET_BITS = 6;     // bits per qubit index in F_TARGETS
 
-// shared memory after the two tile planes: row ids, multiphase rows
-constexpr int EXTRA_WORDS = (1 << (MAX_TILE_BITS - LANE_BITS)) + 3 * MAX_MULTIPHASE_ROWS;
+// shared memory after the tile's plane slots: row ids, multiphase rows
+constexpr int EXTRA_WORDS = MAX_ROWS + 3 * MAX_MULTIPHASE_ROWS;
 
 struct Tile {
   float* re;
@@ -679,45 +691,103 @@ __device__ void batchsel_stage(const Tile& t, const long long* ds,
   }
 }
 
+// ---- the tile's rows, the stage chain ------------------------------------
+
+// Row bits taken by the tile index: the free row bits, low bits first, so
+// neighbouring tiles read neighbouring rows (a pdep of `tile` into
+// `free_mask`).
+__device__ __forceinline__ int tile_base(unsigned long long tile,
+                                         unsigned free_mask) {
+  int base = 0;
+  for (unsigned fm = free_mask; fm; fm &= fm - 1) {
+    base |= static_cast<int>(tile & 1ull) << (__ffs(fm) - 1);
+    tile >>= 1;
+  }
+  return base;
+}
+
+// Global row id of tile row r: inner rows, then the scattered bits (the
+// reference's _row_ids).
+__device__ __forceinline__ int tile_row(int base, int r, int inner_bits,
+                                        unsigned scat_mask) {
+  int row = base | (r & ((1 << inner_bits) - 1));
+  int k = inner_bits;
+  for (unsigned sm = scat_mask; sm; sm &= sm - 1, ++k)
+    row |= ((r >> k) & 1) << (__ffs(sm) - 1);
+  return row;
+}
+
+struct SweepArgs {
+  float* amps;          // the batch's planes, state s at 2 * 2^n * s floats
+  int n, tile_bits, inner_bits;
+  unsigned scat_mask, free_mask;
+  const long long* desc;
+  int nstages;
+  const float* ops;
+  int batch;
+  const float* sel;
+};
+
+// The segment's stages on one resident tile, in order; every driver calls
+// this one function, so the three schedules compute the same bits.
+template <int TIER>
+__device__ __forceinline__ void run_chain(const Tile& t, const SweepArgs& a,
+                                          int state, float* s_ang, int* s_lm,
+                                          int* s_rm) {
+  for (int s = 0; s < a.nstages; ++s) {
+    const long long* ds = a.desc + s * DESC_WORDS;
+    const float* g = a.ops + ds[F_OP_OFF];
+    switch (static_cast<int>(ds[F_KIND])) {
+      case K_MAT:
+        switch (static_cast<int>(ds[F_DIM])) {
+          case 2: mat_dispatch<2, TIER>(t, ds, a.ops); break;
+          case 4: mat_dispatch<4, TIER>(t, ds, a.ops); break;
+          case 8: mat_dispatch<8, TIER>(t, ds, a.ops); break;
+          case 16: mat_dispatch<16, TIER>(t, ds, a.ops); break;
+          case 32: mat_dispatch<32, TIER>(t, ds, a.ops); break;
+          case 64: mat_dispatch<64, TIER>(t, ds, a.ops); break;
+          default: mat_dispatch<128, TIER>(t, ds, a.ops); break;
+        }
+        break;
+      case K_PHASE: phase_stage(t, g); break;
+      case K_PARITY: parity_stage(t, g); break;
+      case K_MULTIPHASE: multiphase_stage(t, ds, g, s_ang, s_lm, s_rm); break;
+      case K_PAIR: pair_stage(t, ds, g); break;
+      case K_DIAGVEC: diagvec_stage(t, ds, g); break;
+      case K_BATCHSEL:
+        batchsel_stage(t, ds,
+                       a.sel + (ds[F_SLOT] * a.batch + state) * SEL_WORDS);
+        break;
+    }
+    __syncthreads();
+  }
+}
+
+// ---- K3, the grid driver: one block per tile -----------------------------
+
 template <int TIER>
 __global__ void __launch_bounds__(NTHREADS, 1)
-segment_kernel(float* __restrict__ amps_all, int n, int tile_bits,
-               int inner_bits, unsigned scat_mask, unsigned free_mask,
-               const long long* __restrict__ desc, int nstages,
-               const float* __restrict__ ops, int batch,
-               const float* __restrict__ sel) {
+segment_kernel(SweepArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int size = 1 << tile_bits;
+  const int size = 1 << a.tile_bits;
   const int rows = size >> LANE_BITS;
   int* row_id = reinterpret_cast<int*>(smem + 2 * size);
-  float* s_ang = reinterpret_cast<float*>(row_id + (1 << (MAX_TILE_BITS - LANE_BITS)));
+  float* s_ang = reinterpret_cast<float*>(row_id + MAX_ROWS);
   int* s_lm = reinterpret_cast<int*>(s_ang + MAX_MULTIPHASE_ROWS);
   int* s_rm = s_lm + MAX_MULTIPHASE_ROWS;
-  const Tile t{smem, smem + size, row_id, tile_bits};
+  const Tile t{smem, smem + size, row_id, a.tile_bits};
 
-  // free row bits take the block index, low bits first, so neighbouring
-  // blocks read neighbouring rows
-  int base = 0;
-  unsigned b = blockIdx.x;
-  for (unsigned fm = free_mask; fm; fm &= fm - 1) {
-    base |= static_cast<int>(b & 1u) << (__ffs(fm) - 1);
-    b >>= 1;
-  }
-  for (int r = threadIdx.x; r < rows; r += NTHREADS) {
-    int row = base | (r & ((1 << inner_bits) - 1));
-    int k = inner_bits;
-    for (unsigned sm = scat_mask; sm; sm &= sm - 1, ++k)
-      row |= ((r >> k) & 1) << (__ffs(sm) - 1);
-    row_id[r] = row;
-  }
+  const int base = tile_base(blockIdx.x, a.free_mask);
+  for (int r = threadIdx.x; r < rows; r += NTHREADS)
+    row_id[r] = tile_row(base, r, a.inner_bits, a.scat_mask);
   __syncthreads();
 
   // 64-bit offsets: plane 1 of a 30-qubit state starts 2^30 floats in,
   // state s of a batch 2 * 2^n * s floats in
-  const long long plane = 1LL << n;
+  const long long plane = 1LL << a.n;
   const int state = static_cast<int>(blockIdx.y);
-  float* __restrict__ amps = amps_all + 2 * plane * state;
+  float* __restrict__ amps = a.amps + 2 * plane * state;
   const int n4 = rows * (1 << (LANE_BITS - 2));     // float4 per plane
   float4* tre4 = reinterpret_cast<float4*>(t.re);
   float4* tim4 = reinterpret_cast<float4*>(t.im);
@@ -732,32 +802,7 @@ segment_kernel(float* __restrict__ amps_all, int n, int tile_bits,
   }
   __syncthreads();
 
-  for (int s = 0; s < nstages; ++s) {
-    const long long* ds = desc + s * DESC_WORDS;
-    const float* g = ops + ds[F_OP_OFF];
-    switch (static_cast<int>(ds[F_KIND])) {
-      case K_MAT:
-        switch (static_cast<int>(ds[F_DIM])) {
-          case 2: mat_dispatch<2, TIER>(t, ds, ops); break;
-          case 4: mat_dispatch<4, TIER>(t, ds, ops); break;
-          case 8: mat_dispatch<8, TIER>(t, ds, ops); break;
-          case 16: mat_dispatch<16, TIER>(t, ds, ops); break;
-          case 32: mat_dispatch<32, TIER>(t, ds, ops); break;
-          case 64: mat_dispatch<64, TIER>(t, ds, ops); break;
-          default: mat_dispatch<128, TIER>(t, ds, ops); break;
-        }
-        break;
-      case K_PHASE: phase_stage(t, g); break;
-      case K_PARITY: parity_stage(t, g); break;
-      case K_MULTIPHASE: multiphase_stage(t, ds, g, s_ang, s_lm, s_rm); break;
-      case K_PAIR: pair_stage(t, ds, g); break;
-      case K_DIAGVEC: diagvec_stage(t, ds, g); break;
-      case K_BATCHSEL:
-        batchsel_stage(t, ds, sel + (ds[F_SLOT] * batch + state) * SEL_WORDS);
-        break;
-    }
-    __syncthreads();
-  }
+  run_chain<TIER>(t, a, state, s_ang, s_lm, s_rm);
 
 #pragma unroll 4
   for (int k = threadIdx.x; k < 2 * n4; k += NTHREADS) {
@@ -769,24 +814,247 @@ segment_kernel(float* __restrict__ amps_all, int n, int tile_bits,
   }
 }
 
-long long smem_bytes(int tile_bits) {
+// ---- bulk async copies and mbarriers (sm_90) -----------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of bulk copies on the phase
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// global -> shared, completing `bytes` on the mbarrier's phase
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared -> global, in the issuing thread's open bulk group
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups are pending: READ,
+// until their sources have been read (the slot may be refilled); else
+// until their writes have landed in device memory
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// order this thread's generic-proxy shared accesses before later
+// async-proxy ones (a bulk store reading, a bulk load writing)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---- K1 and K2: the persistent plane-slot ring ---------------------------
+//
+// The launch walks steps blockIdx.x, +gridDim.x, ... (tile = step mod
+// tiles, state = step / tiles: the batch slowest, the reference's
+// _step_index). A block's local step k holds planes j = 2k (re) and 2k + 1
+// (im); plane j lives in slot j mod S of a ring of S plane slots, in place
+// (loaded, chained and stored from the same slot). Warp 0 issues the
+// copies: one bulk copy per run of 2^inner_bits consecutive rows (512
+// bytes each; the run is contiguous in the state and in the slot), lane L
+// for runs L, L + 32, ...; loads complete on the step's mbarrier (one
+// arrival expecting both planes), stores go in one bulk group per plane
+// and lane. At step k it
+// issues the loads of planes [2k - 2 + S, 2k + S) (k = 0: [0, S)): the
+// step's own im plane and S - 2 planes of read-ahead. Before refilling a
+// slot it waits for the store of the slot's previous plane j - S, which is
+// one of the two groups its lane committed last step:
+//   ON_READ (K1): wait_group.read — the store has READ the slot; its write
+//     to device memory may still be in flight (the reference's decoupled
+//     rings: neither DMA direction gates the other). S = 3: re(k + 1)
+//     loads under chain k, im(k + 1) as soon as re(k)'s store has read its
+//     slot.
+//   else (K2): wait_group — the store has LANDED (the reference's in-place
+//     NBUF slots: in(s+1) waits for out(s+1-nbuf) to drain). S = 2 has no
+//     read-ahead.
+// The chain writes the tile with generic stores; fence.proxy.async and a
+// barrier order them before the bulk store that reads them. Each lane
+// waits for all of its stores to land before the block exits.
+
+template <int TIER, bool ON_READ>
+__global__ void __launch_bounds__(NTHREADS, 1)
+ring_kernel(SweepArgs a, int slots, long long steps) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int size = 1 << a.tile_bits;
+  const int rows = size >> LANE_BITS;
+  int* row_id = reinterpret_cast<int*>(smem + slots * size);
+  float* s_ang = reinterpret_cast<float*>(row_id + MAX_ROWS);
+  int* s_lm = reinterpret_cast<int*>(s_ang + MAX_MULTIPHASE_ROWS);
+  int* s_rm = s_lm + MAX_MULTIPHASE_ROWS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_rm + MAX_MULTIPHASE_ROWS);
+
+  const int tile_shift = a.n - a.tile_bits;         // log2 tiles per state
+  const long long plane = 1LL << a.n;
+  const unsigned plane_bytes = static_cast<unsigned>(size) * 4u;
+  // the inner rows of a tile are consecutive rows of the state: one bulk
+  // copy per run of 2^inner_bits rows (a whole plane when no bit is
+  // scattered)
+  const unsigned run_bytes = (LANES * 4u) << a.inner_bits;
+  const int lane = threadIdx.x & 31;
+  const int nk = static_cast<int>((steps - blockIdx.x + gridDim.x - 1)
+                                  / gridDim.x);     // this block's steps
+  if (threadIdx.x < slots) mbar_init(&bars[threadIdx.x], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncthreads();
+
+  for (int k = 0; k < nk; ++k) {
+    if (threadIdx.x < 32) {
+      const int lo = k == 0 ? 0 : 2 * k - 2 + slots;
+      const int hi = min(2 * k + slots, 2 * nk);
+      for (int j = lo; j < hi; ++j) {
+        if (j >= slots) {                // the slot's previous plane j - S
+          if (j == lo) bulk_wait<1, ON_READ>();
+          else bulk_wait<0, ON_READ>();
+        }
+        const int kj = j >> 1;
+        const long long g = blockIdx.x + static_cast<long long>(kj) * gridDim.x;
+        const float* src = a.amps
+            + (2 * (g >> tile_shift) + (j & 1)) * plane;
+        uint64_t* bar = &bars[kj % slots];
+        if ((j & 1) == 0 && lane == 0) mbar_arrive_expect(bar, 2 * plane_bytes);
+        __syncwarp();
+        float* dst = smem + (j % slots) * size;
+        const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask);
+        for (int r = lane << a.inner_bits; r < rows; r += 32 << a.inner_bits) {
+          const int row = tile_row(base, r, a.inner_bits, a.scat_mask);
+          bulk_load(dst + r * LANES,
+                    src + (static_cast<long long>(row) << LANE_BITS),
+                    run_bytes, bar);
+        }
+      }
+    }
+    const long long g = blockIdx.x + static_cast<long long>(k) * gridDim.x;
+    const int state = static_cast<int>(g >> tile_shift);
+    const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask);
+    for (int r = threadIdx.x; r < rows; r += NTHREADS)
+      row_id[r] = tile_row(base, r, a.inner_bits, a.scat_mask);
+    __syncthreads();
+    mbar_wait(&bars[k % slots], (k / slots) & 1);
+
+    const Tile t{smem + ((2 * k) % slots) * size,
+                 smem + ((2 * k + 1) % slots) * size, row_id, a.tile_bits};
+    run_chain<TIER>(t, a, state, s_ang, s_lm, s_rm);
+    fence_proxy_async();
+    __syncthreads();
+
+    if (threadIdx.x < 32) {
+      for (int p = 0; p < 2; ++p) {
+        float* dst = a.amps + (2LL * state + p) * plane;
+        const float* src = p ? t.im : t.re;
+        for (int r = lane << a.inner_bits; r < rows; r += 32 << a.inner_bits) {
+          const int row = tile_row(base, r, a.inner_bits, a.scat_mask);
+          bulk_store(dst + (static_cast<long long>(row) << LANE_BITS),
+                     src + r * LANES, run_bytes);
+        }
+        bulk_commit();
+      }
+    }
+  }
+  if (threadIdx.x < 32) bulk_wait<0, false>();   // every store has landed
+}
+
+// ---- launch --------------------------------------------------------------
+
+enum { D_DECOUPLED = 0, D_INPLACE = 1, D_GRID = 2 };   // segment.py DRIVER_CODE
+constexpr long long BLOCK_SMEM_LIMIT = 232448;   // opt-in max per block, sm_90
+
+long long grid_smem_bytes(int tile_bits) {
   return (2LL << tile_bits) * sizeof(float) + EXTRA_WORDS * 4LL;
 }
 
+long long ring_smem_bytes(int tile_bits, int slots) {
+  return static_cast<long long>(slots) * (4LL << tile_bits)
+      + EXTRA_WORDS * 4LL + 8LL * slots;
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, long long smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int TIER>
-cudaError_t launch(dim3 grid, long long smem, cudaStream_t stream,
-                   float* amps, int n, int tile_bits, int inner_bits,
-                   unsigned scat_mask, unsigned free_mask,
-                   const long long* desc, int nstages, const float* ops,
-                   int batch, const float* sel) {
-  cudaError_t e = cudaFuncSetAttribute(
-      segment_kernel<TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(MAX_TILE_BITS)));
+cudaError_t launch_grid(const SweepArgs& a, long long blocks, long long smem,
+                        cudaStream_t stream) {
+  cudaError_t e = set_smem(segment_kernel<TIER>, smem);
   if (e != cudaSuccess) return e;
-  segment_kernel<TIER><<<grid, NTHREADS, static_cast<size_t>(smem), stream>>>(
-      amps, n, tile_bits, inner_bits, scat_mask, free_mask, desc, nstages,
-      ops, batch, sel);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(a.batch));
+  segment_kernel<TIER><<<grid, NTHREADS, static_cast<size_t>(smem), stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int TIER, bool ON_READ>
+cudaError_t launch_ring(const SweepArgs& a, long long steps, int slots,
+                        long long smem, cudaStream_t stream) {
+  auto kernel = ring_kernel<TIER, ON_READ>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+      != cudaSuccess) return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, NTHREADS, static_cast<size_t>(smem))) != cudaSuccess)
+    return e;
+  // per_sm == 0 (the block does not fit an SM): launch one block per SM
+  // and let the launch report why it is refused
+  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = static_cast<unsigned>(steps < resident ? steps : resident);
+  kernel<<<blocks, NTHREADS, static_cast<size_t>(smem), stream>>>(a, slots, steps);
+  return cudaGetLastError();
+}
+
+template <int TIER>
+cudaError_t launch(const SweepArgs& a, long long blocks, int driver,
+                   int slots, long long smem, cudaStream_t stream) {
+  const long long steps = blocks * a.batch;
+  switch (driver) {
+    case D_GRID: return launch_grid<TIER>(a, blocks, smem, stream);
+    case D_DECOUPLED: return launch_ring<TIER, true>(a, steps, slots, smem, stream);
+    case D_INPLACE: return launch_ring<TIER, false>(a, steps, slots, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -798,8 +1066,13 @@ int quest_segment_desc_words() { return DESC_WORDS; }
 int quest_segment_max_tile_bits() { return MAX_TILE_BITS; }
 int quest_segment_max_multiphase_rows() { return MAX_MULTIPHASE_ROWS; }
 
-long long quest_segment_smem_bytes(int tile_bits) {
-  return smem_bytes(tile_bits);
+// Least dynamic shared memory of one launch: the grid driver's two tile
+// planes, or a ring of `slots` plane slots with one mbarrier each, beside
+// the row ids and multiphase rows (band_plan.sweep_smem_bytes computes the
+// same; the wrapper checks the two agree).
+long long quest_segment_smem_bytes(int tile_bits, int driver, int slots) {
+  return driver == D_GRID ? grid_smem_bytes(tile_bits)
+                          : ring_smem_bytes(tile_bits, slots);
 }
 
 const char* quest_cuda_error_string(int code) {
@@ -808,40 +1081,32 @@ const char* quest_cuda_error_string(int code) {
 
 // Launch one segment over `batch` states on `stream` (`sel`: the
 // selection table (slots, batch, 8), or null when no stage reads it), the
-// matrix stages at matmul `tier` (T_HIGHEST, T_HIGH or T_DEFAULT).
-// Returns the launch's cudaError_t: nothing is allocated and nothing is
-// synchronised here.
+// matrix stages at matmul `tier` (T_HIGHEST, T_HIGH or T_DEFAULT), under
+// `driver` (D_DECOUPLED, D_INPLACE with `slots` plane slots, or D_GRID)
+// with `smem` bytes of dynamic shared memory. Returns the launch's
+// cudaError_t: nothing is allocated and nothing is synchronised here.
 int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
                         unsigned scat_mask, unsigned free_mask,
                         const void* desc, int nstages, const void* ops,
                         long long blocks, int batch, const void* sel,
-                        int tier, void* stream) {
+                        int tier, int driver, int slots, long long smem,
+                        void* stream) {
   if (tile_bits < LANE_BITS + 3 || tile_bits > MAX_TILE_BITS
-      || batch < 1 || batch > MAX_GRID_BATCH)
+      || batch < 1 || batch > MAX_GRID_BATCH || blocks < 1
+      || (driver != D_GRID && (slots < 2 || slots > MAX_SLOTS))
+      || smem < quest_segment_smem_bytes(tile_bits, driver, slots))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = smem_bytes(tile_bits);
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-  auto* a = static_cast<float*>(amps);
-  auto* d = static_cast<const long long*>(desc);
-  auto* o = static_cast<const float*>(ops);
-  auto* sl = static_cast<const float*>(sel);
+  const SweepArgs a{static_cast<float*>(amps), n, tile_bits, inner_bits,
+                    scat_mask, free_mask, static_cast<const long long*>(desc),
+                    nstages, static_cast<const float*>(ops), batch,
+                    static_cast<const float*>(sel)};
   auto* st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (tier) {
-    case T_HIGHEST:
-      e = launch<T_HIGHEST>(grid, smem, st, a, n, tile_bits, inner_bits,
-                            scat_mask, free_mask, d, nstages, o, batch, sl);
-      break;
-    case T_HIGH:
-      e = launch<T_HIGH>(grid, smem, st, a, n, tile_bits, inner_bits,
-                         scat_mask, free_mask, d, nstages, o, batch, sl);
-      break;
-    case T_DEFAULT:
-      e = launch<T_DEFAULT>(grid, smem, st, a, n, tile_bits, inner_bits,
-                            scat_mask, free_mask, d, nstages, o, batch, sl);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
+    case T_HIGHEST: e = launch<T_HIGHEST>(a, blocks, driver, slots, smem, st); break;
+    case T_HIGH: e = launch<T_HIGH>(a, blocks, driver, slots, smem, st); break;
+    case T_DEFAULT: e = launch<T_DEFAULT>(a, blocks, driver, slots, smem, st); break;
+    default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
 }

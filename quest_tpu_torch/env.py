@@ -5,7 +5,8 @@ A copy of the registry pattern in quest_tpu/env.py (`KNOBS` /
 loudly: a malformed value raises ValueError instead of falling back.
 The engines read the knobs when they plan (Circuit.compiled_fused,
 compiled_batched, trajectories.run_batched), so a flip takes effect on
-the next such call.
+the next such call; a compiled program keeps what it read (its matmul
+tier, its segment driver and slot count).
 """
 
 from __future__ import annotations
@@ -34,6 +35,27 @@ def _bool01(name: str) -> Callable[[str], bool]:
     return parse
 
 
+def _int_range(name: str, lo: int, hi: int) -> Callable[[str], int]:
+    def parse(raw: str) -> int:
+        try:
+            v = int(raw)
+        except ValueError:
+            raise ValueError(f"{name} must be an integer, got {raw!r}") from None
+        if not lo <= v <= hi:
+            raise ValueError(f"{name} must be in [{lo}, {hi}], got {v}")
+        return v
+    return parse
+
+
+def _choice(name: str, choices) -> Callable[[str], str]:
+    def parse(raw: str) -> str:
+        if raw not in choices:
+            raise ValueError(f"{name} must be one of {list(choices)}, "
+                             f"got {raw!r}")
+        return raw
+    return parse
+
+
 def _parse_matmul_precision(raw: str) -> str:
     tiers = ("default", "high", "highest")
     if raw.lower() not in tiers:
@@ -58,6 +80,22 @@ _KNOB_LIST = (
     Knob("QUEST_SWEEP_FUSION", _bool01("QUEST_SWEEP_FUSION"), True,
          doc="sweep fusion: merge consecutive geometry-compatible kernel "
              "segments into one launch: 1/0 (default: 1)"),
+    # the segment drivers (ref quest_tpu/env.py:431-457); read when a
+    # program is compiled and kept in each of its segments
+    Knob("QUEST_FUSED_DRIVER",
+         _choice("QUEST_FUSED_DRIVER", ("pipelined", "grid")), "pipelined",
+         doc="segment driver: pipelined (persistent blocks, bulk async "
+             "copies through shared-memory plane slots; default) or grid "
+             "(one block per tile)"),
+    Knob("QUEST_FUSED_PIPELINE", _bool01("QUEST_FUSED_PIPELINE"), True,
+         doc="under the pipelined driver: 1 (default) refills a plane slot "
+             "as soon as its store has read it (the decoupled ring, K1); 0 "
+             "only once the store has landed, NBUF slots (the in-place "
+             "driver, K2)"),
+    Knob("QUEST_FUSED_NBUF", _int_range("QUEST_FUSED_NBUF", 2, 8), 3,
+         doc="plane slots of the in-place driver (QUEST_FUSED_PIPELINE=0): "
+             "2..8, clamped to what a block's shared memory holds and to "
+             "the launch's steps (default: 3)"),
 )
 
 KNOBS = {k.name: k for k in _KNOB_LIST}

@@ -27,6 +27,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from quest_tpu_torch.env import knob_value
 from quest_tpu_torch.ops import fusion as F
 
 LANE_QUBITS = 7
@@ -45,7 +46,13 @@ class Budgets:
     scatter_max         scattered high row bits per segment
     max_segment_stages  stages per segment as segment_plan emits them
     max_sweep_stages    stages per merged sweep (sweep_plan)
-    sweep_operand_bytes operand bytes per merged sweep
+    sweep_operand_bytes operand bytes per merged sweep under the
+                        decoupled driver (K1, the default)
+    inplace_operand_bytes  the same under the in-place (K2) or grid (K3)
+                        driver
+    block_memory        where a block's slots live: 'vmem' (the TPU's
+                        whole-block slots) or 'smem' (the port's plane
+                        slots); picks the schedule pipeline_stats reports
     """
     name: str
     rows_eff_bits: int
@@ -54,6 +61,8 @@ class Budgets:
     max_segment_stages: int
     max_sweep_stages: int
     sweep_operand_bytes: int
+    inplace_operand_bytes: int
+    block_memory: str
 
     @property
     def tile_bytes(self) -> int:
@@ -62,13 +71,15 @@ class Budgets:
         return 2 * 4 * LANES << self.max_block_row_bits
 
 
-# The reference's values (quest_tpu/ops/pallas_band.py:78-101, :671-691)
-# under its default driver (the decoupled pipeline): a block of up to
-# 2^13 rows (8 MiB) in TPU VMEM, operands VMEM-resident.
+# The reference's values (quest_tpu/ops/pallas_band.py:78-101, :671-691):
+# a block of up to 2^13 rows (8 MiB) in TPU VMEM, operands VMEM-resident;
+# 40 MiB of operands per sweep beside the decoupled driver's 4 block slots,
+# 48 MiB beside the in-place driver's 3 (or the grid driver's 2).
 TPU_GEOMETRY = Budgets(
     name="tpu", rows_eff_bits=12, max_block_row_bits=13, scatter_max=7,
     max_segment_stages=32, max_sweep_stages=64,
-    sweep_operand_bytes=40 * (1 << 20))
+    sweep_operand_bytes=40 * (1 << 20), inplace_operand_bytes=48 * (1 << 20),
+    block_memory="vmem")
 
 # H100 thread block. The tile (2 planes x 2^(7 + row bits) f32) lives in
 # dynamic shared memory, at most 227 KB per block, so a block holds at
@@ -81,9 +92,10 @@ TPU_GEOMETRY = Budgets(
 # 13 row bits let a b1 share its segment with up to 6 scattered bits).
 # Operands are read from global memory through L1/L2, not staged in
 # shared memory; every block re-reads every operand of its segment, so a
-# sweep's operands are capped at 32 MiB to stay inside the 50 MB L2. A
-# dense 128x128 complex operand is 128 KiB, so the stage caps, kept at
-# the reference's 32/64, bind first.
+# sweep's operands are capped at 32 MiB to stay inside the 50 MB L2,
+# whatever the driver (no driver holds operands in shared memory, so the
+# plans do not depend on it). A dense 128x128 complex operand is 128 KiB,
+# so the stage caps, kept at the reference's 32/64, bind first.
 #
 # Kraus pairs under this budget. A 1-qubit channel on a density register
 # is a 2-qubit superoperator on (t, t + N); when its op-side qubit is a
@@ -106,7 +118,8 @@ TPU_GEOMETRY = Budgets(
 HOPPER_GEOMETRY = Budgets(
     name="hopper", rows_eff_bits=7, max_block_row_bits=7, scatter_max=7,
     max_segment_stages=32, max_sweep_stages=64,
-    sweep_operand_bytes=32 * (1 << 20))
+    sweep_operand_bytes=32 * (1 << 20), inplace_operand_bytes=32 * (1 << 20),
+    block_memory="smem")
 
 
 def plan_bands(n: int) -> List[Tuple[int, int]]:
@@ -562,15 +575,17 @@ def _embed_2x2(sub, pos):
 # `iters` program. Any non-segment part is a barrier.
 
 
-def sweep_plan(parts, n: int, *, budgets: Budgets = HOPPER_GEOMETRY):
+def sweep_plan(parts, n: int, *, budgets: Budgets = HOPPER_GEOMETRY,
+               driver: str = None):
     """Merge consecutive ("segment", stages, arrays) parts into maximal
-    single-launch sweeps under `budgets`, preserving program order.
-    Returns the same part format."""
+    single-launch sweeps under `budgets` and the operand budget of
+    `driver` (None: the knobs'), preserving program order. Returns the
+    same part format."""
     del n
     scatter_max = budgets.scatter_max
     row_budget = budgets.max_block_row_bits
     max_stages = budgets.max_sweep_stages
-    operand_bytes = budgets.sweep_operand_bytes
+    operand_bytes = sweep_operand_budget(budgets, driver)
     out = []
     cur_scat: set = set()
     cur_floor = 0
@@ -604,13 +619,13 @@ def sweep_plan(parts, n: int, *, budgets: Budgets = HOPPER_GEOMETRY):
     return out
 
 
-def maybe_sweep(parts, n: int, *, budgets: Budgets = HOPPER_GEOMETRY):
+def maybe_sweep(parts, n: int, *, budgets: Budgets = HOPPER_GEOMETRY,
+                driver: str = None):
     """sweep_plan honouring the QUEST_SWEEP_FUSION knob (ref
     pallas_band.maybe_sweep)."""
-    from quest_tpu_torch.env import knob_value
     if not knob_value("QUEST_SWEEP_FUSION"):
         return list(parts)
-    return sweep_plan(parts, n, budgets=budgets)
+    return sweep_plan(parts, n, budgets=budgets, driver=driver)
 
 
 def sweep_stats(parts) -> dict:
@@ -651,6 +666,282 @@ def sweep_steps(stages, n: int, batch: int = 1, *,
     the batch (ref pallas_band.sweep_steps:846, the grid steps of one
     compiled sweep)."""
     return segment_geometry(stages, n, budgets=budgets).blocks * int(batch)
+
+
+# ---------------------------------------------------------------------------
+# segment drivers: the schedule's planning half
+# ---------------------------------------------------------------------------
+#
+# The reference has three drivers of one stage chain (pallas_band.py:1553,
+# :1628, :1715), picked by QUEST_FUSED_DRIVER and QUEST_FUSED_PIPELINE:
+#   decoupled  K1, the default: separate in/out slot rings, neither DMA
+#              direction gating the other;
+#   inplace    K2 (QUEST_FUSED_PIPELINE=0): NBUF in-place slots, a slot
+#              refilled once its previous write-back has drained;
+#   grid       K3 (QUEST_FUSED_DRIVER=grid): one grid step per block.
+# A driver changes when a block's bytes move, never what the chain
+# computes. Under TPU_GEOMETRY the functions below return what the
+# reference's return; under HOPPER_GEOMETRY they describe the port's
+# kernels (csrc/segment.cu): K1 and K2 are persistent blocks whose tile
+# planes sit in a ring of plane slots in shared memory, K3 one block per
+# tile. `ring_schedule` is the model of one persistent block's order of
+# events, from which pipeline_stats derives the port's read-ahead.
+
+DRIVERS = ("decoupled", "inplace", "grid")      # K1, K2, K3
+PIPELINE_IN_SLOTS = 2          # the reference's decoupled rings (:682)
+PIPELINE_OUT_SLOTS = 2
+VMEM_LIMIT_BYTES = 100 * (1 << 20)   # the reference's scoped VMEM limit
+BLOCK_SMEM_BYTES = 232448      # H100: dynamic shared memory of one block
+RING_SLOTS = 3                 # K1's plane slots on the port
+MAX_RING_SLOTS = 8             # QUEST_FUSED_NBUF's upper bound
+ROW_ID_BYTES = 4 << (14 - LANE_QUBITS)   # csrc MAX_ROWS ints
+MULTIPHASE_BYTES = 3 * 64 * 4  # csrc MAX_MULTIPHASE_ROWS x (angle, 2 masks)
+MBARRIER_BYTES = 8
+HOPPER_SMS = 132               # H100 SXM: the persistent grid, for stats
+STATS_STEPS = 16               # steps per block the schedule model walks
+# for pipeline_stats (its read-ahead is periodic after a few steps)
+
+
+def pipeline_enabled() -> bool:
+    """QUEST_FUSED_PIPELINE: True (default) runs the decoupled driver
+    under the pipelined one, False the in-place slots (ref
+    pallas_band.pipeline_enabled :694)."""
+    return knob_value("QUEST_FUSED_PIPELINE")
+
+
+def active_driver() -> str:
+    """The driver the knobs select: 'grid' under QUEST_FUSED_DRIVER=grid,
+    else 'decoupled' or 'inplace' by QUEST_FUSED_PIPELINE. Read when a
+    program is compiled; the program keeps it."""
+    if knob_value("QUEST_FUSED_DRIVER") == "grid":
+        return "grid"
+    return "decoupled" if pipeline_enabled() else "inplace"
+
+
+def check_driver(driver: str = None) -> str:
+    """`driver`, or the knobs' when None; ValueError if it is not one of
+    DRIVERS."""
+    driver = active_driver() if driver is None else driver
+    if driver not in DRIVERS:
+        raise ValueError(f"segment driver must be one of {DRIVERS}, "
+                         f"got {driver!r}")
+    return driver
+
+
+def decoupled_active(driver: str = None) -> bool:
+    """Whether segments run the decoupled driver (ref
+    pallas_band.decoupled_active :704): the one predicate behind the
+    operand budget and pipeline_stats."""
+    return check_driver(driver) == "decoupled"
+
+
+def sweep_operand_budget(budgets: Budgets = HOPPER_GEOMETRY,
+                         driver: str = None) -> int:
+    """Operand bytes per sweep under `driver` (ref
+    pallas_band.sweep_operand_budget :713): the decoupled driver's budget,
+    or the in-place/grid one (TPU: 40 vs 48 MiB; Hopper: 32 MiB both)."""
+    if decoupled_active(driver):
+        return budgets.sweep_operand_bytes
+    return budgets.inplace_operand_bytes
+
+
+def _nbuf(nbuf: int = None) -> int:
+    return knob_value("QUEST_FUSED_NBUF") if nbuf is None else int(nbuf)
+
+
+def ring_fit(tile_bits: int) -> int:
+    """Most plane slots one block's shared memory holds beside the row
+    ids, the multiphase rows and one mbarrier per slot (at most
+    MAX_RING_SLOTS): 3 at 14-bit tiles, 7 at 13 bits, 8 below."""
+    plane = 4 << tile_bits
+    fixed = ROW_ID_BYTES + MULTIPHASE_BYTES
+    return min(MAX_RING_SLOTS,
+               (BLOCK_SMEM_BYTES - fixed) // (plane + MBARRIER_BYTES))
+
+
+def ring_slots(tile_bits: int, steps: int, driver: str = None,
+               nbuf: int = None) -> int:
+    """Plane slots of one launch: K3's two planes; K1's RING_SLOTS; K2's
+    QUEST_FUSED_NBUF (or `nbuf`); the rings clamped to what shared memory
+    holds (ring_fit) and to the 2 x `steps` planes the launch moves."""
+    driver = check_driver(driver)
+    if driver == "grid":
+        return 2
+    want = RING_SLOTS if driver == "decoupled" else _nbuf(nbuf)
+    return max(2, min(want, ring_fit(tile_bits), 2 * int(steps)))
+
+
+def ring_schedule(driver: str, steps: int, slots: int) -> List[tuple]:
+    """The order of events of one block of the port's kernel walking
+    `steps` tiles (step k: plane 2k = re, 2k + 1 = im) through `slots`
+    plane slots, as csrc/segment.cu issues and waits for them:
+
+      ("load", j, slot)    bulk load of plane j into slot j mod slots
+      ("landed", k)        the block waits until step k's planes landed
+      ("chain", k, (re slot, im slot))
+      ("store", j, slot)   bulk store of plane j from its slot
+      ("read", j)          wait until every store up to plane j has read
+                           its slot (K1: wait_group.read)
+      ("drained", j)       wait until every store up to plane j has
+                           landed (K2: wait_group; every driver at exit)
+
+    K1 ('decoupled') and K2 ('inplace'): at step k the block issues the
+    loads of planes [2k - 2 + slots, 2k + slots) (k = 0: [0, slots)),
+    each after waiting for its slot's previous plane j - slots ("read"
+    for K1, "drained" for K2), then waits for its tile, runs the chain
+    and stores both planes. K3 ('grid') loads, chains and stores one tile
+    at a time through two planes, the stores landing before the next
+    tile."""
+    driver = check_driver(driver)
+    ev: List[tuple] = []
+    if driver == "grid":
+        for k in range(steps):
+            ev += [("load", 2 * k, 0), ("load", 2 * k + 1, 1), ("landed", k),
+                   ("chain", k, (0, 1)), ("store", 2 * k, 0),
+                   ("store", 2 * k + 1, 1), ("drained", 2 * k + 1)]
+        return ev
+    if slots < 2:
+        raise ValueError(f"a ring needs at least 2 plane slots, got {slots}")
+    release = "read" if driver == "decoupled" else "drained"
+    for k in range(steps):
+        lo = 0 if k == 0 else 2 * k - 2 + slots
+        for j in range(lo, min(2 * k + slots, 2 * steps)):
+            if j >= slots:
+                ev.append((release, j - slots))
+            ev.append(("load", j, j % slots))
+        ev.append(("landed", k))
+        ev.append(("chain", k, (2 * k % slots, (2 * k + 1) % slots)))
+        ev += [("store", 2 * k, 2 * k % slots),
+               ("store", 2 * k + 1, (2 * k + 1) % slots)]
+    if steps:
+        ev.append(("drained", 2 * steps - 1))
+    return ev
+
+
+def overlap_steps(events: Sequence[tuple]) -> int:
+    """Read-ahead of a schedule: the least, over every chain but the
+    last, of the later steps whose loads were issued before it starts
+    (0 for a single step)."""
+    ahead, loaded, chains = [], set(), 0
+    for e in events:
+        if e[0] == "load":
+            loaded.add(e[1] // 2)
+        elif e[0] == "chain":
+            chains += 1
+            ahead.append(sum(1 for s in loaded if s > e[1]))
+    return min(ahead[:-1]) if chains > 1 else 0
+
+
+def smem_layout(tile_bits: int, steps: int, driver: str = None,
+                nbuf: int = None) -> dict:
+    """Dynamic shared memory of one launch of the port's kernel moving
+    `steps` tiles of `tile_bits` bits under `driver`: the plane slots
+    (K3: the tile's two planes), the row ids and multiphase rows, one
+    mbarrier per ring slot; against BLOCK_SMEM_BYTES. The one source the
+    wrapper sizes a launch from (ops/segment.py; csrc
+    quest_segment_smem_bytes must agree)."""
+    driver = check_driver(driver)
+    plane = 4 << tile_bits
+    slots = ring_slots(tile_bits, steps, driver, nbuf)
+    barriers = 0 if driver == "grid" else slots * MBARRIER_BYTES
+    total = slots * plane + ROW_ID_BYTES + MULTIPHASE_BYTES + barriers
+    return {"driver": driver, "tile_bits": tile_bits, "steps": int(steps),
+            "plane_bytes": plane, "slots": slots,
+            "slot_bytes": slots * plane, "row_id_bytes": ROW_ID_BYTES,
+            "multiphase_bytes": MULTIPHASE_BYTES, "barrier_bytes": barriers,
+            "total_bytes": total, "budget_bytes": BLOCK_SMEM_BYTES}
+
+
+def sweep_smem_bytes(stages, n: int, batch: int = 1, *, driver: str = None,
+                     nbuf: int = None,
+                     budgets: Budgets = HOPPER_GEOMETRY) -> dict:
+    """smem_layout of one launch of `stages` over `batch` states of n
+    qubits: the Hopper counterpart of sweep_vmem_bytes."""
+    geo = segment_geometry(stages, n, budgets=budgets)
+    return smem_layout(geo.tile_bits, geo.blocks * int(batch), driver, nbuf)
+
+
+def sweep_vmem_bytes(stages, arrays, n: int, batch: int = 1, *,
+                     driver: str = None, nbuf: int = None,
+                     budgets: Budgets = TPU_GEOMETRY) -> dict:
+    """VMEM residency of one launch of the REFERENCE's kernel (ref
+    pallas_band.sweep_vmem_bytes :910): its block slots under `driver`
+    (2 + 2 decoupled, NBUF in place, 2 for the grid driver's double
+    buffering, clamped by the steps) plus whole-array operands, against
+    the 100 MiB scoped limit."""
+    driver = check_driver(driver)
+    geo = segment_geometry(stages, n, budgets=budgets)
+    steps = sweep_steps(stages, n, batch, budgets=budgets)
+    block_bytes = 2 * geo.rows_eff * LANES * 4
+    if driver == "decoupled":
+        slots = min(PIPELINE_IN_SLOTS, steps) + min(PIPELINE_OUT_SLOTS, steps)
+    elif driver == "inplace":
+        slots = min(_nbuf(nbuf), steps)
+    else:
+        slots = 2
+    operand_bytes = sum(int(a.nbytes) for a in arrays)
+    return {"block_bytes": block_bytes, "slots": slots,
+            "slot_bytes": slots * block_bytes, "operand_bytes": operand_bytes,
+            "total_bytes": slots * block_bytes + operand_bytes,
+            "budget_bytes": VMEM_LIMIT_BYTES}
+
+
+def pipeline_stats(parts, n: int, batch: int = 1, *, driver: str = None,
+                   nbuf: int = None,
+                   budgets: Budgets = HOPPER_GEOMETRY) -> dict:
+    """Schedule of a (swept) part list (ref pallas_band.pipeline_stats
+    :857). Under TPU budgets ('vmem'), the reference's record: the
+    decoupled rings' slots and read-ahead (in_slots - 1 clamped by each
+    sweep's steps, the least over the sweeps), {} under the other
+    drivers. Under the port's ('smem'), for every driver: the plane
+    slots (the least over the sweeps) and pipeline_overlap_steps, the
+    least read-ahead ring_schedule gives a block of the persistent grid
+    (min(steps, HOPPER_SMS) blocks) on any sweep."""
+    driver = check_driver(driver)
+    sweeps = [p[1] for p in parts if p[0] == "segment"]
+    if budgets.block_memory == "vmem":
+        if driver != "decoupled":
+            return {}
+        overlaps = [min(PIPELINE_IN_SLOTS,
+                        sweep_steps(st, n, batch, budgets=budgets)) - 1
+                    for st in sweeps]
+        return {"pipeline_in_slots": PIPELINE_IN_SLOTS,
+                "pipeline_out_slots": PIPELINE_OUT_SLOTS,
+                "pipeline_overlap_steps": min(overlaps) if overlaps else 0}
+    slots, overlaps = [], []
+    for st in sweeps:
+        geo = segment_geometry(st, n, budgets=budgets)
+        steps = geo.blocks * int(batch)
+        s = ring_slots(geo.tile_bits, steps, driver, nbuf)
+        per_block = steps // min(steps, HOPPER_SMS)
+        slots.append(s)
+        overlaps.append(overlap_steps(
+            ring_schedule(driver, min(per_block, STATS_STEPS), s)))
+    return {"pipeline_driver": driver,
+            "pipeline_slots": min(slots) if slots else 0,
+            "pipeline_overlap_steps": min(overlaps) if overlaps else 0}
+
+
+def fused_record(parts, swept, n: int, *, driver: str = None,
+                 nbuf: int = None, budgets: Budgets = HOPPER_GEOMETRY) -> dict:
+    """The fused engine's plan record (ref pallas_band.fused_record :888,
+    Circuit.plan_stats()['fused']): segment and passthrough counts and
+    the stage count of the raw segment plan `parts`, the sweeps of the
+    swept plan `swept`, and pipeline_stats of the swept plan."""
+    segs = sum(1 for p in parts if p[0] == "segment")
+    sw = sweep_stats(swept)
+    rec = {
+        "kernel_segments": segs,
+        "xla_passthroughs": len(parts) - segs,
+        "full_state_passes": len(parts),
+        "stages": sum(len(p[1]) for p in parts if p[0] == "segment"),
+        "sweeps_enabled": knob_value("QUEST_SWEEP_FUSION"),
+        "hbm_sweeps": sw["hbm_sweeps"],
+        "sweep_stages": sw["sweep_stages"],
+    }
+    rec.update(pipeline_stats(swept, n, driver=driver, nbuf=nbuf,
+                              budgets=budgets))
+    return rec
 
 
 # ---------------------------------------------------------------------------

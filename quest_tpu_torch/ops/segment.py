@@ -10,9 +10,10 @@ compiled, never per call.
 
 `segment_sweep(amps, seg, sel)` applies the segment in place, to one
 state's planes or to a batch of states (B, 2, 2^n) in one launch. On a
-CUDA tensor it launches the hand-written kernel (csrc/segment.cu) and
-counts the launch in `segment_sweep.launches`, and once for each stage
-kind the segment holds in `segment_sweep.stage_launches` (keyed by
+CUDA tensor it launches the hand-written kernel (csrc/segment.cu) under
+the segment's driver and counts the launch in `segment_sweep.launches`,
+in `segment_sweep.driver_launches` (keyed by driver), and once for each
+stage kind the segment holds in `segment_sweep.stage_launches` (keyed by
 `stage_label`); on a CPU tensor it runs the plain version,
 `segment_sweep_reference`, which applies each stage to the whole batch
 with reshapes that expose the band bits and torch.matmul for the
@@ -43,6 +44,17 @@ and 128-wide scb, G for narrow scb) and written, for each 8-output by
 roundings. Narrower stages keep the f32 operand; the kernel rounds it as
 it reads it. The plain version applies the same tier through
 precision.tier_products.
+
+Drivers (band_plan.DRIVERS, the reference's K1-K3). A segment is packed
+for one driver, read from QUEST_FUSED_DRIVER / QUEST_FUSED_PIPELINE /
+QUEST_FUSED_NBUF when it is prepared unless the caller names it:
+'decoupled' (K1, the default) and 'inplace' (K2) launch the persistent
+ring kernel (K1 with 3 plane slots, K2 with `nbuf`), 'grid' (K3) one
+block per tile; each launch sizes its shared memory from
+band_plan.smem_layout. The drivers give bit-identical planes; the plain
+version is the same for all three. A segment with no stages is the
+stage-free copy (the reference's compile_segment((), ()) of its
+profiler): each tile loaded and stored.
 """
 
 from __future__ import annotations
@@ -55,12 +67,14 @@ import numpy as np
 import torch
 
 from quest_tpu_torch import precision
+from quest_tpu_torch.env import knob_value
 from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops.apply import bit_view
 from quest_tpu_torch.ops.band_plan import (
     HOPPER_GEOMETRY, LANE_QUBITS, LANES, Budgets, DiagVecStage, Geometry,
     BatchSelStage, MatStage, MultiPhaseStage, PairStage, ParityStage,
-    PhaseStage, segment_geometry)
+    PhaseStage, MAX_RING_SLOTS, check_driver, segment_geometry,
+    smem_layout)
 
 DESC_WORDS = 17
 # descriptor columns (csrc/segment.cu enum F_*)
@@ -76,6 +90,7 @@ TARGET_BITS = 6               # bits per qubit index in F_TARGETS
 SEL_WORDS = 8                 # one selection-table row: a complex 2x2
 MAX_GRID_BATCH = 65535        # states per launch (gridDim.y)
 TIER_CODE = {"highest": 0, "high": 1, "default": 2}   # csrc T_* codes
+DRIVER_CODE = {"decoupled": 0, "inplace": 1, "grid": 2}  # csrc D_* codes
 MMA_MIN_DIM = 16              # d from which a tier stage uses tensor cores
 MMA_N, MMA_K = 8, 16          # mma.m16n8k16: outputs x inputs per block
 PLAIN_CHUNK_AMPS = 1 << 26    # amplitudes per slice of a plain contraction
@@ -131,6 +146,9 @@ class Segment:
     slots: Tuple[int, ...]               # selection-table slots read by
     # its BatchSelStages, in stage order
     tier: str                            # matmul tier of b0/b1/scb stages
+    driver: str                          # band_plan.DRIVERS
+    nbuf: int                            # the in-place driver's plane slots
+    # (QUEST_FUSED_NBUF; each launch clamps them, band_plan.ring_slots)
 
     @property
     def device(self) -> torch.device:
@@ -317,14 +335,21 @@ def _batchsel_row(st: BatchSelStage, geo: Geometry) -> list:
 
 def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
                     device, budgets: Budgets = HOPPER_GEOMETRY,
-                    tier: str = None) -> Segment:
+                    tier: str = None, driver: str = None,
+                    nbuf: int = None) -> Segment:
     """Pack one segment — its geometry, a descriptor table (one int64 row
     of DESC_WORDS per stage) and one flat f32 buffer of every operand —
-    for matmul `tier` (None: the session's, precision.matmul_precision),
-    and move the table and buffer to `device` (once, at compile time)."""
+    for matmul `tier` (None: the session's, precision.matmul_precision)
+    and `driver` with `nbuf` in-place slots (None: the knobs'), and move
+    the table and buffer to `device` (once, at compile time). An empty
+    stage list is the stage-free copy."""
     check_supported(stages)
     tier = precision.check_tier(tier or precision.matmul_precision())
-    if not stages or len(stages) != len(arrays):
+    driver = check_driver(driver)
+    nbuf = knob_value("QUEST_FUSED_NBUF") if nbuf is None else int(nbuf)
+    if not 2 <= nbuf <= MAX_RING_SLOTS:
+        raise ValueError(f"nbuf must be in [2, {MAX_RING_SLOTS}], got {nbuf}")
+    if len(stages) != len(arrays):
         raise ValueError("a segment needs one operand array per stage")
     geo = segment_geometry(stages, n, budgets=budgets)
     if geo.tile_bits > MAX_TILE_BITS:
@@ -375,7 +400,7 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
         off += kernel_arr.size
     # the kernel's buffer holds each operand as it reads it (pair cores);
     # `operands` keeps the planner's arrays for the plain version
-    flat = np.concatenate(chunks)
+    flat = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
     desc = np.array(rows, dtype=np.int64).reshape(-1, DESC_WORDS)
     dev = torch.device(device)
     ops = torch.from_numpy(flat).to(dev)
@@ -394,7 +419,7 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
                    labels=frozenset(stage_label(st, tier) for st in stages),
                    slots=tuple(st.index for st in stages
                                if isinstance(st, BatchSelStage)),
-                   tier=tier)
+                   tier=tier, driver=driver, nbuf=nbuf)
 
 
 # ---------------------------------------------------------------------------
@@ -408,8 +433,11 @@ def _lib() -> ctypes.CDLL:
         vp, ci, cu, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                            ctypes.c_longlong)
         lib.quest_segment_sweep.argtypes = [vp, ci, ci, ci, cu, cu, vp, ci,
-                                            vp, cll, ci, vp, ci, vp]
+                                            vp, cll, ci, vp, ci, ci, ci, cll,
+                                            vp]
         lib.quest_segment_sweep.restype = ci
+        lib.quest_segment_smem_bytes.argtypes = [ci, ci, ci]
+        lib.quest_segment_smem_bytes.restype = cll
         lib.quest_segment_desc_words.restype = ci
         lib.quest_segment_max_tile_bits.restype = ci
         lib.quest_segment_max_multiphase_rows.restype = ci
@@ -421,6 +449,16 @@ def _lib() -> ctypes.CDLL:
         if layout != (DESC_WORDS, MAX_TILE_BITS, MAX_MULTIPHASE_ROWS):
             raise RuntimeError(f"segment kernel layout {layout} does not "
                                f"match the packer's")
+        for tb in range(LANE_QUBITS + 3, MAX_TILE_BITS + 1):
+            for driver, code in DRIVER_CODE.items():
+                for nbuf in range(2, MAX_RING_SLOTS + 1):
+                    lay = smem_layout(tb, 1 << 20, driver, nbuf)
+                    got = lib.quest_segment_smem_bytes(tb, code, lay["slots"])
+                    if got != lay["total_bytes"]:
+                        raise RuntimeError(
+                            f"shared memory of a {driver} launch at {tb} "
+                            f"tile bits: kernel {got}, planner "
+                            f"{lay['total_bytes']}")
         lib._quest_declared = True
     return lib
 
@@ -488,8 +526,12 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
     if batch > MAX_GRID_BATCH:
         raise ValueError(f"{batch} states exceed one launch's "
                          f"{MAX_GRID_BATCH}")
+    if amps.data_ptr() % 16:
+        raise ValueError("segment_sweep needs 16-byte aligned planes "
+                         "(bulk copies)")
     lib = _lib()
     geo = seg.geometry
+    lay = smem_layout(geo.tile_bits, geo.blocks * batch, seg.driver, seg.nbuf)
     with torch.cuda.device(amps.device):
         stream = torch.cuda.current_stream(amps.device).cuda_stream
         rc = lib.quest_segment_sweep(
@@ -497,12 +539,16 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
             seg.scat_mask, seg.free_mask, seg.desc.data_ptr(),
             len(seg.stages), seg.ops.data_ptr(), geo.blocks, batch,
             sel.data_ptr() if seg.slots else None, TIER_CODE[seg.tier],
+            DRIVER_CODE[seg.driver], lay["slots"], lay["total_bytes"],
             stream)
     if rc != 0:
         raise RuntimeError(
-            f"segment kernel launch failed: CUDA error {rc} "
-            f"({lib.quest_cuda_error_string(rc).decode()})")
+            f"segment kernel launch ({seg.driver}, {lay['slots']} slots, "
+            f"{lay['total_bytes']} B of shared memory) failed: CUDA error "
+            f"{rc} ({lib.quest_cuda_error_string(rc).decode()})")
     segment_sweep.launches += 1
+    segment_sweep.driver_launches[seg.driver] = (
+        segment_sweep.driver_launches.get(seg.driver, 0) + 1)
     for label in seg.labels:
         segment_sweep.stage_launches[label] = (
             segment_sweep.stage_launches.get(label, 0) + 1)
@@ -511,6 +557,7 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
 
 segment_sweep.launches = 0
 segment_sweep.stage_launches = {}
+segment_sweep.driver_launches = {}
 
 
 # ---------------------------------------------------------------------------

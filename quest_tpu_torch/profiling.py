@@ -1,0 +1,104 @@
+"""Profiling on the card: the per-sweep split of a fused plan's time into
+its copy floor and its compute.
+
+A port of sweep_dma_report (quest_tpu/profiling.py:198-320); the rest of
+that module is not ported yet (ROADMAP A13). It measures on a CUDA device
+only, with CUDA events, and raises without one: a time taken on the CPU
+says nothing of the kernel.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from quest_tpu_torch import precision
+from quest_tpu_torch.env import knob_value, resolve_device
+from quest_tpu_torch.ops import band_plan as BP
+from quest_tpu_torch.ops.segment import prepare_segment, segment_sweep
+from quest_tpu_torch.state import basis_planes, fused_state_shape
+
+DMA_BOUND_SHARE = 0.15      # adder within 15 % of the floor: copy-bound
+
+
+def _launch_ms(amps: torch.Tensor, seg, reps: int) -> float:
+    """Mean device ms of one launch of `seg` on `amps` over `reps`
+    launches after one warm launch (CUDA events)."""
+    segment_sweep(amps, seg)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        segment_sweep(amps, seg)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sweep_dma_report(n: int = 28, reps: int = 5, circuit=None,
+                     iters: int = 1, driver: str = None, nbuf: int = None,
+                     device=None, out=None) -> dict:
+    """Per-sweep copy-floor vs compute split of a fused plan on the card,
+    under `driver` (None: the knobs'; the in-place driver with `nbuf`
+    plane slots). For each kernel sweep of the plan it measures
+
+      * the sweep's launch (its stage chain under the driver), and
+      * one stage-free launch — the same driver moving the same state
+        bytes with an empty stage chain: the plan's copy floor —
+
+    and reports per sweep `total_ms`, the shared `dma_ms` floor and
+    `compute_adder_ms = total - dma` (0 at least). A sweep whose adder is
+    within DMA_BOUND_SHARE of the floor is copy-bound (the driver hides
+    its chain); a large adder says the chain overruns the copy stream.
+
+    Defaults: the flagship circuit (random_circuit(n, 4, seed 7)) at n =
+    28, one application. The launches run in place on one |0..0> state
+    of n qubits, at the session's matmul tier. Returns the record; prints
+    one line per sweep to `out` when given."""
+    from quest_tpu_torch.entry import flagship_circuit
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"sweep_dma_report times the CUDA kernel; got "
+                         f"device {dev}")
+    driver = BP.check_driver(driver)
+    nbuf = knob_value("QUEST_FUSED_NBUF") if nbuf is None else nbuf
+    tier = precision.matmul_precision()
+    circuit = flagship_circuit(n) if circuit is None else circuit
+    parts = BP.maybe_sweep(circuit.segment_parts(n) * iters, n, driver=driver)
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=dev)
+
+    def time_launch(stages, arrays):
+        seg = prepare_segment(stages, arrays, n, dev, tier=tier,
+                              driver=driver, nbuf=nbuf)
+        return _launch_ms(amps, seg, reps)
+
+    dma_ms = time_launch((), ())
+    rec = {"device": torch.cuda.get_device_name(dev), "n": n, "reps": reps,
+           "iters": iters, "driver": driver, "tier": tier,
+           "slots": BP.sweep_smem_bytes((), n, driver=driver,
+                                        nbuf=nbuf)["slots"],
+           "dma_ms": dma_ms, "sweeps": []}
+    say = (lambda s: print(f"[sweep_dma_report] {s}", file=out)) if out \
+        else (lambda s: None)
+    say(f"{rec['device']} n={n} driver={driver} tier={tier}: copy floor "
+        f"(stage-free launch) {dma_ms:.3f} ms")
+    for i, part in enumerate(parts):
+        if part[0] != "segment":
+            rec["sweeps"].append({"sweep": i, "kind": "passthrough"})
+            say(f"sweep {i}: passthrough (not a kernel launch)")
+            continue
+        ms = time_launch(part[1], part[2])
+        adder = max(0.0, ms - dma_ms)
+        bound = adder <= DMA_BOUND_SHARE * dma_ms
+        rec["sweeps"].append({"sweep": i, "kind": "kernel",
+                              "stages": len(part[1]), "total_ms": ms,
+                              "compute_adder_ms": adder, "dma_bound": bound})
+        say(f"sweep {i}: {len(part[1])} stages, {ms:.3f} ms, compute adder "
+            f"{adder:.3f} ms ({'copy-bound' if bound else 'chain-bound'})")
+    del amps
+    return rec
+
+
+if __name__ == "__main__":
+    sweep_dma_report(out=sys.stdout)

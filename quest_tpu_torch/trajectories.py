@@ -253,15 +253,21 @@ class TrajectoryProgram:
     device. `plain(uniforms)` runs the same program through the plain
     PyTorch version. `tier` is the matmul tier of its matrix stages and
     multi-qubit channels, the session's when the program is compiled;
-    Born reductions are f64 sums at every tier."""
+    Born reductions are f64 sums at every tier. `driver` and `nbuf` are
+    the segment driver and in-place slots (the knobs' when the program is
+    compiled, unless given); every launch runs under them."""
 
-    def __init__(self, circuit, n: int, device, tier: str = None):
+    def __init__(self, circuit, n: int, device, tier: str = None,
+                 driver: str = None, nbuf: int = None):
         dev = resolve_device(device)
         tier = precision.check_tier(tier or precision.matmul_precision())
+        driver = BP.check_driver(driver)
+        nbuf = knob_value("QUEST_FUSED_NBUF") if nbuf is None else nbuf
         precision.ieee_fp32()
         items, channels = _traj_channels_and_items(circuit, n)
-        parts = BP.maybe_sweep(BP.segment_plan(items, n), n)
+        parts = BP.maybe_sweep(BP.segment_plan(items, n), n, driver=driver)
         self.n, self.device, self.tier = n, dev, tier
+        self.driver, self.nbuf = driver, nbuf
         self.channels = [_Channel(ch, dev) for ch in channels]
         self.channel_info = channels
         self.steps: List = []
@@ -274,7 +280,8 @@ class TrajectoryProgram:
                         raise AssertionError(f"barrier stage not first: "
                                              f"{part[1]}")
                 self.steps.append(prepare_segment(part[1], part[2], n, dev,
-                                                  tier=tier))
+                                                  tier=tier, driver=driver,
+                                                  nbuf=nbuf))
             elif isinstance(part[1], _XlaChannel):
                 self.steps.append(part[1])
             else:
@@ -373,14 +380,17 @@ def _engine_key() -> Tuple:
 
 def _compiled_traj(circuit, n: int, device) -> TrajectoryProgram:
     """The trajectory program of `circuit` on `device`, cached on the
-    circuit per (device, op count, planner knobs, matmul tier): a program
-    keeps the tier it was compiled at, and a new tier compiles anew."""
+    circuit per (device, op count, planner knobs, matmul tier, segment
+    driver and slots): a program keeps the tier and driver it was
+    compiled with, and a new tier or driver compiles anew."""
     dev = resolve_device(device)
     tier = precision.matmul_precision()
-    key = ("traj-batched", n, str(dev), len(circuit.ops), _engine_key(), tier)
+    driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
+    key = ("traj-batched", n, str(dev), len(circuit.ops), _engine_key(), tier,
+           driver, nbuf)
     prog = circuit._compiled.get(key)
     if prog is None:
-        prog = TrajectoryProgram(circuit, n, dev, tier)
+        prog = TrajectoryProgram(circuit, n, dev, tier, driver, nbuf)
         circuit._compiled[key] = prog
     return prog
 

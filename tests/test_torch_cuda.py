@@ -325,3 +325,127 @@ def test_fused_path_at_high_matches_plain_version(card):
     assert abs((amps.double() ** 2).sum().item()
                - (want.double() ** 2).sum().item()) <= 1e-5
     assert 0.0 < (amps - ref).abs().max().item() <= 1e-4 * scale
+
+
+# ---- the segment drivers: K1 (decoupled ring), K2 (in-place slots), K3 ----
+
+import chip_smoke  # noqa: E402  (the smoke test's stage cases)
+
+RING_DRIVERS = [("decoupled", 3), ("inplace", 2), ("inplace", 3),
+                ("inplace", 8)]
+_SEED = 20261017
+
+
+def _smoke_case(name):
+    cases = chip_smoke.stage_cases(np.random.default_rng(_SEED))
+    return next(c for c in cases if c[0] == name)
+
+
+def _batch_case(name):
+    cases = chip_smoke.batch_stage_cases(np.random.default_rng(_SEED))
+    return next(c for c in cases if c[0] == name)
+
+
+def _run(card, stages, arrays, n, planes, driver, nbuf, sel=None):
+    seg = S.prepare_segment(stages, arrays, n, card, driver=driver, nbuf=nbuf)
+    amps = planes.clone()
+    before = S.segment_sweep.driver_launches.get(driver, 0)
+    S.segment_sweep(amps, seg, sel)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.driver_launches[driver] == before + 1
+    return amps
+
+
+@pytest.mark.parametrize("driver,nbuf", RING_DRIVERS,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize(
+    "name", [c[0] for c in chip_smoke.stage_cases(np.random.default_rng(0))])
+def test_ring_driver_matches_grid_bit_for_bit(card, name, driver, nbuf):
+    """Every stage case of chip_smoke.py at 20 (and 23) qubits: the
+    persistent ring drivers give K3's planes bit for bit."""
+    _, n, stages, arrays = _smoke_case(name)
+    planes = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 1 << n)).astype(np.float32)).to(card)
+    got = _run(card, stages, arrays, n, planes, driver, nbuf)
+    want = _run(card, stages, arrays, n, planes, "grid", 3)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("driver,nbuf", RING_DRIVERS,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize(
+    "name", [c[0] for c in
+             chip_smoke.batch_stage_cases(np.random.default_rng(0))])
+def test_ring_driver_batched_matches_grid_bit_for_bit(card, name, driver,
+                                                      nbuf):
+    """The batched S9 segments (5 states x 17 qubits, each state its own
+    selection rows): the state of a step is step / tiles, K3's
+    blockIdx.y; bit for bit."""
+    _, n, batch, stages, arrays, _ = _batch_case(name)
+    rng = np.random.default_rng(2)
+    planes = torch.from_numpy(rng.standard_normal(
+        (batch, 2, 1 << n)).astype(np.float32)).to(card)
+    sel = torch.from_numpy(chip_smoke.sel_table(rng, 2, batch)).to(card)
+    got = _run(card, stages, arrays, n, planes, driver, nbuf, sel)
+    want = _run(card, stages, arrays, n, planes, "grid", 3, sel)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("driver,nbuf", RING_DRIVERS + [("grid", 3)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("n", [14, 20, 24])
+def test_stage_free_segment_leaves_state_unchanged(card, n, driver, nbuf):
+    """The stage-free segment (the copy floor) moves every tile in and out
+    and changes no bit; at 14 qubits one tile, so a ring of 2 slots."""
+    planes = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (2, 1 << n)).astype(np.float32)).to(card)
+    got = _run(card, [], [], n, planes, driver, nbuf)
+    assert torch.equal(got, planes)
+
+
+def test_refused_launch_raises(card, monkeypatch):
+    """A launch that asks for more shared memory than a block may have is
+    refused by the runtime, and the wrapper raises: no driver falls back
+    to another or to the plain version."""
+    n = 17
+    seg = S.prepare_segment([], [], n, card)
+    real = S.smem_layout
+
+    def too_big(*args, **kwargs):
+        lay = dict(real(*args, **kwargs))
+        lay["total_bytes"] = BP.BLOCK_SMEM_BYTES + 4096
+        return lay
+    monkeypatch.setattr(S, "smem_layout", too_big)
+    amps = torch.zeros((2, 1 << n), device=card)
+    before = S.segment_sweep.launches
+    with pytest.raises(RuntimeError, match="launch"):
+        S.segment_sweep(amps, seg)
+    assert S.segment_sweep.launches == before
+
+
+def test_default_program_runs_the_decoupled_driver(card, monkeypatch):
+    """A program compiled with the knobs unset runs K1; one compiled
+    under QUEST_FUSED_DRIVER=grid keeps K3 after the knob is unset, and
+    both give the same planes bit for bit."""
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.state import basis_planes, fused_state_shape
+    for k in ("QUEST_FUSED_DRIVER", "QUEST_FUSED_PIPELINE",
+              "QUEST_FUSED_NBUF"):
+        monkeypatch.delenv(k, raising=False)
+    n = 18
+    c = random_circuit(n, 3, seed=5)
+    k1 = c.compiled_fused(n, device=card)
+    monkeypatch.setenv("QUEST_FUSED_DRIVER", "grid")
+    k3 = c.compiled_fused(n, device=card)
+    monkeypatch.delenv("QUEST_FUSED_DRIVER")
+    outs = []
+    for fn, driver in ((k1, "decoupled"), (k3, "grid")):
+        assert fn.driver == driver
+        amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=card)
+        S.segment_sweep.driver_launches = {}
+        fn(amps)
+        torch.cuda.synchronize()
+        assert S.segment_sweep.driver_launches == {
+            driver: fn.launches_per_call}
+        outs.append(amps)
+    assert torch.equal(outs[0], outs[1])
