@@ -10,7 +10,8 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
 
   1. prints the card's name and power limit (nvidia-smi) and builds the
      segment kernel (csrc/segment.cu) for sm_90a from the checkout: nine
-     instantiations, the three drivers at the three matmul tiers;
+     instantiations, the three drivers at the three matmul tiers, and its
+     phase-counter build beside it (two nvcc processes at once);
      probe: in a subprocess with a 120 s timeout (a slip of an mbarrier's
      phase hangs rather than errs), the first launches of every driver —
      K1, K2 at 2, 3 and 8 plane slots, K3 — on every stage case below
@@ -27,13 +28,20 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      of 17 qubits, each with its own selection-table rows): S9
      (BatchSelStage) on a lane bit, inner rows and a scattered bit, within
      1e-6 max|amp|, and a barrier S9 leading a chain of other kinds;
-     drivers: the flagship at HIGHEST, HIGH and DEFAULT, 30q d20, the
+     big_batch (ROADMAP C1): 65,539 states of 10 qubits through one
+     segment under every driver, against the plain version and bit for
+     bit against the batch split by hand (K3 launches in slices of
+     65,535 states); high_target (C2): a diagonal on qubits (32, 3) of a
+     33-qubit state (64 GiB), chosen basis amplitudes against the
+     table's entries and a chunked norm; drivers: the flagship at HIGHEST, HIGH and DEFAULT, 30q d20, the
      density step, the batched step and the first trajectory chunk, each
      compiled under K1 (run 3 times), K2 at 2 and 3 slots and K3: planes
      (and draws) bit-identical across drivers and runs, every launch on
      its driver, median ms per driver; dma_floor: at 28 qubits, per
      driver, profiling.sweep_dma_report (the stage-free launch, each
-     flagship sweep's total and compute adder) and single-stage launches
+     flagship sweep's total and compute adder), the stage-free launch on
+     a scattered-row geometry (7 scattered row bits) and single-stage
+     launches
      beside the bound and a torch copy_ of the planes (the yardstick,
      never called by the port); sanitize: compute-sanitizer memcheck and
      racecheck on a 17-qubit segment per driver, in subprocesses
@@ -99,7 +107,13 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      a lane bit, a row bit and a scattered bit: kernel, plain version
      and, where PyTorch computes the same function, that yardstick (the
      port never calls it): one call, or for HIGH the three bf16 calls of
-     the split parts together.
+     the split parts together. b0, b1-128 and scb-128 also print the
+     time of their body before its redesign (before_redesign_ms);
+ 16. phase_counters: the same b0, b1-128 and scb-128 launches at each
+     tier and a phase stage through the kernel's phase-counter build
+     (profiling.segment_phase_report: cycles per block in operator-slice
+     waits and releases, step prologues and the chain), and the fp32 FMA
+     rate the card sustains (profiling.fma_rate).
 
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
@@ -116,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -149,12 +164,13 @@ ENVELOPE_SLACK = 1.5          # x the plain version's own distance
 # one bf16 rounding step of an input, relative to it: HIGH's lo (an ulp
 # of lo is at most 2^-14 of the value), DEFAULT's bf16 (2^-7)
 FLIP_TOL = {"high": 2.0 ** -14, "default": 2.0 ** -7}
-PHASES = ("build", "probe", "stages", "drivers", "dma_floor", "sanitize",
+PHASES = ("build", "probe", "stages", "big_batch", "high_target",
+          "drivers", "dma_floor", "sanitize",
           "flagship", "baseline", "density",
           "density_bench", "clifford_t_density", "batched",
           "trajectory_physics", "trajectories", "precision_stages",
           "precision_flagship", "precision_baseline", "precision_density",
-          "stage_timing")
+          "stage_timing", "phase_counters")
 
 RECORD = []
 
@@ -287,7 +303,8 @@ def program_bound(fn):
 def kernel_resources(log: str):
     """Registers and spills of each driver-tier instantiation of the
     segment kernel (K3 segment_kernel<0|1|2>, K1 ring_kernel<t, true>, K2
-    ring_kernel<t, false>), keyed 'driver/tier', from nvcc -Xptxas -v."""
+    ring_kernel<t, false>), keyed 'driver/tier', from nvcc -Xptxas -v:
+    'registers', 'spill_bytes' (stores + loads) and ptxas's lines."""
     tiers = {"ILi0E": "highest", "ILi1E": "high", "ILi2E": "default"}
     out, entry = {}, None
     for ln in log.splitlines():
@@ -301,6 +318,10 @@ def kernel_resources(log: str):
             out[entry] = {}
         elif entry is not None and "spill" in ln:
             out[entry]["spill"] = ln.strip()
+            words = ln.replace(",", " ").split()
+            out[entry]["spill_bytes"] = sum(
+                int(words[i - 2]) for i, w in enumerate(words)
+                if w == "spill" and i >= 2 and words[i - 2].isdigit())
         elif entry is not None and "registers" in ln:
             out[entry]["ptxas"] = ln.strip()
             words = ln.split()
@@ -311,7 +332,8 @@ def kernel_resources(log: str):
 def phase_build():
     from quest_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    built = _build.build()
+    # the kernel and its phase-counter build (phase_counters), side by side
+    built = _build.build(_build.KERNEL, _build.COUNTERS)
     from quest_tpu_torch.ops import segment as S
     S._lib()
     kernels = kernel_resources(_build.BUILD_LOG)
@@ -547,6 +569,112 @@ def phase_stages(torch):
     emit({"phase": "stages", "tol": STAGE_TOL, "worst_rel_err": worst,
           "cases": results})
     return worst
+
+
+BIG_BATCH = 65536 + 3          # states: above K3's gridDim.y of 65535
+HIGH_TARGET_QUBITS = 33        # 64 GiB of planes: a target on qubit 32
+
+
+def phase_big_batch(torch):
+    """ROADMAP C1: one segment (an S9 channel row per state, a b0, a phase)
+    over 65,539 states of 10 qubits under every driver configuration:
+    against the plain version (STAGE_TOL) and bit for bit against the
+    batch split by hand at 65,535 states; K3 runs two launches, the rings
+    one."""
+    from quest_tpu_torch.ops import segment as S
+    n, batch = 10, BIG_BATCH
+    rng = np.random.default_rng(31)
+    stages = [batchsel_op(3, 0), mat_op(rng, "b0", 128),
+              phase_op(rng, 0b11, 0b01, 0b101, 0b100)]
+    planes = torch.from_numpy(rng.standard_normal(
+        (batch, 2, 1 << n)).astype(np.float32)).cuda()
+    sel = torch.from_numpy(sel_table(rng, 1, batch)).cuda()
+    out = {}
+    for cfg, (driver, nbuf) in DRIVER_CONFIGS.items():
+        seg = S.prepare_segment([st for st, _ in stages],
+                                [a for _, a in stages], n, "cuda",
+                                driver=driver, nbuf=nbuf)
+        want = S.segment_sweep_reference(planes, seg.stages, seg.operands, n,
+                                         sel)
+        got = planes.clone()
+        before = S.segment_sweep.launches
+        S.segment_sweep(got, seg, sel)
+        torch.cuda.synchronize()
+        launches = S.segment_sweep.launches - before
+        if launches != len(S.grid_batch_slices(batch, driver)):
+            raise AssertionError(f"big_batch {cfg}: {launches} launches")
+        err = (got - want.reshape(got.shape)).abs().max().item()
+        scale = want.abs().max().item()
+        if not err <= STAGE_TOL * scale:
+            raise AssertionError(f"big_batch {cfg}: max|diff| {err}")
+        cut = S.MAX_GRID_BATCH
+        halves = []
+        for lo, hi in ((0, cut), (cut, batch)):
+            part = planes[lo:hi].clone()
+            S.segment_sweep(part, seg, sel[:, lo:hi].contiguous())
+            halves.append(part)
+        torch.cuda.synchronize()
+        if not torch.equal(got, torch.cat(halves)):
+            raise AssertionError(f"big_batch {cfg}: differs from the batch "
+                                 f"split by hand")
+        out[cfg] = {"launches": launches, "max_abs_err": err,
+                    "rel_err": err / scale}
+        del want, got, halves
+    del planes
+    torch.cuda.empty_cache()
+    rec = {"phase": "big_batch", "n": n, "batch": batch, "configs": out}
+    emit(rec)
+    return rec
+
+
+def phase_high_target(torch):
+    """ROADMAP C2: a diagonal on qubits (32, 3) of a 33-qubit state (64
+    GiB of planes, the caching allocator emptied first) under K1: basis
+    amplitudes with qubit 32 and qubit 3 set and clear, each checked
+    against its value times the table entry its bits select; the rest
+    must stay 0 (a norm summed in chunks)."""
+    from quest_tpu_torch.ops import band_plan as BP
+    from quest_tpu_torch.ops import segment as S
+    n = HIGH_TARGET_QUBITS
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(33)
+    table = np.exp(1j * rng.uniform(0, 2 * np.pi, 4))
+    arr = np.stack([table.real, table.imag]).astype(np.float32)
+    seg = S.prepare_segment([BP.DiagVecStage((32, 3), (), ())], [arr], n,
+                            "cuda")
+    idx = [0, 8, (1 << 32) + 5, (1 << 32) + 8 + 130, (1 << 31) + 9,
+           (1 << 33) - 1]
+    vals = rng.standard_normal((len(idx), 2)).astype(np.float32)
+    amps = torch.zeros((2, 1 << n), device="cuda")
+    for k, i in enumerate(idx):
+        amps[0, i], amps[1, i] = float(vals[k, 0]), float(vals[k, 1])
+    before = S.segment_sweep.stage_launches.get("diagvec", 0)
+    t0 = time.perf_counter()
+    S.segment_sweep(amps, seg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if S.segment_sweep.stage_launches.get("diagvec", 0) != before + 1:
+        raise AssertionError("high_target: the diagonal did not launch")
+    norm = sum(amps[:, a:a + (1 << 26)].double().pow(2).sum().item()
+               for a in range(0, 1 << n, 1 << 26))
+    want_norm, worst = 0.0, 0.0
+    for k, i in enumerate(idx):
+        e = ((i >> 32) & 1) | (((i >> 3) & 1) << 1)
+        w = complex(float(vals[k, 0]), float(vals[k, 1])) * complex(
+            float(arr[0, e]), float(arr[1, e]))
+        got = complex(amps[0, i].item(), amps[1, i].item())
+        worst = max(worst, abs(got - w))
+        want_norm += abs(w) ** 2
+    del amps
+    torch.cuda.empty_cache()
+    if not (worst <= 1e-6 and abs(norm - want_norm) <= 1e-6):
+        raise AssertionError(f"high_target: max|diff| {worst}, norm {norm} "
+                             f"vs {want_norm}")
+    rec = {"phase": "high_target", "n": n, "targets": [32, 3],
+           "amplitudes": len(idx), "max_abs_err": worst, "norm": norm,
+           "want_norm": want_norm, "seconds": seconds}
+    emit(rec)
+    return rec
 
 
 def phase_flagship(torch):
@@ -1301,6 +1429,16 @@ def _diag_library(torch, arr, amps, q):
     return time_ms(torch, lambda: x * t.reshape(1, 2, 1), 5)
 
 
+# The matrix-stage bodies before their redesign (FMA loads of the operator
+# per warp from L2; mma.sync): K1 single-stage ms at 28 qubits on an NVIDIA
+# H100 80GB HBM3 at 700 W, from this script's stage_timing phase on the
+# tree of that time (PERF.md), printed beside the new times.
+BEFORE_REDESIGN_MS = {"b0": 11.56, "b1": 13.51, "scb128": 14.78,
+                      "b0@high": 4.45, "b1@high": 4.36, "scb128@high": 5.31,
+                      "b0@default": 3.48, "b1@default": 3.20,
+                      "scb128@default": 4.25}
+
+
 def phase_stage_timing(torch):
     """Single-stage segments at 28 qubits: b0, b1, scb-128 and sc (with
     one complex64 torch.matmul in the stage's frame as the yardstick),
@@ -1375,8 +1513,45 @@ def phase_stage_timing(torch):
     del planes
     torch.cuda.empty_cache()
     out += batchsel_timing(torch)
+    for rec in out:
+        if rec["label"] in BEFORE_REDESIGN_MS:
+            rec["before_redesign_ms"] = BEFORE_REDESIGN_MS[rec["label"]]
     emit({"phase": "stage_timing", "n": n, "stages": out})
     return out
+
+
+def phase_phase_counters(torch):
+    """Where single-stage 28-qubit launches under K1 spend their cycles
+    (profiling.segment_phase_report, the COUNTERS build: operator-slice
+    waits and releases, step prologues, the chain, per block) for b0,
+    b1-128 and scb-128 at each tier and a phase stage, beside the fp32
+    FMA rate the card sustains (profiling.fma_rate). Counted launches
+    are not the main path's."""
+    from quest_tpu_torch import profiling
+    from quest_tpu_torch.ops import segment as S
+    n = TIMING_QUBITS
+    rng = np.random.default_rng(7)
+    planes = torch.from_numpy(
+        rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
+    planes /= planes.double().pow(2).sum().sqrt().float()
+    cases = [("b0", mat_op(rng, "b0", 128)), ("b1", mat_op(rng, "b1", 128)),
+             ("scb128", mat_op(rng, "scb", 128, bit=7))]
+    out = []
+    for tier in ("highest",) + TIERS:
+        for name, (st, arr) in cases:
+            seg = S.prepare_segment([st], [arr], n, "cuda", tier=tier)
+            rec = profiling.segment_phase_report(planes, seg)
+            out.append(dict(rec, name=S.stage_label(st, tier)))
+    st, arr = phase_op(rng, 0b1, 0b1, 1 << 20, 1 << 20)
+    rec = profiling.segment_phase_report(
+        planes, S.prepare_segment([st], [arr], n, "cuda"))
+    out.append(dict(rec, name="phase"))
+    del planes
+    torch.cuda.empty_cache()
+    rec = {"phase": "phase_counters", "n": n, "driver": "decoupled",
+           "launches": out, "fma_rate": profiling.fma_rate()}
+    emit(rec)
+    return rec
 
 
 def _real_block(torch, gt, q0):
@@ -1773,11 +1948,25 @@ def phase_drivers(torch):
     return records, inst
 
 
+def scattered_copy(torch, S, op, n, driver, nbuf):
+    """The stage-free segment on the tiles of matrix stage `op` ((stage,
+    operand)): its geometry, scattered row bits and all, with no stage."""
+    seg = S.prepare_segment([op[0]], [op[1]], n, "cuda", driver=driver,
+                            nbuf=nbuf)
+    if len(seg.geometry.scat) != 7:
+        raise AssertionError(f"scattered copy: geometry {seg.geometry}")
+    return dataclasses.replace(seg, stages=(), arrays=(), operands=(),
+                               desc=seg.desc[:0], labels=frozenset(),
+                               slots=(), ops=torch.zeros(4, device="cuda"))
+
+
 def phase_dma_floor(torch):
     """The copy floor and the pass under every driver at 28 qubits:
     profiling.sweep_dma_report (the stage-free launch and each flagship
-    sweep's total and compute adder) and single-stage launches of byte-
-    bound kinds (phase, parity, a Kraus pair) and b0, per configuration,
+    sweep's total and compute adder), the stage-free launch on a
+    scattered-row geometry (scb-128's tiles: 7 scattered row bits) and
+    single-stage launches of byte-bound kinds (phase, parity, a Kraus
+    pair) and b0, per configuration,
     beside the bound (the state read and written once) and the
     yardstick: a torch copy_ of the planes into a second buffer (never
     called by the port)."""
@@ -1795,6 +1984,7 @@ def phase_dma_floor(torch):
              ("parity", parity_op(rng, 0b11, 1 << 20)),
              ("pair_sc_scat", pair_op(rng, "sc", 6, 20)),
              ("b0", mat_op(rng, "b0", 128))]
+    scb = mat_op(rng, "scb", 128, bit=7)
     drivers = {}
     for cfg, (driver, nbuf) in DRIVER_CONFIGS.items():
         rep = profiling.sweep_dma_report(n=n, reps=5, driver=driver,
@@ -1805,6 +1995,19 @@ def phase_dma_floor(torch):
                                     nbuf=nbuf)
             single[name] = time_ms(torch, lambda: S.segment_sweep(planes, seg),
                                    5)
+        # the copy floor of a scattered-row geometry (7 scattered row
+        # bits, one 512-byte bulk copy per row): an scb-128 segment's
+        # tiles with its stage taken out
+        seg = scattered_copy(torch, S, scb, n, driver, nbuf)
+        before = planes.clone()
+        S.segment_sweep(planes, seg)
+        torch.cuda.synchronize()
+        if not torch.equal(planes, before):
+            raise AssertionError(f"dma_floor {cfg}: the scattered-row copy "
+                                 f"changed the state")
+        del before
+        single["stage_free_scattered"] = time_ms(
+            torch, lambda: S.segment_sweep(planes, seg), 5)
         drivers[cfg] = {"stage_free_ms": rep["dma_ms"], "slots": rep["slots"],
                         "single_stage_ms": single,
                         "sweeps": [{k: s[k] for k in ("stages", "total_ms",
@@ -1945,6 +2148,10 @@ def main(argv=None) -> int:
         phase_probe(torch)
     if want("stages"):
         phase_stages(torch)
+    if want("big_batch"):
+        phase_big_batch(torch)
+    if want("high_target"):
+        phase_high_target(torch)
     kernels = []
     if want("drivers"):
         drv_records, drv_launches = phase_drivers(torch)
@@ -2028,6 +2235,8 @@ def main(argv=None) -> int:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    if want("phase_counters"):
+        phase_phase_counters(torch)
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

@@ -27,8 +27,10 @@
 // Batch: one launch covers every tile of every state of a batch of B
 // states laid end to end ((B, 2, 2^n) f32), whose planes start state * 2 *
 // 2^n floats in (64-bit offsets). Under K3 blockIdx.y is the state and
-// blockIdx.x the tile; under K1/K2 a step s is tile s mod tiles of state
-// s / tiles. S9 reads its state's row of a per-call selection
+// blockIdx.x the tile, and a batch above gridDim.y's 65535 launches in
+// slices, each from its first state (SweepArgs::state0); under K1/K2 a
+// step s is tile s mod tiles of state s / tiles, any B. S9 reads its
+// state's row of a per-call selection
 // table (slots, B, 8) that the caller writes on the device between
 // launches. The TPU stage builds a 128-wide (or 2^(j+1)-wide) embedded
 // operator from iota masks because the MXU wants a dot; here it is the
@@ -43,14 +45,17 @@
 // (lane and b1 forms, and _sublane_contract :1090) to their 2x2 cores,
 // so a pair costs 4 complex MACs per amplitude, not a 128-wide
 // contraction (2048 flop/amp). S8 reads its table through L1; targets
-// may be lane, inner, scattered or free (block-index) bits, since the
-// global index of every element is rebuilt from its tile row's id.
+// may be lane, inner, scattered or free (block-index) bits: bit q of an
+// element's global index is lane bit q (q < 7) or bit q - 7 of its tile
+// row's id, as the reference's _bit_of (:1317) takes it.
 //
 // Data-driven: the stage list is a device table of descriptors (one row
 // of DESC_WORDS int64 per stage, packed by quest_tpu_torch/ops/segment.py)
-// and one float buffer holding every operand in the reference's packing
-// and orientation (G^T for b0, b1 and 128-wide scb; G for narrow scb and
-// sc). One binary serves every segment whatever its angles, as the
+// and one float buffer holding every operand. Narrow matrix stages (d <
+// 16, sc) keep the reference's packing and orientation (G^T for b0, b1
+// and 128-wide scb; G for narrow scb and sc), read through strides; a
+// matrix stage of d >= 16 is packed as the slices its body streams (see
+// below). One binary serves every segment whatever its angles, as the
 // reference's compile_segment_cached serves every segment of one
 // structure.
 //
@@ -64,72 +69,104 @@
 //      time;
 //   3. runs the stage chain on the tile. A matrix stage is a batched
 //      complex product over the `fibers` of the tile (all index bits but
-//      the w contracted ones): each thread keeps RF fibers x RI outputs
-//      in registers, reads the operand from global memory through L1/L2
-//      and the tile from shared memory, and writes back after a barrier
-//      (fibers are disjoint, so chunks of them update in place).
-//      Predicates follow _mask_of: an element whose lane/row bits do not
-//      match keeps its value. Plain fp32 FMA, 4 per complex MAC (2 when
-//      the operator is real);
+//      the w contracted ones), outputs kept in registers until a barrier
+//      and written back in place (fibers are disjoint, so chunks of them
+//      update in place). Predicates follow _mask_of: an element whose
+//      lane/row bits do not match keeps its value;
 //   4. writes the tile back where it read it (K1/K2: bulk stores). Tiles
 //      partition the index space, so the launch is in place.
+//
+// Matrix stages of d >= 16 (S1-S3 at every tier, S11) read their operator
+// from shared memory: a ring of OP_SLOTS = 2 slices of OP_SLICE_BYTES =
+// 16 KiB (OpRing), each filled by one cp.async.bulk completing on its own
+// mbarrier; thread 0 keeps the next two slices of the block's sequence in
+// flight, across stages and into the next tile, and one copy serves all 8
+// warps. The ring fits beside K1's three 64 KiB plane slots (230,696 of
+// 232,448 bytes at 14-bit tiles). A stage streams its operator once per
+// chunk of 128 fibers, and at d = 128 on a 14-bit tile one chunk is the
+// whole tile.
+//   HIGHEST (fma_stage): IEEE fp32 FMAs, 4 per complex MAC (2 for a real
+//     operator). A slice holds KB inputs, row j = [Gre[:, j], Gim[:, j]].
+//     Each thread keeps 64 complex outputs in registers (d = 128) and
+//     reads the operator as 16-byte loads: for b0 (contracted bits at
+//     position 0) the lanes take 4 consecutive outputs each and a warp
+//     16 fibers (x read as float4 over 4 inputs, broadcast in the warp;
+//     outputs stored as float4); for row-bit contractions (position >= 7)
+//     the lanes take consecutive fibers (conflict-free loads and stores)
+//     and a warp 16 outputs (operator rows broadcast). 16-25 FMAs per
+//     shared load.
+//   HIGH and DEFAULT (mma_stage, S11): tensor cores, wgmma.mma_async
+//     m64nDk16 bf16 -> f32, A (the fibers x inputs of the f32 tile, split
+//     or rounded as it loads, as _mxu_dot_general's tiers do) from
+//     registers, B (the operator's bf16 parts, packed on the host in the
+//     layout wgmma reads) from the slice. Each warpgroup takes 64 fibers,
+//     so the two cover a d = 128 tile in one pass; re and im accumulate
+//     as m64nD f32 fragments (d registers per thread). Inputs and
+//     outputs run in a permuted order inside each group of 16 (perm16,
+//     the same on the host) so that at position 0 a thread reads its four
+//     inputs as one float4 and stores four outputs as one float4; at
+//     position >= 7 half the lanes take their second fragment row first,
+//     so a load or store touches 16 fibers (banks), not 8.
+//     HIGH: each f32 input x splits into hi = x & 0xFFFF0000 (exactly a
+//     bf16) and lo = bf16_rn(x - hi); the stage sums hi*hi + hi*lo +
+//     lo*hi with fp32 accumulation. DEFAULT: bf16_rn(x) of each input,
+//     one product. Every bf16 rounding is round-to-nearest-even, as
+//     tensor.to(torch.bfloat16) in the plain version. A product of two
+//     bf16 values is exact in fp32, so kernel and plain version differ
+//     only in the order of the fp32 sums. Complex form: the real block
+//     [Xre Xim] . [[Gre^T, Gim^T], [-Gim^T, Gre^T]], the minus as wgmma's
+//     negated A: four real products per complex product (two when the
+//     operator is real), with no Gauss-trick sums rounded to bf16.
+//   d < 16 (b1/scb at d = 2, 4, 8) and sc: CUDA-core FMAs on the operand
+//     read through L1 (mat_narrow), at the tier's rounded parts for b1/scb.
 //
 // Bound on an H100 SXM: one pass moves 2 x 2^n x 4 B in and out (28q:
 // 4 GiB, 1.28 ms at 3.35 TB/s; a stage-free segment is that copy and
 // nothing else), and a 128-wide complex matrix stage costs
 // 2^n x 128 x 8 flops (28q: 2.7e11, 4 ms at 67 TFLOP/s of non-tensor
-// fp32). Segments with 128-wide matrix stages are therefore bound by
-// operations, not bytes; a pair (32 flop per amplitude) or a diagonal (6)
-// leaves its pass bound by bytes.
-//
-// S11, the matmul tiers. Replaces the HIGH and DEFAULT tiers of
-// _mxu_dot_general (quest_tpu/ops/pallas_band.py:1039) inside the b0, b1
-// and scb bodies of _apply_mat_stage. The kernel is instantiated once per
-// tier (segment_kernel<TIER>), so the HIGHEST body keeps its registers.
-//   HIGH: each f32 input x splits into hi = x & 0xFFFF0000 (exactly a
-//     bf16) and lo = bf16_rn(x - hi); the stage sums hi*hi + hi*lo +
-//     lo*hi with fp32 accumulation. DEFAULT: bf16_rn(x) of each input,
-//     one product. Every bf16 rounding is round-to-nearest-even
-//     (__float2bfloat16_rn), as tensor.to(torch.bfloat16) in the plain
-//     version. A product of two bf16 values is exact in fp32, so kernel
-//     and plain version differ only in the order of the fp32 sums.
-//   Complex form: the real block [Xre Xim] . [[Gre^T, Gim^T], [-Gim^T,
-//     Gre^T]]: four real products per complex product (two when the
-//     operator is real), with no Gauss-trick sums rounded to bf16.
-//   d >= 16: tensor cores, mma.sync.m16n8k16 bf16 -> f32. Fibers are the
-//     M dimension, the contracted index K, the outputs N. The state tile
-//     stays f32 in shared memory; each warp loads its A fragments through
-//     the stage's position stride (the FMA body's addressing) and splits
-//     or rounds them as it loads. The operator's B fragments come
-//     pre-split from the operand buffer, in fragment order (16 or 32
-//     bytes per lane per block, through L1/L2: a 128x128 operator's HIGH
-//     planes are 128 KiB and do not fit beside the 128 KiB tile). Outputs
-//     stay in registers until a barrier and are written in place, masked
-//     by the predicates, as in the FMA body.
-//   d < 16 (b1/scb at d = 2, 4, 8): CUDA-core FMAs on the tier-rounded
-//     parts (exact products, fp32 sums) — the same function, no padding
-//     of K to 16.
-// Why tensor cores: at HIGH a 128-wide stage at 28 qubits is 3 x 2.75e11
-// flop, 0.83 ms at 989 TFLOP/s of dense bf16, and at DEFAULT 0.28 ms, both
-// under the pass's 1.28 ms of bytes: the tiers leave every matrix stage
-// bound by bytes, where the fp32 FMA body is bound by operations (4.1 ms).
-// The first form is mma.sync with A fragments read from the f32 tile
-// (4-way bank conflicts); wgmma, TMA and a staged bf16 A are later work.
+// fp32). At HIGH a 128-wide stage is 3 x 2.75e11 tensor flop (0.83 ms at
+// 989 TFLOP/s) and at DEFAULT 0.28 ms, both under the pass's bytes: the
+// tiers leave every matrix stage bound by bytes, HIGHEST by operations; a
+// pair (32 flop per amplitude) or a diagonal (6) leaves its pass bound by
+// bytes.
 //
 // The drivers and the pass bound. Under K3 a block (one per SM: 128 KiB of
-// tile and 160-234 registers x 256 threads) loads, chains and stores in
-// series, with ~16 KiB of loads in flight per SM: a byte-bound pass took
-// ~3.2 ms against its 1.28 ms. K1 keeps a whole plane of loads in flight
-// under the chain and lets the next tile's loads start as soon as the
-// stores have read their slots, so a byte-bound pass can approach its
-// bound; K2 is the reference's A/B control, its refills waiting for the
-// writes to land. A producer warp, TMA tensor maps and wgmma are later
-// work, as are bank-conflict-free write-back for row-bit contractions and
-// operands kept in shared memory.
+// tile) loads, chains and stores in series, with ~16 KiB of loads in
+// flight per SM: a byte-bound pass took ~3.2 ms against its 1.28 ms. K1
+// keeps a whole plane of loads in flight under the chain and lets the
+// next tile's loads start as soon as the stores have read their slots, so
+// a byte-bound pass can approach its bound; K2 is the reference's A/B
+// control, its refills waiting for the writes to land. A producer warp
+// and TMA tensor maps for scattered-row tiles are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Phase counters, in the build with -DQUEST_PHASE_COUNTERS only
+// (quest_tpu_torch.profiling.segment_phase_report): thread 32 of every
+// block (a compute warp, not the copy warp) adds the clock cycles of each
+// phase to a device counter. Without the define the macros are empty.
+enum { PC_SLICE_WAIT = 0, PC_SLICE_RELEASE = 1, PC_PROLOGUE = 2,
+       PC_CHAIN = 3, PC_BLOCK = 4, PC_BLOCKS = 5, PC_COUNT = 6 };
+#ifdef QUEST_PHASE_COUNTERS
+__device__ unsigned long long quest_phase_cycles[PC_COUNT];
+#define PHASE_START(v) const long long v = clock64()
+#define PHASE_ADD(i, v)                                                  \
+  do {                                                                   \
+    if (threadIdx.x == 32)                                               \
+      atomicAdd(&quest_phase_cycles[i],                                  \
+                static_cast<unsigned long long>(clock64() - (v)));       \
+  } while (0)
+#define PHASE_COUNT(i)                                                   \
+  do {                                                                   \
+    if (threadIdx.x == 32) atomicAdd(&quest_phase_cycles[i], 1ull);      \
+  } while (0)
+#else
+#define PHASE_START(v)
+#define PHASE_ADD(i, v)
+#define PHASE_COUNT(i)
+#endif
 
 namespace {
 
@@ -142,6 +179,9 @@ constexpr int MAX_TILE_BITS = 14;
 constexpr int MAX_MULTIPHASE_ROWS = 64;
 constexpr int MAX_ROWS = 1 << (MAX_TILE_BITS - LANE_BITS);
 constexpr int MAX_SLOTS = 8;       // plane slots of a ring (QUEST_FUSED_NBUF)
+constexpr int OP_SLOTS = 2;        // operator slices of the OpRing
+constexpr int OP_SLICE_BYTES = 16384;
+constexpr int OP_SLICE_FLOATS = OP_SLICE_BYTES / 4;
 
 // descriptor fields (quest_tpu_torch/ops/segment.py DESC_FIELDS)
 enum {
@@ -152,15 +192,16 @@ enum {
 };
 // matmul tiers (quest_tpu_torch/ops/segment.py TIER_CODE)
 enum { T_HIGHEST = 0, T_HIGH = 1, T_DEFAULT = 2 };
-constexpr int MMA_MIN_DIM = 16;
+constexpr int SLICED_MIN_DIM = 16;   // d from which the operator is sliced
 enum { K_MAT = 0, K_PHASE = 1, K_PARITY = 2, K_MULTIPHASE = 3, K_PAIR = 4,
        K_DIAGVEC = 5, K_BATCHSEL = 6 };
 constexpr int SEL_WORDS = 8;       // one selection-table row
-constexpr int MAX_GRID_BATCH = 65535;
+constexpr int MAX_GRID_BATCH = 65535;   // K3's gridDim.y: states per launch
 constexpr int MAX_DIAG_TARGETS = 7;
 constexpr int TARGET_BITS = 6;     // bits per qubit index in F_TARGETS
 
 // shared memory after the tile's plane slots: row ids, multiphase rows
+// (then the operator ring and the mbarriers)
 constexpr int EXTRA_WORDS = MAX_ROWS + 3 * MAX_MULTIPHASE_ROWS;
 
 struct Tile {
@@ -176,6 +217,272 @@ __device__ __forceinline__ int row_mask(float lo, float hi) {
 }
 
 __host__ __device__ constexpr int log2i(int d) { return d <= 1 ? 0 : 1 + log2i(d >> 1); }
+
+// ---- bulk async copies and mbarriers (sm_90) -----------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of bulk copies on the phase
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// global -> shared, completing `bytes` on the mbarrier's phase
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared -> global, in the issuing thread's open bulk group
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups are pending: READ,
+// until their sources have been read (the slot may be refilled); else
+// until their writes have landed in device memory
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// order this thread's generic-proxy shared accesses before later
+// async-proxy ones (a bulk store reading, a bulk load writing)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---- the operator ring ---------------------------------------------------
+//
+// OP_SLOTS slices of OP_SLICE_BYTES in shared memory, one mbarrier each.
+// A matrix stage of d >= SLICED_MIN_DIM consumes `total` slices, slice q
+// being slice q % per of its packed operator (one pass over the operator
+// per chunk of SLICE_CHUNK fibers); the block consumes the stages' streams
+// in chain order, tile after tile. Slice u of that sequence sits in slot
+// u % OP_SLOTS and completes phase u / OP_SLOTS of the slot's barrier.
+// Thread 0 is the producer: it keeps the next OP_SLOTS slices of the
+// sequence in flight, across stages and into the block's next tile, and
+// refills a slot once every thread has released it (a block barrier), so
+// a stage's first slices land under the previous stage's work. It stops
+// after the block's last tile: no copy is in flight at exit.
+
+// One slice of a d-wide stage's operator in a kernel at `tier`: KB =
+// fma_rows input rows [Gre[:, j], Gim[:, j]] at HIGHEST (fma_stage), or
+// mma_ksteps k-steps of mma_parts wgmma B tiles (16 inputs x d outputs,
+// bf16) at HIGH and DEFAULT (mma_stage).
+__host__ __device__ constexpr int fma_rows(int d) {
+  return d < OP_SLICE_FLOATS / (2 * d) ? d : OP_SLICE_FLOATS / (2 * d);
+}
+__host__ __device__ constexpr int mma_parts(int tier) {
+  return tier == T_HIGH ? 4 : 2;
+}
+__host__ __device__ constexpr int mma_ksteps(int d, int tier) {
+  return d / 16 < OP_SLICE_BYTES / (mma_parts(tier) * 32 * d)
+             ? d / 16 : OP_SLICE_BYTES / (mma_parts(tier) * 32 * d);
+}
+__host__ __device__ constexpr int slice_bytes(int d, int tier) {
+  return tier == T_HIGHEST ? fma_rows(d) * 2 * d * 4
+                           : mma_ksteps(d, tier) * mma_parts(tier) * 32 * d;
+}
+__host__ __device__ constexpr int slices_per_pass(int d, int tier) {
+  return tier == T_HIGHEST ? d / fma_rows(d) : d / 16 / mma_ksteps(d, tier);
+}
+constexpr int SLICE_CHUNK = 128;   // fibers per pass over the operator
+
+struct OpRing {
+  float* buf;                // OP_SLOTS x OP_SLICE_FLOATS
+  uint64_t* bar;             // OP_SLOTS mbarriers
+  unsigned used;             // slices released by the block (every thread)
+  // the producer's cursor (thread 0): the next slice to issue
+  const long long* desc;
+  const float* ops;
+  int nstages, tile_bits, tier;
+  unsigned issued;           // slices issued
+  int stage, q;              // its stage (-1: none left), its index there
+  int tiles;                 // tiles left to issue for, this one included
+
+  __device__ bool sliced(int s) const {
+    const long long* ds = desc + s * DESC_WORDS;
+    return ds[F_KIND] == K_MAT && ds[F_DIM] >= SLICED_MIN_DIM;
+  }
+
+  // the first sliced stage from s on, wrapping to the next tile at the
+  // end of the chain; -1 after the last tile
+  __device__ int next_sliced(int s) {
+    for (;; s = 0) {
+      for (; s < nstages; ++s)
+        if (sliced(s)) return s;
+      if (--tiles <= 0) return -1;
+    }
+  }
+
+  // thread 0: issue until OP_SLOTS slices are in flight or none is left
+  __device__ void pump() {
+    while (stage >= 0 && issued < used + OP_SLOTS) {
+      const long long* ds = desc + stage * DESC_WORDS;
+      const int d = static_cast<int>(ds[F_DIM]);
+      const unsigned bytes = slice_bytes(d, tier);
+      const int per = slices_per_pass(d, tier);
+      const int chunks = ((1 << (tile_bits - log2i(d))) + SLICE_CHUNK - 1)
+                         / SLICE_CHUNK;
+      const unsigned u = issued++;
+      uint64_t* b = &bar[u % OP_SLOTS];
+      mbar_arrive_expect(b, bytes);
+      bulk_load(buf + (u % OP_SLOTS) * OP_SLICE_FLOATS,
+                ops + ds[F_OP_OFF]
+                    + static_cast<long long>(q % per) * (bytes / 4),
+                bytes, b);
+      if (++q == chunks * per) {
+        q = 0;
+        stage = next_sliced(stage + 1);
+      }
+    }
+  }
+};
+
+// The block's ring in shared memory after `extra` (the row ids and
+// multiphase rows), its OP_SLOTS mbarriers at `bars` (initialised and
+// fenced before a block barrier that precedes this call), for a block
+// that runs the chain of `desc` on `tiles` tiles: the first slices start
+// loading.
+__device__ __forceinline__ OpRing op_ring(float* extra, uint64_t* bars,
+                                          const long long* desc,
+                                          const float* ops, int nstages,
+                                          int tile_bits, int tier,
+                                          int tiles) {
+  OpRing r{extra + EXTRA_WORDS, bars, 0u, desc, ops, nstages, tile_bits,
+           tier, 0u, -1, 0, tiles};
+  if (threadIdx.x == 0) {
+    r.stage = tiles > 0 ? r.next_sliced(0) : -1;
+    r.pump();
+  }
+  return r;
+}
+
+// A stage's view of its slices: slice q of the stage's stream once it has
+// landed; released once every thread is done with it.
+struct OpStream {
+  OpRing& ring;
+  unsigned u0;
+
+  __device__ explicit OpStream(OpRing& r) : ring(r), u0(r.used) {}
+
+  __device__ const float* wait(int q) const {
+    PHASE_START(t0);
+    const unsigned u = u0 + q;
+    mbar_wait(&ring.bar[u % OP_SLOTS], (u / OP_SLOTS) & 1);
+    PHASE_ADD(PC_SLICE_WAIT, t0);
+    return ring.buf + (u % OP_SLOTS) * OP_SLICE_FLOATS;
+  }
+
+  __device__ void release(int q) {
+    PHASE_START(t0);
+    __syncthreads();
+    ring.used = u0 + q + 1;
+    if (threadIdx.x == 0) ring.pump();
+    PHASE_ADD(PC_SLICE_RELEASE, t0);
+  }
+};
+
+// ---- predicates, stores --------------------------------------------------
+
+struct Preds {
+  bool masked;
+  int lm, lw, rm, rw;
+  __device__ explicit Preds(const long long* ds)
+      : masked(ds[F_MASKED] != 0),
+        lm(static_cast<int>(ds[F_LANE_MASK])),
+        lw(static_cast<int>(ds[F_LANE_WANT])),
+        rm(static_cast<int>(ds[F_ROW_MASK])),
+        rw(static_cast<int>(ds[F_ROW_WANT])) {}
+  __device__ bool keeps(const Tile& t, int e) const {
+    return masked && (((e & (LANES - 1)) & lm) != lw
+                      || (t.row_id[e >> LANE_BITS] & rm) != rw);
+  }
+};
+
+__device__ __forceinline__ void store1(const Tile& t, const Preds& pr, int e,
+                                       float re, float im) {
+  if (pr.keeps(t, e)) return;
+  t.re[e] = re;
+  t.im[e] = im;
+}
+
+// four consecutive elements e..e+3 (one tile row, e % 4 == 0) as float4
+__device__ __forceinline__ void store4(const Tile& t, const Preds& pr, int e,
+                                       float4 re, float4 im) {
+  if (pr.masked) {
+    if ((t.row_id[e >> LANE_BITS] & pr.rm) != pr.rw) return;
+    const int ln = e & (LANES - 1);
+    const float4 ore = *reinterpret_cast<const float4*>(t.re + e);
+    const float4 oim = *reinterpret_cast<const float4*>(t.im + e);
+    if (((ln + 0) & pr.lm) != pr.lw) { re.x = ore.x; im.x = oim.x; }
+    if (((ln + 1) & pr.lm) != pr.lw) { re.y = ore.y; im.y = oim.y; }
+    if (((ln + 2) & pr.lm) != pr.lw) { re.z = ore.z; im.z = oim.z; }
+    if (((ln + 3) & pr.lm) != pr.lw) { re.w = ore.w; im.w = oim.w; }
+  }
+  *reinterpret_cast<float4*>(t.re + e) = re;
+  *reinterpret_cast<float4*>(t.im + e) = im;
+}
+
+// R consecutive floats (R a multiple of 4, or 2) from 16- (8-) byte
+// aligned shared memory
+template <int R>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < R / 4; ++k) {
+      const float4 w = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = w.x; v[4 * k + 1] = w.y; v[4 * k + 2] = w.z; v[4 * k + 3] = w.w;
+    }
+  } else {
+    static_assert(R == 2, "rows of 2 or 4k floats");
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    v[0] = w.x; v[1] = w.y;
+  }
+}
+
+// Element of fiber f, contracted index 0, for w contracted bits at tile
+// position p: the fiber's bits around the contracted ones.
+__device__ __forceinline__ int fiber_base(int f, int p, int w) {
+  return ((f >> p) << (p + w)) | (f & ((1 << p) - 1));
+}
+
+// ---- matrix stages -------------------------------------------------------
 
 // The tier's parts of one f32 value: (hi, lo) at HIGH, (bf16_rn(x), 0) at
 // DEFAULT, (x, 0) at HIGHEST.
@@ -203,26 +510,23 @@ __device__ __forceinline__ float tier_fma(float ah, float al, float xh,
   return acc;
 }
 
+// d < 16 (and sc): CUDA-core FMAs, the operand read through L1 with the
+// strides F_SI/F_SJ (G[i, j] = op[i*si + j*sj]); each thread keeps RF
+// fibers x RI outputs.
 template <int D, bool REAL, int TIER>
-__device__ void mat_stage(const Tile& t, const long long* ds,
-                          const float* __restrict__ ops) {
+__device__ void mat_narrow(const Tile& t, const long long* ds,
+                           const float* __restrict__ ops) {
   constexpr int W = log2i(D);
-  constexpr int TI = D < 32 ? D : 32;     // threads along the output index
-  constexpr int RI = D / TI;              // outputs per thread
+  constexpr int TI = D;                   // threads along the output index
   constexpr int TF = NTHREADS / TI;       // threads along fibers
-  constexpr int RF = D >= 64 ? 8 : 4;     // fibers per thread per chunk
+  constexpr int RF = 4;                   // fibers per thread per chunk
   const int p = static_cast<int>(ds[F_POS]);
   const int si = static_cast<int>(ds[F_SI]);
   const int sj = static_cast<int>(ds[F_SJ]);
   const float* gre = ops + ds[F_OP_OFF];
   const float* gim = gre + D * D;
-  const bool masked = ds[F_MASKED] != 0;
-  const int lm = static_cast<int>(ds[F_LANE_MASK]);
-  const int lw = static_cast<int>(ds[F_LANE_WANT]);
-  const int rm = static_cast<int>(ds[F_ROW_MASK]);
-  const int rw = static_cast<int>(ds[F_ROW_WANT]);
+  const Preds pr(ds);
   const int nfib = 1 << (t.bits - W);
-  const int lo_mask = (1 << p) - 1;
   const int ti = threadIdx.x % TI;
   const int tf = threadIdx.x / TI;
 
@@ -233,90 +537,171 @@ __device__ void mat_stage(const Tile& t, const long long* ds,
     for (int r = 0; r < RF; ++r) {
       const int f = f0 + tf + TF * r;
       ok[r] = f < nfib;
-      const int fc = ok[r] ? f : 0;
-      base[r] = ((fc >> p) << (p + W)) | (fc & lo_mask);
+      base[r] = fiber_base(ok[r] ? f : 0, p, W);
     }
-    float ar[RF][RI], ai[RF][RI];
+    float ar[RF], ai[RF];
 #pragma unroll
-    for (int r = 0; r < RF; ++r)
-#pragma unroll
-      for (int q = 0; q < RI; ++q) { ar[r][q] = 0.f; ai[r][q] = 0.f; }
+    for (int r = 0; r < RF; ++r) { ar[r] = 0.f; ai[r] = 0.f; }
 
-#pragma unroll 4
+#pragma unroll
     for (int j = 0; j < D; ++j) {
-      float gr[RI], gi[RI];
-#pragma unroll
-      for (int q = 0; q < RI; ++q) {
-        const int o = (ti + TI * q) * si + j * sj;
-        gr[q] = __ldg(gre + o);
-        gi[q] = REAL ? 0.f : __ldg(gim + o);
-      }
+      const int o = ti * si + j * sj;
+      const float gr = __ldg(gre + o);
+      const float gi = REAL ? 0.f : __ldg(gim + o);
       const int jo = j << p;
-      if constexpr (TIER == T_HIGHEST) {
+      // out_re += Gre x_re - Gim x_im, out_im += Gre x_im + Gim x_re,
+      // each product over the tier's parts (the real-block form)
+      float grh, grl, gih, gil;
+      tier_parts<TIER>(gr, grh, grl);
+      tier_parts<TIER>(gi, gih, gil);
 #pragma unroll
-        for (int r = 0; r < RF; ++r) {
-          const float xr = t.re[base[r] + jo];
-          const float xi = t.im[base[r] + jo];
-#pragma unroll
-          for (int q = 0; q < RI; ++q) {
-            ar[r][q] = fmaf(gr[q], xr, ar[r][q]);
-            ai[r][q] = fmaf(gr[q], xi, ai[r][q]);
-            if (!REAL) {
-              ar[r][q] = fmaf(-gi[q], xi, ar[r][q]);
-              ai[r][q] = fmaf(gi[q], xr, ai[r][q]);
-            }
-          }
-        }
-      } else {
-        // out_re += Gre x_re - Gim x_im, out_im += Gre x_im + Gim x_re,
-        // each product over the tier's parts (the real-block form)
-        float grh[RI], grl[RI], gih[RI], gil[RI];
-#pragma unroll
-        for (int q = 0; q < RI; ++q) {
-          tier_parts<TIER>(gr[q], grh[q], grl[q]);
-          tier_parts<TIER>(gi[q], gih[q], gil[q]);
-        }
-#pragma unroll
-        for (int r = 0; r < RF; ++r) {
-          float xrh, xrl, xih, xil;
-          tier_parts<TIER>(t.re[base[r] + jo], xrh, xrl);
-          tier_parts<TIER>(t.im[base[r] + jo], xih, xil);
-#pragma unroll
-          for (int q = 0; q < RI; ++q) {
-            ar[r][q] = tier_fma<TIER>(grh[q], grl[q], xrh, xrl, ar[r][q]);
-            ai[r][q] = tier_fma<TIER>(grh[q], grl[q], xih, xil, ai[r][q]);
-            if (!REAL) {
-              ar[r][q] = tier_fma<TIER>(-gih[q], -gil[q], xih, xil, ar[r][q]);
-              ai[r][q] = tier_fma<TIER>(gih[q], gil[q], xrh, xrl, ai[r][q]);
-            }
-          }
+      for (int r = 0; r < RF; ++r) {
+        float xrh, xrl, xih, xil;
+        tier_parts<TIER>(t.re[base[r] + jo], xrh, xrl);
+        tier_parts<TIER>(t.im[base[r] + jo], xih, xil);
+        ar[r] = tier_fma<TIER>(grh, grl, xrh, xrl, ar[r]);
+        ai[r] = tier_fma<TIER>(grh, grl, xih, xil, ai[r]);
+        if (!REAL) {
+          ar[r] = tier_fma<TIER>(-gih, -gil, xih, xil, ar[r]);
+          ai[r] = tier_fma<TIER>(gih, gil, xrh, xrl, ai[r]);
         }
       }
     }
     __syncthreads();   // every read of this chunk's fibers is done
 #pragma unroll
-    for (int r = 0; r < RF; ++r) {
-      if (!ok[r]) continue;
+    for (int r = 0; r < RF; ++r)
+      if (ok[r]) store1(t, pr, base[r] + (ti << p), ar[r], ai[r]);
+    __syncthreads();
+  }
+}
+
+// ---- HIGHEST, d >= 16: fp32 FMAs on the operator slices -------------------
+//
+// Slice rows j = [Gre[:, j] (D floats), Gim[:, j] (D floats)], KB inputs
+// per slice; chunks of 128 fibers. LANES_OUT (contracted bits at position
+// 0, d = 128): lane l owns outputs 4l..4l+3 and warp w the 16 fibers
+// 16w..16w+15 (tile rows, 128 floats apart: one pointer and immediate
+// offsets); x is read as float4 over 4 inputs (a warp-wide broadcast), the
+// operator as float4, the outputs stored as float4. Else (position >= 7)
+// lane l owns fibers l + 32r (consecutive addresses) and warp w outputs
+// w*D/8 .. (w+1)*D/8 - 1 (operator rows broadcast in the warp).
+template <int D, bool REAL, bool LANES_OUT>
+__device__ void fma_stage(const Tile& t, const long long* ds,
+                          const float* __restrict__ ops, OpRing& ring) {
+  constexpr int W = log2i(D);
+  constexpr int KB = fma_rows(D);                         // inputs / slice
+  constexpr int PER = slices_per_pass(D, T_HIGHEST);      // slices / pass
+  constexpr int RI = LANES_OUT ? 4 : D / NWARPS;          // outputs / thread
+  constexpr int RF = LANES_OUT ? 16 : 4;                  // fibers / thread
+  constexpr int CHUNK = SLICE_CHUNK;
+  static_assert(!LANES_OUT || D == 128, "outputs across lanes need d = 128");
+  const int p = static_cast<int>(ds[F_POS]);
+  const Preds pr(ds);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nfib = 1 << (t.bits - W);
+  const int nchunks = (nfib + CHUNK - 1) / CHUNK;
+  const int o0 = LANES_OUT ? 4 * lane : warp * RI;        // first output
+  OpStream os(ring);
+
+  for (int c = 0; c < nchunks; ++c) {
+    float ar[RF][RI], ai[RF][RI];
 #pragma unroll
-      for (int q = 0; q < RI; ++q) {
-        const int e = base[r] + ((ti + TI * q) << p);
-        if (masked) {
-          const int lane = e & ((1 << LANE_BITS) - 1);
-          const int row = t.row_id[e >> LANE_BITS];
-          if ((lane & lm) != lw || (row & rm) != rw) continue;
+    for (int r = 0; r < RF; ++r)
+#pragma unroll
+      for (int q = 0; q < RI; ++q) { ar[r][q] = 0.f; ai[r][q] = 0.f; }
+    if constexpr (LANES_OUT) {
+      const int fw = c * CHUNK + warp * RF;       // the warp's first fiber
+      const float* xre = t.re + (fw << LANE_BITS);
+      const float* xim = t.im + (fw << LANE_BITS);
+      // a warp holds 16 fibers or none: tiles of 11 or more bits have
+      // nfib >= 16; a 10-bit tile's 8 rows read 8 rows on, still inside
+      // the block's shared memory, and store none of them
+      const bool busy = fw < nfib;
+      for (int s = 0; s < PER; ++s) {
+        const float* sl = os.wait(c * PER + s);
+#pragma unroll 1
+        for (int jj = 0; busy && jj < KB; jj += 4) {
+          const int j = s * KB + jj;
+          float gr[4][4], gi[4][4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            load_row<4>(sl + (jj + u) * 2 * D + o0, gr[u]);
+            if (!REAL) load_row<4>(sl + (jj + u) * 2 * D + D + o0, gi[u]);
+          }
+#pragma unroll
+          for (int r = 0; r < RF; ++r) {
+            float xr[4], xi[4];
+            load_row<4>(xre + r * LANES + j, xr);
+            load_row<4>(xim + r * LANES + j, xi);
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+#pragma unroll
+              for (int q = 0; q < RI; ++q) {
+                ar[r][q] = fmaf(gr[u][q], xr[u], ar[r][q]);
+                ai[r][q] = fmaf(gr[u][q], xi[u], ai[r][q]);
+                if (!REAL) {
+                  ar[r][q] = fmaf(-gi[u][q], xi[u], ar[r][q]);
+                  ai[r][q] = fmaf(gi[u][q], xr[u], ai[r][q]);
+                }
+              }
+          }
         }
-        t.re[e] = ar[r][q];
-        t.im[e] = ai[r][q];
+        os.release(c * PER + s);   // (the last: every read of the chunk done)
+      }
+#pragma unroll
+      for (int r = 0; r < RF; ++r)
+        if (fw + r < nfib)
+          store4(t, pr, ((fw + r) << LANE_BITS) + o0,
+                 make_float4(ar[r][0], ar[r][1], ar[r][2], ar[r][3]),
+                 make_float4(ai[r][0], ai[r][1], ai[r][2], ai[r][3]));
+    } else {
+      int base[RF];
+#pragma unroll
+      for (int r = 0; r < RF; ++r) {
+        const int f = c * CHUNK + lane + 32 * r;
+        base[r] = fiber_base(f < nfib ? f : 0, p, W);
+      }
+      for (int s = 0; s < PER; ++s) {
+        const float* sl = os.wait(c * PER + s);
+#pragma unroll 1
+        for (int jj = 0; jj < KB; ++jj) {
+          const int jo = (s * KB + jj) << p;
+          float gr[RI], gi[RI];
+          load_row<RI>(sl + jj * 2 * D + o0, gr);
+          if (!REAL) load_row<RI>(sl + jj * 2 * D + D + o0, gi);
+#pragma unroll
+          for (int r = 0; r < RF; ++r) {
+            const float xr = t.re[base[r] + jo];
+            const float xi = t.im[base[r] + jo];
+#pragma unroll
+            for (int q = 0; q < RI; ++q) {
+              ar[r][q] = fmaf(gr[q], xr, ar[r][q]);
+              ai[r][q] = fmaf(gr[q], xi, ai[r][q]);
+              if (!REAL) {
+                ar[r][q] = fmaf(-gi[q], xi, ar[r][q]);
+                ai[r][q] = fmaf(gi[q], xr, ai[r][q]);
+              }
+            }
+          }
+        }
+        os.release(c * PER + s);   // (the last: every read of the chunk done)
+      }
+#pragma unroll
+      for (int r = 0; r < RF; ++r) {
+        if (c * CHUNK + lane + 32 * r >= nfib) continue;
+#pragma unroll
+        for (int q = 0; q < RI; ++q)
+          store1(t, pr, base[r] + ((o0 + q) << p), ar[r][q], ai[r][q]);
       }
     }
     __syncthreads();
   }
 }
 
-// ---- tensor-core body of the HIGH and DEFAULT tiers (d >= 16) ----------
+// ---- HIGH and DEFAULT, d >= 16: wgmma on the operator slices --------------
 
 __device__ __forceinline__ uint32_t bf16x2_rn(float lo_k, float hi_k) {
-  // the lower-k value in the low half, as mma's fragments want it
+  // the lower-k value in the low half, as the A fragments want it
   __nv_bfloat162 v = __floats2bfloat162_rn(lo_k, hi_k);
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -337,151 +722,283 @@ __device__ __forceinline__ void a_words(float x0, float x1, uint32_t& hi,
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accesses of these registers across an
+// asynchronous product that reads or writes them
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&r)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(r[i / 4][i % 4]) :: "memory");
 }
 
-// c += the tier's products of A (parts a[0] = hi, a[1] = lo) and B (words
-// bh = hi, bl = lo of the two B registers)
+// Shared-memory matrix descriptor of one B tile (16 inputs x N outputs,
+// bf16, K-major, no swizzle): 8x8 core matrices of 16-byte rows, the two
+// input halves LBO = 128 bytes apart, each group of 8 outputs SBO = 256
+// bytes on (segment.py _tier_words packs it so).
+__device__ __forceinline__ uint64_t b_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4)
+      | (static_cast<uint64_t>(128 >> 4) << 16)
+      | (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+// d[D/2] += (SA = 1 or -1) x A (64 x 16, registers) . B (16 x D, desc):
+// wgmma.mma_async m64nDk16, f32 accumulators, bf16 inputs
+template <int SA>
+__device__ __forceinline__ void wgmma(float (&d)[8], const uint32_t (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, %14, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(SA));
+}
+
+template <int SA>
+__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, %22, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(SA));
+}
+
+template <int SA>
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, %38, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(SA));
+}
+
+template <int SA>
+__device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
+                                      uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, %70, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(SA));
+}
+
+// A fragments of k-step ks for the thread's rows h = 0, 1 (fragment rows
+// g, g + 8): its inputs 16 ks + 4 tq .. + 3, which perm16 places at k =
+// 2tq, 2tq + 1 (register h) and 2tq + 8, 2tq + 9 (register 2 + h), split
+// or rounded into parts [hi, lo]. At position 0 the four are one float4.
+// At position >= 7 the element's bank is its fiber's: lanes of odd tq load
+// row g + 8 first, so each load touches 16 rows (2 lanes a bank, not 4).
 template <int TIER>
-__device__ __forceinline__ void tier_mma(float (&c)[4],
-                                         const uint32_t (&a)[2][4],
-                                         uint32_t bh0, uint32_t bh1,
-                                         uint32_t bl0, uint32_t bl1) {
-  mma_bf16(c, a[0], bh0, bh1);
-  if constexpr (TIER == T_HIGH) {
-    mma_bf16(c, a[0], bl0, bl1);
-    mma_bf16(c, a[1], bh0, bh1);
+__device__ __forceinline__ void load_a(const Tile& t, const int (&base)[2],
+                                       int p, int j0, bool sw,
+                                       uint32_t (&ar)[2][4],
+                                       uint32_t (&ai)[2][4]) {
+  float xr[2][4], xi[2][4];
+  if (p == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      load_row<4>(t.re + base[h] + j0, xr[h]);
+      load_row<4>(t.im + base[h] + j0, xi[h]);
+    }
+  } else {
+    const int first = sw ? base[1] : base[0], second = sw ? base[0] : base[1];
+    float yr[2][4], yi[2][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      yr[0][c] = t.re[first + ((j0 + c) << p)];
+      yi[0][c] = t.im[first + ((j0 + c) << p)];
+      yr[1][c] = t.re[second + ((j0 + c) << p)];
+      yi[1][c] = t.im[second + ((j0 + c) << p)];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      xr[0][c] = sw ? yr[1][c] : yr[0][c];
+      xr[1][c] = sw ? yr[0][c] : yr[1][c];
+      xi[0][c] = sw ? yi[1][c] : yi[0][c];
+      xi[1][c] = sw ? yi[0][c] : yi[1][c];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a_words<TIER>(xr[h][0], xr[h][1], ar[0][h], ar[1][h]);
+    a_words<TIER>(xr[h][2], xr[h][3], ar[0][2 + h], ar[1][2 + h]);
+    a_words<TIER>(xi[h][0], xi[h][1], ai[0][h], ai[1][h]);
+    a_words<TIER>(xi[h][2], xi[h][3], ai[0][2 + h], ai[1][2 + h]);
   }
 }
 
-__device__ __forceinline__ float2 load_pair(const float* plane, int b, int j,
-                                            int p) {
-  // elements j and j+1 of the fiber at b (contracted bits at position p)
-  if (p == 0) return *reinterpret_cast<const float2*>(plane + b + j);
-  return make_float2(plane[b + (j << p)], plane[b + ((j + 1) << p)]);
-}
-
+// Warpgroup wg (of 2) takes fibers 64 wg .. 64 wg + 63 of each 128-fiber
+// chunk: warp w4 of it the fragment rows 16 w4 .. + 15, lane 4g + tq rows g
+// and g + 8. A slice holds KSS k-steps of PARTS B tiles each, in
+// tier_parts order ([re_hi, re_lo, im_hi, im_lo] at HIGH, [re, im] at
+// DEFAULT). Per k-step the thread loads its A fragments, issues the
+// tier's products and waits for them (the next k-step reuses the A
+// registers; the other warpgroup's products keep the tensor cores busy
+// meanwhile); a slice is released after its last k-step. The 2 x D/2
+// accumulators take 128 registers at d = 128. Accumulator register
+// 4 nb + 2 h + e holds row g + 8h, logical output 8 nb + 2 tq + e, i.e.
+// output 16 (nb / 2) + 4 tq + 2 (nb % 2) + e.
 template <int D, bool REAL, int TIER>
 __device__ void mma_stage(const Tile& t, const long long* ds,
-                          const float* __restrict__ ops) {
+                          const float* __restrict__ ops, OpRing& ring) {
   constexpr int W = log2i(D);
-  constexpr int KS = D / 16;                // input steps (mma K = 16)
-  constexpr int WN = D == 128 ? 2 : 1;      // warps across the outputs
-  constexpr int NTW = D / 8 / WN;           // 8-output blocks per warp
-  constexpr int WM = NWARPS / WN;           // warps across the fibers
-  constexpr int MT = D >= 64 ? 1 : 2;       // 16-fiber blocks per warp
-  constexpr int CHUNK = WM * MT * 16;       // fibers per chunk
-  constexpr int VEC = TIER == T_HIGH ? 2 : 1;   // uint4 per lane per block
+  constexpr int KS = D / 16;                    // k-steps
+  constexpr int PARTS = mma_parts(TIER);        // B tiles per k-step
+  constexpr int BT = 16 * D * 2;                // bytes of one B tile
+  constexpr int KSS = mma_ksteps(D, TIER);      // k-steps per slice
+  constexpr int PER = slices_per_pass(D, TIER); // slices per pass
+  constexpr int NR = D / 2;                     // accumulators per plane
   const int p = static_cast<int>(ds[F_POS]);
-  const uint4* __restrict__ gw =
-      reinterpret_cast<const uint4*>(ops + ds[F_OP_OFF]);
-  const bool masked = ds[F_MASKED] != 0;
-  const int lm = static_cast<int>(ds[F_LANE_MASK]);
-  const int lw = static_cast<int>(ds[F_LANE_WANT]);
-  const int rm = static_cast<int>(ds[F_ROW_MASK]);
-  const int rw = static_cast<int>(ds[F_ROW_WANT]);
+  const Preds pr(ds);
+  const int wg = threadIdx.x >> 7, w4 = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const bool sw = p != 0 && (tq & 1);       // row g + 8 first (load_a)
   const int nfib = 1 << (t.bits - W);
-  const int lo_mask = (1 << p) - 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;   // fragment row group, column pair
-  const int wn = warp % WN, wm = warp / WN;
+  const int nchunks = (nfib + SLICE_CHUNK - 1) / SLICE_CHUNK;
+  OpStream os(ring);
 
-  for (int f0 = 0; f0 < nfib; f0 += CHUNK) {
-    const int fw = f0 + wm * MT * 16;       // this warp's first fiber
-    const bool active = fw < nfib;          // warp-uniform
-    int base[MT][2];
-    bool ok[MT][2];
+  for (int c = 0; c < nchunks; ++c) {
+    int base[2];
+    bool ok[2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {         // fragment rows g and g + 8
-        const int f = fw + mt * 16 + g + 8 * h;
-        ok[mt][h] = f < nfib;
-        const int fc = ok[mt][h] ? f : 0;
-        base[mt][h] = ((fc >> p) << (p + W)) | (fc & lo_mask);
-      }
-    float acc[MT][NTW][2][4];               // [..][..][re, im][fragment]
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[mt][nt][0][c] = 0.f;
-          acc[mt][nt][1][c] = 0.f;
-        }
-    if (active) {
-#pragma unroll 1
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t ar[MT][2][4], ai[MT][2][4];   // [..][hi, lo][register]
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {        // a0a1, a2a3, a4a5, a6a7
-            const int b = base[mt][r & 1];
-            const int j = ks * 16 + 2 * tq + 8 * (r >> 1);
-            const float2 vr = load_pair(t.re, b, j, p);
-            const float2 vi = load_pair(t.im, b, j, p);
-            a_words<TIER>(vr.x, vr.y, ar[mt][0][r], ar[mt][1][r]);
-            a_words<TIER>(vi.x, vi.y, ai[mt][0][r], ai[mt][1][r]);
-          }
-#pragma unroll
-        for (int nt = 0; nt < NTW; ++nt) {
-          const uint4* blk =
-              gw + (((wn * NTW + nt) * KS + ks) * 32 + lane) * VEC;
-          // HIGH: {re_hi w0, re_hi w1, re_lo w0, re_lo w1}, then im's;
-          // DEFAULT: {re w0, re w1, im w0, im w1}
-          const uint4 w0 = __ldg(blk);
-          uint32_t rh0 = w0.x, rh1 = w0.y, rl0 = w0.z, rl1 = w0.w;
-          uint32_t ih0, ih1, il0 = 0u, il1 = 0u;
-          if constexpr (TIER == T_HIGH) {
-            const uint4 w1 = __ldg(blk + 1);
-            ih0 = w1.x; ih1 = w1.y; il0 = w1.z; il1 = w1.w;
-          } else {
-            ih0 = rl0; ih1 = rl1; rl0 = 0u; rl1 = 0u;
-          }
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            tier_mma<TIER>(acc[mt][nt][0], ar[mt], rh0, rh1, rl0, rl1);
-            tier_mma<TIER>(acc[mt][nt][1], ai[mt], rh0, rh1, rl0, rl1);
-            if (!REAL) {
-              constexpr uint32_t NEG = 0x80008000u;   // -x: sign bits
-              tier_mma<TIER>(acc[mt][nt][0], ai[mt], ih0 ^ NEG, ih1 ^ NEG,
-                             il0 ^ NEG, il1 ^ NEG);
-              tier_mma<TIER>(acc[mt][nt][1], ar[mt], ih0, ih1, il0, il1);
-            }
-          }
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int f = c * 128 + wg * 64 + w4 * 16 + g + 8 * h;
+      ok[h] = f < nfib;
+      base[h] = fiber_base(ok[h] ? f : 0, p, W);
     }
-    __syncthreads();   // every read of this chunk's fibers is done
-    if (active) {
+    float accr[NR], acci[NR];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+    for (int i = 0; i < NR; ++i) { accr[i] = 0.f; acci[i] = 0.f; }
+    hold(accr);
+    hold(acci);
+    uint32_t ar[2][4], ai[2][4];         // [hi, lo][register]
+    const float* sl = nullptr;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (!ok[mt][h]) continue;
-#pragma unroll
-          for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int i = (wn * NTW + nt) * 8 + 2 * tq + e;
-              const int el = base[mt][h] + (i << p);
-              if (masked) {
-                const int ln = el & ((1 << LANE_BITS) - 1);
-                const int row = t.row_id[el >> LANE_BITS];
-                if ((ln & lm) != lw || (row & rm) != rw) continue;
-              }
-              t.re[el] = acc[mt][nt][0][2 * h + e];
-              t.im[el] = acc[mt][nt][1][2 * h + e];
-            }
+    for (int ks = 0; ks < KS; ++ks) {
+      load_a<TIER>(t, base, p, 16 * ks + 4 * tq, sw, ar, ai);
+      if (ks % KSS == 0) sl = os.wait(c * PER + ks / KSS);
+      const uint64_t b0 = b_desc(sl + (ks % KSS) * PARTS * BT / 4);
+      constexpr uint64_t NEXT = BT >> 4;        // the next part's B tile
+      wgmma_fence();
+      if constexpr (TIER == T_HIGH) {
+        // re += Xre.Gre - Xim.Gim, im += Xim.Gre + Xre.Gim, each product
+        // hi.hi + hi.lo + lo.hi (B: 0 re_hi, 1 re_lo, 2 im_hi, 3 im_lo)
+        wgmma<1>(accr, ar[0], b0);
+        wgmma<1>(accr, ar[0], b0 + NEXT);
+        wgmma<1>(accr, ar[1], b0);
+        wgmma<1>(acci, ai[0], b0);
+        wgmma<1>(acci, ai[0], b0 + NEXT);
+        wgmma<1>(acci, ai[1], b0);
+        if (!REAL) {
+          wgmma<-1>(accr, ai[0], b0 + 2 * NEXT);
+          wgmma<-1>(accr, ai[0], b0 + 3 * NEXT);
+          wgmma<-1>(accr, ai[1], b0 + 2 * NEXT);
+          wgmma<1>(acci, ar[0], b0 + 2 * NEXT);
+          wgmma<1>(acci, ar[0], b0 + 3 * NEXT);
+          wgmma<1>(acci, ar[1], b0 + 2 * NEXT);
         }
+      } else {
+        // B: 0 re, 1 im (RNE bf16)
+        wgmma<1>(accr, ar[0], b0);
+        wgmma<1>(acci, ai[0], b0);
+        if (!REAL) {
+          wgmma<-1>(accr, ai[0], b0 + NEXT);
+          wgmma<1>(acci, ar[0], b0 + NEXT);
+        }
+      }
+      wgmma_commit();
+      // the products read A from these registers: they are done before
+      // the next k-step's A is loaded, and the slice before it is released
+      wgmma_wait<0>();
+      hold(ar);
+      hold(ai);
+      if (ks % KSS == KSS - 1 && ks < KS - 1) os.release(c * PER + ks / KSS);
+    }
+    hold(accr);
+    hold(acci);
+    os.release(c * PER + PER - 1);   // also: every read of the chunk done
+    if (p == 0) {
+      // outputs 16 q + 4 tq .. + 3 of rows g and g + 8, as float4
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!ok[h]) continue;
+#pragma unroll
+        for (int q = 0; q < D / 16; ++q)
+          store4(t, pr, base[h] + 16 * q + 4 * tq,
+                 make_float4(accr[8 * q + 2 * h], accr[8 * q + 2 * h + 1],
+                             accr[8 * q + 4 + 2 * h], accr[8 * q + 5 + 2 * h]),
+                 make_float4(acci[8 * q + 2 * h], acci[8 * q + 2 * h + 1],
+                             acci[8 * q + 4 + 2 * h], acci[8 * q + 5 + 2 * h]));
+      }
+    } else {
+      // as load_a: lanes of odd tq store row g + 8 first
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const bool h1 = (hh == 1) != sw;           // the row this store takes
+        if (!(h1 ? ok[1] : ok[0])) continue;
+        const int b = h1 ? base[1] : base[0];
+#pragma unroll
+        for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = 16 * (nb / 2) + 4 * tq + 2 * (nb % 2) + e;
+            store1(t, pr, b + (o << p),
+                   h1 ? accr[4 * nb + 2 + e] : accr[4 * nb + e],
+                   h1 ? acci[4 * nb + 2 + e] : acci[4 * nb + e]);
+          }
+      }
     }
     __syncthreads();
   }
@@ -489,26 +1006,38 @@ __device__ void mma_stage(const Tile& t, const long long* ds,
 
 template <int D, int TIER>
 __device__ void mat_dispatch(const Tile& t, const long long* ds,
-                             const float* __restrict__ ops) {
+                             const float* __restrict__ ops, OpRing& ring) {
   const bool real = ds[F_REAL] != 0;
-  if constexpr (TIER != T_HIGHEST && D >= MMA_MIN_DIM) {
-    if (real) mma_stage<D, true, TIER>(t, ds, ops);
-    else mma_stage<D, false, TIER>(t, ds, ops);
+  if constexpr (D >= SLICED_MIN_DIM && TIER != T_HIGHEST) {
+    if (real) mma_stage<D, true, TIER>(t, ds, ops, ring);
+    else mma_stage<D, false, TIER>(t, ds, ops, ring);
+  } else if constexpr (D >= SLICED_MIN_DIM) {
+    if constexpr (D == LANES) {
+      if (ds[F_POS] < LANE_BITS) {
+        if (real) fma_stage<D, true, true>(t, ds, ops, ring);
+        else fma_stage<D, false, true>(t, ds, ops, ring);
+        return;
+      }
+    }
+    if (real) fma_stage<D, true, false>(t, ds, ops, ring);
+    else fma_stage<D, false, false>(t, ds, ops, ring);
   } else if constexpr (TIER != T_HIGHEST) {
     // narrow: the tier's FMA body; `sc` (descriptor tier HIGHEST) exact
     if (ds[F_TIER] == T_HIGHEST) {
-      if (real) mat_stage<D, true, T_HIGHEST>(t, ds, ops);
-      else mat_stage<D, false, T_HIGHEST>(t, ds, ops);
+      if (real) mat_narrow<D, true, T_HIGHEST>(t, ds, ops);
+      else mat_narrow<D, false, T_HIGHEST>(t, ds, ops);
     } else if (real) {
-      mat_stage<D, true, TIER>(t, ds, ops);
+      mat_narrow<D, true, TIER>(t, ds, ops);
     } else {
-      mat_stage<D, false, TIER>(t, ds, ops);
+      mat_narrow<D, false, TIER>(t, ds, ops);
     }
   } else {
-    if (real) mat_stage<D, true, T_HIGHEST>(t, ds, ops);
-    else mat_stage<D, false, T_HIGHEST>(t, ds, ops);
+    if (real) mat_narrow<D, true, T_HIGHEST>(t, ds, ops);
+    else mat_narrow<D, false, T_HIGHEST>(t, ds, ops);
   }
 }
+
+// ---- elementwise, pair, diagonal and channel stages ----------------------
 
 __device__ void phase_stage(const Tile& t, const float* __restrict__ g) {
   // (1, 8): [tre, tim, lane_mask, lane_want, row_mask_lo, row_mask_hi,
@@ -582,11 +1111,6 @@ __device__ void multiphase_stage(const Tile& t, const long long* ds,
   }
 }
 
-__device__ __forceinline__ bool selected(const Tile& t, int e, int lm, int lw,
-                                         int rm, int rw) {
-  return (e & lm) == lw && (t.row_id[e >> LANE_BITS] & rm) == rw;
-}
-
 __device__ void pair_stage(const Tile& t, const long long* ds,
                            const float* __restrict__ g) {
   // (2, 4, 2, 2) cores B[p][r * 2 + c][ao][ai]: sliced output r, sliced
@@ -596,11 +1120,7 @@ __device__ void pair_stage(const Tile& t, const long long* ds,
   const int pa = static_cast<int>(ds[F_POS]);
   const int pb = static_cast<int>(ds[F_POS2]);
   const bool real = ds[F_REAL] != 0;
-  const bool masked = ds[F_MASKED] != 0;
-  const int lm = static_cast<int>(ds[F_LANE_MASK]);
-  const int lw = static_cast<int>(ds[F_LANE_WANT]);
-  const int rm = static_cast<int>(ds[F_ROW_MASK]);
-  const int rw = static_cast<int>(ds[F_ROW_WANT]);
+  const Preds pr(ds);
   float br[16], bi[16];
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
@@ -630,7 +1150,7 @@ __device__ void pair_stage(const Tile& t, const long long* ds,
         si = fmaf(br[k], xi[ca], fmaf(bi[k], xr[ca], si));
       }
       const int a = e | (r << pb) | (ao << pa);
-      if (masked && !selected(t, a, lm, lw, rm, rw)) continue;
+      if (pr.keeps(t, a)) continue;
       t.re[a] = sr;
       t.im[a] = si;
     }
@@ -640,14 +1160,12 @@ __device__ void pair_stage(const Tile& t, const long long* ds,
 __device__ void diagvec_stage(const Tile& t, const long long* ds,
                               const float* __restrict__ g) {
   // (2, 2^k) table: entry sum_j bit(targets[j]) << j of every element's
-  // GLOBAL index (row id << 7 | lane); identity where predicates fail
+  // GLOBAL index; bit q is lane bit q (q < 7) or bit q - 7 of the tile
+  // row's id (the reference's _bit_of), so targets of 32 and above keep
+  // their bit; identity where predicates fail
   const int k = static_cast<int>(ds[F_DIM]);
   const long long packed = ds[F_TARGETS];
-  const bool masked = ds[F_MASKED] != 0;
-  const int lm = static_cast<int>(ds[F_LANE_MASK]);
-  const int lw = static_cast<int>(ds[F_LANE_WANT]);
-  const int rm = static_cast<int>(ds[F_ROW_MASK]);
-  const int rw = static_cast<int>(ds[F_ROW_WANT]);
+  const Preds pr(ds);
   int tq[MAX_DIAG_TARGETS];
 #pragma unroll
   for (int j = 0; j < MAX_DIAG_TARGETS; ++j)
@@ -655,13 +1173,18 @@ __device__ void diagvec_stage(const Tile& t, const long long* ds,
   const float* gim = g + (1 << k);
   const int size = 1 << t.bits;
   for (int e = threadIdx.x; e < size; e += NTHREADS) {
-    if (masked && !selected(t, e, lm, lw, rm, rw)) continue;
-    const unsigned gidx = (static_cast<unsigned>(t.row_id[e >> LANE_BITS])
-                           << LANE_BITS) | static_cast<unsigned>(e & (LANES - 1));
+    if (pr.keeps(t, e)) continue;
+    const int lane = e & (LANES - 1);
+    const int row = t.row_id[e >> LANE_BITS];
     int idx = 0;
 #pragma unroll
     for (int j = 0; j < MAX_DIAG_TARGETS; ++j)
-      if (j < k) idx |= static_cast<int>((gidx >> tq[j]) & 1u) << j;
+      if (j < k) {
+        const int q = tq[j];
+        const int bit = q < LANE_BITS ? (lane >> q) & 1
+                                      : (row >> (q - LANE_BITS)) & 1;
+        idx |= bit << j;
+      }
     const float fr = __ldg(g + idx), fi = __ldg(gim + idx);
     const float re = t.re[e], im = t.im[e];
     t.re[e] = re * fr - im * fi;
@@ -724,8 +1247,9 @@ struct SweepArgs {
   const long long* desc;
   int nstages;
   const float* ops;
-  int batch;
+  int batch;            // states of the whole batch (the selection stride)
   const float* sel;
+  int state0;           // first state of this launch (K3 slices a batch)
 };
 
 // The segment's stages on one resident tile, in order; every driver calls
@@ -733,20 +1257,20 @@ struct SweepArgs {
 template <int TIER>
 __device__ __forceinline__ void run_chain(const Tile& t, const SweepArgs& a,
                                           int state, float* s_ang, int* s_lm,
-                                          int* s_rm) {
+                                          int* s_rm, OpRing& ring) {
   for (int s = 0; s < a.nstages; ++s) {
     const long long* ds = a.desc + s * DESC_WORDS;
     const float* g = a.ops + ds[F_OP_OFF];
     switch (static_cast<int>(ds[F_KIND])) {
       case K_MAT:
         switch (static_cast<int>(ds[F_DIM])) {
-          case 2: mat_dispatch<2, TIER>(t, ds, a.ops); break;
-          case 4: mat_dispatch<4, TIER>(t, ds, a.ops); break;
-          case 8: mat_dispatch<8, TIER>(t, ds, a.ops); break;
-          case 16: mat_dispatch<16, TIER>(t, ds, a.ops); break;
-          case 32: mat_dispatch<32, TIER>(t, ds, a.ops); break;
-          case 64: mat_dispatch<64, TIER>(t, ds, a.ops); break;
-          default: mat_dispatch<128, TIER>(t, ds, a.ops); break;
+          case 2: mat_dispatch<2, TIER>(t, ds, a.ops, ring); break;
+          case 4: mat_dispatch<4, TIER>(t, ds, a.ops, ring); break;
+          case 8: mat_dispatch<8, TIER>(t, ds, a.ops, ring); break;
+          case 16: mat_dispatch<16, TIER>(t, ds, a.ops, ring); break;
+          case 32: mat_dispatch<32, TIER>(t, ds, a.ops, ring); break;
+          case 64: mat_dispatch<64, TIER>(t, ds, a.ops, ring); break;
+          default: mat_dispatch<128, TIER>(t, ds, a.ops, ring); break;
         }
         break;
       case K_PHASE: phase_stage(t, g); break;
@@ -763,6 +1287,7 @@ __device__ __forceinline__ void run_chain(const Tile& t, const SweepArgs& a,
   }
 }
 
+
 // ---- K3, the grid driver: one block per tile -----------------------------
 
 template <int TIER>
@@ -776,17 +1301,24 @@ segment_kernel(SweepArgs a) {
   float* s_ang = reinterpret_cast<float*>(row_id + MAX_ROWS);
   int* s_lm = reinterpret_cast<int*>(s_ang + MAX_MULTIPHASE_ROWS);
   int* s_rm = s_lm + MAX_MULTIPHASE_ROWS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + 2 * size + EXTRA_WORDS + OP_SLOTS * OP_SLICE_FLOATS);
+  PHASE_START(t_block);
   const Tile t{smem, smem + size, row_id, a.tile_bits};
+  if (threadIdx.x < OP_SLOTS) mbar_init(&bars[threadIdx.x], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 
   const int base = tile_base(blockIdx.x, a.free_mask);
   for (int r = threadIdx.x; r < rows; r += NTHREADS)
     row_id[r] = tile_row(base, r, a.inner_bits, a.scat_mask);
   __syncthreads();
+  OpRing ring = op_ring(smem + 2 * size, bars, a.desc, a.ops, a.nstages,
+                        a.tile_bits, TIER, 1);
 
   // 64-bit offsets: plane 1 of a 30-qubit state starts 2^30 floats in,
   // state s of a batch 2 * 2^n * s floats in
   const long long plane = 1LL << a.n;
-  const int state = static_cast<int>(blockIdx.y);
+  const int state = a.state0 + static_cast<int>(blockIdx.y);
   float* __restrict__ amps = a.amps + 2 * plane * state;
   const int n4 = rows * (1 << (LANE_BITS - 2));     // float4 per plane
   float4* tre4 = reinterpret_cast<float4*>(t.re);
@@ -801,8 +1333,11 @@ segment_kernel(SweepArgs a) {
     (pl ? tim4 : tre4)[kk] = v;
   }
   __syncthreads();
+  PHASE_ADD(PC_PROLOGUE, t_block);
 
-  run_chain<TIER>(t, a, state, s_ang, s_lm, s_rm);
+  PHASE_START(t_chain);
+  run_chain<TIER>(t, a, state, s_ang, s_lm, s_rm, ring);
+  PHASE_ADD(PC_CHAIN, t_chain);
 
 #pragma unroll 4
   for (int k = threadIdx.x; k < 2 * n4; k += NTHREADS) {
@@ -812,74 +1347,8 @@ segment_kernel(SweepArgs a) {
         + (static_cast<long long>(row_id[kk >> 5]) << LANE_BITS);
     reinterpret_cast<float4*>(amps + off)[kk & 31] = (pl ? tim4 : tre4)[kk];
   }
-}
-
-// ---- bulk async copies and mbarriers (sm_90) -----------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-// one arrival that also expects `bytes` of bulk copies on the phase
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
-                                                   unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// global -> shared, completing `bytes` on the mbarrier's phase
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// shared -> global, in the issuing thread's open bulk group
-__device__ __forceinline__ void bulk_store(float* dst, const float* src,
-                                           unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// wait until at most N of this thread's bulk groups are pending: READ,
-// until their sources have been read (the slot may be refilled); else
-// until their writes have landed in device memory
-template <int N, bool READ>
-__device__ __forceinline__ void bulk_wait() {
-  if constexpr (READ)
-    asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group %0;" :: "n"(N) : "memory");
-}
-
-// order this thread's generic-proxy shared accesses before later
-// async-proxy ones (a bulk store reading, a bulk load writing)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  PHASE_ADD(PC_BLOCK, t_block);
+  PHASE_COUNT(PC_BLOCKS);
 }
 
 // ---- K1 and K2: the persistent plane-slot ring ---------------------------
@@ -908,7 +1377,8 @@ __device__ __forceinline__ void fence_proxy_async() {
 //     read-ahead.
 // The chain writes the tile with generic stores; fence.proxy.async and a
 // barrier order them before the bulk store that reads them. Each lane
-// waits for all of its stores to land before the block exits.
+// waits for all of its stores to land before the block exits. The
+// operator ring and its OP_SLOTS mbarriers follow the plane slots' S.
 
 template <int TIER, bool ON_READ>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -921,7 +1391,8 @@ ring_kernel(SweepArgs a, int slots, long long steps) {
   float* s_ang = reinterpret_cast<float*>(row_id + MAX_ROWS);
   int* s_lm = reinterpret_cast<int*>(s_ang + MAX_MULTIPHASE_ROWS);
   int* s_rm = s_lm + MAX_MULTIPHASE_ROWS;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(s_rm + MAX_MULTIPHASE_ROWS);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + slots * size + EXTRA_WORDS + OP_SLOTS * OP_SLICE_FLOATS);
 
   const int tile_shift = a.n - a.tile_bits;         // log2 tiles per state
   const long long plane = 1LL << a.n;
@@ -933,11 +1404,15 @@ ring_kernel(SweepArgs a, int slots, long long steps) {
   const int lane = threadIdx.x & 31;
   const int nk = static_cast<int>((steps - blockIdx.x + gridDim.x - 1)
                                   / gridDim.x);     // this block's steps
-  if (threadIdx.x < slots) mbar_init(&bars[threadIdx.x], 1);
+  if (threadIdx.x < slots + OP_SLOTS) mbar_init(&bars[threadIdx.x], 1);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   __syncthreads();
+  OpRing ring = op_ring(smem + slots * size, bars + slots, a.desc, a.ops,
+                        a.nstages, a.tile_bits, TIER, nk);
+  PHASE_START(t_block);
 
   for (int k = 0; k < nk; ++k) {
+    PHASE_START(t_step);
     if (threadIdx.x < 32) {
       const int lo = k == 0 ? 0 : 2 * k - 2 + slots;
       const int hi = min(2 * k + slots, 2 * nk);
@@ -949,7 +1424,7 @@ ring_kernel(SweepArgs a, int slots, long long steps) {
         const int kj = j >> 1;
         const long long g = blockIdx.x + static_cast<long long>(kj) * gridDim.x;
         const float* src = a.amps
-            + (2 * (g >> tile_shift) + (j & 1)) * plane;
+            + (2 * (a.state0 + (g >> tile_shift)) + (j & 1)) * plane;
         uint64_t* bar = &bars[kj % slots];
         if ((j & 1) == 0 && lane == 0) mbar_arrive_expect(bar, 2 * plane_bytes);
         __syncwarp();
@@ -964,16 +1439,19 @@ ring_kernel(SweepArgs a, int slots, long long steps) {
       }
     }
     const long long g = blockIdx.x + static_cast<long long>(k) * gridDim.x;
-    const int state = static_cast<int>(g >> tile_shift);
+    const int state = a.state0 + static_cast<int>(g >> tile_shift);
     const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask);
     for (int r = threadIdx.x; r < rows; r += NTHREADS)
       row_id[r] = tile_row(base, r, a.inner_bits, a.scat_mask);
     __syncthreads();
     mbar_wait(&bars[k % slots], (k / slots) & 1);
+    PHASE_ADD(PC_PROLOGUE, t_step);
 
     const Tile t{smem + ((2 * k) % slots) * size,
                  smem + ((2 * k + 1) % slots) * size, row_id, a.tile_bits};
-    run_chain<TIER>(t, a, state, s_ang, s_lm, s_rm);
+    PHASE_START(t_chain);
+    run_chain<TIER>(t, a, state, s_ang, s_lm, s_rm, ring);
+    PHASE_ADD(PC_CHAIN, t_chain);
     fence_proxy_async();
     __syncthreads();
 
@@ -991,20 +1469,26 @@ ring_kernel(SweepArgs a, int slots, long long steps) {
     }
   }
   if (threadIdx.x < 32) bulk_wait<0, false>();   // every store has landed
+  PHASE_ADD(PC_BLOCK, t_block);
+  PHASE_COUNT(PC_BLOCKS);
 }
 
 // ---- launch --------------------------------------------------------------
 
 enum { D_DECOUPLED = 0, D_INPLACE = 1, D_GRID = 2 };   // segment.py DRIVER_CODE
-constexpr long long BLOCK_SMEM_LIMIT = 232448;   // opt-in max per block, sm_90
+
+// beside the plane slots: row ids, multiphase rows, the operator ring and
+// its mbarriers
+constexpr long long FIXED_SMEM_BYTES =
+    EXTRA_WORDS * 4LL + OP_SLOTS * (OP_SLICE_BYTES + 8LL);
 
 long long grid_smem_bytes(int tile_bits) {
-  return (2LL << tile_bits) * sizeof(float) + EXTRA_WORDS * 4LL;
+  return (2LL << tile_bits) * sizeof(float) + FIXED_SMEM_BYTES;
 }
 
 long long ring_smem_bytes(int tile_bits, int slots) {
   return static_cast<long long>(slots) * (4LL << tile_bits)
-      + EXTRA_WORDS * 4LL + 8LL * slots;
+      + FIXED_SMEM_BYTES + 8LL * slots;
 }
 
 template <typename Kernel>
@@ -1015,11 +1499,11 @@ cudaError_t set_smem(Kernel kernel, long long smem) {
 }
 
 template <int TIER>
-cudaError_t launch_grid(const SweepArgs& a, long long blocks, long long smem,
-                        cudaStream_t stream) {
+cudaError_t launch_grid(const SweepArgs& a, long long blocks, int states,
+                        long long smem, cudaStream_t stream) {
   cudaError_t e = set_smem(segment_kernel<TIER>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(a.batch));
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(states));
   segment_kernel<TIER><<<grid, NTHREADS, static_cast<size_t>(smem), stream>>>(a);
   return cudaGetLastError();
 }
@@ -1046,16 +1530,36 @@ cudaError_t launch_ring(const SweepArgs& a, long long steps, int slots,
 }
 
 template <int TIER>
-cudaError_t launch(const SweepArgs& a, long long blocks, int driver,
-                   int slots, long long smem, cudaStream_t stream) {
-  const long long steps = blocks * a.batch;
+cudaError_t launch(const SweepArgs& a, long long blocks, int states,
+                   int driver, int slots, long long smem, cudaStream_t stream) {
+  const long long steps = blocks * states;
   switch (driver) {
-    case D_GRID: return launch_grid<TIER>(a, blocks, smem, stream);
+    case D_GRID: return launch_grid<TIER>(a, blocks, states, smem, stream);
     case D_DECOUPLED: return launch_ring<TIER, true>(a, steps, slots, smem, stream);
     case D_INPLACE: return launch_ring<TIER, false>(a, steps, slots, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
+
+#ifdef QUEST_PHASE_COUNTERS
+__global__ void __launch_bounds__(NTHREADS, 1)
+fma_probe(float* out, int iters) {
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = static_cast<float>(threadIdx.x + i);
+  float x = 1.0f + threadIdx.x * 1e-6f;
+  const float y = 1e-3f;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = fmaf(acc[i], x, y);
+    x += 1e-7f;
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 128; ++i) sum += acc[i];
+  out[blockIdx.x * NTHREADS + threadIdx.x] = sum;
+}
+#endif
 
 }  // namespace
 
@@ -1065,11 +1569,13 @@ extern "C" {
 int quest_segment_desc_words() { return DESC_WORDS; }
 int quest_segment_max_tile_bits() { return MAX_TILE_BITS; }
 int quest_segment_max_multiphase_rows() { return MAX_MULTIPHASE_ROWS; }
+int quest_segment_op_slice_bytes() { return OP_SLICE_BYTES; }
+int quest_segment_max_grid_batch() { return MAX_GRID_BATCH; }
 
 // Least dynamic shared memory of one launch: the grid driver's two tile
 // planes, or a ring of `slots` plane slots with one mbarrier each, beside
-// the row ids and multiphase rows (band_plan.sweep_smem_bytes computes the
-// same; the wrapper checks the two agree).
+// the row ids, multiphase rows and the operator ring (band_plan.smem_layout
+// computes the same; the wrapper checks the two agree).
 long long quest_segment_smem_bytes(int tile_bits, int driver, int slots) {
   return driver == D_GRID ? grid_smem_bytes(tile_bits)
                           : ring_smem_bytes(tile_bits, slots);
@@ -1079,33 +1585,61 @@ const char* quest_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launch one segment over `batch` states on `stream` (`sel`: the
-// selection table (slots, batch, 8), or null when no stage reads it), the
-// matrix stages at matmul `tier` (T_HIGHEST, T_HIGH or T_DEFAULT), under
-// `driver` (D_DECOUPLED, D_INPLACE with `slots` plane slots, or D_GRID)
-// with `smem` bytes of dynamic shared memory. Returns the launch's
-// cudaError_t: nothing is allocated and nothing is synchronised here.
+// Launch one segment over states [state0, state0 + states) of a batch of
+// `batch` states on `stream` (`sel`: the selection table (slots, batch,
+// 8), or null when no stage reads it), the matrix stages at matmul `tier`
+// (T_HIGHEST, T_HIGH or T_DEFAULT), under `driver` (D_DECOUPLED,
+// D_INPLACE with `slots` plane slots, or D_GRID, whose launch takes at
+// most MAX_GRID_BATCH states) with `smem` bytes of dynamic shared memory.
+// Returns the launch's cudaError_t: nothing is allocated and nothing is
+// synchronised here.
+#ifdef QUEST_PHASE_COUNTERS
+// The yardstick of the fp32 FMA pipe at this card's clocks and power:
+// `blocks` blocks of NTHREADS threads, each thread 128 independent fp32
+// FMA chains of `iters` steps (operands in registers), their sums in
+// `out` (blocks * NTHREADS floats). 2 * 128 * iters flops per thread.
+int quest_fma_probe(float* out, int blocks, int iters, void* stream) {
+  fma_probe<<<blocks, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The phase counters (PC_* order, PC_COUNT of them) into `out`, then to 0
+// when `reset`.
+int quest_segment_phase_cycles(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, quest_phase_cycles,
+                                       sizeof(quest_phase_cycles));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[PC_COUNT] = {};
+    e = cudaMemcpyToSymbol(quest_phase_cycles, zero, sizeof(zero));
+  }
+  return static_cast<int>(e);
+}
+#endif
+
 int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
                         unsigned scat_mask, unsigned free_mask,
                         const void* desc, int nstages, const void* ops,
-                        long long blocks, int batch, const void* sel,
-                        int tier, int driver, int slots, long long smem,
-                        void* stream) {
+                        long long blocks, int batch, int state0, int states,
+                        const void* sel, int tier, int driver, int slots,
+                        long long smem, void* stream) {
   if (tile_bits < LANE_BITS + 3 || tile_bits > MAX_TILE_BITS
-      || batch < 1 || batch > MAX_GRID_BATCH || blocks < 1
+      || batch < 1 || state0 < 0 || states < 1
+      || static_cast<long long>(state0) + states > batch
+      || (driver == D_GRID && states > MAX_GRID_BATCH) || blocks < 1
       || (driver != D_GRID && (slots < 2 || slots > MAX_SLOTS))
       || smem < quest_segment_smem_bytes(tile_bits, driver, slots))
     return static_cast<int>(cudaErrorInvalidValue);
   const SweepArgs a{static_cast<float*>(amps), n, tile_bits, inner_bits,
                     scat_mask, free_mask, static_cast<const long long*>(desc),
                     nstages, static_cast<const float*>(ops), batch,
-                    static_cast<const float*>(sel)};
+                    static_cast<const float*>(sel), state0};
   auto* st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (tier) {
-    case T_HIGHEST: e = launch<T_HIGHEST>(a, blocks, driver, slots, smem, st); break;
-    case T_HIGH: e = launch<T_HIGH>(a, blocks, driver, slots, smem, st); break;
-    case T_DEFAULT: e = launch<T_DEFAULT>(a, blocks, driver, slots, smem, st); break;
+    case T_HIGHEST: e = launch<T_HIGHEST>(a, blocks, states, driver, slots, smem, st); break;
+    case T_HIGH: e = launch<T_HIGH>(a, blocks, states, driver, slots, smem, st); break;
+    case T_DEFAULT: e = launch<T_DEFAULT>(a, blocks, states, driver, slots, smem, st); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -6,10 +6,17 @@ The source becomes a shared library with a plain C interface
 -fPIC`), named by a hash of its source and flags, in `build/` at the
 root of the checkout (listed in .gitignore). A library already built
 from the same source is loaded as it is.
+
+One variant besides the kernel itself: COUNTERS, the same source built
+with -DQUEST_PHASE_COUNTERS, whose blocks add the clock cycles of their
+phases (operator-slice waits and releases, step prologues, the chain) to
+device counters that quest_tpu_torch.profiling reads. `build` compiles
+the variants it is given side by side, one nvcc each.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,15 +24,18 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "segment.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "quest_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNEL: Tuple[str, ...] = ()                     # the kernel's own defines
+COUNTERS: Tuple[str, ...] = ("-DQUEST_PHASE_COUNTERS",)
 
-BUILD_LOG = ""                     # nvcc's output, when built in this process
-_LIB: Optional[ctypes.CDLL] = None
+BUILD_LOG = ""                     # nvcc's output for KERNEL, when built here
+_LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}
+_ACTIVE: Tuple[str, ...] = KERNEL
 
 
 def nvcc_path() -> str:
@@ -43,40 +53,66 @@ def nvcc_path() -> str:
         "toolkit")
 
 
-def library_path() -> Path:
-    """Where the library built from SOURCE lives: keyed by a hash of the
-    source and the flags, so an edit rebuilds."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def library_path(defines: Sequence[str] = KERNEL) -> Path:
+    """Where the library built from SOURCE with `defines` lives: keyed by
+    a hash of the source and the flags, so an edit rebuilds."""
+    flags = " ".join((*NVCC_FLAGS, *defines))
+    digest = hashlib.sha256(SOURCE.read_bytes() + flags.encode()).hexdigest()
     return BUILD_DIR / f"libsegment-{digest[:16]}.so"
 
 
-def build() -> float:
-    """Build the library unless it exists; return nvcc's seconds (0.0
-    when nothing was built). Raises RuntimeError with nvcc's output when
-    the build fails."""
+def build(*variants: Sequence[str]) -> float:
+    """Build the library of each variant (defines; none given: KERNEL)
+    that does not exist yet, one nvcc process each, all at once; return
+    the wall seconds (0.0 when nothing was built). Raises RuntimeError
+    with nvcc's output when a build fails."""
     global BUILD_LOG
-    out = library_path()
-    if out.exists():
+    variants = tuple(tuple(v) for v in variants) or (KERNEL,)
+    todo = [v for v in variants if not library_path(v).exists()]
+    if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    BUILD_LOG = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA build of {SOURCE.name} failed: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)             # atomic: readers never see half a file
+    procs = []
+    for v in todo:
+        out = library_path(v)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((v, out, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, *v, "-o", str(tmp), str(SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for v, out, tmp, proc in procs:
+        log = proc.communicate()[0]
+        if v == KERNEL:
+            BUILD_LOG = log
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(v) or 'kernel'}: nvcc exited "
+                          f"{proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)     # atomic: readers never see half a file
+    if failed:
+        raise RuntimeError(f"CUDA build of {SOURCE.name} failed: "
+                           + "\n".join(failed))
     return time.perf_counter() - t0
 
 
-def load() -> ctypes.CDLL:
-    """The loaded library, building it first if needed."""
-    global _LIB
-    if _LIB is None:
-        build()
-        _LIB = ctypes.CDLL(str(library_path()))
-    return _LIB
+def load(defines: Optional[Sequence[str]] = None) -> ctypes.CDLL:
+    """The loaded library of `defines` (None: the active variant, KERNEL
+    unless `active` says otherwise), building it first if needed."""
+    key = _ACTIVE if defines is None else tuple(defines)
+    if key not in _LIBS:
+        build(key)
+        _LIBS[key] = ctypes.CDLL(str(library_path(key)))
+    return _LIBS[key]
+
+
+@contextlib.contextmanager
+def active(defines: Sequence[str]):
+    """Within the block, launches through ops.segment use the library of
+    `defines` (e.g. COUNTERS)."""
+    global _ACTIVE
+    before, _ACTIVE = _ACTIVE, tuple(defines)
+    try:
+        yield load()
+    finally:
+        _ACTIVE = before

@@ -697,6 +697,9 @@ MAX_RING_SLOTS = 8             # QUEST_FUSED_NBUF's upper bound
 ROW_ID_BYTES = 4 << (14 - LANE_QUBITS)   # csrc MAX_ROWS ints
 MULTIPHASE_BYTES = 3 * 64 * 4  # csrc MAX_MULTIPHASE_ROWS x (angle, 2 masks)
 MBARRIER_BYTES = 8
+OP_SLOTS = 2                   # csrc OpRing: operator slices in flight
+OP_SLICE_BYTES = 16384         # csrc OP_SLICE_BYTES
+OP_RING_BYTES = OP_SLOTS * (OP_SLICE_BYTES + MBARRIER_BYTES)  # + barriers
 HOPPER_SMS = 132               # H100 SXM: the persistent grid, for stats
 STATS_STEPS = 16               # steps per block the schedule model walks
 # for pipeline_stats (its read-ahead is periodic after a few steps)
@@ -751,10 +754,11 @@ def _nbuf(nbuf: int = None) -> int:
 
 def ring_fit(tile_bits: int) -> int:
     """Most plane slots one block's shared memory holds beside the row
-    ids, the multiphase rows and one mbarrier per slot (at most
-    MAX_RING_SLOTS): 3 at 14-bit tiles, 7 at 13 bits, 8 below."""
+    ids, the multiphase rows, the operator ring and one mbarrier per slot
+    (at most MAX_RING_SLOTS): 3 at 14-bit tiles, 6 at 13 bits, 8
+    below."""
     plane = 4 << tile_bits
-    fixed = ROW_ID_BYTES + MULTIPHASE_BYTES
+    fixed = ROW_ID_BYTES + MULTIPHASE_BYTES + OP_RING_BYTES
     return min(MAX_RING_SLOTS,
                (BLOCK_SMEM_BYTES - fixed) // (plane + MBARRIER_BYTES))
 
@@ -836,19 +840,22 @@ def smem_layout(tile_bits: int, steps: int, driver: str = None,
                 nbuf: int = None) -> dict:
     """Dynamic shared memory of one launch of the port's kernel moving
     `steps` tiles of `tile_bits` bits under `driver`: the plane slots
-    (K3: the tile's two planes), the row ids and multiphase rows, one
-    mbarrier per ring slot; against BLOCK_SMEM_BYTES. The one source the
-    wrapper sizes a launch from (ops/segment.py; csrc
+    (K3: the tile's two planes), the row ids and multiphase rows, the
+    operator ring (OP_SLOTS slices and their mbarriers, every driver),
+    one mbarrier per ring slot; against BLOCK_SMEM_BYTES. The one source
+    the wrapper sizes a launch from (ops/segment.py; csrc
     quest_segment_smem_bytes must agree)."""
     driver = check_driver(driver)
     plane = 4 << tile_bits
     slots = ring_slots(tile_bits, steps, driver, nbuf)
     barriers = 0 if driver == "grid" else slots * MBARRIER_BYTES
-    total = slots * plane + ROW_ID_BYTES + MULTIPHASE_BYTES + barriers
+    total = (slots * plane + ROW_ID_BYTES + MULTIPHASE_BYTES + OP_RING_BYTES
+             + barriers)
     return {"driver": driver, "tile_bits": tile_bits, "steps": int(steps),
             "plane_bytes": plane, "slots": slots,
             "slot_bytes": slots * plane, "row_id_bytes": ROW_ID_BYTES,
-            "multiphase_bytes": MULTIPHASE_BYTES, "barrier_bytes": barriers,
+            "multiphase_bytes": MULTIPHASE_BYTES,
+            "op_ring_bytes": OP_RING_BYTES, "barrier_bytes": barriers,
             "total_bytes": total, "budget_bytes": BLOCK_SMEM_BYTES}
 
 

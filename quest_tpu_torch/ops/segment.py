@@ -9,9 +9,10 @@ packing and orientation. It runs once per segment when a program is
 compiled, never per call.
 
 `segment_sweep(amps, seg, sel)` applies the segment in place, to one
-state's planes or to a batch of states (B, 2, 2^n) in one launch. On a
-CUDA tensor it launches the hand-written kernel (csrc/segment.cu) under
-the segment's driver and counts the launch in `segment_sweep.launches`,
+state's planes or to a batch of states (B, 2, 2^n) in one launch (under
+the grid driver, one per MAX_GRID_BATCH states). On a CUDA tensor it
+launches the hand-written kernel (csrc/segment.cu) under the segment's
+driver and counts each launch in `segment_sweep.launches`,
 in `segment_sweep.driver_launches` (keyed by driver), and once for each
 stage kind the segment holds in `segment_sweep.stage_launches` (keyed by
 `stage_label`); on a CPU tensor it runs the plain version,
@@ -32,25 +33,29 @@ bits: the packer reduces the 128x128 embedded blocks of 'lane' and 'b1'
 pairs to their 2x2 cores (checking that the rest of each block is the
 embedding), so every form runs 4 complex MACs per amplitude.
 
-Matmul tiers (quest_tpu_torch/precision.py). A segment is packed for one
-tier, which rides in the Segment and in each matrix descriptor (F_TIER):
-the b0, b1 and scb stages round at the segment's tier, `sc` stays exact.
-At 'high' and 'default' a stage of d >= 16 carries its operator as the
-bf16 B fragments of the kernel's tensor-core products (`_tier_words`):
-G is read from the planner's array in its orientation (G^T for b0, b1
-and 128-wide scb, G for narrow scb) and written, for each 8-output by
-16-input block, as the 32 lanes' registers of `mma.m16n8k16` — for
-'high' the hi and lo planes of Gre and Gim, for 'default' their RNE
-roundings. Narrower stages keep the f32 operand; the kernel rounds it as
-it reads it. The plain version applies the same tier through
-precision.tier_products.
+Matrix stages of d >= 16 (SLICED_MIN_DIM) stream their operator
+through the kernel's ring of two OP_SLICE_BYTES shared-memory slices, so
+the packer writes them as those slices (`slice_operator`), from G read in
+the planner's orientation (G^T for b0, b1 and 128-wide scb, G for narrow
+scb): at 'highest' the rows [Gre[:, j], Gim[:, j]] of each input j, f32;
+at 'high' and 'default' (matmul tiers, quest_tpu_torch/precision.py) the
+bf16 B tiles of the kernel's wgmma products, per 16-input k-step and per
+part ('high': the hi and lo planes of Gre and Gim, 'default': their RNE
+roundings), in wgmma's K-major core-matrix layout, inputs and outputs in
+the order `operand_perm` gives. Narrower stages keep the f32 operand in
+the planner's orientation, read through strides; at a tier the kernel
+rounds it as it reads it. A segment is packed for one tier, which rides
+in the Segment and in each matrix descriptor (F_TIER): the b0, b1 and scb
+stages round at the segment's tier, `sc` stays exact. The plain version
+applies the same tier through precision.tier_products.
 
 Drivers (band_plan.DRIVERS, the reference's K1-K3). A segment is packed
 for one driver, read from QUEST_FUSED_DRIVER / QUEST_FUSED_PIPELINE /
 QUEST_FUSED_NBUF when it is prepared unless the caller names it:
 'decoupled' (K1, the default) and 'inplace' (K2) launch the persistent
 ring kernel (K1 with 3 plane slots, K2 with `nbuf`), 'grid' (K3) one
-block per tile; each launch sizes its shared memory from
+block per tile (a batch above MAX_GRID_BATCH states in several
+launches, `grid_batch_slices`); each launch sizes its shared memory from
 band_plan.smem_layout. The drivers give bit-identical planes; the plain
 version is the same for all three. A segment with no stages is the
 stage-free copy (the reference's compile_segment((), ()) of its
@@ -73,8 +78,8 @@ from quest_tpu_torch.ops.apply import bit_view
 from quest_tpu_torch.ops.band_plan import (
     HOPPER_GEOMETRY, LANE_QUBITS, LANES, Budgets, DiagVecStage, Geometry,
     BatchSelStage, MatStage, MultiPhaseStage, PairStage, ParityStage,
-    PhaseStage, MAX_RING_SLOTS, check_driver, segment_geometry,
-    smem_layout)
+    PhaseStage, MAX_RING_SLOTS, OP_SLICE_BYTES, check_driver,
+    segment_geometry, smem_layout)
 
 DESC_WORDS = 17
 # descriptor columns (csrc/segment.cu enum F_*)
@@ -88,11 +93,11 @@ MAX_TILE_BITS = 14
 MAX_DIAG_TARGETS = 7          # fusion.DIAG_FUSE_MAX
 TARGET_BITS = 6               # bits per qubit index in F_TARGETS
 SEL_WORDS = 8                 # one selection-table row: a complex 2x2
-MAX_GRID_BATCH = 65535        # states per launch (gridDim.y)
+MAX_GRID_BATCH = 65535        # states per grid-driver launch (gridDim.y)
 TIER_CODE = {"highest": 0, "high": 1, "default": 2}   # csrc T_* codes
 DRIVER_CODE = {"decoupled": 0, "inplace": 1, "grid": 2}  # csrc D_* codes
-MMA_MIN_DIM = 16              # d from which a tier stage uses tensor cores
-MMA_N, MMA_K = 8, 16          # mma.m16n8k16: outputs x inputs per block
+SLICED_MIN_DIM = 16           # d from which the operator is streamed in slices
+WGMMA_K = 16                  # inputs per wgmma k-step (one B tile)
 PLAIN_CHUNK_AMPS = 1 << 26    # amplitudes per slice of a plain contraction
 
 _PORTED = (MatStage, PhaseStage, ParityStage, MultiPhaseStage, PairStage,
@@ -237,22 +242,58 @@ def tier_parts(g: np.ndarray, tier: str) -> np.ndarray:
     return np.stack([_bf16_bits(p) for p in parts])
 
 
+def perm16(x):
+    """Position 2t + e (+ 8 h) of a 16-group of the kernel's wgmma
+    fragments -> the input or output it carries: 4t + 2h + e, so that the
+    thread holding fragment columns 2t, 2t + 1, 2t + 8, 2t + 9 reads (and
+    writes) four consecutive elements."""
+    x = np.asarray(x)
+    return 4 * ((x & 7) >> 1) + 2 * ((x >> 3) & 1) + (x & 1)
+
+
+def operand_perm(d: int) -> np.ndarray:
+    """perm16 over each group of 16 of d indices: the order in which the
+    tier body's B tiles list inputs (k) and outputs (n)."""
+    x = np.arange(d)
+    return (x & ~15) | perm16(x & 15)
+
+
+def slice_rows(g: np.ndarray) -> np.ndarray:
+    """HIGHEST operand of a d >= 16 stage from G planes (2, d, d): row j =
+    [Gre[:, j], Gim[:, j]] (d, 2, d) f32, KB = min(d, OP_SLICE_BYTES /
+    (8 d)) rows to a slice."""
+    return np.ascontiguousarray(g.transpose(2, 0, 1), dtype=np.float32)
+
+
+def tier_tiles(g: np.ndarray, tier: str) -> np.ndarray:
+    """bf16 B tiles (uint16) of the operator planes g (2, d, d) at `tier`:
+    (d / 16 k-steps, parts, d / 8 output groups, 2 input halves, 8
+    outputs, 8 inputs). Tile (ks, part) holds B[k, n] = part[perm(n),
+    perm(16 ks + k)] (perm = operand_perm) as wgmma's K-major no-swizzle
+    layout: 8x8 core matrices of 16-byte rows (8 inputs of one output),
+    the input halves 128 bytes apart (LBO), the output groups 256 (SBO)."""
+    d = g.shape[-1]
+    parts = tier_parts(g, tier).astype(np.uint16)      # (P, i, j)
+    perm = operand_perm(d)
+    b = parts[:, perm][:, :, perm]                      # P, n, j (logical)
+    b = b.reshape(-1, d // 8, 8, d // WGMMA_K, 2, 8)    # P ng nr ks kh kr
+    return np.ascontiguousarray(b.transpose(3, 0, 1, 4, 2, 5))
+
+
 def _tier_words(st: MatStage, arr: np.ndarray, tier: str) -> np.ndarray:
-    """The operator of a tier stage (d >= 16) as the kernel's tensor-core
-    B fragments, viewed as f32. For output block nt (outputs 8nt..8nt+7)
-    and input step ks (inputs 16ks..16ks+15), lane = 4g + t holds, for
-    each part in tier_parts order, two bf16x2 words: (G[i, j], G[i, j+1])
-    and (G[i, j+8], G[i, j+9]) with i = 8nt + g, j = 16ks + 2t (the lower
-    half holds the lower j). Blocks run nt-major; each lane's words are
-    contiguous (16 bytes per part pair)."""
-    d = st.dim
-    parts = tier_parts(_operator(st, arr), tier)       # (P, i, j)
-    p = parts.shape[0]
-    nt, ks = d // MMA_N, d // MMA_K
-    v = parts.reshape(p, nt, MMA_N, ks, 2, 4, 2)        # p nt g ks half t e
-    words = v[..., 0] | (v[..., 1] << 16)               # p nt g ks half t
-    words = words.transpose(1, 3, 2, 5, 0, 4)           # nt ks g t p half
-    return np.ascontiguousarray(words).reshape(-1).view(np.float32)
+    """The operator of a tier stage (d >= 16) as the kernel's slices:
+    tier_tiles, k-step major, two bf16 to a word (the lower index in the
+    low half), viewed as f32."""
+    t = tier_tiles(_operator(st, arr), tier).reshape(-1).astype(np.uint32)
+    return (t[0::2] | (t[1::2] << 16)).view(np.float32)
+
+
+def slice_operator(st: MatStage, arr: np.ndarray, tier: str) -> np.ndarray:
+    """The flat f32 operand of a d >= 16 matrix stage as the kernel
+    streams it: slice_rows at 'highest', _tier_words at a tier."""
+    if rounds(st) and tier != "highest":
+        return _tier_words(st, arr, tier)
+    return slice_rows(_operator(st, arr)).reshape(-1)
 
 
 def _tile_pos(geo: Geometry, row_bit: int) -> int:
@@ -373,9 +414,9 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
             if arr.shape != (2, st.dim, st.dim):
                 raise ValueError(f"{st.kind} operand shape {arr.shape}")
             row = _mat_row(st, geo, tier)
-            if row[F_TIER] and st.dim >= MMA_MIN_DIM:
-                kernel_arr = _tier_words(st, arr, tier)
-                pad = -off % 4                   # 16-byte fragment loads
+            if st.dim >= SLICED_MIN_DIM:
+                kernel_arr = slice_operator(st, arr, tier)
+                pad = -off % 4                   # 16-byte bulk copies
                 chunks.append(np.zeros(pad, np.float32))
                 off += pad
         elif isinstance(st, MultiPhaseStage):
@@ -433,20 +474,25 @@ def _lib() -> ctypes.CDLL:
         vp, ci, cu, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                            ctypes.c_longlong)
         lib.quest_segment_sweep.argtypes = [vp, ci, ci, ci, cu, cu, vp, ci,
-                                            vp, cll, ci, vp, ci, ci, ci, cll,
-                                            vp]
+                                            vp, cll, ci, ci, ci, vp, ci, ci,
+                                            ci, cll, vp]
         lib.quest_segment_sweep.restype = ci
         lib.quest_segment_smem_bytes.argtypes = [ci, ci, ci]
         lib.quest_segment_smem_bytes.restype = cll
         lib.quest_segment_desc_words.restype = ci
         lib.quest_segment_max_tile_bits.restype = ci
         lib.quest_segment_max_multiphase_rows.restype = ci
+        lib.quest_segment_op_slice_bytes.restype = ci
+        lib.quest_segment_max_grid_batch.restype = ci
         lib.quest_cuda_error_string.argtypes = [ci]
         lib.quest_cuda_error_string.restype = ctypes.c_char_p
         layout = (lib.quest_segment_desc_words(),
                   lib.quest_segment_max_tile_bits(),
-                  lib.quest_segment_max_multiphase_rows())
-        if layout != (DESC_WORDS, MAX_TILE_BITS, MAX_MULTIPHASE_ROWS):
+                  lib.quest_segment_max_multiphase_rows(),
+                  lib.quest_segment_op_slice_bytes(),
+                  lib.quest_segment_max_grid_batch())
+        if layout != (DESC_WORDS, MAX_TILE_BITS, MAX_MULTIPHASE_ROWS,
+                      OP_SLICE_BYTES, MAX_GRID_BATCH):
             raise RuntimeError(f"segment kernel layout {layout} does not "
                                f"match the packer's")
         for tb in range(LANE_QUBITS + 3, MAX_TILE_BITS + 1):
@@ -461,6 +507,19 @@ def _lib() -> ctypes.CDLL:
                             f"{lay['total_bytes']}")
         lib._quest_declared = True
     return lib
+
+
+def grid_batch_slices(batch: int, driver: str) -> list:
+    """(first state, states) of each launch of one sweep over `batch`
+    states: one launch under the ring drivers (their steps fold the batch
+    in), launches of at most MAX_GRID_BATCH states (gridDim.y) under the
+    grid driver, in order."""
+    if batch < 1:
+        raise ValueError(f"a sweep needs at least one state, got {batch}")
+    if check_driver(driver) != "grid":
+        return [(0, batch)]
+    return [(s, min(MAX_GRID_BATCH, batch - s))
+            for s in range(0, batch, MAX_GRID_BATCH)]
 
 
 def batch_of(amps: torch.Tensor, n: int) -> int:
@@ -511,8 +570,9 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
                   sel: torch.Tensor = None) -> torch.Tensor:
     """Apply segment `seg` in place to `amps` — one state's planes ((2,
     2^n) or (2, rows, 128) f32) or a batch of B states ((B, 2, 2^n) or
-    (B, 2, rows, 128)) — and return it: one kernel launch on a CUDA
-    tensor whatever B is, the plain version on a CPU tensor. `sel` is
+    (B, 2, rows, 128)) — and return it: on a CUDA tensor one kernel
+    launch whatever B is (the grid driver: grid_batch_slices), the plain
+    version on a CPU tensor. `sel` is
     the selection table (slots, B, 8) its BatchSelStages read (B = 1
     for unbatched planes); None when it has none."""
     batch = _check_state(amps, seg)
@@ -523,9 +583,6 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
         return amps.copy_(out.reshape(amps.shape))
     if amps.device.type != "cuda":
         raise ValueError(f"segment_sweep runs on cuda or cpu, not {amps.device}")
-    if batch > MAX_GRID_BATCH:
-        raise ValueError(f"{batch} states exceed one launch's "
-                         f"{MAX_GRID_BATCH}")
     if amps.data_ptr() % 16:
         raise ValueError("segment_sweep needs 16-byte aligned planes "
                          "(bulk copies)")
@@ -534,24 +591,26 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
     lay = smem_layout(geo.tile_bits, geo.blocks * batch, seg.driver, seg.nbuf)
     with torch.cuda.device(amps.device):
         stream = torch.cuda.current_stream(amps.device).cuda_stream
-        rc = lib.quest_segment_sweep(
-            amps.data_ptr(), seg.n, geo.tile_bits, geo.inner_bits,
-            seg.scat_mask, seg.free_mask, seg.desc.data_ptr(),
-            len(seg.stages), seg.ops.data_ptr(), geo.blocks, batch,
-            sel.data_ptr() if seg.slots else None, TIER_CODE[seg.tier],
-            DRIVER_CODE[seg.driver], lay["slots"], lay["total_bytes"],
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"segment kernel launch ({seg.driver}, {lay['slots']} slots, "
-            f"{lay['total_bytes']} B of shared memory) failed: CUDA error "
-            f"{rc} ({lib.quest_cuda_error_string(rc).decode()})")
-    segment_sweep.launches += 1
-    segment_sweep.driver_launches[seg.driver] = (
-        segment_sweep.driver_launches.get(seg.driver, 0) + 1)
-    for label in seg.labels:
-        segment_sweep.stage_launches[label] = (
-            segment_sweep.stage_launches.get(label, 0) + 1)
+        for state0, states in grid_batch_slices(batch, seg.driver):
+            rc = lib.quest_segment_sweep(
+                amps.data_ptr(), seg.n, geo.tile_bits, geo.inner_bits,
+                seg.scat_mask, seg.free_mask, seg.desc.data_ptr(),
+                len(seg.stages), seg.ops.data_ptr(), geo.blocks, batch,
+                state0, states, sel.data_ptr() if seg.slots else None,
+                TIER_CODE[seg.tier], DRIVER_CODE[seg.driver], lay["slots"],
+                lay["total_bytes"], stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"segment kernel launch ({seg.driver}, {lay['slots']} "
+                    f"slots, {lay['total_bytes']} B of shared memory, states "
+                    f"{state0}..{state0 + states - 1}) failed: CUDA error "
+                    f"{rc} ({lib.quest_cuda_error_string(rc).decode()})")
+            segment_sweep.launches += 1
+            segment_sweep.driver_launches[seg.driver] = (
+                segment_sweep.driver_launches.get(seg.driver, 0) + 1)
+            for label in seg.labels:
+                segment_sweep.stage_launches[label] = (
+                    segment_sweep.stage_launches.get(label, 0) + 1)
     return amps
 
 

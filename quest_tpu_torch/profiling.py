@@ -1,20 +1,27 @@
 """Profiling on the card: the per-sweep split of a fused plan's time into
-its copy floor and its compute.
+its copy floor and its compute, and where a launch's blocks spend their
+cycles.
 
-A port of sweep_dma_report (quest_tpu/profiling.py:198-320); the rest of
-that module is not ported yet (ROADMAP A13). It measures on a CUDA device
-only, with CUDA events, and raises without one: a time taken on the CPU
-says nothing of the kernel.
+sweep_dma_report is a port of quest_tpu/profiling.py:198-320; the rest of
+that module is not ported yet (ROADMAP A13). segment_phase_report runs
+launches through the kernel's COUNTERS build (ops/_build.py: the same
+source with -DQUEST_PHASE_COUNTERS) and reads its per-phase cycle
+counters; fma_rate measures the fp32 FMA pipe with the same build's
+yardstick kernel. Everything here measures on a CUDA device only, with
+CUDA events or the SMs' clocks, and raises without one: a time taken on
+the CPU says nothing of the kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import torch
 
 from quest_tpu_torch import precision
 from quest_tpu_torch.env import knob_value, resolve_device
+from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops import band_plan as BP
 from quest_tpu_torch.ops.segment import prepare_segment, segment_sweep
 from quest_tpu_torch.state import basis_planes, fused_state_shape
@@ -98,6 +105,88 @@ def sweep_dma_report(n: int = 28, reps: int = 5, circuit=None,
             f"{adder:.3f} ms ({'copy-bound' if bound else 'chain-bound'})")
     del amps
     return rec
+
+
+# csrc/segment.cu PC_* counters, in order
+PHASES = ("slice_wait", "slice_release", "prologue", "chain", "block")
+PHASE_COUNTERS = 6                # csrc PC_COUNT (the last: blocks)
+
+
+def _counters_lib() -> ctypes.CDLL:
+    lib = _build.load(_build.COUNTERS)
+    lib.quest_segment_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.quest_segment_phase_cycles.restype = ctypes.c_int
+    lib.quest_fma_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]
+    lib.quest_fma_probe.restype = ctypes.c_int
+    return lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc}")
+
+
+def segment_phase_report(amps: torch.Tensor, seg, reps: int = 3) -> dict:
+    """Where one launch of `seg` on `amps` (in place, on the card) spends
+    its cycles, from the COUNTERS build: per block (thread 32, a compute
+    warp), the cycles waiting for operator slices (`slice_wait`), in the
+    block barriers that release them and refill their slots
+    (`slice_release`), in step prologues (K1/K2: from a step's start until
+    its tile has landed, the copies issued meanwhile; K3: the tile's
+    gather), in the stage chain (`chain`, which holds the slice waits and
+    releases) and in the whole block (`block`); each beside its share of
+    `block`. `ms` is the counters build's mean launch time over `reps`
+    launches (CUDA events); the counters add a few atomics per phase."""
+    if amps.device.type != "cuda":
+        raise ValueError(f"segment_phase_report reads the card's counters; "
+                         f"got device {amps.device}")
+    lib = _counters_lib()
+    cycles = (ctypes.c_ulonglong * PHASE_COUNTERS)()
+    with _build.active(_build.COUNTERS):
+        ms = _launch_ms(amps, seg, reps)
+        torch.cuda.synchronize()
+        _check(lib.quest_segment_phase_cycles(cycles, 1), "counter reset")
+        segment_sweep(amps, seg)
+        torch.cuda.synchronize()
+        _check(lib.quest_segment_phase_cycles(cycles, 1), "counter read")
+    blocks = max(1, int(cycles[5]))
+    per_block = {k: cycles[i] / blocks for i, k in enumerate(PHASES)}
+    share = {k: per_block[k] / max(1.0, per_block["block"]) for k in PHASES}
+    return {"ms": ms, "blocks": blocks, "cycles_per_block": per_block,
+            "share_of_block": share}
+
+
+def fma_rate(device=None, iters: int = 20000, reps: int = 5) -> dict:
+    """The fp32 FMA rate the card sustains at its clocks and power limit:
+    one block of 256 threads per SM, 128 independent FMA chains a thread
+    (the COUNTERS build's yardstick kernel), median of `reps` launches
+    (CUDA events). Returns tflops beside the launch's ms."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"fma_rate times the card; got device {dev}")
+    lib = _counters_lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(sms * 256, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        _check(lib.quest_fma_probe(out.data_ptr(), sms, iters, stream),
+               "fma probe launch")
+    launch()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = sorted(times)[len(times) // 2]
+    flops = 2.0 * 128 * iters * 256 * sms
+    return {"ms": ms, "tflops": flops / ms / 1e9, "sms": sms,
+            "iters": iters}
 
 
 if __name__ == "__main__":

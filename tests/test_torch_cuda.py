@@ -449,3 +449,80 @@ def test_default_program_runs_the_decoupled_driver(card, monkeypatch):
             driver: fn.launches_per_call}
         outs.append(amps)
     assert torch.equal(outs[0], outs[1])
+
+
+# ---- batches above the grid's 65535 states; diagonal targets above 31 ----
+
+BIG_BATCH = 65536 + 3
+
+
+@pytest.mark.parametrize("driver,nbuf", RING_DRIVERS[:3] + [("grid", 3)],
+                         ids=lambda v: str(v))
+def test_batch_above_grid_limit(card, driver, nbuf):
+    """65,539 states of 10 qubits (0.5 GiB) through one segment — each
+    state's own channel row (S9 reads row slot * B + state), a b0 and a
+    phase — under every driver: against the plain version, and bit for
+    bit against the batch split by hand at 65,535 (the grid driver's
+    slices; its two launches counted)."""
+    n, batch = 10, BIG_BATCH
+    rng = np.random.default_rng(31)
+    stages = [(BP.BatchSelStage(3, 0, True), np.zeros((1, 8), np.float32)),
+              _mat(rng, "b0", 128), _phase_rows(rng)[0]]
+    seg = S.prepare_segment([s for s, _ in stages], [g for _, g in stages],
+                            n, card, driver=driver, nbuf=nbuf)
+    planes = torch.from_numpy(rng.standard_normal(
+        (batch, 2, 1 << n)).astype(np.float32)).to(card)
+    sel = torch.from_numpy(chip_smoke.sel_table(rng, 1, batch)).to(card)
+    want = S.segment_sweep_reference(planes, seg.stages, seg.operands, n, sel)
+    got = planes.clone()
+    before = S.segment_sweep.driver_launches.get(driver, 0)
+    S.segment_sweep(got, seg, sel)
+    torch.cuda.synchronize()
+    launches = 2 if driver == "grid" else 1
+    assert S.segment_sweep.driver_launches[driver] == before + launches
+    scale = want.abs().max().item()
+    assert (got - want.reshape(got.shape)).abs().max().item() <= 1e-5 * scale
+    cut = S.MAX_GRID_BATCH
+    halves = []
+    for lo, hi in ((0, cut), (cut, batch)):
+        part = planes[lo:hi].clone()
+        S.segment_sweep(part, seg, sel[:, lo:hi].contiguous())
+        halves.append(part)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.cat(halves))
+
+
+def test_diagonal_target_above_bit_31(card):
+    """A diagonal on qubits (32, 3) of a 33-qubit state (64 GiB): a
+    sparse state (basis amplitudes with qubit 32 and qubit 3 set and
+    clear) gets each amplitude times the table entry its bits select, on
+    K1; the rest stays 0 (a norm summed in chunks)."""
+    n = 33
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    assert free >= (2 << n) * 4 + (1 << 30), "needs 65 GiB free on the card"
+    rng = np.random.default_rng(33)
+    table = np.exp(1j * rng.uniform(0, 2 * np.pi, 4))
+    arr = np.stack([table.real, table.imag]).astype(np.float32)
+    seg = S.prepare_segment([BP.DiagVecStage((32, 3), (), ())], [arr], n,
+                            card)
+    idx = [0, 8, (1 << 32) + 5, (1 << 32) + 8 + 130, (1 << 31) + 9,
+           (1 << 33) - 1]
+    vals = rng.standard_normal((len(idx), 2)).astype(np.float32)
+    amps = torch.zeros((2, 1 << n), device=card)
+    for k, i in enumerate(idx):
+        amps[0, i], amps[1, i] = float(vals[k, 0]), float(vals[k, 1])
+    S.segment_sweep(amps, seg)
+    torch.cuda.synchronize()
+    norm = sum(amps[:, a:a + (1 << 26)].double().pow(2).sum().item()
+               for a in range(0, 1 << n, 1 << 26))
+    want_norm = 0.0
+    for k, i in enumerate(idx):
+        e = ((i >> 32) & 1) | (((i >> 3) & 1) << 1)
+        w = complex(vals[k, 0], vals[k, 1]) * complex(arr[0, e], arr[1, e])
+        got = complex(amps[0, i].item(), amps[1, i].item())
+        assert abs(got - w) <= 1e-6, (i, got, w)
+        want_norm += abs(w) ** 2
+    assert abs(norm - want_norm) <= 1e-6
+    del amps
+    torch.cuda.empty_cache()

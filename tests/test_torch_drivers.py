@@ -457,8 +457,37 @@ def test_smem_layout_clamps_every_tile_size():
             # one more slot would not fit, unless nbuf asked for no more
             more = BP.smem_layout(tile_bits, 1 << 20, "inplace", 8)
             assert more["slots"] == BP.ring_fit(tile_bits)
-    assert [BP.ring_fit(b) for b in range(10, 15)] == [8, 8, 8, 7, 3]
-    assert BP.smem_layout(14, 1 << 20, "decoupled")["total_bytes"] == 197912
+    # the operator ring (2 x 16 KiB slices and their mbarriers) sits
+    # beside the plane slots under every driver: one slot fewer at 13 bits
+    assert [BP.ring_fit(b) for b in range(10, 15)] == [8, 8, 8, 6, 3]
+    assert BP.smem_layout(14, 1 << 20, "decoupled")["total_bytes"] == 230696
+    assert BP.smem_layout(14, 1 << 20, "grid")["total_bytes"] == 165136
+    assert BP.smem_layout(14, 1 << 20, "grid")["op_ring_bytes"] == 32784
+
+
+@pytest.mark.parametrize("batch", [1, 64, 65535, 65536, 65539,
+                                   3 * 65535 + 1])
+@pytest.mark.parametrize("driver", BP.DRIVERS)
+def test_grid_batch_slices_cover_the_batch(driver, batch):
+    """Batches of any size (ROADMAP C1): the ring drivers fold the batch
+    into their steps and launch once; the grid driver, whose gridDim.y
+    holds at most 65535 states, launches consecutive slices of at most
+    that many, each from its first state, covering [0, B) once, in as
+    few launches as the limit allows."""
+    slices = S.grid_batch_slices(batch, driver)
+    if driver != "grid":
+        assert slices == [(0, batch)]
+        return
+    assert slices[0][0] == 0
+    assert all(1 <= k <= S.MAX_GRID_BATCH for _, k in slices)
+    assert all(a + k == b for (a, k), (b, _) in zip(slices, slices[1:]))
+    assert sum(k for _, k in slices) == batch
+    assert len(slices) == -(-batch // S.MAX_GRID_BATCH)
+
+
+def test_grid_batch_slices_refuse_an_empty_batch():
+    with pytest.raises(ValueError):
+        S.grid_batch_slices(0, "grid")
 
 
 # ---------------------------------------------------------------------------

@@ -290,7 +290,7 @@ def test_kernel_model_at_tier_matches_numpy_model(spec, tier):
     st, g, planes, seg = _stage_case(spec, tier)
     desc = seg.desc.numpy()[0]
     assert desc[S.F_TIER] == S.TIER_CODE[tier]
-    if st.dim >= S.MMA_MIN_DIM:
+    if st.dim >= S.SLICED_MIN_DIM:
         assert desc[S.F_OP_OFF] % 4 == 0             # 16-byte loads
         assert seg.ops.numel() == st.dim * st.dim * (4 if tier == "high"
                                                      else 2) // 2

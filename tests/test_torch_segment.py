@@ -131,9 +131,7 @@ def _emulate_state(planes, seg, table, batch, state_idx):
                 if tier:
                     new[addr] = _emulate_tier_mat(x[addr], d, raw, off, tier)
                 else:
-                    o = (off + i[:, None] * int(d[S.F_SI])
-                         + i[None, :] * int(d[S.F_SJ]))
-                    g = ops[o] + (0 if d[S.F_REAL] else 1j * ops[o + dim * dim])
+                    g = _highest_operator(d, ops, off)
                     new[addr] = x[addr] @ g.T
                 if d[S.F_MASKED]:
                     ok = (((lane & int(d[S.F_LANE_MASK])) == d[S.F_LANE_WANT])
@@ -168,11 +166,7 @@ def _emulate_state(planes, seg, table, batch, state_idx):
                 k = int(d[S.F_DIM])
                 tab = ops[off:off + (1 << k)] + 1j * ops[off + (1 << k):
                                                          off + (2 << k)]
-                gidx = (row << 7) | lane
-                entry = np.zeros(len(x), dtype=np.int64)
-                for j in range(k):
-                    q = (int(d[S.F_TARGETS]) >> (S.TARGET_BITS * j)) & 63
-                    entry |= ((gidx >> q) & 1) << j
+                entry = diag_entries(d, lane, row)
                 ok = (((lane & int(d[S.F_LANE_MASK])) == d[S.F_LANE_WANT])
                       & ((row & int(d[S.F_ROW_MASK])) == d[S.F_ROW_WANT]))
                 x = np.where(ok, x * tab[entry], x)
@@ -214,6 +208,36 @@ def _emulate_state(planes, seg, table, batch, state_idx):
     return state
 
 
+def _highest_operator(d, ops, off):
+    """G (dim, dim) complex of a HIGHEST matrix stage as the kernel reads
+    it: d >= 16 from the slice rows (row j = [Gre[:, j], Gim[:, j]]),
+    narrower through the strides F_SI/F_SJ (G[i, j] = op[i*si + j*sj])."""
+    dim = int(d[S.F_DIM])
+    if dim >= S.SLICED_MIN_DIM:
+        rows = ops[off:off + 2 * dim * dim].reshape(dim, 2, dim)
+        g = rows[:, 0].T + (0 if d[S.F_REAL] else 1j * rows[:, 1].T)
+        return g
+    i = np.arange(dim)
+    o = off + i[:, None] * int(d[S.F_SI]) + i[None, :] * int(d[S.F_SJ])
+    return ops[o] + (0 if d[S.F_REAL] else 1j * ops[o + dim * dim])
+
+
+def diag_entries(d, lane, row):
+    """Table index of each element (lane, tile row id) under a diagonal
+    descriptor, as the kernel computes it: bit j is the element's global
+    bit targets[j], read from the lane (q < 7) or from bit q - 7 of the
+    row id (int32 arithmetic; the row id of an n-qubit element is below
+    2^(n - 7))."""
+    lane = np.asarray(lane, np.int32)
+    row = np.asarray(row, np.int32)
+    entry = np.zeros(np.broadcast(lane, row).shape, dtype=np.int32)
+    for j in range(int(d[S.F_DIM])):
+        q = (int(d[S.F_TARGETS]) >> (S.TARGET_BITS * j)) & 63
+        bit = (lane >> q) & 1 if q < LANE_BITS else (row >> (q - LANE_BITS)) & 1
+        entry = entry | (bit << j)
+    return entry
+
+
 def bf16_rne(v: np.ndarray) -> np.ndarray:
     """f32 values rounded to bf16, round-to-nearest-even, from the bits."""
     u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
@@ -245,22 +269,32 @@ def np_tier_dot(x: np.ndarray, g: np.ndarray, tier: str) -> np.ndarray:
 TIER_NAMES = {1: "high", 2: "default"}
 
 
+def tier_operator_parts(raw, off, dim, nparts):
+    """(nparts, dim, dim) f32 parts [out i, in j] of a tier stage decoded
+    from the kernel's slices: per k-step and part a wgmma B tile, K-major
+    8x8 core matrices (output group, input half, output, input), inputs
+    and outputs in operand_perm order, two bf16 to a word."""
+    w = raw[off:off + dim * dim * nparts // 2].view(np.uint32)
+    b = np.stack([w & 0xFFFF, w >> 16], -1).reshape(
+        dim // 16, nparts, dim // 8, 2, 8, 8)       # ks p ng kh nr kr
+    b = b.transpose(1, 2, 4, 0, 3, 5).reshape(nparts, dim, dim)  # p n k
+    perm = S.operand_perm(dim)
+    parts = np.empty_like(b)
+    parts[:, perm[:, None], perm[None, :]] = b
+    return (parts.astype(np.uint32) << 16).view(np.float32)
+
+
 def _emulate_tier_mat(xf, d, raw, off, tier):
     """A matrix stage at a tier, as the kernel computes it: fibers xf
     (F, dim) complex, rounded from the f32 tile; the operator from the
-    buffer — tensor-core B fragments (dim >= 16: lane 4g + t of block
-    (nt, ks) holds bf16x2 words of G[8nt+g, 16ks+2t+{0,1}] and
-    G[.., 16ks+2t+{8,9}] for each part) or f32 planes read through the
-    strides (narrower) — and the real-block form of the products."""
+    buffer — wgmma B tiles (dim >= 16, tier_operator_parts) or f32 planes
+    read through the strides (narrower) — and the real-block form of the
+    products."""
     name = TIER_NAMES[tier]
     dim = int(d[S.F_DIM])
-    if dim >= S.MMA_MIN_DIM:
+    if dim >= S.SLICED_MIN_DIM:
         nparts = 4 if name == "high" else 2
-        w = raw[off:off + dim * dim * nparts // 2].view(np.uint32)
-        w = w.reshape(dim // 8, dim // 16, 8, 4, nparts, 2)
-        pair = np.stack([w & 0xFFFF, w >> 16], -1)   # nt ks g t p half e
-        parts = pair.transpose(4, 0, 2, 1, 5, 3, 6).reshape(nparts, dim, dim)
-        vals = (parts.astype(np.uint32) << 16).view(np.float32)
+        vals = tier_operator_parts(raw, off, dim, nparts)
         vals = vals.astype(np.float64)
         if name == "high":
             gre, gim = (vals[0], vals[1]), (vals[2], vals[3])
@@ -484,3 +518,123 @@ def test_unported_stage_kinds_raise(monkeypatch):
     monkeypatch.delenv("QUEST_MATMUL_PRECISION")
     with pytest.raises(NotImplementedError, match="ROADMAP B"):
         S.check_supported([object()])
+
+
+# ---------------------------------------------------------------------------
+# the diagonal's index above bit 31 (ROADMAP C2)
+# ---------------------------------------------------------------------------
+
+
+def _tile_row_ids(seg, blk):
+    """Global row ids of tile `blk`'s rows as the kernel builds them: the
+    free row bits from the tile index, then inner rows and scattered
+    bits (tile_base, tile_row)."""
+    geo = seg.geometry
+    free = [b for b in range(32) if (seg.free_mask >> b) & 1]
+    scat = [b for b in range(32) if (seg.scat_mask >> b) & 1]
+    base = sum(((blk >> k) & 1) << bit for k, bit in enumerate(free))
+    r = np.arange(1 << (geo.tile_bits - LANE_BITS))
+    local = r & ((1 << geo.inner_bits) - 1)
+    for k, bit in enumerate(scat):
+        local = local | (((r >> (geo.inner_bits + k)) & 1) << bit)
+    return base | local
+
+
+def test_diag_index_keeps_target_bits_above_31():
+    """At 33 qubits a diagonal on qubits (32, 3, 25): the kernel's table
+    index (diag_entries: lane bits below 7, tile-row-id bits above, the
+    reference's _bit_of) equals the bits of each element's global index,
+    on the first and last tiles and one between (row bit 25, qubit 32,
+    clear and set). The 32-bit global index the kernel built before,
+    (row << 7 | lane) as an unsigned 32-bit value, loses qubit 32: it
+    disagrees here, so this check catches that form."""
+    n = 33
+    st = BP.DiagVecStage((32, 3, 25), (), ())
+    table = np.zeros((2, 8), np.float32)
+    table[0] = 1.0
+    seg = S.prepare_segment([st], [table], n, "cpu")
+    d = seg.desc.numpy()[0]
+    lane = np.arange(128)[None, :]
+    seen = set()
+    for blk in (0, seg.geometry.blocks // 2 + 5, seg.geometry.blocks - 1):
+        rows = _tile_row_ids(seg, blk)[:, None]
+        got = diag_entries(d, lane, rows)
+        gidx = (rows.astype(np.int64) << 7) | lane
+        want = sum(((gidx >> q) & 1) << j for j, q in enumerate(st.targets))
+        np.testing.assert_array_equal(got, want)
+        seen |= set(np.unique((gidx >> 32) & 1).tolist())
+        old = ((gidx & 0xFFFFFFFF) >> 32) & 1       # bit 32 of a u32: gone
+        if (gidx >> 32).any():
+            assert ((old << 0) != ((gidx >> 32) & 1)).any()
+    assert seen == {0, 1}
+
+
+# ---------------------------------------------------------------------------
+# the sliced operators of d >= 16 (HIGHEST slice rows, wgmma B tiles)
+# ---------------------------------------------------------------------------
+
+
+SLICED = [("b0", 128, -1), ("b1", 16, -1), ("b1", 32, -1), ("b1", 64, -1),
+          ("b1", 128, -1), ("scb", 16, 3), ("scb", 64, 2), ("scb", 128, 0)]
+
+
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+@pytest.mark.parametrize("kind,dim,bit", SLICED, ids=lambda v: str(v))
+def test_sliced_operator_round_trips(kind, dim, bit, tier):
+    """The kernel's slices decode to the operator G[out, in] (the
+    planner's orientation undone): HIGHEST rows [Gre[:, j], Gim[:, j]];
+    at a tier, the tier's bf16 parts through the wgmma tiles and
+    operand_perm. Slices are whole: OP_SLICE_BYTES each, or the whole
+    operator when it is smaller."""
+    rng = np.random.default_rng(dim + len(kind))
+    _, _, st, g = _mat(rng, kind, kind, dim, bit=bit)
+    flat = S.slice_operator(st, g, tier)
+    G = S._operator(st, g)
+    if tier == "highest":
+        d = np.zeros(S.DESC_WORDS, np.int64)
+        d[S.F_DIM] = dim
+        got = _highest_operator(d, flat.astype(np.float64), 0)
+        np.testing.assert_array_equal(got, G[0] + 1j * G[1].astype(np.float64))
+    else:
+        nparts = 4 if tier == "high" else 2
+        got = tier_operator_parts(flat, 0, dim, nparts)
+        want = S.tier_parts(G, tier).astype(np.uint32) << 16
+        np.testing.assert_array_equal(got.view(np.uint32), want)
+    assert flat.nbytes == (2 if tier == "highest" else nparts // 2) * 4 * (
+        dim * dim)
+    assert flat.nbytes % min(flat.nbytes, S.OP_SLICE_BYTES) == 0
+
+
+def test_operand_perm_places_four_consecutive_elements():
+    """perm16: fragment columns 2t, 2t + 1, 2t + 8, 2t + 9 of a 16-group
+    carry elements 4t .. 4t + 3 (one float4 per thread), a permutation."""
+    perm = S.operand_perm(128)
+    assert sorted(perm.tolist()) == list(range(128))
+    for g16 in range(0, 128, 16):
+        for t in range(4):
+            cols = [g16 + 2 * t, g16 + 2 * t + 1, g16 + 2 * t + 8,
+                    g16 + 2 * t + 9]
+            assert perm[cols].tolist() == list(range(g16 + 4 * t,
+                                                     g16 + 4 * t + 4))
+
+
+@pytest.mark.parametrize("real", [False, True], ids=["complex", "real"])
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+@pytest.mark.parametrize("kind,dim,bit", SLICED, ids=lambda v: str(v))
+def test_emulated_sliced_stage_matches_plain_version(kind, dim, bit, tier,
+                                                     real):
+    """Every width, tier and real form of a d >= 16 matrix stage, with
+    lane and row predicates, through the kernel model on its slices and
+    the plain version at the tier (15 qubits: two tiles of a b1 d=128
+    stage, more for the narrower ones)."""
+    n = 15
+    rng = np.random.default_rng(dim * 7 + len(kind) + real)
+    stage = _mat(rng, kind, kind, dim, real, ((5, 1),), ((2, 0),), bit=bit)
+    seg = S.prepare_segment([stage[2]], [stage[3]], n, "cpu", tier=tier)
+    planes = _state(n, seed=dim)
+    want = S.segment_sweep_reference(torch.from_numpy(planes), seg.stages,
+                                     seg.operands, n, tier=tier).numpy()
+    got = emulate_kernel(planes, seg)
+    np.testing.assert_allclose(got, want.reshape(2, -1),
+                               atol=TOL * float(np.abs(want).max()), rtol=0)
+    assert int(seg.desc.numpy()[0, S.F_OP_OFF]) % 4 == 0   # bulk copies
