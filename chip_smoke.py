@@ -14,9 +14,11 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      phase-counter build beside it (two nvcc processes at once);
      probe: in a subprocess with a 120 s timeout (a slip of an mbarrier's
      phase hangs rather than errs), the first launches of every driver —
-     K1, K2 at 2, 3 and 8 plane slots, K3 — on every stage case below
-     and on segments whose blocks walk many tiles (26 qubits, an 11-bit
-     tile, 16 states): bit-identical to K3;
+     K1, K2 at 2, 3 and 8 plane slots, K3 — on every stage case below,
+     on segments whose blocks walk many tiles (26 qubits, an 11-bit
+     tile, 16 states) and on the scattered-row geometries of the paths'
+     plans ((0,(7,)), (4,(1,1,1)), (0,(6,1)), (5,(1,1)): 5 states, a
+     diagonal with controls): bit-identical to K3;
   2. per-stage check at 20 qubits: one segment per stage kind S1-S8 and
      S10 (b0; b1 d=128 and d=32; scb d=128/64/4, one real; sc; phase;
      parity; multiphase; a matrix stage with lane and row predicates;
@@ -40,10 +42,14 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      its driver, median ms per driver; dma_floor: at 28 qubits, per
      driver, profiling.sweep_dma_report (the stage-free launch, each
      flagship sweep's total and compute adder), the stage-free launch on
-     a scattered-row geometry (7 scattered row bits) and single-stage
-     launches
-     beside the bound and a torch copy_ of the planes (the yardstick,
-     never called by the port); sanitize: compute-sanitizer memcheck and
+     a scattered-row geometry (7 scattered row bits) beside its time
+     before the tensor-map copies and its requests per plane, and
+     single-stage launches beside the bound and a torch copy_ of the
+     planes (the yardstick, never called by the port); under K1 the
+     tensor-map copy units (512-byte rows, one box per plane, 2 and 4
+     parts refilled one by one) on the scattered and inner-row copies and
+     on scb-128 and b0 at DEFAULT, and the host time of one map's
+     encoding; sanitize: compute-sanitizer memcheck and
      racecheck on a 17-qubit segment per driver, in subprocesses
      (memcheck must be clean where the tool brings the device up; where
      it cannot, its message is recorded);
@@ -107,13 +113,16 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      a lane bit, a row bit and a scattered bit: kernel, plain version
      and, where PyTorch computes the same function, that yardstick (the
      port never calls it): one call, or for HIGH the three bf16 calls of
-     the split parts together. b0, b1-128 and scb-128 also print the
-     time of their body before its redesign (before_redesign_ms);
+     the split parts together. b0, b1-128 and scb-128 at every tier and
+     the diagonal also print their time before the tensor-map copies and
+     S8's redesign (before_redesign_ms);
  16. phase_counters: the same b0, b1-128 and scb-128 launches at each
      tier and a phase stage through the kernel's phase-counter build
      (profiling.segment_phase_report: cycles per block in operator-slice
-     waits and releases, step prologues and the chain), and the fp32 FMA
-     rate the card sustains (profiling.fma_rate).
+     waits and releases, step prologues and the chain) with the
+     prologue's share on inner-row (b0, b1) and scattered-row (scb-128)
+     tiles per tier, and the fp32 FMA rate the card sustains
+     (profiling.fma_rate).
 
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
@@ -483,6 +492,45 @@ def stage_cases(rng):
     st, arr = diag((22, 3, 8), (), ((15, 1),))
     cases.append(("diagvec_row_bit_15", 23, [st], [arr]))
     return cases
+
+
+def geometry_groups(geo):
+    """(inner row bits, lengths of the contiguous groups of scattered row
+    bits, lowest first) of a segment geometry: the shape of its tiles'
+    copies."""
+    scat, groups = sorted(geo.scat), []
+    for b in scat:
+        if groups and b == prev + 1:
+            groups[-1] += 1
+        else:
+            groups.append(1)
+        prev = b
+    return geo.inner_bits, tuple(groups)
+
+
+def tma_cases(rng):
+    """(name, n, batch, stages, arrays, geometry_groups): segments over 5
+    states of 20 qubits whose tiles take the scattered-row geometries of
+    the paths' plans — (0,(7,)), (4,(1,1,1)), (0,(6,1)) and (5,(1,1)),
+    several tensor-map requests per part where the groups are split —
+    each ending in a diagonal with a lane and a row control whose targets
+    are a lane bit, the lowest scattered bit and a free row bit."""
+    from quest_tpu_torch.ops import band_plan as BP
+    n, batch = 20, 5
+    geos = {"scat_0_7": [mat_op(rng, "scb", 128, bit=6)],
+            "scat_4_111": [mat_op(rng, "sc", 2, bit=b) for b in (5, 8, 11)],
+            "scat_0_61": [mat_op(rng, "scb", 64, bit=3),
+                          mat_op(rng, "sc", 2, bit=11)],
+            "scat_5_11": [mat_op(rng, "sc", 2, bit=b) for b in (6, 9)]}
+    out = []
+    for name, ops in geos.items():
+        geo = BP.segment_geometry([s for s, _ in ops], n)
+        free = max(b for b in range(n - 7) if b not in geo.scat)
+        ops = ops + [diag_op(rng, (2, 7 + min(geo.scat), 7 + free),
+                             ((0, 1),), ((max(geo.scat), 1),))]
+        out.append((name, n, batch, [s for s, _ in ops], [a for _, a in ops],
+                    geometry_groups(geo)))
+    return out
 
 
 def batchsel_op(q, slot, barrier=True):
@@ -1429,14 +1477,16 @@ def _diag_library(torch, arr, amps, q):
     return time_ms(torch, lambda: x * t.reshape(1, 2, 1), 5)
 
 
-# The matrix-stage bodies before their redesign (FMA loads of the operator
-# per warp from L2; mma.sync): K1 single-stage ms at 28 qubits on an NVIDIA
-# H100 80GB HBM3 at 700 W, from this script's stage_timing phase on the
-# tree of that time (PERF.md), printed beside the new times.
-BEFORE_REDESIGN_MS = {"b0": 11.56, "b1": 13.51, "scb128": 14.78,
-                      "b0@high": 4.45, "b1@high": 4.36, "scb128@high": 5.31,
-                      "b0@default": 3.48, "b1@default": 3.20,
-                      "scb128@default": 4.25}
+# K1 single-stage ms at 28 qubits before the ring drivers' tensor-map
+# copies and S8's hoisted indexing (tiles moved as one 512-byte bulk copy
+# per row on scattered-row tiles, whole-plane refills; S8 reading its table
+# through L1 per element), on an NVIDIA H100 80GB HBM3 at 700 W, from this
+# script's stage_timing phase on the tree of that time (PERF.md), printed
+# beside the new times.
+BEFORE_REDESIGN_MS = {"b0": 6.66, "b1": 6.96, "scb128": 9.08,
+                      "b0@high": 2.26, "b1@high": 2.28, "scb128@high": 4.45,
+                      "b0@default": 1.81, "b1@default": 1.78,
+                      "scb128@default": 3.83, "diagvec": 1.92}
 
 
 def phase_stage_timing(torch):
@@ -1548,8 +1598,17 @@ def phase_phase_counters(torch):
     out.append(dict(rec, name="phase"))
     del planes
     torch.cuda.empty_cache()
+    # the K1 step prologue's share of a block: inner-row tiles (b0, b1)
+    # against scattered-row tiles (scb-128), per tier
+    share = {r["name"]: r["share_of_block"]["prologue"] for r in out}
+    prologue = {tier: {"inner_rows": max(share[S.stage_label(st, tier)]
+                                         for _, (st, _) in cases[:2]),
+                       "scattered_rows": share[S.stage_label(cases[2][1][0],
+                                                             tier)]}
+                for tier in ("highest",) + TIERS}
     rec = {"phase": "phase_counters", "n": n, "driver": "decoupled",
-           "launches": out, "fma_rate": profiling.fma_rate()}
+           "launches": out, "prologue_share": prologue,
+           "fma_rate": profiling.fma_rate()}
     emit(rec)
     return rec
 
@@ -1753,11 +1812,13 @@ def ring_cases(rng):
 
 def probe_drivers(torch):
     """The first launches of every driver, meant to run in a subprocess
-    with a timeout (a slip of an mbarrier's phase hangs a block): every
-    stage case and batched case of the stages phase and every ring case,
-    under K1, K2 at 2, 3 and 8 slots and K3, each bit-identical to K3
-    (max|diff| == 0) and K3 within the stage tolerance of the plain
-    version on the ring cases."""
+    with a timeout (a slip of an mbarrier's phase or of a bulk-group count
+    hangs a block): every stage case and batched case of the stages phase,
+    every ring case and the scattered-row geometries of tma_cases (several
+    tensor-map requests and store groups per plane), under K1, K2 at 2, 3
+    and 8 slots and K3, each bit-identical to K3 (max|diff| == 0) and K3
+    within the stage tolerance of the plain version on the ring and
+    tensor-map cases."""
     from quest_tpu_torch.ops import segment as S
     rng = np.random.default_rng(20261017)
     configs = dict(DRIVER_CONFIGS, **{"K2/8": ("inplace", 8)})
@@ -1765,8 +1826,9 @@ def probe_drivers(torch):
     cases += [(nm, n, b, st, ar)
               for nm, n, b, st, ar, _ in batch_stage_cases(rng)]
     results = []
+    plain_checked = ring_cases(rng) + [c[:5] for c in tma_cases(rng)]
     for (name, n, batch, stages, arrays), ring in (
-            [(c, False) for c in cases] + [(c, True) for c in ring_cases(rng)]):
+            [(c, False) for c in cases] + [(c, True) for c in plain_checked]):
         shape = (batch, 2, 1 << n) if batch else (2, 1 << n)
         planes = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).cuda()
@@ -1960,16 +2022,84 @@ def scattered_copy(torch, S, op, n, driver, nbuf):
                                slots=(), ops=torch.zeros(4, device="cuda"))
 
 
+# The scattered-row stage-free launch before the tensor-map copies (one
+# 512-byte bulk copy per row from warp 0's lanes): ms at 28 qubits on an
+# NVIDIA H100 80GB HBM3 at 700 W, this script's dma_floor phase on the
+# tree of that time (PERF.md), printed beside the new times.
+SCATTERED_BEFORE_MS = {"K1": 2.542, "K2/2": 2.597, "K2/3": 2.531,
+                       "K3": 2.923}
+# copy units compared on the card: (parts per plane, rows per box; None:
+# the most the geometry takes). "plane" is the kernel's default; the
+# parts refill a slot part by part.
+COPY_UNITS = {"rows_512B": (1, 1), "plane": (1, None), "parts_2": (2, None),
+              "parts_4": (4, None)}
+ENCODE_REPS = 2000
+
+
+def copy_unit_timing(torch, S, cases, planes, reps=5):
+    """Each (name, segment) of `cases` under every COPY_UNITS unit, in two
+    rounds (the second in reverse order): its requests per plane and the
+    median ms of each round; the planes must come out the same under
+    every unit."""
+    out = {}
+    for name, seg in cases:
+        rec = {}
+        want = None
+        for rnd, order in enumerate((list(COPY_UNITS), list(COPY_UNITS)[::-1])):
+            for unit in order:
+                cu = COPY_UNITS[unit]
+                amps = planes.clone()
+                S.segment_sweep(amps, seg, copy_unit=cu)
+                torch.cuda.synchronize()
+                if want is None:
+                    want = amps.clone()     # the timing below runs in place
+                elif not torch.equal(amps, want):
+                    raise AssertionError(f"dma_floor {name}: unit {unit} "
+                                         f"changed the planes")
+                ms = time_ms(torch, lambda: S.segment_sweep(
+                    amps, seg, copy_unit=cu), reps)
+                r = rec.setdefault(unit, {
+                    "requests_per_plane": S.tma_unit(seg, 1, cu)[
+                        "requests_per_plane"], "ms": []})
+                r["ms"].append(ms)
+                del amps
+        for r in rec.values():
+            r["median_ms"] = statistics.median(r["ms"])
+        out[name] = rec
+        del want
+        torch.cuda.empty_cache()
+    return out
+
+
+def tma_encode_us(torch, S, seg, planes):
+    """Host microseconds of one tensor-map encoding (each ring launch
+    encodes one), over ENCODE_REPS encodings."""
+    geo = seg.geometry
+    lib = S._lib()
+    boxes = S.tma_unit(seg, 1)
+    t0 = time.perf_counter()
+    rc = lib.quest_segment_tma_encode(
+        planes.data_ptr(), seg.n, geo.tile_bits, geo.inner_bits,
+        seg.scat_mask, 1, boxes["parts"], boxes["box_rows"], ENCODE_REPS)
+    us = (time.perf_counter() - t0) / ENCODE_REPS * 1e6
+    if rc != 0:
+        raise AssertionError(f"dma_floor: tensor-map encoding failed: {rc}")
+    return us
+
+
 def phase_dma_floor(torch):
     """The copy floor and the pass under every driver at 28 qubits:
     profiling.sweep_dma_report (the stage-free launch and each flagship
     sweep's total and compute adder), the stage-free launch on a
-    scattered-row geometry (scb-128's tiles: 7 scattered row bits) and
-    single-stage launches of byte-bound kinds (phase, parity, a Kraus
-    pair) and b0, per configuration,
-    beside the bound (the state read and written once) and the
-    yardstick: a torch copy_ of the planes into a second buffer (never
-    called by the port)."""
+    scattered-row geometry (scb-128's tiles: 7 scattered row bits) beside
+    its time before the tensor-map copies, the tensor-map requests per
+    plane, and single-stage launches of byte-bound kinds (phase, parity,
+    a Kraus pair) and b0, per configuration, beside the bound (the state
+    read and written once) and the yardstick: a torch copy_ of the planes
+    into a second buffer (never called by the port). Under K1, the copy
+    units of COPY_UNITS on the scattered and the inner-row stage-free
+    launches and on scb-128 and b0 at DEFAULT (copy_unit_timing), and the
+    host time of one tensor-map encoding."""
     from quest_tpu_torch import profiling
     from quest_tpu_torch.ops import segment as S
     n = TIMING_QUBITS
@@ -1996,8 +2126,7 @@ def phase_dma_floor(torch):
             single[name] = time_ms(torch, lambda: S.segment_sweep(planes, seg),
                                    5)
         # the copy floor of a scattered-row geometry (7 scattered row
-        # bits, one 512-byte bulk copy per row): an scb-128 segment's
-        # tiles with its stage taken out
+        # bits): an scb-128 segment's tiles with its stage taken out
         seg = scattered_copy(torch, S, scb, n, driver, nbuf)
         before = planes.clone()
         S.segment_sweep(planes, seg)
@@ -2010,13 +2139,31 @@ def phase_dma_floor(torch):
             torch, lambda: S.segment_sweep(planes, seg), 5)
         drivers[cfg] = {"stage_free_ms": rep["dma_ms"], "slots": rep["slots"],
                         "single_stage_ms": single,
+                        "stage_free_scattered_before_redesign_ms":
+                            SCATTERED_BEFORE_MS[cfg],
+                        "requests_per_plane": (
+                            None if driver == "grid" else
+                            S.tma_unit(seg, 1)["requests_per_plane"]),
                         "sweeps": [{k: s[k] for k in ("stages", "total_ms",
                                                       "compute_adder_ms")}
                                    for s in rep["sweeps"]
                                    if s["kind"] == "kernel"]}
+    scat_seg = scattered_copy(torch, S, scb, n, "decoupled", 3)
+    units = copy_unit_timing(torch, S, [
+        ("stage_free_scattered", scat_seg),
+        ("stage_free_inner", S.prepare_segment([], [], n, "cuda",
+                                               driver="decoupled")),
+        ("scb128@default", S.prepare_segment([scb[0]], [scb[1]], n, "cuda",
+                                             tier="default",
+                                             driver="decoupled")),
+        ("b0@default", S.prepare_segment([cases[3][1][0]], [cases[3][1][1]],
+                                         n, "cuda", tier="default",
+                                         driver="decoupled"))], planes)
+    encode_us = tma_encode_us(torch, S, scat_seg, planes)
     bound = 2 * 2 * 4 * (1 << n) / HBM_BYTES_PER_S * 1e3
     rec = {"phase": "dma_floor", "n": n, "bound_ms": bound,
-           "copy_ms": copy_ms, "drivers": drivers}
+           "copy_ms": copy_ms, "drivers": drivers,
+           "copy_units_k1": units, "tma_encode_us": encode_us}
     emit(rec)
     del planes
     torch.cuda.empty_cache()

@@ -8,8 +8,8 @@
 // density-matrix decoherence and batched-trajectory paths:
 //   K1 _decoupled_kernel (:1715, the default; QUEST_FUSED_DRIVER=pipelined,
 //      QUEST_FUSED_PIPELINE=1) -> ring_kernel<TIER, true>: persistent
-//      blocks, a ring of 3 plane slots filled and drained by bulk async
-//      copies, a slot refilled as soon as its store has READ it;
+//      blocks, a ring of 3 plane slots filled and drained by tensor-map
+//      (TMA) copies, a slot refilled as soon as its store has READ it;
 //   K2 _pipelined_kernel (:1628, QUEST_FUSED_PIPELINE=0) ->
 //      ring_kernel<TIER, false>: the same walk with NBUF in-place plane
 //      slots (QUEST_FUSED_NBUF, clamped to shared memory and the steps), a
@@ -44,10 +44,11 @@
 // bits: the packer reduces the reference's 128x128 embedded blocks
 // (lane and b1 forms, and _sublane_contract :1090) to their 2x2 cores,
 // so a pair costs 4 complex MACs per amplitude, not a 128-wide
-// contraction (2048 flop/amp). S8 reads its table through L1; targets
-// may be lane, inner, scattered or free (block-index) bits: bit q of an
-// element's global index is lane bit q (q < 7) or bit q - 7 of its tile
-// row's id, as the reference's _bit_of (:1317) takes it.
+// contraction (2048 flop/amp). S8 copies its table (at most 1 KiB) to
+// shared memory; targets may be lane, inner, scattered or free
+// (block-index) bits: bit q of an element's global index is lane bit q (q
+// < 7) or bit q - 7 of its tile row's id, as the reference's _bit_of
+// (:1317) takes it.
 //
 // Data-driven: the stage list is a device table of descriptors (one row
 // of DESC_WORDS int64 per stage, packed by quest_tpu_torch/ops/segment.py)
@@ -65,16 +66,17 @@
 //      reference's _row_ids;
 //   2. brings the tile (2 planes x rows x 128 lanes f32, rows of 512
 //      contiguous bytes) into dynamic shared memory: K3 with 16-byte loads,
-//      K1/K2 with one cp.async.bulk per run of consecutive rows, ahead of
-//      time;
+//      K1/K2 ahead of time with cp.async.bulk.tensor boxes of a tensor map
+//      that sees the scattered row bits as dimensions (one request per
+//      plane on most of today's plans);
 //   3. runs the stage chain on the tile. A matrix stage is a batched
 //      complex product over the `fibers` of the tile (all index bits but
 //      the w contracted ones), outputs kept in registers until a barrier
 //      and written back in place (fibers are disjoint, so chunks of them
 //      update in place). Predicates follow _mask_of: an element whose
 //      lane/row bits do not match keeps its value;
-//   4. writes the tile back where it read it (K1/K2: bulk stores). Tiles
-//      partition the index space, so the launch is in place.
+//   4. writes the tile back where it read it (K1/K2: tensor-map stores).
+//      Tiles partition the index space, so the launch is in place.
 //
 // Matrix stages of d >= 16 (S1-S3 at every tier, S11) read their operator
 // from shared memory: a ring of OP_SLOTS = 2 slices of OP_SLICE_BYTES =
@@ -136,9 +138,13 @@
 // keeps a whole plane of loads in flight under the chain and lets the
 // next tile's loads start as soon as the stores have read their slots, so
 // a byte-bound pass can approach its bound; K2 is the reference's A/B
-// control, its refills waiting for the writes to land. A producer warp
-// and TMA tensor maps for scattered-row tiles are later work.
+// control, its refills waiting for the writes to land. The tensor map
+// sees a tile's scattered row bits as dimensions, so a scattered-row tile
+// moves in as few requests as an inner-row one (one box a plane on most
+// plans of the paths, at most 4), all issued by one thread. A producer
+// warp is later work.
 
+#include <cuda.h>            // CUtensorMap (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -199,10 +205,14 @@ constexpr int SEL_WORDS = 8;       // one selection-table row
 constexpr int MAX_GRID_BATCH = 65535;   // K3's gridDim.y: states per launch
 constexpr int MAX_DIAG_TARGETS = 7;
 constexpr int TARGET_BITS = 6;     // bits per qubit index in F_TARGETS
+constexpr int DIAG_TABLE_WORDS = 2 << MAX_DIAG_TARGETS;   // S8's (2, 2^k)
+constexpr int MAX_TMA_PARTS = 4;   // parts of a plane (band_plan.TMA_PARTS)
+constexpr int TMA_ERROR_BASE = 10000;   // + CUresult of a failed encoding
 
-// shared memory after the tile's plane slots: row ids, multiphase rows
-// (then the operator ring and the mbarriers)
-constexpr int EXTRA_WORDS = MAX_ROWS + 3 * MAX_MULTIPHASE_ROWS;
+// shared memory after the tile's plane slots: row ids, multiphase rows,
+// S8's table (then the operator ring and the mbarriers)
+constexpr int EXTRA_WORDS = MAX_ROWS + 3 * MAX_MULTIPHASE_ROWS
+                            + DIAG_TABLE_WORDS;
 
 struct Tile {
   float* re;
@@ -258,13 +268,6 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src,
       : "memory");
 }
 
-// shared -> global, in the issuing thread's open bulk group
-__device__ __forceinline__ void bulk_store(float* dst, const float* src,
-                                           unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
-}
-
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
@@ -284,6 +287,67 @@ __device__ __forceinline__ void bulk_wait() {
 // async-proxy ones (a bulk store reading, a bulk load writing)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// bulk_wait for a count known only at run time (0 .. 2 * MAX_TMA_PARTS -
+// 1; a larger one waits for all but 7, which is stricter, never looser)
+template <bool READ>
+__device__ __forceinline__ void bulk_wait_n(int n) {
+  switch (n) {
+    case 0: bulk_wait<0, READ>(); break;
+    case 1: bulk_wait<1, READ>(); break;
+    case 2: bulk_wait<2, READ>(); break;
+    case 3: bulk_wait<3, READ>(); break;
+    case 4: bulk_wait<4, READ>(); break;
+    case 5: bulk_wait<5, READ>(); break;
+    case 6: bulk_wait<6, READ>(); break;
+    default: bulk_wait<7, READ>(); break;
+  }
+}
+
+// ---- tensor-map copies (TMA) ----------------------------------------------
+//
+// The ring drivers see the batch's planes through one f32 tensor map of 5
+// dimensions (band_plan.tma_boxes, which the wrapper checks against
+// quest_segment_tma_geometry): the 128 lanes; the 2^s0 rows below the
+// lowest scattered row bit s0; the 2^w rows of the lowest contiguous group
+// of scattered bits; the rows above it; the 2B planes. A box is 2^b2 rows
+// along dimension 2 times 2^b3 along dimension 3: 2^(b2 + b3) consecutive
+// tile rows (inner rows, then the group's bits). A request's coordinates
+// come from the global row of its first tile row; free bits and higher
+// scattered groups ride in them.
+
+struct CopyUnit {
+  int s0, w;           // the map splits a state's rows at s0 and s0 + w
+  int b2, b3;          // log2 of the box's rows along dimensions 2 and 3
+  int parts_log2;      // a plane moves in 2^parts_log2 parts
+};
+
+// global -> shared: the box whose first row is global row `row` of plane
+// `plane` (2 * state + re/im), completing its bytes on the mbarrier
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         const CopyUnit& cu, int row,
+                                         int plane, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(0),
+         "r"(row & ((1 << cu.s0) - 1)), "r"((row >> cu.s0) & ((1 << cu.w) - 1)),
+         "r"(row >> (cu.s0 + cu.w)), "r"(plane), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared -> global, in the issuing thread's open bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const CopyUnit& cu, int row,
+                                          int plane, const float* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4, %5}], [%6];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(0),
+         "r"(row & ((1 << cu.s0) - 1)), "r"((row >> cu.s0) & ((1 << cu.w) - 1)),
+         "r"(row >> (cu.s0 + cu.w)), "r"(plane), "r"(smem_addr(src))
+      : "memory");
 }
 
 // ---- the operator ring ---------------------------------------------------
@@ -1157,38 +1221,78 @@ __device__ void pair_stage(const Tile& t, const long long* ds,
   }
 }
 
+// S8's table in shared memory: after the row ids and the multiphase rows,
+// the same place under every driver (EXTRA_WORDS)
+__device__ __forceinline__ float* diag_table(const Tile& t) {
+  return reinterpret_cast<float*>(const_cast<int*>(t.row_id) + MAX_ROWS
+                                  + 3 * MAX_MULTIPHASE_ROWS);
+}
+
 __device__ void diagvec_stage(const Tile& t, const long long* ds,
                               const float* __restrict__ g) {
   // (2, 2^k) table: entry sum_j bit(targets[j]) << j of every element's
   // GLOBAL index; bit q is lane bit q (q < 7) or bit q - 7 of the tile
   // row's id (the reference's _bit_of), so targets of 32 and above keep
-  // their bit; identity where predicates fail
+  // their bit; identity where predicates fail. The table is copied to
+  // shared memory once per stage. A thread takes 4 consecutive lanes as a
+  // float4 and always the same 4 (NTHREADS is a multiple of a row's 32
+  // float4s), so the index's lane part and the lane predicate are worked
+  // out once per thread, the row part and the row predicate once per row.
   const int k = static_cast<int>(ds[F_DIM]);
   const long long packed = ds[F_TARGETS];
   const Preds pr(ds);
-  int tq[MAX_DIAG_TARGETS];
+  float* tab = diag_table(t);
+  for (int i = threadIdx.x; i < (2 << k); i += NTHREADS) tab[i] = __ldg(g + i);
+  const int l0 = (threadIdx.x & 31) * 4;
+  int lidx[4] = {0, 0, 0, 0};
+  int rq[MAX_DIAG_TARGETS];          // row bit of target j, or -1 (a lane)
 #pragma unroll
-  for (int j = 0; j < MAX_DIAG_TARGETS; ++j)
-    tq[j] = static_cast<int>((packed >> (TARGET_BITS * j)) & 63);
-  const float* gim = g + (1 << k);
-  const int size = 1 << t.bits;
-  for (int e = threadIdx.x; e < size; e += NTHREADS) {
-    if (pr.keeps(t, e)) continue;
-    const int lane = e & (LANES - 1);
-    const int row = t.row_id[e >> LANE_BITS];
-    int idx = 0;
+  for (int j = 0; j < MAX_DIAG_TARGETS; ++j) {
+    const int q = static_cast<int>((packed >> (TARGET_BITS * j)) & 63);
+    rq[j] = j < k && q >= LANE_BITS ? q - LANE_BITS : -1;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (j < k && q < LANE_BITS) lidx[c] |= (((l0 + c) >> q) & 1) << j;
+  }
+  bool lok[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) lok[c] = !pr.masked || ((l0 + c) & pr.lm) == pr.lw;
+  const float* tim = tab + (1 << k);
+  __syncthreads();                   // the table is in
+  // the thread's 4 factors, read again only when the row part changes
+  // (never on a tile whose rows leave every row target fixed)
+  float fr[4], fi[4];
+  int cur = -1;
+  const int rows = 1 << (t.bits - LANE_BITS);
+  for (int r = threadIdx.x >> 5; r < rows; r += NTHREADS / 32) {
+    const int row = t.row_id[r];
+    if (pr.masked && (row & pr.rm) != pr.rw) continue;
+    int ridx = 0;
 #pragma unroll
     for (int j = 0; j < MAX_DIAG_TARGETS; ++j)
-      if (j < k) {
-        const int q = tq[j];
-        const int bit = q < LANE_BITS ? (lane >> q) & 1
-                                      : (row >> (q - LANE_BITS)) & 1;
-        idx |= bit << j;
+      if (rq[j] >= 0) ridx |= ((row >> rq[j]) & 1) << j;
+    if (ridx != cur) {
+      cur = ridx;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        fr[c] = tab[lidx[c] | ridx];
+        fi[c] = tim[lidx[c] | ridx];
       }
-    const float fr = __ldg(g + idx), fi = __ldg(gim + idx);
-    const float re = t.re[e], im = t.im[e];
-    t.re[e] = re * fr - im * fi;
-    t.im[e] = re * fi + im * fr;
+    }
+    const int e = (r << LANE_BITS) + l0;
+    float4 vr = *reinterpret_cast<const float4*>(t.re + e);
+    float4 vi = *reinterpret_cast<const float4*>(t.im + e);
+    float* pre = &vr.x;
+    float* pim = &vi.x;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!lok[c]) continue;
+      const float re = pre[c], im = pim[c];
+      pre[c] = re * fr[c] - im * fi[c];
+      pim[c] = re * fi[c] + im * fr[c];
+    }
+    *reinterpret_cast<float4*>(t.re + e) = vr;
+    *reinterpret_cast<float4*>(t.im + e) = vi;
   }
 }
 
@@ -1357,32 +1461,37 @@ segment_kernel(SweepArgs a) {
 // tiles, state = step / tiles: the batch slowest, the reference's
 // _step_index). A block's local step k holds planes j = 2k (re) and 2k + 1
 // (im); plane j lives in slot j mod S of a ring of S plane slots, in place
-// (loaded, chained and stored from the same slot). Warp 0 issues the
-// copies: one bulk copy per run of 2^inner_bits consecutive rows (512
-// bytes each; the run is contiguous in the state and in the slot), lane L
-// for runs L, L + 32, ...; loads complete on the step's mbarrier (one
-// arrival expecting both planes), stores go in one bulk group per plane
-// and lane. At step k it
-// issues the loads of planes [2k - 2 + S, 2k + S) (k = 0: [0, S)): the
-// step's own im plane and S - 2 planes of read-ahead. Before refilling a
-// slot it waits for the store of the slot's previous plane j - S, which is
-// one of the two groups its lane committed last step:
-//   ON_READ (K1): wait_group.read — the store has READ the slot; its write
-//     to device memory may still be in flight (the reference's decoupled
-//     rings: neither DMA direction gates the other). S = 3: re(k + 1)
-//     loads under chain k, im(k + 1) as soon as re(k)'s store has read its
-//     slot.
+// (loaded, chained and stored from the same slot). Thread 0 issues every
+// copy, as tensor-map requests (see CopyUnit): a plane moves in P =
+// 2^parts_log2 parts of consecutive tile rows (P = 1 by default: one box
+// a plane wherever the tile's rows are contiguous in slot order), each
+// part as one or more boxes; loads complete on the step's mbarrier (one
+// arrival expecting both planes), and the stores of each part go out as
+// one bulk group (re's parts, then im's). The block first loads planes
+// [0, S). Plane j >= S refills the slot of plane j - S, part by part,
+// each part after the store group of the same part of plane j - S has
+// released it (N groups committed after it, band_plan
+// ring_wait_groups):
+//   ON_READ (K1): wait_group.read — the store has READ its part of the
+//     slot; its write to device memory may still be in flight (the
+//     reference's decoupled rings: neither DMA direction gates the other).
 //   else (K2): wait_group — the store has LANDED (the reference's in-place
 //     NBUF slots: in(s+1) waits for out(s+1-nbuf) to drain). S = 2 has no
 //     read-ahead.
-// The chain writes the tile with generic stores; fence.proxy.async and a
-// barrier order them before the bulk store that reads them. Each lane
-// waits for all of its stores to land before the block exits. The
-// operator ring and its OP_SLOTS mbarriers follow the plane slots' S.
+// A refill for the next step goes out as soon as the store that frees its
+// slot is committed, so it queues ahead of the step's other store (K1, S
+// = 3: after chain k, store re(k), load im(k + 1) into its slot, store
+// im(k)); a refill for a later step goes out once the block's tile has
+// landed, before its chain (K1: re(k + 1) loads under chain k). The chain
+// writes the tile with generic stores; fence.proxy.async and a barrier
+// order them before the bulk stores that read them. Thread 0 waits for
+// all of its stores to land before the block exits. The operator ring and
+// its OP_SLOTS mbarriers follow the plane slots' S.
 
 template <int TIER, bool ON_READ>
 __global__ void __launch_bounds__(NTHREADS, 1)
-ring_kernel(SweepArgs a, int slots, long long steps) {
+ring_kernel(SweepArgs a, int slots, long long steps,
+            __grid_constant__ const CUtensorMap map, CopyUnit cu) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int size = 1 << a.tile_bits;
@@ -1395,49 +1504,53 @@ ring_kernel(SweepArgs a, int slots, long long steps) {
       smem + slots * size + EXTRA_WORDS + OP_SLOTS * OP_SLICE_FLOATS);
 
   const int tile_shift = a.n - a.tile_bits;         // log2 tiles per state
-  const long long plane = 1LL << a.n;
   const unsigned plane_bytes = static_cast<unsigned>(size) * 4u;
-  // the inner rows of a tile are consecutive rows of the state: one bulk
-  // copy per run of 2^inner_bits rows (a whole plane when no bit is
-  // scattered)
-  const unsigned run_bytes = (LANES * 4u) << a.inner_bits;
-  const int lane = threadIdx.x & 31;
+  // a part is 2^part_log2 consecutive tile rows, `reqs` boxes of
+  // 2^box_log2 rows
+  const int parts = 1 << cu.parts_log2;
+  const int part_log2 = a.tile_bits - LANE_BITS - cu.parts_log2;
+  const int box_log2 = cu.b2 + cu.b3;
+  const int reqs = 1 << (part_log2 - box_log2);
   const int nk = static_cast<int>((steps - blockIdx.x + gridDim.x - 1)
                                   / gridDim.x);     // this block's steps
   if (threadIdx.x < slots + OP_SLOTS) mbar_init(&bars[threadIdx.x], 1);
+  if (threadIdx.x == 0)
+    asm volatile("prefetch.tensormap [%0];"
+                 :: "l"(reinterpret_cast<uint64_t>(&map)) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   __syncthreads();
   OpRing ring = op_ring(smem + slots * size, bars + slots, a.desc, a.ops,
                         a.nstages, a.tile_bits, TIER, nk);
   PHASE_START(t_block);
 
-  for (int k = 0; k < nk; ++k) {
-    PHASE_START(t_step);
-    if (threadIdx.x < 32) {
-      const int lo = k == 0 ? 0 : 2 * k - 2 + slots;
-      const int hi = min(2 * k + slots, 2 * nk);
-      for (int j = lo; j < hi; ++j) {
-        if (j >= slots) {                // the slot's previous plane j - S
-          if (j == lo) bulk_wait<1, ON_READ>();
-          else bulk_wait<0, ON_READ>();
-        }
-        const int kj = j >> 1;
-        const long long g = blockIdx.x + static_cast<long long>(kj) * gridDim.x;
-        const float* src = a.amps
-            + (2 * (a.state0 + (g >> tile_shift)) + (j & 1)) * plane;
-        uint64_t* bar = &bars[kj % slots];
-        if ((j & 1) == 0 && lane == 0) mbar_arrive_expect(bar, 2 * plane_bytes);
-        __syncwarp();
-        float* dst = smem + (j % slots) * size;
-        const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask);
-        for (int r = lane << a.inner_bits; r < rows; r += 32 << a.inner_bits) {
-          const int row = tile_row(base, r, a.inner_bits, a.scat_mask);
-          bulk_load(dst + r * LANES,
-                    src + (static_cast<long long>(row) << LANE_BITS),
-                    run_bytes, bar);
-        }
+  // thread 0: refill the slot of plane j, part by part. Before part i it
+  // waits for the store group of part i of the slot's previous plane
+  // j - S; the stores of planes up to `last` are committed, so (last -
+  // (j - S)) * P + P - 1 - i groups follow that one.
+  auto refill = [&](int j, int last) {
+    const int kj = j >> 1;
+    const long long g = blockIdx.x + static_cast<long long>(kj) * gridDim.x;
+    const int plane = 2 * (a.state0 + static_cast<int>(g >> tile_shift))
+                      + (j & 1);
+    const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask);
+    uint64_t* bar = &bars[kj % slots];
+    if ((j & 1) == 0) mbar_arrive_expect(bar, 2 * plane_bytes);
+    float* dst = smem + (j % slots) * size;
+    for (int i = 0; i < parts; ++i) {
+      if (j >= slots)
+        bulk_wait_n<ON_READ>((last - (j - slots)) * parts + parts - 1 - i);
+      for (int q = 0; q < reqs; ++q) {
+        const int r = (i << part_log2) + (q << box_log2);
+        tma_load(dst + r * LANES, &map, cu,
+                 tile_row(base, r, a.inner_bits, a.scat_mask), plane, bar);
       }
     }
+  };
+
+  if (threadIdx.x == 0)
+    for (int j = 0; j < min(slots, 2 * nk); ++j) refill(j, -1);
+  for (int k = 0; k < nk; ++k) {
+    PHASE_START(t_step);
     const long long g = blockIdx.x + static_cast<long long>(k) * gridDim.x;
     const int state = a.state0 + static_cast<int>(g >> tile_shift);
     const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask);
@@ -1445,6 +1558,11 @@ ring_kernel(SweepArgs a, int slots, long long steps) {
       row_id[r] = tile_row(base, r, a.inner_bits, a.scat_mask);
     __syncthreads();
     mbar_wait(&bars[k % slots], (k / slots) & 1);
+    // the later steps' planes of the slots step k - 1 stored
+    if (threadIdx.x == 0)
+      for (int j = max(max(2 * k + 2, 2 * k - 2 + slots), slots);
+           j < min(2 * k + slots, 2 * nk); ++j)
+        refill(j, 2 * k - 1);
     PHASE_ADD(PC_PROLOGUE, t_step);
 
     const Tile t{smem + ((2 * k) % slots) * size,
@@ -1455,20 +1573,24 @@ ring_kernel(SweepArgs a, int slots, long long steps) {
     fence_proxy_async();
     __syncthreads();
 
-    if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
       for (int p = 0; p < 2; ++p) {
-        float* dst = a.amps + (2LL * state + p) * plane;
         const float* src = p ? t.im : t.re;
-        for (int r = lane << a.inner_bits; r < rows; r += 32 << a.inner_bits) {
-          const int row = tile_row(base, r, a.inner_bits, a.scat_mask);
-          bulk_store(dst + (static_cast<long long>(row) << LANE_BITS),
-                     src + r * LANES, run_bytes);
+        for (int i = 0; i < parts; ++i) {
+          for (int q = 0; q < reqs; ++q) {
+            const int r = (i << part_log2) + (q << box_log2);
+            tma_store(&map, cu, tile_row(base, r, a.inner_bits, a.scat_mask),
+                      2 * state + p, src + r * LANES);
+          }
+          bulk_commit();
         }
-        bulk_commit();
+        // the next step's plane for the slot this store frees, at once
+        const int j = 2 * k + p + slots;
+        if (j < 2 * nk && (j >> 1) == k + 1) refill(j, 2 * k + p);
       }
     }
   }
-  if (threadIdx.x < 32) bulk_wait<0, false>();   // every store has landed
+  if (threadIdx.x == 0) bulk_wait<0, false>();   // every store has landed
   PHASE_ADD(PC_BLOCK, t_block);
   PHASE_COUNT(PC_BLOCKS);
 }
@@ -1508,9 +1630,91 @@ cudaError_t launch_grid(const SweepArgs& a, long long blocks, int states,
   return cudaGetLastError();
 }
 
+// The ring drivers' tensor map of a launch: dims, byte strides of
+// dimensions 2-5, the box and the copy unit (band_plan.tma_boxes computes
+// the same; the wrapper checks the two agree). False for a copy unit the
+// geometry cannot take: `parts` a power of two up to MAX_TMA_PARTS and the
+// tile's rows, `box_rows` a power of two within a part and within the
+// tile rows that are contiguous in slot order (inner rows, then the lowest
+// scattered group).
+struct TmaGeometry {
+  cuuint64_t dims[5];
+  cuuint64_t strides[4];
+  cuuint32_t box[5];
+  CopyUnit cu;
+  int requests_per_plane;
+};
+
+bool tma_geometry(int n, int tile_bits, int inner_bits, unsigned scat_mask,
+                  int batch, int parts, int box_rows, TmaGeometry* t) {
+  const int row_bits = n - LANE_BITS;
+  const int rows_log2 = tile_bits - LANE_BITS;
+  if (parts < 1 || parts > MAX_TMA_PARTS || (parts & (parts - 1))
+      || parts > (1 << rows_log2) || box_rows < 1 || (box_rows & (box_rows - 1)))
+    return false;
+  const int part_log2 = rows_log2 - log2i(parts);
+  int s0 = row_bits, w = 0;
+  if (scat_mask) {
+    s0 = __builtin_ctz(scat_mask);
+    while ((scat_mask >> (s0 + w)) & 1u) ++w;
+  }
+  const int b = log2i(box_rows);
+  if (b > part_log2 || b > inner_bits + w) return false;
+  const int b2 = b < inner_bits ? b : inner_bits;
+  const cuuint64_t row_bytes = LANES * 4ull;
+  const cuuint64_t dims[5] = {LANES, 1ull << s0, 1ull << w,
+                              1ull << (row_bits - s0 - w), 2ull * batch};
+  const cuuint64_t strides[4] = {row_bytes, row_bytes << s0,
+                                 row_bytes << (s0 + w), 4ull << n};
+  const cuuint32_t box[5] = {LANES, 1u << b2, 1u << (b - b2), 1u, 1u};
+  for (int d = 0; d < 5; ++d) t->dims[d] = dims[d], t->box[d] = box[d];
+  for (int d = 0; d < 4; ++d) t->strides[d] = strides[d];
+  t->cu = CopyUnit{s0, w, b2, b - b2, log2i(parts)};
+  t->requests_per_plane = parts << (part_log2 - b);
+  return true;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// Encode the map over the batch's planes at `amps` (f32, no interleave,
+// no swizzle; boxes never leave the tensor, so no fill). The driver's
+// cuTensorMapEncodeTiled is fetched through the runtime, so the library
+// links nothing beyond it. Returns cudaSuccess, the runtime's error, or
+// TMA_ERROR_BASE + the driver's CUresult.
+int encode_map(CUtensorMap* map, void* amps, const TmaGeometry& t) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, amps, t.dims, t.strides, t.box,
+      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMA_ERROR_BASE + static_cast<int>(r);
+}
+
 template <int TIER, bool ON_READ>
 cudaError_t launch_ring(const SweepArgs& a, long long steps, int slots,
-                        long long smem, cudaStream_t stream) {
+                        long long smem, const CUtensorMap& map,
+                        const CopyUnit& cu, cudaStream_t stream) {
   auto kernel = ring_kernel<TIER, ON_READ>;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -1525,18 +1729,23 @@ cudaError_t launch_ring(const SweepArgs& a, long long steps, int slots,
   // and let the launch report why it is refused
   const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const unsigned blocks = static_cast<unsigned>(steps < resident ? steps : resident);
-  kernel<<<blocks, NTHREADS, static_cast<size_t>(smem), stream>>>(a, slots, steps);
+  kernel<<<blocks, NTHREADS, static_cast<size_t>(smem), stream>>>(
+      a, slots, steps, map, cu);
   return cudaGetLastError();
 }
 
 template <int TIER>
 cudaError_t launch(const SweepArgs& a, long long blocks, int states,
-                   int driver, int slots, long long smem, cudaStream_t stream) {
+                   int driver, int slots, long long smem,
+                   const CUtensorMap& map, const CopyUnit& cu,
+                   cudaStream_t stream) {
   const long long steps = blocks * states;
   switch (driver) {
     case D_GRID: return launch_grid<TIER>(a, blocks, states, smem, stream);
-    case D_DECOUPLED: return launch_ring<TIER, true>(a, steps, slots, smem, stream);
-    case D_INPLACE: return launch_ring<TIER, false>(a, steps, slots, smem, stream);
+    case D_DECOUPLED:
+      return launch_ring<TIER, true>(a, steps, slots, smem, map, cu, stream);
+    case D_INPLACE:
+      return launch_ring<TIER, false>(a, steps, slots, smem, map, cu, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1582,7 +1791,44 @@ long long quest_segment_smem_bytes(int tile_bits, int driver, int slots) {
 }
 
 const char* quest_cuda_error_string(int code) {
+  if (code >= TMA_ERROR_BASE)
+    return "cuTensorMapEncodeTiled refused the ring drivers' tensor map "
+           "(code - 10000 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The ring drivers' tensor map of a launch (host only, no device): out[0..4]
+// its dims, out[5..8] the byte strides of dimensions 2-5, out[9..13] the
+// box, out[14] the requests per plane. Returns 0, or cudaErrorInvalidValue
+// for a copy unit the geometry cannot take (tma_geometry).
+int quest_segment_tma_geometry(int n, int tile_bits, int inner_bits,
+                               unsigned scat_mask, int batch, int parts,
+                               int box_rows, long long* out) {
+  TmaGeometry t;
+  if (!tma_geometry(n, tile_bits, inner_bits, scat_mask, batch, parts,
+                    box_rows, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int d = 0; d < 5; ++d) out[d] = static_cast<long long>(t.dims[d]);
+  for (int d = 0; d < 4; ++d) out[5 + d] = static_cast<long long>(t.strides[d]);
+  for (int d = 0; d < 5; ++d) out[9 + d] = static_cast<long long>(t.box[d]);
+  out[14] = t.requests_per_plane;
+  return 0;
+}
+
+// Encode that map on `amps` `count` times, as each ring launch does once
+// (the caller times it: the host cost of a launch's map). Returns 0 or the
+// first failure (encode_map's codes).
+int quest_segment_tma_encode(void* amps, int n, int tile_bits, int inner_bits,
+                             unsigned scat_mask, int batch, int parts,
+                             int box_rows, int count) {
+  TmaGeometry t;
+  if (!tma_geometry(n, tile_bits, inner_bits, scat_mask, batch, parts,
+                    box_rows, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  for (int i = 0; i < count; ++i)
+    if (const int e = encode_map(&map, amps, t)) return e;
+  return 0;
 }
 
 // Launch one segment over states [state0, state0 + states) of a batch of
@@ -1591,8 +1837,11 @@ const char* quest_cuda_error_string(int code) {
 // (T_HIGHEST, T_HIGH or T_DEFAULT), under `driver` (D_DECOUPLED,
 // D_INPLACE with `slots` plane slots, or D_GRID, whose launch takes at
 // most MAX_GRID_BATCH states) with `smem` bytes of dynamic shared memory.
-// Returns the launch's cudaError_t: nothing is allocated and nothing is
-// synchronised here.
+// The ring drivers move each plane in `parts` parts of `box_rows`-row
+// boxes through a tensor map encoded here, per launch (it holds `amps`);
+// K3 ignores both. Returns the launch's cudaError_t, or encode_map's code
+// when the map is refused (no launch then): nothing is allocated and
+// nothing is synchronised here.
 #ifdef QUEST_PHASE_COUNTERS
 // The yardstick of the fp32 FMA pipe at this card's clocks and power:
 // `blocks` blocks of NTHREADS threads, each thread 128 independent fp32
@@ -1622,7 +1871,8 @@ int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
                         const void* desc, int nstages, const void* ops,
                         long long blocks, int batch, int state0, int states,
                         const void* sel, int tier, int driver, int slots,
-                        long long smem, void* stream) {
+                        int parts, int box_rows, long long smem,
+                        void* stream) {
   if (tile_bits < LANE_BITS + 3 || tile_bits > MAX_TILE_BITS
       || batch < 1 || state0 < 0 || states < 1
       || static_cast<long long>(state0) + states > batch
@@ -1635,11 +1885,25 @@ int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
                     nstages, static_cast<const float*>(ops), batch,
                     static_cast<const float*>(sel), state0};
   auto* st = static_cast<cudaStream_t>(stream);
+  CUtensorMap map{};
+  TmaGeometry t{};
+  if (driver != D_GRID) {
+    if (!tma_geometry(n, tile_bits, inner_bits, scat_mask, batch, parts,
+                      box_rows, &t))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (const int e = encode_map(&map, amps, t)) return e;
+  }
   cudaError_t e;
   switch (tier) {
-    case T_HIGHEST: e = launch<T_HIGHEST>(a, blocks, states, driver, slots, smem, st); break;
-    case T_HIGH: e = launch<T_HIGH>(a, blocks, states, driver, slots, smem, st); break;
-    case T_DEFAULT: e = launch<T_DEFAULT>(a, blocks, states, driver, slots, smem, st); break;
+    case T_HIGHEST:
+      e = launch<T_HIGHEST>(a, blocks, states, driver, slots, smem, map, t.cu, st);
+      break;
+    case T_HIGH:
+      e = launch<T_HIGH>(a, blocks, states, driver, slots, smem, map, t.cu, st);
+      break;
+    case T_DEFAULT:
+      e = launch<T_DEFAULT>(a, blocks, states, driver, slots, smem, map, t.cu, st);
+      break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -700,6 +700,14 @@ MBARRIER_BYTES = 8
 OP_SLOTS = 2                   # csrc OpRing: operator slices in flight
 OP_SLICE_BYTES = 16384         # csrc OP_SLICE_BYTES
 OP_RING_BYTES = OP_SLOTS * (OP_SLICE_BYTES + MBARRIER_BYTES)  # + barriers
+DIAG_TABLE_BYTES = 2 * 128 * 4  # csrc DIAG_TABLE_WORDS: S8's (2, 2^7) table
+FIXED_SMEM_BYTES = (ROW_ID_BYTES + MULTIPHASE_BYTES + DIAG_TABLE_BYTES
+                    + OP_RING_BYTES)  # beside the plane slots, every driver
+TMA_PARTS = 1                  # parts of a plane (one store bulk group
+# each) by default: one box a plane; 2 and 4 parts measured slower
+MAX_TMA_PARTS = 4              # csrc MAX_TMA_PARTS
+MAX_TMA_BOX = 256              # elements along one dimension of a box
+MAX_TMA_RANK = 5
 HOPPER_SMS = 132               # H100 SXM: the persistent grid, for stats
 STATS_STEPS = 16               # steps per block the schedule model walks
 # for pipeline_stats (its read-ahead is periodic after a few steps)
@@ -754,13 +762,13 @@ def _nbuf(nbuf: int = None) -> int:
 
 def ring_fit(tile_bits: int) -> int:
     """Most plane slots one block's shared memory holds beside the row
-    ids, the multiphase rows, the operator ring and one mbarrier per slot
-    (at most MAX_RING_SLOTS): 3 at 14-bit tiles, 6 at 13 bits, 8
-    below."""
+    ids, the multiphase rows, the diagonal table, the operator ring and
+    one mbarrier per slot (at most MAX_RING_SLOTS): 3 at 14-bit tiles, 6
+    at 13 bits, 8 below."""
     plane = 4 << tile_bits
-    fixed = ROW_ID_BYTES + MULTIPHASE_BYTES + OP_RING_BYTES
     return min(MAX_RING_SLOTS,
-               (BLOCK_SMEM_BYTES - fixed) // (plane + MBARRIER_BYTES))
+               (BLOCK_SMEM_BYTES - FIXED_SMEM_BYTES)
+               // (plane + MBARRIER_BYTES))
 
 
 def ring_slots(tile_bits: int, steps: int, driver: str = None,
@@ -775,50 +783,85 @@ def ring_slots(tile_bits: int, steps: int, driver: str = None,
     return max(2, min(want, ring_fit(tile_bits), 2 * int(steps)))
 
 
-def ring_schedule(driver: str, steps: int, slots: int) -> List[tuple]:
+def ring_wait_groups(last: int, plane: int, part: int, parts: int) -> int:
+    """N of the wait_group (K1: wait_group.read) that the ring kernel
+    issues before refilling part `part` of the slot that held `plane`,
+    when the stores of every plane up to `last` are committed: the store
+    bulk groups committed after that part's (csrc ring_kernel commits
+    one group per part, re's parts then im's)."""
+    return (last - plane) * parts + parts - 1 - part
+
+
+def ring_schedule(driver: str, steps: int, slots: int,
+                  parts: int = 1) -> List[tuple]:
     """The order of events of one block of the port's kernel walking
     `steps` tiles (step k: plane 2k = re, 2k + 1 = im) through `slots`
-    plane slots, as csrc/segment.cu issues and waits for them:
+    plane slots, each plane moved in `parts` parts of consecutive tile
+    rows (TMA_PARTS in the kernel unless a measurement asks for more), as
+    csrc/segment.cu issues and waits for them:
 
-      ("load", j, slot)    bulk load of plane j into slot j mod slots
-      ("landed", k)        the block waits until step k's planes landed
+      ("load", j, slot, part)     tensor-map loads of part `part` of plane
+                                  j into slot j mod slots
+      ("landed", k)               the block waits until step k's planes
+                                  landed
       ("chain", k, (re slot, im slot))
-      ("store", j, slot)   bulk store of plane j from its slot
-      ("read", j)          wait until every store up to plane j has read
-                           its slot (K1: wait_group.read)
-      ("drained", j)       wait until every store up to plane j has
-                           landed (K2: wait_group; every driver at exit)
+      ("store", j, slot, part)    tensor-map stores of that part of plane
+                                  j, committed as one bulk group
+      ("read", j, part, N)        wait_group.read N: every store group up
+                                  to (j, part) has read its slot (K1)
+      ("drained", j, part, N)     wait_group N: every store group up to
+                                  (j, part) has landed (K2; every driver
+                                  at exit)
 
-    K1 ('decoupled') and K2 ('inplace'): at step k the block issues the
-    loads of planes [2k - 2 + slots, 2k + slots) (k = 0: [0, slots)),
-    each after waiting for its slot's previous plane j - slots ("read"
-    for K1, "drained" for K2), then waits for its tile, runs the chain
-    and stores both planes. K3 ('grid') loads, chains and stores one tile
-    at a time through two planes, the stores landing before the next
-    tile."""
+    K1 ('decoupled') and K2 ('inplace'): the block first loads planes [0,
+    slots). Plane j >= slots refills the slot of plane j - slots, part by
+    part, each part after waiting for the store of the same part of that
+    plane ("read" for K1, "drained" for K2; N from ring_wait_groups). A
+    refill for the next step goes out as soon as the store that frees its
+    slot is committed, ahead of the step's other store (K1 at 3 slots:
+    im(k + 1) right after re(k)'s store, before im(k)'s); a refill for a
+    later step goes out once the block's tile has landed, before its
+    chain (K1: re(k + 1) under chain k). K3 ('grid') loads, chains and
+    stores one tile at a time through two planes, the stores landing
+    before the next tile."""
     driver = check_driver(driver)
     ev: List[tuple] = []
     if driver == "grid":
         for k in range(steps):
-            ev += [("load", 2 * k, 0), ("load", 2 * k + 1, 1), ("landed", k),
-                   ("chain", k, (0, 1)), ("store", 2 * k, 0),
-                   ("store", 2 * k + 1, 1), ("drained", 2 * k + 1)]
+            ev += [("load", 2 * k, 0, 0), ("load", 2 * k + 1, 1, 0),
+                   ("landed", k), ("chain", k, (0, 1)),
+                   ("store", 2 * k, 0, 0), ("store", 2 * k + 1, 1, 0),
+                   ("drained", 2 * k + 1, 0, 0)]
         return ev
     if slots < 2:
         raise ValueError(f"a ring needs at least 2 plane slots, got {slots}")
+    if not 1 <= parts <= MAX_TMA_PARTS:
+        raise ValueError(f"a plane moves in 1..{MAX_TMA_PARTS} parts, "
+                         f"got {parts}")
     release = "read" if driver == "decoupled" else "drained"
-    for k in range(steps):
-        lo = 0 if k == 0 else 2 * k - 2 + slots
-        for j in range(lo, min(2 * k + slots, 2 * steps)):
+
+    def refill(j, last):
+        for i in range(parts):
             if j >= slots:
-                ev.append((release, j - slots))
-            ev.append(("load", j, j % slots))
+                ev.append((release, j - slots, i,
+                           ring_wait_groups(last, j - slots, i, parts)))
+            ev.append(("load", j, j % slots, i))
+
+    for j in range(min(slots, 2 * steps)):
+        refill(j, -1)
+    for k in range(steps):
         ev.append(("landed", k))
+        for j in range(max(2 * k + 2, 2 * k - 2 + slots, slots),
+                       min(2 * k + slots, 2 * steps)):
+            refill(j, 2 * k - 1)
         ev.append(("chain", k, (2 * k % slots, (2 * k + 1) % slots)))
-        ev += [("store", 2 * k, 2 * k % slots),
-               ("store", 2 * k + 1, (2 * k + 1) % slots)]
+        for p in (2 * k, 2 * k + 1):
+            ev += [("store", p, p % slots, i) for i in range(parts)]
+            j = p + slots
+            if j < 2 * steps and j // 2 == k + 1:
+                refill(j, p)
     if steps:
-        ev.append(("drained", 2 * steps - 1))
+        ev.append(("drained", 2 * steps - 1, parts - 1, 0))
     return ev
 
 
@@ -836,25 +879,40 @@ def overlap_steps(events: Sequence[tuple]) -> int:
     return min(ahead[:-1]) if chains > 1 else 0
 
 
+def readahead_bytes(events: Sequence[tuple], part_bytes: int) -> int:
+    """Bytes in flight when a chain starts: the least, over every chain
+    but the last, of the load bytes issued for later steps' planes
+    (`part_bytes` per load event) before it starts (0 for a single
+    step)."""
+    ahead, loads, chains = [], [], 0
+    for e in events:
+        if e[0] == "load":
+            loads.append(e[1] // 2)
+        elif e[0] == "chain":
+            chains += 1
+            ahead.append(part_bytes * sum(1 for s in loads if s > e[1]))
+    return min(ahead[:-1]) if chains > 1 else 0
+
+
 def smem_layout(tile_bits: int, steps: int, driver: str = None,
                 nbuf: int = None) -> dict:
     """Dynamic shared memory of one launch of the port's kernel moving
     `steps` tiles of `tile_bits` bits under `driver`: the plane slots
-    (K3: the tile's two planes), the row ids and multiphase rows, the
-    operator ring (OP_SLOTS slices and their mbarriers, every driver),
-    one mbarrier per ring slot; against BLOCK_SMEM_BYTES. The one source
-    the wrapper sizes a launch from (ops/segment.py; csrc
+    (K3: the tile's two planes), the row ids and multiphase rows, S8's
+    table, the operator ring (OP_SLOTS slices and their mbarriers, every
+    driver), one mbarrier per ring slot; against BLOCK_SMEM_BYTES. The one
+    source the wrapper sizes a launch from (ops/segment.py; csrc
     quest_segment_smem_bytes must agree)."""
     driver = check_driver(driver)
     plane = 4 << tile_bits
     slots = ring_slots(tile_bits, steps, driver, nbuf)
     barriers = 0 if driver == "grid" else slots * MBARRIER_BYTES
-    total = (slots * plane + ROW_ID_BYTES + MULTIPHASE_BYTES + OP_RING_BYTES
-             + barriers)
+    total = slots * plane + FIXED_SMEM_BYTES + barriers
     return {"driver": driver, "tile_bits": tile_bits, "steps": int(steps),
             "plane_bytes": plane, "slots": slots,
             "slot_bytes": slots * plane, "row_id_bytes": ROW_ID_BYTES,
             "multiphase_bytes": MULTIPHASE_BYTES,
+            "diag_table_bytes": DIAG_TABLE_BYTES,
             "op_ring_bytes": OP_RING_BYTES, "barrier_bytes": barriers,
             "total_bytes": total, "budget_bytes": BLOCK_SMEM_BYTES}
 
@@ -901,9 +959,11 @@ def pipeline_stats(parts, n: int, batch: int = 1, *, driver: str = None,
     decoupled rings' slots and read-ahead (in_slots - 1 clamped by each
     sweep's steps, the least over the sweeps), {} under the other
     drivers. Under the port's ('smem'), for every driver: the plane
-    slots (the least over the sweeps) and pipeline_overlap_steps, the
-    least read-ahead ring_schedule gives a block of the persistent grid
-    (min(steps, HOPPER_SMS) blocks) on any sweep."""
+    slots (the least over the sweeps), pipeline_overlap_steps, the least
+    read-ahead ring_schedule gives a block of the persistent grid
+    (min(steps, HOPPER_SMS) blocks) on any sweep, and
+    pipeline_readahead_bytes, the least bytes such a block has in flight
+    for later steps when a chain starts (readahead_bytes)."""
     driver = check_driver(driver)
     sweeps = [p[1] for p in parts if p[0] == "segment"]
     if budgets.block_memory == "vmem":
@@ -915,18 +975,21 @@ def pipeline_stats(parts, n: int, batch: int = 1, *, driver: str = None,
         return {"pipeline_in_slots": PIPELINE_IN_SLOTS,
                 "pipeline_out_slots": PIPELINE_OUT_SLOTS,
                 "pipeline_overlap_steps": min(overlaps) if overlaps else 0}
-    slots, overlaps = [], []
+    slots, overlaps, inflight = [], [], []
+    parts = 1 if driver == "grid" else TMA_PARTS
     for st in sweeps:
         geo = segment_geometry(st, n, budgets=budgets)
         steps = geo.blocks * int(batch)
         s = ring_slots(geo.tile_bits, steps, driver, nbuf)
         per_block = steps // min(steps, HOPPER_SMS)
+        ev = ring_schedule(driver, min(per_block, STATS_STEPS), s, parts)
         slots.append(s)
-        overlaps.append(overlap_steps(
-            ring_schedule(driver, min(per_block, STATS_STEPS), s)))
+        overlaps.append(overlap_steps(ev))
+        inflight.append(readahead_bytes(ev, (4 << geo.tile_bits) // parts))
     return {"pipeline_driver": driver,
             "pipeline_slots": min(slots) if slots else 0,
-            "pipeline_overlap_steps": min(overlaps) if overlaps else 0}
+            "pipeline_overlap_steps": min(overlaps) if overlaps else 0,
+            "pipeline_readahead_bytes": min(inflight) if inflight else 0}
 
 
 def fused_record(parts, swept, n: int, *, driver: str = None,
@@ -1016,6 +1079,126 @@ def segment_geometry(stages: Sequence, n: int, *,
     scat_bits, b1_bits = stage_requirements(stages)
     rows_eff_bits = max(rows_eff_bits, b1_bits + len(scat_bits))
     return _geometry(n, scat_bits, rows_eff_bits)
+
+
+# ---------------------------------------------------------------------------
+# tile copies: the ring drivers' tensor map
+# ---------------------------------------------------------------------------
+#
+# K1 and K2 move a tile's planes with cp.async.bulk.tensor requests on one
+# f32 tensor map per launch (csrc quest_segment_sweep encodes it from the
+# same numbers): the batch's planes as 5 dimensions, innermost first,
+#   1. the 128 lanes of a row (contiguous, 512 B);
+#   2. the rows below the lowest scattered row bit s0: 2^s0 rows of 512 B;
+#   3. the lowest contiguous group of scattered row bits: 2^w rows at a
+#      stride of 2^s0 rows;
+#   4. the rows above that group;
+#   5. the 2B planes of the batch (state s, plane p at 2s + p).
+# A tile without scattered bits takes s0 = n - 7 and w = 0 (dimensions 3
+# and 4 of size 1). A box covers 2^b consecutive tile rows in slot order:
+# inner rows along dimension 2, then the group's bits along dimension 3.
+# The free row bits and the bits of higher scattered groups go into the
+# coordinates, one request per box; by default a box is as many tile rows
+# as are contiguous in slot order, the whole plane on every plan of the
+# paths but (0,(6,1)), (5,(1,1)) (2 boxes) and (4,(1,1,1)) (4). A plane
+# may also move in `parts` parts of consecutive tile rows, each part's
+# stores one bulk group and each part of a slot refilled on its own
+# (ring_schedule); on an H100 2 and 4 parts measured no faster than one
+# (PERF.md), so TMA_PARTS is 1 and more parts serve measurements.
+
+
+def _lowest_group(geo: Geometry) -> Tuple[int, int]:
+    """(s0, w): the lowest scattered row bit and the width of the
+    contiguous group it starts; (n - 7, 0) without scattered bits."""
+    if not geo.scat:
+        return geo.n - LANE_QUBITS, 0
+    s0 = min(geo.scat)
+    w = 1
+    while s0 + w in geo.scat:
+        w += 1
+    return s0, w
+
+
+def tma_boxes(geo: Geometry, batch: int = 1, *, parts: int = TMA_PARTS,
+              box_rows: int = None) -> dict:
+    """The tensor map of one K1/K2 launch over `batch` states of segment
+    geometry `geo`: rank, dims and byte strides (dimensions 2-5), the box,
+    and the copy unit — `parts` parts per plane, `box_rows` tile rows per
+    request (None: as many as a part and the contiguous run of tile rows
+    allow, the kernel's default). Raises ValueError for a copy unit the
+    geometry cannot take or a map outside the tensor-map limits (rank <=
+    5, box <= 256 per dimension, strides multiples of 16 below 2^40)."""
+    row_bits = geo.n - LANE_QUBITS
+    rows_log2 = geo.tile_bits - LANE_QUBITS
+    if parts & (parts - 1) or not 1 <= parts <= min(MAX_TMA_PARTS,
+                                                     1 << rows_log2):
+        raise ValueError(f"a plane moves in 1, 2 or {MAX_TMA_PARTS} parts, "
+                         f"got {parts}")
+    part_log2 = rows_log2 - (parts.bit_length() - 1)
+    s0, w = _lowest_group(geo)
+    most = min(part_log2, geo.inner_bits + w)
+    b = most if box_rows is None else box_rows.bit_length() - 1
+    if box_rows is not None and (box_rows < 1 or box_rows & (box_rows - 1)
+                                 or b > most):
+        raise ValueError(f"a box of {box_rows} rows does not fit parts of "
+                         f"2^{part_log2} rows with 2^{most} contiguous")
+    b2 = min(b, geo.inner_bits)
+    row_bytes = LANES * 4
+    rec = {"rank": MAX_TMA_RANK,
+           "dims": (LANES, 1 << s0, 1 << w, 1 << (row_bits - s0 - w),
+                    2 * int(batch)),
+           "strides": (row_bytes, row_bytes << s0, row_bytes << (s0 + w),
+                       4 << geo.n),
+           "box": (LANES, 1 << b2, 1 << (b - b2), 1, 1),
+           "s0": s0, "w": w, "parts": parts, "box_rows": 1 << b,
+           "requests_per_part": 1 << (part_log2 - b),
+           "requests_per_plane": parts << (part_log2 - b),
+           "box_bytes": row_bytes << b, "part_bytes": row_bytes << part_log2}
+    if (max(rec["box"]) > MAX_TMA_BOX or len(rec["dims"]) > MAX_TMA_RANK
+            or any(x % 16 or x >= 1 << 40 for x in rec["strides"])
+            or max(rec["dims"]) >= 1 << 32):
+        raise ValueError(f"tensor map outside the TMA limits: {rec}")
+    return rec
+
+
+def tile_rows(geo: Geometry, tile: int) -> List[int]:
+    """Global row of each tile row of tile `tile` (slot order), as csrc
+    tile_base and tile_row build it: the tile index spread over the free
+    row bits (low first), then the inner rows and the scattered bits."""
+    scat = sorted(geo.scat)
+    free = [b for b in range(geo.inner_bits, geo.n - LANE_QUBITS)
+            if b not in geo.scat]
+    base = sum(((tile >> k) & 1) << b for k, b in enumerate(free))
+    rows = []
+    for r in range(geo.rows_eff):
+        row = base | (r & ((1 << geo.inner_bits) - 1))
+        for k, b in enumerate(scat):
+            row |= ((r >> (geo.inner_bits + k)) & 1) << b
+        rows.append(row)
+    return rows
+
+
+def tma_requests(boxes: dict, geo: Geometry, tile: int) -> List[tuple]:
+    """(part, first tile row, (c1, c2, c3, c4)) of each request that moves
+    one plane of tile `tile` under `boxes` (tma_boxes), in the kernel's
+    order; the plane's coordinate (2 * state + plane) comes fifth. Raises
+    ValueError if a box would leave the tensor: TMA would count the full
+    box either way, and the step's mbarrier would never complete."""
+    rows = tile_rows(geo, tile)
+    s0, w = boxes["s0"], boxes["w"]
+    per_part = len(rows) // boxes["parts"]
+    out = []
+    for i in range(boxes["parts"]):
+        for q in range(boxes["requests_per_part"]):
+            r0 = i * per_part + q * boxes["box_rows"]
+            row = rows[r0]
+            c = (0, row & ((1 << s0) - 1), (row >> s0) & ((1 << w) - 1),
+                 row >> (s0 + w))
+            if any(c[d] + boxes["box"][d] > boxes["dims"][d]
+                   for d in range(4)):
+                raise ValueError(f"box at {c} leaves the tensor {boxes}")
+            out.append((i, r0, c))
+    return out
 
 
 def usable(n: int) -> bool:

@@ -56,10 +56,12 @@ QUEST_FUSED_NBUF when it is prepared unless the caller names it:
 ring kernel (K1 with 3 plane slots, K2 with `nbuf`), 'grid' (K3) one
 block per tile (a batch above MAX_GRID_BATCH states in several
 launches, `grid_batch_slices`); each launch sizes its shared memory from
-band_plan.smem_layout. The drivers give bit-identical planes; the plain
-version is the same for all three. A segment with no stages is the
-stage-free copy (the reference's compile_segment((), ()) of its
-profiler): each tile loaded and stored.
+band_plan.smem_layout. The ring drivers move tiles through a tensor map
+that the launch encodes from band_plan.tma_boxes (`tma_unit` checks the
+model against the kernel's side once per geometry). The drivers give
+bit-identical planes; the plain version is the same for all three. A
+segment with no stages is the stage-free copy (the reference's
+compile_segment((), ()) of its profiler): each tile loaded and stored.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ from quest_tpu_torch.ops.band_plan import (
     HOPPER_GEOMETRY, LANE_QUBITS, LANES, Budgets, DiagVecStage, Geometry,
     BatchSelStage, MatStage, MultiPhaseStage, PairStage, ParityStage,
     PhaseStage, MAX_RING_SLOTS, OP_SLICE_BYTES, check_driver,
-    segment_geometry, smem_layout)
+    TMA_PARTS, segment_geometry, smem_layout, tma_boxes)
 
 DESC_WORDS = 17
 # descriptor columns (csrc/segment.cu enum F_*)
@@ -475,8 +477,14 @@ def _lib() -> ctypes.CDLL:
                            ctypes.c_longlong)
         lib.quest_segment_sweep.argtypes = [vp, ci, ci, ci, cu, cu, vp, ci,
                                             vp, cll, ci, ci, ci, vp, ci, ci,
-                                            ci, cll, vp]
+                                            ci, ci, ci, cll, vp]
         lib.quest_segment_sweep.restype = ci
+        lib.quest_segment_tma_geometry.argtypes = [ci, ci, ci, cu, ci, ci,
+                                                   ci, vp]
+        lib.quest_segment_tma_geometry.restype = ci
+        lib.quest_segment_tma_encode.argtypes = [vp, ci, ci, ci, cu, ci, ci,
+                                                 ci, ci]
+        lib.quest_segment_tma_encode.restype = ci
         lib.quest_segment_smem_bytes.argtypes = [ci, ci, ci]
         lib.quest_segment_smem_bytes.restype = cll
         lib.quest_segment_desc_words.restype = ci
@@ -507,6 +515,34 @@ def _lib() -> ctypes.CDLL:
                             f"{lay['total_bytes']}")
         lib._quest_declared = True
     return lib
+
+
+_TMA_CHECKED = set()     # (n, geometry, batch, parts, box rows) checked
+
+
+def tma_unit(seg: Segment, batch: int, copy_unit=None) -> dict:
+    """band_plan.tma_boxes of a ring launch of `seg` over `batch` states,
+    at the copy unit `copy_unit` ((parts, box rows); None: the kernel's
+    default), checked once per geometry against the C side's
+    quest_segment_tma_geometry (dims, strides, box, requests per plane).
+    Raises ValueError for a unit the geometry cannot take."""
+    parts, box_rows = copy_unit or (TMA_PARTS, None)
+    boxes = tma_boxes(seg.geometry, batch, parts=parts, box_rows=box_rows)
+    key = (seg.n, seg.geometry, batch, parts, boxes["box_rows"])
+    if key not in _TMA_CHECKED:
+        geo = seg.geometry
+        out = (ctypes.c_longlong * 15)()
+        rc = _lib().quest_segment_tma_geometry(
+            seg.n, geo.tile_bits, geo.inner_bits, seg.scat_mask, batch, parts,
+            boxes["box_rows"], out)
+        got = (tuple(out[0:5]), tuple(out[5:9]), tuple(out[9:14]), out[14])
+        want = (boxes["dims"], boxes["strides"], boxes["box"],
+                boxes["requests_per_plane"])
+        if rc != 0 or got != want:
+            raise RuntimeError(f"tensor map of {geo} x {batch}: kernel "
+                               f"{got} (rc {rc}), model {want}")
+        _TMA_CHECKED.add(key)
+    return boxes
 
 
 def grid_batch_slices(batch: int, driver: str) -> list:
@@ -567,14 +603,18 @@ def _check_sel(sel, seg: Segment, batch: int) -> None:
 
 
 def segment_sweep(amps: torch.Tensor, seg: Segment,
-                  sel: torch.Tensor = None) -> torch.Tensor:
+                  sel: torch.Tensor = None, *,
+                  copy_unit=None) -> torch.Tensor:
     """Apply segment `seg` in place to `amps` — one state's planes ((2,
     2^n) or (2, rows, 128) f32) or a batch of B states ((B, 2, 2^n) or
     (B, 2, rows, 128)) — and return it: on a CUDA tensor one kernel
     launch whatever B is (the grid driver: grid_batch_slices), the plain
     version on a CPU tensor. `sel` is
     the selection table (slots, B, 8) its BatchSelStages read (B = 1
-    for unbatched planes); None when it has none."""
+    for unbatched planes); None when it has none. `copy_unit` (parts per
+    plane, rows per box) overrides the ring drivers' tensor-map copy unit
+    (tma_unit) for measurements that compare units; the planes are the
+    same under every unit."""
     batch = _check_state(amps, seg)
     _check_sel(sel, seg, batch)
     if amps.device.type == "cpu":
@@ -585,10 +625,14 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
         raise ValueError(f"segment_sweep runs on cuda or cpu, not {amps.device}")
     if amps.data_ptr() % 16:
         raise ValueError("segment_sweep needs 16-byte aligned planes "
-                         "(bulk copies)")
+                         "(tensor-map copies)")
     lib = _lib()
     geo = seg.geometry
     lay = smem_layout(geo.tile_bits, geo.blocks * batch, seg.driver, seg.nbuf)
+    parts = box_rows = 1                 # K3 moves whole tiles itself
+    if seg.driver != "grid":
+        boxes = tma_unit(seg, batch, copy_unit)
+        parts, box_rows = boxes["parts"], boxes["box_rows"]
     with torch.cuda.device(amps.device):
         stream = torch.cuda.current_stream(amps.device).cuda_stream
         for state0, states in grid_batch_slices(batch, seg.driver):
@@ -598,7 +642,7 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
                 len(seg.stages), seg.ops.data_ptr(), geo.blocks, batch,
                 state0, states, sel.data_ptr() if seg.slots else None,
                 TIER_CODE[seg.tier], DRIVER_CODE[seg.driver], lay["slots"],
-                lay["total_bytes"], stream)
+                parts, box_rows, lay["total_bytes"], stream)
             if rc != 0:
                 raise RuntimeError(
                     f"segment kernel launch ({seg.driver}, {lay['slots']} "

@@ -132,8 +132,10 @@ def segment_phase_report(amps: torch.Tensor, seg, reps: int = 3) -> dict:
     its cycles, from the COUNTERS build: per block (thread 32, a compute
     warp), the cycles waiting for operator slices (`slice_wait`), in the
     block barriers that release them and refill their slots
-    (`slice_release`), in step prologues (K1/K2: from a step's start until
-    its tile has landed, the copies issued meanwhile; K3: the tile's
+    (`slice_release`), in step prologues (K1/K2: from the end of the
+    previous chain until the tile has landed, thread 0's stores and the
+    refill they free included; the later steps' refills that thread 0
+    issues after the tile lands fall in the chain; K3: the tile's
     gather), in the stage chain (`chain`, which holds the slice waits and
     releases) and in the whole block (`block`); each beside its share of
     `block`. `ms` is the counters build's mean launch time over `reps`

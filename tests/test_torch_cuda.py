@@ -526,3 +526,109 @@ def test_diagonal_target_above_bit_31(card):
     assert abs(norm - want_norm) <= 1e-6
     del amps
     torch.cuda.empty_cache()
+
+
+# ---- the ring drivers' tensor-map copies on scattered-row tiles ----------
+
+
+def _tma_case(name):
+    cases = chip_smoke.tma_cases(np.random.default_rng(_SEED))
+    return next(c for c in cases if c[0] == name)
+
+
+@pytest.mark.parametrize("driver,nbuf", RING_DRIVERS[:3],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize(
+    "name", [c[0] for c in chip_smoke.tma_cases(np.random.default_rng(0))])
+def test_scattered_geometries_match_grid_and_plain(card, name, driver, nbuf):
+    """The scattered-row geometries of the paths' plans ((0,(7,)),
+    (4,(1,1,1)), (0,(6,1)), (5,(1,1))) over 5 states of 20 qubits, ending
+    in a diagonal with a lane and a row control: K1 and K2 (2 and 3
+    slots), which move the tiles as tensor-map boxes part by part, give
+    K3's planes bit for bit, and K3 is within STAGE_TOL of the plain
+    version."""
+    _, n, batch, stages, arrays, groups = _tma_case(name)
+    seg = S.prepare_segment(stages, arrays, n, "cpu")
+    assert chip_smoke.geometry_groups(seg.geometry) == groups
+    rng = np.random.default_rng(3)
+    planes = torch.from_numpy(rng.standard_normal(
+        (batch, 2, 1 << n)).astype(np.float32)).to(card)
+    got = _run(card, stages, arrays, n, planes, driver, nbuf)
+    want = _run(card, stages, arrays, n, planes, "grid", 3)
+    assert torch.equal(got, want)
+    plain = S.segment_sweep_reference(planes, stages, [
+        torch.from_numpy(a).to(card) for a in arrays], n)
+    scale = plain.abs().max().item()
+    err = (want - plain.reshape(want.shape)).abs().max().item()
+    assert err <= chip_smoke.STAGE_TOL * scale
+
+
+@pytest.mark.parametrize(
+    "name", [c[0] for c in chip_smoke.tma_cases(np.random.default_rng(0))])
+def test_copy_units_give_the_same_planes(card, name):
+    """Every copy unit a geometry takes under K1 — 512-byte rows, one box
+    per plane, 2 or 4 parts — moves the same bytes: the planes are
+    identical to the default unit's."""
+    _, n, batch, stages, arrays, _ = _tma_case(name)
+    seg = S.prepare_segment(stages, arrays, n, card, driver="decoupled")
+    planes = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (batch, 2, 1 << n)).astype(np.float32)).to(card)
+    want = S.segment_sweep(planes.clone(), seg)
+    for unit in ((4, 1), (1, None), (2, None), (4, 2), (4, None)):
+        got = S.segment_sweep(planes.clone(), seg, copy_unit=unit)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), unit
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tensor_map_model_matches_the_kernel(card, seed):
+    """band_plan.tma_boxes against the kernel's own tma_geometry
+    (quest_segment_tma_geometry, through ops.segment.tma_unit) on seeded
+    random geometries of 12 to 33 qubits and batches up to 65,539, under
+    every copy unit; and the map encodes for each (no device memory is
+    touched: the address is only recorded)."""
+    rng = np.random.default_rng(seed)
+    lib = S._lib()
+    amps = torch.zeros(4, device=card)
+    for _ in range(8):
+        n = int(rng.integers(12, 34))
+        k = int(rng.integers(0, 8))
+        scat = rng.choice(n - 7, size=min(k, n - 7), replace=False)
+        stages = [BP.MatStage("sc", 2, False, (), (), int(b)) for b in scat]
+        seg = S.prepare_segment(stages, [np.stack(
+            [np.eye(2), np.zeros((2, 2))]).astype(np.float32)] * len(stages),
+            n, "cpu")
+        geo = seg.geometry
+        if not 10 <= geo.tile_bits <= 14:
+            continue
+        batch = int(rng.choice([1, 3, 65539]))
+        for parts in (1, 2, 4):
+            boxes = S.tma_unit(seg, batch, (parts, None))
+            assert boxes["parts"] == parts
+            rc = lib.quest_segment_tma_encode(
+                amps.data_ptr(), n, geo.tile_bits, geo.inner_bits,
+                seg.scat_mask, batch, parts, boxes["box_rows"], 1)
+            assert rc == 0, (geo, batch, parts, rc)
+
+
+def test_refused_tensor_map_raises(card, monkeypatch):
+    """A copy unit the kernel's side refuses makes the launch fail and the
+    wrapper raise, with no launch counted; a map the driver cannot encode
+    (a misaligned address) returns the encoder's error rather than
+    falling back to another copy."""
+    n = 16
+    seg = S.prepare_segment([], [], n, card, driver="decoupled")
+    amps = torch.zeros((2, 1 << n), device=card)
+    monkeypatch.setattr(S, "tma_unit", lambda *a, **k: {"parts": 3,
+                                                        "box_rows": 1})
+    before = S.segment_sweep.launches
+    with pytest.raises(RuntimeError, match="launch"):
+        S.segment_sweep(amps, seg)
+    assert S.segment_sweep.launches == before
+    lib = S._lib()
+    geo = seg.geometry
+    rc = lib.quest_segment_tma_encode(
+        amps.data_ptr() + 4, n, geo.tile_bits, geo.inner_bits, seg.scat_mask,
+        1, 1, 128, 1)
+    assert rc >= 10000
+    assert b"cuTensorMapEncodeTiled" in lib.quest_cuda_error_string(rc)

@@ -460,8 +460,9 @@ def test_smem_layout_clamps_every_tile_size():
     # the operator ring (2 x 16 KiB slices and their mbarriers) sits
     # beside the plane slots under every driver: one slot fewer at 13 bits
     assert [BP.ring_fit(b) for b in range(10, 15)] == [8, 8, 8, 6, 3]
-    assert BP.smem_layout(14, 1 << 20, "decoupled")["total_bytes"] == 230696
-    assert BP.smem_layout(14, 1 << 20, "grid")["total_bytes"] == 165136
+    # S8's 1 KiB table sits beside them too
+    assert BP.smem_layout(14, 1 << 20, "decoupled")["total_bytes"] == 231720
+    assert BP.smem_layout(14, 1 << 20, "grid")["total_bytes"] == 166160
     assert BP.smem_layout(14, 1 << 20, "grid")["op_ring_bytes"] == 32784
 
 
@@ -495,47 +496,55 @@ def test_grid_batch_slices_refuse_an_empty_batch():
 # ---------------------------------------------------------------------------
 
 
-def _check_schedule(driver, steps, slots):
-    ev = BP.ring_schedule(driver, steps, slots)
+def _check_schedule(driver, steps, slots, parts=1):
+    ev = BP.ring_schedule(driver, steps, slots, parts)
     width = 2 if driver == "grid" else slots
+    parts = 1 if driver == "grid" else parts
     loads = [e for e in ev if e[0] == "load"]
     stores = [e for e in ev if e[0] == "store"]
     chains = [e for e in ev if e[0] == "chain"]
-    # every step loaded, chained and stored exactly once, in order
-    assert [e[1] for e in loads] == list(range(2 * steps))
-    assert [e[1] for e in stores] == list(range(2 * steps))
+    # every part of every step loaded, chained and stored exactly once, in
+    # order
+    every = [(j, i) for j in range(2 * steps) for i in range(parts)]
+    assert [(e[1], e[3]) for e in loads] == every
+    assert [(e[1], e[3]) for e in stores] == every
     assert [e[1] for e in chains] == list(range(steps))
     pos = {e: i for i, e in enumerate(ev)}
-    occupant = {}                        # slot -> plane it holds
-    released = -1                        # stores read (K1) or landed
+    occupant = {}                        # (slot, part) -> plane it holds
+    released = set()                     # store groups read (K1) or landed
+    committed = []
     for i, e in enumerate(ev):
         kind = e[0]
         if kind == "load":
-            j, slot = e[1], e[2]
+            j, slot, part = e[1], e[2], e[3]
             assert slot == j % width
-            if slot in occupant:         # a refill: its store released
-                prev = occupant[slot]
-                assert ("store", prev, slot) in pos
-                assert pos[("store", prev, slot)] < i
-                assert released >= prev, (driver, steps, slots, e)
-            occupant[slot] = j
+            if (slot, part) in occupant:     # a refill: its store released
+                prev = occupant[(slot, part)]
+                assert pos[("store", prev, slot, part)] < i
+                assert (prev, part) in released, (driver, steps, slots, e)
+            occupant[(slot, part)] = j
+        elif kind == "store":
+            committed.append((e[1], e[3]))
+            assert pos[("chain", e[1] // 2, chains[e[1] // 2][2])] < i
         elif kind in ("read", "drained"):
             if driver == "inplace":
                 assert kind == "drained"     # K2 waits for the landing
-            released = max(released, e[1])
+            done = committed[:committed.index((e[1], e[2])) + 1]
+            assert len(committed) - len(done) == e[3]   # wait_group's N
+            released |= set(done)
         elif kind == "landed":
             k = e[1]
-            assert pos[("load", 2 * k, (2 * k) % width)] < i
-            assert pos[("load", 2 * k + 1, (2 * k + 1) % width)] < i
+            for j in (2 * k, 2 * k + 1):
+                for part in range(parts):
+                    assert pos[("load", j, j % width, part)] < i
         elif kind == "chain":
             k = e[1]
             assert pos[("landed", k)] < i
             assert e[2] == ((2 * k) % width, (2 * k + 1) % width)
-            assert occupant[e[2][0]] == 2 * k
-            assert occupant[e[2][1]] == 2 * k + 1
-        elif kind == "store":
-            assert pos[("chain", e[1] // 2, chains[e[1] // 2][2])] < i
-    assert ev[-1] == ("drained", 2 * steps - 1)
+            for part in range(parts):
+                assert occupant[(e[2][0], part)] == 2 * k
+                assert occupant[(e[2][1], part)] == 2 * k + 1
+    assert ev[-1] == ("drained", 2 * steps - 1, parts - 1, 0)
     return ev
 
 
@@ -543,17 +552,20 @@ def _check_schedule(driver, steps, slots):
                          [(d, s) for d in ("decoupled", "inplace")
                           for s in range(2, 9)] + [("grid", 2)])
 def test_ring_schedule_invariants(driver, slots):
-    """For 1..9 steps: each step is loaded, chained and stored exactly
-    once; a slot is refilled only after its previous plane's store has
-    read it (K1) or landed (K2); a chain starts only after its loads
-    have landed; every store lands before the block exits."""
-    for steps in range(1, 10):
-        ev = _check_schedule(driver, steps, slots)
-        ahead = BP.overlap_steps(ev)
-        if steps == 1 or driver == "grid" or slots == 2:
-            assert ahead == 0
-        else:
-            assert ahead == 1 if slots < 6 or steps < 4 else ahead >= 1
+    """For 1..9 steps, planes whole or in the kernel's parts: each part of
+    each step is loaded, chained and stored exactly once; a part of a
+    slot is refilled only after its previous plane's store of that part
+    has read it (K1) or landed (K2), waiting with the count of store
+    groups committed since; a chain starts only after its loads have
+    landed; every store lands before the block exits."""
+    for parts in (1, 2, BP.MAX_TMA_PARTS):
+        for steps in range(1, 10):
+            ev = _check_schedule(driver, steps, slots, parts)
+            ahead = BP.overlap_steps(ev)
+            if steps == 1 or driver == "grid" or slots == 2:
+                assert ahead == 0
+            else:
+                assert ahead == 1 if slots < 6 or steps < 4 else ahead >= 1
 
 
 def test_ring_schedule_decoupled_waits_only_for_the_read():

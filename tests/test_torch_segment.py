@@ -569,6 +569,139 @@ def test_diag_index_keeps_target_bits_above_31():
     assert seen == {0, 1}
 
 
+NTHREADS = 256                # csrc NTHREADS: threads of a block
+
+
+def hoisted_diag(d, row_ids):
+    """S8 on one tile as csrc diagvec_stage hoists it: thread t takes the
+    float4 of lanes 4 (t % 32) .. 4 (t % 32) + 3 in rows t // 32, t // 32
+    + 8, ...; it works out the table index's lane part and the lane
+    predicate once for its four lanes, and the row part (the targets at
+    or above bit 7, from the row id) and the row predicate once per row.
+    Returns (index, applied, visits) per element, each (rows, 128); index
+    is -1 where a predicate fails."""
+    k = int(d[S.F_DIM])
+    q = [(int(d[S.F_TARGETS]) >> (S.TARGET_BITS * j)) & 63 for j in range(k)]
+    masked = bool(d[S.F_MASKED])
+    lm, lw = int(d[S.F_LANE_MASK]), int(d[S.F_LANE_WANT])
+    rm, rw = int(d[S.F_ROW_MASK]), int(d[S.F_ROW_WANT])
+    rows = len(row_ids)
+    index = np.full((rows, 128), -1, np.int64)
+    visits = np.zeros((rows, 128), np.int64)
+    for t in range(NTHREADS):
+        l0 = (t & 31) * 4
+        lidx = [sum((((l0 + c) >> q[j]) & 1) << j for j in range(k)
+                    if q[j] < LANE_BITS) for c in range(4)]
+        lok = [not masked or ((l0 + c) & lm) == lw for c in range(4)]
+        for r in range(t >> 5, rows, NTHREADS // 32):
+            visits[r, l0:l0 + 4] += 1
+            row = int(row_ids[r])
+            if masked and (row & rm) != rw:
+                continue
+            ridx = sum(((row >> (q[j] - LANE_BITS)) & 1) << j
+                       for j in range(k) if q[j] >= LANE_BITS)
+            for c in range(4):
+                if lok[c]:
+                    index[r, l0 + c] = lidx[c] | ridx
+    return index, index >= 0, visits
+
+
+DIAG_CASES = [("k1_row", (17,), (), ()),
+              ("k3_preds", (0, 9, 12), ((2, 1),), ((1, 0),)),
+              ("k7_mixed", (1, 5, 8, 9, 12, 14, 19), ((6, 0),), ((11, 1),)),
+              ("k2_free_bits", (15, 3), (), ((0, 1), (12, 0)))]
+
+
+@pytest.mark.parametrize("case", DIAG_CASES, ids=lambda c: c[0])
+def test_hoisted_diag_index_matches_diag_entries(case):
+    """On every tile of a 20-qubit segment whose tiles hold scattered row
+    bits (an sc stage on row bit 9 beside the diagonal): the hoisted
+    index equals diag_entries (the per-element index of the kernel before
+    its redesign) wherever the predicates hold, the identity elsewhere,
+    and each element is visited by exactly one thread once."""
+    _, targets, lane_preds, row_preds = case
+    n = 20
+    rng = np.random.default_rng(41)
+    t = np.exp(1j * rng.uniform(0, 2 * np.pi, 1 << len(targets)))
+    table = np.stack([t.real, t.imag]).astype(np.float32)
+    seg = S.prepare_segment(
+        [BP.MatStage("sc", 2, False, (), (), 9),
+         BP.DiagVecStage(targets, lane_preds, row_preds)],
+        [np.stack([np.eye(2), np.zeros((2, 2))]).astype(np.float32), table],
+        n, "cpu")
+    d = seg.desc.numpy()[1]
+    lane = np.arange(128)[None, :]
+    for blk in range(seg.geometry.blocks):
+        rows = _tile_row_ids(seg, blk)[:, None]
+        index, applied, visits = hoisted_diag(d, rows[:, 0])
+        assert (visits == 1).all()
+        ok = ((lane & int(d[S.F_LANE_MASK])) == d[S.F_LANE_WANT]) & (
+            (rows & int(d[S.F_ROW_MASK])) == d[S.F_ROW_WANT])
+        np.testing.assert_array_equal(applied, ok)
+        want = diag_entries(d, lane, rows)
+        np.testing.assert_array_equal(index[ok], want[ok])
+
+
+@pytest.mark.parametrize("case", DIAG_CASES, ids=lambda c: c[0])
+def test_hoisted_diag_matches_plain_version(case):
+    """The hoisted S8 applied tile by tile to a seeded 20-qubit state (the
+    kernel's table lookup and complex multiply in f32) against the plain
+    version _diagvec (segment_sweep on a CPU tensor), within TOL x
+    max|amp|."""
+    _, targets, lane_preds, row_preds = case
+    n = 20
+    rng = np.random.default_rng(43)
+    t = np.exp(1j * rng.uniform(0, 2 * np.pi, 1 << len(targets)))
+    table = np.stack([t.real, t.imag]).astype(np.float32)
+    seg = S.prepare_segment([BP.DiagVecStage(targets, lane_preds, row_preds)],
+                            [table], n, "cpu")
+    d = seg.desc.numpy()[0]
+    planes = rng.standard_normal((2, 1 << n)).astype(np.float32)
+    got = planes.copy()
+    tab = seg.ops.numpy()
+    k = len(targets)
+    for blk in range(seg.geometry.blocks):
+        rows = _tile_row_ids(seg, blk)
+        index, applied, _ = hoisted_diag(d, rows)
+        idx = (rows.astype(np.int64)[:, None] << 7) | np.arange(128)[None, :]
+        fr = np.where(applied, tab[np.maximum(index, 0)], np.float32(1))
+        fi = np.where(applied, tab[(1 << k) + np.maximum(index, 0)],
+                      np.float32(0))
+        re, im = planes[0, idx], planes[1, idx]
+        got[0, idx] = re * fr - im * fi
+        got[1, idx] = re * fi + im * fr
+    want = S.segment_sweep(torch.from_numpy(planes.copy()), seg).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL * np.abs(want).max(),
+                               rtol=0)
+
+
+def test_hoisted_diag_index_at_33_qubits():
+    """At 33 qubits, a diagonal on qubits (32, 3, 25) under a lane control
+    (lane bit 1 set) and a row control (row bit 24, qubit 31, clear):
+    on the first, a middle and the last tile the hoisted index and
+    predicates equal those read off each element's 64-bit global index,
+    qubit 32 included."""
+    n = 33
+    st = BP.DiagVecStage((32, 3, 25), ((1, 1),), ((24, 0),))
+    table = np.zeros((2, 8), np.float32)
+    table[0] = 1.0
+    seg = S.prepare_segment([st], [table], n, "cpu")
+    d = seg.desc.numpy()[0]
+    lane = np.arange(128)[None, :]
+    seen = set()
+    for blk in (0, seg.geometry.blocks // 2 + 5, seg.geometry.blocks - 1):
+        rows = _tile_row_ids(seg, blk)
+        index, applied, visits = hoisted_diag(d, rows)
+        assert (visits == 1).all()
+        gidx = (rows.astype(np.int64)[:, None] << 7) | lane
+        ok = (((gidx >> 1) & 1) == 1) & (((gidx >> 31) & 1) == 0)
+        np.testing.assert_array_equal(applied, ok)
+        want = sum(((gidx >> q) & 1) << j for j, q in enumerate(st.targets))
+        np.testing.assert_array_equal(index[ok], want[ok])
+        seen |= set(np.unique(want[ok] & 1).tolist())
+    assert seen == {0, 1}
+
+
 # ---------------------------------------------------------------------------
 # the sliced operators of d >= 16 (HIGHEST slice rows, wgmma B tiles)
 # ---------------------------------------------------------------------------
