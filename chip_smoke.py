@@ -16,9 +16,10 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      phase hangs rather than errs), the first launches of every driver —
      K1, K2 at 2, 3 and 8 plane slots, K3 — on every stage case below,
      on segments whose blocks walk many tiles (26 qubits, an 11-bit
-     tile, 16 states) and on the scattered-row geometries of the paths'
+     tile, 16 states), on the scattered-row geometries of the paths'
      plans ((0,(7,)), (4,(1,1,1)), (0,(6,1)), (5,(1,1)): 5 states, a
-     diagonal with controls): bit-identical to K3;
+     diagonal with controls) and on S7 at 1, 2, 8 and 64 terms:
+     bit-identical to K3, K3 within 1e-5 of the plain version;
   2. per-stage check at 20 qubits: one segment per stage kind S1-S8 and
      S10 (b0; b1 d=128 and d=32; scb d=128/64/4, one real; sc; phase;
      parity; multiphase; a matrix stage with lane and row predicates;
@@ -43,9 +44,11 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      driver, profiling.sweep_dma_report (the stage-free launch, each
      flagship sweep's total and compute adder), the stage-free launch on
      a scattered-row geometry (7 scattered row bits) beside its time
-     before the tensor-map copies and its requests per plane, and
-     single-stage launches beside the bound and a torch copy_ of the
-     planes (the yardstick, never called by the port); under K1 the
+     before the driver's tensor-map copies and its requests per plane,
+     and single-stage launches beside the bound and a torch copy_ of the
+     planes (the yardstick, never called by the port); K3's stage-free
+     launches on inner-row and scattered tiles beside copy_, the bound
+     and their times before the tensor-map copies; under K1 the
      tensor-map copy units (512-byte rows, one box per plane, 2 and 4
      parts refilled one by one) on the scattered and inner-row copies and
      on scb-128 and b0 at DEFAULT, and the host time of one map's
@@ -108,20 +111,24 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      rho and purity within 1e-4 of the HIGHEST run's (or the plain
      version's envelope) and Hermiticity;
  15. single-stage segments at 28 qubits — b0, b1, scb-128, sc, phase,
-     parity, multiphase, each Kraus pair form and a diagonal, and b0,
+     parity, multiphase (8 terms of both forms, and the main paths' 2
+     all-ones terms), each Kraus pair form and a diagonal, and b0,
      b1, scb-128 at HIGH and DEFAULT — and S9 at 24 qubits x 64 states on
      a lane bit, a row bit and a scattered bit: kernel, plain version
      and, where PyTorch computes the same function, that yardstick (the
      port never calls it): one call, or for HIGH the three bf16 calls of
      the split parts together. b0, b1-128 and scb-128 at every tier and
      the diagonal also print their time before the tensor-map copies and
-     S8's redesign (before_redesign_ms);
+     S8's redesign, the 8-term multiphase its time before S7's factored
+     angles (before_redesign_ms);
  16. phase_counters: the same b0, b1-128 and scb-128 launches at each
-     tier and a phase stage through the kernel's phase-counter build
-     (profiling.segment_phase_report: cycles per block in operator-slice
-     waits and releases, step prologues and the chain) with the
-     prologue's share on inner-row (b0, b1) and scattered-row (scb-128)
-     tiles per tier, and the fp32 FMA rate the card sustains
+     tier, a phase stage and both multiphase rows through the kernel's
+     phase-counter build (profiling.segment_phase_report: cycles per
+     block in operator-slice waits and releases, step prologues and the
+     chain) with the prologue's share on inner-row (b0, b1) and
+     scattered-row (scb-128) tiles per tier; K3 launches (stage-free, a
+     phase stage, b0 at DEFAULT) with their prologue, chain and store
+     shares of a block; and the fp32 FMA rate the card sustains
      (profiling.fma_rate).
 
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
@@ -530,6 +537,44 @@ def tma_cases(rng):
                              ((0, 1),), ((max(geo.scat), 1),))]
         out.append((name, n, batch, [s for s, _ in ops], [a for _, a in ops],
                     geometry_groups(geo)))
+    return out
+
+
+def multiphase_terms(rng, m, row_bits, forms=None):
+    """m (form, lane mask, row mask) terms: forms drawn at random unless
+    given; a parity term's masks random over the lanes and `row_bits` row
+    bits, an all-ones term's of one or two bits so that it matches part
+    of the state."""
+    out = []
+    for r in range(m):
+        form = forms[r] if forms else ("a", "p")[int(rng.integers(2))]
+        if form == "p":
+            lm = int(rng.integers(0, 128))
+            rm = int(rng.integers(0, 1 << row_bits))
+        else:
+            bits = rng.choice(7 + row_bits, size=int(rng.integers(1, 3)),
+                              replace=False)
+            lm = sum(1 << int(b) for b in bits if b < 7)
+            rm = sum(1 << int(b - 7) for b in bits if b >= 7)
+        out.append((form, lm, rm))
+    return out
+
+
+def multiphase_cases(rng):
+    """(name, n, stages, arrays): S7 at m = 1, 2, 8 and 64 terms on 20
+    qubits (row masks up to row bit 12) — mixed forms, and the main
+    paths' two all-ones terms (a CZ on a lane and a row bit, one on two
+    row bits) — each ending the segment after an scb-4 stage on row bit 9
+    so that the tiles hold a scattered row bit."""
+    n, row_bits = 20, 13
+    cases = {"multiphase_m1": multiphase_terms(rng, 1, row_bits, ("p",)),
+             "multiphase_m2_aa": [("a", 1 << 6, 1), ("a", 0, 3 << 11)],
+             "multiphase_m8": multiphase_terms(rng, 8, row_bits),
+             "multiphase_m64": multiphase_terms(rng, 64, row_bits)}
+    out = []
+    for name, terms in cases.items():
+        ops = [mat_op(rng, "scb", 4, bit=9), multiphase_op(rng, terms)]
+        out.append((name, n, [s for s, _ in ops], [a for _, a in ops]))
     return out
 
 
@@ -1477,22 +1522,30 @@ def _diag_library(torch, arr, amps, q):
     return time_ms(torch, lambda: x * t.reshape(1, 2, 1), 5)
 
 
-# K1 single-stage ms at 28 qubits before the ring drivers' tensor-map
-# copies and S8's hoisted indexing (tiles moved as one 512-byte bulk copy
-# per row on scattered-row tiles, whole-plane refills; S8 reading its table
-# through L1 per element), on an NVIDIA H100 80GB HBM3 at 700 W, from this
-# script's stage_timing phase on the tree of that time (PERF.md), printed
-# beside the new times.
+# K1 single-stage ms at 28 qubits before each kernel's latest redesign,
+# on an NVIDIA H100 80GB HBM3 at 700 W, from this script's stage_timing
+# phase on the tree of that time (PERF.md), printed beside the new times:
+# b0, b1, scb-128 and diagvec before the ring drivers' tensor-map copies
+# and S8's hoisted indexing; the multiphase rows before S7 factored its
+# angles into lane and row parts (2 and 64 terms: this phase run against
+# the package of that tree, the mean of two runs).
 BEFORE_REDESIGN_MS = {"b0": 6.66, "b1": 6.96, "scb128": 9.08,
                       "b0@high": 2.26, "b1@high": 2.28, "scb128@high": 4.45,
                       "b0@default": 1.81, "b1@default": 1.78,
-                      "scb128@default": 3.83, "diagvec": 1.92}
+                      "scb128@default": 3.83, "diagvec": 1.92,
+                      "multiphase": 4.76, "multiphase_aa": 2.405,
+                      "multiphase_m64": 27.549}
+# S7 on the main paths: two all-ones terms, a CZ on lane bit 6 and row bit
+# 0 and one on row bits 13 and 14 (the flagship's and 30q d20's stages)
+MAIN_PATH_MULTIPHASE = [("a", 1 << 6, 1), ("a", 0, 3 << 13)]
 
 
 def phase_stage_timing(torch):
     """Single-stage segments at 28 qubits: b0, b1, scb-128 and sc (with
     one complex64 torch.matmul in the stage's frame as the yardstick),
-    phase, parity and an 8-term multiphase (no single library call),
+    phase, parity, an 8-term multiphase of both forms, the main paths'
+    2-term all-ones multiphase and a 64-term one of alternating forms (no
+    single library call),
     each Kraus pair form (one torch.einsum of the 4x4 operator as the
     yardstick) and a 1-qubit diagonal on row bit 14 (one broadcast
     complex multiply)."""
@@ -1500,6 +1553,7 @@ def phase_stage_timing(torch):
     from quest_tpu_torch.ops import segment as S
     n = TIMING_QUBITS
     rng = np.random.default_rng(7)
+    m64 = np.random.default_rng(64)
     planes = torch.from_numpy(
         rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
     planes /= planes.double().pow(2).sum().sqrt().float()
@@ -1513,6 +1567,10 @@ def phase_stage_timing(torch):
              ("multiphase", multiphase_op(
                  rng, [("a" if k % 2 else "p", 1 << (k % 7), 1 << (2 * k + 5))
                        for k in range(8)]), None),
+             ("multiphase_aa", multiphase_op(rng, MAIN_PATH_MULTIPHASE), None),
+             # its own generator, so the operands after it stay as they were
+             ("multiphase_m64", multiphase_op(m64, multiphase_terms(
+                 m64, 64, n - 7, ("p", "a") * 32)), None),
              ("pair_lane_scat", lane_pair_op(rng, 3, "scat", 20), None),
              ("pair_lane_sub", lane_pair_op(rng, 5, "sub", 6), None),
              ("pair_sub_scat", pair_op(rng, "sub", 2, 20), None),
@@ -1564,8 +1622,8 @@ def phase_stage_timing(torch):
     torch.cuda.empty_cache()
     out += batchsel_timing(torch)
     for rec in out:
-        if rec["label"] in BEFORE_REDESIGN_MS:
-            rec["before_redesign_ms"] = BEFORE_REDESIGN_MS[rec["label"]]
+        if rec["name"] in BEFORE_REDESIGN_MS:
+            rec["before_redesign_ms"] = BEFORE_REDESIGN_MS[rec["name"]]
     emit({"phase": "stage_timing", "n": n, "stages": out})
     return out
 
@@ -1573,10 +1631,13 @@ def phase_stage_timing(torch):
 def phase_phase_counters(torch):
     """Where single-stage 28-qubit launches under K1 spend their cycles
     (profiling.segment_phase_report, the COUNTERS build: operator-slice
-    waits and releases, step prologues, the chain, per block) for b0,
-    b1-128 and scb-128 at each tier and a phase stage, beside the fp32
-    FMA rate the card sustains (profiling.fma_rate). Counted launches
-    are not the main path's."""
+    waits and releases, step prologues, the chain, per block; counters
+    set to 0 before each launch and read after it) for b0, b1-128 and
+    scb-128 at each tier, a phase stage and the 8- and 2-term multiphase
+    of stage_timing; and K3 launches (the stage-free copy, a phase stage,
+    b0 at DEFAULT) with the prologue, chain and store shares of a block;
+    beside the fp32 FMA rate the card sustains (profiling.fma_rate).
+    Counted launches are not the main path's."""
     from quest_tpu_torch import profiling
     from quest_tpu_torch.ops import segment as S
     n = TIMING_QUBITS
@@ -1596,6 +1657,27 @@ def phase_phase_counters(torch):
     rec = profiling.segment_phase_report(
         planes, S.prepare_segment([st], [arr], n, "cuda"))
     out.append(dict(rec, name="phase"))
+    # S7 at 8 terms of both forms and the main paths' 2 all-ones terms:
+    # how much of a block the chain (the angle sums and sincosf) takes
+    for name, terms in (("multiphase", [
+            ("a" if k % 2 else "p", 1 << (k % 7), 1 << (2 * k + 5))
+            for k in range(8)]), ("multiphase_aa", MAIN_PATH_MULTIPHASE)):
+        mst, marr = multiphase_op(rng, terms)
+        rec = profiling.segment_phase_report(
+            planes, S.prepare_segment([mst], [marr], n, "cuda"))
+        out.append(dict(rec, name=name))
+    # K3 blocks: prologue (the tile's loads in flight under the row ids and
+    # the operator ring's start), chain, and stores (thread 0, until they
+    # let the block exit), on the stage-free copy, a phase stage and b0 at
+    # DEFAULT
+    k3 = []
+    for name, stages, arrays, tier in (
+            ("stage_free", [], [], "highest"), ("phase", [st], [arr],
+                                                "highest"),
+            ("b0@default", [cases[0][1][0]], [cases[0][1][1]], "default")):
+        rec = profiling.segment_phase_report(planes, S.prepare_segment(
+            stages, arrays, n, "cuda", tier=tier, driver="grid"))
+        k3.append(dict(rec, name=name))
     del planes
     torch.cuda.empty_cache()
     # the K1 step prologue's share of a block: inner-row tiles (b0, b1)
@@ -1608,6 +1690,10 @@ def phase_phase_counters(torch):
                 for tier in ("highest",) + TIERS}
     rec = {"phase": "phase_counters", "n": n, "driver": "decoupled",
            "launches": out, "prologue_share": prologue,
+           "k3_launches": k3,
+           "k3_shares": {r["name"]: {k: r["share_of_block"][k] for k in
+                                     ("prologue", "chain", "store")}
+                         for r in k3},
            "fma_rate": profiling.fma_rate()}
     emit(rec)
     return rec
@@ -1814,11 +1900,12 @@ def probe_drivers(torch):
     """The first launches of every driver, meant to run in a subprocess
     with a timeout (a slip of an mbarrier's phase or of a bulk-group count
     hangs a block): every stage case and batched case of the stages phase,
-    every ring case and the scattered-row geometries of tma_cases (several
-    tensor-map requests and store groups per plane), under K1, K2 at 2, 3
-    and 8 slots and K3, each bit-identical to K3 (max|diff| == 0) and K3
-    within the stage tolerance of the plain version on the ring and
-    tensor-map cases."""
+    every ring case, the scattered-row geometries of tma_cases (several
+    tensor-map requests and store groups per plane) and S7 at 1, 2, 8 and
+    64 terms (multiphase_cases), under K1, K2 at 2, 3 and 8 slots and K3,
+    each bit-identical to K3 (max|diff| == 0) and K3 within the stage
+    tolerance of the plain version on the ring, tensor-map and multiphase
+    cases."""
     from quest_tpu_torch.ops import segment as S
     rng = np.random.default_rng(20261017)
     configs = dict(DRIVER_CONFIGS, **{"K2/8": ("inplace", 8)})
@@ -1826,7 +1913,9 @@ def probe_drivers(torch):
     cases += [(nm, n, b, st, ar)
               for nm, n, b, st, ar, _ in batch_stage_cases(rng)]
     results = []
-    plain_checked = ring_cases(rng) + [c[:5] for c in tma_cases(rng)]
+    plain_checked = (ring_cases(rng) + [c[:5] for c in tma_cases(rng)]
+                     + [(nm, n, 0, st, ar)
+                        for nm, n, st, ar in multiphase_cases(rng)])
     for (name, n, batch, stages, arrays), ring in (
             [(c, False) for c in cases] + [(c, True) for c in plain_checked]):
         shape = (batch, 2, 1 << n) if batch else (2, 1 << n)
@@ -2022,12 +2111,17 @@ def scattered_copy(torch, S, op, n, driver, nbuf):
                                slots=(), ops=torch.zeros(4, device="cuda"))
 
 
-# The scattered-row stage-free launch before the tensor-map copies (one
-# 512-byte bulk copy per row from warp 0's lanes): ms at 28 qubits on an
-# NVIDIA H100 80GB HBM3 at 700 W, this script's dma_floor phase on the
-# tree of that time (PERF.md), printed beside the new times.
-SCATTERED_BEFORE_MS = {"K1": 2.542, "K2/2": 2.597, "K2/3": 2.531,
-                       "K3": 2.923}
+# The stage-free launch before each driver's copies were last redesigned:
+# ms at 28 qubits on an NVIDIA H100 80GB HBM3 at 700 W, this script's
+# dma_floor phase on the tree of that time (PERF.md), printed beside the
+# new times. K1 and K2 on scattered-row tiles before their tensor-map
+# copies (one 512-byte bulk copy per row from warp 0's lanes); K3 on
+# inner-row and scattered-row tiles before its tensor-map copies (16-byte
+# loads and stores by every thread).
+STAGE_FREE_BEFORE_MS = {"K1": {"scattered": 2.542},
+                        "K2/2": {"scattered": 2.597},
+                        "K2/3": {"scattered": 2.531},
+                        "K3": {"inner": 2.767, "scattered": 2.877}}
 # copy units compared on the card: (parts per plane, rows per box; None:
 # the most the geometry takes). "plane" is the kernel's default; the
 # parts refill a slot part by part.
@@ -2072,8 +2166,8 @@ def copy_unit_timing(torch, S, cases, planes, reps=5):
 
 
 def tma_encode_us(torch, S, seg, planes):
-    """Host microseconds of one tensor-map encoding (each ring launch
-    encodes one), over ENCODE_REPS encodings."""
+    """Host microseconds of one tensor-map encoding (each launch encodes
+    one), over ENCODE_REPS encodings."""
     geo = seg.geometry
     lib = S._lib()
     boxes = S.tma_unit(seg, 1)
@@ -2096,10 +2190,11 @@ def phase_dma_floor(torch):
     plane, and single-stage launches of byte-bound kinds (phase, parity,
     a Kraus pair) and b0, per configuration, beside the bound (the state
     read and written once) and the yardstick: a torch copy_ of the planes
-    into a second buffer (never called by the port). Under K1, the copy
-    units of COPY_UNITS on the scattered and the inner-row stage-free
-    launches and on scb-128 and b0 at DEFAULT (copy_unit_timing), and the
-    host time of one tensor-map encoding."""
+    into a second buffer (never called by the port), and K3's stage-free
+    launches (inner-row and scattered-row tiles) beside them.
+    Under K1, the copy units of COPY_UNITS on the scattered and the
+    inner-row stage-free launches and on scb-128 and b0 at DEFAULT
+    (copy_unit_timing), and the host time of one tensor-map encoding."""
     from quest_tpu_torch import profiling
     from quest_tpu_torch.ops import segment as S
     n = TIMING_QUBITS
@@ -2139,11 +2234,10 @@ def phase_dma_floor(torch):
             torch, lambda: S.segment_sweep(planes, seg), 5)
         drivers[cfg] = {"stage_free_ms": rep["dma_ms"], "slots": rep["slots"],
                         "single_stage_ms": single,
-                        "stage_free_scattered_before_redesign_ms":
-                            SCATTERED_BEFORE_MS[cfg],
-                        "requests_per_plane": (
-                            None if driver == "grid" else
-                            S.tma_unit(seg, 1)["requests_per_plane"]),
+                        "stage_free_before_redesign_ms":
+                            STAGE_FREE_BEFORE_MS[cfg],
+                        "requests_per_plane":
+                            S.tma_unit(seg, 1)["requests_per_plane"],
                         "sweeps": [{k: s[k] for k in ("stages", "total_ms",
                                                       "compute_adder_ms")}
                                    for s in rep["sweeps"]
@@ -2161,8 +2255,14 @@ def phase_dma_floor(torch):
                                          driver="decoupled"))], planes)
     encode_us = tma_encode_us(torch, S, scat_seg, planes)
     bound = 2 * 2 * 4 * (1 << n) / HBM_BYTES_PER_S * 1e3
+    # K3's stage-free launch beside copy_ and the bound
+    k3 = {"stage_free_inner_ms": drivers["K3"]["stage_free_ms"],
+          "stage_free_scattered_ms":
+              drivers["K3"]["single_stage_ms"]["stage_free_scattered"],
+          "before_redesign_ms": STAGE_FREE_BEFORE_MS["K3"],
+          "copy_ms": copy_ms, "bound_ms": bound}
     rec = {"phase": "dma_floor", "n": n, "bound_ms": bound,
-           "copy_ms": copy_ms, "drivers": drivers,
+           "copy_ms": copy_ms, "drivers": drivers, "k3": k3,
            "copy_units_k1": units, "tma_encode_us": encode_us}
     emit(rec)
     del planes
@@ -2254,8 +2354,10 @@ REPLACES = {
 TIER_REPLACES = "quest_tpu/ops/pallas_band.py:1039 (_mxu_dot_general {})"
 # the stage_timing record that stands for each stage kind in the kernels
 # line: a Kraus pair by its most frequent form on the density path, a
-# channel stage by its most frequent position on the trajectory path
-KERNEL_RECORD = {"pair": "pair_lane_scat", "batchsel": "batchsel_scat"}
+# channel stage by its most frequent position on the trajectory path, S7
+# by the main paths' two all-ones terms
+KERNEL_RECORD = {"pair": "pair_lane_scat", "batchsel": "batchsel_scat",
+                 "multiphase": "multiphase_aa"}
 
 
 def main(argv=None) -> int:

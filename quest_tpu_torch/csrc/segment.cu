@@ -15,8 +15,8 @@
 //      slots (QUEST_FUSED_NBUF, clamped to shared memory and the steps), a
 //      slot refilled only once its store has LANDED;
 //   K3 _segment_kernel (:1553, QUEST_FUSED_DRIVER=grid) ->
-//      segment_kernel<TIER>: one block per tile (gather, chain,
-//      write-back).
+//      segment_kernel<TIER>: one block per tile (tensor-map loads, chain,
+//      tensor-map stores).
 // Every driver runs the same run_chain<TIER> on the same tile contents, so
 // the three give bit-identical planes; they differ only in when a tile's
 // bytes move. Why planes and not tiles: a flagship tile is 2 planes of 64
@@ -65,17 +65,18 @@
 //      index (free row bits), the inner rows and the scattered bits — the
 //      reference's _row_ids;
 //   2. brings the tile (2 planes x rows x 128 lanes f32, rows of 512
-//      contiguous bytes) into dynamic shared memory: K3 with 16-byte loads,
-//      K1/K2 ahead of time with cp.async.bulk.tensor boxes of a tensor map
-//      that sees the scattered row bits as dimensions (one request per
-//      plane on most of today's plans);
+//      contiguous bytes) into dynamic shared memory as cp.async.bulk.tensor
+//      boxes of a tensor map that sees the scattered row bits as
+//      dimensions (one request per plane on most of today's plans): K1/K2
+//      ahead of time into their ring of plane slots, K3 while the block
+//      writes its row ids and starts its operator ring;
 //   3. runs the stage chain on the tile. A matrix stage is a batched
 //      complex product over the `fibers` of the tile (all index bits but
 //      the w contracted ones), outputs kept in registers until a barrier
 //      and written back in place (fibers are disjoint, so chunks of them
 //      update in place). Predicates follow _mask_of: an element whose
 //      lane/row bits do not match keeps its value;
-//   4. writes the tile back where it read it (K1/K2: tensor-map stores).
+//   4. writes the tile back where it read it, as tensor-map stores.
 //      Tiles partition the index space, so the launch is in place.
 //
 // Matrix stages of d >= 16 (S1-S3 at every tier, S11) read their operator
@@ -133,16 +134,17 @@
 // bytes.
 //
 // The drivers and the pass bound. Under K3 a block (one per SM: 128 KiB of
-// tile) loads, chains and stores in series, with ~16 KiB of loads in
-// flight per SM: a byte-bound pass took ~3.2 ms against its 1.28 ms. K1
-// keeps a whole plane of loads in flight under the chain and lets the
-// next tile's loads start as soon as the stores have read their slots, so
-// a byte-bound pass can approach its bound; K2 is the reference's A/B
-// control, its refills waiting for the writes to land. The tensor map
-// sees a tile's scattered row bits as dimensions, so a scattered-row tile
-// moves in as few requests as an inner-row one (one box a plane on most
-// plans of the paths, at most 4), all issued by one thread. A producer
-// warp is later work.
+// tile) loads, chains and stores in series, but every SM has its whole
+// tile of loads (or stores) in flight as boxes, so the SMs' phases
+// overlap one another and a byte-bound pass runs at a copy_'s pace (with
+// 16-byte loads, ~16 KiB in flight per SM, it took twice its 1.28 ms).
+// K1 keeps a whole plane of loads in flight under its own chain and lets
+// the next tile's loads start as soon as the stores have read their
+// slots; K2 is the reference's A/B control, its refills waiting for the
+// writes to land. The tensor map sees a tile's scattered row bits as
+// dimensions, so a scattered-row tile moves in as few requests as an
+// inner-row one (one box a plane on most plans of the paths, at most 4),
+// all issued by one thread. A producer warp is later work.
 
 #include <cuda.h>            // CUtensorMap (the encoder is fetched at run time)
 #include <cuda_bf16.h>
@@ -152,15 +154,18 @@
 // Phase counters, in the build with -DQUEST_PHASE_COUNTERS only
 // (quest_tpu_torch.profiling.segment_phase_report): thread 32 of every
 // block (a compute warp, not the copy warp) adds the clock cycles of each
-// phase to a device counter. Without the define the macros are empty.
+// phase to a device counter; K3's stores and whole block are thread 0's,
+// which issues the stores and waits for them. Without the define the
+// macros are empty.
 enum { PC_SLICE_WAIT = 0, PC_SLICE_RELEASE = 1, PC_PROLOGUE = 2,
-       PC_CHAIN = 3, PC_BLOCK = 4, PC_BLOCKS = 5, PC_COUNT = 6 };
+       PC_CHAIN = 3, PC_STORE = 4, PC_BLOCK = 5, PC_BLOCKS = 6,
+       PC_COUNT = 7 };
 #ifdef QUEST_PHASE_COUNTERS
 __device__ unsigned long long quest_phase_cycles[PC_COUNT];
 #define PHASE_START(v) const long long v = clock64()
-#define PHASE_ADD(i, v)                                                  \
+#define PHASE_ADD_AT(tid, i, v)                                          \
   do {                                                                   \
-    if (threadIdx.x == 32)                                               \
+    if (threadIdx.x == (tid))                                            \
       atomicAdd(&quest_phase_cycles[i],                                  \
                 static_cast<unsigned long long>(clock64() - (v)));       \
   } while (0)
@@ -170,9 +175,10 @@ __device__ unsigned long long quest_phase_cycles[PC_COUNT];
   } while (0)
 #else
 #define PHASE_START(v)
-#define PHASE_ADD(i, v)
+#define PHASE_ADD_AT(tid, i, v)
 #define PHASE_COUNT(i)
 #endif
+#define PHASE_ADD(i, v) PHASE_ADD_AT(32, i, v)
 
 namespace {
 
@@ -210,7 +216,8 @@ constexpr int MAX_TMA_PARTS = 4;   // parts of a plane (band_plan.TMA_PARTS)
 constexpr int TMA_ERROR_BASE = 10000;   // + CUresult of a failed encoding
 
 // shared memory after the tile's plane slots: row ids, multiphase rows,
-// S8's table (then the operator ring and the mbarriers)
+// S8's table or S7's per-row term bits (then the operator ring and the
+// mbarriers)
 constexpr int EXTRA_WORDS = MAX_ROWS + 3 * MAX_MULTIPHASE_ROWS
                             + DIAG_TABLE_WORDS;
 
@@ -307,7 +314,7 @@ __device__ __forceinline__ void bulk_wait_n(int n) {
 
 // ---- tensor-map copies (TMA) ----------------------------------------------
 //
-// The ring drivers see the batch's planes through one f32 tensor map of 5
+// Every driver sees the batch's planes through one f32 tensor map of 5
 // dimensions (band_plan.tma_boxes, which the wrapper checks against
 // quest_segment_tma_geometry): the 128 lanes; the 2^s0 rows below the
 // lowest scattered row bit s0; the 2^w rows of the lowest contiguous group
@@ -1140,39 +1147,131 @@ __device__ void parity_stage(const Tile& t, const float* __restrict__ g) {
   }
 }
 
+// The shared words after the row ids and the multiphase rows (the same
+// place under every driver, DIAG_TABLE_WORDS of EXTRA_WORDS): S8's table,
+// or S7's per-row term bits. No two stages use them at once.
+__device__ __forceinline__ float* stage_scratch(const Tile& t) {
+  return reinterpret_cast<float*>(const_cast<int*>(t.row_id) + MAX_ROWS
+                                  + 3 * MAX_MULTIPHASE_ROWS);
+}
+static_assert(DIAG_TABLE_WORDS >= 2 * MAX_ROWS, "a 64-bit word per row");
+static_assert((MAX_ROWS + 3 * MAX_MULTIPHASE_ROWS) % 2 == 0,
+              "the scratch words start 8-byte aligned");
+
+typedef unsigned long long u64;
+
+// Term bits of x (a lane, or a tile row's global id) under the masks
+// mk[0..m): bit r is, for a parity term (bit r of `forms`), the parity of
+// x & mk[r]; for an all-ones term, whether x holds every bit of mk[r].
+__device__ __forceinline__ u64 term_bits(int x, const int* mk, u64 forms,
+                                         int m) {
+  u64 b = 0;
+  for (int r = 0; r < m; ++r) {
+    const int y = x & mk[r];
+    const int on = ((forms >> r) & 1) ? (__popc(y) & 1) : (y == mk[r]);
+    b |= static_cast<u64>(on) << r;
+  }
+  return b;
+}
+
+// S7's pass over the tile for m <= M terms. An element's term r adds, in
+// order r = 0..m-1: a parity term -angle where its lane and row parities
+// differ, else +angle; an all-ones term +angle where lane and row both
+// match, else +0.0f (which leaves every sum but -0.0f as it is, and the
+// sum starts at +0.0f and never reaches -0.0f: the same bits as adding
+// nothing). Then one sincosf and the complex multiply. Each thread takes
+// the float4 of lanes l0..l0+3 in rows warp, warp + NWARPS, ... (always
+// the same 4 lanes), so its lane bits `lb` are worked out once per
+// stage and each row's bits `rb[row]` once per tile. M <= 8: the angles
+// in registers and the term loop unrolled; else read from shared memory
+// (a broadcast) once per row for the thread's 4 elements.
+template <int M>
+__device__ __forceinline__ void multiphase_rows(const Tile& t,
+                                                const float* s_ang, int m,
+                                                u64 forms, const u64 (&lb)[4],
+                                                const u64* rb) {
+  constexpr int NA = M <= 8 ? M : 1;
+  float ang[NA];
+#pragma unroll
+  for (int r = 0; r < NA; ++r) ang[r] = r < m ? s_ang[r] : 0.f;
+  const int l0 = (threadIdx.x & 31) * 4;
+  const int rows = 1 << (t.bits - LANE_BITS);
+  for (int r = threadIdx.x >> 5; r < rows; r += NWARPS) {
+    const u64 rw = rb[r];
+    u64 plus[4], minus[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const u64 differ = lb[c] ^ rw;
+      minus[c] = forms & differ;
+      plus[c] = (forms & ~differ) | (~forms & lb[c] & rw);
+    }
+    float tot[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (M <= 8) {
+#pragma unroll
+      for (int k = 0; k < M; ++k)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          tot[c] += ((plus[c] >> k) & 1) ? ang[k]
+                    : ((minus[c] >> k) & 1) ? -ang[k] : 0.f;
+    } else {
+      for (int k = 0; k < m; ++k) {
+        const float a = s_ang[k];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          tot[c] += ((plus[c] >> k) & 1) ? a
+                    : ((minus[c] >> k) & 1) ? -a : 0.f;
+      }
+    }
+    const int e = (r << LANE_BITS) + l0;
+    float4 vr = *reinterpret_cast<const float4*>(t.re + e);
+    float4 vi = *reinterpret_cast<const float4*>(t.im + e);
+    float* pre = &vr.x;
+    float* pim = &vi.x;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float sn, cs;
+      sincosf(tot[c], &sn, &cs);
+      const float re = pre[c], im = pim[c];
+      pre[c] = re * cs - im * sn;
+      pim[c] = re * sn + im * cs;
+    }
+    *reinterpret_cast<float4*>(t.re + e) = vr;
+    *reinterpret_cast<float4*>(t.im + e) = vi;
+  }
+}
+
 __device__ void multiphase_stage(const Tile& t, const long long* ds,
                                  const float* __restrict__ g,
                                  float* s_ang, int* s_lm, int* s_rm) {
   // (m, 8) rows: [angle, lane_mask, row_mask_lo, row_mask_hi, 0, 0, 0, 0];
-  // bit r of F_FORMS set: row r is a parity term, else an all-ones term
+  // bit r of F_FORMS set: row r is a parity term, else an all-ones term.
+  // The element's angle factors into a lane part and a row part (the
+  // reference's _apply_multiphase_stage sums the group per element): the
+  // rows go to shared memory, then each tile row's term bits into the
+  // scratch words (a thread a row: on an H100 faster than each thread
+  // working out the rows it visits, PERF.md), each thread's four lanes'
+  // bits into registers, and m picks the body (structure, as d picks a
+  // matrix stage's).
   const int m = static_cast<int>(ds[F_DIM]);
-  const long long forms = ds[F_FORMS];
+  const u64 forms = static_cast<u64>(ds[F_FORMS]);
   for (int r = threadIdx.x; r < m; r += NTHREADS) {
     s_ang[r] = __ldg(g + 8 * r);
     s_lm[r] = static_cast<int>(__ldg(g + 8 * r + 1));
     s_rm[r] = row_mask(__ldg(g + 8 * r + 2), __ldg(g + 8 * r + 3));
   }
   __syncthreads();
-  const int size = 1 << t.bits;
-  for (int e = threadIdx.x; e < size; e += NTHREADS) {
-    const int lane = e & ((1 << LANE_BITS) - 1);
-    const int row = t.row_id[e >> LANE_BITS];
-    float tot = 0.f;
-    for (int r = 0; r < m; ++r) {
-      const int lmr = s_lm[r], rmr = s_rm[r];
-      if ((forms >> r) & 1) {
-        const int par = (__popc(lane & lmr) ^ __popc(row & rmr)) & 1;
-        tot += par ? -s_ang[r] : s_ang[r];
-      } else if ((lane & lmr) == lmr && (row & rmr) == rmr) {
-        tot += s_ang[r];
-      }
-    }
-    float sn, cs;
-    sincosf(tot, &sn, &cs);
-    const float re = t.re[e], im = t.im[e];
-    t.re[e] = re * cs - im * sn;
-    t.im[e] = re * sn + im * cs;
-  }
+  u64* rb = reinterpret_cast<u64*>(stage_scratch(t));
+  const int rows = 1 << (t.bits - LANE_BITS);
+  for (int r = threadIdx.x; r < rows; r += NTHREADS)
+    rb[r] = term_bits(t.row_id[r], s_rm, forms, m);
+  const int l0 = (threadIdx.x & 31) * 4;
+  u64 lb[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) lb[c] = term_bits(l0 + c, s_lm, forms, m);
+  __syncthreads();                   // every row's bits are in
+  if (m <= 2) multiphase_rows<2>(t, s_ang, m, forms, lb, rb);
+  else if (m <= 8) multiphase_rows<8>(t, s_ang, m, forms, lb, rb);
+  else multiphase_rows<MAX_MULTIPHASE_ROWS>(t, s_ang, m, forms, lb, rb);
 }
 
 __device__ void pair_stage(const Tile& t, const long long* ds,
@@ -1221,13 +1320,6 @@ __device__ void pair_stage(const Tile& t, const long long* ds,
   }
 }
 
-// S8's table in shared memory: after the row ids and the multiphase rows,
-// the same place under every driver (EXTRA_WORDS)
-__device__ __forceinline__ float* diag_table(const Tile& t) {
-  return reinterpret_cast<float*>(const_cast<int*>(t.row_id) + MAX_ROWS
-                                  + 3 * MAX_MULTIPHASE_ROWS);
-}
-
 __device__ void diagvec_stage(const Tile& t, const long long* ds,
                               const float* __restrict__ g) {
   // (2, 2^k) table: entry sum_j bit(targets[j]) << j of every element's
@@ -1241,7 +1333,7 @@ __device__ void diagvec_stage(const Tile& t, const long long* ds,
   const int k = static_cast<int>(ds[F_DIM]);
   const long long packed = ds[F_TARGETS];
   const Preds pr(ds);
-  float* tab = diag_table(t);
+  float* tab = stage_scratch(t);
   for (int i = threadIdx.x; i < (2 << k); i += NTHREADS) tab[i] = __ldg(g + i);
   const int l0 = (threadIdx.x & 31) * 4;
   int lidx[4] = {0, 0, 0, 0};
@@ -1356,6 +1448,25 @@ struct SweepArgs {
   int state0;           // first state of this launch (K3 slices a batch)
 };
 
+// Thread 0's requests for `reqs` consecutive boxes of one plane, from tile
+// row r0 of the tile at global row `base`: LOAD, the map's plane `plane`
+// into `buf` on mbarrier `bar`; else `buf` into the map's plane, in the
+// thread's open bulk group. Every driver issues its copies through this.
+template <bool LOAD>
+__device__ __forceinline__ void plane_boxes(const CUtensorMap* map,
+                                            const CopyUnit& cu,
+                                            const SweepArgs& a, int base,
+                                            int r0, int reqs, int plane,
+                                            float* buf, uint64_t* bar) {
+  const int box_log2 = cu.b2 + cu.b3;
+  for (int q = 0; q < reqs; ++q) {
+    const int r = r0 + (q << box_log2);
+    const int row = tile_row(base, r, a.inner_bits, a.scat_mask);
+    if constexpr (LOAD) tma_load(buf + r * LANES, map, cu, row, plane, bar);
+    else tma_store(map, cu, row, plane, buf + r * LANES);
+  }
+}
+
 // The segment's stages on one resident tile, in order; every driver calls
 // this one function, so the three schedules compute the same bits.
 template <int TIER>
@@ -1393,10 +1504,33 @@ __device__ __forceinline__ void run_chain(const Tile& t, const SweepArgs& a,
 
 
 // ---- K3, the grid driver: one block per tile -----------------------------
+//
+// Block (x, y) holds tile x of state state0 + y, through the launch's
+// tensor map and copy unit (see CopyUnit; K3 issues a plane's boxes in row
+// order and ignores the parts, which only time the ring drivers' refills).
+// Thread 0 initialises the tile's mbarrier (one arrival expecting both
+// planes' bytes) beside the operator ring's and, after the barrier that
+// publishes them, issues both planes' loads; while they are in flight the
+// block writes its row ids and starts the operator ring, which need
+// nothing from the tile. The chain starts once the tile has landed. Then
+// fence.proxy.async and a barrier order the chain's generic stores before
+// the bulk tensor stores that read them, thread 0 stores each plane as one
+// bulk group, and the block exits as soon as the stores have READ the
+// tile (wait_group.read): the SM's shared memory goes to the next block's
+// loads while the writes drain. A later launch on the stream still sees
+// every write: it starts only after this grid has completed, and a grid
+// completes only once the bulk stores its threads issued have been
+// performed (CUTLASS's TMA epilogues end on the same wait). On an H100
+// this exit beat waiting for the writes to land, as K1's blocks do, in
+// every timed pair with a phase stage and tied on the stage-free copy
+// (PERF.md). One block per SM: two 128
+// KiB tiles do not fit 227 KB; the SMs' load, chain and store phases
+// overlap one another, each SM with a whole tile of boxes in flight.
 
 template <int TIER>
 __global__ void __launch_bounds__(NTHREADS, 1)
-segment_kernel(SweepArgs a) {
+segment_kernel(SweepArgs a, __grid_constant__ const CUtensorMap map,
+               CopyUnit cu) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int size = 1 << a.tile_bits;
@@ -1405,53 +1539,50 @@ segment_kernel(SweepArgs a) {
   float* s_ang = reinterpret_cast<float*>(row_id + MAX_ROWS);
   int* s_lm = reinterpret_cast<int*>(s_ang + MAX_MULTIPHASE_ROWS);
   int* s_rm = s_lm + MAX_MULTIPHASE_ROWS;
+  // the tile's mbarrier, then the operator ring's OP_SLOTS
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       smem + 2 * size + EXTRA_WORDS + OP_SLOTS * OP_SLICE_FLOATS);
   PHASE_START(t_block);
   const Tile t{smem, smem + size, row_id, a.tile_bits};
-  if (threadIdx.x < OP_SLOTS) mbar_init(&bars[threadIdx.x], 1);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-
+  const int state = a.state0 + static_cast<int>(blockIdx.y);
   const int base = tile_base(blockIdx.x, a.free_mask);
+  const int reqs = rows >> (cu.b2 + cu.b3);        // boxes a plane
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + OP_SLOTS; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect(&bars[0], 2u * static_cast<unsigned>(size) * 4u);
+    for (int p = 0; p < 2; ++p)
+      plane_boxes<true>(&map, cu, a, base, 0, reqs, 2 * state + p,
+                        p ? t.im : t.re, &bars[0]);
+  }
   for (int r = threadIdx.x; r < rows; r += NTHREADS)
     row_id[r] = tile_row(base, r, a.inner_bits, a.scat_mask);
   __syncthreads();
-  OpRing ring = op_ring(smem + 2 * size, bars, a.desc, a.ops, a.nstages,
+  OpRing ring = op_ring(smem + 2 * size, bars + 1, a.desc, a.ops, a.nstages,
                         a.tile_bits, TIER, 1);
-
-  // 64-bit offsets: plane 1 of a 30-qubit state starts 2^30 floats in,
-  // state s of a batch 2 * 2^n * s floats in
-  const long long plane = 1LL << a.n;
-  const int state = a.state0 + static_cast<int>(blockIdx.y);
-  float* __restrict__ amps = a.amps + 2 * plane * state;
-  const int n4 = rows * (1 << (LANE_BITS - 2));     // float4 per plane
-  float4* tre4 = reinterpret_cast<float4*>(t.re);
-  float4* tim4 = reinterpret_cast<float4*>(t.im);
-#pragma unroll 4
-  for (int k = threadIdx.x; k < 2 * n4; k += NTHREADS) {
-    const int pl = k >= n4;
-    const int kk = pl ? k - n4 : k;
-    const long long off = pl * plane
-        + (static_cast<long long>(row_id[kk >> 5]) << LANE_BITS);
-    const float4 v = reinterpret_cast<const float4*>(amps + off)[kk & 31];
-    (pl ? tim4 : tre4)[kk] = v;
-  }
-  __syncthreads();
+  mbar_wait(&bars[0], 0);
   PHASE_ADD(PC_PROLOGUE, t_block);
 
   PHASE_START(t_chain);
   run_chain<TIER>(t, a, state, s_ang, s_lm, s_rm, ring);
   PHASE_ADD(PC_CHAIN, t_chain);
+  fence_proxy_async();
+  __syncthreads();
 
-#pragma unroll 4
-  for (int k = threadIdx.x; k < 2 * n4; k += NTHREADS) {
-    const int pl = k >= n4;
-    const int kk = pl ? k - n4 : k;
-    const long long off = pl * plane
-        + (static_cast<long long>(row_id[kk >> 5]) << LANE_BITS);
-    reinterpret_cast<float4*>(amps + off)[kk & 31] = (pl ? tim4 : tre4)[kk];
+  PHASE_START(t_store);
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < 2; ++p) {
+      plane_boxes<false>(&map, cu, a, base, 0, reqs, 2 * state + p,
+                         p ? t.im : t.re, nullptr);
+      bulk_commit();
+    }
+    bulk_wait<0, true>();
   }
-  PHASE_ADD(PC_BLOCK, t_block);
+  PHASE_ADD_AT(0, PC_STORE, t_store);
+  PHASE_ADD_AT(0, PC_BLOCK, t_block);
   PHASE_COUNT(PC_BLOCKS);
 }
 
@@ -1506,11 +1637,10 @@ ring_kernel(SweepArgs a, int slots, long long steps,
   const int tile_shift = a.n - a.tile_bits;         // log2 tiles per state
   const unsigned plane_bytes = static_cast<unsigned>(size) * 4u;
   // a part is 2^part_log2 consecutive tile rows, `reqs` boxes of
-  // 2^box_log2 rows
+  // 2^(b2 + b3) rows
   const int parts = 1 << cu.parts_log2;
   const int part_log2 = a.tile_bits - LANE_BITS - cu.parts_log2;
-  const int box_log2 = cu.b2 + cu.b3;
-  const int reqs = 1 << (part_log2 - box_log2);
+  const int reqs = 1 << (part_log2 - cu.b2 - cu.b3);
   const int nk = static_cast<int>((steps - blockIdx.x + gridDim.x - 1)
                                   / gridDim.x);     // this block's steps
   if (threadIdx.x < slots + OP_SLOTS) mbar_init(&bars[threadIdx.x], 1);
@@ -1539,11 +1669,8 @@ ring_kernel(SweepArgs a, int slots, long long steps,
     for (int i = 0; i < parts; ++i) {
       if (j >= slots)
         bulk_wait_n<ON_READ>((last - (j - slots)) * parts + parts - 1 - i);
-      for (int q = 0; q < reqs; ++q) {
-        const int r = (i << part_log2) + (q << box_log2);
-        tma_load(dst + r * LANES, &map, cu,
-                 tile_row(base, r, a.inner_bits, a.scat_mask), plane, bar);
-      }
+      plane_boxes<true>(&map, cu, a, base, i << part_log2, reqs, plane, dst,
+                        bar);
     }
   };
 
@@ -1575,13 +1702,9 @@ ring_kernel(SweepArgs a, int slots, long long steps,
 
     if (threadIdx.x == 0) {
       for (int p = 0; p < 2; ++p) {
-        const float* src = p ? t.im : t.re;
         for (int i = 0; i < parts; ++i) {
-          for (int q = 0; q < reqs; ++q) {
-            const int r = (i << part_log2) + (q << box_log2);
-            tma_store(&map, cu, tile_row(base, r, a.inner_bits, a.scat_mask),
-                      2 * state + p, src + r * LANES);
-          }
+          plane_boxes<false>(&map, cu, a, base, i << part_log2, reqs,
+                             2 * state + p, p ? t.im : t.re, nullptr);
           bulk_commit();
         }
         // the next step's plane for the slot this store frees, at once
@@ -1599,13 +1722,13 @@ ring_kernel(SweepArgs a, int slots, long long steps,
 
 enum { D_DECOUPLED = 0, D_INPLACE = 1, D_GRID = 2 };   // segment.py DRIVER_CODE
 
-// beside the plane slots: row ids, multiphase rows, the operator ring and
-// its mbarriers
+// beside the plane slots (each with its mbarrier; K3's tile one): row ids,
+// multiphase rows, the stage scratch, the operator ring and its mbarriers
 constexpr long long FIXED_SMEM_BYTES =
     EXTRA_WORDS * 4LL + OP_SLOTS * (OP_SLICE_BYTES + 8LL);
 
 long long grid_smem_bytes(int tile_bits) {
-  return (2LL << tile_bits) * sizeof(float) + FIXED_SMEM_BYTES;
+  return (2LL << tile_bits) * sizeof(float) + FIXED_SMEM_BYTES + 8LL;
 }
 
 long long ring_smem_bytes(int tile_bits, int slots) {
@@ -1622,15 +1745,17 @@ cudaError_t set_smem(Kernel kernel, long long smem) {
 
 template <int TIER>
 cudaError_t launch_grid(const SweepArgs& a, long long blocks, int states,
-                        long long smem, cudaStream_t stream) {
+                        long long smem, const CUtensorMap& map,
+                        const CopyUnit& cu, cudaStream_t stream) {
   cudaError_t e = set_smem(segment_kernel<TIER>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(states));
-  segment_kernel<TIER><<<grid, NTHREADS, static_cast<size_t>(smem), stream>>>(a);
+  segment_kernel<TIER><<<grid, NTHREADS, static_cast<size_t>(smem), stream>>>(
+      a, map, cu);
   return cudaGetLastError();
 }
 
-// The ring drivers' tensor map of a launch: dims, byte strides of
+// A launch's tensor map (every driver's): dims, byte strides of
 // dimensions 2-5, the box and the copy unit (band_plan.tma_boxes computes
 // the same; the wrapper checks the two agree). False for a copy unit the
 // geometry cannot take: `parts` a power of two up to MAX_TMA_PARTS and the
@@ -1741,7 +1866,8 @@ cudaError_t launch(const SweepArgs& a, long long blocks, int states,
                    cudaStream_t stream) {
   const long long steps = blocks * states;
   switch (driver) {
-    case D_GRID: return launch_grid<TIER>(a, blocks, states, smem, stream);
+    case D_GRID:
+      return launch_grid<TIER>(a, blocks, states, smem, map, cu, stream);
     case D_DECOUPLED:
       return launch_ring<TIER, true>(a, steps, slots, smem, map, cu, stream);
     case D_INPLACE:
@@ -1782,8 +1908,9 @@ int quest_segment_op_slice_bytes() { return OP_SLICE_BYTES; }
 int quest_segment_max_grid_batch() { return MAX_GRID_BATCH; }
 
 // Least dynamic shared memory of one launch: the grid driver's two tile
-// planes, or a ring of `slots` plane slots with one mbarrier each, beside
-// the row ids, multiphase rows and the operator ring (band_plan.smem_layout
+// planes and their mbarrier, or a ring of `slots` plane slots with one
+// mbarrier each, beside the row ids, multiphase rows, the stage scratch and
+// the operator ring (band_plan.smem_layout
 // computes the same; the wrapper checks the two agree).
 long long quest_segment_smem_bytes(int tile_bits, int driver, int slots) {
   return driver == D_GRID ? grid_smem_bytes(tile_bits)
@@ -1792,12 +1919,12 @@ long long quest_segment_smem_bytes(int tile_bits, int driver, int slots) {
 
 const char* quest_cuda_error_string(int code) {
   if (code >= TMA_ERROR_BASE)
-    return "cuTensorMapEncodeTiled refused the ring drivers' tensor map "
+    return "cuTensorMapEncodeTiled refused the launch's tensor map "
            "(code - 10000 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The ring drivers' tensor map of a launch (host only, no device): out[0..4]
+// A launch's tensor map (host only, no device): out[0..4]
 // its dims, out[5..8] the byte strides of dimensions 2-5, out[9..13] the
 // box, out[14] the requests per plane. Returns 0, or cudaErrorInvalidValue
 // for a copy unit the geometry cannot take (tma_geometry).
@@ -1815,7 +1942,7 @@ int quest_segment_tma_geometry(int n, int tile_bits, int inner_bits,
   return 0;
 }
 
-// Encode that map on `amps` `count` times, as each ring launch does once
+// Encode that map on `amps` `count` times, as each launch does once
 // (the caller times it: the host cost of a launch's map). Returns 0 or the
 // first failure (encode_map's codes).
 int quest_segment_tma_encode(void* amps, int n, int tile_bits, int inner_bits,
@@ -1837,11 +1964,11 @@ int quest_segment_tma_encode(void* amps, int n, int tile_bits, int inner_bits,
 // (T_HIGHEST, T_HIGH or T_DEFAULT), under `driver` (D_DECOUPLED,
 // D_INPLACE with `slots` plane slots, or D_GRID, whose launch takes at
 // most MAX_GRID_BATCH states) with `smem` bytes of dynamic shared memory.
-// The ring drivers move each plane in `parts` parts of `box_rows`-row
-// boxes through a tensor map encoded here, per launch (it holds `amps`);
-// K3 ignores both. Returns the launch's cudaError_t, or encode_map's code
-// when the map is refused (no launch then): nothing is allocated and
-// nothing is synchronised here.
+// Every driver moves each plane as `box_rows`-row boxes (the ring drivers
+// in `parts` parts) through a tensor map over the whole batch, encoded
+// here per launch (it holds `amps`). Returns the launch's cudaError_t, or
+// encode_map's code when the map is refused (no launch then): nothing is
+// allocated and nothing is synchronised here.
 #ifdef QUEST_PHASE_COUNTERS
 // The yardstick of the fp32 FMA pipe at this card's clocks and power:
 // `blocks` blocks of NTHREADS threads, each thread 128 independent fp32
@@ -1887,12 +2014,10 @@ int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
   auto* st = static_cast<cudaStream_t>(stream);
   CUtensorMap map{};
   TmaGeometry t{};
-  if (driver != D_GRID) {
-    if (!tma_geometry(n, tile_bits, inner_bits, scat_mask, batch, parts,
-                      box_rows, &t))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (const int e = encode_map(&map, amps, t)) return e;
-  }
+  if (!tma_geometry(n, tile_bits, inner_bits, scat_mask, batch, parts,
+                    box_rows, &t))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const int e = encode_map(&map, amps, t)) return e;
   cudaError_t e;
   switch (tier) {
     case T_HIGHEST:

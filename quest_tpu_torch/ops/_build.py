@@ -9,9 +9,9 @@ from the same source is loaded as it is.
 
 One variant besides the kernel itself: COUNTERS, the same source built
 with -DQUEST_PHASE_COUNTERS, whose blocks add the clock cycles of their
-phases (operator-slice waits and releases, step prologues, the chain) to
-device counters that quest_tpu_torch.profiling reads. `build` compiles
-the variants it is given side by side, one nvcc each.
+phases (operator-slice waits and releases, step prologues, the chain,
+K3's stores) to device counters that quest_tpu_torch.profiling reads.
+`build` compiles the variants it is given side by side, one nvcc each.
 """
 
 from __future__ import annotations

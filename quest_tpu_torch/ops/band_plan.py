@@ -684,8 +684,9 @@ def sweep_steps(stages, n: int, batch: int = 1, *,
 # reference's return; under HOPPER_GEOMETRY they describe the port's
 # kernels (csrc/segment.cu): K1 and K2 are persistent blocks whose tile
 # planes sit in a ring of plane slots in shared memory, K3 one block per
-# tile. `ring_schedule` is the model of one persistent block's order of
-# events, from which pipeline_stats derives the port's read-ahead.
+# tile. `ring_schedule` is the model of one block's order of events (K3:
+# of the blocks one SM runs in turn), from which pipeline_stats derives
+# the port's read-ahead.
 
 DRIVERS = ("decoupled", "inplace", "grid")      # K1, K2, K3
 PIPELINE_IN_SLOTS = 2          # the reference's decoupled rings (:682)
@@ -700,7 +701,8 @@ MBARRIER_BYTES = 8
 OP_SLOTS = 2                   # csrc OpRing: operator slices in flight
 OP_SLICE_BYTES = 16384         # csrc OP_SLICE_BYTES
 OP_RING_BYTES = OP_SLOTS * (OP_SLICE_BYTES + MBARRIER_BYTES)  # + barriers
-DIAG_TABLE_BYTES = 2 * 128 * 4  # csrc DIAG_TABLE_WORDS: S8's (2, 2^7) table
+DIAG_TABLE_BYTES = 2 * 128 * 4  # csrc DIAG_TABLE_WORDS: S8's (2, 2^7)
+# table, or S7's 64 term bits of each of a tile's 128 rows
 FIXED_SMEM_BYTES = (ROW_ID_BYTES + MULTIPHASE_BYTES + DIAG_TABLE_BYTES
                     + OP_RING_BYTES)  # beside the plane slots, every driver
 TMA_PARTS = 1                  # parts of a plane (one store bulk group
@@ -810,8 +812,8 @@ def ring_schedule(driver: str, steps: int, slots: int,
       ("read", j, part, N)        wait_group.read N: every store group up
                                   to (j, part) has read its slot (K1)
       ("drained", j, part, N)     wait_group N: every store group up to
-                                  (j, part) has landed (K2; every driver
-                                  at exit)
+                                  (j, part) has landed (K2; K1 and K2 at
+                                  exit)
 
     K1 ('decoupled') and K2 ('inplace'): the block first loads planes [0,
     slots). Plane j >= slots refills the slot of plane j - slots, part by
@@ -821,9 +823,11 @@ def ring_schedule(driver: str, steps: int, slots: int,
     slot is committed, ahead of the step's other store (K1 at 3 slots:
     im(k + 1) right after re(k)'s store, before im(k)'s); a refill for a
     later step goes out once the block's tile has landed, before its
-    chain (K1: re(k + 1) under chain k). K3 ('grid') loads, chains and
-    stores one tile at a time through two planes, the stores landing
-    before the next tile."""
+    chain (K1: re(k + 1) under chain k). K3 ('grid') runs one tile per
+    block through two planes (both loads on one mbarrier, each plane's
+    stores one bulk group); the block exits, and the next tile's block on
+    its SM loads, once the stores have read the planes (wait_group.read
+    0)."""
     driver = check_driver(driver)
     ev: List[tuple] = []
     if driver == "grid":
@@ -831,7 +835,7 @@ def ring_schedule(driver: str, steps: int, slots: int,
             ev += [("load", 2 * k, 0, 0), ("load", 2 * k + 1, 1, 0),
                    ("landed", k), ("chain", k, (0, 1)),
                    ("store", 2 * k, 0, 0), ("store", 2 * k + 1, 1, 0),
-                   ("drained", 2 * k + 1, 0, 0)]
+                   ("read", 2 * k + 1, 0, 0)]
         return ev
     if slots < 2:
         raise ValueError(f"a ring needs at least 2 plane slots, got {slots}")
@@ -898,15 +902,16 @@ def smem_layout(tile_bits: int, steps: int, driver: str = None,
                 nbuf: int = None) -> dict:
     """Dynamic shared memory of one launch of the port's kernel moving
     `steps` tiles of `tile_bits` bits under `driver`: the plane slots
-    (K3: the tile's two planes), the row ids and multiphase rows, S8's
-    table, the operator ring (OP_SLOTS slices and their mbarriers, every
-    driver), one mbarrier per ring slot; against BLOCK_SMEM_BYTES. The one
+    (K3: the tile's two planes), the row ids and multiphase rows, the
+    stage scratch (S8's table, S7's row term bits), the operator ring
+    (OP_SLOTS slices and their mbarriers, every driver), one mbarrier per
+    ring slot (K3: one for the tile); against BLOCK_SMEM_BYTES. The one
     source the wrapper sizes a launch from (ops/segment.py; csrc
     quest_segment_smem_bytes must agree)."""
     driver = check_driver(driver)
     plane = 4 << tile_bits
     slots = ring_slots(tile_bits, steps, driver, nbuf)
-    barriers = 0 if driver == "grid" else slots * MBARRIER_BYTES
+    barriers = MBARRIER_BYTES * (1 if driver == "grid" else slots)
     total = slots * plane + FIXED_SMEM_BYTES + barriers
     return {"driver": driver, "tile_bits": tile_bits, "steps": int(steps),
             "plane_bytes": plane, "slots": slots,
@@ -1082,11 +1087,11 @@ def segment_geometry(stages: Sequence, n: int, *,
 
 
 # ---------------------------------------------------------------------------
-# tile copies: the ring drivers' tensor map
+# tile copies: the launch's tensor map
 # ---------------------------------------------------------------------------
 #
-# K1 and K2 move a tile's planes with cp.async.bulk.tensor requests on one
-# f32 tensor map per launch (csrc quest_segment_sweep encodes it from the
+# Every driver moves a tile's planes with cp.async.bulk.tensor requests on
+# one f32 tensor map per launch (csrc quest_segment_sweep encodes it from the
 # same numbers): the batch's planes as 5 dimensions, innermost first,
 #   1. the 128 lanes of a row (contiguous, 512 B);
 #   2. the rows below the lowest scattered row bit s0: 2^s0 rows of 512 B;
@@ -1104,7 +1109,11 @@ def segment_geometry(stages: Sequence, n: int, *,
 # may also move in `parts` parts of consecutive tile rows, each part's
 # stores one bulk group and each part of a slot refilled on its own
 # (ring_schedule); on an H100 2 and 4 parts measured no faster than one
-# (PERF.md), so TMA_PARTS is 1 and more parts serve measurements.
+# (PERF.md), so TMA_PARTS is 1 and more parts serve measurements. K3 takes
+# the same map and boxes (a block's plane coordinate is 2 (state0 + y) +
+# p, so the map spans the whole batch, every slice of it); it has no
+# refills to split, and issues a plane's boxes in row order whatever the
+# parts.
 
 
 def _lowest_group(geo: Geometry) -> Tuple[int, int]:
@@ -1121,7 +1130,7 @@ def _lowest_group(geo: Geometry) -> Tuple[int, int]:
 
 def tma_boxes(geo: Geometry, batch: int = 1, *, parts: int = TMA_PARTS,
               box_rows: int = None) -> dict:
-    """The tensor map of one K1/K2 launch over `batch` states of segment
+    """The tensor map of one launch over `batch` states of segment
     geometry `geo`: rank, dims and byte strides (dimensions 2-5), the box,
     and the copy unit — `parts` parts per plane, `box_rows` tile rows per
     request (None: as many as a part and the contiguous run of tile rows

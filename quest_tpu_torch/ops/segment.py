@@ -56,10 +56,12 @@ QUEST_FUSED_NBUF when it is prepared unless the caller names it:
 ring kernel (K1 with 3 plane slots, K2 with `nbuf`), 'grid' (K3) one
 block per tile (a batch above MAX_GRID_BATCH states in several
 launches, `grid_batch_slices`); each launch sizes its shared memory from
-band_plan.smem_layout. The ring drivers move tiles through a tensor map
-that the launch encodes from band_plan.tma_boxes (`tma_unit` checks the
-model against the kernel's side once per geometry). The drivers give
-bit-identical planes; the plain version is the same for all three. A
+band_plan.smem_layout. Every driver moves tiles through a tensor map over
+the whole batch that the launch encodes from band_plan.tma_boxes
+(`tma_unit` checks the model against the kernel's side once per
+geometry); a K3 block exits once its stores have read the tile. The
+drivers give bit-identical planes; the plain version is the same for all
+three. A
 segment with no stages is the stage-free copy (the reference's
 compile_segment((), ()) of its profiler): each tile loaded and stored.
 """
@@ -428,8 +430,10 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
                                  f"(at most {MAX_MULTIPHASE_ROWS} rows)")
             row = [0] * DESC_WORDS
             row[F_KIND], row[F_DIM] = K_MULTIPHASE, m
-            row[F_FORMS] = sum(1 << r for r, f in enumerate(st.forms)
-                               if f == "p")
+            # bit r: row r is a parity term; bit 63 is the int64's sign
+            # (the kernel reads the word's 64 bits)
+            forms = sum(1 << r for r, f in enumerate(st.forms) if f == "p")
+            row[F_FORMS] = forms - (1 << 64) if forms >> 63 else forms
         else:
             if arr.shape != (1, 8):
                 raise ValueError(f"phase operand shape {arr.shape}")
@@ -521,7 +525,8 @@ _TMA_CHECKED = set()     # (n, geometry, batch, parts, box rows) checked
 
 
 def tma_unit(seg: Segment, batch: int, copy_unit=None) -> dict:
-    """band_plan.tma_boxes of a ring launch of `seg` over `batch` states,
+    """band_plan.tma_boxes of a launch of `seg` over `batch` states (under
+    the grid driver, every slice of the batch shares the one map),
     at the copy unit `copy_unit` ((parts, box rows); None: the kernel's
     default), checked once per geometry against the C side's
     quest_segment_tma_geometry (dims, strides, box, requests per plane).
@@ -612,9 +617,9 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
     version on a CPU tensor. `sel` is
     the selection table (slots, B, 8) its BatchSelStages read (B = 1
     for unbatched planes); None when it has none. `copy_unit` (parts per
-    plane, rows per box) overrides the ring drivers' tensor-map copy unit
-    (tma_unit) for measurements that compare units; the planes are the
-    same under every unit."""
+    plane, rows per box) overrides the tensor-map copy unit (tma_unit)
+    for measurements that compare units; the planes are the same under
+    every unit."""
     batch = _check_state(amps, seg)
     _check_sel(sel, seg, batch)
     if amps.device.type == "cpu":
@@ -629,10 +634,7 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
     lib = _lib()
     geo = seg.geometry
     lay = smem_layout(geo.tile_bits, geo.blocks * batch, seg.driver, seg.nbuf)
-    parts = box_rows = 1                 # K3 moves whole tiles itself
-    if seg.driver != "grid":
-        boxes = tma_unit(seg, batch, copy_unit)
-        parts, box_rows = boxes["parts"], boxes["box_rows"]
+    boxes = tma_unit(seg, batch, copy_unit)
     with torch.cuda.device(amps.device):
         stream = torch.cuda.current_stream(amps.device).cuda_stream
         for state0, states in grid_batch_slices(batch, seg.driver):
@@ -642,7 +644,7 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
                 len(seg.stages), seg.ops.data_ptr(), geo.blocks, batch,
                 state0, states, sel.data_ptr() if seg.slots else None,
                 TIER_CODE[seg.tier], DRIVER_CODE[seg.driver], lay["slots"],
-                parts, box_rows, lay["total_bytes"], stream)
+                boxes["parts"], boxes["box_rows"], lay["total_bytes"], stream)
             if rc != 0:
                 raise RuntimeError(
                     f"segment kernel launch ({seg.driver}, {lay['slots']} "

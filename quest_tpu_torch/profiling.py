@@ -108,8 +108,9 @@ def sweep_dma_report(n: int = 28, reps: int = 5, circuit=None,
 
 
 # csrc/segment.cu PC_* counters, in order
-PHASES = ("slice_wait", "slice_release", "prologue", "chain", "block")
-PHASE_COUNTERS = 6                # csrc PC_COUNT (the last: blocks)
+PHASES = ("slice_wait", "slice_release", "prologue", "chain", "store",
+          "block")
+PHASE_COUNTERS = 7                # csrc PC_COUNT (the last: blocks)
 
 
 def _counters_lib() -> ctypes.CDLL:
@@ -135,11 +136,15 @@ def segment_phase_report(amps: torch.Tensor, seg, reps: int = 3) -> dict:
     (`slice_release`), in step prologues (K1/K2: from the end of the
     previous chain until the tile has landed, thread 0's stores and the
     refill they free included; the later steps' refills that thread 0
-    issues after the tile lands fall in the chain; K3: the tile's
-    gather), in the stage chain (`chain`, which holds the slice waits and
-    releases) and in the whole block (`block`); each beside its share of
-    `block`. `ms` is the counters build's mean launch time over `reps`
-    launches (CUDA events); the counters add a few atomics per phase."""
+    issues after the tile lands fall in the chain; K3: from the block's
+    start until its tile has landed), in the stage chain (`chain`, which
+    holds the slice waits and releases), in K3's stores (`store`, thread
+    0's, from the end of the chain until the stores let the block exit;
+    0 under K1/K2, whose stores fall in the next prologue) and in the
+    whole block (`block`; K3: thread 0's, the stores included); each
+    beside its share of `block`. `ms` is the counters build's mean launch
+    time over `reps` launches (CUDA events); the counters add a few
+    atomics per phase."""
     if amps.device.type != "cuda":
         raise ValueError(f"segment_phase_report reads the card's counters; "
                          f"got device {amps.device}")
@@ -152,7 +157,7 @@ def segment_phase_report(amps: torch.Tensor, seg, reps: int = 3) -> dict:
         segment_sweep(amps, seg)
         torch.cuda.synchronize()
         _check(lib.quest_segment_phase_cycles(cycles, 1), "counter read")
-    blocks = max(1, int(cycles[5]))
+    blocks = max(1, int(cycles[PHASE_COUNTERS - 1]))
     per_block = {k: cycles[i] / blocks for i, k in enumerate(PHASES)}
     share = {k: per_block[k] / max(1.0, per_block["block"]) for k in PHASES}
     return {"ms": ms, "blocks": blocks, "cycles_per_block": per_block,

@@ -632,3 +632,51 @@ def test_refused_tensor_map_raises(card, monkeypatch):
         1, 1, 128, 1)
     assert rc >= 10000
     assert b"cuTensorMapEncodeTiled" in lib.quest_cuda_error_string(rc)
+
+
+# ---- K3's tensor-map copies; S7's factored angles ---------------------------
+
+
+@pytest.mark.parametrize(
+    "name", [c[0] for c in chip_smoke.tma_cases(np.random.default_rng(0))])
+def test_grid_driver_matches_decoupled_under_every_copy_unit(card, name):
+    """K3 moves its tiles through the launch's tensor map: on every
+    scattered-row geometry of tma_cases (5 states of 20 qubits), under
+    every copy unit the geometry takes (512-byte rows, one box a plane, 2
+    and 4 parts), its planes equal K1's bit for bit."""
+    _, n, batch, stages, arrays, _ = _tma_case(name)
+    planes = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (batch, 2, 1 << n)).astype(np.float32)).to(card)
+    want = _run(card, stages, arrays, n, planes, "decoupled", 3)
+    seg = S.prepare_segment(stages, arrays, n, card, driver="grid")
+    for unit in (None, (4, 1), (1, None), (2, None), (4, None)):
+        got = S.segment_sweep(planes.clone(), seg, copy_unit=unit)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), unit
+
+
+def _multiphase_case(name):
+    cases = chip_smoke.multiphase_cases(np.random.default_rng(_SEED))
+    return next(c for c in cases if c[0] == name)
+
+
+@pytest.mark.parametrize(
+    "name",
+    [c[0] for c in chip_smoke.multiphase_cases(np.random.default_rng(0))])
+def test_multiphase_on_every_driver(card, name):
+    """S7 at 1, 2 (the main paths' two all-ones terms), 8 and 64 terms,
+    after an scb-4 stage on row bit 9, at 20 qubits: K1, K2 at 2 and 3
+    slots and K3 give the same planes bit for bit, within STAGE_TOL of
+    the plain version."""
+    _, n, stages, arrays = _multiphase_case(name)
+    planes = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 1 << n)).astype(np.float32)).to(card)
+    outs = [_run(card, stages, arrays, n, planes, driver, nbuf)
+            for driver, nbuf in RING_DRIVERS[:3] + [("grid", 3)]]
+    for got in outs[1:]:
+        assert torch.equal(got, outs[0])
+    plain = S.segment_sweep_reference(planes, stages, [
+        torch.from_numpy(a).to(card) for a in arrays], n)
+    scale = plain.abs().max().item()
+    err = (outs[0] - plain.reshape(outs[0].shape)).abs().max().item()
+    assert err <= chip_smoke.STAGE_TOL * scale

@@ -444,7 +444,8 @@ def test_smem_fits_a_block(case, driver, nbuf):
     want = {"decoupled": 3, "grid": 2}.get(driver, nbuf)
     assert rec["slots"] == max(2, min(want, BP.ring_fit(geo.tile_bits),
                                       2 * rec["steps"]))
-    assert rec["barrier_bytes"] == (0 if driver == "grid"
+    # an mbarrier per ring slot; K3's one for its tile
+    assert rec["barrier_bytes"] == (8 if driver == "grid"
                                     else 8 * rec["slots"])
 
 
@@ -462,7 +463,7 @@ def test_smem_layout_clamps_every_tile_size():
     assert [BP.ring_fit(b) for b in range(10, 15)] == [8, 8, 8, 6, 3]
     # S8's 1 KiB table sits beside them too
     assert BP.smem_layout(14, 1 << 20, "decoupled")["total_bytes"] == 231720
-    assert BP.smem_layout(14, 1 << 20, "grid")["total_bytes"] == 166160
+    assert BP.smem_layout(14, 1 << 20, "grid")["total_bytes"] == 166168
     assert BP.smem_layout(14, 1 << 20, "grid")["op_ring_bytes"] == 32784
 
 
@@ -544,7 +545,10 @@ def _check_schedule(driver, steps, slots, parts=1):
             for part in range(parts):
                 assert occupant[(e[2][0], part)] == 2 * k
                 assert occupant[(e[2][1], part)] == 2 * k + 1
-    assert ev[-1] == ("drained", 2 * steps - 1, parts - 1, 0)
+    # every store has landed before a ring block exits; K3's block exits
+    # once its stores have read the tile
+    assert ev[-1] == ("read" if driver == "grid" else "drained",
+                      2 * steps - 1, parts - 1, 0)
     return ev
 
 
@@ -557,7 +561,8 @@ def test_ring_schedule_invariants(driver, slots):
     slot is refilled only after its previous plane's store of that part
     has read it (K1) or landed (K2), waiting with the count of store
     groups committed since; a chain starts only after its loads have
-    landed; every store lands before the block exits."""
+    landed; every store lands before a ring block exits, and has read
+    K3's tile before its block exits."""
     for parts in (1, 2, BP.MAX_TMA_PARTS):
         for steps in range(1, 10):
             ev = _check_schedule(driver, steps, slots, parts)

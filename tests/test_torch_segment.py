@@ -11,9 +11,12 @@ The CUDA kernel itself runs only on the card. Its packing — geometry,
 block-to-row mapping, descriptor table, operand offsets and strides,
 predicate decoding — is checked here through `emulate_kernel`, a numpy
 model that reads exactly what the kernel reads (Segment.desc, .ops,
-.scat_mask, .free_mask) and follows its per-tile arithmetic. The test
-marked `cuda` runs the kernel itself against the plain version on a
-card.
+.scat_mask, .free_mask) and follows its per-tile arithmetic. Two stage
+bodies have a thread-level model besides: S8's hoisted index
+(`hoisted_diag`) and S7's angle factored into lane and row parts
+(`factored_multiphase`, equal bit for bit to the per-element f32 sums
+of the kernel before it). The test marked `cuda` runs the kernel itself
+against the plain version on a card.
 """
 
 import contextlib
@@ -771,3 +774,169 @@ def test_emulated_sliced_stage_matches_plain_version(kind, dim, bit, tier,
     np.testing.assert_allclose(got, want.reshape(2, -1),
                                atol=TOL * float(np.abs(want).max()), rtol=0)
     assert int(seg.desc.numpy()[0, S.F_OP_OFF]) % 4 == 0   # bulk copies
+
+
+# ---------------------------------------------------------------------------
+# S7 with the angle factored into a lane part and a row part
+# ---------------------------------------------------------------------------
+
+
+def _parity32(x):
+    """Parity of the low 32 bits of each value of x (int array)."""
+    x = np.asarray(x, np.int64) & 0xFFFFFFFF
+    for s in (16, 8, 4, 2, 1):
+        x = x ^ (x >> s)
+    return (x & 1).astype(bool)
+
+
+def multiphase_rows(d, g):
+    """(parity-form flags, angles f32, lane masks, row masks) of an S7
+    descriptor and its (m, 8) rows as the kernel reads them: forms from
+    F_FORMS, row masks joined from their f32 halves at bit 15 (32-bit
+    patterns)."""
+    m = int(d[S.F_DIM])
+    rows = np.asarray(g, np.float32).reshape(-1)[:8 * m].reshape(m, 8)
+    par = np.array([(int(d[S.F_FORMS]) >> r) & 1 for r in range(m)], bool)
+    lm = rows[:, 1].astype(np.int64)
+    rm = (rows[:, 2].astype(np.int64) | (rows[:, 3].astype(np.int64) << 15)
+          ) & 0xFFFFFFFF
+    return par, rows[:, 0].astype(np.float32), lm, rm
+
+
+def term_bits(x, masks, par):
+    """(len(x), m) bools: csrc term_bits of each x (lanes, or row ids)."""
+    y = (np.asarray(x, np.int64)[:, None] & 0xFFFFFFFF) & masks[None, :]
+    return np.where(par[None, :], _parity32(y), y == masks[None, :])
+
+
+def factored_multiphase(d, g, row_ids):
+    """S7's angle sums on one tile as csrc multiphase_stage computes them:
+    each row's term bits once (the table in shared memory), each
+    thread's four lanes' bits once; then per element, in order r = 0..m-1,
+    +angle where the plus bit is set, -angle where the minus bit is, +0
+    else, in f32. Thread t takes lanes 4 (t % 32) .. + 3 in rows t // 32,
+    t // 32 + 8, ... Returns (sums (rows, 128) f32, visits per
+    element)."""
+    par, ang, lm, rm = multiphase_rows(d, g)
+    rows = len(row_ids)
+    rb = term_bits(row_ids, rm, par)                      # (rows, m)
+    tot = np.zeros((rows, 128), np.float32)
+    visits = np.zeros((rows, 128), np.int64)
+    for t in range(NTHREADS):
+        l0 = (t & 31) * 4
+        lb = term_bits(np.arange(l0, l0 + 4), lm, par)    # (4, m)
+        rr = np.arange(t >> 5, rows, NTHREADS // 32)
+        r_b = rb[rr][:, None, :]
+        differ = lb[None] ^ r_b
+        minus = par & differ
+        plus = (par & ~differ) | (~par & lb[None] & r_b)
+        acc = np.zeros((len(rr), 4), np.float32)
+        for r in range(len(ang)):
+            acc = acc + np.where(plus[..., r], ang[r],
+                                 np.where(minus[..., r], -ang[r],
+                                          np.float32(0)))
+        tot[rr, l0:l0 + 4] = acc
+        visits[rr, l0:l0 + 4] += 1
+    return tot, visits
+
+
+def unfactored_multiphase(d, g, row_ids):
+    """The same sums as the kernel took them before the factoring: per
+    element and term, the parity or the match from the element's own lane
+    and row id, added in order in f32 (an all-ones term that does not
+    match adds nothing)."""
+    par, ang, lm, rm = multiphase_rows(d, g)
+    lane = np.arange(128)[None, :]
+    row = (np.asarray(row_ids, np.int64) & 0xFFFFFFFF)[:, None]
+    tot = np.zeros((len(row_ids), 128), np.float32)
+    for r in range(len(ang)):
+        if par[r]:
+            odd = _parity32(lane & lm[r]) ^ _parity32(row & rm[r])
+            tot = tot + np.where(odd, -ang[r], ang[r])
+        else:
+            hit = ((lane & lm[r]) == lm[r]) & ((row & rm[r]) == rm[r])
+            tot = np.where(hit, tot + ang[r], tot)
+    return tot
+
+
+def _mp_terms(rng, m, row_bits, forms=None):
+    """m (form, lane mask, row mask) terms over `row_bits` row bits: forms
+    at random unless given; a parity term's masks at random, an all-ones
+    term's of one or two bits (so that it matches part of a tile)."""
+    out = []
+    for r in range(m):
+        form = forms[r] if forms else ("a", "p")[int(rng.integers(2))]
+        if form == "p":
+            out.append((form, int(rng.integers(0, 128)),
+                        int(rng.integers(0, 1 << row_bits))))
+        else:
+            bits = rng.choice(7 + row_bits, size=int(rng.integers(1, 3)),
+                              replace=False)
+            out.append((form, sum(1 << int(b) for b in bits if b < 7),
+                        sum(1 << int(b - 7) for b in bits if b >= 7)))
+    return out
+
+
+# (name, m, forms or None for mixed): every m the kernel dispatches on,
+# mixed forms, and the main paths' two all-ones terms
+MP_CASES = [("m1_parity", 1, ("p",)), ("m1_allones", 1, ("a",)),
+            ("m2_aa", 2, ("a", "a")), ("m2_mixed", 2, None),
+            ("m8_mixed", 8, None), ("m8_aa", 8, ("a",) * 8),
+            ("m64_mixed", 64, None)]
+
+
+@pytest.mark.parametrize("case", MP_CASES, ids=lambda c: c[0])
+def test_factored_multiphase_sum_is_bit_identical(case):
+    """On a tile of 128 rows whose ids use all 32 bits (bit 31 included)
+    under row masks up to row bit 31: the factored sums (lane part once
+    per thread, row part once per row) equal the per-element f32 sums bit
+    for bit, and every element is visited once."""
+    name, m, forms = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    terms = _mp_terms(rng, m, 32, forms)
+    form, lm, rm = terms[-1]
+    terms[-1] = (form, lm, rm | 1 << 31)          # row bit 31 in a mask
+    _, _, st, g = _multiphase(rng, terms)
+    d = S.prepare_segment([st], [g], 14, "cpu").desc.numpy()[0]
+    row_ids = rng.integers(0, 1 << 32, size=128, dtype=np.int64)
+    row_ids[:2] = (0, 0xFFFFFFFF)
+    got, visits = factored_multiphase(d, g, row_ids)
+    want = unfactored_multiphase(d, g, row_ids)
+    assert (visits == 1).all()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert (multiphase_rows(d, g)[3] >> 31).any()
+
+
+@pytest.mark.parametrize("case", MP_CASES, ids=lambda c: c[0])
+def test_factored_multiphase_matches_references(case):
+    """The factored S7 applied tile by tile to a seeded 12-qubit state
+    (its sums, then cos/sin and the complex multiply in f32) against the
+    plain version (segment_sweep on a CPU tensor) and the reference's
+    compile_segment in the Pallas interpreter, within TOL x max|amp|."""
+    name, m, forms = case
+    n = 12
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    if forms == ("a", "a"):               # the main paths' CZ pair
+        terms = [("a", 1 << 6, 1), ("a", 0, 3 << 3)]
+    else:
+        terms = _mp_terms(rng, m, n - LANE_BITS, forms)
+    stage = _multiphase(rng, terms)
+    seg = _port_segment(n, [stage])
+    d = seg.desc.numpy()[0]
+    g = stage[3]
+    planes = _state(n, seed=21)
+    got = planes.copy()
+    for blk in range(seg.geometry.blocks):
+        rows = _tile_row_ids(seg, blk)
+        tot, _ = factored_multiphase(d, g, rows)
+        idx = (rows.astype(np.int64)[:, None] << 7) | np.arange(128)[None, :]
+        cs, sn = np.cos(tot), np.sin(tot)
+        re, im = planes[0, idx], planes[1, idx]
+        got[0, idx] = re * cs - im * sn
+        got[1, idx] = re * sn + im * cs
+    plain = S.segment_sweep(torch.from_numpy(planes.copy()), seg).numpy()
+    ref = np.asarray(PB.compile_segment([stage[1]], n, interpret=True)(
+        jnp.asarray(planes).reshape(2, -1, PB.LANES), [g])).reshape(2, -1)
+    for want in (plain, ref):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=TOL * float(np.abs(want).max()))

@@ -1,5 +1,6 @@
-"""The ring drivers' tile copies on the CPU: the tensor-map model and the
-box-granular schedule of csrc/segment.cu's ring_kernel.
+"""The drivers' tile copies on the CPU: the tensor-map model, the
+box-granular schedule of csrc/segment.cu's ring_kernel, and the grid
+driver's (K3's) blocks on the same map.
 
 K1 and K2 move every tile plane as cp.async.bulk.tensor boxes of one
 tensor map per launch, whose dimensions, strides, box and per-tile
@@ -16,9 +17,13 @@ on the paths' plans). The schedule model band_plan.ring_schedule, whole
 planes or parts, never refills part of a slot before the store of that
 part has released it (read for K1, landed for K2), waits with the
 bulk-group count the kernel computes, and reads ahead no less than the
-schedule of the bulk-copy kernel it replaced. The kernel itself runs in tests/test_torch_cuda.py
-on a card. (The reference has no counterpart: its copies are Pallas
-BlockSpecs.)
+schedule of the bulk-copy kernel it replaced. K3 takes the same map
+over the whole batch: a block's requests sit at (tile, state0 +
+blockIdx.y) on every path geometry, random ones and the slice
+boundaries of batches above 65,535 states, and its launch counts one
+mbarrier in shared memory. The kernel itself runs in
+tests/test_torch_cuda.py on a card. (The reference has no counterpart:
+its copies are Pallas BlockSpecs.)
 """
 
 import contextlib
@@ -454,3 +459,146 @@ def test_copy_units_of_every_small_geometry():
             for parts, box_rows in _copy_units(geo):
                 check_boxes(geo, 3, BP.tma_boxes(geo, 3, parts=parts,
                                                  box_rows=box_rows))
+
+
+# ---------------------------------------------------------------------------
+# the grid driver's (K3) tile copies on the same map
+# ---------------------------------------------------------------------------
+
+
+def check_grid_block(geo, boxes, tile, state):
+    """K3's requests for one block, as csrc segment_kernel issues them
+    through the ring drivers' plane_boxes (tma_requests, at plane
+    coordinate 2 * state + p): each plane inside the map, its boxes
+    covering the tile's rows in slot order and inside the tensor."""
+    reqs = BP.tma_requests(boxes, geo, tile)
+    assert len(reqs) == boxes["requests_per_plane"]
+    for p in range(2):
+        assert 0 <= 2 * state + p < boxes["dims"][4] < 1 << 31
+    got = covered(boxes, reqs)
+    assert [r for r, _ in got] == list(range(1 << (geo.tile_bits
+                                                    - LANE_BITS)))
+    assert [g for _, g in got] == kernel_tile_rows(geo, tile)
+    for _, _, c in reqs:
+        assert all(0 <= c[d] and c[d] + boxes["box"][d] <= boxes["dims"][d]
+                   for d in range(4))
+    return len(reqs)
+
+
+def grid_blocks(geo, batch):
+    """(tile, state) of a few blocks of every K3 launch of a sweep over
+    `batch` states: the first and last state of each slice (state0 and
+    state0 + states - 1) on the first, a middle and the last tile."""
+    from quest_tpu_torch.ops import segment as S
+    for state0, states in S.grid_batch_slices(batch, "grid"):
+        for y in sorted({0, states - 1}):
+            for tile in sample_tiles(geo):
+                yield tile, state0 + y
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_grid_driver_map_on_path_plans(path):
+    """K3 takes the ring drivers' map (tma_boxes over the whole batch):
+    on every geometry of the path its blocks' requests sit at (tile,
+    state0 + y), cover the tile's rows in slot order, stay inside the
+    map, and take the kernel's requests per plane (1, 2 or 4)."""
+    geos, _ = path_geometries(path)
+    for geo, batch in geos:
+        boxes = BP.tma_boxes(geo, batch)
+        want = REQUESTS[chip_smoke.geometry_groups(geo)]
+        for tile, state in grid_blocks(geo, batch):
+            assert check_grid_block(geo, boxes, tile, state) == want
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_grid_driver_map_on_random_geometries(seed):
+    """Seeded random geometries and batches (1 to 65,539 states) under
+    every copy unit: K3's requests stay inside the map for the first and
+    last state of every slice of the batch."""
+    rng = np.random.default_rng(100 + seed)
+    done = 0
+    while done < 4:
+        geo = _random_geometry(rng)
+        if geo is None:
+            continue
+        batch = int(rng.choice([1, 7, 65535, 65539]))
+        for parts, box_rows in _copy_units(geo):
+            boxes = BP.tma_boxes(geo, batch, parts=parts, box_rows=box_rows)
+            for tile, state in grid_blocks(geo, batch):
+                check_grid_block(geo, boxes, tile, state)
+        done += 1
+
+
+@pytest.mark.parametrize("batch", [65535, 65536, 65539, 2 * 65535 + 1])
+def test_grid_slices_stay_inside_the_map(batch):
+    """ROADMAP C1's slice boundaries: a batch of 10-qubit states above
+    gridDim.y's 65,535 launches in slices that share one map over the
+    whole batch; the last state of a slice and the first of the next
+    address neighbouring planes, and the batch's last plane is the map's
+    last."""
+    from quest_tpu_torch.ops import segment as S
+    for stages in ([], [BP.MatStage("sc", 2, False, (), (), 1)]):
+        geo = BP.segment_geometry(stages, 10)
+        boxes = BP.tma_boxes(geo, batch)
+        assert boxes["dims"][4] == 2 * batch
+        slices = S.grid_batch_slices(batch, "grid")
+        firsts = [s for s, _ in slices]
+        assert firsts == list(range(0, batch, S.MAX_GRID_BATCH))
+        spans = []                   # (first, last) plane of each slice
+        for state0, states in slices:
+            planes = set()
+            for y in (0, states - 1):
+                planes |= {2 * (state0 + y) + p for p in range(2)}
+                check_grid_block(geo, boxes, 0, state0 + y)
+                check_grid_block(geo, boxes, geo.blocks - 1, state0 + y)
+            spans.append((min(planes), max(planes)))
+        assert spans[0][0] == 0 and spans[-1][1] == boxes["dims"][4] - 1
+        for (_, last), (first, _) in zip(spans, spans[1:]):
+            assert first == last + 1
+
+
+def test_grid_driver_shared_memory_counts_its_mbarrier():
+    """K3's launch holds its two planes, the fixed words and one mbarrier
+    for the tile, within a block's 232,448 bytes at every tile size."""
+    for tile_bits in range(10, 15):
+        lay = BP.smem_layout(tile_bits, 1 << 20, "grid")
+        assert lay["slots"] == 2 and lay["barrier_bytes"] == 8
+        assert lay["total_bytes"] == (8 << tile_bits) + BP.FIXED_SMEM_BYTES + 8
+        assert lay["total_bytes"] <= BP.BLOCK_SMEM_BYTES
+    assert BP.smem_layout(14, 1, "grid")["total_bytes"] == 166168
+
+
+def test_grid_schedule_exits_on_the_stores_read():
+    """The schedule model of the blocks one SM runs under K3: both planes
+    loaded on one mbarrier, the chain, a store group per plane, and the
+    exit once the stores have read the planes (wait_group.read 0), before
+    the next tile's block loads into the same shared memory."""
+    ev = BP.ring_schedule("grid", 3, 2)
+    for k in range(3):
+        at = ev.index(("chain", k, (0, 1)))
+        assert ev[at - 3:at] == [("load", 2 * k, 0, 0),
+                                 ("load", 2 * k + 1, 1, 0), ("landed", k)]
+        assert ev[at + 1:at + 4] == [("store", 2 * k, 0, 0),
+                                     ("store", 2 * k + 1, 1, 0),
+                                     ("read", 2 * k + 1, 0, 0)]
+    assert not [e for e in ev if e[0] == "drained"]
+
+
+# path -> (launches, launches holding S7, S7 stages): every S7 stage the
+# paths' planners emit has the main paths' form, two all-ones terms
+MULTIPHASE_ON_PATHS = {"flagship": (9, 2, 2), "baseline_30q_d20": (46, 19, 20),
+                       "density": (24, 2, 2), "clifford_t_density": (9, 0, 0),
+                       "batched": (7, 2, 2), "trajectory_chunk": (20, 2, 2)}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_multiphase_stages_on_path_plans(path):
+    """The multiphase stages of each path's launches, as the port's
+    planner gives them today (the S7 launches PERF.md counts): how many
+    launches hold one, how many there are, and their forms ('a', 'a')."""
+    parts, _, _ = PATHS[path]()
+    segs = [p[1] for p in parts if p[0] == "segment"]
+    mp = [[s for s in st if isinstance(s, BP.MultiPhaseStage)] for st in segs]
+    assert (len(segs), sum(1 for m in mp if m),
+            sum(len(m) for m in mp)) == MULTIPHASE_ON_PATHS[path]
+    assert {s.forms for m in mp for s in m} <= {("a", "a")}
