@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --upto stages   # build + per-stage checks only
+    python3 -c "import torch, chip_smoke as C; C.phase_build();
+                C.phase_f64(torch)"      # one phase alone
 
 Drives quest_tpu_torch (never JAX, never quest_tpu) on the card. Every
 phase runs the default segment driver, K1 (QUEST_FUSED_DRIVER=pipelined,
@@ -131,6 +133,40 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      shares of a block; and the fp32 FMA rate the card sustains
      (profiling.fma_rate).
 
+ 17. pergate: entry.pergate_entry() — the flagship (28q RCS d4, f32)
+     through the per-gate engine (Circuit.compiled: every op through
+     ops/apply, no kernel launch) — against K1's fused step within 1e-4
+     x max|amp|; ms per step (median of 5), state passes (a pass: the
+     state read and written once) and their bound;
+ 18. banded: entry.banded_entry() through compiled_banded at HIGHEST
+     (against pergate within 1e-4 x max|amp|), HIGH and DEFAULT (against
+     HIGHEST within the tier's envelope, the fused plain version's
+     distance from precision_flagship); ms, passes, bound;
+ 19. f64: the flagship at f64 through compiled_fused (its plan's banded
+     items) and compiled, within 1e-12 x max|amp| of each other, norm
+     within 1e-12, and within 1e-4 of the f32 fused step; 30q d20 at f64
+     (16 GiB) through compiled_banded, one step, its norm, ms and peak
+     memory; density_entry at f64 (28 state qubits): trace, Hermiticity
+     and purity within 1e-12;
+ 20. wide_gates: BASELINE config 3 at 28 qubits (entry.wide_gates_circuit:
+     a 5-target and a 6-target Haar unitary and a 2-target unitary under
+     3 controls after RCS d4) through compiled_fused (K1 segments, the
+     three matrices as passthroughs; launches counted against the plan),
+     compiled_banded and compiled, all within 1e-4 x max|amp|;
+ 21. small_registers: the tutorial on 3 qubits and random 5- and 9-qubit
+     circuits through compiled_fused (the banded fallback) on the card and
+     the CPU, f32 within 2e-5 and f64 within 1e-12 x max|amp|; the
+     tutorial's prob |111> = 0.112422 and prob(qubit 2 = 1) = 0.749178
+     within 1e-6;
+ 22. batched_banded: batched_entry()'s call through compiled_batched(
+     engine='banded') against the fused call within 1e-4 x max|amp|, and
+     16 of its states at f64 against the f32 result; ms per call;
+ 23. trajectories_banded: 1024 shots at 9 qubits through the default
+     engine (banded), <Z_q> within 5 sigma of the f64 density path; at 14
+     qubits engine='banded' against 'fused' from one generator state:
+     draws equal wherever no uniform lies within 1e-5 of a branch
+     boundary, planes of equal-draw shots within 1e-4 x max|amp|.
+
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
 sheet).
@@ -186,7 +222,9 @@ PHASES = ("build", "probe", "stages", "big_batch", "high_target",
           "density_bench", "clifford_t_density", "batched",
           "trajectory_physics", "trajectories", "precision_stages",
           "precision_flagship", "precision_baseline", "precision_density",
-          "stage_timing", "phase_counters")
+          "stage_timing", "phase_counters", "pergate", "banded", "f64",
+          "wide_gates", "small_registers", "batched_banded",
+          "trajectories_banded")
 
 RECORD = []
 
@@ -276,16 +314,83 @@ def segment_work(seg, batch=1):
             batch * sum(w[1] for w in work))
 
 
-def passthrough_work(step):
-    """(bytes, fp32 flops, bf16 tensor flops) of a matrix passthrough:
-    the state read and written once; one complex MAC per matrix column
-    for each amplitude where the controls hold, as the tier's products."""
-    op, n = step.op, step.n
-    sel = float(1 << n) / (1 << len(op.controls))
-    work = sel * (1 << len(op.targets)) * 8
-    if step.tier == "highest":
-        return 2 * 2 * 4 * (1 << n), work, 0.0
-    return 2 * 2 * 4 * (1 << n), 0.0, work * TIER_PRODUCTS[step.tier]
+def xla_item_work(item, n: int):
+    """(share of the state read and written, real operations) of one
+    ops/apply step on a 2^n state: a plan item (BandOp, DiagItem,
+    PassOp) or a flat GateOp. Controls and predicates select a share; a
+    band is a Gauss three-product contraction (two for a real operator),
+    a matrix four real products (two), a diagonal or phase one complex
+    multiply per selected amplitude."""
+    from quest_tpu_torch.ops import fusion as F
+    from quest_tpu_torch.ops import matrices as M
+    amps = float(1 << n)
+    if isinstance(item, F.BandOp):
+        share = 1.0 / (1 << len(item.preds))
+        per_mac = 4 if not np.any(item.gim) else 6
+        return share, amps * share * (1 << item.w) * per_mac
+    op = item.op if isinstance(item, (F.DiagItem, F.PassOp)) else item
+    if op.kind == "parity":
+        return 1.0, amps * 6
+    if op.kind == "allones":
+        share = 1.0 / (1 << len(op.targets))
+        return share, amps * share * 6
+    share = 1.0 / (1 << len(op.controls))
+    if op.kind == "diagonal":
+        return share, amps * share * 6
+    targets = (M.superop_targets(op.targets, n // 2)
+               if op.kind == "superop" else op.targets)
+    per_mac = 4 if not np.any(np.imag(op.operand)) else 8
+    return share, amps * share * (1 << len(targets)) * per_mac
+
+
+def xla_item_split(item, n: int, tier: str, rbytes=4):
+    """(share, fp32 or fp64 flops, bf16 tensor flops) of one ops/apply
+    step: a band's or matrix's products on f32 planes below HIGHEST are
+    the tier's bf16 products (TIER_PRODUCTS of them a real product),
+    every other operation runs at its planes' precision."""
+    from quest_tpu_torch.ops import fusion as F
+    share, flops = xla_item_work(item, n)
+    op = item if isinstance(item, F.BandOp) else getattr(item, "op", item)
+    rounds = isinstance(op, F.BandOp) or op.kind not in (
+        "parity", "allones", "diagonal")
+    if rbytes != 4 or tier == "highest" or not rounds:
+        return share, flops, 0.0
+    return share, 0.0, flops * TIER_PRODUCTS[tier]
+
+
+def passthrough_work(step, batch=1):
+    """(bytes, fp32 flops, bf16 tensor flops) of a passthrough
+    (circuit.XlaPass) over `batch` f32 states: the selected share read
+    and written once; a band or matrix's products at the step's tier."""
+    share, flops, tc = xla_item_split(step.item, step.n, step.tier)
+    nbytes = batch * share * 2 * 2 * 4 * (1 << step.n)
+    return nbytes, batch * flops, batch * tc
+
+
+def xla_program_work(prog, rbytes=4, batch=1):
+    """(state passes, bytes, fp32 or fp64 flops, bf16 tensor flops) of
+    one call of a per-gate or banded program (circuit.XlaProgram) over
+    `batch` states of `rbytes`-byte planes: a pass is the whole state
+    read and written once, a step counting the share it selects."""
+    work = [xla_item_split(it, prog.n, prog.tier, rbytes)
+            for it in prog.items]
+    passes = prog.iters * sum(w[0] for w in work)
+    nbytes = passes * batch * 2 * 2 * rbytes * (1 << prog.n)
+    return (passes, nbytes, prog.iters * batch * sum(w[1] for w in work),
+            prog.iters * batch * sum(w[2] for w in work))
+
+
+def xla_bound(prog, rbytes=4, batch=1):
+    """{passes, bound_ms, bound_by, bytes_ms, ops_ms} of one call of an
+    XlaProgram: the larger of the bytes over 3.35 TB/s and the
+    operations over their peaks (67 TFLOP/s for fp32 outside the tensor
+    cores or fp64 on them, 989 for the tiers' bf16 products)."""
+    passes, nbytes, flops, tc = xla_program_work(prog, rbytes, batch)
+    ms, by = bound_ms(nbytes, flops, tc)
+    return {"passes": passes, "bound_ms": ms, "bound_by": by,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": (flops / FP32_FLOPS_PER_S + tc / BF16_FLOPS_PER_S)
+            * 1e3}
 
 
 def bound_ms(nbytes, flops, tc_flops=0.0):
@@ -306,8 +411,8 @@ def bound_of(segments, passthroughs=(), repeat=1, batch=1):
 def program_bound(fn):
     """Bound of one call of a FusedProgram: its segments and passthroughs,
     loop_iters times."""
-    from quest_tpu_torch.circuit import MatrixPass
-    passes = [s for s in fn.steps if isinstance(s, MatrixPass)]
+    from quest_tpu_torch.circuit import XlaPass
+    passes = [s for s in fn.steps if isinstance(s, XlaPass)]
     return bound_of(fn.segments, passes, fn.loop_iters)
 
 
@@ -942,7 +1047,7 @@ def run_density(torch, name, fn, amps, reps, time_plain):
     qubits): the plain path first (out of place, so the input is never
     held twice), the kernel path counted against the plan, the density
     gates, then warm-step timing."""
-    from quest_tpu_torch.circuit import MatrixPass
+    from quest_tpu_torch.circuit import XlaPass
     n = fn.n
     nd = n // 2
     want = fn.plain(amps)
@@ -951,7 +1056,7 @@ def run_density(torch, name, fn, amps, reps, time_plain):
     launches, stage_launches = counted_call(torch, name, fn, amps)
     rec = {"phase": name, "n": n, "density_qubits": nd,
            "segments": len(fn.segments),
-           "passthroughs": sum(isinstance(s, MatrixPass) for s in fn.steps),
+           "passthroughs": sum(isinstance(s, XlaPass) for s in fn.steps),
            "loop_iters": fn.loop_iters, "launches": launches,
            "stage_launches": stage_launches}
     rec.update(density_checks(torch, name, amps, want, nd))
@@ -1112,12 +1217,11 @@ def trajectory_bound(prog, b):
     its launches over the chunk, each general-Kraus channel's Born
     reduction (one read of the batch, a complex MAC pair per amplitude),
     each passthrough per state."""
-    from quest_tpu_torch.circuit import MatrixPass
+    from quest_tpu_torch.circuit import XlaPass
     n = prog.n
     work = [segment_work(s, b) for s in prog.segments]
-    work += [tuple(b * x for x in w) for w in
-             (passthrough_work(p) for p in prog.steps
-              if isinstance(p, MatrixPass))]
+    work += [passthrough_work(p, b) for p in prog.steps
+             if isinstance(p, XlaPass)]
     barriers = sum(1 for c in prog.channels if c.probs is None)
     work += [(barriers * b * 2 * 4 * (1 << n), barriers * b * 8 * (1 << n),
               0.0)]
@@ -1522,6 +1626,57 @@ def _diag_library(torch, arr, amps, q):
     return time_ms(torch, lambda: x * t.reshape(1, 2, 1), 5)
 
 
+def _condition_bits(arr, lane_col, row_col):
+    """{qubit: wanted bit} of a phase or parity operand's lane mask (column
+    `lane_col`, its wants beside it for a phase) and row mask (split at
+    bit 15 over `row_col` and the column after it)."""
+    lm = int(arr[0, lane_col])
+    rm = int(arr[0, row_col]) | (int(arr[0, row_col + 1]) << 15)
+    return ([q for q in range(7) if lm >> q & 1]
+            + [q + 7 for q in range(32) if rm >> q & 1])
+
+
+def _complex_view(torch, amps, n, qubits):
+    """A complex64 copy of the planes (made untimed), viewed with one
+    size-2 axis per qubit (ops.apply.bit_view), and those axes."""
+    from quest_tpu_torch.ops.apply import bit_view
+    dims, axis_of = bit_view(n, qubits)
+    x = torch.complex(amps.reshape(2, -1)[0], amps.reshape(2, -1)[1])
+    return x.view(dims), axis_of
+
+
+def _phase_library(torch, arr, amps, n):
+    """S5's function as one call: an in-place complex64 mul_ of the
+    all-ones slice (the wanted bits) of a (2,)-axis view."""
+    qubits = _condition_bits(arr, 2, 4)
+    lw = int(arr[0, 3])
+    rw = int(arr[0, 6]) | (int(arr[0, 7]) << 15)
+    x, axis_of = _complex_view(torch, amps, n, qubits)
+    idx = [slice(None)] * x.dim()
+    for q in qubits:
+        idx[axis_of[q]] = (lw >> q & 1) if q < 7 else (rw >> (q - 7) & 1)
+    sl = x[tuple(idx)]
+    t = complex(arr[0, 0], arr[0, 1])
+    return time_ms(torch, lambda: sl.mul_(t), 5)
+
+
+def _parity_library(torch, arr, amps, n):
+    """S6's function as one call: a broadcast complex64 torch.mul by the
+    (2,)*k factor cos h - i sin h (-1)^parity of the target bits."""
+    qubits = _condition_bits(arr, 2, 3)
+    x, axis_of = _complex_view(torch, amps, n, qubits)
+    k = len(qubits)
+    bits = (np.arange(1 << k)[:, None] >> np.arange(k)[::-1]) & 1
+    sign = 1 - 2 * (bits.sum(1) % 2)
+    f = (float(arr[0, 0]) - 1j * float(arr[0, 1]) * sign).astype(np.complex64)
+    shape = [1] * x.dim()
+    for q in qubits:
+        shape[axis_of[q]] = 2
+    # axes in ascending view order are descending qubits, as bits[:, 0..]
+    fac = torch.from_numpy(f).cuda().reshape(shape)
+    return time_ms(torch, lambda: torch.mul(x, fac), 5)
+
+
 # K1 single-stage ms at 28 qubits before each kernel's latest redesign,
 # on an NVIDIA H100 80GB HBM3 at 700 W, from this script's stage_timing
 # phase on the tree of that time (PERF.md), printed beside the new times:
@@ -1543,9 +1698,11 @@ MAIN_PATH_MULTIPHASE = [("a", 1 << 6, 1), ("a", 0, 3 << 13)]
 def phase_stage_timing(torch):
     """Single-stage segments at 28 qubits: b0, b1, scb-128 and sc (with
     one complex64 torch.matmul in the stage's frame as the yardstick),
-    phase, parity, an 8-term multiphase of both forms, the main paths'
-    2-term all-ones multiphase and a 64-term one of alternating forms (no
-    single library call),
+    phase (an in-place complex64 mul_ of the all-ones slice) and parity
+    (a broadcast complex64 torch.mul by the parity factor), an 8-term
+    multiphase of both forms, the main paths' 2-term all-ones multiphase
+    and a 64-term one of alternating forms (m terms: no single library
+    call),
     each Kraus pair form (one torch.einsum of the 4x4 operator as the
     yardstick) and a 1-qubit diagonal on row bit 14 (one broadcast
     complex multiply)."""
@@ -1610,6 +1767,10 @@ def phase_stage_timing(torch):
             lib_ms = _pair_library(torch, st, arr, amps, n)
         elif isinstance(st, BP.DiagVecStage):
             lib_ms = _diag_library(torch, arr, amps, st.targets[0])
+        elif isinstance(st, BP.PhaseStage):
+            lib_ms = _phase_library(torch, arr, amps, n)
+        elif isinstance(st, BP.ParityStage):
+            lib_ms = _parity_library(torch, arr, amps, n)
         bound_ms, bound_by = bound_of([seg])
         out.append({"name": name, "label": S.stage_label(st), "ms": ms,
                     "plain_ms": plain_ms,
@@ -1840,6 +2001,462 @@ def batchsel_timing(torch):
 
 # configuration -> (driver, nbuf): K1 the default, K2 at 2 and 3 plane
 # slots, K3 one block per tile
+# ---------------------------------------------------------------------------
+# the reference's XLA engines (ROADMAP A3): per-gate and banded programs,
+# f64 registers, wide gates, small registers, the banded batched and
+# trajectory programs. No kernel of the port runs in them but the segment
+# kernel of the fused programs they are held against.
+# ---------------------------------------------------------------------------
+
+F64_TOL = 1e-12
+SMALL_TOL = {"float32": 2e-5, "float64": 1e-12}
+TUTORIAL_TOL = 1e-6
+TUTORIAL_PROBS = (0.112422, 0.749178)     # the reference binary's output
+TRAJ_SMALL_QUBITS = 9
+TRAJ_BANDED_QUBITS = 14
+TRAJ_BANDED_SHOTS = 256
+BOUNDARY_EPS = 1e-5
+F64_BASELINE = (30, 20)        # BASELINE config 2 at f64: qubits, depth
+
+
+def emit_card(rec) -> None:
+    """emit(rec) with the card's name and power limit beside its numbers."""
+    rec["card"] = smi_line()
+    emit(rec)
+
+
+def plane_err(a, b) -> float:
+    """max |a - b| of two (2, ...) planes (or batches) in any view, in
+    the wider of their dtypes, a plane (or a state) at a time."""
+    x, y = a.reshape(-1), b.reshape(-1)
+    dt = x.dtype if x.element_size() >= y.element_size() else y.dtype
+    step = 1 << 28
+    return max((x[i:i + step].to(dt) - y[i:i + step].to(dt)).abs().max().item()
+               for i in range(0, x.numel(), step))
+
+
+def uncounted_call(torch, name, fn, amps):
+    """fn(amps) once with the segment kernel's counter set to 0 just
+    before and read just after: a per-gate or banded program (or an f64
+    fused program) launches no segment kernel."""
+    from quest_tpu_torch.ops import segment as S
+    S.segment_sweep.launches = 0
+    fn(amps)
+    torch.cuda.synchronize()
+    if S.segment_sweep.launches:
+        raise AssertionError(f"{name}: {S.segment_sweep.launches} segment "
+                             f"launches on an XLA-engine path")
+
+
+def engine_bound(fn, rbytes=4, batch=1):
+    """xla_bound of an XlaProgram, or of a FusedProgram's f64 route."""
+    return xla_bound(getattr(fn, "banded", fn), rbytes, batch)
+
+
+def phase_pergate(torch):
+    """entry.pergate_entry(): the flagship (28q RCS d4, f32) through the
+    per-gate engine, every op of the flat list through ops/apply; against
+    K1's fused step within 1e-4 x max|amp|; ms per step (median of 5),
+    state passes and their bound. Returns (record, its planes)."""
+    from quest_tpu_torch.entry import entry, pergate_entry
+    fused, (ref,) = entry()
+    fused(ref)
+    fn, (amps,) = pergate_entry()
+    t0 = time.perf_counter()
+    uncounted_call(torch, "pergate", fn, amps)
+    first_s = time.perf_counter() - t0
+    err, scale = plane_err(amps, ref), ref.abs().max().item()
+    norm = norm_of(amps)
+    if not (err <= PATH_TOL * scale and abs(1.0 - norm) <= PATH_TOL
+            and torch.isfinite(amps).all().item()):
+        raise AssertionError(f"pergate: max|diff| {err} vs K1 (max|amp| "
+                             f"{scale}), norm {norm}")
+    del fused, ref
+    x = amps.clone()
+    rec = {"phase": "pergate", "n": fn.n, "ops": len(fn.items),
+           "max_abs_err": err, "rel_err": err / scale, "norm": norm,
+           "first_call_s": first_s,
+           "median_ms": time_ms(torch, lambda: fn(x), 5), **engine_bound(fn)}
+    emit_card(rec)
+    del x
+    torch.cuda.empty_cache()
+    return rec, amps
+
+
+def phase_banded(torch, pergate_out, tier_plain):
+    """entry.banded_entry(): the flagship through the banded engine at
+    HIGHEST (against the per-gate engine's planes `pergate_out` within
+    1e-4 x max|amp|), HIGH and DEFAULT (against HIGHEST, and |1 - norm|,
+    within the tier's envelopes: the stated tolerance, or 1.5x the fused
+    flagship's plain version's distance and norm drift at that tier,
+    `tier_plain`, as precision_flagship records them); ms (median of 5),
+    passes, bound."""
+    from quest_tpu_torch.entry import banded_entry
+    scale = pergate_out.abs().max().item()
+    recs, top = {}, None
+    for tier in ("highest",) + TIERS:
+        with session_tier(tier):
+            fn, (amps,) = banded_entry()
+        uncounted_call(torch, f"banded@{tier}", fn, amps)
+        norm = norm_of(amps)
+        rec = {"phase": "banded", "tier": tier, "n": fn.n,
+               "items": len(fn.items), "norm": norm}
+        if tier == "highest":
+            err = plane_err(amps, pergate_out)
+            rec.update(max_abs_err=err, rel_err=err / scale)
+            ok = err <= PATH_TOL * scale and abs(1.0 - norm) <= PATH_TOL
+            top = amps
+        else:
+            dist = plane_err(amps, top) / scale
+            plain_rel, plain_drift = tier_plain[tier]
+            gate, source = envelope(tier, plain_rel)
+            ngate, nsource = envelope(tier, plain_drift)
+            rec.update(rel_vs_highest=dist, envelope=gate,
+                       envelope_from=source, norm_envelope=ngate,
+                       norm_envelope_from=nsource,
+                       fused_plain_rel_vs_highest=plain_rel,
+                       fused_plain_norm_drift=plain_drift)
+            ok = 0.0 < dist <= gate and abs(1.0 - norm) <= ngate
+        if not (ok and torch.isfinite(amps).all().item()):
+            raise AssertionError(f"banded: {rec}")
+        x = amps.clone()
+        rec["median_ms"] = time_ms(torch, lambda: fn(x), 5)
+        rec.update(engine_bound(fn))
+        emit_card(rec)
+        recs[tier] = rec
+        del x
+        if amps is not top:
+            del amps
+        torch.cuda.empty_cache()
+    del top
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_f64(torch):
+    """f64 planes: the flagship at f64 (4 GiB) through compiled_fused
+    (its f64 route: the plan's banded items, no kernel launch) and
+    through compiled, within 1e-12 x max|amp| of each other and of norm
+    1; against the f32 fused step within 1e-4 x max|amp|. BASELINE's
+    30q d20 at f64 (16 GiB) through compiled_banded: one step, its norm
+    (within 1e-12), ms, bound. density_entry at f64 (28 state qubits):
+    trace, Hermiticity and purity within 1e-12."""
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.entry import density_entry, entry, pergate_entry
+    from quest_tpu_torch.state import basis_planes
+    c128 = np.complex128
+    f32, (ref,) = entry()
+    f32(ref)
+    fn, (amps,) = entry(dtype=c128)
+    uncounted_call(torch, "f64", fn, amps)
+    pg, (x,) = pergate_entry(dtype=c128)
+    uncounted_call(torch, "f64 pergate", pg, x)
+    err, scale = plane_err(amps, x), x.abs().max().item()
+    err32 = plane_err(amps, ref)
+    norm = norm_of(amps)
+    rec = {"phase": "f64", "workload": "flagship", "n": fn.n,
+           "dtype": str(amps.dtype), "max_abs_err_vs_pergate": err,
+           "rel_err_vs_pergate": err / scale, "max_abs_err_vs_f32": err32,
+           "rel_err_vs_f32": err32 / scale, "norm": norm}
+    if not (amps.dtype == torch.float64 and err <= F64_TOL * scale
+            and abs(1.0 - norm) <= F64_TOL and err32 <= PATH_TOL * scale
+            and torch.isfinite(amps).all().item()):
+        raise AssertionError(f"f64: {rec}")
+    del f32, ref
+    rec["median_ms"] = time_ms(torch, lambda: fn(amps), 3)
+    rec["pergate_median_ms"] = time_ms(torch, lambda: pg(x), 3)
+    rec.update(engine_bound(fn, 8))
+    rec["pergate_bound"] = engine_bound(pg, 8)
+    emit_card(rec)
+    del fn, amps, pg, x
+    torch.cuda.empty_cache()
+
+    n, depth = F64_BASELINE
+    prog = random_circuit(n, depth, seed=7, entangler="cz").compiled_banded(
+        n, device="cuda")
+    amps = basis_planes(0, n=n, rdt=np.float64, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: uncounted_call(torch, "f64 30q", prog, amps),
+                 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30     # the step's own
+    norm = norm_of(amps)
+    base = {"phase": "f64", "workload": "baseline_30q_d20", "n": n,
+            "depth": depth, "items": len(prog.items), "norm": norm,
+            "ms": ms, "peak_gib": peak, **engine_bound(prog, 8)}
+    if not (abs(1.0 - norm) <= F64_TOL and torch.isfinite(amps).all().item()):
+        raise AssertionError(f"f64: {base}")
+    emit_card(base)
+    del prog, amps
+    torch.cuda.empty_cache()
+
+    fnd, (rho,) = density_entry(dtype=c128)
+    ms = time_ms(torch, lambda: uncounted_call(torch, "f64 density", fnd,
+                                               rho), 1)
+    nd = fnd.n // 2
+    trace, purity = density_stats(rho, nd)
+    herm = hermitian_err(rho, nd)
+    dscale = rho.abs().max().item()
+    dens = {"phase": "f64", "workload": "density", "n": fnd.n,
+            "density_qubits": nd, "trace": trace, "purity": purity,
+            "hermitian_err": herm, "ms": ms, **engine_bound(fnd, 8)}
+    if not (abs(1.0 - trace) <= F64_TOL and herm <= F64_TOL * dscale
+            and purity <= 1.0 + F64_TOL and torch.isfinite(rho).all().item()):
+        raise AssertionError(f"f64: {dens}")
+    emit_card(dens)
+    del fnd, rho
+    torch.cuda.empty_cache()
+    return rec, base, dens
+
+
+def phase_wide_gates(torch):
+    """BASELINE config 3 at 28 qubits (entry.wide_gates_circuit: RCS d4,
+    a 5-target and a 6-target Haar unitary, a 2-target unitary under 3
+    controls, one at state 0) through compiled_fused (K1 segments, the
+    three matrices as passthroughs between them; launches counted
+    against the plan), compiled_banded and compiled: all three within
+    1e-4 x max|amp|; passthroughs, ms per step, bounds."""
+    from quest_tpu_torch.circuit import XlaPass
+    from quest_tpu_torch.entry import FLAGSHIP_QUBITS, wide_gates_circuit
+    from quest_tpu_torch.state import basis_planes, fused_state_shape
+    n = FLAGSHIP_QUBITS
+    c = wide_gates_circuit(n)
+    fused = c.compiled_fused(n, device="cuda")
+    passes = [s for s in fused.steps if isinstance(s, XlaPass)]
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device="cuda")
+    launches, stage_launches = counted_call(torch, "wide_gates", fused, amps)
+    outs, ms, bounds = {}, {}, {}
+    for name in ("compiled_banded", "compiled"):
+        fn = getattr(c, name)(n, device="cuda")
+        x = basis_planes(0, n=n, device="cuda")
+        uncounted_call(torch, f"wide_gates {name}", fn, x)
+        outs[name] = x
+        ms[name] = time_ms(torch, lambda: fn(x.clone()), 3)
+        bounds[name] = engine_bound(fn)
+    scale = amps.abs().max().item()
+    errs = {"banded_vs_fused": plane_err(outs["compiled_banded"], amps),
+            "pergate_vs_fused": plane_err(outs["compiled"], amps),
+            "pergate_vs_banded": plane_err(outs["compiled"],
+                                           outs["compiled_banded"])}
+    norm = norm_of(amps)
+    rec = {"phase": "wide_gates", "n": n, "segments": len(fused.segments),
+           "passthroughs": len(passes),
+           "passthrough_targets": [len(p.item.op.targets) for p in passes],
+           "launches": launches, "stage_launches": stage_launches,
+           **{k: v for k, v in errs.items()}, "scale": scale, "norm": norm}
+    if not (all(e <= PATH_TOL * scale for e in errs.values())
+            and abs(1.0 - norm) <= PATH_TOL and len(passes) >= 3
+            and torch.isfinite(amps).all().item()):
+        raise AssertionError(f"wide_gates: {rec}")
+    rec["fused_median_ms"] = time_ms(torch, lambda: fused(amps), 5)
+    rec["fused_bound_ms"], rec["fused_bound_by"] = program_bound(fused)
+    rec["banded_median_ms"] = ms["compiled_banded"]
+    rec["pergate_median_ms"] = ms["compiled"]
+    rec["banded_bound"] = bounds["compiled_banded"]
+    rec["pergate_bound"] = bounds["compiled"]
+    emit_card(rec)
+    del fused, amps, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def small_circuits():
+    """(name, circuit): the tutorial on 3 qubits, and random 5- and
+    9-qubit circuits (the 9-qubit one with a 5-target Haar unitary)."""
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.entry import haar_unitary, tutorial_circuit
+    wide = random_circuit(9, 6, seed=9, entangler="cnot")
+    wide.gate(haar_unitary(5, np.random.default_rng(9)), (0, 2, 4, 6, 8))
+    return [("tutorial", tutorial_circuit()),
+            ("rcs5", random_circuit(5, 6, seed=5)), ("rcs9", wide)]
+
+
+def phase_small_registers(torch):
+    """Registers below the kernel's 10 qubits: small_circuits() through
+    compiled_fused (the banded fallback) on the card and on the CPU, at
+    f32 (2e-5 x max|amp|) and f64 (1e-12); the tutorial's prob |111>
+    and prob(qubit 2 = 1) from the planes within 1e-6 of the reference
+    binary's; ms per step on the card."""
+    from quest_tpu_torch.state import create_qureg
+    recs = []
+    for name, c in small_circuits():
+        n = c.num_qubits
+        for dt in (np.complex64, np.complex128):
+            fn = c.compiled_fused(n, device="cuda")
+            q = create_qureg(n, dtype=dt, device="cuda")
+            uncounted_call(torch, f"small {name}", fn, q.amps)
+            cpu = c.apply_fused(create_qureg(n, dtype=dt, device="cpu"))
+            got = q.amps.cpu()
+            err = (got - cpu.amps).abs().max().item()
+            scale = cpu.amps.abs().max().item()
+            rdt = str(q.amps.dtype).replace("torch.", "")
+            rec = {"phase": "small_registers", "circuit": name, "n": n,
+                   "dtype": rdt, "engine": fn.kind, "max_abs_err": err,
+                   "rel_err": err / scale, "norm": norm_of(got)}
+            ok = (err <= SMALL_TOL[rdt] * scale
+                  and abs(1.0 - rec["norm"]) <= PATH_TOL)
+            if name == "tutorial":
+                probs = (got.double() ** 2).sum(0)
+                rec["prob_111"] = probs[7].item()
+                rec["prob_q2"] = probs[4:].sum().item()
+                ok = ok and all(abs(v - w) <= TUTORIAL_TOL for v, w in zip(
+                    (rec["prob_111"], rec["prob_q2"]), TUTORIAL_PROBS))
+            if not ok:
+                raise AssertionError(f"small_registers: {rec}")
+            x = q.amps.clone()
+            rec["median_ms"] = time_ms(torch, lambda: fn(x), 5)
+            emit_card(rec)
+            recs.append(rec)
+    return recs
+
+
+def phase_batched_banded(torch):
+    """batched_entry()'s call (24q x 64 states, f32) through
+    compiled_batched(engine='banded'), against the fused batched call
+    within 1e-4 x max|amp|; then 16 of the states at f64 through the
+    batched engine (its f64 route), against the f32 result; ms per
+    call."""
+    from quest_tpu_torch.entry import batched_entry, flagship_circuit
+    fn, (amps,) = batched_entry()
+    n, batch = fn.n, amps.shape[0]
+    banded = flagship_circuit(n).compiled_batched(batch, engine="banded",
+                                                  device="cuda")
+    x = amps.clone()
+    x64 = amps[:16].double()
+    fn(amps)
+    uncounted_call(torch, "batched_banded", banded, x)
+    scale = amps.abs().max().item()
+    err = max(plane_err(x[i], amps[i]) for i in range(batch))
+    uncounted_call(torch, "batched_banded f64", fn, x64)
+    err64 = max(plane_err(x64[i], amps[i]) for i in range(16))
+    norms = x64.pow(2).sum(dim=(1, 2, 3))
+    rec = {"phase": "batched_banded", "n": n, "batch": batch,
+           "items": len(banded.items), "max_abs_err": err,
+           "rel_err": err / scale, "f64_states": 16,
+           "f64_max_abs_err_vs_f32": err64,
+           "f64_max_norm_err": (1.0 - norms).abs().max().item()}
+    if not (err <= PATH_TOL * scale and err64 <= PATH_TOL * scale
+            and rec["f64_max_norm_err"] <= PATH_TOL
+            and torch.isfinite(x).all().item()):
+        raise AssertionError(f"batched_banded: {rec}")
+    rec["ms_per_call"] = time_ms(torch, lambda: banded(x), 3)
+    rec["fused_ms_per_call"] = time_ms(torch, lambda: fn(amps), 3)
+    rec["f64_ms_per_call"] = time_ms(torch, lambda: fn(x64), 3)
+    rec.update(engine_bound(banded, 4, batch))
+    rec["f64_bound"] = engine_bound(fn, 8, 16)
+    emit_card(rec)
+    del fn, banded, amps, x, x64
+    torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def born_record(T, seen):
+    """Record every Born-probability array the trajectory programs
+    compute: seen[channel index] = (B, m) f64 on the host."""
+    orig = T._Channel.born_probs
+
+    def spy(self, planes, n):
+        ps = orig(self, planes, n)
+        seen[self.index] = ps.cpu()
+        return ps
+    T._Channel.born_probs = spy
+    try:
+        yield seen
+    finally:
+        T._Channel.born_probs = orig
+
+
+def near_boundary(prog, u, seen) -> "np.ndarray":
+    """(shots,) bool: a shot's uniform for some channel lies within
+    BOUNDARY_EPS of a branch boundary (inner cumulative probability)."""
+    u = u.cpu().numpy()
+    near = np.zeros(u.shape[0], dtype=bool)
+    for ch in prog.channels:
+        p = (ch.probs.cpu().numpy()[None, :] if ch.probs is not None
+             else seen[ch.index].numpy())
+        cum = np.cumsum(np.clip(p, 0, None), axis=-1)
+        cum = cum[:, :-1] / cum[:, -1:]
+        near |= (np.abs(u[:, [ch.index]] - cum) < BOUNDARY_EPS).any(-1)
+    return near
+
+
+def phase_trajectories_banded(torch):
+    """The banded trajectory program: (1) 1024 shots of noisy RCS d3 at
+    9 qubits through the default engine (banded below the kernel tier),
+    <Z_q> within 5 sigma of the f64 density path; (2) engine='banded'
+    against 'fused' at 14 qubits from one generator state: draws equal
+    wherever no uniform lies within 1e-5 of a branch boundary, equal-draw
+    shots' planes within 1e-4 x max|amp|; ms per run."""
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.entry import noisy_rcs_circuit
+    from quest_tpu_torch.state import basis_planes, fused_state_shape
+    nd = TRAJ_SMALL_QUBITS
+    circ = noisy_rcs_circuit(nd, 3)
+    dens = circ.compiled_fused(2 * nd, density=True, device="cuda")
+    rho = basis_planes(0, n=2 * nd, rdt=np.float64,
+                       shape=fused_state_shape(2 * nd), device="cuda")
+    uncounted_call(torch, "trajectories_banded density", dens, rho)
+    diag = rho.reshape(2, -1)[0, ::(1 << nd) + 1]
+    idx = torch.arange(1 << nd, device=diag.device)
+    exact = torch.stack([(diag * (1 - 2 * ((idx >> q) & 1))).sum()
+                         for q in range(nd)])
+    if T._resolve_engine(None, nd) != "banded":
+        raise AssertionError("trajectories_banded: default engine not banded")
+    t0 = time.perf_counter()
+    vals, draws = T.run_batched(circ, PHYSICS_SHOTS,
+                                generator=torch.Generator().manual_seed(2),
+                                observable=z_all, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = vals.double()
+    mean, sigma = vals.mean(0), vals.std(0) / PHYSICS_SHOTS ** 0.5
+    dev_sig = ((mean - exact).abs() / sigma.clamp_min(1e-12)).max().item()
+    physics = {"phase": "trajectories_banded", "part": "physics", "n": nd,
+               "shots": PHYSICS_SHOTS, "wall_s": wall,
+               "shots_per_s": PHYSICS_SHOTS / wall, "max_sigmas": dev_sig,
+               "z_exact": exact.cpu().tolist(), "z_mean": mean.cpu().tolist()}
+    emit_card(physics)
+    if not dev_sig <= PHYSICS_SIGMAS:
+        raise AssertionError(f"trajectories_banded: <Z_q> off the f64 "
+                             f"density path by {dev_sig} sigma")
+
+    n, shots = TRAJ_BANDED_QUBITS, TRAJ_BANDED_SHOTS
+    circ = noisy_rcs_circuit(n, 3)
+    runs, seen = {}, {}
+    for engine in ("banded", "fused"):
+        seen[engine] = {}
+        with born_record(T, seen[engine]):
+            t0 = time.perf_counter()
+            planes, draws = T.run_batched(
+                circ, shots, generator=torch.Generator().manual_seed(5),
+                engine=engine, device="cuda")
+            torch.cuda.synchronize()
+        runs[engine] = (planes, draws, time.perf_counter() - t0)
+    prog = T._compiled_traj(circ, n, "cuda", "banded")
+    u = torch.rand((shots, prog.num_channels), dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(5))
+    near = (near_boundary(prog, u, seen["banded"])
+            | near_boundary(prog, u, seen["fused"]))
+    (pb, db, wb), (pf, df, wf) = runs["banded"], runs["fused"]
+    same = (db == df).all(dim=1).cpu().numpy()
+    err = max([plane_err(pb[s], pf[s]) for s in np.flatnonzero(same)] or [0])
+    scale = pf.abs().max().item()
+    rec = {"phase": "trajectories_banded", "part": "banded_vs_fused",
+           "n": n, "shots": shots, "channels": prog.num_channels,
+           "equal_draw_shots": int(same.sum()),
+           "near_boundary_shots": int(near.sum()),
+           "max_abs_err": err, "rel_err": err / scale,
+           "banded_wall_s": wb, "fused_wall_s": wf,
+           "banded_shots_per_s": shots / wb, "fused_shots_per_s": shots / wf}
+    emit_card(rec)
+    if not ((same | near).all() and same.sum() > 0
+            and err <= PATH_TOL * scale):
+        raise AssertionError(f"trajectories_banded: {rec}")
+    del runs, pb, pf
+    torch.cuda.empty_cache()
+    return physics, rec
+
+
 DRIVER_CONFIGS = {"K1": ("decoupled", 3), "K2/2": ("inplace", 2),
                   "K2/3": ("inplace", 3), "K3": ("grid", 3)}
 DRIVER_KNOBS = ("QUEST_FUSED_DRIVER", "QUEST_FUSED_PIPELINE",
@@ -2459,9 +3076,13 @@ def main(argv=None) -> int:
         path_launches["batchsel"] = tr["stage_launches"]["batchsel"]
     if want("precision_stages"):
         phase_precision_stages(torch)
+    tier_plain = None
     if want("precision_flagship"):
-        for rec in phase_precision_flagship(torch, fl).values():
+        tier_plain = {}
+        for tier, rec in phase_precision_flagship(torch, fl).items():
             path_launches.update(rec["stage_launches"])
+            tier_plain[tier] = (rec["plain_rel_vs_highest"],
+                                abs(1.0 - rec["plain_norm"]))
     if want("precision_baseline"):
         phase_precision_baseline(torch)
     if want("precision_density"):
@@ -2486,6 +3107,23 @@ def main(argv=None) -> int:
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     if want("phase_counters"):
         phase_phase_counters(torch)
+    if want("pergate"):
+        pergate_out = phase_pergate(torch)[1]
+    if want("banded"):
+        phase_banded(torch, pergate_out, tier_plain)
+    if want("pergate"):
+        del pergate_out
+        torch.cuda.empty_cache()
+    if want("f64"):
+        phase_f64(torch)
+    if want("wide_gates"):
+        phase_wide_gates(torch)
+    if want("small_registers"):
+        phase_small_registers(torch)
+    if want("batched_banded"):
+        phase_batched_banded(torch)
+    if want("trajectories_banded"):
+        phase_trajectories_banded(torch)
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,27 +1,37 @@
-"""Circuit builder and the fused engine.
+"""Circuit builder and the three engines: per-gate, banded and fused.
 
-A port of the part of quest_tpu/circuit.py that the RCS statevector and
-density-matrix decoherence paths run: the GateOp record, the Circuit
-builder for the gates of random_circuit, qft_circuit and the noisy
-density circuits (Kraus channels as superoperators), dual_of and
+A port of quest_tpu/circuit.py for the gates of random_circuit,
+qft_circuit and the noisy density circuits (Kraus channels as
+superoperators): the GateOp record, the Circuit builder, dual_of and
 flatten_ops (density duals and superoperator expansion), the scheduled
-flat op list (_planned_flat), compiled_fused and apply_fused, and the
-batched engine (compiled_batched, apply_batched). The plan is the
-reference's chain — fusion.schedule, fusion.plan, segment_plan,
-sweep_plan — under HOPPER_GEOMETRY; every swept segment then runs as one
-launch of the segment kernel (ops/segment.py), for one state or for a
-whole batch of states, and a multi-target matrix the kernel cannot
-reach (the reference's XLA matrix passthrough) runs through
-ops/apply.apply_matrix_rows between segments. A program runs at the
-matmul tier (quest_tpu_torch/precision.py) and under the segment driver
-(QUEST_FUSED_DRIVER / QUEST_FUSED_PIPELINE / QUEST_FUSED_NBUF,
-band_plan.active_driver) it was compiled with.
+flat op list (_planned_flat), and the reference's engines:
 
-What the reference runs elsewhere is not ported yet and raises
-NotImplementedError naming its ROADMAP item: f64 registers, the banded
-engine and the XLA band/diagonal passthroughs, registers below the fused
-engine's 10 qubits (all A3), mid-circuit measurement, classical control
-and QUEST_FUSED_SCAN (A4).
+  * per-gate (`compiled`, `trace`, `apply`): every op of the unscheduled
+    flat list through ops/apply's primitives, the semantic oracle the
+    scheduled engines are held against; `apply` routes circuits of more
+    than PERGATE_COMPILE_WARN_OPS ops to the banded engine
+    (QUEST_APPLY_AUTOROUTE);
+  * banded (`compiled_banded`, `banded_trace`, `apply_banded`): the
+    fusion plan's band operators, diagonals and passthroughs, each one
+    apply.apply_band / primitive call;
+  * fused (`compiled_fused`, `apply_fused`, `compiled_batched`,
+    `apply_batched`): the reference's chain — fusion.schedule,
+    fusion.plan, segment_plan, sweep_plan — under HOPPER_GEOMETRY; every
+    swept segment runs as one launch of the segment kernel
+    (ops/segment.py), for one state or a whole batch, and a plan item
+    no kernel stage reaches (a cross-band or wide matrix, a band above
+    the block top, a diagonal) runs through the primitives between
+    segments, as the reference runs it in XLA. Below the kernel's 10
+    qubits it falls back to the banded engine, and f64 planes run the
+    banded items of its plan (the kernel is f32), as the reference does.
+
+Every program runs on the device it was compiled for, in place on the
+planes, at the matmul tier (quest_tpu_torch/precision.py) and, for the
+fused engine, under the segment driver (QUEST_FUSED_DRIVER /
+QUEST_FUSED_PIPELINE / QUEST_FUSED_NBUF, band_plan.active_driver) read
+when it was compiled. Mid-circuit measurement, classical control and
+QUEST_FUSED_SCAN are not ported yet and raise NotImplementedError naming
+ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -44,6 +54,10 @@ from quest_tpu_torch.ops.segment import (Segment, batch_of, prepare_segment,
                                          segment_sweep_reference)
 
 _LOOP_UNROLL_MAX = 32
+# op count above which Circuit.apply takes the banded engine (ref
+# circuit.py:49, where the per-gate XLA chain compiles pathologically
+# slowly; here it is the per-gate engine's pass count that grows)
+PERGATE_COMPILE_WARN_OPS = 64
 PLAIN_CHUNK_STATES = 8        # states per plain-path pass of a batch
 
 
@@ -113,38 +127,86 @@ def flatten_ops(ops, n: int, density: bool) -> List[GateOp]:
     return flat
 
 
-class MatrixPass:
-    """A matrix passthrough between kernel segments: a multi-target
-    matrix (a cross-band channel superoperator, a 3- or 4-qubit gate)
-    that no kernel stage reaches, applied in place by
-    ops/apply.apply_matrix_rows, as the reference applies it outside
-    Pallas (circuit.py:555-564)."""
+def _apply_one(amps: torch.Tensor, n: int, op, tier: str) -> torch.Tensor:
+    """One GateOp of a flat list (flatten_ops: superoperators are matrix
+    ops there) on the planes, in place (ref circuit.py:330)."""
+    if op.kind == "parity":
+        return A.apply_parity_phase(amps, n, op.targets, op.operand)
+    if op.kind == "allones":
+        return A.apply_phase_on_all_ones(amps, n, op.targets, op.operand)
+    if op.kind == "diagonal":
+        return A.apply_diagonal(amps, n, op.operand, op.targets, op.controls,
+                                op.cstates)
+    return A.apply_matrix(amps, n, op.operand, op.targets, op.controls,
+                          op.cstates, tier)
 
-    def __init__(self, op, n: int, tier: str):
-        self.op = op
+
+def _apply_item(amps: torch.Tensor, n: int, it, tier: str) -> torch.Tensor:
+    """One fusion-plan item (BandOp, DiagItem, PassOp) or GateOp of the
+    flat list, in place (ref _apply_banded_items, :353; the flat list
+    holds each op's density dual after it, the reference's _apply_op)."""
+    if isinstance(it, F.BandOp):
+        return A.apply_band(amps, n, (it.gre, it.gim), it.ql, it.w, it.preds,
+                            tier)
+    if isinstance(it, (F.DiagItem, F.PassOp)):
+        return _apply_one(amps, n, it.op, tier)
+    return _apply_one(amps, n, it, tier)
+
+
+def _apply_banded_items(amps: torch.Tensor, n: int, items,
+                        tier: str) -> torch.Tensor:
+    """Apply an already computed fusion plan, in place (ref :353)."""
+    for it in items:
+        _apply_item(amps, n, it, tier)
+    return amps
+
+
+class XlaPass:
+    """A plan item between kernel segments that no stage reaches (a
+    cross-band or wide matrix, a channel superoperator, a band above the
+    block top, a diagonal), applied in place by ops/apply at the tier of
+    the program it belongs to, as the reference applies it outside
+    Pallas (circuit.py:541-569). Takes one state's planes or a batch."""
+
+    def __init__(self, item, n: int, tier: str):
+        self.item = item
         self.n = n
         self.tier = tier
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
-        """Apply to one state's planes, or to a batch of states, at the
-        matmul tier of the program it belongs to."""
-        op = self.op
-        return A.apply_matrix_rows(amps, self.n, op.operand, op.targets,
-                                   op.controls, op.cstates, self.tier)
+        return _apply_item(amps, self.n, self.item, self.tier)
 
 
-def _xla_part_applier(part, n: int, tier: str) -> MatrixPass:
-    """The port's applier for a non-segment plan part: matrix ops of at
-    most A.MAX_TARGETS targets (ref circuit.py:541-568). Band and
-    diagonal passthroughs and wider matrices are ROADMAP A3."""
-    it = part[1]
-    if (isinstance(it, F.PassOp) and it.op.kind == "matrix"
-            and len(it.op.targets) <= A.MAX_TARGETS):
-        return MatrixPass(it.op, n, tier)
-    raise NotImplementedError(
-        f"this circuit needs an XLA band passthrough "
-        f"({type(it).__name__}) between kernel segments, which is not "
-        f"ported yet (ROADMAP A3)")
+def _check_device(amps: torch.Tensor, device: torch.device) -> None:
+    """Programs run on the device they were compiled for, never another."""
+    if amps.device.type != device.type or (
+            device.index is not None and amps.device.index != device.index):
+        raise ValueError(f"planes on {amps.device}; the program was "
+                         f"compiled for {device}")
+
+
+class XlaProgram:
+    """A compiled per-gate (`kind` 'pergate': the flat op list) or banded
+    ('banded': a fusion plan) program: call it on the planes of one
+    state ((2, 2^n) or the fused view, f32 or f64) or on a batch (B, 2,
+    ...) of them, on `device`; it applies `items` in order, `iters`
+    times, in place through ops/apply at matmul `tier`, and returns the
+    planes. Plain tensor code: there is no kernel to hold it against."""
+
+    def __init__(self, kind: str, n: int, items: List, iters: int,
+                 tier: str, device: torch.device):
+        self.kind = kind
+        self.n = n
+        self.items = items
+        self.iters = iters
+        self.tier = tier
+        self.device = device
+
+    def __call__(self, amps: torch.Tensor) -> torch.Tensor:
+        _check_device(amps, self.device)
+        for _ in range(self.iters):
+            _apply_banded_items(amps, self.n, self.items, self.tier)
+        return amps
 
 
 def _sweep_unrolled(raw, n: int, iters: int, driver: str):
@@ -170,10 +232,14 @@ class FusedProgram:
     driver and in-place slots (band_plan.active_driver(),
     QUEST_FUSED_NBUF then); every call runs under them. `fused_record`
     is band_plan.fused_record of one application's plan (the reference's
-    Circuit.plan_stats()['fused'])."""
+    Circuit.plan_stats()['fused']). f64 planes (the kernel is f32) run
+    `items`, the fusion plan the segments were cut from, through the
+    banded primitives `iters` times instead, in place, as the
+    reference's program routes them at call time (circuit.py:1321)."""
 
     def __init__(self, n: int, steps: List, loop_iters: int, tier: str,
-                 driver: str, nbuf: int, fused_record: dict):
+                 driver: str, nbuf: int, fused_record: dict, items: List,
+                 iters: int, device: torch.device):
         self.n = n
         self.steps = steps
         self.segments = [s for s in steps if isinstance(s, Segment)]
@@ -182,12 +248,11 @@ class FusedProgram:
         self.driver = driver
         self.nbuf = nbuf
         self.fused_record = fused_record
+        self.banded = XlaProgram("banded", n, items, iters, tier, device)
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
         if amps.dtype == torch.float64:
-            raise NotImplementedError(
-                "f64 registers are not ported yet (ROADMAP A3: the reference "
-                "runs them on its banded engine)")
+            return self.banded(amps)
         for _ in range(self.loop_iters):
             for step in self.steps:
                 if isinstance(step, Segment):
@@ -197,6 +262,8 @@ class FusedProgram:
         return amps
 
     def plain(self, amps: torch.Tensor) -> torch.Tensor:
+        if amps.dtype == torch.float64:
+            return self.banded(amps.clone())
         b = batch_of(amps, self.n)
         if b > PLAIN_CHUNK_STATES:
             return torch.cat([self.plain(amps[i:i + PLAIN_CHUNK_STATES])
@@ -329,15 +396,23 @@ class Circuit:
 
     def _planned_flat(self, n: int, density: bool) -> List[GateOp]:
         """Flattened, then reordered/composed by the commutation-aware
-        scheduler (fusion.maybe_schedule, QUEST_SCHEDULE knob)."""
+        scheduler (fusion.maybe_schedule, QUEST_SCHEDULE knob). The
+        per-gate engine stays unscheduled: it is the oracle the
+        scheduled engines are held against."""
         return F.maybe_schedule(flatten_ops(self.ops, n, density), n)
 
+    def fused_plan(self, n: int, density: bool = False):
+        """(items, raw): the scheduled flat list planned on the kernel's
+        bands (plan_bands), and the raw segment plan of one application
+        built from those items (before sweep fusion), under
+        HOPPER_GEOMETRY. The fused engine runs the raw plan, and its f64
+        route the items."""
+        items = self.banded_items(n, density, bands=BP.plan_bands(n))
+        return items, BP.segment_plan(items, n)
+
     def segment_parts(self, n: int, density: bool = False):
-        """The raw segment plan of one application (before sweep fusion),
-        under HOPPER_GEOMETRY."""
-        flat = self._planned_flat(n, density)
-        items = F.plan(flat, n, bands=BP.plan_bands(n))
-        return BP.segment_plan(items, n)
+        """The raw segment plan of one application (fused_plan's)."""
+        return self.fused_plan(n, density)[1]
 
     def fused_parts(self, n: int, iters: int = 1, density: bool = False,
                     driver: str = None):
@@ -348,40 +423,118 @@ class Circuit:
         return _sweep_unrolled(self.segment_parts(n, density), n, iters,
                                driver)
 
+    # -- the per-gate and banded engines -------------------------------------
+
+    def trace(self, amps: torch.Tensor, n: int, density: bool,
+              tier: str = None) -> torch.Tensor:
+        """Apply every op, unscheduled, to raw planes in place (ref
+        circuit.py:1089), at `tier` (None: the session's)."""
+        tier = precision.check_tier(tier or precision.matmul_precision())
+        precision.ieee_fp32()
+        return _apply_banded_items(amps, n, flatten_ops(self.ops, n, density),
+                                   tier)
+
+    def compiled(self, n: int, density: bool = False, iters: int = 1,
+                 device=None) -> XlaProgram:
+        """The per-gate engine on `n` state qubits (ref circuit.py:1101):
+        every op of the unscheduled flat list (density duals included)
+        through ops/apply, `iters` times, on `device` (default: the CUDA
+        card) at the session's matmul tier, both read here and kept."""
+        dev = resolve_device(device)
+        tier = precision.matmul_precision()
+        precision.ieee_fp32()
+        return XlaProgram("pergate", n, flatten_ops(self.ops, n, density),
+                          iters, tier, dev)
+
+    def apply(self, q):
+        """Apply the circuit to register `q` in place on its device;
+        returns the register (ref circuit.py:1122). A circuit of more than
+        PERGATE_COMPILE_WARN_OPS ops without channels runs through the
+        banded engine (QUEST_APPLY_AUTOROUTE, default 1), else through
+        the per-gate engine."""
+        if self.num_qubits != q.num_qubits:
+            raise ValueError("circuit/register size mismatch")
+        if (len(self.ops) > PERGATE_COMPILE_WARN_OPS
+                and not any(op.kind == "superop" for op in self.ops)
+                and knob_value("QUEST_APPLY_AUTOROUTE")):
+            return self.apply_banded(q)
+        fn = self.compiled(q.num_state_qubits, q.is_density,
+                           device=q.amps.device)
+        return q.replace_amps(fn(q.amps))
+
+    def banded_items(self, n: int, density: bool = False, bands=None):
+        """The fusion plan the banded engine applies: the scheduled flat
+        list planned on 7-qubit bands (`bands`: another layout, as
+        fusion.plan takes it)."""
+        return F.plan(self._planned_flat(n, density), n, bands=bands)
+
+    def compiled_banded(self, n: int, density: bool = False, iters: int = 1,
+                        device=None) -> XlaProgram:
+        """The banded engine on `n` state qubits (ref circuit.py:1157):
+        runs of commuting gates composed into one operator per 7-qubit
+        band, each applied as one contraction (apply.apply_band);
+        diagonals, parity phases and cross-band matrices through their
+        primitives. On `device` (default: the CUDA card) at the session's
+        matmul tier, read here and kept."""
+        dev = resolve_device(device)
+        tier = precision.matmul_precision()
+        precision.ieee_fp32()
+        return XlaProgram("banded", n, self.banded_items(n, density), iters,
+                          tier, dev)
+
+    def banded_trace(self, amps: torch.Tensor, n: int, density: bool,
+                     tier: str = None) -> torch.Tensor:
+        """Apply the banded plan to raw planes in place (ref :1238)."""
+        tier = precision.check_tier(tier or precision.matmul_precision())
+        precision.ieee_fp32()
+        return _apply_banded_items(amps, n, self.banded_items(n, density),
+                                   tier)
+
+    def apply_banded(self, q):
+        """Apply through the banded engine on the register's device, in
+        place; returns the register (ref :1246)."""
+        if self.num_qubits != q.num_qubits:
+            raise ValueError("circuit/register size mismatch")
+        fn = self.compiled_banded(q.num_state_qubits, q.is_density,
+                                  device=q.amps.device)
+        return q.replace_amps(fn(q.amps))
+
+    # -- the fused engine ----------------------------------------------------
+
     def compiled_fused(self, n: int, density: bool = False, iters: int = 1,
-                       device=None) -> FusedProgram:
+                       device=None):
         """The fused engine on `n` state qubits (2N for a density
         register over N): each swept segment of band operators, Kraus
         pairs, diagonals and parity phases runs as ONE launch of the
-        segment kernel, in place on the state; a matrix passthrough runs
-        through apply_matrix_rows between segments. Operands and
-        descriptor tables go to `device` (default: the CUDA card) here,
-        once; calls reuse them. The matmul tier (QUEST_MATMUL_PRECISION
-        or precision.set_matmul_precision) and the segment driver
+        segment kernel, in place on the state; a passthrough runs
+        through ops/apply between segments. Operands and descriptor
+        tables go to `device` (default: the CUDA card) here, once; calls
+        reuse them. The matmul tier (QUEST_MATMUL_PRECISION or
+        precision.set_matmul_precision) and the segment driver
         (QUEST_FUSED_DRIVER, QUEST_FUSED_PIPELINE, QUEST_FUSED_NBUF) are
         read here, once, as the reference reads them at trace time: the
-        program keeps them."""
+        program keeps them. Below the kernel's 10 qubits this is
+        compiled_banded (ref circuit.py:1274); f64 planes run the plan's
+        banded items (FusedProgram)."""
         if knob_value("QUEST_FUSED_SCAN"):
             raise NotImplementedError(
                 "QUEST_FUSED_SCAN is not ported yet (ROADMAP A4)")
         if not BP.usable(n):
-            raise NotImplementedError(
-                f"n={n} is below the fused engine's {BP.LANE_QUBITS + 3} "
-                f"qubits; the reference falls back to compiled_banded, "
-                f"which is not ported yet (ROADMAP A3)")
+            return self.compiled_banded(n, density, iters, device)
         dev = resolve_device(device)
         tier = precision.matmul_precision()
         driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
         precision.ieee_fp32()
-        raw = self.segment_parts(n, density)
+        items, raw = self.fused_plan(n, density)
         parts, loop_iters = _sweep_unrolled(raw, n, iters, driver)
         steps = [prepare_segment(p[1], p[2], n, dev, tier=tier,
                                  driver=driver, nbuf=nbuf)
-                 if p[0] == "segment" else _xla_part_applier(p, n, tier)
+                 if p[0] == "segment" else XlaPass(p[1], n, tier)
                  for p in parts]
         record = BP.fused_record(raw, BP.maybe_sweep(raw, n, driver=driver),
                                  n, driver=driver, nbuf=nbuf)
-        return FusedProgram(n, steps, loop_iters, tier, driver, nbuf, record)
+        return FusedProgram(n, steps, loop_iters, tier, driver, nbuf, record,
+                            items, iters, dev)
 
     def apply_fused(self, q, iters: int = 1):
         """Apply the circuit to register `q` (statevector or density)
@@ -394,26 +547,30 @@ class Circuit:
         return q.replace_amps(fn(q.amps))
 
     def compiled_batched(self, batch: int, density: bool = False,
-                         device=None, engine: str = None) -> FusedProgram:
-        """The batched fused engine (ref circuit.py:1352): the circuit's
-        FusedProgram, which takes a batch (B, 2, ...) of states and runs
-        every swept segment as ONE kernel launch over all of them, so the
-        launch count does not depend on the batch. The kernel takes B at
-        launch and nothing planned depends on it, so the program runs any
-        batch at its exact size; `batch` (>= 1) is the reference's
-        signature. engine: None or 'fused'; the reference's vmapped
-        banded program ('banded', and its f64 and sub-10-qubit uses) is
-        ROADMAP A3."""
+                         device=None, engine: str = None):
+        """The batched engine (ref circuit.py:1352): one program that
+        takes a batch (B, 2, ...) of states. engine None or 'fused': the
+        circuit's FusedProgram, every swept segment ONE kernel launch over
+        all states, so the launch count does not depend on the batch; the
+        kernel takes B at launch and nothing planned depends on it, so
+        the program runs any batch at its exact size (`batch`, >= 1, is
+        the reference's signature). f64 batches run its banded items.
+        engine 'banded', and engine None below the kernel's 10 qubits:
+        the banded program over the whole batch. engine 'fused' below the
+        kernel tier raises ValueError, as in the reference."""
         if engine not in (None, "fused", "banded"):
             raise ValueError(
                 f"engine must be None, 'fused' or 'banded', got {engine!r}")
-        if engine == "banded":
-            raise NotImplementedError(
-                "the vmapped banded batched program is not ported yet "
-                "(ROADMAP A3)")
         if int(batch) < 1:
             raise ValueError(f"batch size must be >= 1, got {batch}")
         n = self.num_qubits * 2 if density else self.num_qubits
+        if engine == "fused" and not BP.usable(n):
+            raise ValueError(
+                f"engine='fused' requires the kernel tier; a {n}-qubit "
+                f"register rides the banded program (engine='banded' or "
+                f"None)")
+        if engine == "banded":
+            return self.compiled_banded(n, density, device=device)
         return self.compiled_fused(n, density, device=device)
 
     def apply_batched(self, amps_b: torch.Tensor,

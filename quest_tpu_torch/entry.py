@@ -24,6 +24,16 @@ shots in chunks of 64 through trajectories.run_batched — and returns
 (per-shot <Z_23> (256,), draws (256, 75)); the observable reduces each
 chunk on the device, as the bench does, so no chunk's planes outlive it.
 
+banded_entry(device=None) and pergate_entry(device=None) -> (fn,
+(amps,)): the flagship step through the banded engine (compiled_banded)
+and the per-gate engine (compiled) on flat (2, 2^28) planes, as the
+reference's __graft_entry__.entry runs the flagship through banded_trace
+off the TPU.
+
+entry, density_entry, banded_entry and pergate_entry take a `dtype`:
+complex64 (f32 planes, the default) or complex128 (f64 planes; the fused
+program then runs its plan's banded items, as the reference's does).
+
 Each entry compiles its program at the session's matmul tier
 (QUEST_MATMUL_PRECISION or precision.set_matmul_precision: highest, high
 or default), as the reference's entry points do.
@@ -40,6 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quest_tpu_torch import precision
 from quest_tpu_torch import trajectories as T
 from quest_tpu_torch.circuit import Circuit, random_circuit
 from quest_tpu_torch.env import resolve_device
@@ -128,30 +139,98 @@ def clifford_t_density_circuit(num_qubits: int) -> Circuit:
     return c
 
 
+def _planes(n: int, dtype, dev, shape=None):
+    """|0...0> planes of an n-qubit register of amplitude `dtype`."""
+    rdt = precision.real_dtype_of(dtype)
+    return basis_planes(0, n=n, rdt=rdt, shape=shape, device=dev)
+
+
+def haar_unitary(k: int, rng) -> np.ndarray:
+    """A Haar-random 2^k x 2^k unitary from numpy generator `rng` (QR of
+    a complex Gaussian matrix, the phases of R's diagonal divided out)."""
+    d = 1 << k
+    z = rng.standard_normal((d, d)) + 1j * rng.standard_normal((d, d))
+    q, r = np.linalg.qr(z)
+    return q * (np.diag(r) / np.abs(np.diag(r)))
+
+
+def wide_gates_circuit(num_qubits: int = FLAGSHIP_QUBITS,
+                       depth: int = FLAGSHIP_DEPTH, seed: int = 3) -> Circuit:
+    """BASELINE.json config 3 (multiControlledUnitary and general
+    n-qubit gates) on the flagship: the depth-`depth` flagship circuit,
+    then a 5-target and a 6-target Haar unitary on qubits spread over
+    the bands, and a 2-target Haar unitary with 3 controls, one of them
+    conditioned on state 0 (num_qubits >= 11). No kernel stage reaches these three: on the
+    fused engine they run as passthroughs between segments."""
+    rng = np.random.default_rng(seed)
+    c = flagship_circuit(num_qubits, depth)
+    qubits = rng.permutation(num_qubits)
+    c.gate(haar_unitary(5, rng), qubits[:5])
+    c.gate(haar_unitary(6, rng), qubits[5:11])
+    qubits = rng.permutation(num_qubits)
+    c.gate(haar_unitary(2, rng), qubits[:2], controls=qubits[2:5],
+           cstates=(1, 0, 1))
+    return c
+
+
+def tutorial_circuit() -> Circuit:
+    """The reference QuEST tutorial (examples/tutorial_example.c:50-105)
+    on 3 qubits, gate for gate as tests/test_api.py drives it; the
+    reference binary prints prob |111> = 0.112422 and prob(qubit 2 = 1)
+    = 0.749178."""
+    u = np.array([[0.5 + 0.5j, 0.5 - 0.5j], [0.5 - 0.5j, 0.5 + 0.5j]])
+    a, b = 0.5 + 0.5j, 0.5 - 0.5j
+    toffoli = np.eye(8, dtype=np.complex128)[[0, 1, 2, 3, 4, 5, 7, 6]]
+    c = Circuit(3).h(0).cnot(0, 1).ry(2, 0.1)
+    c.cu(M.PAULI_Z, 2, 0, 1)                    # multiControlledPhaseFlip
+    c.gate(u, (0,)).gate(M.compact_unitary(a, b), (1,))
+    c.gate(M.rotation(3.14 / 2, (1.0, 0.0, 0.0)), (2,))
+    c.cu(M.compact_unitary(a, b), 1, 0).cu(u, 2, 0, 1)
+    return c.gate(toffoli, (0, 1, 2))
+
+
 def entry(device=None, num_qubits: int = FLAGSHIP_QUBITS,
-          depth: int = FLAGSHIP_DEPTH):
+          depth: int = FLAGSHIP_DEPTH, dtype=np.complex64):
     """(fn, (amps,)) of the flagship step on `device` (default: the CUDA
     card; raises without one). amps is |0...0> in the fused view
-    (2, 2^(n-7), 128)."""
+    (2, 2^(n-7), 128), f32 or (dtype complex128) f64."""
     dev = resolve_device(device)
     n = num_qubits
     fn = flagship_circuit(n, depth).compiled_fused(n, device=dev)
-    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=dev)
-    return fn, (amps,)
+    return fn, (_planes(n, dtype, dev, fused_state_shape(n)),)
+
+
+def banded_entry(device=None, num_qubits: int = FLAGSHIP_QUBITS,
+                 depth: int = FLAGSHIP_DEPTH, dtype=np.complex64):
+    """(fn, (amps,)) of the flagship step through the banded engine on
+    `device` (default: the CUDA card); amps is |0...0> as flat planes."""
+    dev = resolve_device(device)
+    n = num_qubits
+    fn = flagship_circuit(n, depth).compiled_banded(n, device=dev)
+    return fn, (_planes(n, dtype, dev),)
+
+
+def pergate_entry(device=None, num_qubits: int = FLAGSHIP_QUBITS,
+                  depth: int = FLAGSHIP_DEPTH, dtype=np.complex64):
+    """(fn, (amps,)) of the flagship step through the per-gate engine on
+    `device` (default: the CUDA card); amps is |0...0> as flat planes."""
+    dev = resolve_device(device)
+    n = num_qubits
+    fn = flagship_circuit(n, depth).compiled(n, device=dev)
+    return fn, (_planes(n, dtype, dev),)
 
 
 def density_entry(device=None, num_qubits: int = DENSITY_QUBITS,
-                  depth: int = DENSITY_DEPTH):
+                  depth: int = DENSITY_DEPTH, dtype=np.complex64):
     """(fn, (amps,)) of the density step on `device` (default: the CUDA
     card; raises without one): the noisy-RCS circuit on a density
     register of `num_qubits` qubits; amps is |0..0><0..0| in the fused
-    view of its 2N state qubits."""
+    view of its 2N state qubits, f32 or (dtype complex128) f64."""
     dev = resolve_device(device)
     n = 2 * num_qubits
     fn = noisy_rcs_circuit(num_qubits, depth).compiled_fused(
         n, density=True, device=dev)
-    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=dev)
-    return fn, (amps,)
+    return fn, (_planes(n, dtype, dev, fused_state_shape(n)),)
 
 
 def random_states(batch: int, n: int, seed: int = 7, device=None):

@@ -4,7 +4,7 @@ A copy of the registry pattern in quest_tpu/env.py (`KNOBS` /
 `knob_value`), holding only the knobs the port reads. Each knob parses
 loudly: a malformed value raises ValueError instead of falling back.
 The engines read the knobs when they plan (Circuit.compiled_fused,
-compiled_batched, trajectories.run_batched), so a flip takes effect on
+compiled_banded, compiled_batched, apply, trajectories.run_batched), so a flip takes effect on
 the next such call; a compiled program keeps what it read (its matmul
 tier, its segment driver and slot count).
 """
@@ -71,6 +71,10 @@ _KNOB_LIST = (
              "(one bf16 product), high (three bf16 products of hi/lo "
              "splits) or highest (IEEE fp32); read when a program is "
              "compiled (default: highest)"),
+    Knob("QUEST_APPLY_AUTOROUTE", _bool01("QUEST_APPLY_AUTOROUTE"), True,
+         doc="Circuit.apply runs circuits of more than "
+             "PERGATE_COMPILE_WARN_OPS ops through the banded engine: "
+             "1/0 (default: 1; 0 keeps the per-gate engine)"),
     Knob("QUEST_SCHEDULE", _bool01("QUEST_SCHEDULE"), True,
          doc="commutation-aware gate scheduler in front of the fusing "
              "engine's planner: 1/0 (default: 1)"),

@@ -292,8 +292,8 @@ def segment_plan(items: Sequence, n: int, batch: int = 1, *,
     """Split fusion-plan items into kernel segments and passthroughs.
     Returns a list of ("segment", [stages], [op_arrays]) and
     ("xla", item) entries, in program order. ("xla" names the parts the
-    reference runs on its XLA band path between segments; the port does
-    not execute them yet, ROADMAP A3.) `batch` sizes the (batch, 8)
+    reference runs on its XLA band path between segments; the port runs
+    them through ops/apply, circuit.XlaPass.) `batch` sizes the (batch, 8)
     placeholder operands of ChannelItem stages."""
     del n
     scatter_max = budgets.scatter_max

@@ -29,9 +29,15 @@ contracts them through `_mxu_dot_general` too, but here they are 4x4 and
 inside those tiers' error envelopes; no rounding is added to them.
 
 A program reads the tier once, when it is compiled (Circuit.
-compiled_fused, compiled_batched, the trajectory program), as the
-reference reads it at trace time, and keeps it: a later change of the
-knob or of set_matmul_precision affects programs compiled after it.
+compiled_fused, compiled, compiled_banded, compiled_batched, the
+trajectory program), as the reference reads it at trace time, and keeps
+it: a later change of the knob or of set_matmul_precision affects
+programs compiled after it.
+
+f64 planes bypass the tiers: the reference's tier acts on f32 dots only
+(on its CPU an f64 dot is exact f64 at every tier), so tier_matmul hands
+float64 operands straight to torch.matmul, and split_hi_lo refuses them
+rather than round them to f32.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from quest_tpu_torch.env import KNOBS, knob_value
 DEFAULT_DTYPE = np.dtype(np.complex64)
 TIERS = ("highest", "high", "default")
 _HI_MASK = -65536                  # 0xFFFF0000 as an int32
+
+_REAL_EPS = {np.dtype(np.float32): 1e-5, np.dtype(np.float64): 1e-13}
 
 _tier_override: Optional[str] = None
 
@@ -73,6 +81,22 @@ def complex_dtype_of(dtype) -> np.dtype:
     if d == np.dtype(np.float64):
         return np.dtype(np.complex128)
     return d
+
+
+def accum_dtype(plane_dtype=None) -> np.dtype:
+    """Accumulator dtype of full-register reductions (norms, traces,
+    Born probabilities): f64 whatever the planes (ref quest_tpu/
+    precision.py:187, which falls to the plane dtype only when JAX's x64
+    mode is off; torch always has f64)."""
+    del plane_dtype
+    return np.dtype(np.float64)
+
+
+def real_eps(dtype) -> float:
+    """Numerical tolerance of an amplitude or plane dtype (ref
+    quest_tpu/precision.py:200): 1e-5 for complex64/f32, 1e-13 for
+    complex128/f64."""
+    return _REAL_EPS[real_dtype_of(dtype)]
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -128,7 +152,10 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def split_hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) of f32 `x`: hi = x with the low 16 bits of its encoding
-    cleared (exactly a bf16), lo = x - hi rounded to bf16; both f32."""
+    cleared (exactly a bf16), lo = x - hi rounded to bf16; both f32.
+    Raises on float64 input, which bypasses the tiers."""
+    if x.dtype == torch.float64:
+        raise TypeError("f64 planes bypass the matmul tiers: no bf16 split")
     x = x.to(torch.float32).contiguous()
     hi = (x.view(torch.int32) & _HI_MASK).view(torch.float32)
     return hi, round_bf16(x - hi)
@@ -138,9 +165,10 @@ def tier_products(a: torch.Tensor, b: torch.Tensor,
                   tier: str) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """The operand pairs whose fp32 products the tier sums for a @ b:
     [(a, b)] at 'highest', [(bf16(a), bf16(b))] at 'default', and
-    [(a_hi, b_hi), (a_hi, b_lo), (a_lo, b_hi)] at 'high'."""
+    [(a_hi, b_hi), (a_hi, b_lo), (a_lo, b_hi)] at 'high'. float64
+    operands bypass the tier: [(a, b)] at every tier."""
     check_tier(tier)
-    if tier == "highest":
+    if tier == "highest" or torch.float64 in (a.dtype, b.dtype):
         return [(a, b)]
     if tier == "default":
         return [(round_bf16(a), round_bf16(b))]
@@ -151,7 +179,8 @@ def tier_products(a: torch.Tensor, b: torch.Tensor,
 
 def tier_matmul(a: torch.Tensor, b: torch.Tensor, tier: str) -> torch.Tensor:
     """torch.matmul(a, b) at `tier`: IEEE fp32 matmuls of the tier's
-    rounded parts, summed."""
+    rounded parts, summed; for float64 operands, the float64 product at
+    every tier."""
     ieee_fp32()
     out = None
     for x, y in tier_products(a, b, tier):

@@ -12,8 +12,13 @@ row-space copy of qubit q is state qubit q and its column-space copy
 q + N (ref QuEST.c:48-60).
 
 Unlike the reference's immutable pytree, a port register may be updated
-in place by the fused engine (its kernel writes each tile back where it
-read it), which keeps a 30-qubit state at one 8 GiB buffer.
+in place by the engines (the fused engine's kernel writes each tile back
+where it read it; the per-gate and banded engines write chunk by chunk),
+which keeps a 30-qubit f32 state at one 8 GiB buffer.
+
+Planes are f32 (complex64 amplitudes) or f64 (complex128): the same
+layout, with native double arithmetic on f64. Registers of any size from
+one qubit use the flat (2, 2^n) planes; the fused view needs n >= 10.
 """
 
 from __future__ import annotations
@@ -88,25 +93,21 @@ def _make(num_qubits: int, is_density: bool, dtype, device) -> Qureg:
     validation.validate_num_qubits(num_qubits)
     dtype = np.dtype(dtype) if dtype is not None else precision.DEFAULT_DTYPE
     rdt = precision.real_dtype_of(dtype)
-    if rdt != np.dtype(np.float32):
-        raise NotImplementedError(
-            "f64 registers are not ported yet (ROADMAP A3: the reference "
-            "runs them on its XLA band path)")
     n = 2 * num_qubits if is_density else num_qubits
     amps = basis_planes(0, n=n, rdt=rdt, device=device)
     return Qureg(amps=amps, num_qubits=num_qubits, is_density=is_density)
 
 
 def create_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
-    """Statevector register initialized to |0...0> (ref: QuEST.c:34-46).
-    Only f32 planes (complex64) are ported; complex128 raises."""
+    """Statevector register initialized to |0...0> (ref: QuEST.c:34-46):
+    f32 planes for complex64 (the default), f64 for complex128."""
     return _make(num_qubits, False, dtype, device)
 
 
 def create_density_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
     """Density-matrix register initialized to |0..0><0..0| (ref:
-    QuEST.c:48-60): 2N state qubits. Only f32 planes are ported;
-    complex128 raises."""
+    QuEST.c:48-60): 2N state qubits, f32 planes for complex64 (the
+    default), f64 for complex128."""
     return _make(num_qubits, True, dtype, device)
 
 

@@ -29,6 +29,14 @@ program writes on the device between launches.
     state's drawn operator: plain tensor code (the reference applies
     them in XLA).
 
+engine='banded' (and the default below the kernel's 10 qubits, as the
+reference's _resolve_engine has it) is the reference's banded program
+(trajectories.py:682-760): the stretches of fusion-plan items between
+channels run through the banded primitives (circuit._apply_item) over
+the whole batch, and every channel, one-qubit ones too, is drawn from
+the pre-channel states and applied as one batched contraction of each
+state's drawn operator.
+
 Randomness is explicit: `run_batched` takes a torch.Generator and draws
 one (shots, C) array of uniforms from it, shot-major, before chunking,
 so chunking never changes a shot's trajectory. Branch k is
@@ -49,7 +57,7 @@ import torch
 
 from quest_tpu_torch import precision
 from quest_tpu_torch import validation as val
-from quest_tpu_torch.circuit import (_xla_part_applier, flatten_ops)
+from quest_tpu_torch.circuit import XlaPass, flatten_ops
 from quest_tpu_torch.env import knob_value, resolve_device
 from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import band_plan as BP
@@ -87,13 +95,14 @@ def _mixture_probs(kraus_ops):
     return np.asarray(probs, dtype=np.float64)
 
 
-def _traj_channels_and_items(circuit, n: int):
+def _traj_channels_and_items(circuit, n: int, use_kernels: bool = True):
     """Split a noisy Circuit into the batched engine's plan stream:
     fusion-plan items for the unitary stretches, interleaved with
-    ChannelItem (1-qubit channels, inlined as BatchSelStages) and
-    _XlaChannel markers. Returns (items, channels); channels[i] holds
-    channel i's targets, Kraus operators and mixture probabilities."""
-    bands = BP.plan_bands(n)
+    ChannelItem (1-qubit channels, inlined as BatchSelStages, when
+    `use_kernels`) and _XlaChannel markers (every channel of the banded
+    program). Returns (items, channels); channels[i] holds channel i's
+    targets, Kraus operators and mixture probabilities."""
+    bands = BP.plan_bands(n) if use_kernels else None
     items: list = []
     channels: list = []
     stretch: list = []
@@ -118,7 +127,7 @@ def _traj_channels_and_items(circuit, n: int):
             val._validate_kraus_once(kraus_ops, len(op.targets))
             probs = _mixture_probs(kraus_ops)
             idx = len(channels)
-            inline = len(op.targets) == 1
+            inline = use_kernels and len(op.targets) == 1
             channels.append({
                 "index": idx,
                 "targets": tuple(op.targets),
@@ -247,25 +256,33 @@ class _Channel:
 class TrajectoryProgram:
     """A compiled batched-trajectory program: B trajectories of a noisy
     circuit from |0...0>, one kernel launch per swept segment over all B
-    of them, for any B (nothing planned depends on it). Call it with
+    of them, for any B (nothing planned depends on it); or, with
+    `engine` 'banded', the banded program over all B. Call it with
     uniforms (B, C) (one per shot per channel, in [0, 1)); returns
     (planes (B, 2, 2^n) f32, draws (B, C) int32), both on the program's
     device. `plain(uniforms)` runs the same program through the plain
-    PyTorch version. `tier` is the matmul tier of its matrix stages and
+    PyTorch version (the banded program is plain tensor code). `tier` is the matmul tier of its matrix stages and
     multi-qubit channels, the session's when the program is compiled;
     Born reductions are f64 sums at every tier. `driver` and `nbuf` are
     the segment driver and in-place slots (the knobs' when the program is
     compiled, unless given); every launch runs under them."""
 
     def __init__(self, circuit, n: int, device, tier: str = None,
-                 driver: str = None, nbuf: int = None):
+                 driver: str = None, nbuf: int = None,
+                 engine: str = "fused"):
         dev = resolve_device(device)
         tier = precision.check_tier(tier or precision.matmul_precision())
         driver = BP.check_driver(driver)
         nbuf = knob_value("QUEST_FUSED_NBUF") if nbuf is None else nbuf
         precision.ieee_fp32()
-        items, channels = _traj_channels_and_items(circuit, n)
-        parts = BP.maybe_sweep(BP.segment_plan(items, n), n, driver=driver)
+        self.engine = engine
+        use_kernels = engine == "fused" and BP.usable(n)
+        items, channels = _traj_channels_and_items(circuit, n, use_kernels)
+        if use_kernels:
+            parts = BP.maybe_sweep(BP.segment_plan(items, n), n,
+                                   driver=driver)
+        else:
+            parts = [("xla", it) for it in items]
         self.n, self.device, self.tier = n, dev, tier
         self.driver, self.nbuf = driver, nbuf
         self.channels = [_Channel(ch, dev) for ch in channels]
@@ -285,7 +302,7 @@ class TrajectoryProgram:
             elif isinstance(part[1], _XlaChannel):
                 self.steps.append(part[1])
             else:
-                self.steps.append(_xla_part_applier(part, n, tier))
+                self.steps.append(XlaPass(part[1], n, tier))
         self.segments = [s for s in self.steps if isinstance(s, Segment)]
         # 1-qubit mixture channels: selected for the whole chunk at once
         mix = [c for c, info in zip(self.channels, channels)
@@ -342,9 +359,10 @@ class TrajectoryProgram:
             raise ValueError(f"uniforms of shape {tuple(u.shape)}, program "
                              f"takes (B, {c})")
         b = u.shape[0]
-        planes = torch.zeros((b, 2, 1 << (n - BP.LANE_QUBITS), BP.LANES),
-                             dtype=torch.float32, device=dev)
-        planes[:, 0, 0, 0] = 1.0
+        planes = torch.zeros((b, 2, 1 << n), dtype=torch.float32, device=dev)
+        planes[:, 0, 0] = 1.0
+        if self.segments:
+            planes = planes.view(b, 2, -1, BP.LANES)
         draws = torch.zeros((b, c), dtype=torch.int32, device=dev)
         sel = torch.zeros((max(c, 1), b, SEL_WORDS), dtype=torch.float32,
                           device=dev)
@@ -378,36 +396,38 @@ def _engine_key() -> Tuple:
     return (knob_value("QUEST_SCHEDULE"), knob_value("QUEST_SWEEP_FUSION"))
 
 
-def _compiled_traj(circuit, n: int, device) -> TrajectoryProgram:
-    """The trajectory program of `circuit` on `device`, cached on the
-    circuit per (device, op count, planner knobs, matmul tier, segment
-    driver and slots): a program keeps the tier and driver it was
-    compiled with, and a new tier or driver compiles anew."""
+def _compiled_traj(circuit, n: int, device,
+                   engine: str = "fused") -> TrajectoryProgram:
+    """The trajectory program of `circuit` on `device` through `engine`
+    ('fused' or 'banded'), cached on the circuit per (device, engine, op
+    count, planner knobs, matmul tier, segment driver and slots): a
+    program keeps the tier and driver it was compiled with, and a new
+    tier or driver compiles anew."""
     dev = resolve_device(device)
     tier = precision.matmul_precision()
     driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
-    key = ("traj-batched", n, str(dev), len(circuit.ops), _engine_key(), tier,
-           driver, nbuf)
+    key = ("traj-batched", n, str(dev), engine, len(circuit.ops),
+           _engine_key(), tier, driver, nbuf)
     prog = circuit._compiled.get(key)
     if prog is None:
-        prog = TrajectoryProgram(circuit, n, dev, tier, driver, nbuf)
+        prog = TrajectoryProgram(circuit, n, dev, tier, driver, nbuf, engine)
         circuit._compiled[key] = prog
     return prog
 
 
-def _check_engine(engine) -> None:
-    if engine in (None, "fused"):
-        return
+def _resolve_engine(engine, n: int) -> str:
+    """The engine a run takes (ref trajectories.py:374): the one named,
+    else 'fused' from the kernel's 10 qubits and 'banded' below."""
     if engine == "host":
         raise NotImplementedError(
             "the native host trajectory engine is not ported yet "
             "(ROADMAP A13)")
-    if engine == "banded":
-        raise NotImplementedError(
-            "the vmapped banded trajectory engine is not ported yet "
-            "(ROADMAP A3)")
-    raise ValueError(f"engine must be 'fused', 'banded' or 'host', "
-                     f"got {engine!r}")
+    if engine is None:
+        return "fused" if BP.usable(n) else "banded"
+    if engine not in ("fused", "banded"):
+        raise ValueError(f"engine must be 'fused', 'banded' or 'host', "
+                         f"got {engine!r}")
+    return engine
 
 
 def run_batched(circuit, shots: int, *, generator: torch.Generator,
@@ -427,19 +447,16 @@ def run_batched(circuit, shots: int, *, generator: torch.Generator,
     chunks reuse one program, the last one at its own size. `observable`
     maps a (b, 2, 2^n) chunk of final planes to per-shot values (leading
     axis kept); the return is then (values (shots, ...), draws) and no
-    chunk's planes outlive its reduction. engine: None or 'fused' (the
-    only engine ported; 'banded' is ROADMAP A3, 'host' A13)."""
-    _check_engine(engine)
+    chunk's planes outlive its reduction. engine: None (the fused engine
+    from 10 qubits, the banded program below), 'fused' or 'banded';
+    'host' is not ported yet (ROADMAP A13)."""
     n = circuit.num_qubits
+    engine = _resolve_engine(engine, n)
     shots = int(shots)
     if shots < 1:
         raise ValueError(f"shots must be >= 1, got {shots}")
-    if not BP.usable(n):
-        raise NotImplementedError(
-            f"n={n} is below the fused engine's {BP.LANE_QUBITS + 3} "
-            f"qubits; the reference runs it on its banded engine (ROADMAP A3)")
     per_call = shots if chunk is None else max(1, min(int(chunk), shots))
-    prog = _compiled_traj(circuit, n, device)
+    prog = _compiled_traj(circuit, n, device, engine)
     uniforms = torch.rand((shots, prog.num_channels), generator=generator,
                           dtype=torch.float64,
                           device=generator.device).to(prog.device)

@@ -157,15 +157,29 @@ def test_apply_batched_and_passthroughs():
 
 def test_unported_batched_paths_raise():
     tc = Circuit(10).h(0)
-    with pytest.raises(NotImplementedError, match="A3"):
-        tc.compiled_batched(2, engine="banded", device="cpu")
+    jc = JC.Circuit(10).h(0)
+    amps = _states(2, 10, seed=9)
+
+    def reference(circ, planes):
+        return np.asarray(circ.compiled_batched(
+            2, donate=False, interpret=True, engine="banded")(
+            jnp.asarray(planes)))
+    banded = tc.compiled_batched(2, engine="banded", device="cpu")
+    _assert_close(banded(torch.from_numpy(amps.copy())).numpy(),
+                  reference(jc, amps))
     with pytest.raises(ValueError):
         tc.compiled_batched(2, engine="xla", device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        Circuit(8).h(0).compiled_batched(2, device="cpu")
+    small = _states(2, 8, seed=10)
+    _assert_close(Circuit(8).h(0).compiled_batched(2, device="cpu")(
+        torch.from_numpy(small.copy())).numpy(),
+        reference(JC.Circuit(8).h(0), small))
     fn = tc.compiled_batched(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        fn(torch.zeros((2, 2, 1 << 10), dtype=torch.float64))
+    amps64 = amps.astype(np.float64)
+    got = fn(torch.from_numpy(amps64.copy()))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), reference(jc, amps64),
+                               atol=1e-12 * float(np.abs(amps64).max()),
+                               rtol=0)
 
 
 def test_batched_planes_from_numpy():

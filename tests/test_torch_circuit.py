@@ -191,13 +191,27 @@ def test_unported_paths_raise(monkeypatch):
     measured.ops.append(qtt.GateOp("measure", (3,)))
     with pytest.raises(NotImplementedError, match="A4"):
         measured.compiled_fused(12, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        random_circuit(8, 1).compiled_fused(8, device="cpu")
+    # below the kernel tier: the banded fallback, as the reference's
+    small = np.zeros((2, 1 << 8), np.float32)
+    small[0, 0] = 1.0
+    want = np.asarray(JC.random_circuit(8, 1).compiled_fused(
+        8, False, donate=False, interpret=True)(jnp.asarray(small)))
+    _assert_close(_run_port(random_circuit(8, 1), 8, small), want)
+    # a 5-target gate: a passthrough of the fused program
     u = np.linalg.qr(np.random.default_rng(2).normal(size=(32, 32)))[0]
-    with pytest.raises(NotImplementedError, match="A3"):
-        Circuit(12).gate(u, (0, 3, 8, 9, 11)).compiled_fused(12, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TS.create_qureg(10, dtype=np.complex128, device="cpu")
+    wide = np.random.default_rng(4).standard_normal(
+        (2, 1 << 12)).astype(np.float32)
+    jwide = JC.Circuit(12).gate(u, (0, 3, 8, 9, 11))
+    want = np.asarray(jwide.compiled_fused(12, False, donate=False,
+                                           interpret=True)(
+        jnp.asarray(wide.reshape(2, -1, 128)))).reshape(2, -1)
+    _assert_close(_run_port(Circuit(12).gate(u, (0, 3, 8, 9, 11)), 12,
+                            wide), want)
+    # an f64 register
+    q64 = TS.create_qureg(10, dtype=np.complex128, device="cpu")
+    assert q64.amps.dtype == torch.float64 and q64.dtype == np.complex128
+    np.testing.assert_array_equal(q64.amps.numpy(), np.asarray(
+        JS.create_qureg(10, dtype=np.complex128).amps))
     monkeypatch.setenv("QUEST_FUSED_SCAN", "1")
     with pytest.raises(NotImplementedError, match="A4"):
         c.compiled_fused(12, device="cpu")
@@ -211,8 +225,12 @@ def test_unported_paths_raise(monkeypatch):
     monkeypatch.delenv("QUEST_MATMUL_PRECISION")
     # the batched engine and trajectories run; their other engines raise
     assert c.compiled_batched(3, device="cpu").launches_per_call >= 1
-    with pytest.raises(NotImplementedError, match="A3"):
-        c.compiled_batched(3, engine="banded", device="cpu")
+    batch = np.random.default_rng(5).standard_normal(
+        (3, 2, 1 << 12)).astype(np.float32)
+    want = np.asarray(JC.random_circuit(12, 1).compiled_batched(
+        3, donate=False, interpret=True, engine="banded")(jnp.asarray(batch)))
+    prog = c.compiled_batched(3, engine="banded", device="cpu")
+    _assert_close(prog(torch.from_numpy(batch.copy())).numpy(), want)
     from quest_tpu_torch import trajectories as T
     noisy = Circuit(12).h(0).damping(0, 0.2)
     gen = torch.Generator().manual_seed(0)

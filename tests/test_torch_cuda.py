@@ -680,3 +680,33 @@ def test_multiphase_on_every_driver(card, name):
     scale = plain.abs().max().item()
     err = (outs[0] - plain.reshape(outs[0].shape)).abs().max().item()
     assert err <= chip_smoke.STAGE_TOL * scale
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("engine", ["compiled", "compiled_banded",
+                                    "compiled_fused"])
+def test_xla_engines_on_the_card_match_the_cpu(card, engine, dtype):
+    """The per-gate and banded engines, and the fused engine's passthroughs
+    (f32) or f64 route, on the card against the same program on the CPU;
+    an f64 or sub-tier program launches no segment kernel."""
+    from quest_tpu_torch import precision as P
+    from quest_tpu_torch.entry import wide_gates_circuit
+    from quest_tpu_torch.state import basis_planes
+    n = 14
+    c = wide_gates_circuit(n)
+    rdt = P.real_dtype_of(dtype)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fn = getattr(c, engine)(n, device=dev)
+        amps = basis_planes(0, n=n, rdt=rdt, device=dev)
+        if engine == "compiled_fused" and rdt == np.float32:
+            amps = amps.reshape(2, -1, 128)
+        before = S.segment_sweep.launches
+        out[dev] = fn(amps).reshape(2, -1).cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            kernel = engine == "compiled_fused" and rdt == np.float32
+            assert (S.segment_sweep.launches > before) == kernel
+    tol = 1e-4 if rdt == np.float32 else 1e-12
+    scale = out["cpu"].abs().max().item()
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= tol * scale

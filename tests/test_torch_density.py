@@ -171,9 +171,16 @@ def test_apply_matrix_rows_matches_reference(targets, controls, cstates,
 
 
 def test_apply_matrix_rows_refuses_wide_operators():
-    with pytest.raises(NotImplementedError, match="A3"):
-        TA.apply_matrix_rows(torch.zeros(2, 1 << 12), 12, np.eye(32),
-                             (0, 3, 7, 9, 11))
+    """A 5-target operator is applied on the fused view, as the
+    reference's apply_matrix_rows applies it through its flat path."""
+    n, targets = 12, (0, 3, 7, 9, 11)
+    m = _matrix(len(targets), seed=5)
+    planes = np.random.default_rng(6).standard_normal(
+        (2, 1 << (n - 7), 128)).astype(np.float32)
+    want = np.asarray(JA.apply_matrix_rows(
+        jnp.asarray(planes), n, (m.real, m.imag), targets))
+    amps = torch.from_numpy(planes.copy())
+    _assert_close(TA.apply_matrix_rows(amps, n, m, targets).numpy(), want)
 
 
 def _dual_key(op):
@@ -286,8 +293,10 @@ def test_density_registers_match_reference():
         assert name == "QuESTError" and TV.MESSAGES[code] == msg
     with pytest.raises(TV.QuESTError):
         TS.get_density_amp(sv, 0, 0)
-    with pytest.raises(NotImplementedError, match="A3"):
-        TS.create_density_qureg(5, dtype=np.complex128, device="cpu")
+    q64 = TS.create_density_qureg(5, dtype=np.complex128, device="cpu")
+    assert q64.amps.dtype == torch.float64 and q64.dtype == np.complex128
+    np.testing.assert_array_equal(TS.to_dense(q64), JS.to_dense(
+        JS.create_density_qureg(5, dtype=np.complex128)))
 
 
 def test_density_entry_on_the_cpu():

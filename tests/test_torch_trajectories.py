@@ -33,6 +33,8 @@ except ImportError:          # no control over BLAS threads: leave them
 import jax
 import jax.numpy as jnp
 
+import bench
+
 from quest_tpu import circuit as JC
 from quest_tpu import trajectories as JT
 from quest_tpu.ops import pallas_band as PB
@@ -156,6 +158,60 @@ def test_trajectories_match_reference_given_the_draws(n, born_spy):
     np.testing.assert_array_equal(plain_draws.numpy(), jdraws)
     np.testing.assert_allclose(plain.numpy(), jplanes, atol=TOL * scale,
                                rtol=0)
+
+
+def _small_noisy_reference_circuit(n):
+    """Every channel kind of _noisy_reference_circuit on a register below
+    the kernel's 10 qubits."""
+    c = JC.Circuit(n)
+    for q in range(n):
+        c.h(q)
+    c.ry(2, 1.1).cz(2, 4).cnot(n - 1, 1).rz(3, 0.3)
+    c.damping(2, 0.3)
+    c.depolarising(4, 0.2)
+    c.ry(n - 1, 0.9).dephasing(n - 1, 0.25)
+    c.kraus((0, n - 1), _correlated_decay(0.35))
+    c.ry(1, 0.5).damping(1, 0.3)
+    c.kraus((2, 3), _zz_dephasing(0.3))
+    return c
+
+
+def _hold_banded_to_reference(jc, n, shots, born_spy):
+    """Run the reference's run_batched(engine='banded') on `jc` and the
+    port's banded program on its conversion, given the reference's
+    draws; assert equal draws and planes within TOL x max|amp|. Returns
+    the port's circuit and program."""
+    born_spy.clear()
+    tc = convert.circuit_from_ops(jc.ops, n)
+    jplanes, jdraws = JT.run_batched(jc, jax.random.key(n), shots,
+                                     engine="banded")
+    jplanes, jdraws = np.asarray(jplanes), np.asarray(jdraws)
+    prog = T._compiled_traj(tc, n, "cpu", "banded")
+    assert not prog.segments and not any(
+        ch["inline"] for ch in prog.channel_info)
+    u = _uniforms_for(jdraws, prog.channel_info)
+    planes, draws = prog(torch.from_numpy(u))
+    for idx, ps in born_spy.items():
+        drawn = ps[np.arange(shots), jdraws[:, idx]]
+        assert (drawn > MIN_PROB).all(), (idx, drawn)
+    np.testing.assert_array_equal(draws.numpy(), jdraws)
+    scale = float(np.abs(jplanes).max())
+    np.testing.assert_allclose(planes.numpy(), jplanes, atol=TOL * scale,
+                               rtol=0)
+    return tc, prog
+
+
+@pytest.mark.parametrize("n,engine", [(6, None), (12, "banded")])
+def test_banded_trajectories_match_reference_given_the_draws(n, engine,
+                                                             born_spy):
+    """The banded program (engine='banded', and the default below 10
+    qubits) against the reference's run_batched(engine='banded'), given
+    its draws: every channel, one-qubit ones too, drawn from the
+    pre-channel states and applied per state between stretches."""
+    jc = (_noisy_reference_circuit(n) if n >= 12
+          else _small_noisy_reference_circuit(n))
+    assert T._resolve_engine(engine, n) == "banded"
+    _hold_banded_to_reference(jc, n, 8, born_spy)
 
 
 @pytest.mark.parametrize("targets", [(0,), (6,), (8,), (11,), (3, 10),
@@ -315,18 +371,28 @@ def test_noisy_circuits_convert_with_their_kraus_ops():
                zip(native.ops, [o for o in tc.ops if o.kind == "superop"]))
 
 
-def test_unported_engines_and_bad_circuits_raise():
+def test_unported_engines_and_bad_circuits_raise(born_spy):
     circ = E.noisy_rcs_circuit(10, 1)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="A13"):
         T.run_batched(circ, 4, generator=gen, engine="host", device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        T.run_batched(circ, 4, generator=gen, engine="banded", device="cpu")
     with pytest.raises(ValueError):
         T.run_batched(circ, 4, generator=gen, engine="xla", device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        T.run_batched(E.noisy_rcs_circuit(8, 1), 4, generator=gen,
-                      device="cpu")
+    # engine='banded' at 10 qubits, and the default below the kernel tier
+    # at 8: each call runs the banded program on the generator's
+    # uniforms, and that program on the bench's noisy RCS layer is held
+    # against the reference's run_batched(engine='banded') given its draws
+    for n, engine in ((10, "banded"), (8, None)):
+        small, prog = _hold_banded_to_reference(
+            bench._build_traj_circuit(n, 1), n, 4, born_spy)
+        planes, draws = T.run_batched(
+            small, 4, generator=torch.Generator().manual_seed(n),
+            engine=engine, device="cpu")
+        u = torch.rand((4, prog.num_channels), dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(n))
+        again, again_draws = prog(u)
+        assert torch.equal(planes, again) and torch.equal(draws, again_draws)
+        assert planes.shape == (4, 2, 1 << n)
     with pytest.raises(ValueError):
         T.run_batched(circ, 0, generator=gen, device="cpu")
     with pytest.raises(TypeError):
