@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --upto stages   # build + per-stage checks only
+    python3 chip_smoke.py --diag-runs     # the S5/S6 run timings and the
+                                          # flagship step at each tier
     python3 -c "import torch, chip_smoke as C; C.phase_build();
                 C.phase_f64(torch)"      # one phase alone
 
@@ -33,6 +35,15 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      of 17 qubits, each with its own selection-table rows): S9
      (BatchSelStage) on a lane bit, inner rows and a scattered bit, within
      1e-6 max|amp|, and a barrier S9 leading a chain of other kinds;
+     S5/S6 runs (two around a b0, 65 stages cut 64 + 1) and a
+     phase-only segment that launches half its tiles;
+     diag_layer: entry.diag_layer_circuit (rz on every qubit, cphase on a
+     ring; one launch of 54 stages) and entry.cz_brick_circuit at 28
+     qubits under K1, K2 and K3: against the plain path, bit-identical
+     across drivers, within 1e-5 of the same stages one per segment (bit
+     for bit where every run keeps the exact form) and, launched in
+     pieces of 7 stages (exact-form runs), bit for bit those one-stage
+     segments;
      big_batch (ROADMAP C1): 65,539 states of 10 qubits through one
      segment under every driver, against the plain version and bit for
      bit against the batch split by hand (K3 launches in slices of
@@ -122,7 +133,11 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      the split parts together. b0, b1-128 and scb-128 at every tier and
      the diagonal also print their time before the tensor-map copies and
      S8's redesign, the 8-term multiphase its time before S7's factored
-     angles (before_redesign_ms);
+     angles; and diag_run_cases — the diagonal layer's and the cz
+     brick's launches in the angle form and the exact form, the brick's
+     multiphase alone, the flagship's launch 0 (two parity stages and a
+     b0) beside its b0 alone — with phase and parity their time before
+     the runs and the skip (before_redesign_ms);
  16. phase_counters: the same b0, b1-128 and scb-128 launches at each
      tier, a phase stage and both multiphase rows through the kernel's
      phase-counter build (profiling.segment_phase_report: cycles per
@@ -169,7 +184,8 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
 
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
-sheet).
+sheet); a segment of phase stages only counts the rows its predicates
+select (moved_rows), the rest every row.
 
 Each phase prints one JSON line. Before the last line come the kernels
 line {"kernels": [...]} and the nvidia-smi line; the last line is
@@ -216,7 +232,8 @@ ENVELOPE_SLACK = 1.5          # x the plain version's own distance
 # one bf16 rounding step of an input, relative to it: HIGH's lo (an ulp
 # of lo is at most 2^-14 of the value), DEFAULT's bf16 (2^-7)
 FLIP_TOL = {"high": 2.0 ** -14, "default": 2.0 ** -7}
-PHASES = ("build", "probe", "stages", "big_batch", "high_target",
+PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
+          "high_target",
           "drivers", "dma_floor", "sanitize",
           "flagship", "baseline", "density",
           "density_bench", "clifford_t_density", "batched",
@@ -301,13 +318,43 @@ def _elementwise_flops(st, arr, amps: float) -> float:
     return amps * (len(st.forms) + 2 + 6)   # angle sum, sincos, multiply
 
 
+MOVED_ROWS_MAX_BITS = 24       # moved_rows enumerates at most 2^24 rows
+
+
+def moved_rows(seg) -> int:
+    """Rows (of 128 amplitudes) of a state that one launch of `seg` must
+    read and write: every row, but for a segment of phase stages only the
+    rows where some stage's row predicate holds (no other row holds an
+    amplitude it changes), counted over the bits the predicates name."""
+    from quest_tpu_torch.ops import band_plan as BP
+    rows = 1 << (seg.n - 7)
+    if not seg.stages or not all(isinstance(st, BP.PhaseStage)
+                                 for st in seg.stages):
+        return rows
+    preds = [(int(a[0, 4]) | (int(a[0, 5]) << 15),
+              int(a[0, 6]) | (int(a[0, 7]) << 15)) for a in seg.arrays]
+    bits = [b for b in range(seg.n - 7)
+            if any(rm >> b & 1 for rm, _ in preds)]
+    if len(bits) > MOVED_ROWS_MAX_BITS:
+        return rows
+    v = np.arange(1 << len(bits), dtype=np.int64)
+    vals = np.zeros_like(v)
+    for k, b in enumerate(bits):
+        vals |= ((v >> k) & 1) << b
+    hit = np.zeros(v.shape, bool)
+    for rm, rw in preds:
+        hit |= (vals & rm) == rw
+    return int(hit.sum()) << (seg.n - 7 - len(bits))
+
+
 def segment_work(seg, batch=1):
     """(bytes, fp32 flops, bf16 tensor flops) of one launch over `batch`
-    states: each state read and written once, each operand and selection
-    row read once; the stages' operations on every state, at the
-    segment's tier."""
-    nbytes = (batch * 2 * 2 * 4 * (1 << seg.n) + 4 * seg.ops.numel()
-              + len(seg.slots) * batch * 8 * 4)
+    states: each state's rows the launch must move (moved_rows: all of
+    them unless it holds phase stages only) read and written once, each
+    operand and selection row read once; the stages' operations on every
+    state, at the segment's tier."""
+    nbytes = (batch * 2 * 2 * 4 * 128 * moved_rows(seg)
+              + 4 * seg.ops.numel() + len(seg.slots) * batch * 8 * 4)
     work = [stage_flops(st, a, seg.n, seg.tier)
             for st, a in zip(seg.stages, seg.arrays)]
     return (nbytes, batch * sum(w[0] for w in work),
@@ -460,8 +507,12 @@ def phase_build():
     kernels = kernel_resources(_build.BUILD_LOG)
     want = {f"{d}/{t}" for d in ("decoupled", "inplace", "grid")
             for t in ("highest", "high", "default")}
-    if built and set(kernels) != want:
+    if _build.BUILD_LOG and set(kernels) != want:
         raise AssertionError(f"build: kernel instantiations {sorted(kernels)}")
+    spills = {k: v["spill_bytes"] for k, v in kernels.items()
+              if v.get("spill_bytes")}
+    if spills:
+        raise AssertionError(f"build: register spills {spills}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "kernels": kernels})
 
@@ -603,6 +654,22 @@ def stage_cases(rng):
                   [a for _, a in dense]))
     st, arr = diag((22, 3, 8), (), ((15, 1),))
     cases.append(("diagvec_row_bit_15", 23, [st], [arr]))
+    # S5/S6 runs: two runs around a b0 (masks on lanes, inner and free
+    # rows), a 65-stage run (cut 64 + 1) and a phase-only segment that
+    # launches only the tiles whose free row bit 12 is set
+    runs = [parity(0b101, 0b1000000100), phase(0b10, 0b10, 0b1, 0),
+            parity(0, 0b10000000000), phase(0, 0, 0b110000000000,
+                                            0b100000000000),
+            parity(0b1000000, 0), mat("b0", 128), phase(0b1, 0b1, 1 << 12,
+                                                         1 << 12),
+            parity(0b11, 0b11), phase(0b100, 0, 0b1010, 0b1000)]
+    cases.append(("diag_runs", n, [s for s, _ in runs], [a for _, a in runs]))
+    long = [phase(1 << (k % 7), 1 << (k % 7), 1 << (k % 13), 0) if k % 2
+            else parity(1 << (k % 5), 1 << (k % 11)) for k in range(65)]
+    cases.append(("diag_run_65", n, [s for s, _ in long], [a for _, a in long]))
+    skip = [phase(0b1, 0b1, (1 << 12) | (1 << 3), 1 << 12),
+            phase(0, 0, (1 << 12) | (1 << 9), (1 << 12) | (1 << 9))]
+    cases.append(("phase_skip", n, [s for s, _ in skip], [a for _, a in skip]))
     return cases
 
 
@@ -740,7 +807,7 @@ def phase_stages(torch):
         rel = err / scale
         results.append({"case": name, "n": n, "max_abs_err": err,
                         "rel_err": rel, "tile_bits": seg.geometry.tile_bits,
-                        "blocks": seg.geometry.blocks})
+                        "blocks": seg.tiles})
         if not rel <= STAGE_TOL:
             raise AssertionError(f"stage case {name}: max|diff| {err} > "
                                  f"{STAGE_TOL} x max|amp| {scale}")
@@ -759,7 +826,7 @@ def phase_stages(torch):
         results.append({"case": name, "n": n, "batch": batch,
                         "max_abs_err": err, "rel_err": err / scale,
                         "tol": tol, "tile_bits": seg.geometry.tile_bits,
-                        "blocks": seg.geometry.blocks})
+                        "blocks": seg.tiles})
         if not err <= tol * scale:
             raise AssertionError(f"batched stage case {name}: max|diff| "
                                  f"{err} > {tol} x max|amp| {scale}")
@@ -767,6 +834,122 @@ def phase_stages(torch):
     emit({"phase": "stages", "tol": STAGE_TOL, "worst_rel_err": worst,
           "cases": results})
     return worst
+
+
+def one_stage_segments(torch, fn, x):
+    """fn's steps on x in place, each segment's stages launched one stage
+    per segment (K1), the passthroughs as they are."""
+    from quest_tpu_torch.ops import segment as S
+    for step in fn.steps:
+        if isinstance(step, S.Segment):
+            for st, arr in zip(step.stages, step.arrays):
+                S.segment_sweep(x, S.prepare_segment(
+                    [st], [arr], fn.n, "cuda", driver="decoupled"))
+        else:
+            step(x)
+    return x
+
+
+DIAG_QUBITS = 28
+
+
+def angle_form(seg) -> bool:
+    """Whether a run of the segment takes the angle form (F_FORMS bit 0 of
+    a run's head)."""
+    from quest_tpu_torch.ops import segment as S
+    d = seg.desc.cpu()
+    return bool(((d[:, S.F_RUN] > 0) & (d[:, S.F_FORMS] & 1 > 0)).any())
+
+
+EXACT_PIECE = 7                # stages of a piece below the angle form's 8
+
+
+def exact_pieces(torch, fn, x):
+    """fn's steps on x in place, each segment's stages launched in pieces
+    of EXACT_PIECE stages (K1): runs too short for the angle form, so
+    each piece's runs take the exact form."""
+    from quest_tpu_torch.ops import segment as S
+    for step in fn.steps:
+        if isinstance(step, S.Segment):
+            for i in range(0, len(step.stages), EXACT_PIECE):
+                S.segment_sweep(x, S.prepare_segment(
+                    step.stages[i:i + EXACT_PIECE],
+                    step.arrays[i:i + EXACT_PIECE], fn.n, "cuda",
+                    driver="decoupled"))
+        else:
+            step(x)
+    return x
+
+
+def phase_diag_layer(torch):
+    """entry.diag_layer_circuit (seed 10) and entry.cz_brick_circuit at 28
+    qubits through compiled_fused under K1, K2 (3 slots) and K3 from one
+    seeded normalised state: against the plain path (STAGE_TOL x
+    max|amp|) and bit-identical across drivers; launches and median ms of
+    3 calls per driver. The same stages launched one stage per segment
+    must give the program's bits where every run keeps the exact form,
+    else (a run in the angle form) agree within STAGE_TOL; and launched
+    in pieces of EXACT_PIECE stages (exact-form runs of up to 7) they must
+    give the bits of one stage per segment."""
+    from quest_tpu_torch import entry as E
+    from quest_tpu_torch.ops import segment as S
+    n = DIAG_QUBITS
+    rng = np.random.default_rng(12)
+    planes = torch.from_numpy(
+        rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
+    planes /= planes.double().pow(2).sum().sqrt().float()
+    recs = []
+    for name, circ in (("diag_layer", E.diag_layer_circuit(n)),
+                       ("cz_brick", E.cz_brick_circuit(n))):
+        ref, per = None, {}
+        for cfg in ("K1", "K2/3", "K3"):
+            with driver_knobs(cfg):
+                fn = circ.compiled_fused(n, device="cuda")
+            x = planes.clone()
+            S.segment_sweep.launches = 0
+            fn(x)
+            torch.cuda.synchronize()
+            launches = S.segment_sweep.launches
+            if ref is None:
+                ref = x.clone()
+                want = fn.plain(planes)
+                err = (ref.reshape(2, -1) - want.reshape(2, -1)).abs().max()
+                scale = want.abs().max().item()
+                del want
+                single = one_stage_segments(torch, fn, planes.clone())
+                angles = any(angle_form(sg) for sg in fn.segments)
+                one_rel = ((single - ref).abs().max() / scale).item()
+                if not (one_rel <= STAGE_TOL if angles
+                        else torch.equal(single, ref)):
+                    raise AssertionError(f"diag_layer {name}: one stage per "
+                                         f"segment {one_rel} from the runs")
+                pieces = exact_pieces(torch, fn, planes.clone())
+                if not torch.equal(pieces, single):
+                    raise AssertionError(f"diag_layer {name}: exact-form "
+                                         f"runs differ from one stage per "
+                                         f"segment")
+                del single, pieces
+                if not err.item() <= STAGE_TOL * scale:
+                    raise AssertionError(f"diag_layer {name}: max|diff| "
+                                         f"{err.item()} > {STAGE_TOL} x {scale}")
+            elif not torch.equal(x, ref):
+                raise AssertionError(f"diag_layer {name}: {cfg} differs "
+                                     f"from K1")
+            per[cfg] = {"launches": launches, "stages": [
+                len(s.stages) for s in fn.segments],
+                "ms": time_ms(torch, lambda: fn(x), 3)}
+            del x, fn
+            torch.cuda.empty_cache()
+        recs.append({"circuit": name, "max_abs_err": err.item(),
+                     "rel_err": err.item() / scale, "bit_identical": True,
+                     "angle_form": angles, "one_stage_rel_diff": one_rel,
+                     "exact_pieces_identical": True, "drivers": per})
+        del ref
+    rec = {"phase": "diag_layer", "n": n, "tol": STAGE_TOL, "circuits": recs}
+    emit(rec)
+    del planes
+    torch.cuda.empty_cache()
+    return rec
 
 
 BIG_BATCH = 65536 + 3          # states: above K3's gridDim.y of 65535
@@ -1683,16 +1866,115 @@ def _parity_library(torch, arr, amps, n):
 # b0, b1, scb-128 and diagvec before the ring drivers' tensor-map copies
 # and S8's hoisted indexing; the multiphase rows before S7 factored its
 # angles into lane and row parts (2 and 64 terms: this phase run against
-# the package of that tree, the mean of two runs).
+# the package of that tree, the mean of two runs); S5 and S6 alone and the
+# diag_run_cases before S5/S6 ran as runs and S5 skipped tiles (the mean
+# of two `--diag-runs` runs against the package of that tree, with its
+# entry.py given this tree's two diagonal circuits).
 BEFORE_REDESIGN_MS = {"b0": 6.66, "b1": 6.96, "scb128": 9.08,
                       "b0@high": 2.26, "b1@high": 2.28, "scb128@high": 4.45,
                       "b0@default": 1.81, "b1@default": 1.78,
                       "scb128@default": 3.83, "diagvec": 1.92,
                       "multiphase": 4.76, "multiphase_aa": 2.405,
-                      "multiphase_m64": 27.549}
+                      "multiphase_m64": 27.549,
+                      "phase": 1.558, "parity": 1.563,
+                      "diag_layer_run": 23.86, "diag_layer_exact": 23.86,
+                      "cz_brick_run": 6.535, "cz_brick_exact": 6.535,
+                      "parity_pair": 7.48}
 # S7 on the main paths: two all-ones terms, a CZ on lane bit 6 and row bit
 # 0 and one on row bits 13 and 14 (the flagship's and 30q d20's stages)
 MAIN_PATH_MULTIPHASE = [("a", 1 << 6, 1), ("a", 0, 3 << 13)]
+DIAG_RUN_TIMED = ("diag_layer_run", "diag_layer_exact", "cz_brick_run",
+                  "cz_brick_exact", "cz_brick_s7", "parity_pair",
+                  "parity_pair_b0")
+
+
+def planned_segment(circuit, n, index=0):
+    """(stages, arrays) of segment `index` of the circuit's swept plan at
+    n qubits (compiled_fused's launches, before packing)."""
+    parts = [p for p in circuit.fused_parts(n)[0] if p[0] == "segment"]
+    return list(parts[index][1]), list(parts[index][2])
+
+
+def diag_run_cases(n=TIMING_QUBITS):
+    """(name, stages, arrays) of the S5/S6 timing cases at n qubits: a
+    lone phase (lane bit 0, row bit 20) and parity (lane bits 0-1, row
+    bit 20), as stage_timing's; the diagonal layer's one launch
+    (entry.diag_layer_circuit: a phase, a multiphase, then a run of 28
+    parity and 24 phase stages); the cz brick's (entry.cz_brick_circuit:
+    a multiphase and 12 phase stages) and its multiphase alone, the two
+    runs also in the exact form (`_exact`: the packed run heads' angle-form
+    bit cleared, so the kernel applies each stage's formula); the
+    flagship's launch 0 cut after its b0 (two parity stages on lane bits 0
+    and 1, then the b0) and that b0 alone."""
+    from quest_tpu_torch import entry as E
+    rng = np.random.default_rng(10)
+    phase, parity = (phase_op(rng, 0b1, 0b1, 1 << 20, 1 << 20),
+                     parity_op(rng, 0b11, 1 << 20))
+    flag = planned_segment(E.flagship_circuit(n, 4), n)
+    cz = planned_segment(E.cz_brick_circuit(n), n)
+    layer = planned_segment(E.diag_layer_circuit(n), n)
+    return [("phase", [phase[0]], [phase[1]]),
+            ("parity", [parity[0]], [parity[1]]),
+            ("diag_layer_run",) + layer,
+            ("diag_layer_exact",) + layer,
+            ("cz_brick_run",) + cz,
+            ("cz_brick_exact",) + cz,
+            ("cz_brick_s7", cz[0][:1], cz[1][:1]),
+            ("parity_pair", flag[0][:3], flag[1][:3]),
+            ("parity_pair_b0", flag[0][2:3], flag[1][2:3])]
+
+
+def flagship_tier_ms(torch):
+    """{tier: median device ms of 5 warm steps} of entry()'s flagship step
+    compiled at each matmul tier under K1: the main path whose launches 0,
+    3 and 6 hold S5/S6 runs."""
+    from quest_tpu_torch.entry import entry
+    out = {}
+    for tier in ("highest", "high", "default"):
+        with session_tier(tier):
+            fn, (amps,) = entry()
+        fn(amps)
+        out[tier] = time_ms(torch, lambda: fn(amps), 5)
+        del fn, amps
+        torch.cuda.empty_cache()
+    return out
+
+
+def diag_run_timing(torch, planes, names=None):
+    """The diag_run_cases named in `names` (all when None) under K1 on
+    the planes: kernel against its plain version (STAGE_TOL x max|amp|),
+    median ms of 5 launches and of 3 plain calls, the bound. Uses only
+    the package's prepare_segment and segment_sweep, so it times an
+    earlier tree's package too."""
+    from quest_tpu_torch.ops import segment as S
+    n = int(planes.numel()).bit_length() - 2
+    out = []
+    for name, stages, arrays in diag_run_cases(n):
+        if names is not None and name not in names:
+            continue
+        seg = S.prepare_segment(stages, arrays, n, "cuda", driver="decoupled")
+        if name.endswith("_exact"):
+            desc = seg.desc.clone()
+            desc[:, S.F_FORMS] *= (desc[:, S.F_KIND] == S.K_MULTIPHASE).long()
+            seg = dataclasses.replace(seg, desc=desc)
+        amps = planes.clone()
+        want = S.segment_sweep_reference(amps, seg.stages, seg.operands, n)
+        S.segment_sweep(amps, seg)
+        torch.cuda.synchronize()
+        err = (amps.reshape(2, -1) - want.reshape(2, -1)).abs().max().item()
+        if not err <= STAGE_TOL * want.abs().max().item():
+            raise AssertionError(f"{n}q {name}: max|diff| {err}")
+        del want
+        ms = time_ms(torch, lambda: S.segment_sweep(amps, seg), 5)
+        plain_ms = time_ms(torch, lambda: S.segment_sweep_reference(
+            amps, seg.stages, seg.operands, n), 3)
+        bound, by = bound_of([seg])
+        out.append({"name": name, "label": "diag_run", "stages": len(stages),
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": bound, "bound_by": by, "max_abs_err": err})
+        del amps
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_stage_timing(torch):
@@ -1778,6 +2060,7 @@ def phase_stage_timing(torch):
                     "bound_by": bound_by, "max_abs_err": err})
         del amps
         torch.cuda.empty_cache()
+    out += diag_run_timing(torch, planes, DIAG_RUN_TIMED)
     out += tier_stage_timing(torch, planes, rng)
     del planes
     torch.cuda.empty_cache()
@@ -1794,8 +2077,9 @@ def phase_phase_counters(torch):
     (profiling.segment_phase_report, the COUNTERS build: operator-slice
     waits and releases, step prologues, the chain, per block; counters
     set to 0 before each launch and read after it) for b0, b1-128 and
-    scb-128 at each tier, a phase stage and the 8- and 2-term multiphase
-    of stage_timing; and K3 launches (the stage-free copy, a phase stage,
+    scb-128 at each tier, a phase stage, the 8- and 2-term multiphase of
+    stage_timing and the diagonal layer's and cz brick's runs
+    (diag_run_cases); and K3 launches (the stage-free copy, a phase stage,
     b0 at DEFAULT) with the prologue, chain and store shares of a block;
     beside the fp32 FMA rate the card sustains (profiling.fma_rate).
     Counted launches are not the main path's."""
@@ -1827,6 +2111,12 @@ def phase_phase_counters(torch):
         rec = profiling.segment_phase_report(
             planes, S.prepare_segment([mst], [marr], n, "cuda"))
         out.append(dict(rec, name=name))
+    # the diagonal layer's and the cz brick's runs (54 and 13 stages)
+    for name, stages, arrays in diag_run_cases(n):
+        if name in ("diag_layer_run", "cz_brick_run"):
+            rec = profiling.segment_phase_report(
+                planes, S.prepare_segment(stages, arrays, n, "cuda"))
+            out.append(dict(rec, name=name))
     # K3 blocks: prologue (the tile's loads in flight under the row ids and
     # the operator ring's start), chain, and stores (thread 0, until they
     # let the block exit), on the stage-free copy, a phase stage and b0 at
@@ -2498,15 +2788,25 @@ def driver_knobs(cfg):
 def ring_cases(rng):
     """(name, n, batch, stages, arrays): segments whose blocks each walk
     many steps (the persistent drivers' rings wrap many times): the
-    stage-free copy and a chain at 26 qubits, an sc stage on row bit 3
-    (11-bit tiles, where the in-place driver holds 8 plane slots) at 24,
-    and S9 in a batch of 16 states of 20 qubits."""
+    stage-free copy, phase stages that launch only the tiles with row bit
+    15 set, and a chain at 26 qubits; phase stages that skip tiles in a
+    batch of 16 states of 20 qubits; an sc stage on row bit 3 (11-bit
+    tiles, where the in-place driver holds 8 plane slots) at 24, and S9
+    in a batch of 16 states of 20 qubits."""
     chain = [mat_op(rng, "b0", 128), phase_op(rng, 0b10, 0b10, 0b100, 0b100),
              parity_op(rng, 0b11, 0b11001), mat_op(rng, "b1", 32),
              pair_op(rng, "sub", 2, 12)]
     sel = [batchsel_op(16, 0), mat_op(rng, "b0", 128), batchsel_op(3, 1, False)]
     sc = mat_op(rng, "sc", 2, bit=3)
+    skip = [phase_op(rng, 0b1, 0b1, (1 << 15) | (1 << 2), 1 << 15),
+            phase_op(rng, 0, 0, (1 << 15) | (1 << 10), 1 << 15)]
+    skip_b = [phase_op(rng, 0b100, 0b100, 1 << 10, 1 << 10),
+              phase_op(rng, 0, 0, (1 << 10) | (1 << 8), 1 << 10)]
     return [("copy_26", 26, 0, [], []),
+            ("phase_skip_26", 26, 0, [s for s, _ in skip],
+             [a for _, a in skip]),
+            ("phase_skip_20x16", 20, 16, [s for s, _ in skip_b],
+             [a for _, a in skip_b]),
             ("chain_26", 26, 0, [s for s, _ in chain], [a for _, a in chain]),
             ("sc_tile11_24", 24, 0, [sc[0]], [sc[1]]),
             ("batchsel_20x16", 20, 16, [s for s, _ in sel],
@@ -2550,7 +2850,7 @@ def probe_drivers(torch):
             torch.cuda.synchronize()
             outs[cfg] = amps
             slots[cfg] = S.smem_layout(seg.geometry.tile_bits,
-                                       seg.geometry.blocks * max(1, batch),
+                                       seg.tiles * max(1, batch),
                                        driver, nbuf)["slots"]
         diffs = {cfg: (o - outs["K3"]).abs().max().item()
                  for cfg, o in outs.items()}
@@ -2985,6 +3285,12 @@ def main(argv=None) -> int:
     ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--sanitize-case", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--diag-runs", action="store_true",
+                    help="build the kernel and time diag_run_cases alone "
+                    "(K1, 28 qubits) and the flagship step at each tier, "
+                    "one JSON line; it uses only prepare_segment, "
+                    "segment_sweep and entry(), so it also times an "
+                    "earlier tree's package beside this script")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2996,6 +3302,21 @@ def main(argv=None) -> int:
         return 0
     if args.sanitize_case:
         sanitize_case(torch)
+        return 0
+    if args.diag_runs:
+        from quest_tpu_torch.ops import _build
+        _build.build()
+        rng = np.random.default_rng(7)
+        planes = torch.from_numpy(rng.standard_normal(
+            (2, 1 << TIMING_QUBITS)).astype(np.float32)).cuda()
+        planes /= planes.double().pow(2).sum().sqrt().float()
+        cases = diag_run_timing(torch, planes)
+        del planes
+        torch.cuda.empty_cache()
+        print(json.dumps({"phase": "diag_runs", "nvidia_smi": smi_line(),
+                          "cases": cases,
+                          "flagship_ms": flagship_tier_ms(torch)}),
+              flush=True)
         return 0
     # the port must be importable before anything is printed: run from a
     # directory without it, the script fails here and prints no result
@@ -3014,6 +3335,8 @@ def main(argv=None) -> int:
         phase_probe(torch)
     if want("stages"):
         phase_stages(torch)
+    if want("diag_layer"):
+        phase_diag_layer(torch)
     if want("big_batch"):
         phase_big_batch(torch)
     if want("high_target"):

@@ -63,14 +63,17 @@
 // For each tile, a block:
 //   1. builds the global row id of each of its tile rows from the tile
 //      index (free row bits), the inner rows and the scattered bits — the
-//      reference's _row_ids;
+//      reference's _row_ids. A segment of S5 stages only launches just the
+//      tiles it can change: free row bits that every stage's predicate
+//      fixes are held at their value (SweepArgs::fixed_rows);
 //   2. brings the tile (2 planes x rows x 128 lanes f32, rows of 512
 //      contiguous bytes) into dynamic shared memory as cp.async.bulk.tensor
 //      boxes of a tensor map that sees the scattered row bits as
 //      dimensions (one request per plane on most of today's plans): K1/K2
 //      ahead of time into their ring of plane slots, K3 while the block
 //      writes its row ids and starts its operator ring;
-//   3. runs the stage chain on the tile. A matrix stage is a batched
+//   3. runs the stage chain on the tile (a run of consecutive S5/S6
+//      stages as one pass, diag_run). A matrix stage is a batched
 //      complex product over the `fibers` of the tile (all index bits but
 //      the w contracted ones), outputs kept in registers until a barrier
 //      and written back in place (fibers are disjoint, so chunks of them
@@ -186,7 +189,7 @@ constexpr int NTHREADS = 256;
 constexpr int LANE_BITS = 7;
 constexpr int LANES = 1 << LANE_BITS;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int DESC_WORDS = 17;
+constexpr int DESC_WORDS = 18;
 constexpr int MAX_TILE_BITS = 14;
 constexpr int MAX_MULTIPHASE_ROWS = 64;
 constexpr int MAX_ROWS = 1 << (MAX_TILE_BITS - LANE_BITS);
@@ -200,7 +203,7 @@ enum {
   F_KIND = 0, F_DIM = 1, F_POS = 2, F_REAL = 3, F_SI = 4, F_SJ = 5,
   F_LANE_MASK = 6, F_LANE_WANT = 7, F_ROW_MASK = 8, F_ROW_WANT = 9,
   F_OP_OFF = 10, F_FORMS = 11, F_MASKED = 12, F_TARGETS = 13, F_POS2 = 14,
-  F_SLOT = 15, F_TIER = 16,
+  F_SLOT = 15, F_TIER = 16, F_RUN = 17,
 };
 // matmul tiers (quest_tpu_torch/ops/segment.py TIER_CODE)
 enum { T_HIGHEST = 0, T_HIGH = 1, T_DEFAULT = 2 };
@@ -1110,46 +1113,10 @@ __device__ void mat_dispatch(const Tile& t, const long long* ds,
 
 // ---- elementwise, pair, diagonal and channel stages ----------------------
 
-__device__ void phase_stage(const Tile& t, const float* __restrict__ g) {
-  // (1, 8): [tre, tim, lane_mask, lane_want, row_mask_lo, row_mask_hi,
-  //          row_want_lo, row_want_hi]
-  const float tre = __ldg(g + 0), tim = __ldg(g + 1);
-  const int lm = static_cast<int>(__ldg(g + 2));
-  const int lw = static_cast<int>(__ldg(g + 3));
-  const int rm = row_mask(__ldg(g + 4), __ldg(g + 5));
-  const int rw = row_mask(__ldg(g + 6), __ldg(g + 7));
-  const int size = 1 << t.bits;
-  for (int e = threadIdx.x; e < size; e += NTHREADS) {
-    const int lane = e & ((1 << LANE_BITS) - 1);
-    const int row = t.row_id[e >> LANE_BITS];
-    if ((lane & lm) == lw && (row & rm) == rw) {
-      const float re = t.re[e], im = t.im[e];
-      t.re[e] = re * tre - im * tim;
-      t.im[e] = re * tim + im * tre;
-    }
-  }
-}
-
-__device__ void parity_stage(const Tile& t, const float* __restrict__ g) {
-  // (1, 8): [cos, sin, lane_mask, row_mask_lo, row_mask_hi, 0, 0, 0]
-  const float c = __ldg(g + 0), s = __ldg(g + 1);
-  const int lm = static_cast<int>(__ldg(g + 2));
-  const int rm = row_mask(__ldg(g + 3), __ldg(g + 4));
-  const int size = 1 << t.bits;
-  for (int e = threadIdx.x; e < size; e += NTHREADS) {
-    const int lane = e & ((1 << LANE_BITS) - 1);
-    const int row = t.row_id[e >> LANE_BITS];
-    const int par = (__popc(lane & lm) ^ __popc(row & rm)) & 1;
-    const float sn = par ? -s : s;
-    const float re = t.re[e], im = t.im[e];
-    t.re[e] = re * c + im * sn;
-    t.im[e] = im * c - re * sn;
-  }
-}
-
 // The shared words after the row ids and the multiphase rows (the same
 // place under every driver, DIAG_TABLE_WORDS of EXTRA_WORDS): S8's table,
-// or S7's per-row term bits. No two stages use them at once.
+// S7's per-row term bits or a diagonal run's row words. No two stages use
+// them at once.
 __device__ __forceinline__ float* stage_scratch(const Tile& t) {
   return reinterpret_cast<float*>(const_cast<int*>(t.row_id) + MAX_ROWS
                                   + 3 * MAX_MULTIPHASE_ROWS);
@@ -1272,6 +1239,295 @@ __device__ void multiphase_stage(const Tile& t, const long long* ds,
   if (m <= 2) multiphase_rows<2>(t, s_ang, m, forms, lb, rb);
   else if (m <= 8) multiphase_rows<8>(t, s_ang, m, forms, lb, rb);
   else multiphase_rows<MAX_MULTIPHASE_ROWS>(t, s_ang, m, forms, lb, rb);
+}
+
+// S5 and S6 as runs (diag_run). prepare_segment writes, into the first
+// descriptor of each maximal run of consecutive K_PHASE / K_PARITY
+// descriptors (at most MAX_DIAG_RUN), the run's length (F_RUN); run_chain
+// hands the run to diag_run and jumps over it. The operands are the
+// reference's (1, 8) rows:
+//   S5 (phase)  [tre, tim, lane_mask, lane_want, row_mask_lo, row_mask_hi,
+//                row_want_lo, row_want_hi]: x * (tre + i tim) where lane
+//                and row match;
+//   S6 (parity) [cos, sin, lane_mask, row_mask_lo, row_mask_hi, 0, 0, 0]:
+//                x * (cos - i sin (-1)^p), p the parity of the element's
+//                lane and row under the masks.
+// Stage s of a run is bit s of three 64-bit words: `par` (S6), a thread's
+// lane word L (S5: its lane matches; S6: its lane parity) and each tile
+// row's word R (the same of the row's global id), so an element's bit s
+// of (L & R) for S5, or (L ^ R) for S6, says whether the stage changes it
+// (S5) or which sign its sine takes (S6). L is built once per run for the
+// thread's one lane (NTHREADS is a multiple of LANES, so the lane of every
+// element a thread visits is the same), R once per tile row, into the
+// stage scratch. Each element is read from shared memory once, takes the
+// run's stages in registers in stage order, each the same formula as a
+// one-stage segment's, and is written back once: a run of k stages gives
+// the bits of k one-stage segments. A long run of unit-modulus factors
+// takes the angle form instead (angle_run).
+constexpr int MAX_DIAG_RUN = 64;   // ops/segment.py MAX_DIAG_RUN
+static_assert(NTHREADS % LANES == 0, "a thread keeps one lane");
+static_assert(MAX_DIAG_RUN <= MAX_MULTIPHASE_ROWS,
+              "a run's (a, b) pairs fill s_ang and s_lm");
+static_assert(MAX_DIAG_RUN == 64 && MAX_ROWS <= NTHREADS,
+              "two stages a warp lane; a tile row a thread");
+
+// A warp's copy of a run's stages: lane i holds stages i and i + 32 (the
+// slots of stages past the run are zero), each as its (a, b) pair, its
+// lane mask and want and its row mask and want, a want of -1 marking S6
+// (which has none). Every warp loads it once per tile, one load per field
+// and slot, so no thread walks the run's descriptors; run_word reads it
+// with warp shuffles.
+struct RunStages {
+  float a[2], b[2];
+  int lm[2], lw[2], rm[2], rw[2];
+};
+
+__device__ __forceinline__ RunStages run_stages(const long long* ds,
+                                                const float* __restrict__ ops,
+                                                int k) {
+  RunStages r{};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = (threadIdx.x & 31) + 32 * h;
+    if (s >= k) continue;
+    const long long* d = ds + s * DESC_WORDS;
+    const float* g = ops + d[F_OP_OFF];
+    r.a[h] = __ldg(g);
+    r.b[h] = __ldg(g + 1);
+    r.lm[h] = static_cast<int>(__ldg(g + 2));
+    if (d[F_KIND] == K_PHASE) {
+      r.lw[h] = static_cast<int>(__ldg(g + 3));
+      r.rm[h] = row_mask(__ldg(g + 4), __ldg(g + 5));
+      r.rw[h] = row_mask(__ldg(g + 6), __ldg(g + 7));
+    } else {
+      r.lw[h] = r.rw[h] = -1;
+      r.rm[h] = row_mask(__ldg(g + 3), __ldg(g + 4));
+    }
+  }
+  return r;
+}
+
+// The run's word of x (a lane, or a tile row's global id) under the masks
+// m and wants w of a RunStages (its lane or its row fields): bit s is, for
+// S5, whether x matches stage s's predicate; for S6, the parity of x
+// under its mask. Every lane of the warp calls it (the shuffles).
+__device__ __forceinline__ u64 run_word(int x, const int (&m)[2],
+                                        const int (&w)[2], int k) {
+  u64 b = 0;
+  for (int s = 0; s < k; ++s) {
+    const int mm = __shfl_sync(~0u, s < 32 ? m[0] : m[1], s & 31);
+    const int ww = __shfl_sync(~0u, s < 32 ? w[0] : w[1], s & 31);
+    const int on = ww < 0 ? (__popc(x & mm) & 1) : ((x & mm) == ww);
+    b |= static_cast<u64>(on) << s;
+  }
+  return b;
+}
+
+// x *= (a + i b), as the plain version forms it: re a - im b, im a + re b
+__device__ __forceinline__ void cmul(float& re, float& im, float a, float b) {
+  const float nr = fmaf(re, a, -__fmul_rn(im, b));
+  im = fmaf(im, a, __fmul_rn(re, b));
+  re = nr;
+}
+
+// The run on G elements of each of the thread's rows at a time: element
+// e = threadIdx.x + j * NTHREADS for j in [j0, j0 + G). A warp's 32
+// elements share a row, so the stages that can change a warp's G rows
+// (every S6; an S5 whose row bit is set in one of the rows and whose lane
+// bit in one of the warp's lanes, `lane_any`) are warp-uniform, and the
+// loop visits only those.
+template <int G>
+__device__ __forceinline__ void run_rows(const Tile& t, const float2* cf,
+                                         const u64* rb, u64 par, u64 lb,
+                                         u64 lane_any) {
+  const int per = (1 << t.bits) / NTHREADS;
+  for (int j0 = 0; j0 < per; j0 += G) {
+    float re[G], im[G];
+    unsigned lo[G], hi[G];   // the element's bits: S5 applies / S6 sign
+    u64 rows_any = 0;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int e = threadIdx.x + (j0 + i) * NTHREADS;
+      const u64 r = rb[e >> LANE_BITS];
+      rows_any |= r;
+      const u64 on = (par & (lb ^ r)) | (~par & lb & r);
+      lo[i] = static_cast<unsigned>(on);
+      hi[i] = static_cast<unsigned>(on >> 32);
+      re[i] = t.re[e];
+      im[i] = t.im[e];
+    }
+    const u64 live = par | (lane_any & rows_any);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned ph = static_cast<unsigned>(par >> (32 * h));
+      unsigned m = static_cast<unsigned>(live >> (32 * h));
+      // the next live stage's pair loads while this one computes (an
+      // index past the last reads a slot that is not used)
+      unsigned bit = m & (0u - m);
+      float2 next = cf[32 * h + __ffs(bit | 0x80000000u) - 1];
+      while (m) {
+        m ^= bit;
+        const float2 c = next;
+        const unsigned nbit = m & (0u - m);
+        next = cf[32 * h + __ffs(nbit | 0x80000000u) - 1];
+        if (ph & bit) {                          // S6
+#pragma unroll
+          for (int i = 0; i < G; ++i)
+            cmul(re[i], im[i], c.x, ((h ? hi[i] : lo[i]) & bit) ? c.y : -c.y);
+        } else {                                 // S5
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            float nr = re[i], ni = im[i];
+            cmul(nr, ni, c.x, c.y);
+            const bool on = (h ? hi[i] : lo[i]) & bit;
+            re[i] = on ? nr : re[i];
+            im[i] = on ? ni : im[i];
+          }
+        }
+        bit = nbit;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int e = threadIdx.x + (j0 + i) * NTHREADS;
+      t.re[e] = re[i];
+      t.im[e] = im[i];
+    }
+  }
+}
+
+// The angle form of a long run. A run of at least ANGLE_MIN_RUN stages
+// whose factors all have unit modulus, and of which at most MAX_MIXED have
+// both a lane and a row mask, carries from prepare_segment bit 0 of F_FORMS
+// in its head and, at float offset F_TARGETS of the operand buffer, an
+// int32 table of two turns per stage in units of 2 pi / 2^32: T_off, the
+// element's turn where the stage's bit (S5: it matches; S6: its parity) is
+// clear, and D, what the bit adds (S5: 0 and its phase; S6: -h and 2h for
+// its half angle h). An element's factor is e^{i pi T / 2^31}, T the
+// wrapping 32-bit sum of T_off + bit * D over the run: exact in any order,
+// so T splits into a lane part (the stages whose row mask is empty, whose
+// row bit is then the same in every row), a row part (the stages whose
+// lane mask is empty, and every T_off of the rest) and the rest, the
+// "mixed" stages, whose bits come per element from 32-bit lane and row
+// words as in the exact form. Then one sincospif and one complex multiply
+// an element. It does not give the exact form's bits: the card holds it to
+// the plain version within STAGE_TOL.
+constexpr int ANGLE_MIN_RUN = 8;   // ops/segment.py ANGLE_MIN_RUN
+constexpr int MAX_MIXED = 32;      // ops/segment.py MAX_MIXED
+static_assert(DIAG_TABLE_WORDS >= 2 * MAX_ROWS && MAX_MIXED <= 2 * MAX_DIAG_RUN,
+              "a row's turn and mixed bits in the scratch; D in s_cf");
+
+__device__ void angle_run(const Tile& t, const long long* ds,
+                          const float* __restrict__ ops, int k,
+                          const RunStages& st, float* s_cf) {
+  const int* tab = reinterpret_cast<const int*>(ops + ds[F_TARGETS]);
+  int toff[2] = {0, 0}, dt[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = (threadIdx.x & 31) + 32 * h;
+    if (s < k) {
+      toff[h] = __ldg(tab + 2 * s);
+      dt[h] = __ldg(tab + 2 * s + 1);
+    }
+  }
+  const int rows = 1 << (t.bits - LANE_BITS);
+  const int lane = threadIdx.x & (LANES - 1);
+  const int row = t.row_id[min(static_cast<int>(threadIdx.x), rows - 1)];
+  unsigned lsum = 0, rsum = 0;          // the thread's lane's, its row's
+  unsigned lbits = 0, rbits = 0, mpar = 0;
+  unsigned* dmix = reinterpret_cast<unsigned*>(s_cf);
+  int j = 0;                            // mixed stages so far
+  for (int s = 0; s < k; ++s) {
+    const int src = s & 31;
+    const bool h = s >= 32;
+    const int lm = __shfl_sync(~0u, h ? st.lm[1] : st.lm[0], src);
+    const int lw = __shfl_sync(~0u, h ? st.lw[1] : st.lw[0], src);
+    const int rm = __shfl_sync(~0u, h ? st.rm[1] : st.rm[0], src);
+    const int rw = __shfl_sync(~0u, h ? st.rw[1] : st.rw[0], src);
+    const unsigned o = __shfl_sync(~0u, h ? toff[1] : toff[0], src);
+    const unsigned d = __shfl_sync(~0u, h ? dt[1] : dt[0], src);
+    const bool par = lw < 0;
+    const int lb = par ? (__popc(lane & lm) & 1) : ((lane & lm) == lw);
+    const int rb = par ? (__popc(row & rm) & 1) : ((row & rm) == rw);
+    const unsigned on = par ? (lb ^ rb) : (lb & rb);
+    if (rm == 0) {
+      lsum += o + on * d;
+    } else if (lm == 0) {
+      rsum += o + on * d;
+    } else {
+      rsum += o;
+      lbits |= static_cast<unsigned>(lb) << j;
+      rbits |= static_cast<unsigned>(rb) << j;
+      mpar |= static_cast<unsigned>(par) << j;
+      if (threadIdx.x == 0) dmix[j] = d;
+      ++j;
+    }
+  }
+  unsigned* rturn = reinterpret_cast<unsigned*>(stage_scratch(t));
+  unsigned* rword = rturn + MAX_ROWS;
+  if (threadIdx.x < rows) {
+    rturn[threadIdx.x] = rsum;
+    rword[threadIdx.x] = rbits;
+  }
+  __syncthreads();                   // the row parts and mixed turns are in
+  const int per = (1 << t.bits) / NTHREADS;
+#pragma unroll 4
+  for (int q = 0; q < per; ++q) {
+    const int e = threadIdx.x + q * NTHREADS;
+    const int r = e >> LANE_BITS;
+    unsigned tot = lsum + rturn[r];
+    const unsigned rw = rword[r];
+    const unsigned on = (mpar & (lbits ^ rw)) | (~mpar & lbits & rw);
+    for (int m = 0; m < j; ++m)
+      tot += ((on >> m) & 1u) ? dmix[m] : 0u;
+    float sn, cs;
+    sincospif(static_cast<float>(static_cast<int>(tot)) * 0x1p-31f, &sn, &cs);
+    float re = t.re[e], im = t.im[e];
+    cmul(re, im, cs, sn);
+    t.re[e] = re;
+    t.im[e] = im;
+  }
+}
+
+// The run whose first descriptor is ds (its length in F_RUN) on the tile;
+// returns the length. Each stage's (a, b) pair goes to s_cf (s_ang and
+// s_lm): S5's (tre, tim), S6's (cos, sin), the sine's sign flipped per
+// element (x (cos - i sn) with sn = +-sin is a b of -sn).
+__device__ int diag_run(const Tile& t, const long long* ds,
+                        const float* __restrict__ ops, float* s_cf) {
+  const int k = max(1, static_cast<int>(ds[F_RUN]));
+  float2* cf = reinterpret_cast<float2*>(s_cf);
+  u64* rb = reinterpret_cast<u64*>(stage_scratch(t));
+  const RunStages st = run_stages(ds, ops, k);
+  if (ds[F_FORMS] & 1) {
+    angle_run(t, ds, ops, k, st, s_cf);
+    return k;
+  }
+  const u64 par = static_cast<u64>(__ballot_sync(~0u, st.lw[0] < 0))
+                  | (static_cast<u64>(__ballot_sync(~0u, st.lw[1] < 0)) << 32);
+  if (threadIdx.x < 32) {
+    cf[threadIdx.x] = make_float2(st.a[0], st.b[0]);
+    cf[threadIdx.x + 32] = make_float2(st.a[1], st.b[1]);
+  }
+  // a row word per tile row (every thread computes one: the shuffles)
+  const int rows = 1 << (t.bits - LANE_BITS);
+  const u64 rw = run_word(t.row_id[min(static_cast<int>(threadIdx.x),
+                                       rows - 1)], st.rm, st.rw, k);
+  if (threadIdx.x < rows) rb[threadIdx.x] = rw;
+  const u64 lb = run_word(threadIdx.x & (LANES - 1), st.lm, st.lw, k);
+  const u64 lane_any =
+      static_cast<u64>(__reduce_or_sync(~0u, static_cast<unsigned>(lb)))
+      | (static_cast<u64>(__reduce_or_sync(~0u,
+                                           static_cast<unsigned>(lb >> 32)))
+         << 32);
+  __syncthreads();                   // the row words and pairs are in
+  const int per = (1 << t.bits) / NTHREADS;
+  // 8 elements in flight a thread where the tile has them (11-bit tiles
+  // and up), else 4: on an H100, 16 ran the exact-form diagonal layer 12 %
+  // faster but the flagship at HIGH 4.6 % slower (PERF.md)
+  if (per >= 8) run_rows<8>(t, cf, rb, par, lb, lane_any);
+  else run_rows<4>(t, cf, rb, par, lb, lane_any);
+  return k;
 }
 
 __device__ void pair_stage(const Tile& t, const long long* ds,
@@ -1414,7 +1670,8 @@ __device__ void batchsel_stage(const Tile& t, const long long* ds,
 
 // Row bits taken by the tile index: the free row bits, low bits first, so
 // neighbouring tiles read neighbouring rows (a pdep of `tile` into
-// `free_mask`).
+// `free_mask`). The drivers OR in SweepArgs::fixed_rows: the free bits a
+// launch keeps fixed (see SweepArgs).
 __device__ __forceinline__ int tile_base(unsigned long long tile,
                                          unsigned free_mask) {
   int base = 0;
@@ -1436,10 +1693,16 @@ __device__ __forceinline__ int tile_row(int base, int r, int inner_bits,
   return row;
 }
 
+// free_mask holds the free row bits the tile index walks: 2^popc tiles
+// per state. A segment of S5 stages only can leave out the tiles it cannot
+// change: the free row bits every stage's row predicate fixes to one value
+// are taken out of free_mask, and every tile has them at fixed_rows
+// (ops/segment.py phase_skip); else fixed_rows is 0 and the launch walks
+// every tile.
 struct SweepArgs {
   float* amps;          // the batch's planes, state s at 2 * 2^n * s floats
   int n, tile_bits, inner_bits;
-  unsigned scat_mask, free_mask;
+  unsigned scat_mask, free_mask, fixed_rows;
   const long long* desc;
   int nstages;
   const float* ops;
@@ -1467,8 +1730,9 @@ __device__ __forceinline__ void plane_boxes(const CUtensorMap* map,
   }
 }
 
-// The segment's stages on one resident tile, in order; every driver calls
-// this one function, so the three schedules compute the same bits.
+// The segment's stages on one resident tile, in order (a run of S5/S6
+// stages in one pass, diag_run), a block barrier after each; every driver
+// calls this one function, so the three schedules compute the same bits.
 template <int TIER>
 __device__ __forceinline__ void run_chain(const Tile& t, const SweepArgs& a,
                                           int state, float* s_ang, int* s_lm,
@@ -1488,8 +1752,8 @@ __device__ __forceinline__ void run_chain(const Tile& t, const SweepArgs& a,
           default: mat_dispatch<128, TIER>(t, ds, a.ops, ring); break;
         }
         break;
-      case K_PHASE: phase_stage(t, g); break;
-      case K_PARITY: parity_stage(t, g); break;
+      case K_PHASE:
+      case K_PARITY: s += diag_run(t, ds, a.ops, s_ang) - 1; break;
       case K_MULTIPHASE: multiphase_stage(t, ds, g, s_ang, s_lm, s_rm); break;
       case K_PAIR: pair_stage(t, ds, g); break;
       case K_DIAGVEC: diagvec_stage(t, ds, g); break;
@@ -1545,7 +1809,7 @@ segment_kernel(SweepArgs a, __grid_constant__ const CUtensorMap map,
   PHASE_START(t_block);
   const Tile t{smem, smem + size, row_id, a.tile_bits};
   const int state = a.state0 + static_cast<int>(blockIdx.y);
-  const int base = tile_base(blockIdx.x, a.free_mask);
+  const int base = tile_base(blockIdx.x, a.free_mask) | a.fixed_rows;
   const int reqs = rows >> (cu.b2 + cu.b3);        // boxes a plane
   if (threadIdx.x == 0) {
     for (int i = 0; i < 1 + OP_SLOTS; ++i) mbar_init(&bars[i], 1);
@@ -1634,7 +1898,7 @@ ring_kernel(SweepArgs a, int slots, long long steps,
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       smem + slots * size + EXTRA_WORDS + OP_SLOTS * OP_SLICE_FLOATS);
 
-  const int tile_shift = a.n - a.tile_bits;         // log2 tiles per state
+  const int tile_shift = __popc(a.free_mask);       // log2 tiles per state
   const unsigned plane_bytes = static_cast<unsigned>(size) * 4u;
   // a part is 2^part_log2 consecutive tile rows, `reqs` boxes of
   // 2^(b2 + b3) rows
@@ -1662,7 +1926,8 @@ ring_kernel(SweepArgs a, int slots, long long steps,
     const long long g = blockIdx.x + static_cast<long long>(kj) * gridDim.x;
     const int plane = 2 * (a.state0 + static_cast<int>(g >> tile_shift))
                       + (j & 1);
-    const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask);
+    const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask)
+                     | a.fixed_rows;
     uint64_t* bar = &bars[kj % slots];
     if ((j & 1) == 0) mbar_arrive_expect(bar, 2 * plane_bytes);
     float* dst = smem + (j % slots) * size;
@@ -1680,7 +1945,8 @@ ring_kernel(SweepArgs a, int slots, long long steps,
     PHASE_START(t_step);
     const long long g = blockIdx.x + static_cast<long long>(k) * gridDim.x;
     const int state = a.state0 + static_cast<int>(g >> tile_shift);
-    const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask);
+    const int base = tile_base(g & ((1ull << tile_shift) - 1), a.free_mask)
+                     | a.fixed_rows;
     for (int r = threadIdx.x; r < rows; r += NTHREADS)
       row_id[r] = tile_row(base, r, a.inner_bits, a.scat_mask);
     __syncthreads();
@@ -1964,9 +2230,11 @@ int quest_segment_tma_encode(void* amps, int n, int tile_bits, int inner_bits,
 // (T_HIGHEST, T_HIGH or T_DEFAULT), under `driver` (D_DECOUPLED,
 // D_INPLACE with `slots` plane slots, or D_GRID, whose launch takes at
 // most MAX_GRID_BATCH states) with `smem` bytes of dynamic shared memory.
-// Every driver moves each plane as `box_rows`-row boxes (the ring drivers
-// in `parts` parts) through a tensor map over the whole batch, encoded
-// here per launch (it holds `amps`). Returns the launch's cudaError_t, or
+// Each state's tiles are the 2^popc(free_mask) `blocks` values of its
+// free row bits, fixed_rows ORed in (SweepArgs). Every driver moves each
+// plane as `box_rows`-row boxes (the ring drivers in `parts` parts)
+// through a tensor map over the whole batch, encoded here per launch (it
+// holds `amps`). Returns the launch's cudaError_t, or
 // encode_map's code when the map is refused (no launch then): nothing is
 // allocated and nothing is synchronised here.
 #ifdef QUEST_PHASE_COUNTERS
@@ -1995,12 +2263,17 @@ int quest_segment_phase_cycles(unsigned long long* out, int reset) {
 
 int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
                         unsigned scat_mask, unsigned free_mask,
-                        const void* desc, int nstages, const void* ops,
+                        unsigned fixed_rows, const void* desc, int nstages, const void* ops,
                         long long blocks, int batch, int state0, int states,
                         const void* sel, int tier, int driver, int slots,
                         int parts, int box_rows, long long smem,
                         void* stream) {
+  const unsigned row_bits = (1u << (n - LANE_BITS)) - 1u;
+  const unsigned inner = (1u << inner_bits) - 1u;
   if (tile_bits < LANE_BITS + 3 || tile_bits > MAX_TILE_BITS
+      || (free_mask & (scat_mask | inner)) || (free_mask & ~row_bits)
+      || (fixed_rows & (free_mask | scat_mask | inner | ~row_bits))
+      || blocks != (1ll << __builtin_popcount(free_mask))
       || batch < 1 || state0 < 0 || states < 1
       || static_cast<long long>(state0) + states > batch
       || (driver == D_GRID && states > MAX_GRID_BATCH) || blocks < 1
@@ -2008,7 +2281,8 @@ int quest_segment_sweep(void* amps, int n, int tile_bits, int inner_bits,
       || smem < quest_segment_smem_bytes(tile_bits, driver, slots))
     return static_cast<int>(cudaErrorInvalidValue);
   const SweepArgs a{static_cast<float*>(amps), n, tile_bits, inner_bits,
-                    scat_mask, free_mask, static_cast<const long long*>(desc),
+                    scat_mask, free_mask, fixed_rows,
+                    static_cast<const long long*>(desc),
                     nstages, static_cast<const float*>(ops), batch,
                     static_cast<const float*>(sel), state0};
   auto* st = static_cast<cudaStream_t>(stream);

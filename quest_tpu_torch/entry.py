@@ -42,7 +42,10 @@ The two other density circuits the smoke test drives are here too:
 bench_density_circuit (the repo's density bench scenario: rotations,
 damping, a 2-qubit depolarising Kraus map and a Pauli Kraus map) and
 clifford_t_density_circuit (Clifford+T gates and damping on every
-qubit, whose plans carry general diagonals).
+qubit, whose plans carry general diagonals). Two diagonal circuits whose
+plans are long runs of phase and parity stages: diag_layer_circuit (the
+cost layer of a QAOA MaxCut step on a ring, or the diagonal block of an
+IQP circuit) and cz_brick_circuit.
 """
 
 from __future__ import annotations
@@ -94,6 +97,31 @@ def noisy_rcs_circuit(num_qubits: int = DENSITY_QUBITS,
         for q in range(num_qubits):
             c.depolarising(q, 0.02)
         c.damping(int(rng.integers(0, num_qubits)), 0.05)
+    return c
+
+
+def diag_layer_circuit(num_qubits: int = FLAGSHIP_QUBITS,
+                       seed: int = 10) -> Circuit:
+    """rz on every qubit, then cphase on every edge (q, q + 1 mod n) of a
+    ring, angles uniform in [0, 2 pi) from `seed`: a QAOA MaxCut cost
+    layer on a ring. At 28 qubits the planner makes it one launch of 54
+    stages: a phase, a multiphase, then a run of 28 parity and 24 phase
+    stages."""
+    rng = np.random.default_rng(seed)
+    c = Circuit(num_qubits)
+    for q in range(num_qubits):
+        c.rz(q, float(rng.uniform(0, 2 * np.pi)))
+    for q in range(num_qubits):
+        c.cphase(float(rng.uniform(0, 2 * np.pi)), q, (q + 1) % num_qubits)
+    return c
+
+
+def cz_brick_circuit(num_qubits: int = FLAGSHIP_QUBITS) -> Circuit:
+    """cz on (0, 1), (2, 3), ...: one launch of a multiphase and a run of
+    phase stages at 28 qubits."""
+    c = Circuit(num_qubits)
+    for q in range(0, num_qubits - 1, 2):
+        c.cz(q, q + 1)
     return c
 
 

@@ -1170,14 +1170,18 @@ def tma_boxes(geo: Geometry, batch: int = 1, *, parts: int = TMA_PARTS,
     return rec
 
 
-def tile_rows(geo: Geometry, tile: int) -> List[int]:
+def tile_rows(geo: Geometry, tile: int,
+              skip: Tuple[int, int] = (0, 0)) -> List[int]:
     """Global row of each tile row of tile `tile` (slot order), as csrc
     tile_base and tile_row build it: the tile index spread over the free
-    row bits (low first), then the inner rows and the scattered bits."""
+    row bits (low first), then the inner rows and the scattered bits.
+    `skip` = (fixed mask, fixed rows) of a launch that holds some free
+    bits fixed (ops.segment.phase_skip): the index walks the other free
+    bits, and those take their fixed value."""
     scat = sorted(geo.scat)
     free = [b for b in range(geo.inner_bits, geo.n - LANE_QUBITS)
-            if b not in geo.scat]
-    base = sum(((tile >> k) & 1) << b for k, b in enumerate(free))
+            if b not in geo.scat and not (skip[0] >> b) & 1]
+    base = sum(((tile >> k) & 1) << b for k, b in enumerate(free)) | skip[1]
     rows = []
     for r in range(geo.rows_eff):
         row = base | (r & ((1 << geo.inner_bits) - 1))
@@ -1187,13 +1191,15 @@ def tile_rows(geo: Geometry, tile: int) -> List[int]:
     return rows
 
 
-def tma_requests(boxes: dict, geo: Geometry, tile: int) -> List[tuple]:
+def tma_requests(boxes: dict, geo: Geometry, tile: int,
+                 skip: Tuple[int, int] = (0, 0)) -> List[tuple]:
     """(part, first tile row, (c1, c2, c3, c4)) of each request that moves
-    one plane of tile `tile` under `boxes` (tma_boxes), in the kernel's
-    order; the plane's coordinate (2 * state + plane) comes fifth. Raises
-    ValueError if a box would leave the tensor: TMA would count the full
-    box either way, and the step's mbarrier would never complete."""
-    rows = tile_rows(geo, tile)
+    one plane of tile `tile` (of a launch holding `skip`, tile_rows) under
+    `boxes` (tma_boxes), in the kernel's order; the plane's coordinate (2
+    * state + plane) comes fifth. Raises ValueError if a box would leave
+    the tensor: TMA would count the full box either way, and the step's
+    mbarrier would never complete."""
+    rows = tile_rows(geo, tile, skip)
     s0, w = boxes["s0"], boxes["w"]
     per_part = len(rows) // boxes["parts"]
     out = []

@@ -64,12 +64,27 @@ drivers give bit-identical planes; the plain version is the same for all
 three. A
 segment with no stages is the stage-free copy (the reference's
 compile_segment((), ()) of its profiler): each tile loaded and stored.
+
+S5 and S6 run as runs: the packer writes into the first descriptor of
+each maximal run of consecutive phase and parity stages (at most
+MAX_DIAG_RUN, `diag_runs`) its length (F_RUN), and the kernel applies the
+whole run in one pass over the tile, each stage's formula in stage order
+(bit for bit the same stages as one-stage segments). A run of at least
+ANGLE_MIN_RUN stages whose factors all have unit modulus takes the angle
+form instead (`angle_table`): each element's turns summed exactly in
+32-bit integers, then one sincospi and one complex multiply; its planes
+agree with the plain version within the stage tolerance, not bit for
+bit. A segment of phase stages only launches just the tiles it can
+change (`phase_skip`): the free row bits every stage's predicate fixes
+to one value leave the tile index (free_mask) and ride in fixed_rows, so
+`Segment.tiles` counts 2^popcount(free_mask) tiles a state.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import FrozenSet, Sequence, Tuple
 
 import numpy as np
@@ -85,14 +100,19 @@ from quest_tpu_torch.ops.band_plan import (
     PhaseStage, MAX_RING_SLOTS, OP_SLICE_BYTES, check_driver,
     TMA_PARTS, segment_geometry, smem_layout, tma_boxes)
 
-DESC_WORDS = 17
+DESC_WORDS = 18
 # descriptor columns (csrc/segment.cu enum F_*)
 (F_KIND, F_DIM, F_POS, F_REAL, F_SI, F_SJ, F_LANE_MASK, F_LANE_WANT,
  F_ROW_MASK, F_ROW_WANT, F_OP_OFF, F_FORMS, F_MASKED, F_TARGETS,
- F_POS2, F_SLOT, F_TIER) = range(17)
+ F_POS2, F_SLOT, F_TIER, F_RUN) = range(18)
 K_MAT, K_PHASE, K_PARITY, K_MULTIPHASE, K_PAIR, K_DIAGVEC, K_BATCHSEL = range(7)
 MAT_DIMS = (2, 4, 8, 16, 32, 64, 128)
 MAX_MULTIPHASE_ROWS = 64
+MAX_DIAG_RUN = 64             # S5/S6 stages of one run (csrc MAX_DIAG_RUN)
+ANGLE_MIN_RUN = 8             # runs from this length may take the angle form
+MAX_MIXED = 32                # its stages with a lane and a row mask, at most
+UNIT_TOL = 1e-6               # |factor| - 1 of a unit-modulus stage, at most
+TURN = 2.0 ** 32              # the angle form's turn: 2 pi
 MAX_TILE_BITS = 14
 MAX_DIAG_TARGETS = 7          # fusion.DIAG_FUSE_MAX
 TARGET_BITS = 6               # bits per qubit index in F_TARGETS
@@ -150,7 +170,10 @@ class Segment:
     # the plain version: views into `ops`, except the embedded 128x128
     # blocks of 'lane'/'b1' pairs (the kernel's buffer holds their cores)
     scat_mask: int                       # scattered global row bits
-    free_mask: int                       # row bits taken by the block index
+    free_mask: int                       # row bits taken by the tile index
+    fixed_mask: int                      # free row bits held fixed instead
+    # (a segment of phase stages only, phase_skip; else 0)
+    fixed_rows: int                      # their value in every tile
     labels: FrozenSet[str]               # stage_label of each stage
     slots: Tuple[int, ...]               # selection-table slots read by
     # its BatchSelStages, in stage order
@@ -162,6 +185,12 @@ class Segment:
     @property
     def device(self) -> torch.device:
         return self.ops.device
+
+    @property
+    def tiles(self) -> int:
+        """Tiles one launch runs per state: 2^popcount(free_mask), the
+        geometry's blocks unless phase_skip held free bits fixed."""
+        return 1 << bin(self.free_mask).count("1")
 
 
 def _preds_masks(preds):
@@ -378,6 +407,74 @@ def _batchsel_row(st: BatchSelStage, geo: Geometry) -> list:
     return row
 
 
+def diag_runs(kinds: Sequence[int]) -> list:
+    """(first stage, length) of each run of descriptor kinds `kinds`:
+    the maximal runs of consecutive K_PHASE / K_PARITY stages, each cut
+    into pieces of at most MAX_DIAG_RUN (a run is one 64-bit word per
+    lane and per row in the kernel)."""
+    runs, s = [], 0
+    while s < len(kinds):
+        if kinds[s] not in (K_PHASE, K_PARITY):
+            s += 1
+            continue
+        e = s
+        while (e < len(kinds) and kinds[e] in (K_PHASE, K_PARITY)
+               and e - s < MAX_DIAG_RUN):
+            e += 1
+        runs.append((s, e - s))
+        s = e
+    return runs
+
+
+def angle_table(stages: Sequence, arrays: Sequence[np.ndarray]):
+    """The angle form's int32 table (k, 2) of a run of phase and parity
+    stages — per stage T_off, the element's turn where its bit is clear,
+    and D, what its bit adds, in units of 2 pi / 2^32 — or None when the
+    run keeps the exact form: shorter than ANGLE_MIN_RUN, a factor whose
+    modulus is not 1 within UNIT_TOL, or more than MAX_MIXED stages with
+    both a lane and a row mask. S5 (tre, tim): 0 and its phase; S6 (cos
+    h, sin h), whose factor is cos h - i sin h (-1)^parity: -h and 2h.
+    The angles are taken in f64 from the f32 operands."""
+    if len(stages) < ANGLE_MIN_RUN:
+        return None
+    rows, mixed = [], 0
+    for st, arr in zip(stages, arrays):
+        a, b = float(arr[0, 0]), float(arr[0, 1])
+        if abs(math.hypot(a, b) - 1.0) > UNIT_TOL:
+            return None
+        turn = round(math.atan2(b, a) / (2 * math.pi) * TURN)
+        rows.append((0, turn) if isinstance(st, PhaseStage)
+                    else (-turn, 2 * turn))
+        rm = (_row_mask(arr[0, 4], arr[0, 5]) if isinstance(st, PhaseStage)
+              else _row_mask(arr[0, 3], arr[0, 4]))
+        mixed += bool(int(arr[0, 2]) and rm)
+    if mixed > MAX_MIXED:
+        return None
+    t = np.array(rows, np.int64) % (1 << 32)
+    return t.astype(np.uint32).view(np.int32)
+
+
+def phase_skip(stages: Sequence, arrays: Sequence[np.ndarray],
+               free_mask: int) -> Tuple[int, int]:
+    """(fixed mask, fixed rows) of a segment: for a non-empty segment of
+    PhaseStages only, the bits of `free_mask` (the free row bits of its
+    tiles) that every stage's row predicate fixes to one value, and that
+    value; its launch runs only the tiles whose free bits hold it (every
+    amplitude of another tile fails some stage's predicate, so no stage
+    changes it). (0, 0) for any other segment."""
+    if not stages or not all(isinstance(st, PhaseStage) for st in stages):
+        return 0, 0
+    mask, want = free_mask, None
+    for arr in arrays:
+        rm, rw = _row_mask(arr[0, 4], arr[0, 5]), _row_mask(arr[0, 6],
+                                                            arr[0, 7])
+        mask &= rm
+        if want is not None:
+            mask &= ~(rw ^ want)
+        want = rw
+    return mask, want & mask
+
+
 def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
                     device, budgets: Budgets = HOPPER_GEOMETRY,
                     tier: str = None, driver: str = None,
@@ -445,6 +542,16 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
         chunks.append(kernel_arr.reshape(-1))
         offs.append(off)
         off += kernel_arr.size
+    # each run's length in its head; a long unit-modulus run's angle table
+    # after the operands (F_FORMS bit 0, F_TARGETS its offset)
+    for first, length in diag_runs([r[F_KIND] for r in rows]):
+        rows[first][F_RUN] = length
+        table = angle_table(stages[first:first + length],
+                            arrays[first:first + length])
+        if table is not None:
+            rows[first][F_FORMS], rows[first][F_TARGETS] = 1, off
+            chunks.append(table.reshape(-1).view(np.float32))
+            off += table.size
     # the kernel's buffer holds each operand as it reads it (pair cores);
     # `operands` keeps the planner's arrays for the plain version
     flat = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
@@ -459,10 +566,12 @@ def prepare_segment(stages: Sequence, arrays: Sequence[np.ndarray], n: int,
     scat_mask = sum(1 << s for s in geo.scat)
     free_mask = (((1 << row_bits) - 1) & ~scat_mask
                  & ~((1 << geo.inner_bits) - 1))
+    fixed_mask, fixed_rows = phase_skip(stages, arrays, free_mask)
     return Segment(n=n, stages=tuple(stages), arrays=arrays, geometry=geo,
                    desc=torch.from_numpy(desc).to(dev), ops=ops,
                    operands=operands, scat_mask=scat_mask,
-                   free_mask=free_mask,
+                   free_mask=free_mask & ~fixed_mask, fixed_mask=fixed_mask,
+                   fixed_rows=fixed_rows,
                    labels=frozenset(stage_label(st, tier) for st in stages),
                    slots=tuple(st.index for st in stages
                                if isinstance(st, BatchSelStage)),
@@ -479,9 +588,9 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_quest_declared", False):
         vp, ci, cu, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                            ctypes.c_longlong)
-        lib.quest_segment_sweep.argtypes = [vp, ci, ci, ci, cu, cu, vp, ci,
-                                            vp, cll, ci, ci, ci, vp, ci, ci,
-                                            ci, ci, ci, cll, vp]
+        lib.quest_segment_sweep.argtypes = [vp, ci, ci, ci, cu, cu, cu, vp,
+                                            ci, vp, cll, ci, ci, ci, vp, ci,
+                                            ci, ci, ci, ci, cll, vp]
         lib.quest_segment_sweep.restype = ci
         lib.quest_segment_tma_geometry.argtypes = [ci, ci, ci, cu, ci, ci,
                                                    ci, vp]
@@ -633,15 +742,16 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
                          "(tensor-map copies)")
     lib = _lib()
     geo = seg.geometry
-    lay = smem_layout(geo.tile_bits, geo.blocks * batch, seg.driver, seg.nbuf)
+    lay = smem_layout(geo.tile_bits, seg.tiles * batch, seg.driver, seg.nbuf)
     boxes = tma_unit(seg, batch, copy_unit)
     with torch.cuda.device(amps.device):
         stream = torch.cuda.current_stream(amps.device).cuda_stream
         for state0, states in grid_batch_slices(batch, seg.driver):
             rc = lib.quest_segment_sweep(
                 amps.data_ptr(), seg.n, geo.tile_bits, geo.inner_bits,
-                seg.scat_mask, seg.free_mask, seg.desc.data_ptr(),
-                len(seg.stages), seg.ops.data_ptr(), geo.blocks, batch,
+                seg.scat_mask, seg.free_mask, seg.fixed_rows,
+                seg.desc.data_ptr(), len(seg.stages), seg.ops.data_ptr(),
+                seg.tiles, batch,
                 state0, states, sel.data_ptr() if seg.slots else None,
                 TIER_CODE[seg.tier], DRIVER_CODE[seg.driver], lay["slots"],
                 boxes["parts"], boxes["box_rows"], lay["total_bytes"], stream)

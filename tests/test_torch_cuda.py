@@ -710,3 +710,144 @@ def test_xla_engines_on_the_card_match_the_cpu(card, engine, dtype):
     tol = 1e-4 if rdt == np.float32 else 1e-12
     scale = out["cpu"].abs().max().item()
     assert (out["cuda"] - out["cpu"]).abs().max().item() <= tol * scale
+
+
+# ---- S5/S6 runs and the tile skip of phase-only launches ----
+
+ALL_DRIVERS = [("decoupled", 3), ("inplace", 3), ("grid", 3)]
+
+
+def _diag_ops(rng, k, row_bits, unit=True):
+    """k random phase and parity stages (masks over the lanes and
+    `row_bits` row bits; every third stage has no lane mask and every
+    third no row mask, so at most a third have both); with `unit` False
+    one factor has modulus 1.5, so every run keeps the exact form."""
+    ops = []
+    for s in range(k):
+        lm = int(rng.integers(0, 128)) * (s % 3 != 0)
+        rm = int(rng.integers(0, 1 << row_bits)) * (s % 3 != 1)
+        if s % 2:
+            h = rng.uniform(0, np.pi)
+            ops.append((BP.ParityStage(), np.array(
+                [[np.cos(h), np.sin(h), lm, rm & 0x7FFF, rm >> 15, 0, 0, 0]],
+                np.float32)))
+        else:
+            t = np.exp(1j * rng.uniform(0, 2 * np.pi)) * (1 if unit or s
+                                                          else 1.5)
+            lw, rw = lm & int(rng.integers(0, 128)), rm & int(
+                rng.integers(0, 1 << row_bits))
+            ops.append((BP.PhaseStage(), np.array(
+                [[t.real, t.imag, lm, lw, rm & 0x7FFF, rm >> 15, rw & 0x7FFF,
+                  rw >> 15]], np.float32)))
+    return [s for s, _ in ops], [a for _, a in ops]
+
+
+@pytest.mark.parametrize("driver,nbuf", ALL_DRIVERS, ids=lambda v: str(v))
+@pytest.mark.parametrize("k", [2, 7, 20, 64])
+def test_exact_run_equals_its_stages_one_per_segment(card, k, driver, nbuf):
+    """A run of k S5/S6 stages that keeps the exact form (a factor of
+    modulus 1.5 in it) gives, under each driver, the planes of the same k
+    stages launched as k one-stage segments, bit for bit."""
+    n = 20
+    rng = np.random.default_rng(k)
+    stages, arrays = _diag_ops(rng, k, n - 7, unit=False)
+    planes = torch.from_numpy(rng.standard_normal((2, 1 << n)).astype(
+        np.float32)).to(card)
+    seg = S.prepare_segment(stages, arrays, n, card, driver=driver, nbuf=nbuf)
+    assert not seg.desc[0, S.F_FORMS].item() & 1
+    got = planes.clone()
+    S.segment_sweep(got, seg)
+    want = planes.clone()
+    for st, arr in zip(stages, arrays):
+        S.segment_sweep(want, S.prepare_segment([st], [arr], n, card,
+                                                driver=driver, nbuf=nbuf))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [8, 30, 64])
+def test_angle_form_run_matches_plain_on_every_driver(card, k):
+    """A unit-modulus run of k >= 8 stages takes the angle form: within
+    1e-5 x max|amp| of the plain version and of its stages one per
+    segment, and bit for bit the same under K1, K2 and K3."""
+    n = 20
+    rng = np.random.default_rng(100 + k)
+    stages, arrays = _diag_ops(rng, k, n - 7)
+    planes = torch.from_numpy(rng.standard_normal((2, 1 << n)).astype(
+        np.float32)).to(card)
+    want = S.segment_sweep_reference(planes, stages, arrays, n).reshape(
+        planes.shape)
+    scale = want.abs().max().item()
+    outs = []
+    for driver, nbuf in ALL_DRIVERS:
+        seg = S.prepare_segment(stages, arrays, n, card, driver=driver,
+                                nbuf=nbuf)
+        assert seg.desc[0, S.F_FORMS].item() & 1
+        got = planes.clone()
+        S.segment_sweep(got, seg)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+        outs.append(got)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("driver,nbuf", ALL_DRIVERS, ids=lambda v: str(v))
+@pytest.mark.parametrize("batch", [0, 5])
+def test_skipped_tiles_stay_as_they_were(card, batch, driver, nbuf):
+    """Phase stages only, every one fixing row bits 12 and 9: the launch
+    runs a quarter of the tiles; against the plain version, and every row
+    outside them byte-equal to the input."""
+    n = 21
+    rng = np.random.default_rng(7 + batch)
+    stages, arrays = [], []
+    for lm, lw, extra in ((1, 1, 1 << 3), (0, 0, 1 << 5), (6, 2, 0)):
+        rm, rw = (1 << 12) | (1 << 9) | extra, 1 << 12
+        t = np.exp(1j * rng.uniform(0, 2 * np.pi))
+        stages.append(BP.PhaseStage())
+        arrays.append(np.array([[t.real, t.imag, lm, lw, rm & 0x7FFF,
+                                 rm >> 15, rw & 0x7FFF, rw >> 15]],
+                               np.float32))
+    seg = S.prepare_segment(stages, arrays, n, card, driver=driver, nbuf=nbuf)
+    assert seg.fixed_mask == (1 << 12) | (1 << 9)
+    assert seg.tiles == seg.geometry.blocks // 4
+    shape = (batch, 2, 1 << n) if batch else (2, 1 << n)
+    planes = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card)
+    want = S.segment_sweep_reference(planes, stages, arrays, n).reshape(shape)
+    got = planes.clone()
+    S.segment_sweep(got, seg)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    rows = torch.arange(1 << (n - 7), device=card)
+    out = (rows & seg.fixed_mask) != seg.fixed_rows
+    view = (-1, 2, 1 << (n - 7), 128)
+    assert torch.equal(got.reshape(view)[:, :, out],
+                       planes.reshape(view)[:, :, out])
+
+
+def test_skipped_tiles_above_the_grid_limit(card):
+    """65,539 states of 10 qubits under K3 (slices of 65,535) through a
+    phase-only segment on row bit 2 (10 qubits: inner rows only, no skip)
+    and a 17-qubit batch of 600 states whose free row bit 8 is fixed: the
+    plain version's planes, the rows outside the launched tiles byte-equal
+    to the input."""
+    for n, batch, rb in ((10, BIG_BATCH, 1 << 2), (17, 600, 1 << 8)):
+        rng = np.random.default_rng(n)
+        t = np.exp(1j * rng.uniform(0, 2 * np.pi))
+        arr = np.array([[t.real, t.imag, 1, 1, rb, 0, rb, 0]], np.float32)
+        seg = S.prepare_segment([BP.PhaseStage()], [arr], n, card,
+                                driver="grid")
+        planes = torch.from_numpy(rng.standard_normal(
+            (batch, 2, 1 << n)).astype(np.float32)).to(card)
+        want = S.segment_sweep_reference(planes, seg.stages, seg.operands, n)
+        got = planes.clone()
+        S.segment_sweep(got, seg)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        assert (got - want.reshape(got.shape)).abs().max().item() <= (
+            1e-5 * scale)
+        rows = torch.arange(1 << (n - 7), device=card)
+        out = (rows & rb) == 0
+        view = (batch, 2, 1 << (n - 7), 128)
+        assert torch.equal(got.reshape(view)[:, :, out],
+                           planes.reshape(view)[:, :, out])

@@ -60,12 +60,19 @@ LANE_BITS = 7
 
 
 def emulate_kernel(planes: np.ndarray, seg: S.Segment,
-                   sel: np.ndarray = None) -> np.ndarray:
+                   sel: np.ndarray = None, *,
+                   sequential: bool = False) -> np.ndarray:
     """numpy model of csrc/segment.cu on (2, 2^n) planes, or on a batch
-    (B, 2, 2^n) launched as grid (blocks, B): each state's planes at
+    (B, 2, 2^n) launched as grid (tiles, B): each state's planes at
     offset state * 2 * 2^n of the flat buffer. Per block, the tile's
-    global rows from blockIdx.x (free bits) + inner rows + scattered
-    bits, then each descriptor applied to the tile as the kernel does
+    global rows from blockIdx.x (free bits, Segment.free_mask) +
+    fixed_rows + inner rows + scattered bits, over the launch's
+    Segment.tiles tiles a state (a tile a phase-only segment skips keeps
+    its input); a run of phase and parity stages (F_RUN in its first
+    descriptor) as diag_run applies it, each element's stage bits from
+    the run's lane and row words (run_words), or in the angle form from
+    its summed turns (angle_turns); every other descriptor
+    applied to the tile as the kernel does
     (matrix stages as a (fibers x D) product at tile position F_POS with
     operand strides F_SI/F_SJ, predicates as lane/row masks, phase rows
     decoded from the f32 operand; Kraus pairs as a 4x4 butterfly on the
@@ -73,7 +80,9 @@ def emulate_kernel(planes: np.ndarray, seg: S.Segment,
     diagonals as a table lookup by the target bits of each element's
     global index; a BatchSelStage as a 2x2 butterfly on tile bit F_POS
     with row (F_SLOT * B + state) * 8 of the flat selection table `sel`
-    (slots, B, 8)). Returns new planes of the input's shape."""
+    (slots, B, 8)). Returns new planes of the input's shape.
+    `sequential`: the model before runs and the skip — every tile of the
+    geometry, each phase and parity stage alone from its predicate."""
     n = seg.n
     flat = planes.reshape(-1).astype(np.float64).copy()
     batch = flat.size // (2 << n)
@@ -81,47 +90,190 @@ def emulate_kernel(planes: np.ndarray, seg: S.Segment,
     for state in range(batch):
         view = flat[state * (2 << n):(state + 1) * (2 << n)]
         view[:] = _emulate_state(view.reshape(2, -1), seg, table, batch,
-                                 state).reshape(-1)
+                                 state, sequential).reshape(-1)
     return flat.reshape(planes.shape)
 
 
-def _emulate_state(planes, seg, table, batch, state_idx):
+def rmask(lo, hi):
+    """A row mask from its f32 halves split at bit 15 (csrc row_mask)."""
+    return int(lo) | (int(hi) << 15)
+
+
+def _parity_bits(x):
+    out = np.zeros_like(x)
+    for b in range(32):
+        out ^= (x >> b) & 1
+    return out
+
+
+def run_bits(x, descs, ops, row: bool) -> np.ndarray:
+    """csrc run_bits: uint64 word of each x (lanes, or with `row` tile
+    rows' global ids) under the run's descriptors `descs` (k rows): bit s
+    is, for a phase stage, whether x matches its lane (row) predicate; for
+    a parity stage, the parity of x under its lane (row) mask."""
+    x = np.asarray(x, np.int64)
+    out = np.zeros(x.shape, np.uint64)
+    for s, d in enumerate(descs):
+        g = ops[int(d[S.F_OP_OFF]):]
+        if int(d[S.F_KIND]) == S.K_PHASE:
+            m, w = ((rmask(g[4], g[5]), rmask(g[6], g[7])) if row
+                    else (int(g[2]), int(g[3])))
+            on = (x & m) == w
+        else:
+            m = rmask(g[3], g[4]) if row else int(g[2])
+            on = _parity_bits(x & m) == 1
+        out |= on.astype(np.uint64) << np.uint64(s)
+    return out
+
+
+def run_words(descs, ops, lanes, rows):
+    """(par, L, R) of a run as diag_run builds them: bit s of par is set
+    for a parity stage; L and R are run_bits of the lanes and tile rows."""
+    par = sum(1 << s for s, d in enumerate(descs)
+              if int(d[S.F_KIND]) == S.K_PARITY)
+    return (np.uint64(par), run_bits(lanes, descs, ops, False),
+            run_bits(rows, descs, ops, True))
+
+
+def run_element_bits(par, lw, rw):
+    """Each element's stage bits from its lane word and row word: S5
+    applies where bit s of L & R is set, S6 takes the minus sign of its
+    sine where bit s of L ^ R is (csrc run_rows)."""
+    return (par & (lw ^ rw)) | (~par & lw & rw)
+
+
+def _stage_masks(d, ops):
+    """(lane mask, lane want, row mask, row want) of a phase or parity
+    descriptor's operand, wants -1 for parity (csrc RunStages)."""
+    g = ops[int(d[S.F_OP_OFF]):]
+    if int(d[S.F_KIND]) == S.K_PHASE:
+        return int(g[2]), int(g[3]), rmask(g[4], g[5]), rmask(g[6], g[7])
+    return int(g[2]), -1, rmask(g[3], g[4]), -1
+
+
+def _stage_bits(x, m, w):
+    """Each x's bit under mask m and want w (w < 0: parity)."""
+    x = np.asarray(x, np.int64)
+    return (_parity_bits(x & m) if w < 0 else ((x & m) == w)).astype(np.int64)
+
+
+def angle_turns(descs, raw, lanes, rows):
+    """csrc angle_run's turns (rows, lanes), uint64 below 2^32: the lane
+    part (stages with no row mask), the row part (stages with no lane
+    mask, and every T_off of the rest) and the mixed stages' bits, summed
+    as the kernel splits them."""
+    head = descs[0]
+    tab = raw.view(np.int32)[int(head[S.F_TARGETS]):][:2 * len(descs)]
+    tab = tab.astype(np.int64).reshape(-1, 2)
+    lanes, rows = np.asarray(lanes, np.int64), np.asarray(rows, np.int64)
+    lsum, rsum = np.zeros(lanes.shape, np.int64), np.zeros(rows.shape, np.int64)
+    mixed = np.zeros((len(rows), len(lanes)), np.int64)
+    for d, (o, dd) in zip(descs, tab):
+        lm, lw, rm, rw = _stage_masks(d, raw)
+        lb, rb = _stage_bits(lanes, lm, lw), _stage_bits(rows, rm, rw)
+        on = (lb[None, :] ^ rb[:, None]) if lw < 0 else (lb[None, :]
+                                                         & rb[:, None])
+        if rm == 0:
+            lsum += o + on[0] * dd
+        elif lm == 0:
+            rsum += o + on[:, 0] * dd
+        else:
+            rsum += o
+            mixed += on * dd
+    return (lsum[None, :] + rsum[:, None] + mixed) % (1 << 32)
+
+
+def direct_turns(descs, raw, lanes, rows):
+    """The same turns summed stage by stage for every element: T_off + bit
+    x D."""
+    head = descs[0]
+    tab = raw.view(np.int32)[int(head[S.F_TARGETS]):][:2 * len(descs)]
+    tot = np.zeros((len(rows), len(lanes)), np.int64)
+    for d, (o, dd) in zip(descs, tab.astype(np.int64).reshape(-1, 2)):
+        lm, lw, rm, rw = _stage_masks(d, raw)
+        lb, rb = _stage_bits(lanes, lm, lw), _stage_bits(rows, rm, rw)
+        on = (lb[None, :] ^ rb[:, None]) if lw < 0 else (lb[None, :]
+                                                         & rb[:, None])
+        tot += o + on * dd
+    return tot % (1 << 32)
+
+
+def _emulate_run(x, descs, ops, lane, row_ids, e, raw):
+    """A run on one tile's elements x, as diag_run applies it: the run's
+    stages in order, each element's bits from the run's words; or, for a
+    run in the angle form (F_FORMS bit 0 of its head), each element times
+    e^{i pi T / 2^31} of its turns T (angle_turns; T as int32, then f32,
+    as the kernel converts it)."""
+    if int(descs[0][S.F_FORMS]) & 1:
+        t = angle_turns(descs, raw, np.arange(128), row_ids)
+        t = t.astype(np.uint32).view(np.int32).astype(np.float32)
+        ang = (t * np.float32(2.0 ** -31)).astype(np.float64) * np.pi
+        return x * np.exp(1j * ang).reshape(-1)
+    par, lw, rw = run_words(descs, ops, np.arange(128), row_ids)
+    on = run_element_bits(par, lw[lane], rw[e >> 7])
+    for s, d in enumerate(descs):
+        g = ops[int(d[S.F_OP_OFF]):]
+        bit = ((on >> np.uint64(s)) & np.uint64(1)).astype(np.int64)
+        if int(d[S.F_KIND]) == S.K_PHASE:
+            x = np.where(bit == 1, x * (g[0] + 1j * g[1]), x)
+        else:
+            x = x * (g[0] - 1j * g[1] * (1 - 2 * bit))
+    return x
+
+
+def tile_base(seg, blk, sequential=False):
+    """Global row bits of tile `blk` of a launch of `seg` (csrc
+    tile_base | fixed_rows): the index spread over the free bits it walks
+    (every free bit of the geometry when `sequential`), OR'd with the
+    fixed rows."""
+    free_mask, fixed = seg.free_mask, seg.fixed_rows
+    if sequential:
+        free_mask, fixed = free_mask | seg.fixed_mask, 0
+    free = [b for b in range(32) if (free_mask >> b) & 1]
+    return fixed | sum(((blk >> k) & 1) << bit for k, bit in enumerate(free))
+
+
+def launch_tiles(seg, sequential=False):
+    """tile_base of every tile one launch of `seg` runs per state."""
+    tiles = seg.geometry.blocks if sequential else seg.tiles
+    return [tile_base(seg, blk, sequential) for blk in range(tiles)]
+
+
+def _emulate_state(planes, seg, table, batch, state_idx, sequential=False):
     """emulate_kernel on the blocks of state `state_idx` of the launch."""
     n, geo = seg.n, seg.geometry
     desc = seg.desc.cpu().numpy()
     raw = seg.ops.cpu().numpy()
-    ops = raw.astype(np.float64)
+    with np.errstate(invalid="ignore"):    # angle tables are int32 bits
+        ops = raw.astype(np.float64)
     state = planes.reshape(2, -1).astype(np.float64).copy()
     tb = geo.tile_bits
     rows = 1 << (tb - 7)
     scat = [b for b in range(32) if (seg.scat_mask >> b) & 1]
-    free = [b for b in range(32) if (seg.free_mask >> b) & 1]
     r = np.arange(rows)
     local = r & ((1 << geo.inner_bits) - 1)
     for k, bit in enumerate(scat):
         local = local | (((r >> (geo.inner_bits + k)) & 1) << bit)
     e = np.arange(1 << tb)
     lane = e & 127
+    parity = _parity_bits
 
-    def rmask(lo, hi):
-        return int(lo) | (int(hi) << 15)
-
-    def parity(x):
-        out = np.zeros_like(x)
-        for b in range(max(LANE_BITS, n - LANE_BITS)):
-            out ^= (x >> b) & 1
-        return out
-
-    for blk in range(geo.blocks):
-        base = 0
-        for k, bit in enumerate(free):
-            base |= ((blk >> k) & 1) << bit
+    for base in launch_tiles(seg, sequential):
         row_id = base | local
         row = row_id[e >> 7]
         idx = (row_id[:, None] * 128 + np.arange(128)[None, :]).reshape(-1)
         x = state[0, idx] + 1j * state[1, idx]
-        for d in desc:
+        si = 0
+        while si < len(desc):
+            d = desc[si]
+            si += 1
             kind, off = int(d[S.F_KIND]), int(d[S.F_OP_OFF])
+            if kind in (S.K_PHASE, S.K_PARITY) and not sequential:
+                k = int(d[S.F_RUN])
+                x = _emulate_run(x, desc[si - 1:si - 1 + k], ops, lane,
+                                 row_id, e, raw)
+                si += k - 1
+                continue
             if kind == S.K_MAT:
                 dim, p = int(d[S.F_DIM]), int(d[S.F_POS])
                 w = dim.bit_length() - 1
@@ -530,12 +682,11 @@ def test_unported_stage_kinds_raise(monkeypatch):
 
 def _tile_row_ids(seg, blk):
     """Global row ids of tile `blk`'s rows as the kernel builds them: the
-    free row bits from the tile index, then inner rows and scattered
-    bits (tile_base, tile_row)."""
+    free row bits from the tile index and the fixed rows, then inner rows
+    and scattered bits (tile_base, tile_row)."""
     geo = seg.geometry
-    free = [b for b in range(32) if (seg.free_mask >> b) & 1]
     scat = [b for b in range(32) if (seg.scat_mask >> b) & 1]
-    base = sum(((blk >> k) & 1) << bit for k, bit in enumerate(free))
+    base = tile_base(seg, blk)
     r = np.arange(1 << (geo.tile_bits - LANE_BITS))
     local = r & ((1 << geo.inner_bits) - 1)
     for k, bit in enumerate(scat):
