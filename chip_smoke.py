@@ -182,6 +182,33 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      draws equal wherever no uniform lies within 1e-5 of a branch
      boundary, planes of equal-draw shots within 1e-4 x max|amp|.
 
+ The QuEST user surface (PR 11; no kernel is added, the states come from
+ the paths above):
+ 24. program_cache: the flagship's apply_fused 5 times plans once
+     (fused_plan counted) and launches its segments every call; a tier
+     flip plans once more, within HIGH's envelope of HIGHEST; the same
+     for apply_batched (24q x 64); first-call and cached-call host ms;
+ 25. measurement: on the 30q d20 state, calc_prob_of_outcome of every
+     qubit against one f64 pass over all 30 marginals (1e-6); sample of
+     2^20 shots, each qubit's frequency within 5 sigma, peak memory <= 18
+     GiB; measure_with_stats and collapse_to_outcome, norm within 1e-5,
+     the other outcome at P <= 1e-6;
+ 26. xeb: entry.xeb_entry() — the flagship step, 2^20 samples, the linear
+     XEB against an f64 recomputation (1e-4); ms of each part;
+ 27. dynamic: entry.measured_entry() — a repetition-code cycle on 28 data
+     qubits + 2 ancillas (30 qubits) under engine='banded' and 'xla' from
+     equal seeds: identical outcomes, planes within 1e-4 x max|amp|, reset
+     ancillas at P(1) <= 1e-6; ms per cycle;
+ 28. calculations: inner product, fidelity and a 56-term Ising
+     expectation on the flagship state, purity, density inner product,
+     Hilbert-Schmidt distance and density fidelity on the density step's
+     register, each against an f64 recomputation on the card (1e-5); ms
+     and peak memory;
+ 29. eager: the tutorial through ops.gates (0.112422, 0.749178 within
+     2e-6); a 20-gate eager sequence at 28 qubits and with 3 channels on a
+     12-qubit density register against the same circuit's per-gate
+     program (1e-6 x max|amp|).
+
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
 sheet); a segment of phase stages only counts the rows its predicates
@@ -241,7 +268,8 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "precision_flagship", "precision_baseline", "precision_density",
           "stage_timing", "phase_counters", "pergate", "banded", "f64",
           "wide_gates", "small_registers", "batched_banded",
-          "trajectories_banded")
+          "trajectories_banded", "program_cache", "measurement", "xeb",
+          "dynamic", "calculations", "eager")
 
 RECORD = []
 
@@ -2762,6 +2790,568 @@ SANITIZE_UP = "sanitize_case: device up"
 SANITIZE_DONE = "sanitize_case: every driver launched"
 
 
+# ---------------------------------------------------------------------------
+# PR 11: the QuEST user surface on the card (no kernel is added: these
+# phases drive the program cache, measurement, sampling, dynamic circuits,
+# calculations and the eager API, the states coming from the paths above)
+# ---------------------------------------------------------------------------
+
+SURFACE_TOL = 1e-6            # measurement and eager checks
+CALC_TOL = 1e-5               # calculations against f64 recomputations
+SAMPLE_PEAK_GIB = 18.0
+GIB = float(1 << 30)
+
+
+def host_ms(torch, fn):
+    """Wall ms of fn() on the host, the device synchronised after it."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+@contextlib.contextmanager
+def plan_counter():
+    """Count Circuit.fused_plan calls (the fused engine's planner)."""
+    from quest_tpu_torch.circuit import Circuit
+    orig = Circuit.fused_plan
+    calls = [0]
+
+    def counted(self, *a, **k):
+        calls[0] += 1
+        return orig(self, *a, **k)
+    Circuit.fused_plan = counted
+    try:
+        yield calls
+    finally:
+        Circuit.fused_plan = orig
+
+
+def phase_program_cache(torch):
+    """The program cache: apply_fused of the flagship (28q RCS d4) 5
+    times plans once (fused_plan counted) and launches its 9 segments per
+    call; a flip of the tier (set_matmul_precision('high')) plans once
+    more and its step is within the tier's envelope of HIGHEST; then
+    apply_batched of the 24q x 64 step the same way (3 calls, one plan;
+    4 of its states at HIGH against HIGHEST). First-call and cached-call
+    host ms (wall, synchronised)."""
+    from quest_tpu_torch import precision as P
+    from quest_tpu_torch.entry import (BATCHED_QUBITS, BATCHED_STATES,
+                                       flagship_circuit, random_states)
+    from quest_tpu_torch.ops import segment as S
+    from quest_tpu_torch.state import Qureg, basis_planes, fused_state_shape
+    rec = {"phase": "program_cache"}
+    n = 28
+    c = flagship_circuit(n)
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device="cuda")
+    q = Qureg(amps=amps, num_qubits=n)
+    calls_ms = []
+    with plan_counter() as plans:
+        for _ in range(5):
+            S.segment_sweep.launches = 0
+            ms, _ = host_ms(torch, lambda: c.apply_fused(q))
+            calls_ms.append(ms)
+            prog = c.compiled_fused(n)
+            if S.segment_sweep.launches != prog.launches_per_call:
+                raise AssertionError(
+                    f"program_cache: {S.segment_sweep.launches} launches "
+                    f"for {prog.launches_per_call} segments")
+        if plans[0] != 1:
+            raise AssertionError(f"program_cache: {plans[0]} plans for 5 "
+                                 f"apply_fused calls")
+        rec["flagship_plans"] = plans[0]
+        top = basis_planes(0, n=n, shape=fused_state_shape(n), device="cuda")
+        prog(top)
+        with session_tier("high"):
+            x = basis_planes(0, n=n, shape=fused_state_shape(n),
+                             device="cuda")
+            ms_high, _ = host_ms(torch, lambda: c.apply_fused(
+                Qureg(amps=x, num_qubits=n)))
+            high = c.compiled_fused(n)
+        if plans[0] != 2 or high.tier != "high" or high is prog:
+            raise AssertionError(f"program_cache: tier flip made "
+                                 f"{plans[0] - 1} plans, tier {high.tier}")
+        if c.compiled_fused(n) is not prog or P.matmul_precision() != "highest":
+            raise AssertionError("program_cache: the HIGHEST program was "
+                                 "not found again")
+        scale = top.abs().max().item()
+        dist = plane_err(x, top) / scale
+        plain = high.plain(basis_planes(0, n=n, shape=fused_state_shape(n),
+                                        device="cuda"))
+        gate, source = envelope("high", plane_err(plain, top) / scale)
+        ngate, _ = envelope("high", abs(1.0 - norm_of(plain)))
+        del plain
+        drift = abs(1.0 - norm_of(x))
+        if not (0.0 < dist <= gate and drift <= ngate):
+            raise AssertionError(f"program_cache: HIGH step {dist} from "
+                                 f"HIGHEST (gate {gate}), norm drift {drift} "
+                                 f"(gate {ngate})")
+        rec.update(flagship_first_call_ms=calls_ms[0],
+                   flagship_cached_call_ms=statistics.median(calls_ms[1:]),
+                   flagship_calls_ms=calls_ms,
+                   high_first_call_ms=ms_high, high_rel_vs_highest=dist,
+                   high_envelope=gate, high_envelope_from=source,
+                   high_norm_drift=drift, high_norm_envelope=ngate)
+        del amps, q, x, top, prog, high
+        torch.cuda.empty_cache()
+        nb, batch = BATCHED_QUBITS, BATCHED_STATES
+        cb = flagship_circuit(nb)
+        states = random_states(batch, nb, device="cuda")
+        sub = states[:4].clone()
+        plans[0] = 0
+        bms = [host_ms(torch, lambda: cb.apply_batched(states))[0]
+               for _ in range(3)]
+        if plans[0] != 1:
+            raise AssertionError(f"program_cache: {plans[0]} plans for 3 "
+                                 f"apply_batched calls")
+        ref = sub.clone()
+        cb.apply_batched(ref)
+        with session_tier("high"):
+            cb.apply_batched(sub)
+        if plans[0] != 2:
+            raise AssertionError("program_cache: the batched tier flip did "
+                                 "not plan anew")
+        bscale = ref.abs().max().item()
+        bdist = plane_err(sub, ref) / bscale
+        if not 0.0 < bdist <= max(TIER_TOL["high"], gate):
+            raise AssertionError(f"program_cache: batched HIGH {bdist} from "
+                                 f"HIGHEST")
+        rec.update(batched_first_call_ms=bms[0],
+                   batched_cached_call_ms=statistics.median(bms[1:]),
+                   batched_plans=1, batched_high_rel_vs_highest=bdist)
+    emit_card(rec)
+    del states, sub, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def marginals_f64(torch, planes, n: int):
+    """P(qubit = 1) of every qubit of (2, 2^n) planes in one f64 pass,
+    2^24 amplitudes at a time (independent of the port's reductions)."""
+    flat = planes.reshape(2, -1)
+    chunk = 1 << min(24, n)
+    ones = torch.zeros(n, dtype=torch.float64, device=flat.device)
+    for s in range(0, 1 << n, chunk):
+        p = flat[0, s:s + chunk].double() ** 2 + flat[1, s:s + chunk].double() ** 2
+        for q in range(min(24, n)):
+            ones[q] += p.view(-1, 2, 1 << q)[:, 1].sum()
+        hi = p.sum()
+        for q in range(24, n):
+            if (s >> q) & 1:
+                ones[q] += hi
+    return ones.cpu().numpy()
+
+
+def phase_measurement(torch):
+    """The 30q d20 state (8 GiB): calc_prob_of_outcome of every qubit
+    against one f64 pass computing all 30 marginals (1e-6); sample of
+    2^20 shots, each qubit's frequency within 5 sigma of its marginal,
+    peak memory <= 18 GiB; measure_with_stats (seeded host stream) and
+    collapse_to_outcome: norm within 1e-5 of 1, the measured qubit's
+    other outcome at probability <= 1e-6. ms of each, bytes bounds."""
+    from quest_tpu_torch import measurement as TM
+    from quest_tpu_torch import random_
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.state import Qureg, basis_planes, fused_state_shape
+    n, depth, shots = 30, 20, 1 << 20
+    fn = random_circuit(n, depth, seed=7, entangler="cz").compiled_fused(
+        n, device="cuda")
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device="cuda")
+    fn(amps)
+    del fn
+    torch.cuda.empty_cache()
+    q = Qureg(amps=amps, num_qubits=n)
+    want = marginals_f64(torch, amps, n)
+    got = np.array([TM.calc_prob_of_outcome(q, k, 1) for k in range(n)])
+    err = float(np.abs(got - want).max())
+    if not err <= SURFACE_TOL:
+        raise AssertionError(f"measurement: marginals off by {err}")
+    prob_ms = statistics.median(
+        time_ms(torch, lambda k=k: TM.calc_prob_of_outcome(q, k, 1), 3)
+        for k in (0, n // 2, n - 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sample_ms, samples = host_ms(torch, lambda: TM.sample(
+        q, shots, torch.Generator(device="cuda").manual_seed(11)))
+    peak = torch.cuda.max_memory_allocated() / GIB
+    freq = np.array([((samples >> k) & 1).double().mean().item()
+                     for k in range(n)])
+    sigma = np.sqrt(want * (1 - want) / shots)
+    zmax = float((np.abs(freq - want) / np.maximum(sigma, 1e-12)).max())
+    if not (zmax <= PHYSICS_SIGMAS and peak <= SAMPLE_PEAK_GIB
+            and samples.device.type == "cuda"):
+        raise AssertionError(f"measurement: sample z {zmax}, peak "
+                             f"{peak} GiB")
+    del samples
+    torch.cuda.empty_cache()
+    spare = torch.Generator(device="cuda").manual_seed(12)
+    warm_ms = time_ms(torch, lambda: TM.sample(q, shots, spare), 3)
+    torch.cuda.empty_cache()
+    random_.seed_quest([2026, 11])
+    mws_ms, (_, outcome, mprob) = host_ms(
+        torch, lambda: TM.measure_with_stats(q, 5))
+    norm1 = norm_of(amps)
+    other1 = TM.calc_prob_of_outcome(q, 5, 1 - outcome)
+    kept = (2 * n) // 3
+    col_ms, (_, cprob) = host_ms(torch, lambda: TM.collapse_to_outcome(
+        q, kept, 0))
+    norm2 = norm_of(amps)
+    other2 = TM.calc_prob_of_outcome(q, kept, 1)
+    if not (abs(1 - norm1) <= CALC_TOL and abs(1 - norm2) <= CALC_TOL
+            and other1 <= SURFACE_TOL and other2 <= SURFACE_TOL
+            and abs(mprob - (want[5] if outcome else 1 - want[5])) <= 1e-6
+            and torch.isfinite(amps).all().item()):
+        raise AssertionError(f"measurement: norms {norm1} {norm2}, other "
+                             f"outcomes {other1} {other2}")
+    state_bytes = 2 * 4 * (1 << n)
+    rec = {"phase": "measurement", "n": n, "depth": depth,
+           "marginal_max_err": err, "calc_prob_ms": prob_ms,
+           "calc_prob_bound_ms": 1e3 * (state_bytes / 2) / HBM_BYTES_PER_S,
+           "sample_shots": shots, "sample_first_ms": sample_ms,
+           "sample_ms": warm_ms,
+           "sample_bound_ms": 1e3 * (state_bytes + 3 * 4 * (1 << n))
+           / HBM_BYTES_PER_S,
+           "sample_peak_gib": peak, "sample_base_gib": base / GIB,
+           "sample_max_z": zmax, "measure_with_stats_ms": mws_ms,
+           "measured_outcome": outcome, "collapse_ms": col_ms,
+           "collapse_prob": cprob, "norm_after": [norm1, norm2],
+           "other_outcome_prob": [other1, other2]}
+    emit_card(rec)
+    del q, amps
+    torch.cuda.empty_cache()
+    return rec
+
+
+def xeb_f64(torch, planes, samples, n: int) -> float:
+    """2^n <p(s)> - 1 recomputed in f64 from the planes and samples."""
+    flat = planes.reshape(2, -1)
+    re, im = flat[0][samples].double(), flat[1][samples].double()
+    return float((1 << n) * (re * re + im * im).mean() - 1.0)
+
+
+def phase_xeb(torch):
+    """entry.xeb_entry(): the flagship step (28q RCS d4), 2^20 samples and
+    the linear XEB, against an f64 recomputation from the same samples
+    and state (1e-4); ms of the step, the sampling and the XEB."""
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch import measurement as TM
+    from quest_tpu_torch.entry import xeb_entry
+    from quest_tpu_torch.ops import segment as S
+    from quest_tpu_torch.state import Qureg
+    fn, (amps, gen) = xeb_entry()
+    n = fn.step.n
+    S.segment_sweep.launches = 0
+    step_ms = time_ms(torch, lambda: fn.step(amps), 1)
+    if S.segment_sweep.launches != fn.step.launches_per_call:
+        raise AssertionError("xeb: the step did not launch its segments")
+    q = Qureg(amps=amps, num_qubits=n)
+    sample_ms, samples = host_ms(torch, lambda: TM.sample(q, fn.shots, gen))
+    xeb_ms, xeb = host_ms(torch, lambda: K.calc_linear_xeb(q, samples))
+    # warm times (the first calls above load their CUDA modules)
+    spare = torch.Generator().manual_seed(0)
+    warm_sample_ms = time_ms(torch, lambda: TM.sample(q, fn.shots, spare), 3)
+    warm_xeb_ms = time_ms(torch, lambda: K.calc_linear_xeb(q, samples), 3)
+    want = xeb_f64(torch, amps, samples, n)
+    # the whole entry once more, from a fresh state: the same numbers
+    fn2, (amps2, gen2) = xeb_entry()
+    xeb2, samples2 = fn2(amps2, gen2)
+    if not (abs(xeb - want) <= PATH_TOL and np.isfinite(xeb)
+            and samples.shape == (fn.shots,)
+            and torch.equal(samples, samples2) and abs(xeb2 - xeb) <= 1e-12):
+        raise AssertionError(f"xeb: {xeb} against f64 {want}, rerun {xeb2}")
+    rec = {"phase": "xeb", "n": n, "shots": fn.shots, "xeb": xeb,
+           "xeb_f64": want, "abs_err": abs(xeb - want), "step_ms": step_ms,
+           "sample_first_ms": sample_ms, "xeb_first_ms": xeb_ms,
+           "sample_ms": warm_sample_ms, "xeb_ms": warm_xeb_ms,
+           "sample_bound_ms": 1e3 * (2 * 4 + 3 * 4) * (1 << n)
+           / HBM_BYTES_PER_S}
+    emit_card(rec)
+    del fn, fn2, amps, amps2, q, samples, samples2
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_dynamic(torch):
+    """entry.measured_entry(): the repetition-code cycle at 28 data
+    qubits + 2 ancillas (30 qubits, 8 GiB) under engine='banded' and
+    'xla' from equal generator seeds: identical outcomes, planes within
+    1e-4 x max|amp|, norm within 1e-4, each reset ancilla at P(1) <=
+    1e-6; ms per cycle (wall: each measurement reads its outcome on the
+    host)."""
+    from quest_tpu_torch import measurement as TM
+    from quest_tpu_torch.entry import MEASURED_ROUNDS, measured_entry
+    from quest_tpu_torch.ops import segment as S
+    from quest_tpu_torch.state import Qureg
+    rec = {"phase": "dynamic", "rounds": MEASURED_ROUNDS}
+    results = {}
+    for engine in ("banded", "xla"):
+        fn, (amps, gen) = measured_entry(engine=engine)
+        n = fn.n
+        S.segment_sweep.launches = 0
+        ms, (out, outs) = host_ms(torch, lambda: fn(amps, gen))
+        if S.segment_sweep.launches:
+            raise AssertionError("dynamic: a segment launch on the XLA path")
+        q = Qureg(amps=out, num_qubits=n)
+        resets = [TM.calc_prob_of_outcome(q, a, 1) for a in (n - 2, n - 1)]
+        norm = norm_of(out)
+        if not (max(resets) <= SURFACE_TOL and abs(1 - norm) <= PATH_TOL
+                and out.device.type == "cuda"):
+            raise AssertionError(f"dynamic {engine}: ancillas {resets}, "
+                                 f"norm {norm}")
+        rec[f"{engine}_ms_per_cycle"] = ms / MEASURED_ROUNDS
+        rec[f"{engine}_items"] = len(fn.items)
+        rec[f"{engine}_norm"] = norm
+        rec[f"{engine}_reset_p1"] = resets
+        results[engine] = (out, outs)
+        del fn, q
+    (a, oa), (b, ob) = results["banded"], results["xla"]
+    scale = b.abs().max().item()
+    err = plane_err(a, b)
+    if not (torch.equal(oa, ob) and err <= PATH_TOL * scale):
+        raise AssertionError(f"dynamic: outcomes {oa.tolist()} / "
+                             f"{ob.tolist()}, max|diff| {err}")
+    rec.update(n=30, outcomes=oa.tolist(), max_abs_err=err,
+               rel_err=err / scale)
+    emit_card(rec)
+    del results, a, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ising_f64(torch, planes, n: int, J: float, h: float) -> float:
+    """<H> of H = J sum_i Z_i Z_{i+1 mod n} + h sum_i X_i on (2, 2^n)
+    planes, in f64, by direct sums (independent of ops/apply)."""
+    flat = planes.reshape(2, -1)
+    p = flat[0].double() ** 2 + flat[1].double() ** 2
+    k = torch.arange(1 << n, device=flat.device)
+    zz = 0.0
+    for i in range(n):
+        j = (i + 1) % n
+        par = ((k >> i) ^ (k >> j)) & 1
+        zz += float((p * (1 - 2 * par).double()).sum())
+    del p, k
+    x = 0.0
+    for i in range(n):
+        re = flat[0].view(-1, 2, 1 << i)
+        im = flat[1].view(-1, 2, 1 << i)
+        x += 2.0 * float((re[:, 0].double() * re[:, 1].double()
+                          + im[:, 0].double() * im[:, 1].double()).sum())
+    return J * zz + h * x
+
+
+def phase_calculations(torch):
+    """On the flagship state (28q): calc_inner_product and calc_fidelity
+    against a second state (the flagship then an eager hadamard on qubit
+    14), and a 56-term transverse-field Ising calc_expec_pauli_sum (28
+    ZZ on a ring + 28 X), against f64 recomputations on the card (1e-5);
+    on the density step's register (28 state qubits): purity, density
+    inner product, Hilbert-Schmidt distance against the same register
+    after three eager depolarising channels, and density fidelity with
+    |+>^14; ms and peak memory of each."""
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch.entry import density_entry, entry
+    from quest_tpu_torch.ops import channels as CH
+    from quest_tpu_torch.ops import gates as G
+    from quest_tpu_torch.state import (Qureg, clone, create_qureg,
+                                       init_plus_state)
+    rec = {"phase": "calculations"}
+    fn, (amps,) = entry()
+    fn(amps)
+    n = fn.n
+    bra = Qureg(amps=amps, num_qubits=n)
+    ket = G.hadamard(clone(bra), n // 2)
+
+    def timed(name, call):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, val = host_ms(torch, call)
+        rec[f"{name}_ms"] = ms
+        rec[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+        return val
+    inner = timed("inner_product", lambda: K.calc_inner_product(bra, ket))
+    b2, k2 = bra.amps.reshape(2, -1).double(), ket.amps.reshape(2, -1).double()
+    want = complex(float((b2[0] * k2[0] + b2[1] * k2[1]).sum()),
+                   float((b2[0] * k2[1] - b2[1] * k2[0]).sum()))
+    del b2, k2
+    fid = timed("fidelity", lambda: K.calc_fidelity(bra, ket))
+    J, h = 1.0, 0.7
+    codes = []
+    for i in range(n):
+        row = [0] * n
+        row[i] = row[(i + 1) % n] = 3
+        codes.append(row)
+    for i in range(n):
+        row = [0] * n
+        row[i] = 1
+        codes.append(row)
+    coeffs = [J] * n + [h] * n
+    energy = timed("expec_pauli_sum", lambda: K.calc_expec_pauli_sum(
+        bra, codes, coeffs))
+    energy_want = ising_f64(torch, bra.amps, n, J, h)
+    errs = {"inner_product": abs(inner - want),
+            "fidelity": abs(fid - abs(want) ** 2),
+            "expec_pauli_sum": abs(energy - energy_want)}
+    rec.update(inner_product=[inner.real, inner.imag], fidelity=fid,
+               ising_terms=len(codes), ising_energy=energy,
+               ising_energy_f64=energy_want)
+    del fn, amps, bra, ket
+    torch.cuda.empty_cache()
+    dfn, (rho_amps,) = density_entry()
+    dfn(rho_amps)
+    nq = dfn.n // 2
+    rho = Qureg(amps=rho_amps, num_qubits=nq, is_density=True)
+    sigma = clone(rho)
+    for t in (0, nq // 2, nq - 1):
+        CH.mix_depolarising(sigma, t, 0.1)
+    purity = timed("purity", lambda: K.calc_purity(rho))
+    dip = timed("density_inner_product",
+                lambda: K.calc_density_inner_product(rho, sigma))
+    hs = timed("hilbert_schmidt_distance",
+               lambda: K.calc_hilbert_schmidt_distance(rho, sigma))
+    psi = init_plus_state(create_qureg(nq, device="cuda"))
+    dfid = timed("density_fidelity", lambda: K.calc_fidelity(rho, psi))
+    r, s = rho.amps.reshape(2, -1), sigma.amps.reshape(2, -1)
+    purity_want = sum(float((r[p].double() ** 2).sum()) for p in range(2))
+    dip_want = sum(float((r[p].double() * s[p].double()).sum())
+                   for p in range(2))
+    hs_want = sum(float(((r[p].double() - s[p].double()) ** 2).sum())
+                  for p in range(2)) ** 0.5
+    dim = 1 << nq
+    m = r[0].view(dim, dim).double()          # row c holds column c of rho
+    v = torch.full((dim,), dim ** -0.5, dtype=torch.float64, device="cuda")
+    # <psi| rho |psi> for a real psi: sum_rc psi_r Re(rho_rc) psi_c
+    dfid_want = float(v @ (m @ v))
+    del m, r, s
+    errs.update(purity=abs(purity - purity_want),
+                density_inner_product=abs(dip - dip_want),
+                hilbert_schmidt_distance=abs(hs - hs_want),
+                density_fidelity=abs(dfid - dfid_want))
+    rec.update(purity=purity, density_inner_product=dip,
+               hilbert_schmidt_distance=hs, density_fidelity=dfid,
+               abs_err=errs, density_state_qubits=dfn.n)
+    if not all(e <= CALC_TOL for e in errs.values()):
+        raise AssertionError(f"calculations: {errs}")
+    emit_card(rec)
+    del dfn, rho_amps, rho, sigma, psi
+    torch.cuda.empty_cache()
+    return rec
+
+
+def eager_sequence(G, CH, q, density: bool):
+    """~20 eager gates (and on a density register 3 channels); returns the
+    same sequence as a Circuit for the per-gate engine."""
+    from quest_tpu_torch.circuit import Circuit
+    from quest_tpu_torch.ops import matrices as M
+    n = q.num_qubits
+    c = Circuit(n)
+    rng = np.random.default_rng(17)
+    u2 = np.linalg.qr(rng.standard_normal((4, 4))
+                      + 1j * rng.standard_normal((4, 4)))[0]
+    top, mid = n - 1, n // 2
+    steps = [
+        (lambda: G.hadamard(q, 0), lambda: c.h(0)),
+        (lambda: G.hadamard(q, top), lambda: c.h(top)),
+        (lambda: G.controlled_not(q, 0, mid), lambda: c.cnot(0, mid)),
+        (lambda: G.rotate_x(q, 3, 0.3), lambda: c.rx(3, 0.3)),
+        (lambda: G.rotate_y(q, top, 1.2), lambda: c.ry(top, 1.2)),
+        (lambda: G.rotate_z(q, mid, -0.7), lambda: c.gate(
+            M.rotation(-0.7, (0.0, 0.0, 1.0)), (mid,))),
+        (lambda: G.t_gate(q, 1), lambda: c.t(1)),
+        (lambda: G.s_gate(q, top), lambda: c.s(top)),
+        (lambda: G.pauli_y(q, 2), lambda: c.y(2)),
+        (lambda: G.controlled_phase_shift(q, 1, top, 0.9),
+         lambda: c.cphase(0.9, 1, top)),
+        (lambda: G.multi_controlled_phase_flip(q, [0, 2, mid]),
+         lambda: c._add("allones", (0, 2, mid), -1.0 + 0.0j)),
+        (lambda: G.swap_gate(q, 4, top - 1), lambda: c.swap(4, top - 1)),
+        (lambda: G.two_qubit_unitary(q, 5, top, u2),
+         lambda: c.gate(u2, (5, top))),
+        (lambda: G.multi_rotate_z(q, [0, mid, top], 0.4),
+         lambda: c.multi_rotate_z((0, mid, top), 0.4)),
+        (lambda: G.multi_rotate_pauli(q, [1, mid + 1, top], [1, 2, 3], 0.6),
+         lambda: c.multi_rotate_pauli((1, mid + 1, top), (1, 2, 3), 0.6)),
+        (lambda: G.sqrt_swap_gate(q, 2, mid), lambda: c.sqrt_swap(2, mid)),
+        (lambda: G.controlled_rotate_y(q, top, 6, 0.8),
+         lambda: c.gate(M.rotation(0.8, (0.0, 1.0, 0.0)), (6,), (top,))),
+        (lambda: G.phase_shift(q, 7, 0.25), lambda: c.phase(7, 0.25)),
+        (lambda: G.multi_controlled_unitary(q, [0, 1], mid, M.HADAMARD),
+         lambda: c.gate(M.HADAMARD, (mid,), (0, 1))),
+        (lambda: G.pauli_x(q, top), lambda: c.x(top)),
+    ]
+    if density:
+        steps += [
+            (lambda: CH.mix_depolarising(q, 0, 0.1),
+             lambda: c.depolarising(0, 0.1)),
+            (lambda: CH.mix_dephasing(q, mid, 0.2),
+             lambda: c.dephasing(mid, 0.2)),
+            (lambda: CH.mix_damping(q, top, 0.3),
+             lambda: c.damping(top, 0.3)),
+        ]
+    for eager, build in steps:
+        eager()
+        build()
+    return c, len(steps)
+
+
+def phase_eager(torch):
+    """The eager API on the card: the tutorial circuit (tests/test_api.py)
+    through ops.gates — prob |111> = 0.112422, prob(qubit 2 = 1) =
+    0.749178 within 2e-6; a 20-gate eager sequence on 28 qubits and the
+    same gates with 3 channels on a 12-qubit density register, each
+    against the same circuit's per-gate compiled program on the card
+    within 1e-6 x max|amp|; ms of each eager sequence."""
+    from quest_tpu_torch import measurement as TM
+    from quest_tpu_torch.ops import channels as CH
+    from quest_tpu_torch.ops import gates as G
+    from quest_tpu_torch.state import (create_density_qureg, create_qureg,
+                                       get_prob_amp)
+    rec = {"phase": "eager"}
+    q = create_qureg(3, device="cuda")
+    G.hadamard(q, 0)
+    G.controlled_not(q, 0, 1)
+    G.rotate_y(q, 2, 0.1)
+    G.multi_controlled_phase_flip(q, [0, 1, 2])
+    u = np.array([[0.5 + 0.5j, 0.5 - 0.5j], [0.5 - 0.5j, 0.5 + 0.5j]])
+    G.unitary(q, 0, u)
+    a, b = 0.5 + 0.5j, 0.5 - 0.5j
+    G.compact_unitary(q, 1, a, b)
+    G.rotate_around_axis(q, 2, 3.14 / 2, (1.0, 0.0, 0.0))
+    G.controlled_compact_unitary(q, 0, 1, a, b)
+    G.multi_controlled_unitary(q, [0, 1], 2, u)
+    toff = np.eye(8, dtype=complex)[[0, 1, 2, 3, 4, 5, 7, 6]]
+    G.multi_qubit_unitary(q, [0, 1, 2], toff)
+    p111, p2 = get_prob_amp(q, 7), TM.calc_prob_of_outcome(q, 2, 1)
+    if not (abs(p111 - 0.112422) <= 2e-6 and abs(p2 - 0.749178) <= 2e-6
+            and q.amps.device.type == "cuda"):
+        raise AssertionError(f"eager: tutorial {p111}, {p2}")
+    rec.update(tutorial_prob_111=p111, tutorial_prob_q2=p2)
+    for name, make, nq, density in (
+            ("sv28", create_qureg, 28, False),
+            ("dm12", create_density_qureg, 12, True)):
+        q = make(nq, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, count = eager_sequence(G, CH, q, density)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = make(nq, device="cuda")
+        c.compiled(ref.num_state_qubits, density)(ref.amps)
+        torch.cuda.synchronize()
+        scale = ref.amps.abs().max().item()
+        err = plane_err(q.amps, ref.amps)
+        if not (err <= SURFACE_TOL * scale
+                and torch.isfinite(q.amps).all().item()):
+            raise AssertionError(f"eager {name}: max|diff| {err} against "
+                                 f"the per-gate program (max|amp| {scale})")
+        rec[name] = {"ops": count, "ms": ms, "max_abs_err": err,
+                     "rel_err": err / scale}
+        del q, ref, c
+        torch.cuda.empty_cache()
+    emit_card(rec)
+    return rec
+
+
 @contextlib.contextmanager
 def driver_knobs(cfg):
     """Programs compiled inside run under configuration `cfg` of
@@ -3447,6 +4037,18 @@ def main(argv=None) -> int:
         phase_batched_banded(torch)
     if want("trajectories_banded"):
         phase_trajectories_banded(torch)
+    if want("program_cache"):
+        phase_program_cache(torch)
+    if want("measurement"):
+        phase_measurement(torch)
+    if want("xeb"):
+        phase_xeb(torch)
+    if want("dynamic"):
+        phase_dynamic(torch)
+    if want("calculations"):
+        phase_calculations(torch)
+    if want("eager"):
+        phase_eager(torch)
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

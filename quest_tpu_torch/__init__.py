@@ -12,21 +12,39 @@ of the hand-written segment kernel (csrc/segment.cu); on the CPU the
 same wrapper runs its plain PyTorch version. Statevector and
 density-matrix registers (Kraus channels as superoperators on the
 doubled register) both run through it.
+
+The QuEST user surface runs on the same registers: eager gates and
+channels (ops.gates, ops.channels), measurement, sampling and dynamic
+circuits (measurement, Circuit.measure / gate_if / compiled_measured),
+and calculations (inner products, fidelity, Pauli expectations, linear
+XEB).
 """
 
-from quest_tpu_torch.calculations import calc_purity, calc_total_prob
+from quest_tpu_torch import calculations, measurement
+from quest_tpu_torch.calculations import (calc_expec_pauli_prod,
+                                          calc_expec_pauli_sum, calc_fidelity,
+                                          calc_inner_product, calc_purity,
+                                          calc_total_prob)
 from quest_tpu_torch.circuit import Circuit, GateOp, qft_circuit, random_circuit
-from quest_tpu_torch.state import (Qureg, basis_planes, create_density_qureg,
-                                   create_qureg, fused_state_shape,
-                                   get_density_amp, init_classical_state,
-                                   init_debug_state, init_plus_state,
-                                   init_zero_state, to_dense)
+from quest_tpu_torch.ops import channels, gates
+from quest_tpu_torch.state import (Qureg, basis_planes, clone,
+                                   create_density_qureg, create_qureg,
+                                   fused_state_shape, get_amp,
+                                   get_density_amp, init_blank_state,
+                                   init_classical_state, init_debug_state,
+                                   init_plus_state, init_pure_state,
+                                   init_state_from_amps, init_zero_state,
+                                   set_amps, set_density_amps, to_dense)
 from quest_tpu_torch.validation import QuESTError
 
 __all__ = [
     "Circuit", "GateOp", "QuESTError", "Qureg", "basis_planes",
-    "calc_purity", "calc_total_prob", "create_density_qureg",
-    "create_qureg", "fused_state_shape", "get_density_amp",
-    "init_classical_state", "init_debug_state", "init_plus_state",
-    "init_zero_state", "qft_circuit", "random_circuit", "to_dense",
+    "calc_expec_pauli_prod", "calc_expec_pauli_sum", "calc_fidelity",
+    "calc_inner_product", "calc_purity", "calc_total_prob", "calculations",
+    "channels", "clone", "create_density_qureg", "create_qureg",
+    "fused_state_shape", "gates", "get_amp", "get_density_amp",
+    "init_blank_state", "init_classical_state", "init_debug_state",
+    "init_plus_state", "init_pure_state", "init_state_from_amps",
+    "init_zero_state", "measurement", "qft_circuit", "random_circuit",
+    "set_amps", "set_density_amps", "to_dense",
 ]

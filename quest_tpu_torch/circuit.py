@@ -1,10 +1,11 @@
-"""Circuit builder and the three engines: per-gate, banded and fused.
+"""Circuit builder and the engines: per-gate, banded, fused and measured.
 
-A port of quest_tpu/circuit.py for the gates of random_circuit,
-qft_circuit and the noisy density circuits (Kraus channels as
-superoperators): the GateOp record, the Circuit builder, dual_of and
-flatten_ops (density duals and superoperator expansion), the scheduled
-flat op list (_planned_flat), and the reference's engines:
+A port of quest_tpu/circuit.py: the GateOp record, the Circuit builder
+(gates, noise channels, mid-circuit measurement and classically
+controlled gates), dual_of, inverse_op and flatten_ops (density duals,
+superoperator expansion, measurements claiming both copies of a qubit),
+the scheduled flat op list (_planned_flat), `explain`, and the
+reference's engines:
 
   * per-gate (`compiled`, `trace`, `apply`): every op of the unscheduled
     flat list through ops/apply's primitives, the semantic oracle the
@@ -23,15 +24,21 @@ flat op list (_planned_flat), and the reference's engines:
     the block top, a diagonal) runs through the primitives between
     segments, as the reference runs it in XLA. Below the kernel's 10
     qubits it falls back to the banded engine, and f64 planes run the
-    banded items of its plan (the kernel is f32), as the reference does.
+    banded items of its plan (the kernel is f32), as the reference does;
+  * measured (`compiled_measured`, `apply_measured`): a dynamic circuit
+    through the per-gate ('xla') or banded engine, each measurement's
+    outcome drawn from a torch.Generator and read on the host, each
+    classically controlled gate applied in place or skipped.
 
 Every program runs on the device it was compiled for, in place on the
 planes, at the matmul tier (quest_tpu_torch/precision.py) and, for the
 fused engine, under the segment driver (QUEST_FUSED_DRIVER /
 QUEST_FUSED_PIPELINE / QUEST_FUSED_NBUF, band_plan.active_driver) read
-when it was compiled. Mid-circuit measurement, classical control and
-QUEST_FUSED_SCAN are not ported yet and raise NotImplementedError naming
-ROADMAP A4.
+when it was compiled. Each is cached on its circuit, keyed on its
+arguments, its device and `_engine_mode_key()` (every keyed knob's
+effective value), so repeated calls reuse one program and a knob flip
+builds a new one; adding an op clears the cache. QUEST_FUSED_SCAN is not
+ported (ROADMAP A6) and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,9 +49,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from quest_tpu_torch import measurement as MS
 from quest_tpu_torch import precision
 from quest_tpu_torch import validation as val
-from quest_tpu_torch.env import knob_value, resolve_device
+from quest_tpu_torch.env import engine_mode_key, knob_value, resolve_device
 from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import band_plan as BP
 from quest_tpu_torch.ops import fusion as F
@@ -61,9 +69,17 @@ PERGATE_COMPILE_WARN_OPS = 64
 PLAIN_CHUNK_STATES = 8        # states per plain-path pass of a batch
 
 
+def _engine_mode_key():
+    """The mode flags every compiled-program cache key carries (ref
+    circuit.py:109): env.engine_mode_key(), every keyed knob's effective
+    value (the matmul tier through set_matmul_precision too)."""
+    return engine_mode_key()
+
+
 @dataclasses.dataclass(frozen=True)
 class GateOp:
-    kind: str                 # 'matrix' | 'diagonal' | 'parity' | 'allones' | 'superop'
+    kind: str                 # 'matrix' | 'diagonal' | 'parity' | 'allones' |
+    # 'superop' | 'measure' | 'classical' ('measure_dm' once flattened)
     targets: Tuple[int, ...]
     controls: Tuple[int, ...] = ()
     cstates: Tuple[int, ...] = ()
@@ -72,7 +88,7 @@ class GateOp:
     # operators>) beside the superoperator; the engines never execute it
 
 
-_KINDS = ("matrix", "diagonal", "parity", "allones", "superop")
+_DYNAMIC = ("measure", "measure_dm", "classical")
 
 
 def dual_of(op, shift: int):
@@ -97,11 +113,41 @@ def dual_of(op, shift: int):
     return dataclasses.replace(op, **moved)
 
 
+def inverse_op(op) -> "GateOp":
+    """The adjoint of one GateOp (ref circuit.py:226): matrix -> U+,
+    diagonal / allones -> conjugate, parity -> negated angle, controls
+    kept. Raises on noise channels, measurements and classically
+    controlled gates."""
+    if op.kind == "superop" or op.kind in _DYNAMIC:
+        what = {"superop": "noise channels", "measure": "measurements",
+                "measure_dm": "measurements",
+                "classical": "classically-controlled gates"}
+        raise val.QuESTError(
+            f"Invalid operation: a circuit containing {what[op.kind]} has "
+            f"no inverse.")
+    if op.kind == "matrix":
+        operand = np.asarray(op.operand).conj().T
+    elif op.kind in ("diagonal", "allones"):
+        operand = np.conj(op.operand)
+    else:                      # parity: exp(-i a/2 Z..Z)
+        operand = -op.operand
+    parts = getattr(op, "parts", None)
+    if parts:
+        return dataclasses.replace(
+            op, operand=operand,
+            parts=tuple((k, b, -a) for k, b, a in parts))
+    return dataclasses.replace(op, operand=operand)
+
+
 def flatten_ops(ops, n: int, density: bool) -> List[GateOp]:
     """The flat op list the engines plan from (ref circuit.py:258-312):
     on a density register (n = 2N state qubits) every gate is followed
-    by its dual, and each superoperator becomes a matrix op on
-    [targets, targets + N]."""
+    by its dual, each superoperator becomes a matrix op on [targets,
+    targets + N], a measurement becomes 'measure_dm' claiming both
+    copies of its qubit (targets[0] stays the logical qubit, so the
+    planner cannot commute a later gate's dual back across the
+    collapse), and a classically controlled op carries its inner gates
+    with their duals, claiming every qubit they touch."""
     if not density and any(op.kind == "superop" for op in ops):
         raise val.QuESTError(
             "Invalid operation: noise channels require a density-matrix "
@@ -112,17 +158,31 @@ def flatten_ops(ops, n: int, density: bool) -> List[GateOp]:
             raise ValueError(
                 f"a density register of {n} state qubits holds {n // 2} "
                 f"qubits; {op.kind} op on {op.targets + op.controls}")
-        if op.kind not in _KINDS:
-            raise NotImplementedError(
-                f"{op.kind!r} ops (mid-circuit measurement, classical "
-                f"control) are not ported yet (ROADMAP A4)")
         if op.kind == "superop":
             flat.append(dataclasses.replace(
                 op, kind="matrix",
                 targets=M.superop_targets(op.targets, n // 2)))
             continue
+        if op.kind == "measure":
+            if density:
+                q0 = op.targets[0]
+                op = dataclasses.replace(op, kind="measure_dm",
+                                         targets=(q0, q0 + n // 2))
+            flat.append(op)
+            continue
+        if op.kind == "classical" and density:
+            inners, conds = op.operand
+            expanded, claim = [], []
+            for g in inners:
+                for h in (g, dual_of(g, n // 2)):
+                    expanded.append(h)
+                    claim += list(h.targets) + list(h.controls)
+            flat.append(dataclasses.replace(
+                op, targets=tuple(dict.fromkeys(claim)),
+                operand=(tuple(expanded), conds)))
+            continue
         flat.append(op)
-        if density:
+        if density and op.kind != "classical":
             flat.append(dual_of(op, n // 2))
     return flat
 
@@ -175,6 +235,15 @@ class XlaPass:
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
         return _apply_item(amps, self.n, self.item, self.tier)
+
+
+def _device_key(device: torch.device) -> str:
+    """A cache key's device: 'cuda' names the current card, so a program
+    built for device=None (or 'cuda') is the one a register on that card
+    finds."""
+    if device.type == "cuda" and device.index is None:
+        return f"cuda:{torch.cuda.current_device()}"
+    return str(device)
 
 
 def _check_device(amps: torch.Tensor, device: torch.device) -> None:
@@ -292,7 +361,7 @@ class Circuit:
     def __init__(self, num_qubits: int):
         self.num_qubits = num_qubits
         self.ops: List[GateOp] = []
-        self._compiled = {}     # trajectory programs (trajectories.py)
+        self._compiled = {}     # programs, keyed (see _engine_mode_key)
 
     # -- builders (chainable) ------------------------------------------------
 
@@ -305,6 +374,7 @@ class Circuit:
         val.validate_gate_qubits(self.num_qubits, targets, controls, cstates)
         self.ops.append(GateOp(kind, targets, controls, cstates, operand,
                                meta))
+        self._compiled.clear()
         return self
 
     def gate(self, matrix, targets, controls=(), cstates=None):
@@ -363,6 +433,118 @@ class Circuit:
     def cphase(self, angle, *qubits):
         """Symmetric controlled phase e^{i angle} on all-ones of qubits."""
         return self._add("allones", tuple(qubits), np.exp(1j * float(angle)))
+
+    def multi_rotate_z(self, targets, angle):
+        return self._add("parity", tuple(targets), float(angle))
+
+    def multi_rotate_pauli(self, targets, paulis, angle):
+        """exp(-i angle/2 P1 x P2 x ...) as basis rotations around a
+        parity phase (ref circuit.py:793, statevec_multiRotatePauli,
+        QuEST_common.c:410-447): the 1q basis changes compose into the
+        neighbouring band operators. The eager API takes the one-pass
+        flip form instead (ops/gates.multi_rotate_pauli)."""
+        f = 1.0 / np.sqrt(2.0)
+        to_z = {1: np.array([[f, f], [-f, f]]),             # Ry(-pi/2)
+                2: np.array([[f, -1j * f], [-1j * f, f]])}  # Rx(pi/2)
+        z_targets = []
+        for t, p in zip(targets, paulis):
+            p = int(p)
+            if p == 0:
+                continue
+            z_targets.append(int(t))
+            if p in to_z:
+                self._add("matrix", (int(t),), to_z[p])
+        if z_targets:
+            self._add("parity", tuple(z_targets), float(angle))
+        for t, p in zip(targets, paulis):
+            if int(p) in to_z:
+                self._add("matrix", (int(t),), to_z[int(p)].conj().T)
+        return self
+
+    def sqrt_swap(self, q1, q2):
+        return self._add("matrix", (q1, q2), M.SQRT_SWAP)
+
+    def inverse(self) -> "Circuit":
+        """The adjoint circuit: ops reversed, each through inverse_op
+        (ref circuit.py:974). Raises on noise channels and dynamic ops."""
+        inv = Circuit(self.num_qubits)
+        inv.ops = [inverse_op(op) for op in reversed(self.ops)]
+        return inv
+
+    # -- dynamic circuits (ref circuit.py:717-790) ---------------------------
+
+    def measure(self, qubit):
+        """Mid-circuit measurement of `qubit` in the computational basis;
+        circuits holding one run through compiled_measured /
+        apply_measured, which return the outcomes in program order."""
+        return self._add("measure", (int(qubit),), None)
+
+    def gate_if(self, matrix, targets, when, controls=(), cstates=None):
+        """A classically controlled gate: `matrix` on `targets` only when
+        earlier outcomes match `when`, a (measurement index, wanted bit)
+        pair or a sequence of them (indices count measure() calls in
+        program order)."""
+        when = tuple(when)
+        if when and all(hasattr(w, "__len__") for w in when):
+            when = tuple(tuple(w) for w in when)
+        else:
+            when = (when,)
+        if not all(len(w) == 2 for w in when) or not when:
+            raise ValueError(
+                "gate_if condition must be a (measurement index, wanted "
+                "bit) pair or a non-empty sequence of such pairs")
+        n_meas = self._measure_count()
+        for idx, want in when:
+            if not 0 <= int(idx) < n_meas:
+                raise ValueError(
+                    f"gate_if condition references measurement {idx}, but "
+                    f"only {n_meas} measure() calls precede it")
+            if int(want) not in (0, 1):
+                raise ValueError("wanted outcome must be 0 or 1")
+        inner = GateOp("matrix", tuple(int(t) for t in targets),
+                       tuple(int(c) for c in controls),
+                       tuple(cstates) if cstates is not None
+                       else (1,) * len(controls),
+                       np.asarray(matrix, dtype=np.complex128))
+        return self._add(
+            "classical", inner.targets + inner.controls,
+            ((inner,), tuple((int(i), int(w)) for i, w in when)))
+
+    def x_if(self, target, when):
+        return self.gate_if(M.PAULI_X, (target,), when)
+
+    def z_if(self, target, when):
+        return self.gate_if(M.PAULI_Z, (target,), when)
+
+    def reset(self, qubit):
+        """Reset `qubit` to |0> mid-circuit: measure it and flip it on
+        outcome 1 (its outcome stays in the returned sequence)."""
+        self.measure(qubit)
+        return self.x_if(qubit, (self._measure_count() - 1, 1))
+
+    def _measure_count(self) -> int:
+        return sum(1 for op in self.ops if op.kind == "measure")
+
+    def _dynamic_count(self) -> int:
+        return sum(1 for op in self.ops
+                   if op.kind in ("measure", "classical"))
+
+    def _reject_measure(self, what: str):
+        if self._dynamic_count():
+            raise val.QuESTError(
+                f"Invalid operation: this circuit contains mid-circuit "
+                f"measurements; use compiled_measured/apply_measured "
+                f"instead of {what}.")
+
+    def _cached(self, key, build):
+        """The program under `key` (extended by the op count, which
+        guards a direct append to `ops`, and _engine_mode_key()), built
+        by `build()` on a miss."""
+        key = key + (len(self.ops), _engine_mode_key())
+        prog = self._compiled.get(key)
+        if prog is None:
+            prog = self._compiled[key] = build()
+        return prog
 
     # -- noise channels (density-matrix circuits only) -----------------------
 
@@ -429,6 +611,7 @@ class Circuit:
               tier: str = None) -> torch.Tensor:
         """Apply every op, unscheduled, to raw planes in place (ref
         circuit.py:1089), at `tier` (None: the session's)."""
+        self._reject_measure("trace")
         tier = precision.check_tier(tier or precision.matmul_precision())
         precision.ieee_fp32()
         return _apply_banded_items(amps, n, flatten_ops(self.ops, n, density),
@@ -439,12 +622,17 @@ class Circuit:
         """The per-gate engine on `n` state qubits (ref circuit.py:1101):
         every op of the unscheduled flat list (density duals included)
         through ops/apply, `iters` times, on `device` (default: the CUDA
-        card) at the session's matmul tier, both read here and kept."""
+        card) at the session's matmul tier, both read when it is built
+        and kept; cached per (n, density, iters, device, mode key)."""
+        self._reject_measure("compiled")
         dev = resolve_device(device)
-        tier = precision.matmul_precision()
-        precision.ieee_fp32()
-        return XlaProgram("pergate", n, flatten_ops(self.ops, n, density),
-                          iters, tier, dev)
+
+        def build():
+            tier = precision.matmul_precision()
+            precision.ieee_fp32()
+            return XlaProgram("pergate", n, flatten_ops(self.ops, n, density),
+                              iters, tier, dev)
+        return self._cached(("pergate", n, density, iters, _device_key(dev)), build)
 
     def apply(self, q):
         """Apply the circuit to register `q` in place on its device;
@@ -455,6 +643,7 @@ class Circuit:
         if self.num_qubits != q.num_qubits:
             raise ValueError("circuit/register size mismatch")
         if (len(self.ops) > PERGATE_COMPILE_WARN_OPS
+                and not self._dynamic_count()
                 and not any(op.kind == "superop" for op in self.ops)
                 and knob_value("QUEST_APPLY_AUTOROUTE")):
             return self.apply_banded(q)
@@ -475,16 +664,21 @@ class Circuit:
         band, each applied as one contraction (apply.apply_band);
         diagonals, parity phases and cross-band matrices through their
         primitives. On `device` (default: the CUDA card) at the session's
-        matmul tier, read here and kept."""
+        matmul tier, read when it is built and kept; cached."""
+        self._reject_measure("compiled_banded")
         dev = resolve_device(device)
-        tier = precision.matmul_precision()
-        precision.ieee_fp32()
-        return XlaProgram("banded", n, self.banded_items(n, density), iters,
-                          tier, dev)
+
+        def build():
+            tier = precision.matmul_precision()
+            precision.ieee_fp32()
+            return XlaProgram("banded", n, self.banded_items(n, density),
+                              iters, tier, dev)
+        return self._cached(("banded", n, density, iters, _device_key(dev)), build)
 
     def banded_trace(self, amps: torch.Tensor, n: int, density: bool,
                      tier: str = None) -> torch.Tensor:
         """Apply the banded plan to raw planes in place (ref :1238)."""
+        self._reject_measure("banded_trace")
         tier = precision.check_tier(tier or precision.matmul_precision())
         precision.ieee_fp32()
         return _apply_banded_items(amps, n, self.banded_items(n, density),
@@ -508,33 +702,39 @@ class Circuit:
         pairs, diagonals and parity phases runs as ONE launch of the
         segment kernel, in place on the state; a passthrough runs
         through ops/apply between segments. Operands and descriptor
-        tables go to `device` (default: the CUDA card) here, once; calls
-        reuse them. The matmul tier (QUEST_MATMUL_PRECISION or
-        precision.set_matmul_precision) and the segment driver
-        (QUEST_FUSED_DRIVER, QUEST_FUSED_PIPELINE, QUEST_FUSED_NBUF) are
-        read here, once, as the reference reads them at trace time: the
-        program keeps them. Below the kernel's 10 qubits this is
-        compiled_banded (ref circuit.py:1274); f64 planes run the plan's
-        banded items (FusedProgram)."""
+        tables go to `device` (default: the CUDA card) once, when the
+        program is built; calls reuse them. The matmul tier
+        (QUEST_MATMUL_PRECISION or precision.set_matmul_precision) and
+        the segment driver (QUEST_FUSED_DRIVER, QUEST_FUSED_PIPELINE,
+        QUEST_FUSED_NBUF) are read then, as the reference reads them at
+        trace time: the program keeps them, and the cache key carries
+        them, so a flip builds a new program. Below the kernel's 10
+        qubits this is compiled_banded (ref circuit.py:1274); f64 planes
+        run the plan's banded items (FusedProgram)."""
+        self._reject_measure("compiled_fused")
         if knob_value("QUEST_FUSED_SCAN"):
             raise NotImplementedError(
-                "QUEST_FUSED_SCAN is not ported yet (ROADMAP A4)")
+                "QUEST_FUSED_SCAN is not ported yet (ROADMAP A6)")
         if not BP.usable(n):
             return self.compiled_banded(n, density, iters, device)
         dev = resolve_device(device)
-        tier = precision.matmul_precision()
-        driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
-        precision.ieee_fp32()
-        items, raw = self.fused_plan(n, density)
-        parts, loop_iters = _sweep_unrolled(raw, n, iters, driver)
-        steps = [prepare_segment(p[1], p[2], n, dev, tier=tier,
-                                 driver=driver, nbuf=nbuf)
-                 if p[0] == "segment" else XlaPass(p[1], n, tier)
-                 for p in parts]
-        record = BP.fused_record(raw, BP.maybe_sweep(raw, n, driver=driver),
-                                 n, driver=driver, nbuf=nbuf)
-        return FusedProgram(n, steps, loop_iters, tier, driver, nbuf, record,
-                            items, iters, dev)
+
+        def build():
+            tier = precision.matmul_precision()
+            driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
+            precision.ieee_fp32()
+            items, raw = self.fused_plan(n, density)
+            parts, loop_iters = _sweep_unrolled(raw, n, iters, driver)
+            steps = [prepare_segment(p[1], p[2], n, dev, tier=tier,
+                                     driver=driver, nbuf=nbuf)
+                     if p[0] == "segment" else XlaPass(p[1], n, tier)
+                     for p in parts]
+            record = BP.fused_record(raw, BP.maybe_sweep(raw, n,
+                                                         driver=driver),
+                                     n, driver=driver, nbuf=nbuf)
+            return FusedProgram(n, steps, loop_iters, tier, driver, nbuf,
+                                record, items, iters, dev)
+        return self._cached(("fused", n, density, iters, _device_key(dev)), build)
 
     def apply_fused(self, q, iters: int = 1):
         """Apply the circuit to register `q` (statevector or density)
@@ -554,10 +754,12 @@ class Circuit:
         all states, so the launch count does not depend on the batch; the
         kernel takes B at launch and nothing planned depends on it, so
         the program runs any batch at its exact size (`batch`, >= 1, is
-        the reference's signature). f64 batches run its banded items.
-        engine 'banded', and engine None below the kernel's 10 qubits:
-        the banded program over the whole batch. engine 'fused' below the
-        kernel tier raises ValueError, as in the reference."""
+        the reference's signature, and no part of the cache key). f64
+        batches run its banded items. engine 'banded', and engine None
+        below the kernel's 10 qubits: the banded program over the whole
+        batch. engine 'fused' below the kernel tier raises ValueError, as
+        in the reference."""
+        self._reject_measure("compiled_batched")
         if engine not in (None, "fused", "banded"):
             raise ValueError(
                 f"engine must be None, 'fused' or 'banded', got {engine!r}")
@@ -569,9 +771,13 @@ class Circuit:
                 f"engine='fused' requires the kernel tier; a {n}-qubit "
                 f"register rides the banded program (engine='banded' or "
                 f"None)")
-        if engine == "banded":
-            return self.compiled_banded(n, density, device=device)
-        return self.compiled_fused(n, density, device=device)
+        dev = resolve_device(device)
+
+        def build():
+            if engine == "banded":
+                return self.compiled_banded(n, density, device=dev)
+            return self.compiled_fused(n, density, device=dev)
+        return self._cached(("batched", n, density, engine, _device_key(dev)), build)
 
     def apply_batched(self, amps_b: torch.Tensor,
                       density: bool = False) -> torch.Tensor:
@@ -581,6 +787,293 @@ class Circuit:
         fn = self.compiled_batched(int(amps_b.shape[0]), density,
                                    device=amps_b.device)
         return fn(amps_b)
+
+    def program_key(self, density: bool = False, dtype=np.float32) -> Tuple:
+        """The identity of the batched program this circuit resolves to
+        (ref circuit.py:1448): two requests may share one compiled_batched
+        call iff their keys are equal. It holds the circuit object itself
+        (compared by identity), its op count (a circuit grown after a
+        submit is a new family), the register kind and size, the plane
+        dtype (f32 runs the kernel, f64 the banded items) and
+        _engine_mode_key()."""
+        n = self.num_qubits * 2 if density else self.num_qubits
+        return ("batched", self, len(self.ops), n, density,
+                np.dtype(dtype).str, _engine_mode_key())
+
+    # -- dynamic circuits ----------------------------------------------------
+
+    def compiled_measured(self, n: int, density: bool = False,
+                          engine: str = "banded", device=None):
+        """The dynamic-circuit program (ref circuit.py:870): fn(amps,
+        generator) -> (amps, outcomes), the planes updated in place and
+        the outcomes an int32 CPU tensor in program order. engine
+        'banded' plans the scheduled flat list (measurements and
+        classically controlled ops are opaque barriers to the planner),
+        'xla' runs the flat list op by op. Each measurement draws one
+        uniform from `generator` (fn.given(amps, uniforms) takes them in
+        a sequence instead), reads the outcome on the host and collapses
+        in place; a classically controlled gate runs in place or not at
+        all. On `device` (default: the CUDA card); cached."""
+        if engine not in ("banded", "xla"):
+            raise ValueError(
+                f"engine must be 'banded' or 'xla', got {engine!r}")
+        if not self._measure_count():
+            raise val.QuESTError(
+                "Invalid operation: compiled_measured requires at least "
+                "one mid-circuit measurement; use compiled() instead.")
+        dev = resolve_device(device)
+
+        def build():
+            tier = precision.matmul_precision()
+            precision.ieee_fp32()
+            flat = flatten_ops(self.ops, n, density)
+            if engine == "banded":
+                items = F.plan(F.maybe_schedule(flat, n), n)
+            else:
+                items = flat
+            return MeasuredProgram(engine, n, items, tier, dev)
+        return self._cached(("measured", engine, n, density, _device_key(dev)), build)
+
+    def apply_measured(self, q, generator: torch.Generator,
+                       engine: str = "banded"):
+        """Apply a dynamic circuit to `q` in place on its device: (the
+        register, outcomes int32 in program order). Equal generator
+        states give equal outcomes."""
+        if self.num_qubits != q.num_qubits:
+            raise ValueError("circuit/register size mismatch")
+        if not self._measure_count():
+            raise val.QuESTError(
+                "Invalid operation: apply_measured requires at least one "
+                "mid-circuit measurement; use apply() instead.")
+        fn = self.compiled_measured(q.num_state_qubits, q.is_density, engine,
+                                    device=q.amps.device)
+        amps, outcomes = fn(q.amps, generator)
+        return q.replace_amps(amps), outcomes
+
+    # -- introspection -------------------------------------------------------
+
+    def explain(self, density: bool = False, batch: int = None,
+                budgets: BP.Budgets = BP.HOPPER_GEOMETRY) -> str:
+        """What compiled_fused would run, without building it (ref
+        circuit.py:1533): the scheduler's line, the sweep fusion line,
+        one line per planned part (a kernel segment and its stage mix, or
+        a passthrough), the totals (state passes, bytes one application
+        moves, segments, distinct kernel structures), the batch line and
+        an estimate from the Hopper cost model (_COST_MODELS). `budgets`
+        is the planner geometry (band_plan.TPU_GEOMETRY reproduces the
+        reference's plan)."""
+        self._reject_measure("explain")
+        n = self.num_qubits * 2 if density else self.num_qubits
+        pass_bytes = 2 * 4 * (1 << n) * 2   # r+w of both f32 planes
+        lines = [f"fused schedule for {len(self.ops)} ops on "
+                 f"{self.num_qubits} qubits"
+                 + (f" (density: {n}-qubit register)" if density else "")]
+        flat = flatten_ops(self.ops, n, density)
+        sched_ops, sched = F.schedule(flat, n)
+        enabled = F._schedule_enabled()
+        if enabled:
+            lines.append(
+                f"  scheduler: on (QUEST_SCHEDULE=1): "
+                f"{sched['delayed']} diagonal op(s) delayed, "
+                f"{sched['hoisted']} hoisted, {sched['fused_ops']} "
+                f"composed into {sched['fused_groups']} group(s)")
+        else:
+            lines.append(
+                f"  scheduler: OFF (QUEST_SCHEDULE=0); on, it would "
+                f"compose {sched['fused_ops']} diagonal op(s) into "
+                f"{sched['fused_groups']} group(s)")
+        if not BP.usable(n):
+            lines.append(f"  register below the kernel tier's minimum "
+                         f"({BP.LANE_QUBITS + 3} qubits): the banded "
+                         f"engine runs instead")
+            return "\n".join(lines)
+        items = F.plan(sched_ops if enabled else flat, n,
+                       bands=BP.plan_bands(n))
+        parts = BP.segment_plan(items, n, budgets=budgets)
+        swept = BP.sweep_plan(parts, n, budgets=budgets)
+        nseg = sum(1 for p in parts if p[0] == "segment")
+        nsw = sum(1 for p in swept if p[0] == "segment")
+        if knob_value("QUEST_SWEEP_FUSION"):
+            lines.append(
+                f"  sweep fusion: on (QUEST_SWEEP_FUSION=1): {nseg} "
+                f"kernel segment(s) -> {nsw} sweep(s), {len(swept)} HBM "
+                f"pass(es) per application")
+            parts = swept
+        else:
+            lines.append(
+                f"  sweep fusion: OFF (QUEST_SWEEP_FUSION=0); on, it "
+                f"would merge {nseg} segment(s) into {nsw} sweep(s)")
+        kernels = set()
+        for i, part in enumerate(parts):
+            if part[0] == "segment":
+                stages = part[1]
+                kernels.add(tuple(stages))
+                mix = {}
+                for st in stages:
+                    name = type(st).__name__.removesuffix("Stage").lower()
+                    if hasattr(st, "kind"):
+                        name = f"{name}:{st.kind}"
+                    mix[name] = mix.get(name, 0) + 1
+                desc = " ".join(f"{k}x{v}" if v > 1 else k
+                                for k, v in mix.items())
+                lines.append(f"  [{i}] kernel segment  "
+                             f"{len(stages)} stages  ({desc})")
+            else:
+                it = part[1]
+                what = (f"band q{it.ql}..q{it.ql + it.w - 1}"
+                        if isinstance(it, F.BandOp) else
+                        "diagonal" if isinstance(it, F.DiagItem)
+                        else f"op {getattr(it.op, 'kind', '?')}")
+                lines.append(f"  [{i}] passthrough  {what}")
+        passes = len(parts)
+        moved = passes * pass_bytes
+        lines.append(
+            f"  total: {passes} HBM pass{'es' if passes != 1 else ''} "
+            f"({_human_bytes(moved)} moved per application at {n}q), "
+            f"{sum(1 for p in parts if p[0] == 'segment')} segments, "
+            f"{len(kernels)} distinct kernels")
+        if batch is not None:
+            lines.append(
+                f"  batched: B={batch} states per launch (no bucket: the "
+                f"kernel takes B at launch); {passes} launch(es) per "
+                f"application independent of B — "
+                f"{_human_bytes(moved * int(batch))} moved for the batch")
+        kind = (torch.cuda.get_device_name(torch.cuda.current_device())
+                if torch.cuda.is_initialized() else "?")
+        model, matched = _cost_model_for(kind)
+        lo, hi = _estimate_ms(parts, n, model)
+        tag = ("" if matched or kind == "?" else
+               f" [CAUTION: no cost model for {kind!r} — using H100 "
+               f"constants; treat as relative, not absolute]")
+        lines.append(
+            f"  estimated steady state on one H100: {lo:.1f}-{hi:.1f} ms "
+            f"per application at HIGHEST (constants: "
+            f"{model['provenance']}){tag}")
+        return "\n".join(lines)
+
+
+def _human_bytes(b: int) -> str:
+    if b >= 2**29:
+        return f"{b / 2**30:.2f} GiB"
+    if b >= 2**19:
+        return f"{b / 2**20:.2f} MiB"
+    return f"{b / 2**10:.2f} KiB"
+
+
+# The Hopper cost model of explain(), in the keys of the reference's
+# _COST_MODELS (circuit.py:418-478), ms at 2^30 amplitudes (an 8 GiB f32
+# state): the 28-qubit K1 launch times of PERF.md section 6 (chip_smoke.py,
+# NVIDIA H100 80GB HBM3, 700 W, PR 10) times 4. base_pass is the
+# stage-free launch; every other entry is a stage's launch minus it.
+_H100_28Q_MS = {"stage_free": 1.463, "b0": 6.557, "b1": 7.091,
+                "scb": 7.078, "sc": 1.591, "pair": 1.549, "parity": 1.556}
+_SCALE_30Q = 4.0
+_COST_MODELS = {
+    "h100": {
+        "provenance": "MEASURED on NVIDIA H100 80GB HBM3, 700 W, PR 10 "
+                      "(chip_smoke.py stage_timing: 28q K1 launches x 4; "
+                      "PERF.md section 6)",
+        "base_pass": _H100_28Q_MS["stage_free"] * _SCALE_30Q,
+        "sc": (_H100_28Q_MS["sc"] - _H100_28Q_MS["stage_free"]) * _SCALE_30Q,
+        # b0 and scb-128 compute adders, averaged: every matrix stage of
+        # d >= 16 takes the same FMA chain
+        "scb": ((_H100_28Q_MS["b0"] + _H100_28Q_MS["scb"]) / 2
+                - _H100_28Q_MS["stage_free"]) * _SCALE_30Q,
+        "b1_extra": (_H100_28Q_MS["b1"] - _H100_28Q_MS["b0"]) * _SCALE_30Q,
+        "pair": (_H100_28Q_MS["pair"] - _H100_28Q_MS["stage_free"])
+        * _SCALE_30Q,
+        "phase": (_H100_28Q_MS["parity"] - _H100_28Q_MS["stage_free"])
+        * _SCALE_30Q,
+    },
+}
+
+
+def _cost_model_for(device_name: str):
+    """(model, matched) for a torch.cuda device name: the H100 model,
+    matched only on an H100 (an unknown card gets it with matched False,
+    so explain() cautions)."""
+    return _COST_MODELS["h100"], "H100" in device_name
+
+
+def _estimate_ms(parts, n: int, model=None):
+    """(lo, hi) ms per application (ref circuit.py:480): per segment
+    max(base, compute) and base + compute, a passthrough the base pass
+    (1.8x for a band), scaled from 2^30 amplitudes to 2^n."""
+    model = model or _COST_MODELS["h100"]
+    scale = (1 << n) / (1 << 30)
+    base = model["base_pass"]
+
+    def compute_ms(st):
+        if isinstance(st, BP.MatStage):
+            if st.kind == "sc":
+                return model["sc"]
+            return (model["scb"] * (2 / 3 if st.real_only else 1.0)
+                    + (model["b1_extra"] if st.kind == "b1" else 0.0))
+        if isinstance(st, BP.PairStage):
+            return model["pair"]
+        if isinstance(st, BP.MultiPhaseStage):
+            return model["phase"] * (0.7 + 0.3 * len(st.forms))
+        return model["phase"]
+
+    lo = hi = 0.0
+    for part in parts:
+        if part[0] == "segment":
+            comp = sum(compute_ms(st) for st in part[1])
+            lo += max(base, comp)
+            hi += base + comp
+        else:
+            mult = 1.8 if isinstance(part[1], F.BandOp) else 1.0
+            lo += base * mult
+            hi += base * mult
+    return lo * scale, hi * scale
+
+
+class MeasuredProgram:
+    """A compiled dynamic circuit (ref circuit.py:870): `items` are the
+    banded engine's plan items or the per-gate engine's flat ops, run in
+    place at matmul `tier` on `device`. A measurement ('measure', or
+    'measure_dm' on a density register) draws its uniform, reads its
+    outcome on the host and collapses the planes
+    (measurement._measure_given_uniform); a 'classical' op checks its
+    conditions against the outcomes so far and applies its gates in
+    place, or skips them."""
+
+    def __init__(self, engine: str, n: int, items: List, tier: str,
+                 device: torch.device):
+        self.engine = engine
+        self.n = n
+        self.items = items
+        self.tier = tier
+        self.device = device
+
+    def __call__(self, amps: torch.Tensor, generator: torch.Generator):
+        return self._run(amps, lambda: MS.draw_uniform(generator, amps.dtype))
+
+    def given(self, amps: torch.Tensor, uniforms):
+        """The same run with the measurements' uniforms given in order
+        (a sequence of floats in [0, 1))."""
+        it = iter(uniforms)
+        return self._run(amps, lambda: float(next(it)))
+
+    def _run(self, amps: torch.Tensor, draw):
+        _check_device(amps, self.device)
+        outs: List[int] = []
+        for it in self.items:
+            op = it.op if isinstance(it, F.PassOp) else it
+            kind = getattr(op, "kind", None)
+            if kind in ("measure", "measure_dm"):
+                outcome, _ = MS._measure_given_uniform(
+                    amps, draw(), n=self.n, qubit=op.targets[0],
+                    density=kind == "measure_dm")
+                outs.append(outcome)
+            elif kind == "classical":
+                inners, conds = op.operand
+                if all(outs[idx] == want for idx, want in conds):
+                    for g in inners:
+                        _apply_one(amps, self.n, g, self.tier)
+            else:
+                _apply_item(amps, self.n, it, self.tier)
+        return amps, torch.tensor(outs, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------

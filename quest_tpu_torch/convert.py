@@ -5,8 +5,10 @@ The reference package's objects arrive as plain Python/numpy: a
 quest_tpu GateOp is read by attribute (nothing of quest_tpu is
 imported), state planes and operands as numpy arrays. Density circuits
 cross the same way (superoperator ops with their `meta` Kraus
-branches), and density planes — (2, 4^N) in the reference's
-column-major flat order — become a density Qureg.
+branches), and so do dynamic circuits: a 'measure' op as it is, a
+'classical' op with its inner gates rebuilt as port GateOps. State
+planes become a statevector Qureg, and density planes — (2, 4^N) in the
+reference's column-major flat order — a density Qureg.
 """
 
 from __future__ import annotations
@@ -37,6 +39,22 @@ def _meta(meta):
     return meta
 
 
+def _gate_op(op) -> GateOp:
+    """A port GateOp of the same fields as `op`; a classical op's operand
+    ((inner GateOps, ...), conditions) with its inner ops rebuilt."""
+    operand = op.operand
+    if op.kind == "classical":
+        inners, conds = operand
+        operand = (tuple(_gate_op(g) for g in inners),
+                   tuple((int(i), int(w)) for i, w in conds))
+    else:
+        operand = _operand(operand)
+    return GateOp(kind=op.kind, targets=tuple(int(t) for t in op.targets),
+                  controls=tuple(int(q) for q in op.controls),
+                  cstates=tuple(int(s) for s in op.cstates),
+                  operand=operand, meta=_meta(getattr(op, "meta", None)))
+
+
 def circuit_from_ops(ops: Iterable, num_qubits: int = None) -> Circuit:
     """A port Circuit holding the same gate stream as `ops` — quest_tpu
     GateOps (or anything with kind/targets/controls/cstates/operand and
@@ -48,13 +66,7 @@ def circuit_from_ops(ops: Iterable, num_qubits: int = None) -> Circuit:
                               for q in (*op.targets, *op.controls)),
                              default=0)
     c = Circuit(num_qubits)
-    for op in ops:
-        c.ops.append(GateOp(
-            kind=op.kind, targets=tuple(int(t) for t in op.targets),
-            controls=tuple(int(q) for q in op.controls),
-            cstates=tuple(int(s) for s in op.cstates),
-            operand=_operand(op.operand),
-            meta=_meta(getattr(op, "meta", None))))
+    c.ops.extend(_gate_op(op) for op in ops)
     return c
 
 
@@ -66,6 +78,18 @@ def planes_from_numpy(planes, device=None) -> torch.Tensor:
     # be a read-only view (a JAX array's host buffer)
     arr = np.array(planes, dtype=np.float32, order="C")
     return torch.from_numpy(arr).to(resolve_device(device))
+
+
+def qureg_from_numpy(planes, device=None, dtype=np.float32) -> Qureg:
+    """A statevector Qureg from (2, 2^n) planes (or any view of them) on
+    `device`, f32 planes (`dtype` np.float64: f64)."""
+    arr = np.array(planes, dtype=dtype, order="C").reshape(2, -1)
+    amps = torch.from_numpy(arr).to(resolve_device(device))
+    n = amps.shape[1].bit_length() - 1
+    if amps.shape[1] != 1 << n:
+        raise ValueError(f"statevector planes need 2^n amplitudes, got "
+                         f"{amps.shape[1]}")
+    return Qureg(amps=amps, num_qubits=n)
 
 
 def density_qureg_from_numpy(planes, device=None) -> Qureg:

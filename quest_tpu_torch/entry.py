@@ -38,6 +38,21 @@ Each entry compiles its program at the session's matmul tier
 (QUEST_MATMUL_PRECISION or precision.set_matmul_precision: highest, high
 or default), as the reference's entry points do.
 
+measured_entry(device=None, engine="banded") -> (fn, (amps, generator)):
+fn(amps, generator) runs repetition_code_circuit() — two rounds of a
+bit-flip-code cycle on 28 data qubits and 2 syndrome ancillas (30 qubits,
+8 GiB f32 planes): small rx/rz noise on every data qubit, two parity
+syndromes measured, feedback corrections, the ancillas reset by
+measurement and a conditioned flip — through compiled_measured(engine)
+in place, and returns (amps, outcomes). The generator is a CPU
+torch.Generator seeded with `seed`, so equal seeds give equal draws on
+either engine and either device.
+
+xeb_entry(device=None) -> (fn, (amps, generator)): fn(amps, generator)
+runs the flagship step, then draws 2^20 samples of the state
+(measurement.sample) and returns (linear XEB, samples) — the RCS
+workload end to end: circuit, samples, fidelity estimate.
+
 The two other density circuits the smoke test drives are here too:
 bench_density_circuit (the repo's density bench scenario: rotations,
 damping, a 2-qubit depolarising Kraus map and a Pauli Kraus map) and
@@ -53,12 +68,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quest_tpu_torch import calculations as K
+from quest_tpu_torch import measurement as MS
 from quest_tpu_torch import precision
 from quest_tpu_torch import trajectories as T
 from quest_tpu_torch.circuit import Circuit, random_circuit
 from quest_tpu_torch.env import resolve_device
 from quest_tpu_torch.ops import matrices as M
-from quest_tpu_torch.state import basis_planes, fused_state_shape
+from quest_tpu_torch.state import Qureg, basis_planes, fused_state_shape
 
 FLAGSHIP_QUBITS = 28
 FLAGSHIP_DEPTH = 4
@@ -71,6 +88,11 @@ TRAJ_DEPTH = 3
 TRAJ_SHOTS = 256
 TRAJ_CHUNK = 64
 TRAJ_SEED = 0
+MEASURED_DATA_QUBITS = 28     # + 2 ancillas: 30 qubits, 8 GiB planes
+MEASURED_ROUNDS = 2
+MEASURED_SEED = 5
+XEB_SHOTS = 1 << 20
+XEB_SEED = 3
 
 
 def flagship_circuit(num_qubits: int = FLAGSHIP_QUBITS,
@@ -307,3 +329,74 @@ def trajectory_entry(device=None, num_qubits: int = TRAJ_QUBITS,
                              observable=z_top, device=dev)
     fn.circuit, fn.shots, fn.chunk = circ, shots, chunk
     return fn, (torch.Generator().manual_seed(seed),)
+
+
+def repetition_code_circuit(n_data: int = MEASURED_DATA_QUBITS,
+                            rounds: int = MEASURED_ROUNDS) -> Circuit:
+    """`rounds` bit-flip-code cycles on `n_data` data qubits and 2
+    syndrome ancillas (tests/test_dynamic_circuits.py's 30-qubit-class
+    cycle, draw for draw with seed 5): rx and rz of up to 0.2 rad on
+    every data qubit, the parities (0, 1) and (1, 2) onto the ancillas,
+    both measured, a correcting flip on data qubit 0, 1 or 2 conditioned
+    on the pair, then each ancilla measured again and flipped back on
+    outcome 1 (a reset)."""
+    n = n_data + 2
+    c = Circuit(n)
+    rng = np.random.default_rng(5)
+    out_idx = 0
+    for _ in range(rounds):
+        for qb in range(n_data):
+            c.rx(qb, float(rng.uniform(0, 0.2)))
+            c.rz(qb, float(rng.uniform(0, 0.2)))
+        c.cnot(0, n_data)
+        c.cnot(1, n_data)
+        c.cnot(1, n_data + 1)
+        c.cnot(2, n_data + 1)
+        c.measure(n_data)
+        c.measure(n_data + 1)
+        c.x_if(0, ((out_idx, 1), (out_idx + 1, 0)))
+        c.x_if(2, ((out_idx, 0), (out_idx + 1, 1)))
+        c.x_if(1, ((out_idx, 1), (out_idx + 1, 1)))
+        c.measure(n_data)
+        c.measure(n_data + 1)
+        c.x_if(n_data, (out_idx + 2, 1))
+        c.x_if(n_data + 1, (out_idx + 3, 1))
+        out_idx += 4
+    return c
+
+
+def measured_entry(device=None, n_data: int = MEASURED_DATA_QUBITS,
+                   rounds: int = MEASURED_ROUNDS, engine: str = "banded",
+                   seed: int = MEASURED_SEED):
+    """(fn, (amps, generator)) of the dynamic-circuit step on `device`
+    (default: the CUDA card; raises without one): fn(amps, generator)
+    runs repetition_code_circuit(n_data, rounds) through
+    compiled_measured(engine) in place and returns (amps, outcomes int32).
+    amps is |0...0> as flat planes; fn.circuit names the circuit."""
+    dev = resolve_device(device)
+    circ = repetition_code_circuit(n_data, rounds)
+    n = circ.num_qubits
+    fn = circ.compiled_measured(n, engine=engine, device=dev)
+    fn.circuit = circ
+    return fn, (_planes(n, np.complex64, dev),
+                torch.Generator().manual_seed(seed))
+
+
+def xeb_entry(device=None, num_qubits: int = FLAGSHIP_QUBITS,
+              depth: int = FLAGSHIP_DEPTH, shots: int = XEB_SHOTS,
+              seed: int = XEB_SEED):
+    """(fn, (amps, generator)) of the sampling step on `device` (default:
+    the CUDA card; raises without one): fn(amps, generator) applies the
+    flagship step to amps in place, draws `shots` samples of the state
+    from `generator` and returns (linear XEB, samples). fn.step is the
+    flagship program, fn.shots the shot count."""
+    dev = resolve_device(device)
+    step, (amps,) = entry(dev, num_qubits, depth)
+
+    def fn(amps, generator):
+        step(amps)
+        q = Qureg(amps=amps, num_qubits=num_qubits)
+        samples = MS.sample(q, shots, generator)
+        return K.calc_linear_xeb(q, samples), samples
+    fn.step, fn.shots = step, shots
+    return fn, (amps, torch.Generator().manual_seed(seed))

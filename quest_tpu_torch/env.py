@@ -7,6 +7,12 @@ The engines read the knobs when they plan (Circuit.compiled_fused,
 compiled_banded, compiled_batched, apply, trajectories.run_batched), so a flip takes effect on
 the next such call; a compiled program keeps what it read (its matmul
 tier, its segment driver and slot count).
+
+A knob marked `keyed` changes what a compiled program does, so every
+program cache key carries its effective value: `engine_mode_key()`
+(ref quest_tpu/env.py:718-727) is the tuple of them, derived from the
+registry. The matmul tier enters through precision.matmul_precision(),
+so a set_matmul_precision override counts as the knob does.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ class Knob:
     parse: Callable[[str], Any]     # raw string -> value; ValueError if bad
     default: Any
     doc: str
+    keyed: bool = False             # read when a program is compiled
+    current: Callable[[], Any] = None   # effective value beyond the env
 
 
 def _bool01(name: str) -> Callable[[str], bool]:
@@ -56,6 +64,11 @@ def _choice(name: str, choices) -> Callable[[str], str]:
     return parse
 
 
+def _current_matmul_precision() -> str:
+    from quest_tpu_torch import precision
+    return precision.matmul_precision()
+
+
 def _parse_matmul_precision(raw: str) -> str:
     tiers = ("default", "high", "highest")
     if raw.lower() not in tiers:
@@ -70,36 +83,38 @@ _KNOB_LIST = (
          doc="precision tier for state-amplitude contractions: default "
              "(one bf16 product), high (three bf16 products of hi/lo "
              "splits) or highest (IEEE fp32); read when a program is "
-             "compiled (default: highest)"),
+             "compiled (default: highest)",
+         keyed=True, current=_current_matmul_precision),
     Knob("QUEST_APPLY_AUTOROUTE", _bool01("QUEST_APPLY_AUTOROUTE"), True,
          doc="Circuit.apply runs circuits of more than "
              "PERGATE_COMPILE_WARN_OPS ops through the banded engine: "
-             "1/0 (default: 1; 0 keeps the per-gate engine)"),
+             "1/0 (default: 1; 0 keeps the per-gate engine)", keyed=True),
     Knob("QUEST_SCHEDULE", _bool01("QUEST_SCHEDULE"), True,
          doc="commutation-aware gate scheduler in front of the fusing "
-             "engine's planner: 1/0 (default: 1)"),
+             "engine's planner: 1/0 (default: 1)", keyed=True),
     Knob("QUEST_FUSED_SCAN", _bool01("QUEST_FUSED_SCAN"), False,
          doc="scan over repeated-structure kernel segments: 1/0 (default: "
-             "0; 1 is not ported and makes compiled_fused raise)"),
+             "0; 1 is not ported and makes compiled_fused raise)",
+         keyed=True),
     Knob("QUEST_SWEEP_FUSION", _bool01("QUEST_SWEEP_FUSION"), True,
          doc="sweep fusion: merge consecutive geometry-compatible kernel "
-             "segments into one launch: 1/0 (default: 1)"),
+             "segments into one launch: 1/0 (default: 1)", keyed=True),
     # the segment drivers (ref quest_tpu/env.py:431-457); read when a
     # program is compiled and kept in each of its segments
     Knob("QUEST_FUSED_DRIVER",
          _choice("QUEST_FUSED_DRIVER", ("pipelined", "grid")), "pipelined",
          doc="segment driver: pipelined (persistent blocks, bulk async "
              "copies through shared-memory plane slots; default) or grid "
-             "(one block per tile)"),
+             "(one block per tile)", keyed=True),
     Knob("QUEST_FUSED_PIPELINE", _bool01("QUEST_FUSED_PIPELINE"), True,
          doc="under the pipelined driver: 1 (default) refills a plane slot "
              "as soon as its store has read it (the decoupled ring, K1); 0 "
              "only once the store has landed, NBUF slots (the in-place "
-             "driver, K2)"),
+             "driver, K2)", keyed=True),
     Knob("QUEST_FUSED_NBUF", _int_range("QUEST_FUSED_NBUF", 2, 8), 3,
          doc="plane slots of the in-place driver (QUEST_FUSED_PIPELINE=0): "
              "2..8, clamped to what a block's shared memory holds and to "
-             "the launch's steps (default: 3)"),
+             "the launch's steps (default: 3)", keyed=True),
 )
 
 KNOBS = {k.name: k for k in _KNOB_LIST}
@@ -113,6 +128,23 @@ def knob_value(name: str):
     if raw is None:
         return k.default
     return k.parse(raw)
+
+
+def knob_current(name: str):
+    """Like knob_value, but honouring a setter-backed effective value
+    (set_matmul_precision beats QUEST_MATMUL_PRECISION once called)."""
+    k = KNOBS[name]
+    return k.current() if k.current is not None else knob_value(name)
+
+
+_KEYED = tuple(sorted(k.name for k in _KNOB_LIST if k.keyed))
+
+
+def engine_mode_key() -> tuple:
+    """((name, effective value), ...) of every keyed knob, sorted by
+    name: the part of every compiled-program cache key that a knob flip
+    changes (ref quest_tpu/env.py:718-727)."""
+    return tuple((name, knob_current(name)) for name in _KEYED)
 
 
 def default_device() -> torch.device:

@@ -3,8 +3,8 @@
 Ports of quest_tpu/ops/apply.py: `norm_control_states`, `control_mask`
 and `parity_sign` (:128-166), `apply_matrix` (:182) for any number of
 targets, `apply_matrix_rows` (:226), `apply_band` (:578),
-`apply_diagonal` (:936), `apply_parity_phase` (:971) and
-`apply_phase_on_all_ones` (:997). The reference runs all of them in XLA,
+`apply_diagonal` (:936), `apply_parity_phase` (:971),
+`apply_phase_on_all_ones` (:997) and `apply_pauli_string` (:87). The reference runs all of them in XLA,
 outside Pallas; here they are plain tensor code and no kernel of the
 port. They serve the per-gate and banded engines (circuit.py `compiled`,
 `compiled_banded`), the f64 route of the fused engine, and its
@@ -341,4 +341,63 @@ def apply_phase_on_all_ones(amps: torch.Tensor, n: int, qubits,
     tre, tim = _pair(np.asarray(term, dtype=np.complex128).reshape(()), amps)
     for xr, xi, _ in target_chunks(amps, n, (), qubits):
         _complex_mul_(xr, xi, tre, tim)
+    return amps
+
+
+def pauli_masks(term):
+    """(x_bits, zy_bits, ny) of a Pauli string, one code (0..3) per
+    qubit: the X/Y support (the flip), the Z/Y support (the sign) and
+    the Y count (the (-i)^ny quarter-turn)."""
+    x_bits = tuple(q for q, p in enumerate(term) if p in (1, 2))
+    zy_bits = tuple(q for q, p in enumerate(term) if p in (2, 3))
+    return x_bits, zy_bits, sum(1 for p in term if p == 2)
+
+
+def pauli_support(term) -> tuple:
+    """The qubits a Pauli string acts on (not identity), ascending: the
+    axes pauli_chunks keeps whole in every chunk."""
+    return tuple(q for q, p in enumerate(term) if p)
+
+
+def pauli_chunks(amps: torch.Tensor, n: int, term):
+    """Yield (xr, xi, wr, wi) for each chunk of the planes (one state or
+    a batch, cut as target_chunks cuts them, every qubit of the string
+    an axis of the chunk): xr, xi the chunk's views, wr, wi the string's
+    image (P psi) on them as new tensors:
+
+        (P psi)[j] = (-i)^ny (-1)^parity(j & zy) psi[j ^ x]
+
+    (ref apply.py:87). P maps each chunk onto itself, so a caller may
+    write the image back into the views. An all-identity string yields
+    the views themselves as its image."""
+    x_bits, zy_bits, ny = pauli_masks(term)
+    involved = pauli_support(term)
+    _, axis_of = bit_view(n, involved)
+    ax = {q: a + 1 for q, a in axis_of.items()}
+    flips = [ax[q] for q in x_bits]
+    for xr, xi, _ in target_chunks(amps, n, involved):
+        wr = xr.flip(flips) if flips else xr
+        wi = xi.flip(flips) if flips else xi
+        sign = parity_sign(xr.dim(), ax, zy_bits, xr.dtype, xr.device)
+        if sign is not None:
+            wr, wi = wr * sign, wi * sign
+        k = ny % 4
+        if k == 1:                  # * -i
+            wr, wi = wi, -wr
+        elif k == 2:                # * -1
+            wr, wi = -wr, -wi
+        elif k == 3:                # * i
+            wr, wi = -wi, wr
+        yield xr, xi, wr, wi
+
+
+def apply_pauli_string(amps: torch.Tensor, n: int, term) -> torch.Tensor:
+    """P|psi> for a whole Pauli string (one code 0..3 per qubit) in one
+    flip, sign and quarter-turn pass (ref apply.py:87), in place chunk by
+    chunk, so a 30-qubit state needs no second copy; returns `amps`."""
+    if not any(term):
+        return amps
+    for xr, xi, wr, wi in pauli_chunks(amps, n, term):
+        xr.copy_(wr)
+        xi.copy_(wi)
     return amps

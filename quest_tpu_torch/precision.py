@@ -105,6 +105,11 @@ def torch_dtype(dtype) -> torch.dtype:
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
 
 
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """numpy dtype of a torch plane dtype."""
+    return np.dtype(str(dtype).replace("torch.", ""))
+
+
 def set_matmul_precision(tier: Optional[str]) -> None:
     """Set the contraction tier for programs compiled from now on:
     'default', 'high' or 'highest', validated by the QUEST_MATMUL_PRECISION

@@ -19,6 +19,12 @@ which keeps a 30-qubit f32 state at one 8 GiB buffer.
 Planes are f32 (complex64 amplitudes) or f64 (complex128): the same
 layout, with native double arithmetic on f64. Registers of any size from
 one qubit use the flat (2, 2^n) planes; the fused view needs n >= 10.
+
+The initialisers and setters of ref quest_tpu/state.py:152-370
+(init_blank_state, init_state_of_single_qubit, init_pure_state,
+init_state_from_amps, set_amps, set_density_amps) write into the
+register's own planes, on its device, and return it; `clone` gives a
+register of its own buffer. The getters read single amplitudes.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ class Qureg:
 
     @property
     def real_dtype(self) -> np.dtype:
-        return np.dtype(str(self.amps.dtype).replace("torch.", ""))
+        return precision.numpy_dtype(self.amps.dtype)
 
     @property
     def dtype(self) -> np.dtype:
@@ -149,6 +155,148 @@ def init_debug_state(qureg: Qureg) -> Qureg:
         torch.stack([(2.0 * k) / 10.0, (2.0 * k + 1.0) / 10.0]))
 
 
+def clone(qureg: Qureg) -> Qureg:
+    """A copy in a buffer of its own (ref createCloneQureg,
+    QuEST.c:62-72)."""
+    return qureg.replace_amps(qureg.amps.clone())
+
+
+def _flat(qureg: Qureg) -> torch.Tensor:
+    return qureg.amps.reshape(2, -1)
+
+
+def init_blank_state(qureg: Qureg) -> Qureg:
+    """Every amplitude zero (an unphysical state)."""
+    _flat(qureg).zero_()
+    return qureg
+
+
+def init_state_of_single_qubit(qureg: Qureg, qubit: int,
+                               outcome: int) -> Qureg:
+    """The uniform superposition of the basis states whose bit `qubit` is
+    `outcome` (ref statevec_initStateOfSingleQubit,
+    QuEST_cpu.c:1513-1555); statevectors only."""
+    validation.validate_state_vector(qureg)
+    validation.validate_target(qureg, qubit)
+    validation.validate_outcome(outcome)
+    n = qureg.num_state_qubits
+    amps = _flat(qureg)
+    amps.zero_()
+    amps[0].view(1 << (n - 1 - qubit), 2, 1 << qubit)[:, outcome].fill_(
+        1.0 / np.sqrt(1 << (n - 1)))
+    return qureg
+
+
+def init_pure_state(qureg: Qureg, pure: Qureg) -> Qureg:
+    """|psi> (a statevector copy) or |psi><psi| (ref
+    densmatr_initPureState, QuEST.c:139-146), a block of columns at a
+    time."""
+    validation.validate_pure_state_args(qureg, pure)
+    amps = _flat(qureg)
+    src = pure.amps.reshape(2, -1).to(device=amps.device, dtype=amps.dtype)
+    if not qureg.is_density:
+        amps.copy_(src)
+        return qureg
+    dim = 1 << qureg.num_qubits
+    re, im = src[0], src[1]
+    # rho[r, c] = psi_r conj(psi_c) at flat r + c dim: row c of the
+    # (dim, dim) view holds column c of rho
+    mre, mim = amps[0].view(dim, dim), amps[1].view(dim, dim)
+    step = max(1, (1 << 24) // dim)
+    for c0 in range(0, dim, step):
+        cr, ci = re[c0:c0 + step, None], im[c0:c0 + step, None]
+        mre[c0:c0 + step] = cr * re + ci * im
+        mim[c0:c0 + step] = cr * im - ci * re
+    return qureg
+
+
+def _host_pair(reals, imags, amps: torch.Tensor) -> torch.Tensor:
+    rdt = precision.numpy_dtype(amps.dtype)
+    pair = np.stack([np.asarray(reals, dtype=rdt).reshape(-1),
+                     np.asarray(imags, dtype=rdt).reshape(-1)])
+    return torch.from_numpy(pair).to(amps.device)
+
+
+def init_state_from_amps(qureg: Qureg, reals, imags) -> Qureg:
+    """Overwrite every amplitude (ref QuEST.c:155-161)."""
+    reals = np.asarray(reals).reshape(-1)
+    imags = np.asarray(imags).reshape(-1)
+    validation.validate_equal_lengths(reals, imags)
+    validation.validate_num_amps(qureg, 0, reals.size)
+    if reals.size != qureg.num_amps:
+        raise validation.QuESTError(
+            "Invalid number of amplitudes: must match the register size")
+    _flat(qureg).copy_(_host_pair(reals, imags, qureg.amps))
+    return qureg
+
+
+def set_amps(qureg: Qureg, start_index: int, reals, imags) -> Qureg:
+    """Overwrite a contiguous run of amplitudes (ref QuEST.c:779-786)."""
+    validation.validate_state_vector(qureg)
+    reals = np.asarray(reals).reshape(-1)
+    imags = np.asarray(imags).reshape(-1)
+    validation.validate_equal_lengths(reals, imags)
+    validation.validate_num_amps(qureg, start_index, reals.size)
+    _flat(qureg)[:, start_index:start_index + reals.size] = _host_pair(
+        reals, imags, qureg.amps)
+    return qureg
+
+
+def set_density_amps(qureg: Qureg, start_row: int, start_col: int, reals,
+                     imags) -> Qureg:
+    """Write a flat run of amplitudes from rho[start_row, start_col] in
+    the column-major flat order (ref QuEST_debug.h:44-48)."""
+    if not qureg.is_density:
+        raise validation.QuESTError(
+            "Invalid operation: setDensityAmps requires a density matrix")
+    reals = np.asarray(reals).reshape(-1)
+    imags = np.asarray(imags).reshape(-1)
+    validation.validate_equal_lengths(reals, imags)
+    dim = 1 << qureg.num_qubits
+    validation.validate_amp_index(qureg, start_row, dim=dim)
+    validation.validate_amp_index(qureg, start_col, dim=dim)
+    start = start_row + (start_col << qureg.num_qubits)
+    validation.validate_num_amps(qureg, start, reals.size)
+    _flat(qureg)[:, start:start + reals.size] = _host_pair(
+        reals, imags, qureg.amps)
+    return qureg
+
+
+def _fetch_amp(qureg: Qureg, flat: int) -> complex:
+    re, im = _flat(qureg)[:, flat].cpu().tolist()
+    return complex(re, im)
+
+
+def get_amp(qureg: Qureg, index: int) -> complex:
+    """Amplitude `index` of a statevector (ref QuEST.c:671-690)."""
+    validation.validate_amp_index(qureg, index)
+    validation.validate_state_vector(qureg)
+    return _fetch_amp(qureg, index)
+
+
+def get_real_amp(qureg: Qureg, index: int) -> float:
+    return get_amp(qureg, index).real
+
+
+def get_imag_amp(qureg: Qureg, index: int) -> float:
+    return get_amp(qureg, index).imag
+
+
+def get_prob_amp(qureg: Qureg, index: int) -> float:
+    a = get_amp(qureg, index)
+    return a.real * a.real + a.imag * a.imag
+
+
+def get_num_qubits(qureg: Qureg) -> int:
+    return qureg.num_qubits
+
+
+def get_num_amps(qureg: Qureg) -> int:
+    """Statevector amplitude count (ref getNumAmps)."""
+    validation.validate_state_vector(qureg)
+    return qureg.num_amps
+
+
 def get_density_amp(qureg: Qureg, row: int, col: int) -> complex:
     """rho[row, col] (ref getDensityAmp, QuEST.c:694-705)."""
     if not qureg.is_density:
@@ -157,9 +305,7 @@ def get_density_amp(qureg: Qureg, row: int, col: int) -> complex:
     dim = 1 << qureg.num_qubits
     validation.validate_amp_index(qureg, row, dim=dim)
     validation.validate_amp_index(qureg, col, dim=dim)
-    pair = qureg.amps.reshape(2, -1)[:, row + (col << qureg.num_qubits)]
-    re, im = pair.cpu().tolist()
-    return complex(re, im)
+    return _fetch_amp(qureg, row + (col << qureg.num_qubits))
 
 
 def to_dense(qureg_or_amps) -> np.ndarray:

@@ -50,14 +50,14 @@ its uniforms, so the two are compared given the draws.)
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from quest_tpu_torch import precision
 from quest_tpu_torch import validation as val
-from quest_tpu_torch.circuit import XlaPass, flatten_ops
+from quest_tpu_torch.circuit import XlaPass, _device_key, flatten_ops
 from quest_tpu_torch.env import knob_value, resolve_device
 from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import band_plan as BP
@@ -392,27 +392,22 @@ class TrajectoryProgram:
         return planes.reshape(b, 2, -1), draws
 
 
-def _engine_key() -> Tuple:
-    return (knob_value("QUEST_SCHEDULE"), knob_value("QUEST_SWEEP_FUSION"))
-
-
 def _compiled_traj(circuit, n: int, device,
                    engine: str = "fused") -> TrajectoryProgram:
     """The trajectory program of `circuit` on `device` through `engine`
-    ('fused' or 'banded'), cached on the circuit per (device, engine, op
-    count, planner knobs, matmul tier, segment driver and slots): a
-    program keeps the tier and driver it was compiled with, and a new
-    tier or driver compiles anew."""
+    ('fused' or 'banded'), cached on the circuit like every program
+    (Circuit._cached: keyed on n, engine, the device and
+    _engine_mode_key(), the matmul tier and segment driver among it): a
+    program keeps the tier and driver it was compiled with, and a flip
+    compiles anew."""
     dev = resolve_device(device)
-    tier = precision.matmul_precision()
-    driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
-    key = ("traj-batched", n, str(dev), engine, len(circuit.ops),
-           _engine_key(), tier, driver, nbuf)
-    prog = circuit._compiled.get(key)
-    if prog is None:
-        prog = TrajectoryProgram(circuit, n, dev, tier, driver, nbuf, engine)
-        circuit._compiled[key] = prog
-    return prog
+
+    def build():
+        tier = precision.matmul_precision()
+        driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
+        return TrajectoryProgram(circuit, n, dev, tier, driver, nbuf, engine)
+    return circuit._cached(("traj-batched", n, _device_key(dev), engine),
+                           build)
 
 
 def _resolve_engine(engine, n: int) -> str:

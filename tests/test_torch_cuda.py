@@ -851,3 +851,110 @@ def test_skipped_tiles_above_the_grid_limit(card):
         view = (batch, 2, 1 << (n - 7), 128)
         assert torch.equal(got.reshape(view)[:, :, out],
                            planes.reshape(view)[:, :, out])
+
+
+# -- the QuEST user surface on the card (no kernel: plain tensor code on
+# the card's tensors, held against the same functions on the CPU) --------
+
+
+def _random_qureg(n, seed, device):
+    from quest_tpu_torch.state import Qureg
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((2, 1 << n))
+    v /= np.sqrt((v ** 2).sum())
+    return Qureg(amps=torch.from_numpy(v.astype(np.float32)).to(device),
+                 num_qubits=n)
+
+
+def test_measurement_on_the_card_matches_the_cpu(card):
+    """calc_prob_of_outcome, collapse_to_outcome and the drawing-free
+    measurement at 22 qubits: the card against the CPU within 1e-6."""
+    from quest_tpu_torch import measurement as TM
+    n = 22
+    on, off = _random_qureg(n, 1, card), _random_qureg(n, 1, "cpu")
+    for qubit in (0, 7, 21):
+        assert abs(TM.calc_prob_of_outcome(on, qubit, 1)
+                   - TM.calc_prob_of_outcome(off, qubit, 1)) <= 1e-6
+    _, p_on = TM.collapse_to_outcome(on, 7, 1)
+    _, p_off = TM.collapse_to_outcome(off, 7, 1)
+    assert abs(p_on - p_off) <= 1e-6
+    scale = off.amps.abs().max().item()
+    assert (on.amps.cpu() - off.amps).abs().max().item() <= 1e-6 * scale
+    for u in (0.1, 0.7):
+        o_on = TM._measure_given_uniform(on.amps, u, n=n, qubit=3,
+                                         density=False)
+        o_off = TM._measure_given_uniform(off.amps, u, n=n, qubit=3,
+                                          density=False)
+        assert o_on[0] == o_off[0] and abs(o_on[1] - o_off[1]) <= 1e-6
+
+
+def test_sampling_on_the_card_matches_the_cpu(card):
+    """Inverse-CDF sampling at 22 qubits from the same uniforms: equal
+    indices wherever the scaled uniform is more than 1e-6 from both
+    neighbouring CPU CDF entries; elsewhere (a run of entries whose
+    probabilities sit below the CDF's ulp may be cut at another place by
+    the card's scan) the card's index is one the CPU CDF allows within
+    1e-6: cdf[i - 1] - 1e-6 <= u < cdf[i] + 1e-6."""
+    from quest_tpu_torch import measurement as TM
+    n = 22
+    on, off = _random_qureg(n, 2, card), _random_qureg(n, 2, "cpu")
+    u = torch.rand(1 << 16, generator=torch.Generator().manual_seed(4))
+    got = TM._sample_given_uniforms(on.amps, u.to(card), n=n,
+                                    density=False).cpu()
+    want = TM._sample_given_uniforms(off.amps, u, n=n, density=False)
+    cdf = TM._stable_cdf(TM._probabilities(off.amps, n, False)).double()
+    scaled = (u * cdf[-1].float()).double()
+    lo = cdf[(want - 1).clamp(min=0)]
+    hi = cdf[want]
+    clear = ((scaled - lo).abs() > 1e-6) & ((scaled - hi).abs() > 1e-6)
+    assert torch.equal(got[clear], want[clear])
+    below = torch.where(got > 0, cdf[(got - 1).clamp(min=0)],
+                        torch.zeros_like(scaled))
+    assert bool(((below - 1e-6 <= scaled) & (scaled < cdf[got] + 1e-6)).all())
+    samples = TM.sample(on, 1 << 16, torch.Generator(device=card).manual_seed(1))
+    assert samples.device.type == "cuda" and samples.shape == (1 << 16,)
+
+
+def test_dynamic_circuit_on_the_card_matches_the_cpu(card):
+    """entry.measured_entry at 20 data qubits + 2 ancillas under both
+    engines: the card's outcomes equal the CPU's from one seed, planes
+    within 1e-5 x max|amp|."""
+    from quest_tpu_torch.entry import measured_entry
+    for engine in ("banded", "xla"):
+        fn, (amps, gen) = measured_entry(card, n_data=20, engine=engine)
+        fc, (amps_c, gen_c) = measured_entry("cpu", n_data=20, engine=engine)
+        got, outs = fn(amps, gen)
+        want, outs_c = fc(amps_c, gen_c)
+        assert torch.equal(outs, outs_c)
+        scale = want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= 1e-5 * scale
+
+
+def test_eager_gates_and_calculations_on_the_card(card):
+    """A sequence of eager gates, a channel and the calculations at 20
+    qubits (a 10-qubit density register): the card against the CPU."""
+    from quest_tpu_torch import calculations as TK
+    from quest_tpu_torch.ops import channels as TCH
+    from quest_tpu_torch.ops import gates as TG
+    from quest_tpu_torch.state import create_density_qureg
+    n = 20
+    regs = [_random_qureg(n, 3, d) for d in (card, "cpu")]
+    for q in regs:
+        TG.hadamard(q, 19)
+        TG.controlled_rotate_x(q, 3, 12, 0.4)
+        TG.multi_rotate_pauli(q, [0, 9, 18], [1, 2, 3], 0.3)
+        TG.multi_qubit_unitary(q, [2, 15], np.kron(
+            np.array([[0, 1], [1, 0]]), np.eye(2)))
+    on, off = regs
+    scale = off.amps.abs().max().item()
+    assert (on.amps.cpu() - off.amps).abs().max().item() <= 1e-5 * scale
+    codes = [[3] * n, [1 if i % 3 == 0 else 0 for i in range(n)]]
+    assert abs(TK.calc_expec_pauli_sum(on, codes, [0.5, -1.0])
+               - TK.calc_expec_pauli_sum(off, codes, [0.5, -1.0])) <= 1e-5
+    assert abs(TK.calc_inner_product(on, on) - 1.0) <= 1e-5
+    rhos = [create_density_qureg(10, device=d) for d in (card, "cpu")]
+    for r in rhos:
+        TG.hadamard(r, 4)
+        TCH.mix_depolarising(r, 4, 0.2)
+        TCH.mix_dephasing(r, 1, 0.1)
+    assert abs(TK.calc_purity(rhos[0]) - TK.calc_purity(rhos[1])) <= 1e-6

@@ -28,7 +28,9 @@ def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys; before = set(sys.modules); "
             "import quest_tpu_torch, quest_tpu_torch.entry, "
             "quest_tpu_torch.convert, quest_tpu_torch.ops.segment, "
-            "quest_tpu_torch.trajectories, quest_tpu_torch.profiling; "
+            "quest_tpu_torch.trajectories, quest_tpu_torch.profiling, "
+            "quest_tpu_torch.measurement, quest_tpu_torch.random_, "
+            "quest_tpu_torch.ops.gates, quest_tpu_torch.ops.channels; "
             "bad = sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
