@@ -5,6 +5,8 @@
     python3 chip_smoke.py --upto stages   # build + per-stage checks only
     python3 chip_smoke.py --diag-runs     # the S5/S6 run timings and the
                                           # flagship step at each tier
+    python3 chip_smoke.py --ham-profile   # profiler tables of the
+                                          # Hamiltonian layers, 30 qubits
     python3 -c "import torch, chip_smoke as C; C.phase_build();
                 C.phase_f64(torch)"      # one phase alone
 
@@ -209,6 +211,36 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      12-qubit density register against the same circuit's per-gate
      program (1e-6 x max|amp|).
 
+ The Hamiltonian layers (PR 12; no kernel is added; each phase prints
+ its wall seconds):
+ 30. expec: on a 30-qubit state (random circuit depth 4), TFIM-30 (60
+     terms) and the bench's 100-term random-support sum through
+     calc_expec_pauli_sum, grouped (QUEST_EXPEC_FUSION=1) and per term
+     (0), each within 1e-5 x max(|E|, 1) of an f64 recomputation on the
+     card; TFIM-14 on density_entry's register (28 state qubits) the same
+     way; apply_pauli_sum of TFIM-30 (<psi|H psi> against the f64
+     energy); sweeps, ms, peak memory and the byte bound of each;
+ 31. evolution: entry.evolution_entry() — the TFIM-30 quench, order 2,
+     dt 0.05, 4 steps, the energy after each — through the fused engine
+     (every launch K1, counted), against engine='banded' (planes within
+     1e-4 x max|amp|, energies within 1e-5 relative); one legacy
+     per-term step (QUEST_TROTTER_FUSION=0) against one fused step;
+     imaginary time at 26 qubits, 8 steps (the energy never rises by
+     more than 1e-5 relative, the norm within 1e-5 of 1); ms per step of
+     each engine, each launch's device ms, K1 launches per step and
+     their stage mix, the byte bound and the operations bound per step;
+ 32. variational: at 20 qubits a 2-layer hardware-efficient ansatz's
+     torch.autograd gradient against the parameter-shift rule for all 80
+     parameters (1e-4); sweep of 32 parameter sets at 16 qubits against
+     the per-set loop (1e-6);
+ 33. adjoint: entry.vqe_entry() at 30 qubits (120 parameters, the
+     adjoint walk): two parameters against the parameter-shift rule
+     (1e-3), peak memory above the base within 3 x 8 GiB + 1 GiB, ms of
+     the forward and the backward walk; at 20 qubits adjoint against
+     taped (1e-5 values, 1e-4 gradients); a 10-qubit density register's
+     gradients against the statevector ones (1e-5); what 'auto' chooses
+     at 20 and 30 qubits and its capacity numbers.
+
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
 sheet); a segment of phase stages only counts the rows its predicates
@@ -269,7 +301,8 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "stage_timing", "phase_counters", "pergate", "banded", "f64",
           "wide_gates", "small_registers", "batched_banded",
           "trajectories_banded", "program_cache", "measurement", "xeb",
-          "dynamic", "calculations", "eager")
+          "dynamic", "calculations", "eager", "expec", "evolution",
+          "variational", "adjoint")
 
 RECORD = []
 
@@ -3352,6 +3385,618 @@ def phase_eager(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the Hamiltonian layers (PR 12; no kernel is added): expectation,
+# evolution, variational energies, adjoint gradients
+# ---------------------------------------------------------------------------
+
+CARD = "cuda"                 # the device of the Hamiltonian phases
+HAM_QUBITS = 30               # TFIM-30 and the random-support sum: 8 GiB
+HAM_STATE_DEPTH = 4           # the random circuit that makes the state
+RANDOM_SUM_TERMS = 100
+HAM_DENSITY_QUBITS = 14       # density_entry's register: 28 state qubits
+EXPEC_REL_TOL = 1e-5          # relative to max(|E|, 1)
+EVOLUTION_STEPS = 4
+IMAG_QUBITS = 26
+IMAG_STEPS = 8
+IMAG_TOL = 1e-5
+VAR_QUBITS = 20
+VAR_LAYERS = 2
+VAR_SEED = 17
+SHIFT_TOL = 1e-4
+SWEEP_QUBITS = 16
+SWEEP_SETS = 32
+SWEEP_TOL = 1e-6
+ADJ_QUBITS = 30
+ADJ_SHIFT_PARAMS = (0, ADJ_QUBITS)    # the first ry and the first rz
+ADJ_SHIFT_TOL = 1e-3
+ADJ_SMALL_QUBITS = 20
+ADJ_VALUE_TOL = 1e-5
+ADJ_GRAD_TOL = 1e-4
+ADJ_DENSITY_QUBITS = 10       # 20 state qubits
+ADJ_DENSITY_TOL = 1e-5
+
+
+def _sync(torch) -> None:
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(torch) -> int:
+    """Reset the card's peak-memory counter; returns the bytes allocated
+    now (the base a phase's peak is read above)."""
+    if CARD != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_gib(torch, base: int) -> float:
+    """GiB allocated at the peak since _reset_peak, above `base`."""
+    if CARD != "cuda":
+        return 0.0
+    return (torch.cuda.max_memory_allocated() - base) / GIB
+
+
+def _wall(torch, fn):
+    """(wall ms, fn()) with the device synchronised around the call."""
+    _sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _free(torch) -> None:
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def env_knob(name: str, value: str):
+    """Set one QUEST_* knob inside the block, then restore it."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def _parity_fold(torch, p):
+    """p & 1 after folding the parity of p's low 32 bits into bit 0."""
+    for s in (16, 8, 4, 2, 1):
+        p = p ^ (p >> s)
+    return p & 1
+
+
+def _sign_table(mask: int, bits: int) -> np.ndarray:
+    """(-1)^popcount(v & mask) for v < 2^bits, f64."""
+    v = np.arange(1 << bits)
+    par = np.zeros(1 << bits, dtype=np.int64)
+    for b in range(bits):
+        if (mask >> b) & 1:
+            par ^= (v >> b) & 1
+    return 1.0 - 2.0 * par
+
+
+def pauli_sum_f64(torch, planes, n: int, codes, coeffs,
+                  chunk_bits: int = 24) -> float:
+    """sum_t c_t <P_t> of (2, 2^n) planes in f64 by direct sums, chunk by
+    chunk: each mask's flipped read a gather at j ^ x, each term's sign
+    the parity of j & zy as the outer product of the sign tables of j's
+    low and high half-bits, contracted with the chunk's f64 product
+    plane viewed as a matrix (two matrix-vector products), times the
+    parity of the bits above the chunk (independent of ops/expec and
+    ops/apply)."""
+    flat = planes.reshape(2, -1)
+    C = min(n, chunk_bits)
+    h = C // 2
+    dev = flat.device
+    idx = torch.arange(1 << C, device=dev)
+    groups = {}
+    for row, c in zip(codes, coeffs):
+        x = sum(1 << q for q, p in enumerate(row) if p in (1, 2))
+        zy = sum(1 << q for q, p in enumerate(row) if p in (2, 3))
+        ny = sum(1 for p in row if p == 2)
+        lo = torch.as_tensor(_sign_table(zy, h), device=dev)
+        hi = torch.as_tensor(_sign_table(zy >> h, C - h), device=dev)
+        groups.setdefault(x, []).append((zy, ny, float(c), lo, hi))
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    for c0 in range(0, 1 << n, 1 << C):
+        ar = flat[0, c0:c0 + (1 << C)].double()
+        ai = flat[1, c0:c0 + (1 << C)].double()
+        for x, terms in groups.items():
+            part = (idx + c0) ^ x
+            br, bi = flat[0][part].double(), flat[1][part].double()
+            planes_of = {0: (ar * br + ai * bi).view(1 << (C - h), 1 << h)}
+            if any(ny % 2 for _, ny, _, _, _ in terms):
+                planes_of[1] = (ar * bi - ai * br).view(1 << (C - h), 1 << h)
+            for zy, ny, c, lo, hi in terms:
+                sign = (1.0, 1.0, -1.0, -1.0)[ny % 4]
+                if bin(c0 & zy).count("1") & 1:
+                    sign = -sign
+                total += (c * sign) * (hi @ (planes_of[ny % 2] @ lo))
+            del planes_of, br, bi, part
+    return float(total)
+
+
+def pauli_trace_f64(torch, planes, N: int, codes, coeffs) -> float:
+    """Re sum_t c_t Tr(P_t rho) of a density register's planes in f64:
+    each term's 2^N entries rho[k, k ^ x] gathered and signed by the
+    parity of k & zy (independent of ops/expec)."""
+    flat = planes.reshape(2, -1)
+    k = torch.arange(1 << N, device=flat.device)
+    total = 0.0
+    for row, c in zip(codes, coeffs):
+        x = sum(1 << q for q, p in enumerate(row) if p in (1, 2))
+        zy = sum(1 << q for q, p in enumerate(row) if p in (2, 3))
+        ny = sum(1 for p in row if p == 2)
+        at = k + (k ^ x) * (1 << N)
+        r, m = flat[0][at].double(), flat[1][at].double()
+        part = (r, -m, -r, m)[ny % 4]
+        odd = _parity_fold(torch, k & zy).bool()
+        total += float(c) * float(torch.where(odd, -part, part).sum())
+    return total
+
+
+def _expec_rows(torch, q, codes, coeffs, want, state_bytes):
+    """calc_expec_pauli_sum under QUEST_EXPEC_FUSION=1 (grouped) and 0
+    (per term): sweeps, ms, peak memory and the byte bound of each, held
+    to `want` within EXPEC_REL_TOL x max(|want|, 1)."""
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch.ops import expec as E
+    rows = {}
+    nq = q.num_qubits
+    for name, fusion in (("grouped", "1"), ("per_term", "0")):
+        with env_knob("QUEST_EXPEC_FUSION", fusion):
+            stats = E.plan_stats(codes, nq, density=q.is_density)
+            base = _reset_peak(torch)
+            ms, val = _wall(torch, lambda: K.calc_expec_pauli_sum(
+                q, codes, coeffs))
+        err = abs(val - want)
+        sweeps = stats["expec_hbm_sweeps"]
+        rows[name] = {"value": val, "abs_err": err, "sweeps": sweeps,
+                      "ms": ms, "peak_gib": _peak_gib(torch, base),
+                      "bound_ms": sweeps * state_bytes / HBM_BYTES_PER_S
+                      * 1e3}
+        if not err <= EXPEC_REL_TOL * max(abs(want), 1.0):
+            raise AssertionError(f"expec {name}: {val} against the f64 "
+                                 f"recomputation {want}")
+    rows["groups"] = stats["expec_groups"]
+    return rows
+
+
+def phase_expec(torch):
+    """The grouped engine on a 30-qubit state (random circuit depth 4,
+    seed 7, through the fused engine; 8 GiB planes): TFIM-30 (60 terms)
+    and the bench's 100-term random-support sum, grouped
+    (QUEST_EXPEC_FUSION=1) and per term (0), each against an f64
+    recomputation on the card (pauli_sum_f64) within 1e-5 x max(|E|, 1);
+    TFIM-14 on density_entry's register (28 state qubits) the same way
+    (pauli_trace_f64); apply_pauli_sum of TFIM-30, its <psi|H psi>
+    against the f64 energy. Sweeps (plan_stats), ms, peak memory above
+    the state and the byte bound (sweeps x the planes' bytes over 3.35
+    TB/s) of each."""
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.entry import (density_entry, random_support_sum,
+                                       tfim_sum)
+    from quest_tpu_torch.state import Qureg, basis_planes, fused_state_shape
+    t0 = time.perf_counter()
+    n = HAM_QUBITS
+    rec = {"phase": "expec", "n": n}
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=CARD)
+    random_circuit(n, HAM_STATE_DEPTH, seed=7, entangler="cz").compiled_fused(
+        n, device=CARD)(amps)
+    q = Qureg(amps=amps, num_qubits=n)
+    state_bytes = 2 * 4 * (1 << n)
+    for name, (codes, coeffs) in (
+            ("tfim", tfim_sum(n)),
+            ("random_support", random_support_sum(n, RANDOM_SUM_TERMS))):
+        want = pauli_sum_f64(torch, amps, n, codes, coeffs)
+        rec[name] = dict(terms=len(codes), f64=want,
+                         **_expec_rows(torch, q, codes, coeffs, want,
+                                       state_bytes))
+    codes, coeffs = tfim_sum(n)
+    base = _reset_peak(torch)
+    ms, out = _wall(torch, lambda: K.apply_pauli_sum(q, codes, coeffs))
+    peak = _peak_gib(torch, base)
+    hpsi = K.calc_inner_product(q, out)
+    want = rec["tfim"]["f64"]
+    rec["apply_pauli_sum"] = {
+        "ms": ms, "peak_gib": peak, "psi_h_psi": [hpsi.real, hpsi.imag],
+        "bound_ms": 2 * rec["tfim"]["groups"] * state_bytes
+        / HBM_BYTES_PER_S * 1e3}
+    if not (abs(hpsi.real - want) <= EXPEC_REL_TOL * max(abs(want), 1.0)
+            and abs(hpsi.imag) <= EXPEC_REL_TOL * max(abs(want), 1.0)):
+        raise AssertionError(f"apply_pauli_sum: <psi|H psi> {hpsi} against "
+                             f"{want}")
+    del out, amps, q
+    _free(torch)
+    dfn, (rho,) = density_entry(CARD, num_qubits=HAM_DENSITY_QUBITS)
+    dfn(rho)
+    nd = HAM_DENSITY_QUBITS
+    codes, coeffs = tfim_sum(nd)
+    want = pauli_trace_f64(torch, rho, nd, codes, coeffs)
+    rec["density_tfim"] = dict(
+        state_qubits=2 * nd, terms=len(codes), f64=want,
+        **_expec_rows(torch, Qureg(amps=rho, num_qubits=nd, is_density=True),
+                      codes, coeffs, want, 2 * 4 * (1 << nd)))
+    del dfn, rho
+    _free(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    return rec
+
+
+def _stage_mix(prog):
+    """Stage kinds of each launch of a fused program, in order."""
+    mix = []
+    for seg in prog.segments:
+        kinds = {}
+        for st in seg.stages:
+            label = getattr(st, "kind", None) or type(st).__name__
+            kinds[label] = kinds.get(label, 0) + 1
+        mix.append(kinds)
+    return mix
+
+
+def _state_err(a, b) -> float:
+    return plane_err(a.reshape(2, -1), b.reshape(2, -1))
+
+
+def phase_evolution(torch):
+    """entry.evolution_entry() at 30 qubits: the TFIM quench, order 2, dt
+    0.05, 4 steps, the energy after each step, through run_evolution's
+    default engine (fused: K1 launches of the pooled step), the launch
+    counters set to 0 just before and read just after (every launch K1,
+    as many as the program plans); the same quench through
+    engine='banded': final planes within 1e-4 x max|amp| and energies
+    within 1e-5 relative; one step under QUEST_TROTTER_FUSION=0 (the
+    legacy per-term eager path) against one fused step, the same
+    tolerances; imaginary time at 26 qubits from |+>, 8 steps: the
+    energy never rises by more than 1e-5 relative, the norm within 1e-5
+    of 1. ms per step of each engine (the step program alone, and the
+    run with its energies), K1 launches per step, the stage mix of each
+    launch, the byte bound per step (launches and passthroughs x the
+    planes read and written once) and the step's bound (bytes against
+    the matrix stages' operations, program_bound)."""
+    from quest_tpu_torch import evolution as EV
+    from quest_tpu_torch.entry import (EVOLUTION_DT, evolution_entry,
+                                       tfim_sum)
+    from quest_tpu_torch.ops import segment as S
+    from quest_tpu_torch.state import create_qureg, init_plus_state
+    t0 = time.perf_counter()
+    n = HAM_QUBITS
+    steps = EVOLUTION_STEPS
+    state_bytes = 2 * 4 * (1 << n)
+    rec = {"phase": "evolution", "n": n, "steps": steps, "dt": EVOLUTION_DT}
+    fn, (q,) = evolution_entry(CARD, num_qubits=n, steps=steps)
+    S.segment_sweep.launches = 0
+    S.segment_sweep.stage_launches = {}
+    S.segment_sweep.driver_launches = {}
+    ms, fused = _wall(torch, lambda: fn(q))
+    launches = S.segment_sweep.launches
+    drivers = dict(S.segment_sweep.driver_launches)
+    stage_launches = dict(S.segment_sweep.stage_launches)
+    if CARD == "cuda" and (fused.stats["engine"] != "fused"
+                           or launches != fused.stats["launches"]
+                           or not launches
+                           or drivers != {"decoupled": launches}):
+        raise AssertionError(f"evolution: engine {fused.stats}, launches "
+                             f"{launches}, drivers {drivers}")
+    spec = EV.as_pauli_sum(tfim_sum(n))
+    prog = EV.trotter_circuit(spec, EVOLUTION_DT, order=2,
+                              steps=1).compiled_fused(n, device=CARD)
+    x = fused.state.amps.clone()
+    step_ms = statistics.median(_wall(torch, lambda: prog(x))[0]
+                                for _ in range(3))
+    # device time of the step and of each of its launches alone
+    step_dev = time_ms(torch, lambda: prog(x), 3) if CARD == "cuda" else 0.0
+    launch_ms = [time_ms(torch, lambda: S.segment_sweep(x, seg), 3)
+                 if CARD == "cuda" else 0.0 for seg in prog.segments]
+    del x
+    passes = len(prog.steps)
+    rec["fused"] = {
+        "run_ms": ms, "step_ms": step_ms, "step_device_ms": step_dev,
+        "launch_ms": launch_ms, "energies": fused.energies[:, 0]
+        .tolist(), "launches": launches, "stage_launches": stage_launches,
+        "launches_per_step": prog.launches_per_call,
+        "passthroughs_per_step": passes - len(prog.segments),
+        "stage_mix": _stage_mix(prog),
+        "bytes_bound_ms_per_step": passes * 2 * state_bytes
+        / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_per_step": program_bound(prog)[0],
+        "bound_by": program_bound(prog)[1],
+        "plan": EV.trotter_plan_stats(spec, EVOLUTION_DT, order=2)}
+    bfn, (qb,) = evolution_entry(CARD, num_qubits=n, steps=steps,
+                                 engine="banded")
+    bms, banded = _wall(torch, lambda: bfn(qb))
+    del qb
+    scale = banded.state.amps.abs().max().item()
+    err = _state_err(fused.state.amps, banded.state.amps)
+    e_f, e_b = fused.energies[:, 0], banded.energies[:, 0]
+    e_rel = float(np.max(np.abs(e_f - e_b) / np.maximum(np.abs(e_b), 1e-30)))
+    bprog = EV.trotter_circuit(spec, EVOLUTION_DT, order=2,
+                               steps=1).compiled_banded(n, device=CARD)
+    x = banded.state.amps.clone()
+    bstep, _ = _wall(torch, lambda: bprog(x))
+    del x
+    rec["banded"] = {"run_ms": bms, "step_ms": bstep, "max_abs_err": err,
+                     "rel_err": err / scale, "energy_rel_err": e_rel,
+                     "passes_per_step": len(bprog.items)}
+    if not (err <= PATH_TOL * scale and e_rel <= IMAG_TOL):
+        raise AssertionError(f"evolution: fused against banded {err} "
+                             f"(max|amp| {scale}), energies {e_rel}")
+    del banded, bfn
+    _free(torch)
+    f1, (q1,) = evolution_entry(CARD, num_qubits=n, steps=1)
+    one = f1(q1)
+    with env_knob("QUEST_TROTTER_FUSION", "0"):
+        lfn, (ql,) = evolution_entry(CARD, num_qubits=n, steps=1)
+        lms, legacy = _wall(torch, lambda: lfn(ql))
+        plan = EV._plan_trotter(spec.codes)
+        lstep, _ = _wall(torch, lambda: EV._legacy_step(
+            ql, plan, spec, EVOLUTION_DT, 2))      # the step alone
+    del q1, ql
+    scale = one.state.amps.abs().max().item()
+    err = _state_err(one.state.amps, legacy.state.amps)
+    e1, el = one.energies[-1, 0], legacy.energies[-1, 0]
+    rec["legacy"] = {"run_ms": lms, "step_ms": lstep,
+                     "engine": legacy.stats["engine"],
+                     "max_abs_err": err, "rel_err": err / scale,
+                     "energy_rel_err": abs(e1 - el) / max(abs(el), 1e-30),
+                     "term_applications": EV.trotter_plan_stats(
+                         spec, EVOLUTION_DT, order=2, pooled=False)[
+                         "baseline_hbm_sweeps_per_step"]}
+    if not (legacy.stats["engine"] == "legacy-per-term"
+            and err <= PATH_TOL * scale
+            and rec["legacy"]["energy_rel_err"] <= IMAG_TOL):
+        raise AssertionError(f"evolution: legacy step {rec['legacy']}")
+    del one, legacy, fused, q, fn
+    _free(torch)
+    ni = IMAG_QUBITS
+    qi = init_plus_state(create_qureg(ni, device=CARD))
+    ims, imag = _wall(torch, lambda: EV.run_evolution(
+        tfim_sum(ni), EVOLUTION_DT, IMAG_STEPS, state=qi, imag_time=True,
+        energy_every=1))
+    track = imag.energies[:, 0]
+    rises = [float(b - a) / max(abs(a), 1e-30)
+             for a, b in zip(track[:-1], track[1:])]
+    norm = EV._norm(imag.state.amps).item()
+    rec["imag_time"] = {"n": ni, "steps": IMAG_STEPS, "run_ms": ims,
+                        "ms_per_step": ims / IMAG_STEPS,
+                        "energies": track.tolist(), "max_rise": max(rises),
+                        "norm": norm}
+    if not (max(rises) <= IMAG_TOL and abs(norm - 1.0) <= IMAG_TOL):
+        raise AssertionError(f"evolution: imaginary time {rec['imag_time']}")
+    del qi, imag
+    _free(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    return rec
+
+
+def _hea_ansatz(V, n: int, layers: int):
+    """entry.hea_circuit's gates as a variational ansatz: ry and rz on
+    every qubit and a cz ring per layer, params in that order."""
+    def ansatz(amps, params):
+        k = 0
+        for _ in range(layers):
+            for q in range(n):
+                amps = V.ry(amps, n, q, params[k])
+                k += 1
+            for q in range(n):
+                amps = V.rz(amps, n, q, params[k])
+                k += 1
+            for q in range(n):
+                amps = V.cz(amps, n, q, (q + 1) % n)
+        return amps
+    return ansatz
+
+
+def phase_variational(torch):
+    """variational.expectation of the hardware-efficient ansatz (2 layers)
+    against TFIM-20 at 20 qubits: torch.autograd gradients against the
+    parameter-shift rule, (E(theta + pi/2) - E(theta - pi/2)) / 2, for
+    every parameter within 1e-4; sweep of 32 parameter sets at 16 qubits
+    equal to the per-set loop within 1e-6. ms of each."""
+    from quest_tpu_torch import variational as V
+    from quest_tpu_torch.entry import tfim_sum
+    t0 = time.perf_counter()
+    n, layers = VAR_QUBITS, VAR_LAYERS
+    codes, coeffs = tfim_sum(n)
+    energy = V.expectation(_hea_ansatz(V, n, layers), n, codes, coeffs,
+                           device=CARD)
+    rng = np.random.default_rng(VAR_SEED)
+    theta0 = rng.uniform(-np.pi, np.pi, 2 * n * layers)
+    theta = torch.tensor(theta0, dtype=torch.float32, device=CARD,
+                         requires_grad=True)
+
+    def value_grad():
+        v = energy(theta)
+        return v, torch.autograd.grad(v, theta)[0]
+    ms, (val, grad) = _wall(torch, value_grad)
+    grad = grad.double().cpu().numpy()
+    shift = np.zeros_like(grad)
+
+    def at(th):
+        with torch.no_grad():
+            return float(energy(torch.tensor(th, dtype=torch.float32,
+                                             device=CARD)))
+    sms = time.perf_counter()
+    for k in range(len(theta0)):
+        up, dn = theta0.copy(), theta0.copy()
+        up[k] += np.pi / 2
+        dn[k] -= np.pi / 2
+        shift[k] = (at(up) - at(dn)) / 2
+    sms = (time.perf_counter() - sms) * 1e3
+    err = float(np.abs(grad - shift).max())
+    rec = {"phase": "variational", "n": n, "params": len(theta0),
+           "energy": float(val.detach()), "value_and_grad_ms": ms,
+           "shift_ms": sms, "grad_max_abs_err": err}
+    if not err <= SHIFT_TOL:
+        raise AssertionError(f"variational: autograd against parameter "
+                             f"shift {err}")
+    ns = SWEEP_QUBITS
+    codes, coeffs = tfim_sum(ns)
+    e16 = V.expectation(_hea_ansatz(V, ns, layers), ns, codes, coeffs,
+                        device=CARD)
+    batch = torch.tensor(rng.uniform(-np.pi, np.pi,
+                                     (SWEEP_SETS, 2 * ns * layers)),
+                         dtype=torch.float32, device=CARD)
+    with torch.no_grad():
+        wms, swept = _wall(torch, lambda: V.sweep(e16, batch))
+        loop = torch.stack([e16(batch[i]) for i in range(SWEEP_SETS)])
+    serr = (swept - loop).abs().max().item()
+    rec.update(sweep_sets=SWEEP_SETS, sweep_qubits=ns, sweep_ms=wms,
+               sweep_max_abs_err=serr)
+    if not serr <= SWEEP_TOL:
+        raise AssertionError(f"variational: sweep against the loop {serr}")
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    return rec
+
+
+def phase_adjoint(torch):
+    """entry.vqe_entry() at 30 qubits (120 parameters, the adjoint
+    engine): one value and gradient, peak memory above the base within
+    three 8 GiB registers + 1 GiB, two parameters (the first ry and rz)
+    against the parameter-shift rule within 1e-3; ms of the forward
+    (the energy alone) and of the backward walk. At 20 qubits
+    engine='adjoint' against 'taped' (values 1e-5, gradients 1e-4); on a
+    10-qubit density register (20 state qubits) the density gradients
+    against the statevector ones (1e-5). What engine=None ('auto')
+    chooses at 20 and 30 qubits, with the capacity numbers
+    (adjoint.grad_record against the card's memory)."""
+    from quest_tpu_torch import adjoint as AD
+    from quest_tpu_torch.entry import hea_circuit, tfim_sum, vqe_entry
+    t0 = time.perf_counter()
+    n = ADJ_QUBITS
+    rec = {"phase": "adjoint", "n": n}
+    base = _reset_peak(torch)
+    fn, (theta,) = vqe_entry(CARD, num_qubits=n)
+    fwd_ms, _ = _wall(torch, lambda: fn.value(theta))
+    base = _reset_peak(torch)
+    ms, (val, grad) = _wall(torch, lambda: fn(theta))
+    peak = _peak_gib(torch, base)
+    state_gib = 2 * 4 * (1 << n) / GIB
+    th = theta.double().cpu().numpy()
+    shifts = {}
+    for k in ADJ_SHIFT_PARAMS:
+        up, dn = th.copy(), th.copy()
+        up[k] += np.pi / 2
+        dn[k] -= np.pi / 2
+        shifts[k] = (float(fn.value(up)) - float(fn.value(dn))) / 2
+    errs = {k: abs(float(grad[k]) - s) for k, s in shifts.items()}
+    rec.update(engine=fn.engine, params=fn.num_params, energy=float(val),
+               forward_ms=fwd_ms, value_and_grad_ms=ms,
+               backward_ms=ms - fwd_ms, peak_gib=peak,
+               peak_limit_gib=3 * state_gib + 1.0,
+               shift_abs_err={str(k): e for k, e in errs.items()})
+    if not (fn.engine == "adjoint" and max(errs.values()) <= ADJ_SHIFT_TOL
+            and peak <= 3 * state_gib + 1.0
+            and torch.isfinite(grad).all().item()):
+        raise AssertionError(f"adjoint 30q: {rec}")
+    del fn, theta, grad
+    _free(torch)
+    auto = {}
+    for nq in (ADJ_SMALL_QUBITS, n):
+        r = AD.grad_record(hea_circuit(nq, 2), device=CARD)
+        auto[str(nq)] = {"engine": r["engine"], "params": r["params"],
+                         "taped": r["taped"], "adjoint": r["adjoint"]}
+    rec["auto"] = auto
+    ns = ADJ_SMALL_QUBITS
+    adj, (th20,) = vqe_entry(CARD, num_qubits=ns, engine="adjoint")
+    tap = vqe_entry(CARD, num_qubits=ns, engine="taped")[0]
+    ams, (va, ga) = _wall(torch, lambda: adj(th20))
+    tms, (vt, gt) = _wall(torch, lambda: tap(th20))
+    verr, gerr = abs(float(va) - float(vt)), (ga - gt).abs().max().item()
+    rec["small"] = {"n": ns, "adjoint_ms": ams, "taped_ms": tms,
+                    "value_abs_err": verr, "grad_max_abs_err": gerr}
+    if not (verr <= ADJ_VALUE_TOL and gerr <= ADJ_GRAD_TOL):
+        raise AssertionError(f"adjoint 20q: {rec['small']}")
+    nd = ADJ_DENSITY_QUBITS
+    codes, coeffs = tfim_sum(nd)
+    c = hea_circuit(nd, 2)
+    sv = AD.value_and_grad(c, codes, coeffs=coeffs, engine="adjoint",
+                           device=CARD)
+    dm = AD.value_and_grad(c, codes, coeffs=coeffs, engine="adjoint",
+                           density=True, device=CARD)
+    thd = torch.as_tensor(sv.initial_params, dtype=torch.float32,
+                          device=CARD)
+    dms, (vd, gd) = _wall(torch, lambda: dm(thd))
+    vs, gs = sv(thd)
+    derr = (gd - gs).abs().max().item()
+    rec["density"] = {"n": nd, "state_qubits": 2 * nd, "ms": dms,
+                      "value_abs_err": abs(float(vd) - float(vs)),
+                      "grad_max_abs_err": derr}
+    if not (derr <= ADJ_DENSITY_TOL
+            and rec["density"]["value_abs_err"] <= ADJ_DENSITY_TOL):
+        raise AssertionError(f"adjoint density: {rec['density']}")
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    return rec
+
+
+def ham_profile(torch):
+    """torch.profiler tables (top kernels by device time) of the
+    Hamiltonian layers at 30 qubits: the grouped expectation of TFIM-30
+    and of the random-support sum, apply_pauli_sum, the Trotter step
+    (and each of its launches alone, CUDA events) and the adjoint
+    forward; one JSON line, the tables in smoke_out/ham_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch import evolution as EV
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.entry import (EVOLUTION_DT, random_support_sum,
+                                       tfim_sum, vqe_entry)
+    from quest_tpu_torch.ops import segment as S
+    from quest_tpu_torch.state import Qureg, basis_planes, fused_state_shape
+    n = HAM_QUBITS
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device="cuda")
+    random_circuit(n, HAM_STATE_DEPTH, seed=7, entangler="cz").compiled_fused(
+        n, device="cuda")(amps)
+    q = Qureg(amps=amps, num_qubits=n)
+    tables, rec = [], {"phase": "ham_profile", "n": n}
+
+    def run(name, fn):
+        fn()
+        _sync(torch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ms, _ = _wall(torch, fn)
+        rec[name] = {"profiled_wall_ms": ms}
+        tables.append(f"=== {name}\n" + prof.key_averages().table(
+            sort_by="cuda_time_total", row_limit=14))
+    tf, rs = tfim_sum(n), random_support_sum(n, RANDOM_SUM_TERMS)
+    run("expec_tfim", lambda: K.calc_expec_pauli_sum(q, *tf))
+    run("expec_random_support", lambda: K.calc_expec_pauli_sum(q, *rs))
+    run("apply_pauli_sum_tfim", lambda: K.apply_pauli_sum(q, *tf))
+    prog = EV.trotter_circuit(EV.as_pauli_sum(tf), EVOLUTION_DT, order=2,
+                              steps=1).compiled_fused(n, device="cuda")
+    rec["trotter_launch_ms"] = [time_ms(torch, lambda: S.segment_sweep(
+        amps, seg), 3) for seg in prog.segments]
+    rec["trotter_step_ms"] = time_ms(torch, lambda: prog(amps), 3)
+    run("trotter_step", lambda: prog(amps))
+    del q, amps
+    _free(torch)
+    fn, (theta,) = vqe_entry("cuda", num_qubits=ADJ_QUBITS)
+    run("adjoint_forward", lambda: fn.value(theta))
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "smoke_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "ham_profile.txt"), "w") as f:
+        f.write("\n".join(tables))
+    rec["card"] = smi_line()
+    return rec
+
+
 @contextlib.contextmanager
 def driver_knobs(cfg):
     """Programs compiled inside run under configuration `cfg` of
@@ -3875,6 +4520,10 @@ def main(argv=None) -> int:
     ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--sanitize-case", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--ham-profile", action="store_true",
+                    help="build the kernel and print torch.profiler "
+                    "tables of the Hamiltonian layers at 30 qubits "
+                    "(ham_profile), one JSON line")
     ap.add_argument("--diag-runs", action="store_true",
                     help="build the kernel and time diag_run_cases alone "
                     "(K1, 28 qubits) and the flagship step at each tier, "
@@ -3892,6 +4541,11 @@ def main(argv=None) -> int:
         return 0
     if args.sanitize_case:
         sanitize_case(torch)
+        return 0
+    if args.ham_profile:
+        from quest_tpu_torch.ops import _build
+        _build.build()
+        print(json.dumps(ham_profile(torch)), flush=True)
         return 0
     if args.diag_runs:
         from quest_tpu_torch.ops import _build
@@ -4049,6 +4703,14 @@ def main(argv=None) -> int:
         phase_calculations(torch)
     if want("eager"):
         phase_eager(torch)
+    if want("expec"):
+        phase_expec(torch)
+    if want("evolution"):
+        phase_evolution(torch)
+    if want("variational"):
+        phase_variational(torch)
+    if want("adjoint"):
+        phase_adjoint(torch)
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

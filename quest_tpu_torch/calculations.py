@@ -7,18 +7,18 @@ the f64 copy is taken a chunk at a time, so an 8 GiB f32 state never
 needs a 16 GiB f64 twin, and a result the reference rounds to the plane
 dtype is rounded here the same way.
 
-The Pauli expectations run the reference's per-term program
-(`_expec_pauli_sum` :172 and `_pauli_term_trace` :190, what
-QUEST_EXPEC_FUSION=0 selects there): each statevector term is one
-flip-form pass whose image is reduced chunk by chunk against the state
-(no copy of the state), each density term one gather of the 2^N entries
-rho[k, k ^ x] its trace touches. The grouped engine (ops/expec.py, ROADMAP
-A6) gives the same values.
+The Pauli expectations run the grouped engine (ops/expec.py, ROADMAP
+A6) by default and, under QUEST_EXPEC_FUSION=0, the reference's per-term
+program (`_expec_pauli_sum` :172 and `_pauli_term_trace` :190): each
+statevector term one flip-form pass whose image is reduced chunk by
+chunk against the state (no copy of the state), each density term one
+gather of the 2^N entries rho[k, k ^ x] its trace touches. The two give
+the same values. `apply_pauli_sum` runs the grouped operator apply.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,8 @@ import torch
 from quest_tpu_torch import precision
 from quest_tpu_torch import validation as val
 from quest_tpu_torch.ops import apply as A
+from quest_tpu_torch.ops import expec as E
+from quest_tpu_torch.ops.expec import flipped_trace_diag, parse_pauli_sum
 
 CHUNK_AMPS = 1 << 26
 
@@ -136,37 +138,6 @@ def calc_hilbert_schmidt_distance(a, b) -> float:
 # Pauli expectation values (ref QuEST_common.c:464-514)
 # ---------------------------------------------------------------------------
 
-_PARSE_CACHE: Dict = {}
-
-
-def parse_pauli_sum(all_codes, num_qubits: int) -> Tuple[Tuple[int, ...], ...]:
-    """Validated (M, num_qubits) Pauli-code rows as a nested tuple,
-    memoised by value (the port's copy of ref ops/expec.py:87)."""
-    codes = np.ascontiguousarray(
-        np.asarray(all_codes, dtype=np.int32).reshape(-1, num_qubits))
-    key = (num_qubits, codes.shape[0], codes.tobytes())
-    hit = _PARSE_CACHE.get(key)
-    if hit is not None:
-        return hit
-    val.validate_num_pauli_sum_terms(codes.shape[0])
-    val.validate_pauli_codes(codes)
-    codes_key = tuple(tuple(int(c) for c in row) for row in codes)
-    _PARSE_CACHE[key] = codes_key
-    return codes_key
-
-
-def flipped_trace_diag(amps: torch.Tensor, N: int, x_bits):
-    """(Re, Im) of the flipped diagonal rho[k, k ^ x] as (2^N,) tensors:
-    the 2^N entries a Pauli trace reads of the 4^N register (the port's
-    copy of ref ops/expec.py:420). rho[r, c] is stored at r + c 2^N."""
-    dim = 1 << N
-    x = sum(1 << q for q in x_bits)
-    k = torch.arange(dim, device=amps.device)
-    idx = k + (k ^ x) * dim
-    flat = amps.reshape(2, -1)
-    return flat[0][idx], flat[1][idx]
-
-
 def _pauli_term_trace(amps: torch.Tensor, N: int, term) -> float:
     """Re Tr(P rho) = Re sum_k i^ny (-1)^parity(k & zy) rho[k, k ^ x]
     (ref calculations.py:190), summed in f64."""
@@ -211,6 +182,14 @@ def _term(q, targets, paulis) -> Tuple[int, ...]:
     return tuple(term)
 
 
+def _expec(q, coeffs: np.ndarray, codes) -> float:
+    """The grouped engine (ops/expec.py) under QUEST_EXPEC_FUSION=1, the
+    per-term program under 0 (ref calculations.py:235-241)."""
+    if E.fusion_enabled():
+        return E.expec_value(q, coeffs, codes)
+    return _expec_pauli_sum(q, coeffs, codes)
+
+
 def calc_expec_pauli_prod(q, targets: Sequence[int],
                           paulis: Sequence[int]) -> float:
     """<q| P |q> (statevector) or Re Tr(P rho) (density) of one Pauli
@@ -218,7 +197,7 @@ def calc_expec_pauli_prod(q, targets: Sequence[int],
     val.validate_multi_targets(q, targets)
     val.validate_pauli_targets(targets, paulis)
     val.validate_pauli_codes(paulis)
-    return _expec_pauli_sum(q, np.ones(1), (_term(q, targets, paulis),))
+    return _expec(q, np.ones(1), (_term(q, targets, paulis),))
 
 
 def _coeffs(q, all_codes, coeffs):
@@ -232,9 +211,10 @@ def _coeffs(q, all_codes, coeffs):
 
 def calc_expec_pauli_sum(q, all_codes, coeffs) -> float:
     """sum_t c_t <P_t>; `all_codes` is (numTerms, numQubits) Pauli codes
-    (ref calcExpecPauliSum)."""
+    (ref calcExpecPauliSum): the grouped engine by default, term by term
+    under QUEST_EXPEC_FUSION=0, with equal values."""
     codes, coeffs = _coeffs(q, all_codes, coeffs)
-    return _expec_pauli_sum(q, coeffs, codes)
+    return _expec(q, coeffs, codes)
 
 
 def calc_linear_xeb(q, samples) -> float:
@@ -250,18 +230,16 @@ def calc_linear_xeb(q, samples) -> float:
 
 def apply_pauli_sum(q, all_codes, coeffs):
     """A new register holding sum_t c_t P_t |q> (or sum_t c_t P_t rho on
-    the row space) (ref statevec_applyPauliSum, QuEST_common.c:493-514):
-    one accumulator the size of the state, each term's image added a
-    chunk at a time."""
+    the row space) (ref statevec_applyPauliSum, QuEST_common.c:493-514),
+    through the grouped operator apply (ops/expec.py
+    apply_pauli_sum_planes): one flipped read per mask group, the new
+    planes filled chunk by chunk."""
     codes, coeffs = _coeffs(q, all_codes, coeffs)
-    cf = np.asarray(coeffs, dtype=q.real_dtype)
     n = q.num_state_qubits
-    out = torch.zeros_like(q.amps)
-    for c, term in zip(cf, codes):
-        term = term + (0,) * (n - len(term))
-        for (xr, xi, wr, wi), (orr, oi, _) in zip(
-                A.pauli_chunks(q.amps, n, term),
-                A.target_chunks(out, n, A.pauli_support(term))):
-            orr.add_(wr * float(c))
-            oi.add_(wi * float(c))
-    return q.replace_amps(out)
+    rows = tuple(tuple(t) + (0,) * (n - len(t)) for t in codes)
+    plan = E._plan_cached(rows, n, False, E.max_masks_per_sweep())
+    cf = torch.as_tensor(np.asarray(coeffs, dtype=q.real_dtype),
+                         device=q.amps.device)
+    with torch.no_grad():
+        out = E.apply_pauli_sum_planes(q.amps, cf, plan)
+    return q.replace_amps(out.reshape(q.amps.shape))

@@ -4,8 +4,9 @@ A port of quest_tpu/circuit.py: the GateOp record, the Circuit builder
 (gates, noise channels, mid-circuit measurement and classically
 controlled gates), dual_of, inverse_op and flatten_ops (density duals,
 superoperator expansion, measurements claiming both copies of a qubit),
-the scheduled flat op list (_planned_flat), `explain`, and the
-reference's engines:
+`as_rotation` and `_op_fingerprint` (the gradient engine's angle
+recovery and cache key, adjoint.py), the scheduled flat op list
+(_planned_flat), `explain`, and the reference's engines:
 
   * per-gate (`compiled`, `trace`, `apply`): every op of the unscheduled
     flat list through ops/apply's primitives, the semantic oracle the
@@ -137,6 +138,95 @@ def inverse_op(op) -> "GateOp":
             op, operand=operand,
             parts=tuple((k, b, -a) for k, b, a in parts))
     return dataclasses.replace(op, operand=operand)
+
+
+# the fixed Cliffords a stored 2x2 operand may equal exactly (ref
+# circuit.py:125): as_rotation reads them as constants
+_NAMED_2x2 = (("h", M.HADAMARD), ("x", M.PAULI_X), ("y", M.PAULI_Y),
+              ("z", M.PAULI_Z))
+
+
+def as_rotation(op: GateOp):
+    """(family, theta) of a parametric op, or None for a constant gate
+    (ref circuit.py:165): the structural inverse of the angle-taking
+    builders, which the adjoint engine (adjoint.py) needs to
+    differentiate a gate.
+
+      'parity'  exp(-i th/2 Z..Z)  theta = the stored angle
+      'rx'/'ry' M.rotation(th, x/y axis), recovered with arctan2 over
+                the matrix's 4pi period
+      'phase'   diagonal [1, e^{i th}] on one target
+      'allones' e^{i th} on the all-ones subspace (cphase)
+
+    Exact constants (h/x/y/z, the z/s/t diagonals, cz's -1) return None;
+    the builders never produce them from a generic angle."""
+    if op.kind == "parity":
+        return ("parity", float(op.operand))
+    if op.kind == "matrix":
+        u = np.asarray(op.operand)
+        if u.shape != (2, 2):
+            return None
+        for _, mat in _NAMED_2x2:
+            if np.array_equal(u, mat):
+                return None
+        c, o = u[0, 0], u[0, 1]
+        if (abs(c.imag) < 1e-14 and abs(o.real) < 1e-14
+                and np.allclose(u, [[c, o], [o, c]])):
+            th = 2.0 * np.arctan2(-o.imag, c.real)
+            if np.allclose(u, M.rotation(th, (1.0, 0.0, 0.0))):
+                return ("rx", float(th))
+        if (np.allclose(u.imag, 0.0, atol=1e-14)
+                and np.allclose(u, [[c, o], [-o, c]])):
+            th = 2.0 * np.arctan2(-o.real, c.real)
+            if np.allclose(u, M.rotation(th, (0.0, 1.0, 0.0))):
+                return ("ry", float(th))
+        return None
+    if op.kind == "diagonal":
+        d = np.asarray(op.operand)
+        if d.shape != (2,):
+            return None
+        if (np.array_equal(d, M.Z_DIAG) or np.array_equal(d, M.S_DIAG)
+                or np.array_equal(d, M.T_DIAG)):
+            return None
+        if abs(d[0] - 1.0) < 1e-14 and abs(abs(d[1]) - 1.0) < 1e-14:
+            return ("phase", float(np.angle(d[1])))
+        return None
+    if op.kind == "allones":
+        term = complex(op.operand)
+        if abs(term + 1.0) < 1e-14:      # cz/ccz: exact constant
+            return None
+        if abs(abs(term) - 1.0) < 1e-14:
+            return ("allones", float(np.angle(term)))
+        return None
+    return None
+
+
+def _render_operand(x):
+    """A value fingerprint of an operand (ref plan.py:599), or None for
+    one that is not a concrete array."""
+    import hashlib
+    if x is None:
+        return ["none"]
+    try:
+        arr = np.asarray(x)
+        if arr.dtype == object:
+            return None
+        return ["arr", list(arr.shape), arr.dtype.str,
+                hashlib.sha256(
+                    np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]]
+    except Exception:
+        return None
+
+
+def _op_fingerprint(op):
+    """[kind, targets, controls, cstates, operand fingerprint] of one op,
+    or None when its operand is not concrete (the port's copy of ref
+    plan.py:625, the gradient engine's cache key)."""
+    operand = _render_operand(op.operand)
+    if operand is None:
+        return None
+    return [op.kind, list(op.targets), list(op.controls),
+            list(op.cstates or []), operand]
 
 
 def flatten_ops(ops, n: int, density: bool) -> List[GateOp]:

@@ -53,6 +53,22 @@ runs the flagship step, then draws 2^20 samples of the state
 (measurement.sample) and returns (linear XEB, samples) — the RCS
 workload end to end: circuit, samples, fidelity estimate.
 
+evolution_entry(device=None, num_qubits=30, steps=4) -> (fn, (state,)):
+fn(state) runs the repo bench's evolution scenario — the transverse-field
+Ising quench (tfim_sum: a ring of ZZ couplings at -1 and X fields at
+-0.7), order 2, dt 0.05, `steps` steps from |0...0> on a 30-qubit f32
+register (8 GiB) — through evolution.run_evolution with the energy
+measured after every step, and returns its EvolutionResult; on the card
+each step is the pooled Trotter circuit's fused program (K1 launches of
+S7/S8 diagonal groups and the frame's band stages).
+
+vqe_entry(device=None, num_qubits=30, layers=2) -> (fn, (theta,)): fn =
+adjoint.value_and_grad of a hardware-efficient ansatz (hea_circuit: ry
+and rz on every qubit and a cz ring per layer; 120 parameters at 30
+qubits and 2 layers, seeded angles) against the same TFIM Hamiltonian
+through the adjoint engine: fn(theta) -> (energy, gradient); theta the
+ansatz's angles.
+
 The two other density circuits the smoke test drives are here too:
 bench_density_circuit (the repo's density bench scenario: rotations,
 damping, a 2-qubit depolarising Kraus map and a Pauli Kraus map) and
@@ -93,6 +109,12 @@ MEASURED_ROUNDS = 2
 MEASURED_SEED = 5
 XEB_SHOTS = 1 << 20
 XEB_SEED = 3
+EVOLUTION_QUBITS = 30          # 8 GiB f32 planes
+EVOLUTION_DT = 0.05
+EVOLUTION_STEPS = 4
+VQE_QUBITS = 30
+VQE_LAYERS = 2
+VQE_SEED = 13
 
 
 def flagship_circuit(num_qubits: int = FLAGSHIP_QUBITS,
@@ -400,3 +422,96 @@ def xeb_entry(device=None, num_qubits: int = FLAGSHIP_QUBITS,
         return K.calc_linear_xeb(q, samples), samples
     fn.step, fn.shots = step, shots
     return fn, (amps, torch.Generator().manual_seed(seed))
+
+
+def tfim_sum(n: int):
+    """(codes, coeffs) of the n-qubit transverse-field Ising Hamiltonian
+    of the repo bench (bench.py _build_tfim_sum): n ring ZZ couplings at
+    -1 and n X fields at -0.7. Its grouped plan is 2 sweeps."""
+    rows = []
+    for i in range(n):
+        r = [0] * n
+        r[i] = 3
+        r[(i + 1) % n] = 3
+        rows.append(r)
+    for i in range(n):
+        r = [0] * n
+        r[i] = 1
+        rows.append(r)
+    coeffs = np.concatenate([np.full(n, -1.0), np.full(n, -0.7)])
+    return np.asarray(rows), coeffs
+
+
+def random_support_sum(n: int, terms: int = 100, families: int = 8,
+                       seed: int = 42):
+    """(codes, coeffs) of the bench's random-support sum (bench.py
+    _build_random_support_sum): 40 % diagonal terms on random Z
+    supports, the rest X/Y on `families` random supports dressed with
+    two Z factors elsewhere — the shape of a tapered molecular
+    Hamiltonian, about 1 + families mask groups."""
+    rng = np.random.default_rng(seed)
+    n_diag = int(terms * 0.4)
+    rows = []
+    for _ in range(n_diag):
+        r = np.zeros(n, dtype=np.int32)
+        sup = rng.choice(n, size=rng.integers(1, 4), replace=False)
+        r[sup] = 3
+        rows.append(r)
+    fams = [rng.choice(n, size=rng.integers(1, 4), replace=False)
+            for _ in range(families)]
+    for i in range(terms - n_diag):
+        r = np.zeros(n, dtype=np.int32)
+        fam = fams[i % families]
+        r[fam] = rng.integers(1, 3, size=len(fam))      # X or Y
+        rest = [q for q in range(n) if q not in fam]
+        r[rng.choice(rest, size=2, replace=False)] = 3  # Z dressing
+        rows.append(r)
+    return np.stack(rows), rng.standard_normal(terms)
+
+
+def evolution_entry(device=None, num_qubits: int = EVOLUTION_QUBITS,
+                    steps: int = EVOLUTION_STEPS, dt: float = EVOLUTION_DT,
+                    engine: str = None):
+    """(fn, (state,)) of the TFIM quench on `device` (default: the CUDA
+    card): fn(state) -> evolution.EvolutionResult, order 2, the energy
+    after every step; state is |0...0> (f32); `engine` as run_evolution
+    takes it (None: the fused engine on the card)."""
+    from quest_tpu_torch import evolution as EV
+    from quest_tpu_torch.state import create_qureg
+    dev = resolve_device(device)
+    codes, coeffs = tfim_sum(num_qubits)
+
+    def fn(state):
+        return EV.run_evolution((codes, coeffs), dt, steps, state=state,
+                                order=2, energy_every=1, engine=engine)
+    return fn, (create_qureg(num_qubits, device=dev),)
+
+
+def hea_circuit(num_qubits: int, layers: int, seed: int = VQE_SEED):
+    """The hardware-efficient ansatz: per layer ry and rz on every qubit
+    (seeded angles) and a cz ring."""
+    rng = np.random.default_rng(seed)
+    c = Circuit(num_qubits)
+    for _ in range(layers):
+        for q in range(num_qubits):
+            c.ry(q, float(rng.uniform(-np.pi, np.pi)))
+        for q in range(num_qubits):
+            c.rz(q, float(rng.uniform(-np.pi, np.pi)))
+        for q in range(num_qubits):
+            c.cz(q, (q + 1) % num_qubits)
+    return c
+
+
+def vqe_entry(device=None, num_qubits: int = VQE_QUBITS,
+              layers: int = VQE_LAYERS, engine: str = "adjoint"):
+    """(fn, (theta,)) of the VQE gradient step on `device` (default: the
+    CUDA card): fn = adjoint.value_and_grad(hea_circuit, TFIM, engine)
+    and theta its recovered angles (f32, on the device)."""
+    from quest_tpu_torch import adjoint as AD
+    dev = resolve_device(device)
+    codes, coeffs = tfim_sum(num_qubits)
+    fn = AD.value_and_grad(hea_circuit(num_qubits, layers), codes,
+                           coeffs=coeffs, engine=engine, device=dev)
+    theta = torch.as_tensor(fn.initial_params, dtype=torch.float32,
+                            device=dev)
+    return fn, (theta,)

@@ -115,6 +115,26 @@ _KNOB_LIST = (
          doc="plane slots of the in-place driver (QUEST_FUSED_PIPELINE=0): "
              "2..8, clamped to what a block's shared memory holds and to "
              "the launch's steps (default: 3)", keyed=True),
+    # the Hamiltonian layers (ref quest_tpu/env.py:313, :341-359, :467)
+    Knob("QUEST_EXPEC_FUSION", _bool01("QUEST_EXPEC_FUSION"), True,
+         doc="grouped Pauli-sum expectation engine (ops/expec.py): 1/0 "
+             "(default: 1; 0 evaluates term by term)", keyed=True),
+    Knob("QUEST_EXPEC_MAX_MASKS",
+         _int_range("QUEST_EXPEC_MAX_MASKS", 1, 1 << 30), 64,
+         doc="off-diagonal flip-mask groups that share one expectation "
+             "sweep (default: 64)", keyed=True),
+    Knob("QUEST_TROTTER_FUSION", _bool01("QUEST_TROTTER_FUSION"), True,
+         doc="pooled Trotter emission and fused-engine dispatch "
+             "(evolution.py): 1/0 (default: 1; 0 emits term by term and "
+             "runs the eager per-term workers)", keyed=True),
+    Knob("QUEST_ADJOINT", _choice("QUEST_ADJOINT", ("auto", "0", "1")),
+         "auto",
+         doc="gradient engine of adjoint.value_and_grad: auto (priced by "
+             "the capacity model), 0 = taped autograd, 1 = the adjoint "
+             "walk (default: auto)", keyed=True),
+    Knob("QUEST_HBM_BYTES", _int_range("QUEST_HBM_BYTES", 1, 1 << 62), None,
+         doc="device memory in bytes for the capacity models (default: "
+             "the card's total memory, torch.cuda.get_device_properties)"),
 )
 
 KNOBS = {k.name: k for k in _KNOB_LIST}
@@ -164,3 +184,21 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         return default_device()
     return torch.device(device)
+
+
+def hbm_bytes(device=None) -> int:
+    """Device memory the capacity models price against: QUEST_HBM_BYTES
+    when set, else the total memory of the card (`device`, default the
+    current one). A CPU device has no such figure: set the knob."""
+    raw = knob_value("QUEST_HBM_BYTES")
+    if raw is not None:
+        return int(raw)
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type != "cuda":
+        raise ValueError(
+            f"no device memory figure for {dev}: set QUEST_HBM_BYTES")
+    if not torch.cuda.is_available():
+        raise ValueError("no CUDA device to read the memory of: set "
+                         "QUEST_HBM_BYTES")
+    return int(torch.cuda.get_device_properties(
+        dev if dev is not None else torch.cuda.current_device()).total_memory)

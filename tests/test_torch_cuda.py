@@ -958,3 +958,33 @@ def test_eager_gates_and_calculations_on_the_card(card):
         TCH.mix_depolarising(r, 4, 0.2)
         TCH.mix_dephasing(r, 1, 0.1)
     assert abs(TK.calc_purity(rhos[0]) - TK.calc_purity(rhos[1])) <= 1e-6
+
+
+def test_fused_trotter_quench_matches_banded(card):
+    """The TFIM quench at 20 qubits through the fused engine (K1 launches
+    of the pooled Trotter step) against the banded engine on the card:
+    planes within 1e-4 x max|amp|, energies within 1e-5 relative."""
+    from quest_tpu_torch.entry import evolution_entry
+    fused_fn, (q,) = evolution_entry(card, num_qubits=20, steps=3)
+    banded_fn, (qb,) = evolution_entry(card, num_qubits=20, steps=3,
+                                       engine="banded")
+    fused, banded = fused_fn(q), banded_fn(qb)
+    assert fused.stats["engine"] == "fused" and fused.stats["launches"] > 0
+    scale = banded.state.amps.abs().max().item()
+    assert ((fused.state.amps.reshape(2, -1)
+             - banded.state.amps.reshape(2, -1)).abs().max().item()
+            <= 1e-4 * scale)
+    np.testing.assert_allclose(fused.energies, banded.energies, rtol=1e-5)
+
+
+def test_adjoint_matches_taped_on_the_card(card):
+    """The hardware-efficient ansatz at 16 qubits: the adjoint walk
+    against taped autograd on the card, values within 1e-5 and
+    gradients within 1e-4."""
+    from quest_tpu_torch.entry import vqe_entry
+    adj, (theta,) = vqe_entry(card, num_qubits=16, layers=2)
+    tap = vqe_entry(card, num_qubits=16, layers=2, engine="taped")[0]
+    va, ga = adj(theta)
+    vt, gt = tap(theta)
+    assert abs(float(va) - float(vt)) <= 1e-5
+    assert (ga - gt).abs().max().item() <= 1e-4

@@ -30,7 +30,9 @@ def test_import_leaves_jax_and_reference_unloaded():
             "quest_tpu_torch.convert, quest_tpu_torch.ops.segment, "
             "quest_tpu_torch.trajectories, quest_tpu_torch.profiling, "
             "quest_tpu_torch.measurement, quest_tpu_torch.random_, "
-            "quest_tpu_torch.ops.gates, quest_tpu_torch.ops.channels; "
+            "quest_tpu_torch.ops.gates, quest_tpu_torch.ops.channels, "
+            "quest_tpu_torch.ops.expec, quest_tpu_torch.evolution, "
+            "quest_tpu_torch.variational, quest_tpu_torch.adjoint; "
             "bad = sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
