@@ -241,6 +241,31 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      gradients against the statevector ones (1e-5); what 'auto' chooses
      at 20 and 30 qubits and its capacity numbers.
 
+ The front ends (no kernel is added; each phase prints its wall
+ seconds):
+ 34. frontends: the repo bench's QASM gallery (entry.gallery_qasm: qft,
+     qaoa, rcs, adder, ghz in the rebased 1q+CX basis) at 28 qubits:
+     per class the ops and stream_cost sweeps raw and transpiled, host ms
+     of the import, the transpile and the autotune search (cold and warm,
+     in a throwaway QUEST_PLAN_CACHE_DIR), the chosen engine and its
+     priced ms; the raw and the transpiled stream through compiled_fused
+     (K1 launches counted, at least one; warm step ms, median of 3, CUDA
+     events), the transpiled planes within 1e-4 x max|amp| of the raw and
+     each norm within 1e-4 of 1; ghz on its measured program, raw and
+     transpiled outcomes equal given the same uniforms, and the GHZ
+     prefix with every qubit measured giving equal bits within each
+     shot. At 24 qubits every selectable engine (per-gate, banded,
+     fused) of the transpiled qft and of rcs, timed: priced against
+     measured ms and whether autotune's pick was the fastest (printed,
+     not gated; the engines' planes agree within 1e-4 x max|amp|);
+ 35. api: the tutorial through quest_tpu_torch.api on the card
+     (0.112422, 0.749178 within 1e-6; the recorded QASM byte-equal to the
+     same script's with device="cpu"); a QuEST-style script of ~200 API
+     calls (gates, calcProbOfOutcome, one seeded measure) on a 28-qubit
+     register beside the same calls through ops.gates: host ms per call
+     of each and the front end's overhead per call; the final planes bit
+     for bit equal.
+
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
 sheet); a segment of phase stages only counts the rows its predicates
@@ -302,7 +327,7 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "wide_gates", "small_registers", "batched_banded",
           "trajectories_banded", "program_cache", "measurement", "xeb",
           "dynamic", "calculations", "eager", "expec", "evolution",
-          "variational", "adjoint")
+          "variational", "adjoint", "frontends", "api")
 
 RECORD = []
 
@@ -3944,6 +3969,357 @@ def phase_adjoint(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The front ends on the card (no kernel is added: QASM in and out,
+# the transpiler, the plan IR and its autotuner, the QuEST API)
+# ---------------------------------------------------------------------------
+
+FRONTEND_QUBITS = 28
+FRONTEND_REPS = 3
+FRONTEND_TOL = 1e-4           # transpiled vs raw, x max|amp|; norms
+GHZ_UNIFORMS = (0.1, 0.4, 0.6, 0.9)
+RANK_QUBITS = 24
+RANK_CLASSES = ("qft", "rcs")
+API_QUBITS = 28
+API_LAYERS = 9                # 22 calls a layer: ~200 calls
+API_SEED = 13
+TUTORIAL_TOL = 1e-6
+
+
+def _zero_planes(n: int):
+    from quest_tpu_torch.state import basis_planes
+    return basis_planes(0, n=n, device=CARD)
+
+
+def _ghz_bits(torch, circ, n: int):
+    """Outcomes of the gallery ghz circuit's prefix up to its measurement
+    followed by a measurement of every qubit, one shot per uniform of
+    GHZ_UNIFORMS (the later draws 0.5): (shots, n) bits."""
+    from quest_tpu_torch.circuit import Circuit
+    cut = next(i for i, op in enumerate(circ.ops) if op.kind == "measure")
+    c = Circuit(n)
+    c.ops = list(circ.ops[:cut])
+    for q in range(n):
+        c.measure(q)
+    prog = c.compiled_measured(n, device=CARD)
+    shots = []
+    for u in GHZ_UNIFORMS:
+        _, outs = prog.given(_zero_planes(n), [u] + [0.5] * (n - 1))
+        shots.append(outs.tolist())
+    return shots
+
+
+def _frontend_ghz(torch, raw, tc, n: int) -> dict:
+    """The ghz class on its measured program: raw and transpiled, equal
+    outcomes given the same uniforms and planes within FRONTEND_TOL; the
+    GHZ prefix measured on every qubit gives equal bits in each shot."""
+    r = {}
+    for label, c in (("raw", raw), ("transpiled", tc)):
+        prog = c.compiled_measured(n, device=CARD)
+        outs, planes = [], []
+        for u in GHZ_UNIFORMS:
+            amps, o = prog.given(_zero_planes(n), [u])
+            outs.append(o.tolist())
+            planes.append(amps)
+        r[label] = {"outcomes": outs}
+        r[label + "_planes"] = planes
+        gen = torch.Generator().manual_seed(0)
+        ms, _ = host_ms(torch, lambda: prog(_zero_planes(n), gen))
+        r[label]["shot_ms"] = ms
+    errs = [plane_err(a, b) for a, b in zip(r.pop("raw_planes"),
+                                            r.pop("transpiled_planes"))]
+    bits = _ghz_bits(torch, raw, n)
+    r.update(max_abs_err=max(errs), all_bits=[sorted(set(s)) for s in bits])
+    if not (r["raw"]["outcomes"] == r["transpiled"]["outcomes"]
+            and max(errs) <= FRONTEND_TOL
+            and all(len(set(s)) == 1 for s in bits)):
+        raise AssertionError(f"frontends ghz: {r}")
+    return r
+
+
+def _frontend_streams(torch, S, raw, tc, n: int) -> dict:
+    """The raw and the transpiled stream through compiled_fused on |0>:
+    K1 launches of the first call (the counts set to 0 just before it,
+    read just after; at least one), the warm step ms (median of
+    FRONTEND_REPS, CUDA events), the planes within FRONTEND_TOL of each
+    other and each norm within FRONTEND_TOL of 1."""
+    r, outs = {}, {}
+    for label, c in (("raw", raw), ("transpiled", tc)):
+        build_ms, prog = host_ms(torch, lambda: c.compiled_fused(n,
+                                                                device=CARD))
+        amps = _zero_planes(n)
+        S.segment_sweep.launches = 0
+        prog(amps)
+        torch.cuda.synchronize()
+        launches = S.segment_sweep.launches
+        if launches < 1 or launches != prog.launches_per_call:
+            raise AssertionError(f"frontends {label}: {launches} launches "
+                                 f"for {prog.launches_per_call} segments")
+        outs[label] = amps
+        scratch = _zero_planes(n)
+        r[label] = {"k1_launches": launches, "build_ms": build_ms,
+                    "step_ms": time_ms(torch, lambda: prog(scratch),
+                                       FRONTEND_REPS),
+                    "norm": norm_of(amps)}
+        del scratch
+    scale = outs["raw"].abs().max().item()
+    r["max_abs_err"] = plane_err(outs["transpiled"], outs["raw"])
+    r["rel_err"] = r["max_abs_err"] / scale
+    if not (r["rel_err"] <= FRONTEND_TOL
+            and all(abs(1.0 - r[k]["norm"]) <= FRONTEND_TOL
+                    for k in ("raw", "transpiled"))):
+        raise AssertionError(f"frontends streams: {r}")
+    return r
+
+
+def _rank_engines(torch, c, n: int) -> dict:
+    """Every selectable engine of `c` (transpile axis off) at n qubits:
+    priced against measured ms (median of FRONTEND_REPS on |0>), the
+    planes of each within FRONTEND_TOL of the fused engine's."""
+    from quest_tpu_torch import plan as P
+    with env_knob("QUEST_TRANSPILE", "0"):
+        plan = P.autotune(c, device=CARD, persist=False)
+        r = {"pick": plan.engine, "engines": {}}
+        outs = {}
+        for name in ("pergate", "banded", "fused"):
+            cand = plan.candidates.get(name)
+            if cand is None or not cand["selectable"]:
+                continue
+            prog = {"pergate": c.compiled, "banded": c.compiled_banded,
+                    "fused": c.compiled_fused}[name](n, device=CARD)
+            outs[name] = prog(_zero_planes(n))
+            scratch = _zero_planes(n)
+            ms = time_ms(torch, lambda: prog(scratch), FRONTEND_REPS)
+            del scratch
+            r["engines"][name] = {"priced_ms": cand["total_ms"],
+                                  "measured_ms": ms}
+    eng = r["engines"]
+    r["priced_rank"] = sorted(eng, key=lambda k: eng[k]["priced_ms"])
+    r["measured_rank"] = sorted(eng, key=lambda k: eng[k]["measured_ms"])
+    r["pick_was_fastest"] = r["pick"] == r["measured_rank"][0]
+    ref = outs["fused"]
+    scale = ref.abs().max().item()
+    r["max_rel_err"] = max(plane_err(o, ref) / scale for o in outs.values())
+    if r["max_rel_err"] > FRONTEND_TOL:
+        raise AssertionError(f"frontends ranking: {r}")
+    return r
+
+
+def phase_frontends(torch):
+    """The gallery at FRONTEND_QUBITS through the front ends (module
+    docstring, phase 34), then the engine ranking at RANK_QUBITS."""
+    import tempfile
+    from quest_tpu_torch import plan as P
+    from quest_tpu_torch import transpile as T
+    from quest_tpu_torch.circuit import Circuit
+    from quest_tpu_torch.entry import GALLERY_CLASSES, gallery_qasm
+    from quest_tpu_torch.ops import segment as S
+    t0 = time.perf_counter()
+    n = FRONTEND_QUBITS
+    rec = {"phase": "frontends", "n": n, "classes": {}}
+    with tempfile.TemporaryDirectory(prefix="quest_plans_") as cache, \
+            env_knob("QUEST_PLAN_CACHE_DIR", cache):
+        texts = gallery_qasm(n)
+        for cls in GALLERY_CLASSES:
+            t_import = time.perf_counter()
+            raw = Circuit.from_qasm(texts[cls], transpile=False)
+            r = {"import_ms": (time.perf_counter() - t_import) * 1e3}
+            t_tr = time.perf_counter()
+            tc, rep = T.transpile_cached(raw)
+            r["transpile_cold_ms"] = (time.perf_counter() - t_tr) * 1e3
+            t_tr = time.perf_counter()
+            T.transpile_cached(raw)
+            r["transpile_warm_ms"] = (time.perf_counter() - t_tr) * 1e3
+            r.update(ops_raw=len(raw.ops), ops_transpiled=len(tc.ops),
+                     sweeps_raw=T.stream_cost(raw)[0],
+                     sweeps_transpiled=T.stream_cost(tc)[0],
+                     passes={k: v for k, v in rep["passes"].items() if v})
+            if cls == "ghz":
+                r.update(_frontend_ghz(torch, raw, tc, n))
+                rec["classes"][cls] = r
+                continue
+            P.reset_cache_stats()
+            t_at = time.perf_counter()
+            plan = P.autotune(raw, device=CARD)
+            r["autotune_cold_ms"] = (time.perf_counter() - t_at) * 1e3
+            t_at = time.perf_counter()
+            warm = P.autotune(raw, device=CARD)
+            r["autotune_warm_ms"] = (time.perf_counter() - t_at) * 1e3
+            st = P.cache_stats()
+            if not (st["searches"] == 1 and st["hits"] == 1
+                    and warm.engine == plan.engine):
+                raise AssertionError(f"frontends {cls}: plan cache {st}")
+            r.update(engine=plan.engine, priced_ms=plan.cost["total_ms"],
+                     incumbent=plan.incumbent, device_kind=plan.device_kind)
+            r.update(_frontend_streams(torch, S, raw, tc, n))
+            rec["classes"][cls] = r
+            del raw, tc
+            _free(torch)
+        rec["gallery_seconds"] = time.perf_counter() - t0
+        texts = gallery_qasm(RANK_QUBITS)
+        rank = {}
+        for cls in RANK_CLASSES:
+            c = Circuit.from_qasm(texts[cls], transpile=False)
+            if cls == "qft":
+                c = T.transpile_cached(c)[0]
+            rank[cls] = _rank_engines(torch, c, RANK_QUBITS)
+            _free(torch)
+        rec["ranking"] = {"n": RANK_QUBITS, **rank}
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    return rec
+
+
+def _api_script(api, q, n: int):
+    """The ~200-call QuEST-style script on handle q through `api` (the
+    QuEST API module, or an adapter with the same names): API_LAYERS
+    layers of 22 gate calls and a calcProbOfOutcome, then one seeded
+    measure. Returns (per-call host ms, probabilities, outcome)."""
+    rng = np.random.default_rng(API_SEED)
+    u = np.linalg.qr(rng.standard_normal((2, 2))
+                     + 1j * rng.standard_normal((2, 2)))[0]
+    calls = []
+    for layer in range(API_LAYERS):
+        a = [float(x) for x in rng.uniform(-np.pi, np.pi, 8)]
+        t = [int(x) for x in rng.permutation(n)[:8]]
+        calls += [
+            lambda: api.hadamard(q, t[0]),
+            lambda: api.controlledNot(q, t[0], t[1]),
+            lambda: api.rotateX(q, t[2], a[0]),
+            lambda: api.rotateY(q, t[3], a[1]),
+            lambda: api.rotateZ(q, t[4], a[2]),
+            lambda: api.phaseShift(q, t[5], a[3]),
+            lambda: api.controlledPhaseShift(q, t[5], t[6], a[4]),
+            lambda: api.tGate(q, t[7]),
+            lambda: api.sGate(q, t[0]),
+            lambda: api.pauliX(q, t[1]),
+            lambda: api.pauliY(q, t[2]),
+            lambda: api.pauliZ(q, t[3]),
+            lambda: api.swapGate(q, t[4], t[6]),
+            lambda: api.controlledPhaseFlip(q, t[1], t[7]),
+            lambda: api.multiRotateZ(q, [t[0], t[2], t[5]], a[5]),
+            lambda: api.unitary(q, t[6], u),
+            lambda: api.compactUnitary(q, t[7], u[0, 0], u[1, 0]),
+            lambda: api.controlledRotateY(q, t[3], t[0], a[6]),
+            lambda: api.rotateAroundAxis(q, t[1], a[7], (1.0, 0.5, 0.2)),
+            lambda: api.multiControlledPhaseFlip(q, [t[2], t[4], t[6]]),
+            lambda: api.controlledUnitary(q, t[5], t[2], u),
+            lambda: api.sqrtSwapGate(q, t[3], t[7]),
+            lambda: api.calcProbOfOutcome(q, t[layer % 8], 1),
+        ]
+    ms, probs = [], []
+    for call in calls:
+        start = time.perf_counter()
+        out = call()
+        torch_sync()
+        ms.append((time.perf_counter() - start) * 1e3)
+        if isinstance(out, float):          # calcProbOfOutcome
+            probs.append(out)
+    api.seedQuEST([API_SEED])
+    start = time.perf_counter()
+    outcome = api.measure(q, 0)
+    torch_sync()
+    ms.append((time.perf_counter() - start) * 1e3)
+    return ms, probs, outcome
+
+
+def torch_sync() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+class _GatesAPI:
+    """The api script's calls mapped onto quest_tpu_torch.ops.gates (the
+    eager layer under the API): the same arguments, no handle, no QASM."""
+
+    def __init__(self):
+        from quest_tpu_torch import measurement as MS
+        from quest_tpu_torch import random_ as R
+        from quest_tpu_torch.ops import gates as G
+        self.G, self.MS, self.R = G, MS, R
+
+    def __getattr__(self, name):
+        import re
+        fn = getattr(self.G, re.sub(r"(?<!^)(?=[A-Z])", "_", name).lower())
+        return lambda q, *args: fn(q.state, *args)
+
+    def calcProbOfOutcome(self, q, qubit, outcome):
+        return self.MS.calc_prob_of_outcome(q.state, qubit, outcome)
+
+    def seedQuEST(self, seeds):
+        self.R.seed_quest(list(seeds))
+
+    def measure(self, q, qubit):
+        return self.MS.measure(q.state, qubit)[1]
+
+
+def _tutorial(api, env):
+    q = api.createQureg(3, env)
+    api.startRecordingQASM(q)
+    api.hadamard(q, 0)
+    api.controlledNot(q, 0, 1)
+    api.rotateY(q, 2, 0.1)
+    api.multiControlledPhaseFlip(q, [0, 1, 2])
+    u = np.array([[0.5 + 0.5j, 0.5 - 0.5j], [0.5 - 0.5j, 0.5 + 0.5j]])
+    api.unitary(q, 0, u)
+    a, b = 0.5 + 0.5j, 0.5 - 0.5j
+    api.compactUnitary(q, 1, a, b)
+    api.rotateAroundAxis(q, 2, 3.14 / 2, (1.0, 0.0, 0.0))
+    api.controlledCompactUnitary(q, 0, 1, a, b)
+    api.multiControlledUnitary(q, [0, 1], 2, u)
+    toff = api.createComplexMatrixN(3)
+    toff[6, 7] = toff[7, 6] = 1
+    for i in range(6):
+        toff[i, i] = 1
+    api.multiQubitUnitary(q, [0, 1, 2], toff)
+    return (api.getProbAmp(q, 7), api.calcProbOfOutcome(q, 2, 1),
+            q.qasm.recorded())
+
+
+def phase_api(torch):
+    """The tutorial through quest_tpu_torch.api on the card and on the
+    CPU, then the ~200-call script at API_QUBITS through the API and
+    through ops.gates (module docstring, phase 35)."""
+    from quest_tpu_torch import api as Q
+    t0 = time.perf_counter()
+    rec = {"phase": "api"}
+    p7, p2, text = _tutorial(Q, Q.createQuESTEnv(device=CARD))
+    cpu_text = _tutorial(Q, Q.createQuESTEnv(device="cpu"))[2]
+    rec["tutorial"] = {"prob_amp_7": p7, "prob_qubit2_1": p2,
+                       "qasm_bytes": len(text),
+                       "qasm_equal_cpu": text == cpu_text}
+    if not (abs(p7 - 0.112422) <= TUTORIAL_TOL
+            and abs(p2 - 0.749178) <= TUTORIAL_TOL and text == cpu_text):
+        raise AssertionError(f"api tutorial: {rec['tutorial']}")
+    n = API_QUBITS
+    env = Q.createQuESTEnv(device=CARD)
+    qa, qg = Q.createQureg(n, env), Q.createQureg(n, env)
+    for q in (qa, qg):
+        Q.initPlusState(q)
+    Q.startRecordingQASM(qa)
+    api_ms, api_probs, api_out = _api_script(Q, qa, n)
+    gates_ms, gates_probs, gates_out = _api_script(_GatesAPI(), qg, n)
+    same = torch.equal(qa.state.amps, qg.state.amps)
+    over = [a - g for a, g in zip(api_ms, gates_ms)]
+    rec["script"] = {
+        "n": n, "calls": len(api_ms),
+        "api_ms_per_call": statistics.median(api_ms),
+        "gates_ms_per_call": statistics.median(gates_ms),
+        "overhead_ms_per_call": statistics.median(over),
+        "api_total_ms": sum(api_ms), "gates_total_ms": sum(gates_ms),
+        "qasm_lines": qa.qasm.recorded().count("\n"),
+        "outcome": api_out, "planes_bit_equal": same,
+        "probs_equal": api_probs == gates_probs}
+    if not (same and api_out == gates_out and api_probs == gates_probs):
+        raise AssertionError(f"api script: {rec['script']}")
+    del qa, qg
+    _free(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    return rec
+
+
 def ham_profile(torch):
     """torch.profiler tables (top kernels by device time) of the
     Hamiltonian layers at 30 qubits: the grouped expectation of TFIM-30
@@ -4711,6 +5087,10 @@ def main(argv=None) -> int:
         phase_variational(torch)
     if want("adjoint"):
         phase_adjoint(torch)
+    if want("frontends"):
+        phase_frontends(torch)
+    if want("api"):
+        phase_api(torch)
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

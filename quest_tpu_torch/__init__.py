@@ -18,9 +18,15 @@ channels (ops.gates, ops.channels), measurement, sampling and dynamic
 circuits (measurement, Circuit.measure / gate_if / compiled_measured),
 and calculations (inner products, fidelity, Pauli expectations, linear
 XEB).
+
+The front ends (ROADMAP A9): the QuEST C API under its camelCase names
+(api), QASM out (qasm, Circuit.to_qasm) and in (Circuit.from_qasm), the
+transpiler (transpile, Circuit.transpiled) and the plan IR with its
+priced autotuner (plan, Circuit.plan_stats).
 """
 
-from quest_tpu_torch import calculations, measurement
+from quest_tpu_torch import (api, calculations, measurement, plan, qasm,
+                             transpile)
 from quest_tpu_torch.calculations import (calc_expec_pauli_prod,
                                           calc_expec_pauli_sum, calc_fidelity,
                                           calc_inner_product, calc_purity,
@@ -38,13 +44,14 @@ from quest_tpu_torch.state import (Qureg, basis_planes, clone,
 from quest_tpu_torch.validation import QuESTError
 
 __all__ = [
-    "Circuit", "GateOp", "QuESTError", "Qureg", "basis_planes",
+    "Circuit", "GateOp", "QuESTError", "Qureg", "api", "basis_planes",
     "calc_expec_pauli_prod", "calc_expec_pauli_sum", "calc_fidelity",
     "calc_inner_product", "calc_purity", "calc_total_prob", "calculations",
     "channels", "clone", "create_density_qureg", "create_qureg",
     "fused_state_shape", "gates", "get_amp", "get_density_amp",
     "init_blank_state", "init_classical_state", "init_debug_state",
     "init_plus_state", "init_pure_state", "init_state_from_amps",
-    "init_zero_state", "measurement", "qft_circuit", "random_circuit",
-    "set_amps", "set_density_amps", "to_dense",
+    "init_zero_state", "measurement", "plan", "qasm", "qft_circuit",
+    "random_circuit", "set_amps", "set_density_amps", "to_dense",
+    "transpile",
 ]

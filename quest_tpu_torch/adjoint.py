@@ -37,8 +37,8 @@ as tensors, the engine chosen by `engine=` or QUEST_ADJOINT (auto prices
 both against the device memory, env.hbm_bytes: the card's, or
 QUEST_HBM_BYTES), cached by value (equal specs return the same fn).
 
-Not ported: the sharded walk and `predict_vjp_collectives` (ROADMAP
-A10), and the plan IR's grad axis (ROADMAP A9).
+`grad_record` is the plan IR's grad axis (plan.build_plan). Not
+ported: the sharded walk and `predict_vjp_collectives` (ROADMAP A10).
 """
 
 from __future__ import annotations

@@ -39,7 +39,12 @@ when it was compiled. Each is cached on its circuit, keyed on its
 arguments, its device and `_engine_mode_key()` (every keyed knob's
 effective value), so repeated calls reuse one program and a knob flip
 builds a new one; adding an op clears the cache. QUEST_FUSED_SCAN is not
-ported (ROADMAP A6) and raises NotImplementedError.
+ported (ROADMAP A4.4) and raises NotImplementedError.
+
+The front ends (ROADMAP A9): `from_qasm` / `to_qasm` (qasm_import.py,
+qasm.py), `transpiled` (transpile.py, memoised until the circuit
+changes), `plan_stats` (a view of plan.build_plan) and `explain`'s plan
+and transpile lines (plan.autotune, transpile.transpile_cached).
 """
 
 from __future__ import annotations
@@ -144,6 +149,31 @@ def inverse_op(op) -> "GateOp":
 # circuit.py:125): as_rotation reads them as constants
 _NAMED_2x2 = (("h", M.HADAMARD), ("x", M.PAULI_X), ("y", M.PAULI_Y),
               ("z", M.PAULI_Z))
+
+
+def _named_1q(u):
+    """(gate name, params) of a stored 2x2 operand, or None (ref
+    circuit.py:131): the fixed Cliffords by exact match, rx/ry by the
+    structural recovery of as_rotation, for to_qasm's named lines."""
+    for name, mat in _NAMED_2x2:
+        if np.array_equal(u, mat):
+            return (name, ())
+    rot = as_rotation(GateOp("matrix", (0,), operand=u))
+    return (rot[0], (rot[1],)) if rot is not None else None
+
+
+def _named_diag(d):
+    """(gate name, params) of a stored (2,) diagonal operand, or None
+    (ref circuit.py:151)."""
+    if np.array_equal(d, M.Z_DIAG):
+        return ("z", ())
+    if np.array_equal(d, M.S_DIAG):
+        return ("s", ())
+    if np.array_equal(d, M.T_DIAG):
+        return ("t", ())
+    if abs(d[0] - 1.0) < 1e-14 and abs(abs(d[1]) - 1.0) < 1e-14:
+        return ("phase", (float(np.angle(d[1])),))
+    return None
 
 
 def as_rotation(op: GateOp):
@@ -452,6 +482,7 @@ class Circuit:
         self.num_qubits = num_qubits
         self.ops: List[GateOp] = []
         self._compiled = {}     # programs, keyed (see _engine_mode_key)
+        self._transpiled = {}   # transpile.transpile_cached's memo
 
     # -- builders (chainable) ------------------------------------------------
 
@@ -465,6 +496,7 @@ class Circuit:
         self.ops.append(GateOp(kind, targets, controls, cstates, operand,
                                meta))
         self._compiled.clear()
+        self._transpiled.clear()
         return self
 
     def gate(self, matrix, targets, controls=(), cstates=None):
@@ -560,6 +592,115 @@ class Circuit:
         inv = Circuit(self.num_qubits)
         inv.ops = [inverse_op(op) for op in reversed(self.ops)]
         return inv
+
+    # -- the front ends (ref circuit.py:988-1087, :1477-1522) ----------------
+
+    @classmethod
+    def from_qasm(cls, text: str, u_dialect: str = None,
+                  transpile: bool = None) -> "Circuit":
+        """Parse OPENQASM 2.0 text into a Circuit (qasm_import.py): the
+        recorder's dialect and standard qelib1 gates. `u_dialect`
+        ('spec' | 'recorder') pins the capital-U convention; `transpile`
+        (None follows QUEST_TRANSPILE) routes the stream through the
+        transpiler."""
+        from quest_tpu_torch.qasm_import import circuit_from_qasm
+        return circuit_from_qasm(text, u_dialect=u_dialect,
+                                 transpile=transpile)
+
+    def to_qasm(self) -> str:
+        """OPENQASM 2.0 text of this circuit through the eager API's
+        logger (qasm.py): named gates recovered from the stored operands,
+        general 1q operands as ZYZ U-lines, ops with no QASM equivalent
+        as comments (ref circuit.py:1002)."""
+        from quest_tpu_torch import qasm as Q
+
+        log = Q.QASMLogger(self.num_qubits)
+        log.is_logging = True
+        for op in self.ops:
+            targets, controls = op.targets, op.controls
+            cstates = op.cstates or (1,) * len(controls)
+            if op.kind == "measure":
+                log.record_measurement(targets[0])
+            elif op.kind == "classical":
+                log.record_comment(
+                    "Here a classically-controlled gate was applied "
+                    f"(conditions on measurements {list(op.operand[1])})")
+            elif op.kind == "parity":
+                if len(targets) == 1 and not controls:
+                    log.record_gate("rz", targets[0], (), (op.operand,))
+                else:
+                    log.record_comment(
+                        f"Here a multiRotateZ of angle {op.operand:g} was "
+                        f"applied to qubits {list(targets)}")
+            elif op.kind == "allones":
+                term = complex(op.operand)
+                qubits = tuple(targets) + tuple(controls)
+                if any(s == 0 for s in cstates):
+                    # a control-on-0 all-ones phase is not symmetric:
+                    # anchor the diagonal on a condition-on-1 target
+                    log.record_multi_state_controlled_unitary(
+                        np.diag([1.0, term]),
+                        tuple(targets[:-1]) + tuple(controls),
+                        (1,) * (len(targets) - 1) + tuple(cstates),
+                        targets[-1])
+                elif abs(term + 1.0) < 1e-14:
+                    log.record_gate("z", qubits[-1], qubits[:-1])
+                else:
+                    log.record_gate("phase", qubits[-1], qubits[:-1],
+                                    (float(np.angle(term)),))
+            elif op.kind == "diagonal" and len(targets) == 1:
+                d = np.asarray(op.operand).reshape(-1)
+                named = _named_diag(d)
+                if any(s == 0 for s in cstates):
+                    log.record_multi_state_controlled_unitary(
+                        np.diag(d), controls, cstates, targets[0])
+                elif named is not None:
+                    log.record_gate(named[0], targets[0], controls,
+                                    named[1])
+                else:
+                    log.record_unitary(np.diag(d), targets[0], controls)
+            elif op.kind == "matrix" and len(targets) == 1:
+                u = np.asarray(op.operand)
+                named = _named_1q(u)
+                if any(s == 0 for s in cstates):
+                    log.record_multi_state_controlled_unitary(
+                        u, controls, cstates, targets[0])
+                elif named is not None:
+                    log.record_gate(named[0], targets[0], controls,
+                                    named[1])
+                else:
+                    log.record_unitary(u, targets[0], controls)
+            elif (op.kind == "matrix" and len(targets) == 2
+                  and not controls and np.array_equal(op.operand, M.SWAP)):
+                log.record_gate("swap", targets[1], (targets[0],))
+            elif (op.kind == "matrix" and len(targets) == 2
+                  and not controls and np.allclose(op.operand, M.SQRT_SWAP)):
+                log.record_gate("sqrtswap", targets[1], (targets[0],))
+            else:
+                log.record_comment("Here a multi-qubit gate was applied "
+                                   "(no QASM equivalent)")
+        return log.recorded()
+
+    def transpiled(self, exact_only: bool = False) -> "Circuit":
+        """An equivalent circuit rewritten by the transpiler
+        (transpile.py): self when no pass fires. `exact_only` keeps the
+        bit-identical subset. The report rides on the result as
+        `_transpile_report`; memoised until this circuit changes."""
+        from quest_tpu_torch import transpile as T
+        return T.transpile_cached(self, exact_only=exact_only)[0]
+
+    def plan_stats(self, density: bool = False, batch: int = None,
+                   devices: int = None) -> dict:
+        """The reference's plan statistics dict (ref circuit.py:1477), a
+        view of plan.build_plan's ProgramPlan: the scheduler's counters,
+        the banded pass model, the fused record under HOPPER_GEOMETRY
+        (from 10 qubits), the batched record (`batch`), the f64 record,
+        the gradient and transpile axes. `devices` waits for ROADMAP A10
+        and raises NotImplementedError."""
+        self._reject_measure("plan_stats")
+        from quest_tpu_torch import plan as P
+        return P.build_plan(self, density=density, batch=batch,
+                            devices=devices).stats()
 
     # -- dynamic circuits (ref circuit.py:717-790) ---------------------------
 
@@ -804,7 +945,8 @@ class Circuit:
         self._reject_measure("compiled_fused")
         if knob_value("QUEST_FUSED_SCAN"):
             raise NotImplementedError(
-                "QUEST_FUSED_SCAN is not ported yet (ROADMAP A6)")
+                "QUEST_FUSED_SCAN (the scan over repeated kernel segments) "
+                "is not ported yet (ROADMAP A4.4)")
         if not BP.usable(n):
             return self.compiled_banded(n, density, iters, device)
         dev = resolve_device(device)
@@ -976,6 +1118,7 @@ class Circuit:
             lines.append(f"  register below the kernel tier's minimum "
                          f"({BP.LANE_QUBITS + 3} qubits): the banded "
                          f"engine runs instead")
+            lines += _transpile_line(self) + _plan_line(self, density, batch)
             return "\n".join(lines)
         items = F.plan(sched_ops if enabled else flat, n,
                        bands=BP.plan_bands(n))
@@ -1039,7 +1182,41 @@ class Circuit:
             f"  estimated steady state on one H100: {lo:.1f}-{hi:.1f} ms "
             f"per application at HIGHEST (constants: "
             f"{model['provenance']}){tag}")
+        lines += _transpile_line(self) + _plan_line(self, density, batch)
         return "\n".join(lines)
+
+
+def _transpile_line(circuit) -> List[str]:
+    """explain()'s transpile line (ref circuit.py:1594): what the rewriter
+    buys under QUEST_TRANSPILE; no line when it cannot run, never fatal."""
+    try:
+        knob = knob_value("QUEST_TRANSPILE")
+        if knob == "0":
+            return ["  transpile: off (QUEST_TRANSPILE=0)"]
+        from quest_tpu_torch import transpile as T
+        _, rep = T.transpile_cached(circuit)
+        if not rep["changed"]:
+            return [f"  transpile: no rewrite ({rep['ops_in']} op(s) "
+                    f"already minimal under the pass catalog; "
+                    f"QUEST_TRANSPILE={knob})"]
+        attr = ", ".join(f"{k}={v}" for k, v in rep["passes"].items() if v)
+        return [f"  transpile: {rep['ops_in']} -> {rep['ops_out']} op(s) "
+                f"[{attr}] (QUEST_TRANSPILE={knob}; docs/TRANSPILE.md)"]
+    except Exception:
+        return []
+
+
+def _plan_line(circuit, density: bool, batch) -> List[str]:
+    """explain()'s plan line (ref circuit.py:1579): the autotuner's verdict,
+    searched fresh (persist=False: explain never touches the plan
+    cache); no line when it cannot price, never fatal."""
+    try:
+        from quest_tpu_torch import plan as P
+        return ["  " + P.autotune(
+            circuit, state_kind="density" if density else "pure",
+            batch=batch, persist=False).line()]
+    except Exception:
+        return []
 
 
 def _human_bytes(b: int) -> str:
@@ -1058,6 +1235,12 @@ def _human_bytes(b: int) -> str:
 _H100_28Q_MS = {"stage_free": 1.463, "b0": 6.557, "b1": 7.091,
                 "scb": 7.078, "sc": 1.591, "pair": 1.549, "parity": 1.556}
 _SCALE_30Q = 4.0
+# the XLA engines on the 28-qubit depth-4 flagship (PERF.md section 6,
+# PR 9, chip_smoke.py phases pergate and banded): the step's time over
+# its ops (166, per-gate) or over its full-state passes (18: 12 band
+# passes and 6 diagonal runs, fusion.plan_stats), scaled to 2^30 as above
+_H100_28Q_PERGATE = (1276.7, 166)       # (ms per step, ops)
+_H100_28Q_BANDED = (164.7, 18)          # (ms per step, full-state passes)
 _COST_MODELS = {
     "h100": {
         "provenance": "MEASURED on NVIDIA H100 80GB HBM3, 700 W, PR 10 "
@@ -1074,6 +1257,21 @@ _COST_MODELS = {
         * _SCALE_30Q,
         "phase": (_H100_28Q_MS["parity"] - _H100_28Q_MS["stage_free"])
         * _SCALE_30Q,
+        # the per-gate engine's price per op and the banded engine's per
+        # full-state pass (plan.autotune; a passthrough of the fused plan
+        # runs through the same primitives)
+        "pergate_op": _H100_28Q_PERGATE[0] / _H100_28Q_PERGATE[1]
+        * _SCALE_30Q,
+        "pergate_provenance": "MEASURED on NVIDIA H100 80GB HBM3, 700 W, "
+                              "PR 9 (chip_smoke.py pergate: 28q d4 "
+                              "flagship 1276.7 ms / 166 ops x 4; PERF.md "
+                              "section 6)",
+        "banded_pass": _H100_28Q_BANDED[0] / _H100_28Q_BANDED[1]
+        * _SCALE_30Q,
+        "banded_provenance": "MEASURED on NVIDIA H100 80GB HBM3, 700 W, "
+                             "PR 9 (chip_smoke.py banded: 28q d4 flagship "
+                             "164.7 ms / 18 full-state passes x 4; "
+                             "PERF.md section 6)",
     },
 }
 
@@ -1087,8 +1285,10 @@ def _cost_model_for(device_name: str):
 
 def _estimate_ms(parts, n: int, model=None):
     """(lo, hi) ms per application (ref circuit.py:480): per segment
-    max(base, compute) and base + compute, a passthrough the base pass
-    (1.8x for a band), scaled from 2^30 amplitudes to 2^n."""
+    max(base, compute) and base + compute, a passthrough at the card's
+    price of its primitive (a band the banded engine's pass, anything
+    else the per-gate engine's op), scaled from 2^30 amplitudes to
+    2^n."""
     model = model or _COST_MODELS["h100"]
     scale = (1 << n) / (1 << 30)
     base = model["base_pass"]
@@ -1112,9 +1312,10 @@ def _estimate_ms(parts, n: int, model=None):
             lo += max(base, comp)
             hi += base + comp
         else:
-            mult = 1.8 if isinstance(part[1], F.BandOp) else 1.0
-            lo += base * mult
-            hi += base * mult
+            ms = (model["banded_pass"] if isinstance(part[1], F.BandOp)
+                  else model["pergate_op"])
+            lo += ms
+            hi += ms
     return lo * scale, hi * scale
 
 

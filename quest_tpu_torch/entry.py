@@ -69,6 +69,18 @@ qubits and 2 layers, seeded angles) against the same TFIM Hamiltonian
 through the adjoint engine: fn(theta) -> (energy, gradient); theta the
 ansatz's angles.
 
+gallery_qasm(n, depth=4, seed=20) -> {class: OpenQASM 2.0 text}: the
+repo bench's QASM gallery (qft, qaoa, rcs, adder, ghz) in the rebased
+1q+CX basis a foreign exporter emits, text for text.
+
+frontend_entry(device=None, num_qubits=28, cls="qft", transpile=None) ->
+(fn, args): the front ends end to end. The gallery class's text goes
+through Circuit.from_qasm (transpile None follows QUEST_TRANSPILE) and
+plan.autotune; fn(amps) runs the chosen engine's program in place on
+|0...0> flat planes. The ghz class holds a mid-circuit measurement:
+fn(amps, generator) runs its measured program and returns (amps,
+outcomes). fn.plan (None for ghz) and fn.circuit name what ran.
+
 The two other density circuits the smoke test drives are here too:
 bench_density_circuit (the repo's density bench scenario: rotations,
 damping, a 2-qubit depolarising Kraus map and a Pauli Kraus map) and
@@ -515,3 +527,137 @@ def vqe_entry(device=None, num_qubits: int = VQE_QUBITS,
     theta = torch.as_tensor(fn.initial_params, dtype=torch.float32,
                             device=dev)
     return fn, (theta,)
+
+
+# ---------------------------------------------------------------------------
+# the front ends: the QASM gallery (bench.py build_gallery_qasm)
+# ---------------------------------------------------------------------------
+
+GALLERY_CLASSES = ("qft", "qaoa", "rcs", "adder", "ghz")
+
+
+def _qasm_cphase_lines(theta: float, a: int, b: int):
+    """cu1(theta) in the rebased exporter form rz/cx/rz/cx/rz."""
+    return [f"rz({theta / 2}) q[{a}];", f"cx q[{a}],q[{b}];",
+            f"rz({-theta / 2}) q[{b}];", f"cx q[{a}],q[{b}];",
+            f"rz({theta / 2}) q[{b}];"]
+
+
+def _qasm_ccx_lines(a: int, b: int, c: int):
+    """ccx in the standard Clifford+T decomposition (15 ops)."""
+    return [f"h q[{c}];", f"cx q[{b}],q[{c}];", f"tdg q[{c}];",
+            f"cx q[{a}],q[{c}];", f"t q[{c}];", f"cx q[{b}],q[{c}];",
+            f"tdg q[{c}];", f"cx q[{a}],q[{c}];", f"t q[{b}];",
+            f"t q[{c}];", f"h q[{c}];", f"cx q[{a}],q[{b}];",
+            f"t q[{a}];", f"tdg q[{b}];", f"cx q[{a}],q[{b}];"]
+
+
+def gallery_qasm(n: int, depth: int = 4, seed: int = 20) -> dict:
+    """{class: OpenQASM 2.0 text} of the gallery's five classes on n
+    qubits, the same text as the repo bench's build_gallery_qasm: QFT
+    (h and the controlled-phase ladder as rz/cx chains, swaps as 3 cx),
+    ring QAOA (cx.rz.cx costs, h.rz.h mixers), RCS (rz.ry.rz Euler
+    triples and a cz brick), a Cuccaro ripple-carry adder (toffolis in
+    their 15-op Clifford+T form) and GHZ with a mid-circuit measurement."""
+    rng = np.random.default_rng(seed)
+    head = ["OPENQASM 2.0;", 'include "qelib1.inc";',
+            f"qreg q[{n}];", f"creg c[{n}];"]
+    out = {}
+
+    lines = list(head)
+    for i in range(n):
+        lines.append(f"h q[{i}];")
+        for j in range(i + 1, n):
+            lines += _qasm_cphase_lines(np.pi / (1 << (j - i)), j, i)
+    for i in range(n // 2):
+        a, b = i, n - 1 - i
+        lines += [f"cx q[{a}],q[{b}];", f"cx q[{b}],q[{a}];",
+                  f"cx q[{a}],q[{b}];"]
+    out["qft"] = "\n".join(lines)
+
+    lines = list(head)
+    for i in range(n):
+        lines.append(f"h q[{i}];")
+    for layer in range(depth):
+        g, b = 0.4 + 0.1 * layer, 0.3 + 0.05 * layer
+        for i in range(n):
+            j = (i + 1) % n
+            lines += [f"cx q[{i}],q[{j}];", f"rz({2 * g}) q[{j}];",
+                      f"cx q[{i}],q[{j}];"]
+        for i in range(n):
+            lines += [f"h q[{i}];", f"rz({2 * b}) q[{i}];",
+                      f"h q[{i}];"]
+    out["qaoa"] = "\n".join(lines)
+
+    lines = list(head)
+    for layer in range(depth):
+        for i in range(n):
+            a1, a2, a3 = rng.uniform(-np.pi, np.pi, 3)
+            lines += [f"rz({a1}) q[{i}];", f"ry({a2}) q[{i}];",
+                      f"rz({a3}) q[{i}];"]
+        for i in range(layer % 2, n - 1, 2):
+            lines.append(f"cz q[{i}],q[{i + 1}];")
+    out["rcs"] = "\n".join(lines)
+
+    w = (n - 1) // 2                       # operand width
+    lines = list(head)
+    for i in range(n):
+        if rng.uniform() < 0.5:
+            lines.append(f"x q[{i}];")     # seeded input operands
+    prev = 0
+    maj, uma = [], []
+    for k in range(w):
+        a, b = 1 + 2 * k, 2 + 2 * k
+        maj += [f"cx q[{a}],q[{b}];", f"cx q[{a}],q[{prev}];"]
+        maj += _qasm_ccx_lines(prev, b, a)
+        uma = (_qasm_ccx_lines(prev, b, a)
+               + [f"cx q[{a}],q[{prev}];", f"cx q[{prev}],q[{b}];"]
+               + uma)
+        prev = a
+    out["adder"] = "\n".join(lines + maj + uma)
+
+    lines = list(head)
+    lines.append("h q[0];")
+    for i in range(n - 1):
+        lines.append(f"cx q[{i}],q[{i + 1}];")
+    lines.append("measure q[0] -> c[0];")
+    for i in range(n - 1, 0, -1):
+        lines.append(f"cx q[{i - 1}],q[{i}];")
+    lines.append("h q[0];")
+    out["ghz"] = "\n".join(lines)
+    return out
+
+
+def frontend_entry(device=None, num_qubits: int = FLAGSHIP_QUBITS,
+                   cls: str = "qft", transpile=None, seed: int = 0,
+                   persist: bool = False):
+    """(fn, args) of one gallery class through the front ends on `device`
+    (default: the CUDA card): QASM text -> Circuit.from_qasm(transpile)
+    -> plan.autotune (persist: through the plan cache) -> the chosen
+    engine's program. fn(amps) runs it in place on args = (|0...0> flat
+    planes,). The ghz class runs its measured program instead:
+    fn(amps, generator) -> (amps, outcomes), args = (planes, a CPU
+    generator seeded with `seed`). fn.circuit is the imported circuit,
+    fn.plan the chosen ProgramPlan (None for ghz)."""
+    from quest_tpu_torch import plan as P
+    dev = resolve_device(device)
+    n = num_qubits
+    circ = Circuit.from_qasm(gallery_qasm(n)[cls], transpile=transpile)
+    amps = _planes(n, np.complex64, dev)
+    if circ._measure_count():
+        prog = circ.compiled_measured(n, device=dev)
+
+        def fn(amps, generator):
+            return prog(amps, generator)
+        fn.plan = None
+        fn.circuit = circ
+        return fn, (amps, torch.Generator().manual_seed(seed))
+    plan = P.autotune(circ, device=dev, persist=persist)
+    prog = P.compiled_for(circ, plan, device=dev)
+
+    def fn(amps):
+        return prog(amps)
+    fn.plan = plan
+    fn.circuit = circ
+    fn.program = prog
+    return fn, (amps,)

@@ -1,4 +1,4 @@
-"""QUEST_* knob registry and device selection.
+"""QUEST_* knob registry, device selection and the QuESTEnv of one card.
 
 A copy of the registry pattern in quest_tpu/env.py (`KNOBS` /
 `knob_value`), holding only the knobs the port reads. Each knob parses
@@ -132,6 +132,19 @@ _KNOB_LIST = (
          doc="gradient engine of adjoint.value_and_grad: auto (priced by "
              "the capacity model), 0 = taped autograd, 1 = the adjoint "
              "walk (default: auto)", keyed=True),
+    # the front ends (ref quest_tpu/env.py:321-329, :411-420)
+    Knob("QUEST_TRANSPILE", _choice("QUEST_TRANSPILE", ("auto", "0", "1")),
+         "auto",
+         doc="circuit transpiler (transpile.py): auto (the planner prices "
+             "raw vs transpiled per circuit, incumbent-wins-ties), 0 = "
+             "never rewrite, 1 = prefer the transpiled stream whenever it "
+             "changed (default: auto)", keyed=True),
+    Knob("QUEST_PLAN_CACHE", _bool01("QUEST_PLAN_CACHE"), True,
+         doc="persistent content-addressed plan cache for plan.autotune: "
+             "1/0 (default: 1; 0 prices every autotune call fresh)"),
+    Knob("QUEST_PLAN_CACHE_DIR", str, None,
+         doc="plan-cache directory for plan.autotune (default: "
+             "build/quest_tpu_torch_plans under the repo)"),
     Knob("QUEST_HBM_BYTES", _int_range("QUEST_HBM_BYTES", 1, 1 << 62), None,
          doc="device memory in bytes for the capacity models (default: "
              "the card's total memory, torch.cuda.get_device_properties)"),
@@ -202,3 +215,68 @@ def hbm_bytes(device=None) -> int:
                          "QUEST_HBM_BYTES")
     return int(torch.cuda.get_device_properties(
         dev if dev is not None else torch.cuda.current_device()).total_memory)
+
+
+class QuESTEnv:
+    """The execution environment of one process on one device (ref
+    quest_tpu/env.py:730, QuESTEnv): the CUDA card unless the caller
+    asks for device="cpu". Sharded environments wait for ROADMAP A10."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    @property
+    def num_ranks(self) -> int:
+        return 1
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    def sharding_for(self, num_state_qubits: int):
+        raise NotImplementedError(
+            "sharded registers are not ported yet (ROADMAP A10)")
+
+    def sync(self) -> None:
+        """Block until the device's queued work completes (ref
+        syncQuESTEnv)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def platform(self) -> str:
+        return "CUDA" if self.device.type == "cuda" else "CPU"
+
+    def device_name(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return "CPU"
+
+    def get_environment_string(self, num_state_qubits: int = None) -> str:
+        """The reference's label "{n}qubits_{PLATFORM}_{r}ranksx{t}threads"
+        (getEnvironmentString, QuEST_cpu.c:1358-1364), the platform CUDA
+        or CPU, one rank and one thread."""
+        tag = f"{self.platform()}_{self.num_ranks}ranksx1threads"
+        if num_state_qubits is not None:
+            tag = f"{num_state_qubits}qubits_{tag}"
+        return tag
+
+    def report(self) -> str:
+        s = (f"EXECUTION ENVIRONMENT:\nRunning distributed (MPI) version: "
+             f"no\nNumber of devices: {self.num_ranks}\n"
+             f"Platform: {self.platform()} ({self.device_name()})")
+        print(s)
+        return s
+
+
+def create_quest_env(device=None) -> QuESTEnv:
+    return QuESTEnv(device)
+
+
+def destroy_quest_env(env: QuESTEnv) -> None:
+    """Nothing to free; kept for API parity."""
+
+
+def sync_quest_success(success_code: int = 1) -> int:
+    """AND a success code across processes (ref syncQuESTSuccess); one
+    process: the code as 0 or 1."""
+    return int(bool(success_code))

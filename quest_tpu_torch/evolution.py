@@ -34,8 +34,9 @@ the planner geometry it is given — the reference's TPU record under
 band_plan.TPU_GEOMETRY, the port's own launches under HOPPER_GEOMETRY.
 
 Not ported: sharded quenches (`mesh=`, ROADMAP A10) and durable ones
-(`durable_dir=`, ROADMAP A11) raise NotImplementedError;
-`TrotterCircuit.plan_stats` needs Circuit.plan_stats (ROADMAP A9).
+(`durable_dir=`, ROADMAP A11) raise NotImplementedError.
+`TrotterCircuit.plan_stats` is Circuit.plan_stats with the "trotter"
+record.
 """
 
 from __future__ import annotations
@@ -196,10 +197,18 @@ class TrotterCircuit(Circuit):
 
     def plan_stats(self, density: bool = False, batch: int = None,
                    devices: int = None) -> dict:
-        raise NotImplementedError(
-            "TrotterCircuit.plan_stats needs Circuit.plan_stats, which is "
-            "not ported yet (ROADMAP A9); trotter_plan_stats gives the "
-            "Trotter record")
+        """Circuit.plan_stats plus the "trotter" record of THIS circuit's
+        emission (ref :233); a noisy circuit is planned on the density
+        register, where it runs."""
+        density = density or self.trotter["noise"] is not None
+        rec = super().plan_stats(density=density, batch=batch,
+                                 devices=devices)
+        rec["trotter"] = trotter_plan_stats(
+            self.trotter["spec"], self.trotter["dt"],
+            order=self.trotter["order"], steps=self.trotter["steps"],
+            density=density, pooled=self.trotter["pooled"],
+            noise=self.trotter["noise"])
+        return rec
 
 
 def _zy_angle(coef: float, tau: float, scale: float) -> float:

@@ -37,6 +37,12 @@ the whole batch, and every channel, one-qubit ones too, is drawn from
 the pre-channel states and applied as one batched contraction of each
 state's drawn operator.
 
+The eager per-shot workers (ref :42-162) are here too: `kraus`,
+`unitary_mixture`, `damping`, `dephasing`, `depolarising` and `pauli`
+apply one channel to one trajectory's planes in place, each drawing its
+branch from a torch.Generator; each `*_given` core takes the uniform
+instead.
+
 Randomness is explicit: `run_batched` takes a torch.Generator and draws
 one (shots, C) array of uniforms from it, shot-major, before chunking,
 so chunking never changes a shot's trajectory. Branch k is
@@ -50,7 +56,7 @@ its uniforms, so the two are compared given the draws.)
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +68,7 @@ from quest_tpu_torch.env import knob_value, resolve_device
 from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import band_plan as BP
 from quest_tpu_torch.ops import fusion as F
+from quest_tpu_torch.ops import matrices as M
 from quest_tpu_torch.ops.segment import (SEL_WORDS, Segment, prepare_segment,
                                          segment_sweep,
                                          segment_sweep_reference)
@@ -496,3 +503,139 @@ def average_density(planes: torch.Tensor) -> torch.Tensor:
     x = planes.reshape(planes.shape[0], 2, -1).double()
     psi = torch.complex(x[:, 0], x[:, 1])
     return psi.T @ psi.conj() / psi.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# the eager per-shot workers (ref :42-162)
+# ---------------------------------------------------------------------------
+# One channel applied to ONE trajectory's (2, 2^n) planes, in place, its
+# branch drawn from a torch.Generator (one uniform in [0, 1), f64, on the
+# generator's device). Each worker has a `*_given` core that takes that
+# uniform instead and draws nothing, so a test can feed it the branch the
+# reference drew. Branch k is the inverse-CDF pick of the uniform over the
+# branch probabilities (_draw); a branch of probability 0 is never drawn.
+
+
+def _targets_tuple(targets):
+    return (targets,) if np.isscalar(targets) else tuple(int(t) for t in targets)
+
+
+def _uniform(generator: torch.Generator) -> float:
+    return float(torch.rand((), generator=generator, dtype=torch.float64,
+                            device=generator.device))
+
+
+def kraus_given(amps: torch.Tensor, u: float, n: int, targets,
+                ops) -> Tuple[torch.Tensor, int]:
+    """One stochastic application of the Kraus map {K_k} to `targets` at
+    the uniform `u`: branch k drawn with Born probability ||K_k psi||^2
+    (summed in f64), the planes set to K_k psi / sqrt(p_k) in place.
+    Returns (amps, k)."""
+    targets = _targets_tuple(targets)
+    ops = [np.asarray(K, dtype=np.complex128) for K in ops]
+    val._validate_kraus_once(ops, len(targets))
+    tier = precision.matmul_precision()
+    ws = [A.apply_matrix(amps.clone(), n, K, targets, tier=tier) for K in ops]
+    ps = torch.stack([w.double().square().sum() for w in ws])
+    k = int(_draw(ps, torch.tensor(float(u), dtype=torch.float64,
+                                   device=ps.device)))
+    amps.copy_(ws[k] / torch.sqrt(ps[k]).to(amps.dtype))
+    return amps, k
+
+
+def kraus(amps: torch.Tensor, generator: torch.Generator, n: int, targets,
+          ops) -> Tuple[torch.Tensor, int]:
+    """kraus_given at one uniform drawn from `generator`."""
+    return kraus_given(amps, _uniform(generator), n, targets, ops)
+
+
+def unitary_mixture_given(amps: torch.Tensor, u: float, n: int, targets,
+                          probs, unitaries) -> Tuple[torch.Tensor, int]:
+    """A unitary mixture sum_k p_k U_k . U_k^+ at the uniform `u`: the
+    probabilities do not depend on the state, so the branch is drawn
+    first and only U_k is applied, in place. Returns (amps, k)."""
+    targets = _targets_tuple(targets)
+    probs = torch.as_tensor(np.asarray(probs, dtype=np.float64))
+    k = int(_draw(probs, torch.tensor(float(u), dtype=torch.float64)))
+    A.apply_matrix(amps, n, np.asarray(unitaries[k], dtype=np.complex128),
+                   targets, tier=precision.matmul_precision())
+    return amps, k
+
+
+def unitary_mixture(amps: torch.Tensor, generator: torch.Generator, n: int,
+                    targets, probs, unitaries) -> Tuple[torch.Tensor, int]:
+    return unitary_mixture_given(amps, _uniform(generator), n, targets,
+                                 probs, unitaries)
+
+
+def _validate_channel_prob(p: float, what: str) -> float:
+    """Trajectory channels take the full CPTP range 0 <= p <= 1 (ref
+    :125); out of range fails loudly."""
+    p = float(p)
+    if not 0.0 <= p <= 1.0:
+        raise val.QuESTError(
+            f"Invalid probability: the {what} probability must be in "
+            f"[0, 1] for a trajectory unraveling, got {p}")
+    return p
+
+
+def _damping_args(target, prob):
+    return target, M.damping_kraus(_validate_channel_prob(prob, "damping"))
+
+
+def _dephasing_args(target, prob):
+    p = _validate_channel_prob(prob, "dephasing")
+    return target, [1.0 - p, p], [M.PAULI_I, M.PAULI_Z]
+
+
+def _depolarising_args(target, prob):
+    p = _validate_channel_prob(prob, "depolarising")
+    return target, [1.0 - p, p / 3.0, p / 3.0, p / 3.0], list(M.PAULIS)
+
+
+def _pauli_args(target, px, py, pz):
+    px = _validate_channel_prob(px, "Pauli-X")
+    py = _validate_channel_prob(py, "Pauli-Y")
+    pz = _validate_channel_prob(pz, "Pauli-Z")
+    _validate_channel_prob(px + py + pz, "total Pauli error")
+    return target, [1.0 - px - py - pz, px, py, pz], list(M.PAULIS)
+
+
+def damping(amps, generator, n, target, prob):
+    """Amplitude damping as a trajectory branch (ref mixDamping)."""
+    return kraus(amps, generator, n, *_damping_args(target, prob))
+
+
+def damping_given(amps, u, n, target, prob):
+    return kraus_given(amps, u, n, *_damping_args(target, prob))
+
+
+def dephasing(amps, generator, n, target, prob):
+    """Phase damping (ref mixDephasing): a unitary mixture."""
+    return unitary_mixture(amps, generator, n,
+                           *_dephasing_args(target, prob))
+
+
+def dephasing_given(amps, u, n, target, prob):
+    return unitary_mixture_given(amps, u, n, *_dephasing_args(target, prob))
+
+
+def depolarising(amps, generator, n, target, prob):
+    """Depolarising channel (ref mixDepolarising): a unitary mixture."""
+    return unitary_mixture(amps, generator, n,
+                           *_depolarising_args(target, prob))
+
+
+def depolarising_given(amps, u, n, target, prob):
+    return unitary_mixture_given(amps, u, n,
+                                 *_depolarising_args(target, prob))
+
+
+def pauli(amps, generator, n, target, px, py, pz):
+    """Probabilistic Pauli error (ref mixPauli): a unitary mixture."""
+    return unitary_mixture(amps, generator, n,
+                           *_pauli_args(target, px, py, pz))
+
+
+def pauli_given(amps, u, n, target, px, py, pz):
+    return unitary_mixture_given(amps, u, n, *_pauli_args(target, px, py, pz))

@@ -133,12 +133,61 @@ class QuESTError(ValueError):
         self.code = code
 
 
+def _default_handler(msg: str, func: str = "", code: ErrorCode = None):
+    """Call the overridable hook api.invalidQuESTInputError (looked up at
+    call time, so replacing that module attribute overrides it, as
+    redefining the reference's weak symbol does, QuEST.h:3163-3190),
+    then raise QuESTError with the bare message and its code."""
+    from quest_tpu_torch import api as _api
+    _api.invalidQuESTInputError(msg, func)
+    raise QuESTError(msg, code)
+
+
+_error_handler = _default_handler
+
+
+def set_error_handler(handler) -> None:
+    """Override the invalid-input hook (ref validation.py:168): the
+    handler takes (message, function name) and may raise or return;
+    None restores the default."""
+    global _error_handler
+    _error_handler = handler if handler is not None else _default_handler
+
+
+def _calling_function() -> str:
+    """The outermost public quest_tpu_torch function on the stack: the
+    one the user called, whose name the reference hands its hook."""
+    import inspect
+    func = ""
+    frame = inspect.currentframe()
+    try:
+        f = frame.f_back if frame else None
+        while f is not None:
+            mod = f.f_globals.get("__name__", "")
+            name = f.f_code.co_name
+            if mod.startswith("quest_tpu_torch") and not name.startswith("_"):
+                func = name
+            f = f.f_back
+    finally:
+        del frame
+    return func
+
+
 def err(code, msg: str = None):
-    """Raise the reference message for `code`, or a bare message string
-    for a check with no reference code."""
+    """Report an invalid input through the error handler: the reference
+    message for `code`, or a bare message string for a check with no
+    reference code. Raises QuESTError when the handler returns."""
     if isinstance(code, ErrorCode):
-        raise QuESTError(MESSAGES[code], code)
-    raise QuESTError(code)
+        msg = MESSAGES[code]
+    else:
+        code, msg = None, code
+    func = _calling_function()
+    if _error_handler is _default_handler:
+        _default_handler(msg, func, code)
+    else:
+        _error_handler(msg, func)
+    # a handler that returns must not let the operation go on
+    raise QuESTError(msg, code)
 
 
 REAL_EPS_SINGLE = 1e-5      # the reference's REAL_EPS per precision

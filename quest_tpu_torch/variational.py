@@ -309,13 +309,10 @@ def sweep(fn: Callable, param_batch, chunk: int = None):
     (coeffs, dt)). A tuple whose leaves all have ONE shape is rejected:
     it could mean either stack or pytree. `chunk` bounds the sets per
     call of the reference's vmap; here every set runs alone, so any
-    positive chunk gives the same result. chunk='auto' needs the
-    capacity-priced chunk of the plan IR (ROADMAP A9) and raises
-    NotImplementedError."""
-    if chunk == "auto":
-        raise NotImplementedError(
-            "sweep(chunk='auto') needs plan.sweep_chunk, which is not "
-            "ported yet (ROADMAP A9); pass an explicit chunk")
+    positive chunk gives the same result. chunk='auto' prices the chunk
+    from the capacity model (plan.sweep_chunk: the largest power of two
+    of sets whose planes fit env.hbm_bytes), which needs fn.num_qubits
+    (set by `expectation`)."""
     if isinstance(param_batch, list):
         param_batch = torch.as_tensor(np.asarray(
             [np.asarray(p.detach().cpu() if torch.is_tensor(p) else p)
@@ -340,6 +337,16 @@ def sweep(fn: Callable, param_batch, chunk: int = None):
             raise ValueError(
                 "every param_batch leaf must share the leading batch "
                 f"axis: got shapes {[tuple(l.shape) for l in leaves]}")
+    if chunk == "auto":
+        nq = getattr(fn, "num_qubits", None)
+        if nq is None:
+            raise ValueError(
+                "chunk='auto' needs fn.num_qubits (set by "
+                "variational.expectation); pass an explicit chunk for "
+                "a bare ansatz function")
+        from quest_tpu_torch import plan as P
+        chunk = P.sweep_chunk(total, int(nq),
+                              dtype=getattr(fn, "real_dtype", "f4"))
     if chunk is not None and int(chunk) < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     outs = [fn(_map(lambda a, i=i: a[i], params)) for i in range(total)]

@@ -215,7 +215,8 @@ def test_unported_paths_raise(monkeypatch):
     np.testing.assert_array_equal(q64.amps.numpy(), np.asarray(
         JS.create_qureg(10, dtype=np.complex128).amps))
     monkeypatch.setenv("QUEST_FUSED_SCAN", "1")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError,
+                       match=r"QUEST_FUSED_SCAN .*\(ROADMAP A4\.4\)"):
         c.compiled_fused(12, device="cpu")
     monkeypatch.setenv("QUEST_FUSED_SCAN", "0")
     monkeypatch.setenv("QUEST_MATMUL_PRECISION", "high")

@@ -988,3 +988,57 @@ def test_adjoint_matches_taped_on_the_card(card):
     vt, gt = tap(theta)
     assert abs(float(va) - float(vt)) <= 1e-5
     assert (ga - gt).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("cls", ["qft", "qaoa", "adder"])
+def test_frontend_entry_matches_its_plain_path(card, cls, tmp_path,
+                                               monkeypatch):
+    """A gallery class at 20 qubits through the front ends on the card
+    (QASM -> from_qasm -> autotune -> the chosen engine's program), held
+    against the same (maybe transpiled) stream through the fused engine's
+    plain PyTorch version on the card and against the raw stream's banded
+    program: planes within 1e-4 x max|amp|."""
+    from quest_tpu_torch import plan as P
+    from quest_tpu_torch.entry import frontend_entry
+    monkeypatch.setenv("QUEST_PLAN_CACHE_DIR", str(tmp_path))
+    fn, (amps,) = frontend_entry(card, num_qubits=20, cls=cls)
+    start = amps.clone()
+    out = fn(amps).reshape(2, -1)
+    ran = P.planned_circuit(fn.circuit, fn.plan)
+    plain = ran.compiled_fused(20, device=card).plain(start.clone())
+    raw = fn.circuit.compiled_banded(20, device=card)(start.clone())
+    scale = plain.abs().max().item()
+    assert (out - plain.reshape(2, -1)).abs().max().item() <= 1e-4 * scale
+    assert (out - raw.reshape(2, -1)).abs().max().item() <= 1e-4 * scale
+
+
+def test_tutorial_through_the_api_on_the_card(card):
+    """The reference tutorial through quest_tpu_torch.api on the card:
+    the reference binary's numbers, and the recorded QASM equal to the
+    same script's on the CPU."""
+    from quest_tpu_torch import api as Q
+
+    def tutorial(env):
+        q = Q.createQureg(3, env)
+        Q.startRecordingQASM(q)
+        Q.hadamard(q, 0)
+        Q.controlledNot(q, 0, 1)
+        Q.rotateY(q, 2, 0.1)
+        Q.multiControlledPhaseFlip(q, [0, 1, 2])
+        u = np.array([[0.5 + 0.5j, 0.5 - 0.5j], [0.5 - 0.5j, 0.5 + 0.5j]])
+        Q.unitary(q, 0, u)
+        a, b = 0.5 + 0.5j, 0.5 - 0.5j
+        Q.compactUnitary(q, 1, a, b)
+        Q.rotateAroundAxis(q, 2, 3.14 / 2, (1.0, 0.0, 0.0))
+        Q.controlledCompactUnitary(q, 0, 1, a, b)
+        Q.multiControlledUnitary(q, [0, 1], 2, u)
+        toff = Q.createComplexMatrixN(3)
+        toff[6, 7] = toff[7, 6] = 1
+        for i in range(6):
+            toff[i, i] = 1
+        Q.multiQubitUnitary(q, [0, 1, 2], toff)
+        return (Q.getProbAmp(q, 7), Q.calcProbOfOutcome(q, 2, 1),
+                q.qasm.recorded())
+    p7, p2, text = tutorial(Q.createQuESTEnv())
+    assert abs(p7 - 0.112422) <= 1e-6 and abs(p2 - 0.749178) <= 1e-6
+    assert text == tutorial(Q.createQuESTEnv(device="cpu"))[2]

@@ -254,8 +254,9 @@ def test_unported_modes_raise_naming_the_roadmap_item():
         EV.run_evolution((codes, cf), 0.1, 2, state=q0, mesh=object())
     with pytest.raises(NotImplementedError, match="A11"):
         EV.run_evolution((codes, cf), 0.1, 2, state=q0, durable_dir="x")
-    with pytest.raises(NotImplementedError, match="A9"):
-        EV.trotter_circuit((codes, cf), 0.1).plan_stats()
+    # TrotterCircuit.plan_stats answers since the plan IR is ported (A9)
+    rec = EV.trotter_circuit((codes, cf), 0.1).plan_stats()
+    assert rec["trotter"] == EV.trotter_plan_stats((codes, cf), 0.1)
 
 
 def test_energy_tracking_matches_the_reference():
@@ -376,7 +377,7 @@ def test_fused_engine_matches_the_reference_banded_at_ten_qubits():
     np.testing.assert_allclose(got.energies, ref.energies, atol=2e-4)
 
 
-def test_sweep_tuple_rules():
+def test_sweep_tuple_rules(monkeypatch):
     codes, cf = tfim(3)
     ansatz = EV.trotter_ansatz(codes, order=2, steps=1)
     energy = V.expectation(ansatz, 3, codes, cf, device="cpu")
@@ -387,8 +388,14 @@ def test_sweep_tuple_rules():
     torch.testing.assert_close(vals, loop, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="ambiguous tuple"):
         V.sweep(energy, (torch.zeros(2), torch.zeros(2)))
-    with pytest.raises(NotImplementedError, match="A9"):
+    # chunk='auto' prices against the device memory: none on the CPU
+    # unless QUEST_HBM_BYTES gives it
+    monkeypatch.delenv("QUEST_HBM_BYTES", raising=False)
+    with pytest.raises(ValueError, match="QUEST_HBM_BYTES"):
         V.sweep(energy, (cfs, dts), chunk="auto")
+    monkeypatch.setenv("QUEST_HBM_BYTES", str(1 << 30))
+    torch.testing.assert_close(V.sweep(energy, (cfs, dts), chunk="auto"),
+                               loop, rtol=0, atol=1e-6)
 
     def plain(params):
         return params.sum()

@@ -469,3 +469,117 @@ def test_batched_matrix_apply_matches_each_state(targets, controls,
     whole = T._reduced_density(torch.from_numpy(planes), n, targets)
     for x, y in zip(rho, whole):
         np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-9, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the eager per-shot workers (ref quest_tpu/trajectories.py:42-162)
+# ---------------------------------------------------------------------------
+
+def _eager_state(n, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((2, 1 << n))
+    v /= np.sqrt((v ** 2).sum())
+    return v.astype(np.float32)
+
+
+def _uniform_inside(probs, k):
+    """A uniform whose inverse-CDF pick over `probs` is branch k (the
+    middle of its interval)."""
+    p = np.maximum(np.asarray(probs, dtype=np.float64), 0.0)
+    cum = np.cumsum(p)
+    lo = cum[k - 1] if k else 0.0
+    return float((lo + cum[k]) / 2.0 / cum[-1])
+
+
+EAGER = [
+    ("damping", (2, 0.35), None),
+    ("dephasing", (1, 0.3), [0.7, 0.3]),
+    ("depolarising", (0, 0.45), [0.55, 0.15, 0.15, 0.15]),
+    ("pauli", (3, 0.1, 0.25, 0.2), [0.45, 0.1, 0.25, 0.2]),
+]
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("name,args,probs", EAGER,
+                         ids=[e[0] for e in EAGER])
+def test_eager_workers_match_reference_given_its_draws(name, args, probs,
+                                                       seed):
+    n = 4
+    v = _eager_state(n, seed)
+    ref, _, k = getattr(JT, name)(jnp.asarray(v), jax.random.key(seed), n,
+                                  *args)
+    k = int(k)
+    if probs is None:          # Born probabilities of the damping branches
+        t = args[0]
+        psi = (v[0] + 1j * v[1]).astype(np.complex128)
+        p1 = np.sum(np.abs(psi[(np.arange(1 << n) >> t) & 1 == 1]) ** 2)
+        probs = [1.0 - args[1] * p1, args[1] * p1]
+    u = _uniform_inside(probs, k)
+    amps = torch.from_numpy(v.copy())
+    out, got = getattr(T, name + "_given")(amps, u, n, *args)
+    assert got == k and out is amps
+    assert np.abs(out.numpy() - np.asarray(ref)).max() <= 2e-6
+
+
+@pytest.mark.parametrize("targets", [(1,), (0, 2)])
+def test_eager_kraus_matches_reference_given_its_draws(targets):
+    n = 4
+    rng = np.random.default_rng(9)
+    d = 1 << len(targets)
+    z = rng.standard_normal((d, d)) + 1j * rng.standard_normal((d, d))
+    u, _ = np.linalg.qr(z)
+    ops = [np.sqrt(0.6) * np.eye(d), np.sqrt(0.4) * u]
+    for seed in range(4):
+        v = _eager_state(n, seed)
+        ref, _, k = JT.kraus(jnp.asarray(v), jax.random.key(seed), n,
+                             targets, ops)
+        k = int(k)
+        probs = [0.6, 0.4]      # K^+K proportional to I: state-independent
+        out, got = T.kraus_given(torch.from_numpy(v.copy()),
+                                 _uniform_inside(probs, k), n, targets, ops)
+        assert got == k
+        assert np.abs(out.numpy() - np.asarray(ref)).max() <= 2e-6
+        mix = np.asarray(JT.unitary_mixture(
+            jnp.asarray(v), jax.random.key(seed), n, targets, [0.6, 0.4],
+            [np.eye(d), u])[0])
+        kk = int(JT.unitary_mixture(jnp.asarray(v), jax.random.key(seed), n,
+                                    targets, [0.6, 0.4], [np.eye(d), u])[2])
+        out, got = T.unitary_mixture_given(
+            torch.from_numpy(v.copy()), _uniform_inside(probs, kk), n,
+            targets, [0.6, 0.4], [np.eye(d), u])
+        assert got == kk
+        assert np.abs(out.numpy() - mix).max() <= 2e-6
+
+
+def test_eager_workers_draw_from_their_generator():
+    """Equal generator states give equal branches; over many shots the
+    branch frequencies follow the channel's probabilities, and a branch
+    of probability 0 is never drawn."""
+    n = 3
+    v = torch.from_numpy(_eager_state(n, 1))
+    g1, g2 = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
+    for _ in range(5):
+        a, ka = T.depolarising(v.clone(), g1, n, 0, 0.3)
+        b, kb = T.depolarising(v.clone(), g2, n, 0, 0.3)
+        assert ka == kb and torch.equal(a, b)
+    g = torch.Generator().manual_seed(0)
+    counts = np.bincount([T.pauli(v.clone(), g, n, 1, 0.2, 0.0, 0.3)[1]
+                          for _ in range(2000)], minlength=4)
+    assert counts[2] == 0
+    assert abs(counts[0] / 2000 - 0.5) < 0.05
+    assert abs(counts[3] / 2000 - 0.3) < 0.05
+    zero = torch.zeros((2, 1 << n))
+    zero[0, 0] = 1.0
+    for _ in range(20):      # |0> never decays: p(branch 1) = 0
+        assert T.damping(zero.clone(), g, n, 0, 0.9)[1] == 0
+
+
+@pytest.mark.parametrize("call", [
+    lambda v, g: T.damping(v, g, 3, 0, 1.5),
+    lambda v, g: T.dephasing(v, g, 3, 0, -0.1),
+    lambda v, g: T.pauli(v, g, 3, 0, 0.5, 0.4, 0.3),
+    lambda v, g: T.kraus(v, g, 3, 0, [np.eye(2) * 0.5])])
+def test_eager_workers_validate_like_the_reference(call):
+    v = torch.from_numpy(_eager_state(3, 0))
+    with pytest.raises(TV.QuESTError):
+        call(v, torch.Generator().manual_seed(0))
