@@ -265,6 +265,27 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      register beside the same calls through ops.gates: host ms per call
      of each and the front end's overhead per call; the final planes bit
      for bit equal.
+ 36. scan: QUEST_FUSED_SCAN at 0 and 1 on the 28q QFT and on the 28q
+     diagonal layer run 8 times in one program (eight sweeps of one
+     structure: one group of the reference's scan partition): planes bit
+     for bit, launches, build s and warm ms of each;
+ 37. sharded: the 28q flagship over 4 shards of the one card through
+     compiled_sharded_fused (K1 on every shard), compiled_sharded_banded
+     and compiled_sharded, each within 1e-4 x max|amp| of entry()'s K1
+     step with its norm within 1e-4 and the mesh recorder's exchanges
+     equal to comm_stats' prediction (and to the dry walk's); warm ms,
+     K1 launches per shard, exchanges and bytes, one pair permute's and
+     one relabel all-to-all's ms (device-local copies on one card); then
+     phase_baseline's 30q d20 through the fused engine, one warm step,
+     against the single-register K1 step;
+ 38. sharded_batched: 24q x 64 states over 4 shards against
+     compiled_batched within 1e-4 x max|amp|, launches per shard;
+ 39. sharded_measured: the 30q repetition-code cycle over 4 shards
+     (engine 'fused'), fed the uniforms of the single-register measured
+     program with the first forcing outcome 1, so the feedback flips a
+     global ancilla: equal outcomes, planes within 1e-4 x max|amp|, the
+     recorder's exchanges equal to the schedule priced on the run's
+     outcomes, ms a cycle.
 
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
@@ -327,7 +348,8 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "wide_gates", "small_registers", "batched_banded",
           "trajectories_banded", "program_cache", "measurement", "xeb",
           "dynamic", "calculations", "eager", "expec", "evolution",
-          "variational", "adjoint", "frontends", "api")
+          "variational", "adjoint", "frontends", "api", "scan", "sharded",
+          "sharded_batched", "sharded_measured")
 
 RECORD = []
 
@@ -4320,6 +4342,349 @@ def phase_api(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the scan and the sharded engines (ROADMAP A4.4, A10)
+# ---------------------------------------------------------------------------
+
+SCAN_QUBITS = 28
+SCAN_ITERS = 8                # diag layer x 8: one scan group of 8 sweeps
+SHARDS = 4                    # a mesh of 4 shards of the one card
+SHARDED_QUBITS = 28
+SHARDED_BASELINE = (30, 20)   # qubits, depth: the 30q d20 step
+SHARDED_BATCH = (24, 64)      # qubits, states
+SHARD_COPIES = "device-local copies: every shard of the mesh is on one card"
+
+
+def _counted(torch, fn, *args):
+    """fn(*args) with the segment counters set to 0 just before and the
+    mesh recorders' issued exchanges read just after: (result, launches,
+    launches per stage kind)."""
+    from quest_tpu_torch.ops import segment as S
+    S.segment_sweep.launches = 0
+    S.segment_sweep.stage_launches = {}
+    S.segment_sweep.driver_launches = {}
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, S.segment_sweep.launches, dict(S.segment_sweep.stage_launches)
+
+
+def phase_scan(torch):
+    """QUEST_FUSED_SCAN at 0 and 1 on the 28q QFT and on the 28q diagonal
+    layer run 8 times in one program (entry.diag_layer_circuit, iters 8:
+    eight sweeps of one structure, one group of the reference's scan
+    partition): planes bit for bit, launches, build s and warm ms of
+    each. The knob is keyed, so each flag builds its own program; both
+    prepare every segment and launch each once."""
+    from quest_tpu_torch.circuit import SCAN_MIN, _scan_partition, qft_circuit
+    from quest_tpu_torch.entry import diag_layer_circuit
+    from quest_tpu_torch.state import fused_state_shape
+    n = SCAN_QUBITS
+    rng = np.random.default_rng(11)
+    rec = {"phase": "scan", "n": n, "cases": {}}
+    diag = f"diag_layer{n}x{SCAN_ITERS}"
+    for name, circ, iters in ((f"qft{n}", qft_circuit(n), 1),
+                              (diag, diag_layer_circuit(n), SCAN_ITERS)):
+        parts, _ = circ.fused_parts(n, iters)
+        case = {"scan_groups": sum(1 for g in _scan_partition(parts, SCAN_MIN)
+                                   if g[0] == "scan")}
+        x0 = torch.from_numpy(rng.standard_normal(
+            fused_state_shape(n)).astype(np.float32)).to(CARD)
+        x0 /= x0.double().pow(2).sum().sqrt().float()
+        outs = {}
+        for flag in ("0", "1"):
+            with env_knob("QUEST_FUSED_SCAN", flag):
+                t0 = time.perf_counter()
+                fn = circ.compiled_fused(n, iters=iters, device=CARD)
+                build_s = time.perf_counter() - t0
+            amps = x0.clone()
+            _, launches, _ = _counted(torch, fn, amps)
+            if launches != fn.launches_per_call or not launches:
+                raise AssertionError(f"scan {name}/{flag}: {launches} "
+                                     f"launches, {fn.launches_per_call} "
+                                     f"planned")
+            outs[flag] = amps
+            y = x0.clone()
+            case[f"scan{flag}"] = {
+                "launches": launches, "segments": len(fn.segments),
+                "build_s": build_s,
+                "warm_ms": time_ms(torch, lambda: fn(y), 3)}
+            del fn, y
+        if not torch.equal(outs["0"], outs["1"]):
+            raise AssertionError(f"scan {name}: planes differ")
+        case["bit_equal"] = True
+        rec["cases"][name] = case
+        del outs, x0
+        torch.cuda.empty_cache()
+    if not rec["cases"][diag]["scan_groups"]:
+        raise AssertionError("scan: the repeated diagonal layer formed no "
+                             "scan group")
+    emit_card(rec)
+    return rec
+
+
+def _issued_predicted(torch, mesh, circ, n, engine):
+    """(issued, predicted): the mesh recorder's counts of the run just
+    made and introspect's record of the same program (comm_stats'
+    prediction, the dry walk's issued counts); raises unless all three
+    agree."""
+    from quest_tpu_torch.parallel import introspect as I
+    issued = mesh.recorder.stats(mesh.size)
+    rec = I.sharded_schedule(circ.ops, n, False, mesh, engine=engine)
+    keys = ("collective_permutes", "all_to_alls", "collective_exchanges",
+            "ici_bytes_per_device")
+    if not rec["comm_matches_hlo"] or any(issued[k] != rec[k] for k in keys):
+        raise AssertionError(f"sharded {engine}: issued {issued}, predicted "
+                             f"{rec}")
+    return issued, rec
+
+
+def _exchange_ms(torch, mesh, n):
+    """ms of one full-chunk pair permute (device bit 0) and of one relabel
+    all-to-all on the mesh's shards of an n-qubit f32 state, the copies
+    alone (CUDA events); the recorder is reset after."""
+    from quest_tpu_torch.parallel import sharded as SH
+    local_n = n - mesh.global_qubits
+    xs = [torch.zeros((1, 2, 1 << local_n), device=d) for d in mesh.devices]
+    out = {
+        "pair_permute_ms": time_ms(torch, lambda: mesh.permute(xs, 0), 3),
+        "all_to_all_ms": time_ms(torch, lambda: SH._relabel_op(
+            xs, mesh, local_n, tuple(range(mesh.global_qubits))), 3),
+        "chunk_bytes": 2 * 4 << local_n, "copies": SHARD_COPIES}
+    mesh.recorder.reset()
+    del xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded(torch):
+    """The 28q flagship over a mesh of 4 shards of the one card through
+    compiled_sharded_fused (K1 on every shard), compiled_sharded_banded
+    and compiled_sharded: each within 1e-4 x max|amp| of entry()'s
+    single-register K1 step, norm within 1e-4, the recorder's issued
+    exchanges equal to comm_stats' prediction; warm step ms, K1 launches
+    per shard, exchange count and bytes, and one exchange's ms (device-
+    local copies on one card). Then 30q d20 over 4 shards through the
+    fused engine with the default comm plan, one warm step, the same
+    gates against the single-register K1 step."""
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.entry import entry, flagship_circuit, sharded_entry
+    from quest_tpu_torch.parallel import ShardedAmps, make_amp_mesh
+    n = SHARDED_QUBITS
+    ref_fn, (ref,) = entry(device=CARD, num_qubits=n)
+    ref_fn(ref)
+    ref = ref.reshape(2, -1)
+    scale = ref.abs().max().item()
+    rec = {"phase": "sharded", "n": n, "shards": SHARDS, "engines": {}}
+    for engine, reps in (("fused", 5), ("banded", 3), ("pergate", 1)):
+        fn, (x,) = sharded_entry(device=CARD, num_qubits=n, shards=SHARDS,
+                                 engine=engine)
+        x.mesh.recorder.reset()
+        _, launches, stages = _counted(torch, fn, x)
+        if launches != fn.launches_per_call or (engine == "fused"
+                                                and not launches):
+            raise AssertionError(f"sharded {engine}: {launches} launches, "
+                                 f"{fn.launches_per_call} planned")
+        issued, pred = _issued_predicted(torch, x.mesh, flagship_circuit(n),
+                                         n, engine)
+        got = x.gather()
+        err, norm = plane_err(got, ref), norm_of(got)
+        del got
+        if not (err <= PATH_TOL * scale and abs(1.0 - norm) <= PATH_TOL):
+            raise AssertionError(f"sharded {engine}: max|diff| {err} vs K1 "
+                                 f"(max|amp| {scale}), norm {norm}")
+        rec["engines"][engine] = {
+            "max_abs_err": err, "rel_err": err / scale, "norm": norm,
+            "launches": launches, "launches_per_shard": launches // SHARDS,
+            "stage_launches": stages, "strategy": fn.strategy,
+            "exchanges": issued["collective_exchanges"],
+            "pair_permutes": issued["collective_permutes"],
+            "all_to_alls": issued["all_to_alls"],
+            "exchange_bytes_per_shard": issued["ici_bytes_per_device"],
+            "predicted_bytes": pred["comm_bytes"],
+            "warm_ms": time_ms(torch, lambda: fn(x), reps)}
+        mesh = x.mesh
+        del fn, x
+        torch.cuda.empty_cache()
+    rec["exchange"] = _exchange_ms(torch, mesh, n)
+    del ref_fn, ref
+    torch.cuda.empty_cache()
+    # 30q d20: the BASELINE circuit over 4 shards, default plan
+    nb, depth = SHARDED_BASELINE
+    circ = random_circuit(nb, depth, seed=7, entangler="cz")  # phase_baseline's
+    single = circ.compiled_fused(nb, device=CARD)
+    from quest_tpu_torch.state import basis_planes, fused_state_shape
+    want = basis_planes(0, n=nb, device=CARD, shape=fused_state_shape(nb))
+    single(want)
+    want = want.reshape(2, -1)
+    mesh = make_amp_mesh(SHARDS, devices=[torch.device(CARD)] * SHARDS)
+    fn = circ.compiled_sharded_fused(nb, False, mesh)
+    local = nb - mesh.global_qubits
+    shards = [torch.zeros((2, 1 << local), device=CARD)
+              for _ in range(SHARDS)]
+    shards[0][0, 0] = 1.0
+    x = ShardedAmps(shards, mesh, nb)
+    t0 = time.perf_counter()
+    fn(x)                                  # cold: first launches
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    for s in shards:
+        s.zero_()
+    shards[0][0, 0] = 1.0
+    mesh.recorder.reset()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    _, launches, _ = _counted(torch, fn, x)
+    end.record()
+    end.synchronize()
+    warm_ms = start.elapsed_time(end)
+    issued, pred = _issued_predicted(torch, mesh, circ, nb, "fused")
+    if launches != fn.launches_per_call or not launches:
+        raise AssertionError(f"sharded 30q d20: {launches} launches")
+    bscale = want.abs().max().item()
+    err = max(plane_err(s, want[:, i << local:(i + 1) << local])
+              for i, s in enumerate(shards))
+    norm = sum(norm_of(s) for s in shards)
+    if not (err <= PATH_TOL * bscale and abs(1.0 - norm) <= PATH_TOL):
+        raise AssertionError(f"sharded 30q d20: max|diff| {err} (max|amp| "
+                             f"{bscale}), norm {norm}")
+    rec["baseline_30q_d20"] = {
+        "max_abs_err": err, "rel_err": err / bscale, "norm": norm,
+        "launches": launches, "launches_per_shard": launches // SHARDS,
+        "strategy": fn.strategy,
+        "relabel_events": issued["all_to_alls"],
+        "exchanges": issued["collective_exchanges"],
+        "exchange_bytes_per_shard": issued["ici_bytes_per_device"],
+        "predicted_bytes": pred["comm_bytes"], "cold_s": cold_s,
+        "warm_ms": warm_ms, "single_register_launches":
+            single.launches_per_call}
+    emit_card(rec)
+    del fn, x, shards, want, single
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sharded_batched(torch):
+    """24q x 64 states over 4 shards through compiled_sharded_batched
+    against compiled_batched within 1e-4 x max|amp|: K1 launches per shard
+    (one per swept segment for all 64 states), warm ms."""
+    from quest_tpu_torch.entry import flagship_circuit, random_states
+    from quest_tpu_torch.parallel import make_amp_mesh, shard_planes
+    n, b = SHARDED_BATCH
+    circ = flagship_circuit(n)
+    states = random_states(b, n, device=CARD)
+    want = circ.compiled_batched(b, device=CARD)(states.clone()).reshape(
+        b, 2, -1)
+    mesh = make_amp_mesh(SHARDS, devices=[torch.device(CARD)] * SHARDS)
+    fn = circ.compiled_sharded_batched(b, mesh)
+    x = shard_planes(states, mesh, n)
+    del states
+    torch.cuda.empty_cache()
+    mesh.recorder.reset()
+    _, launches, _ = _counted(torch, fn, x)
+    if launches != fn.launches_per_call or not launches:
+        raise AssertionError(f"sharded_batched: {launches} launches, "
+                             f"{fn.launches_per_call} planned")
+    local = n - mesh.global_qubits
+    scale = want.abs().max().item()
+    err = max(plane_err(s, want[..., i << local:(i + 1) << local])
+              for i, s in enumerate(x.shards))
+    if not err <= PATH_TOL * scale:
+        raise AssertionError(f"sharded_batched: max|diff| {err} (max|amp| "
+                             f"{scale})")
+    issued = mesh.recorder.stats(SHARDS)
+    rec = {"phase": "sharded_batched", "n": n, "batch": b,
+           "shards": SHARDS, "max_abs_err": err, "rel_err": err / scale,
+           "launches": launches, "launches_per_shard": launches // SHARDS,
+           "strategy": fn.strategy,
+           "exchanges": issued["collective_exchanges"],
+           "exchange_bytes_per_shard": issued["ici_bytes_per_device"],
+           "warm_ms": time_ms(torch, lambda: fn(x), 3),
+           "copies": SHARD_COPIES}
+    emit_card(rec)
+    del fn, x, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sharded_measured(torch):
+    """entry.repetition_code_circuit() (30 qubits, 8 GiB) over 4 shards
+    through compiled_sharded_measured(engine='fused'), fed the uniforms
+    the single-register measured program (engine 'banded') draws from
+    the entry's seeded generator, the first replaced by the largest f32
+    below 1: the first syndrome then reads 1, so the classically
+    controlled flips fire, the ancilla reset among them on a global
+    qubit. Equal outcomes, planes within 1e-4 x max|amp|, the recorder's
+    exchanges equal to the schedule priced on this run's outcomes (and
+    more than the all-zero outcomes' schedule: the feedback issued
+    exchanges); ms per cycle of each (wall: each measurement reads its
+    outcome on the host)."""
+    from quest_tpu_torch import measurement as MS
+    from quest_tpu_torch.entry import (MEASURED_ROUNDS, MEASURED_SEED,
+                                       measured_entry)
+    from quest_tpu_torch.parallel import (introspect as I, make_amp_mesh,
+                                          shard_planes)
+    fn, (amps, _) = measured_entry(device=CARD)
+    n = fn.n
+    gen = torch.Generator().manual_seed(MEASURED_SEED)
+    us = [MS.draw_uniform(gen, torch.float32)
+          for _ in range(fn.circuit._measure_count())]
+    us[0] = float(np.nextafter(np.float32(1), np.float32(0)))
+    mesh = make_amp_mesh(SHARDS, devices=[torch.device(CARD)] * SHARDS)
+    prog = fn.circuit.compiled_sharded_measured(n, False, mesh,
+                                                engine="fused")
+    x = shard_planes(amps, mesh, n)
+    single_ms, (want, wouts) = host_ms(torch, lambda: fn.given(amps, us))
+    mesh.recorder.reset()
+    from quest_tpu_torch.ops import segment as S
+    S.segment_sweep.launches = 0
+    sharded_ms, (x, outs) = host_ms(torch, lambda: prog.given(x, us))
+    launches = S.segment_sweep.launches
+    if not torch.equal(outs, wouts):
+        raise AssertionError(f"sharded_measured: outcomes {outs.tolist()} "
+                             f"vs {wouts.tolist()}")
+    want = want.reshape(2, -1)
+    local = n - mesh.global_qubits
+    scale = want.abs().max().item()
+    err = max(plane_err(s, want[:, i << local:(i + 1) << local])
+              for i, s in enumerate(x.shards))
+    if not err <= PATH_TOL * scale or not launches:
+        raise AssertionError(f"sharded_measured: max|diff| {err} (max|amp| "
+                             f"{scale}), {launches} launches")
+    issued = mesh.recorder.stats(SHARDS)
+    ops = fn.circuit.ops
+    pred = I.sharded_measured_schedule(ops, n, False, SHARDS, engine="fused",
+                                       outcomes=outs.tolist())
+    quiet = I.sharded_measured_schedule(ops, n, False, SHARDS,
+                                        engine="fused",
+                                        outcomes=[0] * len(outs))
+    keys = ("collective_permutes", "all_to_alls", "collective_exchanges",
+            "ici_bytes_per_device", "all_reduces")
+    if not pred["comm_matches_hlo"] or any(issued[k] != pred[k]
+                                           for k in keys):
+        raise AssertionError(f"sharded_measured: issued {issued}, "
+                             f"predicted on this run's outcomes {pred}")
+    if not (outs[0] == 1 and pred["collective_exchanges"]
+            > quiet["collective_exchanges"]):
+        raise AssertionError(f"sharded_measured: outcomes {outs.tolist()}, "
+                             f"the feedback issued no exchange")
+    rec = {"phase": "sharded_measured", "n": n, "shards": SHARDS,
+           "rounds": MEASURED_ROUNDS, "outcomes": outs.tolist(),
+           "max_abs_err": err, "rel_err": err / scale, "launches": launches,
+           "kernel_parts": prog.kernel_parts,
+           "reductions": issued["all_reduces"],
+           "exchanges": issued["collective_exchanges"],
+           "predicted_exchanges": pred["collective_exchanges"],
+           "all_zero_outcome_exchanges": quiet["collective_exchanges"],
+           "exchange_bytes_per_shard": issued["ici_bytes_per_device"],
+           "single_ms_per_cycle": single_ms / MEASURED_ROUNDS,
+           "sharded_ms_per_cycle": sharded_ms / MEASURED_ROUNDS,
+           "copies": SHARD_COPIES}
+    emit_card(rec)
+    del fn, prog, x, want, amps
+    torch.cuda.empty_cache()
+    return rec
+
+
 def ham_profile(torch):
     """torch.profiler tables (top kernels by device time) of the
     Hamiltonian layers at 30 qubits: the grouped expectation of TFIM-30
@@ -5091,6 +5456,14 @@ def main(argv=None) -> int:
         phase_frontends(torch)
     if want("api"):
         phase_api(torch)
+    if want("scan"):
+        phase_scan(torch)
+    if want("sharded"):
+        phase_sharded(torch)
+    if want("sharded_batched"):
+        phase_sharded_batched(torch)
+    if want("sharded_measured"):
+        phase_sharded_measured(torch)
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

@@ -38,7 +38,7 @@ both against the device memory, env.hbm_bytes: the card's, or
 QUEST_HBM_BYTES), cached by value (equal specs return the same fn).
 
 `grad_record` is the plan IR's grad axis (plan.build_plan). Not
-ported: the sharded walk and `predict_vjp_collectives` (ROADMAP A10).
+ported: the sharded walk and `predict_vjp_collectives` (ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -710,14 +710,14 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
     observable, dtype, device, keyed knobs) return the identical fn,
     which carries `engine`, `num_params`, `initial_params` (a Circuit's
     recovered angles), `num_qubits`, `real_dtype`, `sweep_key` and
-    `value(theta)` (the energy alone). mesh= waits for ROADMAP A10."""
+    `value(theta)` (the energy alone). mesh= waits for ROADMAP A10b."""
     from quest_tpu_torch.circuit import _device_key
     from quest_tpu_torch.env import engine_mode_key, knob_value
 
     if mesh is not None:
         raise NotImplementedError(
             "sharded adjoint gradients (mesh=) are not ported yet "
-            "(ROADMAP A10)")
+            "(ROADMAP A10b)")
     dev = resolve_device(device)
     is_circuit = isinstance(target, CC.Circuit)
     if is_circuit:

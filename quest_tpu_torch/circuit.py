@@ -38,8 +38,19 @@ QUEST_FUSED_PIPELINE / QUEST_FUSED_NBUF, band_plan.active_driver) read
 when it was compiled. Each is cached on its circuit, keyed on its
 arguments, its device and `_engine_mode_key()` (every keyed knob's
 effective value), so repeated calls reuse one program and a knob flip
-builds a new one; adding an op clears the cache. QUEST_FUSED_SCAN is not
-ported (ROADMAP A4.4) and raises NotImplementedError.
+builds a new one; adding an op clears the cache. QUEST_FUSED_SCAN=1
+(the reference's lax.scan over runs of >= 3 swept segments of one
+structure, `_scan_partition`) builds the same program: each segment is
+already one launch of the one kernel binary with its operands resident
+on the device, so grouping a run changes nothing until a CUDA graph
+over it does (ROADMAP).
+
+The sharded engines (ROADMAP A10, quest_tpu_torch/parallel):
+`compiled_sharded` (per-gate), `compiled_sharded_banded`,
+`compiled_sharded_fused` (the segment kernel on every shard),
+`compiled_sharded_batched`, `compiled_sharded_measured`, their `apply_*`
+forms, `explain_sharded` and `_comm_plan_stats`, cached like the others
+and keyed on the mesh's device tuple.
 
 The front ends (ROADMAP A9): `from_qasm` / `to_qasm` (qasm_import.py,
 qasm.py), `transpiled` (transpile.py, memoised until the circuit
@@ -73,6 +84,9 @@ _LOOP_UNROLL_MAX = 32
 # slowly; here it is the per-gate engine's pass count that grows)
 PERGATE_COMPILE_WARN_OPS = 64
 PLAIN_CHUNK_STATES = 8        # states per plain-path pass of a batch
+# runs of segments of one structure the reference's scan groups
+# (_scan_partition; planning only in the port, see the module docstring)
+SCAN_MIN = 3
 
 
 def _engine_mode_key():
@@ -408,6 +422,31 @@ def _sweep_unrolled(raw, n: int, iters: int, driver: str):
     return BP.sweep_plan(raw * unroll, n, driver=driver), iters // unroll
 
 
+def _scan_partition(parts, scan_min: int):
+    """Group maximal runs of >= scan_min consecutive kernel segments
+    sharing ONE structure (identical stage tuple; operands differ) into
+    ('scan', stages, [arrays, ...]) elements; everything else passes
+    through as ('one', part). scan_min <= 0 disables grouping (ref
+    circuit.py:482, pure planning)."""
+    out = []
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        if scan_min > 0 and part[0] == "segment":
+            seg_key = tuple(part[1])
+            j = i
+            while (j < len(parts) and parts[j][0] == "segment"
+                   and tuple(parts[j][1]) == seg_key):
+                j += 1
+            if j - i >= scan_min:
+                out.append(("scan", part[1], [p[2] for p in parts[i:j]]))
+                i = j
+                continue
+        out.append(("one", part))
+        i += 1
+    return out
+
+
 class FusedProgram:
     """A compiled fused program: call it on (2, 2^n) or (2, rows, 128)
     f32 planes, or on a batch (B, 2, ...) of them; it updates them in
@@ -695,8 +734,9 @@ class Circuit:
         view of plan.build_plan's ProgramPlan: the scheduler's counters,
         the banded pass model, the fused record under HOPPER_GEOMETRY
         (from 10 qubits), the batched record (`batch`), the f64 record,
-        the gradient and transpile axes. `devices` waits for ROADMAP A10
-        and raises NotImplementedError."""
+        the gradient and transpile axes, and with `devices` the comm
+        planner's predicted schedule of the banded/fused sharded engines
+        over that many shards ('comm', pure host math)."""
         self._reject_measure("plan_stats")
         from quest_tpu_torch import plan as P
         return P.build_plan(self, density=density, batch=batch,
@@ -939,14 +979,11 @@ class Circuit:
         the segment driver (QUEST_FUSED_DRIVER, QUEST_FUSED_PIPELINE,
         QUEST_FUSED_NBUF) are read then, as the reference reads them at
         trace time: the program keeps them, and the cache key carries
-        them, so a flip builds a new program. Below the kernel's 10
+        them, so a flip builds a new program. QUEST_FUSED_SCAN is keyed
+        too and builds the same steps. Below the kernel's 10
         qubits this is compiled_banded (ref circuit.py:1274); f64 planes
         run the plan's banded items (FusedProgram)."""
         self._reject_measure("compiled_fused")
-        if knob_value("QUEST_FUSED_SCAN"):
-            raise NotImplementedError(
-                "QUEST_FUSED_SCAN (the scan over repeated kernel segments) "
-                "is not ported yet (ROADMAP A4.4)")
         if not BP.usable(n):
             return self.compiled_banded(n, density, iters, device)
         dev = resolve_device(device)
@@ -1185,6 +1222,207 @@ class Circuit:
         lines += _transpile_line(self) + _plan_line(self, density, batch)
         return "\n".join(lines)
 
+    # -- the sharded engines (ref circuit.py:1524, :1728-1987) ---------------
+
+    def _comm_plan_stats(self, n: int, density: bool, devices: int) -> dict:
+        """The plan_stats 'comm' record: the predicted schedule of the
+        banded/fused sharded engines over `devices` (ref
+        circuit.py:1524, parallel.sharded.comm_plan_record)."""
+        from quest_tpu_torch.parallel import sharded as S
+        return S.comm_plan_record(self.ops, n, density, devices)
+
+    def _sharded(self, what: str, mesh, key, build):
+        self._reject_measure(what)
+        return self._cached((what,) + tuple(key) + (mesh.key,), build)
+
+    def compiled_sharded(self, n: int, density: bool, mesh, lazy: bool = False):
+        """The per-gate engine over `mesh` (parallel.sharded
+        compile_circuit_sharded): one routed op per flat-list entry, the
+        exchanges copies between the shards; cached on the mesh's device
+        tuple (ref circuit.py:1830)."""
+        from quest_tpu_torch.parallel import sharded as S
+        return self._sharded(
+            "compiled_sharded", mesh, ("sharded", n, density, lazy),
+            lambda: S.compile_circuit_sharded(self.ops, n, density, mesh,
+                                              lazy))
+
+    def compiled_sharded_banded(self, n: int, density: bool, mesh,
+                                relabel: bool = None):
+        """The band-fusion engine over `mesh` (ref circuit.py:1849)."""
+        from quest_tpu_torch.parallel import sharded as S
+        return self._sharded(
+            "compiled_sharded_banded", mesh,
+            ("sharded-banded", n, density, relabel),
+            lambda: S.compile_circuit_sharded_banded(
+                self.ops, n, density, mesh, relabel=relabel))
+
+    def compiled_sharded_fused(self, n: int, density: bool, mesh,
+                               relabel: bool = None):
+        """The segment-kernel engine over `mesh` (ref circuit.py:1864):
+        every run of shard-local items one launch per swept segment per
+        shard (K1 by default), the global items' exchanges between them;
+        below the kernel's 10 local qubits the banded engine, said on
+        stderr."""
+        from quest_tpu_torch.parallel import sharded as S
+        return self._sharded(
+            "compiled_sharded_fused", mesh,
+            ("sharded-fused", n, density, relabel),
+            lambda: S.compile_circuit_sharded_fused(
+                self.ops, n, density, mesh, relabel=relabel))
+
+    def compiled_sharded_batched(self, batch: int, mesh,
+                                 density: bool = False):
+        """The batched fused engine over `mesh` (ref circuit.py:1881):
+        shards of (B, 2, 2^local_n), the batch local to every shard, one
+        launch per swept segment per shard for all B states. The program
+        takes B at call time (`batch`, >= 1, is the reference's
+        signature and no part of the key)."""
+        from quest_tpu_torch.parallel import sharded as S
+        if int(batch) < 1:
+            raise ValueError(f"batch size must be >= 1, got {batch}")
+        n = self.num_qubits * 2 if density else self.num_qubits
+        return self._sharded(
+            "compiled_sharded_batched", mesh, ("sharded-batched", n, density),
+            lambda: S.compile_circuit_sharded_fused_batched(
+                self.ops, n, density, mesh))
+
+    def compiled_sharded_measured(self, n: int, density: bool, mesh,
+                                  engine: str = None, relabel: bool = None):
+        """The dynamic program over `mesh` (ref circuit.py:1932):
+        fn(x, generator) -> (x, outcomes), fn.given(x, uniforms); engine
+        'xla' (default), 'banded' or 'fused'; relabel defaults on for the
+        fusing engines."""
+        from quest_tpu_torch.parallel import sharded as S
+        engine, relabel = S.resolve_measured_engine(engine, relabel)
+        if not self._measure_count():
+            raise val.QuESTError(
+                "Invalid operation: compiled_sharded_measured requires at "
+                "least one mid-circuit measurement; use compiled_sharded "
+                "instead.")
+        return self._cached(
+            ("sharded-measured", n, density, engine, relabel, mesh.key),
+            lambda: S.compile_circuit_sharded_measured(
+                self.ops, n, density, mesh, engine=engine, relabel=relabel))
+
+    def _sharded_amps(self, q, mesh):
+        from quest_tpu_torch.parallel.mesh import ShardedAmps, shard_planes
+        if self.num_qubits != q.num_qubits:
+            raise ValueError("circuit/register size mismatch")
+        if isinstance(q.amps, ShardedAmps):
+            return q.amps
+        return shard_planes(q.amps, mesh, q.num_state_qubits)
+
+    def apply_sharded(self, q, mesh):
+        """Apply through the per-gate sharded engine: the register comes
+        back with its planes a ShardedAmps over `mesh` (sharded here when
+        they were not), updated in place."""
+        amps = self._sharded_amps(q, mesh)
+        return q.replace_amps(self.compiled_sharded(
+            q.num_state_qubits, q.is_density, mesh)(amps))
+
+    def apply_sharded_banded(self, q, mesh):
+        """Apply through the banded sharded engine (see apply_sharded)."""
+        amps = self._sharded_amps(q, mesh)
+        return q.replace_amps(self.compiled_sharded_banded(
+            q.num_state_qubits, q.is_density, mesh)(amps))
+
+    def apply_sharded_fused(self, q, mesh):
+        """Apply through the fused sharded engine (see apply_sharded)."""
+        amps = self._sharded_amps(q, mesh)
+        return q.replace_amps(self.compiled_sharded_fused(
+            q.num_state_qubits, q.is_density, mesh)(amps))
+
+    def apply_sharded_measured(self, q, generator: torch.Generator, mesh,
+                               engine: str = None, relabel: bool = None):
+        """A dynamic circuit over `mesh`: (register, outcomes int32 in
+        program order); equal generator states give equal outcomes."""
+        amps = self._sharded_amps(q, mesh)
+        fn = self.compiled_sharded_measured(q.num_state_qubits, q.is_density,
+                                            mesh, engine, relabel)
+        amps, outcomes = fn(amps, generator)
+        return q.replace_amps(amps), outcomes
+
+    def explain_sharded(self, mesh, density: bool = False,
+                        engine: str = "banded", batch: int = None) -> str:
+        """The distributed counterpart of explain() (ref circuit.py:1728):
+        the sharded program for a mesh of `mesh`'s size (an AmpMesh or a
+        shard count) walked dry (parallel.introspect): shard geometry,
+        the local plan, the comm planner's line and whether it matches
+        the issued exchanges, reductions. Dynamic circuits report the
+        measured engine's stretches."""
+        from quest_tpu_torch.parallel import introspect as I
+        n = self.num_qubits * 2 if density else self.num_qubits
+        if self._measure_count():
+            dyn_engine = {"pergate": "xla"}.get(engine, engine)
+            rec = I.sharded_measured_schedule(self.ops, n, density, mesh,
+                                              engine=dyn_engine)
+            return "\n".join([
+                f"sharded DYNAMIC ({rec['engine']}) schedule for "
+                f"{len(self.ops)} ops on {self.num_qubits} qubits over "
+                f"{rec['devices']} devices"
+                + (f" (density: {n}-qubit register)" if density else ""),
+                f"  shard geometry: {rec['local_qubits']} local + "
+                f"{rec['global_qubits']} device qubits, "
+                f"{_human_bytes(rec['chunk_bytes'])} chunk per device",
+                f"  {rec['measurements']} measurement(s) + "
+                f"{rec['classical_ops']} feedback op(s) splitting "
+                f"{rec['stretches']} static stretch(es)",
+                f"  local band passes: {rec['local_band_passes']}"
+                + (f" ({rec['kernel_segments']} kernel segments)"
+                   if rec['kernel_segments'] else ""),
+                f"  relabel events: {rec['relabel_events']}",
+                _comm_plan_line(rec),
+                f"  collective exchanges: {rec['collective_exchanges']} "
+                f"({_human_bytes(rec['ici_bytes_per_device'])} per device "
+                f"per application)",
+                f"  reductions: {rec['all_reduces']}"])
+        rec = I.sharded_schedule(self.ops, n, density, mesh, engine=engine)
+        if engine == "pergate":
+            plan_lines = [f"  local ops: {rec['local_ops']}",
+                          f"  device-qubit ops: {rec['global_ops']}"]
+        else:
+            sch = rec.get("scheduler", {})
+            if sch.get("enabled"):
+                sch_line = (f"  scheduler: on "
+                            f"({sch.get('fused_ops', 0)} diagonal op(s) "
+                            f"composed into {sch.get('fused_groups', 0)} "
+                            f"group(s), {sch.get('hoisted', 0)} hoisted)")
+            else:
+                sch_line = (f"  scheduler: OFF (QUEST_SCHEDULE=0); on, "
+                            f"it would compose {sch.get('fused_ops', 0)} "
+                            f"diagonal op(s) into "
+                            f"{sch.get('fused_groups', 0)} group(s)")
+            plan_lines = [
+                sch_line,
+                f"  local band passes: {rec['local_band_passes']}",
+                f"  global-qubit items: {rec['global_qubit_items']}"]
+            if "kernel_sweeps" in rec:
+                plan_lines.append(
+                    f"  local kernel sweeps: {rec['kernel_sweeps']} per "
+                    f"shard (from {rec['kernel_segments']} segment(s); "
+                    f"QUEST_SWEEP_FUSION)")
+            if batch is not None and "hbm_sweeps" in rec:
+                plan_lines.append(
+                    f"  batched: B={batch} states ride each per-shard "
+                    f"sweep; the batch axis stays local to every shard "
+                    f"(no batch exchanges), {rec['hbm_sweeps']} per-shard "
+                    f"launch(es) and passthroughs independent of B")
+        return "\n".join([
+            f"sharded ({engine}) schedule for {len(self.ops)} ops on "
+            f"{self.num_qubits} qubits over {rec['devices']} devices"
+            + (f" (density: {n}-qubit register)" if density else ""),
+            f"  shard geometry: {rec['local_qubits']} local + "
+            f"{rec['global_qubits']} device qubits, "
+            f"{_human_bytes(rec['chunk_bytes'])} chunk per device",
+            *plan_lines,
+            _comm_plan_line(rec),
+            f"  collective exchanges: {rec['collective_exchanges']} "
+            f"({_human_bytes(rec['ici_bytes_per_device'])} per device "
+            f"per application)",
+            *([f"  of which relabel all-to-alls: {rec['all_to_alls']}"]
+              if rec.get("all_to_alls") else []),
+            f"  reductions: {rec['all_reduces']}"])
+
 
 def _transpile_line(circuit) -> List[str]:
     """explain()'s transpile line (ref circuit.py:1594): what the rewriter
@@ -1217,6 +1455,31 @@ def _plan_line(circuit, density: bool, batch) -> List[str]:
             batch=batch, persist=False).line()]
     except Exception:
         return []
+
+
+def _comm_plan_line(rec: dict) -> str:
+    """The comm planner's line of explain_sharded (ref circuit.py:607):
+    the predicted schedule and whether the mesh's recorder issued exactly
+    it on the program's dry walk."""
+    verdict = ("matches" if rec.get("comm_matches_hlo")
+               else "MISMATCH vs")
+    line = (f"  comm plan: {rec.get('comm_strategy', '?')} "
+            f"(QUEST_COMM_PLAN={1 if rec.get('comm_plan_enabled') else 0})"
+            f": {rec.get('comm_exchanges', 0)} exchange(s) = "
+            f"{rec.get('comm_collective_permutes', 0)} pair permute(s) + "
+            f"{rec.get('comm_all_to_alls', 0)} all-to-all(s), "
+            f"{_human_bytes(rec.get('comm_bytes', 0))} per device planned "
+            f"[{verdict} the issued exchanges]")
+    topo = rec.get("comm_topology") or {}
+    if topo.get("hosts", 1) > 1:
+        line += (f"\n  topology: {topo['hosts']} host(s), "
+                 f"{rec.get('comm_dci_exchanges', 0)} DCI-crossing "
+                 f"exchange(s), "
+                 f"{_human_bytes(rec.get('comm_dci_bytes', 0))} DCI + "
+                 f"{_human_bytes(rec.get('comm_ici_bytes', 0))} ICI "
+                 f"per device (weights ici={topo['ici_weight']}, "
+                 f"dci={topo['dci_weight']})")
+    return line
 
 
 def _human_bytes(b: int) -> str:

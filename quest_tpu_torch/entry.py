@@ -81,6 +81,23 @@ plan.autotune; fn(amps) runs the chosen engine's program in place on
 fn(amps, generator) runs its measured program and returns (amps,
 outcomes). fn.plan (None for ghz) and fn.circuit name what ran.
 
+sharded_entry(device=None, num_qubits=28, shards=4, engine="fused") ->
+(fn, (x,)): the flagship step over a mesh of `shards` shards of one
+device (make_amp_mesh(shards, devices=[device] * shards)): fn(x) runs
+the flagship circuit through compiled_sharded_fused (the segment kernel
+on every shard), compiled_sharded_banded (engine "banded") or
+compiled_sharded (engine "pergate") in place; x is |0...0> as a
+ShardedAmps over the mesh, whose recorder holds the exchanges of the
+calls on it (x.mesh).
+
+dryrun_multichip(n_devices, device=None) runs the reference's dryrun
+(__graft_entry__.dryrun_multichip) on a mesh of n_devices shards of
+`device`: a circuit with local, global and multi-target gates across
+the split through the per-gate, banded and lazy-relabeled sharded
+engines (agreeing within 1e-5), the fused engine at 10 local qubits
+against the banded one (1e-4), and the norm through the mesh's
+reduction. The reference's sharded sampling step waits for ROADMAP A10b.
+
 The two other density circuits the smoke test drives are here too:
 bench_density_circuit (the repo's density bench scenario: rotations,
 damping, a 2-qubit depolarising Kraus map and a Pauli Kraus map) and
@@ -315,6 +332,97 @@ def density_entry(device=None, num_qubits: int = DENSITY_QUBITS,
     fn = noisy_rcs_circuit(num_qubits, depth).compiled_fused(
         n, density=True, device=dev)
     return fn, (_planes(n, dtype, dev, fused_state_shape(n)),)
+
+
+SHARDED_SHARDS = 4
+
+
+def sharded_entry(device=None, num_qubits: int = FLAGSHIP_QUBITS,
+                  shards: int = SHARDED_SHARDS, engine: str = "fused",
+                  depth: int = FLAGSHIP_DEPTH):
+    """(fn, (x,)) of the flagship step over `shards` shards of `device`
+    (default: the CUDA card; raises without one); x is |0...0> as a
+    ShardedAmps of f32 planes."""
+    from quest_tpu_torch.parallel import ShardedAmps, make_amp_mesh
+    dev = resolve_device(device)
+    mesh = make_amp_mesh(shards, devices=[dev] * shards)
+    n = num_qubits
+    c = flagship_circuit(n, depth)
+    build = {"fused": c.compiled_sharded_fused,
+             "banded": c.compiled_sharded_banded,
+             "pergate": c.compiled_sharded}
+    if engine not in build:
+        raise ValueError(f"engine must be one of {sorted(build)}, "
+                         f"got {engine!r}")
+    fn = build[engine](n, False, mesh)
+    # |0...0>: shard 0 holds amplitude 0, every other shard zeros
+    local = [torch.zeros((2, 1 << (n - mesh.global_qubits)),
+                         dtype=torch.float32, device=dev)
+             for _ in range(shards)]
+    local[0][0, 0] = 1.0
+    return fn, (ShardedAmps(local, mesh, n),)
+
+
+def dryrun_circuit(n: int) -> Circuit:
+    """The reference dryrun's circuit (__graft_entry__.dryrun_multichip):
+    every qubit class — local targets, global targets (one- and
+    two-qubit), global controls, diagonals, a SWAP and a general 2-qubit
+    unitary across the split."""
+    c = Circuit(n)
+    for q in range(n):
+        c.h(q)
+    for q in range(n - 1):
+        c.cnot(q, q + 1)
+    c.rz(n - 1, 0.3)
+    c.cz(0, n - 1)
+    c.swap(0, n - 1)
+    rng = np.random.default_rng(0)
+    m = rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4))
+    q_, _ = np.linalg.qr(m)
+    c.gate(q_, (1, n - 1))
+    for q in range(n):
+        c.ry(q, 0.1 * (q + 1))
+    return c
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The reference's dryrun_multichip on a mesh of n_devices shards of
+    `device` (default: the CUDA card): returns the largest differences
+    and the norm; raises AssertionError where the reference asserts."""
+    from quest_tpu_torch.parallel import make_amp_mesh, shard_planes
+    from quest_tpu_torch.parallel import sharded as S
+    dev = resolve_device(device)
+    mesh = make_amp_mesh(n_devices, devices=[dev] * n_devices)
+    g = mesh.global_qubits
+    n = g + 4                       # 4 local qubits per shard
+    c = dryrun_circuit(n)
+    amps = basis_planes(0, n=n, rdt=np.float32, device=dev)
+
+    def run(prog, planes, nq):
+        return prog(shard_planes(planes, mesh, nq)).gather()
+    out = run(S.compile_circuit_sharded(c.ops, n, False, mesh), amps, n)
+    out_b = run(S.compile_circuit_sharded_banded(c.ops, n, False, mesh),
+                amps, n)
+    rec = {"banded": (out - out_b).abs().max().item()}
+    assert rec["banded"] < 1e-5, f"banded sharded engine diverged: {rec}"
+    n2 = g + 10
+    c2 = random_circuit(n2, 2, seed=3)
+    amps2 = basis_planes(0, n=n2, rdt=np.float32, device=dev)
+    out_f = run(S.compile_circuit_sharded_fused(c2.ops, n2, False, mesh),
+                amps2, n2)
+    out_b2 = run(S.compile_circuit_sharded_banded(c2.ops, n2, False, mesh),
+                 amps2, n2)
+    rec["fused"] = (out_f - out_b2).abs().max().item()
+    assert rec["fused"] < 1e-4, f"fused sharded engine diverged: {rec}"
+    x = shard_planes(out, mesh, n)
+    rec["norm"] = mesh.reduce([s.double().pow(2).sum()
+                               for s in x.shards]).item()
+    assert abs(rec["norm"] - 1.0) < 1e-4, f"norm drifted: {rec}"
+    out_l = run(S.compile_circuit_sharded(c.ops, n, False, mesh, lazy=True),
+                amps, n)
+    rec["lazy"] = (out_l - out).abs().max().item()
+    assert rec["lazy"] < 1e-5, f"lazy relabeling diverged: {rec}"
+    return rec
 
 
 def random_states(batch: int, n: int, seed: int = 7, device=None):

@@ -64,6 +64,84 @@ def _choice(name: str, choices) -> Callable[[str], str]:
     return parse
 
 
+def _parse_exchange_slices(raw: str) -> int:
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"QUEST_EXCHANGE_SLICES must be an integer, got {raw!r}")
+    if v < 1 or v > 1024 or (v & (v - 1)):
+        raise ValueError(
+            f"QUEST_EXCHANGE_SLICES must be a power of two in [1, 1024] "
+            f"(exchange blocks are power-of-two sized, so any other "
+            f"slice count cannot divide them), got {v}")
+    return v
+
+
+def _parse_comm_topology(raw: str):
+    """QUEST_COMM_TOPOLOGY grammar (ref quest_tpu/env.py:155): '0' (flat)
+    or 'hosts=H[,ici=X][,dci=Y]' — devices grouped into H hosts
+    (contiguous), intra-host links weighted X (default 1) and cross-host
+    links Y (default 4). Returns 0 or a (hosts, ici, dci) tuple;
+    parallel.comm.topology() turns it into the Topology the planner
+    prices with."""
+    if raw == "0":
+        return 0
+    hosts, ici, dci = None, 1.0, 4.0
+    for part in raw.split(","):
+        if "=" not in part:
+            raise ValueError(
+                f"QUEST_COMM_TOPOLOGY must be '0' or "
+                f"'hosts=H[,ici=X][,dci=Y]', got {raw!r}")
+        key, val = part.split("=", 1)
+        key = key.strip()
+        try:
+            if key == "hosts":
+                hosts = int(val)
+            elif key in ("ici", "dci"):
+                v = float(val)
+                if not (v > 0):
+                    raise ValueError
+                if key == "ici":
+                    ici = v
+                else:
+                    dci = v
+            else:
+                raise KeyError(key)
+        except KeyError:
+            raise ValueError(
+                f"unknown QUEST_COMM_TOPOLOGY key {key!r} in {raw!r} "
+                f"(known: hosts, ici, dci)")
+        except ValueError:
+            raise ValueError(
+                f"QUEST_COMM_TOPOLOGY {key}= must be a positive "
+                f"{'integer' if key == 'hosts' else 'number'}, "
+                f"got {val!r}")
+    if hosts is None:
+        raise ValueError(
+            f"QUEST_COMM_TOPOLOGY must name hosts= (got {raw!r})")
+    if hosts < 1 or hosts & (hosts - 1):
+        raise ValueError(
+            f"QUEST_COMM_TOPOLOGY hosts must be a power of two >= 1 "
+            f"(device counts are powers of two, so any other host count "
+            f"cannot group them evenly), got {hosts}")
+    return (hosts, ici, dci)
+
+
+def _parse_dci_slices(raw: str) -> int:
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"QUEST_EXCHANGE_SLICES_DCI must be an integer, got {raw!r}")
+    if v < 0 or v > 1024 or (v and v & (v - 1)):
+        raise ValueError(
+            f"QUEST_EXCHANGE_SLICES_DCI must be 0 (follow "
+            f"QUEST_EXCHANGE_SLICES) or a power of two in [1, 1024], "
+            f"got {v}")
+    return v
+
+
 def _current_matmul_precision() -> str:
     from quest_tpu_torch import precision
     return precision.matmul_precision()
@@ -93,12 +171,36 @@ _KNOB_LIST = (
          doc="commutation-aware gate scheduler in front of the fusing "
              "engine's planner: 1/0 (default: 1)", keyed=True),
     Knob("QUEST_FUSED_SCAN", _bool01("QUEST_FUSED_SCAN"), False,
-         doc="scan over repeated-structure kernel segments: 1/0 (default: "
-             "0; 1 is not ported and makes compiled_fused raise)",
-         keyed=True),
+         doc="scan over repeated-structure kernel segments (the "
+             "reference's lax.scan over runs of >= 3 swept segments of one "
+             "structure): 1/0 (default: 0); the port builds the same "
+             "launches either way (circuit.py)", keyed=True),
     Knob("QUEST_SWEEP_FUSION", _bool01("QUEST_SWEEP_FUSION"), True,
          doc="sweep fusion: merge consecutive geometry-compatible kernel "
              "segments into one launch: 1/0 (default: 1)", keyed=True),
+    # the sharded engines' comm planner (ref quest_tpu/env.py:362-394)
+    Knob("QUEST_COMM_PLAN", _bool01("QUEST_COMM_PLAN"), True,
+         doc="communication planner for the sharded engines: pick the "
+             "cheapest of plain/coalesced-reshard/relabel-events/lazy per "
+             "circuit by predicted comm_stats bytes: 1/0 (default: 1; 0 "
+             "restores the fixed legacy policies)", keyed=True),
+    # The next three keep the comm records equal to the reference's. On
+    # the single-process mesh they change only the planner's records and
+    # the number of copies an exchange makes: a sliced exchange has no
+    # compute to overlap, and one process is one host (ROADMAP A10c).
+    Knob("QUEST_EXCHANGE_SLICES", _parse_exchange_slices, 1,
+         doc="copies each sharded pair exchange splits into (default: 1; "
+             "power of two)", keyed=True),
+    Knob("QUEST_EXCHANGE_SLICES_DCI", _parse_dci_slices, 0,
+         doc="copies for pair exchanges that cross the host boundary of "
+             "the QUEST_COMM_TOPOLOGY model; 0 (default) follows "
+             "QUEST_EXCHANGE_SLICES (power of two)", keyed=True),
+    Knob("QUEST_COMM_TOPOLOGY", _parse_comm_topology, None,
+         doc="hierarchical interconnect model for the comm planner: "
+             "'hosts=H[,ici=X][,dci=Y]' groups the mesh into H hosts with "
+             "per-link cost weights (defaults ici=1, dci=4); 0 forces the "
+             "flat single-tier model; unset: the mesh's distinct hosts "
+             "(one process: one host, the flat model)", keyed=True),
     # the segment drivers (ref quest_tpu/env.py:431-457); read when a
     # program is compiled and kept in each of its segments
     Knob("QUEST_FUSED_DRIVER",
@@ -220,7 +322,8 @@ def hbm_bytes(device=None) -> int:
 class QuESTEnv:
     """The execution environment of one process on one device (ref
     quest_tpu/env.py:730, QuESTEnv): the CUDA card unless the caller
-    asks for device="cpu". Sharded environments wait for ROADMAP A10."""
+    asks for device="cpu". Sharded registers live on a parallel.AmpMesh;
+    `sharding_for` waits for ROADMAP A10b."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -235,7 +338,8 @@ class QuESTEnv:
 
     def sharding_for(self, num_state_qubits: int):
         raise NotImplementedError(
-            "sharded registers are not ported yet (ROADMAP A10)")
+            "QuESTEnv.sharding_for is not ported yet; shard a register "
+            "over quest_tpu_torch.parallel.make_amp_mesh (ROADMAP A10b)")
 
     def sync(self) -> None:
         """Block until the device's queued work completes (ref

@@ -33,7 +33,7 @@ marginal (sweeps(2m) - sweeps(m)) / m of the fused sweep plan) under
 the planner geometry it is given — the reference's TPU record under
 band_plan.TPU_GEOMETRY, the port's own launches under HOPPER_GEOMETRY.
 
-Not ported: sharded quenches (`mesh=`, ROADMAP A10) and durable ones
+Not ported: sharded quenches (`mesh=`, ROADMAP A10b) and durable ones
 (`durable_dir=`, ROADMAP A11) raise NotImplementedError.
 `TrotterCircuit.plan_stats` is Circuit.plan_stats with the "trotter"
 record.
@@ -681,7 +681,7 @@ def _legacy_step(q: Qureg, plan: TrotterPlan, spec: E.PauliSum,
 def _not_ported(mesh, durable_dir) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded evolution (mesh=) is not ported yet (ROADMAP A10)")
+            "sharded evolution (mesh=) is not ported yet (ROADMAP A10b)")
     if durable_dir is not None:
         raise NotImplementedError(
             "durable evolution (durable_dir=) is not ported yet "
@@ -707,7 +707,7 @@ def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
         core, renormalised after every step (statevectors, no engine=).
       * QUEST_TROTTER_FUSION=0: the legacy per-term eager baseline.
 
-    mesh= (ROADMAP A10) and durable_dir= (ROADMAP A11) raise
+    mesh= (ROADMAP A10b) and durable_dir= (ROADMAP A11) raise
     NotImplementedError."""
     del durable_every
     _not_ported(mesh, durable_dir)

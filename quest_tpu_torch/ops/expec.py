@@ -46,8 +46,8 @@ plain differentiable tensor code, which the variational energies
 `batched_reducer` and `plan_stats` return values, not graphs.
 
 Not ported: the sharded evaluators (`expec_sharded`,
-`apply_pauli_sum_planes_sharded`), which wait for the port's sharded
-engines (ROADMAP A10).
+`apply_pauli_sum_planes_sharded`), which wait for ROADMAP A10b (the
+sharded engines themselves are quest_tpu_torch/parallel).
 """
 
 from __future__ import annotations

@@ -25,8 +25,12 @@ self-digested, in plan_cache_dir() (QUEST_PLAN_CACHE_DIR, default
 build/quest_tpu_torch_plans under the repo). A damaged or stale entry
 is skipped loudly (stderr and a counter) to a fresh price, never read.
 
-Sharded plans (mesh= or devices=) wait for ROADMAP A10 and raise
-NotImplementedError.
+`build_plan(devices=)` (and Circuit.plan_stats(devices=)) adds the
+reference's 'comm' record: the comm planner's predicted schedule of the
+banded/fused sharded engines over that many shards, pure host math
+(parallel.sharded.comm_plan_record). The priced sharded search
+(`autotune(mesh=, devices=, topology=)`) waits for ROADMAP A10b and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -67,11 +71,13 @@ def reset_cache_stats() -> None:
 
 
 def _no_sharding(*args) -> None:
-    """Raise for a sharded plan's arguments (mesh=, devices=, topology=)."""
+    """Raise for the sharded search's arguments (mesh=, devices=,
+    topology=)."""
     if any(a is not None for a in args):
         raise NotImplementedError(
-            "sharded plans (mesh= / devices=) are not ported yet "
-            "(ROADMAP A10)")
+            "the priced sharded plan search (autotune mesh= / devices= / "
+            "topology=) is not ported yet (ROADMAP A10b); "
+            "build_plan(devices=) gives the comm record")
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +109,7 @@ class ProgramPlan:
     fused: Optional[dict]      # band_plan.fused_record (kernel tier only)
     batched: Optional[dict]    # batch= only
     f64: dict                  # f64 plane bytes against the device memory
-    comm: Optional[dict]       # sharded plans: ROADMAP A10, always None
+    comm: Optional[dict]       # predicted sharded schedule (devices=)
     extra: dict                # subsystem extensions (Trotter frames)
     grad: Optional[dict] = None
     transpile: Optional[dict] = None
@@ -123,6 +129,8 @@ class ProgramPlan:
         if self.batched is not None:
             rec["batched"] = dict(self.batched)
         rec["f64"] = dict(self.f64)
+        if self.comm is not None:
+            rec["comm"] = dict(self.comm)
         if self.grad is not None:
             rec["grad"] = dict(self.grad)
         if self.transpile is not None:
@@ -297,26 +305,38 @@ def build_plan(circuit, *, density: bool = False,
     """The ProgramPlan of `circuit` under the current keyed knobs,
     unpriced (engine = the incumbent): the record Circuit.plan_stats()
     shows (ref plan.py:238). `budgets` is the planner geometry of the
-    fused record (band_plan.TPU_GEOMETRY gives the reference's)."""
-    _no_sharding(devices)
+    fused record (band_plan.TPU_GEOMETRY gives the reference's).
+    `devices` adds the comm record of the sharded engines over that many
+    shards, and the incumbent is then the banded sharded engine (ref
+    plan.py:333)."""
     n = circuit.num_qubits * 2 if density else circuit.num_qubits
     recs = _subsystem_records(circuit, n, density, batch, budgets)
+    comm = None
     incumbent = _incumbent_engine(circuit)
+    if devices is not None:
+        from quest_tpu_torch import precision
+        from quest_tpu_torch.parallel import sharded as S
+        comm = S.comm_plan_record(
+            circuit.ops, n, density, int(devices),
+            dtype=precision.complex_dtype_of(dtype))
+        incumbent = "sharded-banded"
     return ProgramPlan(
         version=PLAN_FORMAT_VERSION, key=None,
         num_qubits=circuit.num_qubits, n=n, density=bool(density),
         dtype=np.dtype(dtype).str,
-        batch=None if batch is None else int(batch), devices=None,
+        batch=None if batch is None else int(batch),
+        devices=None if devices is None else int(devices),
         engine=incumbent, incumbent=incumbent, source="build",
         cost={}, candidates={},
         scheduled=recs["enabled"], flat_ops=len(recs["flat"]),
         planned_ops=len(recs["planned"]), scheduler=recs["scheduler"],
         banded=recs["banded"], fused=recs["fused"],
-        batched=recs["batched"], f64=recs["f64"], comm=None,
+        batched=recs["batched"], f64=recs["f64"], comm=comm,
         extra=_plan_extra(circuit, density),
         grad=_grad_record(circuit, density, dtype),
         transpile=_transpile_record(circuit, n, density, recs)[0],
         device_kind=device_kind(device))
+
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +425,7 @@ def autotune(circuit, state_kind: str = "pure", mesh=None, topology=None,
     `state_kind` 'pure' or 'density'; `persist` None follows
     QUEST_PLAN_CACHE (load from / store to plan_cache_dir()); `device`
     names the card the plan is for (default: the current one, or 'cpu'
-    without a card). mesh=/devices=/topology= wait for ROADMAP A10."""
+    without a card). mesh=/devices=/topology= wait for ROADMAP A10b."""
     if state_kind not in ("pure", "density"):
         raise ValueError(
             f"state_kind must be 'pure' or 'density', got {state_kind!r}")

@@ -214,10 +214,9 @@ def test_unported_paths_raise(monkeypatch):
     assert q64.amps.dtype == torch.float64 and q64.dtype == np.complex128
     np.testing.assert_array_equal(q64.amps.numpy(), np.asarray(
         JS.create_qureg(10, dtype=np.complex128).amps))
+    # QUEST_FUSED_SCAN=1 builds and runs (tests/test_torch_scan.py)
     monkeypatch.setenv("QUEST_FUSED_SCAN", "1")
-    with pytest.raises(NotImplementedError,
-                       match=r"QUEST_FUSED_SCAN .*\(ROADMAP A4\.4\)"):
-        c.compiled_fused(12, device="cpu")
+    assert c.compiled_fused(12, device="cpu").launches_per_call >= 1
     monkeypatch.setenv("QUEST_FUSED_SCAN", "0")
     monkeypatch.setenv("QUEST_MATMUL_PRECISION", "high")
     prog = c.compiled_fused(12, device="cpu")    # the tiers run (S11)

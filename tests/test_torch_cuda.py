@@ -1042,3 +1042,100 @@ def test_tutorial_through_the_api_on_the_card(card):
     p7, p2, text = tutorial(Q.createQuESTEnv())
     assert abs(p7 - 0.112422) <= 1e-6 and abs(p2 - 0.749178) <= 1e-6
     assert text == tutorial(Q.createQuESTEnv(device="cpu"))[2]
+
+
+# -- the sharded engines and the scan (ROADMAP A10, A4.4) --------------------
+
+def _shards_of(planes, mesh, n):
+    from quest_tpu_torch.parallel import shard_planes
+    return shard_planes(planes, mesh, n)
+
+
+def test_sharded_fused_engine_on_one_card(card):
+    """Four shards of one card (the repeated-device mesh): the fused
+    engine launches the segment kernel on every shard, is bit for bit a
+    hand replay of its parts shard by shard, and agrees with its plain
+    version and with the single-register fused program."""
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.parallel import make_amp_mesh
+    from quest_tpu_torch.parallel import sharded as SH
+    n, d = 16, 4
+    mesh = make_amp_mesh(d, devices=[card] * d)
+    c = random_circuit(n, 4, seed=3)
+    prog = c.compiled_sharded_fused(n, False, mesh)
+    assert prog.kind == "fused" and prog.kernel_parts >= 1
+    planes = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 1 << n)).astype(np.float32)).to(card)
+    planes /= planes.double().pow(2).sum().sqrt().float()
+    x = _shards_of(planes, mesh, n)
+    S.segment_sweep.launches = 0
+    mesh.recorder.reset()
+    prog(x)
+    torch.cuda.synchronize()
+    assert S.segment_sweep.launches == prog.launches_per_call
+    assert S.segment_sweep.launches == prog.kernel_parts * d
+    # the hand replay: each kernel part launched shard by shard
+    y = _shards_of(planes, mesh, n)
+    xs = [s.view(1, 2, -1) for s in y.shards]
+    for i, part in enumerate(prog.parts):
+        if part[0] == "segment":
+            for k in range(d):
+                S.segment_sweep(y.shards[k], prog.segments[(i, str(card))])
+        else:
+            SH._apply_plan_item(xs, mesh, prog.local_n, n, part[1], prog.tier)
+    for a, b in zip(x.shards, y.shards):
+        assert torch.equal(a, b)
+    want = prog.plain(_shards_of(planes, mesh, n)).gather()
+    got = x.gather()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+    single = c.compiled_fused(n, device=card)(planes.clone().reshape(
+        2, -1, 128)).reshape(2, -1)
+    assert (got - single).abs().max().item() <= 1e-5 * scale
+
+
+def test_exchanges_on_repeated_devices_read_no_overwritten_chunk(card):
+    """Every routed exchange on shards that share the card, against the
+    same program on CPU shards (no aliasing: each shard receives before
+    any writes)."""
+    from quest_tpu_torch.circuit import Circuit
+    from quest_tpu_torch.parallel import make_amp_mesh
+    from quest_tpu_torch.parallel import sharded as SH
+    n, d = 9, 8
+    rng = np.random.default_rng(4)
+    u2 = np.linalg.qr(rng.standard_normal((4, 4))
+                      + 1j * rng.standard_normal((4, 4)))[0]
+    c = Circuit(n)
+    for q in range(n):
+        c.h(q)
+    c.cnot(0, n - 1).swap(1, n - 2).gate(u2, (2, n - 1)).gate(u2, (n - 2,
+                                                                  n - 1))
+    c.rx(n - 1, 0.4).cz(0, n - 1)
+    planes = torch.from_numpy(rng.standard_normal((2, 1 << n)))
+    for build in (SH.compile_circuit_sharded,
+                  SH.compile_circuit_sharded_banded):
+        outs = []
+        for dev in ("cpu", card):
+            mesh = make_amp_mesh(d, devices=[dev] * d)
+            outs.append(build(c.ops, n, False, mesh)(
+                _shards_of(planes.to(dev), mesh, n)).gather().cpu())
+        assert (outs[0] - outs[1]).abs().max().item() <= 1e-12
+
+
+def test_scan_on_the_card_is_bit_for_bit(card, monkeypatch):
+    from quest_tpu_torch import circuit as TC
+    from quest_tpu_torch import entry as E
+    n = 14
+    c = E.diag_layer_circuit(n)
+    planes = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 1 << n)).astype(np.float32)).to(card)
+    outs, progs = {}, {}
+    for flag in ("0", "1"):
+        monkeypatch.setenv("QUEST_FUSED_SCAN", flag)
+        progs[flag] = prog = c.compiled_fused(n, iters=8, device=card)
+        outs[flag] = prog(planes.clone().reshape(2, -1, 128))
+    parts, _ = c.fused_parts(n, 8)
+    assert any(g[0] == "scan" for g in TC._scan_partition(parts, TC.SCAN_MIN))
+    assert progs["0"] is not progs["1"]
+    assert progs["0"].launches_per_call == progs["1"].launches_per_call
+    assert torch.equal(outs["0"], outs["1"])

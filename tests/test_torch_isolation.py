@@ -35,7 +35,10 @@ def test_import_leaves_jax_and_reference_unloaded():
             "quest_tpu_torch.variational, quest_tpu_torch.adjoint, "
             "quest_tpu_torch.api, quest_tpu_torch.qasm, "
             "quest_tpu_torch.qasm_import, quest_tpu_torch.transpile, "
-            "quest_tpu_torch.plan; "
+            "quest_tpu_torch.plan, quest_tpu_torch.parallel, "
+            "quest_tpu_torch.parallel.comm, quest_tpu_torch.parallel.relabel, "
+            "quest_tpu_torch.parallel.sharded, "
+            "quest_tpu_torch.parallel.introspect; "
             "bad = sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -11,8 +11,9 @@ counts, with provenance, and autotune prices with them; ties go to the
 incumbent (Circuit.apply's dispatch); the cache round-trips by value in a
 throwaway directory and counts stale and corrupt entries as the
 reference does; the port's key differs from the reference's plan_key;
-sweep_chunk follows QUEST_HBM_BYTES; sharded arguments raise
-NotImplementedError naming ROADMAP A10; TrotterCircuit.plan_stats and
+sweep_chunk follows QUEST_HBM_BYTES; the sharded search's arguments
+raise NotImplementedError naming ROADMAP A10b while build_plan(devices=)
+gives the comm record; TrotterCircuit.plan_stats and
 variational.sweep(chunk='auto') answer."""
 
 import contextlib
@@ -387,16 +388,22 @@ def test_sweep_chunk_follows_hbm_bytes(hbm, total, n, want, monkeypatch):
 
 
 def test_sharded_arguments_name_a10():
+    """The priced sharded search and QuESTEnv.sharding_for still raise,
+    naming ROADMAP A10b; build_plan(devices=) and plan_stats(devices=)
+    give the comm record (tests/test_torch_comm.py holds it equal to the
+    reference's)."""
     c = _small(Circuit)
     calls = [lambda: P.autotune(c, devices=4),
              lambda: P.autotune(c, mesh=object()),
              lambda: P.autotune(c, topology="ring"),
-             lambda: P.build_plan(c, devices=2),
-             lambda: c.plan_stats(devices=2),
              lambda: env.QuESTEnv("cpu").sharding_for(10)]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A10b"):
             call()
+    plan = P.build_plan(c, devices=2)
+    assert plan.devices == 2 and plan.incumbent == "sharded-banded"
+    assert plan.comm["devices"] == 2
+    assert c.plan_stats(devices=2)["comm"] == plan.comm
 
 
 @pytest.mark.parametrize("knob", ["auto", "0", "1"])
