@@ -287,6 +287,41 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      recorder's exchanges equal to the schedule priced on the run's
      outcomes, ms a cycle.
 
+ The sharded consumers and durable execution (no kernel is added;
+ each phase prints its wall seconds):
+ 40. sharded_consumers: a 30-qubit state (8 GiB of f32 planes) over 4
+     shards of the card against the same state on one register:
+     calc_total_prob, calc_prob_of_outcome on a local and a global qubit,
+     collapse_to_outcome and a seeded measure (1e-5, planes 1e-4 x
+     max|amp|); sample of 2^20 shots given the same uniforms: the share
+     of indices equal to one register's (f32 CDFs tie runs of
+     neighbours), every pick of both samplers within 2^-20 of a correct
+     inverse-CDF pick in f64, and the total-variation distance to
+     |amp|^2 on the 20 low qubits' marginal within 1.2x the multinomial
+     noise expected there; calc_expec_pauli_sum of TFIM-30 (1e-5
+     relative; its exchanges equal to the distinct global flip masks);
+     value_and_grad(mesh=) of entry.hea_circuit at VQE_QUBITS (energy
+     1e-5 relative, gradients 1e-4; exchanges equal to
+     predict_vjp_collectives; ms and peak GiB); run_evolution(mesh=) of
+     TFIM-30, 4 steps (1e-4 x max|amp|, K1 launches a shard); the priced
+     autotune(devices=4) of the 28q flagship (the chosen plan, search
+     ms). Every measured call's ms.
+ 41. durable: random_circuit(28, 20) through run_durable(engine='fused')
+     (one K1 launch or one passthrough a step, `every` set for 2-3
+     checkpoints) preempted at a seeded step by a FaultPlan and resumed:
+     bit for bit the uninterrupted run_durable and compiled_fused; the
+     same on 4 shards (engine 'sharded'), bit for bit
+     compiled_sharded_fused; the 4-shard chain re-entered elastically on
+     one register (within 1e-4 x max|amp| of compiled_fused, as
+     tests/test_elastic.py holds a general circuit); one
+     save_sharded(block=False) while the register keeps evolving, the
+     restored planes equal to the snapshot. K1 launches, steps,
+     checkpoint GiB, each run's mean ms to take a checkpoint (sentinel,
+     copy, reorder, hash, write: the executor's durable_checkpoint_s),
+     the ms to write, hash and load one checkpoint measured alone, and
+     the resume's extra ms. Checkpoints go to a temporary directory
+     removed at the end of the phase.
+
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
 sheet); a segment of phase stages only counts the rows its predicates
@@ -307,9 +342,11 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -349,7 +386,8 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "trajectories_banded", "program_cache", "measurement", "xeb",
           "dynamic", "calculations", "eager", "expec", "evolution",
           "variational", "adjoint", "frontends", "api", "scan", "sharded",
-          "sharded_batched", "sharded_measured")
+          "sharded_batched", "sharded_measured", "sharded_consumers",
+          "durable")
 
 RECORD = []
 
@@ -4685,6 +4723,455 @@ def phase_sharded_measured(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The sharded consumers and durable execution (no kernel is added)
+# ---------------------------------------------------------------------------
+
+CONSUMER_QUBITS = 30          # 8 GiB of f32 planes over 4 shards
+SAMPLE_SHOTS = 1 << 20
+MARGINAL_QUBITS = 20
+CONSUMER_TOL = 1e-5           # probabilities, relative energies
+GRAD_TOL = 1e-4
+CDF_MISS_TOL = 2.0 ** -20     # an f32 CDF's rounding, against f64
+TV_SLACK = 1.2                # x the multinomial noise expected
+DURABLE_QUBITS = 28           # 2 GiB of planes
+DURABLE_DEPTH = 20
+DURABLE_SEED = 20261018
+
+
+def _shard_err(torch, shards, want) -> float:
+    """max|shard - want's slice| over the shards of a (2, 2^n) state."""
+    m = shards[0].reshape(2, -1).shape[1]
+    return max(plane_err(s.reshape(2, -1), want[:, i * m:(i + 1) * m])
+               for i, s in enumerate(shards))
+
+
+def _cdf_miss(torch, planes, idx, u) -> float:
+    """How far the picks `idx` of the uniforms `u` sit from a correct
+    inverse-CDF pick in f64: max over shots of how much u * total falls
+    outside [F(i - 1), F(i)), F the f64 cumulative sum of |amp|^2 (a
+    chunk at a time, only the picked entries kept)."""
+    flat = planes.reshape(2, -1)
+    n_amps = flat.shape[1]
+    lo = torch.zeros(idx.numel(), dtype=torch.float64, device=idx.device)
+    hi = torch.zeros_like(lo)
+    carry = torch.zeros((), dtype=torch.float64, device=flat.device)
+    step = 1 << 26
+    for s in range(0, n_amps, step):
+        re = flat[0, s:s + step].double()
+        im = flat[1, s:s + step].double()
+        cdf = torch.cumsum(re * re + im * im, 0) + carry
+        mine = (idx >= s) & (idx < s + cdf.numel())
+        k = idx[mine] - s
+        hi[mine] = cdf[k]
+        lo[mine] = torch.where(k > 0, cdf[(k - 1).clamp(min=0)],
+                               cdf[0] - (re[0] * re[0] + im[0] * im[0]))
+        carry = cdf[-1]
+        del cdf, re, im
+    target = u.double() * carry
+    return max((lo - target).max().item(), (target - hi).max().item(), 0.0)
+
+
+def _marginal_tv(torch, planes, samples, k: int):
+    """(total-variation distance of the samples' histogram on the low k
+    qubits to the exact marginal of |amp|^2, the distance expected from
+    multinomial noise alone: sum_i sqrt(p_i (1 - p_i) / (2 pi N)))."""
+    flat = planes.reshape(2, -1)
+    p = torch.zeros(1 << k, dtype=torch.float64, device=flat.device)
+    step = 1 << k
+    for s in range(0, flat.shape[1], max(step, 1 << 26)):
+        re = flat[0, s:s + max(step, 1 << 26)].double()
+        im = flat[1, s:s + max(step, 1 << 26)].double()
+        p += (re * re + im * im).reshape(-1, step).sum(0)
+    p /= p.sum()
+    nshots = samples.numel()
+    hist = torch.bincount(samples & (step - 1), minlength=step).double()
+    tv = 0.5 * (hist / nshots - p).abs().sum().item()
+    expected = torch.sqrt(p * (1 - p) / (2 * np.pi * nshots)).sum().item()
+    return tv, expected
+
+
+def phase_sharded_consumers(torch):
+    """The consumers of a sharded register at CONSUMER_QUBITS over 4
+    shards of the card, each against the same call on one register (see
+    the module docstring, phase 40)."""
+    from quest_tpu_torch import adjoint as AD
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch import evolution as EV
+    from quest_tpu_torch import measurement as MS
+    from quest_tpu_torch import plan as P
+    from quest_tpu_torch import random_ as RNG
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.entry import (VQE_LAYERS, VQE_QUBITS,
+                                       flagship_circuit, hea_circuit,
+                                       tfim_sum)
+    from quest_tpu_torch.ops import expec as E
+    from quest_tpu_torch.parallel import make_amp_mesh, shard_planes
+    from quest_tpu_torch.state import Qureg, basis_planes, fused_state_shape
+    t0 = time.perf_counter()
+    n = CONSUMER_QUBITS
+    mesh = make_amp_mesh(SHARDS, devices=[torch.device(CARD)] * SHARDS)
+    rec = {"phase": "sharded_consumers", "n": n, "shards": SHARDS,
+           "copies": SHARD_COPIES}
+    amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=CARD)
+    random_circuit(n, HAM_STATE_DEPTH, seed=7, entangler="cz").compiled_fused(
+        n, device=CARD)(amps)
+    one = Qureg(amps=amps.reshape(2, -1), num_qubits=n)
+    sq = Qureg(amps=shard_planes(one.amps, mesh, n), num_qubits=n)
+    scale = one.amps.abs().max().item()
+    eager = {}
+
+    def pair(name, f, tol=CONSUMER_TOL):
+        ms1, a = _wall(torch, lambda: f(one))
+        ms2, b = _wall(torch, lambda: f(sq))
+        err = abs(a - b)
+        eager[name] = {"one": a, "sharded": b, "abs_err": err,
+                       "one_ms": ms1, "sharded_ms": ms2}
+        if not err <= tol:
+            raise AssertionError(f"sharded_consumers {name}: {b} vs {a}")
+
+    pair("calc_total_prob", K.calc_total_prob)
+    pair("prob_local_q3", lambda q: MS.calc_prob_of_outcome(q, 3, 1))
+    pair(f"prob_global_q{n - 1}",
+         lambda q: MS.calc_prob_of_outcome(q, n - 1, 1))
+    # sampling: the same uniforms through both samplers
+    gen = torch.Generator(device=CARD).manual_seed(5)
+    u = torch.rand(SAMPLE_SHOTS, generator=gen, dtype=torch.float32,
+                   device=CARD)
+    ms1, a = _wall(torch, lambda: MS._sample_given_uniforms(
+        one.amps, u, n=n, density=False))
+    ms2, b = _wall(torch, lambda: MS._sample_sharded_given_uniforms(sq, u))
+    b = b.to(a.device)
+    # f32 CDFs: where neighbouring indices share one f32 CDF value the two
+    # samplers may pick different members of that run (a shard's CDF is
+    # finer, its values smaller); each pick is held to the f64 CDF instead
+    miss_one = _cdf_miss(torch, one.amps, a, u)
+    miss_sharded = _cdf_miss(torch, one.amps, b, u)
+    tv, tv_noise = _marginal_tv(torch, one.amps, b, MARGINAL_QUBITS)
+    rec["sample"] = {"shots": SAMPLE_SHOTS,
+                     "equal_share": (a == b).double().mean().item(),
+                     "max_index_distance": int((a - b).abs().max().item()),
+                     "cdf_miss_one": miss_one,
+                     "cdf_miss_sharded": miss_sharded,
+                     "one_ms": ms1, "sharded_ms": ms2,
+                     "tv_marginal": tv, "tv_expected_noise": tv_noise,
+                     "marginal_qubits": MARGINAL_QUBITS}
+    if not (max(miss_one, miss_sharded) <= CDF_MISS_TOL
+            and tv <= TV_SLACK * tv_noise):
+        raise AssertionError(f"sharded_consumers sample: {rec['sample']}")
+    del a, b, u
+    # the grouped expectation: one exchange per distinct global flip mask
+    codes, coeffs = tfim_sum(n)
+    mesh.recorder.reset()
+    ms1, ea = _wall(torch, lambda: K.calc_expec_pauli_sum(one, codes,
+                                                          coeffs))
+    ms2, eb = _wall(torch, lambda: K.calc_expec_pauli_sum(sq, codes,
+                                                          coeffs))
+    plan = E.plan_expec(E.parse_pauli_sum(codes, n), n, density=False)
+    masks = E.global_flip_masks(plan, n - mesh.global_qubits)
+    issued = mesh.recorder.stats(SHARDS)
+    rel = abs(ea - eb) / max(abs(ea), 1.0)
+    rec["expec_tfim"] = {"one": ea, "sharded": eb, "rel_err": rel,
+                         "one_ms": ms1, "sharded_ms": ms2,
+                         "exchanges": issued["collective_permutes"],
+                         "predicted_exchanges": len(masks)}
+    if not (rel <= CONSUMER_TOL
+            and issued["collective_permutes"] == len(masks)):
+        raise AssertionError(f"sharded_consumers expec: "
+                             f"{rec['expec_tfim']}")
+    # collapse on a global qubit, then a seeded measure
+    ms1, (_, pa) = _wall(torch, lambda: MS.collapse_to_outcome(one, n - 1,
+                                                               0))
+    ms2, (_, pb) = _wall(torch, lambda: MS.collapse_to_outcome(sq, n - 1,
+                                                               0))
+    cerr = _shard_err(torch, sq.amps.shards, one.amps)
+    RNG.seed_quest([11])
+    ms3, (_, oa) = _wall(torch, lambda: MS.measure(one, 2))
+    RNG.seed_quest([11])
+    ms4, (_, ob) = _wall(torch, lambda: MS.measure(sq, 2))
+    merr = _shard_err(torch, sq.amps.shards, one.amps)
+    eager["collapse_global"] = {"prob_one": pa, "prob_sharded": pb,
+                                "max_abs_err": cerr, "one_ms": ms1,
+                                "sharded_ms": ms2}
+    eager["measure_seeded"] = {"outcome_one": oa, "outcome_sharded": ob,
+                               "max_abs_err": merr, "one_ms": ms3,
+                               "sharded_ms": ms4}
+    if not (abs(pa - pb) <= CONSUMER_TOL and oa == ob
+            and max(cerr, merr) <= PATH_TOL * 2 * scale):
+        raise AssertionError(f"sharded_consumers collapse/measure: {eager}")
+    rec["eager"] = eager
+    del one, sq, amps
+    _free(torch)
+    # gradients on the mesh
+    nv = VQE_QUBITS
+    circ = hea_circuit(nv, VQE_LAYERS)
+    vcodes, vcoeffs = tfim_sum(nv)
+    fn1 = AD.value_and_grad(circ, vcodes, coeffs=vcoeffs, engine="adjoint",
+                            device=CARD)
+    theta = torch.as_tensor(fn1.initial_params, dtype=torch.float32,
+                            device=CARD)
+    ms1, (v1, g1) = _wall(torch, lambda: fn1(theta))
+    del fn1
+    _free(torch)
+    fn2 = AD.value_and_grad(circ, vcodes, coeffs=vcoeffs, mesh=mesh)
+    mesh.recorder.reset()
+    base = _reset_peak(torch)
+    ms2, (v2, g2) = _wall(torch, lambda: fn2(theta))
+    peak = _peak_gib(torch, base)
+    issued = mesh.recorder.stats(SHARDS)
+    pred = fn2.comm_record
+    verr = abs(float(v1) - float(v2)) / max(abs(float(v1)), 1.0)
+    gerr = (g1 - g2).abs().max().item()
+    rec["value_and_grad"] = {
+        "n": nv, "params": fn2.num_params, "energy_one": float(v1),
+        "energy_sharded": float(v2), "energy_rel_err": verr,
+        "grad_max_abs_err": gerr, "one_ms": ms1, "sharded_ms": ms2,
+        "sharded_peak_gib": peak,
+        "exchanges": issued["collective_permutes"],
+        "predicted_exchanges": pred["collective_permutes"],
+        "reductions": issued["all_reduces"]}
+    if not (verr <= CONSUMER_TOL and gerr <= GRAD_TOL
+            and issued["collective_permutes"] == pred["collective_permutes"]
+            and issued["all_to_alls"] == pred["all_to_alls"]
+            and issued["all_reduces"] == pred["all_reduces"]):
+        raise AssertionError(f"sharded_consumers value_and_grad: "
+                             f"{rec['value_and_grad']}")
+    del fn2, g1, g2, theta
+    _free(torch)
+    # the sharded quench: K1 on every shard
+    q0 = Qureg(amps=basis_planes(0, n=n, device=CARD), num_qubits=n)
+    ms1, r1 = _wall(torch, lambda: EV.run_evolution(
+        (codes, coeffs), 0.05, EVOLUTION_STEPS, state=q0))
+    want = r1.state.amps.reshape(2, -1)
+    (ms2, r2), launches, _ = _counted(torch, lambda: _wall(
+        torch, lambda: EV.run_evolution((codes, coeffs), 0.05,
+                                        EVOLUTION_STEPS, state=q0,
+                                        mesh=mesh, engine="fused")))
+    err = _shard_err(torch, r2.state.amps.shards, want)
+    escale = want.abs().max().item()
+    erel = (np.abs(r1.energies - r2.energies).max()
+            / max(np.abs(r1.energies).max(), 1.0))
+    rec["evolution"] = {"steps": EVOLUTION_STEPS, "engine":
+                        r2.stats["engine"], "max_abs_err": err,
+                        "energy_rel_err": float(erel), "one_ms": ms1,
+                        "sharded_ms": ms2, "launches": launches,
+                        "launches_per_shard": launches // SHARDS}
+    if not (err <= PATH_TOL * escale and erel <= CONSUMER_TOL
+            and launches and r2.stats["engine"] == "sharded-fused"):
+        raise AssertionError(f"sharded_consumers evolution: "
+                             f"{rec['evolution']}")
+    del r1, r2, q0, want
+    _free(torch)
+    # the priced sharded search
+    c28 = flagship_circuit(SHARDED_QUBITS)
+    ms, plan = _wall(torch, lambda: P.autotune(c28, devices=SHARDS,
+                                               persist=False))
+    rec["autotune"] = {"n": SHARDED_QUBITS, "devices": SHARDS,
+                       "engine": plan.engine, "incumbent": plan.incumbent,
+                       "priced_ms": plan.cost["total_ms"],
+                       "comm_ms": plan.cost["comm_ms"],
+                       "candidates": len(plan.candidates), "search_ms": ms}
+    if not plan.engine.startswith("sharded-"):
+        raise AssertionError(f"sharded_consumers autotune: {plan.engine}")
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    return rec
+
+
+def _durable_run(torch, run, expect_fault=None):
+    """(wall ms, K1 launches, result) of one run_durable call with the
+    segment counters set to 0 just before it; `expect_fault` the
+    FaultPlan that must preempt it."""
+    from quest_tpu_torch.resilience import faults
+    from quest_tpu_torch.ops import segment as S
+    S.segment_sweep.launches = 0
+    _sync(torch)
+    t0 = time.perf_counter()
+    out = None
+    if expect_fault is None:
+        out = run()
+    else:
+        with faults.active(expect_fault):
+            try:
+                run()
+            except faults.InjectedFault:
+                pass
+            else:
+                raise AssertionError("durable: the preemption never fired")
+    _sync(torch)
+    return (time.perf_counter() - t0) * 1e3, S.segment_sweep.launches, out
+
+
+def _durable_case(torch, circ, n, mesh, root, name):
+    """One engine's preempt + resume cycle (phase 41)."""
+    from quest_tpu_torch import checkpoint as ckpt
+    from quest_tpu_torch.resilience import FaultPlan
+    from quest_tpu_torch.resilience import durable as D
+    from quest_tpu_torch.serve import metrics
+    from quest_tpu_torch.state import create_qureg
+    engine = "sharded" if mesh is not None else "fused"
+    q0 = create_qureg(n, device=CARD)
+    steps, info = D._build_steps(circ, n, False, engine, mesh,
+                                 torch.device(CARD), True)
+    nsteps = len(steps)
+    if nsteps < 2:
+        raise AssertionError(f"durable {name}: {nsteps} step, no cut")
+    every = max(1, nsteps // 3)
+    # the kill lands on a step after the first checkpoint: a seeded hit
+    # of durable.preempt in [every, nsteps)
+    after = int(np.random.default_rng(DURABLE_SEED).integers(every,
+                                                             nsteps))
+    ref_ms, ref_launches, ref = _durable_run(torch, lambda: D.run_durable(
+        circ, q0, os.path.join(root, f"{name}-ref"), every=nsteps + 1,
+        engine=None if mesh else "fused", mesh=mesh))
+    d = os.path.join(root, name)
+    plan = FaultPlan().inject("durable.preempt", after_n=after, times=1)
+    reg = metrics.Registry()
+    pre_ms, pre_launches, _ = _durable_run(torch, lambda: D.run_durable(
+        circ, q0, d, every=every, engine=None if mesh else "fused",
+        mesh=mesh, registry=reg), expect_fault=plan)
+    chain = ckpt.step_dirs(d)
+    if not chain:
+        raise AssertionError(f"durable {name}: no checkpoint before the kill")
+    elastic_copy = None
+    if mesh is not None:
+        elastic_copy = os.path.join(root, f"{name}-elastic")
+        shutil.copytree(d, elastic_copy)
+    res_ms, res_launches, out = _durable_run(torch, lambda: D.run_durable(
+        circ, q0, d, every=every, engine=None if mesh else "fused",
+        mesh=mesh, registry=reg))
+    cuts = reg.snapshot()["histograms"]["durable_checkpoint_s"]
+    if mesh is None:
+        whole = circ.compiled_fused(n, device=CARD)
+        want = create_qureg(n, device=CARD).amps
+        whole(want)
+        same = (torch.equal(out.amps.reshape(2, -1), ref.amps.reshape(2, -1))
+                and torch.equal(out.amps.reshape(2, -1), want.reshape(2, -1)))
+        planned = whole.launches_per_call
+    else:
+        from quest_tpu_torch.parallel import shard_planes
+        whole = circ.compiled_sharded_fused(n, False, mesh)
+        x = shard_planes(create_qureg(n, device=CARD).amps, mesh, n)
+        whole(x)
+        same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in
+                   zip(out.amps.shards, ref.amps.shards, x.shards))
+        planned = whole.launches_per_call
+        want = x
+    if not (same and ref_launches == planned and ref_launches
+            and res_launches):
+        raise AssertionError(f"durable {name}: bit-identical {same}, "
+                             f"launches {ref_launches} / {res_launches}, "
+                             f"planned {planned}")
+    rec = {"engine": engine, "steps": nsteps, "every": every,
+           "preempted_at_step": after, "checkpoints_in_chain":
+           [s for s, _ in chain], "resumed_from_step": chain[-1][0],
+           "k1_launches_uninterrupted": ref_launches,
+           "k1_launches_preempted": pre_launches,
+           "k1_launches_resumed": res_launches,
+           "bit_identical": True,
+           "checkpoint_gib": 2 * 4 * (1 << n) / GIB,
+           "uninterrupted_ms": ref_ms, "preempted_ms": pre_ms,
+           "resumed_ms": res_ms,
+           "checkpoints_taken": cuts["count"],
+           "checkpoint_take_ms_mean": cuts["mean"] * 1e3,
+           "resume_extra_ms": pre_ms + res_ms - ref_ms}
+    return rec, out, want, elastic_copy
+
+
+def phase_durable(torch):
+    """Durable execution through K1 at DURABLE_QUBITS (phase 41)."""
+    from quest_tpu_torch import checkpoint as ckpt
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.parallel import make_amp_mesh
+    from quest_tpu_torch.resilience import durable as D
+    from quest_tpu_torch.serve import metrics
+    from quest_tpu_torch.state import create_qureg
+    t0 = time.perf_counter()
+    n = DURABLE_QUBITS
+    circ = random_circuit(n, DURABLE_DEPTH, seed=7, entangler="cz")
+    rec = {"phase": "durable", "n": n, "depth": DURABLE_DEPTH}
+    root = tempfile.mkdtemp(prefix="quest_durable_")
+    try:
+        rec["fused"], out1, want1, _ = _durable_case(torch, circ, n, None,
+                                                     root, "fused")
+        # one checkpoint's costs, measured alone on the final planes (the
+        # sharded chain's checkpoints hold the same 2 GiB)
+        planes = ckpt._host_planes(out1.amps)
+        t1 = time.perf_counter()
+        ckpt._plane_digests({"planes": planes})
+        rec["checkpoint"] = {"gib": planes.nbytes / GIB,
+                             "hash_ms": (time.perf_counter() - t1) * 1e3}
+        probe = os.path.join(root, "probe")
+        t1 = time.perf_counter()
+        ckpt.save(out1.replace_amps(planes), probe)
+        rec["checkpoint"]["write_ms"] = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        ckpt.load_arrays(probe, require=("planes",))
+        rec["checkpoint"]["load_ms"] = (time.perf_counter() - t1) * 1e3
+        shutil.rmtree(probe, ignore_errors=True)
+        del want1, out1, planes
+        _free(torch)
+        mesh = make_amp_mesh(SHARDS, devices=[torch.device(CARD)] * SHARDS)
+        rec["sharded"], out, _, chain = _durable_case(torch, circ, n, mesh,
+                                                      root, "sharded")
+        rec["sharded"]["shards"] = SHARDS
+        # the 4-shard chain re-entered on one register
+        reg = metrics.Registry()
+        ms, launches, el = _durable_run(torch, lambda: D.run_durable(
+            circ, create_qureg(n, device=CARD), chain, engine="fused",
+            every=10 ** 6, elastic=True, registry=reg))
+        single = create_qureg(n, device=CARD).amps
+        circ.compiled_fused(n, device=CARD)(single)
+        single = single.reshape(2, -1)
+        err = plane_err(el.amps.reshape(2, -1), single)
+        scale = single.abs().max().item()
+        snap = reg.snapshot()["counters"]
+        rec["elastic_to_one_register"] = {
+            "max_abs_err": err, "rel_err": err / scale, "ms": ms,
+            "k1_launches": launches,
+            "elastic_resumes": snap.get("durable_elastic_resumes", 0),
+            "steps_run": snap.get("durable_steps_run", 0),
+            "skipped_to_op0": not snap.get("durable_resumes", 0)}
+        if not (err <= PATH_TOL * scale and launches):
+            raise AssertionError(f"durable elastic: "
+                                 f"{rec['elastic_to_one_register']}")
+        del el, single
+        _free(torch)
+        # an asynchronous sharded save while the register keeps evolving
+        snap_planes = [s.clone() for s in out.amps.shards]
+        step = circ.compiled_sharded_fused(n, False, mesh)
+        t1 = time.perf_counter()
+        pending = ckpt.save_sharded(out, os.path.join(root, "async"),
+                                    block=False)
+        return_ms = (time.perf_counter() - t1) * 1e3
+        ms_evolve, _ = _wall(torch, lambda: step(out.amps))
+        t1 = time.perf_counter()
+        pending.wait()
+        wait_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        back = ckpt.load_sharded(os.path.join(root, "async"), mesh=mesh)
+        load_ms = (time.perf_counter() - t1) * 1e3
+        same = all(torch.equal(a.reshape(2, -1), b.reshape(2, -1))
+                   for a, b in zip(back.amps.shards, snap_planes))
+        moved = not all(torch.equal(a.reshape(2, -1), b.reshape(2, -1))
+                        for a, b in zip(out.amps.shards, snap_planes))
+        rec["async_save_sharded"] = {
+            "return_ms": return_ms, "evolve_while_writing_ms": ms_evolve,
+            "wait_ms": wait_ms, "load_ms": load_ms,
+            "restored_equals_snapshot": same, "register_moved_on": moved,
+            "gib": 2 * 4 * (1 << n) / GIB}
+        if not (same and moved):
+            raise AssertionError(f"durable async save: "
+                                 f"{rec['async_save_sharded']}")
+        del out, back, snap_planes, step
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    return rec
+
+
 def ham_profile(torch):
     """torch.profiler tables (top kernels by device time) of the
     Hamiltonian layers at 30 qubits: the grouped expectation of TFIM-30
@@ -5464,6 +5951,10 @@ def main(argv=None) -> int:
         phase_sharded_batched(torch)
     if want("sharded_measured"):
         phase_sharded_measured(torch)
+    if want("sharded_consumers"):
+        phase_sharded_consumers(torch)
+    if want("durable"):
+        phase_durable(torch)
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

@@ -37,8 +37,18 @@ as tensors, the engine chosen by `engine=` or QUEST_ADJOINT (auto prices
 both against the device memory, env.hbm_bytes: the card's, or
 QUEST_HBM_BYTES), cached by value (equal specs return the same fn).
 
-`grad_record` is the plan IR's grad axis (plan.build_plan). Not
-ported: the sharded walk and `predict_vjp_collectives` (ROADMAP A10b).
+`grad_record` is the plan IR's grad axis (plan.build_plan).
+
+On a mesh (`value_and_grad(mesh=)`, ref :593-700) the same walk runs over
+the shards of a parallel.ShardedAmps: constant runs through the sharded
+per-gate applier (their raw GateOp streams), parametric gates through
+`_apply_param_sharded` (a global rx/ry target is the butterfly's pair
+exchange), the energy and lambda through the grouped engine's sharded
+evaluators (one exchange per distinct global flip mask), each overlap
+reading the partner shard for a global flip bit; the per-parameter
+partials reduce ONCE. `predict_vjp_collectives` (ref :703) prices the
+same walk on the host; the mesh's recorder holds the issued exchanges
+equal to it. Statevector meshes only, as in the reference.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 from collections import OrderedDict
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -536,6 +546,231 @@ def _build_adjoint(program, eplan, cf, rdt, initial_index):
     return energy
 
 
+# ---------------------------------------------------------------------------
+# the sharded walk (ref :484-700)
+# ---------------------------------------------------------------------------
+
+
+def _sharded_initial(program: _Program, rdt, initial_index: int, mesh):
+    from quest_tpu_torch.parallel.mesh import ShardedAmps
+    local_n = program.n - mesh.global_qubits
+    m = 1 << local_n
+    tdt = precision.torch_dtype(rdt)
+    shards = [torch.zeros((2, m), dtype=tdt, device=dev)
+              for dev in mesh.devices]
+    shards[initial_index >> local_n][0, initial_index & (m - 1)] = 1.0
+    return ShardedAmps(shards, mesh, program.n)
+
+
+def _walk_ops(amps, ops) -> None:
+    from quest_tpu_torch.parallel import sharded as S
+    xs = [s.view(1, 2, -1) for s in amps.shards]
+    for op in ops:
+        S._apply_gateop(xs, amps.mesh, amps.local_n, amps.n, False, op,
+                        "highest")
+
+
+def _apply_param_sharded(amps, e: _Param, ang: float) -> None:
+    """Entry `e` at host angle `ang` on the shards, in place: parity
+    phases and local-target rotations never communicate (the local
+    rotation is `_rotate_` on each shard holding the global controls); a
+    global rx/ry target is one butterfly pair exchange; a projector's
+    global mask bits select the shards (ref _apply_param_sharded)."""
+    from quest_tpu_torch.parallel import sharded as S
+    local_n, mesh = amps.local_n, amps.mesh
+    xs = [s.view(1, 2, -1) for s in amps.shards]
+    if e.family == "parity":
+        return S._parity_op(xs, mesh, local_n, e.targets, ang)
+    if e.family in ("rx", "ry"):
+        loc_c, loc_s, glob_c = S._split_controls(e.controls, e.cstates,
+                                                 local_n)
+        t = e.targets[0]
+        if t >= local_n:
+            c, sn = np.cos(ang / 2.0), np.sin(ang / 2.0)
+            mat = (np.array([[c, -1j * sn], [-1j * sn, c]])
+                   if e.family == "rx"
+                   else np.array([[c, -sn], [sn, c]], dtype=np.complex128))
+            return S._butterfly_1q(xs, mesh, local_n, mat, t - local_n,
+                                   loc_c, loc_s, glob_c)
+        el = dataclasses.replace(e, controls=loc_c, cstates=loc_s)
+        for d, x in enumerate(xs):
+            if S._holds(d, glob_c):
+                _rotate_(x, local_n, el, ang)
+        return None
+    glob = [(b - local_n, st) for b, st in zip(e.mask_bits, e.mask_states)
+            if b >= local_n]
+    loc = [(b, st) for b, st in zip(e.mask_bits, e.mask_states)
+           if b < local_n]
+    p = np.exp(1j * ang)
+    for d, x in enumerate(xs):
+        if not S._holds(d, glob):
+            continue
+        if loc:
+            q0, s0 = loc[0]
+            diag = np.array([1.0, p]) if s0 else np.array([p, 1.0])
+            A.apply_diagonal(x, local_n, diag, (q0,),
+                             tuple(b for b, _ in loc[1:]),
+                             tuple(st for _, st in loc[1:]))
+        else:
+            S._scale(x, local_n, complex(p))
+    return None
+
+
+def _im_overlap_sharded(lam, psi, e: _Param) -> List[torch.Tensor]:
+    """Shard d's part of Im <lambda| G |psi> (f64 tensors): the partner
+    shard d ^ (global x bits) read through one pair exchange of psi, the
+    in-shard overlap on the local bits, the global zy parity a sign and
+    the global mask bits a predicate."""
+    from quest_tpu_torch.parallel import sharded as S
+    local_n, mesh = psi.local_n, psi.mesh
+    gxm = sum(1 << (q - local_n) for q in e.x_bits if q >= local_n)
+    pv = psi.views()
+    src = mesh.permute(pv, None, mask=gxm) if gxm else pv
+    el = dataclasses.replace(
+        e, x_bits=tuple(q for q in e.x_bits if q < local_n),
+        zy_bits=tuple(b for b in e.zy_bits if b < local_n),
+        mask_bits=tuple(b for b in e.mask_bits if b < local_n),
+        mask_states=tuple(st for b, st in zip(e.mask_bits, e.mask_states)
+                          if b < local_n))
+    glob = [(b - local_n, st) for b, st in zip(e.mask_bits, e.mask_states)
+            if b >= local_n]
+    out = []
+    for d, lv in enumerate(lam.views()):
+        if src is None or not S._holds(d, glob):
+            out.append(torch.zeros((), dtype=torch.float64,
+                                   device=lv.device))
+            continue
+        v = _im_overlap(lv, src[d], local_n, el)
+        par = 0
+        for b in e.zy_bits:
+            if b >= local_n:
+                par ^= (d >> (b - local_n)) & 1
+        out.append(-v if par else v)
+    return out
+
+
+def _sharded_forward(theta_host, program: _Program, rdt, initial_index,
+                     mesh):
+    amps = _sharded_initial(program, rdt, initial_index, mesh)
+    for e in program.entries:
+        if isinstance(e, _Param):
+            _apply_param_sharded(amps, e, e.s * float(theta_host[e.pidx]))
+        else:
+            _walk_ops(amps, e.ops)
+    return amps
+
+
+class _ShardedAdjointEnergy(torch.autograd.Function):
+    """E(theta) of a sharded walk; backward is the three-register adjoint
+    walk over the shards, the per-parameter partials reduced once."""
+
+    @staticmethod
+    def forward(ctx, theta, spec):
+        program, eplan, cf, rdt, initial_index, mesh = spec
+        theta_host = theta.detach().cpu().double().numpy()
+        with torch.no_grad():
+            amps = _sharded_forward(theta_host, program, rdt, initial_index,
+                                    mesh)
+            value = E.expec_sharded(amps, cf, eplan)
+        ctx.spec = spec
+        ctx.amps = amps
+        ctx.save_for_backward(theta)
+        return value.to(device=theta.device, dtype=theta.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        program, eplan, cf, _rdt, _, mesh = ctx.spec
+        (theta,) = ctx.saved_tensors
+        theta_host = theta.detach().cpu().double().numpy()
+        amps = ctx.amps
+        ctx.amps = None
+        with torch.no_grad():
+            lam = E.apply_pauli_sum_planes_sharded(amps, cf, eplan)
+            parts = [torch.zeros(program.num_params, dtype=torch.float64,
+                                 device=dev) for dev in mesh.devices]
+            for e in reversed(program.entries):
+                if isinstance(e, _Param):
+                    for d, g in enumerate(_im_overlap_sharded(lam, amps, e)):
+                        parts[d][e.pidx] += g * (e.w * e.s)
+                    ia = -e.s * float(theta_host[e.pidx])
+                    _apply_param_sharded(amps, e, ia)
+                    _apply_param_sharded(lam, e, ia)
+                else:
+                    _walk_ops(amps, e.inv_ops)
+                    _walk_ops(lam, e.inv_ops)
+            del lam
+            grads = mesh.reduce(parts)
+        return grads.to(device=theta.device, dtype=theta.dtype) * ct, None
+
+
+def _build_sharded(program, eplan, cf, rdt, initial_index, mesh):
+    if program.density:
+        raise AdjointError(
+            "Invalid adjoint target: sharded density registers are not "
+            "supported by the adjoint engine (statevector meshes only)")
+    spec = (program, eplan, cf, rdt, initial_index, mesh)
+
+    def energy(theta):
+        return _ShardedAdjointEnergy.apply(theta, spec)
+    return energy
+
+
+def predict_vjp_collectives(program: _Program, eplan, D: int) -> dict:
+    """The exchanges one value-and-grad call issues on D shards, priced on
+    the host from the same dispatch the sharded walk makes (ref :703):
+    constant runs through comm.gateop_exchanges, a global rx/ry the
+    butterfly's comm.effective_slices, the energy and the lambda seed one
+    pair exchange per distinct global flip mask each, the backward walk
+    un-applying every entry on both registers and reading the partner
+    shard once per global-flip overlap; two reductions (the energy and
+    the stacked gradient)."""
+    from quest_tpu_torch.parallel import comm as C
+    gbits = D.bit_length() - 1
+    local_n = program.n - gbits
+    topo = C.topology(D)
+    ici_b = topo.ici_bits(D) if topo.hierarchical else None
+    m = 1 << local_n
+    cps = a2as = 0
+
+    def op_exchanges(ops):
+        c = a = 0
+        for op in ops:
+            for kind, _elems, _g in C.gateop_exchanges(op, local_n, ici_b):
+                if kind == "cp":
+                    c += 1
+                else:
+                    a += 1
+        return c, a
+
+    def param_apply_cps(e):
+        if e.family in ("rx", "ry") and e.targets[0] >= local_n:
+            return C.effective_slices(m, C._link(e.targets[0] - local_n,
+                                                 ici_b))
+        return 0
+
+    emasks = len(E.global_flip_masks(eplan, local_n))
+    for e in program.entries:
+        if isinstance(e, _Param):
+            cps += param_apply_cps(e)
+        else:
+            c, a = op_exchanges(e.ops)
+            cps += c
+            a2as += a
+    cps += 2 * emasks
+    for e in program.entries:
+        if isinstance(e, _Param):
+            cps += 2 * param_apply_cps(e)
+            if any(q >= local_n for q in e.x_bits):
+                cps += 1
+        else:
+            c, a = op_exchanges(e.inv_ops)
+            cps += 2 * c
+            a2as += 2 * a
+    return {"collective_permutes": cps, "all_to_alls": a2as,
+            "all_reduces": 2 if program.num_params else 1,
+            "devices": D}
+
+
 def _build_taped(program, eplan, cf, rdt, initial_index):
     def energy(theta):
         amps = _forward_taped(theta, program, rdt, initial_index,
@@ -710,14 +945,22 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
     observable, dtype, device, keyed knobs) return the identical fn,
     which carries `engine`, `num_params`, `initial_params` (a Circuit's
     recovered angles), `num_qubits`, `real_dtype`, `sweep_key` and
-    `value(theta)` (the energy alone). mesh= waits for ROADMAP A10b."""
+    `value(theta)` (the energy alone). `mesh` (a parallel.AmpMesh of two
+    or more shards) runs the adjoint walk over the shards of a sharded
+    register on the mesh's devices (the tensors come back on its first
+    device), its predicted exchanges in `fn.comm_record`; the taped
+    engine has no sharded form there and is refused typed."""
     from quest_tpu_torch.circuit import _device_key
     from quest_tpu_torch.env import engine_mode_key, knob_value
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded adjoint gradients (mesh=) are not ported yet "
-            "(ROADMAP A10b)")
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        if engine == "taped":
+            raise AdjointError(
+                "Invalid adjoint target: the taped engine does not run on "
+                "a mesh; value_and_grad(mesh=) takes the adjoint walk "
+                "(engine='adjoint' or None)")
+        device = mesh.devices[0]
     dev = resolve_device(device)
     is_circuit = isinstance(target, CC.Circuit)
     if is_circuit:
@@ -739,7 +982,8 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
         raise ValueError(f"engine must be 'adjoint', 'taped' or 'auto', "
                          f"got {engine!r}")
     key = (tkey, codes_key, cf0.tobytes(), int(initial_index), rdt.str,
-           bool(density), _device_key(dev), engine, engine_mode_key())
+           bool(density), _device_key(dev), engine, engine_mode_key(),
+           mesh.key if sharded else None)
     with _CACHE_LOCK:
         fn = _FN_CACHE.get(key)
         if fn is not None:
@@ -749,6 +993,10 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
         program, theta0 = build_circuit_program(target, density)
         angle_meta = None
     else:
+        if sharded:
+            raise AdjointError(
+                "Invalid adjoint target: sharded trotter ansatz gradients "
+                "are not supported (single-device registers only)")
         if density:
             raise AdjointError(
                 "Invalid adjoint target: trotter ansatz gradients run on "
@@ -763,7 +1011,7 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
     tdt = precision.torch_dtype(rdt)
     cf = torch.as_tensor(cf0, dtype=tdt, device=dev)
 
-    resolved = engine
+    resolved = "adjoint" if sharded else engine
     if resolved in (None, "auto"):
         knob = str(knob_value("QUEST_ADJOINT"))
         if knob in ("0", "1"):
@@ -772,8 +1020,13 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
             cap = capacity_stats(program.n, program.num_params,
                                  len(program.entries), rdt, dev)
             resolved = _engine_choice(cap, "auto")
-    build = _build_adjoint if resolved == "adjoint" else _build_taped
-    energy = build(program, eplan, cf, rdt, init_flat)
+    comm_record = None
+    if sharded:
+        energy = _build_sharded(program, eplan, cf, rdt, init_flat, mesh)
+        comm_record = predict_vjp_collectives(program, eplan, mesh.size)
+    else:
+        build = _build_adjoint if resolved == "adjoint" else _build_taped
+        energy = build(program, eplan, cf, rdt, init_flat)
 
     if is_circuit:
         def leaves(params):
@@ -824,7 +1077,7 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
     fn.engine = resolved
     fn.num_params = program.num_params
     fn.initial_params = theta0
-    fn.comm_record = None
+    fn.comm_record = comm_record
     fn.sweep_key = ("adjoint.value_and_grad",) + key
     with _CACHE_LOCK:
         _FN_CACHE[key] = fn

@@ -132,14 +132,16 @@ def _device(env: Optional[QuESTEnv]):
 
 def createQureg(numQubits: int, env: Optional[QuESTEnv] = None,
                 dtype=None) -> Qureg:
-    """A statevector on the env's device (default: the CUDA card)."""
-    return Qureg(_state.create_qureg(numQubits, dtype, _device(env)), env)
+    """A statevector on the env's device (default: the CUDA card), sharded
+    over the env's mesh when it has one (QuESTEnv.sharding_for)."""
+    return Qureg(_state.create_qureg(numQubits, dtype, _device(env),
+                                     env=env), env)
 
 
 def createDensityQureg(numQubits: int, env: Optional[QuESTEnv] = None,
                        dtype=None) -> Qureg:
-    return Qureg(_state.create_density_qureg(numQubits, dtype, _device(env)),
-                 env)
+    return Qureg(_state.create_density_qureg(numQubits, dtype, _device(env),
+                                             env=env), env)
 
 
 def createCloneQureg(qureg: Qureg, env: Optional[QuESTEnv] = None) -> Qureg:

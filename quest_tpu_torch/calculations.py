@@ -14,6 +14,13 @@ statevector term one flip-form pass whose image is reduced chunk by
 chunk against the state (no copy of the state), each density term one
 gather of the 2^N entries rho[k, k ^ x] its trace touches. The two give
 the same values. `apply_pauli_sum` runs the grouped operator apply.
+
+On a sharded register (parallel.ShardedAmps) every calculation is one
+partial per shard in the f64 accumulator plus one AmpMesh.reduce
+(parallel/eager.py; ref QuEST_cpu_distributed.c:1263-1299), and the
+Pauli expectations run the grouped engine's sharded evaluators
+(ops/expec.py expec_sharded) whatever QUEST_EXPEC_FUSION says; the state
+never gathers.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from quest_tpu_torch import validation as val
 from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import expec as E
 from quest_tpu_torch.ops.expec import flipped_trace_diag, parse_pauli_sum
+from quest_tpu_torch.parallel import eager as SE
 
 CHUNK_AMPS = 1 << 26
 
@@ -50,6 +58,8 @@ def _sum_sq(planes: torch.Tensor) -> float:
 def calc_total_prob(q) -> float:
     """Total probability: sum |a|^2 of a statevector, Re Tr(rho) of a
     density matrix."""
+    if SE.is_sharded(q):
+        return SE.total_prob(q)
     if q.is_density:
         dim = 1 << q.num_qubits
         diag = q.amps.reshape(2, -1)[0][::dim + 1]     # rho[r, r] at r (1 + dim)
@@ -60,6 +70,8 @@ def calc_total_prob(q) -> float:
 def calc_purity(q) -> float:
     """Tr(rho^2) = sum |rho_ij|^2 (ref densmatr_calcPurityLocal)."""
     val.validate_density_matr(q)
+    if SE.is_sharded(q):
+        return SE.purity(q)
     return _sum_sq(q.amps)
 
 
@@ -83,6 +95,8 @@ def calc_inner_product(bra, ket) -> complex:
     val.validate_state_vector(bra)
     val.validate_state_vector(ket)
     val.validate_match(bra, ket)
+    if SE.is_sharded(bra) or SE.is_sharded(ket):
+        return complex(*SE.inner(bra, ket, "calcInnerProduct"))
     re, im = _inner(bra.amps, ket.amps)
     return complex(re, im)
 
@@ -93,6 +107,9 @@ def calc_density_inner_product(rho1, rho2) -> float:
     val.validate_density_matr(rho1)
     val.validate_density_matr(rho2)
     val.validate_match(rho1, rho2)
+    if SE.is_sharded(rho1) or SE.is_sharded(rho2):
+        return float(SE.inner(rho1, rho2,
+                                    "calcDensityInnerProduct")[0])
     return float(_inner(rho1.amps, rho2.amps)[0])
 
 
@@ -113,6 +130,14 @@ def calc_fidelity(q, pure) -> float:
     """|<psi|phi>|^2 for statevectors; <psi|rho|psi> for a density q (ref
     QuEST_common.c:376-381, densmatr_calcFidelity)."""
     val.validate_pure_state_args(q, pure)
+    if SE.is_sharded(q) or SE.is_sharded(pure):
+        if q.is_density:
+            if not SE.is_sharded(q):
+                SE.refuse("calcFidelity", "the density register is "
+                                "on one device and the pure state sharded")
+            return SE.fidelity_density(q, pure)
+        re, im = SE.inner(q, pure, "calcFidelity")
+        return float(re * re + im * im)
     psi = pure.amps.reshape(2, -1).to(q.amps.dtype)
     if q.is_density:
         return _fidelity_density(q.amps, psi, 1 << q.num_qubits)
@@ -126,6 +151,8 @@ def calc_hilbert_schmidt_distance(a, b) -> float:
     val.validate_density_matr(a)
     val.validate_density_matr(b)
     val.validate_match(a, b)
+    if SE.is_sharded(a) or SE.is_sharded(b):
+        return SE.hs_distance(a, b)
     fa, fb = a.amps.reshape(-1), b.amps.reshape(-1).to(a.amps.dtype)
     total = torch.zeros((), dtype=torch.float64, device=fa.device)
     for s in range(0, fa.numel(), CHUNK_AMPS):
@@ -184,8 +211,9 @@ def _term(q, targets, paulis) -> Tuple[int, ...]:
 
 def _expec(q, coeffs: np.ndarray, codes) -> float:
     """The grouped engine (ops/expec.py) under QUEST_EXPEC_FUSION=1, the
-    per-term program under 0 (ref calculations.py:235-241)."""
-    if E.fusion_enabled():
+    per-term program under 0 (ref calculations.py:235-241); a sharded
+    register always takes the grouped engine's sharded evaluators."""
+    if E.fusion_enabled() or SE.is_sharded(q):
         return E.expec_value(q, coeffs, codes)
     return _expec_pauli_sum(q, coeffs, codes)
 
@@ -221,6 +249,8 @@ def calc_linear_xeb(q, samples) -> float:
     """Linear cross-entropy fidelity of basis-state `samples` against the
     state: 2^n <p(s)> - 1, the mean in f64 (statevectors only)."""
     val.validate_state_vector(q)
+    if SE.is_sharded(q):
+        return SE.linear_xeb(q, samples)
     flat = q.amps.reshape(2, -1)
     s = torch.as_tensor(samples, device=flat.device).reshape(-1).long()
     re, im = flat[0][s], flat[1][s]
@@ -241,5 +271,8 @@ def apply_pauli_sum(q, all_codes, coeffs):
     cf = torch.as_tensor(np.asarray(coeffs, dtype=q.real_dtype),
                          device=q.amps.device)
     with torch.no_grad():
+        if SE.is_sharded(q):
+            return q.replace_amps(
+                E.apply_pauli_sum_planes_sharded(q.amps, cf, plan))
         out = E.apply_pauli_sum_planes(q.amps, cf, plan)
     return q.replace_amps(out.reshape(q.amps.shape))

@@ -910,9 +910,12 @@ class Circuit:
         returns the register (ref circuit.py:1122). A circuit of more than
         PERGATE_COMPILE_WARN_OPS ops without channels runs through the
         banded engine (QUEST_APPLY_AUTOROUTE, default 1), else through
-        the per-gate engine."""
+        the per-gate engine. A sharded register runs the sharded per-gate
+        engine on its own mesh (apply_sharded)."""
         if self.num_qubits != q.num_qubits:
             raise ValueError("circuit/register size mismatch")
+        if not torch.is_tensor(q.amps):
+            return self.apply_sharded(q, q.amps.mesh)
         if (len(self.ops) > PERGATE_COMPILE_WARN_OPS
                 and not self._dynamic_count()
                 and not any(op.kind == "superop" for op in self.ops)
@@ -957,9 +960,12 @@ class Circuit:
 
     def apply_banded(self, q):
         """Apply through the banded engine on the register's device, in
-        place; returns the register (ref :1246)."""
+        place; returns the register (ref :1246); a sharded register
+        through the sharded banded engine on its own mesh."""
         if self.num_qubits != q.num_qubits:
             raise ValueError("circuit/register size mismatch")
+        if not torch.is_tensor(q.amps):
+            return self.apply_sharded_banded(q, q.amps.mesh)
         fn = self.compiled_banded(q.num_state_qubits, q.is_density,
                                   device=q.amps.device)
         return q.replace_amps(fn(q.amps))
@@ -1008,9 +1014,16 @@ class Circuit:
     def apply_fused(self, q, iters: int = 1):
         """Apply the circuit to register `q` (statevector or density)
         through the fused engine on the register's device, in place on
-        its planes; returns the register (ref circuit.py:1343)."""
+        its planes; returns the register (ref circuit.py:1343); a sharded
+        register through the sharded fused engine on its own mesh (one
+        application)."""
         if self.num_qubits != q.num_qubits:
             raise ValueError("circuit/register size mismatch")
+        if not torch.is_tensor(q.amps):
+            if iters != 1:
+                raise ValueError("a sharded register applies the circuit "
+                                 "once a call (iters=1)")
+            return self.apply_sharded_fused(q, q.amps.mesh)
         fn = self.compiled_fused(q.num_state_qubits, q.is_density, iters,
                                  device=q.amps.device)
         return q.replace_amps(fn(q.amps))

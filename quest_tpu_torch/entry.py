@@ -96,7 +96,8 @@ dryrun_multichip(n_devices, device=None) runs the reference's dryrun
 the split through the per-gate, banded and lazy-relabeled sharded
 engines (agreeing within 1e-5), the fused engine at 10 local qubits
 against the banded one (1e-4), and the norm through the mesh's
-reduction. The reference's sharded sampling step waits for ROADMAP A10b.
+reduction, and 16 samples of the sharded state (per-shard CDFs, no
+gather).
 
 The two other density circuits the smoke test drives are here too:
 bench_density_circuit (the repo's density bench scenario: rotations,
@@ -422,6 +423,12 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
                 amps, n)
     rec["lazy"] = (out_l - out).abs().max().item()
     assert rec["lazy"] < 1e-5, f"lazy relabeling diverged: {rec}"
+    from quest_tpu_torch.measurement import sample
+    shots = sample(Qureg(amps=x, num_qubits=n), 16,
+                   torch.Generator().manual_seed(0))
+    assert shots.shape == (16,) and int(shots.min()) >= 0 \
+        and int(shots.max()) < (1 << n), shots
+    rec["samples"] = shots.tolist()
     return rec
 
 

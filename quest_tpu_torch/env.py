@@ -43,16 +43,37 @@ def _bool01(name: str) -> Callable[[str], bool]:
     return parse
 
 
-def _int_range(name: str, lo: int, hi: int) -> Callable[[str], int]:
+def _int_range(name: str, lo: int, hi: int = None) -> Callable[[str], int]:
     def parse(raw: str) -> int:
         try:
             v = int(raw)
         except ValueError:
             raise ValueError(f"{name} must be an integer, got {raw!r}") from None
-        if not lo <= v <= hi:
-            raise ValueError(f"{name} must be in [{lo}, {hi}], got {v}")
+        if v < lo or (hi is not None and v > hi):
+            raise ValueError(f"{name} must be in "
+                             f"[{lo}, {'inf' if hi is None else hi}], "
+                             f"got {v}")
         return v
     return parse
+
+
+def _parse_pos_float(name: str) -> Callable[[str], float]:
+    def parse(raw: str) -> float:
+        try:
+            v = float(raw)
+        except ValueError:
+            raise ValueError(f"{name} must be a float, got {raw!r}")
+        if not (v > 0.0):
+            raise ValueError(f"{name} must be > 0, got {v}")
+        return v
+    return parse
+
+
+def _parse_fault_plan(raw: str):
+    # the resilience package is standard-library only at import time, so
+    # this import cannot cycle back into env.py's module load
+    from quest_tpu_torch.resilience import faults
+    return faults.parse_plan(raw)
 
 
 def _choice(name: str, choices) -> Callable[[str], str]:
@@ -250,6 +271,32 @@ _KNOB_LIST = (
     Knob("QUEST_HBM_BYTES", _int_range("QUEST_HBM_BYTES", 1, 1 << 62), None,
          doc="device memory in bytes for the capacity models (default: "
              "the card's total memory, torch.cuda.get_device_properties)"),
+    # fault injection and the durable executor (ref quest_tpu/env.py:
+    # 597-640): read at run time, not keyed
+    Knob("QUEST_FAULT_PLAN", _parse_fault_plan, None,
+         doc="deterministic fault-injection plan: 'site[:key=value]..."
+             "[;...]' over the resilience.faults site catalog (keys: "
+             "error, after, every, times, p, seed); unset = no injection"),
+    Knob("QUEST_DURABLE_EVERY", _int_range("QUEST_DURABLE_EVERY", 1), 8,
+         doc="sweep-plan steps between checkpoints of the durable "
+             "executor (resilience/durable.py; default: 8)"),
+    Knob("QUEST_INTEGRITY", _bool01("QUEST_INTEGRITY"), True,
+         doc="in-flight corruption sentinels at checkpoint cadence "
+             "(statevector norm / density trace+hermiticity drift vs the "
+             "run's baseline): 1/0 (default: 1; a trip raises "
+             "IntegrityError and refuses to stamp the checkpoint)"),
+    Knob("QUEST_INTEGRITY_TOL", _parse_pos_float("QUEST_INTEGRITY_TOL"),
+         1e-3,
+         doc="relative drift budget of the durable integrity sentinels "
+             "(absolute for unit-scale invariants; default: 1e-3)"),
+    Knob("QUEST_CHECKPOINT_KEEP", _int_range("QUEST_CHECKPOINT_KEEP", 1), 2,
+         doc="versioned checkpoints retained per durable run "
+             "(checkpoint.prune_steps keep-last-K; default: 2)"),
+    Knob("QUEST_DURABLE_ELASTIC", _bool01("QUEST_DURABLE_ELASTIC"), False,
+         doc="default for run_durable(elastic=): 1 makes a durable resume "
+             "mesh-independent (a chain written on D shards re-enters any "
+             "mesh, or one register); default: 0, a mesh mismatch is "
+             "refused typed"),
 )
 
 KNOBS = {k.name: k for k in _KNOB_LIST}
@@ -320,32 +367,55 @@ def hbm_bytes(device=None) -> int:
 
 
 class QuESTEnv:
-    """The execution environment of one process on one device (ref
-    quest_tpu/env.py:730, QuESTEnv): the CUDA card unless the caller
-    asks for device="cpu". Sharded registers live on a parallel.AmpMesh;
-    `sharding_for` waits for ROADMAP A10b."""
+    """The execution environment of one process (ref quest_tpu/env.py:730,
+    QuESTEnv). `QuESTEnv()` is one device: the CUDA card unless the
+    caller asks for device="cpu". `QuESTEnv(devices=[...])` (torch
+    devices or names, entries may repeat: four shards on one card are
+    [torch.device("cuda")] * 4) or `QuESTEnv(mesh=AmpMesh)` is a mesh of
+    that many shards (the largest power of two of the devices given):
+    num_ranks is its size, and create_qureg(env=) shards a register over
+    it when `sharding_for` says so."""
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, devices=None, mesh=None):
+        if mesh is not None and devices is not None:
+            raise ValueError("pass devices= or mesh=, not both")
+        if devices is not None:
+            from quest_tpu_torch.parallel.mesh import make_amp_mesh
+            devices = list(devices)
+            if not devices:
+                raise ValueError("devices= must name at least one device")
+            mesh = make_amp_mesh(devices=devices)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if mesh is not None:
+            self.device = mesh.devices[0]
+        else:
+            self.device = resolve_device(device)
 
     @property
     def num_ranks(self) -> int:
-        return 1
+        return self.mesh.size if self.mesh is not None else 1
 
     @property
     def rank(self) -> int:
         return 0
 
     def sharding_for(self, num_state_qubits: int):
-        raise NotImplementedError(
-            "QuESTEnv.sharding_for is not ported yet; shard a register "
-            "over quest_tpu_torch.parallel.make_amp_mesh (ROADMAP A10b)")
+        """The mesh a register of `num_state_qubits` is sharded over, or
+        None when the env is one device or the register holds fewer than
+        two amplitudes a shard (ref :763: local_n >= 1, the
+        E_DISTRIB_QUREG_TOO_SMALL bound of the sharded engines)."""
+        if (self.mesh is None
+                or (1 << num_state_qubits) < 2 * self.num_ranks):
+            return None
+        return self.mesh
 
     def sync(self) -> None:
-        """Block until the device's queued work completes (ref
+        """Block until the devices' queued work completes (ref
         syncQuESTEnv)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devs = self.mesh.devices if self.mesh is not None else (self.device,)
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def platform(self) -> str:
         return "CUDA" if self.device.type == "cuda" else "CPU"
@@ -366,14 +436,15 @@ class QuESTEnv:
 
     def report(self) -> str:
         s = (f"EXECUTION ENVIRONMENT:\nRunning distributed (MPI) version: "
-             f"no\nNumber of devices: {self.num_ranks}\n"
+             f"{'yes' if self.num_ranks > 1 else 'no'}\n"
+             f"Number of devices: {self.num_ranks}\n"
              f"Platform: {self.platform()} ({self.device_name()})")
         print(s)
         return s
 
 
-def create_quest_env(device=None) -> QuESTEnv:
-    return QuESTEnv(device)
+def create_quest_env(device=None, devices=None, mesh=None) -> QuESTEnv:
+    return QuESTEnv(device, devices=devices, mesh=mesh)
 
 
 def destroy_quest_env(env: QuESTEnv) -> None:

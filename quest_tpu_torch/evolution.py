@@ -33,9 +33,13 @@ marginal (sweeps(2m) - sweeps(m)) / m of the fused sweep plan) under
 the planner geometry it is given — the reference's TPU record under
 band_plan.TPU_GEOMETRY, the port's own launches under HOPPER_GEOMETRY.
 
-Not ported: sharded quenches (`mesh=`, ROADMAP A10b) and durable ones
-(`durable_dir=`, ROADMAP A11) raise NotImplementedError.
-`TrotterCircuit.plan_stats` is Circuit.plan_stats with the "trotter"
+A sharded quench (`mesh=`, ref :899-941) runs the step circuit through
+the sharded fused engine (compile_circuit_sharded_fused: K1 on every
+shard) for an f32 register on a CUDA mesh, through the sharded banded
+engine otherwise (engine= pins one); its energies come from the grouped
+engine's sharded evaluators. A durable quench (`durable_dir=`) runs the
+whole circuit through resilience.durable.run_durable, its Trotter
+descriptor validated in the cursor. `TrotterCircuit.plan_stats` is Circuit.plan_stats with the "trotter"
 record.
 """
 
@@ -678,16 +682,6 @@ def _legacy_step(q: Qureg, plan: TrotterPlan, spec: E.PauliSum,
     return q
 
 
-def _not_ported(mesh, durable_dir) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded evolution (mesh=) is not ported yet (ROADMAP A10b)")
-    if durable_dir is not None:
-        raise NotImplementedError(
-            "durable evolution (durable_dir=) is not ported yet "
-            "(ROADMAP A11)")
-
-
 def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
                   coeffs=None, order: int = 2, observables=None,
                   energy_every: int = None, imag_time: bool = False,
@@ -706,11 +700,14 @@ def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
       * imaginary time (`imag_time=True`): exp(-dt H) steps of the torch
         core, renormalised after every step (statevectors, no engine=).
       * QUEST_TROTTER_FUSION=0: the legacy per-term eager baseline.
-
-    mesh= (ROADMAP A10b) and durable_dir= (ROADMAP A11) raise
-    NotImplementedError."""
-    del durable_every
-    _not_ported(mesh, durable_dir)
+      * `mesh` (a parallel.AmpMesh): the chunks run over its shards —
+        engine None takes the sharded fused engine (K1 on every shard)
+        for an f32 register on a CUDA mesh and the sharded banded engine
+        otherwise; the returned state is a sharded register.
+      * `durable_dir`: the whole quench through
+        resilience.durable.run_durable (checkpoints every
+        `durable_every` steps of its plan; a rerun resumes), observables
+        on the initial and final states only (ref :800-832)."""
     spec = as_pauli_sum(hamiltonian, coeffs, num_qubits=None)
     if state.num_qubits != spec.num_qubits:
         raise ValueError(
@@ -729,6 +726,39 @@ def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
     if observables is None:
         observables = [spec]
     specs = _observable_plans(observables, spec, nq)
+
+    if durable_dir is not None:
+        if energy_every is not None:
+            raise ValueError(
+                "durable_dir= is incompatible with energy_every=: the "
+                "durable executor owns the step loop and the planes are "
+                "the resume payload; observables evaluate on the final "
+                "state")
+        if imag_time:
+            raise ValueError(
+                "durable imaginary-time evolution is not supported: the "
+                "renormalizing step is not a Circuit the durable executor "
+                "can cut")
+        from quest_tpu_torch.resilience.durable import run_durable
+        circ = trotter_circuit(spec, dt, order=order, steps=steps)
+        initial = _measure_energies(state, state.amps, specs)
+        out = run_durable(
+            circ, state, durable_dir, every=durable_every, engine=engine,
+            mesh=mesh,
+            cursor_extra={
+                "workload": "trotter",
+                "trotter_steps": steps,
+                "trotter_order": order,
+                "trotter_dt": repr(float(dt)),
+                "trotter_terms": len(spec.codes),
+            })
+        energies = np.asarray([initial,
+                               _measure_energies(out, out.amps, specs)])
+        return EvolutionResult(
+            state=out, energies=energies,
+            energy_steps=np.asarray([0, steps]),
+            stats={"engine": "durable", "steps": steps, "order": order})
+
     chunk = steps if energy_every is None else int(energy_every)
     if chunk < 1:
         raise ValueError(f"energy_every must be >= 1, got {chunk}")
@@ -738,9 +768,10 @@ def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
     dispatches = 0
 
     if imag_time:
-        if density:
+        if mesh is not None or density:
             raise ValueError(
-                "imaginary-time evolution runs on statevector registers")
+                "imaginary-time evolution runs on single-mesh statevector "
+                "registers")
         if engine is not None:
             raise ValueError(
                 "imaginary-time evolution has no engine= choice: the "
@@ -767,10 +798,12 @@ def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
                    "order": order, "dispatches": dispatches})
 
     if not fused:
-        if engine is not None:
+        if mesh is not None or engine is not None:
             raise ValueError(
-                "QUEST_TROTTER_FUSION=0 runs the legacy per-term eager "
-                "baseline: engine= has no legacy counterpart")
+                "QUEST_TROTTER_FUSION=0 runs the legacy per-term EAGER "
+                "baseline on a single device: mesh= and engine= have no "
+                "legacy counterpart; unset the knob for sharded or "
+                "engine-pinned evolution")
         q = clone(state)
         done = 0
         while done < steps:
@@ -792,19 +825,41 @@ def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
         raise ValueError(
             f"engine must be None, 'fused' or 'banded', got {engine!r}")
     dev = state.amps.device
-    if engine is None:
+    if mesh is not None:
+        local_n = n - mesh.global_qubits
+        kernel_ok = (BP.usable(local_n) and state.amps.dtype == torch.float32
+                     and all(d.type == "cuda" for d in mesh.devices))
+    else:
+        kernel_ok = (BP.usable(n) and state.amps.dtype == torch.float32
+                     and dev.type == "cuda")
+    if engine is None and not kernel_ok:
         # the segment kernel needs a kernel-tier f32 register on a CUDA
         # device (ref :899-909, where the device is a TPU)
-        if not (BP.usable(n) and state.amps.dtype == torch.float32
-                and dev.type == "cuda"):
-            engine = "banded"
+        engine = "banded"
 
     def compiled_for(m: int):
+        if mesh is not None:
+            inner = (circ.compiled_sharded_banded(n, density, mesh)
+                     if engine == "banded"
+                     else circ.compiled_sharded_fused(n, density, mesh))
+
+            def run(a, inner=inner, m=m):
+                for _ in range(m):
+                    a = inner(a)
+                return a
+            run.launches_per_call = (
+                m * getattr(inner, "launches_per_call", 0))
+            return run
         if engine == "banded":
             return circ.compiled_banded(n, density, iters=m, device=dev)
         return circ.compiled_fused(n, density, iters=m, device=dev)
 
-    amps = state.amps.clone()     # the programs run in place
+    if mesh is not None:
+        from quest_tpu_torch.parallel.mesh import ShardedAmps, shard_planes
+        amps = (state.amps.clone() if isinstance(state.amps, ShardedAmps)
+                else shard_planes(state.amps, mesh, n))
+    else:
+        amps = state.amps.clone()     # the programs run in place
     fns: Dict[int, Callable] = {}
     launches = 0
     done = 0
@@ -820,10 +875,12 @@ def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
         record.append(_measure_energies(state, amps, specs))
         rec_steps.append(done)
     q = state.replace_amps(amps)
+    name = engine or "fused"
     return EvolutionResult(
         state=q, energies=np.asarray(record),
         energy_steps=np.asarray(rec_steps),
-        stats={"engine": engine or "fused", "steps": steps, "order": order,
+        stats={"engine": f"sharded-{name}" if mesh is not None else name,
+               "steps": steps, "order": order,
                "dispatches": dispatches, "launches": launches})
 
 
@@ -839,9 +896,9 @@ def run_evolution_trajectories(hamiltonian, dt, steps: int, shots: int,
     generator: a CPU generator seeded 0). Returns (planes, draws) like
     run_batched; `observable=` (a PauliSum or (codes, coeffs)) reduces
     each chunk's states on the device (expec.batched_reducer).
-    durable_dir= waits for ROADMAP A11."""
-    del durable_every
-    _not_ported(None, durable_dir)
+    `durable_dir` runs the shots through
+    resilience.durable.run_durable_trajectories (checkpointed chunks, a
+    rerun resumes bit-identical)."""
     from quest_tpu_torch import trajectories as T
     spec = as_pauli_sum(hamiltonian, coeffs, num_qubits=None)
     circ = trotter_circuit(spec, dt, order=order, steps=steps, noise=noise)
@@ -849,6 +906,16 @@ def run_evolution_trajectories(hamiltonian, dt, steps: int, shots: int,
         generator = torch.Generator().manual_seed(0)
     if observable is not None and not callable(observable):
         observable = E.resolve_observable(observable, spec.num_qubits)
+    if durable_dir is not None:
+        if observable is not None:
+            raise ValueError(
+                "durable_dir= is incompatible with observable=: the planes "
+                "are the resume payload")
+        from quest_tpu_torch.resilience.durable import \
+            run_durable_trajectories
+        return run_durable_trajectories(
+            circ, generator, shots, durable_dir, every=durable_every,
+            chunk=chunk, engine=engine, device=device)
     return T.run_batched(circ, shots, generator=generator, chunk=chunk,
                          observable=observable, engine=engine,
                          device=device)

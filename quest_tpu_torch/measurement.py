@@ -1,7 +1,6 @@
 """Measurement: outcome probabilities, collapse and sampling.
 
-A port of quest_tpu/measurement.py:31-233 (the sharded sampler waits for
-the port of parallel/). The semantics are the reference QuEST's
+A port of quest_tpu/measurement.py:31-287. The semantics are the reference QuEST's
 (QuEST_common.c:154-169, 360-374; QuEST_cpu.c:3111-3495):
 
   * the probability of outcome 0 sums |a|^2 over the amplitudes whose
@@ -24,6 +23,12 @@ apply or skip a classically controlled gate in place
 (`measure_functional`, `sample`). The drawing-free cores,
 `_measure_given_uniform` and `_sample_given_uniforms`, take the uniforms
 themselves, so a caller can replay another generator's draws.
+
+On a sharded register (parallel.ShardedAmps) the probability is one
+partial per shard and one AmpMesh.reduce, the collapse runs per shard (a
+global qubit keeps or zeroes whole shards), and `sample` builds one CDF
+per shard whose totals alone cross shards (parallel/eager.py,
+`_sample_sharded_given_uniforms`); the state never gathers.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from quest_tpu_torch import precision
 from quest_tpu_torch import random_ as rng
 from quest_tpu_torch import validation as val
 from quest_tpu_torch.ops import apply as A
+from quest_tpu_torch.parallel import eager as SE
 
 CHUNK_AMPS = 1 << 24          # amplitudes per f64 reduction chunk
 DIRECT_CDF_MAX = 1 << 14      # below this (or off powers of two): one scan
@@ -96,8 +102,11 @@ def calc_prob_of_outcome(q, qubit: int, outcome: int) -> float:
     """P(qubit = outcome) (ref calcProbOfOutcome)."""
     val.validate_target(q, qubit)
     val.validate_outcome(outcome)
-    p0 = _prob_of_zero(q.amps, n=q.num_state_qubits, qubit=qubit,
-                       density=q.is_density)
+    if SE.is_sharded(q):
+        p0 = SE.prob_of_zero(q, qubit)
+    else:
+        p0 = _prob_of_zero(q.amps, n=q.num_state_qubits, qubit=qubit,
+                           density=q.is_density)
     if outcome == 0:
         return p0
     return float(q.real_dtype.type(1.0) - q.real_dtype.type(p0))
@@ -111,9 +120,16 @@ def collapse_to_outcome(q, qubit: int, outcome: int) -> Tuple[object, float]:
     val.validate_outcome(outcome)
     prob = calc_prob_of_outcome(q, qubit, outcome)
     val.validate_measurement_prob(prob, precision.real_eps(q.dtype))
-    _collapse(q.amps, outcome, prob, n=q.num_state_qubits, qubit=qubit,
-              density=q.is_density)
+    _collapse_register(q, outcome, prob, qubit)
     return q, prob
+
+
+def _collapse_register(q, outcome: int, prob: float, qubit: int) -> None:
+    if SE.is_sharded(q):
+        SE.collapse(q, qubit, outcome, prob)
+    else:
+        _collapse(q.amps, outcome, prob, n=q.num_state_qubits, qubit=qubit,
+                  density=q.is_density)
 
 
 def measure_with_stats(q, qubit: int) -> Tuple[object, int, float]:
@@ -130,8 +146,7 @@ def measure_with_stats(q, qubit: int) -> Tuple[object, int, float]:
     else:
         outcome = int(rng.uniform() > zero_prob)
     prob = zero_prob if outcome == 0 else 1 - zero_prob
-    _collapse(q.amps, outcome, prob, n=q.num_state_qubits, qubit=qubit,
-              density=q.is_density)
+    _collapse_register(q, outcome, prob, qubit)
     return q, outcome, prob
 
 
@@ -176,6 +191,16 @@ def measure_functional(q, qubit: int,
     measure_functional): (register collapsed in place, outcome, prob)."""
     val.validate_target(q, qubit)
     u = draw_uniform(generator, q.amps.dtype)
+    if SE.is_sharded(q):
+        rdt = precision.numpy_dtype(q.amps.dtype)
+        p0 = rdt.type(SE.prob_of_zero(q, qubit))
+        eps = rdt.type(precision.real_eps(rdt))
+        one = rdt.type(1.0)
+        outcome = (1 if p0 < eps else 0 if one - p0 < eps
+                   else int(rdt.type(u) > p0))
+        prob = float(max(p0 if outcome == 0 else one - p0, eps))
+        SE.collapse(q, qubit, outcome, prob)
+        return q, outcome, prob
     outcome, prob = _measure_given_uniform(
         q.amps, u, n=q.num_state_qubits, qubit=qubit, density=q.is_density)
     return q, outcome, prob
@@ -246,6 +271,14 @@ def _sample_given_uniforms(amps: torch.Tensor, u: torch.Tensor, *, n: int,
     return idx.clamp_(max=cdf.shape[0] - 1)
 
 
+def _sample_sharded_given_uniforms(q, u: torch.Tensor) -> torch.Tensor:
+    """The sharded sampler's drawing-free core (ref measurement.py:196):
+    per-shard CDFs, the shard totals as an f64 carry, each shot resolved
+    by the shard owning its scaled uniform; int64 indices on the first
+    shard's device."""
+    return SE.sample_given_uniforms(q, u)
+
+
 def sample(q, shots: int, generator: torch.Generator = None) -> torch.Tensor:
     """`shots` full-register basis-state samples (int64 indices, on the
     register's device), drawn without collapsing the state: exactly
@@ -260,5 +293,8 @@ def sample(q, shots: int, generator: torch.Generator = None) -> torch.Tensor:
         generator = torch.Generator().manual_seed(rng.uint32())
     u = torch.rand(int(shots), generator=generator, dtype=q.amps.dtype,
                    device=generator.device)
+    if SE.is_sharded(q):
+        # one draw for every shard: per-shard generators would diverge
+        return _sample_sharded_given_uniforms(q, u)
     return _sample_given_uniforms(q.amps, u, n=q.num_state_qubits,
                                   density=q.is_density)

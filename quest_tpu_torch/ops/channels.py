@@ -20,6 +20,12 @@ target (views narrowed to those halves, QuEST_cpu.c:48-173); every other
 channel is its superoperator (ops/matrices.py) on [targets, targets + N]
 through apply.apply_matrix, as the reference reduces it
 (QuEST_common.c:540-673).
+
+On a sharded register (parallel.ShardedAmps) dephasing is the diagonal
+it is on [targets, targets + N] and every other channel its
+superoperator, each one GateOp through the sharded per-gate applier
+(parallel/eager.py), so a channel on an outer (column-space) qubit that
+falls on a global bit takes the engine's swap-to-local exchanges.
 """
 
 from __future__ import annotations
@@ -33,11 +39,14 @@ from quest_tpu_torch import precision
 from quest_tpu_torch import validation as val
 from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import matrices as M
+from quest_tpu_torch.parallel import eager as SE
 
 
 def _dephase(q, targets, fac: float):
     """Scale the amplitudes whose row and column bits differ on any of
     `targets` by `fac` (in the plane dtype), in place."""
+    if SE.is_sharded(q):
+        return SE.dephase(q, tuple(int(t) for t in targets), fac)
     n = q.num_state_qubits
     nq = n // 2
     qubits = tuple(t for t in targets) + tuple(t + nq for t in targets)
@@ -87,6 +96,11 @@ _TWIRL2 = _pauli_twirl_matrix(2)
 def _superop(q, targets, sup) -> object:
     """Apply superoperator `sup` (complex, or an (re, im) pair) on
     [targets, targets + N] in place."""
+    if SE.is_sharded(q):
+        from quest_tpu_torch.circuit import GateOp
+        op = GateOp("superop", tuple(int(t) for t in targets),
+                    operand=np.asarray(sup, dtype=np.complex128))
+        return SE.apply_ops(q, [op], True)
     precision.ieee_fp32()
     A.apply_matrix(q.amps, q.num_state_qubits, sup,
                    M.superop_targets(tuple(int(t) for t in targets),
@@ -163,6 +177,8 @@ def mix_density_matrix(q, prob, other):
     val.validate_match(q, other)
     val.validate_prob(float(prob))
     p = float(q.real_dtype.type(prob))
+    if SE.is_sharded(q) or SE.is_sharded(other):
+        return SE.mix_density(q, p, other)
     a = q.amps.reshape(-1)
     b = other.amps.reshape(-1).to(a.dtype)
     for s in range(0, a.numel(), A.CHUNK_AMPS):

@@ -45,9 +45,15 @@ plain differentiable tensor code, which the variational energies
 (adjoint.value_and_grad(engine='taped')) tape through. `expec_value`,
 `batched_reducer` and `plan_stats` return values, not graphs.
 
-Not ported: the sharded evaluators (`expec_sharded`,
-`apply_pauli_sum_planes_sharded`), which wait for ROADMAP A10b (the
-sharded engines themselves are quest_tpu_torch/parallel).
+The sharded evaluators (`expec_sharded`, `apply_pauli_sum_planes_sharded`,
+ref :484-625) run on a parallel.ShardedAmps: local flip bits flip inside
+the shard, each DISTINCT global flip mask costs one AmpMesh.permute pair
+exchange (shard d reads shard d ^ mask), fetched once and shared by every
+group that carries it, and freed before the next mask's; global zy bits
+fold into a per-shard sign of the term's coefficient. Each shard's
+partial is in f64 and one AmpMesh.reduce sums them. Density registers
+need no exchange at all: the entry rho[c ^ x, c] a trace reads lies in
+column c, which one shard holds whole.
 """
 
 from __future__ import annotations
@@ -344,24 +350,31 @@ def _chunk_view(flat: torch.Tensor, c: int, C: int, dims):
 # ---------------------------------------------------------------------------
 
 
-def _group_value_sv(planes, cf, g: _Group, n: int, acc: torch.dtype):
-    """sum_t c_t <P_t> of one mask group over every chunk, in `acc`."""
+def _group_value_sv(planes, cf, g: _Group, n: int, acc: torch.dtype,
+                    src=None):
+    """sum_t c_t <P_t> of one mask group over every chunk, in `acc`.
+    `src`, when given, holds the flipped amplitudes a_{j ^ x} for flip
+    bits beyond these planes (a sharded register's partner shard): every
+    pair is then read from both sides, without the half split."""
     C, nchunks = _chunking(n)
     layout = _bucket_layout(g, C, "sv")
     dims, flip_axes, _ = layout
     x_hi = sum(1 << (q - C) for q in g.x_bits if q >= C)
     h = max(g.x_bits) if g.x_bits else None
-    inner_half = h is not None and h < C
+    paired = src is not None
+    inner_half = h is not None and h < C and not paired
     narrow = (flip_axes[0], 0) if inner_half else None
     weights = _weights(layout, cf, acc, narrow)
     re, im = planes[0], planes[1]
+    sre, sim = (src[0], src[1]) if paired else (re, im)
     total = None
     for c in range(nchunks):
-        if g.x_bits and not inner_half and (c >> (h - C)) & 1:
+        if (g.x_bits and not inner_half and not paired
+                and (c >> (h - C)) & 1):
             continue                 # this chunk is the partner's half
         ar = _chunk_view(re, c, C, dims)
         ai = _chunk_view(im, c, C, dims)
-        if not g.x_bits:
+        if not g.x_bits and not paired:
             base = {"re": torch.addcmul(ar * ar, ai, ai).to(acc)}
             twice = 1.0
         else:
@@ -372,8 +385,8 @@ def _group_value_sv(planes, cf, g: _Group, n: int, acc: torch.dtype):
                 rest = list(flip_axes[1:])
             else:
                 p = c ^ x_hi
-                br = _chunk_view(re, p, C, dims)
-                bi = _chunk_view(im, p, C, dims)
+                br = _chunk_view(sre, p, C, dims)
+                bi = _chunk_view(sim, p, C, dims)
                 rest = list(flip_axes)
             if rest:
                 br, bi = br.flip(rest), bi.flip(rest)
@@ -382,7 +395,7 @@ def _group_value_sv(planes, cf, g: _Group, n: int, acc: torch.dtype):
                 base["re"] = torch.addcmul(ar * br, ai, bi).to(acc)
             if "im" in weights:
                 base["im"] = torch.addcmul(ar * bi, ai, br, value=-1).to(acc)
-            twice = 2.0
+            twice = 1.0 if paired else 2.0
         for plane, keyed in weights.items():
             v = _reduce(base[plane], keyed, c, acc) * twice
             total = v if total is None else total + v
@@ -427,19 +440,26 @@ def apply_pauli_sum_planes(amps: torch.Tensor, coeffs,
     the adjoint engine's bra register lambda = H|psi>. Statevector plans
     only. Differentiable; a new tensor, written chunk by chunk."""
     assert not plan.density
-    n = plan.n
-    C, nchunks = _chunking(n)
     cf = torch.as_tensor(coeffs, dtype=amps.dtype, device=amps.device)
-    planes = amps.reshape(2, -1)
+    return _apply_groups(amps.reshape(2, -1), cf, plan.groups, plan.n)
+
+
+def _apply_groups(planes: torch.Tensor, cf: torch.Tensor, groups_in,
+                  n: int, out: torch.Tensor = None) -> torch.Tensor:
+    """sum over `groups_in` of their terms' flipped, signed, weighted
+    reads of `planes` (2, 2^n): a new tensor, or added into `out`."""
+    C, nchunks = _chunking(n)
     re, im = planes[0], planes[1]
+    accumulate = out is not None
     groups = []
-    for g in plan.groups:
+    for g in groups_in:
         layout = _bucket_layout(g, C, "apply")
-        w = _weights(layout, cf, amps.dtype)
+        w = _weights(layout, cf, planes.dtype)
         groups.append((layout[0], list(layout[1]),
                        sum(1 << (q - C) for q in g.x_bits if q >= C),
                        w.get("re"), w.get("im")))
-    out = None if nchunks == 1 else torch.empty_like(planes)
+    if out is None and nchunks > 1:
+        out = torch.empty_like(planes)
     for c in range(nchunks):
         o_re = o_im = None
         for dims, flip_axes, x_hi, wre, wim in groups:
@@ -460,8 +480,12 @@ def apply_pauli_sum_planes(amps: torch.Tensor, coeffs,
             o_im = tim if o_im is None else o_im + tim
         if out is None:
             return torch.stack([o_re, o_im])
-        out[0, c << C:(c + 1) << C] = o_re
-        out[1, c << C:(c + 1) << C] = o_im
+        if accumulate:
+            out[0, c << C:(c + 1) << C] += o_re
+            out[1, c << C:(c + 1) << C] += o_im
+        else:
+            out[0, c << C:(c + 1) << C] = o_re
+            out[1, c << C:(c + 1) << C] = o_im
     return out
 
 
@@ -523,12 +547,158 @@ def _density_layout(group: _Group, N: int):
 
 
 def expec_value(q, coeffs, codes_key) -> float:
-    """sum_t c_t <P_t> of register `q` through the grouped engine."""
+    """sum_t c_t <P_t> of register `q` through the grouped engine: the
+    sharded evaluators on a ShardedAmps register (ref :651)."""
     plan = plan_expec(codes_key, q.num_qubits, density=q.is_density)
     cf = torch.as_tensor(np.asarray(coeffs, dtype=q.real_dtype),
                          device=q.amps.device)
     with torch.no_grad():
+        if not torch.is_tensor(q.amps):
+            return float(expec_sharded(q.amps, cf, plan))
         return float(expec_traced(q.amps, cf, plan))
+
+
+# ---------------------------------------------------------------------------
+# sharded evaluation: per-shard partials + one reduce (ref :484-625)
+# ---------------------------------------------------------------------------
+
+
+def _localize(g: _Group, local_n: int):
+    """(the group's in-shard form, its global flip mask): x and zy bits
+    below local_n; the terms keep their coefficient index."""
+    lx = tuple(q for q in g.x_bits if q < local_n)
+    gxm = sum(1 << (q - local_n) for q in g.x_bits if q >= local_n)
+    terms = tuple(_Term(t.index, lx,
+                        tuple(b for b in t.zy_bits if b < local_n), t.ny)
+                  for t in g.terms)
+    return _Group(lx, terms), gxm
+
+
+def _shard_coeffs(cf: torch.Tensor, plan: ExpecPlan, local_n: int,
+                  d: int, device) -> torch.Tensor:
+    """The coefficients as shard d reads them: each term's times the
+    parity sign of its global zy bits on this shard (constant over it)."""
+    sign = np.ones(plan.num_terms)
+    for g in plan.groups:
+        for t in g.terms:
+            par = 0
+            for b in t.zy_bits:
+                if b >= local_n:
+                    par ^= (d >> (b - local_n)) & 1
+            sign[t.index] = -1.0 if par else 1.0
+    return cf.to(device) * torch.as_tensor(sign, dtype=cf.dtype,
+                                           device=device)
+
+
+def global_flip_masks(plan: ExpecPlan, local_n: int):
+    """The distinct nonzero global flip masks of a plan in first-use
+    order: one pair exchange each (the issued count is held equal to it
+    in the tests)."""
+    out = []
+    for g in plan.groups:
+        m = _localize(g, local_n)[1]
+        if m and m not in out:
+            out.append(m)
+    return out
+
+
+def _by_mask(plan: ExpecPlan, local_n: int):
+    """[(global mask, [local groups])], mask 0 first, then first use."""
+    table: Dict[int, list] = {}
+    for g in plan.groups:
+        lg, m = _localize(g, local_n)
+        table.setdefault(m, []).append(lg)
+    return sorted(table.items(), key=lambda kv: kv[0] != 0)
+
+
+def expec_sharded(amps, coeffs, plan: ExpecPlan) -> torch.Tensor:
+    """sum_t c_t <P_t> of a sharded register (a parallel.ShardedAmps):
+    a 0-dim f64 tensor on the first shard's device, differentiable in the
+    shards and the coefficients (ref expec_sharded :625). Statevector
+    plans: per group and shard the in-shard evaluator, reading a global
+    mask's flipped amplitudes from the partner shard the mask's one
+    exchange brought; density plans: each shard's own columns, no
+    exchange."""
+    mesh = amps.mesh
+    local_n = amps.local_n
+    cf = torch.as_tensor(coeffs, dtype=amps.dtype, device=amps.device)
+    acc = precision.torch_dtype(precision.accum_dtype(amps.dtype))
+    views = amps.views()
+    cfs = [_shard_coeffs(cf, plan, local_n, d, v.device)
+           for d, v in enumerate(views)]
+    parts = [torch.zeros((), dtype=acc, device=v.device) for v in views]
+    if plan.density:
+        for d, v in enumerate(views):
+            parts[d] = parts[d] + _density_shard_value(
+                v, cf.to(v.device), plan, d, local_n, acc)
+        return mesh.reduce(parts)
+    for mask, groups in _by_mask(plan, local_n):
+        src = mesh.permute(views, None, mask=mask) if mask else None
+        for d, v in enumerate(views):
+            for lg in groups:
+                val = _group_value_sv(v, cfs[d], lg, local_n, acc,
+                                      src=None if src is None else src[d])
+                if val is not None:
+                    parts[d] = parts[d] + val
+        del src
+    return mesh.reduce(parts)
+
+
+def _density_shard_value(x: torch.Tensor, cf: torch.Tensor,
+                         plan: ExpecPlan, d: int, local_n: int, acc):
+    """Re sum_t c_t Tr(P_t rho) over the columns shard d holds: column c
+    contributes i^ny (-1)^parity(k & zy) rho[k, c] at k = c ^ x, an entry
+    of the same column. Needs whole columns on the shard."""
+    N = plan.n // 2
+    dim = 1 << N
+    cols = (1 << local_n) // dim
+    if cols < 1:
+        raise val.QuESTError(
+            "Invalid operation: calcExpecPauliSum cannot run on a sharded "
+            "register: a density register needs 2^numQubits >= the mesh "
+            "size (whole columns on each shard)")
+    c = torch.arange(d * cols, (d + 1) * cols, device=x.device)
+    total = torch.zeros((), dtype=acc, device=x.device)
+    for g in plan.groups:
+        xm = sum(1 << q for q in g.x_bits)
+        k = c ^ xm
+        off = (c - d * cols) * dim + k
+        r, m = x[0][off].to(acc), x[1][off].to(acc)
+        for t in g.terms:
+            par = torch.zeros_like(k)
+            for b in t.zy_bits:
+                par ^= (k >> b) & 1
+            sgn = (1 - 2 * par).to(acc)
+            (plane, f), = _QUARTER_PLANES[t.ny % 4]
+            v = (r if plane == "re" else m) * sgn
+            total = total + cf[t.index].to(acc) * f * v.sum()
+    return total
+
+
+def apply_pauli_sum_planes_sharded(amps, coeffs, plan: ExpecPlan):
+    """A new ShardedAmps holding (sum_t c_t P_t)|a> of a sharded register
+    (ref :552): per shard the in-shard apply of each local group, reading
+    the partner shard one exchange per distinct global flip mask brought,
+    the global zy bits as a per-shard coefficient sign. Statevector plans
+    only; differentiable."""
+    from quest_tpu_torch.parallel.mesh import ShardedAmps
+    assert not plan.density
+    mesh = amps.mesh
+    local_n = amps.local_n
+    cf = torch.as_tensor(coeffs, dtype=amps.dtype, device=amps.device)
+    views = amps.views()
+    cfs = [_shard_coeffs(cf, plan, local_n, d, v.device)
+           for d, v in enumerate(views)]
+    outs = [torch.zeros_like(v) for v in views]
+    for mask, groups in _by_mask(plan, local_n):
+        src = mesh.permute(views, None, mask=mask) if mask else views
+        if src is None:
+            continue
+        for d in range(len(views)):
+            outs[d] = _apply_groups(src[d], cfs[d], groups, local_n,
+                                    out=outs[d])
+        del src
+    return ShardedAmps(outs, mesh, amps.n)
 
 
 def plan_stats(all_codes, num_qubits: int, *, density: bool = False) -> dict:

@@ -15,6 +15,12 @@ ops/apply, so there is nothing to cache or key. Contractions run at the
 session's matmul tier (precision.matmul_precision(), read per call).
 Parameterised gates build their operator on the host in f64 and hand it
 to the primitive, which rounds it to the plane dtype.
+
+On a sharded register (parallel.ShardedAmps) each gate is one GateOp
+through the sharded per-gate engine's applier (parallel/eager.py
+apply_ops: `sharded._apply_gateop`, its density dual inline), so a gate
+on a global qubit issues the reference's pair exchanges on the
+register's mesh; nothing is built or cached per call.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from quest_tpu_torch import precision
 from quest_tpu_torch import validation as val
 from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import matrices as M
+from quest_tpu_torch.parallel import eager as SE
 
 
 def _shift(qubits, by: int):
@@ -39,6 +46,12 @@ def _tier() -> str:
     return precision.matmul_precision()
 
 
+def _gateop(kind, targets, operand, controls=(), cstates=()):
+    from quest_tpu_torch.circuit import GateOp
+    return GateOp(kind, tuple(targets), tuple(controls), tuple(cstates),
+                  operand)
+
+
 def _run(q, op, targets, controls=(), cstates=None, diagonal=False):
     """Apply the matrix (or, `diagonal`, the diagonal) `op` to `targets`
     under `controls` in place; on a density register its conjugate on
@@ -48,6 +61,10 @@ def _run(q, op, targets, controls=(), cstates=None, diagonal=False):
     cstates = (tuple(int(s) for s in cstates) if cstates is not None
                else (1,) * len(controls))
     op = np.asarray(op, dtype=np.complex128)
+    if SE.is_sharded(q):
+        return SE.apply_ops(q, [_gateop("diagonal" if diagonal else "matrix",
+                                        targets, op, controls, cstates)],
+                            q.is_density)
     n = q.num_state_qubits
     amps = q.amps
 
@@ -65,6 +82,9 @@ def _run(q, op, targets, controls=(), cstates=None, diagonal=False):
 def _phase_all_ones(q, qubits, term: complex):
     n = q.num_state_qubits
     qubits = tuple(int(x) for x in qubits)
+    if SE.is_sharded(q):
+        return SE.apply_ops(q, [_gateop("allones", qubits, complex(term))],
+                            q.is_density)
     A.apply_phase_on_all_ones(q.amps, n, qubits, term)
     if q.is_density:
         A.apply_phase_on_all_ones(q.amps, n, _shift(qubits, n // 2),
@@ -231,6 +251,9 @@ def multi_rotate_z(q, qubits: Sequence[int], angle):
     val.validate_multi_targets(q, qubits)
     n = q.num_state_qubits
     qubits = tuple(int(x) for x in qubits)
+    if SE.is_sharded(q):
+        return SE.apply_ops(q, [_gateop("parity", qubits, float(angle))],
+                            q.is_density)
     A.apply_parity_phase(q.amps, n, qubits, float(angle))
     if q.is_density:
         A.apply_parity_phase(q.amps, n, _shift(qubits, n // 2), -float(angle))
@@ -269,6 +292,14 @@ def multi_rotate_pauli(q, targets: Sequence[int], paulis: Sequence[int],
         term[int(t)] = int(p)
     if not any(term):
         return q
+    if SE.is_sharded(q):
+        # basis rotations around a parity phase (Circuit.multi_rotate_pauli),
+        # each through the sharded applier with its dual
+        from quest_tpu_torch.circuit import Circuit
+        c = Circuit(q.num_qubits).multi_rotate_pauli(
+            tuple(int(t) for t in targets), tuple(int(p) for p in paulis),
+            float(angle))
+        return SE.apply_ops(q, c.ops, q.is_density)
     _pauli_rotation(q.amps, n, term, float(angle), conj=False)
     if q.is_density:
         dual = [0] * n
@@ -343,6 +374,14 @@ def apply_pauli_prod(q, targets: Sequence[int], paulis: Sequence[int]):
     term = [0] * q.num_state_qubits
     for t, p in zip(targets, paulis):
         term[int(t)] = int(p)
+    if SE.is_sharded(q):
+        # one single-qubit Pauli a target (exact: each only permutes,
+        # negates or multiplies by i); the row space only, no duals
+        mats = {1: M.PAULI_X, 2: M.PAULI_Y}
+        ops = [_gateop("diagonal", (t,), M.Z_DIAG) if p == 3
+               else _gateop("matrix", (t,), mats[p])
+               for t, p in enumerate(term) if p]
+        return SE.apply_ops(q, ops, False)
     A.apply_pauli_string(q.amps, q.num_state_qubits, term)
     return q
 
@@ -354,6 +393,8 @@ def set_weighted_qureg(fac1, q1, fac2, q2, fac_out, out):
     val.validate_match(q1, out)
     val.validate_matching_types(q1, q2)
     val.validate_matching_types(q1, out)
+    if SE.is_sharded(q1) or SE.is_sharded(q2) or SE.is_sharded(out):
+        return SE.weighted((fac1, fac2, fac_out), (q1, q2), out)
     rdt = out.real_dtype
     f = [rdt.type(x) for c in (fac1, fac2, fac_out)
          for x in (complex(c).real, complex(c).imag)]

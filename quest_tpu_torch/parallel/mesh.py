@@ -107,19 +107,28 @@ class AmpMesh:
 
     # -- exchanges ----------------------------------------------------------
 
-    def permute(self, blocks: Sequence, gbit: int, out: Sequence = None):
+    def permute(self, blocks: Sequence, gbit: int, out: Sequence = None,
+                mask: int = None):
         """Pair exchange over device bit `gbit`: shard d receives
         blocks[d ^ 2^gbit] (a tensor or a view on that shard's device)
         into a new contiguous buffer on its own device, or into out[d]
         when given; returns the received list (None on a dry mesh). Every
         shard receives before the caller writes anything, so the copies
-        never read an overwritten block. Records one 'cp'."""
+        never read an overwritten block. `mask` (gbit None) pairs d with
+        d ^ mask over several device bits at once, the Pauli flip
+        exchange of the expectation engines (ref ops/expec.py:515).
+        Records one 'cp' (its bit the mask's tuple of bits when
+        `mask` is given)."""
         elems = blocks[0].numel()
+        if mask is not None:
+            bit = int(mask)
+            tag = tuple(b for b in range(bit.bit_length()) if bit >> b & 1)
+        else:
+            bit, tag = 1 << gbit, gbit
         self.recorder.record("cp", elems, elems * blocks[0].element_size(),
-                             gbit)
+                             tag)
         if self.dry:
             return None
-        bit = 1 << gbit
         recv = []
         for d, dev in enumerate(self.devices):
             src = blocks[d ^ bit]
@@ -205,6 +214,29 @@ class ShardedAmps:
     shards: List[torch.Tensor]
     mesh: AmpMesh
     n: int
+
+    # the accessors a register's eager functions read; no reshape: a
+    # whole-state view would gather (`gather` is the explicit one)
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def local_n(self) -> int:
+        return self.n - self.mesh.global_qubits
+
+    def views(self) -> List[torch.Tensor]:
+        """Each shard as its flat (2, 2^local_n) planes (a view)."""
+        m = 1 << self.local_n
+        return [s.view(2, m) for s in self.shards]
+
+    def clone(self) -> "ShardedAmps":
+        return ShardedAmps([s.clone() for s in self.shards], self.mesh,
+                           self.n)
 
     def gather(self, device=None) -> torch.Tensor:
         """The full planes ((2, 2^n), or (B, 2, 2^n) for a batch) on

@@ -759,23 +759,34 @@ class ShardedProgram:
             for it in self.items:
                 _apply_plan_item(xs, mesh, self.local_n, self.n, it, self.tier)
             return
+        for i in range(len(self.parts)):
+            self._part(i, shards, xs, mesh, plain)
+
+    def _part(self, i, shards, xs, mesh, plain=False):
         from quest_tpu_torch.ops.segment import (segment_sweep,
                                                  segment_sweep_reference)
-        for i, part in enumerate(self.parts):
-            if part[0] != "segment":
-                _apply_plan_item(xs, mesh, self.local_n, self.n, part[1],
-                                 self.tier)
-                continue
-            if mesh.dry:
-                continue
-            for d, s in enumerate(shards):
-                seg = self.segments[(i, str(mesh.devices[d]))]
-                if plain:
-                    out = segment_sweep_reference(s, seg.stages, seg.operands,
-                                                  self.local_n, tier=seg.tier)
-                    s.copy_(out.reshape(s.shape))
-                else:
-                    segment_sweep(s, seg)
+        part = self.parts[i]
+        if part[0] != "segment":
+            _apply_plan_item(xs, mesh, self.local_n, self.n, part[1],
+                             self.tier)
+            return
+        if mesh.dry:
+            return
+        for d, s in enumerate(shards):
+            seg = self.segments[(i, str(mesh.devices[d]))]
+            if plain:
+                out = segment_sweep_reference(s, seg.stages, seg.operands,
+                                              self.local_n, tier=seg.tier)
+                s.copy_(out.reshape(s.shape))
+            else:
+                segment_sweep(s, seg)
+
+    def run_part(self, i: int, x) -> ShardedAmps:
+        """Part i of a fused program alone, in place (the durable
+        executor's step: one launch per shard, or one sharded item)."""
+        amps, xs = self._views(x)
+        self._part(i, amps.shards, xs, amps.mesh)
+        return amps
 
     def plain(self, x) -> ShardedAmps:
         """The same program with every kernel part through its plain
@@ -1192,7 +1203,12 @@ def compile_circuit_sharded_measured(ops: Sequence, n: int, density: bool,
 
 def apply_circuit_sharded(q, ops: Sequence, mesh: AmpMesh):
     """One-shot per-gate engine on a register (ref apply_circuit_sharded):
-    returns the register with its planes sharded over the mesh."""
+    returns the register with its planes sharded over the mesh. The
+    `sharded.dispatch` fault site fires before the dispatch."""
+    from quest_tpu_torch.resilience import faults
+    if faults.ACTIVE:
+        faults.check("sharded.dispatch", num_qubits=q.num_qubits,
+                     num_ops=len(ops))
     amps = q.amps if isinstance(q.amps, ShardedAmps) else shard_planes(
         q.amps, mesh, q.num_state_qubits)
     fn = compile_circuit_sharded(ops, q.num_state_qubits, q.is_density, mesh)

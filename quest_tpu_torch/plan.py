@@ -29,8 +29,14 @@ is skipped loudly (stderr and a counter) to a fresh price, never read.
 reference's 'comm' record: the comm planner's predicted schedule of the
 banded/fused sharded engines over that many shards, pure host math
 (parallel.sharded.comm_plan_record). The priced sharded search
-(`autotune(mesh=, devices=, topology=)`) waits for ROADMAP A10b and
-raises NotImplementedError.
+(`autotune(mesh=, devices=, topology=)`, ref plan.py:419-600) prices the
+sharded families on the shard: the banded engine's local passes plus the
+comm planner's predicted exchange bytes (comm.choose_plan, the same
+record build_plan(devices=) gives) as device-local copies at the card's
+measured stage-free sweep rate, every comm strategy the planner priced
+as an advisory candidate, and the fused engine projected from the
+unsharded fused/banded pass ratio; the incumbent (sharded-banded) wins
+ties. A mesh's plan key carries its device tuple.
 """
 
 from __future__ import annotations
@@ -68,16 +74,6 @@ def cache_stats() -> dict:
 def reset_cache_stats() -> None:
     for k in _CACHE_STATS:
         _CACHE_STATS[k] = 0
-
-
-def _no_sharding(*args) -> None:
-    """Raise for the sharded search's arguments (mesh=, devices=,
-    topology=)."""
-    if any(a is not None for a in args):
-        raise NotImplementedError(
-            "the priced sharded plan search (autotune mesh= / devices= / "
-            "topology=) is not ported yet (ROADMAP A10b); "
-            "build_plan(devices=) gives the comm record")
 
 
 # ---------------------------------------------------------------------------
@@ -275,10 +271,13 @@ def _plan_extra(circuit, density: bool) -> dict:
     return dict(fn(density)) if callable(fn) else {}
 
 
-def _incumbent_engine(circuit) -> str:
-    """The engine Circuit.apply dispatches without the autotuner: banded
-    above PERGATE_COMPILE_WARN_OPS ops of a channel-free circuit under
-    QUEST_APPLY_AUTOROUTE, else per-gate (circuit.py, Circuit.apply)."""
+def _incumbent_engine(circuit, devices: Optional[int] = None) -> str:
+    """The engine the stack dispatches without the autotuner: on shards
+    the banded sharded engine (ref :333); else Circuit.apply's choice,
+    banded above PERGATE_COMPILE_WARN_OPS ops of a channel-free circuit
+    under QUEST_APPLY_AUTOROUTE, per-gate otherwise."""
+    if devices is not None:
+        return "sharded-banded"
     from quest_tpu_torch.circuit import PERGATE_COMPILE_WARN_OPS
     if (len(circuit.ops) > PERGATE_COMPILE_WARN_OPS
             and not any(op.kind == "superop" for op in circuit.ops)
@@ -349,13 +348,29 @@ def _pass_scale(n: int, dtype) -> float:
     return (1 << n) / (1 << 30) * (np.dtype(dtype).itemsize / 4.0)
 
 
+def _comm_ms(elem_bytes: float, bytes_per_real: int, model: dict) -> float:
+    """An exchange's price: its bytes as a device-local copy (read once,
+    written once) at the rate of the card's measured stage-free sweep,
+    which reads and writes both planes of 2^30 f32 amplitudes (16 GiB
+    moved) in model['base_pass'] ms."""
+    moved = 2.0 * float(elem_bytes) * bytes_per_real
+    return moved / float(16 << 30) * model["base_pass"]
+
+
 def _cost_rec(lo: float, hi: float, passes: int, *, compile_ops: int,
+              comm_elem_bytes: float = 0.0, comm_steps: int = 0,
+              bytes_per_real: int = 4, model: dict = None,
               selectable: bool = True) -> dict:
+    comm_ms = (_comm_ms(comm_elem_bytes, bytes_per_real, model)
+               if comm_elem_bytes else 0.0)
     return {"est_ms_lo": round(float(lo), 6),
             "est_ms_hi": round(float(hi), 6),
             "hbm_passes": int(passes),
             "compile_ops": int(compile_ops),
-            "total_ms": round((float(lo) + float(hi)) / 2, 6),
+            "comm_elem_bytes": float(comm_elem_bytes),
+            "comm_steps": int(comm_steps),
+            "comm_ms": round(comm_ms, 6),
+            "total_ms": round((float(lo) + float(hi)) / 2 + comm_ms, 6),
             "selectable": bool(selectable)}
 
 
@@ -373,11 +388,14 @@ def _price_pergate(num_flat: int, n: int, model: dict, dtype) -> dict:
 
 
 def _price_banded(banded_stats: dict, n: int, model: dict, dtype,
-                  selectable: bool = True) -> dict:
+                  selectable: bool = True, comm_elem_bytes: float = 0.0,
+                  comm_steps: int = 0, bytes_per_real: int = 4) -> dict:
     # fusion.plan_stats's pass model at the card's ms per full-state pass
     passes = banded_stats["full_state_passes"]
     ms = passes * model["banded_pass"] * _pass_scale(n, dtype)
     return _cost_rec(ms, ms, passes, compile_ops=passes,
+                     comm_elem_bytes=comm_elem_bytes, comm_steps=comm_steps,
+                     bytes_per_real=bytes_per_real, model=model,
                      selectable=selectable)
 
 
@@ -412,6 +430,59 @@ def _enumerate_candidates(n: int, dtype, recs: dict, model: dict) -> dict:
     return cands
 
 
+def _enumerate_sharded(n: int, dtype, recs: dict, model: dict,
+                       devices: int, topology) -> dict:
+    """The sharded families (ref plan.py:459-505): the banded engine's
+    local passes on the shard plus the comm planner's predicted bytes of
+    the strategy it chose; every other strategy it priced as an advisory
+    candidate; the fused engine projected from the unsharded fused/banded
+    pass ratio (it runs the same segment geometry per shard between the
+    same exchanges), selectable on f32 planes and a kernel-tier shard."""
+    from quest_tpu_torch import precision
+    from quest_tpu_torch.parallel import comm as C
+    from quest_tpu_torch.parallel import sharded as S
+
+    f32 = np.dtype(dtype).itemsize <= 4
+    local_n = n - (devices.bit_length() - 1)
+    topo = topology if topology is not None else C.topology(devices)
+    bands = S._shard_bands(n, local_n)
+    chosen, cinfo = C.choose_plan(recs["planned"], n, local_n,
+                                  engine="banded", bands=bands, topo=topo)
+    strategy = cinfo["strategy"]
+    comm_cost = cinfo["candidates"][strategy]
+    bpr = precision.real_dtype_of(
+        precision.complex_dtype_of(np.dtype(dtype))).itemsize
+    items = cinfo.get("items")
+    if items is None:
+        items = F.plan(chosen, n, bands=bands)
+    bstats = F.plan_stats(items)
+    cands: Dict[str, dict] = {}
+    for name, cc in cinfo["candidates"].items():
+        if name == strategy:
+            continue
+        cands[f"sharded-banded:comm={name}"] = _price_banded(
+            bstats, local_n, model, dtype,
+            comm_elem_bytes=cc["elem_bytes"], comm_steps=cc["exchanges"],
+            bytes_per_real=bpr, selectable=False)
+    sb = _price_banded(bstats, local_n, model, dtype,
+                       comm_elem_bytes=comm_cost["elem_bytes"],
+                       comm_steps=comm_cost["exchanges"],
+                       bytes_per_real=bpr)
+    cands["sharded-banded"] = sb
+    if BP.usable(local_n) and recs["fused"] is not None:
+        ratio = (recs["fused"]["hbm_sweeps"]
+                 / max(1, recs["banded"]["full_state_passes"]))
+        base = _price_banded(bstats, local_n, model, dtype)
+        cands["sharded-fused"] = _cost_rec(
+            base["est_ms_lo"] * ratio, base["est_ms_hi"] * ratio,
+            max(1, int(round(bstats["full_state_passes"] * ratio))),
+            compile_ops=recs["fused"]["hbm_sweeps"],
+            comm_elem_bytes=comm_cost["elem_bytes"],
+            comm_steps=comm_cost["exchanges"], bytes_per_real=bpr,
+            model=model, selectable=f32)
+    return cands
+
+
 # ---------------------------------------------------------------------------
 # the autotuner
 # ---------------------------------------------------------------------------
@@ -425,19 +496,37 @@ def autotune(circuit, state_kind: str = "pure", mesh=None, topology=None,
     `state_kind` 'pure' or 'density'; `persist` None follows
     QUEST_PLAN_CACHE (load from / store to plan_cache_dir()); `device`
     names the card the plan is for (default: the current one, or 'cpu'
-    without a card). mesh=/devices=/topology= wait for ROADMAP A10b."""
+    without a card). `mesh` (a parallel.AmpMesh) or `devices` (a shard
+    count) selects the sharded families; `topology` (a comm.Topology)
+    overrides the QUEST_COMM_TOPOLOGY resolution of the comm pricing."""
     if state_kind not in ("pure", "density"):
         raise ValueError(
             f"state_kind must be 'pure' or 'density', got {state_kind!r}")
-    _no_sharding(devices, mesh, topology)
     circuit._reject_measure("plan.autotune")
+    mesh_key = None
+    if mesh is not None:
+        if devices is not None:
+            raise ValueError("pass mesh= or devices=, not both")
+        devices = int(mesh.size)
+        mesh_key = list(mesh.key)
+        if device is None:
+            device = mesh.devices[0]
+    if devices is not None:
+        devices = int(devices)
+        if devices < 2 or devices & (devices - 1):
+            raise ValueError(
+                f"devices must be a power of two >= 2, got {devices}")
+    elif topology is not None:
+        raise ValueError("topology= prices the sharded families: pass "
+                         "mesh= or devices= with it")
     density = state_kind == "density"
     n = circuit.num_qubits * 2 if density else circuit.num_qubits
     if persist is None:
         persist = bool(knob_value("QUEST_PLAN_CACHE"))
     kind = device_kind(device)
     key = plan_key(circuit, density=density, dtype=dtype, batch=batch,
-                   kind=kind)
+                   kind=kind, devices=devices, topology=topology,
+                   mesh_key=mesh_key)
     if key is None:
         _CACHE_STATS["unkeyed"] += 1
     elif persist:
@@ -450,21 +539,25 @@ def autotune(circuit, state_kind: str = "pure", mesh=None, topology=None,
     from quest_tpu_torch.circuit import _cost_model_for
     model = _cost_model_for(kind)[0]
     recs = _subsystem_records(circuit, n, density, batch)
-    cands = _enumerate_candidates(n, dtype, recs, model)
-    incumbent = _incumbent_engine(circuit)
+
+    def enumerate_for(recs_):
+        if devices is None:
+            return _enumerate_candidates(n, dtype, recs_, model)
+        return _enumerate_sharded(n, dtype, recs_, model, devices, topology)
+    cands = enumerate_for(recs)
+    incumbent = _incumbent_engine(circuit, devices)
     # the transpile axis: the rewritten stream's candidates beside the raw
     # ones; under 'auto' the raw incumbent still wins ties, under '1' the
     # transpiled family is preferred whenever the rewrite changed anything
     tr_rec, tr_c = _transpile_record(circuit, n, density, recs)
     if tr_c is not None:
         recs_t = _subsystem_records(tr_c, n, density, batch)
-        for cname, cval in _enumerate_candidates(n, dtype, recs_t,
-                                                 model).items():
+        for cname, cval in enumerate_for(recs_t).items():
             cands[f"{cname}:transpiled"] = cval
     selectable = {k: v for k, v in cands.items() if v["selectable"]}
     best, pool = incumbent, selectable
     if tr_rec is not None and tr_rec["knob"] == "1" and tr_c is not None:
-        inc_t = _incumbent_engine(tr_c) + ":transpiled"
+        inc_t = _incumbent_engine(tr_c, devices) + ":transpiled"
         pool_t = {k: v for k, v in selectable.items()
                   if k.endswith(":transpiled")}
         if inc_t in pool_t:
@@ -478,19 +571,29 @@ def autotune(circuit, state_kind: str = "pure", mesh=None, topology=None,
         version=PLAN_FORMAT_VERSION, key=key,
         num_qubits=circuit.num_qubits, n=n, density=density,
         dtype=np.dtype(dtype).str,
-        batch=None if batch is None else int(batch), devices=None,
+        batch=None if batch is None else int(batch), devices=devices,
         engine=best, incumbent=incumbent, source="search",
         cost=cands[best], candidates=cands,
         scheduled=recs["enabled"], flat_ops=len(recs["flat"]),
         planned_ops=len(recs["planned"]), scheduler=recs["scheduler"],
         banded=recs["banded"], fused=recs["fused"],
-        batched=recs["batched"], f64=recs["f64"], comm=None,
+        batched=recs["batched"], f64=recs["f64"],
+        comm=(None if devices is None else _comm_record(
+            circuit, n, density, devices, dtype)),
         extra=_plan_extra(circuit, density),
         grad=_grad_record(circuit, density, dtype),
         transpile=tr_rec, device_kind=kind)
     if persist and key is not None:
         save_plan(plan)
     return plan
+
+
+def _comm_record(circuit, n: int, density: bool, devices: int,
+                 dtype) -> dict:
+    from quest_tpu_torch import precision
+    from quest_tpu_torch.parallel import sharded as S
+    return S.comm_plan_record(circuit.ops, n, density, int(devices),
+                              dtype=precision.complex_dtype_of(dtype))
 
 
 def planned_circuit(circuit, plan: ProgramPlan):
@@ -502,12 +605,20 @@ def planned_circuit(circuit, plan: ProgramPlan):
     return circuit
 
 
-def compiled_for(circuit, plan: ProgramPlan, device=None):
+def compiled_for(circuit, plan: ProgramPlan, device=None, mesh=None):
     """The chosen engine's compiled program of `circuit` on `device`
     (default: the CUDA card): Circuit.compiled, compiled_banded or
-    compiled_fused of the (maybe transpiled) stream."""
+    compiled_fused of the (maybe transpiled) stream; a sharded plan's
+    compiled_sharded_banded / _fused over `mesh`."""
     c = planned_circuit(circuit, plan)
     engine = plan.engine.split(":")[0]
+    if engine.startswith("sharded-"):
+        if mesh is None:
+            raise ValueError(f"plan engine {plan.engine!r} runs on a mesh: "
+                             f"pass mesh=")
+        build = {"sharded-banded": c.compiled_sharded_banded,
+                 "sharded-fused": c.compiled_sharded_fused}[engine]
+        return build(plan.n, plan.density, mesh)
     build = {"pergate": c.compiled, "banded": c.compiled_banded,
              "fused": c.compiled_fused}[engine]
     return build(plan.n, plan.density, device=device)
@@ -519,13 +630,18 @@ def compiled_for(circuit, plan: ProgramPlan, device=None):
 
 def plan_key(circuit, *, density: bool, dtype, batch: Optional[int],
              devices: Optional[int] = None, topology=None,
-             kind: str = None) -> Optional[str]:
+             kind: str = None, mesh_key=None) -> Optional[str]:
     """sha256 over the op stream's values and everything the priced answer
-    depends on: register kind, plane dtype, batch, the device kind,
+    depends on: register kind, plane dtype, batch, the device kind, the
+    shard count, its topology model and a mesh's device tuple,
     engine_mode_key() and the port's format tag (ref plan.py:633). None
     when an operand cannot be rendered (a tensor that needs grad)."""
     from quest_tpu_torch.circuit import _op_fingerprint
-    _no_sharding(devices, topology)
+    topo_desc = None
+    if devices is not None:
+        from quest_tpu_torch.parallel import comm as C
+        topo = topology if topology is not None else C.topology(devices)
+        topo_desc = topo.describe(devices)
     ops_fp = []
     for op in circuit.ops:
         fp = _op_fingerprint(op)
@@ -543,6 +659,9 @@ def plan_key(circuit, *, density: bool, dtype, batch: Optional[int],
         "device_kind": kind if kind is not None else device_kind(),
         "mode": [[k, repr(v)] for k, v in engine_mode_key()],
     }
+    if devices is not None:
+        ident.update({"devices": int(devices), "topology": topo_desc,
+                      "mesh": mesh_key})
     return hashlib.sha256(json.dumps(
         ident, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
 

@@ -25,6 +25,11 @@ The initialisers and setters of ref quest_tpu/state.py:152-370
 init_state_from_amps, set_amps, set_density_amps) write into the
 register's own planes, on its device, and return it; `clone` gives a
 register of its own buffer. The getters read single amplitudes.
+
+A register whose planes are a parallel.ShardedAmps (parallel.shard_qureg,
+or create_qureg(env=) over a QuESTEnv of several shards) runs every one
+of these on its shards (parallel/eager.py): each shard writes or reads
+its own slice, and nothing gathers but `to_dense`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from quest_tpu_torch import precision
 from quest_tpu_torch import validation
 from quest_tpu_torch.env import resolve_device
 from quest_tpu_torch.ops.band_plan import LANE_QUBITS, LANES, usable
+from quest_tpu_torch.parallel import eager as SE
 
 
 @dataclasses.dataclass
@@ -45,7 +51,8 @@ class Qureg:
     """Statevector or density-matrix register.
 
     amps: (2, 2**num_state_qubits) real tensor — [0] real, [1] imag
-    planes; num_state_qubits is 2N for a density matrix over N qubits.
+    planes — or a parallel.ShardedAmps of them; num_state_qubits is 2N
+    for a density matrix over N qubits.
     """
 
     amps: torch.Tensor
@@ -95,30 +102,47 @@ def fused_state_shape(n: int):
     return (2, 1 << (n - LANE_QUBITS), LANES)
 
 
-def _make(num_qubits: int, is_density: bool, dtype, device) -> Qureg:
+def _make(num_qubits: int, is_density: bool, dtype, device, env) -> Qureg:
     validation.validate_num_qubits(num_qubits)
     dtype = np.dtype(dtype) if dtype is not None else precision.DEFAULT_DTYPE
     rdt = precision.real_dtype_of(dtype)
     n = 2 * num_qubits if is_density else num_qubits
-    amps = basis_planes(0, n=n, rdt=rdt, device=device)
+    mesh = env.sharding_for(n) if env is not None else None
+    if device is None and env is not None:
+        device = env.device
+    if mesh is not None:
+        m = 1 << (n - mesh.global_qubits)
+        shards = [torch.zeros((2, m), dtype=precision.torch_dtype(rdt),
+                              device=dev) for dev in mesh.devices]
+        shards[0][0, 0] = 1.0
+        amps = SE.ShardedAmps(shards, mesh, n)
+    else:
+        amps = basis_planes(0, n=n, rdt=rdt, device=device)
     return Qureg(amps=amps, num_qubits=num_qubits, is_density=is_density)
 
 
-def create_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
+def create_qureg(num_qubits: int, dtype=None, device=None,
+                 env=None) -> Qureg:
     """Statevector register initialized to |0...0> (ref: QuEST.c:34-46):
-    f32 planes for complex64 (the default), f64 for complex128."""
-    return _make(num_qubits, False, dtype, device)
+    f32 planes for complex64 (the default), f64 for complex128. Under an
+    `env` over several shards (QuESTEnv(devices=) / QuESTEnv(mesh=)) the
+    planes are sharded over its mesh when the register holds at least two
+    amplitudes a shard (QuESTEnv.sharding_for)."""
+    return _make(num_qubits, False, dtype, device, env)
 
 
-def create_density_qureg(num_qubits: int, dtype=None, device=None) -> Qureg:
+def create_density_qureg(num_qubits: int, dtype=None, device=None,
+                         env=None) -> Qureg:
     """Density-matrix register initialized to |0..0><0..0| (ref:
     QuEST.c:48-60): 2N state qubits, f32 planes for complex64 (the
-    default), f64 for complex128."""
-    return _make(num_qubits, True, dtype, device)
+    default), f64 for complex128; sharded under `env` as create_qureg."""
+    return _make(num_qubits, True, dtype, device, env)
 
 
 def init_zero_state(qureg: Qureg) -> Qureg:
     """|0...0> or |0..0><0..0|."""
+    if SE.is_sharded(qureg):
+        return SE.init_zero_state(qureg)
     amps = torch.zeros_like(qureg.amps.reshape(2, -1))
     amps[0, 0] = 1.0
     return qureg.replace_amps(amps)
@@ -127,6 +151,8 @@ def init_zero_state(qureg: Qureg) -> Qureg:
 def init_plus_state(qureg: Qureg) -> Qureg:
     """|+>^N; density: the uniform matrix 1/2^N (ref
     QuEST_cpu.c:1406-1473)."""
+    if SE.is_sharded(qureg):
+        return SE.init_plus_state(qureg)
     n = qureg.num_qubits
     val = 1.0 / (1 << n) if qureg.is_density else 1.0 / np.sqrt(1 << n)
     amps = torch.zeros_like(qureg.amps.reshape(2, -1))
@@ -140,6 +166,8 @@ def init_classical_state(qureg: Qureg, state_index: int) -> Qureg:
     flat = state_index
     if qureg.is_density:
         flat = state_index + (state_index << qureg.num_qubits)
+    if SE.is_sharded(qureg):
+        return SE.init_classical_state(qureg, flat)
     amps = torch.zeros_like(qureg.amps.reshape(2, -1))
     amps[0, flat] = 1.0
     return qureg.replace_amps(amps)
@@ -149,6 +177,8 @@ def init_debug_state(qureg: Qureg) -> Qureg:
     """Deterministic unphysical state: amp[k] = (2k + i(2k+1))/10, the
     reference's initDebugState (QuEST_cpu.c:1559-1590), computed in the
     plane dtype exactly as quest_tpu.state.init_debug_state does."""
+    if SE.is_sharded(qureg):
+        return SE.init_debug_state(qureg)
     k = torch.arange(qureg.num_amps, dtype=qureg.amps.dtype,
                      device=qureg.amps.device)
     return qureg.replace_amps(
@@ -158,7 +188,7 @@ def init_debug_state(qureg: Qureg) -> Qureg:
 def clone(qureg: Qureg) -> Qureg:
     """A copy in a buffer of its own (ref createCloneQureg,
     QuEST.c:62-72)."""
-    return qureg.replace_amps(qureg.amps.clone())
+    return qureg.replace_amps(qureg.amps.clone())   # ShardedAmps.clone too
 
 
 def _flat(qureg: Qureg) -> torch.Tensor:
@@ -167,6 +197,8 @@ def _flat(qureg: Qureg) -> torch.Tensor:
 
 def init_blank_state(qureg: Qureg) -> Qureg:
     """Every amplitude zero (an unphysical state)."""
+    if SE.is_sharded(qureg):
+        return SE.init_blank_state(qureg)
     _flat(qureg).zero_()
     return qureg
 
@@ -179,6 +211,8 @@ def init_state_of_single_qubit(qureg: Qureg, qubit: int,
     validation.validate_state_vector(qureg)
     validation.validate_target(qureg, qubit)
     validation.validate_outcome(outcome)
+    if SE.is_sharded(qureg):
+        return SE.init_state_of_single_qubit(qureg, qubit, outcome)
     n = qureg.num_state_qubits
     amps = _flat(qureg)
     amps.zero_()
@@ -192,6 +226,8 @@ def init_pure_state(qureg: Qureg, pure: Qureg) -> Qureg:
     densmatr_initPureState, QuEST.c:139-146), a block of columns at a
     time."""
     validation.validate_pure_state_args(qureg, pure)
+    if SE.is_sharded(qureg):
+        return SE.init_pure_state(qureg, pure)
     amps = _flat(qureg)
     src = pure.amps.reshape(2, -1).to(device=amps.device, dtype=amps.dtype)
     if not qureg.is_density:
@@ -210,11 +246,19 @@ def init_pure_state(qureg: Qureg, pure: Qureg) -> Qureg:
     return qureg
 
 
-def _host_pair(reals, imags, amps: torch.Tensor) -> torch.Tensor:
+def _host_pair(reals, imags, amps) -> torch.Tensor:
     rdt = precision.numpy_dtype(amps.dtype)
     pair = np.stack([np.asarray(reals, dtype=rdt).reshape(-1),
                      np.asarray(imags, dtype=rdt).reshape(-1)])
     return torch.from_numpy(pair).to(amps.device)
+
+
+def _write(qureg: Qureg, start: int, pair: torch.Tensor) -> Qureg:
+    """The (2, L) planes `pair` at flat amplitudes [start, start + L)."""
+    if SE.is_sharded(qureg):
+        return SE.write_range(qureg, start, pair)
+    _flat(qureg)[:, start:start + pair.shape[1]] = pair
+    return qureg
 
 
 def init_state_from_amps(qureg: Qureg, reals, imags) -> Qureg:
@@ -226,8 +270,7 @@ def init_state_from_amps(qureg: Qureg, reals, imags) -> Qureg:
     if reals.size != qureg.num_amps:
         raise validation.QuESTError(
             "Invalid number of amplitudes: must match the register size")
-    _flat(qureg).copy_(_host_pair(reals, imags, qureg.amps))
-    return qureg
+    return _write(qureg, 0, _host_pair(reals, imags, qureg.amps))
 
 
 def set_amps(qureg: Qureg, start_index: int, reals, imags) -> Qureg:
@@ -237,9 +280,7 @@ def set_amps(qureg: Qureg, start_index: int, reals, imags) -> Qureg:
     imags = np.asarray(imags).reshape(-1)
     validation.validate_equal_lengths(reals, imags)
     validation.validate_num_amps(qureg, start_index, reals.size)
-    _flat(qureg)[:, start_index:start_index + reals.size] = _host_pair(
-        reals, imags, qureg.amps)
-    return qureg
+    return _write(qureg, start_index, _host_pair(reals, imags, qureg.amps))
 
 
 def set_density_amps(qureg: Qureg, start_row: int, start_col: int, reals,
@@ -257,12 +298,12 @@ def set_density_amps(qureg: Qureg, start_row: int, start_col: int, reals,
     validation.validate_amp_index(qureg, start_col, dim=dim)
     start = start_row + (start_col << qureg.num_qubits)
     validation.validate_num_amps(qureg, start, reals.size)
-    _flat(qureg)[:, start:start + reals.size] = _host_pair(
-        reals, imags, qureg.amps)
-    return qureg
+    return _write(qureg, start, _host_pair(reals, imags, qureg.amps))
 
 
 def _fetch_amp(qureg: Qureg, flat: int) -> complex:
+    if SE.is_sharded(qureg):
+        return SE.read_amp(qureg, flat)
     re, im = _flat(qureg)[:, flat].cpu().tolist()
     return complex(re, im)
 
@@ -311,8 +352,12 @@ def get_density_amp(qureg: Qureg, row: int, col: int) -> complex:
 def to_dense(qureg_or_amps) -> np.ndarray:
     """Fetch the full state to the host: a (2^N,) complex vector, or the
     (2^N, 2^N) matrix for a density Qureg. Takes a Qureg or raw planes
-    in any view of (2, 2^n) (raw planes come back as a flat vector)."""
+    in any view of (2, 2^n) (raw planes come back as a flat vector). A
+    sharded register's planes are gathered here: with
+    ShardedAmps.gather, the only explicit gathers of the port."""
     amps = getattr(qureg_or_amps, "amps", qureg_or_amps)
+    if not torch.is_tensor(amps):
+        amps = amps.gather("cpu")
     planes = amps.detach().reshape(2, -1).cpu().numpy()
     arr = planes[0] + 1j * planes[1]
     if getattr(qureg_or_amps, "is_density", False):

@@ -223,9 +223,12 @@ def test_rejections_name_the_op():
                         np.empty((2, 2), dtype=object)))
     with pytest.raises(AD.AdjointError, match="op 1"):
         AD.build_circuit_program(c, density=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        AD.value_and_grad(Circuit(2).rx(0, 0.4), tfim(E, 2), mesh=object(),
-                          device="cpu")
+    # mesh= is ported (A10b): its own refusals name the mode
+    from quest_tpu_torch.parallel import make_amp_mesh
+    with pytest.raises(AD.AdjointError, match="taped"):
+        AD.value_and_grad(Circuit(2).rx(0, 0.4), tfim(E, 2),
+                          mesh=make_amp_mesh(2, devices=["cpu"] * 2),
+                          engine="taped")
     with pytest.raises(AD.AdjointError, match="expected a Circuit"):
         AD.value_and_grad(lambda a, p: a, tfim(E, 2), device="cpu")
 

@@ -1139,3 +1139,98 @@ def test_scan_on_the_card_is_bit_for_bit(card, monkeypatch):
     assert progs["0"] is not progs["1"]
     assert progs["0"].launches_per_call == progs["1"].launches_per_call
     assert torch.equal(outs["0"], outs["1"])
+
+
+def test_sharded_eager_surface_on_the_card(card):
+    """The eager surface on four shards of the card equals the same calls
+    on one register of the card: gates on global qubits, reductions,
+    measurement given the same stream, the sampler given the same
+    uniforms, the grouped expectation (one exchange a global mask)."""
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch import measurement as MS
+    from quest_tpu_torch import random_ as RNG
+    from quest_tpu_torch import state as TS
+    from quest_tpu_torch.ops import gates as G
+    from quest_tpu_torch.parallel import make_amp_mesh, shard_qureg
+    n, d = 14, 4
+    mesh = make_amp_mesh(d, devices=[card] * d)
+    one = TS.init_plus_state(TS.create_qureg(n, device=card))
+    sq = shard_qureg(TS.clone(one), mesh)
+    for q in (one, sq):
+        G.hadamard(q, n - 1)
+        G.controlled_not(q, n - 1, 0)
+        G.rotate_y(q, n - 2, 0.7)
+        G.multi_rotate_pauli(q, (0, n - 1), (1, 2), 0.3)
+        G.controlled_phase_shift(q, 3, n - 1, 0.9)
+    got = torch.cat([s.reshape(2, -1) for s in sq.amps.shards], -1)
+    assert (got - one.amps).abs().max().item() <= 2e-5
+    assert abs(K.calc_total_prob(sq) - K.calc_total_prob(one)) <= 1e-6
+    for qubit in (1, n - 1):
+        assert abs(MS.calc_prob_of_outcome(sq, qubit, 1)
+                   - MS.calc_prob_of_outcome(one, qubit, 1)) <= 1e-6
+    u = torch.rand(1 << 12, generator=torch.Generator(device=card)
+                   .manual_seed(1), dtype=torch.float32, device=card)
+    a = MS._sample_given_uniforms(one.amps, u, n=n, density=False)
+    b = MS._sample_sharded_given_uniforms(sq, u)
+    assert (a == b).double().mean().item() >= 0.999
+    codes = np.zeros((3, n), int)
+    codes[0, n - 1] = 1
+    codes[1, 0], codes[1, n - 2] = 3, 2
+    codes[2, 5] = 1
+    mesh.recorder.reset()
+    e1 = K.calc_expec_pauli_sum(sq, codes, [0.5, -1.0, 0.25])
+    assert abs(e1 - K.calc_expec_pauli_sum(one, codes, [0.5, -1.0, 0.25])) \
+        <= 1e-5
+    assert mesh.recorder.stats(d)["collective_permutes"] == 2
+    RNG.seed_quest([7])
+    _, o1 = MS.measure(one, n - 1)
+    RNG.seed_quest([7])
+    _, o2 = MS.measure(sq, n - 1)
+    assert o1 == o2
+
+
+def test_durable_resume_through_k1_on_the_card(card, monkeypatch, tmp_path):
+    """run_durable on one register of the card (one K1 launch a step) and
+    on four of its shards, preempted and resumed: bit for bit the
+    uninterrupted run and the whole compiled_fused /
+    compiled_sharded_fused program, with K1 launched."""
+    from quest_tpu_torch import state as TS
+    from quest_tpu_torch.parallel import make_amp_mesh, shard_planes
+    from quest_tpu_torch.resilience import FaultPlan, faults, run_durable
+    from quest_tpu_torch.circuit import Circuit
+    monkeypatch.setenv("QUEST_SWEEP_FUSION", "0")
+    n = 14
+    # rotation layers split by random 2q unitaries on far-apart qubits:
+    # passthroughs and segments to cut between
+    rng = np.random.default_rng(9)
+    c = Circuit(n)
+    for layer in range(12):
+        for q in range(n):
+            c.rx(q, float(rng.uniform(0, 2 * np.pi)))
+        u = np.linalg.qr(rng.normal(size=(4, 4))
+                         + 1j * rng.normal(size=(4, 4)))[0]
+        c.gate(u, (layer % (n // 2), n - 1 - (layer % (n // 2))))
+    for mesh in (None, make_amp_mesh(4, devices=[card] * 4)):
+        q0 = TS.init_plus_state(TS.create_qureg(n, device=card))
+        S.segment_sweep.launches = 0
+        ref = run_durable(c, q0, str(tmp_path / "ref"), every=1000,
+                          mesh=mesh)
+        torch.cuda.synchronize()
+        assert S.segment_sweep.launches > 0
+        d = str(tmp_path / ("pre" if mesh is None else "pre4"))
+        plan = FaultPlan().inject("durable.preempt", after_n=2, times=1)
+        with faults.active(plan):
+            with pytest.raises(faults.InjectedFault):
+                run_durable(c, q0, d, every=1, mesh=mesh)
+        out = run_durable(c, q0, d, every=1, mesh=mesh)
+        if mesh is None:
+            whole = TS.init_plus_state(TS.create_qureg(n, device=card)).amps
+            c.compiled_fused(n, device=card)(whole)
+            assert torch.equal(out.amps, ref.amps)
+            assert torch.equal(out.amps.reshape(2, -1), whole.reshape(2, -1))
+        else:
+            x = shard_planes(TS.init_plus_state(TS.create_qureg(
+                n, device=card)).amps, mesh, n)
+            c.compiled_sharded_fused(n, False, mesh)(x)
+            for a, b, w in zip(out.amps.shards, ref.amps.shards, x.shards):
+                assert torch.equal(a, b) and torch.equal(a, w)

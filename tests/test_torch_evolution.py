@@ -247,16 +247,106 @@ def test_imag_time_rejects_engine_pin_and_density():
         EV.run_evolution((codes, cf), 0.1, 2, state=rho, imag_time=True)
 
 
-def test_unported_modes_raise_naming_the_roadmap_item():
+def test_unported_modes_raise_naming_the_roadmap_item(tmp_path):
+    """Every mode is ported since A10b / A11: mesh= and durable_dir= run
+    (tests/test_torch_sharded_consumers.py, the durable quench below)
+    and keep the reference's refusals."""
+    from quest_tpu_torch.parallel import make_amp_mesh
     codes, cf = tfim(N)
-    q0 = TS.create_qureg(N, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        EV.run_evolution((codes, cf), 0.1, 2, state=q0, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        EV.run_evolution((codes, cf), 0.1, 2, state=q0, durable_dir="x")
+    q0 = TS.init_plus_state(TS.create_qureg(N, device="cpu"))
+    res = EV.run_evolution((codes, cf), 0.1, 2, state=q0,
+                           mesh=make_amp_mesh(2, devices=["cpu"] * 2))
+    assert res.stats["engine"] == "sharded-banded"
+    res = EV.run_evolution((codes, cf), 0.1, 2, state=q0,
+                           durable_dir=str(tmp_path / "d"))
+    assert res.stats["engine"] == "durable"
+    with pytest.raises(ValueError, match="energy_every"):
+        EV.run_evolution((codes, cf), 0.1, 2, state=q0, energy_every=1,
+                         durable_dir=str(tmp_path / "e"))
+    with pytest.raises(ValueError, match="imaginary"):
+        EV.run_evolution((codes, cf), 0.1, 2, state=q0, imag_time=True,
+                         durable_dir=str(tmp_path / "f"))
     # TrotterCircuit.plan_stats answers since the plan IR is ported (A9)
     rec = EV.trotter_circuit((codes, cf), 0.1).plan_stats()
     assert rec["trotter"] == EV.trotter_plan_stats((codes, cf), 0.1)
+
+
+@pytest.mark.parametrize("engine", ["banded", "fused"])
+def test_durable_quench_resume_bit_identity(tmp_path, engine, monkeypatch):
+    """A preempted quench resumes bit-identical to the uninterrupted
+    durable run (ref test_evolution.py:505): the cursor carries the
+    validated Trotter descriptor; a resume under another one fails
+    typed; the energies are the initial and final rows."""
+    from quest_tpu_torch import checkpoint as ckpt
+    from quest_tpu_torch.resilience import (DurableError, FaultPlan,
+                                            faults, run_durable)
+    monkeypatch.setenv("QUEST_SWEEP_FUSION", "0")
+    # the fused plan packs many Trotter steps into one segment: a deeper
+    # quench gives it launches to cut between
+    n, depth = (8, 8) if engine == "banded" else (10, 32)
+    spec = tfim(n)
+    q0 = TS.init_debug_state(TS.create_qureg(n, device="cpu"))
+    from quest_tpu_torch.resilience import durable as D
+    steps, _ = D._build_steps(EV.trotter_circuit(spec, 0.05, order=2,
+                                                 steps=depth),
+                              n, False, engine, None, torch.device("cpu"),
+                              True)
+    every = 2 if len(steps) > 6 else 1
+    ref = EV.run_evolution(spec, 0.05, depth, state=q0, engine=engine,
+                           durable_dir=str(tmp_path / "ref"),
+                           durable_every=every)
+    assert ref.energy_steps.tolist() == [0, depth]
+    assert ref.energies.shape == (2, 1)
+    d = str(tmp_path / "pre")
+    plan = FaultPlan().inject("durable.preempt",
+                              after_n=min(4, len(steps) - 1), times=1)
+    with faults.active(plan):
+        with pytest.raises(faults.InjectedFault):
+            EV.run_evolution(spec, 0.05, depth, state=q0, engine=engine,
+                             durable_dir=d, durable_every=every)
+    assert plan.fired() == 1
+    dirs = ckpt.step_dirs(d)
+    assert dirs
+    cursor = ckpt.read_extra(dirs[-1][1])
+    assert cursor["workload"] == "trotter"
+    assert cursor["trotter_steps"] == depth and cursor["trotter_order"] == 2
+    circ21 = EV.trotter_circuit(spec, 0.05, order=2, steps=21)
+    with pytest.raises(DurableError):
+        run_durable(circ21, q0, d, every=every, engine=engine,
+                    cursor_extra={"workload": "trotter",
+                                  "trotter_steps": 21, "trotter_order": 2,
+                                  "trotter_dt": repr(0.05),
+                                  "trotter_terms": len(spec[0])})
+    out = EV.run_evolution(spec, 0.05, depth, state=q0, engine=engine,
+                           durable_dir=d, durable_every=every)
+    np.testing.assert_array_equal(out.state.amps.numpy(),
+                                  ref.state.amps.numpy())
+    assert ckpt.step_dirs(d) == []
+    # and the ordinary quench within the engines' tolerance
+    plain = EV.run_evolution(spec, 0.05, depth, state=q0, engine="banded")
+    a, b = out.state.amps.numpy(), plain.state.amps.numpy()
+    assert np.abs(a - b).max() <= 2e-5 * np.abs(b).max()
+
+
+def test_durable_trajectory_quench_resumes(tmp_path):
+    from quest_tpu_torch.resilience import FaultPlan, faults
+    spec = tfim(4)
+    noise = ("depolarising", 0.02)
+    kw = dict(noise=noise, chunk=2, device="cpu", durable_every=1)
+    ref_p, ref_d = EV.run_evolution_trajectories(
+        spec, 0.05, 2, 6, generator=torch.Generator().manual_seed(3), **kw)
+    d = str(tmp_path / "t")
+    plan = FaultPlan().inject("durable.preempt", after_n=1, times=1)
+    with faults.active(plan):
+        with pytest.raises(faults.InjectedFault):
+            EV.run_evolution_trajectories(
+                spec, 0.05, 2, 6, generator=torch.Generator().manual_seed(3),
+                durable_dir=d, **kw)
+    p, dr = EV.run_evolution_trajectories(
+        spec, 0.05, 2, 6, generator=torch.Generator().manual_seed(3),
+        durable_dir=d, **kw)
+    np.testing.assert_array_equal(p.numpy(), ref_p.numpy())
+    np.testing.assert_array_equal(dr.numpy(), ref_d.numpy())
 
 
 def test_energy_tracking_matches_the_reference():

@@ -38,7 +38,12 @@ def test_import_leaves_jax_and_reference_unloaded():
             "quest_tpu_torch.plan, quest_tpu_torch.parallel, "
             "quest_tpu_torch.parallel.comm, quest_tpu_torch.parallel.relabel, "
             "quest_tpu_torch.parallel.sharded, "
-            "quest_tpu_torch.parallel.introspect; "
+            "quest_tpu_torch.parallel.introspect, "
+            "quest_tpu_torch.parallel.eager, quest_tpu_torch.checkpoint, "
+            "quest_tpu_torch.resilience, "
+            "quest_tpu_torch.resilience.faults, "
+            "quest_tpu_torch.resilience.durable, "
+            "quest_tpu_torch.serve, quest_tpu_torch.serve.metrics; "
             "bad = sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -63,3 +68,31 @@ def test_no_jax_or_reference_import(path):
         bad += [nm for nm in names
                 if nm.split(".")[0] in ("jax", "jaxlib", "quest_tpu")]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_resilience_and_metrics_import_only_the_standard_library():
+    """faults, the resilience package and the metrics registry import
+    nothing beyond the standard library and each other at module level
+    (the knob parser imports faults); durable, which drives the engines,
+    loads lazily through the package namespace."""
+    allowed = {"quest_tpu_torch"}
+    for rel in ("resilience/__init__.py", "resilience/faults.py",
+                "serve/__init__.py", "serve/metrics.py"):
+        path = os.path.join(PORT, rel)
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for nm in names:
+                top = nm.split(".")[0]
+                assert top in sys.stdlib_module_names or top in allowed \
+                    or top == "__future__", f"{rel} imports {nm}"
+                if top == "quest_tpu_torch":
+                    assert nm.startswith(("quest_tpu_torch.resilience",
+                                          "quest_tpu_torch.serve")), nm
+    import quest_tpu_torch.resilience as res
+    assert "durable" in res._LAZY and callable(res.run_durable)

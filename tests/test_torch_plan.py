@@ -11,9 +11,8 @@ counts, with provenance, and autotune prices with them; ties go to the
 incumbent (Circuit.apply's dispatch); the cache round-trips by value in a
 throwaway directory and counts stale and corrupt entries as the
 reference does; the port's key differs from the reference's plan_key;
-sweep_chunk follows QUEST_HBM_BYTES; the sharded search's arguments
-raise NotImplementedError naming ROADMAP A10b while build_plan(devices=)
-gives the comm record; TrotterCircuit.plan_stats and
+sweep_chunk follows QUEST_HBM_BYTES; the sharded search answers and
+build_plan(devices=) gives the comm record; TrotterCircuit.plan_stats and
 variational.sweep(chunk='auto') answer."""
 
 import contextlib
@@ -387,19 +386,22 @@ def test_sweep_chunk_follows_hbm_bytes(hbm, total, n, want, monkeypatch):
     assert P.sweep_chunk(total, n) == want
 
 
-def test_sharded_arguments_name_a10():
-    """The priced sharded search and QuESTEnv.sharding_for still raise,
-    naming ROADMAP A10b; build_plan(devices=) and plan_stats(devices=)
-    give the comm record (tests/test_torch_comm.py holds it equal to the
-    reference's)."""
+def test_sharded_arguments_name_a10(monkeypatch, tmp_path):
+    """The priced sharded search and QuESTEnv.sharding_for answer since
+    ROADMAP A10b (tests/test_torch_sharded_consumers.py holds them);
+    build_plan(devices=) and plan_stats(devices=) give the comm record
+    (tests/test_torch_comm.py holds it equal to the reference's)."""
+    from quest_tpu_torch.parallel import make_amp_mesh
+    monkeypatch.setenv("QUEST_HBM_BYTES", str(16 << 30))
+    monkeypatch.setenv("QUEST_PLAN_CACHE_DIR", str(tmp_path))
     c = _small(Circuit)
-    calls = [lambda: P.autotune(c, devices=4),
-             lambda: P.autotune(c, mesh=object()),
-             lambda: P.autotune(c, topology="ring"),
-             lambda: env.QuESTEnv("cpu").sharding_for(10)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A10b"):
-            call()
+    assert P.autotune(c, devices=4, persist=False).devices == 4
+    mesh = make_amp_mesh(2, devices=["cpu"] * 2)
+    assert P.autotune(c, mesh=mesh, persist=False).devices == 2
+    with pytest.raises(ValueError, match="topology"):
+        P.autotune(c, topology="ring")
+    assert env.QuESTEnv("cpu").sharding_for(10) is None
+    assert env.QuESTEnv(mesh=mesh).sharding_for(10) is mesh
     plan = P.build_plan(c, devices=2)
     assert plan.devices == 2 and plan.incumbent == "sharded-banded"
     assert plan.comm["devices"] == 2
