@@ -322,6 +322,33 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      the resume's extra ms. Checkpoints go to a temporary directory
      removed at the end of the phase.
 
+ Serving with the native host engine as its floor (no kernel is added):
+ 42. serve: ServeEngine on the card. The apply stream is the repo
+     bench's serving workload (bench.py _measure_serve: 20 qubits, 16 rx
+     rotations, 512 normalised states from default_rng(7), max_batch 64,
+     max_wait_ms 5), at saturation (all submitted at once, after one
+     warm request) and in the no-coalescing mode (max_wait_ms 0):
+     requests/s, mean batch occupancy, p50/p99 end-to-end latency,
+     batches and K1 launches (counters set to 0 before each run, read
+     after); every output within 1e-4 x max|amp| of the state alone
+     through compiled_fused, at most ceil(512/64) + 1 batches at
+     saturation, no degraded dispatch. The observable stream: 64 of
+     those states with a TFIM-20 PauliSum, each value within 1e-5
+     relative of expec on the state alone. The trajectory stream: four
+     requests of 64 shots (seeds 0-3) of entry.noisy_rcs_circuit(24, 3)
+     with <Z_23> (K1 with S9, chunks of 64 states, 8 GiB): draws equal to
+     run_batched's from the same generator state, values within 1e-4, ms
+     per request and per chunk. The ladder: injected build failures on a
+     12-qubit program fail their own requests while its breaker is
+     closed and open it at the threshold; then requests complete on
+     banded, then on host once banded fails too, within 1e-4 of K1, the
+     degraded dispatches counted exactly, and after the cooldown one
+     half-open probe restores fused. The host engine: compiled_host of the
+     rotation circuit at 20 qubits and of the trajectory circuit's first
+     unitary stretch at 24, each within 1e-4 of K1, ms a state beside
+     K1's with the CPU's model and cores, and the native library's build
+     seconds apart from its run time.
+
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
 sheet); a segment of phase stages only counts the rows its predicates
@@ -387,7 +414,7 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "dynamic", "calculations", "eager", "expec", "evolution",
           "variational", "adjoint", "frontends", "api", "scan", "sharded",
           "sharded_batched", "sharded_measured", "sharded_consumers",
-          "durable")
+          "durable", "serve")
 
 RECORD = []
 
@@ -1555,6 +1582,36 @@ def trajectory_bound(prog, b):
     work += [(barriers * b * 2 * 4 * (1 << n), barriers * b * 8 * (1 << n),
               0.0)]
     return bound_ms(*(sum(w[k] for w in work) for k in range(3)))
+
+
+def gate_bound(circ, batch, draws=None, channels=None):
+    """(bound ms, by) of `circ` over `batch` f32 states, counted from the
+    circuit's own gates, not from the bands a plan builds of them. Bytes:
+    an apply reads the batch once and writes it once; a trajectory run
+    (`draws` given) reads its (batch, C) f64 uniforms and writes its
+    planes and int32 draws once, its states starting as |0> on the card.
+    Operations: each gate's products on the share it selects
+    (xla_item_work), and, for each shot, the Kraus operator it drew as a
+    matrix on the channel's targets (`channels`: the program's
+    channel_info) and, for a state-dependent channel, the Born weight of
+    the half it selects (4 flops an amplitude of that half)."""
+    n = circ.num_qubits
+    amps = float(1 << n)
+    plane_bytes = batch * 2 * 4 * amps
+    flops = batch * sum(xla_item_work(op, n)[1] for op in circ.ops
+                        if op.kind != "superop")
+    if draws is None:
+        return bound_ms(2 * plane_bytes, flops)
+    d = np.asarray(draws)
+    for c, ch in enumerate(channels):
+        size = 1 << len(ch["targets"])
+        for j, K in enumerate(ch["ops"]):
+            per_mac = 4 if not np.any(np.imag(K)) else 8
+            flops += int((d[:, c] == j).sum()) * amps * size * per_mac
+        if ch["mixture_probs"] is None:
+            flops += batch * amps / 2 * 4
+    nbytes = plane_bytes + d.size * (8 + 4)
+    return bound_ms(nbytes, flops)
 
 
 def phase_trajectories(torch):
@@ -4344,8 +4401,8 @@ def phase_api(torch):
     from quest_tpu_torch import api as Q
     t0 = time.perf_counter()
     rec = {"phase": "api"}
-    p7, p2, text = _tutorial(Q, Q.createQuESTEnv(device=CARD))
-    cpu_text = _tutorial(Q, Q.createQuESTEnv(device="cpu"))[2]
+    p7, p2, text = _tutorial(Q, Q.createQuESTEnv(devices=CARD))
+    cpu_text = _tutorial(Q, Q.createQuESTEnv(devices="cpu"))[2]
     rec["tutorial"] = {"prob_amp_7": p7, "prob_qubit2_1": p2,
                        "qasm_bytes": len(text),
                        "qasm_equal_cpu": text == cpu_text}
@@ -4353,7 +4410,7 @@ def phase_api(torch):
             and abs(p2 - 0.749178) <= TUTORIAL_TOL and text == cpu_text):
         raise AssertionError(f"api tutorial: {rec['tutorial']}")
     n = API_QUBITS
-    env = Q.createQuESTEnv(device=CARD)
+    env = Q.createQuESTEnv(devices=CARD)
     qa, qg = Q.createQureg(n, env), Q.createQureg(n, env)
     for q in (qa, qg):
         Q.initPlusState(q)
@@ -5172,6 +5229,406 @@ def phase_durable(torch):
     return rec
 
 
+SERVE_TRAJ_QUBITS = 24        # entry.noisy_rcs_circuit(24, 3): 8 GiB chunks
+SERVE_TRAJ_DEPTH = 3
+SERVE_TRAJ_SHOTS = 64
+SERVE_TRAJ_SEEDS = (0, 1, 2, 3)
+SERVE_OBS_STATES = 64
+SERVE_LADDER_QUBITS = 12
+SERVE_LADDER_REQUESTS = 8
+SERVE_COOLDOWN_S = 2.0
+OBS_REL_TOL = 1e-5
+
+
+def cpu_name() -> str:
+    """The host CPU's model name and logical cores (/proc/cpuinfo)."""
+    model = "unknown CPU"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"{model}, {os.cpu_count()} logical cores"
+
+
+def _serve_run(torch, eng, circ, states, reg, warm=None):
+    """Submit every state at once (after `warm`, one request whose
+    program build is not timed) and wait: (requests/s, wall s, outputs,
+    K1 launches), the counters set to 0 just before the submits."""
+    from quest_tpu_torch.ops import segment as S
+    if warm is not None:
+        eng.submit(circ, state=warm).result(timeout=600)
+    _sync(torch)
+    S.segment_sweep.launches = 0
+    t0 = time.perf_counter()
+    futs = [eng.submit(circ, state=s) for s in states]
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    return len(states) / wall, wall, outs, S.segment_sweep.launches
+
+
+def _alone_err(torch, fn, states, outs, batch=64):
+    """max |served - alone| and max|amp| over every state, each state
+    alone through `fn` (compiled_fused) on the card, `batch` at a time
+    for the comparison."""
+    err = scale = 0.0
+    for lo in range(0, len(states), batch):
+        want = []
+        for s in states[lo:lo + batch]:
+            x = torch.from_numpy(s).to(CARD)
+            fn(x)
+            want.append(x)
+        want = torch.stack(want)
+        got = torch.stack(outs[lo:lo + batch]).to(CARD)
+        err = max(err, (got - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+        del want, got
+    return err, scale
+
+
+def _stage_kinds(segments):
+    """The stage kinds a plan's segments hold (the kernels it launches)."""
+    return sorted({label for seg in segments for label in seg.labels})
+
+
+def _stream(rec, name, r):
+    """Keep one stream's record in the phase's and print it at once, so
+    a failing gate after it leaves its numbers in the output."""
+    rec[name] = r
+    emit_card({"phase": "serve", "stream": name, **r})
+
+
+def _latency(reg):
+    h = reg.snapshot()["histograms"]
+    lat = h.get("serve_e2e_latency_s", {})
+    occ = h.get("serve_batch_occupancy", {})
+    return {"p50_ms": lat.get("p50", 0.0) * 1e3,
+            "p99_ms": lat.get("p99", 0.0) * 1e3,
+            "mean_occupancy": occ.get("mean", 0.0)}
+
+
+def _serve_apply(torch, rec):
+    """The bench's serving workload at saturation and without
+    coalescing; returns the apply kernel row's numbers."""
+    from quest_tpu_torch import entry as E
+    from quest_tpu_torch.serve import ServeEngine, metrics
+    n, mb = E.SERVE_QUBITS, E.SERVE_MAX_BATCH
+    circ = E.serve_circuit(n)
+    t0 = time.perf_counter()
+    states = E.serve_states(n, E.SERVE_STATES)
+    rec["states_s"] = time.perf_counter() - t0
+    fn = circ.compiled_fused(n, device=CARD)
+    out = {}
+    for mode, wait in (("saturation", E.SERVE_WAIT_MS), ("no_coalescing", 0)):
+        reg = metrics.Registry()
+        with ServeEngine(device=CARD, max_wait_ms=wait, max_batch=mb,
+                         registry=reg) as eng:
+            rps, wall, outs, launches = _serve_run(
+                torch, eng, circ, states, reg,
+                warm=states[0] if mode == "saturation" else None)
+            health = eng.health()
+        snap = reg.snapshot()["counters"]
+        err, scale = _alone_err(torch, fn, states, outs)
+        r = {"requests_per_s": rps, "wall_s": wall,
+             "batches": snap.get("serve_batches_dispatched", 0),
+             "k1_launches": launches,
+             "degraded_dispatches": snap.get("serve_degraded_dispatches", 0),
+             "max_abs_err": err, "rel_err": err / scale, **_latency(reg)}
+        out[mode] = r
+        del outs
+        _free(torch)
+        _stream(rec, f"apply_{mode}", r)
+        if not (err <= PATH_TOL * scale and r["degraded_dispatches"] == 0
+                and health["open_breakers"] == 0 and launches > 0):
+            raise AssertionError(f"serve {mode}: {r}")
+    sat = out["saturation"]
+    limit = -(-E.SERVE_STATES // mb) + 1
+    if sat["batches"] > limit:
+        raise AssertionError(f"serve saturation: {sat['batches']} batches "
+                             f"> {limit}")
+    out["speedup"] = (sat["requests_per_s"]
+                      / out["no_coalescing"]["requests_per_s"])
+    out["stage_kinds"] = _stage_kinds(fn.segments)
+    rec["apply"] = out
+    out["stage_kinds"] = _stage_kinds(fn.segments)
+    # the kernel row: one full batch of the stream through K1 and through
+    # its plain version, on the same inputs
+    batch = torch.from_numpy(states[:mb]).to(CARD)
+    x = batch.clone()
+    fn(x)
+    want = fn.plain(batch)
+    err = (x - want).abs().max().item()
+    row = {"launches": sat["k1_launches"], "max_abs_err": err,
+           "ms": time_ms(torch, lambda: fn(x), 5),
+           "plain_ms": time_ms(torch, lambda: fn.plain(batch), 1)}
+    # the least the function needs: its gates' flops and one read and
+    # one write of the batch (the plan's bands do more of both)
+    row["bound_ms"], row["bound_by"] = gate_bound(circ, mb)
+    row["plan_bound_ms"], row["plan_bound_by"] = bound_of(fn.segments,
+                                                          batch=mb)
+    if not err <= PATH_TOL * want.abs().max().item():
+        raise AssertionError(f"serve apply kernel vs plain: {err}")
+    del batch, x, want
+    _free(torch)
+    return circ, states, row
+
+
+def _serve_observable(torch, rec, circ, states):
+    from quest_tpu_torch import calculations as K
+    from quest_tpu_torch.entry import tfim_sum
+    from quest_tpu_torch.ops.expec import PauliSum
+    from quest_tpu_torch.serve import ServeEngine, metrics
+    from quest_tpu_torch.state import Qureg
+    n = circ.num_qubits
+    codes, coeffs = tfim_sum(n)
+    spec = PauliSum.of(codes, coeffs, n)
+    picks = states[:SERVE_OBS_STATES]
+    reg = metrics.Registry()
+    with ServeEngine(device=CARD, max_wait_ms=5, registry=reg) as eng:
+        t0 = time.perf_counter()
+        futs = [eng.submit(circ, state=s, observable=spec) for s in picks]
+        vals = [float(f.result(timeout=600)) for f in futs]
+        wall = time.perf_counter() - t0
+    fn = circ.compiled_fused(n, device=CARD)
+    worst = 0.0
+    for s, v in zip(picks, vals):
+        x = torch.from_numpy(s).to(CARD)
+        fn(x)
+        want = K.calc_expec_pauli_sum(Qureg(amps=x, num_qubits=n), codes,
+                                      coeffs)
+        worst = max(worst, abs(v - want) / max(abs(want), 1.0))
+    r = {"requests": len(picks), "wall_s": wall,
+         "requests_per_s": len(picks) / wall, "max_rel_err": worst,
+         "batches": reg.counter("serve_batches_dispatched").value,
+         "degraded_dispatches": reg.counter(
+             "serve_degraded_dispatches").value, **_latency(reg)}
+    _stream(rec, "observable", r)
+    if not (worst <= OBS_REL_TOL and r["degraded_dispatches"] == 0):
+        raise AssertionError(f"serve observable: {r}")
+
+
+def _serve_trajectories(torch, rec):
+    """Four coalesced trajectory requests against run_batched; returns
+    the trajectory kernel row's numbers."""
+    from quest_tpu_torch import entry as E
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.ops import segment as S
+    from quest_tpu_torch.serve import ServeEngine, metrics
+    n, k = SERVE_TRAJ_QUBITS, SERVE_TRAJ_SHOTS
+    circ = E.noisy_rcs_circuit(n, SERVE_TRAJ_DEPTH)
+    prog = T._compiled_traj(circ, n, CARD)
+    warm = torch.rand((8, prog.num_channels), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(99))
+    prog(warm)
+    reg = metrics.Registry()
+    with ServeEngine(device=CARD, max_wait_ms=10_000, max_batch=k,
+                     registry=reg) as eng:
+        _sync(torch)
+        S.segment_sweep.launches = 0
+        S.segment_sweep.stage_launches = {}
+        t0 = time.perf_counter()
+        futs = [eng.submit(circ, shots=k, seed=s, observable=E.z_top)
+                for s in SERVE_TRAJ_SEEDS]
+        eng.drain(timeout_s=1200)
+        got = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = S.segment_sweep.launches
+        stage_launches = dict(S.segment_sweep.stage_launches)
+    chunks = reg.counter("serve_batches_dispatched").value
+    draws_equal, err = True, 0.0
+    for s, (vals, draws) in zip(SERVE_TRAJ_SEEDS, got):
+        wv, wd = T.run_batched(circ, k, generator=torch.Generator()
+                               .manual_seed(s), observable=E.z_top,
+                               device=CARD)
+        draws_equal = draws_equal and torch.equal(draws, wd.cpu())
+        err = max(err, (vals - wv.cpu()).abs().max().item())
+    u = torch.rand((k, prog.num_channels), dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(0))
+    chunk_ms = time_ms(torch, lambda: prog(u), 3)
+    r = {"n": n, "requests": len(SERVE_TRAJ_SEEDS), "shots": k,
+         "chunks": chunks, "wall_s": wall,
+         "ms_per_request": wall * 1e3 / len(SERVE_TRAJ_SEEDS),
+         "ms_per_chunk_served": wall * 1e3 / max(chunks, 1),
+         "chunk_ms": chunk_ms, "k1_launches": launches,
+         "stage_launches": stage_launches,
+         "planned_per_chunk": prog.launches_per_call,
+         "stage_kinds": _stage_kinds(prog.segments),
+         "draws_equal": draws_equal, "max_abs_err": err,
+         "degraded_dispatches": reg.counter(
+             "serve_degraded_dispatches").value}
+    _stream(rec, "trajectories", r)
+    if not (draws_equal and err <= PATH_TOL
+            and launches == prog.launches_per_call * chunks
+            and stage_launches.get("batchsel", 0) > 0
+            and r["degraded_dispatches"] == 0):
+        raise AssertionError(f"serve trajectories: {r}")
+    # the kernel row: 8 shots of the stream through K1 and the plain path
+    u8 = u[:PLAIN_CHECK_SHOTS]
+    pk, dk = prog(u8)
+    pp, dp = prog.plain(u8)
+    kerr = (pk - pp).abs().max().item()
+    row = {"launches": stage_launches.get("batchsel", 0),
+           "max_abs_err": kerr,
+           "ms": time_ms(torch, lambda: prog(u8), 3),
+           "plain_ms": time_ms(torch, lambda: prog.plain(u8), 1)}
+    row["bound_ms"], row["bound_by"] = gate_bound(
+        circ, PLAIN_CHECK_SHOTS, dk.cpu(), prog.channel_info)
+    row["plan_bound_ms"], row["plan_bound_by"] = trajectory_bound(
+        prog, PLAIN_CHECK_SHOTS)
+    if not (torch.equal(dk, dp) and kerr <= PATH_TOL * pp.abs().max().item()):
+        raise AssertionError(f"serve trajectory kernel vs plain: {kerr}")
+    del pk, pp, dk, dp
+    _free(torch)
+    return circ, row
+
+
+def _serve_ladder(torch, rec):
+    """fused -> banded -> host by injected build failures, and back. The
+    rung each request took is read from the counters around it: a
+    degraded dispatch whose banded build was failed ran on host."""
+    from quest_tpu_torch.entry import flagship_circuit, serve_states
+    from quest_tpu_torch.resilience import FaultPlan, faults
+    from quest_tpu_torch.serve import ServeEngine, metrics
+    n = SERVE_LADDER_QUBITS
+    circ = flagship_circuit(n)
+    states = serve_states(n, SERVE_LADDER_REQUESTS, 3)
+    fn = circ.compiled_fused(n, device=CARD)
+    reg = metrics.Registry()
+    degraded = reg.counter("serve_degraded_dispatches")
+    fused_fails = FaultPlan().inject(
+        "serve.compile", error=RuntimeError("injected fused build failure"),
+        times=2, match=lambda ctx: ctx["rung"] == "fused")
+    banded_fails = FaultPlan().inject(
+        "serve.compile", error=RuntimeError("injected banded build failure"),
+        times=2, match=lambda ctx: ctx["rung"] == "banded")
+    outs, rungs = [], []
+    with ServeEngine(device=CARD, max_wait_ms=0, breaker_threshold=2,
+                     breaker_cooldown_s=SERVE_COOLDOWN_S,
+                     registry=reg) as eng:
+        def one(i, plan):
+            d0, b0 = degraded.value, banded_fails.fired()
+            with faults.active(plan):
+                fut = eng.submit(circ, state=states[i])
+                try:
+                    got = fut.result(timeout=600)
+                except RuntimeError as e:
+                    # a closed breaker fails the request with its build's
+                    # error instead of stepping down the ladder
+                    if "injected fused build failure" not in str(e):
+                        raise
+                    rungs.append("failed")
+                    return
+            outs.append((i, got))
+            rungs.append("fused" if degraded.value == d0 else
+                         "host" if banded_fails.fired() > b0 else "banded")
+        for i in range(4):      # 2 failures fail theirs and open the breaker
+            one(i, fused_fails)
+        opened = eng.health()["open_breakers"]
+        for i in range(4, 6):              # open, and banded fails too
+            one(i, banded_fails)
+        time.sleep(SERVE_COOLDOWN_S * 1.1)
+        for i in range(6, SERVE_LADDER_REQUESTS):
+            one(i, None)                   # the probe, then fused
+        health = eng.health()
+    snap = reg.snapshot()["counters"]
+    err = scale = 0.0
+    for i, got in outs:
+        x = torch.from_numpy(states[i]).to(CARD)
+        fn(x)
+        err = max(err, (got - x.reshape(2, -1).cpu()).abs().max().item())
+        scale = max(scale, x.abs().max().item())
+    expected = (["failed"] * 2 + ["banded"] * 2 + ["host"] * 2
+                + ["fused"] * (SERVE_LADDER_REQUESTS - 6))
+    r = {"n": n, "requests": len(states), "rungs": rungs,
+         "stage_kinds": _stage_kinds(fn.segments),
+         "degraded_dispatches": snap.get("serve_degraded_dispatches", 0),
+         "breaker_opens": snap.get("serve_breaker_opens", 0),
+         "breaker_probes": snap.get("serve_breaker_probes", 0),
+         "breaker_closes": snap.get("serve_breaker_closes", 0),
+         "faults_injected": snap.get("serve_faults_injected", 0),
+         "open_after_failures": opened, "open_at_end":
+         health["open_breakers"], "max_abs_err": err, "rel_err": err / scale}
+    _stream(rec, "ladder", r)
+    if not (rungs == expected
+            and r["degraded_dispatches"] == sum(x in ("banded", "host")
+                                                for x in rungs)
+            and opened == 1 and r["breaker_closes"] == 1
+            and r["open_at_end"] == 0 and r["faults_injected"] == 4
+            and err <= PATH_TOL * scale):
+        raise AssertionError(f"serve ladder: {r}")
+
+
+def _serve_host(torch, rec, rot, traj):
+    """compiled_host against K1: the rotation circuit and the trajectory
+    circuit's first unitary stretch."""
+    from quest_tpu_torch.circuit import Circuit
+    from quest_tpu_torch.entry import serve_states
+    stretch = Circuit(traj.num_qubits)
+    for op in traj.ops:
+        if op.kind == "superop":
+            break
+        stretch.ops.append(op)
+    r = {"cpu": cpu_name(), **rec["native_library"]}
+    for name, circ in (("rotations", rot), ("traj_stretch", stretch)):
+        n = circ.num_qubits
+        s = serve_states(n, 1, 5)[0]
+        t0 = time.perf_counter()
+        step = circ.compiled_host(n, False)
+        prep_s = time.perf_counter() - t0
+        h = torch.from_numpy(s.copy())
+        t0 = time.perf_counter()
+        step(h)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        fn = circ.compiled_fused(n, device=CARD)
+        x = torch.from_numpy(s).to(CARD)
+        xk = x.clone()
+        fn(xk)
+        err = (h - xk.cpu()).abs().max().item()
+        scale = xk.abs().max().item()
+        k1_ms = time_ms(torch, lambda: fn(x), 5)
+        reps = [host_ms]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            step(h)
+            reps.append((time.perf_counter() - t0) * 1e3)
+        r[name] = {"n": n, "ops": len(circ.ops), "prep_s": prep_s,
+                   "host_ms_per_state": statistics.median(reps),
+                   "k1_ms_per_state": k1_ms, "max_abs_err": err,
+                   "rel_err": err / scale}
+        if not err <= PATH_TOL * scale:
+            raise AssertionError(f"serve host {name}: {r[name]}")
+        del x, xk, h
+    _stream(rec, "host", r)
+
+
+def phase_serve(torch):
+    """ServeEngine on the card over the batched K1, with the native host
+    engine as the ladder's floor (phase 42); returns the kernel rows of
+    the apply and trajectory streams."""
+    from quest_tpu_torch import native
+    t0 = time.perf_counter()
+    rec = {"phase": "serve"}
+    # the ladder's floor is built first, apart from every timed run
+    prebuilt = native.library_path().exists()
+    rec["native_library"] = {"library_prebuilt": prebuilt,
+                             "build_s": native.build()}
+    rot, states, apply_row = _serve_apply(torch, rec)
+    _serve_observable(torch, rec, rot, states)
+    del states
+    traj, traj_row = _serve_trajectories(torch, rec)
+    _serve_ladder(torch, rec)
+    _serve_host(torch, rec, rot, traj)
+    rec["kernel_rows"] = {"serve": apply_row, "serve_traj": traj_row}
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    _free(torch)
+    return apply_row, traj_row
+
+
+
 def ham_profile(torch):
     """torch.profiler tables (top kernels by device time) of the
     Hamiltonian layers at 30 qubits: the grouped expectation of TFIM-30
@@ -5955,6 +6412,17 @@ def main(argv=None) -> int:
         phase_sharded_consumers(torch)
     if want("durable"):
         phase_durable(torch)
+    if want("serve"):
+        for label, row in zip(("serve", "serve_traj"), phase_serve(torch)):
+            kernels.append({
+                "name": f"segment_sweep[{label}]", "route": "cuda",
+                "source": KERNEL_SOURCE,
+                "replaces": REPLACES["segment_sweep" if label == "serve"
+                                     else "batchsel"],
+                "launches": row["launches"],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None})
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

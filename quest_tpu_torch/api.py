@@ -134,14 +134,14 @@ def createQureg(numQubits: int, env: Optional[QuESTEnv] = None,
                 dtype=None) -> Qureg:
     """A statevector on the env's device (default: the CUDA card), sharded
     over the env's mesh when it has one (QuESTEnv.sharding_for)."""
-    return Qureg(_state.create_qureg(numQubits, dtype, _device(env),
-                                     env=env), env)
+    return Qureg(_state.create_qureg(numQubits, env, dtype,
+                                     device=_device(env)), env)
 
 
 def createDensityQureg(numQubits: int, env: Optional[QuESTEnv] = None,
                        dtype=None) -> Qureg:
-    return Qureg(_state.create_density_qureg(numQubits, dtype, _device(env),
-                                             env=env), env)
+    return Qureg(_state.create_density_qureg(numQubits, env, dtype,
+                                             device=_device(env)), env)
 
 
 def createCloneQureg(qureg: Qureg, env: Optional[QuESTEnv] = None) -> Qureg:
@@ -907,7 +907,7 @@ def compareStates(mq1: Qureg, mq2: Qureg, precision: float) -> bool:
 def QuESTPrecision() -> int:
     """1 for f32 planes, 2 for f64 (ref QuEST_debug.h:54): the precision
     of the registers createQureg makes by default."""
-    return 1 if _prec.DEFAULT_DTYPE == np.dtype(np.complex64) else 2
+    return 1 if _prec.get_default_dtype() == np.dtype(np.complex64) else 2
 
 
 # ---------------------------------------------------------------------------

@@ -1082,6 +1082,54 @@ class Circuit:
         return ("batched", self, len(self.ops), n, density,
                 np.dtype(dtype).str, _engine_mode_key())
 
+    # -- the native host engine ----------------------------------------------
+
+    def compiled_host(self, n: int, density: bool, iters: int = 1):
+        """The native host engine (host.py; ref circuit.py:1183):
+        step(planes) -> planes running the whole circuit `iters` times
+        through cache-blocked C++ kernels, on (2, 2^n) CPU planes (a
+        torch tensor or a numpy array, f32 or f64), in place when they
+        are contiguous and writable. Raises host.HostEngineUnsupported on
+        dynamic ops, operands that need a gradient or a missing native
+        library. Cached; QUEST_HOST_BLOCK is keyed, so a flip builds
+        anew."""
+        self._reject_measure("compiled_host")
+        from quest_tpu_torch import host as H
+        return self._cached(("host", n, density, iters),
+                            lambda: H.compile_circuit_host(self.ops, n,
+                                                           density, iters))
+
+    def apply_host(self, q):
+        """Apply the circuit to register `q` through the native host
+        engine, in place on its planes; returns the register. A register
+        on the card is copied to the host, run there and copied back
+        into its planes: two explicit copies of the state, on this call
+        only. A sharded register is refused (gather it first)."""
+        if self.num_qubits != q.num_qubits:
+            raise ValueError("circuit/register size mismatch")
+        if not torch.is_tensor(q.amps):
+            raise ValueError("apply_host runs one register on the host; "
+                             "gather a sharded register first")
+        fn = self.compiled_host(q.num_state_qubits, q.is_density)
+        if q.amps.device.type == "cpu" and q.amps.is_contiguous():
+            fn(q.amps)
+            return q
+        host = q.amps.to("cpu").contiguous()
+        fn(host)
+        q.amps.copy_(host.reshape(q.amps.shape))
+        return q
+
+    def compiled_host_measured(self, n: int, density: bool = False):
+        """A dynamic circuit on the native host engine (ref
+        circuit.py:1216): step(planes, draws=None) -> (planes, outcomes).
+        Measurements collapse in C; by default their uniforms come from
+        random_ (the eager API's stream), so runs seeded alike take the
+        same outcomes; `draws` gives them explicitly."""
+        from quest_tpu_torch import host as H
+        return self._cached(("host-measured", n, density),
+                            lambda: H.compile_circuit_host_measured(
+                                self.ops, n, density))
+
     # -- dynamic circuits ----------------------------------------------------
 
     def compiled_measured(self, n: int, density: bool = False,

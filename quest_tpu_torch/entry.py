@@ -145,6 +145,12 @@ EVOLUTION_STEPS = 4
 VQE_QUBITS = 30
 VQE_LAYERS = 2
 VQE_SEED = 13
+SERVE_QUBITS = 20             # bench.py _measure_serve on a chip
+SERVE_GATES = 16              # bench.py GATES_PER_STEP
+SERVE_STATES = 512
+SERVE_STATE_SEED = 7
+SERVE_MAX_BATCH = 64
+SERVE_WAIT_MS = 5
 
 
 def flagship_circuit(num_qubits: int = FLAGSHIP_QUBITS,
@@ -452,6 +458,32 @@ def batched_entry(device=None, num_qubits: int = BATCHED_QUBITS,
     dev = resolve_device(device)
     fn = flagship_circuit(num_qubits, depth).compiled_batched(batch, device=dev)
     return fn, (random_states(batch, num_qubits, device=dev),)
+
+
+def serve_circuit(num_qubits: int = SERVE_QUBITS) -> Circuit:
+    """The repo bench's serving workload circuit (bench.py _build_circuit,
+    draw for draw with seed 42): SERVE_GATES rx rotations round-robin over
+    qubits 1..n-1."""
+    rng = np.random.default_rng(42)
+    c = Circuit(num_qubits)
+    for i in range(SERVE_GATES):
+        c.rx(1 + i % (num_qubits - 1), float(rng.uniform(0, 2 * np.pi)))
+    return c
+
+
+def serve_states(num_qubits: int = SERVE_QUBITS, count: int = SERVE_STATES,
+                 seed: int = SERVE_STATE_SEED) -> np.ndarray:
+    """(count, 2, 2^n) f32 normalised random planes: the bench's serving
+    requests (bench.py _measure_serve, np.random.default_rng(7)), drawn
+    64 states at a time (the same stream, a 64-state f64 temporary)."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((count, 2, 1 << num_qubits), dtype=np.float32)
+    for lo in range(0, count, 64):
+        s = rng.standard_normal(out[lo:lo + 64].shape)
+        out[lo:lo + 64] = s
+        out[lo:lo + 64] /= np.sqrt(
+            (out[lo:lo + 64] ** 2).sum(axis=(1, 2), keepdims=True))
+    return out
 
 
 def z_top(planes: torch.Tensor) -> torch.Tensor:

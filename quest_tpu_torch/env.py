@@ -76,6 +76,41 @@ def _parse_fault_plan(raw: str):
     return faults.parse_plan(raw)
 
 
+def _parse_nonneg_float(name: str) -> Callable[[str], float]:
+    def parse(raw: str) -> float:
+        try:
+            v = float(raw)
+        except ValueError:
+            raise ValueError(f"{name} must be a float, got {raw!r}")
+        if not (v >= 0.0):
+            raise ValueError(f"{name} must be >= 0, got {v}")
+        return v
+    return parse
+
+
+def _parse_tenant_quota(raw: str):
+    # serve.admission is standard-library only at import time
+    from quest_tpu_torch.serve.admission import parse_tenant_quota
+    return parse_tenant_quota(raw)
+
+
+def _parse_shed_threshold(raw: str) -> float:
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"QUEST_SERVE_SHED_THRESHOLD must be a float, got {raw!r}")
+    if not (0.0 < v <= 1.0):
+        raise ValueError(
+            f"QUEST_SERVE_SHED_THRESHOLD must be in (0, 1] (a fraction of "
+            f"queue capacity; 1.0 sheds only at the hard bound), got {v}")
+    return v
+
+
+# admission.DEFAULT_TENANT_QUOTA, the quota of every tenant unnamed
+_DEFAULT_TENANT_QUOTA = {"default": 256}
+
+
 def _choice(name: str, choices) -> Callable[[str], str]:
     def parse(raw: str) -> str:
         if raw not in choices:
@@ -271,6 +306,52 @@ _KNOB_LIST = (
     Knob("QUEST_HBM_BYTES", _int_range("QUEST_HBM_BYTES", 1, 1 << 62), None,
          doc="device memory in bytes for the capacity models (default: "
              "the card's total memory, torch.cuda.get_device_properties)"),
+    # the native host engine (ref quest_tpu/env.py:426, :463)
+    Knob("QUEST_HOST_BLOCK", _int_range("QUEST_HOST_BLOCK", 1, 30), 17,
+         doc="log2 amplitudes per cache block of the native host engine "
+             "(host.py; default: 17 = 1 MiB of f32 planes)", keyed=True),
+    Knob("QUEST_NATIVE_LIB", str, None,
+         doc="path of a native host library to load instead of the one "
+             "built from native/*.cpp into build/quest_tpu_torch "
+             "(native.py; used as it is, never rebuilt)"),
+    # the serving engine (ref quest_tpu/env.py:497-590, :644); read when
+    # a ServeEngine is constructed
+    Knob("QUEST_SERVE_MAX_WAIT_MS",
+         _int_range("QUEST_SERVE_MAX_WAIT_MS", 0), 5,
+         doc="max milliseconds a serve request waits for batch-mates "
+             "before its partial batch launches (default: 5); 0 = no "
+             "coalescing, every request launches alone"),
+    Knob("QUEST_SERVE_MAX_QUEUE", _int_range("QUEST_SERVE_MAX_QUEUE", 1),
+         1024,
+         doc="bounded pending-request depth of ServeEngine; the "
+             "overflowing submit raises RejectedError (default: 1024)"),
+    Knob("QUEST_SERVE_MAX_BATCH", _int_range("QUEST_SERVE_MAX_BATCH", 1),
+         64,
+         doc="max states coalesced into one serve launch; a queue "
+             "holding this many pending states dispatches at once "
+             "(default: 64)"),
+    Knob("QUEST_SERVE_RESTART_MAX",
+         _int_range("QUEST_SERVE_RESTART_MAX", 0), 3,
+         doc="consecutive worker-crash restarts ServeEngine's supervisor "
+             "allows before the engine turns FAILED (default: 3)"),
+    Knob("QUEST_SERVE_BREAKER_THRESHOLD",
+         _int_range("QUEST_SERVE_BREAKER_THRESHOLD", 1), 3,
+         doc="consecutive primary-engine compile failures of one program "
+             "before its breaker opens and its requests step down the "
+             "fused -> banded -> host ladder (default: 3)"),
+    Knob("QUEST_SERVE_TENANT_QUOTA", _parse_tenant_quota,
+         _DEFAULT_TENANT_QUOTA,
+         doc="per-tenant pending-request quota: one integer (every "
+             "tenant) or 'tenant=quota,...' with an optional default= "
+             "entry (default: 256)"),
+    Knob("QUEST_SERVE_SHED_THRESHOLD", _parse_shed_threshold, 0.75,
+         doc="queue pressure above which the lowest priority class is "
+             "shed with ShedError, in (0, 1] (default: 0.75)"),
+    Knob("QUEST_DISPATCH_TIMEOUT_S",
+         _parse_nonneg_float("QUEST_DISPATCH_TIMEOUT_S"), 0.0,
+         doc="serve dispatch watchdog deadline in seconds: a launch "
+             "outliving it fails typed DispatchTimeout and the wedged "
+             "worker is replaced (default: 0 = no watchdog)"),
     # fault injection and the durable executor (ref quest_tpu/env.py:
     # 597-640): read at run time, not keyed
     Knob("QUEST_FAULT_PLAN", _parse_fault_plan, None,
@@ -368,22 +449,33 @@ def hbm_bytes(device=None) -> int:
 
 class QuESTEnv:
     """The execution environment of one process (ref quest_tpu/env.py:730,
-    QuESTEnv). `QuESTEnv()` is one device: the CUDA card unless the
-    caller asks for device="cpu". `QuESTEnv(devices=[...])` (torch
-    devices or names, entries may repeat: four shards on one card are
-    [torch.device("cuda")] * 4) or `QuESTEnv(mesh=AmpMesh)` is a mesh of
-    that many shards (the largest power of two of the devices given):
-    num_ranks is its size, and create_qureg(env=) shards a register over
-    it when `sharding_for` says so."""
+    QuESTEnv(devices, distributed)). `devices` is a list of torch devices
+    or names, in the reference's first position; entries may repeat (four
+    shards on one card are [torch.device("cuda")] * 4). Two or more make
+    a mesh of that many shards (the largest power of two of them):
+    num_ranks is its size, and create_qureg(n, env) shards a register
+    over it when `sharding_for` says so. One device — a list of one, or
+    a bare device or name such as QuESTEnv("cpu") — is a one-device env;
+    None is the CUDA card. `mesh=` (an AmpMesh, keyword only) gives the
+    mesh itself. distributed=True (a mesh over several processes) raises
+    until multi-process meshes are ported (ROADMAP A10c)."""
 
-    def __init__(self, device=None, devices=None, mesh=None):
+    def __init__(self, devices=None, distributed: bool = False, *,
+                 mesh=None):
+        if distributed:
+            raise NotImplementedError(
+                "QuESTEnv(distributed=True): meshes over several "
+                "processes are not ported yet (ROADMAP A10c)")
+        device = None
+        if isinstance(devices, (str, torch.device)):
+            devices, device = None, devices
         if mesh is not None and devices is not None:
             raise ValueError("pass devices= or mesh=, not both")
         if devices is not None:
             from quest_tpu_torch.parallel.mesh import make_amp_mesh
             devices = list(devices)
             if not devices:
-                raise ValueError("devices= must name at least one device")
+                raise ValueError("devices must name at least one device")
             mesh = make_amp_mesh(devices=devices)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if mesh is not None:
@@ -443,8 +535,11 @@ class QuESTEnv:
         return s
 
 
-def create_quest_env(device=None, devices=None, mesh=None) -> QuESTEnv:
-    return QuESTEnv(device, devices=devices, mesh=mesh)
+def create_quest_env(devices=None, distributed: bool = False, *,
+                     mesh=None) -> QuESTEnv:
+    """QuESTEnv(devices, distributed, mesh=) (ref quest_tpu/env.py
+    create_quest_env)."""
+    return QuESTEnv(devices, distributed, mesh=mesh)
 
 
 def destroy_quest_env(env: QuESTEnv) -> None:

@@ -279,19 +279,20 @@ def _sample_sharded_given_uniforms(q, u: torch.Tensor) -> torch.Tensor:
     return SE.sample_given_uniforms(q, u)
 
 
-def sample(q, shots: int, generator: torch.Generator = None) -> torch.Tensor:
-    """`shots` full-register basis-state samples (int64 indices, on the
-    register's device), drawn without collapsing the state: exactly
-    `shots` uniforms of the plane dtype from `generator`, or, when it is
-    None, from a CPU generator seeded with one word of the seeded host
-    stream (random_.uint32, as the reference derives its key). The
+def sample(q, num_shots: int,
+           generator: torch.Generator = None) -> torch.Tensor:
+    """`num_shots` full-register basis-state samples (int64 indices, on
+    the register's device), drawn without collapsing the state: exactly
+    `num_shots` uniforms of the plane dtype from `generator`, or, when
+    it is None, from a CPU generator seeded with one word of the seeded
+    host stream (random_.uint32, as the reference derives its key). The
     probabilities and their CDF share one tensor of 2^n plane-dtype
     entries: a 30-qubit f32 state adds 4 GiB."""
-    if shots < 1:
+    if num_shots < 1:
         raise val.QuESTError("Invalid number of shots: must be positive.")
     if generator is None:
         generator = torch.Generator().manual_seed(rng.uint32())
-    u = torch.rand(int(shots), generator=generator, dtype=q.amps.dtype,
+    u = torch.rand(int(num_shots), generator=generator, dtype=q.amps.dtype,
                    device=generator.device)
     if SE.is_sharded(q):
         # one draw for every shard: per-shard generators would diverge

@@ -38,16 +38,20 @@ _LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 _ACTIVE: Tuple[str, ...] = KERNEL
 
 
+class BuildError(RuntimeError):
+    """The kernel library could not be built: no nvcc, or nvcc failed."""
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: nvcc on PATH, else the toolkit's default
-    location. Raises when neither exists."""
+    location. Raises BuildError when neither exists."""
     found = shutil.which("nvcc")
     if found:
         return found
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError(
+    raise BuildError(
         "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels of "
         "quest_tpu_torch are built at first use on a machine with the CUDA "
         "toolkit")
@@ -64,7 +68,7 @@ def library_path(defines: Sequence[str] = KERNEL) -> Path:
 def build(*variants: Sequence[str]) -> float:
     """Build the library of each variant (defines; none given: KERNEL)
     that does not exist yet, one nvcc process each, all at once; return
-    the wall seconds (0.0 when nothing was built). Raises RuntimeError
+    the wall seconds (0.0 when nothing was built). Raises BuildError
     with nvcc's output when a build fails."""
     global BUILD_LOG
     variants = tuple(tuple(v) for v in variants) or (KERNEL,)
@@ -91,7 +95,7 @@ def build(*variants: Sequence[str]) -> float:
         else:
             os.replace(tmp, out)     # atomic: readers never see half a file
     if failed:
-        raise RuntimeError(f"CUDA build of {SOURCE.name} failed: "
+        raise BuildError(f"CUDA build of {SOURCE.name} failed: "
                            + "\n".join(failed))
     return time.perf_counter() - t0
 

@@ -56,6 +56,24 @@ _HI_MASK = -65536                  # 0xFFFF0000 as an int32
 _REAL_EPS = {np.dtype(np.float32): 1e-5, np.dtype(np.float64): 1e-13}
 
 _tier_override: Optional[str] = None
+_default_dtype = DEFAULT_DTYPE
+
+
+def set_default_dtype(dtype) -> None:
+    """Set the amplitude dtype of registers created without one (ref
+    quest_tpu/precision.py:31): complex64 (f32 planes) or complex128
+    (f64 planes); anything else raises ValueError."""
+    global _default_dtype
+    d = np.dtype(dtype)
+    if d not in (np.dtype(np.complex64), np.dtype(np.complex128)):
+        raise ValueError(
+            f"amplitude dtype must be complex64 or complex128, got {d}")
+    _default_dtype = d
+
+
+def get_default_dtype() -> np.dtype:
+    """The amplitude dtype of registers created without one."""
+    return _default_dtype
 
 
 def real_dtype_of(dtype) -> np.dtype:

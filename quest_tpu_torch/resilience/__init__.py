@@ -5,17 +5,20 @@ A port of quest_tpu/resilience (ROADMAP A11):
   * `faults`: deterministic fault injection at named sites (`FaultPlan`,
     the `QUEST_FAULT_PLAN` knob); zero-cost when empty. Standard library
     only.
+  * `supervisor`: the bounded-restart backoff policy of the serving
+    worker. Standard library only.
+  * `breaker`: the per-program circuit breaker that drives the serving
+    engine's fused -> banded -> host ladder. Standard library only.
   * `durable`: mid-circuit checkpointing, preemption-tolerant resume and
     corruption sentinels (`run_durable`, `run_durable_trajectories`).
     It imports torch and the engines, so it loads lazily through this
     namespace and the package import stays standard-library only.
-
-The reference's breaker and supervisor serve the serving runtime and
-wait with it (ROADMAP A12).
 """
 
 from quest_tpu_torch.resilience import faults  # noqa: F401
+from quest_tpu_torch.resilience.breaker import Breaker  # noqa: F401
 from quest_tpu_torch.resilience.faults import FaultPlan, InjectedFault  # noqa: F401
+from quest_tpu_torch.resilience.supervisor import Supervisor  # noqa: F401
 
 _LAZY = {
     "durable": ("quest_tpu_torch.resilience.durable", None),
@@ -27,7 +30,8 @@ _LAZY = {
                        "IntegrityError"),
 }
 
-__all__ = ["faults", "FaultPlan", "InjectedFault"] + sorted(_LAZY)
+__all__ = ["faults", "FaultPlan", "InjectedFault", "Breaker",
+           "Supervisor"] + sorted(_LAZY)
 
 
 def __getattr__(name):

@@ -48,6 +48,8 @@ SITES = (
                             # before the pop, phase=popped with batches
                             # in hand but none dispatched)
     "serve.compile",        # primary-engine program compile/resolution
+                            # (the port checks it at every ladder rung
+                            # it builds; ctx: program, rung)
     "serve.device_put",     # host->device staging of a coalesced batch
     "serve.dispatch",       # the batched launch itself (ctx carries the
                             # batch's requests — match= emulates one

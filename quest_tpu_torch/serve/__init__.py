@@ -1,6 +1,53 @@
-"""quest_tpu_torch.serve: the part of the serving layer the port has.
+"""quest_tpu_torch.serve: the continuous-batching execution service.
 
-Only the metrics registry (`metrics`), which the durable executor
-records into; the serving runtime itself (engine, fleet, IPC workers)
-waits for ROADMAP A12.
+A port of quest_tpu/serve (ROADMAP A12a): `ServeEngine` coalesces
+compatible requests from many clients into one batched launch per
+program key (on the card, one batched sweep of the segment kernel per
+segment) and adds admission, deadlines, supervision, poisoned-batch
+isolation and a per-program breaker over the fused -> banded -> host
+ladder (serve/engine.py); `serve.admission` holds the typed errors and
+the queue policy; `serve.metrics` the standard-library counters,
+histograms and Prometheus scrape; `serve.warmup` builds a declared
+workload's programs up front. The process fleet, its IPC workers and the
+autoscaler are ROADMAP A12b.
+
+`metrics` and `warmup` import only the standard library at module level
+(tests/test_torch_isolation.py); everything else loads on first access
+through this namespace.
 """
+
+from quest_tpu_torch.serve import metrics  # noqa: F401
+# `warmup` the function shares its name with the submodule: import the
+# submodule first, then bind the function over the package attribute
+from quest_tpu_torch.serve.warmup import default_buckets, warmup  # noqa: F401,E402
+
+_LAZY = {
+    "ServeEngine": ("quest_tpu_torch.serve.engine", "ServeEngine"),
+    "RejectedError": ("quest_tpu_torch.serve.admission", "RejectedError"),
+    "DeadlineExceeded": ("quest_tpu_torch.serve.admission",
+                         "DeadlineExceeded"),
+    "ShedError": ("quest_tpu_torch.serve.admission", "ShedError"),
+    "DispatchTimeout": ("quest_tpu_torch.serve.admission",
+                        "DispatchTimeout"),
+    "TenantQuota": ("quest_tpu_torch.serve.admission", "TenantQuota"),
+    "TenantQuotaExceeded": ("quest_tpu_torch.serve.admission",
+                            "TenantQuotaExceeded"),
+    "AdmissionController": ("quest_tpu_torch.serve.admission",
+                            "AdmissionController"),
+}
+
+__all__ = ["metrics", "default_buckets", "warmup"] + sorted(_LAZY)
+
+
+def __getattr__(name):
+    try:
+        mod_name, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(f"module 'quest_tpu_torch.serve' has no "
+                             f"attribute {name!r}") from None
+    import importlib
+    mod = importlib.import_module(mod_name)
+    for k, (m, a) in _LAZY.items():
+        if m == mod_name:
+            globals()[k] = getattr(mod, a)
+    return globals()[name]

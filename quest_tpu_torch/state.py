@@ -104,7 +104,8 @@ def fused_state_shape(n: int):
 
 def _make(num_qubits: int, is_density: bool, dtype, device, env) -> Qureg:
     validation.validate_num_qubits(num_qubits)
-    dtype = np.dtype(dtype) if dtype is not None else precision.DEFAULT_DTYPE
+    dtype = (np.dtype(dtype) if dtype is not None
+             else precision.get_default_dtype())
     rdt = precision.real_dtype_of(dtype)
     n = 2 * num_qubits if is_density else num_qubits
     mesh = env.sharding_for(n) if env is not None else None
@@ -121,21 +122,24 @@ def _make(num_qubits: int, is_density: bool, dtype, device, env) -> Qureg:
     return Qureg(amps=amps, num_qubits=num_qubits, is_density=is_density)
 
 
-def create_qureg(num_qubits: int, dtype=None, device=None,
-                 env=None) -> Qureg:
-    """Statevector register initialized to |0...0> (ref: QuEST.c:34-46):
-    f32 planes for complex64 (the default), f64 for complex128. Under an
-    `env` over several shards (QuESTEnv(devices=) / QuESTEnv(mesh=)) the
-    planes are sharded over its mesh when the register holds at least two
-    amplitudes a shard (QuESTEnv.sharding_for)."""
+def create_qureg(num_qubits: int, env=None, dtype=None, *,
+                 device=None) -> Qureg:
+    """Statevector register initialized to |0...0> (ref: QuEST.c:34-46;
+    the reference's argument order, quest_tpu/state.py:139): f32 planes
+    for complex64, f64 for complex128, precision.get_default_dtype()
+    when `dtype` is None. On `device`, else the env's device, else the
+    CUDA card. Under an `env` over several shards (QuESTEnv([...]) /
+    QuESTEnv(mesh=)) the planes are sharded over its mesh when the
+    register holds at least two amplitudes a shard
+    (QuESTEnv.sharding_for)."""
     return _make(num_qubits, False, dtype, device, env)
 
 
-def create_density_qureg(num_qubits: int, dtype=None, device=None,
-                         env=None) -> Qureg:
+def create_density_qureg(num_qubits: int, env=None, dtype=None, *,
+                         device=None) -> Qureg:
     """Density-matrix register initialized to |0..0><0..0| (ref:
-    QuEST.c:48-60): 2N state qubits, f32 planes for complex64 (the
-    default), f64 for complex128; sharded under `env` as create_qureg."""
+    QuEST.c:48-60): 2N state qubits, dtype, device and sharding as
+    create_qureg."""
     return _make(num_qubits, True, dtype, device, env)
 
 

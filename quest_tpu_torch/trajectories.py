@@ -399,14 +399,105 @@ class TrajectoryProgram:
         return planes.reshape(b, 2, -1), draws
 
 
-def _compiled_traj(circuit, n: int, device,
-                   engine: str = "fused") -> TrajectoryProgram:
+class HostTrajectoryProgram:
+    """The `host` trajectory engine (ref trajectories.py:484,
+    _compiled_traj_host): B trajectories of a noisy circuit from
+    |0...0> on the host, one state at a time. Each unitary stretch
+    between channels is one native blocked program (host.py); each
+    channel draws every state's branch from the (B, C) uniforms through
+    the same rule, operators and f64 Born probabilities as the banded
+    program (_Channel.select), so equal uniforms give equal draws, and
+    applies each state's renormalised operator as a one-gate native
+    program. A run of consecutive 1-qubit mixture channels (state-
+    independent probabilities) applies as one native program a state.
+    Call it with uniforms (B, C); returns (planes (B, 2, 2^n) f32,
+    draws (B, C) int32), CPU tensors. Raises host.HostEngineUnsupported
+    when the native library is missing."""
+
+    engine = "host"
+    launches_per_call = 0
+
+    def __init__(self, circuit, n: int):
+        from quest_tpu_torch import host as H
+        self.n, self.device = n, torch.device("cpu")
+        _, channels = _traj_channels_and_items(circuit, n, False)
+        self.channel_info = channels
+        self.channels = [_Channel(ch, self.device) for ch in channels]
+        # ("run", step) | ("chans", [index, ...]): a "chans" element
+        # holds one general channel or a run of 1-qubit mixtures
+        self.program: list = []
+        stretch: list = []
+        idx = 0
+        for op in circuit.ops:
+            if op.kind != "superop":
+                stretch.append(op)
+                continue
+            if stretch:
+                self.program.append(("run", H.compile_circuit_host(
+                    tuple(stretch), n, False)))
+                stretch = []
+            mixture = (channels[idx]["mixture_probs"] is not None
+                       and len(channels[idx]["targets"]) == 1)
+            prev = self.program[-1] if self.program else None
+            if (mixture and prev is not None and prev[0] == "chans"
+                    and self._mixture(prev[1][-1])):
+                prev[1].append(idx)
+            else:
+                self.program.append(("chans", [idx]))
+            idx += 1
+        if stretch:
+            self.program.append(("run", H.compile_circuit_host(
+                tuple(stretch), n, False)))
+
+    def _mixture(self, idx: int) -> bool:
+        ch = self.channel_info[idx]
+        return ch["mixture_probs"] is not None and len(ch["targets"]) == 1
+
+    @property
+    def num_channels(self) -> int:
+        return len(self.channels)
+
+    def __call__(self, uniforms: torch.Tensor):
+        from quest_tpu_torch import host as H
+        from quest_tpu_torch.circuit import GateOp
+        n, c = self.n, self.num_channels
+        u = uniforms.to(device="cpu", dtype=torch.float64)
+        if u.dim() != 2 or u.shape[0] < 1 or u.shape[1] != c:
+            raise ValueError(f"uniforms of shape {tuple(u.shape)}, program "
+                             f"takes (B, {c})")
+        b = u.shape[0]
+        planes = torch.zeros((b, 2, 1 << n), dtype=torch.float32)
+        planes[:, 0, 0] = 1.0
+        draws = torch.zeros((b, c), dtype=torch.int32)
+        for kind, el in self.program:
+            if kind == "run":
+                for s in range(b):
+                    el(planes[s])
+                continue
+            ops = []
+            for idx in el:
+                ch = self.channels[idx]
+                draw, op_re, op_im = ch.select(planes, n, u[:, idx])
+                draws[:, idx] = draw.to(torch.int32)
+                ops.append((ch.targets, torch.complex(
+                    op_re.double(), op_im.double()).numpy()))
+            for s in range(b):
+                H.compile_circuit_host(
+                    tuple(GateOp("matrix", t, operand=k[s]) for t, k in ops),
+                    n, False)(planes[s])
+        return planes, draws
+
+
+def _compiled_traj(circuit, n: int, device, engine: str = "fused"):
     """The trajectory program of `circuit` on `device` through `engine`
-    ('fused' or 'banded'), cached on the circuit like every program
-    (Circuit._cached: keyed on n, engine, the device and
+    ('fused', 'banded' or 'host'), cached on the circuit like every
+    program (Circuit._cached: keyed on n, engine, the device and
     _engine_mode_key(), the matmul tier and segment driver among it): a
     program keeps the tier and driver it was compiled with, and a flip
-    compiles anew."""
+    compiles anew. The host engine runs on the CPU whatever `device`."""
+    if engine == "host":
+        return circuit._cached(("traj-batched", n, "cpu", engine),
+                               lambda: HostTrajectoryProgram(circuit, n))
     dev = resolve_device(device)
 
     def build():
@@ -420,16 +511,27 @@ def _compiled_traj(circuit, n: int, device,
 def _resolve_engine(engine, n: int) -> str:
     """The engine a run takes (ref trajectories.py:374): the one named,
     else 'fused' from the kernel's 10 qubits and 'banded' below."""
-    if engine == "host":
-        raise NotImplementedError(
-            "the native host trajectory engine is not ported yet "
-            "(ROADMAP A13)")
     if engine is None:
         return "fused" if BP.usable(n) else "banded"
-    if engine not in ("fused", "banded"):
+    if engine not in ("fused", "banded", "host"):
         raise ValueError(f"engine must be 'fused', 'banded' or 'host', "
                          f"got {engine!r}")
     return engine
+
+
+def program_key(circuit, engine: str = None):
+    """(resolved engine, program identity) of the trajectory program
+    run_batched would run for `circuit` (ref trajectories.py:807): the
+    serving engine's rule for trajectory requests, two of which share
+    launches iff their identities are equal. It holds the circuit object
+    (compared by identity), its op count, the register size, the resolved
+    engine and _engine_mode_key(); no shot count (the program takes any
+    batch)."""
+    from quest_tpu_torch.circuit import _engine_mode_key
+    n = circuit.num_qubits
+    engine = _resolve_engine(engine, n)
+    return engine, ("traj-batched", circuit, len(circuit.ops), n, engine,
+                    _engine_mode_key())
 
 
 def run_batched(circuit, shots: int, *, generator: torch.Generator,
@@ -450,10 +552,18 @@ def run_batched(circuit, shots: int, *, generator: torch.Generator,
     maps a (b, 2, 2^n) chunk of final planes to per-shot values (leading
     axis kept); the return is then (values (shots, ...), draws) and no
     chunk's planes outlive its reduction. engine: None (the fused engine
-    from 10 qubits, the banded program below), 'fused' or 'banded';
-    'host' is not ported yet (ROADMAP A13)."""
+    from 10 qubits, the banded program below), 'fused', 'banded' or
+    'host' (the native host engine on the CPU, one state at a time,
+    HostTrajectoryProgram: `device` must then be None or the CPU, and
+    the results are CPU tensors). Equal generator states give every
+    engine the same uniforms, and the branches drawn from them follow
+    one rule."""
     n = circuit.num_qubits
     engine = _resolve_engine(engine, n)
+    if (engine == "host" and device is not None
+            and torch.device(device).type != "cpu"):
+        raise ValueError(f"engine='host' runs on the CPU, got device="
+                         f"{device!r}")
     shots = int(shots)
     if shots < 1:
         raise ValueError(f"shots must be >= 1, got {shots}")

@@ -49,7 +49,7 @@ def _one_thread_per_worker():
     torch.set_num_threads(threads)
 
 
-ENV = Q.createQuESTEnv(device="cpu")
+ENV = Q.createQuESTEnv(devices="cpu")
 
 
 def _haar(d, rng):

@@ -1041,7 +1041,7 @@ def test_tutorial_through_the_api_on_the_card(card):
                 q.qasm.recorded())
     p7, p2, text = tutorial(Q.createQuESTEnv())
     assert abs(p7 - 0.112422) <= 1e-6 and abs(p2 - 0.749178) <= 1e-6
-    assert text == tutorial(Q.createQuESTEnv(device="cpu"))[2]
+    assert text == tutorial(Q.createQuESTEnv(devices="cpu"))[2]
 
 
 # -- the sharded engines and the scan (ROADMAP A10, A4.4) --------------------
@@ -1234,3 +1234,131 @@ def test_durable_resume_through_k1_on_the_card(card, monkeypatch, tmp_path):
             c.compiled_sharded_fused(n, False, mesh)(x)
             for a, b, w in zip(out.amps.shards, ref.amps.shards, x.shards):
                 assert torch.equal(a, b) and torch.equal(a, w)
+
+
+@pytest.fixture
+def serving_card(card):
+    """The card with the segment kernel and the native host library
+    built, so that the serving tests' future timeouts never include a
+    compiler's minutes; prints how long each build took."""
+    import time
+    from quest_tpu_torch import native
+    from quest_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build()
+    S._lib()
+    t1 = time.perf_counter()
+    native.build()
+    print(f"serving_card: segment kernel {t1 - t0:.1f} s, native host "
+          f"library {time.perf_counter() - t1:.1f} s")
+    return card
+
+
+def _served(eng, fut, timeout=120):
+    """fut's result; on a timeout, the engine's health and every serving
+    thread's stack, so a stall shows where the worker waits."""
+    import concurrent.futures
+    import sys
+    import threading
+    import traceback
+    try:
+        return fut.result(timeout=timeout)
+    except concurrent.futures.TimeoutError:
+        frames = sys._current_frames()
+        stacks = {t.name: "".join(traceback.format_stack(frames[t.ident]))
+                  for t in threading.enumerate()
+                  if t.name.startswith("quest-serve") and t.ident in frames}
+        raise AssertionError(f"no result in {timeout} s; health "
+                             f"{eng.health()}; threads {stacks}") from None
+
+
+def _serve_states(n, b, seed):
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((b, 2, 1 << n)).astype(np.float32)
+    return s / np.sqrt((s ** 2).sum(axis=(1, 2), keepdims=True))
+
+
+def test_serve_apply_stream_through_batched_k1(serving_card):
+    """Coalesced apply requests on the card: one batched K1 sweep a
+    segment for the whole batch, outputs within 1e-4 x max|amp| of each
+    state alone through compiled_fused, no degraded dispatch."""
+    card = serving_card
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.serve import ServeEngine, metrics
+    n, b = 14, 16
+    c = random_circuit(n, 3, seed=5)
+    states = _serve_states(n, b, 7)
+    fn = c.compiled_fused(n, device=card)
+    reg = metrics.Registry()
+    S.segment_sweep.launches = 0
+    with ServeEngine(device=card, max_wait_ms=10_000, max_batch=b,
+                     registry=reg) as eng:
+        futs = [eng.submit(c, state=s) for s in states]
+        outs = [_served(eng, f) for f in futs]
+    assert S.segment_sweep.launches == fn.launches_per_call
+    for s, got in zip(states, outs):
+        want = torch.from_numpy(s).to(card)
+        fn(want.view(2, -1))
+        want = want.reshape(2, -1).cpu()
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    snap = reg.snapshot()["counters"]
+    assert snap["serve_batches_dispatched"] == 1
+    assert snap.get("serve_degraded_dispatches", 0) == 0
+
+
+def test_serve_trajectories_on_the_card_draw_like_run_batched(serving_card):
+    """Two coalesced trajectory requests on the card (K1 with S9): their
+    draws equal run_batched's from the same generator states, and their
+    planes agree within 1e-4."""
+    card = serving_card
+    from quest_tpu_torch import entry as E
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.serve import ServeEngine
+    n = 12
+    c = E.noisy_rcs_circuit(n, 2)
+    with ServeEngine(device=card, max_wait_ms=10_000, max_batch=8) as eng:
+        futs = [eng.submit(c, shots=6, seed=s) for s in (0, 1)]
+        got = [_served(eng, f) for f in futs]
+    for s, (p, d) in zip((0, 1), got):
+        wp, wd = T.run_batched(c, 6, generator=torch.Generator().manual_seed(s),
+                               device=card)
+        assert torch.equal(d, wd.cpu())
+        assert (p - wp.cpu()).abs().max() <= 1e-4
+
+
+def test_serve_ladder_on_the_card_down_to_host_and_back(serving_card):
+    """Injected build failures on the card's engine: the fused failure
+    that opens the breaker fails its own request; then, with banded
+    failing too, requests complete on host, within 1e-4 of K1, the
+    degraded dispatches counted exactly; the half-open probe restores
+    fused."""
+    card = serving_card
+    import time
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.resilience import FaultPlan, faults
+    from quest_tpu_torch.serve import ServeEngine, metrics
+    n = 12
+    c = random_circuit(n, 2, seed=9)
+    states = _serve_states(n, 4, 3)
+    fn = c.compiled_fused(n, device=card)
+    plan = FaultPlan().inject(
+        "serve.compile", error=RuntimeError("injected"), times=3,
+        match=lambda ctx: ctx["rung"] in ("fused", "banded"))
+    reg = metrics.Registry()
+    with faults.active(plan):
+        with ServeEngine(device=card, max_wait_ms=0, breaker_threshold=1,
+                         breaker_cooldown_s=1.0, registry=reg) as eng:
+            with pytest.raises(RuntimeError, match="injected"):
+                _served(eng, eng.submit(c, state=states[0]))
+            outs = [_served(eng, eng.submit(c, state=s))
+                    for s in states[1:3]]         # host, then host
+            time.sleep(1.1)
+            outs.append(_served(eng, eng.submit(c, state=states[3])))
+            snap = reg.snapshot()["counters"]     # the probe: fused
+    assert snap["serve_degraded_dispatches"] == 2
+    assert snap["serve_breaker_closes"] == 1
+    for s, got in zip(states[1:], outs):
+        want = torch.from_numpy(s).to(card)
+        fn(want.view(2, -1))
+        want = want.reshape(2, -1).cpu()
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -43,7 +43,12 @@ def test_import_leaves_jax_and_reference_unloaded():
             "quest_tpu_torch.resilience, "
             "quest_tpu_torch.resilience.faults, "
             "quest_tpu_torch.resilience.durable, "
-            "quest_tpu_torch.serve, quest_tpu_torch.serve.metrics; "
+            "quest_tpu_torch.serve, quest_tpu_torch.serve.metrics, "
+            "quest_tpu_torch.native, quest_tpu_torch.host, "
+            "quest_tpu_torch.serve.engine, quest_tpu_torch.serve.admission, "
+            "quest_tpu_torch.serve.warmup, "
+            "quest_tpu_torch.resilience.breaker, "
+            "quest_tpu_torch.resilience.supervisor; "
             "bad = sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'quest_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -77,7 +82,8 @@ def test_resilience_and_metrics_import_only_the_standard_library():
     loads lazily through the package namespace."""
     allowed = {"quest_tpu_torch"}
     for rel in ("resilience/__init__.py", "resilience/faults.py",
-                "serve/__init__.py", "serve/metrics.py"):
+                "resilience/breaker.py", "resilience/supervisor.py",
+                "serve/__init__.py", "serve/metrics.py", "serve/warmup.py"):
         path = os.path.join(PORT, rel)
         tree = ast.parse(open(path).read(), filename=path)
         for node in tree.body:

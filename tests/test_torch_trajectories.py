@@ -374,8 +374,18 @@ def test_noisy_circuits_convert_with_their_kraus_ops():
 def test_unported_engines_and_bad_circuits_raise(born_spy):
     circ = E.noisy_rcs_circuit(10, 1)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.run_batched(circ, 4, generator=gen, engine="host", device="cpu")
+    # engine='host' is ported: it runs on the CPU (another device is
+    # refused) and draws what the banded program draws from one
+    # generator state
+    host_planes, host_draws = T.run_batched(
+        circ, 4, generator=torch.Generator().manual_seed(0), engine="host")
+    banded_planes, banded_draws = T.run_batched(
+        circ, 4, generator=torch.Generator().manual_seed(0),
+        engine="banded", device="cpu")
+    assert torch.equal(host_draws, banded_draws)
+    assert (host_planes - banded_planes).abs().max() <= 2e-5
+    with pytest.raises(ValueError, match="host"):
+        T.run_batched(circ, 4, generator=gen, engine="host", device="meta")
     with pytest.raises(ValueError):
         T.run_batched(circ, 4, generator=gen, engine="xla", device="cpu")
     # engine='banded' at 10 qubits, and the default below the kernel tier
