@@ -349,6 +349,26 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      K1's with the CPU's model and cores, and the native library's build
      seconds apart from its run time.
 
+ The serving fleet (no kernel is added):
+ 43. fleet: the serve phase's circuit and first 128 states through one
+     ServeEngine, a 2-replica thread ServeFleet and a 2-worker process
+     ServeFleet on the card (each worker its own interpreter and CUDA
+     context, launching K1), at saturation: requests/s, latency,
+     occupancy; the process fleet's outputs bit for bit the one
+     engine's (a), K1 launches per worker read from the workers'
+     heartbeats just before and after the stream. Worker boot to hello
+     cold (the first fleet) and warm (a respawn, a scale-up), and each
+     context's memory by the card's free memory. (c) two 32-shot
+     trajectory requests of noisy_rcs_circuit(20, 3) with a PauliSum
+     <Z_19> through a worker: draws equal to run_batched's from the same
+     generator state, values within 1e-4. (b) + (d): one card worker with
+     48 requests held (max_queue 64); Autoscaler.tick() grows the fleet
+     to 2 workers, the first worker is SIGKILLed with the 48 in flight
+     (>= 32 gated), and the respawned worker serves them bit for bit the
+     one engine's (losses, respawns, resubmits >= 1; kill to all
+     resolved timed); after the drain the ticks shrink it back to 1,
+     never outside [1, 2].
+
 Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
 at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
 sheet); a segment of phase stages only counts the rows its predicates
@@ -414,7 +434,7 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "dynamic", "calculations", "eager", "expec", "evolution",
           "variational", "adjoint", "frontends", "api", "scan", "sharded",
           "sharded_batched", "sharded_measured", "sharded_consumers",
-          "durable", "serve")
+          "durable", "serve", "fleet")
 
 RECORD = []
 
@@ -5255,16 +5275,21 @@ def cpu_name() -> str:
 
 
 def _serve_run(torch, eng, circ, states, reg, warm=None):
-    """Submit every state at once (after `warm`, one request whose
-    program build is not timed) and wait: (requests/s, wall s, outputs,
-    K1 launches), the counters set to 0 just before the submits."""
+    """Submit every state at once (after `warm`, one request a program
+    family whose build is not timed) and wait: (requests/s, wall s,
+    outputs, K1 launches), the counters set to 0 just before the
+    submits. `circ` is a circuit or a tuple of program families, which
+    the states take in turn."""
     from quest_tpu_torch.ops import segment as S
+    circs = circ if isinstance(circ, tuple) else (circ,)
     if warm is not None:
-        eng.submit(circ, state=warm).result(timeout=600)
+        for c in circs:
+            eng.submit(c, state=warm).result(timeout=600)
     _sync(torch)
     S.segment_sweep.launches = 0
     t0 = time.perf_counter()
-    futs = [eng.submit(circ, state=s) for s in states]
+    futs = [eng.submit(circs[i % len(circs)], state=s)
+            for i, s in enumerate(states)]
     outs = [f.result(timeout=600) for f in futs]
     wall = time.perf_counter() - t0
     return len(states) / wall, wall, outs, S.segment_sweep.launches
@@ -5301,8 +5326,10 @@ def _stream(rec, name, r):
     emit_card({"phase": "serve", "stream": name, **r})
 
 
-def _latency(reg):
-    h = reg.snapshot()["histograms"]
+def _latency(reg, snap=None):
+    """p50 / p99 end-to-end latency and mean batch occupancy from `reg`
+    (or from a snapshot, e.g. the merge of a process fleet's workers')."""
+    h = (reg.snapshot() if snap is None else snap)["histograms"]
     lat = h.get("serve_e2e_latency_s", {})
     occ = h.get("serve_batch_occupancy", {})
     return {"p50_ms": lat.get("p50", 0.0) * 1e3,
@@ -5617,6 +5644,9 @@ def phase_serve(torch):
                              "build_s": native.build()}
     rot, states, apply_row = _serve_apply(torch, rec)
     _serve_observable(torch, rec, rot, states)
+    # the fleet phase reuses a slice of the drawn states (a copy: a view
+    # would keep all of them alive)
+    fleet_states = states[:FLEET_STATES].copy()
     del states
     traj, traj_row = _serve_trajectories(torch, rec)
     _serve_ladder(torch, rec)
@@ -5625,7 +5655,224 @@ def phase_serve(torch):
     rec["seconds"] = time.perf_counter() - t0
     emit_card(rec)
     _free(torch)
-    return apply_row, traj_row
+    return apply_row, traj_row, (rot, fleet_states)
+
+
+FLEET_STATES = 128            # the serve phase's first 128 states
+FLEET_HEARTBEAT_S = 1.0       # a worker is lost after 4 s of silence
+FLEET_TRAJ_QUBITS = 20
+FLEET_TRAJ_SHOTS = 32
+FLEET_HELD = 48               # requests held in flight for the SIGKILL
+FLEET_QUEUE = 64              # max_queue of the autoscaled fleet
+
+
+def _fresh_heartbeats(fleet, after: float, timeout: float = 30.0):
+    """Each live worker's first heartbeat that arrived after `after`
+    (time.monotonic())."""
+    deadline = time.monotonic() + timeout
+    beats = []
+    for e in fleet._engines:
+        if e.state != "running":
+            continue
+        while e.heartbeat().get("rx_t", 0.0) <= after:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: no heartbeat from {e.name}")
+            time.sleep(0.05)
+        beats.append(e.heartbeat())
+    return beats
+
+
+def _worker_launches(fleet):
+    """K1 launches each live worker counted, from a fresh heartbeat."""
+    return [hb.get("kernels", {}).get("launches", 0)
+            for hb in _fresh_heartbeats(fleet, time.monotonic())]
+
+
+def _fleet_run(torch, fleet, circ, states, reg):
+    """_serve_run through a process fleet: K1 launches are read from
+    the workers' heartbeats just before and just after the submits. The
+    warm requests go one at a time, so each new family of `circ` is
+    pinned to the next idle replica in turn."""
+    for c in circ:
+        fleet.submit(c, state=states[0]).result(timeout=600)
+    before = _worker_launches(fleet)
+    rps, wall, outs, _ = _serve_run(torch, fleet, circ, states, reg)
+    after = _worker_launches(fleet)
+    return rps, wall, outs, [b - a for a, b in zip(before, after)]
+
+
+def phase_fleet(torch, served=None):
+    """The serving fleet on the card (phase 43): thread and process
+    replicas, the SIGKILL respawn and the autoscaler over the serve
+    phase's circuit and first FLEET_STATES states (`served`; drawn here
+    when the phase runs alone)."""
+    import signal
+
+    from quest_tpu_torch import entry as E
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.ops.expec import PauliSum, resolve_observable
+    from quest_tpu_torch.serve import (Autoscaler, ServeEngine, ServeFleet,
+                                       metrics)
+    t0 = time.perf_counter()
+    rec = {"phase": "fleet", "states": FLEET_STATES}
+    n, mb = E.SERVE_QUBITS, E.SERVE_MAX_BATCH
+    if served is None:
+        circ, states = E.serve_circuit(n), E.serve_states(n, FLEET_STATES)
+    else:
+        circ, states = served
+    # two program families of one circuit (equal ops, two objects): the
+    # fleet pins each to its own replica, so both workers serve batches
+    # at once; every stream below interleaves them
+    fams = (circ, E.serve_circuit(n))
+    kw = dict(device=CARD, max_wait_ms=E.SERVE_WAIT_MS, max_batch=mb)
+    card = CARD == "cuda"
+
+    # one engine in this process: the outputs every fleet is held to
+    reg = metrics.Registry()
+    with ServeEngine(registry=reg, **kw) as eng:
+        rps, wall, want, launches = _serve_run(torch, eng, fams, states,
+                                               reg, warm=states[0])
+    rec["one_engine"] = {"requests_per_s": rps, "wall_s": wall,
+                         "k1_launches": launches, **_latency(reg)}
+    _free(torch)
+    reg = metrics.Registry()
+    with ServeFleet(replicas=2, process=False, registry=reg, **kw) as fl:
+        rps, wall, outs, launches = _serve_run(torch, fl, fams, states,
+                                               reg, warm=states[0])
+    rec["thread_fleet"] = {
+        "requests_per_s": rps, "wall_s": wall, "k1_launches": launches,
+        "identical": all(torch.equal(a, b) for a, b in zip(outs, want)),
+        **_latency(reg)}
+    del outs
+    _free(torch)
+
+    # (a) two worker processes on the card, each with its own context
+    free0 = torch.cuda.mem_get_info()[0] if card else None
+    reg = metrics.Registry()
+    tb = time.perf_counter()
+    fl = ServeFleet(replicas=2, process=True, registry=reg,
+                    heartbeat_s=FLEET_HEARTBEAT_S, **kw)
+    try:
+        boot = {"wall_s": time.perf_counter() - tb,
+                "cold_s": [e.hello()["boot_s"] for e in fl._engines]}
+        if card:
+            free1 = torch.cuda.mem_get_info()[0]
+            boot["context_bytes_per_worker"] = (free0 - free1) / 2
+            boot["worker_view_at_hello"] = [e.hello()["cuda"]
+                                            for e in fl._engines]
+        rps, wall, outs, per_worker = _fleet_run(torch, fl, fams, states,
+                                                 reg)
+        same = all(torch.equal(a, b) for a, b in zip(outs, want))
+        beats = _fresh_heartbeats(fl, time.monotonic())
+        served_by = [hb["snapshot"]["counters"].get(
+            "serve_requests_served", 0) for hb in beats]
+        # latency from the workers' registries (the warm request
+        # included; quantiles: the worst worker's)
+        merged = metrics.merge_snapshots([hb["snapshot"] for hb in beats])
+        a = {"requests_per_s": rps, "wall_s": wall, "identical": same,
+             "k1_launches_per_worker": per_worker,
+             "requests_per_worker": served_by,
+             "spills": reg.counter("fleet_affinity_spills").value,
+             **_latency(None, merged)}
+        if card:
+            a["worker_card_memory"] = [hb.get("cuda") for hb in beats]
+        rec["boot"], rec["process_fleet"] = boot, a
+        emit_card({"phase": "fleet", "stream": "process_fleet", **a})
+        del outs
+        if not same:
+            raise AssertionError(f"fleet (a): outputs differ: {a}")
+        # both workers served and launched K1 in the timed stream
+        if not (len(served_by) == 2 and all(r > 0 for r in served_by)
+                and (not card or all(k > 0 for k in per_worker))):
+            raise AssertionError(f"fleet (a): not both workers: {a}")
+
+        # (c) trajectory draws through the process fleet
+        nq = FLEET_TRAJ_QUBITS
+        tcirc = E.noisy_rcs_circuit(nq, SERVE_TRAJ_DEPTH)
+        spec = PauliSum.of([[0] * (nq - 1) + [3]], [1.0], nq)
+        g = torch.Generator().manual_seed(17)
+        ref = [T.run_batched(tcirc, FLEET_TRAJ_SHOTS, generator=g,
+                             observable=resolve_observable(spec, nq),
+                             device=CARD) for _ in range(2)]
+        gen = torch.Generator().manual_seed(17)
+        tt = time.perf_counter()
+        futs = [fl.submit(tcirc, shots=FLEET_TRAJ_SHOTS, generator=gen,
+                          observable=spec) for _ in range(2)]
+        got = [f.result(timeout=600) for f in futs]
+        c_rec = {"wall_s": time.perf_counter() - tt,
+                 "draws_equal": all(torch.equal(gd, rd.cpu()) for (_, gd),
+                                    (_, rd) in zip(got, ref)),
+                 "generator_equal": torch.equal(gen.get_state(),
+                                                g.get_state()),
+                 "max_abs_err": max((gv - rv.cpu()).abs().max().item()
+                                    for (gv, _), (rv, _) in zip(got, ref))}
+        rec["trajectories"] = c_rec
+        if not (c_rec["draws_equal"] and c_rec["generator_equal"]
+                and c_rec["max_abs_err"] <= PATH_TOL):
+            raise AssertionError(f"fleet (c): {c_rec}")
+    finally:
+        fl.close(timeout_s=120)
+    _free(torch)
+
+    # (b) + (d): one card worker with a held backlog; the autoscaler
+    # grows the fleet to 2, the first worker is SIGKILLed with the
+    # backlog in flight, and the drained fleet shrinks back to 1
+    reg = metrics.Registry()
+    fb = ServeFleet(replicas=1, process=True, registry=reg, device=CARD,
+                    max_wait_ms=600_000, max_batch=mb, max_queue=FLEET_QUEUE,
+                    heartbeat_s=FLEET_HEARTBEAT_S)
+    try:
+        auto = Autoscaler(fb, min_replicas=1, max_replicas=2, up_ticks=2,
+                          down_ticks=2, cooldown_ticks=1, high_water=0.5,
+                          low_water=0.1)
+        held = states[:FLEET_HELD]
+        futs = [fb.submit(circ, state=s) for s in held]
+        seen = [fb.replicas]
+        for _ in range(3):
+            auto.tick()
+            seen.append(fb.replicas)
+        grown = max(seen)
+        victim = fb._engines[0]
+        in_flight = victim._pending
+        tk = time.perf_counter()
+        os.kill(victim.worker_pid(), signal.SIGKILL)
+        fb.drain(timeout_s=600)
+        outs = [f.result(timeout=600) for f in futs]
+        recovery = time.perf_counter() - tk
+        snap = reg.snapshot()["counters"]
+        b = {"in_flight_at_kill": in_flight, "recovery_s": recovery,
+             "identical": all(torch.equal(x, y)
+                              for x, y in zip(outs, want[:FLEET_HELD])),
+             "losses": snap.get("ipc_worker_losses", 0),
+             "respawns": snap.get("ipc_worker_respawns", 0),
+             "resubmits": snap.get("ipc_resubmits", 0),
+             "respawn_boot_s": victim.hello()["boot_s"]}
+        del outs
+        for _ in range(8):
+            if fb.replicas == 1:
+                break
+            auto.tick()
+            seen.append(fb.replicas)
+        d = {"replicas_seen": seen, "actions": auto.stats()["actions"],
+             "scale_ups": snap.get("fleet_scale_ups", 0),
+             "added_boot_s": (fb._engines[1].hello().get("boot_s")
+                              if len(fb._engines) > 1 else None)}
+        rec["sigkill"], rec["autoscaler"] = b, d
+        rec["boot"]["warm_s"] = [b["respawn_boot_s"], d["added_boot_s"]]
+        # exactly the loss this phase caused: a worker streaming its
+        # results back is alive, never lost for a late heartbeat
+        if not (in_flight >= 32 and b["identical"] and b["losses"] == 1
+                and b["respawns"] == 1 and b["resubmits"] == in_flight):
+            raise AssertionError(f"fleet (b): {b}")
+        if not (grown == 2 and seen[-1] == 1
+                and all(1 <= r <= 2 for r in seen)):
+            raise AssertionError(f"fleet (d): {d}")
+    finally:
+        fb.close(timeout_s=120)
+    rec["seconds"] = time.perf_counter() - t0
+    emit_card(rec)
+    _free(torch)
+    return rec
 
 
 
@@ -6412,8 +6659,10 @@ def main(argv=None) -> int:
         phase_sharded_consumers(torch)
     if want("durable"):
         phase_durable(torch)
+    served = None
     if want("serve"):
-        for label, row in zip(("serve", "serve_traj"), phase_serve(torch)):
+        apply_row, traj_row, served = phase_serve(torch)
+        for label, row in (("serve", apply_row), ("serve_traj", traj_row)):
             kernels.append({
                 "name": f"segment_sweep[{label}]", "route": "cuda",
                 "source": KERNEL_SOURCE,
@@ -6423,6 +6672,9 @@ def main(argv=None) -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None})
+    if want("fleet"):
+        phase_fleet(torch, served)
+        del served
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

@@ -352,6 +352,32 @@ _KNOB_LIST = (
          doc="serve dispatch watchdog deadline in seconds: a launch "
              "outliving it fails typed DispatchTimeout and the wedged "
              "worker is replaced (default: 0 = no watchdog)"),
+    # the serving fleet (ref quest_tpu/env.py:535-591); read when a
+    # ServeFleet, ReplicaProxy or Autoscaler is constructed
+    Knob("QUEST_SERVE_REPLICAS", _int_range("QUEST_SERVE_REPLICAS", 1), 2,
+         doc="ServeEngine replicas a ServeFleet owns (program-key "
+             "affinity routing, fleet-level failover; default: 2)"),
+    Knob("QUEST_FLEET_PROC", _bool01("QUEST_FLEET_PROC"), False,
+         doc="ServeFleet replica backend: 1 = supervised worker processes "
+             "behind serve.ipc, each with its own interpreter and CUDA "
+             "context; 0 = in-process worker threads (default)"),
+    Knob("QUEST_FLEET_MIN_REPLICAS",
+         _int_range("QUEST_FLEET_MIN_REPLICAS", 1), 1,
+         doc="autoscaler floor: the fleet never scales below this many "
+             "live replicas (default: 1)"),
+    Knob("QUEST_FLEET_MAX_REPLICAS",
+         _int_range("QUEST_FLEET_MAX_REPLICAS", 1), 4,
+         doc="autoscaler ceiling: the fleet never scales above this many "
+             "live replicas (default: 4)"),
+    Knob("QUEST_HEARTBEAT_S", _parse_pos_float("QUEST_HEARTBEAT_S"), 0.25,
+         doc="process-replica heartbeat cadence in seconds: each worker "
+             "ships its health and a registry snapshot a beat, and the "
+             "proxy declares it lost (kill, respawn under the restart "
+             "budget) after 4 missed beats (default: 0.25)"),
+    Knob("QUEST_SERVE_PRIORITIES", _int_range("QUEST_SERVE_PRIORITIES", 1),
+         2,
+         doc="priority classes a ServeFleet accepts (submit priority= in "
+             "[0, N); higher classes shed later; default: 2)"),
     # fault injection and the durable executor (ref quest_tpu/env.py:
     # 597-640): read at run time, not keyed
     Knob("QUEST_FAULT_PLAN", _parse_fault_plan, None,
@@ -402,12 +428,40 @@ def knob_current(name: str):
 
 _KEYED = tuple(sorted(k.name for k in _KNOB_LIST if k.keyed))
 
+# engine_mode_key runs on every serve submit. Reading its 18 knobs through
+# os.environ.get encodes each name and raises a KeyError inside the
+# mapping for every unset knob; it reads the interpreter's encoded
+# environment instead (os.environ._data, which os.environ's own writes
+# update), with the names encoded once and each raw value's parse kept.
+# scripts/profile_torch_submit.py times a CPU submit under this read,
+# under os.environ.get with the same parse cache, and per knob.
+_ENV_DATA = os.environ._data
+_KEYED_READS = tuple((KNOBS[name], os.environ.encodekey(name))
+                     for name in _KEYED)
+_PARSED = {}        # (name, encoded raw value) -> parsed value
+
 
 def engine_mode_key() -> tuple:
     """((name, effective value), ...) of every keyed knob, sorted by
     name: the part of every compiled-program cache key that a knob flip
-    changes (ref quest_tpu/env.py:718-727)."""
-    return tuple((name, knob_current(name)) for name in _KEYED)
+    changes (ref quest_tpu/env.py:718-727). Reads the environment on
+    every call."""
+    out = []
+    for k, ekey in _KEYED_READS:
+        if k.current is not None:
+            out.append((k.name, k.current()))
+            continue
+        raw = _ENV_DATA.get(ekey)
+        if raw is None:
+            out.append((k.name, k.default))
+            continue
+        try:
+            value = _PARSED[(k.name, raw)]
+        except KeyError:
+            value = k.parse(os.environ.decodevalue(raw))
+            _PARSED[(k.name, raw)] = value
+        out.append((k.name, value))
+    return tuple(out)
 
 
 def default_device() -> torch.device:

@@ -7,8 +7,11 @@ library (`g++ -O3 -march=native -funroll-loops -fPIC -std=c++17
 in .gitignore, beside the segment kernel's libraries), named by a digest
 of the sources, the compiler and the flags, so an edit rebuilds. The
 library is linked to a temporary name and renamed into place, so a
-process that already mapped an older one keeps a valid mapping. Nothing
-is ever written into `native/`.
+process that already mapped an older one keeps a valid mapping; the
+build holds the kernel build's file lock (ops/_build.build_lock), so
+processes that start at once compile it once. A process that sets
+BUILD_ALLOWED to False (a serving fleet's card worker) never compiles.
+Nothing is ever written into `native/`.
 
 QUEST_NATIVE_LIB names a library to load instead (it is used as it is,
 never rebuilt). A library built here is checked against this machine's
@@ -52,6 +55,7 @@ CXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC",
 BUILD_TIMEOUT_S = 300
 
 BUILD_SECONDS = 0.0            # wall seconds of this process's build, if any
+BUILD_ALLOWED = True           # False: load what exists, never compile
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _reason: Optional[str] = None
@@ -94,10 +98,24 @@ def build(force: bool = False) -> float:
     """Build the library unless it exists (or `force`); return the wall
     seconds spent (0.0 when nothing was built). Raises RuntimeError with
     the compiler's output when the build fails."""
-    global BUILD_SECONDS
     out = library_path()
     if out.exists() and not force:
         return 0.0
+    from quest_tpu_torch.ops._build import BuildError, build_lock
+    if not BUILD_ALLOWED:
+        raise BuildError(
+            f"the native host library {out} is not built and this process "
+            f"may not compile it (a serving worker loads what its parent "
+            f"built)")
+    with build_lock():
+        # another process may have built it while this one waited
+        if out.exists() and not force:
+            return 0.0
+        return _build_locked(out)
+
+
+def _build_locked(out: Path) -> float:
+    global BUILD_SECONDS
     cxx = compiler()
     if cxx is None:
         raise RuntimeError("no C++ compiler ($CXX, g++ or c++) on PATH")

@@ -11,13 +11,19 @@ One variant besides the kernel itself: COUNTERS, the same source built
 with -DQUEST_PHASE_COUNTERS, whose blocks add the clock cycles of their
 phases (operator-slice waits and releases, step prologues, the chain,
 K3's stores) to device counters that quest_tpu_torch.profiling reads.
-`build` compiles the variants it is given side by side, one nvcc each.
+`build` compiles the variants it is given side by side, one nvcc each,
+holding an exclusive lock on build/quest_tpu_torch/.build.lock while it
+does (`build_lock`), so processes that start at once build a library
+once: the others wait and load it. A process that sets BUILD_ALLOWED to
+False (a serving fleet's card worker, serve/worker_main.py) never
+compiles: a library that is not built yet raises BuildError there.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -34,6 +40,7 @@ KERNEL: Tuple[str, ...] = ()                     # the kernel's own defines
 COUNTERS: Tuple[str, ...] = ("-DQUEST_PHASE_COUNTERS",)
 
 BUILD_LOG = ""                     # nvcc's output for KERNEL, when built here
+BUILD_ALLOWED = True               # False: load what exists, never compile
 _LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 _ACTIVE: Tuple[str, ...] = KERNEL
 
@@ -70,12 +77,36 @@ def build(*variants: Sequence[str]) -> float:
     that does not exist yet, one nvcc process each, all at once; return
     the wall seconds (0.0 when nothing was built). Raises BuildError
     with nvcc's output when a build fails."""
-    global BUILD_LOG
     variants = tuple(tuple(v) for v in variants) or (KERNEL,)
-    todo = [v for v in variants if not library_path(v).exists()]
-    if not todo:
+    if all(library_path(v).exists() for v in variants):
         return 0.0
+    if not BUILD_ALLOWED:
+        raise BuildError(
+            f"the {SOURCE.name} library is not built and this process may "
+            f"not compile it (a serving worker loads what its parent "
+            f"built): {[str(library_path(v)) for v in variants]}")
+    with build_lock():
+        # another process may have built them while this one waited
+        todo = [v for v in variants if not library_path(v).exists()]
+        return _build_locked(todo) if todo else 0.0
+
+
+@contextlib.contextmanager
+def build_lock():
+    """An exclusive lock on BUILD_DIR/.build.lock for the block: the
+    kernel's and the native host library's builds hold it. The operating
+    system releases it when its holder exits, however it exits."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build_locked(todo) -> float:
+    global BUILD_LOG
     t0 = time.perf_counter()
     procs = []
     for v in todo:

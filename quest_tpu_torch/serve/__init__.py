@@ -1,6 +1,6 @@
 """quest_tpu_torch.serve: the continuous-batching execution service.
 
-A port of quest_tpu/serve (ROADMAP A12a): `ServeEngine` coalesces
+A port of quest_tpu/serve (ROADMAP A12a, A12b): `ServeEngine` coalesces
 compatible requests from many clients into one batched launch per
 program key (on the card, one batched sweep of the segment kernel per
 segment) and adds admission, deadlines, supervision, poisoned-batch
@@ -8,11 +8,16 @@ isolation and a per-program breaker over the fused -> banded -> host
 ladder (serve/engine.py); `serve.admission` holds the typed errors and
 the queue policy; `serve.metrics` the standard-library counters,
 histograms and Prometheus scrape; `serve.warmup` builds a declared
-workload's programs up front. The process fleet, its IPC workers and the
-autoscaler are ROADMAP A12b.
+workload's programs up front. `ServeFleet` (serve/fleet.py) puts N
+replicas behind one submit with routing, failover, tenant quotas and
+priority shedding; a replica is a ServeEngine thread or a worker process
+with its own CUDA context behind a `ReplicaProxy` (serve/ipc.py,
+serve/worker_main.py); `Autoscaler` (serve/autoscaler.py) grows and
+shrinks a fleet from its pressure.
 
-`metrics` and `warmup` import only the standard library at module level
-(tests/test_torch_isolation.py); everything else loads on first access
+`metrics`, `warmup` and `autoscaler` import only the standard library
+at module level (tests/test_torch_isolation.py); everything else loads
+on first access
 through this namespace.
 """
 
@@ -34,6 +39,9 @@ _LAZY = {
                             "TenantQuotaExceeded"),
     "AdmissionController": ("quest_tpu_torch.serve.admission",
                             "AdmissionController"),
+    "ServeFleet": ("quest_tpu_torch.serve.fleet", "ServeFleet"),
+    "ReplicaProxy": ("quest_tpu_torch.serve.ipc", "ReplicaProxy"),
+    "Autoscaler": ("quest_tpu_torch.serve.autoscaler", "Autoscaler"),
 }
 
 __all__ = ["metrics", "default_buckets", "warmup"] + sorted(_LAZY)

@@ -174,6 +174,52 @@ def _draw_uniforms(shots: int, channels: int,
                       dtype=torch.float64, device=generator.device).cpu()
 
 
+def check_request(state, shots, *, observable=None, density=False,
+                  durable_dir=None, durable_every=None) -> None:
+    """The checks every submit makes before it draws or queues anything
+    (the engine's, the fleet's and a process replica's)."""
+    if (state is None) == (shots is None):
+        raise ValueError(
+            "submit() takes exactly one of state= (apply request) "
+            "or shots= (trajectory request)")
+    if durable_dir is not None:
+        if state is None:
+            raise ValueError(
+                "durable_dir= requires a state= request; durable "
+                "trajectories run through "
+                "resilience.run_durable_trajectories")
+        if observable is not None:
+            raise ValueError(
+                "durable_dir= is incompatible with observable=: the "
+                "planes are the job's resume payload")
+    elif durable_every is not None:
+        raise ValueError("durable_every= requires durable_dir=")
+    if state is None and density:
+        raise ValueError("trajectory requests are statevector "
+                         "unravelings; density=True is invalid")
+
+
+def draw_request_uniforms(circuit, shots, generator=None, seed=None
+                          ) -> Optional[torch.Tensor]:
+    """A request's trajectory uniforms, drawn on the caller's thread
+    (None for an apply request, which takes neither keyword): the
+    (shots, C) f64 draw from `generator`, or from a CPU generator seeded
+    with `seed` (default 0), shot-major as run_batched draws them."""
+    if shots is None:
+        if generator is not None or seed is not None:
+            raise ValueError("generator= / seed= belong to shots= requests")
+        return None
+    if generator is not None and seed is not None:
+        raise ValueError("pass generator= or seed=, not both")
+    shots = int(shots)
+    if shots < 1:
+        raise ValueError(f"shots must be >= 1, got {shots}")
+    if generator is None:
+        generator = torch.Generator().manual_seed(
+            0 if seed is None else int(seed))
+    return _draw_uniforms(shots, _num_channels(circuit), generator)
+
+
 class _Queue:
     __slots__ = ("key", "circuit", "kind", "density", "engine", "requests",
                  "pending_states")
@@ -229,7 +275,9 @@ class ServeEngine:
                  breaker_cooldown_s: float = 0.5,
                  ladder: Optional[Tuple[str, ...]] = None,
                  name: Optional[str] = None,
-                 dispatch_timeout_s: Optional[float] = None):
+                 dispatch_timeout_s: Optional[float] = None,
+                 durable_mesh=None,
+                 durable_elastic: Optional[bool] = None):
         if max_wait_ms is None:
             max_wait_ms = knob_value("QUEST_SERVE_MAX_WAIT_MS")
         if max_queue is None:
@@ -291,6 +339,11 @@ class ServeEngine:
         self._active: List[Tuple[_Queue, List[_Request]]] = []
         self._active_failed: List[Tuple[_Request, BaseException]] = []
         self.dispatch_timeout_s = float(dispatch_timeout_s)
+        # durable jobs run sharded over durable_mesh (a parallel.AmpMesh)
+        # when one is given; durable_elastic lets a job resume a chain
+        # that a replica on another mesh left behind
+        self.durable_mesh = durable_mesh
+        self.durable_elastic = durable_elastic
         # the worker generation: the watchdog supersedes a wedged worker
         # by bumping it, and a stale thread that unsticks sees the bump
         # and exits without touching recovered state
@@ -393,25 +446,26 @@ class ServeEngine:
         fails with DeadlineExceeded before any launch. Raises
         `RejectedError` when the queue is full, after `close()` ("engine
         closed"), and when the engine is FAILED."""
-        if (state is None) == (shots is None):
-            raise ValueError(
-                "submit() takes exactly one of state= (apply request) "
-                "or shots= (trajectory request)")
-        if durable_dir is not None:
-            if state is None:
-                raise ValueError(
-                    "durable_dir= requires a state= request; durable "
-                    "trajectories run through "
-                    "resilience.run_durable_trajectories")
-            if observable is not None:
-                raise ValueError(
-                    "durable_dir= is incompatible with observable=: the "
-                    "planes are the job's resume payload")
-        elif durable_every is not None:
-            raise ValueError("durable_every= requires durable_dir=")
-        if state is None and density:
-            raise ValueError("trajectory requests are statevector "
-                             "unravelings; density=True is invalid")
+        check_request(state, shots, observable=observable, density=density,
+                      durable_dir=durable_dir, durable_every=durable_every)
+        uniforms = draw_request_uniforms(circuit, shots, generator, seed)
+        return self._submit(circuit, state, shots, uniforms=uniforms,
+                            deadline_s=deadline_s, observable=observable,
+                            density=density, durable_dir=durable_dir,
+                            durable_every=durable_every)
+
+    def _submit(self, circuit, state=None, shots: Optional[int] = None, *,
+                uniforms: Optional[torch.Tensor] = None,
+                deadline_s: Optional[float] = None,
+                observable: Optional[Callable] = None,
+                density: bool = False,
+                durable_dir: Optional[str] = None,
+                durable_every: Optional[int] = None) -> Future:
+        """submit() given a trajectory request's (shots, C) f64 uniforms
+        already drawn: the entry of the fleet and of a process replica's
+        worker, which draw once on the client's thread and carry the
+        drawn tensor, so a requeue or a resubmit serves the same draws.
+        The caller has run check_request."""
         if observable is not None and not callable(observable):
             from quest_tpu_torch.ops.expec import resolve_observable
             observable = resolve_observable(observable, circuit.num_qubits,
@@ -419,9 +473,6 @@ class ServeEngine:
         now = time.monotonic()
         expiry = self._admission.expiry_of(deadline_s, now)
         if state is not None:
-            if generator is not None or seed is not None:
-                raise ValueError("generator= / seed= belong to shots= "
-                                 "requests")
             n = circuit.num_qubits * 2 if density else circuit.num_qubits
             state = torch.as_tensor(state)
             if state.device.type != "cpu" and state.device != self.device:
@@ -448,18 +499,20 @@ class ServeEngine:
         else:
             from quest_tpu_torch import trajectories as T
             shots = int(shots)
-            if shots < 1:
-                raise ValueError(f"shots must be >= 1, got {shots}")
-            if generator is not None and seed is not None:
-                raise ValueError("pass generator= or seed=, not both")
-            if generator is None:
-                generator = torch.Generator().manual_seed(
-                    0 if seed is None else int(seed))
+            if shots < 1 or uniforms is None:
+                raise ValueError(f"a trajectory request takes shots >= 1 "
+                                 f"and its drawn uniforms, got shots="
+                                 f"{shots}, uniforms={type(uniforms)}")
+            u = torch.as_tensor(uniforms, dtype=torch.float64)
+            if tuple(u.shape) != (shots, _num_channels(circuit)):
+                raise ValueError(
+                    f"uniforms must be (shots, channels) = "
+                    f"{(shots, _num_channels(circuit))}, got "
+                    f"{tuple(u.shape)}")
             engine_name, qkey = T.program_key(circuit,
                                               engine=self.traj_engine)
-            u = _draw_uniforms(shots, _num_channels(circuit), generator)
-            req = _Request("traj", None, shots, u, observable, expiry, now,
-                           shots)
+            req = _Request("traj", None, shots, u.cpu(), observable, expiry,
+                           now, shots)
             kind = "traj"
 
         with self._cond:
@@ -975,6 +1028,7 @@ class ServeEngine:
         place up to DURABLE_RETRY_CAP times — a retry is a resume — and
         then raises into the supervised restart, which requeues it."""
         from quest_tpu_torch.checkpoint import CheckpointError
+        from quest_tpu_torch.parallel.mesh import ShardedAmps
         from quest_tpu_torch.resilience.durable import (DurableError,
                                                         IntegrityError,
                                                         run_durable)
@@ -996,10 +1050,15 @@ class ServeEngine:
                                 is_density=q.density)
                     out = run_durable(q.circuit, reg, r.durable_dir,
                                       every=r.durable_every,
+                                      mesh=self.durable_mesh,
+                                      elastic=self.durable_elastic,
                                       registry=self.registry)
                     self._record_batch([r], 1.0, t_pop)
                     self.registry.counter("serve_durable_jobs").inc()
-                    self._finish_one(r, out.amps.reshape(2, -1).cpu())
+                    amps = out.amps
+                    if isinstance(amps, ShardedAmps):   # durable_mesh
+                        amps = amps.gather("cpu")
+                    self._finish_one(r, amps.reshape(2, -1).cpu())
                     break
                 except BaseException as e:  # noqa: BLE001 - laddered
                     self.registry.counter("serve_launch_failures").inc()

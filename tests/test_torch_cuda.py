@@ -1362,3 +1362,103 @@ def test_serve_ladder_on_the_card_down_to_host_and_back(serving_card):
         fn(want.view(2, -1))
         want = want.reshape(2, -1).cpu()
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+def test_process_fleet_on_the_card_matches_one_engine(serving_card):
+    """Two worker processes, each with its own CUDA context on the card,
+    serve coalesced streams of two program families (equal circuits, two
+    objects, pinned to one replica each): every output equals one
+    in-process engine's bit for bit, no worker compiled anything, and
+    each worker served requests and counted K1 launches."""
+    card = serving_card
+    import time
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.serve import ServeEngine, ServeFleet, metrics
+    n, b = 14, 16
+    fams = (random_circuit(n, 3, seed=5), random_circuit(n, 3, seed=5))
+    states = _serve_states(n, b, 11)
+    kw = dict(device=card, max_wait_ms=600_000, max_batch=b)
+    with ServeEngine(registry=metrics.Registry(), **kw) as eng:
+        futs = [eng.submit(fams[i % 2], state=s)
+                for i, s in enumerate(states)]
+        eng.drain(timeout_s=300)
+        want = [_served(eng, f) for f in futs]
+    with ServeFleet(replicas=2, process=True, heartbeat_s=1.0,
+                    registry=metrics.Registry(), **kw) as fleet:
+        futs = [fleet.submit(fams[i % 2], state=s)
+                for i, s in enumerate(states)]
+        fleet.drain(timeout_s=300)
+        got = [f.result(timeout=300) for f in futs]
+        assert all(e.hello()["cuda"]["total"] > 0 for e in fleet._engines)
+        t = time.monotonic()
+        deadline = t + 30
+        while any(e.heartbeat().get("rx_t", 0.0) <= t
+                  for e in fleet._engines):
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        beats = [e.heartbeat() for e in fleet._engines]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    served = [hb["snapshot"]["counters"].get("serve_requests_served", 0)
+              for hb in beats]
+    launches = [hb["kernels"].get("launches", 0) for hb in beats]
+    assert all(r > 0 for r in served), served
+    assert all(k > 0 for k in launches), launches
+
+
+def test_sigkill_of_a_card_worker_loses_no_request(serving_card):
+    """A card worker SIGKILLed with 16 requests in flight: a fresh worker
+    (a new CUDA context, the libraries loaded, nothing compiled) takes
+    the resubmitted ledger and every output equals one engine's."""
+    card = serving_card
+    import os
+    import signal
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.serve import ServeEngine, ServeFleet, metrics
+    n, b = 14, 16
+    c = random_circuit(n, 3, seed=6)
+    states = _serve_states(n, b, 13)
+    kw = dict(device=card, max_wait_ms=600_000, max_batch=b)
+    with ServeEngine(registry=metrics.Registry(), **kw) as eng:
+        futs = [eng.submit(c, state=s) for s in states]
+        eng.drain(timeout_s=300)
+        want = [_served(eng, f) for f in futs]
+    reg = metrics.Registry()
+    with ServeFleet(replicas=1, process=True, heartbeat_s=1.0,
+                    registry=reg, **kw) as fleet:
+        futs = [fleet.submit(c, state=s) for s in states]
+        proxy = fleet._engines[0]
+        assert proxy._pending == b
+        old = proxy.worker_pid()
+        os.kill(old, signal.SIGKILL)
+        fleet.drain(timeout_s=300)
+        got = [f.result(timeout=300) for f in futs]
+        assert proxy.worker_pid() != old
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    snap = reg.snapshot()["counters"]
+    assert snap["ipc_worker_losses"] == 1
+    assert snap["ipc_worker_respawns"] == 1
+    assert snap["ipc_resubmits"] == b
+
+
+def test_process_fleet_trajectories_on_the_card_draw_like_run_batched(
+        serving_card):
+    """Two trajectory requests drawn from one generator state through a
+    card worker: their draws equal run_batched's from the same state,
+    the generator ends where run_batched leaves it, planes within
+    1e-4."""
+    card = serving_card
+    from quest_tpu_torch import entry as E
+    from quest_tpu_torch import trajectories as T
+    from quest_tpu_torch.serve import ServeFleet, metrics
+    n = 12
+    c = E.noisy_rcs_circuit(n, 2)
+    g = torch.Generator().manual_seed(3)
+    want = [T.run_batched(c, 6, generator=g, device=card) for _ in (0, 1)]
+    gen = torch.Generator().manual_seed(3)
+    with ServeFleet(replicas=1, process=True, device=card, max_wait_ms=50,
+                    max_batch=8, registry=metrics.Registry()) as fleet:
+        futs = [fleet.submit(c, shots=6, generator=gen) for _ in (0, 1)]
+        got = [f.result(timeout=300) for f in futs]
+    assert torch.equal(gen.get_state(), g.get_state())
+    for (p, d), (wp, wd) in zip(got, want):
+        assert torch.equal(d, wd.cpu())
+        assert (p - wp.cpu()).abs().max() <= 1e-4

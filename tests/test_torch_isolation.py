@@ -46,7 +46,9 @@ def test_import_leaves_jax_and_reference_unloaded():
             "quest_tpu_torch.serve, quest_tpu_torch.serve.metrics, "
             "quest_tpu_torch.native, quest_tpu_torch.host, "
             "quest_tpu_torch.serve.engine, quest_tpu_torch.serve.admission, "
-            "quest_tpu_torch.serve.warmup, "
+            "quest_tpu_torch.serve.warmup, quest_tpu_torch.serve.fleet, "
+            "quest_tpu_torch.serve.ipc, quest_tpu_torch.serve.worker_main, "
+            "quest_tpu_torch.serve.autoscaler, "
             "quest_tpu_torch.resilience.breaker, "
             "quest_tpu_torch.resilience.supervisor; "
             "bad = sorted(m for m in set(sys.modules) - before "
@@ -76,14 +78,15 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_resilience_and_metrics_import_only_the_standard_library():
-    """faults, the resilience package and the metrics registry import
-    nothing beyond the standard library and each other at module level
-    (the knob parser imports faults); durable, which drives the engines,
-    loads lazily through the package namespace."""
+    """faults, the resilience package, the metrics registry and the
+    autoscaler import nothing beyond the standard library and each other
+    at module level (the knob parser imports faults); durable, which
+    drives the engines, loads lazily through the package namespace."""
     allowed = {"quest_tpu_torch"}
     for rel in ("resilience/__init__.py", "resilience/faults.py",
                 "resilience/breaker.py", "resilience/supervisor.py",
-                "serve/__init__.py", "serve/metrics.py", "serve/warmup.py"):
+                "serve/__init__.py", "serve/metrics.py", "serve/warmup.py",
+                "serve/autoscaler.py"):
         path = os.path.join(PORT, rel)
         tree = ast.parse(open(path).read(), filename=path)
         for node in tree.body:

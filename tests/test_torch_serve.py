@@ -703,8 +703,11 @@ def test_serve_knobs_registered_and_parse_loudly(monkeypatch):
                      "QUEST_SERVE_MAX_BATCH", "QUEST_SERVE_RESTART_MAX",
                      "QUEST_SERVE_BREAKER_THRESHOLD",
                      "QUEST_SERVE_TENANT_QUOTA",
-                     "QUEST_SERVE_SHED_THRESHOLD"}
-    for name in (*names, "QUEST_DISPATCH_TIMEOUT_S", "QUEST_HOST_BLOCK"):
+                     "QUEST_SERVE_SHED_THRESHOLD", "QUEST_SERVE_REPLICAS",
+                     "QUEST_SERVE_PRIORITIES"}
+    for name in (*names, "QUEST_DISPATCH_TIMEOUT_S", "QUEST_HOST_BLOCK",
+                 "QUEST_FLEET_PROC", "QUEST_FLEET_MIN_REPLICAS",
+                 "QUEST_FLEET_MAX_REPLICAS", "QUEST_HEARTBEAT_S"):
         ref = jenv.KNOBS[name].default
         assert TE.KNOBS[name].default == (ref() if callable(ref) else ref)
         bad = jenv.KNOBS[name].malformed
@@ -722,6 +725,28 @@ def test_serve_knobs_registered_and_parse_loudly(monkeypatch):
         assert eng._admission.max_queue == 1
     finally:
         eng.close(timeout_s=T_OUT)
+
+
+def test_engine_mode_key_reads_the_environment_on_every_call(monkeypatch):
+    """The mode key every serve submit computes (program_key) follows
+    each knob flip, set or unset, loud on a malformed value, and equals
+    the knob-by-knob reading."""
+    def by_knob():
+        return tuple((n, TE.knob_current(n)) for n in TE._KEYED)
+    assert TE.engine_mode_key() == by_knob()
+    monkeypatch.setenv("QUEST_FUSED_NBUF", "4")
+    monkeypatch.setenv("QUEST_SCHEDULE", "0")
+    monkeypatch.setenv("QUEST_MATMUL_PRECISION", "high")
+    key = TE.engine_mode_key()
+    assert key == by_knob()
+    assert dict(key)["QUEST_FUSED_NBUF"] == 4
+    assert dict(key)["QUEST_MATMUL_PRECISION"] == "high"
+    monkeypatch.setenv("QUEST_FUSED_NBUF", "99")
+    with pytest.raises(ValueError, match="QUEST_FUSED_NBUF"):
+        TE.engine_mode_key()
+    monkeypatch.delenv("QUEST_FUSED_NBUF")
+    assert dict(TE.engine_mode_key())["QUEST_FUSED_NBUF"] == 3
+    assert TE.engine_mode_key() == by_knob()
 
 
 def test_tenant_quota_and_errors():
