@@ -369,10 +369,30 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      resolved timed); after the drain the ticks shrink it back to 1,
      never outside [1, 2].
 
-Bounds: bytes over 3.35 TB/s against operations over their peak, fp32
-at 67 TFLOP/s and the tiers' bf16 products at 989 TFLOP/s (H100 SXM data
-sheet); a segment of phase stages only counts the rows its predicates
-select (moved_rows), the rest every row.
+ Profiling and the runtime audits (no kernel is added):
+ 44. profiling: the flagship step once inside profiling.trace and
+     profiling.annotate("flagship"): the device kernels the region
+     launched, read back from the trace's JSON, are exactly the
+     program's planned K1 launches (by their demangled names), their
+     summed device time within 10 % of the same call's CUDA-event time;
+     the traced step beside the untraced median (the profiler's cost).
+     profiling.op_metrics of the flagship (one counted call) equal to
+     program_bound's count. profiling.stage_report at 30 qubits (phase,
+     b0, b1, scb-128 probe segments under K1): each case's state against
+     the plain version applied as often, within 1e-4 max|amp| and norm
+     within 1e-4; its ms, the cost model's band and the verdict (a DRIFT
+     is a finding, not a failure).
+ 45. audit: at 10 qubits on the card, analysis.audit's golden check (a
+     second pass builds no program and loads no library) and
+     audit_knob_flips over every keyed knob (a same-value rerun builds
+     nothing; each flip misses the per-gate, banded and fused caches);
+     the driver flips launch K3 and K2 and the tier flip builds at HIGH.
+
+Bounds (quest_tpu_torch.profiling's counting rules, which
+profiling.op_metrics shares): bytes over 3.35 TB/s against operations
+over their peak, fp32 at 67 TFLOP/s and the tiers' bf16 products at 989
+TFLOP/s (H100 SXM data sheet); a segment of phase stages only counts the
+rows its predicates select (moved_rows), the rest every row.
 
 Each phase prints one JSON line. Before the last line come the kernels
 line {"kernels": [...]} and the nvidia-smi line; the last line is
@@ -398,9 +418,13 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
+# the work counts and the card's rates behind every bound (bytes moved and
+# operations done, over the H100's memory rate and peaks) live in the
+# package, so the bounds here and profiling.op_metrics are one count
+from quest_tpu_torch.profiling import (
+    HBM_BYTES_PER_S, bound_ms, bound_of, passthrough_work, program_bound,
+    segment_work, xla_bound, xla_item_work)
+
 KERNEL_SOURCE = "quest_tpu_torch/csrc/segment.cu"
 STAGE_TOL = 1e-5
 PATH_TOL = 1e-4
@@ -412,7 +436,6 @@ PHYSICS_SIGMAS = 5.0
 PHYSICS_SHOTS = 1024
 PLAIN_CHECK_SHOTS = 8
 TIERS = ("high", "default")
-TIER_PRODUCTS = {"highest": 1, "high": 3, "default": 1}
 # a tier's distance from the HIGHEST kernel, x max|amp| (and |1 - norm|):
 # one stage, the flagship and density steps, and 30q d20 at HIGH
 TIER_TOL = {"high": 1e-4, "default": 1e-2}
@@ -434,7 +457,7 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "dynamic", "calculations", "eager", "expec", "evolution",
           "variational", "adjoint", "frontends", "api", "scan", "sharded",
           "sharded_batched", "sharded_measured", "sharded_consumers",
-          "durable", "serve", "fleet")
+          "durable", "serve", "fleet", "profiling", "audit")
 
 RECORD = []
 
@@ -465,195 +488,6 @@ def time_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-# ---------------------------------------------------------------------------
-# work accounting for the bound: bytes moved and operations done
-# ---------------------------------------------------------------------------
-
-
-def stage_flops(st, arr, n: int, tier: str = "highest"):
-    """(fp32 operations, bf16 tensor-core operations) a stage needs on a
-    2^n state (only where its predicates select): a b0/b1/scb stage at
-    HIGH or DEFAULT does its products as the tier's bf16 products (3 or
-    1 per real product), everything else fp32."""
-    from quest_tpu_torch.ops import band_plan as BP
-    from quest_tpu_torch.ops import segment as S
-    amps = float(1 << n)
-    if isinstance(st, BP.MatStage):
-        sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
-        per_mac = 4 if st.real_only else 8   # complex MAC: 4 mul + 4 add
-        work = sel * st.dim * per_mac
-        if tier != "highest" and S.rounds(st):
-            return 0.0, work * TIER_PRODUCTS[tier]
-        return work, 0.0
-    return _elementwise_flops(st, arr, amps), 0.0
-
-
-def _elementwise_flops(st, arr, amps: float) -> float:
-    """fp32 operations of a stage that is not a matrix contraction."""
-    from quest_tpu_torch.ops import band_plan as BP
-    if isinstance(st, BP.PhaseStage):
-        bits = bin(int(arr[0, 2])).count("1") + bin(
-            int(arr[0, 4]) | (int(arr[0, 5]) << 15)).count("1")
-        return amps / (1 << bits) * 6        # one complex multiply
-    if isinstance(st, BP.ParityStage):
-        return amps * 6
-    if isinstance(st, BP.PairStage):
-        # 4 complex MACs per amplitude: the 2x2 cores, however packed
-        sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
-        return sel * 4 * (4 if st.real_only else 8)
-    if isinstance(st, BP.DiagVecStage):
-        sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
-        return sel * 6                       # one complex multiply
-    if isinstance(st, BP.BatchSelStage):
-        return amps * 2 * 8                  # 2 complex MACs per amplitude
-    return amps * (len(st.forms) + 2 + 6)   # angle sum, sincos, multiply
-
-
-MOVED_ROWS_MAX_BITS = 24       # moved_rows enumerates at most 2^24 rows
-
-
-def moved_rows(seg) -> int:
-    """Rows (of 128 amplitudes) of a state that one launch of `seg` must
-    read and write: every row, but for a segment of phase stages only the
-    rows where some stage's row predicate holds (no other row holds an
-    amplitude it changes), counted over the bits the predicates name."""
-    from quest_tpu_torch.ops import band_plan as BP
-    rows = 1 << (seg.n - 7)
-    if not seg.stages or not all(isinstance(st, BP.PhaseStage)
-                                 for st in seg.stages):
-        return rows
-    preds = [(int(a[0, 4]) | (int(a[0, 5]) << 15),
-              int(a[0, 6]) | (int(a[0, 7]) << 15)) for a in seg.arrays]
-    bits = [b for b in range(seg.n - 7)
-            if any(rm >> b & 1 for rm, _ in preds)]
-    if len(bits) > MOVED_ROWS_MAX_BITS:
-        return rows
-    v = np.arange(1 << len(bits), dtype=np.int64)
-    vals = np.zeros_like(v)
-    for k, b in enumerate(bits):
-        vals |= ((v >> k) & 1) << b
-    hit = np.zeros(v.shape, bool)
-    for rm, rw in preds:
-        hit |= (vals & rm) == rw
-    return int(hit.sum()) << (seg.n - 7 - len(bits))
-
-
-def segment_work(seg, batch=1):
-    """(bytes, fp32 flops, bf16 tensor flops) of one launch over `batch`
-    states: each state's rows the launch must move (moved_rows: all of
-    them unless it holds phase stages only) read and written once, each
-    operand and selection row read once; the stages' operations on every
-    state, at the segment's tier."""
-    nbytes = (batch * 2 * 2 * 4 * 128 * moved_rows(seg)
-              + 4 * seg.ops.numel() + len(seg.slots) * batch * 8 * 4)
-    work = [stage_flops(st, a, seg.n, seg.tier)
-            for st, a in zip(seg.stages, seg.arrays)]
-    return (nbytes, batch * sum(w[0] for w in work),
-            batch * sum(w[1] for w in work))
-
-
-def xla_item_work(item, n: int):
-    """(share of the state read and written, real operations) of one
-    ops/apply step on a 2^n state: a plan item (BandOp, DiagItem,
-    PassOp) or a flat GateOp. Controls and predicates select a share; a
-    band is a Gauss three-product contraction (two for a real operator),
-    a matrix four real products (two), a diagonal or phase one complex
-    multiply per selected amplitude."""
-    from quest_tpu_torch.ops import fusion as F
-    from quest_tpu_torch.ops import matrices as M
-    amps = float(1 << n)
-    if isinstance(item, F.BandOp):
-        share = 1.0 / (1 << len(item.preds))
-        per_mac = 4 if not np.any(item.gim) else 6
-        return share, amps * share * (1 << item.w) * per_mac
-    op = item.op if isinstance(item, (F.DiagItem, F.PassOp)) else item
-    if op.kind == "parity":
-        return 1.0, amps * 6
-    if op.kind == "allones":
-        share = 1.0 / (1 << len(op.targets))
-        return share, amps * share * 6
-    share = 1.0 / (1 << len(op.controls))
-    if op.kind == "diagonal":
-        return share, amps * share * 6
-    targets = (M.superop_targets(op.targets, n // 2)
-               if op.kind == "superop" else op.targets)
-    per_mac = 4 if not np.any(np.imag(op.operand)) else 8
-    return share, amps * share * (1 << len(targets)) * per_mac
-
-
-def xla_item_split(item, n: int, tier: str, rbytes=4):
-    """(share, fp32 or fp64 flops, bf16 tensor flops) of one ops/apply
-    step: a band's or matrix's products on f32 planes below HIGHEST are
-    the tier's bf16 products (TIER_PRODUCTS of them a real product),
-    every other operation runs at its planes' precision."""
-    from quest_tpu_torch.ops import fusion as F
-    share, flops = xla_item_work(item, n)
-    op = item if isinstance(item, F.BandOp) else getattr(item, "op", item)
-    rounds = isinstance(op, F.BandOp) or op.kind not in (
-        "parity", "allones", "diagonal")
-    if rbytes != 4 or tier == "highest" or not rounds:
-        return share, flops, 0.0
-    return share, 0.0, flops * TIER_PRODUCTS[tier]
-
-
-def passthrough_work(step, batch=1):
-    """(bytes, fp32 flops, bf16 tensor flops) of a passthrough
-    (circuit.XlaPass) over `batch` f32 states: the selected share read
-    and written once; a band or matrix's products at the step's tier."""
-    share, flops, tc = xla_item_split(step.item, step.n, step.tier)
-    nbytes = batch * share * 2 * 2 * 4 * (1 << step.n)
-    return nbytes, batch * flops, batch * tc
-
-
-def xla_program_work(prog, rbytes=4, batch=1):
-    """(state passes, bytes, fp32 or fp64 flops, bf16 tensor flops) of
-    one call of a per-gate or banded program (circuit.XlaProgram) over
-    `batch` states of `rbytes`-byte planes: a pass is the whole state
-    read and written once, a step counting the share it selects."""
-    work = [xla_item_split(it, prog.n, prog.tier, rbytes)
-            for it in prog.items]
-    passes = prog.iters * sum(w[0] for w in work)
-    nbytes = passes * batch * 2 * 2 * rbytes * (1 << prog.n)
-    return (passes, nbytes, prog.iters * batch * sum(w[1] for w in work),
-            prog.iters * batch * sum(w[2] for w in work))
-
-
-def xla_bound(prog, rbytes=4, batch=1):
-    """{passes, bound_ms, bound_by, bytes_ms, ops_ms} of one call of an
-    XlaProgram: the larger of the bytes over 3.35 TB/s and the
-    operations over their peaks (67 TFLOP/s for fp32 outside the tensor
-    cores or fp64 on them, 989 for the tiers' bf16 products)."""
-    passes, nbytes, flops, tc = xla_program_work(prog, rbytes, batch)
-    ms, by = bound_ms(nbytes, flops, tc)
-    return {"passes": passes, "bound_ms": ms, "bound_by": by,
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": (flops / FP32_FLOPS_PER_S + tc / BF16_FLOPS_PER_S)
-            * 1e3}
-
-
-def bound_ms(nbytes, flops, tc_flops=0.0):
-    """(ms, 'bytes' or 'operations'): the larger of the bytes over the
-    card's memory rate and the operations over their peaks (fp32 at 67
-    TFLOP/s, the tiers' bf16 products at 989)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / FP32_FLOPS_PER_S + tc_flops / BF16_FLOPS_PER_S) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def bound_of(segments, passthroughs=(), repeat=1, batch=1):
-    work = ([segment_work(s, batch) for s in segments]
-            + [passthrough_work(p) for p in passthroughs])
-    return bound_ms(*(repeat * sum(w[k] for w in work) for k in range(3)))
-
-
-def program_bound(fn):
-    """Bound of one call of a FusedProgram: its segments and passthroughs,
-    loop_iters times."""
-    from quest_tpu_torch.circuit import XlaPass
-    passes = [s for s in fn.steps if isinstance(s, XlaPass)]
-    return bound_of(fn.segments, passes, fn.loop_iters)
 
 
 # ---------------------------------------------------------------------------
@@ -5876,6 +5710,132 @@ def phase_fleet(torch, served=None):
 
 
 
+TRACE_TOL = 0.10              # kernels' summed device time vs the step
+STAGE_REPORT_QUBITS = 30      # where the H100 cost model is scaled to
+STAGE_REPORT_REPS = 5
+STAGE_REPORT_TOL = 1e-4       # x max|amp|, and |1 - norm|
+# K1's instantiations, ring_kernel<T, true>, as the trace names them
+# (demangled: "void (anonymous namespace)::ring_kernel<0, true>(...)")
+K1_NAME = ("ring_kernel<", ", true>")
+
+
+def smoke_dir(*parts) -> str:
+    """A path under smoke_out/ beside this script (git-ignored)."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "smoke_out", *parts)
+
+
+def phase_profiling(torch):
+    """The profiling surface on the card: (a) the flagship step once
+    inside profiling.trace and profiling.annotate("flagship"): the
+    device kernels the region launched (read back from the trace's
+    JSON) must be exactly the program's planned K1 launches, their
+    summed device time within TRACE_TOL of the same call's CUDA-event
+    time; the traced step beside the untraced one (the profiler's
+    cost); (b) profiling.op_metrics of the flagship (one counted call)
+    equal to program_bound's count of the same program; (c)
+    profiling.stage_report at 30 qubits, every case held against its
+    plain version (STAGE_REPORT_TOL), each case's ms, the cost model's
+    band and the verdict (a DRIFT is a finding, not a failure)."""
+    from quest_tpu_torch import profiling as P
+    from quest_tpu_torch.entry import entry
+    t0 = time.perf_counter()
+    fn, (amps,) = entry()
+    fn(amps)
+    torch.cuda.synchronize()
+    untraced_ms = time_ms(torch, lambda: fn(amps), 5)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with P.trace(smoke_dir("trace")) as tr:
+        with P.annotate("flagship"):
+            start.record()
+            fn(amps)
+            end.record()
+            torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end)
+    kernels = P.annotated_kernels(tr.path, "flagship")
+    names = sorted({k["name"] for k in kernels})
+    kernel_ms = sum(k["dur"] for k in kernels) / 1e3
+    planned = fn.launches_per_call
+    rec = {"phase": "profiling", "trace": os.path.relpath(
+        tr.path, smoke_dir()), "trace_bytes": os.path.getsize(tr.path),
+        "planned_launches": planned, "traced_kernels": len(kernels),
+        "kernel_names": names, "kernel_ms": kernel_ms, "step_ms": step_ms,
+        "untraced_step_ms": untraced_ms,
+        "trace_overhead": step_ms / untraced_ms - 1.0}
+    if len(kernels) != planned or not all(
+            all(part in name for part in K1_NAME) for name in names):
+        emit(rec)
+        raise AssertionError(f"profiling: the trace holds {len(kernels)} "
+                             f"kernels {names} in 'flagship', the program "
+                             f"plans {planned} K1 launches")
+    if abs(kernel_ms - step_ms) > TRACE_TOL * step_ms:
+        emit(rec)
+        raise AssertionError(f"profiling: traced kernels {kernel_ms} ms "
+                             f"against the step's {step_ms} ms")
+    metrics = P.op_metrics(fn, amps)
+    want = program_bound(fn)
+    rec["op_metrics"] = metrics
+    rec["program_bound"] = list(want)
+    if ((metrics["bound_ms"], metrics["bound_by"]) != want
+            or metrics["segment_launches"] != planned):
+        emit(rec)
+        raise AssertionError(f"profiling: op_metrics {metrics} against "
+                             f"program_bound {want}")
+    del fn, amps
+    torch.cuda.empty_cache()
+    report = P.stage_report(n=STAGE_REPORT_QUBITS, reps=STAGE_REPORT_REPS,
+                            out=sys.stdout, check=True)
+    rec["stage_report"] = report
+    bad = {k: (r["max_abs_err"], r["max_amp"], r["norm"])
+           for k, r in report.items()
+           if not (r["max_abs_err"] <= STAGE_REPORT_TOL * r["max_amp"]
+                   and abs(1.0 - r["norm"]) <= STAGE_REPORT_TOL)}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    if bad:
+        raise AssertionError(f"stage_report against the plain version: "
+                             f"{bad}")
+    return rec
+
+
+def phase_audit(torch):
+    """The runtime audits on the card (analysis/audit.py), at the fused
+    engine's smallest width (10 qubits): golden_retrace_check (a second
+    pass over the golden set builds no program and loads no library)
+    and audit_knob_flips over every keyed knob (a same-value rerun
+    builds nothing, every flip misses the per-gate, banded and fused
+    caches); the driver and tier flips must launch the kernel under the
+    flipped driver (K2, K3) and build at the flipped tier."""
+    from quest_tpu_torch.analysis import audit as A
+    from quest_tpu_torch.env import KNOBS
+    from quest_tpu_torch.ops import segment as S
+    t0 = time.perf_counter()
+    golden = A.golden_retrace_check(device="cuda")
+    S.segment_sweep.launches = 0
+    S.segment_sweep.driver_launches = {}
+    report = A.audit_knob_flips(device="cuda")
+    torch.cuda.synchronize()
+    by_knob = {r["knob"]: r for r in report}
+    keyed = {k.name for k in KNOBS.values() if k.scope == "keyed"}
+    rec = {"phase": "audit", "golden_builds": golden.traces,
+           "knobs": report, "launches": S.segment_sweep.launches,
+           "driver_launches": dict(S.segment_sweep.driver_launches),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if set(by_knob) != keyed:
+        raise AssertionError(f"audit: audited {sorted(by_knob)}, keyed "
+                             f"{sorted(keyed)}")
+    flipped = (by_knob["QUEST_FUSED_DRIVER"]["fused_driver"],
+               by_knob["QUEST_FUSED_PIPELINE"]["fused_driver"],
+               by_knob["QUEST_MATMUL_PRECISION"]["fused_tier"])
+    if flipped != ("grid", "inplace", "high") or set(
+            rec["driver_launches"]) != {"decoupled", "inplace", "grid"}:
+        raise AssertionError(f"audit: flipped programs {flipped}, launches "
+                             f"by driver {rec['driver_launches']}")
+    return rec
+
+
 def ham_profile(torch):
     """torch.profiler tables (top kernels by device time) of the
     Hamiltonian layers at 30 qubits: the grouped expectation of TFIM-30
@@ -6675,6 +6635,10 @@ def main(argv=None) -> int:
     if want("fleet"):
         phase_fleet(torch, served)
         del served
+    if want("profiling"):
+        phase_profiling(torch)
+    if want("audit"):
+        phase_audit(torch)
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

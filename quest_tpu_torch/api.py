@@ -32,6 +32,7 @@ QuEST.h:3163-3190) is `set_input_error_handler` here.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -41,6 +42,7 @@ import torch
 from quest_tpu_torch import calculations as _calc
 from quest_tpu_torch import env as _env
 from quest_tpu_torch import measurement as _meas
+from quest_tpu_torch import native as _native
 from quest_tpu_torch import precision as _prec
 from quest_tpu_torch import random_ as _rng
 from quest_tpu_torch import state as _state
@@ -816,20 +818,43 @@ def copyStateFromGPU(qureg: Qureg) -> None:
 # ---------------------------------------------------------------------------
 
 
+REPORT_CHUNK_AMPS = 1 << 20     # amplitudes reportState stages at a time
+
+
 def reportState(qureg: Qureg) -> None:
     """Write all amplitudes to state_rank_0.csv in the reference's text
-    (ref reportState, QuEST_common.c:215-231), with numpy (the native
-    writer waits for ROADMAP A13). The planes come to the host in
-    <= 2^20-amplitude slices, so host memory stays bounded at 30 qubits."""
+    (ref reportState, QuEST_common.c:215-231; quest_tpu/api.py:798-830):
+    a "real, imag" header, then "%.12f, %.12f" rows, through the native
+    CSV writer (native/quest_host.cpp), or in Python when the library is
+    unavailable (native.warn_degraded says so once). The planes come to
+    the host in <= 2^20-amplitude slices, the first written and the rest
+    appended, so host memory stays bounded at 30 qubits."""
     amps = qureg.state.amps.reshape(2, -1)
     total = qureg.state.num_amps
-    chunk = min(total, 1 << 20)
-    with open("state_rank_0.csv", "w") as f:
-        f.write("real, imag\n")
+    chunk = min(total, REPORT_CHUNK_AMPS)
+    path = "state_rank_0.csv"
+    use_native = _native.available()
+    if not use_native:
+        _native.warn_degraded("reportState")
+    f = None if use_native else open(path, "w")
+    try:
+        if f is not None:
+            f.write("real, imag\n")
         for lo in range(0, total, chunk):
             planes = amps[:, lo:lo + chunk].detach().cpu().numpy().astype(
                 np.float64)
-            np.savetxt(f, planes.T, fmt="%.12f", delimiter=", ")
+            if f is not None:
+                f.writelines(f"{r:.12f}, {i:.12f}\n"
+                             for r, i in zip(planes[0], planes[1]))
+                continue
+            ok = (_native.write_state_csv(path, planes[0], planes[1])
+                  if lo == 0 else
+                  _native.append_state_csv(path, planes[0], planes[1]))
+            if not ok:
+                raise OSError(f"native CSV writer failed at offset {lo}")
+    finally:
+        if f is not None:
+            f.close()
 
 
 def reportStateToScreen(qureg: Qureg, env: QuESTEnv = None,
@@ -861,8 +886,20 @@ def initStateOfSingleQubit(qureg: Qureg, qubitId: int, outcome: int) -> None:
 def initStateFromSingleFile(qureg: Qureg, filename: str,
                             env: QuESTEnv = None) -> bool:
     """Read a state from a CSV of 'real, imag' lines (ref
-    statevec_initStateFromSingleFile, QuEST_cpu.c:1593-1642), in Python
-    (the native reader waits for ROADMAP A13)."""
+    statevec_initStateFromSingleFile, QuEST_cpu.c:1593-1642), through the
+    native CSV reader, as the reference does (quest_tpu/api.py:850-870):
+    a file the native reader cannot read whole is read again in Python.
+    When the library is unavailable, the Python reader runs alone
+    (native.warn_degraded says so once)."""
+    if _native.available():
+        pair = (_native.read_state_csv(filename, qureg.state.num_amps)
+                if os.path.exists(filename) else None)
+        if pair is not None:
+            qureg._set(_state.init_state_from_amps(qureg.state, pair[0],
+                                                   pair[1]))
+            return True
+    else:
+        _native.warn_degraded("initStateFromSingleFile")
     reals, imags = [], []
     need = qureg.state.num_amps
     try:

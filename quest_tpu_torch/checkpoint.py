@@ -536,7 +536,10 @@ def save_step_gang(*args, **kwargs):
 
 def load_step_gang(path: str, **kwargs):
     """Reassembly of a gang checkpoint (ref checkpoint.py:707): waits for
-    multi-process meshes."""
+    multi-process meshes. Its fault site fires first, where the
+    reference's read path fires it (ref :719), so a plan armed on it
+    fails the read as it would there."""
+    faults.check("checkpoint.load_gang", directory=path)
     raise CheckpointError(
         f"Invalid checkpoint: {path!r} is a multi-process gang checkpoint; "
         f"reading one needs multi-process meshes, which are not ported "

@@ -74,6 +74,7 @@ from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import band_plan as BP
 from quest_tpu_torch.ops import fusion as F
 from quest_tpu_torch.ops import matrices as M
+from quest_tpu_torch.ops import segment as _segment
 from quest_tpu_torch.ops.segment import (Segment, batch_of, prepare_segment,
                                          segment_sweep,
                                          segment_sweep_reference)
@@ -355,6 +356,16 @@ def _apply_banded_items(amps: torch.Tensor, n: int, items,
     return amps
 
 
+# programs Circuit._cached has built in this process (its misses), read
+# by analysis/audit.CompileAuditor
+PROGRAM_BUILDS = 0
+
+
+def _states(amps: torch.Tensor, n: int) -> int:
+    """States of n qubits that the planes hold (1 unbatched)."""
+    return max(1, amps.numel() // (2 << n))
+
+
 class XlaPass:
     """A plan item between kernel segments that no stage reaches (a
     cross-band or wide matrix, a channel superoperator, a band above the
@@ -368,6 +379,9 @@ class XlaPass:
         self.tier = tier
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
+        if _segment.WORK_RECORDERS and _segment.note_work(
+                "pass", self, _states(amps, self.n), amps.element_size()):
+            return amps
         return _apply_item(amps, self.n, self.item, self.tier)
 
 
@@ -406,6 +420,9 @@ class XlaProgram:
         self.device = device
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
+        if _segment.WORK_RECORDERS and _segment.note_work(
+                "xla", self, _states(amps, self.n), amps.element_size()):
+            return amps
         _check_device(amps, self.device)
         for _ in range(self.iters):
             _apply_banded_items(amps, self.n, self.items, self.tier)
@@ -811,9 +828,11 @@ class Circuit:
         """The program under `key` (extended by the op count, which
         guards a direct append to `ops`, and _engine_mode_key()), built
         by `build()` on a miss."""
+        global PROGRAM_BUILDS
         key = key + (len(self.ops), _engine_mode_key())
         prog = self._compiled.get(key)
         if prog is None:
+            PROGRAM_BUILDS += 1
             prog = self._compiled[key] = build()
         return prog
 
@@ -1216,7 +1235,8 @@ class Circuit:
             lines.append(f"  register below the kernel tier's minimum "
                          f"({BP.LANE_QUBITS + 3} qubits): the banded "
                          f"engine runs instead")
-            lines += _transpile_line(self) + _plan_line(self, density, batch)
+            lines += (_transpile_line(self) + _plan_line(self, density, batch)
+                      + _host_line(flat, n))
             return "\n".join(lines)
         items = F.plan(sched_ops if enabled else flat, n,
                        bands=BP.plan_bands(n))
@@ -1280,7 +1300,8 @@ class Circuit:
             f"  estimated steady state on one H100: {lo:.1f}-{hi:.1f} ms "
             f"per application at HIGHEST (constants: "
             f"{model['provenance']}){tag}")
-        lines += _transpile_line(self) + _plan_line(self, density, batch)
+        lines += (_transpile_line(self) + _plan_line(self, density, batch)
+                  + _host_line(flat, n))
         return "\n".join(lines)
 
     # -- the sharded engines (ref circuit.py:1524, :1728-1987) ---------------
@@ -1502,6 +1523,20 @@ def _transpile_line(circuit) -> List[str]:
         return [f"  transpile: {rep['ops_in']} -> {rep['ops_out']} op(s) "
                 f"[{attr}] (QUEST_TRANSPILE={knob}; docs/TRANSPILE.md)"]
     except Exception:
+        return []
+
+
+def _host_line(flat, n: int) -> List[str]:
+    """explain()'s host line (ref circuit.py:1566-1577): what the native
+    host engine would do with the raw flat ops. Omitted, never fatal,
+    when the library is unavailable or an op has no host kernel."""
+    from quest_tpu_torch import host as H
+    from quest_tpu_torch import native
+    if not native.available():
+        return []
+    try:
+        return ["  cpu fallback " + H.plan_summary(flat, n)]
+    except H.HostEngineUnsupported:
         return []
 
 

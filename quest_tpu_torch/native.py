@@ -22,14 +22,18 @@ extension this CPU lacks is rebuilt rather than run into an illegal
 instruction.
 
 What it binds: the blocked gate-program runner and the measurement
-kernels the host engine calls (host.py), and the reference-exact MT19937
-(init_by_array seeding, genrand_int32 / genrand_real1 draws), whose
-stream random_.py reproduces in Python bit for bit. The CSV writer and
-reader of the same library are not bound yet (ROADMAP A13b).
+kernels the host engine calls (host.py), the reference-exact MT19937
+(init_by_array seeding, genrand_int32 / genrand_real1 draws) that
+random_.py draws from, and the CSV state writer and reader behind
+api.reportState / initStateFromSingleFile (`write_state_csv`,
+`append_state_csv`, `read_state_csv`, ref quest_tpu/native.py:201-246).
 
 When the library cannot be built or loaded, `available()` is False and
 `unavailable_reason()` says why; the host engine then raises
-HostEngineUnsupported naming that reason. Nothing falls back silently.
+HostEngineUnsupported naming that reason. The MT19937 and CSV callers
+keep their Python paths, which give the same words and the same file,
+and say so once per process (`warn_degraded`). Nothing falls back
+silently.
 """
 
 from __future__ import annotations
@@ -41,8 +45,11 @@ import shutil
 import subprocess
 import threading
 import time
+import warnings
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
+
+import numpy as np
 
 from quest_tpu_torch.env import knob_value
 
@@ -60,6 +67,7 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _reason: Optional[str] = None
 _lock = threading.Lock()
+_degrade_warned = False
 
 
 def compiler() -> Optional[str]:
@@ -173,6 +181,15 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn.argtypes = [p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_double]
             fn.restype = None
+    lib.qh_write_state_csv.argtypes = [ctypes.c_char_p, dp, dp,
+                                       ctypes.c_longlong, ctypes.c_int]
+    lib.qh_write_state_csv.restype = ctypes.c_int
+    lib.qh_append_state_csv.argtypes = [ctypes.c_char_p, dp, dp,
+                                        ctypes.c_longlong]
+    lib.qh_append_state_csv.restype = ctypes.c_int
+    lib.qh_read_state_csv.argtypes = [ctypes.c_char_p, dp, dp,
+                                      ctypes.c_longlong]
+    lib.qh_read_state_csv.restype = ctypes.c_longlong
 
 
 def _open(path: Path) -> ctypes.CDLL:
@@ -245,6 +262,22 @@ def unavailable_reason() -> Optional[str]:
     return None if available() else _reason
 
 
+def warn_degraded(what: str) -> None:
+    """Say once per process that `what` takes its Python path because
+    the library is unavailable, naming unavailable_reason() (ref
+    quest_tpu/native.py:36-52): the results are the same, the speed is
+    not, and a silent fallback would hide a dead toolchain."""
+    global _degrade_warned
+    with _lock:
+        if _degrade_warned:
+            return
+        _degrade_warned = True
+    warnings.warn(f"quest_tpu_torch native host library unavailable "
+                  f"({unavailable_reason()}): {what} takes the Python "
+                  f"path (same results, slower; set QUEST_NATIVE_LIB or "
+                  f"install a C++ compiler)", RuntimeWarning, stacklevel=3)
+
+
 # ---------------------------------------------------------------------------
 # MT19937 (mt19937ar.c): the stream random_.py reproduces in Python
 # ---------------------------------------------------------------------------
@@ -264,3 +297,54 @@ def genrand_int32() -> int:
 def genrand_real1() -> float:
     """One uniform in [0, 1] of the native stream."""
     return float(load().qh_genrand_real1())
+
+
+# ---------------------------------------------------------------------------
+# CSV state IO (the reference's reportState text: "real, imag" header,
+# "%.12f, %.12f" rows; ref quest_tpu/native.py:201-246)
+# ---------------------------------------------------------------------------
+
+
+def _f64(x) -> np.ndarray:
+    return np.ascontiguousarray(x, dtype=np.float64)
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def write_state_csv(path: str, re, im, header: bool = True) -> bool:
+    """Write the rows of (re, im) to `path` (truncating it), with the
+    header line when `header`. False when the library is unavailable or
+    the write failed."""
+    if not available():
+        return False
+    re, im = _f64(re), _f64(im)
+    return load().qh_write_state_csv(
+        os.fsencode(path), _ptr(re), _ptr(im), re.size,
+        1 if header else 0) == 0
+
+
+def append_state_csv(path: str, re, im) -> bool:
+    """Append rows to an existing CSV: a large register streams to disk
+    in bounded slices, the first through write_state_csv and the rest
+    through this. False when unavailable or the write failed."""
+    if not available():
+        return False
+    re, im = _f64(re), _f64(im)
+    return load().qh_append_state_csv(
+        os.fsencode(path), _ptr(re), _ptr(im), re.size) == 0
+
+
+def read_state_csv(path: str,
+                   num_amps: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(re, im) float64 arrays of the first `num_amps` rows of `path`
+    (a header line is skipped), or None when the library is unavailable,
+    the file cannot be opened or it holds fewer rows."""
+    if not available():
+        return None
+    re = np.empty(num_amps, dtype=np.float64)
+    im = np.empty(num_amps, dtype=np.float64)
+    got = load().qh_read_state_csv(os.fsencode(path), _ptr(re), _ptr(im),
+                                   num_amps)
+    return (re, im) if got == num_amps else None

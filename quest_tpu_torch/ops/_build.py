@@ -40,6 +40,7 @@ KERNEL: Tuple[str, ...] = ()                     # the kernel's own defines
 COUNTERS: Tuple[str, ...] = ("-DQUEST_PHASE_COUNTERS",)
 
 BUILD_LOG = ""                     # nvcc's output for KERNEL, when built here
+BUILDS = 0                         # libraries this process compiled
 BUILD_ALLOWED = True               # False: load what exists, never compile
 _LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 _ACTIVE: Tuple[str, ...] = KERNEL
@@ -106,7 +107,7 @@ def build_lock():
 
 
 def _build_locked(todo) -> float:
-    global BUILD_LOG
+    global BUILD_LOG, BUILDS
     t0 = time.perf_counter()
     procs = []
     for v in todo:
@@ -125,6 +126,7 @@ def _build_locked(todo) -> float:
                           f"{proc.returncode}\n{log}")
         else:
             os.replace(tmp, out)     # atomic: readers never see half a file
+            BUILDS += 1
     if failed:
         raise BuildError(f"CUDA build of {SOURCE.name} failed: "
                            + "\n".join(failed))

@@ -716,6 +716,22 @@ def _check_sel(sel, seg: Segment, batch: int) -> None:
                          f"{seg.device}")
 
 
+# profiling.op_metrics counts the work of a call: each segment launch,
+# passthrough and XLA-engine program call reports itself to every
+# recorder here, recorder(kind, obj, batch, rbytes) -> True when the call
+# is a dry count (planes on the meta device) and must skip the work
+WORK_RECORDERS: list = []
+
+
+def note_work(kind: str, obj, batch: int, rbytes: int = 4) -> bool:
+    """Report one unit of work ('segment', 'pass' or 'xla') to the active
+    recorders; True when the caller is to skip it (a dry count)."""
+    dry = False
+    for record in WORK_RECORDERS:
+        dry = record(kind, obj, batch, rbytes) or dry
+    return dry
+
+
 def segment_sweep(amps: torch.Tensor, seg: Segment,
                   sel: torch.Tensor = None, *,
                   copy_unit=None) -> torch.Tensor:
@@ -729,6 +745,9 @@ def segment_sweep(amps: torch.Tensor, seg: Segment,
     plane, rows per box) overrides the tensor-map copy unit (tma_unit)
     for measurements that compare units; the planes are the same under
     every unit."""
+    if WORK_RECORDERS and note_work("segment", seg,
+                                    max(1, batch_of(amps, seg.n))):
+        return amps
     batch = _check_state(amps, seg)
     _check_sel(sel, seg, batch)
     if amps.device.type == "cpu":

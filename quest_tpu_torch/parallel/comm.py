@@ -54,15 +54,16 @@ inter-vs-intra-node split dominating past one node, arXiv:2508.13615),
 and relabel victims are placed hot-first on ICI device bits (the
 lookahead in parallel/relabel.py).
 
-Knobs (quest_tpu/env.py registry, all keyed):
+Knobs (quest_tpu_torch/env.py registry, all keyed):
 
 * `QUEST_COMM_PLAN` (default 1): enables the per-circuit plan choice in
   the sharded builders; 0 restores the legacy fixed policies (plain
   per-gate schedule, layer-amortized relabel on banded/fused).
-* `QUEST_COMM_TOPOLOGY` (default unset = auto from jax.devices() host
-  ids): 'hosts=H[,ici=X][,dci=Y]' hierarchical link model; 0 forces the
-  flat single-tier model, reproducing the pre-topology planner
-  bit-for-bit (golden-gated in scripts/check_comm_golden.py).
+* `QUEST_COMM_TOPOLOGY` (default unset = auto from the mesh's devices:
+  one process is one host): 'hosts=H[,ici=X][,dci=Y]' hierarchical link
+  model; 0 forces the flat single-tier model, reproducing the
+  pre-topology planner bit-for-bit (golden-gated in
+  scripts/check_comm_golden.py).
 * `QUEST_EXCHANGE_SLICES` (default 1): split each pair exchange into
   this many collective-permute slices so transfer can overlap the local
   compute that consumes it on real ICI (the collective-matmul overlap

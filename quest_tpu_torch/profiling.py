@@ -1,30 +1,338 @@
-"""Profiling on the card: the per-sweep split of a fused plan's time into
-its copy floor and its compute, and where a launch's blocks spend their
-cycles.
+"""Profiling on the card: traces, named regions, counted work and bounds,
+the per-stage audit of the cost model, the per-sweep split of a fused
+plan's time into its copy floor and its compute, and where a launch's
+blocks spend their cycles. A port of quest_tpu/profiling.py:
 
-sweep_dma_report is a port of quest_tpu/profiling.py:198-320; the rest of
-that module is not ported yet (ROADMAP A13). segment_phase_report runs
-launches through the kernel's COUNTERS build (ops/_build.py: the same
-source with -DQUEST_PHASE_COUNTERS) and reads its per-phase cycle
-counters; fma_rate measures the fp32 FMA pipe with the same build's
-yardstick kernel. Everything here measures on a CUDA device only, with
-CUDA events or the SMs' clocks, and raises without one: a time taken on
-the CPU says nothing of the kernel.
+  * `trace(log_dir)` — context manager capturing a torch.profiler trace
+    (CPU and CUDA activities) into a Chrome-trace JSON under `log_dir`
+    that TensorBoard's profiler plugin or Perfetto opens;
+    `annotated_kernels` reads the device kernels of a named region back
+    out of it.
+  * `annotate(name)` — a named region: a torch.profiler record_function
+    on the Kineto timeline and, on a CUDA machine, an NVTX range on an
+    Nsight timeline. Keep it out of hot loops: it is cheap, not free.
+  * `op_metrics(fn, *args)` — the work one call of `fn` makes: every
+    segment launch, passthrough and XLA-engine program call it makes,
+    counted by the rules below ("flops", "bytes accessed" and the H100
+    bound "optimal_seconds"). Counted, not measured, and from the port's
+    own plan: the reference's values come from XLA's cost analysis and
+    are not comparable number for number. Planes on the meta device
+    count without running anything (no card needed).
+  * `stage_report(n)` — one probe segment per stage family, timed with
+    CUDA events against the Hopper cost model (circuit._COST_MODELS).
+  * `sweep_dma_report` (ref :198-320), `segment_phase_report` (the
+    kernel's COUNTERS build, ops/_build.py: per-phase cycle counters)
+    and `fma_rate` (the same build's fp32 FMA yardstick kernel).
+
+The counting rules (stage_flops ... program_bound) are the ones every
+bound in PERF.md comes from; chip_smoke.py imports them from here. The
+card's rates are the H100 SXM data sheet's. Everything that times runs
+on a CUDA device, with CUDA events or the SMs' clocks, and raises
+without one unless the caller passes device="cpu" (stage_report then
+runs the plain versions and gives no verdict); counting needs no card.
+
+CLI: python -m quest_tpu_torch.profiling [--n N] [--reps R] [--sweeps]
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import json
+import os
+import socket
 import sys
+import time
 
+import numpy as np
 import torch
 
 from quest_tpu_torch import precision
 from quest_tpu_torch.env import knob_value, resolve_device
 from quest_tpu_torch.ops import _build
 from quest_tpu_torch.ops import band_plan as BP
+from quest_tpu_torch.ops import fusion as F
+from quest_tpu_torch.ops import matrices as M
+from quest_tpu_torch.ops import segment as S
 from quest_tpu_torch.ops.segment import prepare_segment, segment_sweep
 from quest_tpu_torch.state import basis_planes, fused_state_shape
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
+TIER_PRODUCTS = {"highest": 1, "high": 3, "default": 1}
+
+
+# ---------------------------------------------------------------------------
+# traces and named regions
+# ---------------------------------------------------------------------------
+
+
+class Trace:
+    """What `trace` yields: the profiler while the region runs (`prof`)
+    and, once it has exited, the Chrome-trace JSON it wrote (`path`)."""
+
+    def __init__(self, prof):
+        self.prof = prof
+        self.path = None
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device=None):
+    """Capture a trace of the region: `with profiling.trace("tr") as t:
+    ...`, then t.path. CPU and CUDA activities on the card (device None:
+    the card, raising without one); CPU activities only with
+    device="cpu". The file is `<host>_<pid>.<ns>.pt.trace.json` under
+    `log_dir`, the name TensorBoard's profiler plugin lists."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = resolve_device(device)
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        rec = Trace(prof)
+        yield rec
+    rec.path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}"
+                                     f".{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(rec.path)
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named region: `with profiling.annotate("qft"): ...` shows on the
+    Kineto timeline (record_function) and, where CUDA is present, as an
+    NVTX range."""
+    nvtx = torch.cuda.is_available()
+    with torch.profiler.record_function(name):
+        if nvtx:
+            torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
+
+
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def annotated_kernels(path: str, name: str) -> list:
+    """The device kernel events of a trace (`path`, as `trace` wrote it)
+    that the region `name` launched: each kernel whose launch call (the
+    runtime or driver event of its correlation id) lies inside the
+    region's CPU span, and any kernel without such a record that runs
+    inside the span. Each is the trace's event dict (name, ts, dur in
+    µs). Raises when the region is not in the trace."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("name") == name and e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"]
+    if not spans:
+        raise ValueError(f"no region {name!r} in {path}")
+
+    def inside(ts):
+        return any(lo <= ts <= hi for lo, hi in spans)
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in _LAUNCH_CATS and e.get("ph") == "X"
+                and "correlation" in e.get("args", {}) and inside(e["ts"])}
+    seen = {e["args"]["correlation"] for e in events
+            if e.get("cat") in _LAUNCH_CATS
+            and "correlation" in e.get("args", {})}
+    out = []
+    for e in events:
+        if e.get("cat") != "kernel" or e.get("ph") != "X":
+            continue
+        corr = e.get("args", {}).get("correlation")
+        if corr in launched or (corr not in seen and inside(e["ts"])
+                                and inside(e["ts"] + e.get("dur", 0))):
+            out.append(e)
+    return sorted(out, key=lambda e: e["ts"])
+
+
+# ---------------------------------------------------------------------------
+# work accounting for the bound: bytes moved and operations done
+# ---------------------------------------------------------------------------
+
+
+def stage_flops(st, arr, n: int, tier: str = "highest"):
+    """(fp32 operations, bf16 tensor-core operations) a stage needs on a
+    2^n state (only where its predicates select): a b0/b1/scb stage at
+    HIGH or DEFAULT does its products as the tier's bf16 products (3 or
+    1 per real product), everything else fp32."""
+    amps = float(1 << n)
+    if isinstance(st, BP.MatStage):
+        sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
+        per_mac = 4 if st.real_only else 8   # complex MAC: 4 mul + 4 add
+        work = sel * st.dim * per_mac
+        if tier != "highest" and S.rounds(st):
+            return 0.0, work * TIER_PRODUCTS[tier]
+        return work, 0.0
+    return _elementwise_flops(st, arr, amps), 0.0
+
+
+def _elementwise_flops(st, arr, amps: float) -> float:
+    """fp32 operations of a stage that is not a matrix contraction."""
+    if isinstance(st, BP.PhaseStage):
+        bits = bin(int(arr[0, 2])).count("1") + bin(
+            int(arr[0, 4]) | (int(arr[0, 5]) << 15)).count("1")
+        return amps / (1 << bits) * 6        # one complex multiply
+    if isinstance(st, BP.ParityStage):
+        return amps * 6
+    if isinstance(st, BP.PairStage):
+        # 4 complex MACs per amplitude: the 2x2 cores, however packed
+        sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
+        return sel * 4 * (4 if st.real_only else 8)
+    if isinstance(st, BP.DiagVecStage):
+        sel = amps / (1 << (len(st.lane_preds) + len(st.row_preds)))
+        return sel * 6                       # one complex multiply
+    if isinstance(st, BP.BatchSelStage):
+        return amps * 2 * 8                  # 2 complex MACs per amplitude
+    return amps * (len(st.forms) + 2 + 6)   # angle sum, sincos, multiply
+
+
+MOVED_ROWS_MAX_BITS = 24       # moved_rows enumerates at most 2^24 rows
+
+
+def moved_rows(seg) -> int:
+    """Rows (of 128 amplitudes) of a state that one launch of `seg` must
+    read and write: every row, but for a segment of phase stages only the
+    rows where some stage's row predicate holds (no other row holds an
+    amplitude it changes), counted over the bits the predicates name."""
+    rows = 1 << (seg.n - 7)
+    if not seg.stages or not all(isinstance(st, BP.PhaseStage)
+                                 for st in seg.stages):
+        return rows
+    preds = [(int(a[0, 4]) | (int(a[0, 5]) << 15),
+              int(a[0, 6]) | (int(a[0, 7]) << 15)) for a in seg.arrays]
+    bits = [b for b in range(seg.n - 7)
+            if any(rm >> b & 1 for rm, _ in preds)]
+    if len(bits) > MOVED_ROWS_MAX_BITS:
+        return rows
+    v = np.arange(1 << len(bits), dtype=np.int64)
+    vals = np.zeros_like(v)
+    for k, b in enumerate(bits):
+        vals |= ((v >> k) & 1) << b
+    hit = np.zeros(v.shape, bool)
+    for rm, rw in preds:
+        hit |= (vals & rm) == rw
+    return int(hit.sum()) << (seg.n - 7 - len(bits))
+
+
+def segment_work(seg, batch=1):
+    """(bytes, fp32 flops, bf16 tensor flops) of one launch over `batch`
+    states: each state's rows the launch must move (moved_rows: all of
+    them unless it holds phase stages only) read and written once, each
+    operand and selection row read once; the stages' operations on every
+    state, at the segment's tier."""
+    nbytes = (batch * 2 * 2 * 4 * 128 * moved_rows(seg)
+              + 4 * seg.ops.numel() + len(seg.slots) * batch * 8 * 4)
+    work = [stage_flops(st, a, seg.n, seg.tier)
+            for st, a in zip(seg.stages, seg.arrays)]
+    return (nbytes, batch * sum(w[0] for w in work),
+            batch * sum(w[1] for w in work))
+
+
+def xla_item_work(item, n: int):
+    """(share of the state read and written, real operations) of one
+    ops/apply step on a 2^n state: a plan item (BandOp, DiagItem,
+    PassOp) or a flat GateOp. Controls and predicates select a share; a
+    band is a Gauss three-product contraction (two for a real operator),
+    a matrix four real products (two), a diagonal or phase one complex
+    multiply per selected amplitude."""
+    amps = float(1 << n)
+    if isinstance(item, F.BandOp):
+        share = 1.0 / (1 << len(item.preds))
+        per_mac = 4 if not np.any(item.gim) else 6
+        return share, amps * share * (1 << item.w) * per_mac
+    op = item.op if isinstance(item, (F.DiagItem, F.PassOp)) else item
+    if op.kind == "parity":
+        return 1.0, amps * 6
+    if op.kind == "allones":
+        share = 1.0 / (1 << len(op.targets))
+        return share, amps * share * 6
+    share = 1.0 / (1 << len(op.controls))
+    if op.kind == "diagonal":
+        return share, amps * share * 6
+    targets = (M.superop_targets(op.targets, n // 2)
+               if op.kind == "superop" else op.targets)
+    per_mac = 4 if not np.any(np.imag(op.operand)) else 8
+    return share, amps * share * (1 << len(targets)) * per_mac
+
+
+def xla_item_split(item, n: int, tier: str, rbytes=4):
+    """(share, fp32 or fp64 flops, bf16 tensor flops) of one ops/apply
+    step: a band's or matrix's products on f32 planes below HIGHEST are
+    the tier's bf16 products (TIER_PRODUCTS of them a real product),
+    every other operation runs at its planes' precision."""
+    share, flops = xla_item_work(item, n)
+    op = item if isinstance(item, F.BandOp) else getattr(item, "op", item)
+    rounds = isinstance(op, F.BandOp) or op.kind not in (
+        "parity", "allones", "diagonal")
+    if rbytes != 4 or tier == "highest" or not rounds:
+        return share, flops, 0.0
+    return share, 0.0, flops * TIER_PRODUCTS[tier]
+
+
+def passthrough_work(step, batch=1):
+    """(bytes, fp32 flops, bf16 tensor flops) of a passthrough
+    (circuit.XlaPass) over `batch` f32 states: the selected share read
+    and written once; a band or matrix's products at the step's tier."""
+    share, flops, tc = xla_item_split(step.item, step.n, step.tier)
+    nbytes = batch * share * 2 * 2 * 4 * (1 << step.n)
+    return nbytes, batch * flops, batch * tc
+
+
+def xla_program_work(prog, rbytes=4, batch=1):
+    """(state passes, bytes, fp32 or fp64 flops, bf16 tensor flops) of
+    one call of a per-gate or banded program (circuit.XlaProgram) over
+    `batch` states of `rbytes`-byte planes: a pass is the whole state
+    read and written once, a step counting the share it selects."""
+    work = [xla_item_split(it, prog.n, prog.tier, rbytes)
+            for it in prog.items]
+    passes = prog.iters * sum(w[0] for w in work)
+    nbytes = passes * batch * 2 * 2 * rbytes * (1 << prog.n)
+    return (passes, nbytes, prog.iters * batch * sum(w[1] for w in work),
+            prog.iters * batch * sum(w[2] for w in work))
+
+
+def xla_bound(prog, rbytes=4, batch=1):
+    """{passes, bound_ms, bound_by, bytes_ms, ops_ms} of one call of an
+    XlaProgram: the larger of the bytes over 3.35 TB/s and the
+    operations over their peaks (67 TFLOP/s for fp32 outside the tensor
+    cores or fp64 on them, 989 for the tiers' bf16 products)."""
+    passes, nbytes, flops, tc = xla_program_work(prog, rbytes, batch)
+    ms, by = bound_ms(nbytes, flops, tc)
+    return {"passes": passes, "bound_ms": ms, "bound_by": by,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": (flops / FP32_FLOPS_PER_S + tc / BF16_FLOPS_PER_S)
+            * 1e3}
+
+
+def bound_ms(nbytes, flops, tc_flops=0.0):
+    """(ms, 'bytes' or 'operations'): the larger of the bytes over the
+    card's memory rate and the operations over their peaks (fp32 at 67
+    TFLOP/s, the tiers' bf16 products at 989)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / FP32_FLOPS_PER_S + tc_flops / BF16_FLOPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_of(segments, passthroughs=(), repeat=1, batch=1):
+    work = ([segment_work(s, batch) for s in segments]
+            + [passthrough_work(p) for p in passthroughs])
+    return bound_ms(*(repeat * sum(w[k] for w in work) for k in range(3)))
+
+
+def program_bound(fn):
+    """Bound of one call of a FusedProgram: its segments and passthroughs,
+    loop_iters times."""
+    from quest_tpu_torch.circuit import XlaPass
+    passes = [s for s in fn.steps if isinstance(s, XlaPass)]
+    return bound_of(fn.segments, passes, fn.loop_iters)
+
 
 DMA_BOUND_SHARE = 0.15      # adder within 15 % of the floor: copy-bound
 
@@ -196,5 +504,205 @@ def fma_rate(device=None, iters: int = 20000, reps: int = 5) -> dict:
             "iters": iters}
 
 
+
+def op_metrics(fn, *args, **kwargs) -> dict:
+    """Run `fn(*args, **kwargs)` once and count its work: every segment
+    launch (segment_work), passthrough (passthrough_work) and XLA-engine
+    program call (xla_program_work) it makes, by the rules above. Returns
+    the reference's keys, "flops" (fp32 and bf16 tensor operations) and
+    "bytes accessed", with "optimal_seconds" (the H100 bound), and
+    "bound_ms", "bound_by", "fp32_flops", "tensor_flops",
+    "segment_launches", "passthroughs" and "xla_calls". When every tensor
+    argument lies on the meta device the count is dry: the wrappers
+    record and skip the work, so a 30-qubit program counts on any host
+    (other tensor code of `fn` must accept meta tensors)."""
+    tensors = [a for a in (*args, *kwargs.values()) if torch.is_tensor(a)]
+    dry = bool(tensors) and all(t.device.type == "meta" for t in tensors)
+    work, counts = [], {"segment": 0, "pass": 0, "xla": 0}
+
+    def record(kind, obj, batch, rbytes):
+        counts[kind] += 1
+        if kind == "segment":
+            work.append(segment_work(obj, batch))
+        elif kind == "pass":
+            work.append(passthrough_work(obj, batch))
+        else:
+            work.append(xla_program_work(obj, rbytes, batch)[1:])
+        return dry
+    S.WORK_RECORDERS.append(record)
+    try:
+        fn(*args, **kwargs)
+    finally:
+        S.WORK_RECORDERS.remove(record)
+    nbytes, flops, tc = (sum(w[k] for w in work) for k in range(3))
+    ms, by = bound_ms(nbytes, flops, tc)
+    return {"flops": flops + tc, "bytes accessed": nbytes,
+            "optimal_seconds": ms / 1e3, "bound_ms": ms, "bound_by": by,
+            "fp32_flops": flops, "tensor_flops": tc,
+            "segment_launches": counts["segment"],
+            "passthroughs": counts["pass"], "xla_calls": counts["xla"]}
+
+
+# ---------------------------------------------------------------------------
+# the stage report: the cost model's per-stage constants on the card
+# ---------------------------------------------------------------------------
+
+
+def _single_segment(ops, n: int, budgets: BP.Budgets = BP.HOPPER_GEOMETRY):
+    """(stages, arrays) of the one kernel segment a probe circuit plans
+    into under `budgets` (ref profiling.py:57): the report measures what
+    the planner emits, not hand-built stages."""
+    from quest_tpu_torch.circuit import flatten_ops
+    items = F.plan(flatten_ops(ops, n, False), n, bands=BP.plan_bands(n))
+    segs = [p for p in BP.segment_plan(items, n, budgets=budgets)
+            if p[0] == "segment"]
+    if len(segs) != 1:
+        raise RuntimeError(
+            f"probe circuit planned into {len(segs)} segments (want 1)")
+    return segs[0][1], segs[0][2]
+
+
+def _stage_cases(n: int):
+    """Probe circuits, one per stage family (ref profiling.py:76): a lone
+    phase (the copy floor: its compute is tiny, so its time is about one
+    pass over the state), a full-width band operator in each band
+    position (b0 lanes, b1 the next 7 qubits, scb the scattered bands)
+    and the width-1 remainder band (sc) where this n has one."""
+    from quest_tpu_torch.circuit import Circuit
+    angles = [0.3 + 0.1 * i for i in range(7)]
+
+    def rot_band(ql, w):
+        c = Circuit(n)
+        for i in range(w):
+            c.rx(ql + i, angles[i % 7])
+        return c
+    cases = [("phase (DMA floor)", Circuit(n).cphase(0.37, 0, 1))]
+    kinds = {0: "b0", 1: "b1"}
+    for bi, (ql, w) in enumerate(BP.plan_bands(n)):
+        label = kinds.get(bi, "sc" if w == 1 else "scb")
+        if label not in dict(cases):
+            cases.append((label, rot_band(ql, w)))
+    return cases
+
+
+FLOOR_CASE = "phase (DMA floor)"
+
+
+def stage_report(n: int = None, reps: int = 5, out=None, device=None,
+                 check: bool = False) -> dict:
+    """Time one launch of each probe segment (_stage_cases) on the card
+    and print it beside the Hopper cost model's band (circuit.
+    _COST_MODELS, _estimate_ms) with the reference's verdict: OK when
+    0.8 lo <= ms <= 1.3 hi, else DRIFT (ref profiling.py:102-195). Each
+    case runs on a |0..0> state of n qubits (default 30 on the card,
+    where the model's constants are scaled to; 12 on the CPU): one warm
+    launch, then `reps` launches between two CUDA events, at the
+    session's matmul tier under the knobs' driver; the state is freed
+    before the next case allocates its own. Then the copy floor and the
+    compute adder of each band case (its time minus the floor's).
+
+    device="cpu" runs the plain versions and says loudly that the times
+    are not the card's: every verdict is then "n/a (plain version on the
+    CPU)". `check` holds each case's final state against the plain
+    version applied as often, recording max_abs_err, max_amp and norm.
+    Returns {case: {"measured_ms", "model_lo_ms", "model_hi_ms",
+    "verdict", "stages", ...}}; prints to `out` (default stdout).
+
+    CLI: python -m quest_tpu_torch.profiling [--n N] [--reps R]"""
+    from quest_tpu_torch.circuit import _cost_model_for, _estimate_ms
+    out = out or sys.stdout
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if n is None:
+        n = 30 if on_card else 12
+    if not BP.usable(n):
+        raise ValueError(f"n={n} is below the kernel tier's minimum")
+    kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
+    model, matched = _cost_model_for(kind)
+    tier = precision.matmul_precision()
+    driver = BP.check_driver(None)
+    print(f"[stage_report] device={dev} kind={kind!r} n={n} reps={reps} "
+          f"tier={tier} driver={driver} model=h100 "
+          f"({model['provenance']})", file=out)
+    if not on_card:
+        print("[stage_report] CAUTION: CPU host: the plain PyTorch versions "
+              "run instead of the kernel; times exercise the path but are "
+              "NOT card constants. Run on the card for the real audit.",
+              file=out)
+    elif not matched:
+        print(f"[stage_report] CAUTION: no cost model for {kind!r}: the "
+              f"H100 constants are compared anyway", file=out)
+    rec = {}
+    for label, circ in _stage_cases(n):
+        stages, arrays = _single_segment(circ.ops, n)
+        seg = prepare_segment(stages, arrays, n, dev, tier=tier,
+                              driver=driver)
+        want = None
+        if check:
+            want = basis_planes(0, n=n, shape=fused_state_shape(n),
+                                device=dev)
+            for _ in range(reps + 1):
+                want = S.segment_sweep_reference(want, seg.stages,
+                                                 seg.operands, n,
+                                                 tier=seg.tier)
+        amps = basis_planes(0, n=n, shape=fused_state_shape(n), device=dev)
+        if on_card:
+            ms = _launch_ms(amps, seg, reps)
+        else:
+            segment_sweep(amps, seg)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                segment_sweep(amps, seg)
+            ms = (time.perf_counter() - t0) / reps * 1e3
+        lo, hi = _estimate_ms([("segment", stages, arrays)], n, model)
+        verdict = ("OK" if lo * 0.8 <= ms <= hi * 1.3 else "DRIFT") \
+            if on_card else "n/a (plain version on the CPU)"
+        r = rec[label] = {"measured_ms": ms, "model_lo_ms": lo,
+                          "model_hi_ms": hi, "verdict": verdict,
+                          "stages": [type(s).__name__ for s in stages]}
+        if check:
+            r["max_abs_err"] = (amps - want).abs().max().item()
+            r["max_amp"] = want.abs().max().item()
+            r["norm"] = (amps.double() ** 2).sum().item()
+        del amps, want      # one live state at a time: two 30-qubit states
+        # and the plain version's temporaries would crowd the card
+        if on_card:
+            torch.cuda.empty_cache()
+        print(f"[stage_report] {label:<18} measured {ms:8.3f} ms   model "
+              f"[{lo:.3f}, {hi:.3f}] ms   {verdict}", file=out)
+    if FLOOR_CASE in rec:
+        dma = rec[FLOOR_CASE]["measured_ms"]
+        for label, r in rec.items():
+            if label != FLOOR_CASE:
+                r["compute_adder_ms"] = max(0.0, r["measured_ms"] - dma)
+        print(f"[stage_report] DMA floor {dma:.3f} ms; per-stage compute "
+              f"adders: " + ", ".join(
+                  f"{k}={v['compute_adder_ms']:.3f}" for k, v in rec.items()
+                  if "compute_adder_ms" in v), file=out)
+    return rec
+
+
+def _main(argv=None) -> None:
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m quest_tpu_torch.profiling",
+        description=stage_report.__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=None)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--sweeps", action="store_true",
+                    help="the per-sweep copy-floor vs compute split "
+                         "(sweep_dma_report) instead of the per-stage "
+                         "cost-model audit")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' runs the plain versions (no verdicts); "
+                         "default: the card")
+    args = ap.parse_args(argv)
+    if args.sweeps:
+        sweep_dma_report(n=args.n or 28, reps=args.reps, device=args.device,
+                         out=sys.stdout)
+    else:
+        stage_report(n=args.n, reps=args.reps, device=args.device)
+
+
 if __name__ == "__main__":
-    sweep_dma_report(out=sys.stdout)
+    _main()

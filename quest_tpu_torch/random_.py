@@ -2,12 +2,16 @@
 
 A port of quest_tpu/random_.py. The reference QuEST draws outcomes from
 a globally seeded Mersenne Twister (mt19937ar.c) seeded by init_by_array,
-with time + pid as the default seed (QuEST_common.c:181-213). Here
-`_init_by_array` builds that generator state (mt19937ar.c's
+with time + pid as the default seed (QuEST_common.c:181-213). As in the
+reference, the native host library (native.py: init_by_array,
+genrand_int32, genrand_real1 of native/quest_host.cpp) is that
+generator whenever it loads (`_use_native`). Without it the Python
+stream takes over, saying so once (native.warn_degraded):
+`_init_by_array` builds the same generator state (mt19937ar.c's
 init_by_array, in Python: numpy would seed a one-word key through
-init_genrand instead) and numpy's legacy `RandomState` draws from it, so
-with equal seeds the words and uniforms here equal the reference
-binary's, and quest_tpu's native stream, bit for bit:
+init_genrand instead) and numpy's legacy `RandomState` draws from it.
+The two streams are equal word for word, so with equal seeds the words
+and uniforms here equal the reference binary's either way:
 
   genrand_int32  one 32-bit word: randint(0, 2^32) of the state;
   genrand_real1  that word x 1/4294967295, a uniform in [0, 1].
@@ -24,9 +28,12 @@ import time
 
 import numpy as np
 
+from quest_tpu_torch import native
+
 _N = 624
 _MASK = 0xFFFFFFFF
 _state: np.random.RandomState = None
+_use_native = None          # None: not seeded yet; then True or False
 
 
 def _init_by_array(key) -> np.ndarray:
@@ -55,9 +62,15 @@ def _init_by_array(key) -> np.ndarray:
 
 def seed_quest(seeds) -> None:
     """Seed the stream from a list of ints (ref seedQuEST,
-    QuEST_common.c:207-213)."""
-    global _state
+    QuEST_common.c:207-213): the native generator when the library
+    loads, else the Python one."""
+    global _state, _use_native
     key = [int(s) & _MASK for s in np.asarray(seeds, dtype=np.uint64)]
+    _use_native = native.available()
+    if _use_native:
+        native.init_by_array(key)
+        return
+    native.warn_degraded("the MT19937 stream (random_)")
     _state = np.random.RandomState()
     _state.set_state(("MT19937", _init_by_array(key), _N, 0, 0.0))
 
@@ -70,11 +83,17 @@ def seed_quest_default() -> None:
 
 def uint32() -> int:
     """One full 32-bit word of the stream (ref genrand_int32)."""
-    if _state is None:
+    if _use_native is None:
         seed_quest_default()
+    if _use_native:
+        return native.genrand_int32()
     return int(_state.randint(0, 1 << 32, dtype=np.uint64))
 
 
 def uniform() -> float:
     """One uniform in [0, 1] (ref genrand_real1)."""
+    if _use_native is None:
+        seed_quest_default()
+    if _use_native:
+        return native.genrand_real1()
     return uint32() * (1.0 / 4294967295.0)

@@ -374,8 +374,10 @@ class ServeEngine:
     @property
     def state(self) -> str:
         """'running' | 'failed' (restart budget exhausted) | 'closed'."""
+        # quest-lint: disable=QL005(observability fast path: racy flag read, never blocks behind a dispatch)
         if self._closed:
             return "closed"
+        # quest-lint: disable=QL005(same racy-read contract as _closed above)
         return self._state
 
     def health(self) -> dict:
@@ -384,7 +386,7 @@ class ServeEngine:
         restarts left, and the degraded dispatches so far."""
         return {
             "state": self.state,
-            "pending": self._pending,
+            "pending": self._pending,  # quest-lint: disable=QL005(observability fast path: racy read, never blocks behind a dispatch)
             "open_breakers": sum(1 for br in list(self._breakers.values())
                                  if br.state != CLOSED),
             "restarts_remaining": self._supervisor.remaining,
@@ -1199,6 +1201,7 @@ class ServeEngine:
 
     def _dispatch_apply(self, q: _Queue, reqs: List[_Request]) -> None:
         t_pop = time.monotonic()
+        # quest-lint: disable=QL005(racy generation read IS the supersession design)
         gen0 = self._worker_gen     # breaker-success guard (watchdog)
         n = q.circuit.num_qubits * 2 if q.density else q.circuit.num_qubits
         fn, primary, br = self._resolve_program(
@@ -1215,6 +1218,7 @@ class ServeEngine:
         out_dev = fn(batch)
         if out_dev.device.type == "cuda":
             torch.cuda.synchronize(out_dev.device)
+        # quest-lint: disable=QL005(racy generation read IS the supersession design)
         if primary and gen0 == self._worker_gen:
             # a launch that unsticks after the watchdog fired must not
             # erase the failure it recorded on this breaker
@@ -1247,6 +1251,7 @@ class ServeEngine:
 
     def _dispatch_traj(self, q: _Queue, reqs: List[_Request]) -> None:
         t_pop = time.monotonic()
+        # quest-lint: disable=QL005(racy generation read IS the supersession design)
         gen0 = self._worker_gen
         total = sum(r.shots for r in reqs)
         # the requests' uniforms, drawn at submit, in request order
@@ -1302,6 +1307,7 @@ class ServeEngine:
                     dead.add(i)
                     self._fail_request(r, e)
             launches += 1
+        # quest-lint: disable=QL005(racy generation read IS the supersession design)
         if primary and gen0 == self._worker_gen:
             br.record_success()
         self.registry.counter("serve_batches_dispatched").inc(launches - 1)

@@ -252,6 +252,7 @@ class ServeFleet:
     def state(self) -> str:
         """'running' while any replica serves | 'failed' (every replica
         exhausted its restart budget) | 'closed'."""
+        # quest-lint: disable=QL005(observability fast path: racy flag read, engine.state contract)
         if self._closed:
             return "closed"
         if any(e.state == "running" for e in self._engines):

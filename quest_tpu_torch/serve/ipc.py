@@ -485,6 +485,7 @@ class ReplicaProxy:
     @property
     def state(self) -> str:
         """'running' | 'failed' (respawn budget exhausted) | 'closed'."""
+        # quest-lint: disable=QL005(observability fast path: racy flag read, engine.state contract)
         return self._state
 
     def plan(self, circuit, *, batch: Optional[int] = None,

@@ -55,6 +55,7 @@ class Counter:
 
     @property
     def value(self) -> int:
+        # quest-lint: disable=QL005(single int attr load is atomic under the GIL)
         return self._value
 
 
@@ -84,6 +85,7 @@ class Gauge:
 
     @property
     def value(self) -> float:
+        # quest-lint: disable=QL005(single float attr load is atomic under the GIL)
         return self._value
 
 
@@ -113,6 +115,7 @@ class Histogram:
 
     @property
     def count(self) -> int:
+        # quest-lint: disable=QL005(single int attr load is atomic under the GIL)
         return self._count
 
     @property
@@ -121,6 +124,7 @@ class Histogram:
         reads over (count, sum) let a caller derive time-in-phase
         without touching slot internals (the durable executor's
         checkpoint cost, `durable_checkpoint_s`, reads this way)."""
+        # quest-lint: disable=QL005(single float attr load is atomic under the GIL)
         return self._sum
 
     def summary(self) -> Dict[str, float]:

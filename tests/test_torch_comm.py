@@ -271,7 +271,7 @@ def test_knobs_are_keyed_with_the_reference_defaults(monkeypatch):
                  "QUEST_EXCHANGE_SLICES_DCI", "QUEST_COMM_TOPOLOGY"):
         monkeypatch.delenv(name, raising=False)
         assert TE.knob_value(name) == JE.knob_value(name)
-        assert TE.KNOBS[name].keyed
+        assert TE.KNOBS[name].scope == "keyed"
     monkeypatch.setenv("QUEST_EXCHANGE_SLICES", "4")
     assert ("QUEST_EXCHANGE_SLICES", 4) in TE.engine_mode_key()
 

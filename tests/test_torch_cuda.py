@@ -1462,3 +1462,69 @@ def test_process_fleet_trajectories_on_the_card_draw_like_run_batched(
     for (p, d), (wp, wd) in zip(got, want):
         assert torch.equal(d, wd.cpu())
         assert (p - wp.cpu()).abs().max() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# profiling and the runtime audits on the card
+# ---------------------------------------------------------------------------
+
+
+def test_trace_holds_the_planned_k1_launches(card, tmp_path):
+    """The flagship step (28 qubits) inside profiling.trace and
+    annotate: the kernels the region launched (read from the trace) are
+    the program's planned K1 launches, and their device time is within
+    10 % of the same call's CUDA-event time (at 20 qubits the ~30 us
+    host gaps between launches are a third of the step)."""
+    from quest_tpu_torch import profiling as P
+    from quest_tpu_torch.entry import entry
+    fn, (amps,) = entry(card)
+    fn(amps)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with P.trace(str(tmp_path)) as tr:
+        with P.annotate("flagship"):
+            start.record()
+            fn(amps)
+            end.record()
+            torch.cuda.synchronize()
+    kernels = P.annotated_kernels(tr.path, "flagship")
+    assert len(kernels) == fn.launches_per_call
+    assert all("ring_kernel<" in k["name"] and ", true>" in k["name"]
+               for k in kernels)
+    step_ms = start.elapsed_time(end)
+    kernel_ms = sum(k["dur"] for k in kernels) / 1e3
+    assert abs(kernel_ms - step_ms) <= 0.1 * step_ms, (kernel_ms, step_ms)
+    m = P.op_metrics(fn, amps)
+    assert (m["bound_ms"], m["bound_by"]) == P.program_bound(fn)
+    assert m["segment_launches"] == fn.launches_per_call
+
+
+def test_stage_report_on_the_card(card):
+    """Every probe segment of the stage report at 20 qubits through the
+    kernel, held against its plain version; a verdict on each."""
+    import io
+
+    from quest_tpu_torch import profiling as P
+    out = io.StringIO()
+    rec = P.stage_report(n=20, reps=3, out=out, check=True)
+    assert list(rec) == ["phase (DMA floor)", "b0", "b1", "scb"]
+    for label, r in rec.items():
+        assert r["verdict"] in ("OK", "DRIFT"), label
+        assert r["max_abs_err"] <= 1e-5 * r["max_amp"], label
+        assert abs(1.0 - r["norm"]) <= 1e-5, label
+        assert r["measured_ms"] > 0
+    assert "CAUTION" not in out.getvalue()
+
+
+def test_audits_on_the_card(card):
+    """The golden set rebuilds nothing, and every keyed knob's flip
+    misses every program cache, with the card's programs under the
+    flipped driver."""
+    from quest_tpu_torch.analysis import audit
+    assert audit.golden_retrace_check(device=card).traces == 0
+    report = audit.audit_knob_flips(device=card)
+    by = {r["knob"]: r for r in report}
+    assert by["QUEST_FUSED_DRIVER"]["fused_driver"] == "grid"
+    assert by["QUEST_FUSED_PIPELINE"]["fused_driver"] == "inplace"
+    assert by["QUEST_MATMUL_PRECISION"]["fused_tier"] == "high"

@@ -96,7 +96,7 @@ def test_parse_plan_grammar_and_knob(monkeypatch):
         with pytest.raises(ValueError):
             jfaults.parse_plan(bad)
     k = TE.KNOBS["QUEST_FAULT_PLAN"]
-    assert not k.keyed and k.default is None
+    assert k.scope != "keyed" and k.default is None
     assert isinstance(k.parse("serve.demux:times=1"), FaultPlan)
     monkeypatch.setenv("QUEST_FAULT_PLAN", "serve.not_a_site")
     with pytest.raises(ValueError):
@@ -180,7 +180,7 @@ def test_durable_knobs_parse_like_the_reference(monkeypatch):
                             ("QUEST_INTEGRITY_TOL", "0.5", "-1"),
                             ("QUEST_CHECKPOINT_KEEP", "3", "0"),
                             ("QUEST_DURABLE_ELASTIC", "1", "yes")):
-        assert not TE.KNOBS[name].keyed
+        assert TE.KNOBS[name].scope != "keyed"
         assert TE.KNOBS[name].default == JE.KNOBS[name].default
         monkeypatch.setenv(name, good)
         assert TE.knob_value(name) == JE.knob_value(name)

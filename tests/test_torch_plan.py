@@ -423,7 +423,11 @@ def test_explain_prints_its_transpile_and_plan_lines(knob, monkeypatch):
         plan = [ln for ln in mine.splitlines() if ln.startswith("  plan:")]
         assert len(plan) == 1 and "searched" in plan[0]
         assert "priced for cpu" in plan[0]
-        assert mine.splitlines()[-2:] == t_mine + plan
+        # then the host line, last, as the reference orders them
+        assert mine.splitlines()[-3:-1] == t_mine + plan
+        host = mine.splitlines()[-1]
+        assert host.startswith("  cpu fallback ")
+        assert host == ref.splitlines()[-1]
     # explain never touches the plan cache
     assert P.cache_stats()["stores"] == 0
 

@@ -715,7 +715,7 @@ def test_serve_knobs_registered_and_parse_loudly(monkeypatch):
             TE.KNOBS[name].parse(bad)
     assert TE.KNOBS["QUEST_SERVE_TENANT_QUOTA"].default == {
         "default": admission.DEFAULT_TENANT_QUOTA}
-    assert TE.KNOBS["QUEST_HOST_BLOCK"].keyed
+    assert TE.KNOBS["QUEST_HOST_BLOCK"].scope == "keyed"
     monkeypatch.setenv("QUEST_SERVE_MAX_WAIT_MS", "0")
     monkeypatch.setenv("QUEST_SERVE_MAX_QUEUE", "1")
     monkeypatch.setenv("QUEST_SERVE_MAX_BATCH", "2")
