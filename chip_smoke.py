@@ -53,7 +53,7 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      33-qubit state (64 GiB), chosen basis amplitudes against the
      table's entries and a chunked norm; drivers: the flagship at HIGHEST, HIGH and DEFAULT, 30q d20, the
      density step, the batched step and the first trajectory chunk, each
-     compiled under K1 (run 3 times), K2 at 2 and 3 slots and K3: planes
+     compiled under K1 (run twice), K2 at 2 and 3 slots and K3: planes
      (and draws) bit-identical across drivers and runs, every launch on
      its driver, median ms per driver; dma_floor: at 28 qubits, per
      driver, profiling.sweep_dma_report (the stage-free launch, each
@@ -307,8 +307,9 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      autotune(devices=4) of the 28q flagship (the chosen plan, search
      ms). Every measured call's ms.
  41. durable: random_circuit(28, 20) through run_durable(engine='fused')
-     (one K1 launch or one passthrough a step, `every` set for 2-3
-     checkpoints) preempted at a seeded step by a FaultPlan and resumed:
+     (one K1 launch or one passthrough a step, `every` set for one
+     checkpoint before the kill) preempted at a seeded step by a
+     FaultPlan and resumed:
      bit for bit the uninterrupted run_durable and compiled_fused; the
      same on 4 shards (engine 'sharded'), bit for bit
      compiled_sharded_fused; the 4-shard chain re-entered elastically on
@@ -318,8 +319,8 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      restored planes equal to the snapshot. K1 launches, steps,
      checkpoint GiB, each run's mean ms to take a checkpoint (sentinel,
      copy, reorder, hash, write: the executor's durable_checkpoint_s),
-     the ms to write, hash and load one checkpoint measured alone, and
-     the resume's extra ms. Checkpoints go to a temporary directory
+     the ms to hash one checkpoint measured alone, and the resume's
+     extra ms. Checkpoints go to a temporary directory
      removed at the end of the phase.
 
  Serving with the native host engine as its floor (no kernel is added):
@@ -387,6 +388,35 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      audit_knob_flips over every keyed knob (a same-value rerun builds
      nothing; each flip misses the per-gate, banded and fused caches);
      the driver flips launch K3 and K2 and the tier flip builds at HIGH.
+
+ Meshes over processes (no kernel is added):
+ 46. multiprocess: the parent builds the kernel and the native library
+     under build/quest_tpu_torch/.build.lock, then exec-spawns two rank
+     processes (`chip_smoke.py --mp-rank r`, BUILD_ALLOWED False), each
+     with its own CUDA context on cuda:0, joined by a gloo group through
+     a FileStore in a temporary directory, each holding 2 of a 4-shard
+     process mesh; every collective and the join are bounded, a dead
+     rank fails the other and the phase. (a) the 28q flagship through
+     compiled_sharded_fused on the process mesh: each rank's shards bit
+     for bit the one-process 4-shard mesh's (priced alike: that mesh
+     under QUEST_COMM_TOPOLOGY=hosts=2), within 1e-4 x max|amp| of
+     entry()'s K1 step, the norm all-reduced within 1e-4, K1 launches a
+     rank equal to the plan, issued exchanges equal to the prediction
+     on both ranks, the topology derived (hosts = 2) with the knob
+     unset; warm step ms (median of 3) beside the one-process mesh's,
+     and one cross-process all-to-all split into copy-out, gloo and
+     copy-in; K1 on rank 0's shards alone (rank 1 waiting) against the
+     plain version; the flagship once through compiled_sharded_banded,
+     with the same gates but the launches. (b) the reference worker's Bell pair with feedback
+     at 28 qubits: both ranks read the same outcomes, the second 0.
+     (c) gang durable at 26q d20: uninterrupted; preempted and resumed
+     bit for bit; the mid-save kill (rank 1 dies between its slice and
+     its stamp in the second save, rank 0 is preempted after it): the
+     step never commits, both resume the same earlier cut, bit for bit;
+     one gang save, hash and load timed per rank.
+
+Every phase record carries `seconds` (since the phase began); the
+`seconds` line before the kernels line lists them all.
 
 Bounds (quest_tpu_torch.profiling's counting rules, which
 profiling.op_metrics shares): bytes over 3.35 TB/s against operations
@@ -457,15 +487,37 @@ PHASES = ("build", "probe", "stages", "diag_layer", "big_batch",
           "dynamic", "calculations", "eager", "expec", "evolution",
           "variational", "adjoint", "frontends", "api", "scan", "sharded",
           "sharded_batched", "sharded_measured", "sharded_consumers",
-          "durable", "serve", "fleet", "profiling", "audit")
+          "durable", "serve", "fleet", "profiling", "audit",
+          "multiprocess")
 
 RECORD = []
+T_START = time.perf_counter()
+# the phase main() is running and when it began: emit() stamps every
+# phase record with its seconds since then; PHASE_SECONDS keeps each
+# phase's whole time
+PHASE_CLOCK = {"name": None, "t0": None}
+PHASE_SECONDS = {}
 
 
 def emit(obj) -> None:
+    if ("phase" in obj and "seconds" not in obj
+            and PHASE_CLOCK["t0"] is not None):
+        obj["seconds"] = time.perf_counter() - PHASE_CLOCK["t0"]
     line = json.dumps(obj)
     print(line, flush=True)
     RECORD.append(obj)
+
+
+def run_phase(name: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs) as phase `name`: its records carry their
+    seconds since it began, and its whole time lands in PHASE_SECONDS."""
+    PHASE_CLOCK.update(name=name, t0=time.perf_counter())
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + (
+            time.perf_counter() - PHASE_CLOCK["t0"])
+        PHASE_CLOCK.update(name=None, t0=None)
 
 
 def smi_line() -> str:
@@ -1124,7 +1176,7 @@ def phase_flagship(torch):
     if not torch.isfinite(amps).all():
         raise AssertionError("flagship: non-finite amplitudes")
     step_ms = time_ms(torch, lambda: fn(amps), 5)
-    plain_ms = time_ms(torch, lambda: fn.plain(amps0), 3)
+    plain_ms = time_ms(torch, lambda: fn.plain(amps0), 1)
     bound_ms, bound_by = bound_of(fn.segments)
     kinds = {}
     for seg in fn.segments:
@@ -1172,7 +1224,7 @@ def phase_baseline(torch):
             and torch.isfinite(amps).all()):
         raise AssertionError(f"baseline: max|diff| {err} (max|amp| "
                              f"{scale}), norm {norm}")
-    ms = time_ms(torch, lambda: fn(amps), 3)
+    ms = time_ms(torch, lambda: fn(amps), 1)
     bound_ms, bound_by = bound_of(fn.segments)
     rec = {"phase": "baseline", "n": n, "depth": depth,
            "segments": len(fn.segments), "launches": launches,
@@ -1273,7 +1325,7 @@ def run_density(torch, name, fn, amps, reps, time_plain):
     del want
     torch.cuda.empty_cache()
     rec["median_ms"] = time_ms(torch, lambda: fn(amps), reps)
-    rec["plain_ms"] = (time_ms(torch, lambda: fn.plain(amps0), 3)
+    rec["plain_ms"] = (time_ms(torch, lambda: fn.plain(amps0), 1)
                        if time_plain else None)
     rec["bound_ms"], rec["bound_by"] = program_bound(fn)
     emit(rec)
@@ -1763,7 +1815,7 @@ def phase_precision_flagship(torch, top):
                                  f"launches at {tier}, {top['launches']} at "
                                  f"highest")
         rec["median_ms"] = time_ms(torch, lambda: fn_t(x), 5)
-        rec["plain_ms"] = time_ms(torch, lambda: fn_t.plain(x0), 3)
+        rec["plain_ms"] = time_ms(torch, lambda: fn_t.plain(x0), 1)
         rec["highest_median_ms"] = top["median_ms"]
         rec["bound_ms"], rec["bound_by"] = bound_of(fn_t.segments)
         emit(rec)
@@ -1795,7 +1847,7 @@ def phase_precision_baseline(torch):
     del top_out
     torch.cuda.empty_cache()
     rec["depth"] = depth
-    rec["median_ms"] = time_ms(torch, lambda: fn(amps), 3)
+    rec["median_ms"] = time_ms(torch, lambda: fn(amps), 1)
     rec["bound_ms"], rec["bound_by"] = bound_of(fn.segments)
     emit(rec)
     del fn, amps
@@ -2024,7 +2076,7 @@ def diag_run_timing(torch, planes, names=None):
         del want
         ms = time_ms(torch, lambda: S.segment_sweep(amps, seg), 5)
         plain_ms = time_ms(torch, lambda: S.segment_sweep_reference(
-            amps, seg.stages, seg.operands, n), 3)
+            amps, seg.stages, seg.operands, n), 1)
         bound, by = bound_of([seg])
         out.append({"name": name, "label": "diag_run", "stages": len(stages),
                     "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -2085,7 +2137,7 @@ def phase_stage_timing(torch):
         del want
         ms = time_ms(torch, lambda: S.segment_sweep(amps, seg), 5)
         plain_ms = time_ms(torch, lambda: S.segment_sweep_reference(
-            amps, seg.stages, seg.operands, n), 3)
+            amps, seg.stages, seg.operands, n), 1)
         lib_ms = None
         if q0 is not None:
             # yardstick: out[a, i, b] = sum_j G[i, j] x[a, j, b] as one
@@ -2251,7 +2303,7 @@ def tier_stage_timing(torch, planes, rng):
             torch.cuda.empty_cache()
             ms = time_ms(torch, lambda: S.segment_sweep(amps, seg), 5)
             plain_ms = time_ms(torch, lambda: S.segment_sweep_reference(
-                amps, seg.stages, seg.operands, n, tier=tier), 3)
+                amps, seg.stages, seg.operands, n, tier=tier), 1)
             d = st.dim
             blk = _real_block(torch, arr, q0)
             x = amps.reshape(2, -1)
@@ -2423,7 +2475,7 @@ def phase_pergate(torch):
     rec = {"phase": "pergate", "n": fn.n, "ops": len(fn.items),
            "max_abs_err": err, "rel_err": err / scale, "norm": norm,
            "first_call_s": first_s,
-           "median_ms": time_ms(torch, lambda: fn(x), 5), **engine_bound(fn)}
+           "median_ms": time_ms(torch, lambda: fn(x), 1), **engine_bound(fn)}
     emit_card(rec)
     del x
     torch.cuda.empty_cache()
@@ -2511,7 +2563,7 @@ def phase_f64(torch):
         raise AssertionError(f"f64: {rec}")
     del f32, ref
     rec["median_ms"] = time_ms(torch, lambda: fn(amps), 3)
-    rec["pergate_median_ms"] = time_ms(torch, lambda: pg(x), 3)
+    rec["pergate_median_ms"] = time_ms(torch, lambda: pg(x), 1)
     rec.update(engine_bound(fn, 8))
     rec["pergate_bound"] = engine_bound(pg, 8)
     emit_card(rec)
@@ -2811,7 +2863,7 @@ DRIVER_KNOBS = ("QUEST_FUSED_DRIVER", "QUEST_FUSED_PIPELINE",
 DRIVER_REPLACES = {"decoupled": "quest_tpu/ops/pallas_band.py:1715",
                    "inplace": "quest_tpu/ops/pallas_band.py:1628",
                    "grid": "quest_tpu/ops/pallas_band.py:1553"}
-K1_RUNS = 3
+K1_RUNS = 2
 PROBE_TIMEOUT_S = 120
 SANITIZE_TIMEOUT_S = 240
 SANITIZE_QUBITS = 17
@@ -3861,7 +3913,8 @@ def phase_variational(torch):
 
 def phase_adjoint(torch):
     """entry.vqe_entry() at 30 qubits (120 parameters, the adjoint
-    engine): one value and gradient, peak memory above the base within
+    engine): one value and gradient (returned beside the record for
+    phase_sharded_consumers), peak memory above the base within
     three 8 GiB registers + 1 GiB, two parameters (the first ry and rz)
     against the parameter-shift rule within 1e-3; ms of the forward
     (the energy alone) and of the backward walk. At 20 qubits
@@ -3899,6 +3952,8 @@ def phase_adjoint(torch):
             and peak <= 3 * state_gib + 1.0
             and torch.isfinite(grad).all().item()):
         raise AssertionError(f"adjoint 30q: {rec}")
+    # sharded_consumers holds its sharded gradient against this one
+    one_grad = (n, ms, float(val), grad.detach().cpu())
     del fn, theta, grad
     _free(torch)
     auto = {}
@@ -3937,7 +3992,7 @@ def phase_adjoint(torch):
         raise AssertionError(f"adjoint density: {rec['density']}")
     rec["seconds"] = time.perf_counter() - t0
     emit_card(rec)
-    return rec
+    return rec, one_grad
 
 
 # ---------------------------------------------------------------------------
@@ -3946,7 +4001,7 @@ def phase_adjoint(torch):
 # ---------------------------------------------------------------------------
 
 FRONTEND_QUBITS = 28
-FRONTEND_REPS = 3
+FRONTEND_REPS = 1
 FRONTEND_TOL = 1e-4           # transpiled vs raw, x max|amp|; norms
 GHZ_UNIFORMS = (0.1, 0.4, 0.6, 0.9)
 RANK_QUBITS = 24
@@ -4356,7 +4411,7 @@ def phase_scan(torch):
             case[f"scan{flag}"] = {
                 "launches": launches, "segments": len(fn.segments),
                 "build_s": build_s,
-                "warm_ms": time_ms(torch, lambda: fn(y), 3)}
+                "warm_ms": time_ms(torch, lambda: fn(y), 1)}
             del fn, y
         if not torch.equal(outs["0"], outs["1"]):
             raise AssertionError(f"scan {name}: planes differ")
@@ -4702,10 +4757,12 @@ def _marginal_tv(torch, planes, samples, k: int):
     return tv, expected
 
 
-def phase_sharded_consumers(torch):
+def phase_sharded_consumers(torch, one_grad):
     """The consumers of a sharded register at CONSUMER_QUBITS over 4
     shards of the card, each against the same call on one register (see
-    the module docstring, phase 40)."""
+    the module docstring, phase 40). `one_grad`: phase_adjoint's
+    (qubits, ms, energy, gradient) of the one-register gradient the
+    sharded one is held against."""
     from quest_tpu_torch import adjoint as AD
     from quest_tpu_torch import calculations as K
     from quest_tpu_torch import evolution as EV
@@ -4817,14 +4874,14 @@ def phase_sharded_consumers(torch):
     nv = VQE_QUBITS
     circ = hea_circuit(nv, VQE_LAYERS)
     vcodes, vcoeffs = tfim_sum(nv)
-    fn1 = AD.value_and_grad(circ, vcodes, coeffs=vcoeffs, engine="adjoint",
-                            device=CARD)
-    theta = torch.as_tensor(fn1.initial_params, dtype=torch.float32,
-                            device=CARD)
-    ms1, (v1, g1) = _wall(torch, lambda: fn1(theta))
-    del fn1
-    _free(torch)
     fn2 = AD.value_and_grad(circ, vcodes, coeffs=vcoeffs, mesh=mesh)
+    theta = torch.as_tensor(fn2.initial_params, dtype=torch.float32,
+                            device=CARD)
+    n1, ms1, v1, g1 = one_grad
+    if n1 != nv:
+        raise AssertionError(f"sharded_consumers: the one-register "
+                             f"gradient is at {n1} qubits, not {nv}")
+    g1 = g1.to(CARD)
     mesh.recorder.reset()
     base = _reset_peak(torch)
     ms2, (v2, g2) = _wall(torch, lambda: fn2(theta))
@@ -4927,7 +4984,7 @@ def _durable_case(torch, circ, n, mesh, root, name):
     nsteps = len(steps)
     if nsteps < 2:
         raise AssertionError(f"durable {name}: {nsteps} step, no cut")
-    every = max(1, nsteps // 3)
+    every = max(1, -(-nsteps // 2))      # one checkpoint before the kill
     # the kill lands on a step after the first checkpoint: a seeded hit
     # of durable.preempt in [every, nsteps)
     after = int(np.random.default_rng(DURABLE_SEED).integers(every,
@@ -5005,21 +5062,14 @@ def phase_durable(torch):
     try:
         rec["fused"], out1, want1, _ = _durable_case(torch, circ, n, None,
                                                      root, "fused")
-        # one checkpoint's costs, measured alone on the final planes (the
-        # sharded chain's checkpoints hold the same 2 GiB)
+        # the hash's share of a checkpoint, measured alone on the final
+        # planes (the chains' own checkpoints time the whole write, the
+        # resumes the load)
         planes = ckpt._host_planes(out1.amps)
         t1 = time.perf_counter()
         ckpt._plane_digests({"planes": planes})
         rec["checkpoint"] = {"gib": planes.nbytes / GIB,
                              "hash_ms": (time.perf_counter() - t1) * 1e3}
-        probe = os.path.join(root, "probe")
-        t1 = time.perf_counter()
-        ckpt.save(out1.replace_amps(planes), probe)
-        rec["checkpoint"]["write_ms"] = (time.perf_counter() - t1) * 1e3
-        t1 = time.perf_counter()
-        ckpt.load_arrays(probe, require=("planes",))
-        rec["checkpoint"]["load_ms"] = (time.perf_counter() - t1) * 1e3
-        shutil.rmtree(probe, ignore_errors=True)
         del want1, out1, planes
         _free(torch)
         mesh = make_amp_mesh(SHARDS, devices=[torch.device(CARD)] * SHARDS)
@@ -5171,6 +5221,21 @@ def _latency(reg, snap=None):
             "mean_occupancy": occ.get("mean", 0.0)}
 
 
+# the bench's 512 serving states (4 GiB), drawn on a host thread from the
+# start of the run: numpy fills them without the GIL while the kernels
+# build and the earlier phases run
+SERVE_STATES = {}
+
+
+def prefetch_serve_states() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+    from quest_tpu_torch import entry as E
+    pool = ThreadPoolExecutor(1)
+    SERVE_STATES["future"] = pool.submit(E.serve_states, E.SERVE_QUBITS,
+                                         E.SERVE_STATES)
+    pool.shutdown(wait=False)
+
+
 def _serve_apply(torch, rec):
     """The bench's serving workload at saturation and without
     coalescing; returns the apply kernel row's numbers."""
@@ -5179,8 +5244,8 @@ def _serve_apply(torch, rec):
     n, mb = E.SERVE_QUBITS, E.SERVE_MAX_BATCH
     circ = E.serve_circuit(n)
     t0 = time.perf_counter()
-    states = E.serve_states(n, E.SERVE_STATES)
-    rec["states_s"] = time.perf_counter() - t0
+    states = SERVE_STATES.pop("future").result()
+    rec["states_s"] = time.perf_counter() - t0     # the wait for them
     fn = circ.compiled_fused(n, device=CARD)
     out = {}
     for mode, wait in (("saturation", E.SERVE_WAIT_MS), ("no_coalescing", 0)):
@@ -5836,6 +5901,503 @@ def phase_audit(torch):
     return rec
 
 
+MP_RANKS = 2                  # processes of the multiprocess phase
+MP_SHARDS_PER_RANK = 2        # a 4-shard process mesh
+MP_QUBITS = 28                # the flagship (and the Bell pair) over it
+MP_DURABLE = (26, 20)         # qubits, depth: 512 MiB planes, 256 MiB a rank
+MP_BELL_SEEDS = (0, 1)
+MP_STEP_REPS = 3
+MP_TIMEOUT_S = 120.0          # a rank's bound on its group and each collective
+MP_WAIT_S = 240.0             # the parent's bound on the rank processes
+
+
+def phase_multiprocess(torch):
+    """Two rank processes on the one card over a gloo process mesh (phase
+    46): the parent builds both libraries under the build lock, writes the
+    ranks' configuration, exec-spawns them and gates what they report.
+    Returns the phase record; rec["k1"] is the kernels line's row."""
+    from quest_tpu_torch import native
+    from quest_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build()
+    native.build()
+    _free(torch)
+    root = tempfile.mkdtemp(prefix="quest_mp_")
+    cfg = {"card": CARD, "n": MP_QUBITS, "durable": list(MP_DURABLE),
+           "seeds": list(MP_BELL_SEEDS), "reps": MP_STEP_REPS,
+           "timeout": MP_TIMEOUT_S}
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    # one BLAS / OpenMP thread a rank: the ranks' host planning would
+    # otherwise spin a thread pool each on the shared cores
+    env = dict(os.environ, WORLD_SIZE=str(MP_RANKS), OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env.pop("QUEST_COMM_TOPOLOGY", None)        # the ranks derive it
+    me = os.path.abspath(__file__)
+    procs, logs = [], []
+    try:
+        for r in range(MP_RANKS):
+            log = open(os.path.join(root, f"rank-{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, me, "--mp-rank", str(r), "--mp-dir", root],
+                env=dict(env, RANK=str(r)), stdout=log,
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MP_WAIT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    try:
+        ranks, tails = [], []
+        for r, p in enumerate(procs):
+            with open(os.path.join(root, f"rank-{r}.log")) as f:
+                tails.append(f.read()[-3000:])
+            path = os.path.join(root, f"rank-{r}.json")
+            if p.returncode != 0 or not os.path.exists(path):
+                raise AssertionError(
+                    f"multiprocess: rank {r} exited {p.returncode}:\n"
+                    + "\n".join(f"-- rank {q}:\n{t}"
+                                for q, t in enumerate(tails)))
+            with open(path) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0, r1 = ranks
+    if r0["bell"]["outcomes"] != r1["bell"]["outcomes"]:
+        raise AssertionError(f"multiprocess bell: outcomes differ "
+                             f"{r0['bell']} / {r1['bell']}")
+    for key in ("strategy", "topology", "issued", "launches_per_rank"):
+        if r0["flagship"][key] != r1["flagship"][key]:
+            raise AssertionError(f"multiprocess flagship {key}: "
+                                 f"{r0['flagship'][key]} / "
+                                 f"{r1['flagship'][key]}")
+    b0, b1 = r0["flagship"]["banded"], r1["flagship"]["banded"]
+    if (b0["issued"], b0["strategy"]) != (b1["issued"], b1["strategy"]):
+        raise AssertionError(f"multiprocess banded: ranks differ {b0} / {b1}")
+    rec = {"phase": "multiprocess", "ranks": MP_RANKS,
+           "shards": MP_RANKS * MP_SHARDS_PER_RANK, "n": MP_QUBITS,
+           "durable_n": MP_DURABLE[0], "durable_depth": MP_DURABLE[1],
+           "flagship": [r["flagship"] for r in ranks],
+           "bell": r0["bell"], "durable": [r["durable"] for r in ranks],
+           "join_s": [r["join_s"] for r in ranks],
+           "rank_seconds": [r["seconds"] for r in ranks],
+           "k1": r0["k1"], "seconds": time.perf_counter() - t0}
+    emit_card(rec)
+    return rec
+
+
+def _mp_ms(torch, fn, reps: int) -> float:
+    """Median ms of fn over reps: CUDA events on the card, the host's
+    clock on the CPU rehearsal."""
+    if CARD == "cuda":
+        return time_ms(torch, fn, reps)
+    return statistics.median(_wall(torch, fn)[0] for _ in range(reps))
+
+
+def _mp_fresh(torch, mesh, n):
+    """|0...0> over the process mesh: this rank's shards only."""
+    from quest_tpu_torch.parallel.mesh import ShardedAmps
+    local_n = n - mesh.global_qubits
+    shards = [None] * mesh.size
+    for d in mesh.local_ids:
+        shards[d] = torch.zeros((2, 1 << local_n), device=mesh.devices[d])
+    if shards[0] is not None:
+        shards[0][0, 0] = 1.0
+    return ShardedAmps(shards, mesh, n)
+
+
+def _mp_flagship(torch, mesh, cfg, dev, rank) -> dict:
+    """(a): the flagship over the process mesh, its gates and timings."""
+    from quest_tpu_torch.entry import entry, flagship_circuit
+    from quest_tpu_torch.ops import segment as SEG
+    from quest_tpu_torch.parallel import comm as CM
+    from quest_tpu_torch.parallel import introspect as I
+    from quest_tpu_torch.parallel import sharded as SH
+    from quest_tpu_torch.parallel.mesh import ShardedAmps, make_amp_mesh
+    n, reps = cfg["n"], cfg["reps"]
+    circ = flagship_circuit(n)
+    topo = CM.topology(mesh.size, mesh)      # QUEST_COMM_TOPOLOGY unset
+    if not (topo.hierarchical and topo.hosts == mesh.world):
+        raise AssertionError(f"multiprocess: topology {topo} not derived "
+                             f"from the group")
+    t0 = time.perf_counter()
+    fn = circ.compiled_sharded_fused(n, False, mesh)
+    build_s = time.perf_counter() - t0
+    x = _mp_fresh(torch, mesh, n)
+    mesh.recorder.reset()
+    SEG.segment_sweep.launches = 0
+    SEG.segment_sweep.driver_launches = {}
+    fn(x)
+    _sync(torch)
+    launches = SEG.segment_sweep.launches
+    drivers = dict(SEG.segment_sweep.driver_launches)
+    # (the counter counts card launches: a CPU rehearsal reads 0)
+    if CARD == "cuda" and (launches != fn.launches_per_call or not launches
+                           or drivers != {"decoupled": launches}):
+        raise AssertionError(f"multiprocess: {launches} K1 launches "
+                             f"({drivers}), {fn.launches_per_call} planned")
+    issued = mesh.recorder.stats(mesh.size)
+    pred = I.sharded_schedule(circ.ops, n, False, mesh, engine="fused")
+    keys = ("collective_permutes", "all_to_alls", "collective_exchanges",
+            "ici_bytes_per_device")
+    if not pred["comm_matches_hlo"] or any(issued[k] != pred[k]
+                                           for k in keys):
+        raise AssertionError(f"multiprocess: issued {issued}, predicted "
+                             f"{pred}")
+    # the one-process 4-shard mesh on the same card, priced alike: one
+    # host a process, set by the knob (a one-process mesh derives flat)
+    def alike():
+        return env_knob("QUEST_COMM_TOPOLOGY", f"hosts={mesh.world}")
+    one = make_amp_mesh(mesh.size, devices=[dev] * mesh.size)
+    local_n = n - mesh.global_qubits
+    m = 1 << local_n
+
+    def one_fresh():
+        shards = [torch.zeros((2, m), device=dev) for _ in range(mesh.size)]
+        shards[0][0, 0] = 1.0
+        return ShardedAmps(shards, one, n)
+    with alike():
+        fone = circ.compiled_sharded_fused(n, False, one)
+        y = one_fresh()
+        fone(y)
+        _sync(torch)
+    if fone.strategy != fn.strategy or not all(
+            torch.equal(x.shards[d], y.shards[d]) for d in mesh.local_ids):
+        raise AssertionError("multiprocess: shards differ from the "
+                             "one-process mesh's")
+    ref_fn, (ref,) = entry(device=dev, num_qubits=n)
+    ref_fn(ref)
+    ref = ref.reshape(2, -1)
+    scale = ref.abs().max().item()
+    err = max(plane_err(x.shards[d], ref[:, d * m:(d + 1) * m])
+              for d in mesh.local_ids)
+    norm = float(mesh.reduce([None if s is None else s.double().pow(2).sum()
+                              for s in x.shards]))
+    if not (err <= PATH_TOL * scale and abs(1.0 - norm) <= PATH_TOL):
+        raise AssertionError(f"multiprocess: max|diff| {err} vs K1 (max|amp|"
+                             f" {scale}), norm {norm}")
+    # the one-process mesh's step, rank 0 alone on the card
+    mesh.barrier()
+    one_ms = None
+    if rank == 0:
+        with alike():
+            one_ms = statistics.median(_wall(torch, lambda: fone(y))[0]
+                                       for _ in range(reps))
+    mesh.barrier()
+    del y, fone
+    _free(torch)
+    banded = _mp_banded(torch, mesh, circ, n, one, one_fresh, alike, ref,
+                        scale)
+    del ref_fn, ref, one
+    _free(torch)
+    # the process mesh's warm step, both ranks at once
+    mesh.barrier()
+    step_ms = []
+    for _ in range(reps):
+        step_ms.append(_wall(torch, lambda: fn(x))[0])
+    # one cross-process all-to-all: the relabel of every global bit
+    xs = [None if d is None else torch.zeros((1, 2, m), device=d)
+          for d in mesh.devices]
+    splits = []
+    for _ in range(3):
+        mesh.barrier()
+        w0 = dict(mesh.wire)
+        ms, _ = _wall(torch, lambda: SH._relabel_op(
+            xs, mesh, local_n, tuple(range(mesh.global_qubits))))
+        w1 = mesh.wire
+        nb = w1["bytes_out"] - w0["bytes_out"]
+        splits.append({
+            "ms": ms, "bytes_out": nb, "bytes_in": w1["bytes_in"]
+            - w0["bytes_in"],
+            "copy_out_ms": (w1["copy_out_s"] - w0["copy_out_s"]) * 1e3,
+            "gloo_ms": (w1["gloo_s"] - w0["gloo_s"]) * 1e3,
+            "copy_in_ms": (w1["copy_in_s"] - w0["copy_in_s"]) * 1e3,
+            "gb_per_s": nb / ms / 1e6})
+    mesh.recorder.reset()
+    del xs
+    _free(torch)
+    a2a = sorted(splits, key=lambda s: s["ms"])[1]
+    # K1 on rank 0's shards alone (rank 1 waiting): the kernels line
+    mesh.barrier()
+    k1 = _mp_k1(torch, fn, x, mesh) if rank == 0 else None
+    mesh.barrier()
+    return {"flagship": {
+        "launches_per_rank": launches, "strategy": fn.strategy,
+        "topology": topo.describe(mesh.size), "issued": issued,
+        "predicted_bytes": pred["comm_bytes"],
+        "predicted_dci_bytes": pred["comm_dci_bytes"],
+        "max_abs_err": err, "rel_err": err / scale, "norm": norm,
+        "bit_equal_one_process": True, "build_s": build_s,
+        "step_ms": statistics.median(step_ms), "step_ms_runs": step_ms,
+        "one_process_step_ms": one_ms, "all_to_all": a2a,
+        "all_to_all_runs": splits, "banded": banded}, "k1": k1}
+
+
+def _mp_banded(torch, mesh, circ, n, one, one_fresh, alike, ref,
+               scale) -> dict:
+    """The flagship once through compiled_sharded_banded on the process
+    mesh: bit for bit the one-process mesh's banded run (priced alike),
+    within 1e-4 x max|amp| of the K1 step `ref`, issued exchanges equal
+    to the dry walk's prediction; its ms beside the one-process run's
+    (both ranks run theirs at once on the card)."""
+    from quest_tpu_torch.parallel import introspect as I
+    m = 1 << (n - mesh.global_qubits)
+    fb = circ.compiled_sharded_banded(n, False, mesh)
+    x = _mp_fresh(torch, mesh, n)
+    mesh.recorder.reset()
+    mesh.barrier()
+    ms, _ = _wall(torch, lambda: fb(x))
+    issued = mesh.recorder.stats(mesh.size)
+    pred = I.sharded_schedule(circ.ops, n, False, mesh, engine="banded")
+    keys = ("collective_permutes", "all_to_alls", "collective_exchanges",
+            "ici_bytes_per_device")
+    if not pred["comm_matches_hlo"] or any(issued[k] != pred[k]
+                                           for k in keys):
+        raise AssertionError(f"multiprocess banded: issued {issued}, "
+                             f"predicted {pred}")
+    err = max(plane_err(x.shards[d], ref[:, d * m:(d + 1) * m])
+              for d in mesh.local_ids)
+    if not err <= PATH_TOL * scale:
+        raise AssertionError(f"multiprocess banded: max|diff| {err} vs K1 "
+                             f"(max|amp| {scale})")
+    with alike():
+        fone = circ.compiled_sharded_banded(n, False, one)
+        y = one_fresh()
+        one_ms, _ = _wall(torch, lambda: fone(y))
+    if fone.strategy != fb.strategy or not all(
+            torch.equal(x.shards[d], y.shards[d]) for d in mesh.local_ids):
+        raise AssertionError("multiprocess banded: shards differ from the "
+                             "one-process mesh's")
+    rec = {"ms": ms, "one_process_ms_concurrent": one_ms,
+           "strategy": fb.strategy,
+           "issued": issued, "max_abs_err": err,
+           "bit_equal_one_process": True}
+    del x, y, fb, fone
+    _free(torch)
+    return rec
+
+
+def _mp_k1(torch, fn, x, mesh) -> dict:
+    """K1 alone on this rank's shards: every kernel part of the program
+    on each local shard, against the same parts through the plain
+    version on the same input (max|diff| within 1e-4 x max|amp|), ms
+    beside plain ms and the bound of those launches."""
+    from quest_tpu_torch.ops.segment import (segment_sweep,
+                                             segment_sweep_reference)
+    ids = [i for i, p in enumerate(fn.parts) if p[0] == "segment"]
+    mine = list(mesh.local_ids)
+    segs = {(i, d): fn.segments[(i, str(mesh.devices[d]))]
+            for i in ids for d in mine}
+
+    def kernel(sh):
+        for i in ids:
+            for d in mine:
+                segment_sweep(sh[d], segs[(i, d)])
+
+    def plain(sh):
+        for i in ids:
+            for d in mine:
+                seg = segs[(i, d)]
+                out = segment_sweep_reference(sh[d], seg.stages,
+                                              seg.operands, fn.local_n,
+                                              tier=seg.tier)
+                sh[d].copy_(out.reshape(sh[d].shape))
+    a = {d: x.shards[d].clone() for d in mine}
+    b = {d: x.shards[d].clone() for d in mine}
+    kernel(a)
+    plain(b)
+    _sync(torch)
+    err = max(plane_err(a[d], b[d]) for d in mine)
+    scale = max(b[d].abs().max().item() for d in mine)
+    if not err <= PATH_TOL * scale:
+        raise AssertionError(f"multiprocess K1: max|diff| {err} vs the "
+                             f"plain version (max|amp| {scale})")
+    ms = _mp_ms(torch, lambda: kernel(a), MP_STEP_REPS)
+    plain_ms = _mp_ms(torch, lambda: plain(b), 1)
+    bound_ms_, bound_by = bound_of(list(segs.values()))
+    return {"launches_timed": len(segs), "max_abs_err": err,
+            "rel_err": err / scale, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms_, "bound_by": bound_by}
+
+
+def _mp_bell(torch, mesh, cfg) -> dict:
+    """(b): the reference worker's Bell pair with feedback
+    (tests/_multihost_worker.py:85-103) over the process mesh."""
+    from quest_tpu_torch.circuit import Circuit
+    n = cfg["n"]
+    dc = Circuit(n).h(0).cnot(0, n - 1).measure(n - 1).x_if(0, (0, 1))
+    dc.measure(0)
+    fn = dc.compiled_sharded_measured(n, False, mesh)
+    outs, ms = [], []
+    for seed in cfg["seeds"]:
+        x = _mp_fresh(torch, mesh, n)
+        t, (_, oc) = _wall(torch, lambda: fn(
+            x, torch.Generator().manual_seed(seed)))
+        ms.append(t)
+        outs.append(oc.tolist())
+        del x
+    if any(o[1] != 0 for o in outs):
+        raise AssertionError(f"multiprocess bell: outcomes {outs}")
+    seen = mesh.host_all_gather(torch.tensor(outs, dtype=torch.int64))
+    if not all(torch.equal(s, seen[0]) for s in seen):
+        raise AssertionError(f"multiprocess bell: ranks read {seen}")
+    _free(torch)
+    return {"outcomes": outs, "ms": ms}
+
+
+def _mp_durable(torch, mesh, cfg, dev, rank, root) -> dict:
+    """(c): gang durable runs over the process mesh: uninterrupted,
+    preempted and resumed, and the mid-save kill of
+    tests/_gang_worker.py scenario 4; then one gang save, hash and load
+    timed."""
+    from quest_tpu_torch import checkpoint as ckpt
+    from quest_tpu_torch.circuit import random_circuit
+    from quest_tpu_torch.ops import segment as SEG
+    from quest_tpu_torch.resilience import FaultPlan, faults
+    from quest_tpu_torch.resilience import durable as D
+    from quest_tpu_torch.state import Qureg
+    n, depth = cfg["durable"]
+    circ = random_circuit(n, depth, seed=7, entangler="cz")
+    steps, _ = D._build_steps(circ, n, False, "sharded", mesh, dev, True)
+    nsteps = len(steps)
+    every = max(1, nsteps // 4)
+
+    def fresh():
+        return Qureg(amps=_mp_fresh(torch, mesh, n), num_qubits=n)
+
+    def run(d, plan=None):
+        SEG.segment_sweep.launches = 0
+        mesh.barrier()
+        if plan is None:
+            ms, out = _wall(torch, lambda: D.run_durable(
+                circ, fresh(), d, every=every, mesh=mesh))
+            return ms, SEG.segment_sweep.launches, out
+        with faults.active(plan):
+            try:
+                D.run_durable(circ, fresh(), d, every=every, mesh=mesh)
+            except faults.InjectedFault:
+                return None, SEG.segment_sweep.launches, None
+        raise AssertionError("multiprocess durable: the fault never fired")
+
+    def same(a, b):
+        return all(torch.equal(a.amps.shards[d], b.amps.shards[d])
+                   for d in mesh.local_ids)
+    rec = {"steps": nsteps, "every": every}
+    dir_a, dir_b, dir_c = (os.path.join(root, f"durable-{k}")
+                           for k in "abc")
+    rec["uninterrupted_ms"], rec["k1_launches"], out_a = run(dir_a)
+    if ckpt.step_dirs(dir_a):
+        raise AssertionError("multiprocess durable: the chain survived")
+    run(dir_b, FaultPlan().inject("durable.preempt", after_n=2 * every + 1,
+                                  times=1))
+    mesh.barrier()
+    rec["chain_at_preempt"] = [s for s, _ in ckpt.step_dirs(dir_b)]
+    rec["resumed_ms"], rec["k1_launches_resumed"], out_b = run(dir_b)
+    if not rec["chain_at_preempt"] or not same(out_a, out_b):
+        raise AssertionError(f"multiprocess durable resume: {rec}")
+    del out_b
+    plan = FaultPlan()
+    if rank == 1:
+        plan.inject("checkpoint.save", after_n=1, times=1)
+    else:
+        plan.inject("durable.preempt", after_n=2 * every, times=1)
+    run(dir_c, plan)
+    mesh.barrier()
+    tmp = ckpt.step_path(dir_c, 2 * every) + ".tmp-gang"
+    rec["chain_after_kill"] = [s for s, _ in ckpt.step_dirs(dir_c)]
+    stamps = sorted(f for f in os.listdir(tmp) if f.startswith("prepared"))
+    if rec["chain_after_kill"] != [every] or "prepared-1" in stamps:
+        raise AssertionError(f"multiprocess mid-save kill committed: "
+                             f"{rec['chain_after_kill']}, {stamps}")
+    rec["midsave_ms"], _, out_c = run(dir_c)
+    if not same(out_a, out_c) or ckpt.step_dirs(dir_c) or os.path.isdir(tmp):
+        raise AssertionError("multiprocess mid-save resume diverged")
+    rec["bit_identical"] = True
+    del out_c
+    # one gang save, hash and load of the final state
+    meta, arrays = ckpt._gang_shard_meta(out_a, mesh.rank, mesh.world, None)
+    t0 = time.perf_counter()
+    ckpt._plane_digests(arrays)
+    rec["hash_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["slice_bytes"] = int(arrays["planes"].nbytes)
+    del arrays
+    probe = os.path.join(root, "durable-probe")
+    mesh.barrier()
+    t0 = time.perf_counter()
+    ckpt.save_step_gang(probe, 1, qureg=out_a,
+                        extra={"kind": "state", "step": 1})
+    rec["save_ms"] = (time.perf_counter() - t0) * 1e3
+    mesh.barrier()
+    t0 = time.perf_counter()
+    ckpt.load_step_gang(ckpt.step_path(probe, 1))
+    rec["load_ms"] = (time.perf_counter() - t0) * 1e3
+    mesh.barrier()
+    del out_a
+    _free(torch)
+    return rec
+
+
+def mp_rank(torch, rank: int, root: str) -> int:
+    """One rank of the multiprocess phase: its own CUDA context on cuda:0
+    (or the CPU of a rehearsal), joined to the group through a FileStore
+    under `root`; it builds nothing (the parent built both libraries).
+    Writes rank-<r>.json under root; any failure exits non-zero (the
+    peer's next collective then fails too)."""
+    global CARD
+    import traceback
+    t_start = time.perf_counter()
+    with open(os.path.join(root, "config.json")) as f:
+        cfg = json.load(f)
+    CARD = cfg["card"]
+    if CARD == "cuda" and not torch.cuda.is_available():
+        print(f"rank {rank}: no CUDA device", flush=True)
+        return 2
+    from quest_tpu_torch import native
+    from quest_tpu_torch.env import QuESTEnv
+    from quest_tpu_torch.ops import _build
+    _build.BUILD_ALLOWED = False
+    native.BUILD_ALLOWED = False
+    if CARD == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    else:
+        dev = torch.device("cpu")
+    try:
+        t0 = time.perf_counter()
+        env = QuESTEnv([dev] * MP_SHARDS_PER_RANK, True,
+                       init_method="file://" + os.path.join(root, "store"),
+                       timeout=cfg["timeout"])
+        mesh = env.mesh
+        rec = {"rank": rank, "join_s": time.perf_counter() - t0}
+        if env.rank != rank or mesh.size != MP_RANKS * MP_SHARDS_PER_RANK:
+            raise AssertionError(f"rank {rank}: joined as {env.rank}, mesh "
+                                 f"of {mesh.size}")
+        rec.update(_mp_flagship(torch, mesh, cfg, dev, rank))
+        print(f"rank {rank}: flagship ok", flush=True)
+        rec["bell"] = _mp_bell(torch, mesh, cfg)
+        print(f"rank {rank}: bell ok", flush=True)
+        rec["durable"] = _mp_durable(torch, mesh, cfg, dev, rank, root)
+        print(f"rank {rank}: durable ok", flush=True)
+        rec["seconds"] = time.perf_counter() - t_start
+        with open(os.path.join(root, f"rank-{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+    sys.stdout.flush()
+    os._exit(0)
+
+
 def ham_profile(torch):
     """torch.profiler tables (top kernels by device time) of the
     Hamiltonian layers at 30 qubits: the grouped expectation of TFIM-30
@@ -6086,7 +6648,7 @@ def phase_drivers(torch):
     K3 and run from the same input: planes (and draws) bit-identical
     across drivers and across K1's runs; every launch of a run on its
     driver (counts set to 0 before the first run, read after); device ms
-    of each run and the median per configuration (5 more runs where one
+    of each run and the median per configuration (3 more runs where one
     takes under half a second). The flagship's plain path once per tier,
     for each driver-tier instantiation's error and plain time."""
     from quest_tpu_torch.ops import segment as S
@@ -6119,7 +6681,8 @@ def phase_drivers(torch):
                 del out, x
             if ms[0] < 500.0:
                 x = fresh()
-                ms += [_timed(torch, lambda: call(fn, x))[1] for _ in range(5)]
+                ms += [_timed(torch, lambda: call(fn, x))[1]
+                       for _ in range(3)]
                 del x
             inst[(driver, tier)] = inst.get((driver, tier), 0) + planned
             per_cfg[cfg] = {"launches": planned, "ms": ms,
@@ -6256,7 +6819,7 @@ def phase_dma_floor(torch):
     scb = mat_op(rng, "scb", 128, bit=7)
     drivers = {}
     for cfg, (driver, nbuf) in DRIVER_CONFIGS.items():
-        rep = profiling.sweep_dma_report(n=n, reps=5, driver=driver,
+        rep = profiling.sweep_dma_report(n=n, reps=3, driver=driver,
                                          nbuf=nbuf, device="cuda")
         single = {}
         for name, (st, arr) in cases:
@@ -6342,13 +6905,20 @@ def phase_sanitize(torch):
     subprocess each. Where the case reached the device under the tool,
     memcheck must report no error and the case must finish; where the
     tool is missing, times out or cannot bring the device up (the case
-    never printed SANITIZE_UP), its message is recorded instead."""
+    never printed SANITIZE_UP), its message is recorded instead, and
+    racecheck is not tried where memcheck could not reach the device."""
     import shutil
     tool = (shutil.which("compute-sanitizer")
             or "/usr/local/cuda/bin/compute-sanitizer")
     here = os.path.dirname(os.path.abspath(__file__))
     rec = {"phase": "sanitize", "n": SANITIZE_QUBITS}
     for check in ("memcheck", "racecheck"):
+        if check == "racecheck" and not rec["memcheck"].get("ran"):
+            # the tool could not bring the card up under memcheck: it
+            # cannot under racecheck either
+            rec[check] = {"ran": False, "message": "not tried: memcheck "
+                          "did not reach the device"}
+            continue
         cmd = [tool, "--tool", check, sys.executable,
                os.path.abspath(__file__), "--sanitize-case"]
         try:
@@ -6412,6 +6982,10 @@ def main(argv=None) -> int:
     ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--sanitize-case", action="store_true",
                     help=argparse.SUPPRESS)
+    # the multiprocess phase runs its ranks through these
+    ap.add_argument("--mp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mp-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--ham-profile", action="store_true",
                     help="build the kernel and print torch.profiler "
                     "tables of the Hamiltonian layers at 30 qubits "
@@ -6424,6 +6998,8 @@ def main(argv=None) -> int:
                     "earlier tree's package beside this script")
     args = ap.parse_args(argv)
     import torch
+    if args.mp_rank is not None:
+        return mp_rank(torch, args.mp_rank, args.mp_dir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -6466,20 +7042,22 @@ def main(argv=None) -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
-    phase_build()
+    if want("serve"):
+        prefetch_serve_states()
+    run_phase("build", phase_build)
     if want("probe"):
-        phase_probe(torch)
+        run_phase("probe", phase_probe, torch)
     if want("stages"):
-        phase_stages(torch)
+        run_phase("stages", phase_stages, torch)
     if want("diag_layer"):
-        phase_diag_layer(torch)
+        run_phase("diag_layer", phase_diag_layer, torch)
     if want("big_batch"):
-        phase_big_batch(torch)
+        run_phase("big_batch", phase_big_batch, torch)
     if want("high_target"):
-        phase_high_target(torch)
+        run_phase("high_target", phase_high_target, torch)
     kernels = []
     if want("drivers"):
-        drv_records, drv_launches = phase_drivers(torch)
+        drv_records, drv_launches = run_phase("drivers", phase_drivers, torch)
         flag = {r["tier"]: r for r in drv_records if r["workload"] == "flagship"}
         timed = {"decoupled": "K1", "inplace": "K2/3", "grid": "K3"}
         for (driver, tier), launches in sorted(drv_launches.items()):
@@ -6494,15 +7072,15 @@ def main(argv=None) -> int:
                 "plain_ms": fr["plain_ms"], "bound_ms": fr["bound_ms"],
                 "bound_by": fr["bound_by"], "library_ms": None})
     if want("dma_floor"):
-        phase_dma_floor(torch)
+        run_phase("dma_floor", phase_dma_floor, torch)
     if want("sanitize"):
-        phase_sanitize(torch)
+        run_phase("sanitize", phase_sanitize, torch)
     # launches per stage kind on each path, read around that path's run:
     # the statevector kinds from the flagship step, Kraus pairs from the
     # density step, diagonals from the Clifford+T density step
     path_launches = {}
     if want("flagship"):
-        fl = phase_flagship(torch)
+        fl = run_phase("flagship", phase_flagship, torch)
         path_launches.update(fl["stage_launches"])
         kernels.append({
             "name": "segment_sweep", "route": "cuda", "source": KERNEL_SOURCE,
@@ -6511,16 +7089,17 @@ def main(argv=None) -> int:
             "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
             "bound_by": fl["bound_by"], "library_ms": None})
     if want("baseline"):
-        phase_baseline(torch)
+        run_phase("baseline", phase_baseline, torch)
     if want("density"):
-        path_launches["pair"] = phase_density(torch)["stage_launches"]["pair"]
+        dens = run_phase("density", phase_density, torch)
+        path_launches["pair"] = dens["stage_launches"]["pair"]
     if want("density_bench"):
-        phase_density_bench(torch)
+        run_phase("density_bench", phase_density_bench, torch)
     if want("clifford_t_density"):
-        ct = phase_clifford_t_density(torch)
+        ct = run_phase("clifford_t_density", phase_clifford_t_density, torch)
         path_launches["diagvec"] = ct["stage_launches"]["diagvec"]
     if want("batched"):
-        bt = phase_batched(torch)
+        bt = run_phase("batched", phase_batched, torch)
         kernels.append({
             "name": "segment_sweep[batched]", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES["segment_sweep"],
@@ -6529,25 +7108,27 @@ def main(argv=None) -> int:
             "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
             "library_ms": None})
     if want("trajectory_physics"):
-        phase_trajectory_physics(torch)
+        run_phase("trajectory_physics", phase_trajectory_physics, torch)
     if want("trajectories"):
-        tr = phase_trajectories(torch)
+        tr = run_phase("trajectories", phase_trajectories, torch)
         path_launches["batchsel"] = tr["stage_launches"]["batchsel"]
     if want("precision_stages"):
-        phase_precision_stages(torch)
+        run_phase("precision_stages", phase_precision_stages, torch)
     tier_plain = None
     if want("precision_flagship"):
         tier_plain = {}
-        for tier, rec in phase_precision_flagship(torch, fl).items():
+        for tier, rec in run_phase("precision_flagship",
+                                   phase_precision_flagship, torch,
+                                   fl).items():
             path_launches.update(rec["stage_launches"])
             tier_plain[tier] = (rec["plain_rel_vs_highest"],
                                 abs(1.0 - rec["plain_norm"]))
     if want("precision_baseline"):
-        phase_precision_baseline(torch)
+        run_phase("precision_baseline", phase_precision_baseline, torch)
     if want("precision_density"):
-        phase_precision_density(torch)
+        run_phase("precision_density", phase_precision_density, torch)
     if want("stage_timing"):
-        for rec in phase_stage_timing(torch):
+        for rec in run_phase("stage_timing", phase_stage_timing, torch):
             label = rec["label"]
             if KERNEL_RECORD.get(label, label) != rec["name"]:
                 continue
@@ -6565,63 +7146,65 @@ def main(argv=None) -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     if want("phase_counters"):
-        phase_phase_counters(torch)
+        run_phase("phase_counters", phase_phase_counters, torch)
     if want("pergate"):
-        pergate_out = phase_pergate(torch)[1]
+        pergate_out = run_phase("pergate", phase_pergate, torch)[1]
     if want("banded"):
-        phase_banded(torch, pergate_out, tier_plain)
+        run_phase("banded", phase_banded, torch, pergate_out, tier_plain)
     if want("pergate"):
         del pergate_out
         torch.cuda.empty_cache()
     if want("f64"):
-        phase_f64(torch)
+        run_phase("f64", phase_f64, torch)
     if want("wide_gates"):
-        phase_wide_gates(torch)
+        run_phase("wide_gates", phase_wide_gates, torch)
     if want("small_registers"):
-        phase_small_registers(torch)
+        run_phase("small_registers", phase_small_registers, torch)
     if want("batched_banded"):
-        phase_batched_banded(torch)
+        run_phase("batched_banded", phase_batched_banded, torch)
     if want("trajectories_banded"):
-        phase_trajectories_banded(torch)
+        run_phase("trajectories_banded", phase_trajectories_banded, torch)
     if want("program_cache"):
-        phase_program_cache(torch)
+        run_phase("program_cache", phase_program_cache, torch)
     if want("measurement"):
-        phase_measurement(torch)
+        run_phase("measurement", phase_measurement, torch)
     if want("xeb"):
-        phase_xeb(torch)
+        run_phase("xeb", phase_xeb, torch)
     if want("dynamic"):
-        phase_dynamic(torch)
+        run_phase("dynamic", phase_dynamic, torch)
     if want("calculations"):
-        phase_calculations(torch)
+        run_phase("calculations", phase_calculations, torch)
     if want("eager"):
-        phase_eager(torch)
+        run_phase("eager", phase_eager, torch)
     if want("expec"):
-        phase_expec(torch)
+        run_phase("expec", phase_expec, torch)
     if want("evolution"):
-        phase_evolution(torch)
+        run_phase("evolution", phase_evolution, torch)
     if want("variational"):
-        phase_variational(torch)
+        run_phase("variational", phase_variational, torch)
     if want("adjoint"):
-        phase_adjoint(torch)
+        one_grad = run_phase("adjoint", phase_adjoint, torch)[1]
     if want("frontends"):
-        phase_frontends(torch)
+        run_phase("frontends", phase_frontends, torch)
     if want("api"):
-        phase_api(torch)
+        run_phase("api", phase_api, torch)
     if want("scan"):
-        phase_scan(torch)
+        run_phase("scan", phase_scan, torch)
     if want("sharded"):
-        phase_sharded(torch)
+        run_phase("sharded", phase_sharded, torch)
     if want("sharded_batched"):
-        phase_sharded_batched(torch)
+        run_phase("sharded_batched", phase_sharded_batched, torch)
     if want("sharded_measured"):
-        phase_sharded_measured(torch)
+        run_phase("sharded_measured", phase_sharded_measured, torch)
     if want("sharded_consumers"):
-        phase_sharded_consumers(torch)
+        run_phase("sharded_consumers", phase_sharded_consumers, torch,
+                  one_grad)
+        del one_grad
     if want("durable"):
-        phase_durable(torch)
+        run_phase("durable", phase_durable, torch)
     served = None
     if want("serve"):
-        apply_row, traj_row, served = phase_serve(torch)
+        apply_row, traj_row, served = run_phase("serve", phase_serve, torch)
         for label, row in (("serve", apply_row), ("serve_traj", traj_row)):
             kernels.append({
                 "name": f"segment_sweep[{label}]", "route": "cuda",
@@ -6633,12 +7216,24 @@ def main(argv=None) -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None})
     if want("fleet"):
-        phase_fleet(torch, served)
+        run_phase("fleet", phase_fleet, torch, served)
         del served
     if want("profiling"):
-        phase_profiling(torch)
+        run_phase("profiling", phase_profiling, torch)
     if want("audit"):
-        phase_audit(torch)
+        run_phase("audit", phase_audit, torch)
+    if want("multiprocess"):
+        mp = run_phase("multiprocess", phase_multiprocess, torch)
+        kernels.append({
+            "name": "segment_sweep[multiprocess]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES["segment_sweep"],
+            "launches": mp["flagship"][0]["launches_per_rank"],
+            "max_abs_err": mp["k1"]["max_abs_err"], "ms": mp["k1"]["ms"],
+            "plain_ms": mp["k1"]["plain_ms"],
+            "bound_ms": mp["k1"]["bound_ms"],
+            "bound_by": mp["k1"]["bound_by"], "library_ms": None})
+    emit({"phase": "seconds", "phases": dict(PHASE_SECONDS),
+          "total": time.perf_counter() - T_START})
     if kernels:
         emit({"kernels": kernels})
     print(smi, flush=True)

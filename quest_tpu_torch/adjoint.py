@@ -955,6 +955,8 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
 
     sharded = mesh is not None and mesh.size > 1
     if sharded:
+        from quest_tpu_torch.parallel.mesh import refuse_process_mesh
+        refuse_process_mesh(mesh, "value_and_grad(mesh=)")
         if engine == "taped":
             raise AdjointError(
                 "Invalid adjoint target: the taped engine does not run on "

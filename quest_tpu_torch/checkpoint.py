@@ -30,12 +30,17 @@ written by either package loads in the other:
     on the register); only the hashing and the file writes run on a
     background thread, so the register may keep evolving in place.
 
-The gang checkpoints of a multi-process mesh (save_step_gang,
-load_step_gang) wait for multi-process meshes (ROADMAP A10c); a gang
-step is recognised (`is_gang_step`) and refused typed.
+  * `save_step_gang` / `load_step_gang`: the reference's two-phase gang
+    checkpoint of a register sharded over a process mesh
+    (parallel.make_process_mesh): `shard-<p>.npz`, `meta-<p>.json` and
+    `prepared-<p>` per process in a shared tmp dir, committed by one
+    rename when the last stamp lands; `load_step_elastic` reassembles a
+    gang step like any other.
 
 Fault sites: `checkpoint.save` fires at the commit point (temp files
-written, rename pending), `checkpoint.load` at the top of the read path.
+written, rename pending; in a gang save after the payload and before the
+stamp, with `process=p`), `checkpoint.load` at the top of the read path
+(and `checkpoint.load_gang` beside it on a gang read).
 """
 
 from __future__ import annotations
@@ -354,6 +359,11 @@ def _host_planes(amps) -> np.ndarray:
         return amps.detach().reshape(2, -1).cpu().numpy()
     if isinstance(amps, np.ndarray):
         return amps.reshape(2, -1)
+    if amps.mesh.world > 1:
+        raise CheckpointError(
+            "Invalid checkpoint: a register sharded over a process mesh is "
+            "checkpointed by every process at once with save_step_gang "
+            "(each writes its own slice)")
     views = amps.views()
     m = views[0].shape[1]
     out = np.empty((2, m * len(views)), dtype=precision.numpy_dtype(
@@ -526,49 +536,276 @@ def is_gang_step(path: str) -> bool:
     return os.path.exists(os.path.join(path, "meta-0.json"))
 
 
-def save_step_gang(*args, **kwargs):
-    """The gang-consistent two-phase checkpoint of a multi-process mesh
-    (ref checkpoint.py:594): waits for multi-process meshes."""
-    raise CheckpointError(
-        "Invalid checkpoint: gang checkpoints (save_step_gang) need a "
-        "multi-process mesh, which is not ported yet (ROADMAP A10c)")
+# ---------------------------------------------------------------------------
+# gang checkpoints: one step across the processes of a process mesh
+# ---------------------------------------------------------------------------
+#
+# Two phases, no collective (ref checkpoint.py:553-818, file for file):
+#   PREPARE  each process atomically writes its contiguous slice
+#            (shard-<p>.npz) and its own digested meta (meta-<p>.json,
+#            carrying the cursor) into the shared tmp dir
+#            ckpt-<step>.tmp-gang, then stamps prepared-<p>. The
+#            checkpoint.save fault fires between the payload and the
+#            stamp: a process killed mid-save never stamps.
+#   COMMIT   the process that completes the stamp set renames the tmp
+#            dir to ckpt-<step>: one atomic rename; a race between two
+#            completers is benign (one wins, the other finds the
+#            committed target). A missing stamp means no process ever
+#            commits: all stamp or none do.
+# Validity is a property of the shared directory computed the same way
+# on every process: load_step_gang verifies every shard's digests, so
+# every process resumes the same cut.
 
 
-def load_step_gang(path: str, **kwargs):
-    """Reassembly of a gang checkpoint (ref checkpoint.py:707): waits for
-    multi-process meshes. Its fault site fires first, where the
-    reference's read path fires it (ref :719), so a plan armed on it
-    fails the read as it would there."""
-    faults.check("checkpoint.load_gang", directory=path)
-    raise CheckpointError(
-        f"Invalid checkpoint: {path!r} is a multi-process gang checkpoint; "
-        f"reading one needs multi-process meshes, which are not ported "
-        f"yet (ROADMAP A10c)")
+def _gang_shard_meta(qureg: Qureg, process_index: int, process_count: int,
+                     extra) -> tuple:
+    """(meta, arrays) of this process's contiguous slice of a register
+    sharded over a process mesh (its shards [lo, hi) of the mesh, on
+    the host); the slice bounds ride the meta so a load reassembles
+    without the mesh that wrote it (ref _gang_shard_meta)."""
+    amps = qureg.amps
+    mine = amps.local()
+    ids = [d for d, _ in mine]
+    if ids != list(range(ids[0], ids[0] + len(ids))):
+        raise CheckpointError(
+            f"gang checkpointing requires a contiguous slice a process; "
+            f"this one holds shards {ids}")
+    m = 1 << amps.local_n
+    block = np.concatenate(
+        [s.detach().reshape(2, m).cpu().numpy() for _, s in mine], axis=-1)
+    lo = ids[0] * m
+    meta = dict(_meta(qureg))
+    meta.update({
+        "payload": "gang-shard",
+        "process_index": int(process_index),
+        "process_count": int(process_count),
+        "slice_lo": int(lo),
+        "slice_hi": int(lo + block.shape[-1]),
+    })
+    if extra is not None:
+        meta["extra"] = extra
+    return meta, {"planes": block}
+
+
+def save_step_gang(root: str, step: int, *, qureg: Qureg, extra=None,
+                   keep: int = None):
+    """Gang-consistent versioned checkpoint `root/ckpt-<step>` of a
+    register sharded over a process mesh (ref save_step_gang): every
+    process calls it with the same arguments; each writes only its slice
+    into the shared tmp dir, stamps prepared-<p>, and the process that
+    completes the stamp set commits with one rename. Returns the
+    committed path when this process committed, None otherwise (the
+    commit lands on one process; it is all or nothing either way). A
+    retry of the same step (a resumed run replaying to the same cut)
+    reuses the tmp dir: execution is deterministic from the shared
+    resume point, so a surviving stale slice is bit-identical to its
+    rewrite. A register on one process (or a one-process mesh) takes the
+    plain atomic save_step."""
+    from quest_tpu_torch.parallel.mesh import ShardedAmps
+    amps = qureg.amps
+    if not isinstance(amps, ShardedAmps) or amps.mesh.world == 1:
+        return save_step(root, step, qureg=qureg, extra=extra, keep=keep)
+    p, nproc = amps.mesh.rank, amps.mesh.world
+    path = step_path(root, step)
+    tmp = f"{path}.tmp-gang"
+    meta, arrays = _gang_shard_meta(qureg, p, nproc, extra)
+    meta["plane_digests"] = _plane_digests(arrays)
+    meta["meta_digest"] = _meta_digest(meta)
+    tag = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
+
+    def put(name, write) -> bool:
+        """Publish tmp/<name> atomically (a dotfile sibling, then a
+        rename). A committed target with no tmp beside it means a peer
+        already took this very step; the tmp vanishing mid-write means
+        a peer committed (or finished the run and cleared the chain):
+        this process's part is moot either way."""
+        try:
+            if not os.path.isdir(tmp) and os.path.isdir(path):
+                return False
+            os.makedirs(tmp, exist_ok=True)
+            scratch = os.path.join(tmp, f".{name}-{tag}")
+            write(scratch)
+            os.rename(scratch, os.path.join(tmp, name))
+            return True
+        except FileNotFoundError:
+            return False
+
+    def write_npz(dst):
+        with open(dst, "wb") as f:
+            np.savez(f, **arrays)
+
+    def write_meta(dst):
+        with open(dst, "w") as f:
+            json.dump(meta, f)
+
+    def write_stamp(dst):
+        with open(dst, "w") as f:
+            f.write("ok")
+
+    if not put(f"shard-{p}.npz", write_npz) \
+            or not put(f"meta-{p}.json", write_meta):
+        return None
+    # the mid-save crash point: after the payload, before the stamp
+    if faults.ACTIVE:
+        faults.check("checkpoint.save", directory=path, tmp=tmp, process=p)
+    if not put(f"prepared-{p}", write_stamp):
+        return None
+    committed = None
+    if all(os.path.exists(os.path.join(tmp, f"prepared-{q}"))
+           for q in range(nproc)):
+        for attempt in range(2):
+            try:
+                os.rename(tmp, path)
+                committed = path
+                break
+            except OSError:
+                if not os.path.isdir(tmp):
+                    break                # a peer took the commit
+                if os.path.isdir(path) and attempt == 0:
+                    # a same-step leftover of an earlier chain generation
+                    shutil.rmtree(path, ignore_errors=True)
+                    continue
+                raise
+    if committed:
+        # keep-last-K over committed steps only: a live gang tmp belongs
+        # to every process at once, so no stale sweep here (the durable
+        # executor sweeps at completion, when no save is in flight)
+        if keep is None:
+            from quest_tpu_torch.env import knob_value
+            keep = knob_value("QUEST_CHECKPOINT_KEEP")
+        for _, old in step_dirs(root)[:-max(int(keep), 1)]:
+            shutil.rmtree(old, ignore_errors=True)
+    return committed
+
+
+def load_step_gang(path: str, *, kind_extra: str = None):
+    """(metas, planes) of a gang checkpoint committed by save_step_gang
+    (ref load_step_gang): `metas` the per-process metas (cursors
+    verified equal), `planes` the reassembled (2, 2^n) host array. Every
+    shard's digests verify on every process, so gang validity is a
+    function of the shared directory alone and every process lands on
+    the same cut. Raises CheckpointError on any missing, corrupt or
+    mismatched piece."""
+    if faults.ACTIVE:
+        faults.check("checkpoint.load", directory=path)
+        faults.check("checkpoint.load_gang", directory=path)
+    meta0_path = os.path.join(path, "meta-0.json")
+    if not os.path.exists(meta0_path):
+        raise CheckpointError(
+            f"Invalid checkpoint: {path!r} holds no gang meta (meta-0.json) "
+            f"and is not a gang checkpoint directory")
+    try:
+        with open(meta0_path) as f:
+            meta0 = json.load(f)
+    except (OSError, ValueError) as e:
+        raise CheckpointError(
+            f"Invalid checkpoint: {meta0_path!r} is corrupt or truncated "
+            f"({e})") from e
+    if not isinstance(meta0, dict) \
+            or _meta_digest(meta0) != meta0.get("meta_digest"):
+        raise CheckpointError(
+            f"Invalid checkpoint: {meta0_path!r} fails its meta "
+            f"self-digest (altered after save); refusing to load")
+    nproc = meta0.get("process_count")
+    if not isinstance(nproc, int) or nproc < 1:
+        raise CheckpointError(
+            f"Invalid checkpoint: {meta0_path!r} carries no valid "
+            f"process_count")
+    nq, dens = meta0.get("num_qubits"), meta0.get("is_density")
+    if not isinstance(nq, int) or not isinstance(dens, bool) \
+            or not 0 < nq < 64:
+        raise CheckpointError(
+            f"Invalid checkpoint: {meta0_path!r} carries no valid "
+            f"num_qubits/is_density")
+    total = 1 << (2 * nq if dens else nq)
+    planes, extra0, metas = None, None, []
+    for q in range(nproc):
+        mpath = os.path.join(path, f"meta-{q}.json")
+        spath = os.path.join(path, f"shard-{q}.npz")
+        try:
+            with open(mpath) as f:
+                meta = json.load(f)
+        except (OSError, ValueError) as e:
+            raise CheckpointError(
+                f"Invalid checkpoint: {mpath!r} is missing or corrupt "
+                f"({e})") from e
+        md = meta.get("meta_digest") if isinstance(meta, dict) else None
+        if md is None or _meta_digest(meta) != md:
+            raise CheckpointError(
+                f"Invalid checkpoint: {mpath!r} fails its meta self-digest "
+                f"(cursor altered after save); refusing to load")
+        try:
+            with np.load(spath) as data:
+                block = data["planes"]
+        except Exception as e:
+            raise CheckpointError(
+                f"Invalid checkpoint: shard file {spath!r} is missing, "
+                f"corrupt or truncated ({type(e).__name__}: {e})") from e
+        for name, expect in sorted(meta.get("plane_digests", {}).items()):
+            target = _digest_target(name, {"planes": block})
+            if target is None or _digest(np.asarray(target)) != expect:
+                raise CheckpointError(
+                    f"Invalid checkpoint: plane {name!r} of {spath!r} fails "
+                    f"its integrity digest; refusing to restore")
+        lo, hi = meta.get("slice_lo"), meta.get("slice_hi")
+        if not isinstance(lo, int) or not isinstance(hi, int) \
+                or block.shape[-1] != hi - lo or lo < 0 or hi > total:
+            raise CheckpointError(
+                f"Invalid checkpoint: shard {q} of {path!r} declares slice "
+                f"[{lo}, {hi}) but holds {block.shape[-1]} columns of a "
+                f"{total}-amp register")
+        if planes is None:
+            planes = np.zeros(block.shape[:-1] + (total,), dtype=block.dtype)
+        planes[..., lo:hi] = block
+        ex = meta.get("extra")
+        if q == 0:
+            extra0 = ex
+        elif ex != extra0:
+            raise CheckpointError(
+                f"Invalid checkpoint: gang cursors disagree between process "
+                f"0 and {q} under {path!r} (a torn save); refusing to load")
+        metas.append(meta)
+    if kind_extra is not None:
+        cur = extra0 if isinstance(extra0, dict) else {}
+        if cur.get("kind") != kind_extra:
+            raise CheckpointError(
+                f"Invalid checkpoint: {path!r} carries no {kind_extra!r} "
+                f"durable cursor")
+    return metas, planes
 
 
 def load_step_elastic(path: str, *, mesh=None, perm=None):
     """(cursor, planes) of ONE committed step checkpoint in CANONICAL
-    LOGICAL ORDER, whatever wrote it (ref :826): a plain checkpoint with
-    cursor layout 'canonical' loads as it is; a physical-layout one
-    (older chains) normalizes through its recorded relabel perm; a gang
-    step is refused typed (ROADMAP A10c). The cursor must be a durable
-    state cursor. `mesh` re-enters the planes onto that mesh (a
-    ShardedAmps, each shard copied to its device) after applying `perm`
-    (the target cut's logical -> physical permutation); without it the
-    planes come back as a host numpy array."""
+    LOGICAL ORDER, whatever wrote it (ref :826): a gang checkpoint (any
+    process count) reassembles through load_step_gang, every shard's
+    digests verified, and its cursor's relabel perm normalizes the
+    physical layout; a plain checkpoint with cursor layout 'canonical'
+    loads as it is; a physical-layout one (older chains) normalizes
+    through its recorded perm. The cursor must be a durable state
+    cursor. `mesh` re-enters the planes onto that mesh (a ShardedAmps,
+    each of this process's shards copied to its device) after applying
+    `perm` (the target cut's logical -> physical permutation); without
+    it the planes come back as a host numpy array."""
     from quest_tpu_torch.parallel import relabel as R
     from quest_tpu_torch.parallel.mesh import shard_planes
 
     if is_gang_step(path):
-        load_step_gang(path)
-    meta, arrays = load_arrays(path, require=("planes",))
-    cursor = meta.get("extra")
-    if not isinstance(cursor, dict) or cursor.get("kind") != "state":
+        metas, planes = load_step_gang(path, kind_extra="state")
+        cursor = metas[0].get("extra")
+        layout = "physical"
+    else:
+        meta, arrays = load_arrays(path, require=("planes",))
+        cursor = meta.get("extra")
+        if not isinstance(cursor, dict) or cursor.get("kind") != "state":
+            raise CheckpointError(
+                f"Invalid checkpoint: {path!r} carries no durable state "
+                f"cursor and is not an elastically loadable step")
+        planes = np.asarray(arrays["planes"])
+        layout = cursor.get("layout", "physical")
+    if not isinstance(cursor, dict):
         raise CheckpointError(
-            f"Invalid checkpoint: {path!r} carries no durable state cursor "
-            f"and is not an elastically loadable step")
-    planes = np.asarray(arrays["planes"])
-    if cursor.get("layout", "physical") != "canonical":
+            f"Invalid checkpoint: {path!r} carries no durable cursor")
+    if layout != "canonical":
         src_perm = cursor.get("perm")
         if src_perm is not None:
             if (not isinstance(src_perm, (list, tuple))
@@ -688,6 +925,11 @@ def save_sharded(qureg: Qureg, directory: str,
         raise CheckpointError(
             "Invalid checkpoint: save_sharded takes a sharded register "
             "(parallel.shard_qureg); use checkpoint.save for one tensor")
+    if amps.mesh.world > 1:
+        raise CheckpointError(
+            "Invalid checkpoint: save_sharded writes one process's shards; "
+            "a register sharded over a process mesh checkpoints with "
+            "save_step_gang (every process its own slice)")
     meta = _meta(qureg)
     meta.update({"payload": "sharded", "shards": amps.mesh.size})
     bufs, event = _snapshot(amps)
@@ -712,8 +954,9 @@ def load_sharded(directory: str, mesh=None, env=None, dtype=None,
     """Restore a checkpoint written by save_sharded, every shard file's
     digests and the meta's self-digest verified: onto `mesh` (or `env`'s
     mesh) each shard reads the files that hold its slice, so with the
-    writer's shard count shard d reads shard-<d>.npz alone; without a
-    mesh, one register on `device`."""
+    writer's shard count shard d reads shard-<d>.npz alone (on a process
+    mesh each process reads only its own shards'); without a mesh, one
+    register on `device`."""
     if faults.ACTIVE:
         faults.check("checkpoint.load", directory=directory)
     meta = _read_meta(directory)
@@ -767,14 +1010,15 @@ def load_sharded(directory: str, mesh=None, env=None, dtype=None,
     total = 1 << n
     per = total // D
     m = total // mesh.size
-    shards = []
-    for k, dev in enumerate(mesh.devices):
+    shards = [None] * mesh.size
+    for k in mesh.local_ids:
+        dev = mesh.devices[k]
         lo, hi = k * m, (k + 1) * m
         parts = [shard(d)[:, max(lo, d * per) - d * per:
                           min(hi, (d + 1) * per) - d * per]
                  for d in range(lo // per, (hi - 1) // per + 1)]
         block = np.concatenate(parts, axis=-1).astype(rdt, copy=False)
-        shards.append(torch.from_numpy(np.ascontiguousarray(block)).to(dev))
+        shards[k] = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
         cache.clear()
     q = Qureg(amps=None, num_qubits=meta["num_qubits"],
               is_density=bool(meta["is_density"]))

@@ -262,9 +262,13 @@ _KNOB_LIST = (
              "restores the fixed legacy policies)",
          scope="keyed", layer="planner", malformed="2", flips=("1", "0")),
     # The next three keep the comm records equal to the reference's. On
-    # the single-process mesh they change only the planner's records and
-    # the number of copies an exchange makes: a sliced exchange has no
-    # compute to overlap, and one process is one host (ROADMAP A10c).
+    # a one-process mesh they change only the planner's records and the
+    # number of copies an exchange makes (a sliced exchange has no compute
+    # to overlap; one process is one host). On a process mesh
+    # (parallel.make_process_mesh) a host is a process: an exchange that
+    # crosses processes splits into QUEST_EXCHANGE_SLICES_DCI gloo sends,
+    # and with QUEST_COMM_TOPOLOGY unset the planner prices the mesh with
+    # one host per process.
     Knob("QUEST_EXCHANGE_SLICES", _parse_exchange_slices, 1,
          doc="copies each sharded pair exchange splits into (default: 1; "
              "power of two)",
@@ -279,7 +283,8 @@ _KNOB_LIST = (
              "'hosts=H[,ici=X][,dci=Y]' groups the mesh into H hosts with "
              "per-link cost weights (defaults ici=1, dci=4); 0 forces the "
              "flat single-tier model; unset: the mesh's distinct hosts "
-             "(one process: one host, the flat model)",
+             "(one host per process of a process mesh; one process: the "
+             "flat model)",
          scope="keyed", layer="planner", malformed="hosts=three",
          flips=("0", "hosts=2")),
     # the segment drivers (ref quest_tpu/env.py:431-457); read when a
@@ -580,15 +585,33 @@ class QuESTEnv:
     over it when `sharding_for` says so. One device — a list of one, or
     a bare device or name such as QuESTEnv("cpu") — is a one-device env;
     None is the CUDA card. `mesh=` (an AmpMesh, keyword only) gives the
-    mesh itself. distributed=True (a mesh over several processes) raises
-    until multi-process meshes are ported (ROADMAP A10c)."""
+    mesh itself.
+
+    distributed=True (ref :730-751, jax.distributed) makes a mesh over
+    the processes of a torch.distributed gloo group: it joins the default
+    group, or creates it from the env:// variables RANK, WORLD_SIZE,
+    MASTER_ADDR and MASTER_PORT (or from `init_method`, a URL such as
+    'tcp://host:port' or 'file:///shared/path', with RANK and WORLD_SIZE
+    still read from the environment), within `timeout` seconds (default
+    300, also every collective's bound). Missing variables raise
+    parallel.ProcessGroupError naming them; it never quietly builds a
+    one-process env. `devices` are this process's own (default: the
+    card, 'cuda:0'); num_ranks is the global shard count, rank the
+    process rank."""
 
     def __init__(self, devices=None, distributed: bool = False, *,
-                 mesh=None):
+                 mesh=None, init_method: str = None, timeout: float = None):
         if distributed:
-            raise NotImplementedError(
-                "QuESTEnv(distributed=True): meshes over several "
-                "processes are not ported yet (ROADMAP A10c)")
+            if mesh is not None:
+                raise ValueError("pass distributed=True or mesh=, not both")
+            if isinstance(devices, (str, torch.device)):
+                devices = [devices]
+            from quest_tpu_torch.parallel.mesh import make_process_mesh
+            init_process_group(init_method, timeout)
+            mesh = make_process_mesh(devices)
+            self.mesh = mesh
+            self.device = mesh.local_devices[0]
+            return
         device = None
         if isinstance(devices, (str, torch.device)):
             devices, device = None, devices
@@ -612,7 +635,11 @@ class QuESTEnv:
 
     @property
     def rank(self) -> int:
-        return 0
+        return self.mesh.rank if self.mesh is not None else 0
+
+    @property
+    def num_processes(self) -> int:
+        return self.mesh.world if self.mesh is not None else 1
 
     def sharding_for(self, num_state_qubits: int):
         """The mesh a register of `num_state_qubits` is sharded over, or
@@ -627,8 +654,9 @@ class QuESTEnv:
     def sync(self) -> None:
         """Block until the devices' queued work completes (ref
         syncQuESTEnv)."""
-        devs = self.mesh.devices if self.mesh is not None else (self.device,)
-        for d in devs:
+        devs = (self.mesh.local_devices if self.mesh is not None
+                else (self.device,))
+        for d in set(devs):
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 
@@ -643,8 +671,11 @@ class QuESTEnv:
     def get_environment_string(self, num_state_qubits: int = None) -> str:
         """The reference's label "{n}qubits_{PLATFORM}_{r}ranksx{t}threads"
         (getEnvironmentString, QuEST_cpu.c:1358-1364), the platform CUDA
-        or CPU, one rank and one thread."""
+        or CPU, the mesh's shards as ranks and one thread; a process mesh
+        adds its processes ("..._{r}ranksx1threads_{p}procs")."""
         tag = f"{self.platform()}_{self.num_ranks}ranksx1threads"
+        if self.num_processes > 1:
+            tag += f"_{self.num_processes}procs"
         if num_state_qubits is not None:
             tag = f"{num_state_qubits}qubits_{tag}"
         return tag
@@ -653,16 +684,61 @@ class QuESTEnv:
         s = (f"EXECUTION ENVIRONMENT:\nRunning distributed (MPI) version: "
              f"{'yes' if self.num_ranks > 1 else 'no'}\n"
              f"Number of devices: {self.num_ranks}\n"
+             f"Number of processes: {self.num_processes} (this one is "
+             f"rank {self.rank})\n"
              f"Platform: {self.platform()} ({self.device_name()})")
         print(s)
         return s
 
 
 def create_quest_env(devices=None, distributed: bool = False, *,
-                     mesh=None) -> QuESTEnv:
+                     mesh=None, init_method: str = None,
+                     timeout: float = None) -> QuESTEnv:
     """QuESTEnv(devices, distributed, mesh=) (ref quest_tpu/env.py
     create_quest_env)."""
-    return QuESTEnv(devices, distributed, mesh=mesh)
+    return QuESTEnv(devices, distributed, mesh=mesh,
+                    init_method=init_method, timeout=timeout)
+
+
+_DIST_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_process_group(init_method: str = None, timeout: float = None):
+    """The default torch.distributed group of a process mesh, gloo: the
+    one already initialised, or a new one from `init_method` (RANK and
+    WORLD_SIZE from the environment) or from the env:// variables
+    RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT. A missing variable, or
+    a group that does not form within `timeout` seconds (default 300),
+    raises parallel.ProcessGroupError."""
+    import datetime
+    import torch.distributed as dist
+    from quest_tpu_torch.parallel.mesh import ProcessGroupError
+    if not dist.is_available():
+        raise ProcessGroupError("torch.distributed is not available in "
+                                "this PyTorch build")
+    if dist.is_initialized():
+        return dist.group.WORLD
+    need = _DIST_VARS if init_method is None else _DIST_VARS[:2]
+    missing = [v for v in need if not os.environ.get(v)]
+    if missing:
+        raise ProcessGroupError(
+            f"QuESTEnv(distributed=True) needs the environment variables "
+            f"{', '.join(need)} to join a process group "
+            f"({'init_method=' + repr(init_method) if init_method else 'env://'}); "
+            f"missing: {', '.join(missing)}")
+    try:
+        rank = int(os.environ["RANK"])
+        world = int(os.environ["WORLD_SIZE"])
+        dist.init_process_group(
+            "gloo", init_method=init_method or "env://", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=timeout or 300.0))
+    except (RuntimeError, ValueError) as e:
+        raise ProcessGroupError(
+            f"the gloo process group did not form (RANK, WORLD_SIZE, "
+            f"MASTER_ADDR, MASTER_PORT or init_method): "
+            f"{type(e).__name__}: {e}") from e
+    return dist.group.WORLD
 
 
 def destroy_quest_env(env: QuESTEnv) -> None:

@@ -144,7 +144,10 @@ def measure_with_stats(q, qubit: int) -> Tuple[object, int, float]:
     elif 1 - zero_prob < eps:
         outcome = 0
     else:
-        outcome = int(rng.uniform() > zero_prob)
+        u = rng.uniform()
+        if SE.is_sharded(q):
+            u = SE.shared(q, u)          # process 0's draw, on every process
+        outcome = int(u > zero_prob)
     prob = zero_prob if outcome == 0 else 1 - zero_prob
     _collapse_register(q, outcome, prob, qubit)
     return q, outcome, prob
@@ -192,6 +195,7 @@ def measure_functional(q, qubit: int,
     val.validate_target(q, qubit)
     u = draw_uniform(generator, q.amps.dtype)
     if SE.is_sharded(q):
+        u = SE.shared(q, u)
         rdt = precision.numpy_dtype(q.amps.dtype)
         p0 = rdt.type(SE.prob_of_zero(q, qubit))
         eps = rdt.type(precision.real_eps(rdt))
@@ -296,6 +300,7 @@ def sample(q, num_shots: int,
                    device=generator.device)
     if SE.is_sharded(q):
         # one draw for every shard: per-shard generators would diverge
-        return _sample_sharded_given_uniforms(q, u)
+        # (and on a process mesh, process 0's draw for every process)
+        return _sample_sharded_given_uniforms(q, SE.shared(q, u))
     return _sample_given_uniforms(q.amps, u, n=q.num_state_qubits,
                                   density=q.is_density)

@@ -624,17 +624,23 @@ def expec_sharded(amps, coeffs, plan: ExpecPlan) -> torch.Tensor:
     cf = torch.as_tensor(coeffs, dtype=amps.dtype, device=amps.device)
     acc = precision.torch_dtype(precision.accum_dtype(amps.dtype))
     views = amps.views()
-    cfs = [_shard_coeffs(cf, plan, local_n, d, v.device)
+    mine = mesh.local_ids
+    cfs = [None if v is None else _shard_coeffs(cf, plan, local_n, d,
+                                                 v.device)
            for d, v in enumerate(views)]
-    parts = [torch.zeros((), dtype=acc, device=v.device) for v in views]
+    parts = [None if v is None else torch.zeros((), dtype=acc,
+                                                device=v.device)
+             for v in views]
     if plan.density:
-        for d, v in enumerate(views):
+        for d in mine:
+            v = views[d]
             parts[d] = parts[d] + _density_shard_value(
                 v, cf.to(v.device), plan, d, local_n, acc)
         return mesh.reduce(parts)
     for mask, groups in _by_mask(plan, local_n):
         src = mesh.permute(views, None, mask=mask) if mask else None
-        for d, v in enumerate(views):
+        for d in mine:
+            v = views[d]
             for lg in groups:
                 val = _group_value_sv(v, cfs[d], lg, local_n, acc,
                                       src=None if src is None else src[d])
@@ -687,14 +693,15 @@ def apply_pauli_sum_planes_sharded(amps, coeffs, plan: ExpecPlan):
     local_n = amps.local_n
     cf = torch.as_tensor(coeffs, dtype=amps.dtype, device=amps.device)
     views = amps.views()
-    cfs = [_shard_coeffs(cf, plan, local_n, d, v.device)
+    cfs = [None if v is None else _shard_coeffs(cf, plan, local_n, d,
+                                                 v.device)
            for d, v in enumerate(views)]
-    outs = [torch.zeros_like(v) for v in views]
+    outs = [None if v is None else torch.zeros_like(v) for v in views]
     for mask, groups in _by_mask(plan, local_n):
         src = mesh.permute(views, None, mask=mask) if mask else views
         if src is None:
             continue
-        for d in range(len(views)):
+        for d in mesh.local_ids:
             outs[d] = _apply_groups(src[d], cfs[d], groups, local_n,
                                     out=outs[d])
         del src

@@ -5,9 +5,9 @@ line), so that quest_tpu_torch imports nothing of the JAX package. In
 the port the "lowered StableHLO accounting" below is the mesh's
 collective recorder (parallel/mesh.py), which counts every copy the
 engines issue, and a collective-permute is a pair permute between shard
-tensors; `topology()` reads one process's mesh, whose devices share one
-host, so an unset QUEST_COMM_TOPOLOGY prices flat. The text below is
-the reference's.
+tensors; `topology()` reads the planned mesh's process count, one host
+per process, so an unset QUEST_COMM_TOPOLOGY prices a one-process mesh
+flat. The text below is the reference's.
 
 `hbm_sweeps` made the fused engine's HBM traffic a CPU-assertable plan
 metric (docs/SWEEPS.md); this module does the same for the interconnect,
@@ -145,17 +145,24 @@ class Topology:
 FLAT = Topology(hosts=1, ici=1.0, dci=1.0)
 
 
-def topology(num_devices: int) -> Topology:
+def topology(num_devices: int, mesh=None) -> Topology:
     """The Topology the planner prices `num_devices` with, resolved
     from QUEST_COMM_TOPOLOGY: 0 -> flat; 'hosts=H,ici=X,dci=Y' -> that
-    model (hosts clamped to the device count); unset -> the mesh's
-    distinct hosts, which for the port's single-process mesh is one:
-    the flat model (ref comm.topology reads jax.devices() process ids;
-    multi-process meshes are ROADMAP A10c)."""
+    model (hosts clamped to the device count); unset -> one host per
+    process of `mesh` (the mesh being planned, or its dry copy) when it
+    has `num_devices` shards over several processes, else the flat
+    model: a one-process mesh is one host, and host planning without a
+    mesh stays flat (ref comm.topology reads jax.devices() process
+    ids)."""
     from quest_tpu_torch.env import knob_value
     raw = knob_value("QUEST_COMM_TOPOLOGY")
-    if raw == 0 or raw is None:
+    if raw == 0:
         return FLAT
+    if raw is None:
+        hosts = getattr(mesh, "hosts", 1)
+        if hosts <= 1 or mesh.size != num_devices or num_devices % hosts:
+            return FLAT
+        return Topology(hosts=hosts)
     hosts, ici, dci = raw
     return Topology(hosts=min(hosts, num_devices), ici=ici, dci=dci)
 

@@ -20,6 +20,11 @@ over its sharded jax array; here each one is written over the shards:
     once for the register, and collapses each shard locally (a global
     qubit keeps or zeroes whole shards).
 
+On a mesh that spans processes each process walks only the shards it
+holds; a reduction's total, a read amplitude and a drawn uniform are the
+same on every process (one gloo all_reduce each; a uniform is process
+0's), so every process reads the same value, outcome and samples.
+
 The state is never gathered: `ShardedAmps.gather` and `state.to_dense`
 stay the only explicit gathers. A function that cannot run on the shards
 raises a typed QuESTError naming itself. Density registers need at least
@@ -47,9 +52,31 @@ def is_sharded(q) -> bool:
 
 
 def _xs(amps: ShardedAmps) -> List[torch.Tensor]:
-    """The shards as (1, 2, 2^local_n) views, the appliers' layout."""
+    """The shards as (1, 2, 2^local_n) views, the appliers' layout (None
+    for another process's shard)."""
     m = 1 << amps.local_n
-    return [s.view(1, 2, m) for s in amps.shards]
+    return [None if s is None else s.view(1, 2, m) for s in amps.shards]
+
+
+def _mine(amps: ShardedAmps, xs=None) -> List[Tuple[int, torch.Tensor]]:
+    """(d, view) of the shards this process holds, from `xs` (default
+    the flat (2, 2^local_n) views)."""
+    xs = amps.views() if xs is None else xs
+    return [(d, xs[d]) for d in amps.mesh.local_ids]
+
+
+def shared(q, value):
+    """`value` (a float or a tensor) as process 0 of the register's mesh
+    drew it, on every process (one all_reduce through the host; a copy on
+    one process). Draws that decide an outcome or a sample go through
+    it, so every process of a mesh reads the same."""
+    mesh = q.amps.mesh
+    t = (value.detach().cpu() if torch.is_tensor(value)
+         else torch.tensor([float(value)], dtype=torch.float64))
+    out = mesh.host_all_reduce(t if mesh.rank == 0 else torch.zeros_like(t))
+    if torch.is_tensor(value):
+        return out.to(value.device)
+    return float(out[0])
 
 
 def _flat(amps: ShardedAmps) -> List[torch.Tensor]:
@@ -70,7 +97,7 @@ def aligned(what: str, mesh, reg) -> List[torch.Tensor]:
         return amps.views()
     flat = amps.reshape(2, -1)
     m = flat.shape[1] // mesh.size
-    return [flat[:, d * m:(d + 1) * m].to(dev)
+    return [None if dev is None else flat[:, d * m:(d + 1) * m].to(dev)
             for d, dev in enumerate(mesh.devices)]
 
 
@@ -107,41 +134,47 @@ def _cols(q, what: str) -> int:
 # initialisers, setters and getters (state.py)
 # ---------------------------------------------------------------------------
 
+def _zeros(q) -> list:
+    return [None if s is None else torch.zeros_like(s)
+            for s in q.amps.shards]
+
+
 def init_zero_state(q):
-    shards = [torch.zeros_like(s) for s in q.amps.shards]
-    shards[0].view(2, -1)[0, 0] = 1.0
+    shards = _zeros(q)
+    if shards[0] is not None:
+        shards[0].view(2, -1)[0, 0] = 1.0
     return _new(q, shards)
 
 
 def init_plus_state(q):
     n = q.num_qubits
     v = 1.0 / (1 << n) if q.is_density else 1.0 / np.sqrt(1 << n)
-    shards = []
-    for s in q.amps.shards:
-        t = torch.zeros_like(s)
-        t.view(2, -1)[0].fill_(v)
-        shards.append(t)
+    shards = _zeros(q)
+    for t in shards:
+        if t is not None:
+            t.view(2, -1)[0].fill_(v)
     return _new(q, shards)
 
 
 def init_classical_state(q, flat: int):
-    shards = [torch.zeros_like(s) for s in q.amps.shards]
+    shards = _zeros(q)
     m = 1 << q.amps.local_n
-    shards[flat // m].view(2, -1)[0, flat % m] = 1.0
+    if shards[flat // m] is not None:
+        shards[flat // m].view(2, -1)[0, flat % m] = 1.0
     return _new(q, shards)
 
 
 def init_debug_state(q):
     m = 1 << q.amps.local_n
-    shards = []
-    for d, s in enumerate(q.amps.shards):
+    shards = [None] * len(q.amps.shards)
+    for d, s in q.amps.local():
         k = torch.arange(d * m, (d + 1) * m, dtype=s.dtype, device=s.device)
-        shards.append(torch.stack([(2.0 * k) / 10.0, (2.0 * k + 1.0) / 10.0]))
+        shards[d] = torch.stack([(2.0 * k) / 10.0, (2.0 * k + 1.0) / 10.0])
     return _new(q, shards)
 
 
 def init_blank_state(q):
-    for s in q.amps.shards:
+    for _, s in q.amps.local():
         s.zero_()
     return q
 
@@ -149,7 +182,7 @@ def init_blank_state(q):
 def init_state_of_single_qubit(q, qubit: int, outcome: int):
     local_n = q.amps.local_n
     v = 1.0 / np.sqrt(1 << (q.num_state_qubits - 1))
-    for d, x in enumerate(_flat(q.amps)):
+    for d, x in _mine(q.amps):
         x.zero_()
         if qubit >= local_n:
             if ((d >> (qubit - local_n)) & 1) == outcome:
@@ -172,14 +205,14 @@ def _psi_planes(pure, dtype) -> torch.Tensor:
 
 def init_pure_state(q, pure):
     if not q.is_density:
-        for s, p in zip(_flat(q.amps), aligned("initPureState",
-                                               q.amps.mesh, pure)):
-            s.copy_(p.to(s.dtype))
+        src = aligned("initPureState", q.amps.mesh, pure)
+        for d, s in _mine(q.amps):
+            s.copy_(src[d].to(s.dtype))
         return q
     cols = _cols(q, "initPureState")
     dim = 1 << q.num_qubits
     psi = _psi_planes(pure, q.amps.dtype)
-    for d, x in enumerate(_flat(q.amps)):
+    for d, x in _mine(q.amps):
         p = psi.to(x.device)
         re, im = p[0], p[1]
         c0 = d * cols
@@ -198,7 +231,7 @@ def write_range(q, start: int, pair) -> object:
     [start, start + L), each shard its own part."""
     m = 1 << q.amps.local_n
     L = pair.shape[1]
-    for d, x in enumerate(_flat(q.amps)):
+    for d, x in _mine(q.amps):
         lo, hi = max(start, d * m), min(start + L, (d + 1) * m)
         if lo >= hi:
             continue
@@ -208,8 +241,13 @@ def write_range(q, start: int, pair) -> object:
 
 
 def read_amp(q, flat: int) -> complex:
+    """The amplitude at `flat`, read by the shard that holds it (on a
+    process mesh the holder's value reaches every process)."""
     m = 1 << q.amps.local_n
-    re, im = _flat(q.amps)[flat // m][:, flat % m].cpu().tolist()
+    owner = _flat(q.amps)[flat // m]
+    val = (owner[:, flat % m].to(torch.float64) if owner is not None
+           else torch.zeros(2, dtype=torch.float64))
+    re, im = q.amps.mesh.host_all_reduce(val).tolist()
     return complex(re, im)
 
 
@@ -243,24 +281,25 @@ def _diag_parts(q, what: str) -> List[torch.Tensor]:
     holds (a strided view)."""
     cols = _cols(q, what)
     dim = 1 << q.num_qubits
-    out = []
-    for d, x in enumerate(_flat(q.amps)):
+    out = [None] * q.amps.mesh.size
+    for d, x in _mine(q.amps):
         c0 = d * cols
-        out.append(x[0].view(cols, dim)[:, c0:c0 + cols].diagonal())
+        out[d] = x[0].view(cols, dim)[:, c0:c0 + cols].diagonal()
     return out
 
 
 def total_prob(q) -> float:
     if q.is_density:
-        parts = [p.to(torch.float64).sum()
+        parts = [None if p is None else p.to(torch.float64).sum()
                  for p in _diag_parts(q, "calcTotalProb")]
     else:
-        parts = [_sum_sq(x) for x in q.amps.shards]
+        parts = [None if x is None else _sum_sq(x) for x in q.amps.shards]
     return float(_reduce(q.amps, parts))
 
 
 def purity(q) -> float:
-    return float(_reduce(q.amps, [_sum_sq(x) for x in q.amps.shards]))
+    return float(_reduce(q.amps, [None if x is None else _sum_sq(x)
+                                  for x in q.amps.shards]))
 
 
 def inner(bra, ket, what: str) -> Tuple[float, float]:
@@ -268,9 +307,10 @@ def inner(bra, ket, what: str) -> Tuple[float, float]:
     sharded: partials in f64, one reduce, rounded to the bra's plane
     dtype."""
     mesh = _mesh_of(bra, ket)
-    parts = []
-    for b, k in zip(aligned(what, mesh, bra), aligned(what, mesh, ket)):
-        k = k.to(b.dtype)
+    parts = [None] * mesh.size
+    bras, kets = aligned(what, mesh, bra), aligned(what, mesh, ket)
+    for d in mesh.local_ids:
+        b, k = bras[d], kets[d].to(bras[d].dtype)
         re, im = _f64_zero(b), _f64_zero(b)
         for s in range(0, b.shape[1], CHUNK_AMPS):
             br, bi = (b[p, s:s + CHUNK_AMPS].to(torch.float64)
@@ -279,7 +319,7 @@ def inner(bra, ket, what: str) -> Tuple[float, float]:
                       for p in (0, 1))
             re = re + torch.dot(br, kr) + torch.dot(bi, ki)
             im = im + torch.dot(br, ki) - torch.dot(bi, kr)
-        parts.append(torch.stack([re, im]))
+        parts[d] = torch.stack([re, im])
     tot = mesh.reduce(parts)
     rdt = precision.numpy_dtype(bra.amps.dtype)
     return rdt.type(tot[0].item()), rdt.type(tot[1].item())
@@ -293,8 +333,8 @@ def fidelity_density(q, pure) -> float:
     cols = _cols(q, "calcFidelity")
     dim = 1 << q.num_qubits
     psi = _psi_planes(pure, q.amps.dtype)
-    parts = []
-    for d, x in enumerate(_flat(q.amps)):
+    parts = [None] * q.amps.mesh.size
+    for d, x in _mine(q.amps):
         p = psi.to(x.device)
         pre, pim = p[0], p[1]
         # row c' of the (cols, dim) view is column c0 + c' of rho
@@ -303,22 +343,24 @@ def fidelity_density(q, pure) -> float:
         vi = torch.mv(mim, pre) - torch.mv(mre, pim)
         c0 = d * cols
         cr, ci = pre[c0:c0 + cols], pim[c0:c0 + cols]
-        parts.append(torch.sum(vr * cr - vi * ci).to(torch.float64))
+        parts[d] = torch.sum(vr * cr - vi * ci).to(torch.float64)
     return float(_reduce(q.amps, parts))
 
 
 def hs_distance(a, b) -> float:
     mesh = _mesh_of(a, b)
-    parts = []
-    for x, y in zip(aligned("calcHilbertSchmidtDistance", mesh, a),
-                    aligned("calcHilbertSchmidtDistance", mesh, b)):
+    parts = [None] * mesh.size
+    xs = aligned("calcHilbertSchmidtDistance", mesh, a)
+    ys = aligned("calcHilbertSchmidtDistance", mesh, b)
+    for d in mesh.local_ids:
+        x, y = xs[d], ys[d]
         fx, fy = x.reshape(-1), y.reshape(-1).to(x.dtype)
         t = _f64_zero(x)
         for s in range(0, fx.numel(), CHUNK_AMPS):
             dd = (fx[s:s + CHUNK_AMPS] - fy[s:s + CHUNK_AMPS]).to(
                 torch.float64)
             t = t + torch.dot(dd, dd)
-        parts.append(t)
+        parts[d] = t
     return float(np.sqrt(mesh.reduce(parts).item()))
 
 
@@ -327,11 +369,13 @@ def linear_xeb(q, samples) -> float:
     m = 1 << q.amps.local_n
     owner = s // m
     total = 0.0
-    for d, x in enumerate(_flat(q.amps)):
+    for d, x in _mine(q.amps):
         idx = (s[owner == d] % m).to(x.device)
         if idx.numel():
             re, im = x[0][idx], x[1][idx]
             total += float((re * re + im * im).to(torch.float64).sum())
+    total = float(q.amps.mesh.host_all_reduce(
+        torch.tensor(total, dtype=torch.float64)))
     return float((1 << q.num_state_qubits) * total / s.numel() - 1.0)
 
 
@@ -348,10 +392,10 @@ def weighted(fac, qs, out):
 
     def scale(re, im, fr, fi):
         return fr * re - fi * im, fr * im + fi * re
-    for a, b, o in zip(aligned("setWeightedQureg", mesh, qs[0]),
-                       aligned("setWeightedQureg", mesh, qs[1]),
-                       _flat(out.amps)):
-        a, b = a.to(o.dtype), b.to(o.dtype)
+    q1 = aligned("setWeightedQureg", mesh, qs[0])
+    q2 = aligned("setWeightedQureg", mesh, qs[1])
+    for d, o in _mine(out.amps):
+        a, b = q1[d].to(o.dtype), q2[d].to(o.dtype)
         for s in range(0, o.shape[1], CHUNK_AMPS):
             sl = slice(s, s + CHUNK_AMPS)
             ar, ai = scale(a[0, sl], a[1, sl], f[0], f[1])
@@ -366,9 +410,9 @@ def mix_density(q, p: float, other):
     if not is_sharded(q):
         refuse("mixDensityMatrix", "the register is on one device while "
                                    "the mixed-in one is sharded")
-    for x, y in zip(_flat(q.amps), aligned("mixDensityMatrix", q.amps.mesh,
-                                           other)):
-        a, b = x.reshape(-1), y.reshape(-1).to(x.dtype)
+    ys = aligned("mixDensityMatrix", q.amps.mesh, other)
+    for d, x in _mine(q.amps):
+        a, b = x.reshape(-1), ys[d].reshape(-1).to(x.dtype)
         for s in range(0, a.numel(), CHUNK_AMPS):
             sl = slice(s, s + CHUNK_AMPS)
             a[sl] += p * (b[sl] - a[sl])
@@ -422,9 +466,10 @@ def prob_of_zero(q, qubit: int) -> float:
     if q.is_density:
         _cols(q, "calcProbOfOutcome")
     amps = q.amps
-    parts = [S._partial_prob0(x, d, amps.local_n, amps.n, qubit,
-                              q.is_density)
-             for d, x in enumerate(_xs(amps))]
+    parts = [None] * amps.mesh.size
+    for d, x in _mine(amps, _xs(amps)):
+        parts[d] = S._partial_prob0(x, d, amps.local_n, amps.n, qubit,
+                                    q.is_density)
     return float(_rdt(amps).type(_reduce(amps, parts).item()))
 
 
@@ -440,7 +485,7 @@ def collapse(q, qubit: int, outcome: int, prob: float):
     else:
         qubits = (qubit,)
         renorm = rdt.type(1.0) / np.sqrt(p)
-    for d, x in enumerate(_xs(q.amps)):
+    for d, x in _mine(q.amps, _xs(q.amps)):
         S._collapse_shard(x, d, q.amps.local_n, qubits, outcome, renorm)
     return q
 
@@ -467,25 +512,31 @@ def sample_given_uniforms(q, u: torch.Tensor) -> torch.Tensor:
     shard totals cross shards, summed into an f64 ownership partition
     (shard d owns [lo_d, hi_d) of the grand total); every shard resolves
     the shots it owns with a local searchsorted. The uniforms are the
-    same for every shard; the state never gathers."""
+    same for every shard; the state never gathers. On a process mesh
+    every shard's total reaches every process (one all_reduce of the D
+    totals), each process resolves the shots its shards own, and one
+    more all_reduce hands every process every shot's index."""
     from quest_tpu_torch.measurement import _stable_cdf
     amps = q.amps
-    xs = _flat(amps)
-    cdfs, totals = [], []
-    for d, x in enumerate(xs):
+    mesh = amps.mesh
+    cdfs = [None] * mesh.size
+    totals = torch.zeros(mesh.size, dtype=torch.float64)
+    for d, x in _mine(amps):
         cdf = _stable_cdf(probabilities(q, x, d), inplace=True)
-        cdfs.append(cdf)
-        totals.append(cdf[-1:].to(torch.float64).cpu())
-    cuml = torch.cumsum(torch.cat(totals), 0)
+        cdfs[d] = cdf
+        totals[d] = cdf[-1].to(torch.float64).cpu()
+    totals = mesh.host_all_reduce(totals)
+    cuml = torch.cumsum(totals, 0)
     grand = cuml[-1]
     uu = u.detach().to(torch.float64).cpu()
     scaled = uu * grand
     # shard of each shot: the first whose cumulative total exceeds it
     owner = torch.searchsorted(cuml, scaled, right=True).clamp_(
-        max=len(xs) - 1)
+        max=mesh.size - 1)
     out = torch.zeros(uu.shape[0], dtype=torch.int64)
-    per = cdfs[0].shape[0]
-    for d, cdf in enumerate(cdfs):
+    per = cdfs[mesh.local_ids[0]].shape[0]
+    for d in mesh.local_ids:
+        cdf = cdfs[d]
         mine = (owner == d).nonzero().reshape(-1)
         if not mine.numel():
             continue
@@ -494,4 +545,5 @@ def sample_given_uniforms(q, u: torch.Tensor) -> torch.Tensor:
         loc = torch.searchsorted(cdf, local, right=True).clamp_(
             max=per - 1)
         out[mine] = d * per + loc.cpu()
+    out = mesh.host_all_reduce(out)
     return out.to(amps.device)

@@ -92,11 +92,12 @@ def sharded_schedule(ops: Sequence, n: int, density: bool, mesh,
     rec.update({"devices": D, "local_qubits": local_n, "global_qubits": g,
                 "engine": engine,
                 "chunk_bytes": 2 * bytes_per_real * (1 << n) // D})
-    topo = C.topology(D)
+    topo = C.topology(D, dry)
     ici_b = topo.ici_bits(D) if topo.hierarchical else None
     if engine == "pergate":
         cinfo: dict = {}
-        chosen = S.pergate_flat(ops, n, density, local_n, comm_info=cinfo)
+        chosen = S.pergate_flat(ops, n, density, local_n, comm_info=cinfo,
+                                topo=topo)
         gate_ops = [op for op in chosen if op.kind != "relabel"]
         rec["local_ops"] = sum(1 for op in gate_ops
                                if max(op.targets) < local_n)
@@ -112,7 +113,7 @@ def sharded_schedule(ops: Sequence, n: int, density: bool, mesh,
     sstats: dict = {}
     cinfo = {}
     flat_r = S.engine_flat(ops, n, density, local_n, sched_stats=sstats,
-                           bands=bands, comm_info=cinfo)
+                           bands=bands, comm_info=cinfo, topo=topo)
     rec["scheduler"] = sstats
     items = cinfo.get("items")
     if items is None:
@@ -182,7 +183,7 @@ def sharded_measured_schedule(ops: Sequence, n: int, density: bool, mesh,
         "local_band_passes": band_passes,
         "kernel_segments": kernel_segments,
     })
-    topo = C.topology(D)
+    topo = C.topology(D, dry)
     ici_b = topo.ici_bits(D) if topo.hierarchical else None
     predicted, pred_psums = [], 0
     for el in program:

@@ -35,9 +35,17 @@ parallel/relabel.py), so the mesh's recorder issues exactly the
 exchanges comm_stats predicts (parallel/introspect.py holds them
 equal).
 
+On a mesh that spans processes (parallel.make_process_mesh) every
+process runs the same program over the shards it holds (mesh.local_ids;
+the others' entries are None): the K1 launches and local appliers touch
+only those, the exchanges cross processes through the mesh, and a
+measurement's outcome, drawn from process 0's uniform and the
+all-reduced probability, is the same on every process.
+
 Every program walks the same code on a dry mesh (AmpMesh.dry, 'meta'
 shards): the exchanges record and copy nothing and no local work runs;
-introspect prices a schedule that way without a state.
+introspect prices a schedule that way without a state (one process's
+walk: every process issues the same exchanges).
 """
 
 from __future__ import annotations
@@ -126,23 +134,33 @@ def _slices(mesh: AmpMesh, x_elems: int, gbit: int) -> int:
     """QUEST_EXCHANGE_SLICES (or _DCI) for a block of x_elems per plane
     over device bit gbit: comm.effective_slices, the predictor's clamp."""
     D = mesh.size
-    return C.effective_slices(x_elems, C.topology(D).link_of(gbit, D))
+    return C.effective_slices(x_elems,
+                              C.topology(D, mesh).link_of(gbit, D))
+
+
+def _each(xs, f) -> list:
+    """[f(x)] over a per-shard list, None kept where another process of
+    the mesh holds the shard."""
+    return [None if x is None else f(x) for x in xs]
 
 
 def _sliced_receive(views: Sequence, mesh: AmpMesh, gbit: int, s: int):
-    """One pair exchange of `views` (one block per shard) split into s
-    permutes: each shard's partner block lands in a new contiguous buffer
-    shaped like its own block. Returns the buffers (None on a dry mesh)."""
+    """One pair exchange of `views` (one block per shard, None for
+    another process's) split into s permutes: each local shard's partner
+    block lands in a new contiguous buffer shaped like its own block.
+    Returns the buffers (None on a dry mesh)."""
     if mesh.dry:
         for i in range(s):
             mesh.permute([_flat_slices(v, s)[i] for v in views], gbit)
         return None
-    recv = [torch.empty(v.shape, dtype=v.dtype, device=dev)
+    recv = [None if v is None else torch.empty(v.shape, dtype=v.dtype,
+                                               device=dev)
             for v, dev in zip(views, mesh.devices)]
-    src = [_flat_slices(v, s) for v in views]
-    dst = [_flat_slices(r, s) for r in recv]
+    src = _each(views, lambda v: _flat_slices(v, s))
+    dst = _each(recv, lambda r: _flat_slices(r, s))
     for i in range(s):
-        mesh.permute([p[i] for p in src], gbit, out=[q[i] for q in dst])
+        mesh.permute(_each(src, lambda p: p[i]), gbit,
+                     out=_each(dst, lambda q: q[i]))
     return recv
 
 
@@ -155,17 +173,17 @@ def _swap_global_local(xs, mesh, local_n, gbit, l):
     qubit l: each shard sends the half of its chunk whose bit l differs
     from its own device bit and receives its partner's into it (ref
     _swap_global_local)."""
-    views = []
-    for d, x in enumerate(xs):
-        v, ax = _bit_axes(x, local_n, (l,))
-        views.append(v.narrow(ax[l], 1 - ((d >> gbit) & 1), 1))
+    views = [None] * len(xs)
+    for d in mesh.local_ids:
+        v, ax = _bit_axes(xs[d], local_n, (l,))
+        views[d] = v.narrow(ax[l], 1 - ((d >> gbit) & 1), 1)
     s = _slices(mesh, 1 << (local_n - 1), gbit)
     for i in range(s):
-        parts = [_flat_slices(v, s)[i] for v in views]
+        parts = _each(views, lambda v: _flat_slices(v, s)[i])
         recv = mesh.permute(parts, gbit)
         if recv is not None:
-            for p, r in zip(parts, recv):
-                p.copy_(r)
+            for d in mesh.local_ids:
+                parts[d].copy_(recv[d])
 
 
 def _butterfly_1q(xs, mesh, local_n, sup, gbit, loc_c=(), loc_s=(),
@@ -180,11 +198,12 @@ def _butterfly_1q(xs, mesh, local_n, sup, gbit, loc_c=(), loc_s=(),
     s = _slices(mesh, m, gbit)
     L = (m // s).bit_length() - 1         # free bits of one slice
     for i in range(s):
-        parts = [x.narrow(2, i * (m // s), m // s) for x in xs]
+        parts = _each(xs, lambda x: x.narrow(2, i * (m // s), m // s))
         recv = mesh.permute(parts, gbit)
         if recv is None:
             continue
-        for d, (p, r) in enumerate(zip(parts, recv)):
+        for d in mesh.local_ids:
+            p, r = parts[d], recv[d]
             if not _holds(d, glob_c):
                 continue
             mine = (d >> gbit) & 1
@@ -235,15 +254,16 @@ def _pair_exchange_2t(xs, mesh, local_n, sup, t, jg, gbit, tier):
     m = 1 << local_n
     if all(len(nd) <= 1 for nd in need):
         nv = [nd[0] if nd else 0 for nd in need]
-        views = []
-        for d, x in enumerate(xs):
-            v, ax = _bit_axes(x, local_n, (t,))
+        views = [None] * len(xs)
+        for d in mesh.local_ids:
+            v, ax = _bit_axes(xs[d], local_n, (t,))
             send = nv[1] if ((d >> gbit) & 1) == 0 else nv[0]
-            views.append(v.narrow(ax[t], send, 1))
+            views[d] = v.narrow(ax[t], send, 1)
         recv = _sliced_receive(views, mesh, gbit, _slices(mesh, m // 2, gbit))
         if recv is None:
             return
-        for d, x in enumerate(xs):
+        for d in mesh.local_ids:
+            x = xs[d]
             g = (d >> gbit) & 1
             A.apply_matrix(x, local_n, same[g], (t,), tier=tier)
             col = np.asarray(cross[g])[:, nv[g]]
@@ -259,7 +279,8 @@ def _pair_exchange_2t(xs, mesh, local_n, sup, t, jg, gbit, tier):
     recv = _sliced_receive(xs, mesh, gbit, _slices(mesh, m, gbit))
     if recv is None:
         return
-    for d, x in enumerate(xs):
+    for d in mesh.local_ids:
+        x = xs[d]
         g = (d >> gbit) & 1
         A.apply_matrix(recv[d], local_n, cross[g], (t,), tier=tier)
         A.apply_matrix(x, local_n, same[g], (t,), tier=tier)
@@ -288,10 +309,10 @@ def _matrix_op(xs, mesh, local_n, operand, targets, controls=(),
     loc_c, loc_s, glob_c = _split_controls(controls, cstates, local_n)
     if route[0] == "local":
         if not mesh.dry:
-            for d, x in enumerate(xs):
+            for d in mesh.local_ids:
                 if _holds(d, glob_c):
-                    A.apply_matrix(x, local_n, sup, targets, loc_c, loc_s,
-                                   tier)
+                    A.apply_matrix(xs[d], local_n, sup, targets, loc_c,
+                                   loc_s, tier)
         return
     if route[0] == "butterfly":
         return _butterfly_1q(xs, mesh, local_n, sup, route[1], loc_c, loc_s,
@@ -316,9 +337,10 @@ def _matrix_op(xs, mesh, local_n, operand, targets, controls=(),
         _swap_global_local(xs, mesh, local_n, gt - local_n, slot)
     loc_c, loc_s, glob_c = _split_controls(new_controls, cstates, local_n)
     if not mesh.dry:
-        for d, x in enumerate(xs):
+        for d in mesh.local_ids:
             if _holds(d, glob_c):
-                A.apply_matrix(x, local_n, sup, relabeled, loc_c, loc_s, tier)
+                A.apply_matrix(xs[d], local_n, sup, relabeled, loc_c, loc_s,
+                               tier)
     for gbit, slot in reversed(swaps):
         _swap_global_local(xs, mesh, local_n, gbit, slot)
 
@@ -333,7 +355,8 @@ def _diagonal_op(xs, mesh, local_n, diag, targets, controls=(), cstates=()):
     k = len(targets)
     table = np.asarray(diag, dtype=np.complex128).reshape((2,) * k)
     loc_t = [t for t in targets if t < local_n]
-    for d, x in enumerate(xs):
+    for d in mesh.local_ids:
+        x = xs[d]
         if not _holds(d, glob_c):
             continue
         tab = table
@@ -355,7 +378,8 @@ def _parity_op(xs, mesh, local_n, targets, angle):
     if mesh.dry:
         return
     loc = [t for t in targets if t < local_n]
-    for d, x in enumerate(xs):
+    for d in mesh.local_ids:
+        x = xs[d]
         gsign = 1
         for t in targets:
             if t >= local_n and (d >> (t - local_n)) & 1:
@@ -375,7 +399,8 @@ def _all_ones_op(xs, mesh, local_n, term, qubits):
         return
     glob = [(q - local_n, 1) for q in qubits if q >= local_n]
     loc = [q for q in qubits if q < local_n]
-    for d, x in enumerate(xs):
+    for d in mesh.local_ids:
+        x = xs[d]
         if not _holds(d, glob):
             continue
         if loc:
@@ -397,11 +422,12 @@ def _relabel_op(xs, mesh, local_n, slots):
         for j, s in enumerate(slots):
             t = t.narrow(axis_of[s] + 2, (v >> j) & 1, 1)
         return t
-    sends = [[block(xs[d], k) for k in range(D)] for d in range(D)]
+    sends = [None if xs[d] is None else [block(xs[d], k) for k in range(D)]
+             for d in range(D)]
     recv = mesh.all_to_all(sends)
     if recv is None:
         return
-    for k in range(D):
+    for k in mesh.local_ids:
         for d in range(D):
             block(xs[k], d).copy_(recv[k][d])
 
@@ -449,10 +475,10 @@ def _band_op_sharded(xs, mesh, local_n, bop, tier):
         return
     loc_p = [(q, s) for q, s in bop.preds if q < local_n]
     glob_p = [(q - local_n, s) for q, s in bop.preds if q >= local_n]
-    for d, x in enumerate(xs):
+    for d in mesh.local_ids:
         if _holds(d, glob_p):
-            A.apply_band(x, local_n, (bop.gre, bop.gim), bop.ql, bop.w, loc_p,
-                         tier)
+            A.apply_band(xs[d], local_n, (bop.gre, bop.gim), bop.ql, bop.w,
+                         loc_p, tier)
 
 
 def _apply_plan_item(xs, mesh, local_n, n, it, tier):
@@ -472,14 +498,16 @@ def _apply_plan_item(xs, mesh, local_n, n, it, tier):
 def engine_flat(ops: Sequence, n: int, density: bool, local_n: int,
                 lazy: bool = False, relabel: bool = None,
                 sched_stats: Optional[dict] = None, bands: Sequence = None,
-                comm_info: Optional[dict] = None):
+                comm_info: Optional[dict] = None, topo=None):
     """The flat op list the banded/fused sharded engines execute:
     flatten_ops, the scheduler, then the one relabel-rewrite policy
     (ref engine_flat): relabel None means the comm planner's choice
     under QUEST_COMM_PLAN (priced on `bands`), plan_full_relabels with
     the knob off; lazy=True the lazy rewrite. `sched_stats` and
     `comm_info`, when dicts, receive the scheduler's counters and the
-    planner's strategy (with the winner's fusion plan under 'items')."""
+    planner's strategy (with the winner's fusion plan under 'items');
+    `topo` is the Topology the planner prices (default: a mesh-less
+    comm.topology)."""
     from quest_tpu_torch.circuit import flatten_ops
     from quest_tpu_torch.ops import fusion as F
     from quest_tpu_torch.parallel import relabel as R
@@ -503,7 +531,8 @@ def engine_flat(ops: Sequence, n: int, density: bool, local_n: int,
     if relabel is None and C.plan_enabled():
         chosen, info = C.choose_plan(
             flat, n, local_n, engine="banded",
-            bands=bands if bands is not None else _shard_bands(n, local_n))
+            bands=bands if bands is not None else _shard_bands(n, local_n),
+            topo=topo)
         if comm_info is not None:
             comm_info.update(info)
         return chosen
@@ -557,11 +586,12 @@ def comm_plan_record(ops: Sequence, n: int, density: bool, devices: int,
 
 
 def pergate_flat(ops: Sequence, n: int, density: bool, local_n: int,
-                 lazy: bool = False, comm_info: Optional[dict] = None):
+                 lazy: bool = False, comm_info: Optional[dict] = None,
+                 topo=None):
     """The flat op list the per-gate engine executes (ref pergate_flat):
     flatten, then the comm planner's per-gate choice under
-    QUEST_COMM_PLAN; lazy=True the lazy rewrite; the knob off keeps the
-    plain schedule."""
+    QUEST_COMM_PLAN, priced on `topo`; lazy=True the lazy rewrite; the
+    knob off keeps the plain schedule."""
     from quest_tpu_torch.circuit import flatten_ops
     from quest_tpu_torch.parallel import relabel as R
 
@@ -571,7 +601,8 @@ def pergate_flat(ops: Sequence, n: int, density: bool, local_n: int,
             comm_info.update({"strategy": "lazy"})
         return R.lazy_relabel_ops(flat, n, local_n)
     if C.plan_enabled():
-        chosen, info = C.choose_plan(flat, n, local_n, engine="pergate")
+        chosen, info = C.choose_plan(flat, n, local_n, engine="pergate",
+                                     topo=topo)
         if comm_info is not None:
             comm_info.update(info)
         return chosen
@@ -695,7 +726,7 @@ class ShardedProgram:
             for i, p in enumerate(parts):
                 if p[0] != "segment":
                     continue
-                for dev in mesh.devices:
+                for dev in mesh.local_devices:
                     key = (i, str(dev))
                     if key not in self.segments:
                         self.segments[key] = prepare_segment(
@@ -712,9 +743,9 @@ class ShardedProgram:
 
     @property
     def launches_per_call(self) -> int:
-        """Segment launches of one call on f32 planes: one per kernel part
-        per shard."""
-        return self.kernel_parts * self.mesh.size
+        """Segment launches of one call on f32 planes in this process:
+        one per kernel part per shard it holds."""
+        return self.kernel_parts * len(self.mesh.local_ids)
 
     def _views(self, x):
         """(amps, per-shard (B, 2, 2^local_n) views). The exchanges of a
@@ -730,8 +761,12 @@ class ShardedProgram:
             raise ValueError(f"{len(amps.shards)} shards for a mesh of "
                              f"{self.mesh.size}")
         m = 1 << self.local_n
-        xs = []
-        for d, s in enumerate(amps.shards):
+        xs = [None] * len(amps.shards)
+        for d in self.mesh.local_ids:
+            s = amps.shards[d]
+            if s is None:
+                raise ValueError(f"shard {d} is missing; this process holds "
+                                 f"shards {list(self.mesh.local_ids)}")
             if s.device != self.mesh.devices[d] and not (
                     s.device.type == self.mesh.devices[d].type
                     and self.mesh.devices[d].index is None):
@@ -741,7 +776,7 @@ class ShardedProgram:
                 raise ValueError(f"shard {d} of shape {tuple(s.shape)} is not "
                                  f"contiguous (2, 2^{self.local_n}) planes or "
                                  f"a batch of them")
-            xs.append(s.view(-1, 2, m))
+            xs[d] = s.view(-1, 2, m)
         return amps, xs
 
     def __call__(self, x):
@@ -755,7 +790,8 @@ class ShardedProgram:
                 _apply_gateop(xs, mesh, self.local_n, self.n, self.density,
                               op, self.tier)
             return
-        if self.parts is None or xs[0].dtype != torch.float32:
+        if self.parts is None or \
+                xs[mesh.local_ids[0]].dtype != torch.float32:
             for it in self.items:
                 _apply_plan_item(xs, mesh, self.local_n, self.n, it, self.tier)
             return
@@ -772,7 +808,8 @@ class ShardedProgram:
             return
         if mesh.dry:
             return
-        for d, s in enumerate(shards):
+        for d in mesh.local_ids:
+            s = shards[d]
             seg = self.segments[(i, str(mesh.devices[d]))]
             if plain:
                 out = segment_sweep_reference(s, seg.stages, seg.operands,
@@ -793,8 +830,7 @@ class ShardedProgram:
         PyTorch version (segment_sweep_reference), shard by shard, on a
         copy of the shards; returns the copy."""
         amps, _ = self._views(x)
-        copy = ShardedAmps([s.clone() for s in amps.shards], amps.mesh,
-                           self.n)
+        copy = amps.clone()
         _, xs = self._views(copy)
         self._run(copy.shards, xs, amps.mesh, plain=True)
         return copy
@@ -834,7 +870,7 @@ def compile_circuit_sharded(ops: Sequence, n: int, density: bool,
     cinfo: dict = {}
     if lazy or C.plan_enabled():
         ops = pergate_flat(ops, n, density, local_n, lazy=lazy,
-                           comm_info=cinfo)
+                           comm_info=cinfo, topo=C.topology(mesh.size, mesh))
         density = False
     else:
         cinfo["strategy"] = "plain"
@@ -856,7 +892,8 @@ def compile_circuit_sharded_banded(ops: Sequence, n: int, density: bool,
     bands = _shard_bands(n, local_n)
     cinfo: dict = {}
     flat = engine_flat(ops, n, density, local_n, lazy=lazy, relabel=relabel,
-                       bands=bands, comm_info=cinfo)
+                       bands=bands, comm_info=cinfo,
+                       topo=C.topology(mesh.size, mesh))
     items = cinfo.get("items")
     if items is None:
         items = F.plan(flat, n, bands=bands)
@@ -902,7 +939,8 @@ def compile_circuit_sharded_fused(ops: Sequence, n: int, density: bool,
         return prog
     cinfo: dict = {}
     flat = engine_flat(ops, n, density, local_n, relabel=relabel,
-                       bands=bands, comm_info=cinfo)
+                       bands=bands, comm_info=cinfo,
+                       topo=C.topology(mesh.size, mesh))
     items = cinfo.get("items")
     if items is None:
         items = F.plan(flat, n, bands=bands)
@@ -1039,18 +1077,27 @@ def _measure_sharded(xs, mesh, local_n, n, qubit, density, draw):
     each shard's part of P(0) summed through mesh.reduce (the psum), one
     uniform for the whole register, the outcome read on the host, then
     each shard collapsed locally — a shard whose global qubit fixes the
-    other outcome is zeroed. Returns the outcome (None on a dry mesh)."""
-    parts = None if mesh.dry else [
-        _partial_prob0(x, d, local_n, n, qubit, density)
-        for d, x in enumerate(xs)]
-    total = mesh.reduce(parts if parts is not None else [None] * mesh.size)
-    if total is None:
+    other outcome is zeroed. The one reduce also carries process 0's
+    uniform (exact in the reduce's dtype), so on a process mesh every
+    process reads the same outcome and applies the same feedback.
+    Returns the outcome (None on a dry mesh)."""
+    if mesh.dry:
+        mesh.reduce([None] * mesh.size)
         return None
-    rdt = precision.numpy_dtype(xs[0].dtype)
-    p0 = rdt.type(total.item())
+    parts = [None] * mesh.size
+    for d in mesh.local_ids:
+        parts[d] = _partial_prob0(xs[d], d, local_n, n, qubit, density)
+    u = draw()
+    mine = mesh.local_ids
+    for d in mine:
+        carried = float(u) if mesh.rank == 0 and d == mine[0] else 0.0
+        parts[d] = torch.stack([parts[d], parts[d].new_tensor(carried)])
+    total = mesh.reduce(parts)
+    u = float(total[1].item())
+    rdt = precision.numpy_dtype(xs[mine[0]].dtype)
+    p0 = rdt.type(total[0].item())
     eps = rdt.type(precision.real_eps(rdt))
     one = rdt.type(1.0)
-    u = draw()
     if p0 < eps:
         outcome = 1
     elif one - p0 < eps:
@@ -1064,8 +1111,8 @@ def _measure_sharded(xs, mesh, local_n, n, qubit, density, draw):
     else:
         qubits = (qubit,)
         renorm = one / np.sqrt(prob)
-    for d, x in enumerate(xs):
-        _collapse_shard(x, d, local_n, qubits, outcome, renorm)
+    for d in mesh.local_ids:
+        _collapse_shard(xs[d], d, local_n, qubits, outcome, renorm)
     return outcome
 
 
@@ -1103,8 +1150,9 @@ class ShardedMeasuredProgram(ShardedProgram):
     def __call__(self, x, generator: torch.Generator):
         from quest_tpu_torch import measurement as MS
         amps, xs = self._views(x)
+        dtype = amps.dtype
         outs = self._walk(amps.shards, xs, amps.mesh,
-                          lambda: MS.draw_uniform(generator, xs[0].dtype))
+                          lambda: MS.draw_uniform(generator, dtype))
         return amps, outs
 
     def given(self, x, uniforms):
@@ -1129,7 +1177,7 @@ class ShardedMeasuredProgram(ShardedProgram):
     def _walk(self, shards, xs, mesh, draw, known=None):
         from quest_tpu_torch.ops.segment import segment_sweep
         outs: List[int] = []
-        kernels = xs[0].dtype == torch.float32
+        kernels = xs[mesh.local_ids[0]].dtype == torch.float32
         for el, ids in zip(self.program, self._part_ids):
             if el[0] == "dyn":
                 op = el[1]
@@ -1157,8 +1205,8 @@ class ShardedMeasuredProgram(ShardedProgram):
                     _apply_plan_item(xs, mesh, self.local_n, self.n, part[1],
                                      self.tier)
                 elif not mesh.dry:
-                    for d, s in enumerate(shards):
-                        segment_sweep(s, self.segments[(i, str(
+                    for d in mesh.local_ids:
+                        segment_sweep(shards[d], self.segments[(i, str(
                             mesh.devices[d]))])
         return torch.tensor([-1 if o is None else o for o in outs],
                             dtype=torch.int32)

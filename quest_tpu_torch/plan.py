@@ -505,6 +505,10 @@ def autotune(circuit, state_kind: str = "pure", mesh=None, topology=None,
     circuit._reject_measure("plan.autotune")
     mesh_key = None
     if mesh is not None:
+        from quest_tpu_torch.parallel.mesh import refuse_process_mesh
+        # each process would time its own candidates and could choose
+        # another engine than its peers
+        refuse_process_mesh(mesh, "plan.autotune(mesh=)")
         if devices is not None:
             raise ValueError("pass mesh= or devices=, not both")
         devices = int(mesh.size)

@@ -54,8 +54,19 @@ durable_elastic_resumes, durable_corrupt_checkpoints_skipped,
 durable_sentinel_trips; gauge durable_last_checkpoint_step; histogram
 durable_checkpoint_s.
 
-The multi-process gang chain (ref :612, save_step_gang) waits for
-multi-process meshes (ROADMAP A10c): a gang step under the directory is
+On a mesh that spans processes (parallel.make_process_mesh) the chain
+is GANG-CONSISTENT (ref :779-1000): every cut writes one shared
+checkpoint through checkpoint.save_step_gang's two-phase commit (each
+process stamps its slice, the last stamp commits with one rename, a
+process killed mid-save leaves the step uncommitted for every process),
+the shards stay in the physical layout with the relabel perm in the
+cursor, the cursor's state fingerprint is a reduction every process
+computes to the same value, and resume validity is a function of the
+shared directory alone (_latest_valid_gang), so every process resumes
+the same cut, bit-identical to an uninterrupted run. Elastic resume
+crosses formats both ways: a gang chain re-enters a one-process mesh or
+one register, and a one-process chain a process mesh. Without elastic, a
+gang step on a one-process run (or a plain step on a gang run) is
 refused typed.
 """
 
@@ -238,6 +249,37 @@ def _state_fingerprint(state: Qureg) -> str:
     return h.hexdigest()[:32]
 
 
+def _state_fingerprint_gang(state: Qureg, mesh) -> str:
+    """Fingerprint of the initial register of a gang run (ref :167): the
+    cursor must be equal on every process, and no process reads its
+    peers' shards, so instead of bytes it hashes the shape, the dtype and
+    three reductions (sum, sum of squares, max magnitude) taken per shard
+    of `mesh` in f64 and combined in shard order, whether `state` holds
+    one tensor or shards over the process mesh: every process computes
+    the same value."""
+    amps = state.amps
+    D = mesh.size
+    rdt = precision.numpy_dtype(amps.dtype)
+    stats = torch.zeros((D, 3), dtype=torch.float64)
+    if torch.is_tensor(amps):
+        flat = amps.detach().reshape(2, -1)
+        m = flat.shape[1] // D
+        chunks = [(d, flat[:, d * m:(d + 1) * m]) for d in range(D)]
+    else:
+        chunks = [(d, v) for d, v in enumerate(amps.views()) if v is not None]
+    for d, v in chunks:
+        x = v.to(torch.float64)
+        stats[d] = torch.stack([x.sum(), (x * x).sum(),
+                                x.abs().max()]).cpu()
+    if not torch.is_tensor(amps):
+        stats = amps.mesh.host_all_reduce(stats)
+    vals = [float(stats[:, 0].sum()), float(stats[:, 1].sum()),
+            float(stats[:, 2].max())]
+    h = hashlib.sha256()
+    h.update(repr(((_logical_shape(state), str(rdt)), vals)).encode())
+    return h.hexdigest()[:32]
+
+
 _MOD = 1 << 32
 
 
@@ -268,7 +310,8 @@ def _state_fingerprint_elastic(state: Qureg) -> str:
     else:
         m = 1 << amps.local_n
         pieces = [(v[p], p * num + d * m)
-                  for p in (0, 1) for d, v in enumerate(amps.views())]
+                  for p in (0, 1) for d, v in enumerate(amps.views())
+                  if v is not None]
     s1 = s2 = 0
     chunk = 1 << 22
     for plane, start in pieces:
@@ -278,6 +321,11 @@ def _state_fingerprint_elastic(state: Qureg) -> str:
             words = part.view(torch.int32).to(torch.int64) % _MOD
             t1, t2 = _bit_sums(words, (start + a) * wpe)
             s1, s2 = (s1 + t1) % _MOD, (s2 + t2) % _MOD
+    if not torch.is_tensor(amps):
+        # the sums mod 2^32 of every process's pieces: exact in int64
+        tot = amps.mesh.host_all_reduce(torch.tensor([s1, s2],
+                                                     dtype=torch.int64))
+        s1, s2 = int(tot[0]) % _MOD, int(tot[1]) % _MOD
     key = (_logical_shape(state), str(rdt))
     h = hashlib.sha256()
     h.update(repr((key, [s1, s2])).encode())
@@ -380,6 +428,7 @@ def _build_steps(circuit, n: int, density: bool, engine: str, mesh,
         flat_used, exec_items = flat, items
     else:                                   # sharded
         from quest_tpu_torch.env import knob_value
+        from quest_tpu_torch.parallel import comm as C
         from quest_tpu_torch.parallel import sharded as S
         devices = mesh.size
         local_n = n - mesh.global_qubits
@@ -388,7 +437,8 @@ def _build_steps(circuit, n: int, density: bool, engine: str, mesh,
         bands = fused_bands if use_parts else S._shard_bands(n, local_n)
         cinfo: dict = {}
         flat_r = S.engine_flat(circuit.ops, n, density, local_n,
-                               bands=bands, comm_info=cinfo)
+                               bands=bands, comm_info=cinfo,
+                               topo=C.topology(devices, mesh))
         item_attr = []
         planned = F.plan(flat_r, n, bands=bands, attr=item_attr)
         items = cinfo.get("items")
@@ -522,19 +572,13 @@ def _to_layout(planes, info: dict):
             planes = planes.gather("cpu")
         return shard_planes(planes.reshape(2, -1), info["mesh"], info["n"])
     if isinstance(planes, ShardedAmps):
-        # a sharded register entering a one-register engine: its shards
-        # are copied, one by one, into the new buffer on the device
-        out = torch.empty((2, 1 << info["n"]), dtype=planes.dtype,
-                          device=info["device"])
-        m = 1 << planes.local_n
-        for d, v in enumerate(planes.views()):
-            out[:, d * m:(d + 1) * m] = v
-        return out
+        # a sharded register entering a one-register engine
+        return planes.gather(info["device"]).reshape(2, -1)
     return planes.reshape(2, -1).to(info["device"], copy=True)
 
 
 def _sync(amps) -> None:
-    devs = ([s.device for s in amps.shards] if not torch.is_tensor(amps)
+    devs = ([s.device for _, s in amps.local()] if not torch.is_tensor(amps)
             else [amps.device])
     for d in set(devs):
         if d.type == "cuda":
@@ -608,7 +652,8 @@ def _sentinel_values(amps, info: dict, perm=None) -> dict:
     sharded = not torch.is_tensor(amps)
     if not info["density"]:
         if sharded:
-            val = float(amps.mesh.reduce([SE._sum_sq(s)
+            val = float(amps.mesh.reduce([None if s is None else
+                                          SE._sum_sq(s)
                                           for s in amps.shards]))
         else:
             val = K._sum_sq(amps)
@@ -621,12 +666,17 @@ def _sentinel_values(amps, info: dict, perm=None) -> dict:
         tr_im = float(v[1].diagonal().to(torch.float64).sum())
         return {"trace_re": tr_re, "trace_im": tr_im,
                 "herm_residual": _herm_block(v[0], v[1])}
-    parts, herm = [], 0.0
+    parts, herm = [None] * amps.mesh.size, 0.0
     for d, v in enumerate(amps.views()):
+        if v is None:
+            continue
         tr, h = _density_shard_sentinel(v, d, nq, perm)
-        parts.append(tr)
+        parts[d] = tr
         herm = max(herm, h)
     tr = amps.mesh.reduce(parts)
+    if amps.mesh.world > 1:
+        herm = float(amps.mesh.host_all_reduce(
+            torch.tensor(herm, dtype=torch.float64), "max"))
     return {"trace_re": float(tr[0]), "trace_im": float(tr[1]),
             "herm_residual": herm}
 
@@ -689,15 +739,16 @@ def _latest_valid(directory: str, kind: str, registry=None):
     are skipped LOUDLY (stderr + counter) in favor of older ones —
     never silently consumed. Returns (meta, arrays, cursor, path) or
     None when no valid checkpoint exists (the run restarts from op
-    0). A GANG-format step (written by a multi-process run) is refused
-    typed, not skipped as corruption: restarting from op 0 over a valid
+    0). A GANG-format step (written by a multi-process run) is a typed
+    mesh mismatch, not corruption: restarting from op 0 over a valid
     gang chain would silently discard it."""
     for step, path in reversed(ckpt.step_dirs(directory)):
         if ckpt.is_gang_step(path):
             raise DurableError(
                 f"Invalid durable resume: checkpoint {path!r} was "
-                f"written by a multi-process gang run, which needs "
-                f"multi-process meshes (not ported yet, ROADMAP A10c)")
+                f"written by a multi-host gang run; resume it on the "
+                f"same mesh, or pass elastic=True to re-enter it on "
+                f"this one")
         try:
             meta, arrays = ckpt.load_arrays(path, require=("planes",))
             cursor = meta.get("extra")
@@ -733,21 +784,54 @@ def _latest_valid(directory: str, kind: str, registry=None):
 
 
 
-def _iter_valid_elastic(directory: str, registry=None):
-    """The scan of an ELASTIC resume: yields every step checkpoint (in
-    canonical or, from older chains, physical layout) that loads and
-    digests cleanly, newest first, in CANONICAL LOGICAL ORDER via
-    checkpoint.load_step_elastic. Corrupt or unreadable entries skip
-    loudly to older ones, exactly like the strict scanner; a gang step is
-    refused typed (ROADMAP A10c); the caller advances past entries the
-    target plan cannot re-enter. Yields (cursor, canonical_planes,
-    path)."""
+def _latest_valid_gang(directory: str, kind: str, registry=None):
+    """Gang counterpart of _latest_valid (ref :612): the newest committed
+    gang checkpoint whose every shard digests cleanly and whose
+    per-process cursors agree. Validity is a function of the shared
+    directory alone (load_step_gang verifies every shard on every
+    process), so every process lands on the same checkpoint: a mid-save
+    kill left its step uncommitted, and corruption anywhere skips the
+    whole gang to the same older cut. A plain step (written by a
+    one-process run) is refused typed. Returns (cursor, planes, path) or
+    None."""
+    import os
     for step, path in reversed(ckpt.step_dirs(directory)):
-        if ckpt.is_gang_step(path):
+        if os.path.exists(os.path.join(path, ckpt._META_NAME)):
             raise DurableError(
-                f"Invalid durable resume: checkpoint {path!r} was written "
-                f"by a multi-process gang run, which needs multi-process "
-                f"meshes (not ported yet, ROADMAP A10c)")
+                f"Invalid durable resume: checkpoint {path!r} was "
+                f"written by a single-process run, but this is a "
+                f"multi-host gang resume; resume it on the writing "
+                f"mesh, or pass elastic=True to re-enter it on this "
+                f"one")
+        try:
+            metas, planes = ckpt.load_step_gang(path, kind_extra=kind)
+            cursor = metas[0].get("extra")
+            cut = cursor.get("step")
+            if int(cut) != step:
+                raise ckpt.CheckpointError(
+                    f"Invalid checkpoint: {path!r} carries cursor cut "
+                    f"{cut!r}, directory name says {step}")
+        except (ckpt.CheckpointError, OSError, TypeError, ValueError,
+                faults.InjectedFault) as e:
+            _counter("durable_corrupt_checkpoints_skipped",
+                     registry).inc()
+            print(f"[durable] SKIPPING corrupt gang checkpoint {path!r} "
+                  f"({e}); falling back to the previous one",
+                  file=sys.stderr, flush=True)
+            continue
+        return cursor, planes, path
+    return None
+
+
+def _iter_valid_elastic(directory: str, registry=None):
+    """The scan of an ELASTIC resume: yields every step checkpoint, plain
+    (canonical or, from older chains, physical layout) or gang, that
+    loads and digests cleanly, newest first, in CANONICAL LOGICAL ORDER
+    via checkpoint.load_step_elastic. Corrupt or unreadable entries skip
+    loudly to older ones, exactly like the strict scanners; the caller
+    advances past entries the target plan cannot re-enter. Yields
+    (cursor, canonical_planes, path)."""
+    for step, path in reversed(ckpt.step_dirs(directory)):
         try:
             cursor, planes = ckpt.load_step_elastic(path)
             cut = cursor.get("step")
@@ -876,13 +960,17 @@ def run_durable(circuit, state: Qureg, directory: str, *,
         raise ValueError(f"every must be >= 1, got {every}")
     is_f32 = state.real_dtype == np.dtype(np.float32)
     engine = _resolve_state_engine(engine, n, is_f32, mesh)
-    device = (mesh.devices[0] if mesh is not None else state.amps.device)
+    device = (mesh.local_devices[0] if mesh is not None
+              else state.amps.device)
     steps, info = _build_steps(circuit, n, density, engine, mesh, device,
                                is_f32)
     integrity = knob_value("QUEST_INTEGRITY")
     tol = knob_value("QUEST_INTEGRITY_TOL")
     if elastic is None:
         elastic = bool(knob_value("QUEST_DURABLE_ELASTIC"))
+    # gang mode: one gang-consistent checkpoint a cut across the mesh's
+    # processes, its cursor fields equal on every process
+    gang = mesh is not None and mesh.world > 1
 
     want = {
         "engine": engine,
@@ -893,7 +981,8 @@ def run_durable(circuit, state: Qureg, directory: str, *,
         "mode_key": info["mode_key"],
         "circuit_ops": info["circuit_ops"],
         "plan_sha": _ops_sha(circuit.ops),
-        "state_fp": _state_fingerprint(state),
+        "state_fp": (_state_fingerprint_gang(state, mesh) if gang
+                     else _state_fingerprint(state)),
     }
     elastic_want = {
         "sched_sha": info["sched_sha"],
@@ -920,10 +1009,14 @@ def run_durable(circuit, state: Qureg, directory: str, *,
         if resume is not None:
             start, amps, baseline = resume
     else:
-        found = _latest_valid(directory, "state", registry)
+        found = (_latest_valid_gang(directory, "state", registry) if gang
+                 else _latest_valid(directory, "state", registry))
         if found is not None:
-            meta, arrays, cursor, path = found
-            planes = arrays["planes"]
+            if gang:
+                cursor, planes, path = found
+            else:
+                meta, arrays, cursor, path = found
+                planes = arrays["planes"]
             _validate_cursor(cursor, want, path)
             step = int(cursor["step"])
             perm = _cut_perm(info, step)
@@ -965,22 +1058,39 @@ def run_durable(circuit, state: Qureg, directory: str, *,
             cursor = dict(want, **elastic_want, kind="state", step=done,
                           perm=perm_cut, baseline=baseline,
                           ops_done=info["ops_done_at"][done],
-                          layout="canonical")
-            # canonical logical order before digesting: the file's meaning
-            # does not depend on the writer's relabel history (an exact
-            # index permutation, undone bit for bit at a strict resume)
-            planes_np = ckpt._host_planes(amps)
-            if perm_cut:
-                from quest_tpu_torch.parallel import relabel as R
-                planes_np = R.canonicalize_planes(planes_np, perm_cut)
-            ckpt.save_step(directory, done,
-                           qureg=Qureg(amps=planes_np,
-                                       num_qubits=state.num_qubits,
-                                       is_density=state.is_density),
-                           extra=cursor, keep=keep)
-            _counter("durable_checkpoints_saved", registry).inc()
-            _registry_of(registry).gauge(
-                "durable_last_checkpoint_step").set(done)
+                          layout="physical" if gang else "canonical")
+            stamped = True
+            if gang:
+                # gang shards stay in the physical layout (no process
+                # holds its peers' canonical columns); the perm in the
+                # digested cursor makes the step's meaning
+                # writer-independent (load_step_elastic normalizes)
+                committed = ckpt.save_step_gang(
+                    directory, done, qureg=state.replace_amps(amps),
+                    extra=cursor, keep=keep)
+                # a save a killed peer never stamped is not a saved
+                # checkpoint (a slower peer's commit counts there)
+                import os
+                stamped = (committed is not None
+                           or os.path.isdir(ckpt.step_path(directory, done)))
+            else:
+                # canonical logical order before digesting: the file's
+                # meaning does not depend on the writer's relabel history
+                # (an exact index permutation, undone bit for bit at a
+                # strict resume)
+                planes_np = ckpt._host_planes(amps)
+                if perm_cut:
+                    from quest_tpu_torch.parallel import relabel as R
+                    planes_np = R.canonicalize_planes(planes_np, perm_cut)
+                ckpt.save_step(directory, done,
+                               qureg=Qureg(amps=planes_np,
+                                           num_qubits=state.num_qubits,
+                                           is_density=state.is_density),
+                               extra=cursor, keep=keep)
+            if stamped:
+                _counter("durable_checkpoints_saved", registry).inc()
+                _registry_of(registry).gauge(
+                    "durable_last_checkpoint_step").set(done)
             _registry_of(registry).histogram("durable_checkpoint_s").observe(
                 _time.perf_counter() - t0)
     if integrity:
@@ -990,6 +1100,10 @@ def run_durable(circuit, state: Qureg, directory: str, *,
     if torch.is_tensor(amps) and torch.is_tensor(state.amps):
         amps = amps.reshape(state.amps.shape)
     out = state.replace_amps(amps)
+    if gang:
+        # no process clears the chain while a peer may still write its
+        # last slice
+        mesh.barrier()
     _clear_chain(directory)
     return out
 

@@ -342,6 +342,8 @@ class ServeEngine:
         # durable jobs run sharded over durable_mesh (a parallel.AmpMesh)
         # when one is given; durable_elastic lets a job resume a chain
         # that a replica on another mesh left behind
+        from quest_tpu_torch.parallel.mesh import refuse_process_mesh
+        refuse_process_mesh(durable_mesh, "ServeEngine(durable_mesh=)")
         self.durable_mesh = durable_mesh
         self.durable_elastic = durable_elastic
         # the worker generation: the watchdog supersedes a wedged worker

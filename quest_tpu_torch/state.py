@@ -113,9 +113,11 @@ def _make(num_qubits: int, is_density: bool, dtype, device, env) -> Qureg:
         device = env.device
     if mesh is not None:
         m = 1 << (n - mesh.global_qubits)
-        shards = [torch.zeros((2, m), dtype=precision.torch_dtype(rdt),
+        shards = [None if dev is None else
+                  torch.zeros((2, m), dtype=precision.torch_dtype(rdt),
                               device=dev) for dev in mesh.devices]
-        shards[0][0, 0] = 1.0
+        if shards[0] is not None:
+            shards[0][0, 0] = 1.0
         amps = SE.ShardedAmps(shards, mesh, n)
     else:
         amps = basis_planes(0, n=n, rdt=rdt, device=device)

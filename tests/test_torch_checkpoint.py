@@ -464,14 +464,51 @@ def test_save_arrays_roundtrip_and_load_rejects(tmp_path):
 
 
 def test_gang_steps_are_recognised_and_refused_typed(tmp_path):
-    path = str(tmp_path / "ckpt-00000004")
-    os.makedirs(path)
-    open(os.path.join(path, "meta-0.json"), "w").write("{}")
+    """A gang step round-trips (a register of one process takes the
+    plain step; two ranks' slices, written as each rank writes its own,
+    commit one gang step both packages read), and a torn or hollow one
+    is refused typed."""
+    from quest_tpu import checkpoint as JCK
+    from quest_tpu_torch.parallel.mesh import AmpMesh, shard_planes
+    n = 6
+    planes = torch.arange(2 << n, dtype=torch.float32).reshape(2, -1)
+    cursor = {"kind": "state", "step": 4, "perm": None}
+    one = ckpt.save_step_gang(str(tmp_path / "one"), 4,
+                              qureg=TS.create_qureg(n, device="cpu")
+                              .replace_amps(planes.clone()),
+                              extra=dict(cursor, layout="canonical"))
+    assert not ckpt.is_gang_step(one)
+    np.testing.assert_array_equal(ckpt.load_step_elastic(one)[1],
+                                  planes.numpy())
+    root = str(tmp_path / "gang")
+    for rank in (0, 1):
+        mesh = AmpMesh(["cpu"] * 2)
+        mesh.world, mesh.rank, mesh.lo = 2, rank, 2 * rank
+        mesh.local_ids = range(2 * rank, 2 * rank + 2)
+        mesh.devices = (None,) * (2 * rank) + mesh.local_devices + \
+            (None,) * (2 - 2 * rank)
+        q = TS.create_qureg(n, device="cpu").replace_amps(
+            shard_planes(planes, mesh, n))
+        path = ckpt.save_step_gang(root, 4, qureg=q, extra=cursor)
     assert ckpt.is_gang_step(path)
-    with pytest.raises(ckpt.CheckpointError, match="A10c"):
-        ckpt.load_step_elastic(path)
-    with pytest.raises(ckpt.CheckpointError, match="A10c"):
-        ckpt.save_step_gang(str(tmp_path), 4)
+    for load in (ckpt.load_step_elastic, JCK.load_step_elastic):
+        got_cursor, got = load(path)
+        assert got_cursor == cursor
+        np.testing.assert_array_equal(np.asarray(got), planes.numpy())
+    # a torn save: rank 1's cursor disagrees (its meta re-digested)
+    mpath = os.path.join(path, "meta-1.json")
+    meta = json.load(open(mpath))
+    meta["extra"] = dict(cursor, step=5)
+    meta["meta_digest"] = ckpt._meta_digest(meta)
+    json.dump(meta, open(mpath, "w"))
+    with pytest.raises(ckpt.CheckpointError, match="disagree"):
+        ckpt.load_step_gang(path)
+    hollow = str(tmp_path / "ckpt-00000004")
+    os.makedirs(hollow)
+    open(os.path.join(hollow, "meta-0.json"), "w").write("{}")
+    assert ckpt.is_gang_step(hollow)
+    with pytest.raises(ckpt.CheckpointError, match="self-digest"):
+        ckpt.load_step_elastic(hollow)
 
 
 # -- across the packages ------------------------------------------------------

@@ -1,7 +1,8 @@
 """Elastic durable resume in the port (quest_tpu_torch/resilience/durable.py
 with elastic=True or QUEST_DURABLE_ELASTIC=1), mirroring
-tests/test_elastic.py:115-409 (its gang, watchdog and fleet cases wait
-for multi-process meshes and the serving runtime, ROADMAP A10c / A12).
+tests/test_elastic.py:115-409 (its gang soak across processes is in
+tests/test_torch_gang.py, its watchdog and fleet cases in the serving
+tests).
 
 A checkpoint chain is a property of the logical state: written canonical,
 it re-enters any mesh that holds the amplitudes. On the mesh-portable

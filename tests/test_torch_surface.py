@@ -20,7 +20,7 @@ from quest_tpu_torch import env as TE
 from quest_tpu_torch import measurement as MS
 from quest_tpu_torch import precision
 from quest_tpu_torch import state as TS
-from quest_tpu_torch.parallel.mesh import ShardedAmps
+from quest_tpu_torch.parallel.mesh import ProcessGroupError, ShardedAmps
 
 pytestmark = pytest.mark.dtype_agnostic
 
@@ -48,7 +48,7 @@ def test_constructors_take_the_reference_order():
         TS.create_qureg(4, None, np.complex64, "cpu")   # device is keyword
 
 
-def test_quest_env_takes_a_device_list_first():
+def test_quest_env_takes_a_device_list_first(monkeypatch):
     env = qtt.QuESTEnv(["cpu", "cpu"])
     assert env.num_ranks == 2 and env.mesh.size == 2
     q = qtt.create_qureg(4, env)
@@ -59,8 +59,16 @@ def test_quest_env_takes_a_device_list_first():
     assert qtt.QuESTEnv(["cpu"]).num_ranks == 1
     assert qtt.create_quest_env(["cpu"] * 4).num_ranks == 4
     assert qtt.QuESTEnv(torch.device("cpu")).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A10c"):
-        qtt.QuESTEnv(["cpu"], True)
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        # a mesh over processes joins a group from the env:// variables,
+        # and names the ones it misses; never a quiet one-process env
+        for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(var, raising=False)
+        with pytest.raises(ProcessGroupError,
+                           match="RANK, WORLD_SIZE, MASTER_ADDR, "
+                                 "MASTER_PORT"):
+            qtt.QuESTEnv(["cpu"], True)
     with pytest.raises(TypeError):
         qtt.QuESTEnv(["cpu"], device="cpu")     # one way to name a device
 
