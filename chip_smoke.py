@@ -17,7 +17,12 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
   1. prints the card's name and power limit (nvidia-smi) and builds the
      segment kernel (csrc/segment.cu) for sm_90a from the checkout: nine
      instantiations, the three drivers at the three matmul tiers, and its
-     phase-counter build beside it (two nvcc processes at once);
+     phase-counter build beside it (two nvcc processes at once); while
+     nvcc compiles, the probe and sanitize subprocesses start (they wait
+     on the build lock, their timeouts counted from the build's end),
+     a host thread runs the host half of the front ends (phase 34) and
+     three more draw the seeded full-width input planes of diag_layer,
+     dma_floor, stage_timing, phase_counters and scan;
      probe: in a subprocess with a 120 s timeout (a slip of an mbarrier's
      phase hangs rather than errs), the first launches of every driver —
      K1, K2 at 2, 3 and 8 plane slots, K3 — on every stage case below,
@@ -247,7 +252,8 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      qaoa, rcs, adder, ghz in the rebased 1q+CX basis) at 28 qubits:
      per class the ops and stream_cost sweeps raw and transpiled, host ms
      of the import, the transpile and the autotune search (cold and warm,
-     in a throwaway QUEST_PLAN_CACHE_DIR), the chosen engine and its
+     in a throwaway QUEST_PLAN_CACHE_DIR; taken on a host thread while
+     nvcc builds, phase 1), the chosen engine and its
      priced ms; the raw and the transpiled stream through compiled_fused
      (K1 launches counted, at least one; warm step ms, median of 3, CUDA
      events), the transpiled planes within 1e-4 x max|amp| of the raw and
@@ -413,7 +419,21 @@ QUEST_FUSED_PIPELINE=1), unless it names another:
      bit for bit; the mid-save kill (rank 1 dies between its slice and
      its stamp in the second save, rank 0 is preempted after it): the
      step never commits, both resume the same earlier cut, bit for bit;
-     one gang save, hash and load timed per rank.
+     one gang save, hash and load timed per rank. Then, at 28 qubits
+     over the same mesh: (d) value_and_grad(mesh=) with the adjoint walk
+     of a 2-layer rx/ry ansatz (56 parameters) against TFIM-28: energy
+     and gradient equal on both ranks, within 1e-5 relative of the
+     one-process 4-shard mesh (rank 0 alone), issued exchanges equal to
+     fn.comm_record; ms a call, its pair exchanges' copy-out / gloo /
+     copy-in split and a rank's peak memory; (e) the taped engine on
+     the process mesh at MP_TAPED_QUBITS, where auto picks it by
+     capacity_stats (the widest such width of this ansatz on the card is
+     recorded), within 1e-5 relative of the adjoint walk there; (f)
+     plan.autotune(mesh=): both ranks' plans equal and equal to the
+     one-process autotune(devices=4) under the mesh's topology; (g)
+     save_sharded of a 28q register across the ranks (each writes its
+     own shards), then load_sharded onto a one-process 4-shard mesh on
+     each rank, bit for bit; ms a rank.
 
 Every phase record carries `seconds` (since the phase began); the
 `seconds` line before the kernels line lists them all.
@@ -444,6 +464,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -576,11 +597,170 @@ def kernel_resources(log: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# work started just before the build, so that it runs while nvcc compiles
+# (the host's other cores are idle then): the probe and sanitize
+# subprocesses, which wait on the build lock for the kernel and whose
+# timeouts count from the build's end; the host half of phase_frontends
+# on a host thread; and the full-width input planes that five phases draw
+# from seeded numpy generators (PLANE_DRAWS), on three host threads. The
+# threads are joined at the build's end; the phases read the results in
+# their usual places.
+# ---------------------------------------------------------------------------
+
+DURING_BUILD = {}
+BUILT = threading.Event()         # clear while a build runs
+BUILT.set()
+
+
+def _in_thread(fn, *args):
+    """fn(*args) on a daemon thread: a Future of its result."""
+    from concurrent.futures import Future
+    fut = Future()
+
+    def run():
+        try:
+            fut.set_result(fn(*args))
+        except BaseException as e:          # raised by fut.result()
+            fut.set_exception(e)
+    threading.Thread(target=run, daemon=True).start()
+    return fut
+
+
+def _spawn_self(flag: str, prefix=()):
+    """This script with `flag` in a subprocess (after the command
+    `prefix`), its output in a temp file: (Popen, file)."""
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [*prefix, sys.executable, os.path.abspath(__file__), flag],
+        stdout=out, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, out
+
+
+def _finish(proc, out, timeout: float):
+    """(exit code or None on timeout, output) of a _spawn_self process,
+    waited on for `timeout` seconds after the build; killed on timeout."""
+    BUILT.wait()
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.seek(0)
+    text = out.read()
+    out.close()
+    return rc, text
+
+
+def start_during_build(want) -> None:
+    """Start what runs while nvcc compiles (above), for the wanted phases.
+    The gallery's plan cache is a fresh directory named in the
+    environment here, before any thread or subprocess starts."""
+    BUILT.clear()
+    _queue_plane_draws(want)
+    if want("probe"):
+        DURING_BUILD["probe"] = _spawn_self("--probe")
+    if want("sanitize"):
+        DURING_BUILD["sanitize"] = _in_thread(sanitize_checks)
+    if want("frontends"):
+        plans = tempfile.mkdtemp(prefix="quest_plans_")
+        DURING_BUILD["plans"] = (plans, os.environ.get("QUEST_PLAN_CACHE_DIR"))
+        os.environ["QUEST_PLAN_CACHE_DIR"] = plans
+        DURING_BUILD["frontends"] = _in_thread(frontends_host,
+                                               FRONTEND_QUBITS)
+
+
+# the full-width input planes that phases draw on the host from a seeded
+# numpy generator (one draw of 2^29 normals takes seconds on the card's
+# host): (seed, shape, draws) -> [Future of (generator state after the
+# draws, the draws as float32), uses left]
+PLANE_DRAWS = {}
+
+
+def _draw_planes(seed: int, shape, count: int):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for _ in range(count)]
+    return rng.bit_generator.state, arrays
+
+
+def seeded_planes(seed: int, shape, count: int = 1):
+    """(rng, draws): np.random.default_rng(seed) after its first `count`
+    draws of standard normals of `shape`, and those draws as float32 (the
+    same numbers, drawn while nvcc built where start_during_build
+    queued them, or drawn here)."""
+    key = (seed, tuple(shape), count)
+    entry = PLANE_DRAWS.get(key)
+    if entry is None:
+        state, arrays = _draw_planes(seed, shape, count)
+    else:
+        state, arrays = entry[0].result()
+        entry[1] -= 1
+        if not entry[1]:
+            del PLANE_DRAWS[key]
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
+    return rng, arrays
+
+
+def _queue_plane_draws(want) -> None:
+    """Queue the wanted phases' plane draws on three host threads (the
+    generator's fill runs without the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from quest_tpu_torch.state import fused_state_shape
+    full = (2, 1 << TIMING_QUBITS)
+    draws = [("diag_layer", 12, (2, 1 << DIAG_QUBITS), 1),
+             ("dma_floor", 5, full, 1), ("stage_timing", 7, full, 1),
+             ("phase_counters", 7, full, 1),
+             ("scan", 11, fused_state_shape(SCAN_QUBITS), 2)]
+    pool = ThreadPoolExecutor(3)
+    for phase, seed, shape, count in draws:
+        if not want(phase):
+            continue
+        key = (seed, tuple(shape), count)
+        if key in PLANE_DRAWS:
+            PLANE_DRAWS[key][1] += 1
+        else:
+            PLANE_DRAWS[key] = [pool.submit(_draw_planes, seed, shape,
+                                            count), 1]
+    pool.shutdown(wait=False)
+
+
+def stop_during_build() -> None:
+    """Kill what start_during_build started that still runs."""
+    DURING_BUILD["stopped"] = True
+    for key in ("probe", "sanitize_proc"):
+        if key in DURING_BUILD:
+            DURING_BUILD[key][0].kill()
+
+
 def phase_build():
     from quest_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    # the kernel and its phase-counter build (phase_counters), side by side
-    built = _build.build(_build.KERNEL, _build.COUNTERS)
+    try:
+        # the kernel and its phase-counter build (phase_counters), side by
+        # side
+        built = _build.build(_build.KERNEL, _build.COUNTERS)
+    except BaseException:
+        stop_during_build()
+        raise
+    finally:
+        BUILT.set()
+    t_nvcc = time.perf_counter() - t0
+    # joined here, raised by their phases
+    for fut in ([DURING_BUILD[k] for k in ("sanitize", "frontends")
+                 if k in DURING_BUILD]
+                + [entry[0] for entry in PLANE_DRAWS.values()]):
+        fut.exception()
+    if "frontends" in DURING_BUILD:
+        plans, saved = DURING_BUILD.pop("plans")
+        DURING_BUILD["plans_dir"] = plans
+        if saved is None:
+            os.environ.pop("QUEST_PLAN_CACHE_DIR", None)
+        else:
+            os.environ["QUEST_PLAN_CACHE_DIR"] = saved
     from quest_tpu_torch.ops import segment as S
     S._lib()
     kernels = kernel_resources(_build.BUILD_LOG)
@@ -593,7 +773,11 @@ def phase_build():
     if spills:
         raise AssertionError(f"build: register spills {spills}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": built, "kernels": kernels})
+          "nvcc_seconds": built, "build_wall_s": t_nvcc,
+          "during_build": sorted(k for k in DURING_BUILD
+                                 if k != "plans_dir"),
+          "plane_draws": len(PLANE_DRAWS),
+          "kernels": kernels})
 
 
 def _random_mat(rng, dim, real=False):
@@ -973,9 +1157,9 @@ def phase_diag_layer(torch):
     from quest_tpu_torch import entry as E
     from quest_tpu_torch.ops import segment as S
     n = DIAG_QUBITS
-    rng = np.random.default_rng(12)
-    planes = torch.from_numpy(
-        rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
+    rng, (host,) = seeded_planes(12, (2, 1 << n))
+    planes = torch.from_numpy(host).cuda()
+    del host
     planes /= planes.double().pow(2).sum().sqrt().float()
     recs = []
     for name, circ in (("diag_layer", E.diag_layer_circuit(n)),
@@ -2100,10 +2284,10 @@ def phase_stage_timing(torch):
     from quest_tpu_torch.ops import band_plan as BP
     from quest_tpu_torch.ops import segment as S
     n = TIMING_QUBITS
-    rng = np.random.default_rng(7)
+    rng, (host,) = seeded_planes(7, (2, 1 << n))
     m64 = np.random.default_rng(64)
-    planes = torch.from_numpy(
-        rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
+    planes = torch.from_numpy(host).cuda()
+    del host
     planes /= planes.double().pow(2).sum().sqrt().float()
     # (name, (stage, operand), first qubit of the contracted bits or None)
     cases = [("b0", mat_op(rng, "b0", 128), 0),
@@ -2195,9 +2379,9 @@ def phase_phase_counters(torch):
     from quest_tpu_torch import profiling
     from quest_tpu_torch.ops import segment as S
     n = TIMING_QUBITS
-    rng = np.random.default_rng(7)
-    planes = torch.from_numpy(
-        rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
+    rng, (host,) = seeded_planes(7, (2, 1 << n))
+    planes = torch.from_numpy(host).cuda()
+    del host
     planes /= planes.double().pow(2).sum().sqrt().float()
     cases = [("b0", mat_op(rng, "b0", 128)), ("b1", mat_op(rng, "b1", 128)),
              ("scb128", mat_op(rng, "scb", 128, bit=7))]
@@ -4131,39 +4315,34 @@ def _rank_engines(torch, c, n: int) -> dict:
     return r
 
 
-def phase_frontends(torch):
-    """The gallery at FRONTEND_QUBITS through the front ends (module
-    docstring, phase 34), then the engine ranking at RANK_QUBITS."""
-    import tempfile
+def frontends_host(n: int) -> dict:
+    """The host half of phase_frontends, no kernel and no launch (run on
+    a host thread while nvcc builds, the plan cache the fresh directory
+    start_during_build named): each gallery class at n qubits imported
+    from QASM, transpiled cold and warm and, ghz aside, its plan searched
+    cold and warm (the warm search a hit of the plan cache), on the
+    host's clock. {class: (raw, transpiled, record)}."""
     from quest_tpu_torch import plan as P
     from quest_tpu_torch import transpile as T
     from quest_tpu_torch.circuit import Circuit
     from quest_tpu_torch.entry import GALLERY_CLASSES, gallery_qasm
-    from quest_tpu_torch.ops import segment as S
-    t0 = time.perf_counter()
-    n = FRONTEND_QUBITS
-    rec = {"phase": "frontends", "n": n, "classes": {}}
-    with tempfile.TemporaryDirectory(prefix="quest_plans_") as cache, \
-            env_knob("QUEST_PLAN_CACHE_DIR", cache):
-        texts = gallery_qasm(n)
-        for cls in GALLERY_CLASSES:
-            t_import = time.perf_counter()
-            raw = Circuit.from_qasm(texts[cls], transpile=False)
-            r = {"import_ms": (time.perf_counter() - t_import) * 1e3}
-            t_tr = time.perf_counter()
-            tc, rep = T.transpile_cached(raw)
-            r["transpile_cold_ms"] = (time.perf_counter() - t_tr) * 1e3
-            t_tr = time.perf_counter()
-            T.transpile_cached(raw)
-            r["transpile_warm_ms"] = (time.perf_counter() - t_tr) * 1e3
-            r.update(ops_raw=len(raw.ops), ops_transpiled=len(tc.ops),
-                     sweeps_raw=T.stream_cost(raw)[0],
-                     sweeps_transpiled=T.stream_cost(tc)[0],
-                     passes={k: v for k, v in rep["passes"].items() if v})
-            if cls == "ghz":
-                r.update(_frontend_ghz(torch, raw, tc, n))
-                rec["classes"][cls] = r
-                continue
+    out = {}
+    texts = gallery_qasm(n)
+    for cls in GALLERY_CLASSES:
+        t_import = time.perf_counter()
+        raw = Circuit.from_qasm(texts[cls], transpile=False)
+        r = {"import_ms": (time.perf_counter() - t_import) * 1e3}
+        t_tr = time.perf_counter()
+        tc, rep = T.transpile_cached(raw)
+        r["transpile_cold_ms"] = (time.perf_counter() - t_tr) * 1e3
+        t_tr = time.perf_counter()
+        T.transpile_cached(raw)
+        r["transpile_warm_ms"] = (time.perf_counter() - t_tr) * 1e3
+        r.update(ops_raw=len(raw.ops), ops_transpiled=len(tc.ops),
+                 sweeps_raw=T.stream_cost(raw)[0],
+                 sweeps_transpiled=T.stream_cost(tc)[0],
+                 passes={k: v for k, v in rep["passes"].items() if v})
+        if cls != "ghz":
             P.reset_cache_stats()
             t_at = time.perf_counter()
             plan = P.autotune(raw, device=CARD)
@@ -4177,23 +4356,58 @@ def phase_frontends(torch):
                 raise AssertionError(f"frontends {cls}: plan cache {st}")
             r.update(engine=plan.engine, priced_ms=plan.cost["total_ms"],
                      incumbent=plan.incumbent, device_kind=plan.device_kind)
-            r.update(_frontend_streams(torch, S, raw, tc, n))
-            rec["classes"][cls] = r
-            del raw, tc
-            _free(torch)
-        rec["gallery_seconds"] = time.perf_counter() - t0
-        texts = gallery_qasm(RANK_QUBITS)
-        rank = {}
-        for cls in RANK_CLASSES:
-            c = Circuit.from_qasm(texts[cls], transpile=False)
-            if cls == "qft":
-                c = T.transpile_cached(c)[0]
-            rank[cls] = _rank_engines(torch, c, RANK_QUBITS)
-            _free(torch)
-        rec["ranking"] = {"n": RANK_QUBITS, **rank}
+        out[cls] = (raw, tc, r)
+    return out
+
+
+def phase_frontends(torch):
+    """The gallery at FRONTEND_QUBITS through the front ends (module
+    docstring, phase 34): frontends_host's records (taken while nvcc
+    built, or here), then each class on the card; then the engine
+    ranking at RANK_QUBITS."""
+    from quest_tpu_torch.ops import segment as S
+    t0 = time.perf_counter()
+    n = FRONTEND_QUBITS
+    rec = {"phase": "frontends", "n": n, "classes": {}}
+    host = DURING_BUILD.pop("frontends", None)
+    cache = (DURING_BUILD.pop("plans_dir", None)
+             or tempfile.mkdtemp(prefix="quest_plans_"))
+    try:
+        with env_knob("QUEST_PLAN_CACHE_DIR", cache):
+            gallery = host.result() if host is not None else frontends_host(n)
+            rec["host_during_build"] = host is not None
+            for cls in list(gallery):
+                raw, tc, r = gallery.pop(cls)
+                if cls == "ghz":
+                    r.update(_frontend_ghz(torch, raw, tc, n))
+                else:
+                    r.update(_frontend_streams(torch, S, raw, tc, n))
+                rec["classes"][cls] = r
+                del raw, tc
+                _free(torch)
+            rec["gallery_seconds"] = time.perf_counter() - t0
+            rank_engines(torch, rec)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
     rec["seconds"] = time.perf_counter() - t0
     emit_card(rec)
     return rec
+
+
+def rank_engines(torch, rec) -> None:
+    """The engine ranking at RANK_QUBITS into rec["ranking"]."""
+    from quest_tpu_torch import transpile as T
+    from quest_tpu_torch.circuit import Circuit
+    from quest_tpu_torch.entry import gallery_qasm
+    texts = gallery_qasm(RANK_QUBITS)
+    rank = {}
+    for cls in RANK_CLASSES:
+        c = Circuit.from_qasm(texts[cls], transpile=False)
+        if cls == "qft":
+            c = T.transpile_cached(c)[0]
+        rank[cls] = _rank_engines(torch, c, RANK_QUBITS)
+        _free(torch)
+    rec["ranking"] = {"n": RANK_QUBITS, **rank}
 
 
 def _api_script(api, q, n: int):
@@ -4383,7 +4597,7 @@ def phase_scan(torch):
     from quest_tpu_torch.entry import diag_layer_circuit
     from quest_tpu_torch.state import fused_state_shape
     n = SCAN_QUBITS
-    rng = np.random.default_rng(11)
+    _, inputs = seeded_planes(11, fused_state_shape(n), 2)
     rec = {"phase": "scan", "n": n, "cases": {}}
     diag = f"diag_layer{n}x{SCAN_ITERS}"
     for name, circ, iters in ((f"qft{n}", qft_circuit(n), 1),
@@ -4391,8 +4605,7 @@ def phase_scan(torch):
         parts, _ = circ.fused_parts(n, iters)
         case = {"scan_groups": sum(1 for g in _scan_partition(parts, SCAN_MIN)
                                    if g[0] == "scan")}
-        x0 = torch.from_numpy(rng.standard_normal(
-            fused_state_shape(n)).astype(np.float32)).to(CARD)
+        x0 = torch.from_numpy(inputs.pop(0)).to(CARD)
         x0 /= x0.double().pow(2).sum().sqrt().float()
         outs = {}
         for flag in ("0", "1"):
@@ -5907,6 +6120,8 @@ MP_QUBITS = 28                # the flagship (and the Bell pair) over it
 MP_DURABLE = (26, 20)         # qubits, depth: 512 MiB planes, 256 MiB a rank
 MP_BELL_SEEDS = (0, 1)
 MP_STEP_REPS = 3
+MP_TAPED_QUBITS = 24          # (e): auto picks the taped engine there
+MP_GRAD_TOL = 1e-5            # relative, (d) and (e)
 MP_TIMEOUT_S = 120.0          # a rank's bound on its group and each collective
 MP_WAIT_S = 240.0             # the parent's bound on the rank processes
 
@@ -5925,7 +6140,7 @@ def phase_multiprocess(torch):
     root = tempfile.mkdtemp(prefix="quest_mp_")
     cfg = {"card": CARD, "n": MP_QUBITS, "durable": list(MP_DURABLE),
            "seeds": list(MP_BELL_SEEDS), "reps": MP_STEP_REPS,
-           "timeout": MP_TIMEOUT_S}
+           "taped_n": MP_TAPED_QUBITS, "timeout": MP_TIMEOUT_S}
     with open(os.path.join(root, "config.json"), "w") as f:
         json.dump(cfg, f)
     # one BLAS / OpenMP thread a rank: the ranks' host planning would
@@ -5983,15 +6198,206 @@ def phase_multiprocess(torch):
     b0, b1 = r0["flagship"]["banded"], r1["flagship"]["banded"]
     if (b0["issued"], b0["strategy"]) != (b1["issued"], b1["strategy"]):
         raise AssertionError(f"multiprocess banded: ranks differ {b0} / {b1}")
+    _mp_gate_consumers(r0, r1)
     rec = {"phase": "multiprocess", "ranks": MP_RANKS,
            "shards": MP_RANKS * MP_SHARDS_PER_RANK, "n": MP_QUBITS,
            "durable_n": MP_DURABLE[0], "durable_depth": MP_DURABLE[1],
            "flagship": [r["flagship"] for r in ranks],
            "bell": r0["bell"], "durable": [r["durable"] for r in ranks],
            "join_s": [r["join_s"] for r in ranks],
+           "gradients": [r["gradients"] for r in ranks],
+           "autotune": [r["autotune"] for r in ranks],
+           "sharded_checkpoint": [r["sharded_checkpoint"] for r in ranks],
            "rank_seconds": [r["seconds"] for r in ranks],
            "k1": r0["k1"], "seconds": time.perf_counter() - t0}
     emit_card(rec)
+    return rec
+
+
+def _mp_gate_consumers(r0, r1) -> None:
+    """The parent's gates on (d)-(g): what the two ranks must agree on,
+    and rank 0's comparisons with the one-process mesh."""
+    g0, g1 = r0["gradients"], r1["gradients"]
+    for key in ("adjoint", "taped"):
+        a, b = g0[key], g1[key]
+        if not (a["equal_ranks"] and b["equal_ranks"]
+                and a["rel_err"] <= MP_GRAD_TOL):
+            raise AssertionError(f"multiprocess gradients ({key}): {a} / "
+                                 f"{b}")
+    if g0["adjoint"]["issued"] != g1["adjoint"]["issued"]:
+        raise AssertionError("multiprocess gradients: ranks issued "
+                             "different exchanges")
+    a0, a1 = r0["autotune"], r1["autotune"]
+    if not (a0["plan_sha"] == a1["plan_sha"] == a0["one_process_sha"]):
+        raise AssertionError(f"multiprocess autotune: {a0} / {a1}")
+    for r in (r0, r1):
+        if not r["sharded_checkpoint"]["bit_equal_one_process"]:
+            raise AssertionError("multiprocess sharded checkpoint: "
+                                 f"{r['sharded_checkpoint']}")
+
+
+def mp_ansatz(n: int, layers: int = 2, seed: int = 29):
+    """A hardware-efficient ansatz: per layer one rx or ry a qubit
+    (alternating, seeded angles) and a cz ring; 2 n parameters."""
+    from quest_tpu_torch.circuit import Circuit
+    rng = np.random.default_rng(seed)
+    c = Circuit(n)
+    for layer in range(layers):
+        for q in range(n):
+            (c.rx if (q + layer) % 2 else c.ry)(
+                q, float(rng.uniform(-np.pi, np.pi)))
+        for q in range(n):
+            c.cz(q, (q + 1) % n)
+    return c
+
+
+def _mp_vg(torch, mesh, fn, theta) -> dict:
+    """One value_and_grad call on the process mesh: (record, [E, grad]
+    on the host), the record holding ms, a rank's peak GiB, the issued
+    exchanges, the cross-process wire split, and whether every rank
+    holds the same energy and gradient."""
+    base = _reset_peak(torch)
+    mesh.recorder.reset()
+    w0 = dict(mesh.wire)
+    mesh.barrier()
+    ms, (v, g) = _wall(torch, lambda: fn(theta))
+    vg = torch.cat([v.double().reshape(1), g.double()]).cpu()
+    seen = mesh.host_all_gather(vg)
+    w1 = mesh.wire
+    return {"ms": ms, "peak_gib": _peak_gib(torch, base),
+            "issued": mesh.recorder.stats(mesh.size),
+            "predicted": fn.comm_record, "engine": fn.engine,
+            "equal_ranks": all(torch.equal(x, seen[0]) for x in seen),
+            "wire": {"copy_out_ms": (w1["copy_out_s"] - w0["copy_out_s"])
+                     * 1e3,
+                     "gloo_ms": (w1["gloo_s"] - w0["gloo_s"]) * 1e3,
+                     "copy_in_ms": (w1["copy_in_s"] - w0["copy_in_s"]) * 1e3,
+                     "bytes_out": w1["bytes_out"] - w0["bytes_out"],
+                     "calls": w1["calls"] - w0["calls"]}}, vg
+
+
+def _rel_err(a, b) -> float:
+    """max of |dE| / |E| and max|d grad| / max|grad| of two [E, grad]
+    vectors."""
+    return max(abs(float(a[0] - b[0])) / abs(float(b[0])),
+               float((a[1:] - b[1:]).abs().max() / b[1:].abs().max()))
+
+
+def _mp_gradients(torch, mesh, cfg, dev, rank) -> dict:
+    """(d) the adjoint walk over the process mesh at the phase's width
+    against the one-process mesh, (e) the taped engine where auto picks
+    it, against the adjoint walk there."""
+    from quest_tpu_torch import adjoint as AD
+    from quest_tpu_torch.entry import tfim_sum
+    from quest_tpu_torch.parallel.mesh import make_amp_mesh
+    t0 = time.perf_counter()
+    n = cfg["n"]
+    codes, coeffs = tfim_sum(n)
+    c = mp_ansatz(n)
+    fn = AD.value_and_grad(c, codes, coeffs=coeffs, mesh=mesh,
+                           engine="adjoint")
+    theta = torch.as_tensor(fn.initial_params, dtype=torch.float32,
+                            device=dev)
+    adj, vg = _mp_vg(torch, mesh, fn, theta)
+    pred, issued = adj["predicted"], adj["issued"]
+    if any(issued[k] != pred[k] for k in ("collective_permutes",
+                                          "all_to_alls", "all_reduces")):
+        raise AssertionError(f"multiprocess gradients: issued {issued}, "
+                             f"predicted {pred}")
+    adj.update(n=n, params=int(fn.num_params), rel_err=0.0)
+    del fn
+    _free(torch)
+    mesh.barrier()
+    if rank == 0:           # the one-process 4-shard mesh, rank 0 alone
+        one = make_amp_mesh(mesh.size, devices=[dev] * mesh.size)
+        f1 = AD.value_and_grad(c, codes, coeffs=coeffs, mesh=one,
+                               engine="adjoint")
+        adj["one_process_ms"], (v1, g1) = _wall(torch, lambda: f1(theta))
+        ref = torch.cat([v1.double().reshape(1), g1.double()]).cpu()
+        adj["rel_err"] = _rel_err(vg, ref)
+        adj["energy"] = float(vg[0])
+        del f1, one
+        _free(torch)
+    mesh.barrier()
+    # (e): auto resolves the taped engine on the mesh at taped_n
+    nt = cfg["taped_n"]
+    widest = max(k for k in range(8, 40) if AD.capacity_stats(
+        k, 2 * k, 0, np.float32, dev)["taped_fits"])
+    codes_t, coeffs_t = tfim_sum(nt)
+    ct = mp_ansatz(nt)
+    with env_knob("QUEST_ADJOINT", "auto"):
+        ft = AD.value_and_grad(ct, codes_t, coeffs=coeffs_t, mesh=mesh)
+    if ft.engine != "taped":
+        raise AssertionError(f"multiprocess gradients: auto picked "
+                             f"{ft.engine} at {nt} qubits")
+    th = torch.as_tensor(ft.initial_params, dtype=torch.float32, device=dev)
+    tap, vt = _mp_vg(torch, mesh, ft, th)
+    fa = AD.value_and_grad(ct, codes_t, coeffs=coeffs_t, mesh=mesh,
+                           engine="adjoint")
+    adj_t, va = _mp_vg(torch, mesh, fa, th)
+    tap.update(n=nt, params=int(ft.num_params), widest_taped_qubits=widest,
+               rel_err=_rel_err(vt, va), adjoint_ms=adj_t["ms"],
+               adjoint_peak_gib=adj_t["peak_gib"])
+    del ft, fa
+    _free(torch)
+    return {"adjoint": adj, "taped": tap,
+            "seconds": time.perf_counter() - t0}
+
+
+def _mp_autotune(torch, mesh, cfg, dev, rank) -> dict:
+    """(f) plan.autotune(mesh=) of the ansatz at the phase's width on each
+    rank, and on rank 0 the one-process autotune(devices=) under the
+    mesh's topology: sha256 of each plan's fields."""
+    import hashlib
+    from quest_tpu_torch import plan as PL
+    from quest_tpu_torch.parallel import comm as CM
+
+    def sha(p):
+        return hashlib.sha256(json.dumps(
+            dataclasses.asdict(p), sort_keys=True,
+            default=str).encode()).hexdigest()
+    c = mp_ansatz(cfg["n"])
+    ms, p = _wall(torch, lambda: PL.autotune(c, mesh=mesh, persist=False))
+    rec = {"ms": ms, "engine": p.engine, "plan_sha": sha(p),
+           "topology": CM.topology(mesh.size, mesh).describe(mesh.size)}
+    if rank == 0:
+        rec["one_process_sha"] = sha(PL.autotune(
+            c, devices=mesh.size, topology=CM.topology(mesh.size, mesh),
+            persist=False, device=dev))
+    return rec
+
+
+def _mp_sharded_checkpoint(torch, mesh, cfg, dev, root) -> dict:
+    """(g) save_sharded of a 28q register over the process mesh, each
+    rank its own shards, then load_sharded onto a one-process 4-shard
+    mesh on each rank: its shards bit for bit this rank's."""
+    from quest_tpu_torch import checkpoint as ckpt
+    from quest_tpu_torch.parallel.mesh import ShardedAmps, make_amp_mesh
+    from quest_tpu_torch.state import Qureg
+    n = cfg["n"]
+    m = 1 << (n - mesh.global_qubits)
+    shards = [None] * mesh.size
+    for d in mesh.local_ids:
+        gen = torch.Generator(device=dev).manual_seed(100 + d)
+        shards[d] = torch.rand((2, m), generator=gen, device=dev)
+    q = Qureg(amps=ShardedAmps(shards, mesh, n), num_qubits=n)
+    path = os.path.join(root, "sharded-ckpt")
+    mesh.barrier()
+    save_ms, _ = _wall(torch, lambda: ckpt.save_sharded(q, path))
+    mesh.barrier()
+    one = make_amp_mesh(mesh.size, devices=[dev] * mesh.size)
+    load_ms, back = _wall(torch, lambda: ckpt.load_sharded(path, mesh=one))
+    equal = all(torch.equal(back.amps.shards[d], shards[d])
+                for d in mesh.local_ids)
+    rec = {"save_ms": save_ms, "load_one_process_ms": load_ms,
+           "bytes_a_rank": 2 * m * 4 * len(mesh.local_ids),
+           "bit_equal_one_process": equal,
+           "files": sorted(os.listdir(path))}
+    del back, q, shards
+    mesh.barrier()
+    if mesh.rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    _free(torch)
     return rec
 
 
@@ -6387,6 +6793,17 @@ def mp_rank(torch, rank: int, root: str) -> int:
         print(f"rank {rank}: bell ok", flush=True)
         rec["durable"] = _mp_durable(torch, mesh, cfg, dev, rank, root)
         print(f"rank {rank}: durable ok", flush=True)
+        rec["gradients"] = _mp_gradients(torch, mesh, cfg, dev, rank)
+        print(f"rank {rank}: gradients ok", flush=True)
+        t0 = time.perf_counter()
+        rec["autotune"] = _mp_autotune(torch, mesh, cfg, dev, rank)
+        rec["autotune"]["seconds"] = time.perf_counter() - t0
+        print(f"rank {rank}: autotune ok", flush=True)
+        t0 = time.perf_counter()
+        rec["sharded_checkpoint"] = _mp_sharded_checkpoint(torch, mesh, cfg,
+                                                           dev, root)
+        rec["sharded_checkpoint"]["seconds"] = time.perf_counter() - t0
+        print(f"rank {rank}: sharded checkpoint ok", flush=True)
         rec["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(root, f"rank-{rank}.json"), "w") as f:
             json.dump(rec, f)
@@ -6559,21 +6976,18 @@ def probe_drivers(torch):
 
 
 def phase_probe(torch):
-    """probe_drivers in a subprocess with PROBE_TIMEOUT_S: a timeout (a
-    hung ring) or any failure fails the run."""
+    """probe_drivers in a subprocess (started while nvcc builds) with
+    PROBE_TIMEOUT_S from the build's end: a timeout (a hung ring) or any
+    failure fails the run."""
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--probe"],
-            capture_output=True, text=True, timeout=PROBE_TIMEOUT_S,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-    except subprocess.TimeoutExpired as e:
+    rc, text = _finish(*(DURING_BUILD.pop("probe", None)
+                         or _spawn_self("--probe")), PROBE_TIMEOUT_S)
+    if rc is None:
         raise AssertionError(f"probe: the first driver launches did not "
-                             f"finish in {PROBE_TIMEOUT_S} s") from e
-    if proc.returncode != 0:
-        raise AssertionError(f"probe failed (exit {proc.returncode}):\n"
-                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+                             f"finish in {PROBE_TIMEOUT_S} s")
+    if rc != 0:
+        raise AssertionError(f"probe failed (exit {rc}):\n{text[-8000:]}")
+    rec = json.loads(text.strip().splitlines()[-1])
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     return rec
@@ -6805,9 +7219,9 @@ def phase_dma_floor(torch):
     from quest_tpu_torch import profiling
     from quest_tpu_torch.ops import segment as S
     n = TIMING_QUBITS
-    rng = np.random.default_rng(5)
-    planes = torch.from_numpy(
-        rng.standard_normal((2, 1 << n)).astype(np.float32)).cuda()
+    rng, (host,) = seeded_planes(5, (2, 1 << n))
+    planes = torch.from_numpy(host).cuda()
+    del host
     planes /= planes.double().pow(2).sum().sqrt().float()
     other = torch.empty_like(planes)
     copy_ms = time_ms(torch, lambda: other.copy_(planes), 5)
@@ -6900,17 +7314,18 @@ def sanitize_case(torch):
     print(SANITIZE_DONE, flush=True)
 
 
-def phase_sanitize(torch):
+def sanitize_checks():
     """compute-sanitizer memcheck and racecheck on sanitize_case, in a
-    subprocess each. Where the case reached the device under the tool,
-    memcheck must report no error and the case must finish; where the
-    tool is missing, times out or cannot bring the device up (the case
-    never printed SANITIZE_UP), its message is recorded instead, and
-    racecheck is not tried where memcheck could not reach the device."""
-    import shutil
+    subprocess each (memcheck started while nvcc builds, its timeout
+    counted from the build's end): (record, failure message or None).
+    Where the case reached the device under the tool, memcheck must
+    report no error and the case must finish; where the tool is missing,
+    times out or cannot bring the device up (the case never printed
+    SANITIZE_UP), its message is recorded instead, and racecheck is not
+    tried where memcheck could not reach the device."""
     tool = (shutil.which("compute-sanitizer")
             or "/usr/local/cuda/bin/compute-sanitizer")
-    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
     rec = {"phase": "sanitize", "n": SANITIZE_QUBITS}
     for check in ("memcheck", "racecheck"):
         if check == "racecheck" and not rec["memcheck"].get("ran"):
@@ -6919,15 +7334,23 @@ def phase_sanitize(torch):
             rec[check] = {"ran": False, "message": "not tried: memcheck "
                           "did not reach the device"}
             continue
-        cmd = [tool, "--tool", check, sys.executable,
-               os.path.abspath(__file__), "--sanitize-case"]
+        if DURING_BUILD.get("stopped"):
+            rec[check] = {"ran": False, "message": "not tried: the build "
+                          "failed"}
+            continue
         try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=SANITIZE_TIMEOUT_S, cwd=here)
-        except (FileNotFoundError, subprocess.TimeoutExpired) as e:
+            DURING_BUILD["sanitize_proc"] = _spawn_self(
+                "--sanitize-case", (tool, "--tool", check))
+        except FileNotFoundError as e:
             rec[check] = {"ran": False, "message": str(e)}
             continue
-        text = proc.stdout + proc.stderr
+        rc, text = _finish(*DURING_BUILD["sanitize_proc"],
+                           SANITIZE_TIMEOUT_S)
+        del DURING_BUILD["sanitize_proc"]
+        if rc is None:
+            rec[check] = {"ran": False, "message": f"timed out after "
+                          f"{SANITIZE_TIMEOUT_S} s"}
+            continue
         summary = [ln.strip() for ln in text.splitlines()
                    if "ERROR SUMMARY" in ln or "RACECHECK SUMMARY" in ln]
         errors = sum(int(w) for ln in summary
@@ -6938,17 +7361,27 @@ def phase_sanitize(torch):
                       "Error" in ln or "error" in ln or "Hazard" in ln)][:8]
         rec[check] = {"ran": SANITIZE_UP in text,
                       "finished": SANITIZE_DONE in text,
-                      "exit": proc.returncode, "summary": summary,
+                      "exit": rc, "summary": summary,
                       "errors": errors, "first_issues": issues}
         if not rec[check]["ran"]:
             rec[check]["message"] = (
                 "the device did not come up under the tool: "
                 + " | ".join(issues or text.strip().splitlines()[-3:]))
         elif check == "memcheck" and (errors or not rec[check]["finished"]):
-            emit(rec)
-            raise AssertionError(f"sanitize: memcheck on the segment "
-                                 f"drivers: {summary} {issues}")
+            rec["checks_s"] = time.perf_counter() - t0
+            return rec, (f"sanitize: memcheck on the segment drivers: "
+                         f"{summary} {issues}")
+    rec["checks_s"] = time.perf_counter() - t0
+    return rec, None
+
+
+def phase_sanitize(torch):
+    """sanitize_checks' record (run while nvcc built, or here)."""
+    fut = DURING_BUILD.pop("sanitize", None)
+    rec, failed = fut.result() if fut is not None else sanitize_checks()
     emit(rec)
+    if failed:
+        raise AssertionError(failed)
     return rec
 
 REPLACES = {
@@ -7044,6 +7477,7 @@ def main(argv=None) -> int:
           "python": sys.version.split()[0]})
     if want("serve"):
         prefetch_serve_states()
+    start_during_build(want)
     run_phase("build", phase_build)
     if want("probe"):
         run_phase("probe", phase_probe, torch)

@@ -48,7 +48,13 @@ evaluators (one exchange per distinct global flip mask), each overlap
 reading the partner shard for a global flip bit; the per-parameter
 partials reduce ONCE. `predict_vjp_collectives` (ref :703) prices the
 same walk on the host; the mesh's recorder holds the issued exchanges
-equal to it. Statevector meshes only, as in the reference.
+equal to it. The taped engine runs on a mesh too, as plain autograd
+through out-of-place sharded appliers (`_build_sharded_taped`, the
+reference's `taped`). A mesh may span processes (parallel.make_process_mesh):
+each process walks only its own shards, the exchanges and the reduce
+cross processes (differentiably on the taped path), and the energy and
+gradient come back equal on every process. Statevector meshes only, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -552,19 +558,28 @@ def _build_adjoint(program, eplan, cf, rdt, initial_index):
 
 
 def _sharded_initial(program: _Program, rdt, initial_index: int, mesh):
+    """The basis state over the mesh: this process's shards only."""
     from quest_tpu_torch.parallel.mesh import ShardedAmps
     local_n = program.n - mesh.global_qubits
     m = 1 << local_n
     tdt = precision.torch_dtype(rdt)
-    shards = [torch.zeros((2, m), dtype=tdt, device=dev)
-              for dev in mesh.devices]
-    shards[initial_index >> local_n][0, initial_index & (m - 1)] = 1.0
+    shards = [None] * mesh.size
+    for d in mesh.local_ids:
+        shards[d] = torch.zeros((2, m), dtype=tdt, device=mesh.devices[d])
+    if mesh.is_local(initial_index >> local_n):
+        shards[initial_index >> local_n][0, initial_index & (m - 1)] = 1.0
     return ShardedAmps(shards, mesh, program.n)
+
+
+def _shard_views(amps) -> list:
+    """Each shard as (1, 2, 2^local_n) planes, the sharded appliers'
+    form (None for another process's shard)."""
+    return [None if s is None else s.view(1, 2, -1) for s in amps.shards]
 
 
 def _walk_ops(amps, ops) -> None:
     from quest_tpu_torch.parallel import sharded as S
-    xs = [s.view(1, 2, -1) for s in amps.shards]
+    xs = _shard_views(amps)
     for op in ops:
         S._apply_gateop(xs, amps.mesh, amps.local_n, amps.n, False, op,
                         "highest")
@@ -578,7 +593,7 @@ def _apply_param_sharded(amps, e: _Param, ang: float) -> None:
     global mask bits select the shards (ref _apply_param_sharded)."""
     from quest_tpu_torch.parallel import sharded as S
     local_n, mesh = amps.local_n, amps.mesh
-    xs = [s.view(1, 2, -1) for s in amps.shards]
+    xs = _shard_views(amps)
     if e.family == "parity":
         return S._parity_op(xs, mesh, local_n, e.targets, ang)
     if e.family in ("rx", "ry"):
@@ -593,16 +608,17 @@ def _apply_param_sharded(amps, e: _Param, ang: float) -> None:
             return S._butterfly_1q(xs, mesh, local_n, mat, t - local_n,
                                    loc_c, loc_s, glob_c)
         el = dataclasses.replace(e, controls=loc_c, cstates=loc_s)
-        for d, x in enumerate(xs):
+        for d in mesh.local_ids:
             if S._holds(d, glob_c):
-                _rotate_(x, local_n, el, ang)
+                _rotate_(xs[d], local_n, el, ang)
         return None
     glob = [(b - local_n, st) for b, st in zip(e.mask_bits, e.mask_states)
             if b >= local_n]
     loc = [(b, st) for b, st in zip(e.mask_bits, e.mask_states)
            if b < local_n]
     p = np.exp(1j * ang)
-    for d, x in enumerate(xs):
+    for d in mesh.local_ids:
+        x = xs[d]
         if not S._holds(d, glob):
             continue
         if loc:
@@ -617,10 +633,11 @@ def _apply_param_sharded(amps, e: _Param, ang: float) -> None:
 
 
 def _im_overlap_sharded(lam, psi, e: _Param) -> List[torch.Tensor]:
-    """Shard d's part of Im <lambda| G |psi> (f64 tensors): the partner
-    shard d ^ (global x bits) read through one pair exchange of psi, the
-    in-shard overlap on the local bits, the global zy parity a sign and
-    the global mask bits a predicate."""
+    """Shard d's part of Im <lambda| G |psi> (f64 tensors; None for
+    another process's shard): the partner shard d ^ (global x bits) read
+    through one pair exchange of psi, the in-shard overlap on the local
+    bits, the global zy parity a sign and the global mask bits a
+    predicate."""
     from quest_tpu_torch.parallel import sharded as S
     local_n, mesh = psi.local_n, psi.mesh
     gxm = sum(1 << (q - local_n) for q in e.x_bits if q >= local_n)
@@ -634,18 +651,19 @@ def _im_overlap_sharded(lam, psi, e: _Param) -> List[torch.Tensor]:
                           if b < local_n))
     glob = [(b - local_n, st) for b, st in zip(e.mask_bits, e.mask_states)
             if b >= local_n]
-    out = []
-    for d, lv in enumerate(lam.views()):
+    out = [None] * mesh.size
+    lvs = lam.views()
+    for d in mesh.local_ids:
+        lv = lvs[d]
         if src is None or not S._holds(d, glob):
-            out.append(torch.zeros((), dtype=torch.float64,
-                                   device=lv.device))
+            out[d] = torch.zeros((), dtype=torch.float64, device=lv.device)
             continue
         v = _im_overlap(lv, src[d], local_n, el)
         par = 0
         for b in e.zy_bits:
             if b >= local_n:
                 par ^= (d >> (b - local_n)) & 1
-        out.append(-v if par else v)
+        out[d] = -v if par else v
     return out
 
 
@@ -686,12 +704,16 @@ class _ShardedAdjointEnergy(torch.autograd.Function):
         ctx.amps = None
         with torch.no_grad():
             lam = E.apply_pauli_sum_planes_sharded(amps, cf, eplan)
-            parts = [torch.zeros(program.num_params, dtype=torch.float64,
-                                 device=dev) for dev in mesh.devices]
+            parts = [None] * mesh.size
+            for d in mesh.local_ids:
+                parts[d] = torch.zeros(program.num_params,
+                                       dtype=torch.float64,
+                                       device=mesh.devices[d])
             for e in reversed(program.entries):
                 if isinstance(e, _Param):
-                    for d, g in enumerate(_im_overlap_sharded(lam, amps, e)):
-                        parts[d][e.pidx] += g * (e.w * e.s)
+                    g = _im_overlap_sharded(lam, amps, e)
+                    for d in mesh.local_ids:
+                        parts[d][e.pidx] += g[d] * (e.w * e.s)
                     ia = -e.s * float(theta_host[e.pidx])
                     _apply_param_sharded(amps, e, ia)
                     _apply_param_sharded(lam, e, ia)
@@ -703,11 +725,117 @@ class _ShardedAdjointEnergy(torch.autograd.Function):
         return grads.to(device=theta.device, dtype=theta.dtype) * ct, None
 
 
-def _build_sharded(program, eplan, cf, rdt, initial_index, mesh):
+def _apply_param_sharded_taped(xs, mesh, local_n: int, e: _Param,
+                               ang: torch.Tensor) -> list:
+    """Entry `e` at the angle tensor `ang` on this process's shards (the
+    (2, 2^local_n) planes of `xs`, None for another process's), OUT OF
+    PLACE and differentiable: the taped engine's counterpart of
+    `_apply_param_sharded`. Parity phases and local-target rotations are
+    the variational gates on each shard; a global rx/ry target is one
+    pair exchange (differentiable over processes too) and the
+    butterfly's combine, new = c x + s' partner; a projector's global
+    mask bits select the shards."""
+    from quest_tpu_torch.parallel import sharded as S
+    out = list(xs)
+    mine = mesh.local_ids
+    if e.family == "parity":
+        loc = [t for t in e.targets if t < local_n]
+        for d in mine:
+            g = 1 - 2 * (sum((d >> (t - local_n)) & 1 for t in e.targets
+                             if t >= local_n) & 1)
+            x = xs[d]
+            if loc:
+                out[d] = V.apply_parity_phase(x, local_n, loc, g * ang)
+                continue
+            c, sn = torch.cos(ang / 2.0), g * torch.sin(ang / 2.0)
+            out[d] = torch.stack([c * x[0] + sn * x[1], c * x[1] - sn * x[0]])
+        return out
+    if e.family in ("rx", "ry"):
+        loc_c, loc_s, glob_c = S._split_controls(e.controls, e.cstates,
+                                                 local_n)
+        t = e.targets[0]
+        if t < local_n:
+            gate = V.rx if e.family == "rx" else V.ry
+            for d in mine:
+                if S._holds(d, glob_c):
+                    out[d] = gate(xs[d], local_n, t, ang, loc_c, loc_s)
+            return out
+        gbit = t - local_n
+        recv = mesh.permute(xs, gbit)
+        c, sn = torch.cos(ang / 2.0), torch.sin(ang / 2.0)
+        for d in mine:
+            if not S._holds(d, glob_c):
+                continue
+            x, r = xs[d], recv[d]
+            if e.family == "rx":         # [[c, -is], [-is, c]]
+                new = torch.stack([c * x[0] + sn * r[1],
+                                   c * x[1] - sn * r[0]])
+            else:                        # [[c, -s], [s, c]]
+                new = c * x + (sn if (d >> gbit) & 1 else -sn) * r
+            if loc_c:
+                xv, dims, axis_of = V._view(x, local_n, loc_c)
+                new = V._where_controls(new.reshape(xv.shape), xv, dims,
+                                        axis_of, loc_c, loc_s)
+            out[d] = new.reshape(x.shape)
+        return out
+    glob = [(b - local_n, st) for b, st in zip(e.mask_bits, e.mask_states)
+            if b >= local_n]
+    loc = [(b, st) for b, st in zip(e.mask_bits, e.mask_states)
+           if b < local_n]
+    tre, tim = torch.cos(ang), torch.sin(ang)
+    for d in mine:
+        if not S._holds(d, glob):
+            continue
+        x = xs[d]
+        if loc:
+            out[d] = V.apply_phase_where(x, local_n, [b for b, _ in loc],
+                                         [st for _, st in loc], tre, tim)
+        else:
+            out[d] = torch.stack([x[0] * tre - x[1] * tim,
+                                  x[0] * tim + x[1] * tre])
+    return out
+
+
+class _ShardedFixedApply(torch.autograd.Function):
+    """A constant run on the taped sharded path, over this process's
+    shards: forward walks its GateOps on copies, backward walks the
+    inverse stream on copies of the cotangent's (the VJP of a unitary is
+    its adjoint). Either walk's exchanges go through the mesh, on every
+    process alike."""
+
+    @staticmethod
+    def forward(ctx, spec, *local):
+        ctx.spec = spec
+        fixed, mesh, n = spec
+        return _walk_copies(local, mesh, n, fixed.ops)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        fixed, mesh, n = ctx.spec
+        return (None,) + _walk_copies(grads, mesh, n, fixed.inv_ops)
+
+
+def _walk_copies(local, mesh, n: int, ops) -> tuple:
+    """Copies of this process's shards (in mesh.local_ids order) with
+    `ops` walked on them in place."""
+    from quest_tpu_torch.parallel.mesh import ShardedAmps
+    shards = [None] * mesh.size
+    with torch.no_grad():
+        for d, t in zip(mesh.local_ids, local):
+            shards[d] = t.detach().clone()
+        _walk_ops(ShardedAmps(shards, mesh, n), ops)
+    return tuple(shards[d] for d in mesh.local_ids)
+
+
+def _check_sharded(program) -> None:
     if program.density:
         raise AdjointError(
             "Invalid adjoint target: sharded density registers are not "
-            "supported by the adjoint engine (statevector meshes only)")
+            "supported by the gradient engines (statevector meshes only)")
+
+
+def _build_sharded(program, eplan, cf, rdt, initial_index, mesh):
+    _check_sharded(program)
     spec = (program, eplan, cf, rdt, initial_index, mesh)
 
     def energy(theta):
@@ -715,9 +843,44 @@ def _build_sharded(program, eplan, cf, rdt, initial_index, mesh):
     return energy
 
 
-def predict_vjp_collectives(program: _Program, eplan, D: int) -> dict:
-    """The exchanges one value-and-grad call issues on D shards, priced on
-    the host from the same dispatch the sharded walk makes (ref :703):
+def _build_sharded_taped(program, eplan, cf, rdt, initial_index, mesh):
+    """The taped engine on a mesh (ref `taped` of _build_sharded: JAX's
+    AD through the sharded forward): autograd through the out-of-place
+    sharded appliers, each constant run a _ShardedFixedApply, and the
+    energy through expec_sharded. On a process mesh the exchanges and
+    the reduce carry gradients (parallel/mesh.py) and theta enters
+    replicated: each process's backward gives its shards' part and the
+    sum over the processes is the gradient, equal on every process."""
+    from quest_tpu_torch.parallel.mesh import ShardedAmps
+    _check_sharded(program)
+    n = program.n
+    local_n = n - mesh.global_qubits
+
+    def energy(theta):
+        theta = mesh.replicated(theta)
+        xs = _sharded_initial(program, rdt, initial_index, mesh).shards
+        for e in program.entries:
+            if isinstance(e, _Param):
+                xs = _apply_param_sharded_taped(xs, mesh, local_n, e,
+                                                e.s * theta[e.pidx])
+            else:
+                local = _ShardedFixedApply.apply(
+                    (e, mesh, n), *(xs[d] for d in mesh.local_ids))
+                xs = [None] * mesh.size
+                for d, t in zip(mesh.local_ids, local):
+                    xs[d] = t
+        value = E.expec_sharded(ShardedAmps(xs, mesh, n), cf, eplan)
+        return value.to(device=theta.device, dtype=theta.dtype)
+    return energy
+
+
+def predict_vjp_collectives(program: _Program, eplan, D: int,
+                            mesh=None) -> dict:
+    """The exchanges one value-and-grad call of the adjoint walk issues on
+    D shards, priced on the host from the same dispatch the sharded walk
+    makes (ref :703), under the topology of `mesh` (comm.topology: one
+    host a process of a process mesh, flat for one process, unless
+    QUEST_COMM_TOPOLOGY says otherwise):
     constant runs through comm.gateop_exchanges, a global rx/ry the
     butterfly's comm.effective_slices, the energy and the lambda seed one
     pair exchange per distinct global flip mask each, the backward walk
@@ -727,7 +890,7 @@ def predict_vjp_collectives(program: _Program, eplan, D: int) -> dict:
     from quest_tpu_torch.parallel import comm as C
     gbits = D.bit_length() - 1
     local_n = program.n - gbits
-    topo = C.topology(D)
+    topo = C.topology(D, mesh)
     ici_b = topo.ici_bits(D) if topo.hierarchical else None
     m = 1 << local_n
     cps = a2as = 0
@@ -946,23 +1109,17 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
     which carries `engine`, `num_params`, `initial_params` (a Circuit's
     recovered angles), `num_qubits`, `real_dtype`, `sweep_key` and
     `value(theta)` (the energy alone). `mesh` (a parallel.AmpMesh of two
-    or more shards) runs the adjoint walk over the shards of a sharded
-    register on the mesh's devices (the tensors come back on its first
-    device), its predicted exchanges in `fn.comm_record`; the taped
-    engine has no sharded form there and is refused typed."""
+    or more shards, over one process or several) runs either engine over
+    the shards of a sharded register on the mesh's devices (the tensors
+    come back on this process's first shard's device, equal on every
+    process), the engine resolved as without a mesh; the adjoint walk's
+    predicted exchanges are in `fn.comm_record`."""
     from quest_tpu_torch.circuit import _device_key
     from quest_tpu_torch.env import engine_mode_key, knob_value
 
     sharded = mesh is not None and mesh.size > 1
     if sharded:
-        from quest_tpu_torch.parallel.mesh import refuse_process_mesh
-        refuse_process_mesh(mesh, "value_and_grad(mesh=)")
-        if engine == "taped":
-            raise AdjointError(
-                "Invalid adjoint target: the taped engine does not run on "
-                "a mesh; value_and_grad(mesh=) takes the adjoint walk "
-                "(engine='adjoint' or None)")
-        device = mesh.devices[0]
+        device = mesh.devices[mesh.local_ids[0]]
     dev = resolve_device(device)
     is_circuit = isinstance(target, CC.Circuit)
     if is_circuit:
@@ -1013,7 +1170,7 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
     tdt = precision.torch_dtype(rdt)
     cf = torch.as_tensor(cf0, dtype=tdt, device=dev)
 
-    resolved = "adjoint" if sharded else engine
+    resolved = engine
     if resolved in (None, "auto"):
         knob = str(knob_value("QUEST_ADJOINT"))
         if knob in ("0", "1"):
@@ -1023,9 +1180,13 @@ def value_and_grad(target, hamiltonian, *, coeffs=None,
                                  len(program.entries), rdt, dev)
             resolved = _engine_choice(cap, "auto")
     comm_record = None
-    if sharded:
+    if sharded and resolved == "adjoint":
         energy = _build_sharded(program, eplan, cf, rdt, init_flat, mesh)
-        comm_record = predict_vjp_collectives(program, eplan, mesh.size)
+        comm_record = predict_vjp_collectives(program, eplan, mesh.size,
+                                              mesh)
+    elif sharded:
+        energy = _build_sharded_taped(program, eplan, cf, rdt, init_flat,
+                                      mesh)
     else:
         build = _build_adjoint if resolved == "adjoint" else _build_taped
         energy = build(program, eplan, cf, rdt, init_flat)

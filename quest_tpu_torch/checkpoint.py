@@ -24,11 +24,15 @@ written by either package loads in the other:
   * `save_sharded` / `load_sharded`: a sharded register
     (parallel.ShardedAmps) as one `shard-<d>.npz` per shard, each with
     its own plane digests in the meta: each shard writes its own slice,
-    nothing gathers. `block=False` returns a PendingCheckpoint once the
-    snapshot is taken (a device-to-host copy of every shard into pinned
-    host buffers, ordered on the device's stream before any later work
-    on the register); only the hashing and the file writes run on a
-    background thread, so the register may keep evolving in place.
+    nothing gathers; over a process mesh each process writes its own
+    shards, one commits once every process has stamped its part, and
+    each returns once the checkpoint is committed (see
+    `_write_sharded_processes`). `block=False` returns a
+    PendingCheckpoint once the snapshot is taken (a device-to-host copy
+    of every shard into pinned host buffers, ordered on the device's
+    stream before any later work on the register); only the hashing and
+    the file writes run on a background thread, so the register may keep
+    evolving in place.
 
   * `save_step_gang` / `load_step_gang`: the reference's two-phase gang
     checkpoint of a register sharded over a process mesh
@@ -45,6 +49,7 @@ stamp, with `process=p`), `checkpoint.load` at the top of the read path
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -52,7 +57,9 @@ import re
 import shutil
 import sys
 import threading
+import time
 import uuid
+from typing import Dict
 
 import numpy as np
 import torch
@@ -361,9 +368,11 @@ def _host_planes(amps) -> np.ndarray:
         return amps.reshape(2, -1)
     if amps.mesh.world > 1:
         raise CheckpointError(
-            "Invalid checkpoint: a register sharded over a process mesh is "
-            "checkpointed by every process at once with save_step_gang "
-            "(each writes its own slice)")
+            "Invalid checkpoint: checkpoint.save writes the whole state "
+            "gathered onto one process, which a register over a process "
+            "mesh cannot give (the reference's jax.device_get fails there "
+            "too, quest_tpu/checkpoint.py:371); use save_sharded or "
+            "save_step_gang, where every process writes its own shards")
     views = amps.views()
     m = views[0].shape[1]
     out = np.empty((2, m * len(views)), dtype=precision.numpy_dtype(
@@ -547,14 +556,76 @@ def is_gang_step(path: str) -> bool:
 #            ckpt-<step>.tmp-gang, then stamps prepared-<p>. The
 #            checkpoint.save fault fires between the payload and the
 #            stamp: a process killed mid-save never stamps.
-#   COMMIT   the process that completes the stamp set renames the tmp
-#            dir to ckpt-<step>: one atomic rename; a race between two
-#            completers is benign (one wins, the other finds the
-#            committed target). A missing stamp means no process ever
-#            commits: all stamp or none do.
+#   COMMIT   a process that finds the stamp set complete claims the
+#            commit (one O_EXCL file in the tmp dir, which travels with
+#            it) and renames the tmp dir to ckpt-<step>: one atomic
+#            rename. Two completers race benignly: the other finds the
+#            claim, or the tmp dir gone. A missing stamp means no process
+#            ever commits: all stamp or none do.
 # Validity is a property of the shared directory computed the same way
 # on every process: load_step_gang verifies every shard's digests, so
-# every process resumes the same cut.
+# every process resumes the same cut. save_sharded over a process mesh
+# commits through the same two helpers, _stage and _commit_staged.
+
+_CLAIM = ".commit"
+
+
+def _stage(tmp: str, name: str, payload, tag: str) -> bool:
+    """Publish tmp/<name> atomically: `payload` (arrays by name for an
+    .npz, a JSON value for a .json, else text) into a dotfile sibling,
+    renamed onto the name. False when the tmp dir vanished mid-write: a
+    peer committed (or a run's end cleared it), so this process's part
+    is moot."""
+    try:
+        os.makedirs(tmp, exist_ok=True)
+        scratch = os.path.join(tmp, f".{name}-{tag}")
+        if name.endswith(".npz"):
+            with open(scratch, "wb") as f:
+                np.savez(f, **payload)
+        else:
+            with open(scratch, "w") as f:
+                if name.endswith(".json"):
+                    json.dump(payload, f)
+                else:
+                    f.write(payload)
+        os.rename(scratch, os.path.join(tmp, name))
+        return True
+    except FileNotFoundError:
+        return False
+
+
+def _swap_in(tmp: str, target: str, tag: str) -> None:
+    """Rename `tmp` onto `target`, a directory already there moved aside
+    first and removed after."""
+    old = None
+    if os.path.isdir(target):
+        old = f"{target}.old-{tag}"
+        os.rename(target, old)
+    os.rename(tmp, target)
+    if old is not None:
+        shutil.rmtree(old, ignore_errors=True)
+
+
+def _commit_staged(tmp: str, target: str, stamps, tag: str,
+                   finish=None) -> bool:
+    """Commit the shared `tmp` onto `target` once every name of `stamps`
+    is in it: the process whose O_EXCL claim succeeds runs `finish()`
+    (still inside `tmp`) and swaps `tmp` in, the claim file travelling
+    with it until it is removed from the committed directory. True on
+    that process; False on every other: a stamp missing, the claim a
+    peer's, or `tmp` already gone (a peer committed)."""
+    if not all(os.path.exists(os.path.join(tmp, s)) for s in stamps):
+        return False
+    try:
+        os.close(os.open(os.path.join(tmp, _CLAIM),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except (FileExistsError, FileNotFoundError):
+        return False
+    if finish is not None:
+        finish()
+    _swap_in(tmp, target, tag)
+    os.remove(os.path.join(target, _CLAIM))
+    return True
 
 
 def _gang_shard_meta(qureg: Qureg, process_index: int, process_count: int,
@@ -612,70 +683,30 @@ def save_step_gang(root: str, step: int, *, qureg: Qureg, extra=None,
     meta["plane_digests"] = _plane_digests(arrays)
     meta["meta_digest"] = _meta_digest(meta)
     tag = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    # a committed step with no tmp beside it: a peer already took it
+    if not os.path.isdir(tmp) and os.path.isdir(path):
+        return None
 
-    def put(name, write) -> bool:
-        """Publish tmp/<name> atomically (a dotfile sibling, then a
-        rename). A committed target with no tmp beside it means a peer
-        already took this very step; the tmp vanishing mid-write means
-        a peer committed (or finished the run and cleared the chain):
-        this process's part is moot either way."""
-        try:
-            if not os.path.isdir(tmp) and os.path.isdir(path):
-                return False
-            os.makedirs(tmp, exist_ok=True)
-            scratch = os.path.join(tmp, f".{name}-{tag}")
-            write(scratch)
-            os.rename(scratch, os.path.join(tmp, name))
-            return True
-        except FileNotFoundError:
-            return False
-
-    def write_npz(dst):
-        with open(dst, "wb") as f:
-            np.savez(f, **arrays)
-
-    def write_meta(dst):
-        with open(dst, "w") as f:
-            json.dump(meta, f)
-
-    def write_stamp(dst):
-        with open(dst, "w") as f:
-            f.write("ok")
-
-    if not put(f"shard-{p}.npz", write_npz) \
-            or not put(f"meta-{p}.json", write_meta):
+    if not _stage(tmp, f"shard-{p}.npz", arrays, tag) \
+            or not _stage(tmp, f"meta-{p}.json", meta, tag):
         return None
     # the mid-save crash point: after the payload, before the stamp
     if faults.ACTIVE:
         faults.check("checkpoint.save", directory=path, tmp=tmp, process=p)
-    if not put(f"prepared-{p}", write_stamp):
+    if not _stage(tmp, f"prepared-{p}", "ok", tag):
         return None
-    committed = None
-    if all(os.path.exists(os.path.join(tmp, f"prepared-{q}"))
-           for q in range(nproc)):
-        for attempt in range(2):
-            try:
-                os.rename(tmp, path)
-                committed = path
-                break
-            except OSError:
-                if not os.path.isdir(tmp):
-                    break                # a peer took the commit
-                if os.path.isdir(path) and attempt == 0:
-                    # a same-step leftover of an earlier chain generation
-                    shutil.rmtree(path, ignore_errors=True)
-                    continue
-                raise
-    if committed:
-        # keep-last-K over committed steps only: a live gang tmp belongs
-        # to every process at once, so no stale sweep here (the durable
-        # executor sweeps at completion, when no save is in flight)
-        if keep is None:
-            from quest_tpu_torch.env import knob_value
-            keep = knob_value("QUEST_CHECKPOINT_KEEP")
-        for _, old in step_dirs(root)[:-max(int(keep), 1)]:
-            shutil.rmtree(old, ignore_errors=True)
-    return committed
+    if not _commit_staged(tmp, path,
+                          [f"prepared-{q}" for q in range(nproc)], tag):
+        return None
+    # keep-last-K over committed steps only: a live gang tmp belongs
+    # to every process at once, so no stale sweep here (the durable
+    # executor sweeps at completion, when no save is in flight)
+    if keep is None:
+        from quest_tpu_torch.env import knob_value
+        keep = knob_value("QUEST_CHECKPOINT_KEEP")
+    for _, old in step_dirs(root)[:-max(int(keep), 1)]:
+        shutil.rmtree(old, ignore_errors=True)
+    return path
 
 
 def load_step_gang(path: str, *, kind_extra: str = None):
@@ -851,22 +882,58 @@ class PendingCheckpoint:
 
 
 def _snapshot(amps) -> tuple:
-    """(host buffers, event): each shard's planes copied to the host —
-    into pinned buffers with a non-blocking copy on a card, ordered on
-    its stream before any later kernel that writes the register — and a
-    CUDA event after the copies (None off the card)."""
+    """(host buffers, event): [(d, buffer)] of each of this process's
+    shards, its planes copied to the host — into pinned buffers with a
+    non-blocking copy on a card, ordered on its stream before any later
+    kernel that writes the register — and a CUDA event after the copies
+    (None off the card)."""
     bufs, event = [], None
-    for v in amps.views():
+    views = amps.views()
+    for d in amps.mesh.local_ids:
+        v = views[d]
         if v.device.type == "cuda":
             b = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
             b.copy_(v, non_blocking=True)
             event = torch.cuda.Event()
         else:
             b = v.detach().clone()
-        bufs.append(b)
+        bufs.append((d, b))
     if event is not None:
         event.record()
     return bufs, event
+
+
+def _sharded_target(directory: str) -> str:
+    """The absolute checkpoint path, its parent made; refuses a
+    non-empty directory that holds no checkpoint."""
+    directory = os.path.abspath(directory)
+    os.makedirs(os.path.dirname(directory) or ".", exist_ok=True)
+    if os.path.isdir(directory) and os.listdir(directory) \
+            and not os.path.exists(os.path.join(directory, _META_NAME)):
+        raise ValueError(
+            f"refusing to overwrite {directory!r}: it exists, is not empty, "
+            f"and holds no {_META_NAME}; pick a new or empty path")
+    return directory
+
+
+def _write_shards(tmp: str, bufs) -> dict:
+    """Each (d, buffer)'s shard-<d>.npz into `tmp`; their plane digests,
+    computed from the bytes written, by file name."""
+    digests = {}
+    for d, b in bufs:
+        arr = b.numpy()
+        name = _SHARD_RE.format(d)
+        np.savez(os.path.join(tmp, name), planes=arr)
+        digests[name] = _plane_digests({"planes": arr})
+    return digests
+
+
+def _sharded_meta(meta: dict, digests: dict) -> dict:
+    """The meta with every shard's digests and its self-digest."""
+    meta = dict(meta)
+    meta["shard_digests"] = dict(sorted(digests.items()))
+    meta["meta_digest"] = _meta_digest(meta)
+    return meta
 
 
 def _write_sharded(directory: str, meta: dict, bufs, event) -> None:
@@ -874,73 +941,147 @@ def _write_sharded(directory: str, meta: dict, bufs, event) -> None:
     shard's plane digests, computed from the bytes written."""
     if event is not None:
         event.synchronize()
-    directory = os.path.abspath(directory)
-    parent = os.path.dirname(directory) or "."
-    os.makedirs(parent, exist_ok=True)
-    if os.path.isdir(directory) and os.listdir(directory) \
-            and not os.path.exists(os.path.join(directory, _META_NAME)):
-        raise ValueError(
-            f"refusing to overwrite {directory!r}: it exists, is not empty, "
-            f"and holds no {_META_NAME}; pick a new or empty path")
+    directory = _sharded_target(directory)
     tag = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
     tmp = f"{directory}.tmp-{tag}"
     os.makedirs(tmp)
     try:
-        digests = {}
-        for d, b in enumerate(bufs):
-            arr = b.numpy()
-            name = _SHARD_RE.format(d)
-            np.savez(os.path.join(tmp, name), planes=arr)
-            digests[name] = _plane_digests({"planes": arr})
-        meta = dict(meta)
-        meta["shard_digests"] = digests
-        meta["meta_digest"] = _meta_digest(meta)
-        with open(os.path.join(tmp, _META_NAME), "w") as f:
-            json.dump(meta, f)
+        digests = _write_shards(tmp, bufs)
         if faults.ACTIVE:
             faults.check("checkpoint.save", directory=directory, tmp=tmp)
-        old = None
-        if os.path.isdir(directory):
-            old = f"{directory}.old-{tag}"
-            os.rename(directory, old)
-        os.rename(tmp, directory)
-        if old is not None:
-            shutil.rmtree(old, ignore_errors=True)
+        _stage(tmp, _META_NAME, _sharded_meta(meta, digests), tag)
+        _swap_in(tmp, directory, tag)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
 
 
-def save_sharded(qureg: Qureg, directory: str,
-                 block: bool = True) -> PendingCheckpoint:
+# A register sharded over a process mesh saves with no collective, through
+# the gang protocol's _stage / _commit_staged: every process stages its own
+# shard files into one shared tmp dir named for the save
+# (`<directory>.tmp-mesh-<token>`, the token the mesh's uid and its count
+# of saves: every process makes the same saves in the same order), then
+# stamps prepared-<p>.json with its shards' digests. The committer writes
+# the meta from the stamps, carrying the token, and swaps the tmp dir in;
+# every other process returns once the directory's meta carries the token.
+# All stamp or nothing is committed: a process killed mid-save never
+# stamps, and its peers' saves fail typed after their timeout. A torn
+# save's tmp dir is never committed (a later save has another name) and
+# goes at the next commit.
+
+_MESH_SAVES: Dict[int, int] = {}      # saves so far, by mesh uid
+
+
+def _await_commit(directory: str, token: str, timeout: float) -> None:
+    """Return once `directory`'s meta carries save `token`: a peer
+    committed it. CheckpointError after `timeout` seconds."""
+    path = os.path.join(directory, _META_NAME)
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with open(path) as f:
+                if json.load(f).get("save") == token:
+                    return
+        except (OSError, ValueError):
+            pass                    # nothing committed yet, or mid-swap
+        if time.monotonic() >= deadline:
+            raise CheckpointError(
+                f"Invalid checkpoint: the save into {directory!r} was not "
+                f"committed within {timeout:g} s: a process of the mesh "
+                f"did not stamp its part")
+        time.sleep(0.005)
+
+
+def _sweep_torn_saves(directory: str, token: str) -> None:
+    """Remove the tmp dirs of process-mesh saves into `directory` that
+    never committed: another mesh's, or this mesh's earlier ones."""
+    parent = os.path.dirname(directory)
+    head = os.path.basename(directory) + ".tmp-mesh-"
+    uid, count = token.rsplit("-", 1)
+    for entry in os.listdir(parent):
+        if not entry.startswith(head):
+            continue
+        other, _, c = entry[len(head):].rpartition("-")
+        if other != uid or (c.isdigit() and int(c) < int(count)):
+            shutil.rmtree(os.path.join(parent, entry), ignore_errors=True)
+
+
+def _write_sharded_processes(directory: str, meta: dict, bufs, event,
+                             mesh, token: str, timeout: float) -> None:
+    """This process's part of a process-mesh save_sharded (see above)."""
+    if event is not None:
+        event.synchronize()
+    p, tmp = mesh.rank, f"{directory}.tmp-mesh-{token}"
+    tag = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    digests = {}
+    for d, b in bufs:
+        arrays = {"planes": b.numpy()}
+        name = _SHARD_RE.format(d)
+        _stage(tmp, name, arrays, tag)
+        digests[name] = _plane_digests(arrays)
+    # the mid-save crash point: after the payload, before the stamp
+    if faults.ACTIVE:
+        faults.check("checkpoint.save", directory=directory, tmp=tmp,
+                     process=p)
+    _stage(tmp, f"prepared-{p}.json", digests, tag)
+    stamps = [f"prepared-{q}.json" for q in range(mesh.world)]
+
+    def finish():
+        every = {}
+        for s_ in stamps:
+            with open(os.path.join(tmp, s_)) as f:
+                every.update(json.load(f))
+            os.remove(os.path.join(tmp, s_))
+        _stage(tmp, _META_NAME, _sharded_meta(dict(meta, save=token), every),
+               tag)
+
+    if _commit_staged(tmp, directory, stamps, tag, finish):
+        _sweep_torn_saves(directory, token)
+    else:
+        _await_commit(directory, token, timeout)
+
+
+def save_sharded(qureg: Qureg, directory: str, block: bool = True,
+                 timeout: float = 300.0) -> PendingCheckpoint:
     """Checkpoint a sharded register (its planes a parallel.ShardedAmps)
     WITHOUT gathering it: every shard's (2, 2^local_n) planes go to their
     own `shard-<d>.npz`, each with its plane digests in the meta, the
     whole committed atomically. With block=False the call returns as soon
     as the snapshot is taken (see the module docstring) and the hashing
     and writing run on a background thread: the register may keep
-    evolving in place meanwhile; `wait()` on the returned handle."""
+    evolving in place meanwhile; `wait()` on the returned handle. On a
+    mesh over several processes every process calls it with the same
+    arguments and writes only its own shards into the one directory (a
+    shared file system), with no collective; on every process the call
+    (or its handle's `wait()`) returns once the whole checkpoint is
+    committed, and raises CheckpointError when that has not happened
+    within `timeout` seconds (a process failed before stamping its part:
+    nothing is committed)."""
     amps = qureg.amps
     if torch.is_tensor(amps):
         raise CheckpointError(
             "Invalid checkpoint: save_sharded takes a sharded register "
             "(parallel.shard_qureg); use checkpoint.save for one tensor")
-    if amps.mesh.world > 1:
-        raise CheckpointError(
-            "Invalid checkpoint: save_sharded writes one process's shards; "
-            "a register sharded over a process mesh checkpoints with "
-            "save_step_gang (every process its own slice)")
+    mesh = amps.mesh
     meta = _meta(qureg)
-    meta.update({"payload": "sharded", "shards": amps.mesh.size})
+    meta.update({"payload": "sharded", "shards": mesh.size})
+    if mesh.world > 1:
+        directory = _sharded_target(directory)
+        count = _MESH_SAVES[mesh.uid] = _MESH_SAVES.get(mesh.uid, 0) + 1
+        write = functools.partial(
+            _write_sharded_processes, directory, meta, mesh=mesh,
+            token=f"{mesh.uid:016x}-{count}", timeout=timeout)
+    else:
+        write = functools.partial(_write_sharded, directory, meta)
     bufs, event = _snapshot(amps)
     if block:
-        _write_sharded(directory, meta, bufs, event)
+        write(bufs, event)
         return PendingCheckpoint()
     pending = PendingCheckpoint()
 
     def run():
         try:
-            _write_sharded(directory, meta, bufs, event)
+            write(bufs, event)
         except BaseException as e:      # surfaced by wait()
             pending.error = e
     pending._thread = threading.Thread(target=run, daemon=True,

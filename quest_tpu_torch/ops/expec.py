@@ -613,15 +613,16 @@ def _by_mask(plan: ExpecPlan, local_n: int):
 
 def expec_sharded(amps, coeffs, plan: ExpecPlan) -> torch.Tensor:
     """sum_t c_t <P_t> of a sharded register (a parallel.ShardedAmps):
-    a 0-dim f64 tensor on the first shard's device, differentiable in the
-    shards and the coefficients (ref expec_sharded :625). Statevector
-    plans: per group and shard the in-shard evaluator, reading a global
-    mask's flipped amplitudes from the partner shard the mask's one
-    exchange brought; density plans: each shard's own columns, no
-    exchange."""
+    a 0-dim f64 tensor on the first local shard's device, differentiable
+    in the shards and the coefficients, also over a process mesh (ref
+    expec_sharded :625). Statevector plans: per group and shard the
+    in-shard evaluator, reading a global mask's flipped amplitudes from
+    the partner shard the mask's one exchange brought; density plans:
+    each shard's own columns, no exchange."""
     mesh = amps.mesh
     local_n = amps.local_n
-    cf = torch.as_tensor(coeffs, dtype=amps.dtype, device=amps.device)
+    cf = mesh.replicated(torch.as_tensor(coeffs, dtype=amps.dtype,
+                                         device=amps.device))
     acc = precision.torch_dtype(precision.accum_dtype(amps.dtype))
     views = amps.views()
     mine = mesh.local_ids
@@ -691,7 +692,8 @@ def apply_pauli_sum_planes_sharded(amps, coeffs, plan: ExpecPlan):
     assert not plan.density
     mesh = amps.mesh
     local_n = amps.local_n
-    cf = torch.as_tensor(coeffs, dtype=amps.dtype, device=amps.device)
+    cf = mesh.replicated(torch.as_tensor(coeffs, dtype=amps.dtype,
+                                         device=amps.device))
     views = amps.views()
     cfs = [None if v is None else _shard_coeffs(cf, plan, local_n, d,
                                                  v.device)

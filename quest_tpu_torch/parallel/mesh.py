@@ -37,6 +37,19 @@ The mesh carries the exchanges the engines issue (parallel/sharded.py):
               device, then summed over the processes by one gloo
               all_reduce, so every process holds the total (the psum).
 
+On a process mesh each exchange on a differentiable path is a
+torch.autograd.Function, so autograd runs through it as through the
+one-process mesh's tensor copies (every process runs the same backward):
+
+  reduce      every process holds the same total, so each local part's
+              gradient is the upstream gradient (no collective);
+  permute     pairs d with d ^ mask, an involution: its backward is the
+              same exchange of the gradients;
+  all_to_all  its backward is the transposed all-to-all of the gradients;
+  replicated  the dual of reduce, for a tensor every process holds alike
+              (angles, coefficients) entering per-shard work: identity
+              forward, its gradient summed over the processes.
+
 and records each one in its `recorder` (`CollectiveRecorder`): the kind,
 the device bit it crosses and the elements one shard sends, in the comm
 planner's accounting (parallel/comm.py comm_stats); every process records
@@ -50,6 +63,7 @@ goes on with fewer processes.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -108,6 +122,10 @@ class AmpMesh:
         local = tuple(torch.device(d) for d in devices)
         self.group = group
         self.world, self.rank = 1, 0
+        # a random name of this mesh, the same on every process (the
+        # shard count check below agrees on it), for what the processes
+        # share outside the group, such as a checkpoint's files
+        self.uid = int.from_bytes(os.urandom(7), "little")
         if group is not None:
             import torch.distributed as dist
             self.world = dist.get_world_size(group)
@@ -118,12 +136,13 @@ class AmpMesh:
                     f"a process mesh exchanges through host buffers over "
                     f"gloo; the group's backend is {backend!r} (NCCL "
                     f"cannot join two ranks on one card)")
-            counts = torch.tensor([len(local), -len(local)],
+            counts = torch.tensor([len(local), -len(local), self.uid],
                                   dtype=torch.int64)
             self._call("the shard count check",
                        lambda: dist.all_reduce(counts, op=dist.ReduceOp.MAX,
                                                group=group))
             most, least = int(counts[0]), -int(counts[1])
+            self.uid = int(counts[2])
             if most != least:
                 raise ValueError(
                     f"every process of a process mesh holds the same number "
@@ -288,6 +307,20 @@ class AmpMesh:
 
     # -- exchanges ----------------------------------------------------------
 
+    def replicated(self, t: torch.Tensor) -> torch.Tensor:
+        """`t`, a tensor every process holds alike, as it enters work on
+        this process's shards: on a process mesh its gradient is summed
+        over the processes (each computes its shards' part); `t` itself
+        on one process."""
+        return _Replicated.apply(t, self) if self.world > 1 else t
+
+    def _on_tape(self, tensors) -> bool:
+        """Whether work on `tensors` (this process's) crosses processes
+        on a differentiable path: a process mesh, grad mode, and one of
+        them requiring a gradient."""
+        return (self.world > 1 and torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors))
+
     def permute(self, blocks: Sequence, gbit: int, out: Sequence = None,
                 mask: int = None):
         """Pair exchange over device bit `gbit`: shard d receives
@@ -301,13 +334,19 @@ class AmpMesh:
         once, the Pauli flip exchange of the expectation engines (ref
         ops/expec.py:515). Records one 'cp' (its bit the mask's tuple of
         bits when `mask` is given)."""
-        first = blocks[self.local_ids[0]]
-        elems = first.numel()
         if mask is not None:
             bit = int(mask)
             tag = tuple(b for b in range(bit.bit_length()) if bit >> b & 1)
         else:
             bit, tag = 1 << gbit, gbit
+        local = [blocks[d] for d in self.local_ids]
+        if out is None and self._on_tape(local):
+            return _unpack(self, _PairExchange.apply(self, bit, tag, *local))
+        return self._permute(blocks, bit, tag, out)
+
+    def _permute(self, blocks, bit: int, tag, out):
+        first = blocks[self.local_ids[0]]
+        elems = first.numel()
         self.recorder.record("cp", elems, elems * first.element_size(), tag)
         if self.dry:
             return None
@@ -335,6 +374,16 @@ class AmpMesh:
         None, as are their entries of `blocks`). Records one 'a2a' whose
         elements are a shard's whole operand (D blocks); (D-1)/D of them
         leave the shard."""
+        mine, D = self.local_ids, self.size
+        if self._on_tape(b for d in mine for b in blocks[d]):
+            flat = _AllToAll.apply(self, *(b for d in mine for b in blocks[d]))
+            recv = [None] * D
+            for i, k in enumerate(mine):
+                recv[k] = list(flat[i * D:(i + 1) * D])
+            return recv
+        return self._all_to_all(blocks)
+
+    def _all_to_all(self, blocks):
         D = self.size
         mine = self.local_ids
         row = blocks[mine[0]]
@@ -399,8 +448,8 @@ class AmpMesh:
         shards' parts on the first local shard's device, then, on a
         process mesh, one all_reduce over the processes, so every process
         holds the same total; None on a dry mesh. Records one 'reduce'.
-        The total of a process mesh carries no gradient: a part that
-        requires one is refused (ROADMAP A10d)."""
+        On a process mesh the total is differentiable in the local parts,
+        each part's gradient the total's."""
         self.recorder.record("reduce", 1, 0, None)
         if self.dry:
             return None
@@ -411,13 +460,93 @@ class AmpMesh:
             total = total + parts[d].to(dev)
         if self.world == 1:
             return total
-        if total.requires_grad:
-            from quest_tpu_torch import validation as val
-            raise val.QuESTError(
-                "Invalid operation: a gradient through the reduction of a "
-                "process mesh is not ported (ROADMAP A10d); run the "
-                "differentiable path on a one-process mesh")
-        return self.host_all_reduce(total).to(dev)
+        return _ProcessSum.apply(total, self)
+
+
+# -- the exchanges of a process mesh on a differentiable path -----------------
+
+
+def _unpack(mesh: AmpMesh, local) -> list:
+    """A global-length list: `local` (one entry per local shard, in
+    order) at this process's ids, None elsewhere."""
+    out = [None] * mesh.size
+    for d, t in zip(mesh.local_ids, local):
+        out[d] = t
+    return out
+
+
+class _ProcessSum(torch.autograd.Function):
+    """The cross-process sum of `AmpMesh.reduce`. Every process holds the
+    same total and runs the same backward, so the gradient of this
+    process's part is the total's: no collective."""
+
+    @staticmethod
+    def forward(ctx, total, mesh):
+        return mesh.host_all_reduce(total).to(total.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Replicated(torch.autograd.Function):
+    """A tensor every process holds alike entering per-shard work (the
+    dual of _ProcessSum): each process's backward gives the gradient of
+    its own shards' part, and their sum over the processes is the
+    tensor's gradient on every process."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.host_all_reduce(grad).to(grad.device), None
+
+
+class _PairExchange(torch.autograd.Function):
+    """`AmpMesh.permute` on a differentiable path of a process mesh:
+    shard d receives block d ^ bit. The pairing is an involution, so the
+    gradient of block d is the gradient its partner received, brought by
+    the same exchange (recorded like the forward's)."""
+
+    @staticmethod
+    def forward(ctx, mesh, bit, tag, *local):
+        ctx.mesh, ctx.bit, ctx.tag = mesh, bit, tag
+        recv = mesh._permute(_unpack(mesh, local), bit, tag, None)
+        return tuple(recv[d] for d in mesh.local_ids)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        recv = mesh._permute(_unpack(mesh, grads), ctx.bit, ctx.tag, None)
+        return (None, None, None) + tuple(recv[d] for d in mesh.local_ids)
+
+
+class _AllToAll(torch.autograd.Function):
+    """`AmpMesh.all_to_all` on a differentiable path of a process mesh:
+    inputs blocks[d][k] for the local d and every k, outputs recv[k][d]
+    for the local k and every d. Its backward is the transposed
+    all-to-all: the gradient of blocks[d][k] is that of recv[k][d]."""
+
+    @staticmethod
+    def forward(ctx, mesh, *flat):
+        ctx.mesh = mesh
+        D = mesh.size
+        blocks = _unpack(mesh, [list(flat[i * D:(i + 1) * D])
+                                for i in range(len(mesh.local_ids))])
+        recv = mesh._all_to_all(blocks)
+        return tuple(b for k in mesh.local_ids for b in recv[k])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        D = mesh.size
+        rows = _unpack(mesh, [list(grads[i * D:(i + 1) * D])
+                              for i in range(len(mesh.local_ids))])
+        back = mesh._all_to_all(rows)
+        return (None,) + tuple(b for d in mesh.local_ids for b in back[d])
 
 
 def _device_name(d: torch.device) -> str:
@@ -455,17 +584,6 @@ def make_amp_mesh(num_devices: Optional[int] = None,
         raise ValueError(f"requested {num_devices} devices, have "
                          f"{len(devices)}")
     return AmpMesh(devices[:num_devices])
-
-
-def refuse_process_mesh(mesh, what: str) -> None:
-    """Raise a typed QuESTError when `mesh` spans processes: `what` does
-    not run on such a mesh yet (ROADMAP A10d), and it never computes on
-    one process's shards alone."""
-    if mesh is not None and getattr(mesh, "world", 1) > 1:
-        from quest_tpu_torch import validation as val
-        raise val.QuESTError(
-            f"Invalid operation: {what} does not run on a mesh that spans "
-            f"processes yet (ROADMAP A10d); use a one-process mesh")
 
 
 def make_process_mesh(devices: Optional[Sequence] = None) -> AmpMesh:

@@ -498,23 +498,31 @@ def autotune(circuit, state_kind: str = "pure", mesh=None, topology=None,
     names the card the plan is for (default: the current one, or 'cpu'
     without a card). `mesh` (a parallel.AmpMesh) or `devices` (a shard
     count) selects the sharded families; `topology` (a comm.Topology)
-    overrides the QUEST_COMM_TOPOLOGY resolution of the comm pricing."""
+    overrides the QUEST_COMM_TOPOLOGY resolution of the comm pricing. On
+    a mesh over several processes every rank returns the same plan,
+    `autotune(devices=mesh.size, topology=<the mesh's topology>)`'s."""
     if state_kind not in ("pure", "density"):
         raise ValueError(
             f"state_kind must be 'pure' or 'density', got {state_kind!r}")
     circuit._reject_measure("plan.autotune")
     mesh_key = None
     if mesh is not None:
-        from quest_tpu_torch.parallel.mesh import refuse_process_mesh
-        # each process would time its own candidates and could choose
-        # another engine than its peers
-        refuse_process_mesh(mesh, "plan.autotune(mesh=)")
         if devices is not None:
             raise ValueError("pass mesh= or devices=, not both")
         devices = int(mesh.size)
-        mesh_key = list(mesh.key)
         if device is None:
-            device = mesh.devices[0]
+            device = mesh.devices[mesh.local_ids[0]]
+        if mesh.world > 1:
+            # the candidates are priced from constants, never timed, so
+            # every process computes this same plan with no collective:
+            # that of devices= under the live mesh's topology (one host a
+            # process unless topology= or QUEST_COMM_TOPOLOGY says
+            # otherwise), keyed alike on every rank
+            if topology is None:
+                from quest_tpu_torch.parallel import comm as C
+                topology = C.topology(devices, mesh)
+        else:
+            mesh_key = list(mesh.key)
     if devices is not None:
         devices = int(devices)
         if devices < 2 or devices & (devices - 1):

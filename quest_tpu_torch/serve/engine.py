@@ -98,6 +98,7 @@ from quest_tpu_torch.resilience import faults as _F
 from quest_tpu_torch.resilience.breaker import CLOSED, HALF_OPEN, OPEN, Breaker
 from quest_tpu_torch.resilience.supervisor import Supervisor
 from quest_tpu_torch.serve import metrics as M
+from quest_tpu_torch.validation import QuESTError
 from quest_tpu_torch.serve.admission import (AdmissionController,
                                              DeadlineExceeded,
                                              DispatchTimeout, RejectedError)
@@ -235,6 +236,21 @@ class _Queue:
         self.pending_states = 0
 
 
+def _refuse_gather_over_processes(mesh) -> None:
+    """A durable job answers with its final planes gathered onto this
+    process, as the reference's does (`jax.device_get(out.amps)`,
+    quest_tpu/serve/engine.py:1133-1134), which fails for an array over
+    devices of other processes. So a mesh that spans processes is
+    refused, typed: gathering a register onto every process is not what
+    the reference does."""
+    if mesh is not None and getattr(mesh, "world", 1) > 1:
+        raise QuESTError(
+            "Invalid operation: ServeEngine(durable_mesh=) answers a "
+            "durable job with its state gathered onto one process, which "
+            "a mesh over several processes cannot give (the reference's "
+            "jax.device_get fails there too); use a one-process mesh")
+
+
 class ServeEngine:
     """Continuous micro-batcher over `Circuit.compiled_batched` and the
     trajectory programs. Thread-safe `submit()`; one worker thread
@@ -342,8 +358,7 @@ class ServeEngine:
         # durable jobs run sharded over durable_mesh (a parallel.AmpMesh)
         # when one is given; durable_elastic lets a job resume a chain
         # that a replica on another mesh left behind
-        from quest_tpu_torch.parallel.mesh import refuse_process_mesh
-        refuse_process_mesh(durable_mesh, "ServeEngine(durable_mesh=)")
+        _refuse_gather_over_processes(durable_mesh)
         self.durable_mesh = durable_mesh
         self.durable_elastic = durable_elastic
         # the worker generation: the watchdog supersedes a wedged worker

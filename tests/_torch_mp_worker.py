@@ -16,8 +16,14 @@ tests/_elastic_worker.py):
               13q states through the fused-batched engine, the norm's
               reduce, a gather, and the dynamic Bell circuit with feedback;
   consumers   the eager API, sampling, a Pauli-sum energy and a quench on a
-              register sharded over the process mesh, and the consumers
-              that refuse a process mesh typed;
+              register sharded over the process mesh, and the two calls
+              that refuse a process mesh typed (checkpoint.save and
+              ServeEngine(durable_mesh=));
+  gradients   value_and_grad(mesh=) of a 10q ansatz with both engines in
+              f32 and f64 (and as QUEST_ADJOINT / auto resolve them),
+              autograd through expec_sharded, plan.autotune(mesh=), and
+              save_sharded / load_sharded across the processes: a fault
+              mid-save, a background save, a one-process save loaded;
   gang        the four scenarios of the reference's gang worker at 8q, then
               one gang checkpoint left on disk for the parent to read;
   elastic-1 / elastic-solo / elastic-3
@@ -244,10 +250,8 @@ def consumer_values(q, n: int, env) -> dict:
 
 def consumers() -> None:
     import quest_tpu_torch as qtt
-    from quest_tpu_torch import adjoint, plan
     from quest_tpu_torch import random_ as RND
     from quest_tpu_torch import validation as val
-    from quest_tpu_torch.entry import tfim_sum
     from quest_tpu_torch.serve.engine import ServeEngine
     env, mesh = join()
     n = 9
@@ -259,9 +263,7 @@ def consumers() -> None:
     save("quench", local_block(quenched.amps))
     refused = {}
     probes = {
-        "value_and_grad": lambda: adjoint.value_and_grad(
-            Circuit(n).rx(0, 0.1), tfim_sum(n), mesh=mesh, device="cpu"),
-        "autotune": lambda: plan.autotune(Circuit(n).h(0), mesh=mesh),
+        "save": lambda: ckpt.save(q, os.path.join(ROOT, f"save-{RANK}")),
         "serve_durable_mesh": lambda: ServeEngine(device="cpu",
                                                   durable_mesh=mesh),
     }
@@ -270,10 +272,243 @@ def consumers() -> None:
             call()
             refused[name] = "ran"
         except val.QuESTError as e:
-            refused[name] = "A10d" if "A10d" in str(e) else str(e)
+            refused[name] = [type(e).__name__, str(e)]
+    refused["save_wrote"] = os.path.exists(os.path.join(ROOT,
+                                                        f"save-{RANK}"))
     out["refused"] = refused
     dump("consumers", out)
     say("consumers ok")
+
+
+# -- gradients, plans and per-shard checkpoints ------------------------------
+
+
+GRAD_N = 10
+SAVE_LOOP = 20              # an even count leaves the register as it was
+
+
+def grad_circuit(n: int = GRAD_N) -> Circuit:
+    """A hardware-efficient ansatz, one rx or ry a qubit and a layer over
+    2 layers with cz entanglers, then the parametric forms the mesh walk
+    splits: a controlled rx on the top (cross-process) qubit under a
+    local control, a controlled ry on a local target under a global
+    control, a phase shift and a parity rotation on global qubits."""
+    from quest_tpu_torch.ops import matrices as M
+    rng = np.random.default_rng(23)
+    c = Circuit(n)
+    for layer in range(2):
+        for q in range(n):
+            (c.rx if (q + layer) % 2 else c.ry)(
+                q, float(rng.uniform(-np.pi, np.pi)))
+        for q in range(layer % 2, n - 1, 2):
+            c.cz(q, q + 1)
+    c.cu(M.rotation(0.37, (1, 0, 0)), n - 1, 0)
+    c.cu(M.rotation(-0.52, (0, 1, 0)), 1, n - 2)
+    c.phase(n - 2, 0.41).multi_rotate_z((2, n - 1), 0.63)
+    return c
+
+
+GRAD_CASES = [(engine, dt) for dt in ("float32", "float64")
+              for engine in ("adjoint", "taped")]
+
+
+def gradient_values(mesh, fn_of) -> dict:
+    """Energy, gradient, issued exchanges and the engine of each case
+    (fn_of(engine, dtype) -> value_and_grad fn) on `mesh`."""
+    c = grad_circuit()
+    out = {}
+    for engine, dt in GRAD_CASES:
+        fn = fn_of(c, engine, dt)
+        theta = torch.as_tensor(fn.initial_params)
+        mesh.recorder.reset()
+        v, g = fn(theta)
+        out[f"{engine}-{dt}"] = {
+            "engine": fn.engine, "value": float(v),
+            "grad": g.double().tolist(), "dtype": str(g.dtype),
+            "issued": mesh.recorder.stats(mesh.size),
+            "predicted": fn.comm_record}
+    return out
+
+
+def gradients() -> None:
+    from quest_tpu_torch import adjoint as AD
+    from quest_tpu_torch import plan as PL
+    from quest_tpu_torch.entry import tfim_sum
+    from quest_tpu_torch.ops import expec as E
+    env, mesh = join()
+    n = GRAD_N
+    codes, coeffs = tfim_sum(n)
+    recs = {"grads": gradient_values(mesh, lambda c, eng, dt:
+                                     AD.value_and_grad(
+                                         c, codes, coeffs=coeffs, mesh=mesh,
+                                         engine=eng, dtype=np.dtype(dt)))}
+    # the engine as QUEST_ADJOINT and auto resolve it on the mesh
+    resolved = {}
+    for knob, hbm in (("0", None), ("1", None), ("auto", 1 << 40),
+                      ("auto", 1 << 16)):
+        os.environ["QUEST_ADJOINT"] = knob
+        if hbm is not None:
+            os.environ["QUEST_HBM_BYTES"] = str(hbm)
+        AD._FN_CACHE.clear()        # the device memory is not in the key
+        fn = AD.value_and_grad(grad_circuit(), codes, coeffs=coeffs,
+                               mesh=mesh)
+        v, g = fn(torch.as_tensor(fn.initial_params))
+        resolved[f"{knob}-{hbm}"] = [fn.engine, float(v), g.tolist()]
+        os.environ.pop("QUEST_HBM_BYTES", None)
+    os.environ.pop("QUEST_ADJOINT", None)
+    recs["resolved"] = resolved
+    # exchanges over processes sliced apart from those within a process
+    os.environ["QUEST_EXCHANGE_SLICES_DCI"] = "2"
+    fn = AD.value_and_grad(grad_circuit(), codes, coeffs=coeffs, mesh=mesh,
+                           engine="adjoint")
+    mesh.recorder.reset()
+    fn(torch.as_tensor(fn.initial_params))
+    recs["dci_sliced"] = {"issued": mesh.recorder.stats(mesh.size),
+                          "predicted": fn.comm_record}
+    os.environ.pop("QUEST_EXCHANGE_SLICES_DCI")
+    # autograd through the sharded expectation
+    x = shard_planes(expec_state(n), mesh, n)
+    local = [s.requires_grad_(True) for _, s in x.local()]
+    cf = torch.tensor(coeffs, requires_grad=True)
+    plan = E.plan_expec(E.parse_pauli_sum(codes, n), n, density=False)
+    val = E.expec_sharded(x, cf, plan)
+    grads = torch.autograd.grad(val, local + [cf])
+    recs["expec"] = {"value": float(val), "cf_grad": grads[-1].tolist()}
+    save("expec-grad", torch.cat([g for g in grads[:-1]], dim=-1).numpy())
+    recs["exchange_grads"] = exchange_grads(mesh)
+    # the plan: every rank the same, with no collective
+    p = PL.autotune(grad_circuit(), mesh=mesh, persist=False)
+    recs["plan"] = plan_record(p)
+    dump("gradients", recs)
+    checkpoints(mesh)
+    say("gradients ok")
+
+
+def exchange_grads(mesh) -> dict:
+    """Each process's gradients through the process mesh's pair exchange
+    and all-to-all of a weighted sum of what it received: block d's
+    gradient is the weight its receiver gave it, delivered by the
+    backward exchange from the other process."""
+    D = mesh.size
+    mine = list(mesh.local_ids)
+    out = {}
+    blocks = [None] * D
+    for d in mine:
+        blocks[d] = torch.full((2, 4), float(d + 1), requires_grad=True)
+    recv = mesh.permute(blocks, 1)
+    loss = sum((recv[d] * (10.0 * d + 1.0)).sum() for d in mine)
+    grads = torch.autograd.grad(loss, [blocks[d] for d in mine])
+    out["permute"] = {str(d): float(g.mean()) for d, g in zip(mine, grads)}
+    rows = [None] * D
+    for d in mine:
+        rows[d] = [torch.full((2, 3), float(d * D + k), requires_grad=True)
+                   for k in range(D)]
+    recv = mesh.all_to_all(rows)
+    loss = sum((recv[k][d] * float(100 * k + d)).sum()
+               for k in mine for d in range(D))
+    grads = torch.autograd.grad(loss, [rows[d][k] for d in mine
+                                       for k in range(D)])
+    out["all_to_all"] = {f"{d},{k}": float(grads[i * D + k].mean())
+                         for i, d in enumerate(mine) for k in range(D)}
+    out["received"] = {f"{k},{d}": float(recv[k][d].mean())
+                       for k in mine for d in range(D)}
+    return out
+
+
+def expec_state(n: int) -> torch.Tensor:
+    """A normalised random f64 state (2, 2^n), the expectation's input
+    (the parent makes the same)."""
+    rng = np.random.default_rng(31)
+    v = rng.standard_normal((2, 1 << n))
+    return torch.from_numpy(v / np.sqrt((v ** 2).sum()))
+
+
+def plan_record(p) -> dict:
+    """A ProgramPlan as JSON-comparable fields."""
+    import dataclasses
+    return json.loads(json.dumps(dataclasses.asdict(p), sort_keys=True,
+                                 default=str))
+
+
+def checkpoints(mesh) -> None:
+    """save_sharded / load_sharded over the process mesh: a save the
+    parent reads onto a one-process mesh and one register, a fault in
+    rank 1's save (nothing committed, rank 0's save fails typed at its
+    timeout, the directory refused typed), the save retried with
+    block=False, saves back to back each loaded at once with no barrier
+    (a returned save is committed, whichever rank committed it), and the
+    one-process save the parent wrote before the ranks started, loaded
+    onto the process mesh."""
+    from quest_tpu_torch.state import Qureg
+    n = GRAD_N
+    c = grad_circuit(n)
+    x = shard_planes(base(n), mesh, n)
+    S.compile_circuit_sharded(c.ops, n, False, mesh)(x)
+    q = Qureg(amps=x, num_qubits=n)
+    save("ckpt-state", local_block(x))
+    rec = {}
+    # a fault between rank 1's payload and its stamp: nothing commits
+    torn = os.path.join(ROOT, "ckpt-torn")
+    plan = faults.FaultPlan()
+    if RANK == 1:
+        plan.inject("checkpoint.save", after_n=0, times=1)
+    with faults.active(plan):
+        try:
+            ckpt.save_sharded(q, torn, timeout=2.0)
+            rec["torn_raised"] = None
+        except (faults.InjectedFault, ckpt.CheckpointError) as e:
+            rec["torn_raised"] = type(e).__name__
+    mesh.barrier()
+    rec["torn_committed"] = os.path.exists(torn)
+    try:
+        ckpt.load_sharded(torn, mesh=mesh)
+        rec["torn_load"] = "loaded"
+    except ckpt.CheckpointError as e:
+        rec["torn_load"] = type(e).__name__
+    # the same directory again, in the background: committed whole
+    pending = ckpt.save_sharded(q, torn, block=False)
+    rec["pending"] = type(pending).__name__
+    pending.wait()
+    mesh.barrier()
+    rec["torn_dirs_left"] = sorted(
+        e for e in os.listdir(ROOT) if e.startswith("ckpt-torn.tmp"))
+    back = ckpt.load_sharded(torn, mesh=mesh)
+    rec["round_trip_equal"] = all(
+        torch.equal(back.amps.shards[d], x.shards[d]) for d in mesh.local_ids)
+    mesh.barrier()
+    # saves back to back into one directory, each loaded as soon as it
+    # returns: both ranks race for every commit
+    loop = os.path.join(ROOT, "ckpt-loop")
+    rec["loop_equal"] = []
+    for i in range(SAVE_LOOP):
+        for d in mesh.local_ids:
+            x.shards[d].mul_(-1.0)
+        ckpt.save_sharded(q, loop)
+        got = ckpt.load_sharded(loop, mesh=mesh)
+        rec["loop_equal"].append(all(
+            torch.equal(got.amps.shards[d], x.shards[d])
+            for d in mesh.local_ids))
+    mesh.barrier()
+    rec["loop_left"] = sorted(
+        e for e in os.listdir(ROOT) if e.startswith("ckpt-loop."))
+    # a save over a committed checkpoint replaces it whole
+    over = os.path.join(ROOT, "ckpt-over")
+    ckpt.save_sharded(Qureg(amps=shard_planes(base(n), mesh, n),
+                            num_qubits=n), over)
+    mesh.barrier()
+    ckpt.save_sharded(q, over)
+    mesh.barrier()
+    again = ckpt.load_sharded(over, mesh=mesh)
+    rec["overwrite_equal"] = all(
+        torch.equal(again.amps.shards[d], x.shards[d])
+        for d in mesh.local_ids)
+    mesh.barrier()
+    # the parent's one-process save, onto the process mesh
+    one = ckpt.load_sharded(os.path.join(ROOT, "one-process"), mesh=mesh)
+    save("ckpt-from-one", local_block(one.amps))
+    rec["from_one_shards"] = sorted(
+        d for d, s in enumerate(one.amps.shards) if s is not None)
+    dump("checkpoints", rec)
 
 
 # -- the gang durable scenarios (tests/_gang_worker.py) ----------------------
@@ -510,6 +745,7 @@ if __name__ == "__main__":
     RANK = 0 if SCEN == "elastic-solo" else int(os.environ["RANK"])
     try:
         {"engines": engines, "consumers": consumers, "gang": gang,
+         "gradients": gradients,
          "peer-dies": peer_dies}.get(SCEN, elastic)()
     except ProcessGroupError as e:
         say(f"ProcessGroupError: {e}")

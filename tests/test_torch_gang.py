@@ -250,8 +250,23 @@ def test_a_gang_program_runs_on_a_rank_view_locally():
 @pytest.mark.parametrize("save", ["save", "save_sharded"])
 def test_a_process_register_refuses_a_one_process_checkpoint(tmp_path, save):
     """Every process of a process mesh holds only its slice: a whole-
-    register or per-shard checkpoint written by one of them is refused
-    typed (save_step_gang is the process mesh's checkpoint)."""
+    register checkpoint written by one of them is refused typed, naming
+    the reference's reason (its save gathers with jax.device_get), and a
+    per-shard checkpoint written by one of them alone writes that
+    process's shards and stamp, commits nothing and fails typed at its
+    timeout: the commit waits for every process's stamp."""
     q = rank_view(_planes(6), 6, 1)
-    with pytest.raises(ckpt.CheckpointError, match="process mesh"):
-        getattr(ckpt, save)(q, str(tmp_path / "one"))
+    target = tmp_path / "one"
+    if save == "save":
+        with pytest.raises(ckpt.CheckpointError, match="process mesh"):
+            ckpt.save(q, str(target))
+        assert not target.exists()
+        return
+    with pytest.raises(ckpt.CheckpointError, match="not committed"):
+        ckpt.save_sharded(q, str(target), timeout=0.2)
+    assert not target.exists()
+    tmp, = [p for p in tmp_path.iterdir() if p.name.startswith("one.tmp-mesh")]
+    assert sorted(f.name for f in tmp.iterdir()) == [
+        "prepared-1.json", "shard-2.npz", "shard-3.npz"]
+    with pytest.raises(ckpt.CheckpointError):
+        ckpt.load_sharded(str(target), device="cpu")

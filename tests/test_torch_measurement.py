@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 
 from quest_tpu import measurement as JM
+from quest_tpu import native as JN
 from quest_tpu import random_ as JR
 from quest_tpu import state as JS
 from quest_tpu import validation as JV
@@ -268,7 +269,33 @@ def test_sample_draws_from_generator_and_host_stream():
     assert abs(float((q.amps.double() ** 2).sum()) - 1.0) < 1e-6
 
 
-def test_random_stream_bit_equal_to_reference():
+def _reference_library(monkeypatch) -> bool:
+    """Whether the JAX package's native mt19937ar loads in this process,
+    its load retried once. The package builds its library with `make -C
+    native` at first use and, when that build fails, draws numpy's
+    MT19937 (another stream) for the rest of the process. Test workers
+    that build it at once can fail: each `make` links the same temporary
+    file and renames it, and a worker whose rename finds the file gone
+    fails its build although the library is there a moment later. The
+    retry loads the library a peer built."""
+    if not JN.available():
+        monkeypatch.setattr(JN, "_lib_tried", False)
+    return JN.available()
+
+
+def _python_mt19937ar(key):
+    """uniform() of mt19937ar's stream for init_by_array(key), drawn in
+    Python: the port's own Python generator state (random_._init_by_array)
+    in a RandomState of its own, genrand_real1 of each 32-bit word."""
+    rs = np.random.RandomState()
+    rs.set_state(("MT19937", TR._init_by_array(key), 624, 0, 0.0))
+    return lambda: int(rs.randint(0, 1 << 32, dtype=np.uint64)) * (
+        1.0 / 4294967295.0)
+
+
+def test_random_stream_bit_equal_to_reference(monkeypatch):
+    assert _reference_library(monkeypatch), \
+        "the JAX package's native library does not load"
     # one-word keys too (numpy would seed those through init_genrand),
     # and a key longer than the 624-word state
     for seeds in ([12345, 6789], [0], [7], [2**32 - 1, 3, 5],
@@ -282,7 +309,14 @@ def test_random_stream_bit_equal_to_reference():
 
 @pytest.mark.parametrize("rdt", DTYPES)
 @pytest.mark.parametrize("density,nq", CASES)
-def test_measure_with_stats_stream_matches_reference(rdt, density, nq):
+def test_measure_with_stats_stream_matches_reference(rdt, density, nq,
+                                                    monkeypatch):
+    """Outcomes and probabilities of the port's measure_with_stats equal
+    the JAX package's under equal seeds, both on mt19937ar's stream. Where
+    the package's native library does not load it draws numpy's MT19937,
+    another stream; its `uniform` then reads the same mt19937ar words from
+    Python, so the two packages still draw alike."""
+    native_ok = _reference_library(monkeypatch)
     planes = (_density if density else _state)(nq, rdt, 41)
     cdt = np.complex64 if rdt == np.float32 else np.complex128
     jq = (JS.create_density_qureg if density else JS.create_qureg)(
@@ -292,6 +326,9 @@ def test_measure_with_stats_stream_matches_reference(rdt, density, nq):
     tq.amps.copy_(torch.from_numpy(planes))
     JR.seed_quest([2026, 11])
     TR.seed_quest([2026, 11])
+    assert JR._use_native == native_ok
+    if not native_ok:
+        monkeypatch.setattr(JR, "uniform", _python_mt19937ar([2026, 11]))
     for qubit in list(range(nq)) * 2:
         jq, jo, jp = JM.measure_with_stats(jq, qubit)
         tq, to, tp = TM.measure_with_stats(tq, qubit)

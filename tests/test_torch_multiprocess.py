@@ -2,6 +2,14 @@
 make_process_mesh, env.QuESTEnv(distributed=True)), mirroring
 tests/test_multihost.py and tests/_multihost_worker.py on the CPU.
 
+The gradients scenario holds value_and_grad(mesh=) of both engines (f32
+and f64) equal on both ranks, within 1e-12 / 1e-6 relative of the
+one-process mesh and 5e-6 / 5e-5 of the JAX package's sharded adjoint
+walk, its exchanges equal to the prediction (and that to the JAX
+package's); autograd through expec_sharded, autotune(mesh=) equal on
+both ranks and to the one-process plan, and save_sharded / load_sharded
+across process and one-process meshes, all or nothing under a fault.
+
 Two real processes join a gloo group through a FileStore in the test's
 temporary directory (no fixed port) and hold 2 CPU shards each of one
 4-shard mesh (tests/_torch_mp_worker.py). Each rank writes its shards and
@@ -440,12 +448,281 @@ def test_consumer_shards_equal_the_one_process_mesh(consumers_run,
                                atol=1e-6)
 
 
-def test_unported_consumers_refuse_a_process_mesh_typed(consumers_run):
+def test_save_and_a_serving_durable_mesh_refuse_a_process_mesh_typed(
+        consumers_run):
+    """The two calls that gather a register onto one process, as the
+    reference's (jax.device_get, which fails for an array over another
+    process's devices), refuse a process mesh typed and write nothing."""
     _, recs = consumers_run
     for rec in recs:
-        assert rec["refused"] == {"value_and_grad": "A10d",
-                                  "autotune": "A10d",
-                                  "serve_durable_mesh": "A10d"}
+        refused = rec["refused"]
+        assert refused["save"][0] == "CheckpointError"
+        assert "jax.device_get" in refused["save"][1]
+        assert "save_sharded" in refused["save"][1]
+        assert refused["serve_durable_mesh"][0] == "QuESTError"
+        assert "jax.device_get" in refused["serve_durable_mesh"][1]
+        assert refused["save_wrote"] is False
+
+
+# -- gradients, plans and per-shard checkpoints over the process mesh --------
+
+
+@pytest.fixture(scope="module")
+def gradients_run(tmp_path_factory):
+    """The gradients scenario, after a one-process 4-shard save_sharded of
+    the scenario's state that the ranks load onto their mesh."""
+    from quest_tpu_torch import checkpoint as ckpt
+    from quest_tpu_torch.state import Qureg
+    root = str(tmp_path_factory.mktemp("gradients"))
+    n = W.GRAD_N
+    mesh = make_amp_mesh(4, devices=["cpu"] * 4)
+    x = shard_planes(base(n), mesh, n)
+    S.compile_circuit_sharded(W.grad_circuit(n).ops, n, False, mesh)(x)
+    ckpt.save_sharded(Qureg(amps=x, num_qubits=n),
+                      os.path.join(root, "one-process"))
+    rcs, outs = run_ranks("gradients", root)
+    assert_ranks_ok(rcs, outs, "gradients ok")
+    return root, records(root, "gradients"), records(root, "checkpoints"), \
+        x.gather("cpu").numpy()
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def _one_process_grads():
+    from quest_tpu_torch import adjoint as AD
+    from quest_tpu_torch.entry import tfim_sum
+    codes, coeffs = tfim_sum(W.GRAD_N)
+    mesh = make_amp_mesh(4, devices=["cpu"] * 4)
+    return mesh, W.gradient_values(mesh, lambda c, eng, dt: AD.value_and_grad(
+        c, codes, coeffs=coeffs, mesh=mesh, engine=eng, dtype=np.dtype(dt)))
+
+
+@pytest.fixture(scope="module")
+def one_process_grads():
+    return _one_process_grads()[1]
+
+
+CASE_IDS = [f"{e}-{d}" for e, d in W.GRAD_CASES]
+GRAD_REL = {"float32": 1e-6, "float64": 1e-12}
+JAX_TOL = {"float32": 5e-5, "float64": 5e-6}
+
+
+@pytest.mark.parametrize("case", CASE_IDS)
+def test_gradients_equal_on_both_ranks_and_the_one_process_mesh(
+        gradients_run, one_process_grads, case):
+    """Both engines over 2 ranks x 2 CPU shards: the same energy and
+    gradient on both ranks, within 1e-12 (f64) / 1e-6 (f32) relative of
+    the one-process 4-shard mesh, which sums in another order."""
+    _, recs, _, _ = gradients_run
+    r0, r1 = (r["grads"][case] for r in recs)
+    want = one_process_grads[case]
+    engine, dt = case.split("-")
+    assert r0["engine"] == r1["engine"] == want["engine"] == engine
+    assert r0["dtype"] == r1["dtype"] == f"torch.{dt}"
+    assert r0["value"] == r1["value"] and r0["grad"] == r1["grad"]
+    assert abs(r0["value"] - want["value"]) <= GRAD_REL[dt] * abs(
+        want["value"])
+    assert _rel(r0["grad"], want["grad"]) <= GRAD_REL[dt]
+
+
+@pytest.fixture(scope="module")
+def jax_grads():
+    """The JAX package's adjoint value_and_grad of the same circuit on a
+    mesh of 4 of its CPU devices, f32 and f64."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from quest_tpu import adjoint as JAD
+    from quest_tpu.env import AMP_AXIS
+    from quest_tpu_torch.entry import tfim_sum
+    codes, coeffs = tfim_sum(W.GRAD_N)
+    jmesh = Mesh(np.array(jax.devices()[:4]), (AMP_AXIS,))
+    jc = to_reference(W.grad_circuit())
+    out = {}
+    for dt in ("float32", "float64"):
+        fn = JAD.value_and_grad(jc, codes, coeffs=coeffs, mesh=jmesh,
+                                engine="adjoint", dtype=np.dtype(dt))
+        theta = np.asarray(fn.initial_params, dtype=dt)
+        v, g = fn(jnp.asarray(theta))
+        out[dt] = (float(v), np.asarray(g, dtype=np.float64))
+    return out
+
+
+@pytest.mark.parametrize("case", CASE_IDS)
+def test_gradients_hold_the_jax_package(gradients_run, jax_grads, case):
+    """Each engine on the process mesh within 5e-6 (f64) / 5e-5 (f32) of
+    the JAX package's sharded adjoint walk."""
+    _, recs, _, _ = gradients_run
+    dt = case.split("-")[1]
+    jv, jg = jax_grads[dt]
+    for rec in recs:
+        got = rec["grads"][case]
+        assert abs(got["value"] - jv) <= JAX_TOL[dt]
+        np.testing.assert_allclose(got["grad"], jg, rtol=0,
+                                   atol=JAX_TOL[dt])
+
+
+def test_gradient_exchanges_equal_the_prediction_and_the_jax_prediction(
+        gradients_run, hosts2):
+    """The adjoint walk's issued exchanges, cross-process ones included,
+    equal fn.comm_record (predict_vjp_collectives under the mesh's
+    topology), with QUEST_EXCHANGE_SLICES_DCI=2 too; at the default
+    slicing that record equals the JAX package's prediction."""
+    from quest_tpu import adjoint as JAD
+    from quest_tpu.ops import expec as JE
+    from quest_tpu_torch.entry import tfim_sum
+    _, recs, _, _ = gradients_run
+    n = W.GRAD_N
+    codes, _ = tfim_sum(n)
+    jprog, _ = JAD.build_circuit_program(to_reference(W.grad_circuit()),
+                                         False)
+    jplan = JE.plan_expec(JE.parse_pauli_sum(codes, n), n, density=False)
+    want = JAD.predict_vjp_collectives(jprog, jplan, 4)
+    for rec in recs:
+        for case in ("adjoint-float32", "adjoint-float64"):
+            issued = rec["grads"][case]["issued"]
+            pred = rec["grads"][case]["predicted"]
+            assert pred == want
+            assert issued["collective_permutes"] == \
+                pred["collective_permutes"]
+            assert issued["all_to_alls"] == pred["all_to_alls"]
+            assert issued["all_reduces"] == pred["all_reduces"] == 2
+        sliced = rec["dci_sliced"]
+        assert sliced["issued"]["collective_permutes"] == \
+            sliced["predicted"]["collective_permutes"] > \
+            want["collective_permutes"]
+    assert recs[0]["dci_sliced"] == recs[1]["dci_sliced"]
+    for case in ("taped-float32", "taped-float64"):
+        assert recs[0]["grads"][case]["predicted"] is None
+        assert recs[0]["grads"][case]["issued"] == \
+            recs[1]["grads"][case]["issued"]
+
+
+def test_the_engine_resolves_on_a_process_mesh(gradients_run):
+    """QUEST_ADJOINT 0 / 1 and auto (the capacity model against
+    QUEST_HBM_BYTES) pick the engine on a process mesh as on one
+    register, and both engines give one gradient."""
+    _, recs, _, _ = gradients_run
+    for rec in recs:
+        res = rec["resolved"]
+        assert [res[k][0] for k in ("0-None", "1-None", f"auto-{1 << 40}",
+                                    f"auto-{1 << 16}")] == \
+            ["taped", "adjoint", "taped", "adjoint"]
+        assert _rel(res["0-None"][2], res["1-None"][2]) <= 1e-6
+    assert recs[0]["resolved"] == recs[1]["resolved"]
+
+
+def test_autograd_through_the_sharded_expectation_on_a_process_mesh(
+        gradients_run):
+    """expec_sharded over the process mesh tapes through the cross-process
+    flip exchange and the reduce: each rank's shard gradients and both
+    ranks' coefficient gradient equal the one-process mesh's."""
+    from quest_tpu_torch.entry import tfim_sum
+    from quest_tpu_torch.ops import expec as E
+    root, recs, _, _ = gradients_run
+    n = W.GRAD_N
+    codes, coeffs = tfim_sum(n)
+    mesh = make_amp_mesh(4, devices=["cpu"] * 4)
+    x = shard_planes(W.expec_state(n), mesh, n)
+    for s in x.shards:
+        s.requires_grad_(True)
+    cf = torch.tensor(coeffs, requires_grad=True)
+    plan = E.plan_expec(E.parse_pauli_sum(codes, n), n, density=False)
+    val = E.expec_sharded(x, cf, plan)
+    grads = torch.autograd.grad(val, x.shards + [cf])
+    for rec in recs:
+        assert abs(rec["expec"]["value"] - float(val.detach())) <= 1e-12
+        np.testing.assert_allclose(rec["expec"]["cf_grad"],
+                                   grads[-1].numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(both(root, "expec-grad"),
+                               torch.cat(grads[:-1], -1).numpy(), rtol=0,
+                               atol=1e-12)
+
+
+def test_the_process_mesh_exchanges_carry_gradients(gradients_run):
+    """The pair exchange and the all-to-all of a process mesh are
+    autograd Functions: each block's gradient is the weight its receiver
+    (in this process or the other) gave it, and the all-to-all still
+    delivers block [d][k] to shard k."""
+    _, recs, _, _ = gradients_run
+    D = 4
+    for r, rec in enumerate(recs):
+        ex = rec["exchange_grads"]
+        mine = (2 * r, 2 * r + 1)
+        assert ex["permute"] == {str(d): 10.0 * (d ^ 2) + 1.0 for d in mine}
+        assert ex["all_to_all"] == {f"{d},{k}": float(100 * k + d)
+                                    for d in mine for k in range(D)}
+        assert ex["received"] == {f"{k},{d}": float(d * D + k)
+                                  for k in mine for d in range(D)}
+
+
+def test_autotune_plans_equal_on_both_ranks_and_one_process(gradients_run):
+    """plan.autotune(mesh=<process mesh>) prices from constants, so both
+    ranks return the same plan with no collective, and it is the
+    one-process autotune(devices=4) under the mesh's topology (one host
+    a process)."""
+    from quest_tpu_torch import plan as PL
+    _, recs, _, _ = gradients_run
+    assert recs[0]["plan"] == recs[1]["plan"]
+    want = PL.autotune(W.grad_circuit(), devices=4, persist=False,
+                       topology=TCM.Topology(hosts=2), device="cpu")
+    assert recs[0]["plan"] == W.plan_record(want)
+    assert recs[0]["plan"]["devices"] == 4
+
+
+def test_save_sharded_across_processes_round_trips(gradients_run):
+    """A process-mesh save loads bit for bit onto the ranks' mesh, onto a
+    one-process mesh of the same shard count and onto one register; the
+    parent's one-process save loads onto the process mesh."""
+    from quest_tpu_torch import checkpoint as ckpt
+    root, _, crecs, want = gradients_run
+    state = both(root, "ckpt-state")
+    np.testing.assert_allclose(state, want, rtol=0, atol=1e-6)
+    path = os.path.join(root, "ckpt-torn")
+    one = ckpt.load_sharded(path, mesh=make_amp_mesh(4, devices=["cpu"] * 4))
+    np.testing.assert_array_equal(one.amps.gather("cpu").numpy(), state)
+    reg = ckpt.load_sharded(path, device="cpu")
+    np.testing.assert_array_equal(reg.amps.reshape(2, -1).numpy(), state)
+    np.testing.assert_array_equal(both(root, "ckpt-from-one"), want)
+    for name in ("ckpt-torn", "ckpt-over"):
+        assert sorted(os.listdir(os.path.join(root, name))) == sorted(
+            ["qureg_meta.json"] + [f"shard-{d}.npz" for d in range(4)])
+    assert not [e for e in os.listdir(root)
+                if ".tmp" in e or ".old-" in e]
+    for r, rec in enumerate(crecs):
+        assert rec["round_trip_equal"] is True
+        assert rec["overwrite_equal"] is True
+        assert rec["pending"] == "PendingCheckpoint"
+        assert rec["from_one_shards"] == [2 * r, 2 * r + 1]
+
+
+def test_a_fault_mid_save_commits_nothing(gradients_run):
+    """Rank 1 fails between its shards and its stamp: rank 0's save
+    fails typed at its timeout, nothing is committed, the directory is
+    refused typed, and the retried save commits and sweeps the torn
+    one's files."""
+    _, _, crecs, _ = gradients_run
+    assert [rec["torn_raised"] for rec in crecs] == ["CheckpointError",
+                                                     "InjectedFault"]
+    for rec in crecs:
+        assert rec["torn_committed"] is False
+        assert rec["torn_load"] == "CheckpointError"
+        assert rec["torn_dirs_left"] == []
+
+
+def test_back_to_back_saves_return_committed_on_every_rank(gradients_run):
+    """Both ranks race for the commit of each of SAVE_LOOP saves into one
+    directory; each rank loads right after its save returns, with no
+    barrier, and reads that very save; no tmp or old dir is left."""
+    root, _, crecs, _ = gradients_run
+    for rec in crecs:
+        assert rec["loop_equal"] == [True] * W.SAVE_LOOP
+        assert rec["loop_left"] == []
+    assert sorted(os.listdir(os.path.join(root, "ckpt-loop"))) == sorted(
+        ["qureg_meta.json"] + [f"shard-{d}.npz" for d in range(4)])
 
 
 # -- a dead or absent peer ---------------------------------------------------

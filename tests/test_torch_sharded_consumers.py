@@ -10,7 +10,8 @@ the port's own one-register results, on meshes of 2, 4 and 8 CPU shards.
   * adjoint.value_and_grad(mesh=) (test_adjoint.py:123,248): energy and
     gradient equal the one-register walk and the reference's sharded
     walk; the issued exchanges equal predict_vjp_collectives at 1 and 2
-    exchange slices; density, Trotter-ansatz and taped targets refused.
+    exchange slices; density and Trotter-ansatz targets refused by both
+    engines (the taped engine on a mesh: tests/test_torch_adjoint.py).
   * measurement.sample on a sharded register (test_distributed.py:291):
     given the reference's uniforms its indices are the reference's
     sharded sampler's; drawn from a generator, its frequencies follow
@@ -242,7 +243,7 @@ def test_adjoint_sharded_matches_single_and_predicted(slices, monkeypatch):
     v1, g1 = one(th)
     for d in MESHES:
         mesh = _mesh(d)
-        fn = AD.value_and_grad(c, ham, mesh=mesh)
+        fn = AD.value_and_grad(c, ham, mesh=mesh, engine="adjoint")
         assert fn.engine == "adjoint"
         mesh.recorder.reset()
         v2, g2 = fn(th)
@@ -258,7 +259,7 @@ def test_adjoint_sharded_matches_single_and_predicted(slices, monkeypatch):
             E.plan_expec(E.parse_pauli_sum(np.asarray(ham.codes), n), n,
                          density=False), d)
         # equal specs return the identical callable, keyed on the mesh
-        assert AD.value_and_grad(c, ham, mesh=mesh) is fn
+        assert AD.value_and_grad(c, ham, mesh=mesh, engine="adjoint") is fn
 
 
 def test_adjoint_sharded_matches_the_reference():
@@ -272,7 +273,7 @@ def test_adjoint_sharded_matches_the_reference():
     two = JAD.value_and_grad(jc, tfim(JE, n), engine="adjoint", mesh=jmesh)
     th = np.asarray(two.initial_params, np.float32)
     vr, gr = two(jnp.asarray(th))
-    fn = AD.value_and_grad(c, tfim(E, n), mesh=_mesh(2))
+    fn = AD.value_and_grad(c, tfim(E, n), mesh=_mesh(2), engine="adjoint")
     v2, g2 = fn(torch.from_numpy(th))
     assert float(v2) == pytest.approx(float(vr), abs=1e-5)
     np.testing.assert_allclose(g2.numpy(), np.asarray(gr), atol=1e-5)
@@ -285,10 +286,10 @@ def test_adjoint_rejects_unsupported_shard_targets():
     with pytest.raises(AD.AdjointError, match="sharded trotter"):
         AD.value_and_grad(ansatz, spec, mesh=mesh)
     c = rand_ansatz(Circuit, 3, layers=1, seed=7)
-    with pytest.raises(AD.AdjointError, match="density"):
-        AD.value_and_grad(c, spec, density=True, mesh=mesh)
-    with pytest.raises(AD.AdjointError, match="taped"):
-        AD.value_and_grad(c, spec, mesh=mesh, engine="taped")
+    for engine in ("adjoint", "taped"):
+        with pytest.raises(AD.AdjointError, match="density"):
+            AD.value_and_grad(c, spec, density=True, mesh=mesh,
+                              engine=engine)
 
 
 # ---------------------------------------------------------------------------
