@@ -1,0 +1,8 @@
+"""quench.job_ms: job_ms (metrics/job_ms.py) in the quench cell. The host
+paces that cell (tens of thousands of small launches a job, a sync at each
+energy), so its job time follows the host's speed and has a bound of its
+own; its per-layer metrics move that bound's metric."""
+
+from portbench import byname
+
+read = byname.module("metrics", "job_ms").read
