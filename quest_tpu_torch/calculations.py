@@ -36,6 +36,7 @@ from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import expec as E
 from quest_tpu_torch.ops.expec import flipped_trace_diag, parse_pauli_sum
 from quest_tpu_torch.parallel import eager as SE
+from quest_tpu_torch.profiling import annotate, device_of
 
 CHUNK_AMPS = 1 << 26
 
@@ -58,21 +59,24 @@ def _sum_sq(planes: torch.Tensor) -> float:
 def calc_total_prob(q) -> float:
     """Total probability: sum |a|^2 of a statevector, Re Tr(rho) of a
     density matrix."""
-    if SE.is_sharded(q):
-        return SE.total_prob(q)
-    if q.is_density:
-        dim = 1 << q.num_qubits
-        diag = q.amps.reshape(2, -1)[0][::dim + 1]     # rho[r, r] at r (1 + dim)
-        return float(diag.to(torch.float64).sum())
-    return _sum_sq(q.amps)
+    with annotate("readout.total_prob", device=device_of(q)):
+        if SE.is_sharded(q):
+            return SE.total_prob(q)
+        if q.is_density:
+            dim = 1 << q.num_qubits
+            # rho[r, r] at r (1 + dim)
+            diag = q.amps.reshape(2, -1)[0][::dim + 1]
+            return float(diag.to(torch.float64).sum())
+        return _sum_sq(q.amps)
 
 
 def calc_purity(q) -> float:
     """Tr(rho^2) = sum |rho_ij|^2 (ref densmatr_calcPurityLocal)."""
     val.validate_density_matr(q)
-    if SE.is_sharded(q):
-        return SE.purity(q)
-    return _sum_sq(q.amps)
+    with annotate("readout.purity", device=device_of(q)):
+        if SE.is_sharded(q):
+            return SE.purity(q)
+        return _sum_sq(q.amps)
 
 
 def _inner(bra: torch.Tensor, ket: torch.Tensor) -> Tuple[float, float]:
@@ -249,13 +253,14 @@ def calc_linear_xeb(q, samples) -> float:
     """Linear cross-entropy fidelity of basis-state `samples` against the
     state: 2^n <p(s)> - 1, the mean in f64 (statevectors only)."""
     val.validate_state_vector(q)
-    if SE.is_sharded(q):
-        return SE.linear_xeb(q, samples)
-    flat = q.amps.reshape(2, -1)
-    s = torch.as_tensor(samples, device=flat.device).reshape(-1).long()
-    re, im = flat[0][s], flat[1][s]
-    p = (re * re + im * im).to(torch.float64)
-    return float((1 << q.num_state_qubits) * p.mean() - 1.0)
+    with annotate("readout.linear_xeb", device=device_of(q)):
+        if SE.is_sharded(q):
+            return SE.linear_xeb(q, samples)
+        flat = q.amps.reshape(2, -1)
+        s = torch.as_tensor(samples, device=flat.device).reshape(-1).long()
+        re, im = flat[0][s], flat[1][s]
+        p = (re * re + im * im).to(torch.float64)
+        return float((1 << q.num_state_qubits) * p.mean() - 1.0)
 
 
 def apply_pauli_sum(q, all_codes, coeffs):

@@ -78,6 +78,7 @@ from quest_tpu_torch.ops import segment as _segment
 from quest_tpu_torch.ops.segment import (Segment, batch_of, prepare_segment,
                                          segment_sweep,
                                          segment_sweep_reference)
+from quest_tpu_torch.profiling import annotate
 
 _LOOP_UNROLL_MAX = 32
 # op count above which Circuit.apply takes the banded engine (ref
@@ -475,16 +476,16 @@ class FusedProgram:
     time, for comparison. `tier` is the matmul tier it was compiled at
     (precision.matmul_precision() then), `driver` and `nbuf` the segment
     driver and in-place slots (band_plan.active_driver(),
-    QUEST_FUSED_NBUF then); every call runs under them. `fused_record`
-    is band_plan.fused_record of one application's plan (the reference's
-    Circuit.plan_stats()['fused']). f64 planes (the kernel is f32) run
-    `items`, the fusion plan the segments were cut from, through the
-    banded primitives `iters` times instead, in place, as the
-    reference's program routes them at call time (circuit.py:1321)."""
+    QUEST_FUSED_NBUF then); every call runs under them. f64 planes (the
+    kernel is f32) run `items`, the fusion plan the segments were cut
+    from, through the banded primitives `iters` times instead, in place,
+    as the reference's program routes them at call time
+    (circuit.py:1321). Its plan record is Circuit.plan_stats()['fused']
+    (band_plan.fused_record)."""
 
     def __init__(self, n: int, steps: List, loop_iters: int, tier: str,
-                 driver: str, nbuf: int, fused_record: dict, items: List,
-                 iters: int, device: torch.device):
+                 driver: str, nbuf: int, items: List, iters: int,
+                 device: torch.device):
         self.n = n
         self.steps = steps
         self.segments = [s for s in steps if isinstance(s, Segment)]
@@ -492,7 +493,6 @@ class FusedProgram:
         self.tier = tier
         self.driver = driver
         self.nbuf = nbuf
-        self.fused_record = fused_record
         self.banded = XlaProgram("banded", n, items, iters, tier, device)
 
     def __call__(self, amps: torch.Tensor) -> torch.Tensor:
@@ -1014,20 +1014,23 @@ class Circuit:
         dev = resolve_device(device)
 
         def build():
-            tier = precision.matmul_precision()
-            driver, nbuf = BP.active_driver(), knob_value("QUEST_FUSED_NBUF")
-            precision.ieee_fp32()
-            items, raw = self.fused_plan(n, density)
-            parts, loop_iters = _sweep_unrolled(raw, n, iters, driver)
-            steps = [prepare_segment(p[1], p[2], n, dev, tier=tier,
-                                     driver=driver, nbuf=nbuf)
-                     if p[0] == "segment" else XlaPass(p[1], n, tier)
-                     for p in parts]
-            record = BP.fused_record(raw, BP.maybe_sweep(raw, n,
-                                                         driver=driver),
-                                     n, driver=driver, nbuf=nbuf)
-            return FusedProgram(n, steps, loop_iters, tier, driver, nbuf,
-                                record, items, iters, dev)
+            with annotate("plan.fused"):
+                tier = precision.matmul_precision()
+                driver = BP.active_driver()
+                nbuf = knob_value("QUEST_FUSED_NBUF")
+                precision.ieee_fp32()
+                with annotate("plan.fusion"):
+                    items, raw = self.fused_plan(n, density)
+                with annotate("plan.sweep"):
+                    parts, loop_iters = _sweep_unrolled(raw, n, iters,
+                                                        driver)
+                with annotate("plan.upload"):
+                    steps = [prepare_segment(p[1], p[2], n, dev, tier=tier,
+                                             driver=driver, nbuf=nbuf)
+                             if p[0] == "segment" else XlaPass(p[1], n, tier)
+                             for p in parts]
+                return FusedProgram(n, steps, loop_iters, tier, driver,
+                                    nbuf, items, iters, dev)
         return self._cached(("fused", n, density, iters, _device_key(dev)), build)
 
     def apply_fused(self, q, iters: int = 1):

@@ -60,6 +60,7 @@ from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.ops import band_plan as BP
 from quest_tpu_torch.ops import expec as E
 from quest_tpu_torch.ops import fusion as F
+from quest_tpu_torch.profiling import annotate
 from quest_tpu_torch.state import Qureg, clone
 
 _SQ2 = 1.0 / np.sqrt(2.0)
@@ -122,6 +123,11 @@ class TrotterPlan:
 
 @functools.lru_cache(maxsize=256)
 def _plan_trotter(codes_key) -> TrotterPlan:
+    with annotate("plan.trotter"):
+        return _trotter_plan(codes_key)
+
+
+def _trotter_plan(codes_key) -> TrotterPlan:
     n = len(codes_key[0]) if codes_key else 0
     diag: List[int] = []
     identity: List[int] = []
@@ -306,10 +312,11 @@ def _trotter_circuit_cached(spec: E.PauliSum, dt: float, order: int,
                             steps: int, noise, pooled: bool
                             ) -> TrotterCircuit:
     plan = _plan_trotter(spec.codes)
-    c = TrotterCircuit(spec.num_qubits)
-    c.trotter = {"spec": spec, "dt": dt, "order": order, "steps": steps,
-                 "noise": noise, "pooled": pooled, "plan": plan}
-    _emit_trotter(c, plan, spec, dt, order, steps, noise, pooled)
+    with annotate("plan.trotter"):
+        c = TrotterCircuit(spec.num_qubits)
+        c.trotter = {"spec": spec, "dt": dt, "order": order, "steps": steps,
+                     "noise": noise, "pooled": pooled, "plan": plan}
+        _emit_trotter(c, plan, spec, dt, order, steps, noise, pooled)
     return c
 
 
@@ -868,7 +875,9 @@ def run_evolution(hamiltonian, dt, steps: int, *, state: Qureg,
         fn = fns.get(m)
         if fn is None:
             fn = fns[m] = compiled_for(m)
-        amps = fn(amps)
+        with annotate("evolution.chunk",
+                      device=dev if mesh is None else None):
+            amps = fn(amps)
         launches += getattr(fn, "launches_per_call", 0)
         dispatches += 1
         done += m

@@ -43,6 +43,7 @@ from quest_tpu_torch import random_ as rng
 from quest_tpu_torch import validation as val
 from quest_tpu_torch.ops import apply as A
 from quest_tpu_torch.parallel import eager as SE
+from quest_tpu_torch.profiling import annotate, device_of
 
 CHUNK_AMPS = 1 << 24          # amplitudes per f64 reduction chunk
 DIRECT_CDF_MAX = 1 << 14      # below this (or off powers of two): one scan
@@ -296,11 +297,13 @@ def sample(q, num_shots: int,
         raise val.QuESTError("Invalid number of shots: must be positive.")
     if generator is None:
         generator = torch.Generator().manual_seed(rng.uint32())
-    u = torch.rand(int(num_shots), generator=generator, dtype=q.amps.dtype,
-                   device=generator.device)
-    if SE.is_sharded(q):
-        # one draw for every shard: per-shard generators would diverge
-        # (and on a process mesh, process 0's draw for every process)
-        return _sample_sharded_given_uniforms(q, SE.shared(q, u))
-    return _sample_given_uniforms(q.amps, u, n=q.num_state_qubits,
-                                  density=q.is_density)
+    with annotate("readout.sample", device=device_of(q)):
+        u = torch.rand(int(num_shots), generator=generator,
+                       dtype=q.amps.dtype, device=generator.device)
+        if SE.is_sharded(q):
+            # one draw for every shard: per-shard generators would
+            # diverge (and on a process mesh, process 0's draw for every
+            # process)
+            return _sample_sharded_given_uniforms(q, SE.shared(q, u))
+        return _sample_given_uniforms(q.amps, u, n=q.num_state_qubits,
+                                      density=q.is_density)

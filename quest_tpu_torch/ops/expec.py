@@ -67,6 +67,7 @@ import torch
 
 from quest_tpu_torch import precision
 from quest_tpu_torch import validation as val
+from quest_tpu_torch.profiling import annotate
 
 # Axis chunk width of the parity-sign tables (ref :76): every non-flip
 # axis of a group view spans at most 2^_SEG_BITS indices.
@@ -158,6 +159,12 @@ def _flip_form(term: Sequence[int], index: int) -> _Term:
 @functools.lru_cache(maxsize=512)
 def _plan_cached(codes_key, n: int, density: bool,
                  max_masks: int) -> ExpecPlan:
+    with annotate("plan.expec"):
+        return _grouped_plan(codes_key, n, density, max_masks)
+
+
+def _grouped_plan(codes_key, n: int, density: bool,
+                  max_masks: int) -> ExpecPlan:
     terms = [_flip_form(t, i) for i, t in enumerate(codes_key)]
     by_mask: Dict[Tuple[int, ...], list] = {}
     order = []
@@ -555,7 +562,8 @@ def expec_value(q, coeffs, codes_key) -> float:
     with torch.no_grad():
         if not torch.is_tensor(q.amps):
             return float(expec_sharded(q.amps, cf, plan))
-        return float(expec_traced(q.amps, cf, plan))
+        with annotate("expec.value", device=q.amps.device):
+            return float(expec_traced(q.amps, cf, plan))
 
 
 # ---------------------------------------------------------------------------

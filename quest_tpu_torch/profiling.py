@@ -8,9 +8,13 @@ blocks spend their cycles. A port of quest_tpu/profiling.py:
     that TensorBoard's profiler plugin or Perfetto opens;
     `annotated_kernels` reads the device kernels of a named region back
     out of it.
-  * `annotate(name)` — a named region: a torch.profiler record_function
-    on the Kineto timeline and, on a CUDA machine, an NVTX range on an
-    Nsight timeline. Keep it out of hot loops: it is cheap, not free.
+  * `annotate(name, device=None)` — the program's span: a count and
+    host seconds by name (`span_totals()`) and, on a CUDA machine, an
+    NVTX range on an Nsight timeline, always; while a torch profiler
+    runs, also a record_function region on the Kineto timeline and a
+    record with its parent, its time.time_ns() bounds and its device
+    time from CUDA events (`spans()`, the latest session's). Keep it
+    out of hot loops: it is cheap, not free.
   * `op_metrics(fn, *args)` — the work one call of `fn` makes: every
     segment launch, passthrough and XLA-engine program call it makes,
     counted by the rules below ("flops", "bytes accessed" and the H100
@@ -36,12 +40,14 @@ CLI: python -m quest_tpu_torch.profiling [--n N] [--reps R] [--sweeps]
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
 import os
 import socket
 import sys
+import threading
 import time
 
 import numpy as np
@@ -91,6 +97,7 @@ def trace(log_dir: str, device=None):
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=acts) as prof:
+        _SPANS.new_session()
         rec = Trace(prof)
         yield rec
     rec.path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}"
@@ -98,20 +105,209 @@ def trace(log_dir: str, device=None):
     prof.export_chrome_trace(rec.path)
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region: `with profiling.annotate("qft"): ...` shows on the
-    Kineto timeline (record_function) and, where CUDA is present, as an
-    NVTX range."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+# ---------------------------------------------------------------------------
+# spans: the program's named regions, their totals and their records
+# ---------------------------------------------------------------------------
+
+# span records kept of a profiler session: the newest; older ones are
+# counted as dropped
+SPAN_BUFFER = 1 << 16
+
+
+def _profiler_on() -> bool:
+    # torch's own flag: set while any thread's profiler runs
+    # (profiling.trace, any torch.profiler.profile)
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+class _SpanStore:
+    """The process's span totals (name -> [calls, host seconds]) and the
+    records of its latest profiler session: the newest `capacity`, with
+    the count of older ones dropped. A session starts at
+    `profiling.trace` and at the first span that ends under a profiler
+    after one ended without it; its start forgets the records before."""
+
+    _GUARDED_BY = {"_lock": ("_totals", "_records", "_dropped", "_live")}
+
+    def __init__(self, capacity: int):
+        self._lock = threading.Lock()
+        self._totals = {}
+        self._records = collections.deque(maxlen=capacity)
+        self._dropped = 0
+        self._live = False
+
+    def add(self, name: str, seconds: float, record, profiling: bool
+            ) -> None:
+        with self._lock:
+            t = self._totals.get(name)
+            if t is None:
+                self._totals[name] = [1, seconds]
+            else:
+                t[0] += 1
+                t[1] += seconds
+            if not profiling:
+                self._live = False
+            elif not self._live:
+                self._records.clear()
+                self._dropped = 0
+                self._live = True
+            if record is not None:
+                if len(self._records) == self._records.maxlen:
+                    self._dropped += 1
+                self._records.append(record)
+
+    def new_session(self) -> None:
+        """Forget the records: a profiler session starts."""
+        with self._lock:
+            self._records.clear()
+            self._dropped = 0
+            self._live = True
+
+    def snapshot(self):
+        """(totals, records, dropped) as they stand."""
+        with self._lock:
+            return ({k: tuple(v) for k, v in self._totals.items()},
+                    list(self._records), self._dropped)
+
+    def reset(self, capacity: int) -> None:
+        with self._lock:
+            self._totals = {}
+            self._records = collections.deque(maxlen=capacity)
+            self._dropped = 0
+            self._live = False
+
+
+_SPANS = _SpanStore(SPAN_BUFFER)
+_OPEN = threading.local()          # .names: this thread's open spans
+
+
+class _Record:
+    """One span opened while a profiler ran: its record_function region
+    and, on a CUDA device, its timing events on the device's current
+    stream; `as_dict()` is what `spans()` returns, its device time
+    resolved on first read."""
+
+    __slots__ = ("name", "parent", "depth", "thread", "t0_ns", "t1_ns",
+                 "region", "stream", "events", "device_ms")
+
+    def __init__(self, name: str, names: list, device):
+        self.name = name
+        self.parent = names[-1] if names else None
+        self.depth = len(names)
+        self.thread = threading.get_ident()
+        self.device_ms = self.events = self.stream = None
+        self.t1_ns = 0
+        self.t0_ns = time.time_ns()
+        if device is not None and torch.device(device).type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(self.stream)
+        self.region = torch.profiler.record_function(name)
+        self.region.__enter__()
+
+    def close(self) -> None:
+        self.region.__exit__(None, None, None)
+        self.region = None
+        if self.events is not None:
+            self.events[1].record(self.stream)
+            self.stream = None
+        self.t1_ns = time.time_ns()
+
+    def as_dict(self) -> dict:
+        if self.events is not None:
+            start, end = self.events
+            end.synchronize()
+            self.device_ms = start.elapsed_time(end)
+            self.events = None
+        return {"name": self.name, "parent": self.parent,
+                "depth": self.depth, "thread": self.thread,
+                "t0_ns": self.t0_ns, "t1_ns": self.t1_ns,
+                "device_ms": self.device_ms}
+
+
+class annotate:
+    """The program's span: `with profiling.annotate("plan.fused"): ...`.
+
+    Always: one more call and its host seconds in the totals of its
+    name (`span_totals()`), and, where CUDA is present, an NVTX range on
+    an Nsight timeline. While a torch profiler runs (profiling.trace, or
+    any torch.profiler.profile): also a record_function region on the
+    Kineto timeline and a record in the span buffer (`spans()`): the
+    name, the enclosing span on its thread (`parent`), `t0_ns` / `t1_ns`
+    on time.time_ns() (the clock the profiler stamps device operations
+    with) and, when `device` is a CUDA device, timing events on its
+    current stream at entry and exit: the span's device time, resolved
+    when the buffer is read, never at exit (a span does not
+    synchronise). Keep it out of per-launch loops: it is cheap, not
+    free."""
+
+    __slots__ = ("name", "device", "_t0", "_names", "_rec", "_nvtx")
+
+    def __init__(self, name: str, device=None):
+        self.name = name
+        self.device = device
+
+    def __enter__(self):
+        names = getattr(_OPEN, "names", None)
+        if names is None:
+            names = _OPEN.names = []
+        self._names = names
+        self._nvtx = torch.cuda.is_available()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        self._rec = (_Record(self.name, names, self.device)
+                     if _profiler_on() else None)
+        names.append(self.name)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        seconds = time.perf_counter() - self._t0
+        self._names.pop()
+        rec = self._rec
+        if rec is not None:
+            rec.close()
+        if self._nvtx:
+            torch.cuda.nvtx.range_pop()
+        _SPANS.add(self.name, seconds, rec, _profiler_on())
+        return False
+
+
+def device_of(q):
+    """The device of register `q`'s planes, as a span's `device`; None
+    for a sharded register."""
+    return q.amps.device if torch.is_tensor(q.amps) else None
+
+
+def span_totals() -> dict:
+    """{name: {"calls", "seconds"}}: every span of the process so far,
+    its calls and summed host seconds, profiler or not. A fused
+    program's build (`plan.fused`) splits into its fusion plan
+    (`plan.fusion`), sweep plan (`plan.sweep`) and operand upload
+    (`plan.upload`); `plan.trotter` and `plan.expec` are the Trotter
+    and expectation plans built."""
+    totals, _, _ = _SPANS.snapshot()
+    return {k: {"calls": c, "seconds": s} for k, (c, s) in totals.items()}
+
+
+def spans() -> list:
+    """The span records of the latest profiler session, in the order
+    they ended (see `annotate`), each with its device time in ms
+    (`device_ms`, None without a CUDA device); reading them waits for
+    the device to reach the last of them."""
+    return [r.as_dict() for r in _SPANS.snapshot()[1]]
+
+
+def spans_dropped() -> int:
+    """Span records of the latest session let go for newer ones."""
+    return _SPANS.snapshot()[2]
+
+
+def reset_spans(buffer: int = SPAN_BUFFER) -> None:
+    """Forget the totals and records; keep the newest `buffer` records
+    from now on."""
+    _SPANS.reset(buffer)
 
 
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")

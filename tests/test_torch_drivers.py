@@ -404,8 +404,9 @@ def test_read_ahead_on_every_30q_sweep(driver, nbuf, overlap):
 
 def test_fused_program_reports_its_record(knobs):
     knobs("pipeline1")
-    fn = TE.flagship_circuit(16, 3).compiled_fused(16, device="cpu")
-    rec = fn.fused_record
+    circ = TE.flagship_circuit(16, 3)
+    fn = circ.compiled_fused(16, device="cpu")
+    rec = circ.plan_stats()["fused"]
     assert rec["hbm_sweeps"] == fn.launches_per_call
     assert rec["pipeline_driver"] == "decoupled"
     assert rec["pipeline_slots"] == 3

@@ -12,6 +12,7 @@ once per process.
 """
 
 import contextlib
+import time
 import warnings
 
 import numpy as np
@@ -55,9 +56,26 @@ def _one_thread_per_worker():
     torch.set_num_threads(threads)
 
 
+def _reference_library(wait_s: float = 180.0) -> bool:
+    """Whether the JAX package's native library loads in this process,
+    its load retried for up to `wait_s` seconds. That package builds the
+    library with `make -C native` at its first use in a process and,
+    when the build fails, keeps the failure for the rest of the process.
+    Test workers that first use it at once build it at once: each `make`
+    links the same temporary file and renames it, and a worker whose
+    rename finds the file gone fails its build, although a peer's
+    library is there a moment later. Each retry loads what a peer built,
+    or builds it again."""
+    deadline = time.monotonic() + wait_s
+    while not JN.available() and time.monotonic() < deadline:
+        time.sleep(1.0)
+        JN._lib_tried = False
+    return JN.available()
+
+
 @pytest.fixture(scope="module")
 def libs():
-    if not (TN.available() and JN.available()):
+    if not (TN.available() and _reference_library()):
         pytest.fail(f"the native libraries do not load here: port "
                     f"{TN.unavailable_reason()}, reference "
                     f"{JN.available()}")
